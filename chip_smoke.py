@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Smoke test of hip_llama_tpu_torch, the PyTorch/CUDA port, on one NVIDIA card.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases, in order; each raises on failure and none is caught:
+  1. the card: its name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build: every csrc/*.cu kernel compiled from source with nvcc (sm_90a);
+  3. each kernel against its plain PyTorch version on the card at Llama-2-7B
+     shapes (B 8, L 32, KVH 32, HS 128, S 512; prefill T 256), in bf16 and
+     fp32, with its time, the plain version's time, the time of one PyTorch
+     library call doing the same work where there is one, and its bound;
+  4. the committed golden fixture through the port's CLI (fp32, greedy,
+     -b 4) on all five *_in_8 corpora: byte-identical to assets/out/cpu_f32;
+  5. a Llama-2-7B-width model (random bf16 weights made on the card from a
+     seed, depth uncut) served through InferenceEngine.serve: 16 requests at
+     batch 8, window 512, greedy; the first decode step's logits held
+     against the plain path; every kernel's launches counted.
+The last two lines are the card line and {"ok": true, "device": ...}. With no
+CUDA card, or outside a checkout, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hip_llama_tpu_torch import run as port_run
+from hip_llama_tpu_torch.config import ModelConfig
+from hip_llama_tpu_torch.engine import InferenceEngine, Requests
+from hip_llama_tpu_torch.io.tokenizer_io import read_tokenizer_bin, write_tokenizer_bin
+from hip_llama_tpu_torch.models.llama import KVCache, make_decode_step, make_prefill
+from hip_llama_tpu_torch.models.params import LlamaParams
+from hip_llama_tpu_torch.ops import KERNELS, _build
+from hip_llama_tpu_torch.ops import attention as A
+from hip_llama_tpu_torch.ops import cache as C
+from hip_llama_tpu_torch.tokenizer import Tokenizer
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(REPO, "assets", "golden")
+CORPORA = ("gen", "sciq", "tinystories", "truthful_qa", "wikipedia")
+
+# NVIDIA H100 SXM data sheet, dense, at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# kernel vs plain version: fp32 differs in summation order only (512-row
+# sums of O(1) terms); bf16 by about one ulp of an O(1) output, as
+# tests/test_attention_pallas.py:83-85 allows
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# first-decode-step logits of the 7B-width model, kernel path vs plain path:
+# O(1) logits from 4096-long bf16 products after 32 bf16 layers, where the
+# two paths differ only in attention's summation order and rounding
+LOGIT_TOL = 0.25
+
+SEED = 1234
+LLAMA2_7B = ModelConfig(dim=4096, hidden_dim=11008, n_layers=32, n_heads=32,
+                        n_kv_heads=32, vocab_size=32000, seq_len=2048)
+KERNEL_SOURCES = {
+    "attention_decode": ("hip_llama_tpu_torch/csrc/attention.cu",
+                         "hip_llama_tpu/ops/attention.py:1163"),
+    "kv_commit_rows": ("hip_llama_tpu_torch/csrc/cache.cu",
+                       "hip_llama_tpu/ops/cache.py:304"),
+    "kv_write_chunk": ("hip_llama_tpu_torch/csrc/cache.cu",
+                       "hip_llama_tpu/ops/cache.py:747"),
+    "attention_prefill": ("hip_llama_tpu_torch/csrc/attention.cu",
+                          "hip_llama_tpu/ops/attention.py:957"),
+}
+WRAPPERS = {w.__name__: w for w in KERNELS}
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 16, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(iters):
+        fn(i)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def bound_ms(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / PEAK_FLOPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions at 7B shapes
+
+
+def phase_kernels(dtype) -> dict[str, dict]:
+    """Each kernel vs its plain version on the same inputs; times rotate over
+    8 layers of the cache (8 x 33 MB in bf16) so each call finds its rows
+    cold in the 50 MB L2, as a decode step does."""
+    dev = torch.device("cuda")
+    b, n_layers, kvh, h, s, hs, t = 8, 32, 32, 32, 512, 128, 256
+    e = torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    cache = KVCache(rnd(b, n_layers, kvh, s, hs), rnd(b, n_layers, kvh, s, hs))
+    rot = 8
+    out: dict[str, dict] = {}
+
+    # K1 decode: ragged positions including 0 and S-1
+    pos_l = [0, 1, 100, 255, 256, 300, 450, s - 1]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    q = rnd(b, h, hs)
+    kc, vc = rnd(b, kvh, hs), rnd(b, kvh, hs)
+    err = max(max_err(A.attention_decode(q, cache.k, cache.v, l, pos, kc, vc),
+                      A.attention_decode_plain(q, cache.k, cache.v, l, pos, kc, vc))
+              for l in (0, n_layers - 1))
+    ms = cuda_ms(lambda i: A.attention_decode(q, cache.k, cache.v, i % rot, pos, kc, vc))
+    plain = cuda_ms(lambda i: A.attention_decode_plain(q, cache.k, cache.v, i % rot, pos, kc, vc))
+    # library: SDPA over [history rows | current row] with the same mask
+    kf = [torch.cat([cache.k[:, l], kc[:, :, None]], dim=2) for l in range(rot)]
+    vf = [torch.cat([cache.v[:, l], vc[:, :, None]], dim=2) for l in range(rot)]
+    col = torch.arange(s + 1, device=dev)
+    mask = ((col[None, :] < pos[:, None]) | (col[None, :] == s))[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib = cuda_ms(lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask))
+    n_bytes = (2 * b * h * hs + 2 * b * kvh * hs + 2 * sum(pos_l) * kvh * hs) * e + 4 * b
+    flops = 4 * h * hs * sum(p + 1 for p in pos_l)
+    out["attention_decode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                   bound=bound_ms(n_bytes, flops, dtype))
+    del kf, vf
+
+    # K2 commit: every slot (then a valid mask) at ragged positions
+    kr, vr = rnd(n_layers, b, kvh, hs), rnd(n_layers, b, kvh, hs)
+    err = 0.0
+    for valid in (None, torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)):
+        c1 = KVCache(cache.k.clone(), cache.v.clone())
+        c2 = KVCache(cache.k.clone(), cache.v.clone())
+        C.kv_commit_rows(c1, kr, vr, pos, valid)
+        C.kv_commit_rows_plain(c2, kr, vr, pos, valid)
+        err = max(err, max_err(c1.k, c2.k), max_err(c1.v, c2.v))
+        del c1, c2
+    ms = cuda_ms(lambda i: C.kv_commit_rows(cache, kr, vr, pos))
+    plain = cuda_ms(lambda i: C.kv_commit_rows_plain(cache, kr, vr, pos))
+    n_bytes = 2 * 2 * n_layers * b * kvh * hs * e + 4 * b
+    out["kv_commit_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                                 bound=bound_ms(n_bytes, 0, dtype))
+
+    # K3 chunk writer: ragged valid, one bystander, windows past S
+    start_l = [0, 40, 128, 256, 300, 5, 400, 200]
+    valid_l = [256, 200, 64, 256, 100, 0, 112, 1]
+    start = torch.tensor(start_l, dtype=torch.int32, device=dev)
+    cvalid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    ck, cv = rnd(b, t, kvh, hs), rnd(b, t, kvh, hs)
+    c1 = KVCache(cache.k.clone(), cache.v.clone())
+    c2 = KVCache(cache.k.clone(), cache.v.clone())
+    C.kv_write_chunk(c1, ck, cv, 3, start, cvalid)
+    C.kv_write_chunk_plain(c2, ck, cv, 3, start, cvalid)
+    err = max(max_err(c1.k, c2.k), max_err(c1.v, c2.v))
+    del c1, c2
+    ms = cuda_ms(lambda i: C.kv_write_chunk(cache, ck, cv, i % rot, start, cvalid))
+    plain = cuda_ms(lambda i: C.kv_write_chunk_plain(cache, ck, cv, i % rot, start, cvalid))
+    rows = sum(max(0, min(v, s - st)) for st, v in zip(start_l, valid_l))
+    n_bytes = 2 * 2 * rows * kvh * hs * e + 8 * b
+    out["kv_write_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+                                 bound=bound_ms(n_bytes, 0, dtype))
+
+    # K4 prefill over the chunk just written (rows t < valid compared)
+    qp = rnd(b, t, h, hs)
+    live = torch.arange(t, device=dev)[None, :] < cvalid[:, None]
+    err = max(max_err(A.attention_prefill(qp, cache.k, cache.v, l, start, cvalid)[live],
+                      A.attention_prefill_plain(qp, cache.k, cache.v, l, start, cvalid)[live])
+              for l in (0, 3))
+    ms = cuda_ms(lambda i: A.attention_prefill(qp, cache.k, cache.v, i % rot, start, cvalid))
+    plain = cuda_ms(lambda i: A.attention_prefill_plain(qp, cache.k, cache.v, i % rot, start, cvalid),
+                    iters=4)
+    colp = torch.arange(s, device=dev)
+    qpos = start[:, None] + torch.arange(t, device=dev)[None, :]
+    pmask = (colp[None, None, :] <= qpos[:, :, None])[:, None]  # (B, 1, T, S)
+    qt = qp.transpose(1, 2)
+    lib = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        qt, cache.k[:, i % rot], cache.v[:, i % rot], attn_mask=pmask))
+    n_rows = sum(v for v in valid_l)
+    kv_rows = sum(min(st + v, s) for st, v in zip(start_l, valid_l) if v)
+    n_bytes = (2 * n_rows * h * hs + 2 * kv_rows * kvh * hs) * e + 8 * b
+    flops = 4 * h * hs * sum(min(st + j, s - 1) + 1 for st, v in zip(start_l, valid_l)
+                             for j in range(v))
+    out["attention_prefill"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                    bound=bound_ms(n_bytes, flops, dtype))
+
+    for name, r in out.items():
+        ok = r["max_abs_err"] <= TOL[dtype]
+        lib_s = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {name} {str(dtype)[6:]}: max_abs_err {r['max_abs_err']:.3g} "
+              f"(tol {TOL[dtype]:g}) {'ok' if ok else 'FAIL'}; ms {r['ms']:.4f} "
+              f"plain_ms {r['plain_ms']:.4f} library_ms {lib_s} "
+              f"bound_ms {r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} ({dtype}) disagrees with its plain version")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the golden fixture through the CLI
+
+
+def phase_goldens() -> None:
+    with tempfile.TemporaryDirectory() as tmp:
+        for c in CORPORA:
+            out = os.path.join(tmp, f"{c}.out")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = port_run.main([
+                    "run", os.path.join(GOLDEN, "model.bin"),
+                    "-z", os.path.join(GOLDEN, "tokenizer.bin"), "-m", "test",
+                    "-f", os.path.join(REPO, "assets", "in", f"{c}_in_8.txt"),
+                    "-o", out, "-b", "4", "--dtype", "float32", "-t", "0.0",
+                    "--device", "cuda",
+                ])
+            if rc != 0:
+                raise AssertionError(f"run.main failed on {c} (rc {rc})")
+            with open(out, "rb") as f:
+                got = f.read()
+            with open(os.path.join(REPO, "assets", "out", "cpu_f32", f"{c}_in_8.out"), "rb") as f:
+                want = f.read()
+            if got != want:
+                diff = [i for i, (a, b) in enumerate(zip(got.splitlines(), want.splitlines()))
+                        if a != b]
+                raise AssertionError(f"golden corpus {c} forked on the card at lines {diff}")
+            print(f"golden {c}_in_8: byte-identical to assets/out/cpu_f32", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: full-width serve
+
+
+def random_7b_params(cfg: ModelConfig, dev) -> LlamaParams:
+    """bf16 weights from a seeded generator on the card, scaled like a
+    trained init (std 1/sqrt(fan_in)) so activations stay O(1). The
+    classifier columns of BOS and EOS are zero, so greedy decoding never
+    stops a request early and every request runs to its step budget."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    c = cfg
+
+    def mat(*shape, fan_in):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).mul_(fan_in ** -0.5)
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev, dtype=torch.bfloat16)
+
+    tok_emb = mat(c.vocab_size, c.dim, fan_in=c.dim)
+    wcls = tok_emb.t().contiguous()
+    wcls[:, 1:3] = 0
+    return LlamaParams(
+        tok_emb=tok_emb, rms_att=ones(c.n_layers, c.dim),
+        wq=mat(c.n_layers, c.dim, c.dim, fan_in=c.dim),
+        wk=mat(c.n_layers, c.dim, c.kv_dim, fan_in=c.dim),
+        wv=mat(c.n_layers, c.dim, c.kv_dim, fan_in=c.dim),
+        wo=mat(c.n_layers, c.dim, c.dim, fan_in=c.dim),
+        rms_ffn=ones(c.n_layers, c.dim),
+        w1=mat(c.n_layers, c.dim, c.hidden_dim, fan_in=c.dim),
+        w2=mat(c.n_layers, c.hidden_dim, c.dim, fan_in=c.hidden_dim),
+        w3=mat(c.n_layers, c.dim, c.hidden_dim, fan_in=c.dim),
+        rms_final=ones(c.dim), wcls=wcls,
+    )
+
+
+def llama_sized_tokenizer(tmp: str, vocab_size: int) -> Tokenizer:
+    """The golden tokenizer's 512 pieces plus synthetic pieces up to
+    `vocab_size`, written as a tokenizer.bin and read back."""
+    _, vocab, scores = read_tokenizer_bin(os.path.join(GOLDEN, "tokenizer.bin"), 512)
+    vocab += [f"<w{i:05d}>".encode() for i in range(len(vocab), vocab_size)]
+    scores += [-1e6] * (vocab_size - len(scores))
+    path = os.path.join(tmp, "tokenizer.bin")
+    write_tokenizer_bin(path, vocab, scores)
+    return Tokenizer.from_file(path, vocab_size)
+
+
+def make_prompts(tok: Tokenizer, targets: list[int]) -> list[str]:
+    """Prompts of about `targets` tokens each, from the corpora's words
+    (counted word by word: BPE merges rarely cross a word boundary)."""
+    words = []
+    for c in CORPORA:
+        with open(os.path.join(REPO, "assets", "in", f"{c}_in_512.txt"), errors="replace") as f:
+            words += f.read().split()[1:]
+    rng = np.random.default_rng(SEED)
+    n_tok: dict[str, int] = {}
+    prompts = []
+    for n in targets:
+        ws, count = [], 1  # BOS
+        while count < n:
+            w = words[int(rng.integers(len(words)))]
+            if w not in n_tok:
+                n_tok[w] = len(tok.encode(w, bos=False))
+            ws.append(w)
+            count += n_tok[w]
+        prompts.append(" ".join(ws))
+    return prompts
+
+
+def phase_serve() -> dict:
+    dev = torch.device("cuda")
+    cfg = LLAMA2_7B
+    batch, window, steps = 8, 512, 352
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = random_7b_params(cfg, dev)
+    torch.cuda.synchronize()
+    print(f"7b-width params: {sum(getattr(params, f).numel() for f in params.__dataclass_fields__) / 1e9:.2f}"
+          f" G bf16 values made in {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = llama_sized_tokenizer(tmp, cfg.vocab_size)
+    # first wave fills all 8 slots (multi-chunk 256+64 prefills); later
+    # requests arrive alone as slots retire, hitting the 16/64/256 buckets
+    targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
+    prompts = make_prompts(tok, targets)
+    lens = [len(tok.encode(p)) for p in prompts]
+    print(f"prompt tokens: {lens}", flush=True)
+
+    # kernel path vs plain path: prefill the first wave, then one decode step
+    ids = [tok.encode(p)[:257] for p in prompts[:batch]]
+    toks = np.zeros((batch, 256), np.int32)
+    for i, t in enumerate(ids):
+        toks[i, : len(t) - 1] = t[:-1]
+    valid = torch.tensor([len(t) - 1 for t in ids], dtype=torch.int32, device=dev)
+    start = torch.zeros(batch, dtype=torch.int32, device=dev)
+    cur = torch.tensor([t[-1] for t in ids], dtype=torch.int32, device=dev)
+    toks_d = torch.from_numpy(toks).to(dev)
+    logits = {}
+    for plain in (False, True):
+        cache = KVCache(*(torch.zeros(batch, cfg.n_layers, cfg.n_kv_heads, window, cfg.head_size,
+                                      dtype=torch.bfloat16, device=dev) for _ in range(2)))
+        pf, _ = make_prefill(cfg, last_only=True, plain=plain)(params, cache, toks_d, start, valid)
+        lg, _ = make_decode_step(cfg, plain=plain)(params, cache, cur, valid)
+        logits[plain] = (pf, lg)
+        del cache
+    pf_err = max_err(logits[False][0], logits[True][0])
+    lg_err = max_err(logits[False][1], logits[True][1])
+    lk, lp = logits[False][1], logits[True][1]
+    top2 = torch.topk(lp, 2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).tolist()
+    agree = (lk.argmax(-1) == lp.argmax(-1)).tolist()
+    print(f"7b first step, kernel vs plain path: prefill logits max_abs_err {pf_err:.4g}, "
+          f"decode logits max_abs_err {lg_err:.4g} (tol {LOGIT_TOL}); top-1 agree {agree}; "
+          f"plain top-2 gaps {[round(x, 4) for x in gap]}", flush=True)
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("non-finite logits at 7b width")
+    if max(pf_err, lg_err) > LOGIT_TOL:
+        raise AssertionError("kernel path and plain path logits disagree at 7b width")
+    # a top-1 flip is allowed only at a near-tie: a top-2 gap inside the
+    # measured logit difference
+    for a, gp in zip(agree, gap):
+        if not a and gp > 2 * lg_err:
+            raise AssertionError(f"top-1 flip at a top-2 gap of {gp} > 2 x {lg_err}")
+    del logits, lk, lp
+
+    engine = InferenceEngine(cfg, params, tok, batch_size=batch, max_seq_len=window)
+    nonfinite = [0]
+    do_step = engine._do_step
+
+    def checked_step(cache, tokens, pos):
+        lg, cache = do_step(cache, tokens, pos)
+        nonfinite[0] += int((~np.isfinite(lg)).sum())
+        return lg, cache
+
+    engine._do_step = checked_step
+    requests = Requests(prompts=prompts, generations=[""] * len(prompts))
+    for w in WRAPPERS.values():
+        w.launches = 0
+    stats: dict = {}
+    n_gen = engine.serve(requests, steps=steps, stats=stats)
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"7b serve: {len(prompts)} requests, {stats['total_tokens']} tokens in "
+          f"{stats['elapsed_s']:.3f} s = {stats['tok_per_s']:.2f} tok/s; ttft p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms; "
+          f"{stats['scheduler_iters']} scheduler iterations; prefill chunks by T "
+          f"{dict(sorted(engine.prefill_chunks.items()))}; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; launches {launches}; card {card_line()}", flush=True)
+    if any(g == "" for g in requests.generations):
+        raise AssertionError("a request did not finish")
+    if n_gen != len(prompts) * (steps - 1):
+        raise AssertionError(f"requests stopped short of the step budget: {n_gen} tokens")
+    if min(steps - n for n in lens) < 32:
+        raise AssertionError("a request generated fewer than 32 tokens")
+    if nonfinite[0]:
+        raise AssertionError(f"{nonfinite[0]} non-finite logits while serving")
+    if set(engine.prefill_chunks) != {16, 64, 256}:
+        raise AssertionError(f"prefill buckets hit: {dict(engine.prefill_chunks)}")
+    dead = [n for n, c in launches.items() if c == 0]
+    if dead:
+        raise AssertionError(f"kernels never launched on the main path: {dead}")
+
+    # where a step's time goes: device time by kernel over a short window
+    cache = engine.new_cache()
+    toks = np.array([t[-1] for t in ids], np.int32)
+    pos0 = np.array([len(t) - 1 for t in ids], np.int32)
+    profile_window("7b decode step (batch 8)", 4,
+                   lambda i: engine._do_step(cache, toks, pos0 + i))
+    chunk = [t[:-1][:256] for t in ids]
+    profile_window("7b prefill chunk (batch 8, T 256)", 2,
+                   lambda i: engine._prefill_tokens(cache, batch, dict(enumerate(chunk)),
+                                                    {s: 0 for s in range(batch)}))
+    return launches
+
+
+def profile_window(what: str, n: int, fn) -> None:
+    """Device time by kernel over n calls of fn (after one warm call), from
+    torch.profiler, beside the host wall time of the same window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"profile {what}: wall {wall_us / n / 1e3:.3f} ms/call, device busy "
+          f"{dev_us / n / 1e3:.3f} ms/call ({100 * dev_us / wall_us:.1f}%), "
+          f"{sum(e.count for e in kern) / n:.0f} kernel launches/call", flush=True)
+    for e in top:
+        print(f"  {e.self_device_time_total / n / 1e3:8.3f} ms/call  {e.count / n:6.0f} x  "
+              f"{e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    t_all = time.perf_counter()
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    _build.build_all()
+    print(f"build: {_build.build_seconds:.1f} s (nvcc, {_build.NVCC_FLAGS[1]})", flush=True)
+
+    res = {dt: phase_kernels(dt) for dt in (torch.bfloat16, torch.float32)}
+    phase_goldens()
+    launches = phase_serve()
+
+    kernels = []
+    for name, (src, replaces) in KERNEL_SOURCES.items():
+        r = res[torch.bfloat16][name]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=r["library_ms"],
+        ))
+    print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

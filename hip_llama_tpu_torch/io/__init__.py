@@ -1,0 +1,22 @@
+from hip_llama_tpu_torch.io.checkpoint import (
+    LlamaWeights,
+    load_checkpoint,
+    random_weights,
+    read_v0,
+    read_v1,
+    write_v0,
+    write_v1,
+)
+from hip_llama_tpu_torch.io.tokenizer_io import read_tokenizer_bin, write_tokenizer_bin
+
+__all__ = [
+    "LlamaWeights",
+    "load_checkpoint",
+    "random_weights",
+    "read_v0",
+    "read_v1",
+    "write_v0",
+    "write_v1",
+    "read_tokenizer_bin",
+    "write_tokenizer_bin",
+]

@@ -1,0 +1,85 @@
+"""The port's CLI on the golden corpus tier, on the CPU: the same bars as
+tests/test_goldens.py for the JAX CLI.
+
+- greedy fp32 (-t 0.0 --dtype float32 -b 4) must be byte-identical to the
+  JAX engine's committed goldens, assets/out/cpu_f32/, for all five *_in_8
+  corpora;
+- the stochastic run (request samplers at temperature 1.0, BOS-only stops)
+  is scored with tools/eval_output.py against the compiled reference
+  engine's outputs, assets/out/ref_cpu/: at least 3 corpora at 1.0 and an
+  average of at least 0.75 (test_goldens.py:84-100).
+"""
+
+import io
+import os
+import subprocess
+import sys
+from contextlib import redirect_stdout
+
+import pytest
+import torch
+
+from hip_llama_tpu_torch import run as port_run
+
+# tiny shapes: one intra-op thread per test worker beats oversubscribing
+# the cores that the parallel test workers share
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODEL = os.path.join(REPO, "assets", "golden", "model.bin")
+TOK = os.path.join(REPO, "assets", "golden", "tokenizer.bin")
+IN = os.path.join(REPO, "assets", "in")
+F32 = os.path.join(REPO, "assets", "out", "cpu_f32")
+REF = os.path.join(REPO, "assets", "out", "ref_cpu")
+CORPORA = ["gen", "sciq", "tinystories", "truthful_qa", "wikipedia"]
+
+
+def _serve_corpora(outdir, extra_args):
+    outs = {}
+    for c in CORPORA:
+        out = str(outdir / f"{c}_in_8.out")
+        with redirect_stdout(io.StringIO()):
+            rc = port_run.main([
+                "run", MODEL, "-z", TOK, "-m", "test",
+                "-f", os.path.join(IN, f"{c}_in_8.txt"), "-o", out,
+                "-b", "4", "--dtype", "float32", "--device", "cpu", *extra_args,
+            ])
+        assert rc == 0, f"port CLI failed on {c}"
+        outs[c] = out
+    return outs
+
+
+@pytest.mark.parametrize("corpus", CORPORA)
+def test_greedy_byte_identical_to_cpu_f32(tmp_path, corpus):
+    out = str(tmp_path / f"{corpus}.out")
+    with redirect_stdout(io.StringIO()):
+        rc = port_run.main([
+            "run", MODEL, "-z", TOK, "-m", "test", "-t", "0.0",
+            "-f", os.path.join(IN, f"{corpus}_in_8.txt"), "-o", out,
+            "-b", "4", "--dtype", "float32", "--device", "cpu",
+        ])
+    assert rc == 0
+    with open(out, "rb") as f, open(os.path.join(F32, f"{corpus}_in_8.out"), "rb") as g:
+        assert f.read() == g.read(), f"{corpus}_in_8 differs from assets/out/cpu_f32"
+
+
+def test_stochastic_coverage_vs_reference(tmp_path):
+    scores = {}
+    for c, out in _serve_corpora(tmp_path, ["--no-eos-stop"]).items():
+        r = subprocess.run(
+            [sys.executable, os.path.join(REPO, "tools", "eval_output.py"),
+             os.path.join(REF, f"{c}_in_8.out"), out],
+            capture_output=True, text=True, timeout=60,
+        )
+        assert r.returncode == 0, f"eval_output.py failed on {c}: {r.stderr}"
+        line = [ln for ln in r.stdout.splitlines() if "COVERAGE" in ln][-1]
+        scores[c] = float(line.split("=")[1].split()[0])
+    assert sum(1 for v in scores.values() if v == 1.0) >= 3, scores
+    assert sum(scores.values()) / len(scores) >= 0.75, scores
+
+
+def test_unported_flags_exit_nonzero(capsys):
+    for flag in (["--quant", "q8"], ["--kv", "int8"], ["--paged"], ["--tp", "2"],
+                 ["--spec", "4"], ["--attn", "xla"], ["-m", "chat"]):
+        assert port_run.main(["run", MODEL, "-z", TOK, *flag]) != 0
+        assert "not yet ported" in capsys.readouterr().err
