@@ -10,12 +10,24 @@ Phases, in order; each raises on failure and none is caught:
      shapes (B 8, L 32, KVH 32, HS 128, S 512; prefill T 256), in bf16 and
      fp32, with its time, the plain version's time, the time of one PyTorch
      library call doing the same work where there is one, and its bound;
+  3b. the Q8 kernels (q8_matmul, q8_matmul_silu, q8_matmul_ffn,
+     attention_decode_fused, q8_layer_fused) against their plain versions at
+     7B shapes in bf16, with the same timings;
   4. the committed golden fixture through the port's CLI (fp32, greedy,
      -b 4) on all five *_in_8 corpora: byte-identical to assets/out/cpu_f32;
+  4b. the same with --quant q8, scored against the JAX package's Q8 outputs
+     assets/out/cpu_q8 at the golden bars (3 corpora at 1.0, average 0.75),
+     once with the decode layer as one q8_layer_fused kernel (the default)
+     and once as four kernels (HIPLLAMA_LAYER_FUSE=0), each run's kernel
+     launches counted;
   5. a Llama-2-7B-width model (random bf16 weights made on the card from a
      seed, depth uncut) served through InferenceEngine.serve: 16 requests at
-     batch 8, window 512, greedy; the first decode step's logits held
-     against the plain path; every kernel's launches counted.
+     batch 8, window 512, greedy; the first prefill and decode logits held
+     against the plain path; the dense path's kernel launches counted;
+  5b. the same serve with Q8_0 weights (quantized layer by layer on the
+     card) through the Q8 path, its kernel launches counted; a control (the
+     plain path with layer 0's FFN dropped) must read above the logit
+     tolerance.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -23,6 +35,8 @@ CUDA card, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import io
 import json
 import os
@@ -37,13 +51,16 @@ import torch.nn.functional as F
 
 from hip_llama_tpu_torch import run as port_run
 from hip_llama_tpu_torch.config import ModelConfig
-from hip_llama_tpu_torch.engine import InferenceEngine, Requests
+from hip_llama_tpu_torch.engine import InferenceEngine, Requests, read_inputfile
 from hip_llama_tpu_torch.io.tokenizer_io import read_tokenizer_bin, write_tokenizer_bin
 from hip_llama_tpu_torch.models.llama import KVCache, make_decode_step, make_prefill
-from hip_llama_tpu_torch.models.params import LlamaParams
+from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams
 from hip_llama_tpu_torch.ops import KERNELS, _build
 from hip_llama_tpu_torch.ops import attention as A
 from hip_llama_tpu_torch.ops import cache as C
+from hip_llama_tpu_torch.ops import layer_fused as LF
+from hip_llama_tpu_torch.ops import quant as Q
+from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -61,6 +78,20 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # O(1) logits from 4096-long bf16 products after 32 bf16 layers, where the
 # two paths differ only in attention's summation order and rounding
 LOGIT_TOL = 0.25
+# the same for the Q8 path, where every product of every layer also sums in
+# another order (split-K GEMV or tensor-core tiles against fp32 matmuls of
+# the dequantized weights) before its bf16 rounding. The logits are about
+# N(0, 1); sound runs of this script read about 0.08, and the control (the
+# plain path with layer 0's FFN dropped) must read above the limit
+Q8_LOGIT_TOL = 0.2
+# Q8 product outputs vs plain: bf16 values of magnitude up to ~8 from the
+# same cast points with fp32 sums in another order, one bf16 ulp apart at
+# most (tests/test_torch_cuda.py)
+Q8_ATOL = Q8_RTOL = 2e-2
+# K5 outputs vs plain: attention averages of 0.05 to 1 in magnitude whose
+# bf16 probabilities round after a running max taken over 64-row blocks
+# (kernel) or 128-row blocks (plain): a few ulps relative
+ATTN_ATOL, ATTN_RTOL = 4e-3, 2e-2
 
 SEED = 1234
 LLAMA2_7B = ModelConfig(dim=4096, hidden_dim=11008, n_layers=32, n_heads=32,
@@ -74,6 +105,24 @@ KERNEL_SOURCES = {
                        "hip_llama_tpu/ops/cache.py:747"),
     "attention_prefill": ("hip_llama_tpu_torch/csrc/attention.cu",
                           "hip_llama_tpu/ops/attention.py:957"),
+    "q8_matmul": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:1213"),
+    "attention_decode_fused": ("hip_llama_tpu_torch/csrc/attention.cu",
+                               "hip_llama_tpu/ops/attention.py:1486"),
+    "q8_matmul_ffn": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:894"),
+    "q8_matmul_silu": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:609"),
+    "q8_layer_fused": ("hip_llama_tpu_torch/csrc/layer_fused.cu",
+                       "hip_llama_tpu/ops/layer_fused.py:316"),
+}
+# the kernels each serving path must launch
+DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
+Q8_PATH = ("q8_matmul", "q8_layer_fused", "q8_matmul_ffn", "q8_matmul_silu",
+           "kv_commit_rows", "kv_write_chunk", "attention_prefill")
+# the golden fixture's Q8 runs: prefill chunks of at most 256 rows take K18
+GOLDEN_Q8_PATHS = {
+    "fused layer": ("1", ("q8_layer_fused", "q8_matmul", "q8_matmul_ffn", "kv_commit_rows",
+                          "kv_write_chunk", "attention_prefill")),
+    "four-kernel layer": ("0", ("attention_decode_fused", "q8_matmul", "q8_matmul_ffn",
+                                "kv_commit_rows", "kv_write_chunk", "attention_prefill")),
 }
 WRAPPERS = {w.__name__: w for w in KERNELS}
 
@@ -224,6 +273,165 @@ def phase_kernels(dtype) -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the Q8 kernels against their plain versions at 7B shapes
+
+
+def q8_kernel_case(name: str, label: str, fn, plain_fn, lib_fn, n_bytes: float,
+                   flops: float, atol: float = Q8_ATOL, rtol: float = Q8_RTOL) -> dict:
+    """One kernel case: fn(i) and plain_fn(i) on the same inputs (i rotates
+    over weight copies so that each call finds its weights cold in L2),
+    compared elementwise at atol + rtol * |plain| (each output of a tuple),
+    then timed. lib_fn None: no single library call does this work."""
+    got, want = fn(0), plain_fn(0)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    err = max(max_err(a, b) for a, b in pairs)
+    ok = all(bool(((a.float() - b.float()).abs() <= atol + rtol * b.float().abs()).all())
+             for a, b in pairs)
+    del got, want, pairs
+    ms = cuda_ms(fn)
+    plain = cuda_ms(plain_fn, iters=4, warmup=1)
+    lib = None if lib_fn is None else cuda_ms(lib_fn)
+    bound = bound_ms(n_bytes, flops, torch.bfloat16)
+    lib_s = "n/a" if lib is None else f"{lib:.4f}"
+    print(f"kernel {name} [{label}] bfloat16: max_abs_err {err:.3g} (atol {atol:g} + rtol "
+          f"{rtol:g} x |plain|) {'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} "
+          f"library_ms {lib_s} bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
+    if not ok:
+        raise AssertionError(f"{name} [{label}] disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bound)
+
+
+def phase_q8_kernels() -> dict[str, dict]:
+    """K15, K17, K18, K5 and K23 at Llama-2-7B shapes, bf16 activations,
+    Q8_0 weights of group size 64. Library yardstick for the products:
+    cuBLAS `x @ w` on the weight dequantized to bf16 beforehand (twice the
+    weight bytes); for K5, SDPA as for K1; none for the whole layer. Bytes
+    count int8 weights, fp32 scales, live cache rows, activations in and out
+    once each."""
+    dev = torch.device("cuda")
+    d, hid, voc, gs = 4096, 11008, 32000, 64
+    nqkv = 3 * d
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def weights(k, n, copies):
+        return [Q.q8_quantize_weights(rnd(k, n, dtype=torch.float32).mul_(k ** -0.5), gs)
+                for _ in range(copies)]
+
+    def wbytes(k, n):
+        return k * n + (k // gs) * n * 4
+
+    def deq(ws):
+        return [Q.q8_dequantize(w).to(torch.bfloat16) for w in ws]
+
+    norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
+    out: dict[str, list] = {}
+
+    def case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, **tol):
+        out.setdefault(name, []).append(
+            q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, **tol))
+
+    # K15: QKV with norm + RoPE at decode and prefill rows, wo with the
+    # residual, the classifier with the norm
+    wq = weights(d, nqkv, 2)
+    wqb = deq(wq)
+    rope = dict(rope_limit=2 * d, rope_head=128, rope_theta=10000.0)
+    for m in (8, 2048):
+        x = rnd(m, d)
+        pos = (torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32, device=dev)
+               if m == 8 else torch.arange(m, dtype=torch.int32, device=dev) % 512)
+        case("q8_matmul", f"QKV M {m}, norm + RoPE",
+             lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
+             lambda i: Q.q8_matmul_plain(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
+             lambda i: x @ wqb[i % 2],
+             wbytes(d, nqkv) + m * d * 2 + m * nqkv * 2 + d * 4 + m * 4, 2 * m * d * nqkv)
+    del wq, wqb
+    wo = weights(d, d, 4)
+    wob = deq(wo)
+    x, res = rnd(8, d), rnd(8, d)
+    case("q8_matmul", "wo M 8, residual",
+         lambda i: Q.q8_matmul(x, wo[i % 4], residual=res),
+         lambda i: Q.q8_matmul_plain(x, wo[i % 4], residual=res),
+         lambda i: x @ wob[i % 4], wbytes(d, d) + 3 * 8 * d * 2, 2 * 8 * d * d)
+    del wo, wob
+    wc = weights(d, voc, 1)
+    wcb = deq(wc)
+    case("q8_matmul", "classifier M 8, norm",
+         lambda i: Q.q8_matmul(x, wc[0], norm_weight=norm),
+         lambda i: Q.q8_matmul_plain(x, wc[0], norm_weight=norm),
+         lambda i: x @ wcb[0], wbytes(d, voc) + 8 * d * 2 + 8 * voc * 2 + d * 4,
+         2 * 8 * d * voc)
+    del wc, wcb
+
+    # K17 at prefill rows, K18 at decode and T-16 chunk rows
+    w13, w2 = weights(d, 2 * hid, 2), weights(hid, d, 2)
+    w13b, w2b = deq(w13), deq(w2)
+    for m in (512, 2048):
+        x = rnd(m, d)
+        case("q8_matmul_silu", f"W1|W3 gate M {m}, norm",
+             lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm),
+             lambda i: Q.q8_matmul_silu_plain(x, w13[i % 2], norm_weight=norm),
+             lambda i: x @ w13b[i % 2],
+             wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid)
+    for m in (8, 128):
+        x, hb = rnd(m, d), rnd(m, hid)
+        case("q8_matmul_ffn", f"FFN M {m}",
+             lambda i: Q.q8_matmul_ffn(x, w13[i % 2], w2[i % 2], x, norm),
+             lambda i: Q.q8_matmul_ffn_plain(x, w13[i % 2], w2[i % 2], x, norm),
+             lambda i: (x @ w13b[i % 2], hb @ w2b[i % 2]),
+             wbytes(d, 2 * hid) + wbytes(hid, d) + 3 * m * d * 2 + d * 4,
+             2 * m * d * 2 * hid + 2 * m * hid * d)
+    del w13, w2, w13b, w2b
+
+    # K5 over a 7B-shaped cache, layers rotating as for K1
+    b, n_layers, kvh, h, s, hs, rot = 8, 32, 32, 32, 512, 128, 8
+    cache = KVCache(rnd(b, n_layers, kvh, s, hs), rnd(b, n_layers, kvh, s, hs))
+    pos_l = [0, 1, 100, 255, 256, 300, 450, s - 1]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    qkv = rnd(b, h + 2 * kvh, hs)
+    kf = [torch.cat([cache.k[:, l], qkv[:, h:h + kvh, None]], dim=2) for l in range(rot)]
+    vf = [torch.cat([cache.v[:, l], qkv[:, h + kvh:, None]], dim=2) for l in range(rot)]
+    col = torch.arange(s + 1, device=dev)
+    mask = ((col[None, :] < pos[:, None]) | (col[None, :] == s))[:, None, None, :]
+    q4 = qkv[:, :h, None, :]
+    case("attention_decode_fused", "B 8, H 32, KVH 32, S 512, HS 128",
+         lambda i: A.attention_decode_fused(qkv, cache.k, cache.v, i % rot, pos, h),
+         lambda i: A.attention_decode_fused_plain(qkv, cache.k, cache.v, i % rot, pos, h),
+         lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
+         (b * (h + 2 * kvh) * hs + b * h * hs + 2 * sum(pos_l) * kvh * hs) * 2 + 4 * b,
+         4 * h * hs * sum(p + 1 for p in pos_l), atol=ATTN_ATOL, rtol=ATTN_RTOL)
+    del kf, vf
+
+    # K23: one whole decode layer over the same cache, weights rotating over
+    # two copies
+    lw = [dict(wqkv=weights(d, nqkv, 1)[0], wo=weights(d, d, 1)[0],
+               w13=weights(d, 2 * hid, 1)[0], w2=weights(hid, d, 1)[0]) for _ in range(2)]
+    g2 = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
+    x = rnd(b, d)
+
+    def layer(fn, i):
+        w = lw[i % 2]
+        return fn(x, w["wqkv"], w["wo"], w["w13"], w["w2"], norm, g2, cache.k, cache.v, i % rot,
+                  pos, n_heads=h)
+
+    case("q8_layer_fused", "B 8, 7B layer, S 512",
+         lambda i: layer(LF.q8_layer_fused, i), lambda i: layer(LF.q8_layer_fused_plain, i), None,
+         wbytes(d, nqkv) + wbytes(d, d) + wbytes(d, 2 * hid) + wbytes(hid, d)
+         + 2 * sum(pos_l) * kvh * hs * 2 + (2 * b * d + b * 2 * kvh * hs) * 2 + 2 * d * 4 + 4 * b,
+         2 * b * (d * nqkv + d * d + 3 * d * hid) + 4 * h * hs * sum(p + 1 for p in pos_l))
+    del lw, cache
+    # the kernels line carries each kernel's decode case (the prefill case
+    # for K17, which serves prefill rows only); max_abs_err over all cases
+    first = {"q8_matmul": 0, "q8_matmul_silu": 1, "q8_matmul_ffn": 0,
+             "attention_decode_fused": 0, "q8_layer_fused": 0}
+    return {name: dict(rs[first[name]], max_abs_err=max(r["max_abs_err"] for r in rs))
+            for name, rs in out.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the golden fixture through the CLI
 
 
@@ -250,6 +458,58 @@ def phase_goldens() -> None:
                         if a != b]
                 raise AssertionError(f"golden corpus {c} forked on the card at lines {diff}")
             print(f"golden {c}_in_8: byte-identical to assets/out/cpu_f32", flush=True)
+
+
+def phase_goldens_q8() -> dict[str, dict[str, int]]:
+    """--quant q8 on the card, scored against the JAX package's Q8 outputs
+    as the fraction of requests whose generations are byte-identical, at
+    the bars of tests/test_goldens.py:84-100: once with each decode layer
+    of GOLDEN_Q8_PATHS; returns each run's kernel launches."""
+    launches = {}
+    for label, (fuse, path) in GOLDEN_Q8_PATHS.items():
+        os.environ["HIPLLAMA_LAYER_FUSE"] = fuse
+        try:
+            for w in WRAPPERS.values():
+                w.launches = 0
+            golden_q8_run(label)
+            launches[label] = {name: w.launches for name, w in WRAPPERS.items()}
+        finally:
+            del os.environ["HIPLLAMA_LAYER_FUSE"]
+        dead = [n for n in path if launches[label][n] == 0]
+        print(f"golden q8 ({label}) launches: "
+              f"{ {n: c for n, c in launches[label].items() if c} }", flush=True)
+        if dead:
+            raise AssertionError(f"kernels never launched on the golden q8 {label} path: {dead}")
+    return launches
+
+
+def golden_q8_run(label: str) -> None:
+    scores = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for c in CORPORA:
+            out = os.path.join(tmp, f"{c}.out")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = port_run.main([
+                    "run", os.path.join(GOLDEN, "model.bin"),
+                    "-z", os.path.join(GOLDEN, "tokenizer.bin"), "-m", "test",
+                    "-f", os.path.join(REPO, "assets", "in", f"{c}_in_8.txt"),
+                    "-o", out, "-b", "4", "-t", "0.0", "--quant", "q8", "--device", "cuda",
+                ])
+            if rc != 0:
+                raise AssertionError(f"run.main --quant q8 failed on {c} (rc {rc})")
+            got = read_inputfile(out)
+            want = read_inputfile(os.path.join(REPO, "assets", "out", "cpu_q8", f"{c}_in_8.out"))
+            if got.num_reqs != want.num_reqs:
+                raise AssertionError(f"{c}: {got.num_reqs} generations, want {want.num_reqs}")
+            scores[c] = sum(a == b for a, b in zip(got.prompts, want.prompts)) / want.num_reqs
+            print(f"golden q8 ({label}) {c}_in_8: {scores[c]:.4f} of requests byte-identical "
+                  f"to assets/out/cpu_q8", flush=True)
+    full = sum(1 for v in scores.values() if v == 1.0)
+    avg = sum(scores.values()) / len(scores)
+    print(f"golden q8 ({label}): {full} corpora at 1.0 (bar 3), average {avg:.4f} (bar 0.75)",
+          flush=True)
+    if full < 3 or avg < 0.75:
+        raise AssertionError(f"Q8 golden coverage below the bars: {scores}")
 
 
 # ---------------------------------------------------------------------------
@@ -320,16 +580,63 @@ def make_prompts(tok: Tokenizer, targets: list[int]) -> list[str]:
     return prompts
 
 
-def phase_serve() -> dict:
+def random_7b_qparams(cfg: ModelConfig, dev) -> QuantLlamaParams:
+    """Q8_0 params (group size 64) of seeded bf16 draws scaled as in
+    random_7b_params, quantized on the card one layer's weight at a time,
+    so no full-precision copy of the model exists. The classifier is the
+    quantized transposed embedding with the BOS and EOS columns zero."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    c, gs = cfg, 64
+
+    def mat(*shape, fan_in):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).mul_(fan_in ** -0.5)
+
+    def qt(*ws):
+        return Q.q8_quantize_weights(torch.cat(ws, dim=1), gs)
+
+    def ones(n):
+        return torch.ones(n, device=dev, dtype=torch.float32)
+
+    layers = {"wq": [], "wo": [], "w1": [], "w2": []}
+    for _ in range(c.n_layers):
+        layers["wq"].append(qt(mat(c.dim, c.dim, fan_in=c.dim), mat(c.dim, c.kv_dim, fan_in=c.dim),
+                               mat(c.dim, c.kv_dim, fan_in=c.dim)))
+        layers["wo"].append(qt(mat(c.dim, c.dim, fan_in=c.dim)))
+        layers["w1"].append(qt(mat(c.dim, c.hidden_dim, fan_in=c.dim),
+                               mat(c.dim, c.hidden_dim, fan_in=c.dim)))
+        layers["w2"].append(qt(mat(c.hidden_dim, c.dim, fan_in=c.hidden_dim)))
+    tok_emb = mat(c.vocab_size, c.dim, fan_in=c.dim)
+    emb = Q.q8_quantize_weights(tok_emb.t(), gs)  # groups along each row of tok_emb
+    wcls = tok_emb.t().contiguous()
+    wcls[:, 1:3] = 0
+    return QuantLlamaParams(
+        tok_emb_q=emb.q.t().contiguous(), tok_emb_s=emb.s.t().contiguous(),
+        rms_att=tuple(ones(c.dim) for _ in range(c.n_layers)),
+        wq=tuple(layers["wq"]), wk=(), wv=(), wo=tuple(layers["wo"]),
+        rms_ffn=tuple(ones(c.dim) for _ in range(c.n_layers)),
+        w1=tuple(layers["w1"]), w2=tuple(layers["w2"]), w3=(),
+        rms_final=ones(c.dim), wcls=Q.q8_quantize_weights(wcls, gs),
+    )
+
+
+def without_ffn0(params: QuantLlamaParams) -> QuantLlamaParams:
+    """The control of the logit check: layer 0's FFN adds nothing (W2 zero)."""
+    w2 = list(params.w2)
+    w2[0] = Q.QTensor(torch.zeros_like(w2[0].q), w2[0].s)
+    return dataclasses.replace(params, w2=tuple(w2))
+
+
+def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
+                control=None) -> dict:
+    """Serve the 16 requests at batch 8, window 512 through the engine with
+    `params`, after holding the first prefill and decode logits of the
+    kernel path against the plain path (and, given `control`, checking that
+    the plain path on control(params) reads above the tolerance, and
+    profiling a decode step of the four-kernel layer beside the default
+    one); returns the launches of the serve."""
     dev = torch.device("cuda")
     cfg = LLAMA2_7B
     batch, window, steps = 8, 512, 352
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = random_7b_params(cfg, dev)
-    torch.cuda.synchronize()
-    print(f"7b-width params: {sum(getattr(params, f).numel() for f in params.__dataclass_fields__) / 1e9:.2f}"
-          f" G bf16 values made in {time.perf_counter() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         tok = llama_sized_tokenizer(tmp, cfg.vocab_size)
     # first wave fills all 8 slots (multi-chunk 256+64 prefills); later
@@ -337,7 +644,7 @@ def phase_serve() -> dict:
     targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
     prompts = make_prompts(tok, targets)
     lens = [len(tok.encode(p)) for p in prompts]
-    print(f"prompt tokens: {lens}", flush=True)
+    print(f"{label} prompt tokens: {lens}", flush=True)
 
     # kernel path vs plain path: prefill the first wave, then one decode step
     ids = [tok.encode(p)[:257] for p in prompts[:batch]]
@@ -348,27 +655,34 @@ def phase_serve() -> dict:
     start = torch.zeros(batch, dtype=torch.int32, device=dev)
     cur = torch.tensor([t[-1] for t in ids], dtype=torch.int32, device=dev)
     toks_d = torch.from_numpy(toks).to(dev)
-    logits = {}
-    for plain in (False, True):
+
+    def first_step(p, plain):
         cache = KVCache(*(torch.zeros(batch, cfg.n_layers, cfg.n_kv_heads, window, cfg.head_size,
                                       dtype=torch.bfloat16, device=dev) for _ in range(2)))
-        pf, _ = make_prefill(cfg, last_only=True, plain=plain)(params, cache, toks_d, start, valid)
-        lg, _ = make_decode_step(cfg, plain=plain)(params, cache, cur, valid)
-        logits[plain] = (pf, lg)
-        del cache
+        pf, _ = make_prefill(cfg, last_only=True, plain=plain)(p, cache, toks_d, start, valid)
+        lg, _ = make_decode_step(cfg, plain=plain)(p, cache, cur, valid)
+        return pf, lg
+
+    logits = {plain: first_step(params, plain) for plain in (False, True)}
     pf_err = max_err(logits[False][0], logits[True][0])
     lg_err = max_err(logits[False][1], logits[True][1])
     lk, lp = logits[False][1], logits[True][1]
     top2 = torch.topk(lp, 2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]).tolist()
     agree = (lk.argmax(-1) == lp.argmax(-1)).tolist()
-    print(f"7b first step, kernel vs plain path: prefill logits max_abs_err {pf_err:.4g}, "
-          f"decode logits max_abs_err {lg_err:.4g} (tol {LOGIT_TOL}); top-1 agree {agree}; "
+    print(f"{label} first step, kernel vs plain path: prefill logits max_abs_err {pf_err:.4g}, "
+          f"decode logits max_abs_err {lg_err:.4g} (tol {logit_tol}); top-1 agree {agree}; "
           f"plain top-2 gaps {[round(x, 4) for x in gap]}", flush=True)
     if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-        raise AssertionError("non-finite logits at 7b width")
-    if max(pf_err, lg_err) > LOGIT_TOL:
-        raise AssertionError("kernel path and plain path logits disagree at 7b width")
+        raise AssertionError(f"non-finite logits at {label}")
+    if max(pf_err, lg_err) > logit_tol:
+        raise AssertionError(f"kernel path and plain path logits disagree at {label}")
+    if control is not None:
+        ctl = max_err(first_step(control(params), True)[1], logits[True][1])
+        print(f"{label} control, plain path with layer 0's FFN dropped: decode logits "
+              f"max_abs_err {ctl:.4g} (must exceed tol {logit_tol})", flush=True)
+        if ctl <= logit_tol:
+            raise AssertionError(f"the logit tolerance {logit_tol} does not catch a dropped FFN")
     # a top-1 flip is allowed only at a near-tie: a top-2 gap inside the
     # measured logit difference
     for a, gp in zip(agree, gap):
@@ -387,14 +701,18 @@ def phase_serve() -> dict:
 
     engine._do_step = checked_step
     requests = Requests(prompts=prompts, generations=[""] * len(prompts))
+    torch.cuda.reset_peak_memory_stats()
     for w in WRAPPERS.values():
         w.launches = 0
     stats: dict = {}
-    n_gen = engine.serve(requests, steps=steps, stats=stats)
+    # greedy (temperature 0): the BOS and EOS logits are exactly 0 and never
+    # the largest, where sampling at temperature 1 could draw them
+    greedy = [Sampler(cfg.vocab_size, temperature=0.0) for _ in prompts]
+    n_gen = engine.serve(requests, steps=steps, stats=stats, samplers=greedy)
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in WRAPPERS.items()}
     peak = torch.cuda.max_memory_allocated()
-    print(f"7b serve: {len(prompts)} requests, {stats['total_tokens']} tokens in "
+    print(f"{label} serve: {len(prompts)} requests, {stats['total_tokens']} tokens in "
           f"{stats['elapsed_s']:.3f} s = {stats['tok_per_s']:.2f} tok/s; ttft p50 "
           f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms; "
           f"{stats['scheduler_iters']} scheduler iterations; prefill chunks by T "
@@ -410,18 +728,33 @@ def phase_serve() -> dict:
         raise AssertionError(f"{nonfinite[0]} non-finite logits while serving")
     if set(engine.prefill_chunks) != {16, 64, 256}:
         raise AssertionError(f"prefill buckets hit: {dict(engine.prefill_chunks)}")
-    dead = [n for n, c in launches.items() if c == 0]
+    dead = [n for n in path if launches[n] == 0]
     if dead:
-        raise AssertionError(f"kernels never launched on the main path: {dead}")
+        raise AssertionError(f"kernels never launched on the {label} path: {dead}")
 
-    # where a step's time goes: device time by kernel over a short window
+    # where a step's time goes: wrapper calls of one decode step, then device
+    # time by kernel over a short window
     cache = engine.new_cache()
     toks = np.array([t[-1] for t in ids], np.int32)
     pos0 = np.array([len(t) - 1 for t in ids], np.int32)
-    profile_window("7b decode step (batch 8)", 4,
+    before = {name: w.launches for name, w in WRAPPERS.items()}
+    engine._do_step(cache, toks, pos0)
+    per_step = {n: w.launches - before[n] for n, w in WRAPPERS.items() if w.launches > before[n]}
+    print(f"{label} wrapper launches per decode step (batch 8): {sum(per_step.values())} "
+          f"{per_step}", flush=True)
+    profile_window(f"{label} decode step (batch 8)", 4,
                    lambda i: engine._do_step(cache, toks, pos0 + i))
+    if control is not None:
+        os.environ["HIPLLAMA_LAYER_FUSE"] = "0"
+        try:
+            four = make_decode_step(cfg)
+        finally:
+            del os.environ["HIPLLAMA_LAYER_FUSE"]
+        toks_t = torch.from_numpy(toks).to(dev)
+        profile_window(f"{label} decode step, four-kernel layer (batch 8)", 4,
+                       lambda i: four(params, cache, toks_t, torch.from_numpy(pos0 + i).to(dev)))
     chunk = [t[:-1][:256] for t in ids]
-    profile_window("7b prefill chunk (batch 8, T 256)", 2,
+    profile_window(f"{label} prefill chunk (batch 8, T 256)", 2,
                    lambda i: engine._prefill_tokens(cache, batch, dict(enumerate(chunk)),
                                                     {s: 0 for s in range(batch)}))
     return launches
@@ -469,15 +802,43 @@ def main() -> int:
     print(f"build: {_build.build_seconds:.1f} s (nvcc, {_build.NVCC_FLAGS[1]})", flush=True)
 
     res = {dt: phase_kernels(dt) for dt in (torch.bfloat16, torch.float32)}
+    res_q8 = phase_q8_kernels()
+    torch.cuda.empty_cache()
     phase_goldens()
-    launches = phase_serve()
+    launches_golden_q8 = phase_goldens_q8()
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = random_7b_params(LLAMA2_7B, dev)
+    torch.cuda.synchronize()
+    print(f"7b-width params: {sum(getattr(params, f).numel() for f in params.__dataclass_fields__) / 1e9:.2f}"
+          f" G bf16 values made in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = phase_serve("7b", params, LOGIT_TOL, DENSE_PATH)
+    del params
+    gc.collect()  # the served engine sits in a reference cycle (its patched step)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    qparams = random_7b_qparams(LLAMA2_7B, dev)
+    torch.cuda.synchronize()
+    q_bytes = sum(t.numel() * t.element_size() for qt in (*qparams.wq, *qparams.wo, *qparams.w1,
+                                                          *qparams.w2, qparams.wcls)
+                  for t in (qt.q, qt.s))
+    print(f"7b-width Q8 params: {q_bytes / 1e9:.2f} GB of int8 weights and fp32 scales "
+          f"quantized on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches_q8 = phase_serve("7b q8", qparams, Q8_LOGIT_TOL, Q8_PATH, control=without_ffn0)
+    del qparams
 
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        r = res[torch.bfloat16][name]
+        r = res[torch.bfloat16].get(name) or res_q8[name]
+        # each kernel's count from the first serving path that runs it: the
+        # dense serve, the Q8 serve, the four-kernel golden run (K5)
+        n = next((runs[name] for runs in (launches if name in DENSE_PATH else {}, launches_q8,
+                                          launches_golden_q8["four-kernel layer"])
+                  if runs.get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"],
         ))

@@ -12,15 +12,22 @@
 //
 // Cast points follow the JAX kernels (attention.py:164-241, :912-940): q in
 // the cache dtype for QK, fp32 scores and softmax state (m, l, acc),
-// probabilities rounded to the V dtype before PV, output in q's dtype. q,
-// the cache and the current rows share one dtype here (the wrapper checks).
+// probabilities exp(s - running max) rounded to the V dtype before PV,
+// output in q's dtype. q, the cache and the current rows share one dtype
+// here (the wrapper checks). The running max advances once per block of bk
+// cache rows; with a bf16 cache the rounded probabilities depend on it, so
+// the wrappers pass the JAX kernels' block where it is at most 64 rows. A
+// block of 64 (every cache of 64 rows or more) is a compile-time constant,
+// so the kernels' tile loops are those of a fixed 64-row tile; smaller
+// blocks (short caches only) take it as an argument.
 //
 // Bounds on an H100: decode is bound by bytes — every live K and V row of
 // the layer is read once (2 * pos * HS * bytes per slot and KV head) for
 // 4 * pos * HS flops per query head, far below the card's ~295 flop/byte
-// ridge. One CTA per (KV head, slot) streams its rows with coalesced warp
-// loads and keeps the kv_mul query heads of the group in shared memory, so
-// each K/V byte is read once for all heads that share it. Prefill at
+// ridge. One CTA per (KV head, slot) runs decode_attention.cuh's task: it
+// streams its rows with coalesced warp loads and keeps the kv_mul query
+// heads of the group in shared memory, so each K/V byte is read once for
+// all heads that share it. Prefill at
 // T = 256 does up to T flops per K/V byte and would be bound by operations
 // on the tensor cores; this first version does the products on the fp32
 // CUDA cores out of shared memory (one CTA per slot, KV head and 64-row
@@ -31,9 +38,15 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "decode_attention.cuh"
 
 namespace {
 
+using hipllama::DecodeSmem;
+using hipllama::decode_attention_task;
+using hipllama::kDecThreads;
+using hipllama::kMaxM;
+using hipllama::kDecTile;
 using hipllama::load4;
 using hipllama::round_to;
 using hipllama::to_f;
@@ -42,134 +55,18 @@ using hipllama::warp_max;
 using hipllama::warp_sum;
 
 // ---------------------------------------------------------------------------
-// decode
+// decode: one (KV head, slot) task per CTA (decode_attention.cuh)
 
-constexpr int kDecThreads = 128;  // 4 warps
-constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kDecTile = 64;      // cache rows per tile
-constexpr int kMaxM = 8;          // query heads per KV head (kv_mul)
-
-template <typename T, int HS>
+template <typename T, int HS, int BK>
 __global__ void __launch_bounds__(kDecThreads) attention_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
     const int* __restrict__ pos_arr, const T* __restrict__ k_cur,
     const T* __restrict__ v_cur, T* __restrict__ out,
-    int H, int KVH, int S, int L, int layer, float scale) {
-  constexpr int LPR = HS / 4;          // lanes per K row in QK (4 elements each)
-  constexpr int RPW = 32 / LPR;        // K rows per warp per pass
-  constexpr int RG = kDecThreads / HS; // row groups in PV (each thread owns one dim)
-  static_assert(kDecTile % (kDecWarps * RPW) == 0, "tile must split over the warps");
-
-  __shared__ __align__(16) float q_s[kMaxM][HS];  // q, as the cache dtype, widened
-  __shared__ float p_s[kMaxM][kDecTile];          // scores, then rounded probabilities
-  __shared__ float red_s[kMaxM][kDecThreads];     // PV partial sums over row groups
-  __shared__ float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM];
-
-  const int g = blockIdx.x, b = blockIdx.y;
-  const int M = H / KVH;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int pos = pos_arr[b];
-
-  const T* qb = q + ((size_t)b * H + (size_t)g * M) * HS;
-  for (int i = tid; i < M * HS; i += kDecThreads) q_s[i / HS][i % HS] = to_f(qb[i]);
-  if (tid < kMaxM) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-
-  const size_t plane = (((size_t)b * L + layer) * KVH + g) * (size_t)S * HS;
-  const T* kb = k_cache + plane;
-  const T* vb = v_cache + plane;
-  const int d = tid % HS, rg = tid / HS;
-  const int c0 = (lane % LPR) * 4;
-  float acc[kMaxM];
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
-
-  for (int t0 = 0; t0 < pos; t0 += kDecTile) {
-    const int n = min(kDecTile, pos - t0);
-    // scores: LPR lanes per row, reduced with shuffles (all lanes take the
-    // same trip count, so the shuffles stay convergent)
-    for (int r = warp * RPW + lane / LPR; r < kDecTile; r += kDecWarps * RPW) {
-      float kf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < n) load4(kb + (size_t)(t0 + r) * HS + c0, kf);
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          float qf[4];
-          load4(&q_s[m][c0], qf);
-          float s = qf[0] * kf[0] + qf[1] * kf[1] + qf[2] * kf[2] + qf[3] * kf[3];
-          s = warp_sum(s, LPR);
-          if (lane % LPR == 0) p_s[m][r] = r < n ? s * scale : -INFINITY;
-        }
-      }
-    }
-    __syncthreads();
-    // online softmax, one warp per query head
-    for (int m = warp; m < M; m += kDecWarps) {
-      float mx = -INFINITY;
-      for (int r = lane; r < kDecTile; r += 32) mx = fmaxf(mx, p_s[m][r]);
-      mx = warp_max(mx);  // finite: the tile holds at least one live row
-      const float m_old = m_s[m];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < kDecTile; r += 32) {
-        const float p = r < n ? expf(p_s[m][r] - m_new) : 0.f;
-        sum += p;
-        p_s[m][r] = round_to<T>(p);
-      }
-      sum = warp_sum(sum, 32);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[m] = alpha;
-        l_s[m] = alpha * l_s[m] + sum;
-        m_s[m] = m_new;
-      }
-    }
-    __syncthreads();
-    // PV: thread (rg, d) sums rows rg, rg + RG, ... of the tile
-#pragma unroll
-    for (int m = 0; m < kMaxM; ++m)
-      if (m < M) acc[m] *= a_s[m];
-    for (int r = rg; r < n; r += RG) {
-      const float v = to_f(vb[(size_t)(t0 + r) * HS + d]);
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-        if (m < M) acc[m] += p_s[m][r] * v;
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m)
-    if (m < M) red_s[m][tid] = acc[m];
-  // the current row: s_cur = q . k_cur in q's dtype, p_cur stays fp32
-  const T* kc = k_cur + ((size_t)b * KVH + g) * HS;
-  for (int m = warp; m < M; m += kDecWarps) {
-    float s = 0.f;
-    for (int i = lane; i < HS; i += 32) s += q_s[m][i] * to_f(kc[i]);
-    s = warp_sum(s, 32) * scale;
-    if (lane == 0) {
-      const float m_new = fmaxf(m_s[m], s);
-      const float alpha = expf(m_s[m] - m_new);
-      const float p_cur = expf(s - m_new);
-      a_s[m] = alpha;
-      pc_s[m] = p_cur;
-      l_s[m] = alpha * l_s[m] + p_cur;
-    }
-  }
-  __syncthreads();
-  if (tid < HS) {
-    const float vcur = to_f(v_cur[((size_t)b * KVH + g) * HS + tid]);
-    for (int m = 0; m < M; ++m) {
-      float o = 0.f;
-      for (int i = 0; i < RG; ++i) o += red_s[m][i * HS + tid];
-      o = o * a_s[m] + pc_s[m] * vcur;
-      const float l = l_s[m];
-      out[((size_t)b * H + (size_t)g * M + m) * HS + tid] = from_f<T>(o / (l == 0.f ? 1.f : l));
-    }
-  }
+    int H, int KVH, int S, int L, int layer, float scale, int q_bs, int cur_bs, int bk) {
+  __shared__ DecodeSmem<HS, kDecThreads> sm;
+  decode_attention_task<T, HS, kDecThreads, BK>(sm, blockIdx.x, blockIdx.y, q, k_cache, v_cache,
+                                                pos_arr, k_cur, v_cur, out, H, KVH, S, L, layer,
+                                                scale, q_bs, cur_bs, bk);
 }
 
 // ---------------------------------------------------------------------------
@@ -188,11 +85,13 @@ constexpr size_t prefill_smem_bytes() {
                           + 3 * (size_t)kPfRows);       // m, l, alpha
 }
 
-template <typename T, int HS>
+template <typename T, int HS, int BK>
 __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
     const int* __restrict__ start_arr, const int* __restrict__ valid_arr,
-    T* __restrict__ out, int T_len, int H, int KVH, int S, int L, int layer, float scale) {
+    T* __restrict__ out, int T_len, int H, int KVH, int S, int L, int layer, float scale,
+    int bk_arg) {
+  const int bk = BK > 0 ? BK : bk_arg;
   constexpr int ACC = kPfRows * HS / kPfThreads;       // output entries per thread
   constexpr int SC = kPfRows * kPfTile / kPfThreads;   // score entries per thread
   extern __shared__ __align__(16) float smem[];
@@ -231,11 +130,11 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
   const T* kb = k_cache + plane;
   const T* vb = v_cache + plane;
 
-  for (int k0 = 0; k0 <= q_pos_max && k0 < S; k0 += kPfTile) {
+  for (int k0 = 0; k0 <= q_pos_max && k0 < S; k0 += bk) {
     __syncthreads();  // the previous tile's k/v/p are consumed
     for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
       const int c = i / HS, dd = i % HS;
-      const bool in = k0 + c < S;
+      const bool in = c < bk && k0 + c < S;
       k_s[c * (HS + 1) + dd] = in ? to_f(kb[(size_t)(k0 + c) * HS + dd]) : 0.f;
       v_s[i] = in ? to_f(vb[(size_t)(k0 + c) * HS + dd]) : 0.f;
     }
@@ -251,7 +150,7 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       float s = 0.f;
 #pragma unroll 16
       for (int dd = 0; dd < HS; ++dd) s += qr[dd] * kr[dd];
-      const bool live = t < t_end && col < S && col <= start + t;
+      const bool live = c < bk && t < t_end && col < S && col <= start + t;
       p_s[r * (kPfTile + 1) + c] = live ? s * scale : -INFINITY;
     }
     __syncthreads();
@@ -311,53 +210,50 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 template <typename T, int HS>
 int launch_decode(const void* q, const void* k, const void* v, const void* pos,
                   const void* kc, const void* vc, void* out, int B, int H, int KVH,
-                  int S, int L, int layer, float scale, cudaStream_t st) {
-  attention_decode_kernel<T, HS><<<dim3(KVH, B), kDecThreads, 0, st>>>(
+                  int S, int L, int layer, float scale, int q_bs, int cur_bs, int bk,
+                  cudaStream_t st) {
+  auto kernel = bk == kDecTile ? attention_decode_kernel<T, HS, kDecTile>
+                               : attention_decode_kernel<T, HS, 0>;
+  kernel<<<dim3(KVH, B), kDecThreads, 0, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)pos, (const T*)kc,
-      (const T*)vc, (T*)out, H, KVH, S, L, layer, scale);
+      (const T*)vc, (T*)out, H, KVH, S, L, layer, scale, q_bs, cur_bs, bk);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int HS>
 int launch_prefill(const void* q, const void* k, const void* v, const void* start,
                    const void* valid, void* out, int B, int T_len, int H, int KVH,
-                   int S, int L, int layer, float scale, cudaStream_t st) {
+                   int S, int L, int layer, float scale, int bk, cudaStream_t st) {
   constexpr size_t smem = prefill_smem_bytes<HS>();
-  cudaError_t e = cudaFuncSetAttribute(attention_prefill_kernel<T, HS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = bk == kPfTile ? attention_prefill_kernel<T, HS, kPfTile>
+                              : attention_prefill_kernel<T, HS, 0>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int bt = kPfRows / (H / KVH);
   const dim3 grid((T_len + bt - 1) / bt, KVH, B);
-  attention_prefill_kernel<T, HS><<<grid, kPfThreads, smem, st>>>(
+  kernel<<<grid, kPfThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)start, (const int*)valid,
-      (T*)out, T_len, H, KVH, S, L, layer, scale);
+      (T*)out, T_len, H, KVH, S, L, layer, scale, bk);
   return (int)cudaGetLastError();
 }
-
-#define HIPLLAMA_HS_SWITCH(HS, T, CALL)                     \
-  switch (HS) {                                             \
-    case 8: return CALL(T, 8);                              \
-    case 16: return CALL(T, 16);                            \
-    case 32: return CALL(T, 32);                            \
-    case 64: return CALL(T, 64);                            \
-    case 128: return CALL(T, 128);                          \
-    default: return (int)cudaErrorInvalidValue;             \
-  }
 
 }  // namespace
 
 HIPLLAMA_EXPORT_ERROR_STRING
 
-// dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; H / KVH <= 8.
+// dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; H / KVH <= 8;
+// bk (1..64) cache rows per online-softmax block.
 extern "C" int attention_decode(const void* q, const void* k_cache, const void* v_cache,
                                 const void* pos, const void* k_cur, const void* v_cur,
                                 void* out, int B, int H, int KVH, int S, int HS, int L,
-                                int layer, int dtype, void* stream) {
-  if (H % KVH || H / KVH > kMaxM) return (int)cudaErrorInvalidValue;
+                                int layer, int dtype, int bk, void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1 || bk > kDecTile) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, N) \
-  launch_decode<T, N>(q, k_cache, v_cache, pos, k_cur, v_cur, out, B, H, KVH, S, L, layer, scale, st)
+#define CALL(T, N)                                                                 \
+  launch_decode<T, N>(q, k_cache, v_cache, pos, k_cur, v_cur, out, B, H, KVH, S, L, layer, \
+                      scale, H * HS, KVH * HS, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -365,16 +261,47 @@ extern "C" int attention_decode(const void* q, const void* k_cache, const void* 
 #undef CALL
 }
 
-// dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; 64 % (H / KVH) == 0.
+// attention_decode_fused replaces hip_llama_tpu/ops/attention.py::
+// attention_decode_fused: the same function as attention_decode, reading
+// q, k_cur and v_cur in place from the head-split QKV projection
+// qkv (B, H + 2 KVH, HS): q = rows 0..H-1, k_cur = rows H..H+KVH-1, v_cur
+// the rest. The decode kernel above takes the slot strides of its operands,
+// so no slice is copied. dtype: 0 = float, 1 = bfloat16.
+extern "C" int attention_decode_fused(const void* qkv, const void* k_cache, const void* v_cache,
+                                      const void* pos, void* out, int B, int H, int KVH, int S,
+                                      int HS, int L, int layer, int dtype, int bk,
+                                      void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1 || bk > kDecTile) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nt = H + 2 * KVH;
+  const size_t esize = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const char* base = static_cast<const char*>(qkv);
+  const void* kc = base + (size_t)H * HS * esize;
+  const void* vc = base + (size_t)(H + KVH) * HS * esize;
+#define CALL(T, N)                                                                  \
+  launch_decode<T, N>(qkv, k_cache, v_cache, pos, kc, vc, out, B, H, KVH, S, L, layer, \
+                      scale, nt * HS, nt * HS, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+// dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; 64 % (H / KVH) == 0;
+// bk (1..64) cache rows per online-softmax block.
 extern "C" int attention_prefill(const void* q, const void* k_cache, const void* v_cache,
                                  const void* start, const void* valid, void* out, int B,
                                  int T_len, int H, int KVH, int S, int HS, int L, int layer,
-                                 int dtype, void* stream) {
-  if (H % KVH || kPfRows % (H / KVH)) return (int)cudaErrorInvalidValue;
+                                 int dtype, int bk, void* stream) {
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile)
+    return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(T, N) \
-  launch_prefill<T, N>(q, k_cache, v_cache, start, valid, out, B, T_len, H, KVH, S, L, layer, scale, st)
+  launch_prefill<T, N>(q, k_cache, v_cache, start, valid, out, B, T_len, H, KVH, S, L, layer, \
+                       scale, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }

@@ -26,11 +26,12 @@ from hip_llama_tpu_torch.config import ModelConfig
 from hip_llama_tpu_torch.engine.requests import Requests
 from hip_llama_tpu_torch.models.llama import (
     KVCache,
+    act_dtype,
     init_kv_cache,
     make_decode_step,
     make_prefill,
 )
-from hip_llama_tpu_torch.models.params import LlamaParams
+from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams
 from hip_llama_tpu_torch.sampler import Sampler, request_sampler
 from hip_llama_tpu_torch.tokenizer import BOS_ID, EOS_ID, Tokenizer, printable_piece
 
@@ -64,7 +65,7 @@ class InferenceEngine:
     def __init__(
         self,
         cfg: ModelConfig,
-        params: LlamaParams,
+        params: LlamaParams | QuantLlamaParams,
         tokenizer: Tokenizer,
         *,
         batch_size: int = 8,
@@ -72,7 +73,8 @@ class InferenceEngine:
         use_prefill: bool = True,
     ):
         """The engine runs on its params' device, with a KV cache of the
-        params' dtype and `max_seq_len` rows (default: the model's)."""
+        activation dtype (the dense params' dtype, bf16 for Q8 params) and
+        `max_seq_len` rows (default: the model's)."""
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -97,7 +99,7 @@ class InferenceEngine:
 
     def new_cache(self, batch: int | None = None) -> KVCache:
         return init_kv_cache(
-            self.cfg, batch or self.batch_size, dtype=self.params.dtype,
+            self.cfg, batch or self.batch_size, dtype=act_dtype(self.params),
             seq_len=self.max_seq_len, device=self.device,
         )
 

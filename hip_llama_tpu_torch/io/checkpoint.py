@@ -8,9 +8,12 @@ Byte layouts re-derived from the reference:
 - v1: magic 0x616b3432 ("ak42"), version=1, same 7 ints, shared_classifier
   byte, zero-pad to a 256-byte header; fp32 tensors with all norms first
   (reference: train/export.py:132-180).
+- v2: same 256-byte header plus group_size int32; norms fp32 first, then each
+  weight as [int8 values][fp32 per-group scales] (reference: runq.c:189-251,
+  train/export.py:182-260).
 
-The Q8_0 (v2) and int4 (v4) formats belong to the quantized path, which this
-package has not ported yet: `load_checkpoint` names them and raises.
+The int4 (v4) format belongs to a path this package has not ported yet:
+`load_checkpoint` names it and raises.
 
 All 2-D weights are stored row-major as (out_features, in_features), matching
 the reference's `matmul` W(d,n) @ x(n) convention (src/seq.cpp:40-51). This
@@ -48,6 +51,60 @@ class LlamaWeights:
     w3: np.ndarray  # (L, H, D)
     rms_final: np.ndarray  # (D,)
     wcls: np.ndarray  # (V, D); aliases tok_emb when shared
+
+
+@dataclasses.dataclass
+class QuantTensor:
+    """Q8_0 tensor: int8 values + fp32 scale per `group_size` values.
+
+    float value[i] = q[i] * s[i // group_size]  (reference: runq.c:139-143).
+    """
+
+    q: np.ndarray  # int8, flat or original shape
+    s: np.ndarray  # float32, numel(q) // group_size
+
+    def dequantize(self, group_size: int) -> np.ndarray:
+        q = self.q.reshape(-1)
+        return (
+            q.astype(np.float32).reshape(-1, group_size) * self.s.reshape(-1, 1)
+        ).reshape(self.q.shape)
+
+
+@dataclasses.dataclass
+class QuantWeights:
+    """v2 Q8_0 checkpoint contents (norms fp32, weights quantized), in file
+    orientation: each per-layer weight is (out, in) with groups along in."""
+
+    rms_att: np.ndarray
+    rms_ffn: np.ndarray
+    rms_final: np.ndarray
+    q_tokens: QuantTensor  # (V, D)
+    wq: list[QuantTensor]  # per layer, (D, D)
+    wk: list[QuantTensor]
+    wv: list[QuantTensor]
+    wo: list[QuantTensor]
+    w1: list[QuantTensor]
+    w2: list[QuantTensor]
+    w3: list[QuantTensor]
+    wcls: QuantTensor  # aliases q_tokens when shared
+
+
+def quantize_q80(w: np.ndarray, group_size: int) -> tuple[np.ndarray, np.ndarray, float]:
+    """Symmetric int8 group quantization, scale = absmax/127; returns
+    (int8 values, fp32 scales, max abs error). Matches train/export.py:46-70
+    and runq.c:145-171 (round half to even, as np.round)."""
+    flat = w.astype(np.float32).reshape(-1, group_size)
+    wmax = np.abs(flat).max(axis=1)
+    scale = wmax / 127.0
+    scale_safe = np.where(scale == 0.0, 1.0, scale)
+    int8val = np.round(flat / scale_safe[:, None]).astype(np.int8)
+    fp32val = int8val.astype(np.float32) * scale[:, None]
+    maxerr = float(np.abs(fp32val - flat).max()) if flat.size else 0.0
+    return int8val.reshape(w.shape), scale.astype(np.float32), maxerr
+
+
+def dequantize(qt: QuantTensor, group_size: int) -> np.ndarray:
+    return qt.dequantize(group_size)
 
 
 def _shapes(c: ModelConfig) -> dict[str, tuple[int, ...]]:
@@ -108,25 +165,62 @@ def read_v0(path: str) -> tuple[ModelConfig, LlamaWeights]:
     return cfg, LlamaWeights(**_take(data, cfg, _V0_ORDER, cfg.seq_len * cfg.head_size))
 
 
-def read_v1(path: str) -> tuple[ModelConfig, LlamaWeights]:
-    """Read a v1 fp32 checkpoint (train/export.py:132-180 layout)."""
+def _read_header_v12(path: str, want_version: int) -> ModelConfig:
+    """The 256-byte ak42 header of a v1 or v2 file (v2 adds group_size)."""
     with open(path, "rb") as f:
         magic, version = struct.unpack("Ii", f.read(8))
         if magic != MAGIC_AK42:
             raise ValueError(f"bad magic 0x{magic:08x}, expected 'ak42'")
-        if version != 1:
-            raise ValueError(f"bad version {version}, expected 1")
+        if version != want_version:
+            raise ValueError(f"bad version {version}, expected {want_version}")
         dim, hidden, n_layers, n_heads, n_kv_heads, vocab, seq_len = struct.unpack(
             "7i", f.read(28)
         )
         shared = struct.unpack("B", f.read(1))[0]
-    cfg = ModelConfig(
+        group_size = struct.unpack("i", f.read(4))[0] if want_version == 2 else 0
+    return ModelConfig(
         dim=dim, hidden_dim=hidden, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, vocab_size=vocab, seq_len=seq_len,
-        shared_classifier=bool(shared),
+        shared_classifier=bool(shared), group_size=group_size or None,
     )
+
+
+def read_v1(path: str) -> tuple[ModelConfig, LlamaWeights]:
+    """Read a v1 fp32 checkpoint (train/export.py:132-180 layout)."""
+    cfg = _read_header_v12(path, 1)
     data = np.memmap(path, dtype=np.float32, mode="r", offset=HEADER_SIZE_V12)
     return cfg, LlamaWeights(**_take(data, cfg, _V1_ORDER))
+
+
+def read_v2(path: str) -> tuple[ModelConfig, QuantWeights]:
+    """Read a v2 Q8_0 checkpoint (runq.c:189-251 layout), zero-copy."""
+    cfg = _read_header_v12(path, 2)
+    c, gs = cfg, cfg.group_size
+    raw = np.memmap(path, dtype=np.uint8, mode="r", offset=HEADER_SIZE_V12)
+    off = 0
+
+    def take(dtype, n: int) -> np.ndarray:
+        nonlocal off
+        nbytes = n * np.dtype(dtype).itemsize
+        arr = np.frombuffer(raw[off : off + nbytes], dtype=dtype)
+        off += nbytes
+        return arr
+
+    def take_quant(shape) -> QuantTensor:
+        n = int(np.prod(shape))
+        q = take(np.int8, n).reshape(shape)
+        return QuantTensor(q=q, s=take(np.float32, n // gs))
+
+    norms = {name: take(np.float32, int(np.prod(shape))).reshape(shape) for name, shape in (
+        ("rms_att", (c.n_layers, c.dim)), ("rms_ffn", (c.n_layers, c.dim)),
+        ("rms_final", (c.dim,)))}
+    q_tokens = take_quant((c.vocab_size, c.dim))
+    layers = {name: [take_quant(shape) for _ in range(c.n_layers)] for name, shape in (
+        ("wq", (c.dim, c.dim)), ("wk", (c.kv_dim, c.dim)), ("wv", (c.kv_dim, c.dim)),
+        ("wo", (c.dim, c.dim)), ("w1", (c.hidden_dim, c.dim)),
+        ("w2", (c.dim, c.hidden_dim)), ("w3", (c.hidden_dim, c.dim)))}
+    wcls = q_tokens if c.shared_classifier else take_quant((c.vocab_size, c.dim))
+    return cfg, QuantWeights(**norms, q_tokens=q_tokens, **layers, wcls=wcls)
 
 
 def sniff_version(path: str) -> int:
@@ -136,17 +230,19 @@ def sniff_version(path: str) -> int:
     return version if magic == MAGIC_AK42 else 0
 
 
-def load_checkpoint(path: str) -> tuple[ModelConfig, LlamaWeights]:
-    """Dispatch on format; returns (config, LlamaWeights)."""
+def load_checkpoint(path: str) -> tuple[ModelConfig, LlamaWeights | QuantWeights]:
+    """Dispatch on format; returns (config, LlamaWeights | QuantWeights)."""
     v = sniff_version(path)
     if v == 0:
         return read_v0(path)
     if v == 1:
         return read_v1(path)
-    if v in (2, 4):
+    if v == 2:
+        return read_v2(path)
+    if v == 4:
         raise NotImplementedError(
-            f"v{v} ({'Q8_0' if v == 2 else 'int4'}) checkpoints are not yet "
-            "ported to hip_llama_tpu_torch; use a v0/v1 fp32 checkpoint"
+            "v4 (int4) checkpoints are not yet ported to hip_llama_tpu_torch; "
+            "use a v0/v1 fp32 or a v2 Q8_0 checkpoint"
         )
     raise ValueError(f"unsupported checkpoint version {v}")
 
@@ -172,18 +268,52 @@ def write_v0(path: str, cfg: ModelConfig, w: LlamaWeights) -> None:
             _f32(f, w.wcls)
 
 
+def _write_header_v12(f: BinaryIO, cfg: ModelConfig, version: int,
+                      group_size: int | None = None) -> None:
+    f.write(struct.pack("Ii", MAGIC_AK42, version))
+    f.write(struct.pack("7i", cfg.dim, cfg.hidden_dim, cfg.n_layers,
+                        cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size,
+                        cfg.seq_len))
+    f.write(struct.pack("B", int(cfg.shared_classifier)))
+    if version == 2:
+        f.write(struct.pack("i", group_size))
+    f.write(b"\0" * (HEADER_SIZE_V12 - f.tell()))
+
+
 def write_v1(path: str, cfg: ModelConfig, w: LlamaWeights) -> None:
     with open(path, "wb") as f:
-        f.write(struct.pack("Ii", MAGIC_AK42, 1))
-        f.write(struct.pack("7i", cfg.dim, cfg.hidden_dim, cfg.n_layers,
-                            cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size,
-                            cfg.seq_len))
-        f.write(struct.pack("B", int(cfg.shared_classifier)))
-        f.write(b"\0" * (HEADER_SIZE_V12 - f.tell()))
+        _write_header_v12(f, cfg, 1)
         for name in _V1_ORDER:
             _f32(f, getattr(w, name))
         if not cfg.shared_classifier:
             _f32(f, w.wcls)
+
+
+def write_v2(path: str, cfg: ModelConfig, w: LlamaWeights, group_size: int = 64) -> float:
+    """Write Q8_0 (train/export.py:182-260); returns the max quantization
+    group error. The group size halves until it divides dim."""
+    while cfg.dim % group_size != 0:
+        group_size //= 2
+    maxerr = 0.0
+    with open(path, "wb") as f:
+        _write_header_v12(f, cfg, 2, group_size)
+        for name in ("rms_att", "rms_ffn", "rms_final"):
+            _f32(f, getattr(w, name))
+
+        def q(arr: np.ndarray) -> None:
+            nonlocal maxerr
+            int8val, scale, err = quantize_q80(arr.reshape(arr.shape[0], -1), group_size)
+            maxerr = max(maxerr, err)
+            f.write(int8val.tobytes())
+            f.write(scale.tobytes())
+
+        q(w.tok_emb)
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+            for layer in getattr(w, name):
+                q(layer)
+        if not cfg.shared_classifier:
+            q(w.wcls)
+    return maxerr
 
 
 # ---------------------------------------------------------------------------

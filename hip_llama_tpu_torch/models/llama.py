@@ -1,6 +1,7 @@
-"""Llama-2 forward in PyTorch: the dense decode step and chunked prefill over
-a preallocated KV cache — the port of hip_llama_tpu/models/llama.py's dense
-path (fp32 or bf16 params, no quantization).
+"""Llama-2 forward in PyTorch: the decode step and chunked prefill over a
+preallocated KV cache — the port of hip_llama_tpu/models/llama.py's dense
+path (fp32 or bf16 params) and of its Q8_0 path (`QuantLlamaParams` in the
+unrolled fused layout, bf16 activations), chosen by the params' type.
 
 - KV cache layout (B, L, KVH, S, HS), as in the reference; the step and the
   prefill write it IN PLACE (the JAX functions donate it and return a new
@@ -8,26 +9,40 @@ path (fp32 or bf16 params, no quantization).
 - The batch is a fixed slot array; raggedness is a per-slot `pos` / `start`
   / `valid` vector, exactly as in the JAX step, so the engine's scheduler
   is unchanged.
-- Matrix products are `x @ W` in the param dtype with fp32 accumulation
-  (TF32 and bf16 reduced-precision reductions off). The four kernels of the
-  path — decode attention, the decode-step KV commit, the prefill chunk
-  writer and prefill attention — go through the ops/ wrappers, which launch
-  the CUDA kernels for CUDA tensors. `plain=True` runs every kernel's plain
-  PyTorch version instead, whatever the device: the yardstick the kernel
-  path is held against on the card.
+- Dense matrix products are `x @ W` in the param dtype with fp32
+  accumulation (TF32 and bf16 reduced-precision reductions off). The
+  kernels of the dense path — decode attention, the decode-step KV commit,
+  the prefill chunk writer and prefill attention — go through the ops/
+  wrappers, which launch the CUDA kernels for CUDA tensors.
+- The Q8 path (hip_llama_tpu/models/llama.py:702-763 decode, :966-978 and
+  :1132-1139 prefill) runs each decode-step layer as ONE q8_layer_fused
+  kernel, as the JAX step does by default; HIPLLAMA_LAYER_FUSE=0 (read when
+  the step is made) takes the four-kernel layer the JAX package has under
+  the same switch: QKV (q8_matmul with the norm prologue, RoPE epilogue and
+  head-split view), attention_decode_fused, wo (q8_matmul with the
+  residual) and the FFN, which rounds alike. Prefill layers are QKV, the
+  chunk writer, prefill attention, wo and the FFN (q8_matmul_ffn for up to
+  256 rows, else q8_matmul_silu and q8_matmul with the residual); the
+  classifier is q8_matmul with the norm prologue, rounded to bf16 before it
+  is widened to fp32.
+- `plain=True` runs every kernel's plain PyTorch version instead, whatever
+  the device: the yardstick the kernel path is held against on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 import torch.nn.functional as F
 
 from hip_llama_tpu_torch.config import ModelConfig
-from hip_llama_tpu_torch.models.params import LlamaParams, resolve_device
+from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams, resolve_device
 from hip_llama_tpu_torch.ops import attention as _attn
 from hip_llama_tpu_torch.ops import cache as _cache
+from hip_llama_tpu_torch.ops import layer_fused as _layer
+from hip_llama_tpu_torch.ops import quant as _quant
 
 
 @dataclasses.dataclass
@@ -96,12 +111,73 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 10000.0) -> torch.Te
     return apply_rope(x, *rope_tables(pos, x.shape[-1], theta))
 
 
-def _kernels(plain: bool):
+@dataclasses.dataclass(frozen=True)
+class _Kernels:
+    attn_decode: object
+    attn_prefill: object
+    commit: object
+    write_chunk: object
+    attn_decode_fused: object
+    mm: object  # q8_matmul
+    mm_silu: object
+    mm_ffn: object
+    layer: object  # q8_layer_fused
+
+
+def _kernels(plain: bool) -> _Kernels:
     if plain:
-        return (_attn.attention_decode_plain, _attn.attention_prefill_plain,
-                _cache.kv_commit_rows_plain, _cache.kv_write_chunk_plain)
-    return (_attn.attention_decode, _attn.attention_prefill,
-            _cache.kv_commit_rows, _cache.kv_write_chunk)
+        return _Kernels(_attn.attention_decode_plain, _attn.attention_prefill_plain,
+                        _cache.kv_commit_rows_plain, _cache.kv_write_chunk_plain,
+                        _attn.attention_decode_fused_plain, _quant.q8_matmul_plain,
+                        _quant.q8_matmul_silu_plain, _quant.q8_matmul_ffn_plain,
+                        _layer.q8_layer_fused_plain)
+    return _Kernels(_attn.attention_decode, _attn.attention_prefill,
+                    _cache.kv_commit_rows, _cache.kv_write_chunk,
+                    _attn.attention_decode_fused, _quant.q8_matmul,
+                    _quant.q8_matmul_silu, _quant.q8_matmul_ffn, _layer.q8_layer_fused)
+
+
+def act_dtype(params) -> torch.dtype:
+    """The activation and KV-cache dtype: bf16 for Q8 params (norms stay
+    fp32 inside the kernels), else the dense param dtype."""
+    if isinstance(params, QuantLlamaParams):
+        return torch.bfloat16
+    return params.dtype
+
+
+def _embed_q8(params: QuantLlamaParams, tokens: torch.Tensor) -> torch.Tensor:
+    """Gather int8 rows and their group scales, dequantize only those rows
+    (runq.c:360-364), bf16."""
+    q = params.tok_emb_q[tokens.long()]
+    s = params.tok_emb_s[tokens.long()]
+    gs = params.group_size
+    g = q.float().reshape(*q.shape[:-1], q.shape[-1] // gs, gs)
+    return (g * s[..., None]).reshape(q.shape).to(torch.bfloat16)
+
+
+def _q8_ffn(k: _Kernels, x2: torch.Tensor, params: QuantLlamaParams, l: int, eps: float):
+    """x2 + FFN(rmsnorm(x2)) for rows x2 (M, D): q8_matmul_ffn where the
+    JAX package takes its kernel by row count, else the gate and W2 with
+    the residual (llama.py:312-329, quant.py:921-938)."""
+    if _quant.ffn_takes_kernel(*x2.shape):
+        return k.mm_ffn(x2, params.w1[l], params.w2[l], x2, params.rms_ffn[l], norm_eps=eps)
+    h = k.mm_silu(x2, params.w1[l], norm_weight=params.rms_ffn[l], norm_eps=eps)
+    return k.mm(h, params.w2[l], residual=x2)
+
+
+def _q8_qkv(k: _Kernels, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig):
+    """Norm + fused QKV + RoPE on q|k for rows x2 (M, D) at positions pos
+    (M,); returns the head-split (M, H + 2 KVH, HS) view."""
+    c = cfg
+    y = k.mm(x2, params.wq[l], norm_weight=params.rms_att[l], norm_eps=c.norm_eps,
+             rope_pos=pos, rope_limit=(c.n_heads + c.n_kv_heads) * c.head_size,
+             rope_head=c.head_size, rope_theta=c.rope_theta)
+    return y.view(x2.shape[0], c.n_heads + 2 * c.n_kv_heads, c.head_size)
+
+
+def _q8_logits(k: _Kernels, x2, params: QuantLlamaParams, cfg: ModelConfig):
+    # the classifier's bf16 output widened to fp32 (llama.py:827-829)
+    return k.mm(x2, params.wcls, norm_weight=params.rms_final, norm_eps=cfg.norm_eps).float()
 
 
 def _ffn(x: torch.Tensor, params: LlamaParams, l: int, eps: float) -> torch.Tensor:
@@ -128,27 +204,52 @@ def _qkv(x, params, l, cfg: ModelConfig, rot):
 
 def make_decode_step(cfg: ModelConfig, plain: bool = False):
     """Returns step(params, cache, tokens (B,), pos (B,) int32) -> (logits
-    fp32 (B, V), cache). The cache is read-only inside the layer loop — the
-    current token's K/V rows ride into attention as explicit operands — and
-    the whole step's rows are committed in place by ONE kv_commit_rows
-    launch after the loop, as in the JAX step."""
-    attn_decode, _, commit, _ = _kernels(plain)
+    fp32 (B, V), cache). With Q8 params each layer is one q8_layer_fused
+    unless HIPLLAMA_LAYER_FUSE=0. The cache is read-only inside the layer
+    loop — the current token's K/V rows ride into attention as explicit
+    operands — and the whole step's rows are committed in place by ONE
+    kv_commit_rows launch after the loop, as in the JAX step."""
+    kn = _kernels(plain)
     c = cfg
+    h, kvh = c.n_heads, c.n_kv_heads
+    layer_fuse = os.environ.get("HIPLLAMA_LAYER_FUSE", "1") == "1"
     _exact_matmuls()
 
-    def step(params: LlamaParams, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor):
+    def step_q8(params: QuantLlamaParams, cache: KVCache, tokens, pos):
+        x = _embed_q8(params, tokens)  # (B, D) bf16
+        b = x.shape[0]
+        k_list, v_list = [], []
+        for l in range(c.n_layers):
+            if layer_fuse:
+                x, kv = kn.layer(x, params.wq[l], params.wo[l], params.w1[l], params.w2[l],
+                                 params.rms_att[l], params.rms_ffn[l], cache.k, cache.v, l, pos,
+                                 n_heads=h, norm_eps=c.norm_eps, theta=c.rope_theta)
+            else:
+                qkv3 = _q8_qkv(kn, x, params, l, pos, c)  # (B, H + 2 KVH, HS)
+                att = kn.attn_decode_fused(qkv3, cache.k, cache.v, l, pos, h)
+                x = kn.mm(att.view(b, c.dim), params.wo[l], residual=x)
+                x = _q8_ffn(kn, x, params, l, c.norm_eps)
+                kv = qkv3[:, h:]
+            k_list.append(kv[:, :kvh])  # (B, KVH, HS) each
+            v_list.append(kv[:, kvh:])
+        kn.commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
+        return _q8_logits(kn, x, params, c), cache
+
+    def step(params, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor):
+        if isinstance(params, QuantLlamaParams):
+            return step_q8(params, cache, tokens, pos)
         x = params.tok_emb[tokens.long()]  # (B, D)
         b = x.shape[0]
         rot = rope_tables(pos, c.head_size, c.rope_theta)
         k_list, v_list = [], []
         for l in range(c.n_layers):
             q, k, v = _qkv(x, params, l, c, rot)
-            att = attn_decode(q, cache.k, cache.v, l, pos, k, v)
+            att = kn.attn_decode(q, cache.k, cache.v, l, pos, k, v)
             x = x + att.reshape(b, c.dim) @ params.wo[l]
             x = _ffn(x, params, l, c.norm_eps)
             k_list.append(k)
             v_list.append(v)
-        commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
+        kn.commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
         logits = (rmsnorm(x, params.rms_final, c.norm_eps) @ params.wcls).float()
         return logits, cache
 
@@ -173,26 +274,50 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
     `last_only=True` returns logits fp32 (B, V) for each slot's LAST valid
     position only: the x rows are gathered before the final norm and the
     classifier, so the (B, T, V) logits are never computed."""
-    _, attn_prefill, _, write_chunk = _kernels(plain)
+    kn = _kernels(plain)
     c = cfg
+    h, kvh = c.n_heads, c.n_kv_heads
     _exact_matmuls()
 
-    def prefill(params: LlamaParams, cache: KVCache, tokens: torch.Tensor,
+    def last_rows(x, valid_len):
+        # valid_len=0 bystanders gather row 0; callers ignore them
+        idx = torch.clamp(valid_len.long() - 1, min=0)
+        return x[torch.arange(x.shape[0], device=x.device), idx]  # (B, D)
+
+    def prefill_q8(params: QuantLlamaParams, cache: KVCache, tokens, start, valid_len, pos):
+        b, t = tokens.shape
+        x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
+        pos = pos.reshape(-1)
+        for l in range(c.n_layers):
+            qkv = _q8_qkv(kn, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
+            kn.write_chunk(cache, qkv[:, :, h:h + kvh].contiguous(),
+                           qkv[:, :, h + kvh:].contiguous(), l, start, valid_len)
+            att = kn.attn_prefill(qkv[:, :, :h].contiguous(), cache.k, cache.v, l, start,
+                                  valid_len)
+            x = kn.mm(att.view(b * t, c.dim), params.wo[l], residual=x)
+            x = _q8_ffn(kn, x, params, l, c.norm_eps)
+        x = x.view(b, t, c.dim)
+        if last_only:
+            x = last_rows(x, valid_len)
+        logits = _q8_logits(kn, x.reshape(-1, c.dim), params, c)
+        return logits.view(*x.shape[:-1], -1), cache
+
+    def prefill(params, cache: KVCache, tokens: torch.Tensor,
                 start: torch.Tensor, valid_len: torch.Tensor):
         b, t = tokens.shape
+        pos = start[:, None] + torch.arange(t, dtype=torch.int32, device=tokens.device)[None, :]
+        if isinstance(params, QuantLlamaParams):
+            return prefill_q8(params, cache, tokens, start, valid_len, pos)
         x = params.tok_emb[tokens.long()]  # (B, T, D)
-        pos = start[:, None] + torch.arange(t, dtype=torch.int32, device=x.device)[None, :]
         rot = rope_tables(pos, c.head_size, c.rope_theta)
         for l in range(c.n_layers):
             q, k, v = _qkv(x, params, l, c, rot)
-            write_chunk(cache, k, v, l, start, valid_len)
-            att = attn_prefill(q, cache.k, cache.v, l, start, valid_len)
+            kn.write_chunk(cache, k, v, l, start, valid_len)
+            att = kn.attn_prefill(q, cache.k, cache.v, l, start, valid_len)
             x = x + att.reshape(b, t, c.dim) @ params.wo[l]
             x = _ffn(x, params, l, c.norm_eps)
         if last_only:
-            # valid_len=0 bystanders gather row 0; callers ignore them
-            idx = torch.clamp(valid_len.long() - 1, min=0)
-            x = x[torch.arange(b, device=x.device), idx]  # (B, D)
+            x = last_rows(x, valid_len)
         logits = (rmsnorm(x, params.rms_final, c.norm_eps) @ params.wcls).float()
         return logits, cache
 

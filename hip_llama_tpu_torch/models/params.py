@@ -1,10 +1,15 @@
-"""Parameters of the dense model.
+"""Parameters of the dense and the Q8_0 model.
 
 Weights are transposed from the checkpoint's (out, in) row-major layout into
 (in, out) so the hot path is `x @ W`, the orientation of the JAX package's
 `LlamaParams` (hip_llama_tpu/models/params.py) — the tests hand the same
-arrays to both packages. Per-layer tensors are stacked on a leading layer
-axis; the decode step indexes one layer at a time.
+arrays to both packages. Dense per-layer tensors are stacked on a leading
+layer axis; the decode step indexes one layer at a time.
+
+`QuantLlamaParams` holds Q8_0 weights in the JAX package's unrolled fused
+layout (`unstack_quant_params(fuse=True)`): one QTensor per layer, with Q, K
+and V concatenated along N in `wq` and W1 and W3 in `w1` (`wk`, `wv` and `w3`
+are empty), and per-layer fp32 norm vectors.
 """
 
 from __future__ import annotations
@@ -14,7 +19,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from hip_llama_tpu_torch.io.checkpoint import LlamaWeights
+from hip_llama_tpu_torch.config import ModelConfig
+from hip_llama_tpu_torch.io.checkpoint import (
+    LlamaWeights,
+    QuantTensor,
+    QuantWeights,
+    quantize_q80,
+)
+from hip_llama_tpu_torch.ops.quant import QTensor, q8_quantize_weights
 
 _FIELDS = ("tok_emb", "rms_att", "wq", "wk", "wv", "wo", "rms_ffn",
            "w1", "w2", "w3", "rms_final", "wcls")
@@ -95,3 +107,138 @@ def params_from_weights(
             a = np.swapaxes(a, -1, -2)
         arrays[name] = a
     return params_from_jax_numpy(arrays, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Q8_0
+
+
+@dataclasses.dataclass
+class QuantLlamaParams:
+    """Q8_0 weight-only params (the runq engine, runq.c:317-342): the
+    embedding stays int8 with per-row-group scales and is dequantized per
+    gathered token (runq.c:360-364); norms are fp32 (runq.c:383)."""
+
+    tok_emb_q: torch.Tensor  # (V, D) int8
+    tok_emb_s: torch.Tensor  # (V, D // gs) f32
+    rms_att: tuple[torch.Tensor, ...]  # per layer (D,) f32
+    wq: tuple[QTensor, ...]  # per layer Q|K|V (D, D + 2 KV)
+    wk: tuple  # () in the fused layout
+    wv: tuple  # ()
+    wo: tuple[QTensor, ...]  # per layer (D, D)
+    rms_ffn: tuple[torch.Tensor, ...]
+    w1: tuple[QTensor, ...]  # per layer W1|W3 (D, 2H)
+    w2: tuple[QTensor, ...]  # per layer (H, D)
+    w3: tuple  # ()
+    rms_final: torch.Tensor  # (D,) f32
+    wcls: QTensor  # (D, V)
+
+    @property
+    def group_size(self) -> int:
+        return self.tok_emb_q.shape[1] // self.tok_emb_s.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_emb_q.device
+
+
+def _cat(*ts: QTensor) -> QTensor:
+    """Concatenate along N; groups run along K, so this is bit-identical
+    to quantizing the concatenated weight."""
+    return QTensor(q=torch.cat([t.q for t in ts], dim=-1).contiguous(),
+                   s=torch.cat([t.s for t in ts], dim=-1).contiguous())
+
+
+def _fused_layers(n_layers: int, qt) -> dict:
+    """The per-layer fused layout from qt(name, layer) -> QTensor."""
+    return dict(
+        wq=tuple(_cat(qt("wq", l), qt("wk", l), qt("wv", l)) for l in range(n_layers)),
+        wk=(), wv=(),
+        wo=tuple(qt("wo", l) for l in range(n_layers)),
+        w1=tuple(_cat(qt("w1", l), qt("w3", l)) for l in range(n_layers)),
+        w2=tuple(qt("w2", l) for l in range(n_layers)),
+        w3=(),
+    )
+
+
+def _f32(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+
+def qparams_from_quant_weights(cfg: ModelConfig, qw: QuantWeights,
+                               device="cuda") -> QuantLlamaParams:
+    """Load a v2 Q8_0 checkpoint into the fused-int8 path, losslessly: a
+    file tensor (out, in) with groups along `in` transposes to q (in, out),
+    s (in // gs, out) with the same int8 payload."""
+    dev = resolve_device(device)
+    c, gs = cfg, cfg.group_size
+    if gs is None:
+        raise ValueError("a Q8_0 config needs its group_size")
+
+    def qt_file(t: QuantTensor, out_dim: int, in_dim: int) -> QTensor:
+        q = np.array(np.asarray(t.q).reshape(out_dim, in_dim).T, order="C")
+        s = np.array(np.asarray(t.s, np.float32).reshape(out_dim, in_dim // gs).T, order="C")
+        return QTensor(q=torch.from_numpy(q).to(dev), s=torch.from_numpy(s).to(dev))
+
+    dims = {"wq": (c.dim, c.dim), "wk": (c.kv_dim, c.dim), "wv": (c.kv_dim, c.dim),
+            "wo": (c.dim, c.dim), "w1": (c.hidden_dim, c.dim), "w2": (c.dim, c.hidden_dim),
+            "w3": (c.hidden_dim, c.dim)}
+    return QuantLlamaParams(
+        tok_emb_q=torch.from_numpy(np.array(qw.q_tokens.q).reshape(c.vocab_size, c.dim)).to(dev),
+        tok_emb_s=_f32(np.asarray(qw.q_tokens.s).reshape(c.vocab_size, c.dim // gs), dev),
+        rms_att=tuple(_f32(a, dev) for a in qw.rms_att),
+        rms_ffn=tuple(_f32(a, dev) for a in qw.rms_ffn),
+        rms_final=_f32(qw.rms_final, dev),
+        wcls=qt_file(qw.wcls, c.vocab_size, c.dim),
+        **_fused_layers(c.n_layers, lambda name, l: qt_file(getattr(qw, name)[l], *dims[name])),
+    )
+
+
+def quantize_params_q8(cfg: ModelConfig, w: LlamaWeights, group_size: int = 64,
+                       device="cuda") -> QuantLlamaParams:
+    """Quantize fp32 checkpoint weights to the Q8_0 path at load (what
+    `export.py 2` does offline, train/export.py:182-260), one layer's weight
+    at a time on `device`: bit for bit the JAX package's
+    unstack_quant_params(quantize_params_q8(cfg, w, group_size))."""
+    dev = resolve_device(device)
+    gs = group_size
+
+    def qt(a) -> QTensor:  # (out, in) -> quantized (in, out)
+        return q8_quantize_weights(_f32(a, dev).t(), gs)
+
+    q_emb, s_emb, _ = quantize_q80(np.asarray(w.tok_emb), gs)  # groups along each row
+    return QuantLlamaParams(
+        tok_emb_q=torch.from_numpy(q_emb).to(dev),
+        tok_emb_s=_f32(s_emb.reshape(q_emb.shape[0], -1), dev),
+        rms_att=tuple(_f32(a, dev) for a in w.rms_att),
+        rms_ffn=tuple(_f32(a, dev) for a in w.rms_ffn),
+        rms_final=_f32(w.rms_final, dev),
+        wcls=qt(w.wcls),
+        **_fused_layers(cfg.n_layers, lambda name, l: qt(getattr(w, name)[l])),
+    )
+
+
+def qparams_from_jax_numpy(arrays: dict, device="cuda") -> QuantLlamaParams:
+    """Carry the JAX package's Q8 params across, after its
+    `unstack_quant_params` (fused): `arrays` maps the 13 field names of its
+    `QuantLlamaParams` to numpy leaves — arrays, per-layer tuples of norm
+    vectors, and (q, s) pairs (its QTensors) or tuples of them."""
+    dev = resolve_device(device)
+
+    def put(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def qt(pair) -> QTensor:
+        q, s = pair
+        return QTensor(q=put(q), s=put(s))
+
+    return QuantLlamaParams(
+        tok_emb_q=put(arrays["tok_emb_q"]), tok_emb_s=put(arrays["tok_emb_s"]),
+        rms_att=tuple(put(a) for a in arrays["rms_att"]),
+        wq=tuple(qt(t) for t in arrays["wq"]), wk=(), wv=(),
+        wo=tuple(qt(t) for t in arrays["wo"]),
+        rms_ffn=tuple(put(a) for a in arrays["rms_ffn"]),
+        w1=tuple(qt(t) for t in arrays["w1"]),
+        w2=tuple(qt(t) for t in arrays["w2"]), w3=(),
+        rms_final=put(arrays["rms_final"]), wcls=qt(arrays["wcls"]),
+    )

@@ -104,13 +104,15 @@ def load(name: str) -> ctypes.CDLL:
 
 def bind(name: str, fn: str, signature: str):
     """`fn` of csrc/<name>.cu's library with its arguments declared:
-    `signature` spells each as 'p' (pointer or stream, ctypes.c_void_p) or
-    'i' (ctypes.c_int). The function returns its cudaError_t as an int."""
+    `signature` spells each as 'p' (pointer or stream, ctypes.c_void_p),
+    'i' (ctypes.c_int) or 'f' (ctypes.c_float). The function returns its
+    cudaError_t as an int."""
     key = (name, fn)
     f = _fns.get(key)
     if f is None:
         f = getattr(load(name), fn)
-        f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int for c in signature]
+        types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        f.argtypes = [types[c] for c in signature]
         f.restype = ctypes.c_int
         _fns[key] = f
     return f

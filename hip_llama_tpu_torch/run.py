@@ -1,5 +1,6 @@
 """CLI with the reference's flag contract (src/llama.cpp:1490-1639), serving
-the dense path on a CUDA card (or the CPU with --device cpu):
+the dense path, or the Q8_0 weight path for v2 checkpoints and --quant q8,
+on a CUDA card (or the CPU with --device cpu):
 
   python -m hip_llama_tpu_torch.run <checkpoint> [options]
   python -m hip_llama_tpu_torch.run model.bin -n 256 -i "Once upon a time"
@@ -17,13 +18,17 @@ Options (single-dash single-letter, like the reference):
   -o <str>    output file (test mode)
   -b <int>    batch size (default 1; test mode continuous-batching slots)
 Extra (double-dash):
-  --dtype float32|bfloat16   param/compute dtype (default bfloat16)
+  --dtype float32|bfloat16   param/compute dtype (default bfloat16; the
+                             Q8_0 path computes in bf16 whatever it says)
+  --quant q8                 quantize a v0/v1 fp32 checkpoint to Q8_0
+                             (group size 64) at load; v2 files are Q8_0
   --device cuda|cpu          where the model runs (default cuda)
   --no-prefill               force-feed prompts one token/step (parity mode)
   --rope-theta F             RoPE base override (.bin headers can't carry it)
   --no-eos-stop              test mode stops on BOS only (run.cc parity)
-The JAX CLI's other flags (--quant, --kv, --paged, --tp, --spec, ...) and
-chat mode are not yet ported: they exit with an error.
+The JAX CLI's other flags (--quant q4, --kv, --paged, --tp, --spec,
+--layout, --dequant, --stream, ...), v4 checkpoints and chat mode are not
+yet ported: they exit with an error.
 """
 
 from __future__ import annotations
@@ -35,13 +40,18 @@ import time
 import torch
 
 from hip_llama_tpu_torch.engine import InferenceEngine, read_inputfile, write_outputfile
-from hip_llama_tpu_torch.io.checkpoint import load_checkpoint
-from hip_llama_tpu_torch.models.params import params_from_weights, resolve_device
+from hip_llama_tpu_torch.io.checkpoint import QuantWeights, load_checkpoint
+from hip_llama_tpu_torch.models.params import (
+    params_from_weights,
+    qparams_from_quant_weights,
+    quantize_params_q8,
+    resolve_device,
+)
 from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
 
 _VALUE_FLAGS = ("-t", "-p", "-s", "-n", "-i", "-z", "-m", "-f", "-o", "-b",
-                "--dtype", "--device", "--rope-theta")
+                "--dtype", "--device", "--rope-theta", "--quant")
 _SWITCHES = ("--no-prefill", "--no-eos-stop")
 
 
@@ -87,14 +97,27 @@ def main(argv: list[str]) -> int:
     if mode not in ("generate", "test"):
         print(f"-m {mode}: not yet ported to hip_llama_tpu_torch", file=sys.stderr)
         return 2
+    quant = opts.get("--quant")
+    if quant not in (None, "q8"):
+        print(f"--quant {quant}: not yet ported to hip_llama_tpu_torch", file=sys.stderr)
+        return 2
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[opts.get("--dtype", "bfloat16")]
     device = resolve_device(opts.get("--device", "cuda"))
 
-    cfg, weights = load_checkpoint(checkpoint_path)
+    try:
+        cfg, weights = load_checkpoint(checkpoint_path)
+    except NotImplementedError as e:
+        print(f"{checkpoint_path}: {e}", file=sys.stderr)
+        return 2
     if "--rope-theta" in opts:
         # the llama2.c .bin headers can't carry the RoPE base
         cfg = dataclasses.replace(cfg, rope_theta=float(opts["--rope-theta"]))
-    params = params_from_weights(weights, dtype=dtype, device=device)
+    if isinstance(weights, QuantWeights):
+        params = qparams_from_quant_weights(cfg, weights, device=device)
+    elif quant == "q8":
+        params = quantize_params_q8(cfg, weights, device=device)
+    else:
+        params = params_from_weights(weights, dtype=dtype, device=device)
     print(
         f"---------Model Information----------\n"
         f"dim: {cfg.dim}\nhidden_dim: {cfg.hidden_dim}\nn_layers: {cfg.n_layers}\n"

@@ -112,3 +112,37 @@ def test_plain_prefill_matches_jax(b, t, h, kvh, s, hs, dtype):
         for i in range(b):  # rows t < valid only: the rest are unspecified
             assert_close(_np(got)[i, : valid[i]], _np(want)[i, : valid[i]],
                          atol=tol, rtol=tol, msg=f"layer {layer} slot {i}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,h,kvh,s,hs,pos",
+    [
+        (4, 4, 4, 64, 32, [0, 9, 63, 30]),  # MHA: pos 0 and ragged
+        (4, 8, 2, 96, 8, [95, 0, 17, 40]),  # GQA 4x at the fixture's head size
+        (2, 8, 4, 32, 16, [0, 0]),  # GQA, every slot at pos 0
+    ],
+)
+def test_plain_decode_fused_matches_jax(b, h, kvh, s, hs, pos, dtype):
+    """K5: q, k_cur and v_cur read from the head-split QKV rows, against
+    attention_decode_fused in interpret mode (an even batch takes its
+    batch-folded kernel)."""
+    from hip_llama_tpu.ops.attention import attention_decode_fused
+
+    rng = np.random.default_rng(3)
+    n_layers = 2
+    arrs = [rng.standard_normal(sh).astype(np.float32) for sh in (
+        (b, h + 2 * kvh, hs), (b, n_layers, kvh, s, hs), (b, n_layers, kvh, s, hs))]
+    (qkvj, qkvt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in arrs)
+    pos_j = jnp.asarray(pos, jnp.int32)
+    pos_t = torch.tensor(pos, dtype=torch.int32)
+    tol = DTYPES[dtype][2]
+    for layer in range(n_layers):
+        got = A.attention_decode_fused(qkvt, kt, vt, layer, pos_t, h)
+        assert got.dtype == DTYPES[dtype][1] and got.shape == (b, h, hs)
+        want = attention_decode_fused(qkvj, kj, vj, jnp.int32(layer), pos_j, n_heads=h,
+                                      interpret=True)
+        assert_close(_np(got), _np(want), atol=tol, rtol=tol, msg=f"layer {layer}")
+        sliced = A.attention_decode(qkvt[:, :h], kt, vt, layer, pos_t, qkvt[:, h:h + kvh],
+                                    qkvt[:, h + kvh:])
+        assert torch.equal(got, sliced)

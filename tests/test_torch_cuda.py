@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card. Run there with `pytest -m cuda tests/test_torch_cuda.py`; without a
 card each test skips (decided inside the test, never at import).
 
@@ -126,3 +126,142 @@ def test_wrappers_count_launches_and_reject_bad_operands():
     with pytest.raises(ValueError):
         A.attention_decode(q[:, :, :4].contiguous(), k, k, 0, pos, cur, cur)
     assert A.attention_decode.launches == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# the Q8 slice: K15, K17, K18 against their plain versions, and K5
+
+from hip_llama_tpu_torch.ops import quant as Q  # noqa: E402
+
+# (K, N or H, gs): the golden fixture's widths, a tile-ragged width, and
+# Llama-2-7B's QKV / FFN widths
+Q8_SHAPES = [(64, 128, 64), (192, 208, 32), (4096, 12288, 64)]
+Q8_FFN_SHAPES = [(64, 192, 64), (128, 256, 32), (4096, 11008, 64)]
+
+
+def _qt(rng, k, n, gs, dev):
+    w = rng.standard_normal((k, n)).astype(np.float32) / np.sqrt(k)
+    return Q.q8_quantize_weights(torch.from_numpy(w).to(dev), gs)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 40, 300])
+@pytest.mark.parametrize("shape", Q8_SHAPES)
+@pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
+def test_q8_matmul_kernel(m, shape, epi):
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(4)
+    qt = _qt(rng, k, n, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = {}
+    if epi in ("norm", "norm_rope"):
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    if epi == "residual":
+        kw["residual"] = _rand(rng, (m, n), torch.bfloat16, dev)
+    if epi == "norm_rope":
+        hs = 8 if n < 1024 else 128
+        kw.update(rope_pos=torch.tensor(rng.integers(0, 2048, m), dtype=torch.int32, device=dev),
+                  rope_limit=(2 * n // 3) // hs * hs, rope_head=hs, rope_theta=10000.0)
+    n0 = Q.q8_matmul.launches
+    got = Q.q8_matmul(x, qt, **kw)
+    want = Q.q8_matmul_plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert Q.q8_matmul.launches == n0 + 1 and got.shape == (m, n)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [4, 16, 40, 512])
+@pytest.mark.parametrize("shape", Q8_FFN_SHAPES)
+def test_q8_matmul_silu_kernel(m, shape):
+    dev = _card()
+    k, h, gs = shape
+    rng = np.random.default_rng(5)
+    qt13 = _qt(rng, k, 2 * h, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    g = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    got = Q.q8_matmul_silu(x, qt13, norm_weight=g)
+    want = Q.q8_matmul_silu_plain(x, qt13, norm_weight=g)
+    torch.cuda.synchronize()
+    assert got.shape == (m, h)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 40, 128])
+@pytest.mark.parametrize("shape", Q8_FFN_SHAPES)
+def test_q8_matmul_ffn_kernel(m, shape):
+    dev = _card()
+    k, h, gs = shape
+    rng = np.random.default_rng(6)
+    qt13, qt2 = _qt(rng, k, 2 * h, gs, dev), _qt(rng, h, k, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    g = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    got = Q.q8_matmul_ffn(x, qt13, qt2, x, g)
+    want = Q.q8_matmul_ffn_plain(x, qt13, qt2, x, g)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_decode_fused_kernel(shape, dtype):
+    dev = _card()
+    b, h, kvh, s, hs = shape
+    rng = np.random.default_rng(7)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), dtype, dev)
+    k = _rand(rng, (b, 2, kvh, s, hs), dtype, dev)
+    v = _rand(rng, (b, 2, kvh, s, hs), dtype, dev)
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s, b - 2)], dtype=torch.int32, device=dev)
+    got = A.attention_decode_fused(qkv, k, v, 1, pos, h)
+    want = A.attention_decode_fused_plain(qkv, k, v, 1, pos, h)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+    # the same numbers as K1 on the sliced operands
+    sliced = A.attention_decode(qkv[:, :h].contiguous(), k, v, 1, pos,
+                                qkv[:, h:h + kvh].contiguous(), qkv[:, h + kvh:].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, sliced)
+
+
+# ---------------------------------------------------------------------------
+# K23: the whole Q8 decode layer in one kernel
+
+from hip_llama_tpu_torch.ops import layer_fused as LF  # noqa: E402
+
+# (H, KVH, HS, hidden, S, gs): the golden fixture's layer, a GQA layer with
+# a hidden width that is no multiple of 64, and Llama-2-7B's layer
+LAYER_SHAPES = [(8, 4, 8, 192, 96, 64), (4, 2, 64, 352, 200, 32), (32, 32, 128, 11008, 512, 64)]
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 20])
+@pytest.mark.parametrize("shape", LAYER_SHAPES)
+def test_q8_layer_fused_kernel(b, shape):
+    dev = _card()
+    h, kvh, hs, hid, s, gs = shape
+    d = h * hs
+    rng = np.random.default_rng(8)
+    wqkv, wo = _qt(rng, d, (h + 2 * kvh) * hs, gs, dev), _qt(rng, d, d, gs, dev)
+    w13, w2 = _qt(rng, d, 2 * hid, gs, dev), _qt(rng, hid, d, gs, dev)
+    g1, g2 = ((1 + 0.1 * _rand(rng, (d,), torch.float32, dev)).contiguous() for _ in range(2))
+    x = _rand(rng, (b, d), torch.bfloat16, dev)
+    k = _rand(rng, (b, 2, kvh, s, hs), torch.bfloat16, dev)
+    v = _rand(rng, (b, 2, kvh, s, hs), torch.bfloat16, dev)
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s, b)][:b], dtype=torch.int32, device=dev)
+    ops = (x, wqkv, wo, w13, w2, g1, g2, k, v, 1, pos)
+    n0 = LF.q8_layer_fused.launches
+    got, kv = LF.q8_layer_fused(*ops, n_heads=h)
+    want, kv_want = LF.q8_layer_fused_plain(*ops, n_heads=h)
+    torch.cuda.synchronize()
+    assert LF.q8_layer_fused.launches == n0 + 1
+    _close(got, want, torch.bfloat16)
+    _close(kv, kv_want, torch.bfloat16)
+    # the four kernels in a row round alike (their GEMV route: B <= 16)
+    qkv = Q.q8_matmul(x, wqkv, norm_weight=g1, rope_pos=pos, rope_limit=(h + kvh) * hs,
+                      rope_head=hs).view(b, h + 2 * kvh, hs)
+    att = A.attention_decode_fused(qkv, k, v, 1, pos, h)
+    x2 = Q.q8_matmul(att.reshape(b, d), wo, residual=x)
+    four = Q.q8_matmul_ffn(x2, w13, w2, x2, g2)
+    torch.cuda.synchronize()
+    if b <= Q.GEMV_MAX_M:
+        assert torch.equal(got, four) and torch.equal(kv, qkv[:, h:])
+    else:
+        _close(got, four, torch.bfloat16)

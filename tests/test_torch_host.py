@@ -58,11 +58,99 @@ def test_writers_read_back_by_jax(tmp_path, version):
 
 
 def test_quantized_checkpoints_name_the_missing_port(tmp_path):
-    cfg = tiny_config()
+    """v2 (Q8_0) files load now; v4 (int4) still names the missing port."""
+    cfg = tiny_config(hidden_dim=192)
     path = str(tmp_path / "q.bin")
-    jck.write_v2(path, cfg, jck.random_weights(cfg, seed=5))
+    jck.write_v4(path, cfg, jck.random_weights(cfg, seed=5))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         pck.load_checkpoint(path)
+
+
+Q8_CFG = dict(dim=64, hidden_dim=192, n_heads=8, n_kv_heads=4, seq_len=64)
+
+
+def _quant_fields(qw):
+    yield "q_tokens", qw.q_tokens
+    yield "wcls", qw.wcls
+    for name in ("wq", "wk", "wv", "wo", "w1", "w2", "w3"):
+        for l, t in enumerate(getattr(qw, name)):
+            yield f"{name}[{l}]", t
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_v2_writers_and_readers_match_jax(tmp_path, shared):
+    """The port's write_v2 writes the JAX writer's bytes, and each package's
+    read_v2 reads the other's file to the same int8 values and scales."""
+    cfg_j = tiny_config(shared_classifier=shared, **Q8_CFG)
+    cfg = ModelConfig(**vars(cfg_j))
+    w = pck.random_weights(cfg, seed=6)
+    pj, pp = str(tmp_path / "j.bin"), str(tmp_path / "p.bin")
+    err_j = jck.write_v2(pj, cfg_j, jck.random_weights(cfg_j, seed=6), group_size=32)
+    err_p = pck.write_v2(pp, cfg, w, group_size=32)
+    assert err_p == err_j
+    with open(pj, "rb") as f, open(pp, "rb") as g:
+        assert f.read() == g.read()
+    (cfg_a, qa), (cfg_b, qb) = jck.load_checkpoint(pp), pck.load_checkpoint(pj)
+    assert cfg_b == ModelConfig(**vars(cfg_a)) and cfg_b.group_size == 32
+    for name in ("rms_att", "rms_ffn", "rms_final"):
+        np.testing.assert_array_equal(getattr(qb, name), getattr(qa, name), err_msg=name)
+    for (name, ta), (_, tb) in zip(_quant_fields(qa), _quant_fields(qb)):
+        np.testing.assert_array_equal(tb.q, ta.q, err_msg=name)
+        np.testing.assert_array_equal(tb.s, ta.s, err_msg=name)
+        np.testing.assert_array_equal(pck.dequantize(tb, 32), jck.dequantize(ta, 32),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_q8_params_bit_identical(tmp_path, shared):
+    """qparams_from_quant_weights on a v2 file equals quantize_params_q8 on
+    the fp32 weights bit for bit (test_q8_model.py:106-128), and both equal
+    the JAX package's unstack_quant_params(quantize_params_q8(...)) carried
+    across by qparams_from_jax_numpy."""
+    import jax
+
+    from hip_llama_tpu.models.params import quantize_params_q8 as jax_q8
+    from hip_llama_tpu.models.params import unstack_quant_params
+    from hip_llama_tpu_torch.models.params import (
+        qparams_from_jax_numpy,
+        qparams_from_quant_weights,
+        quantize_params_q8,
+    )
+
+    cfg_j = tiny_config(shared_classifier=shared, **Q8_CFG)
+    cfg = ModelConfig(**vars(cfg_j))
+    w = pck.random_weights(cfg, seed=7)
+    path = str(tmp_path / "m.bin")
+    pck.write_v2(path, cfg, w, group_size=32)
+    cfg2, qw = pck.load_checkpoint(path)
+    from_file = qparams_from_quant_weights(cfg2, qw, device="cpu")
+    in_memory = quantize_params_q8(cfg, w, group_size=32, device="cpu")
+    jp = unstack_quant_params(jax_q8(cfg_j, jck.random_weights(cfg_j, seed=7), group_size=32))
+    carried = qparams_from_jax_numpy(jax.tree_util.tree_map(np.asarray, jp)._asdict(),
+                                     device="cpu")
+
+    def leaves(p):
+        yield "tok_emb_q", p.tok_emb_q
+        yield "tok_emb_s", p.tok_emb_s
+        yield "rms_final", p.rms_final
+        yield "wcls.q", p.wcls.q
+        yield "wcls.s", p.wcls.s
+        for name in ("rms_att", "rms_ffn"):
+            for l, t in enumerate(getattr(p, name)):
+                yield f"{name}[{l}]", t
+        for name in ("wq", "wo", "w1", "w2"):
+            for l, t in enumerate(getattr(p, name)):
+                yield f"{name}[{l}].q", t.q
+                yield f"{name}[{l}].s", t.s
+        assert p.wk == p.wv == p.w3 == ()
+
+    for other in (in_memory, carried):
+        for (name, a), (_, b) in zip(leaves(from_file), leaves(other)):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+            # the kernels take row-major operands and refuse strided ones
+            assert a.is_contiguous() and b.is_contiguous(), name
+    assert from_file.wq[0].q.shape == (cfg.dim, cfg.dim + 2 * cfg.kv_dim)
+    assert from_file.w1[0].q.shape == (cfg.dim, 2 * cfg.hidden_dim)
 
 
 def test_golden_tokenizer_matches_jax():
