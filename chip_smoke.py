@@ -27,7 +27,14 @@ Phases, in order; each raises on failure and none is caught:
   5b. the same serve with Q8_0 weights (quantized layer by layer on the
      card) through the Q8 path, its kernel launches counted; a control (the
      plain path with layer 0's FFN dropped) must read above the logit
-     tolerance.
+     tolerance;
+  6. the int8 KV cache (--kv int8): the int8 branches of K1-K5 and K23 and
+     the scale writer K12 against their plain versions at 7B shapes (K2,
+     K3 and K12 bit-exact); the golden fixture with --kv int8, dense fp32
+     and Q8 with the fused and the four-kernel layer, scored against the
+     JAX package's assets/out/cpu_f32_kv8 and cpu_q8_kv8; and the 7B-width
+     Q8 serve of phase 5b on an int8 cache, with its logit check, control
+     and launches (K23 32 per decode step).
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -53,9 +60,9 @@ from hip_llama_tpu_torch import run as port_run
 from hip_llama_tpu_torch.config import ModelConfig
 from hip_llama_tpu_torch.engine import InferenceEngine, Requests, read_inputfile
 from hip_llama_tpu_torch.io.tokenizer_io import read_tokenizer_bin, write_tokenizer_bin
-from hip_llama_tpu_torch.models.llama import KVCache, make_decode_step, make_prefill
+from hip_llama_tpu_torch.models.llama import KVCache, init_kv_cache, make_decode_step, make_prefill
 from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams
-from hip_llama_tpu_torch.ops import KERNELS, _build
+from hip_llama_tpu_torch.ops import _build, launch_counts, reset_launches
 from hip_llama_tpu_torch.ops import attention as A
 from hip_llama_tpu_torch.ops import cache as C
 from hip_llama_tpu_torch.ops import layer_fused as LF
@@ -69,7 +76,7 @@ CORPORA = ("gen", "sciq", "tinystories", "truthful_qa", "wikipedia")
 
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 # kernel vs plain version: fp32 differs in summation order only (512-row
 # sums of O(1) terms); bf16 by about one ulp of an O(1) output, as
 # tests/test_attention_pallas.py:83-85 allows
@@ -81,8 +88,10 @@ LOGIT_TOL = 0.25
 # the same for the Q8 path, where every product of every layer also sums in
 # another order (split-K GEMV or tensor-core tiles against fp32 matmuls of
 # the dequantized weights) before its bf16 rounding. The logits are about
-# N(0, 1); sound runs of this script read about 0.08, and the control (the
-# plain path with layer 0's FFN dropped) must read above the limit
+# N(0, 1); sound runs of this script read about 0.08 on a bf16 cache and
+# 0.096 on an int8 one (where a k or v element a bf16 ulp apart can round
+# to the next int8 value), and the control (the plain path with layer 0's
+# FFN dropped) must read above the limit
 Q8_LOGIT_TOL = 0.2
 # Q8 product outputs vs plain: bf16 values of magnitude up to ~8 from the
 # same cast points with fp32 sums in another order, one bf16 ulp apart at
@@ -92,6 +101,11 @@ Q8_ATOL = Q8_RTOL = 2e-2
 # bf16 probabilities round after a running max taken over 64-row blocks
 # (kernel) or 128-row blocks (plain): a few ulps relative
 ATTN_ATOL, ATTN_RTOL = 4e-3, 2e-2
+# int8-cache attention vs plain: the int8 dots are exact on both sides and
+# the blocks are the JAX blocks on both, so the bf16 outputs read 1.5e-5
+# apart at most; an ulp of expf could still move one quantized probability
+# by one int8 step (up to 1/127 of an output) and round it to the next bf16
+INT8_ATTN_ATOL, INT8_ATTN_RTOL = 2e-3, 1e-2
 
 SEED = 1234
 LLAMA2_7B = ModelConfig(dim=4096, hidden_dim=11008, n_layers=32, n_heads=32,
@@ -112,19 +126,56 @@ KERNEL_SOURCES = {
     "q8_matmul_silu": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:609"),
     "q8_layer_fused": ("hip_llama_tpu_torch/csrc/layer_fused.cu",
                        "hip_llama_tpu/ops/layer_fused.py:316"),
+    # the int8 KV cache: the int8 branches of six kernels, and K12
+    "attention_decode_int8": ("hip_llama_tpu_torch/csrc/attention.cu",
+                              "hip_llama_tpu/ops/attention.py:1163"),
+    "kv_commit_rows_int8": ("hip_llama_tpu_torch/csrc/cache.cu",
+                            "hip_llama_tpu/ops/cache.py:304"),
+    "kv_write_chunk_int8": ("hip_llama_tpu_torch/csrc/cache.cu",
+                            "hip_llama_tpu/ops/cache.py:747"),
+    "scale_write_chunk": ("hip_llama_tpu_torch/csrc/cache.cu",
+                          "hip_llama_tpu/ops/cache.py:845"),
+    "attention_prefill_int8": ("hip_llama_tpu_torch/csrc/attention.cu",
+                               "hip_llama_tpu/ops/attention.py:957"),
+    "attention_decode_fused_int8": ("hip_llama_tpu_torch/csrc/attention.cu",
+                                    "hip_llama_tpu/ops/attention.py:1486"),
+    "q8_layer_fused_int8": ("hip_llama_tpu_torch/csrc/layer_fused.cu",
+                            "hip_llama_tpu/ops/layer_fused.py:316"),
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
 Q8_PATH = ("q8_matmul", "q8_layer_fused", "q8_matmul_ffn", "q8_matmul_silu",
            "kv_commit_rows", "kv_write_chunk", "attention_prefill")
 # the golden fixture's Q8 runs: prefill chunks of at most 256 rows take K18
-GOLDEN_Q8_PATHS = {
-    "fused layer": ("1", ("q8_layer_fused", "q8_matmul", "q8_matmul_ffn", "kv_commit_rows",
-                          "kv_write_chunk", "attention_prefill")),
-    "four-kernel layer": ("0", ("attention_decode_fused", "q8_matmul", "q8_matmul_ffn",
-                                "kv_commit_rows", "kv_write_chunk", "attention_prefill")),
+GOLDEN_Q8_RUNS = {
+    "q8, fused layer": (["--quant", "q8"], "1", "cpu_q8",
+                        ("q8_layer_fused", "q8_matmul", "q8_matmul_ffn", "kv_commit_rows",
+                         "kv_write_chunk", "attention_prefill"), True),
+    "q8, four-kernel layer": (["--quant", "q8"], "0", "cpu_q8",
+                              ("attention_decode_fused", "q8_matmul", "q8_matmul_ffn",
+                               "kv_commit_rows", "kv_write_chunk", "attention_prefill"), True),
 }
-WRAPPERS = {w.__name__: w for w in KERNELS}
+# the same on an int8 cache, and the dense fp32 fixture with it
+INT8_CACHE_PATH = ("kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
+                   "attention_prefill_int8")
+# The Q8 int8 runs are held to the average bar only: a bf16 ulp where the
+# card and XLA round differently can move a cached value to the next int8
+# value, and greedy decoding forks at the next near-tie of the bf16 logits
+# (tests/test_torch_kv_int8_model.py::test_q8_int8_serve_forks_from_jax_only
+# _at_near_ties).
+GOLDEN_INT8_RUNS = {
+    "fp32 --kv int8": (["--dtype", "float32", "--kv", "int8"], "1", "cpu_f32_kv8",
+                       ("attention_decode_int8",) + INT8_CACHE_PATH, True),
+    "q8 --kv int8, fused layer": (["--quant", "q8", "--kv", "int8"], "1", "cpu_q8_kv8",
+                                  ("q8_layer_fused_int8", "q8_matmul", "q8_matmul_ffn")
+                                  + INT8_CACHE_PATH, False),
+    "q8 --kv int8, four-kernel layer": (["--quant", "q8", "--kv", "int8"], "0", "cpu_q8_kv8",
+                                        ("attention_decode_fused_int8", "q8_matmul",
+                                         "q8_matmul_ffn") + INT8_CACHE_PATH, False),
+}
+Q8_INT8_PATH = ("q8_matmul", "q8_layer_fused_int8", "q8_matmul_ffn", "q8_matmul_silu",
+                "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
+                "attention_prefill_int8")
 
 
 def card_line() -> str:
@@ -134,17 +185,31 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 16, warmup: int = 3) -> float:
-    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+def cuda_ms(fn, iters: int = 16, warmup: int = 3, graph: bool = False) -> float:
+    """Mean device time of fn() in ms, from CUDA events around `iters` calls.
+    With `graph`, the calls are captured in one CUDA graph and the events
+    time its replay: for a kernel whose device time is below its wrapper's
+    host cost, which back-to-back calls would time instead."""
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for i in range(iters):
-        fn(i)
-    e1.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(iters):
+                fn(i)
+        g.replay()
+        torch.cuda.synchronize()
+        e0.record()
+        g.replay()
+        e1.record()
+    else:
+        e0.record()
+        for i in range(iters):
+            fn(i)
+        e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
 
@@ -212,7 +277,7 @@ def phase_kernels(dtype) -> dict[str, dict]:
         C.kv_commit_rows_plain(c2, kr, vr, pos, valid)
         err = max(err, max_err(c1.k, c2.k), max_err(c1.v, c2.v))
         del c1, c2
-    ms = cuda_ms(lambda i: C.kv_commit_rows(cache, kr, vr, pos))
+    ms = cuda_ms(lambda i: C.kv_commit_rows(cache, kr, vr, pos), graph=True)
     plain = cuda_ms(lambda i: C.kv_commit_rows_plain(cache, kr, vr, pos))
     n_bytes = 2 * 2 * n_layers * b * kvh * hs * e + 4 * b
     out["kv_commit_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
@@ -230,7 +295,7 @@ def phase_kernels(dtype) -> dict[str, dict]:
     C.kv_write_chunk_plain(c2, ck, cv, 3, start, cvalid)
     err = max(max_err(c1.k, c2.k), max_err(c1.v, c2.v))
     del c1, c2
-    ms = cuda_ms(lambda i: C.kv_write_chunk(cache, ck, cv, i % rot, start, cvalid))
+    ms = cuda_ms(lambda i: C.kv_write_chunk(cache, ck, cv, i % rot, start, cvalid), graph=True)
     plain = cuda_ms(lambda i: C.kv_write_chunk_plain(cache, ck, cv, i % rot, start, cvalid))
     rows = sum(max(0, min(v, s - st)) for st, v in zip(start_l, valid_l))
     n_bytes = 2 * 2 * rows * kvh * hs * e + 8 * b
@@ -432,6 +497,203 @@ def phase_q8_kernels() -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 6a: the int8 cache's kernels against their plain versions at 7B shapes
+
+
+def dequant_cache(q: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    return (q.float() * sc[..., None]).to(torch.bfloat16)
+
+
+def phase_kernels_int8() -> dict[str, dict]:
+    """The int8 branches of K1, K2, K3, K4, K5 and K23, and K12, at
+    Llama-2-7B shapes (B 8, L 32, KVH 32, HS 128, S 512, ragged positions,
+    T 256) with bf16 activations, on an int8 cache quantized from seeded
+    draws. The writers must match their plain versions bit for bit. Bytes
+    count int8 rows plus their 4-byte scales, activations in and out once
+    each; the library yardstick is SDPA on K/V dequantized to bf16
+    beforehand (and so reading twice the bytes)."""
+    dev = torch.device("cuda")
+    b, n_layers, kvh, h, s, hs, t, rot = 8, 32, 32, 32, 512, 128, 256, 8
+    d, hid, gs = 4096, 11008, 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    planes = [C.quantize_kv_rows(rnd(b, n_layers, kvh, s, hs)) for _ in range(2)]
+    cache = KVCache(planes[0][0], planes[1][0], planes[0][1], planes[1][1])
+    del planes
+    out: dict[str, dict] = {}
+
+    def case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, atol=INT8_ATTN_ATOL,
+             rtol=INT8_ATTN_RTOL):
+        out[name] = q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, atol, rtol)
+
+    def clone():
+        return KVCache(*(x.clone() for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+
+    def writer_case(name, label, write, plain_write, n_bytes):
+        """A writer: into two copies of the cache, which must then be equal
+        bit for bit; then timed into the cache itself."""
+        c1, c2 = clone(), clone()
+        write(c1, 3)
+        plain_write(c2, 3)
+        torch.cuda.synchronize()
+        planes = [(x, y) for x, y in zip((c1.k, c1.v, c1.k_scale, c1.v_scale),
+                                         (c2.k, c2.v, c2.k_scale, c2.v_scale))]
+        err = max(max_err(x, y) for x, y in planes)
+        ok = all(torch.equal(x, y) for x, y in planes)
+        del c1, c2, planes
+        ms = cuda_ms(lambda i: write(cache, i % rot), graph=True)
+        plain = cuda_ms(lambda i: plain_write(cache, i % rot), iters=4, warmup=1)
+        bound = bound_ms(n_bytes, 0, torch.int8)
+        print(f"kernel {name} [{label}]: max_abs_err {err:.3g} (bit-exact) "
+              f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms n/a "
+              f"bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} [{label}] differs from its plain version")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=bound)
+
+    pos_l = [0, 1, 100, 255, 256, 300, 450, s - 1]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    live_rows = sum(pos_l)
+    sc = (cache.k_scale, cache.v_scale)
+    col = torch.arange(s + 1, device=dev)
+    mask = ((col[None, :] < pos[:, None]) | (col[None, :] == s))[:, None, None, :]
+    # K1 and K5 with bf16 activations
+    q, kc, vc = rnd(b, h, hs), rnd(b, kvh, hs), rnd(b, kvh, hs)
+    kf = [torch.cat([dequant_cache(cache.k[:, l], cache.k_scale[:, l]), kc[:, :, None]], dim=2)
+          for l in range(rot)]
+    vf = [torch.cat([dequant_cache(cache.v[:, l], cache.v_scale[:, l]), vc[:, :, None]], dim=2)
+          for l in range(rot)]
+    q4 = q[:, :, None, :]
+    dec_bytes = 2 * b * h * hs * 2 + 2 * b * kvh * hs * 2 + 2 * live_rows * kvh * (hs + 4) + 4 * b
+    dec_flops = 4 * h * hs * sum(p + 1 for p in pos_l)
+    case("attention_decode_int8", "B 8, H 32, KVH 32, S 512, HS 128, bf16 q",
+         lambda i: A.attention_decode(q, cache.k, cache.v, i % rot, pos, kc, vc, *sc),
+         lambda i: A.attention_decode_plain(q, cache.k, cache.v, i % rot, pos, kc, vc, *sc),
+         lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
+         dec_bytes, dec_flops)
+    qkv = torch.cat([q, kc, vc], dim=1)
+    case("attention_decode_fused_int8", "B 8, H 32, KVH 32, S 512, HS 128",
+         lambda i: A.attention_decode_fused(qkv, cache.k, cache.v, i % rot, pos, h, *sc),
+         lambda i: A.attention_decode_fused_plain(qkv, cache.k, cache.v, i % rot, pos, h, *sc),
+         lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
+         dec_bytes, dec_flops)
+    # fp32 activations (the dense fp32 path) take the same kernel: a check
+    q32, kc32, vc32 = q.float(), kc.float(), vc.float()
+    err = max_err(A.attention_decode(q32, cache.k, cache.v, 3, pos, kc32, vc32, *sc),
+                  A.attention_decode_plain(q32, cache.k, cache.v, 3, pos, kc32, vc32, *sc))
+    # the fp32 outputs read 4.8e-7 apart: the fp32 kernels' bound
+    print(f"kernel attention_decode_int8 [fp32 q]: max_abs_err {err:.3g} (tol "
+          f"{TOL[torch.float32]:g})", flush=True)
+    if err > TOL[torch.float32]:
+        raise AssertionError("attention_decode_int8 with fp32 q disagrees with its plain version")
+    del kf, vf
+
+    # K2: every slot, then a valid mask, at ragged positions
+    kr, vr = rnd(n_layers, b, kvh, hs), rnd(n_layers, b, kvh, hs)
+    valid = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)
+    writer_case("kv_commit_rows_int8", "L 32, B 8, KVH 32, HS 128, bf16 rows, a valid mask",
+                lambda c, i: C.kv_commit_rows(c, kr, vr, pos, valid),
+                lambda c, i: C.kv_commit_rows_plain(c, kr, vr, pos, valid),
+                2 * n_layers * 6 * kvh * (hs * 2 + hs + 4) + 8 * b)
+    writer_case("kv_commit_rows_int8", "L 32, B 8, KVH 32, HS 128, bf16 rows",
+                lambda c, i: C.kv_commit_rows(c, kr, vr, pos),
+                lambda c, i: C.kv_commit_rows_plain(c, kr, vr, pos),
+                2 * n_layers * b * kvh * (hs * 2 + hs + 4) + 4 * b)
+
+    # K3 and K12: ragged valid, one bystander, windows past S
+    start_l = [0, 40, 128, 256, 300, 5, 400, 200]
+    valid_l = [256, 200, 64, 256, 100, 0, 112, 1]
+    start = torch.tensor(start_l, dtype=torch.int32, device=dev)
+    cvalid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    (ckq, cks), (cvq, cvs) = (C.quantize_kv_rows(rnd(b, t, kvh, hs)) for _ in range(2))
+    rows = sum(max(0, min(v, s - st)) for st, v in zip(start_l, valid_l))
+    writer_case("kv_write_chunk_int8", "B 8, T 256, KVH 32, HS 128",
+                lambda c, i: C.kv_write_chunk(c, ckq, cvq, i, start, cvalid),
+                lambda c, i: C.kv_write_chunk_plain(c, ckq, cvq, i, start, cvalid),
+                2 * 2 * rows * kvh * hs + 8 * b)
+    writer_case("scale_write_chunk", "B 8, T 256, KVH 32",
+                lambda c, i: C.scale_write_chunk(c, cks, cvs, i, start, cvalid),
+                lambda c, i: C.scale_write_chunk_plain(c, cks, cvs, i, start, cvalid),
+                2 * 2 * rows * kvh * 4 + 8 * b)
+
+    # K4 over the chunk just written, bf16 q (rows t < valid compared)
+    qp = rnd(b, t, h, hs)
+    live = torch.arange(t, device=dev)[None, :] < cvalid[:, None]
+    colp = torch.arange(s, device=dev)
+    qpos = start[:, None] + torch.arange(t, device=dev)[None, :]
+    pmask = (colp[None, None, :] <= qpos[:, :, None])[:, None]
+    qt = qp.transpose(1, 2)
+    kd = [dequant_cache(cache.k[:, l], cache.k_scale[:, l]) for l in range(rot)]
+    vd = [dequant_cache(cache.v[:, l], cache.v_scale[:, l]) for l in range(rot)]
+    n_rows = sum(valid_l)
+    kv_rows = sum(min(st + v, s) for st, v in zip(start_l, valid_l) if v)
+    err = max(max_err(A.attention_prefill(qp, cache.k, cache.v, l, start, cvalid, *sc)[live],
+                      A.attention_prefill_plain(qp, cache.k, cache.v, l, start, cvalid, *sc)[live])
+              for l in (0, 3))
+    ms = cuda_ms(lambda i: A.attention_prefill(qp, cache.k, cache.v, i % rot, start, cvalid, *sc))
+    plain = cuda_ms(lambda i: A.attention_prefill_plain(qp, cache.k, cache.v, i % rot, start,
+                                                        cvalid, *sc), iters=4, warmup=1)
+    lib = cuda_ms(lambda i: F.scaled_dot_product_attention(qt, kd[i % rot], vd[i % rot],
+                                                           attn_mask=pmask))
+    bound = bound_ms((2 * n_rows * h * hs) * 2 + 2 * kv_rows * kvh * (hs + 4) + 8 * b,
+                     4 * h * hs * sum(min(st + j, s - 1) + 1 for st, v in zip(start_l, valid_l)
+                                      for j in range(v)), torch.bfloat16)
+    ok = err <= TOL[torch.bfloat16]
+    print(f"kernel attention_prefill_int8 [B 8, T 256, H 32, KVH 32, S 512, HS 128, bf16 q]: "
+          f"max_abs_err {err:.3g} (tol {TOL[torch.bfloat16]:g}) {'ok' if ok else 'FAIL'}; "
+          f"ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms {bound[0]:.4f} "
+          f"({bound[1]})", flush=True)
+    if not ok:
+        raise AssertionError("attention_prefill_int8 disagrees with its plain version")
+    out["attention_prefill_int8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
+                                         bound=bound)
+    del kd, vd
+
+    # K23 on the int8 cache, weights rotating over two copies; and bit-equal
+    # to the four kernels it fuses
+    def weights(k, n):
+        return Q.q8_quantize_weights(rnd(k, n, dtype=torch.float32).mul_(k ** -0.5), gs)
+
+    def wbytes(k, n):
+        return k * n + (k // gs) * n * 4
+
+    lw = [dict(wqkv=weights(d, 3 * d), wo=weights(d, d), w13=weights(d, 2 * hid),
+               w2=weights(hid, d)) for _ in range(2)]
+    g1, g2 = ((1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous() for _ in range(2))
+    x = rnd(b, d)
+
+    def layer(fn, i):
+        w = lw[i % 2]
+        return fn(x, w["wqkv"], w["wo"], w["w13"], w["w2"], g1, g2, cache.k, cache.v, i % rot,
+                  pos, *sc, n_heads=h)
+
+    case("q8_layer_fused_int8", "B 8, 7B layer, S 512",
+         lambda i: layer(LF.q8_layer_fused, i), lambda i: layer(LF.q8_layer_fused_plain, i), None,
+         wbytes(d, 3 * d) + wbytes(d, d) + wbytes(d, 2 * hid) + wbytes(hid, d)
+         + 2 * live_rows * kvh * (hs + 4) + (2 * b * d + b * 2 * kvh * hs) * 2 + 2 * d * 4 + 4 * b,
+         2 * b * (d * 3 * d + d * d + 3 * d * hid) + 4 * h * hs * sum(p + 1 for p in pos_l),
+         atol=Q8_ATOL, rtol=Q8_RTOL)
+    w = lw[0]
+    got, kv = layer(LF.q8_layer_fused, 0)
+    qkv = Q.q8_matmul(x, w["wqkv"], norm_weight=g1, rope_pos=pos, rope_limit=2 * d,
+                      rope_head=hs).view(b, h + 2 * kvh, hs)
+    att = A.attention_decode_fused(qkv, cache.k, cache.v, 0, pos, h, *sc)
+    x2 = Q.q8_matmul(att.reshape(b, d), w["wo"], residual=x)
+    four = Q.q8_matmul_ffn(x2, w["w13"], w["w2"], x2, g2)
+    torch.cuda.synchronize()
+    same = torch.equal(got, four) and torch.equal(kv, qkv[:, h:])
+    print(f"kernel q8_layer_fused_int8 [B 8]: bit-equal to the four-kernel int8 layer: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("q8_layer_fused_int8 differs from the four-kernel int8 layer")
+    del lw, cache
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the golden fixture through the CLI
 
 
@@ -460,31 +722,33 @@ def phase_goldens() -> None:
             print(f"golden {c}_in_8: byte-identical to assets/out/cpu_f32", flush=True)
 
 
-def phase_goldens_q8() -> dict[str, dict[str, int]]:
-    """--quant q8 on the card, scored against the JAX package's Q8 outputs
-    as the fraction of requests whose generations are byte-identical, at
-    the bars of tests/test_goldens.py:84-100: once with each decode layer
-    of GOLDEN_Q8_PATHS; returns each run's kernel launches."""
+def phase_golden_runs(runs: dict) -> dict[str, dict[str, int]]:
+    """Each run of `runs` (label -> (CLI arguments, HIPLLAMA_LAYER_FUSE,
+    golden directory, the kernels its path must launch, whether the bar of
+    3 corpora at 1.0 applies)) on the card, greedy at -b 4, scored against
+    the JAX package's outputs in assets/out/<directory> as the fraction of
+    requests whose generations are byte-identical, at the bars of
+    tests/test_goldens.py:84-100; returns each run's kernel launches."""
     launches = {}
-    for label, (fuse, path) in GOLDEN_Q8_PATHS.items():
+    for label, (args, fuse, golden, path, corpora_bar) in runs.items():
         os.environ["HIPLLAMA_LAYER_FUSE"] = fuse
         try:
-            for w in WRAPPERS.values():
-                w.launches = 0
-            golden_q8_run(label)
-            launches[label] = {name: w.launches for name, w in WRAPPERS.items()}
+            reset_launches()
+            golden_run(label, args, golden, corpora_bar)
+            launches[label] = launch_counts()
         finally:
             del os.environ["HIPLLAMA_LAYER_FUSE"]
         dead = [n for n in path if launches[label][n] == 0]
-        print(f"golden q8 ({label}) launches: "
+        print(f"golden ({label}) launches: "
               f"{ {n: c for n, c in launches[label].items() if c} }", flush=True)
         if dead:
-            raise AssertionError(f"kernels never launched on the golden q8 {label} path: {dead}")
+            raise AssertionError(f"kernels never launched on the golden {label} path: {dead}")
     return launches
 
 
-def golden_q8_run(label: str) -> None:
+def golden_run(label: str, args: list[str], golden: str, corpora_bar: bool) -> None:
     scores = {}
+    same = 0
     with tempfile.TemporaryDirectory() as tmp:
         for c in CORPORA:
             out = os.path.join(tmp, f"{c}.out")
@@ -493,23 +757,28 @@ def golden_q8_run(label: str) -> None:
                     "run", os.path.join(GOLDEN, "model.bin"),
                     "-z", os.path.join(GOLDEN, "tokenizer.bin"), "-m", "test",
                     "-f", os.path.join(REPO, "assets", "in", f"{c}_in_8.txt"),
-                    "-o", out, "-b", "4", "-t", "0.0", "--quant", "q8", "--device", "cuda",
+                    "-o", out, "-b", "4", "-t", "0.0", *args, "--device", "cuda",
                 ])
             if rc != 0:
-                raise AssertionError(f"run.main --quant q8 failed on {c} (rc {rc})")
-            got = read_inputfile(out)
-            want = read_inputfile(os.path.join(REPO, "assets", "out", "cpu_q8", f"{c}_in_8.out"))
+                raise AssertionError(f"run.main {args} failed on {c} (rc {rc})")
+            want_path = os.path.join(REPO, "assets", "out", golden, f"{c}_in_8.out")
+            got, want = read_inputfile(out), read_inputfile(want_path)
             if got.num_reqs != want.num_reqs:
                 raise AssertionError(f"{c}: {got.num_reqs} generations, want {want.num_reqs}")
             scores[c] = sum(a == b for a, b in zip(got.prompts, want.prompts)) / want.num_reqs
-            print(f"golden q8 ({label}) {c}_in_8: {scores[c]:.4f} of requests byte-identical "
-                  f"to assets/out/cpu_q8", flush=True)
+            with open(out, "rb") as f, open(want_path, "rb") as g:
+                identical = f.read() == g.read()
+            same += identical
+            print(f"golden ({label}) {c}_in_8: {scores[c]:.4f} of requests byte-identical "
+                  f"to assets/out/{golden}{'; the file byte-identical' if identical else ''}",
+                  flush=True)
     full = sum(1 for v in scores.values() if v == 1.0)
     avg = sum(scores.values()) / len(scores)
-    print(f"golden q8 ({label}): {full} corpora at 1.0 (bar 3), average {avg:.4f} (bar 0.75)",
+    print(f"golden ({label}): {full} corpora at 1.0 (bar {3 if corpora_bar else 'none'}), "
+          f"average {avg:.4f} (bar 0.75), {same} of {len(CORPORA)} files byte-identical",
           flush=True)
-    if full < 3 or avg < 0.75:
-        raise AssertionError(f"Q8 golden coverage below the bars: {scores}")
+    if (corpora_bar and full < 3) or avg < 0.75:
+        raise AssertionError(f"golden coverage of {label} below the bars: {scores}")
 
 
 # ---------------------------------------------------------------------------
@@ -627,13 +896,14 @@ def without_ffn0(params: QuantLlamaParams) -> QuantLlamaParams:
 
 
 def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
-                control=None) -> dict:
+                control=None, kv_quant: bool = False) -> dict:
     """Serve the 16 requests at batch 8, window 512 through the engine with
-    `params`, after holding the first prefill and decode logits of the
-    kernel path against the plain path (and, given `control`, checking that
-    the plain path on control(params) reads above the tolerance, and
-    profiling a decode step of the four-kernel layer beside the default
-    one); returns the launches of the serve."""
+    `params` (on an int8 cache with `kv_quant`), after holding the first
+    prefill and decode logits of the kernel path against the plain path
+    (and, given `control`, checking that the plain path on control(params)
+    reads above the tolerance, and profiling a decode step of the
+    four-kernel layer beside the default one); returns the launches of the
+    serve."""
     dev = torch.device("cuda")
     cfg = LLAMA2_7B
     batch, window, steps = 8, 512, 352
@@ -657,8 +927,8 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
     toks_d = torch.from_numpy(toks).to(dev)
 
     def first_step(p, plain):
-        cache = KVCache(*(torch.zeros(batch, cfg.n_layers, cfg.n_kv_heads, window, cfg.head_size,
-                                      dtype=torch.bfloat16, device=dev) for _ in range(2)))
+        cache = init_kv_cache(cfg, batch, dtype=torch.bfloat16, seq_len=window, device=dev,
+                              quantized=kv_quant)
         pf, _ = make_prefill(cfg, last_only=True, plain=plain)(p, cache, toks_d, start, valid)
         lg, _ = make_decode_step(cfg, plain=plain)(p, cache, cur, valid)
         return pf, lg
@@ -690,7 +960,8 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
             raise AssertionError(f"top-1 flip at a top-2 gap of {gp} > 2 x {lg_err}")
     del logits, lk, lp
 
-    engine = InferenceEngine(cfg, params, tok, batch_size=batch, max_seq_len=window)
+    engine = InferenceEngine(cfg, params, tok, batch_size=batch, max_seq_len=window,
+                             kv_quant=kv_quant)
     nonfinite = [0]
     do_step = engine._do_step
 
@@ -702,22 +973,22 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
     engine._do_step = checked_step
     requests = Requests(prompts=prompts, generations=[""] * len(prompts))
     torch.cuda.reset_peak_memory_stats()
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     stats: dict = {}
     # greedy (temperature 0): the BOS and EOS logits are exactly 0 and never
     # the largest, where sampling at temperature 1 could draw them
     greedy = [Sampler(cfg.vocab_size, temperature=0.0) for _ in prompts]
     n_gen = engine.serve(requests, steps=steps, stats=stats, samplers=greedy)
     torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in WRAPPERS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"{label} serve: {len(prompts)} requests, {stats['total_tokens']} tokens in "
           f"{stats['elapsed_s']:.3f} s = {stats['tok_per_s']:.2f} tok/s; ttft p50 "
           f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms; "
           f"{stats['scheduler_iters']} scheduler iterations; prefill chunks by T "
           f"{dict(sorted(engine.prefill_chunks.items()))}; max_memory_allocated "
-          f"{peak / 2**30:.2f} GiB; launches {launches}; card {card_line()}", flush=True)
+          f"{peak / 2**30:.2f} GiB; launches { {n: c for n, c in launches.items() if c} }; "
+          f"card {card_line()}", flush=True)
     if any(g == "" for g in requests.generations):
         raise AssertionError("a request did not finish")
     if n_gen != len(prompts) * (steps - 1):
@@ -737,11 +1008,15 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
     cache = engine.new_cache()
     toks = np.array([t[-1] for t in ids], np.int32)
     pos0 = np.array([len(t) - 1 for t in ids], np.int32)
-    before = {name: w.launches for name, w in WRAPPERS.items()}
+    before = launch_counts()
     engine._do_step(cache, toks, pos0)
-    per_step = {n: w.launches - before[n] for n, w in WRAPPERS.items() if w.launches > before[n]}
+    per_step = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
     print(f"{label} wrapper launches per decode step (batch 8): {sum(per_step.values())} "
           f"{per_step}", flush=True)
+    for layer_kernel in ("q8_layer_fused", "q8_layer_fused_int8"):
+        if layer_kernel in path and per_step.get(layer_kernel) != cfg.n_layers:
+            raise AssertionError(f"{label}: {per_step.get(layer_kernel)} {layer_kernel} launches "
+                                 f"per decode step, want {cfg.n_layers}")
     profile_window(f"{label} decode step (batch 8)", 4,
                    lambda i: engine._do_step(cache, toks, pos0 + i))
     if control is not None:
@@ -804,8 +1079,11 @@ def main() -> int:
     res = {dt: phase_kernels(dt) for dt in (torch.bfloat16, torch.float32)}
     res_q8 = phase_q8_kernels()
     torch.cuda.empty_cache()
+    res_int8 = phase_kernels_int8()
+    torch.cuda.empty_cache()
     phase_goldens()
-    launches_golden_q8 = phase_goldens_q8()
+    launches_golden = phase_golden_runs(GOLDEN_Q8_RUNS)
+    launches_golden.update(phase_golden_runs(GOLDEN_INT8_RUNS))
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -813,7 +1091,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"7b-width params: {sum(getattr(params, f).numel() for f in params.__dataclass_fields__) / 1e9:.2f}"
           f" G bf16 values made in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = phase_serve("7b", params, LOGIT_TOL, DENSE_PATH)
+    launches = {"dense": phase_serve("7b", params, LOGIT_TOL, DENSE_PATH)}
     del params
     gc.collect()  # the served engine sits in a reference cycle (its patched step)
     torch.cuda.empty_cache()
@@ -825,23 +1103,31 @@ def main() -> int:
                   for t in (qt.q, qt.s))
     print(f"7b-width Q8 params: {q_bytes / 1e9:.2f} GB of int8 weights and fp32 scales "
           f"quantized on the card in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches_q8 = phase_serve("7b q8", qparams, Q8_LOGIT_TOL, Q8_PATH, control=without_ffn0)
+    launches["q8"] = phase_serve("7b q8", qparams, Q8_LOGIT_TOL, Q8_PATH, control=without_ffn0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["q8 int8"] = phase_serve("7b q8 int8-kv", qparams, Q8_LOGIT_TOL, Q8_INT8_PATH,
+                                      control=without_ffn0, kv_quant=True)
     del qparams
 
+    # each kernel's count from the first serving path that runs it: the 7B
+    # serves, then the golden runs (K5 and its int8 branch run only in the
+    # four-kernel layer, K1's int8 branch in the dense fp32 --kv int8 run)
+    runs = [launches["dense"], launches["q8"], launches["q8 int8"],
+            launches_golden["q8, four-kernel layer"], launches_golden["fp32 --kv int8"],
+            launches_golden["q8 --kv int8, four-kernel layer"]]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        r = res[torch.bfloat16].get(name) or res_q8[name]
-        # each kernel's count from the first serving path that runs it: the
-        # dense serve, the Q8 serve, the four-kernel golden run (K5)
-        n = next((runs[name] for runs in (launches if name in DENSE_PATH else {}, launches_q8,
-                                          launches_golden_q8["four-kernel layer"])
-                  if runs.get(name)), 0)
+        r = res[torch.bfloat16].get(name) or res_q8.get(name) or res_int8[name]
+        n = next((run[name] for run in runs if run.get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"],
         ))
+        if n == 0:
+            raise AssertionError(f"{name} was launched on no path of this run")
     print(f"total: {time.perf_counter() - t_all:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())

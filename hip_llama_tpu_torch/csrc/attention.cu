@@ -14,7 +14,16 @@
 // the cache dtype for QK, fp32 scores and softmax state (m, l, acc),
 // probabilities exp(s - running max) rounded to the V dtype before PV,
 // output in q's dtype. q, the cache and the current rows share one dtype
-// here (the wrapper checks). The running max advances once per block of bk
+// here (the wrapper checks).
+//
+// int8 caches (one fp32 scale per row, (B, L, KVH, S) planes): the decode
+// kernels run decode_attention.cuh's int8 task (int8 dots of q quantized by
+// row against K, and of p * vs quantized by row over each JAX block against
+// V; attention.py:300-383), with the whole block's scores in dynamic shared
+// memory. Prefill follows _prefill_kernel_tmaj's int8 branch (attention.py:
+// 891-940): q rounded to bf16 whatever its dtype, K and V widened exactly,
+// scores * scale * ks[row], and (p * vs[row]) rounded to bf16 before PV; no
+// int8 dots. q, the current rows and the output are fp32 or bf16. The running max advances once per block of bk
 // cache rows; with a bf16 cache the rounded probabilities depend on it, so
 // the wrappers pass the JAX kernels' block where it is at most 64 rows. A
 // block of 64 (every cache of 64 rows or more) is a compile-time constant,
@@ -37,13 +46,18 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "decode_attention.cuh"
 
 namespace {
 
 using hipllama::DecodeSmem;
+using hipllama::DecodeSmemInt8;
 using hipllama::decode_attention_task;
+using hipllama::decode_attention_task_int8;
+using hipllama::decode_int8_smem;
 using hipllama::kDecThreads;
 using hipllama::kMaxM;
 using hipllama::kDecTile;
@@ -69,6 +83,23 @@ __global__ void __launch_bounds__(kDecThreads) attention_decode_kernel(
                                                 scale, q_bs, cur_bs, bk);
 }
 
+// the int8 cache: the block's scores in dynamic shared memory after sm
+template <typename T, int HS>
+__global__ void __launch_bounds__(kDecThreads) attention_decode_int8_kernel(
+    const T* __restrict__ q, const signed char* __restrict__ k_cache,
+    const signed char* __restrict__ v_cache, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ pos_arr,
+    const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
+    int H, int KVH, int S, int L, int layer, float scale, int q_bs, int cur_bs, int bk) {
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  auto& sm = *reinterpret_cast<DecodeSmemInt8<HS, kDecThreads>*>(dec_smem);
+  float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmemInt8<HS, kDecThreads>));
+  decode_attention_task_int8<T, HS, kDecThreads>(sm, p_s, blockIdx.x, blockIdx.y, q, k_cache,
+                                                 v_cache, k_scale, v_scale, pos_arr, k_cur,
+                                                 v_cur, out, H, KVH, S, L, layer, scale, q_bs,
+                                                 cur_bs, bk);
+}
+
 // ---------------------------------------------------------------------------
 // prefill
 
@@ -82,15 +113,21 @@ constexpr size_t prefill_smem_bytes() {
                           + (size_t)kPfTile * (HS + 1)  // k (padded rows)
                           + (size_t)kPfTile * HS        // v
                           + (size_t)kPfRows * (kPfTile + 1)  // scores / p
-                          + 3 * (size_t)kPfRows);       // m, l, alpha
+                          + 3 * (size_t)kPfRows         // m, l, alpha
+                          + 2 * (size_t)kPfTile);       // k and v row scales (int8)
 }
 
-template <typename T, int HS, int BK>
+// T: q and output; C: the cache (T, or int8 with k_scale / v_scale)
+template <typename T, typename C, int HS, int BK>
 __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
+    const T* __restrict__ q, const C* __restrict__ k_cache, const C* __restrict__ v_cache,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
     const int* __restrict__ start_arr, const int* __restrict__ valid_arr,
     T* __restrict__ out, int T_len, int H, int KVH, int S, int L, int layer, float scale,
     int bk_arg) {
+  constexpr bool kInt8 = std::is_same<C, signed char>::value;
+  // the type probabilities round to before PV: V's, bf16 for an int8 cache
+  using P = typename std::conditional<kInt8, __nv_bfloat16, C>::type;
   const int bk = BK > 0 ? BK : bk_arg;
   constexpr int ACC = kPfRows * HS / kPfThreads;       // output entries per thread
   constexpr int SC = kPfRows * kPfTile / kPfThreads;   // score entries per thread
@@ -102,6 +139,8 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
   float* m_s = p_s + kPfRows * (kPfTile + 1);
   float* l_s = m_s + kPfRows;
   float* a_s = l_s + kPfRows;
+  float* ks_s = a_s + kPfRows;  // [kPfTile]
+  float* vs_s = ks_s + kPfTile;
 
   const int g = blockIdx.y, b = blockIdx.z;
   const int M = H / KVH;
@@ -115,8 +154,11 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 
   for (int i = tid; i < kPfRows * HS; i += kPfThreads) {
     const int r = i / HS, t = t0 + r / M;
-    q_s[i] = t < T_len ? to_f(q[(((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS + i % HS])
-                       : 0.f;
+    // q in the cache dtype; bf16 for an int8 cache (attention.py:912)
+    const float qv = t < T_len ? to_f(q[(((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS
+                                        + i % HS])
+                               : 0.f;
+    q_s[i] = kInt8 ? round_to<__nv_bfloat16>(qv) : qv;
   }
   if (tid < kPfRows) {
     m_s[tid] = -INFINITY;
@@ -126,9 +168,9 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
 
-  const size_t plane = (((size_t)b * L + layer) * KVH + g) * (size_t)S * HS;
-  const T* kb = k_cache + plane;
-  const T* vb = v_cache + plane;
+  const size_t row0 = (((size_t)b * L + layer) * KVH + g) * (size_t)S;
+  const C* kb = k_cache + row0 * HS;
+  const C* vb = v_cache + row0 * HS;
 
   for (int k0 = 0; k0 <= q_pos_max && k0 < S; k0 += bk) {
     __syncthreads();  // the previous tile's k/v/p are consumed
@@ -137,6 +179,11 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       const bool in = c < bk && k0 + c < S;
       k_s[c * (HS + 1) + dd] = in ? to_f(kb[(size_t)(k0 + c) * HS + dd]) : 0.f;
       v_s[i] = in ? to_f(vb[(size_t)(k0 + c) * HS + dd]) : 0.f;
+    }
+    if (kInt8 && tid < kPfTile) {
+      const bool in = tid < bk && k0 + tid < S;
+      ks_s[tid] = in ? k_scale[row0 + k0 + tid] : 0.f;
+      vs_s[tid] = in ? v_scale[row0 + k0 + tid] : 0.f;
     }
     __syncthreads();
     // scores: thread owns column c = tid % kPfTile of rows tid / kPfTile + 4i
@@ -151,7 +198,9 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 #pragma unroll 16
       for (int dd = 0; dd < HS; ++dd) s += qr[dd] * kr[dd];
       const bool live = c < bk && t < t_end && col < S && col <= start + t;
-      p_s[r * (kPfTile + 1) + c] = live ? s * scale : -INFINITY;
+      s *= scale;
+      if (kInt8) s *= ks_s[c];
+      p_s[r * (kPfTile + 1) + c] = live ? s : -INFINITY;
     }
     __syncthreads();
     // online softmax: each warp takes kPfRows / 8 rows
@@ -167,7 +216,7 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
         // a row with no live column yet keeps p = 0 (and m = -inf)
         const float p = pr[c] == -INFINITY ? 0.f : expf(pr[c] - m_new);
         sum += p;
-        pr[c] = round_to<T>(p);
+        pr[c] = round_to<P>(kInt8 ? p * vs_s[c] : p);
       }
       sum = warp_sum(sum, 32);
       if (lane == 0) {
@@ -220,21 +269,42 @@ int launch_decode(const void* q, const void* k, const void* v, const void* pos,
   return (int)cudaGetLastError();
 }
 
+// the int8 decode kernel with M x bk scores in dynamic shared memory
 template <typename T, int HS>
-int launch_prefill(const void* q, const void* k, const void* v, const void* start,
-                   const void* valid, void* out, int B, int T_len, int H, int KVH,
-                   int S, int L, int layer, float scale, int bk, cudaStream_t st) {
+int launch_decode_int8(const void* q, const void* k, const void* v, const void* ks,
+                       const void* vs, const void* pos, const void* kc, const void* vc,
+                       void* out, int B, int H, int KVH, int S, int L, int layer, float scale,
+                       int q_bs, int cur_bs, int bk, cudaStream_t st) {
+  const size_t smem = decode_int8_smem<HS, kDecThreads>(H / KVH, bk);
+  auto kernel = attention_decode_int8_kernel<T, HS>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<dim3(KVH, B), kDecThreads, smem, st>>>(
+      (const T*)q, (const signed char*)k, (const signed char*)v, (const float*)ks,
+      (const float*)vs, (const int*)pos, (const T*)kc, (const T*)vc, (T*)out, H, KVH, S, L,
+      layer, scale, q_bs, cur_bs, bk);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename C, int HS>
+int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
+                   const void* vs, const void* start, const void* valid, void* out, int B,
+                   int T_len, int H, int KVH, int S, int L, int layer, float scale, int bk,
+                   cudaStream_t st) {
   constexpr size_t smem = prefill_smem_bytes<HS>();
-  auto kernel = bk == kPfTile ? attention_prefill_kernel<T, HS, kPfTile>
-                              : attention_prefill_kernel<T, HS, 0>;
+  auto kernel = bk == kPfTile ? attention_prefill_kernel<T, C, HS, kPfTile>
+                              : attention_prefill_kernel<T, C, HS, 0>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int bt = kPfRows / (H / KVH);
   const dim3 grid((T_len + bt - 1) / bt, KVH, B);
   kernel<<<grid, kPfThreads, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)start, (const int*)valid,
-      (T*)out, T_len, H, KVH, S, L, layer, scale, bk);
+      (const T*)q, (const C*)k, (const C*)v, (const float*)ks, (const float*)vs,
+      (const int*)start, (const int*)valid, (T*)out, T_len, H, KVH, S, L, layer, scale, bk);
   return (int)cudaGetLastError();
 }
 
@@ -289,6 +359,51 @@ extern "C" int attention_decode_fused(const void* qkv, const void* k_cache, cons
 #undef CALL
 }
 
+// The int8 branches of the two above: int8 cache planes with fp32 scale
+// planes (B, L, KVH, S); q, the current rows and out in dtype (0 = float,
+// 1 = bfloat16); bk >= 1 cache rows per block, each block's M x bk scores
+// held in shared memory (the wrapper keeps that within the card's limit).
+extern "C" int attention_decode_int8(const void* q, const void* k_cache, const void* v_cache,
+                                     const void* k_scale, const void* v_scale, const void* pos,
+                                     const void* k_cur, const void* v_cur, void* out, int B,
+                                     int H, int KVH, int S, int HS, int L, int layer, int dtype,
+                                     int bk, void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(T, N)                                                                          \
+  launch_decode_int8<T, N>(q, k_cache, v_cache, k_scale, v_scale, pos, k_cur, v_cur, out, B, \
+                           H, KVH, S, L, layer, scale, H * HS, KVH * HS, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+extern "C" int attention_decode_fused_int8(const void* qkv, const void* k_cache,
+                                           const void* v_cache, const void* k_scale,
+                                           const void* v_scale, const void* pos, void* out,
+                                           int B, int H, int KVH, int S, int HS, int L,
+                                           int layer, int dtype, int bk, void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nt = H + 2 * KVH;
+  const size_t esize = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const char* base = static_cast<const char*>(qkv);
+  const void* kc = base + (size_t)H * HS * esize;
+  const void* vc = base + (size_t)(H + KVH) * HS * esize;
+#define CALL(T, N)                                                                          \
+  launch_decode_int8<T, N>(qkv, k_cache, v_cache, k_scale, v_scale, pos, kc, vc, out, B, H,  \
+                           KVH, S, L, layer, scale, nt * HS, nt * HS, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
 // dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; 64 % (H / KVH) == 0;
 // bk (1..64) cache rows per online-softmax block.
 extern "C" int attention_prefill(const void* q, const void* k_cache, const void* v_cache,
@@ -299,9 +414,30 @@ extern "C" int attention_prefill(const void* q, const void* k_cache, const void*
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, N) \
-  launch_prefill<T, N>(q, k_cache, v_cache, start, valid, out, B, T_len, H, KVH, S, L, layer, \
-                       scale, bk, st)
+#define CALL(T, N)                                                                        \
+  launch_prefill<T, T, N>(q, k_cache, v_cache, nullptr, nullptr, start, valid, out, B, T_len, H, \
+                          KVH, S, L, layer, scale, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+// int8 cache planes with fp32 scale planes (B, L, KVH, S); q and out in
+// dtype (0 = float, 1 = bfloat16); otherwise as attention_prefill.
+extern "C" int attention_prefill_int8(const void* q, const void* k_cache, const void* v_cache,
+                                      const void* k_scale, const void* v_scale,
+                                      const void* start, const void* valid, void* out, int B,
+                                      int T_len, int H, int KVH, int S, int HS, int L,
+                                      int layer, int dtype, int bk, void* stream) {
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile)
+    return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(T, N)                                                                          \
+  launch_prefill<T, signed char, N>(q, k_cache, v_cache, k_scale, v_scale, start, valid, out, \
+                                    B, T_len, H, KVH, S, L, layer, scale, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }

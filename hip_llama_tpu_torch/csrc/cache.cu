@@ -1,40 +1,58 @@
-// KV cache writers for the dense cache (B, L, KVH, S, HS), in place.
+// KV cache writers for the dense cache (B, L, KVH, S, HS), in place: fp32,
+// bf16, or int8 with one fp32 scale per row in (B, L, KVH, S) planes.
 //
 // kv_commit_rows replaces hip_llama_tpu/ops/cache.py::kv_commit_rows (dense
 // branch): one decode step's K and V rows, (L, B, KVH, HS) each, land at
 // (b, l, :, pos[b], :) for every layer, in ONE launch for both planes.
+// kv_commit_rows_int8 is its int8 branch (_kv_commit_kernel, quantized):
+// the fp32 or bf16 rows are quantized in the kernel, one warp per (layer,
+// slot, head) row: scale = absmax * fp32(1/127), q = round-half-even(x /
+// scale) (IEEE division); the int8 row and its scale land together. The
+// JAX package writes absmax / 127.0 (cache.py:264-273, :553), which XLA
+// compiles into that product with the reciprocal; ops/cache.py::
+// quantize_kv_rows, the plain version, computes the same.
 // kv_write_chunk replaces hip_llama_tpu/ops/cache.py::kv_write_chunk: one
-// layer's prefill chunk rows, (B, T, KVH, HS), land at start[b] + j for
-// j < valid[b] and start[b] + j < S, K and V in one launch per layer.
+// layer's prefill chunk rows, (B, T, KVH, HS) in the cache's dtype, land at
+// start[b] + j for j < valid[b] and start[b] + j < S, K and V in one launch
+// per layer. scale_write_chunk replaces cache.py::scale_write_chunk: the
+// chunk's (B, T, KVH) fp32 scales under the same rule, both planes in one
+// launch.
 //
 // Bound: bytes. Each moves its rows once in and once out (read the rows,
-// write as many cache bytes); no arithmetic. The TPU kernels read-modify-
-// write aligned windows because a TPU DMA cannot address one row; on the
-// card every thread stores 16 bytes straight to its row, so the cache is
-// never read. Positions outside [0, S) write nothing.
+// write as many cache bytes); the int8 commit adds an absmax and a divide
+// per element, far below the card's arithmetic rate. The TPU kernels
+// read-modify-write aligned windows because a TPU DMA cannot address one
+// row; on the card every thread stores its piece straight to the row (16
+// bytes where the row's size allows), so the cache is never read.
+// Positions outside [0, S) write nothing.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
+using hipllama::to_f;
+using hipllama::warp_max;
+
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;  // grid-stride: a few waves of the SMs
 
-template <typename T>
+// The row copies move opaque units V (16, 8, 4, 2 or 1 bytes: the widest
+// that divides a row's bytes), whatever the element type.
+template <typename V>
 __global__ void __launch_bounds__(kThreads) kv_commit_rows_kernel(
-    T* __restrict__ k_cache, T* __restrict__ v_cache,
-    const T* __restrict__ k_rows, const T* __restrict__ v_rows,
+    void* __restrict__ k_cache, void* __restrict__ v_cache,
+    const void* __restrict__ k_rows, const void* __restrict__ v_rows,
     const int* __restrict__ pos, const int* __restrict__ valid,
-    int B, int L, int KVH, int S, int HS) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte store
-  const uint4* rows = reinterpret_cast<const uint4*>(blockIdx.y == 0 ? k_rows : v_rows);
-  uint4* cache = reinterpret_cast<uint4*>(blockIdx.y == 0 ? k_cache : v_cache);
-  const int hsv = HS / VEC;
-  const long long n = (long long)L * B * KVH * hsv;
+    int B, int L, int KVH, int S, int row_units) {
+  const V* rows = static_cast<const V*>(blockIdx.y == 0 ? k_rows : v_rows);
+  V* cache = static_cast<V*>(blockIdx.y == 0 ? k_cache : v_cache);
+  const long long n = (long long)L * B * KVH * row_units;
   for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
        e += (long long)gridDim.x * kThreads) {
-    const int dv = (int)(e % hsv);
-    long long r = e / hsv;
+    const int dv = (int)(e % row_units);
+    long long r = e / row_units;
     const int g = (int)(r % KVH);
     r /= KVH;
     const int b = (int)(r % B);
@@ -42,25 +60,56 @@ __global__ void __launch_bounds__(kThreads) kv_commit_rows_kernel(
     if (valid != nullptr && valid[b] == 0) continue;
     const int p = pos[b];
     if (p < 0 || p >= S) continue;
-    cache[((((long long)b * L + l) * KVH + g) * S + p) * hsv + dv] = rows[e];
+    cache[((((long long)b * L + l) * KVH + g) * S + p) * row_units + dv] = rows[e];
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) kv_write_chunk_kernel(
-    T* __restrict__ k_cache, T* __restrict__ v_cache,
+__global__ void __launch_bounds__(kThreads) kv_commit_rows_int8_kernel(
+    int8_t* __restrict__ k_cache, int8_t* __restrict__ v_cache,
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
     const T* __restrict__ k_rows, const T* __restrict__ v_rows,
+    const int* __restrict__ pos, const int* __restrict__ valid,
+    int B, int L, int KVH, int S, int HS) {
+  const T* rows = blockIdx.y == 0 ? k_rows : v_rows;
+  int8_t* cache = blockIdx.y == 0 ? k_cache : v_cache;
+  float* scales = blockIdx.y == 0 ? k_scale : v_scale;
+  const int lane = threadIdx.x & 31;
+  const long long n = (long long)L * B * KVH;  // rows, one warp each
+  const long long warps = (long long)gridDim.x * (kThreads / 32);
+  for (long long r = ((long long)blockIdx.x * kThreads + threadIdx.x) / 32; r < n; r += warps) {
+    const int g = (int)(r % KVH);
+    const int b = (int)((r / KVH) % B);
+    const int l = (int)(r / ((long long)KVH * B));
+    // warp-uniform: every lane holds the same row r
+    if (valid != nullptr && valid[b] == 0) continue;
+    const int p = pos[b];
+    if (p < 0 || p >= S) continue;
+    const T* row = rows + r * HS;
+    float am = 0.f;
+    for (int i = lane; i < HS; i += 32) am = fmaxf(am, fabsf(to_f(row[i])));
+    am = warp_max(am);
+    const float sc = am == 0.f ? 1.f : am * (1.0f / 127.0f);
+    const long long dst = (((long long)b * L + l) * KVH + g) * S + p;
+    for (int i = lane; i < HS; i += 32)
+      cache[dst * HS + i] = (int8_t)__float2int_rn(to_f(row[i]) / sc);
+    if (lane == 0) scales[dst] = sc;
+  }
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads) kv_write_chunk_kernel(
+    void* __restrict__ k_cache, void* __restrict__ v_cache,
+    const void* __restrict__ k_rows, const void* __restrict__ v_rows,
     const int* __restrict__ start, const int* __restrict__ valid,
-    int B, int L, int KVH, int S, int HS, int T_len, int layer) {
-  constexpr int VEC = 16 / sizeof(T);
-  const uint4* rows = reinterpret_cast<const uint4*>(blockIdx.y == 0 ? k_rows : v_rows);
-  uint4* cache = reinterpret_cast<uint4*>(blockIdx.y == 0 ? k_cache : v_cache);
-  const int hsv = HS / VEC;
-  const long long n = (long long)B * T_len * KVH * hsv;
+    int B, int L, int KVH, int S, int row_units, int T_len, int layer) {
+  const V* rows = static_cast<const V*>(blockIdx.y == 0 ? k_rows : v_rows);
+  V* cache = static_cast<V*>(blockIdx.y == 0 ? k_cache : v_cache);
+  const long long n = (long long)B * T_len * KVH * row_units;
   for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
        e += (long long)gridDim.x * kThreads) {
-    const int dv = (int)(e % hsv);
-    long long r = e / hsv;
+    const int dv = (int)(e % row_units);
+    long long r = e / row_units;
     const int g = (int)(r % KVH);
     r /= KVH;
     const int t = (int)(r % T_len);
@@ -68,57 +117,111 @@ __global__ void __launch_bounds__(kThreads) kv_write_chunk_kernel(
     if (t >= valid[b]) continue;
     const int p = start[b] + t;
     if (p < 0 || p >= S) continue;
-    cache[((((long long)b * L + layer) * KVH + g) * S + p) * hsv + dv] = rows[e];
+    cache[((((long long)b * L + layer) * KVH + g) * S + p) * row_units + dv] = rows[e];
   }
 }
 
-int blocks_for(long long n_vec) {
-  const long long want = (n_vec + kThreads - 1) / kThreads;
+__global__ void __launch_bounds__(kThreads) scale_write_chunk_kernel(
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const float* __restrict__ k_srows, const float* __restrict__ v_srows,
+    const int* __restrict__ start, const int* __restrict__ valid,
+    int B, int L, int KVH, int S, int T_len, int layer) {
+  const float* src = blockIdx.y == 0 ? k_srows : v_srows;
+  float* dst = blockIdx.y == 0 ? k_scale : v_scale;
+  const long long n = (long long)B * T_len * KVH;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const int g = (int)(e % KVH);
+    const int t = (int)((e / KVH) % T_len);
+    const int b = (int)(e / ((long long)KVH * T_len));
+    if (t >= valid[b]) continue;
+    const int p = start[b] + t;
+    if (p < 0 || p >= S) continue;
+    dst[(((long long)b * L + layer) * KVH + g) * S + p] = src[e];
+  }
+}
+
+int blocks_for(long long n) {
+  const long long want = (n + kThreads - 1) / kThreads;
   return (int)(want < kMaxBlocks ? (want > 0 ? want : 1) : kMaxBlocks);
 }
+
+// CALL(V, units) with the widest copy unit V that divides row_bytes
+#define HIPLLAMA_UNIT_SWITCH(row_bytes, CALL)                  \
+  if ((row_bytes) % 16 == 0) CALL(uint4, (row_bytes) / 16);    \
+  else if ((row_bytes) % 8 == 0) CALL(uint2, (row_bytes) / 8); \
+  else if ((row_bytes) % 4 == 0) CALL(uint32_t, (row_bytes) / 4); \
+  else if ((row_bytes) % 2 == 0) CALL(uint16_t, (row_bytes) / 2); \
+  else CALL(uint8_t, (row_bytes))
 
 }  // namespace
 
 HIPLLAMA_EXPORT_ERROR_STRING
 
-// dtype: 0 = float, 1 = bfloat16. valid may be null (every slot writes).
+// row_bytes: one cache row (HS elements) in bytes. valid may be null
+// (every slot writes).
 extern "C" int kv_commit_rows(void* k_cache, void* v_cache, const void* k_rows,
                               const void* v_rows, const void* pos, const void* valid,
-                              int B, int L, int KVH, int S, int HS, int dtype,
-                              void* stream) {
-  const int vec = dtype == 0 ? 4 : 8;
-  if (HS % vec) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_for((long long)L * B * KVH * (HS / vec)), 2);
+                              int B, int L, int KVH, int S, int row_bytes, void* stream) {
+  if (row_bytes < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(V, units)                                                                   \
+  kv_commit_rows_kernel<V><<<dim3(blocks_for((long long)L * B * KVH * (units)), 2),      \
+                             kThreads, 0, st>>>(k_cache, v_cache, k_rows, v_rows,         \
+                                                (const int*)pos, (const int*)valid, B, L, \
+                                                KVH, S, units)
+  HIPLLAMA_UNIT_SWITCH(row_bytes, CALL);
+#undef CALL
+  return (int)cudaGetLastError();
+}
+
+// rows dtype: 0 = float, 1 = bfloat16; the cache planes are int8 and the
+// scale planes fp32 (B, L, KVH, S). valid may be null.
+extern "C" int kv_commit_rows_int8(void* k_cache, void* v_cache, void* k_scale, void* v_scale,
+                                   const void* k_rows, const void* v_rows, const void* pos,
+                                   const void* valid, int B, int L, int KVH, int S, int HS,
+                                   int dtype, void* stream) {
+  if (HS < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for((long long)L * B * KVH * 32), 2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    kv_commit_rows_kernel<float><<<grid, kThreads, 0, st>>>(
-        (float*)k_cache, (float*)v_cache, (const float*)k_rows, (const float*)v_rows,
-        (const int*)pos, (const int*)valid, B, L, KVH, S, HS);
+    kv_commit_rows_int8_kernel<float><<<grid, kThreads, 0, st>>>(
+        (int8_t*)k_cache, (int8_t*)v_cache, (float*)k_scale, (float*)v_scale,
+        (const float*)k_rows, (const float*)v_rows, (const int*)pos, (const int*)valid,
+        B, L, KVH, S, HS);
   } else {
-    kv_commit_rows_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (__nv_bfloat16*)k_cache, (__nv_bfloat16*)v_cache, (const __nv_bfloat16*)k_rows,
-        (const __nv_bfloat16*)v_rows, (const int*)pos, (const int*)valid, B, L, KVH, S, HS);
+    kv_commit_rows_int8_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        (int8_t*)k_cache, (int8_t*)v_cache, (float*)k_scale, (float*)v_scale,
+        (const __nv_bfloat16*)k_rows, (const __nv_bfloat16*)v_rows, (const int*)pos,
+        (const int*)valid, B, L, KVH, S, HS);
   }
   return (int)cudaGetLastError();
 }
 
+// rows in the cache's dtype; row_bytes: one cache row in bytes
 extern "C" int kv_write_chunk(void* k_cache, void* v_cache, const void* k_rows,
                               const void* v_rows, const void* start, const void* valid,
-                              int B, int L, int KVH, int S, int HS, int T_len, int layer,
-                              int dtype, void* stream) {
-  const int vec = dtype == 0 ? 4 : 8;
-  if (HS % vec) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks_for((long long)B * T_len * KVH * (HS / vec)), 2);
+                              int B, int L, int KVH, int S, int row_bytes, int T_len, int layer,
+                              void* stream) {
+  if (row_bytes < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    kv_write_chunk_kernel<float><<<grid, kThreads, 0, st>>>(
-        (float*)k_cache, (float*)v_cache, (const float*)k_rows, (const float*)v_rows,
-        (const int*)start, (const int*)valid, B, L, KVH, S, HS, T_len, layer);
-  } else {
-    kv_write_chunk_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (__nv_bfloat16*)k_cache, (__nv_bfloat16*)v_cache, (const __nv_bfloat16*)k_rows,
-        (const __nv_bfloat16*)v_rows, (const int*)start, (const int*)valid, B, L, KVH, S,
-        HS, T_len, layer);
-  }
+#define CALL(V, units)                                                                     \
+  kv_write_chunk_kernel<V><<<dim3(blocks_for((long long)B * T_len * KVH * (units)), 2),    \
+                             kThreads, 0, st>>>(k_cache, v_cache, k_rows, v_rows,           \
+                                                (const int*)start, (const int*)valid, B, L, \
+                                                KVH, S, units, T_len, layer)
+  HIPLLAMA_UNIT_SWITCH(row_bytes, CALL);
+#undef CALL
+  return (int)cudaGetLastError();
+}
+
+extern "C" int scale_write_chunk(void* k_scale, void* v_scale, const void* k_srows,
+                                 const void* v_srows, const void* start, const void* valid,
+                                 int B, int L, int KVH, int S, int T_len, int layer,
+                                 void* stream) {
+  const dim3 grid(blocks_for((long long)B * T_len * KVH), 2);
+  scale_write_chunk_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      (float*)k_scale, (float*)v_scale, (const float*)k_srows, (const float*)v_srows,
+      (const int*)start, (const int*)valid, B, L, KVH, S, T_len, layer);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,7 @@ namespace hipllama {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(signed char x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -38,6 +39,10 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
 }
 
 __device__ __forceinline__ float warp_sum(float v, int width) {
+  for (int off = width / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off, width);
+  return v;
+}
+__device__ __forceinline__ int warp_sum_int(int v, int width) {
   for (int off = width / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off, width);
   return v;
 }

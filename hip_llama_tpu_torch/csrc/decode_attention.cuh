@@ -163,6 +163,186 @@ __device__ __forceinline__ void decode_attention_task(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The same task over an int8 cache with one fp32 scale per row (k_scale,
+// v_scale: (B, L, KVH, S)), with the int8 dots of the JAX kernels'
+// HIPLLAMA_ATTN_I8MXU path (attention.py:88-93, :300-383):
+//   - q (its own dtype T, fp32 or bf16) widened to fp32 and quantized by
+//     row: sq = max|q| * (1/127) (1 where zero), qi = round-half-even(q/sq);
+//   - scores = fp32(int32(qi . k)) * (sq * scale) * ks[row];
+//   - the online softmax advances once per block of bk rows; (p * vs[row])
+//     is quantized by row over the block's rows, sp = max|p vs| * (1/127),
+//     and dotted as int32 with the int8 V rows: acc = acc * alpha +
+//     fp32(int32) * sp;
+//   - the current row stays unquantized: q . k_cur in q's dtype with fp32
+//     sums, v_cur in fp32, as _final.
+// The block is part of the numerics (it decides which probabilities share
+// an int8 scale), so the task holds a whole block's scores, M x bk fp32, in
+// the shared memory at p_s that follows sm, whatever bk is. QK uses dp4a on
+// packed int8 words (HS / 4 lanes per row), PV one int8 per thread and
+// row, both exact in int32.
+template <int HS, int NT>
+struct DecodeSmemInt8 {
+  __align__(16) float q_s[kMaxM][HS];  // q in its dtype, widened
+  int qw_s[kMaxM][HS / 4];             // q quantized, four int8 per word
+  float red_s[kMaxM][NT];              // PV partial sums over row groups
+  float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM], sq_s[kMaxM], sp_s[kMaxM];
+};
+
+template <typename T, int HS, int NT>
+__device__ __forceinline__ void decode_attention_task_int8(
+    DecodeSmemInt8<HS, NT>& sm, float* p_s, int g, int b, const T* q,
+    const signed char* __restrict__ k_cache, const signed char* __restrict__ v_cache,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const int* pos_arr,
+    const T* k_cur, const T* v_cur, T* __restrict__ out, int H, int KVH, int S, int L,
+    int layer, float scale, int q_bs, int cur_bs, int bk) {
+  constexpr int kWarps = NT / 32;
+  constexpr int LPR = HS / 4;   // lanes per K row in QK: one int8x4 word each
+  constexpr int RPW = 32 / LPR; // K rows per warp per pass
+  constexpr int RG = NT / HS;   // row groups in PV (each thread owns one dim)
+  const int M = H / KVH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pos = pos_arr[b];
+
+  __syncthreads();  // the previous task's readers of sm and p_s are done
+  const T* qb = q + (size_t)b * q_bs + (size_t)g * M * HS;
+  for (int i = tid; i < M * HS; i += NT) sm.q_s[i / HS][i % HS] = to_f(qb[i]);
+  __syncthreads();
+  for (int m = warp; m < M; m += kWarps) {
+    float am = 0.f;
+    for (int i = lane; i < HS; i += 32) am = fmaxf(am, fabsf(sm.q_s[m][i]));
+    am = warp_max(am);
+    float sq = am * (1.0f / 127.0f);
+    if (sq == 0.f) sq = 1.f;
+    for (int w = lane; w < HS / 4; w += 32) {
+      unsigned int word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        word |= ((unsigned int)__float2int_rn(sm.q_s[m][4 * w + j] / sq) & 0xffu) << (8 * j);
+      sm.qw_s[m][w] = (int)word;
+    }
+    if (lane == 0) {
+      sm.sq_s[m] = sq * scale;
+      sm.m_s[m] = -INFINITY;
+      sm.l_s[m] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  const size_t row0 = (((size_t)b * L + layer) * KVH + g) * (size_t)S;
+  const signed char* kb = k_cache + row0 * HS;
+  const signed char* vb = v_cache + row0 * HS;
+  const float* ksb = k_scale + row0;
+  const float* vsb = v_scale + row0;
+  const int d = tid % HS, rg = tid / HS;
+  float acc[kMaxM];
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
+
+  for (int t0 = 0; t0 < pos; t0 += bk) {
+    const int n = min(bk, pos - t0);
+    // scores of the block's live rows; the loop bound is warp-uniform, so
+    // the shuffles stay convergent
+    for (int r0 = warp * RPW; r0 < n; r0 += kWarps * RPW) {
+      const int r = r0 + lane / LPR, w = lane % LPR;
+      const bool live = r < n;
+      const int kw = live ? *reinterpret_cast<const int*>(kb + (size_t)(t0 + r) * HS + 4 * w) : 0;
+      const float ks = live ? ksb[t0 + r] : 0.f;
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          const int si = warp_sum_int(__dp4a(sm.qw_s[m][w], kw, 0), LPR);
+          if (w == 0 && live) p_s[m * bk + r] = (float)si * sm.sq_s[m] * ks;
+        }
+      }
+    }
+    __syncthreads();
+    // online softmax and the quantization of p * vs, one warp per query head
+    for (int m = warp; m < M; m += kWarps) {
+      float* pm = p_s + m * bk;
+      float mx = -INFINITY;
+      for (int r = lane; r < n; r += 32) mx = fmaxf(mx, pm[r]);
+      mx = warp_max(mx);  // finite: the block holds at least one live row
+      const float m_old = sm.m_s[m];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f, am = 0.f;
+      for (int r = lane; r < n; r += 32) {
+        const float p = expf(pm[r] - m_new);
+        sum += p;
+        const float pv = p * vsb[t0 + r];
+        pm[r] = pv;
+        am = fmaxf(am, fabsf(pv));
+      }
+      sum = warp_sum(sum, 32);
+      am = warp_max(am);
+      float sp = am * (1.0f / 127.0f);
+      if (sp == 0.f) sp = 1.f;
+      int* pim = reinterpret_cast<int*>(pm);  // each lane rewrites its own entries
+      for (int r = lane; r < n; r += 32) pim[r] = __float2int_rn(pm[r] / sp);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        sm.a_s[m] = alpha;
+        sm.l_s[m] = alpha * sm.l_s[m] + sum;
+        sm.m_s[m] = m_new;
+        sm.sp_s[m] = sp;
+      }
+    }
+    __syncthreads();
+    // PV in int32: thread (rg, d) sums rows rg, rg + RG, ... of the block
+    const int* pi = reinterpret_cast<const int*>(p_s);
+    int ai[kMaxM];
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m) ai[m] = 0;
+#pragma unroll 4
+    for (int r = rg; r < n; r += RG) {
+      const int v = vb[(size_t)(t0 + r) * HS + d];
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m)
+        if (m < M) ai[m] += pi[m * bk + r] * v;
+    }
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m)
+      if (m < M) acc[m] = acc[m] * sm.a_s[m] + (float)ai[m] * sm.sp_s[m];
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m)
+    if (m < M) sm.red_s[m][tid] = acc[m];
+  // the current row: s_cur = q . k_cur in q's dtype, p_cur stays fp32
+  const T* kc = k_cur + (size_t)b * cur_bs + (size_t)g * HS;
+  for (int m = warp; m < M; m += kWarps) {
+    float s = 0.f;
+    for (int i = lane; i < HS; i += 32) s += sm.q_s[m][i] * to_f(kc[i]);
+    s = warp_sum(s, 32) * scale;
+    if (lane == 0) {
+      const float m_new = fmaxf(sm.m_s[m], s);
+      const float alpha = expf(sm.m_s[m] - m_new);
+      const float p_cur = expf(s - m_new);
+      sm.a_s[m] = alpha;
+      sm.pc_s[m] = p_cur;
+      sm.l_s[m] = alpha * sm.l_s[m] + p_cur;
+    }
+  }
+  __syncthreads();
+  if (tid < HS) {
+    const float vcur = to_f(v_cur[(size_t)b * cur_bs + (size_t)g * HS + tid]);
+    for (int m = 0; m < M; ++m) {
+      float o = 0.f;
+      for (int i = 0; i < RG; ++i) o += sm.red_s[m][i * HS + tid];
+      o = o * sm.a_s[m] + sm.pc_s[m] * vcur;
+      const float l = sm.l_s[m];
+      out[((size_t)b * H + (size_t)g * M + m) * HS + tid] = from_f<T>(o / (l == 0.f ? 1.f : l));
+    }
+  }
+}
+
+// dynamic shared memory of one int8 task: sm, then M x bk fp32 scores
+template <int HS, int NT>
+constexpr size_t decode_int8_smem(int M, int bk) {
+  return sizeof(DecodeSmemInt8<HS, NT>) + sizeof(float) * (size_t)M * bk;
+}
+
 }  // namespace hipllama
 
 // dispatch on the head size: CALL(T, HS) for HS in {8, 16, 32, 64, 128}

@@ -22,6 +22,12 @@
 // per weight plus 4/gs for the scales) and the live cache rows; the 8
 // barriers cost a few microseconds each. The QKV rows of this step leave
 // the kernel in the workspace for the cache commit after the layer loop.
+//
+// On an int8 cache (kv_int8: int8 planes with fp32 row-scale planes (B, L,
+// KVH, S)) the attention phase runs decode_attention.cuh's int8 task, the
+// one attention_decode_fused's int8 branch runs, at the block the wrapper
+// passes; its M x bk scores sit in the dynamic shared memory after the
+// task's own, which the launch sizes for the larger of the phases.
 
 #include <stdint.h>
 
@@ -32,7 +38,9 @@ namespace {
 
 using namespace hipllama::q8;
 using hipllama::DecodeSmem;
+using hipllama::DecodeSmemInt8;
 using hipllama::decode_attention_task;
+using hipllama::decode_attention_task_int8;
 using hipllama::kDecThreads;
 using hipllama::kDecTile;
 using hipllama::kMaxM;
@@ -43,8 +51,10 @@ struct LayerArgs {
   const float* qkv_s;  // (D, NQKV)
   const float* g1;
   const int* pos;  // (B,)
-  const bf16* k_cache;
-  const bf16* v_cache;  // (B, L, KVH, S, HS)
+  const void* k_cache;
+  const void* v_cache;  // (B, L, KVH, S, HS), bf16 or int8
+  const float* k_scale;
+  const float* v_scale;  // (B, L, KVH, S) for an int8 cache, else null
   const int8_t* wo_q;
   const float* wo_s;  // (D, D)
   const int8_t* w13_q;
@@ -61,7 +71,7 @@ struct LayerArgs {
   unsigned int* bar;  // two zeroed words: arrivals, generation
   int B, D, H, KVH, S, HS, L, layer, hidden;
   int gs_qkv, gs_o, gs13, gs2;
-  int split_q, kslice_q, split_o, kslice_o, bk;
+  int split_q, kslice_q, split_o, kslice_o, bk, kv_int8;
   float scale, rope_coef, eps;
 };
 
@@ -127,19 +137,26 @@ static_assert(kDecThreads == kThreads, "the attention tasks take the whole CTA")
 template <int HS>
 __device__ __noinline__ void attention_phase(const LayerArgs& a) {
   auto& at = *reinterpret_cast<DecodeSmem<HS, kDecThreads>*>(smem);
+  auto& at8 = *reinterpret_cast<DecodeSmemInt8<HS, kDecThreads>*>(smem);
+  float* p_s = reinterpret_cast<float*>(smem + sizeof(DecodeSmemInt8<HS, kDecThreads>));
   const int nqkv = (a.H + 2 * a.KVH) * HS;
+  const bf16* kc = a.qkv + a.H * HS;
+  const bf16* vc = a.qkv + (a.H + a.KVH) * HS;
   for (int t = blockIdx.x; t < a.KVH * a.B; t += gridDim.x) {
     const int g = t % a.KVH, b = t / a.KVH;
-    const bf16* kc = a.qkv + a.H * HS;
-    const bf16* vc = a.qkv + (a.H + a.KVH) * HS;
-    if (a.bk == kDecTile)
+    if (a.kv_int8)
+      decode_attention_task_int8<bf16, HS, kDecThreads>(
+          at8, p_s, g, b, a.qkv, (const signed char*)a.k_cache, (const signed char*)a.v_cache,
+          a.k_scale, a.v_scale, a.pos, kc, vc, a.att, a.H, a.KVH, a.S, a.L, a.layer, a.scale,
+          nqkv, nqkv, a.bk);
+    else if (a.bk == kDecTile)
       decode_attention_task<bf16, HS, kDecThreads, kDecTile>(
-          at, g, b, a.qkv, a.k_cache, a.v_cache, a.pos, kc, vc, a.att, a.H, a.KVH, a.S, a.L,
-          a.layer, a.scale, nqkv, nqkv, a.bk);
+          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, a.pos, kc, vc, a.att,
+          a.H, a.KVH, a.S, a.L, a.layer, a.scale, nqkv, nqkv, a.bk);
     else
       decode_attention_task<bf16, HS, kDecThreads, 0>(
-          at, g, b, a.qkv, a.k_cache, a.v_cache, a.pos, kc, vc, a.att, a.H, a.KVH, a.S, a.L,
-          a.layer, a.scale, nqkv, nqkv, a.bk);
+          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, a.pos, kc, vc, a.att,
+          a.H, a.KVH, a.S, a.L, a.layer, a.scale, nqkv, nqkv, a.bk);
   }
 }
 
@@ -198,10 +215,16 @@ template <int MAXM>
 int launch_layer(const LayerArgs& a, cudaStream_t st) {
   constexpr size_t smem_ab = sizeof(GemvSmem<MAXM>) > sizeof(FfnSmem<MAXM>)
                                  ? sizeof(GemvSmem<MAXM>) : sizeof(FfnSmem<MAXM>);
-  constexpr size_t smem = smem_ab > kMaxDecodeSmem ? smem_ab : kMaxDecodeSmem;
+  constexpr size_t smem_fixed = smem_ab > kMaxDecodeSmem ? smem_ab : kMaxDecodeSmem;
+  // the int8 attention phase's block of scores may need more (HS 128 bounds
+  // every head size's task)
+  const size_t smem_i8 =
+      a.kv_int8 ? hipllama::decode_int8_smem<128, kDecThreads>(a.H / a.KVH, a.bk) : 0;
+  const size_t smem = smem_i8 > smem_fixed ? smem_i8 : smem_fixed;
   auto kernel = q8_layer_kernel<MAXM>;
-  static int grid = 0;  // CTAs that fit on the card at once
-  if (grid == 0) {
+  static int grid = 0;  // CTAs that fit on the card at once at smem_grid bytes
+  static size_t smem_grid = 0;
+  if (grid == 0 || smem != smem_grid) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -213,6 +236,7 @@ int launch_layer(const LayerArgs& a, cudaStream_t st) {
       return (int)e;
     if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
     grid = per_sm * sms;
+    smem_grid = smem;
   }
   void* args[] = {const_cast<LayerArgs*>(&a)};
   return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kThreads), args,
@@ -223,35 +247,37 @@ int launch_layer(const LayerArgs& a, cudaStream_t st) {
 
 HIPLLAMA_EXPORT_ERROR_STRING
 
-// bf16 activations and cache, int8 weights with fp32 scales, fp32 norm
-// weights, int32 positions. D == H * HS, HS in {8, 16, 32, 64, 128},
-// H / KVH <= 8, D and hidden multiples of 16, bk (1..64) cache rows per
-// online-softmax block. Workspaces: xn, att and x2 (B, D) bf16; qkv (B, (H +
-// 2 KVH) HS) bf16 (its k|v rows are the step's rows for the cache commit);
-// part fp32 of max(split_q * B * NQKV, split_o * B * D, ceil(hidden / 64) *
-// B * D) values; bar two zeroed uint32.
+// bf16 activations, int8 weights with fp32 scales, fp32 norm weights, int32
+// positions. The cache: bf16 (kv_int8 0; k_scale and v_scale null; bk
+// 1..64 cache rows per online-softmax block) or int8 with its fp32 scale
+// planes (kv_int8 1; bk >= 1). D == H * HS, HS in {8, 16, 32, 64, 128},
+// H / KVH <= 8, D and hidden multiples of 16. Workspaces: xn, att and x2
+// (B, D) bf16; qkv (B, (H + 2 KVH) HS) bf16 (its k|v rows are the step's
+// rows for the cache commit); part fp32 of max(split_q * B * NQKV, split_o
+// * B * D, ceil(hidden / 64) * B * D) values; bar two zeroed uint32.
 extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_s,
                               const void* g1, const void* pos, const void* k_cache,
-                              const void* v_cache, const void* wo_q, const void* wo_s,
-                              const void* w13_q, const void* w13_s, const void* w2_q,
-                              const void* w2_s, const void* g2, void* out, void* xn_ws,
+                              const void* v_cache, const void* k_scale, const void* v_scale,
+                              const void* wo_q, const void* wo_s, const void* w13_q,
+                              const void* w13_s, const void* w2_q, const void* w2_s,
+                              const void* g2, void* out, void* xn_ws,
                               void* qkv_ws, void* att_ws, void* x2_ws, void* part_ws, void* bar_ws,
                               int B, int D, int H, int KVH, int S, int HS, int L, int layer,
                               int hidden, int gs_qkv, int gs_o, int gs13, int gs2, int split_q,
-                              int kslice_q, int split_o, int kslice_o, int bk, float rope_coef,
-                              float eps, void* stream) {
+                              int kslice_q, int split_o, int kslice_o, int bk, int kv_int8,
+                              float rope_coef, float eps, void* stream) {
   if (H % KVH || H / KVH > kMaxM || D != H * HS || D % 16 || hidden % 16 || bk < 1 ||
-      bk > kDecTile || kslice_q > kGvKMax || kslice_o > kGvKMax ||
+      (!kv_int8 && bk > kDecTile) || kslice_q > kGvKMax || kslice_o > kGvKMax ||
       (HS != 8 && HS != 16 && HS != 32 && HS != 64 && HS != 128))
     return (int)cudaErrorInvalidValue;
   const LayerArgs a{
       (const bf16*)x, (const int8_t*)qkv_q, (const float*)qkv_s, (const float*)g1,
-      (const int*)pos, (const bf16*)k_cache, (const bf16*)v_cache, (const int8_t*)wo_q,
-      (const float*)wo_s, (const int8_t*)w13_q, (const float*)w13_s, (const int8_t*)w2_q,
-      (const float*)w2_s, (const float*)g2, (bf16*)out, (bf16*)xn_ws, (bf16*)qkv_ws,
-      (bf16*)att_ws, (bf16*)x2_ws, (float*)part_ws, (unsigned int*)bar_ws,
+      (const int*)pos, k_cache, v_cache, (const float*)k_scale, (const float*)v_scale,
+      (const int8_t*)wo_q, (const float*)wo_s, (const int8_t*)w13_q, (const float*)w13_s,
+      (const int8_t*)w2_q, (const float*)w2_s, (const float*)g2, (bf16*)out, (bf16*)xn_ws,
+      (bf16*)qkv_ws, (bf16*)att_ws, (bf16*)x2_ws, (float*)part_ws, (unsigned int*)bar_ws,
       B, D, H, KVH, S, HS, L, layer, hidden, gs_qkv, gs_o, gs13, gs2,
-      split_q, kslice_q, split_o, kslice_o, bk,
+      split_q, kslice_q, split_o, kslice_o, bk, kv_int8,
       (float)(1.0 / sqrt((double)HS)), rope_coef, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return B <= 8 ? launch_layer<8>(a, st) : launch_layer<16>(a, st);

@@ -71,10 +71,12 @@ class InferenceEngine:
         batch_size: int = 8,
         max_seq_len: int | None = None,
         use_prefill: bool = True,
+        kv_quant: bool = False,
     ):
         """The engine runs on its params' device, with a KV cache of the
-        activation dtype (the dense params' dtype, bf16 for Q8 params) and
-        `max_seq_len` rows (default: the model's)."""
+        activation dtype (the dense params' dtype, bf16 for Q8 params), or
+        int8 with per-row scales when `kv_quant`, and `max_seq_len` rows
+        (default: the model's)."""
         self.cfg = cfg
         self.params = params
         self.tokenizer = tokenizer
@@ -82,6 +84,7 @@ class InferenceEngine:
         self.device = params.device
         self.max_seq_len = max_seq_len or cfg.seq_len
         self.use_prefill = use_prefill
+        self.kv_quant = kv_quant
         self.prefill_buckets = tuple(
             b for b in PREFILL_BUCKETS if b <= self.max_seq_len
         ) or (min(16, self.max_seq_len),)
@@ -100,7 +103,7 @@ class InferenceEngine:
     def new_cache(self, batch: int | None = None) -> KVCache:
         return init_kv_cache(
             self.cfg, batch or self.batch_size, dtype=act_dtype(self.params),
-            seq_len=self.max_seq_len, device=self.device,
+            seq_len=self.max_seq_len, device=self.device, quantized=self.kv_quant,
         )
 
     def _do_step(self, cache, tokens: np.ndarray, pos: np.ndarray):

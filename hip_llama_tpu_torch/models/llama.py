@@ -5,7 +5,14 @@ unrolled fused layout, bf16 activations), chosen by the params' type.
 
 - KV cache layout (B, L, KVH, S, HS), as in the reference; the step and the
   prefill write it IN PLACE (the JAX functions donate it and return a new
-  one) and return the same cache object.
+  one) and return the same cache object. An int8 cache (`quantized=True`)
+  holds int8 rows and one fp32 scale per row in (B, L, KVH, S) planes,
+  whatever the activation dtype: the decode step's commit quantizes its
+  rows in the kernel, the prefill quantizes each chunk's rows
+  (quantize_kv_rows) before the chunk writer and its scale companion, and
+  every attention kernel takes the scale planes (llama.py:713-826,
+  :1029-1150). The KV heads are stored unpadded: the JAX package pads them
+  to a multiple of 8 for its TPU DMAs only.
 - The batch is a fixed slot array; raggedness is a per-slot `pos` / `start`
   / `valid` vector, exactly as in the JAX step, so the engine's scheduler
   is unchanged.
@@ -49,6 +56,13 @@ from hip_llama_tpu_torch.ops import quant as _quant
 class KVCache:
     k: torch.Tensor  # (B, L, KVH, S, HS)
     v: torch.Tensor  # (B, L, KVH, S, HS)
+    # int8 caches: one fp32 scale per cached row, (B, L, KVH, S)
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
 
 def init_kv_cache(
@@ -57,10 +71,17 @@ def init_kv_cache(
     dtype=torch.float32,
     seq_len: int | None = None,
     device="cuda",
+    quantized: bool = False,
 ) -> KVCache:
+    """Zeroed cache planes of `dtype`, or with `quantized=True` int8 planes
+    with scale planes of ones (dtype is then not read)."""
     s = seq_len or cfg.seq_len
     shape = (batch, cfg.n_layers, cfg.n_kv_heads, s, cfg.head_size)
     dev = resolve_device(device)
+    if quantized:
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=dev),
+                       torch.zeros(shape, dtype=torch.int8, device=dev),
+                       torch.ones(shape[:-1], device=dev), torch.ones(shape[:-1], device=dev))
     return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                    torch.zeros(shape, dtype=dtype, device=dev))
 
@@ -117,6 +138,7 @@ class _Kernels:
     attn_prefill: object
     commit: object
     write_chunk: object
+    scale_chunk: object  # scale_write_chunk
     attn_decode_fused: object
     mm: object  # q8_matmul
     mm_silu: object
@@ -128,18 +150,20 @@ def _kernels(plain: bool) -> _Kernels:
     if plain:
         return _Kernels(_attn.attention_decode_plain, _attn.attention_prefill_plain,
                         _cache.kv_commit_rows_plain, _cache.kv_write_chunk_plain,
+                        _cache.scale_write_chunk_plain,
                         _attn.attention_decode_fused_plain, _quant.q8_matmul_plain,
                         _quant.q8_matmul_silu_plain, _quant.q8_matmul_ffn_plain,
                         _layer.q8_layer_fused_plain)
     return _Kernels(_attn.attention_decode, _attn.attention_prefill,
-                    _cache.kv_commit_rows, _cache.kv_write_chunk,
+                    _cache.kv_commit_rows, _cache.kv_write_chunk, _cache.scale_write_chunk,
                     _attn.attention_decode_fused, _quant.q8_matmul,
                     _quant.q8_matmul_silu, _quant.q8_matmul_ffn, _layer.q8_layer_fused)
 
 
 def act_dtype(params) -> torch.dtype:
-    """The activation and KV-cache dtype: bf16 for Q8 params (norms stay
-    fp32 inside the kernels), else the dense param dtype."""
+    """The activation dtype, and that of a cache that is not int8: bf16 for
+    Q8 params (norms stay fp32 inside the kernels), else the dense param
+    dtype."""
     if isinstance(params, QuantLlamaParams):
         return torch.bfloat16
     return params.dtype
@@ -223,10 +247,12 @@ def make_decode_step(cfg: ModelConfig, plain: bool = False):
             if layer_fuse:
                 x, kv = kn.layer(x, params.wq[l], params.wo[l], params.w1[l], params.w2[l],
                                  params.rms_att[l], params.rms_ffn[l], cache.k, cache.v, l, pos,
-                                 n_heads=h, norm_eps=c.norm_eps, theta=c.rope_theta)
+                                 cache.k_scale, cache.v_scale, n_heads=h, norm_eps=c.norm_eps,
+                                 theta=c.rope_theta)
             else:
                 qkv3 = _q8_qkv(kn, x, params, l, pos, c)  # (B, H + 2 KVH, HS)
-                att = kn.attn_decode_fused(qkv3, cache.k, cache.v, l, pos, h)
+                att = kn.attn_decode_fused(qkv3, cache.k, cache.v, l, pos, h, cache.k_scale,
+                                           cache.v_scale)
                 x = kn.mm(att.view(b, c.dim), params.wo[l], residual=x)
                 x = _q8_ffn(kn, x, params, l, c.norm_eps)
                 kv = qkv3[:, h:]
@@ -244,7 +270,7 @@ def make_decode_step(cfg: ModelConfig, plain: bool = False):
         k_list, v_list = [], []
         for l in range(c.n_layers):
             q, k, v = _qkv(x, params, l, c, rot)
-            att = kn.attn_decode(q, cache.k, cache.v, l, pos, k, v)
+            att = kn.attn_decode(q, cache.k, cache.v, l, pos, k, v, cache.k_scale, cache.v_scale)
             x = x + att.reshape(b, c.dim) @ params.wo[l]
             x = _ffn(x, params, l, c.norm_eps)
             k_list.append(k)
@@ -268,8 +294,9 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
     start..start+valid_len-1): causal within the chunk, full attention over
     the existing cache. Each layer writes its chunk rows into the cache
     (kv_write_chunk; rows past a slot's valid_len keep the old contents, so
-    valid_len=0 slots are bystanders) and then attends over it
-    (attention_prefill).
+    valid_len=0 slots are bystanders; an int8 cache takes the rows
+    quantized and their scales through scale_write_chunk) and then attends
+    over it (attention_prefill).
 
     `last_only=True` returns logits fp32 (B, V) for each slot's LAST valid
     position only: the x rows are gathered before the final norm and the
@@ -284,16 +311,27 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
         idx = torch.clamp(valid_len.long() - 1, min=0)
         return x[torch.arange(x.shape[0], device=x.device), idx]  # (B, D)
 
+    def write_and_attend(cache: KVCache, q, k, v, l, start, valid_len):
+        """Write the chunk's k/v (B, T, KVH, HS) into layer l, then attend
+        over it with q (B, T, H, HS)."""
+        if cache.quantized:
+            (kq, ks), (vq, vs) = _cache.quantize_kv_rows(k), _cache.quantize_kv_rows(v)
+            kn.write_chunk(cache, kq, vq, l, start, valid_len)
+            kn.scale_chunk(cache, ks, vs, l, start, valid_len)
+        else:
+            kn.write_chunk(cache, k, v, l, start, valid_len)
+        return kn.attn_prefill(q, cache.k, cache.v, l, start, valid_len, cache.k_scale,
+                               cache.v_scale)
+
     def prefill_q8(params: QuantLlamaParams, cache: KVCache, tokens, start, valid_len, pos):
         b, t = tokens.shape
         x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
         pos = pos.reshape(-1)
         for l in range(c.n_layers):
             qkv = _q8_qkv(kn, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
-            kn.write_chunk(cache, qkv[:, :, h:h + kvh].contiguous(),
-                           qkv[:, :, h + kvh:].contiguous(), l, start, valid_len)
-            att = kn.attn_prefill(qkv[:, :, :h].contiguous(), cache.k, cache.v, l, start,
-                                  valid_len)
+            att = write_and_attend(cache, qkv[:, :, :h].contiguous(),
+                                   qkv[:, :, h:h + kvh].contiguous(),
+                                   qkv[:, :, h + kvh:].contiguous(), l, start, valid_len)
             x = kn.mm(att.view(b * t, c.dim), params.wo[l], residual=x)
             x = _q8_ffn(kn, x, params, l, c.norm_eps)
         x = x.view(b, t, c.dim)
@@ -312,8 +350,7 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
         rot = rope_tables(pos, c.head_size, c.rope_theta)
         for l in range(c.n_layers):
             q, k, v = _qkv(x, params, l, c, rot)
-            kn.write_chunk(cache, k, v, l, start, valid_len)
-            att = kn.attn_prefill(q, cache.k, cache.v, l, start, valid_len)
+            att = write_and_attend(cache, q, k, v, l, start, valid_len)
             x = x + att.reshape(b, t, c.dim) @ params.wo[l]
             x = _ffn(x, params, l, c.norm_eps)
         if last_only:

@@ -4,9 +4,10 @@ reading the head-split QKV projection in place (K5), and chunked prefill
 
 Each is a CUDA kernel (csrc/attention.cu) behind a wrapper that checks its
 operands, allocates the output and counts its launches in
-`<wrapper>.launches`. A CUDA tensor launches the kernel or raises; a CPU
-tensor takes the plain PyTorch version beside it, which is also the
-yardstick the kernel is held against on the card.
+`<wrapper>.launches` (fp32 or bf16 cache) or `<wrapper>.launches_int8`
+(int8 cache). A CUDA tensor launches the kernel or raises; a CPU tensor
+takes the plain PyTorch version beside it, which is also the yardstick the
+kernel is held against on the card.
 
 Cast points, as in the JAX kernels (hip_llama_tpu/ops/attention.py:164-241
 and :912-940): q is cast to the cache dtype before QK; scores and the
@@ -17,9 +18,22 @@ sizes: 8, 16, 32, 64, 128.
 
 With a bf16 cache the rounded probabilities depend on where the running
 max is taken, so the plain versions walk a bf16 cache in the JAX kernels'
-KV blocks (`ref_block`; an fp32 cache takes the one-pass softmax, the same
-math), and so do the CUDA kernels where such a block fits
-their 64-row tiles (`kernel_block`); past that they agree to a bf16 ulp.
+KV blocks (`decode_block`, `ref_block`; an fp32 cache takes the one-pass
+softmax, the same math), and so do the CUDA kernels where such a block
+fits their 64-row tiles (`kernel_block`); past that they agree to a bf16
+ulp.
+
+An int8 cache holds one fp32 scale per row in `k_scale` / `v_scale` (B, L,
+KVH, S). Decode follows the JAX kernels' int8 dots (attention.py:88-93,
+:300-383, the default HIPLLAMA_ATTN_I8MXU=1): q, widened to fp32, is
+quantized by row (max|q| * (1/127)); scores are int32(qi . k) * (sq *
+scale) * ks; per block, (p * vs) is quantized by row over the block's rows
+and dotted as int32 with the int8 V rows. The block decides which
+probabilities share a scale, so the kernels take the JAX block whole
+(`decode_block(s, quantized=True)`). The current row stays unquantized.
+Prefill (attention.py:891-940) has no int8 dots: q is rounded to bf16, K
+and V widened exactly, scores * scale * ks, and (p * vs) rounded to bf16
+before PV.
 """
 
 from __future__ import annotations
@@ -29,7 +43,14 @@ import math
 import torch
 
 from hip_llama_tpu_torch.ops import _build
-from hip_llama_tpu_torch.ops.cache import _DTYPES, _stream, check_cache, check_operand
+from hip_llama_tpu_torch.ops.cache import (
+    _DTYPES,
+    _count,
+    _stream,
+    check_cache,
+    check_operand,
+    check_scales,
+)
 
 HEAD_SIZES = (8, 16, 32, 64, 128)
 MAX_KV_MUL = 8  # query heads per KV head the decode kernel holds in registers
@@ -39,6 +60,9 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 DECODE_BLOCK = 1024  # the JAX decode kernels' KV block target
 PREFILL_BLOCK = 512  # the JAX prefill kernels' KV block target
 KERNEL_TILE = 64  # cache rows per tile of the CUDA kernels (csrc/attention.cu)
+# shared memory the int8 decode task may give a block's M x bk fp32 scores
+# (the H100's 227 KB per CTA less the task's own)
+INT8_SCORES_BYTES = 200 * 1024
 
 
 def ref_block(s: int, target: int) -> int:
@@ -50,18 +74,55 @@ def ref_block(s: int, target: int) -> int:
     return s
 
 
-def kernel_block(s: int, target: int) -> int:
-    """Cache rows per online-softmax block of the CUDA kernels: the JAX
-    kernels' block where it fits the kernels' 64-row tiles, else 64."""
-    return min(ref_block(s, target), KERNEL_TILE)
+def decode_block(s: int, quantized: bool = False) -> int:
+    """The KV block of the JAX decode kernels K1 and K5 for a cache of s
+    rows (attention.py:1215-1222, :1545-1549): `ref_block(s, 1024)`; on an
+    int8 cache a block that is no multiple of 128 becomes 128 where s is
+    one, else s."""
+    bk = ref_block(s, DECODE_BLOCK)
+    if quantized and bk % 128 and bk != s:
+        bk = 128 if s % 128 == 0 else s
+    return bk
 
 
-def _online_softmax_pv(scores, v, live_block, v_dtype, bk: int):
+def kernel_block(bk: int) -> int:
+    """Cache rows per online-softmax block of the CUDA kernels on an fp32
+    or bf16 cache: the JAX kernels' block bk where it fits the kernels'
+    64-row tiles, else 64."""
+    return min(bk, KERNEL_TILE)
+
+
+def check_int8_block(m: int, bk: int) -> None:
+    """The int8 decode task holds a block's m x bk scores in shared memory."""
+    if 4 * m * bk > INT8_SCORES_BYTES:
+        raise ValueError(f"int8 decode attention holds {m} x {bk} fp32 scores per block, "
+                         f"more than {INT8_SCORES_BYTES} bytes of shared memory")
+
+
+def _quant_rows(x):
+    """Rowwise (last-axis) int8 quantization of fp32 x as the JAX kernels'
+    _quant_rows_i8 (attention.py:88-93): scale = max|x| * (1/127), 1 where
+    zero; returns (round(x / scale) as fp32 integers, scale like x[...,
+    :1])."""
+    sc = x.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0)
+    sc = torch.where(sc == 0, torch.ones_like(sc), sc)
+    return torch.round(x / sc), sc
+
+
+def _int_dot(a, b):
+    """a @ b of integer-valued fp32 operands, exact (in fp64): the int32
+    dots of the kernels."""
+    return (a.double() @ b.double()).float()
+
+
+def _online_softmax_pv(scores, v, live_block, bk: int, pv_fn):
     """The blocked online softmax of the JAX kernels over the last axis of
     fp32 `scores` (..., S) (masked entries hold MASK_VALUE) against v
     (..., S, HS) in fp32: blocks of bk rows, each taken where live_block(i0)
-    (a mask broadcastable to scores[..., :1]) holds. Returns the running
-    max, l and the unnormalized fp32 sum, as the kernels keep them."""
+    (a mask broadcastable to scores[..., :1]) holds; pv_fn(p, v_block, i0)
+    gives a block's fp32 PV term from its fp32 probabilities p. Returns the
+    running max, l and the unnormalized fp32 sum, as the kernels keep
+    them."""
     s = scores.shape[-1]
     shape = scores.shape[:-1] + (1,)
     m = torch.full(shape, float("-inf"), device=scores.device)
@@ -74,7 +135,7 @@ def _online_softmax_pv(scores, v, live_block, v_dtype, bk: int):
         p = torch.exp(sb - m_next)
         live = live_block(i0)
         l = torch.where(live, alpha * l + p.sum(dim=-1, keepdim=True), l)
-        pv = p.to(v_dtype).float() @ v[..., i0:i0 + bk, :]
+        pv = pv_fn(p, v[..., i0:i0 + bk, :], i0)
         acc = torch.where(live, acc * alpha + pv, acc)
         m = torch.where(live, m_next, m)
     return m, l, acc
@@ -96,20 +157,38 @@ def _check_shapes(q, k_cache, v_cache, layer):
 # K1: decode
 
 
-def attention_decode_plain(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur):
+def attention_decode_plain(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale=None,
+                           v_scale=None, *, block: int | None = None):
     """Plain version of `attention_decode`: the JAX decode kernel's math
-    (attention.py:244-395) with its KV blocks; the current row folds in
-    last with an fp32 probability."""
+    (attention.py:244-395) with its KV blocks of `block` rows (default:
+    `decode_block`, K1's and K5's); the current row folds in last with an
+    fp32 probability."""
     b, h, hs = q.shape
     kvh, s = k_cache.shape[2], k_cache.shape[3]
     m = h // kvh
     scale = 1.0 / math.sqrt(hs)
+    quantized = k_cache.dtype == torch.int8
+    bk = block or decode_block(s, quantized)
     qs = q.reshape(b, kvh, m, hs)
-    kc = k_cache[:, layer].float()  # (B, KVH, S, HS)
-    scores = torch.einsum("bgmd,bgsd->bgms", qs.to(k_cache.dtype).float(), kc) * scale
     col = torch.arange(s, device=q.device)
     pos4 = pos[:, None, None, None]
     cur = torch.einsum("bgmd,bgd->bgm", qs.float(), k_cur.to(q.dtype).float())[..., None] * scale
+    if quantized:
+        # int8 dots (attention.py:300-357): q and each block's p * vs by row
+        qi, sq = _quant_rows(qs.float())
+        scores = (_int_dot(qi, k_cache[:, layer].float().transpose(-1, -2)) * (sq * scale)
+                  * k_scale[:, layer][:, :, None, :])
+        vs = v_scale[:, layer][:, :, None, :]  # (B, KVH, 1, S)
+
+        def pv_fn(p, vb, i0):
+            pi, sp = _quant_rows(p * vs[..., i0:i0 + bk])
+            return _int_dot(pi, vb) * sp
+    else:
+        kc = k_cache[:, layer].float()  # (B, KVH, S, HS)
+        scores = torch.einsum("bgmd,bgsd->bgms", qs.to(k_cache.dtype).float(), kc) * scale
+
+        def pv_fn(p, vb, i0):
+            return p.to(v_cache.dtype).float() @ vb
     if v_cache.dtype == torch.float32:
         # unrounded probabilities: the one-pass softmax is the same math
         att = torch.softmax(torch.cat([scores.masked_fill(col >= pos4, float("-inf")), cur],
@@ -119,8 +198,7 @@ def attention_decode_plain(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur):
         return out.reshape(b, h, hs).to(q.dtype)
     scores = torch.where(col < pos4, scores, MASK_VALUE)
     m_h, l_h, acc = _online_softmax_pv(
-        scores, v_cache[:, layer].float(), lambda i0: i0 < pos4, v_cache.dtype,
-        ref_block(s, DECODE_BLOCK))
+        scores, v_cache[:, layer].float(), lambda i0: i0 < pos4, bk, pv_fn)
     m_next = torch.maximum(m_h, cur)
     alpha = torch.exp(m_h - m_next)
     p_cur = torch.exp(cur - m_next)
@@ -130,39 +208,62 @@ def attention_decode_plain(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur):
     return out.reshape(b, h, hs).to(q.dtype)
 
 
-def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur):
+def _act_dtype(x, k_cache, quantized: bool):
+    """The dtype of q, the current rows and the output: the cache's, or on
+    an int8 cache x's own (fp32 or bf16)."""
+    dt = x.dtype if quantized else k_cache.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"attention takes fp32 or bf16 activations, got {dt}")
+    return dt
+
+
+def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale=None,
+                     v_scale=None):
     """One-token GQA attention for each slot: q (B, H, HS) over rows
     0..pos[b]-1 of layer `layer` of the cache (B, L, KVH, S, HS), plus the
     current k_cur/v_cur (B, KVH, HS) row folded in last (pos[b] == 0 means
-    the current row only). Returns (B, H, HS) in q's dtype. Replaces
-    hip_llama_tpu/ops/attention.py::attention_decode_pallas (all of its
-    bfold/bvec/dyn schedules compute this one function)."""
+    the current row only). An int8 cache comes with its scale planes
+    k_scale/v_scale (B, L, KVH, S). Returns (B, H, HS) in q's dtype.
+    Replaces hip_llama_tpu/ops/attention.py::attention_decode_pallas (all
+    of its bfold/bvec/dyn schedules compute this one function)."""
     bsz, _, kvh, s, hs, h = _check_shapes(q, k_cache, v_cache, layer)
+    quantized = check_scales(k_cache, k_scale, v_scale)
     dev = k_cache.device
     if dev.type == "cpu":
-        return attention_decode_plain(q, k_cache, v_cache, layer, pos, k_cur, v_cur)
+        return attention_decode_plain(q, k_cache, v_cache, layer, pos, k_cur, v_cur, k_scale,
+                                      v_scale)
     if dev.type != "cuda":
         raise ValueError(f"attention_decode: unsupported device {dev}")
     if hs not in HEAD_SIZES or h // kvh > MAX_KV_MUL:
         raise ValueError(f"attention_decode takes head sizes {HEAD_SIZES} and up to "
                          f"{MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
-    dt = k_cache.dtype
+    dt = _act_dtype(q, k_cache, quantized)
     check_operand("q", q, (bsz, h, hs), dt, dev)
     check_operand("k_cur", k_cur, (bsz, kvh, hs), dt, dev)
     check_operand("v_cur", v_cur, (bsz, kvh, hs), dt, dev)
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty_like(q)
-    fn = _build.bind("attention", "attention_decode", "ppppppp" + "iiiiiiiii" + "p")
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            k_cur.data_ptr(), v_cur.data_ptr(), out.data_ptr(),
-            bsz, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt],
-            kernel_block(s, DECODE_BLOCK), _stream())
+    bk = decode_block(s, quantized)
+    if quantized:
+        check_int8_block(h // kvh, bk)
+        fn = _build.bind("attention", "attention_decode_int8", "ppppppppp" + "iiiiiiiii" + "p")
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), pos.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
+                out.data_ptr(), bsz, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk,
+                _stream())
+    else:
+        fn = _build.bind("attention", "attention_decode", "ppppppp" + "iiiiiiiii" + "p")
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+                k_cur.data_ptr(), v_cur.data_ptr(), out.data_ptr(),
+                bsz, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], kernel_block(bk),
+                _stream())
     _build.check(rc, "attention", "attention_decode")
-    attention_decode.launches += 1
+    _count(attention_decode, quantized)
     return out
 
 
 attention_decode.launches = 0
+attention_decode.launches_int8 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -173,25 +274,32 @@ def _split_qkv(qkv, n_heads: int, kvh: int):
     return qkv[:, :n_heads], qkv[:, n_heads:n_heads + kvh], qkv[:, n_heads + kvh:]
 
 
-def attention_decode_fused_plain(qkv, k_cache, v_cache, layer: int, pos, n_heads: int):
+def attention_decode_fused_plain(qkv, k_cache, v_cache, layer: int, pos, n_heads: int,
+                                 k_scale=None, v_scale=None, *, block: int | None = None):
     """Plain version of `attention_decode_fused`: K1's plain version on the
-    three head blocks of qkv."""
+    three head blocks of qkv, with KV blocks of `block` rows (default:
+    `decode_block`)."""
     q, k_cur, v_cur = _split_qkv(qkv, n_heads, k_cache.shape[2])
-    return attention_decode_plain(q, k_cache, v_cache, layer, pos, k_cur, v_cur)
+    return attention_decode_plain(q, k_cache, v_cache, layer, pos, k_cur, v_cur, k_scale,
+                                  v_scale, block=block)
 
 
-def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int):
+def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int, k_scale=None,
+                           v_scale=None):
     """`attention_decode` with its operands read in place from the
     head-split QKV projection qkv (B, H + 2 KVH, HS): q = rows 0..H-1,
-    k_cur = rows H..H+KVH-1, v_cur = the rest. Returns (B, H, HS) in qkv's
-    dtype. Replaces hip_llama_tpu/ops/attention.py::attention_decode_fused."""
+    k_cur = rows H..H+KVH-1, v_cur = the rest. An int8 cache comes with its
+    scale planes. Returns (B, H, HS) in qkv's dtype. Replaces
+    hip_llama_tpu/ops/attention.py::attention_decode_fused."""
     bsz, n_layers, kvh, s, hs = check_cache(k_cache, v_cache)
+    quantized = check_scales(k_cache, k_scale, v_scale)
     h = n_heads
     dev = k_cache.device
     if qkv.dim() != 3 or qkv.shape[1] != h + 2 * kvh or qkv.shape[2] != hs:
         raise ValueError(f"qkv: expected (B, {h} + 2 x {kvh}, {hs}), got {tuple(qkv.shape)}")
     if dev.type == "cpu":
-        return attention_decode_fused_plain(qkv, k_cache, v_cache, layer, pos, n_heads)
+        return attention_decode_fused_plain(qkv, k_cache, v_cache, layer, pos, n_heads, k_scale,
+                                            v_scale)
     if dev.type != "cuda":
         raise ValueError(f"attention_decode_fused: unsupported device {dev}")
     if h % kvh or not 0 <= layer < n_layers:
@@ -199,37 +307,59 @@ def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int)
     if hs not in HEAD_SIZES or h // kvh > MAX_KV_MUL:
         raise ValueError(f"attention_decode_fused takes head sizes {HEAD_SIZES} and up to "
                          f"{MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
-    dt = k_cache.dtype
+    dt = _act_dtype(qkv, k_cache, quantized)
     check_operand("qkv", qkv, (bsz, h + 2 * kvh, hs), dt, dev)
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty((bsz, h, hs), dtype=dt, device=dev)
-    fn = _build.bind("attention", "attention_decode_fused", "ppppp" + "iiiiiiiii" + "p")
-    rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), bsz, h, kvh, s, hs, n_layers, layer, _DTYPES[dt],
-            kernel_block(s, DECODE_BLOCK), _stream())
+    bk = decode_block(s, quantized)
+    if quantized:
+        check_int8_block(h // kvh, bk)
+        fn = _build.bind("attention", "attention_decode_fused_int8", "ppppppp" + "iiiiiiiii" + "p")
+        rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(), bsz, h, kvh, s, hs,
+                n_layers, layer, _DTYPES[dt], bk, _stream())
+    else:
+        fn = _build.bind("attention", "attention_decode_fused", "ppppp" + "iiiiiiiii" + "p")
+        rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+                out.data_ptr(), bsz, h, kvh, s, hs, n_layers, layer, _DTYPES[dt],
+                kernel_block(bk), _stream())
     _build.check(rc, "attention", "attention_decode_fused")
-    attention_decode_fused.launches += 1
+    _count(attention_decode_fused, quantized)
     return out
 
 
 attention_decode_fused.launches = 0
+attention_decode_fused.launches_int8 = 0
 
 
 # ---------------------------------------------------------------------------
 # K4: prefill
 
 
-def attention_prefill_plain(q, k_cache, v_cache, layer: int, start, valid):
+def attention_prefill_plain(q, k_cache, v_cache, layer: int, start, valid, k_scale=None,
+                            v_scale=None):
     """Plain version of `attention_prefill`: the JAX prefill kernel's math
-    (attention.py:743-852) with its KV blocks."""
+    (attention.py:743-940) with its KV blocks."""
     b, t, h, hs = q.shape
     kvh, s = k_cache.shape[2], k_cache.shape[3]
     m = h // kvh
     scale = 1.0 / math.sqrt(hs)
-    qs = q.reshape(b, t, kvh, m, hs).to(k_cache.dtype).float()
+    quantized = k_cache.dtype == torch.int8
+    # q in the cache dtype; bf16 for an int8 cache (attention.py:912)
+    qs = q.reshape(b, t, kvh, m, hs).to(torch.bfloat16 if quantized else k_cache.dtype).float()
     scores = torch.einsum(
         "btgmd,bgsd->btgms", qs, k_cache[:, layer].float()
     ) * scale
+    if quantized:
+        scores = scores * k_scale[:, layer][:, None, :, None, :]
+        vs = v_scale[:, layer][:, None, :, None, :]  # (B, 1, KVH, 1, S)
+
+        def pv_fn(p, vb, i0):
+            return (p * vs[..., i0:i0 + bk]).to(torch.bfloat16).float() @ vb
+    else:
+        def pv_fn(p, vb, i0):
+            return p.to(v_cache.dtype).float() @ vb
+    bk = ref_block(s, PREFILL_BLOCK)
     qpos = (start[:, None] + torch.arange(t, device=q.device)[None, :])[:, :, None, None, None]
     col = torch.arange(s, device=q.device)
     if v_cache.dtype == torch.float32:
@@ -239,42 +369,51 @@ def attention_prefill_plain(q, k_cache, v_cache, layer: int, start, valid):
         return out.reshape(b, t, h, hs).to(q.dtype)
     scores = torch.where(col <= qpos, scores, MASK_VALUE)
     _, l, acc = _online_softmax_pv(
-        scores, v_cache[:, layer].float()[:, None], lambda i0: i0 <= qpos,
-        v_cache.dtype, ref_block(s, PREFILL_BLOCK))
+        scores, v_cache[:, layer].float()[:, None], lambda i0: i0 <= qpos, bk, pv_fn)
     out = acc / torch.where(l == 0, torch.ones_like(l), l)
     return out.reshape(b, t, h, hs).to(q.dtype)
 
 
-def attention_prefill(q, k_cache, v_cache, layer: int, start, valid):
+def attention_prefill(q, k_cache, v_cache, layer: int, start, valid, k_scale=None,
+                      v_scale=None):
     """Flash attention for a T-token chunk, q (B, T, H, HS), over layer
     `layer` of a cache that already holds the chunk's rows: query t of slot
     b sees cache rows 0..start[b]+t. Rows t >= valid[b] are unspecified
-    (the kernel writes zeros there). Returns (B, T, H, HS) in q's dtype.
-    Replaces hip_llama_tpu/ops/attention.py::attention_prefill_pallas
-    (T-major and head-major schedules alike)."""
+    (the kernel writes zeros there). An int8 cache comes with its scale
+    planes. Returns (B, T, H, HS) in q's dtype. Replaces
+    hip_llama_tpu/ops/attention.py::attention_prefill_pallas (T-major and
+    head-major schedules alike)."""
     bsz, _, kvh, s, hs, h = _check_shapes(q, k_cache, v_cache, layer)
+    quantized = check_scales(k_cache, k_scale, v_scale)
     dev = k_cache.device
     if dev.type == "cpu":
-        return attention_prefill_plain(q, k_cache, v_cache, layer, start, valid)
+        return attention_prefill_plain(q, k_cache, v_cache, layer, start, valid, k_scale, v_scale)
     if dev.type != "cuda":
         raise ValueError(f"attention_prefill: unsupported device {dev}")
     if hs not in HEAD_SIZES or 64 % (h // kvh):
         raise ValueError(f"attention_prefill takes head sizes {HEAD_SIZES} and a "
                          f"divisor of 64 query heads per KV head, got {hs} and {h // kvh}")
     t = q.shape[1]
-    dt = k_cache.dtype
+    dt = _act_dtype(q, k_cache, quantized)
     check_operand("q", q, (bsz, t, h, hs), dt, dev)
     check_operand("start", start, (bsz,), torch.int32, dev)
     check_operand("valid", valid, (bsz,), torch.int32, dev)
     out = torch.empty_like(q)
-    fn = _build.bind("attention", "attention_prefill", "pppppp" + "iiiiiiiiii" + "p")
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start.data_ptr(),
-            valid.data_ptr(), out.data_ptr(),
-            bsz, t, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt],
-            kernel_block(s, PREFILL_BLOCK), _stream())
+    bk = kernel_block(ref_block(s, PREFILL_BLOCK))
+    if quantized:
+        fn = _build.bind("attention", "attention_prefill_int8", "pppppppp" + "iiiiiiiiii" + "p")
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), start.data_ptr(), valid.data_ptr(), out.data_ptr(),
+                bsz, t, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk, _stream())
+    else:
+        fn = _build.bind("attention", "attention_prefill", "pppppp" + "iiiiiiiiii" + "p")
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start.data_ptr(),
+                valid.data_ptr(), out.data_ptr(),
+                bsz, t, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk, _stream())
     _build.check(rc, "attention", "attention_prefill")
-    attention_prefill.launches += 1
+    _count(attention_prefill, quantized)
     return out
 
 
 attention_prefill.launches = 0
+attention_prefill.launches_int8 = 0

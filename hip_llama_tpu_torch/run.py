@@ -1,6 +1,7 @@
 """CLI with the reference's flag contract (src/llama.cpp:1490-1639), serving
 the dense path, or the Q8_0 weight path for v2 checkpoints and --quant q8,
-on a CUDA card (or the CPU with --device cpu):
+on a bf16/fp32 or (--kv int8) int8 KV cache, on a CUDA card (or the CPU
+with --device cpu):
 
   python -m hip_llama_tpu_torch.run <checkpoint> [options]
   python -m hip_llama_tpu_torch.run model.bin -n 256 -i "Once upon a time"
@@ -23,10 +24,11 @@ Extra (double-dash):
   --quant q8                 quantize a v0/v1 fp32 checkpoint to Q8_0
                              (group size 64) at load; v2 files are Q8_0
   --device cuda|cpu          where the model runs (default cuda)
+  --kv int8                  int8 KV cache with one fp32 scale per row
   --no-prefill               force-feed prompts one token/step (parity mode)
   --rope-theta F             RoPE base override (.bin headers can't carry it)
   --no-eos-stop              test mode stops on BOS only (run.cc parity)
-The JAX CLI's other flags (--quant q4, --kv, --paged, --tp, --spec,
+The JAX CLI's other flags (--quant q4, --paged, --tp, --spec,
 --layout, --dequant, --stream, ...), v4 checkpoints and chat mode are not
 yet ported: they exit with an error.
 """
@@ -51,7 +53,7 @@ from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
 
 _VALUE_FLAGS = ("-t", "-p", "-s", "-n", "-i", "-z", "-m", "-f", "-o", "-b",
-                "--dtype", "--device", "--rope-theta", "--quant")
+                "--dtype", "--device", "--rope-theta", "--quant", "--kv")
 _SWITCHES = ("--no-prefill", "--no-eos-stop")
 
 
@@ -101,6 +103,9 @@ def main(argv: list[str]) -> int:
     if quant not in (None, "q8"):
         print(f"--quant {quant}: not yet ported to hip_llama_tpu_torch", file=sys.stderr)
         return 2
+    if opts.get("--kv", "int8") != "int8":
+        print("--kv supports: int8", file=sys.stderr)
+        return 1
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[opts.get("--dtype", "bfloat16")]
     device = resolve_device(opts.get("--device", "cuda"))
 
@@ -130,7 +135,7 @@ def main(argv: list[str]) -> int:
     tokenizer = Tokenizer.from_file(opts.get("-z", "./assets/tokenizer.bin"), cfg.vocab_size)
     engine = InferenceEngine(
         cfg, params, tokenizer, batch_size=batch,
-        use_prefill="--no-prefill" not in switches,
+        use_prefill="--no-prefill" not in switches, kv_quant="--kv" in opts,
     )
 
     if mode == "generate":

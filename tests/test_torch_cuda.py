@@ -265,3 +265,141 @@ def test_q8_layer_fused_kernel(b, shape):
         assert torch.equal(got, four) and torch.equal(kv, qkv[:, h:])
     else:
         _close(got, four, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the int8 KV cache: the int8 branches of K1-K5 and K23, and K12
+
+# int8-cache attention vs plain: exact int8 dots on both sides at the same
+# blocks; an ulp of expf can move one quantized probability by one int8
+# step, so the fp32 outputs agree to about 1e-3 and bf16 to an ulp or two
+INT8_TOL = {torch.float32: 4e-3, torch.bfloat16: 2e-2}
+
+
+def _int8_cache(rng, b, n_layers, kvh, s, hs, dev):
+    planes = [C.quantize_kv_rows(_rand(rng, (b, n_layers, kvh, s, hs), torch.float32, dev))
+              for _ in range(2)]
+    return KVCache(planes[0][0], planes[1][0], planes[0][1], planes[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_decode_int8_kernels(shape, dtype):
+    dev = _card()
+    b, h, kvh, s, hs = shape
+    rng = np.random.default_rng(9)
+    cache = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+    sc = (cache.k_scale, cache.v_scale)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), dtype, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s, b - 2)], dtype=torch.int32, device=dev)
+    n0, n1 = A.attention_decode.launches_int8, A.attention_decode_fused.launches_int8
+    got = A.attention_decode(q, cache.k, cache.v, 1, pos, kc, vc, *sc)
+    want = A.attention_decode_plain(q, cache.k, cache.v, 1, pos, kc, vc, *sc)
+    fused = A.attention_decode_fused(qkv, cache.k, cache.v, 1, pos, h, *sc)
+    torch.cuda.synchronize()
+    assert A.attention_decode.launches_int8 == n0 + 1
+    assert A.attention_decode_fused.launches_int8 == n1 + 1
+    tol = INT8_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(fused, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_attention_prefill_int8_kernel(shape, dtype):
+    dev = _card()
+    b, h, kvh, s, hs = shape
+    t = 64 if s < 512 else 256
+    rng = np.random.default_rng(10)
+    cache = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+    q = _rand(rng, (b, t, h, hs), dtype, dev)
+    start = np.r_[0, s - t // 2, rng.integers(0, s - t, b - 2)]
+    valid = np.r_[t, t // 2, 0, rng.integers(1, t + 1, b - 3)]
+    start_t = torch.tensor(start, dtype=torch.int32, device=dev)
+    valid_t = torch.tensor(valid, dtype=torch.int32, device=dev)
+    got = A.attention_prefill(q, cache.k, cache.v, 0, start_t, valid_t, cache.k_scale,
+                              cache.v_scale)
+    want = A.attention_prefill_plain(q, cache.k, cache.v, 0, start_t, valid_t, cache.k_scale,
+                                     cache.v_scale)
+    torch.cuda.synchronize()
+    live = torch.arange(t, device=dev)[None, :] < valid_t[:, None]
+    # the probabilities round to bf16 before PV whatever q's dtype
+    _close(got[live], want[live], torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_kv_writers_int8_kernels(shape, rows_dtype):
+    dev = _card()
+    b, _, kvh, s, hs = shape
+    n_layers, t = 3, 16
+    rng = np.random.default_rng(11)
+    base = _int8_cache(rng, b, n_layers, kvh, s, hs, dev)
+
+    def copy():
+        return KVCache(base.k.clone(), base.v.clone(), base.k_scale.clone(), base.v_scale.clone())
+
+    def same(x, y):
+        return all(torch.equal(getattr(x, f), getattr(y, f)) for f in ("k", "v", "k_scale", "v_scale"))
+
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s, b - 2)], dtype=torch.int32, device=dev)
+    valid = torch.tensor(np.r_[1, 0, np.ones(b - 2)], dtype=torch.int32, device=dev)
+    kr = _rand(rng, (n_layers, b, kvh, hs), rows_dtype, dev)
+    vr = _rand(rng, (n_layers, b, kvh, hs), rows_dtype, dev)
+    kr[0, 0, 0] = 0  # a zero row: scale 1
+    for vl in (None, valid):
+        n0 = C.kv_commit_rows.launches_int8
+        got = C.kv_commit_rows(copy(), kr, vr, pos, vl)
+        want = C.kv_commit_rows_plain(copy(), kr, vr, pos, vl)
+        torch.cuda.synchronize()
+        assert C.kv_commit_rows.launches_int8 == n0 + 1 and same(got, want)
+
+    start = torch.tensor(np.r_[s - t // 2, 0, rng.integers(0, s - t, b - 2)],
+                         dtype=torch.int32, device=dev)
+    cvalid = torch.tensor(np.r_[t, 0, rng.integers(1, t + 1, b - 2)], dtype=torch.int32, device=dev)
+    (ck, cks), (cv, cvs) = (C.quantize_kv_rows(_rand(rng, (b, t, kvh, hs), rows_dtype, dev))
+                            for _ in range(2))
+    n0, n1 = C.kv_write_chunk.launches_int8, C.scale_write_chunk.launches
+    got = C.scale_write_chunk(C.kv_write_chunk(copy(), ck, cv, 2, start, cvalid), cks, cvs, 2,
+                              start, cvalid)
+    want = C.scale_write_chunk_plain(C.kv_write_chunk_plain(copy(), ck, cv, 2, start, cvalid),
+                                     cks, cvs, 2, start, cvalid)
+    torch.cuda.synchronize()
+    assert C.kv_write_chunk.launches_int8 == n0 + 1 and C.scale_write_chunk.launches == n1 + 1
+    assert same(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 20])
+@pytest.mark.parametrize("shape", LAYER_SHAPES)
+def test_q8_layer_fused_int8_kernel(b, shape):
+    dev = _card()
+    h, kvh, hs, hid, s, gs = shape
+    d = h * hs
+    rng = np.random.default_rng(12)
+    wqkv, wo = _qt(rng, d, (h + 2 * kvh) * hs, gs, dev), _qt(rng, d, d, gs, dev)
+    w13, w2 = _qt(rng, d, 2 * hid, gs, dev), _qt(rng, hid, d, gs, dev)
+    g1, g2 = ((1 + 0.1 * _rand(rng, (d,), torch.float32, dev)).contiguous() for _ in range(2))
+    x = _rand(rng, (b, d), torch.bfloat16, dev)
+    cache = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+    sc = (cache.k_scale, cache.v_scale)
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s, b)][:b], dtype=torch.int32, device=dev)
+    ops = (x, wqkv, wo, w13, w2, g1, g2, cache.k, cache.v, 1, pos, *sc)
+    n0 = LF.q8_layer_fused.launches_int8
+    got, kv = LF.q8_layer_fused(*ops, n_heads=h)
+    want, kv_want = LF.q8_layer_fused_plain(*ops, n_heads=h)
+    torch.cuda.synchronize()
+    assert LF.q8_layer_fused.launches_int8 == n0 + 1
+    _close(got, want, torch.bfloat16)
+    _close(kv, kv_want, torch.bfloat16)
+    # the four int8-cache kernels in a row round alike (their GEMV route)
+    qkv = Q.q8_matmul(x, wqkv, norm_weight=g1, rope_pos=pos, rope_limit=(h + kvh) * hs,
+                      rope_head=hs).view(b, h + 2 * kvh, hs)
+    att = A.attention_decode_fused(qkv, cache.k, cache.v, 1, pos, h, *sc)
+    x2 = Q.q8_matmul(att.reshape(b, d), wo, residual=x)
+    four = Q.q8_matmul_ffn(x2, w13, w2, x2, g2)
+    torch.cuda.synchronize()
+    if b <= Q.GEMV_MAX_M:
+        assert torch.equal(got, four) and torch.equal(kv, qkv[:, h:])
+    else:
+        _close(got, four, torch.bfloat16)
