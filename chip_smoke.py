@@ -34,7 +34,16 @@ Phases, in order; each raises on failure and none is caught:
      and Q8 with the fused and the four-kernel layer, scored against the
      JAX package's assets/out/cpu_f32_kv8 and cpu_q8_kv8; and the 7B-width
      Q8 serve of phase 5b on an int8 cache, with its logit check, control
-     and launches (K23 32 per decode step).
+     and launches (K23 32 per decode step);
+  7. int4 weights (--quant q4, v4 files): K21 q4_matmul and K22
+     q4_matmul_silu against their plain versions at 7B shapes (group size
+     32), with the same timings; the golden fixture with --quant q4 (bf16
+     and int8 cache) scored against the JAX package's assets/out/cpu_q4 and
+     cpu_q4_kv8, a v4 file of it written by the port (byte-identical to the
+     --quant q4 outputs) and a --dequant run of that file; and the 7B-width
+     serve of phase 5 with int4 weights quantized on the card, with its
+     logit check, control, launches (K21 97, K22 32, K5 32, K2 1 per decode
+     step, no Q8 kernel) and profile.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -59,6 +68,7 @@ import torch.nn.functional as F
 from hip_llama_tpu_torch import run as port_run
 from hip_llama_tpu_torch.config import ModelConfig
 from hip_llama_tpu_torch.engine import InferenceEngine, Requests, read_inputfile
+from hip_llama_tpu_torch.io.checkpoint import load_checkpoint, write_v4
 from hip_llama_tpu_torch.io.tokenizer_io import read_tokenizer_bin, write_tokenizer_bin
 from hip_llama_tpu_torch.models.llama import KVCache, init_kv_cache, make_decode_step, make_prefill
 from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams
@@ -67,6 +77,7 @@ from hip_llama_tpu_torch.ops import attention as A
 from hip_llama_tpu_torch.ops import cache as C
 from hip_llama_tpu_torch.ops import layer_fused as LF
 from hip_llama_tpu_torch.ops import quant as Q
+from hip_llama_tpu_torch.ops import quant4 as Q4
 from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
 
@@ -93,6 +104,9 @@ LOGIT_TOL = 0.25
 # to the next int8 value), and the control (the plain path with layer 0's
 # FFN dropped) must read above the limit
 Q8_LOGIT_TOL = 0.2
+# the same for the int4 path: the same cast points as Q8 (weights
+# dequantized to bf16 before the products), the sums in another order
+Q4_LOGIT_TOL = 0.2
 # Q8 product outputs vs plain: bf16 values of magnitude up to ~8 from the
 # same cast points with fp32 sums in another order, one bf16 ulp apart at
 # most (tests/test_torch_cuda.py)
@@ -141,6 +155,9 @@ KERNEL_SOURCES = {
                                     "hip_llama_tpu/ops/attention.py:1486"),
     "q8_layer_fused_int8": ("hip_llama_tpu_torch/csrc/layer_fused.cu",
                             "hip_llama_tpu/ops/layer_fused.py:316"),
+    # int4 weights
+    "q4_matmul": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:299"),
+    "q4_matmul_silu": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:547"),
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
@@ -176,6 +193,26 @@ GOLDEN_INT8_RUNS = {
 Q8_INT8_PATH = ("q8_matmul", "q8_layer_fused_int8", "q8_matmul_ffn", "q8_matmul_silu",
                 "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
                 "attention_prefill_int8")
+# the int4 path: K21 and K22 carry every product, whatever the row count
+# and HIPLLAMA_LAYER_FUSE say; the decode layer is four kernels
+Q4_PATH = ("q4_matmul", "q4_matmul_silu", "attention_decode_fused", "kv_commit_rows",
+           "kv_write_chunk", "attention_prefill")
+# the wrapper launches of one 7B decode step on each path
+_L = LLAMA2_7B.n_layers
+DENSE_STEP = {"attention_decode": _L, "kv_commit_rows": 1}
+Q8_STEP = {"q8_layer_fused": _L, "q8_matmul": 1, "kv_commit_rows": 1}
+Q8_INT8_STEP = {"q8_layer_fused_int8": _L, "q8_matmul": 1, "kv_commit_rows_int8": 1}
+Q4_STEP = {"q4_matmul": 3 * _L + 1, "q4_matmul_silu": _L, "attention_decode_fused": _L,
+           "kv_commit_rows": 1}
+# int4 on the fixture, at the bars of the Q8 runs (bf16 cache: both; int8
+# cache: the average)
+GOLDEN_Q4_RUNS = {
+    "q4": (["--quant", "q4"], "1", "cpu_q4", Q4_PATH, True),
+    "q4 --kv int8": (["--quant", "q4", "--kv", "int8"], "1", "cpu_q4_kv8",
+                     ("q4_matmul", "q4_matmul_silu", "attention_decode_fused_int8",
+                      "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
+                      "attention_prefill_int8"), False),
+}
 
 
 def card_line() -> str:
@@ -694,6 +731,94 @@ def phase_kernels_int8() -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 7a: the int4 kernels against their plain versions at 7B shapes
+
+
+def phase_q4_kernels() -> dict[str, dict]:
+    """K21 and K22 at Llama-2-7B shapes, bf16 activations, int4 weights of
+    group size 32. Library yardstick: cuBLAS `x @ w` on the weight
+    dequantized to bf16 beforehand (four times the packed weight bytes).
+    Bytes count the packed weights (K/2 x N), fp32 scales, activations in
+    and out once each. Weights rotate over enough copies (at least 56 MB)
+    that each call finds its weights cold in the 50 MB L2."""
+    dev = torch.device("cuda")
+    d, hid, voc, gs = 4096, 11008, 32000, 32
+    nqkv = 3 * d
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def weights(k, n, copies):
+        return [Q4.q4_quantize_weights(rnd(k, n, dtype=torch.float32).mul_(k ** -0.5), gs)
+                for _ in range(copies)]
+
+    def wbytes(k, n):
+        return (k // 2) * n + (k // gs) * n * 4
+
+    def deq(ws):
+        return [Q4.q4_dequantize(w).to(torch.bfloat16) for w in ws]
+
+    norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
+    out: dict[str, list] = {}
+
+    def case(name, label, fn, plain_fn, lib_fn, n_bytes, flops):
+        out.setdefault(name, []).append(
+            q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops))
+
+    # K21: QKV with norm + RoPE at decode and prefill rows, wo and W2 with
+    # the residual, the classifier with the norm
+    wq = weights(d, nqkv, 2)
+    wqb = deq(wq)
+    rope = dict(rope_limit=2 * d, rope_head=128, rope_theta=10000.0)
+    for m in (8, 2048):
+        x = rnd(m, d)
+        pos = (torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32, device=dev)
+               if m == 8 else torch.arange(m, dtype=torch.int32, device=dev) % 512)
+        case("q4_matmul", f"QKV M {m}, norm + RoPE",
+             lambda i: Q4.q4_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
+             lambda i: Q4.q4_matmul_plain(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
+             lambda i: x @ wqb[i % 2],
+             wbytes(d, nqkv) + m * d * 2 + m * nqkv * 2 + d * 4 + m * 4, 2 * m * d * nqkv)
+    del wq, wqb
+    x = rnd(8, d)
+    for label, k, copies in (("wo", d, 6), ("W2", hid, 2)):
+        w = weights(k, d, copies)
+        wb = deq(w)
+        xk, res = rnd(8, k), rnd(8, d)
+        case("q4_matmul", f"{label} M 8, K {k}, residual",
+             lambda i: Q4.q4_matmul(xk, w[i % copies], residual=res),
+             lambda i: Q4.q4_matmul_plain(xk, w[i % copies], residual=res),
+             lambda i: xk @ wb[i % copies], wbytes(k, d) + 8 * k * 2 + 2 * 8 * d * 2,
+             2 * 8 * k * d)
+        del w, wb
+    wc = weights(d, voc, 1)
+    wcb = deq(wc)
+    case("q4_matmul", "classifier M 8, norm",
+         lambda i: Q4.q4_matmul(x, wc[0], norm_weight=norm),
+         lambda i: Q4.q4_matmul_plain(x, wc[0], norm_weight=norm),
+         lambda i: x @ wcb[0], wbytes(d, voc) + 8 * d * 2 + 8 * voc * 2 + d * 4,
+         2 * 8 * d * voc)
+    del wc, wcb
+
+    # K22 at decode and prefill rows
+    w13 = weights(d, 2 * hid, 2)
+    w13b = deq(w13)
+    for m in (8, 2048):
+        x = rnd(m, d)
+        case("q4_matmul_silu", f"W1|W3 gate M {m}, norm",
+             lambda i: Q4.q4_matmul_silu(x, w13[i % 2], norm_weight=norm),
+             lambda i: Q4.q4_matmul_silu_plain(x, w13[i % 2], norm_weight=norm),
+             lambda i: x @ w13b[i % 2],
+             wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid)
+    del w13, w13b
+    # the kernels line carries each kernel's first decode case; max_abs_err
+    # over all cases
+    return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+            for name, rs in out.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the golden fixture through the CLI
 
 
@@ -722,19 +847,22 @@ def phase_goldens() -> None:
             print(f"golden {c}_in_8: byte-identical to assets/out/cpu_f32", flush=True)
 
 
-def phase_golden_runs(runs: dict) -> dict[str, dict[str, int]]:
+def phase_golden_runs(runs: dict, model: str | None = None
+                      ) -> tuple[dict[str, dict[str, int]], dict[str, dict[str, bytes]]]:
     """Each run of `runs` (label -> (CLI arguments, HIPLLAMA_LAYER_FUSE,
     golden directory, the kernels its path must launch, whether the bar of
-    3 corpora at 1.0 applies)) on the card, greedy at -b 4, scored against
-    the JAX package's outputs in assets/out/<directory> as the fraction of
-    requests whose generations are byte-identical, at the bars of
-    tests/test_goldens.py:84-100; returns each run's kernel launches."""
-    launches = {}
+    3 corpora at 1.0 applies)) of `model` on the card, greedy at -b 4,
+    scored against the JAX package's outputs in assets/out/<directory> as
+    the fraction of requests whose generations are byte-identical, at the
+    bars of tests/test_goldens.py:84-100; returns each run's kernel
+    launches and its output files."""
+    model = model or os.path.join(GOLDEN, "model.bin")
+    launches, outputs = {}, {}
     for label, (args, fuse, golden, path, corpora_bar) in runs.items():
         os.environ["HIPLLAMA_LAYER_FUSE"] = fuse
         try:
             reset_launches()
-            golden_run(label, args, golden, corpora_bar)
+            outputs[label] = golden_run(label, args, golden, corpora_bar, model)
             launches[label] = launch_counts()
         finally:
             del os.environ["HIPLLAMA_LAYER_FUSE"]
@@ -743,18 +871,20 @@ def phase_golden_runs(runs: dict) -> dict[str, dict[str, int]]:
               f"{ {n: c for n, c in launches[label].items() if c} }", flush=True)
         if dead:
             raise AssertionError(f"kernels never launched on the golden {label} path: {dead}")
-    return launches
+    return launches, outputs
 
 
-def golden_run(label: str, args: list[str], golden: str, corpora_bar: bool) -> None:
+def golden_run(label: str, args: list[str], golden: str, corpora_bar: bool,
+               model: str) -> dict[str, bytes]:
     scores = {}
     same = 0
+    outputs = {}
     with tempfile.TemporaryDirectory() as tmp:
         for c in CORPORA:
             out = os.path.join(tmp, f"{c}.out")
             with contextlib.redirect_stdout(io.StringIO()):
                 rc = port_run.main([
-                    "run", os.path.join(GOLDEN, "model.bin"),
+                    "run", model,
                     "-z", os.path.join(GOLDEN, "tokenizer.bin"), "-m", "test",
                     "-f", os.path.join(REPO, "assets", "in", f"{c}_in_8.txt"),
                     "-o", out, "-b", "4", "-t", "0.0", *args, "--device", "cuda",
@@ -767,7 +897,8 @@ def golden_run(label: str, args: list[str], golden: str, corpora_bar: bool) -> N
                 raise AssertionError(f"{c}: {got.num_reqs} generations, want {want.num_reqs}")
             scores[c] = sum(a == b for a, b in zip(got.prompts, want.prompts)) / want.num_reqs
             with open(out, "rb") as f, open(want_path, "rb") as g:
-                identical = f.read() == g.read()
+                outputs[c] = f.read()
+                identical = outputs[c] == g.read()
             same += identical
             print(f"golden ({label}) {c}_in_8: {scores[c]:.4f} of requests byte-identical "
                   f"to assets/out/{golden}{'; the file byte-identical' if identical else ''}",
@@ -779,6 +910,45 @@ def golden_run(label: str, args: list[str], golden: str, corpora_bar: bool) -> N
           flush=True)
     if (corpora_bar and full < 3) or avg < 0.75:
         raise AssertionError(f"golden coverage of {label} below the bars: {scores}")
+    return outputs
+
+
+def phase_q4_goldens() -> dict[str, dict[str, int]]:
+    """The fixture with --quant q4 on a bf16 and an int8 cache (scored
+    against the JAX package's int4 outputs; no Q8 kernel may launch), a v4
+    file of it written by the port (its outputs must be the --quant q4
+    outputs byte for byte, on both caches: both quantize with the same
+    function), and one --dequant run of that file through the dense path;
+    returns each run's launches."""
+    launches, outputs = phase_golden_runs(GOLDEN_Q4_RUNS)
+    with tempfile.TemporaryDirectory() as tmp:
+        v4 = os.path.join(tmp, "model_v4.bin")
+        write_v4(v4, *load_checkpoint(os.path.join(GOLDEN, "model.bin")))
+        runs = {f"{label}, v4 file": (args[2:], *rest) for label, (args, *rest)
+                in GOLDEN_Q4_RUNS.items()}
+        l4, o4 = phase_golden_runs(runs, model=v4)
+        launches.update(l4)
+        for label in GOLDEN_Q4_RUNS:
+            if o4[f"{label}, v4 file"] != outputs[label]:
+                raise AssertionError(f"the v4 file's outputs differ from {label}'s")
+            print(f"golden ({label}, v4 file): byte-identical to the {label} run", flush=True)
+        reset_launches()
+        out = os.path.join(tmp, "dequant.out")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = port_run.main(["run", v4, "-z", os.path.join(GOLDEN, "tokenizer.bin"),
+                                "-m", "test", "-o", out, "-b", "4", "-t", "0.0", "--dequant",
+                                "-f", os.path.join(REPO, "assets", "in", "gen_in_8.txt"),
+                                "--device", "cuda"])
+        launches["v4 --dequant"] = launch_counts()
+        if rc != 0 or read_inputfile(out).num_reqs != 8:
+            raise AssertionError(f"--dequant of the v4 file failed (rc {rc})")
+        print(f"golden (v4 --dequant) gen_in_8: served through the dense path; launches "
+              f"{ {n: c for n, c in launches['v4 --dequant'].items() if c} }", flush=True)
+    for label, counts in launches.items():
+        q8 = {n: c for n, c in counts.items() if n.startswith("q8_") and c}
+        if q8 and label != "v4 --dequant":
+            raise AssertionError(f"Q8 kernels launched on the int4 golden run {label}: {q8}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -849,19 +1019,21 @@ def make_prompts(tok: Tokenizer, targets: list[int]) -> list[str]:
     return prompts
 
 
-def random_7b_qparams(cfg: ModelConfig, dev) -> QuantLlamaParams:
-    """Q8_0 params (group size 64) of seeded bf16 draws scaled as in
-    random_7b_params, quantized on the card one layer's weight at a time,
+def random_7b_qparams(cfg: ModelConfig, dev, int4: bool = False) -> QuantLlamaParams:
+    """Q8_0 params (group size 64), or with `int4` int4 params (group size
+    32, the embedding Q8_0 of group size 64), of seeded bf16 draws scaled as
+    in random_7b_params, quantized on the card one layer's weight at a time,
     so no full-precision copy of the model exists. The classifier is the
     quantized transposed embedding with the BOS and EOS columns zero."""
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    c, gs = cfg, 64
+    g = torch.Generator(device=dev).manual_seed(SEED + (4 if int4 else 1))
+    c = cfg
 
     def mat(*shape, fan_in):
         return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16).mul_(fan_in ** -0.5)
 
     def qt(*ws):
-        return Q.q8_quantize_weights(torch.cat(ws, dim=1), gs)
+        w = torch.cat(ws, dim=1)
+        return Q4.q4_quantize_weights(w, 32) if int4 else Q.q8_quantize_weights(w, 64)
 
     def ones(n):
         return torch.ones(n, device=dev, dtype=torch.float32)
@@ -875,7 +1047,7 @@ def random_7b_qparams(cfg: ModelConfig, dev) -> QuantLlamaParams:
                                mat(c.dim, c.hidden_dim, fan_in=c.dim)))
         layers["w2"].append(qt(mat(c.hidden_dim, c.dim, fan_in=c.hidden_dim)))
     tok_emb = mat(c.vocab_size, c.dim, fan_in=c.dim)
-    emb = Q.q8_quantize_weights(tok_emb.t(), gs)  # groups along each row of tok_emb
+    emb = Q.q8_quantize_weights(tok_emb.t(), 64)  # groups along each row of tok_emb
     wcls = tok_emb.t().contiguous()
     wcls[:, 1:3] = 0
     return QuantLlamaParams(
@@ -884,25 +1056,27 @@ def random_7b_qparams(cfg: ModelConfig, dev) -> QuantLlamaParams:
         wq=tuple(layers["wq"]), wk=(), wv=(), wo=tuple(layers["wo"]),
         rms_ffn=tuple(ones(c.dim) for _ in range(c.n_layers)),
         w1=tuple(layers["w1"]), w2=tuple(layers["w2"]), w3=(),
-        rms_final=ones(c.dim), wcls=Q.q8_quantize_weights(wcls, gs),
+        rms_final=ones(c.dim), wcls=qt(wcls),
     )
 
 
 def without_ffn0(params: QuantLlamaParams) -> QuantLlamaParams:
-    """The control of the logit check: layer 0's FFN adds nothing (W2 zero)."""
+    """The control of the logit check: layer 0's FFN adds nothing (W2 zero:
+    int8 codes 0, or int4 nibbles 8, the code 0, in both halves of a byte)."""
     w2 = list(params.w2)
-    w2[0] = Q.QTensor(torch.zeros_like(w2[0].q), w2[0].s)
+    w2[0] = type(w2[0])(torch.full_like(w2[0].q, -120 if params.int4 else 0), w2[0].s)
     return dataclasses.replace(params, w2=tuple(w2))
 
 
-def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
+def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per_step: dict,
                 control=None, kv_quant: bool = False) -> dict:
     """Serve the 16 requests at batch 8, window 512 through the engine with
     `params` (on an int8 cache with `kv_quant`), after holding the first
     prefill and decode logits of the kernel path against the plain path
     (and, given `control`, checking that the plain path on control(params)
-    reads above the tolerance, and profiling a decode step of the
-    four-kernel layer beside the default one); returns the launches of the
+    reads above the tolerance, and for Q8 params profiling a decode step of
+    the four-kernel layer beside the default one); `per_step`: the wrapper
+    launches one decode step must make, exactly. Returns the launches of the
     serve."""
     dev = torch.device("cuda")
     cfg = LLAMA2_7B
@@ -1010,16 +1184,14 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...],
     pos0 = np.array([len(t) - 1 for t in ids], np.int32)
     before = launch_counts()
     engine._do_step(cache, toks, pos0)
-    per_step = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
-    print(f"{label} wrapper launches per decode step (batch 8): {sum(per_step.values())} "
-          f"{per_step}", flush=True)
-    for layer_kernel in ("q8_layer_fused", "q8_layer_fused_int8"):
-        if layer_kernel in path and per_step.get(layer_kernel) != cfg.n_layers:
-            raise AssertionError(f"{label}: {per_step.get(layer_kernel)} {layer_kernel} launches "
-                                 f"per decode step, want {cfg.n_layers}")
+    step_counts = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+    print(f"{label} wrapper launches per decode step (batch 8): {sum(step_counts.values())} "
+          f"{step_counts}", flush=True)
+    if step_counts != per_step:
+        raise AssertionError(f"{label}: launches per decode step {step_counts}, want {per_step}")
     profile_window(f"{label} decode step (batch 8)", 4,
                    lambda i: engine._do_step(cache, toks, pos0 + i))
-    if control is not None:
+    if control is not None and not params.int4:
         os.environ["HIPLLAMA_LAYER_FUSE"] = "0"
         try:
             four = make_decode_step(cfg)
@@ -1082,8 +1254,8 @@ def main() -> int:
     res_int8 = phase_kernels_int8()
     torch.cuda.empty_cache()
     phase_goldens()
-    launches_golden = phase_golden_runs(GOLDEN_Q8_RUNS)
-    launches_golden.update(phase_golden_runs(GOLDEN_INT8_RUNS))
+    launches_golden = phase_golden_runs(GOLDEN_Q8_RUNS)[0]
+    launches_golden.update(phase_golden_runs(GOLDEN_INT8_RUNS)[0])
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -1091,7 +1263,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"7b-width params: {sum(getattr(params, f).numel() for f in params.__dataclass_fields__) / 1e9:.2f}"
           f" G bf16 values made in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = {"dense": phase_serve("7b", params, LOGIT_TOL, DENSE_PATH)}
+    launches = {"dense": phase_serve("7b", params, LOGIT_TOL, DENSE_PATH, DENSE_STEP)}
     del params
     gc.collect()  # the served engine sits in a reference cycle (its patched step)
     torch.cuda.empty_cache()
@@ -1103,22 +1275,44 @@ def main() -> int:
                   for t in (qt.q, qt.s))
     print(f"7b-width Q8 params: {q_bytes / 1e9:.2f} GB of int8 weights and fp32 scales "
           f"quantized on the card in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches["q8"] = phase_serve("7b q8", qparams, Q8_LOGIT_TOL, Q8_PATH, control=without_ffn0)
+    launches["q8"] = phase_serve("7b q8", qparams, Q8_LOGIT_TOL, Q8_PATH, Q8_STEP,
+                                 control=without_ffn0)
     gc.collect()
     torch.cuda.empty_cache()
     launches["q8 int8"] = phase_serve("7b q8 int8-kv", qparams, Q8_LOGIT_TOL, Q8_INT8_PATH,
-                                      control=without_ffn0, kv_quant=True)
+                                      Q8_INT8_STEP, control=without_ffn0, kv_quant=True)
     del qparams
+
+    # phase 7: int4 weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_q4 = phase_q4_kernels()
+    torch.cuda.empty_cache()
+    launches_golden.update(phase_q4_goldens())
+    t0 = time.perf_counter()
+    q4params = random_7b_qparams(LLAMA2_7B, dev, int4=True)
+    torch.cuda.synchronize()
+    q_bytes = sum(t.numel() * t.element_size() for qt in (*q4params.wq, *q4params.wo,
+                                                          *q4params.w1, *q4params.w2,
+                                                          q4params.wcls)
+                  for t in (qt.q, qt.s))
+    print(f"7b-width int4 params: {q_bytes / 1e9:.2f} GB of packed int4 weights and fp32 scales "
+          f"quantized on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches["q4"] = phase_serve("7b q4", q4params, Q4_LOGIT_TOL, Q4_PATH, Q4_STEP,
+                                 control=without_ffn0)
+    del q4params
 
     # each kernel's count from the first serving path that runs it: the 7B
     # serves, then the golden runs (K5 and its int8 branch run only in the
-    # four-kernel layer, K1's int8 branch in the dense fp32 --kv int8 run)
-    runs = [launches["dense"], launches["q8"], launches["q8 int8"],
+    # four-kernel layer, K1's int8 branch in the dense fp32 --kv int8 run;
+    # K21 and K22 count from the int4 serve)
+    runs = [launches["dense"], launches["q8"], launches["q8 int8"], launches["q4"],
             launches_golden["q8, four-kernel layer"], launches_golden["fp32 --kv int8"],
             launches_golden["q8 --kv int8, four-kernel layer"]]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        r = res[torch.bfloat16].get(name) or res_q8.get(name) or res_int8[name]
+        r = (res[torch.bfloat16].get(name) or res_q8.get(name) or res_int8.get(name)
+             or res_q4[name])
         n = next((run[name] for run in runs if run.get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -22,7 +22,8 @@
 // dequantizes each 32 x 128 weight tile into shared memory as bf16 and runs
 // bf16 tensor-core products (nvcuda::wmma, fp32 accumulators) on 128 x 128
 // output tiles. The rmsnorm prologue is a pass of its own that writes xn
-// once (M x K bf16, which stays in L2).
+// once (M x K bf16, which stays in L2; matmul_passes.cuh, with the GEMV
+// path's second pass).
 //
 // q8_matmul_ffn is one CTA per 64-column hidden strip and 16 rows
 // (q8.cuh::ffn_strip_task): the strip's h never leaves the CTA, and W1, W3
@@ -34,6 +35,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "matmul_passes.cuh"
 #include "q8.cuh"
 
 namespace {
@@ -42,18 +44,6 @@ using namespace hipllama::q8;
 using hipllama::to_f;
 using hipllama::warp_sum;
 namespace wmma = nvcuda::wmma;
-
-constexpr int kEltThreads = 256;  // threads per CTA of the elementwise passes
-
-// ---------------------------------------------------------------------------
-// rmsnorm prologue: one CTA per row
-
-__global__ void __launch_bounds__(kThreads) rmsnorm_rows_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ g, bf16* __restrict__ xn, int K,
-    float eps) {
-  __shared__ float red[kWarps];
-  rmsnorm_row(x + (size_t)blockIdx.x * K, g, xn + (size_t)blockIdx.x * K, K, eps, red);
-}
 
 // ---------------------------------------------------------------------------
 // GEMV path (M <= 16): one (strip, split) task per CTA
@@ -64,18 +54,6 @@ __global__ void __launch_bounds__(kThreads) q8_gemv_kernel(
     float* __restrict__ part, int M, int K, int N, int gs, int kslice) {
   __shared__ GemvSmem<MAXM> sm;
   gemv_task<MAXM>(sm, x, q, s, part, M, M, 0, K, N, gs, kslice, blockIdx.x, blockIdx.y);
-}
-
-__global__ void q8_split_epilogue_kernel(const float* __restrict__ part, int split, int M, int N,
-                                         Epilogue e, bf16* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < M * (N / 2)) split_epilogue_at(part, split, M, N, e, out, idx);
-}
-
-__global__ void q8_split_gate_kernel(const float* __restrict__ part, int split, int M, int H,
-                                     bf16* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < M * H) split_gate_at(part, split, M, H, out, idx);
 }
 
 // ---------------------------------------------------------------------------
@@ -238,15 +216,6 @@ __global__ void __launch_bounds__(kMmThreads) q8_mma_kernel(
 // ---------------------------------------------------------------------------
 // launchers
 
-int check_launch() { return (int)cudaGetLastError(); }
-
-int blocks(long long n) { return (int)((n + kEltThreads - 1) / kEltThreads); }
-
-int launch_norm(const void* x, const void* g, void* xn, int M, int K, float eps, cudaStream_t st) {
-  rmsnorm_rows_kernel<<<M, kThreads, 0, st>>>((const bf16*)x, (const float*)g, (bf16*)xn, K, eps);
-  return check_launch();
-}
-
 int launch_gemv(const void* x, const void* q, const void* s, float* part, int M, int K, int N,
                 int gs, int split, int kslice, cudaStream_t st) {
   if (M > 16 || kslice > kGvKMax || (long long)split * kslice < K ||
@@ -262,19 +231,6 @@ int launch_gemv(const void* x, const void* q, const void* s, float* part, int M,
   return check_launch();
 }
 
-int launch_split_epilogue(const float* part, int split, int M, int N, const Epilogue& e, void* out,
-                          cudaStream_t st) {
-  q8_split_epilogue_kernel<<<blocks((long long)M * (N / 2)), kEltThreads, 0, st>>>(
-      part, split, M, N, e, (bf16*)out);
-  return check_launch();
-}
-
-int launch_split_gate(const float* part, int split, int M, int H, void* out, cudaStream_t st) {
-  q8_split_gate_kernel<<<blocks((long long)M * H), kEltThreads, 0, st>>>(part, split, M, H,
-                                                                         (bf16*)out);
-  return check_launch();
-}
-
 template <bool GATE>
 int launch_mma(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
                int off3, int gs, const Epilogue& e, void* out, cudaStream_t st) {
@@ -285,12 +241,6 @@ int launch_mma(const void* x, const void* q, const void* s, int M, int K, int ld
                                                    (bf16*)out);
   return check_launch();
 }
-
-#define HIPLLAMA_TRY(call)      \
-  do {                          \
-    const int rc_ = (call);     \
-    if (rc_ != 0) return rc_;   \
-  } while (0)
 
 }  // namespace
 

@@ -1,4 +1,5 @@
-"""llama2.c checkpoint formats: v0 (legacy) and v1 (fp32 "ak42").
+"""llama2.c checkpoint formats: v0 (legacy), v1 (fp32 "ak42"), v2 (Q8_0) and
+v4 (int4).
 
 Byte layouts re-derived from the reference:
 - v0: 7-int32 header {dim, hidden_dim, n_layers, n_heads, n_kv_heads,
@@ -12,18 +13,22 @@ Byte layouts re-derived from the reference:
   weight as [int8 values][fp32 per-group scales] (reference: runq.c:189-251,
   train/export.py:182-260).
 
-The int4 (v4) format belongs to a path this package has not ported yet:
-`load_checkpoint` names it and raises.
+- v4: the same 256-byte header plus group_size int32; norms fp32 first,
+  then the embedding as Q8_0 rows (group size 64), then each weight stacked
+  over the layers in matmul orientation as [packed int4 nibbles (L, K/2,
+  N)][fp32 scales (L, K/gs, N)], the classifier last (the JAX package's
+  format, hip_llama_tpu/io/checkpoint.py:351-400, :540-579).
 
-All 2-D weights are stored row-major as (out_features, in_features), matching
-the reference's `matmul` W(d,n) @ x(n) convention (src/seq.cpp:40-51). This
-module keeps that orientation; models/params.py transposes into (in, out)
-for `x @ W`.
+All 2-D weights of v0-v2 are stored row-major as (out_features, in_features),
+matching the reference's `matmul` W(d,n) @ x(n) convention
+(src/seq.cpp:40-51). This module keeps that orientation; models/params.py
+transposes into (in, out) for `x @ W`. v4 weights are already (in, out).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import struct
 from typing import BinaryIO
 
@@ -33,6 +38,7 @@ from hip_llama_tpu_torch.config import ModelConfig
 
 MAGIC_AK42 = 0x616B3432
 HEADER_SIZE_V12 = 256
+V4_EMB_GROUP = 64  # embedding rows stay Q8_0 in v4 files
 
 
 @dataclasses.dataclass
@@ -87,6 +93,65 @@ class QuantWeights:
     w2: list[QuantTensor]
     w3: list[QuantTensor]
     wcls: QuantTensor  # aliases q_tokens when shared
+
+
+@dataclasses.dataclass
+class Q4Tensorfile:
+    """One v4 int4 weight in matmul orientation: q (..., K/2, N) int8 packed
+    nibbles (byte k' holds row k' in its low nibble and row K/2 + k' in its
+    high nibble, each as the code + 8), s (..., K/gs, N) fp32 — the layout
+    of ops/quant4.py::Q4Tensor."""
+
+    q: np.ndarray
+    s: np.ndarray
+
+
+@dataclasses.dataclass
+class Q4Weights:
+    """v4 int4 checkpoint contents: norms fp32, the embedding as Q8_0 rows,
+    every matmul weight stacked over the layers in matmul orientation."""
+
+    rms_att: np.ndarray  # (L, D) f32
+    rms_ffn: np.ndarray
+    rms_final: np.ndarray
+    emb_q: np.ndarray  # (V, D) int8 (Q8_0 rows)
+    emb_s: np.ndarray  # (V, D // V4_EMB_GROUP) f32
+    wq: Q4Tensorfile  # (L, D/2, D)
+    wk: Q4Tensorfile  # (L, D/2, KV)
+    wv: Q4Tensorfile
+    wo: Q4Tensorfile
+    w1: Q4Tensorfile  # (L, D/2, H)
+    w2: Q4Tensorfile  # (L, H/2, D)
+    w3: Q4Tensorfile
+    wcls: Q4Tensorfile  # (D/2, V), never aliased to the int8 embedding
+
+
+def q4_group_size(k: int, group_size: int) -> int:
+    """The group size along a contraction of `k` rows: each half of the
+    half-split packing must hold whole groups, so a K/2 that the requested
+    size does not divide takes their gcd (every Llama-2 width keeps it)."""
+    return group_size if (k // 2) % group_size == 0 else math.gcd(k // 2, group_size)
+
+
+def quantize_q40(w: np.ndarray, group_size: int) -> tuple[np.ndarray, np.ndarray, float]:
+    """Symmetric int4 group quantization of a matmul-oriented (..., K, N)
+    array: scale = absmax / 7 (a true fp32 division; 1 where a group is all
+    zeros), codes round-half-even(w / scale) clipped to [-8, 7], packed
+    half-split along K as code + 8. Returns (packed int8, fp32 scales, max
+    abs error); bit for bit ops/quant4.py::q4_quantize_weights."""
+    w = np.asarray(w, np.float32)
+    k, n = w.shape[-2], w.shape[-1]
+    gs = q4_group_size(k, group_size)
+    lead = w.shape[:-2]
+    g = w.reshape(*lead, k // gs, gs, n)
+    scale = np.abs(g).max(axis=-2, keepdims=True) / 7.0
+    scale = np.where(scale == 0, 1.0, scale)
+    q = np.clip(np.round(g / scale), -8, 7)
+    maxerr = float(np.abs(q * scale - g).max()) if g.size else 0.0
+    nib = (q.astype(np.int32) + 8).reshape(*lead, k, n)
+    packed = nib[..., : k // 2, :] | (nib[..., k // 2 :, :] << 4)
+    return (packed.astype(np.uint8).astype(np.int8),
+            np.ascontiguousarray(scale[..., 0, :], np.float32), maxerr)
 
 
 def quantize_q80(w: np.ndarray, group_size: int) -> tuple[np.ndarray, np.ndarray, float]:
@@ -166,7 +231,8 @@ def read_v0(path: str) -> tuple[ModelConfig, LlamaWeights]:
 
 
 def _read_header_v12(path: str, want_version: int) -> ModelConfig:
-    """The 256-byte ak42 header of a v1 or v2 file (v2 adds group_size)."""
+    """The 256-byte ak42 header of a v1, v2 or v4 file (v2 and v4 add
+    group_size)."""
     with open(path, "rb") as f:
         magic, version = struct.unpack("Ii", f.read(8))
         if magic != MAGIC_AK42:
@@ -177,7 +243,7 @@ def _read_header_v12(path: str, want_version: int) -> ModelConfig:
             "7i", f.read(28)
         )
         shared = struct.unpack("B", f.read(1))[0]
-        group_size = struct.unpack("i", f.read(4))[0] if want_version == 2 else 0
+        group_size = struct.unpack("i", f.read(4))[0] if want_version in (2, 4) else 0
     return ModelConfig(
         dim=dim, hidden_dim=hidden, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, vocab_size=vocab, seq_len=seq_len,
@@ -223,6 +289,38 @@ def read_v2(path: str) -> tuple[ModelConfig, QuantWeights]:
     return cfg, QuantWeights(**norms, q_tokens=q_tokens, **layers, wcls=wcls)
 
 
+def read_v4(path: str) -> tuple[ModelConfig, Q4Weights]:
+    """Read a v4 int4 checkpoint, zero-copy: the weights memmap in the packed
+    layout the int4 kernels take."""
+    cfg = _read_header_v12(path, 4)
+    c, gs = cfg, cfg.group_size
+    raw = np.memmap(path, dtype=np.uint8, mode="r", offset=HEADER_SIZE_V12)
+    off = 0
+
+    def take(dtype, shape) -> np.ndarray:
+        nonlocal off
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        arr = np.frombuffer(raw[off : off + n], dtype=dtype).reshape(shape)
+        off += n
+        return arr
+
+    def take_q4(k: int, n: int, lead=(c.n_layers,)) -> Q4Tensorfile:
+        q = take(np.int8, (*lead, k // 2, n))
+        return Q4Tensorfile(q=q, s=take(np.float32, (*lead, k // q4_group_size(k, gs), n)))
+
+    norms = {name: take(np.float32, shape) for name, shape in (
+        ("rms_att", (c.n_layers, c.dim)), ("rms_ffn", (c.n_layers, c.dim)),
+        ("rms_final", (c.dim,)))}
+    emb_q = take(np.int8, (c.vocab_size, c.dim))
+    emb_s = take(np.float32, (c.vocab_size, c.dim // V4_EMB_GROUP))
+    layers = {name: take_q4(k, n) for name, k, n in (
+        ("wq", c.dim, c.dim), ("wk", c.dim, c.kv_dim), ("wv", c.dim, c.kv_dim),
+        ("wo", c.dim, c.dim), ("w1", c.dim, c.hidden_dim), ("w2", c.hidden_dim, c.dim),
+        ("w3", c.dim, c.hidden_dim))}
+    wcls = take_q4(c.dim, c.vocab_size, lead=())
+    return cfg, Q4Weights(**norms, emb_q=emb_q, emb_s=emb_s, **layers, wcls=wcls)
+
+
 def sniff_version(path: str) -> int:
     """Return 0, 1, 2, or 4 depending on the checkpoint format."""
     with open(path, "rb") as f:
@@ -230,8 +328,9 @@ def sniff_version(path: str) -> int:
     return version if magic == MAGIC_AK42 else 0
 
 
-def load_checkpoint(path: str) -> tuple[ModelConfig, LlamaWeights | QuantWeights]:
-    """Dispatch on format; returns (config, LlamaWeights | QuantWeights)."""
+def load_checkpoint(path: str) -> tuple[ModelConfig, LlamaWeights | QuantWeights | Q4Weights]:
+    """Dispatch on format; returns (config, LlamaWeights | QuantWeights |
+    Q4Weights)."""
     v = sniff_version(path)
     if v == 0:
         return read_v0(path)
@@ -240,10 +339,7 @@ def load_checkpoint(path: str) -> tuple[ModelConfig, LlamaWeights | QuantWeights
     if v == 2:
         return read_v2(path)
     if v == 4:
-        raise NotImplementedError(
-            "v4 (int4) checkpoints are not yet ported to hip_llama_tpu_torch; "
-            "use a v0/v1 fp32 or a v2 Q8_0 checkpoint"
-        )
+        return read_v4(path)
     raise ValueError(f"unsupported checkpoint version {v}")
 
 
@@ -275,7 +371,7 @@ def _write_header_v12(f: BinaryIO, cfg: ModelConfig, version: int,
                         cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size,
                         cfg.seq_len))
     f.write(struct.pack("B", int(cfg.shared_classifier)))
-    if version == 2:
+    if version in (2, 4):
         f.write(struct.pack("i", group_size))
     f.write(b"\0" * (HEADER_SIZE_V12 - f.tell()))
 
@@ -313,6 +409,34 @@ def write_v2(path: str, cfg: ModelConfig, w: LlamaWeights, group_size: int = 64)
                 q(layer)
         if not cfg.shared_classifier:
             q(w.wcls)
+    return maxerr
+
+
+def write_v4(path: str, cfg: ModelConfig, w: LlamaWeights, group_size: int = 32) -> float:
+    """Write an int4 (v4) checkpoint from dense fp32 weights, byte for byte
+    the JAX package's writer; returns the max quantization group error.
+    Weights are transposed to matmul orientation (K = in, N = out) and
+    packed as quantize_q40 does, so read_v4 loads them zero-copy."""
+    if cfg.dim % V4_EMB_GROUP:
+        # read_v4 sizes the embedding scales (V, D // 64): another dim would
+        # shift every later tensor's offset
+        raise ValueError(f"v4 checkpoints need dim divisible by {V4_EMB_GROUP} "
+                         f"(Q8 embedding groups); got dim={cfg.dim}")
+    maxerr = 0.0
+    with open(path, "wb") as f:
+        _write_header_v12(f, cfg, 4, group_size)
+        for name in ("rms_att", "rms_ffn", "rms_final"):
+            _f32(f, getattr(w, name))
+        emb_q, emb_s, maxerr = quantize_q80(
+            np.asarray(w.tok_emb, np.float32).reshape(-1, V4_EMB_GROUP), V4_EMB_GROUP)
+        f.write(emb_q.tobytes())
+        f.write(emb_s.tobytes())
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "wcls"):
+            packed, scale, err = quantize_q40(
+                np.swapaxes(np.asarray(getattr(w, name), np.float32), -1, -2), group_size)
+            maxerr = max(maxerr, err)
+            f.write(np.ascontiguousarray(packed).tobytes())
+            f.write(scale.tobytes())
     return maxerr
 
 

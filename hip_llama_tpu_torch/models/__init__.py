@@ -2,9 +2,13 @@ from hip_llama_tpu_torch.models.params import (
     LlamaParams,
     QuantLlamaParams,
     params_from_jax_numpy,
+    params_from_q4_dequant,
+    params_from_quant_dequant,
     params_from_weights,
     qparams_from_jax_numpy,
+    qparams_from_q4_weights,
     qparams_from_quant_weights,
+    quantize_params_q4,
     quantize_params_q8,
 )
 from hip_llama_tpu_torch.models.llama import (
@@ -19,9 +23,13 @@ __all__ = [
     "LlamaParams",
     "QuantLlamaParams",
     "params_from_jax_numpy",
+    "params_from_q4_dequant",
+    "params_from_quant_dequant",
     "params_from_weights",
     "qparams_from_jax_numpy",
+    "qparams_from_q4_weights",
     "qparams_from_quant_weights",
+    "quantize_params_q4",
     "quantize_params_q8",
     "KVCache",
     "act_dtype",

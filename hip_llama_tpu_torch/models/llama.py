@@ -1,7 +1,8 @@
 """Llama-2 forward in PyTorch: the decode step and chunked prefill over a
 preallocated KV cache — the port of hip_llama_tpu/models/llama.py's dense
-path (fp32 or bf16 params) and of its Q8_0 path (`QuantLlamaParams` in the
-unrolled fused layout, bf16 activations), chosen by the params' type.
+path (fp32 or bf16 params) and of its Q8_0 and int4 paths
+(`QuantLlamaParams` in the unrolled fused layout, bf16 activations), chosen
+by the params' type.
 
 - KV cache layout (B, L, KVH, S, HS), as in the reference; the step and the
   prefill write it IN PLACE (the JAX functions donate it and return a new
@@ -32,6 +33,15 @@ unrolled fused layout, bf16 activations), chosen by the params' type.
   256 rows, else q8_matmul_silu and q8_matmul with the residual); the
   classifier is q8_matmul with the norm prologue, rounded to bf16 before it
   is widened to fp32.
+- The int4 path (Q4Tensor weights) has no whole-layer and no whole-FFN
+  kernel: the JAX step takes q8_layer_fused and q8_matmul_ffn for QTensors
+  only (llama.py:702-709, :318). Its decode layer is always four kernels,
+  whatever HIPLLAMA_LAYER_FUSE says: q4_matmul with the norm prologue and
+  RoPE epilogue (the head-split view of its flat output, llama.py:214-225),
+  attention_decode_fused, q4_matmul with the residual on wo, and the FFN as
+  q4_matmul_silu with the norm prologue then q4_matmul with the residual on
+  W2, at every row count (llama.py:253-261). The prefill and the classifier
+  run the same products as the Q8 path's; the embedding is Q8_0 rows.
 - `plain=True` runs every kernel's plain PyTorch version instead, whatever
   the device: the yardstick the kernel path is held against on the card.
 """
@@ -50,6 +60,7 @@ from hip_llama_tpu_torch.ops import attention as _attn
 from hip_llama_tpu_torch.ops import cache as _cache
 from hip_llama_tpu_torch.ops import layer_fused as _layer
 from hip_llama_tpu_torch.ops import quant as _quant
+from hip_llama_tpu_torch.ops import quant4 as _quant4
 
 
 @dataclasses.dataclass
@@ -144,6 +155,8 @@ class _Kernels:
     mm_silu: object
     mm_ffn: object
     layer: object  # q8_layer_fused
+    mm4: object  # q4_matmul
+    mm4_silu: object
 
 
 def _kernels(plain: bool) -> _Kernels:
@@ -153,17 +166,36 @@ def _kernels(plain: bool) -> _Kernels:
                         _cache.scale_write_chunk_plain,
                         _attn.attention_decode_fused_plain, _quant.q8_matmul_plain,
                         _quant.q8_matmul_silu_plain, _quant.q8_matmul_ffn_plain,
-                        _layer.q8_layer_fused_plain)
+                        _layer.q8_layer_fused_plain, _quant4.q4_matmul_plain,
+                        _quant4.q4_matmul_silu_plain)
     return _Kernels(_attn.attention_decode, _attn.attention_prefill,
                     _cache.kv_commit_rows, _cache.kv_write_chunk, _cache.scale_write_chunk,
                     _attn.attention_decode_fused, _quant.q8_matmul,
-                    _quant.q8_matmul_silu, _quant.q8_matmul_ffn, _layer.q8_layer_fused)
+                    _quant.q8_matmul_silu, _quant.q8_matmul_ffn, _layer.q8_layer_fused,
+                    _quant4.q4_matmul, _quant4.q4_matmul_silu)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Products:
+    """The weight products of quantized params: mm (K15 or K21), silu (K17
+    or K22) and ffn (K18, or None for int4, which has no whole-FFN
+    kernel)."""
+
+    mm: object
+    silu: object
+    ffn: object
+
+
+def _products(k: _Kernels, params: QuantLlamaParams) -> _Products:
+    if params.int4:
+        return _Products(k.mm4, k.mm4_silu, None)
+    return _Products(k.mm, k.mm_silu, k.mm_ffn)
 
 
 def act_dtype(params) -> torch.dtype:
     """The activation dtype, and that of a cache that is not int8: bf16 for
-    Q8 params (norms stay fp32 inside the kernels), else the dense param
-    dtype."""
+    quantized params (norms stay fp32 inside the kernels), else the dense
+    param dtype."""
     if isinstance(params, QuantLlamaParams):
         return torch.bfloat16
     return params.dtype
@@ -179,29 +211,29 @@ def _embed_q8(params: QuantLlamaParams, tokens: torch.Tensor) -> torch.Tensor:
     return (g * s[..., None]).reshape(q.shape).to(torch.bfloat16)
 
 
-def _q8_ffn(k: _Kernels, x2: torch.Tensor, params: QuantLlamaParams, l: int, eps: float):
+def _quant_ffn(pr: _Products, x2: torch.Tensor, params: QuantLlamaParams, l: int, eps: float):
     """x2 + FFN(rmsnorm(x2)) for rows x2 (M, D): q8_matmul_ffn where the
-    JAX package takes its kernel by row count, else the gate and W2 with
-    the residual (llama.py:312-329, quant.py:921-938)."""
-    if _quant.ffn_takes_kernel(*x2.shape):
-        return k.mm_ffn(x2, params.w1[l], params.w2[l], x2, params.rms_ffn[l], norm_eps=eps)
-    h = k.mm_silu(x2, params.w1[l], norm_weight=params.rms_ffn[l], norm_eps=eps)
-    return k.mm(h, params.w2[l], residual=x2)
+    JAX package takes its kernel by row count, else (and always for int4)
+    the gate and W2 with the residual (llama.py:312-329, quant.py:921-938)."""
+    if pr.ffn is not None and _quant.ffn_takes_kernel(*x2.shape):
+        return pr.ffn(x2, params.w1[l], params.w2[l], x2, params.rms_ffn[l], norm_eps=eps)
+    h = pr.silu(x2, params.w1[l], norm_weight=params.rms_ffn[l], norm_eps=eps)
+    return pr.mm(h, params.w2[l], residual=x2)
 
 
-def _q8_qkv(k: _Kernels, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig):
+def _quant_qkv(pr: _Products, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig):
     """Norm + fused QKV + RoPE on q|k for rows x2 (M, D) at positions pos
     (M,); returns the head-split (M, H + 2 KVH, HS) view."""
     c = cfg
-    y = k.mm(x2, params.wq[l], norm_weight=params.rms_att[l], norm_eps=c.norm_eps,
-             rope_pos=pos, rope_limit=(c.n_heads + c.n_kv_heads) * c.head_size,
-             rope_head=c.head_size, rope_theta=c.rope_theta)
+    y = pr.mm(x2, params.wq[l], norm_weight=params.rms_att[l], norm_eps=c.norm_eps,
+              rope_pos=pos, rope_limit=(c.n_heads + c.n_kv_heads) * c.head_size,
+              rope_head=c.head_size, rope_theta=c.rope_theta)
     return y.view(x2.shape[0], c.n_heads + 2 * c.n_kv_heads, c.head_size)
 
 
-def _q8_logits(k: _Kernels, x2, params: QuantLlamaParams, cfg: ModelConfig):
+def _quant_logits(pr: _Products, x2, params: QuantLlamaParams, cfg: ModelConfig):
     # the classifier's bf16 output widened to fp32 (llama.py:827-829)
-    return k.mm(x2, params.wcls, norm_weight=params.rms_final, norm_eps=cfg.norm_eps).float()
+    return pr.mm(x2, params.wcls, norm_weight=params.rms_final, norm_eps=cfg.norm_eps).float()
 
 
 def _ffn(x: torch.Tensor, params: LlamaParams, l: int, eps: float) -> torch.Tensor:
@@ -229,41 +261,43 @@ def _qkv(x, params, l, cfg: ModelConfig, rot):
 def make_decode_step(cfg: ModelConfig, plain: bool = False):
     """Returns step(params, cache, tokens (B,), pos (B,) int32) -> (logits
     fp32 (B, V), cache). With Q8 params each layer is one q8_layer_fused
-    unless HIPLLAMA_LAYER_FUSE=0. The cache is read-only inside the layer
-    loop — the current token's K/V rows ride into attention as explicit
-    operands — and the whole step's rows are committed in place by ONE
-    kv_commit_rows launch after the loop, as in the JAX step."""
+    unless HIPLLAMA_LAYER_FUSE=0; with int4 params it is four kernels. The
+    cache is read-only inside the layer loop — the current token's K/V rows
+    ride into attention as explicit operands — and the whole step's rows
+    are committed in place by ONE kv_commit_rows launch after the loop, as
+    in the JAX step."""
     kn = _kernels(plain)
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
     layer_fuse = os.environ.get("HIPLLAMA_LAYER_FUSE", "1") == "1"
     _exact_matmuls()
 
-    def step_q8(params: QuantLlamaParams, cache: KVCache, tokens, pos):
+    def step_quant(params: QuantLlamaParams, cache: KVCache, tokens, pos):
         x = _embed_q8(params, tokens)  # (B, D) bf16
         b = x.shape[0]
+        pr = _products(kn, params)
         k_list, v_list = [], []
         for l in range(c.n_layers):
-            if layer_fuse:
+            if layer_fuse and not params.int4:
                 x, kv = kn.layer(x, params.wq[l], params.wo[l], params.w1[l], params.w2[l],
                                  params.rms_att[l], params.rms_ffn[l], cache.k, cache.v, l, pos,
                                  cache.k_scale, cache.v_scale, n_heads=h, norm_eps=c.norm_eps,
                                  theta=c.rope_theta)
             else:
-                qkv3 = _q8_qkv(kn, x, params, l, pos, c)  # (B, H + 2 KVH, HS)
+                qkv3 = _quant_qkv(pr, x, params, l, pos, c)  # (B, H + 2 KVH, HS)
                 att = kn.attn_decode_fused(qkv3, cache.k, cache.v, l, pos, h, cache.k_scale,
                                            cache.v_scale)
-                x = kn.mm(att.view(b, c.dim), params.wo[l], residual=x)
-                x = _q8_ffn(kn, x, params, l, c.norm_eps)
+                x = pr.mm(att.view(b, c.dim), params.wo[l], residual=x)
+                x = _quant_ffn(pr, x, params, l, c.norm_eps)
                 kv = qkv3[:, h:]
             k_list.append(kv[:, :kvh])  # (B, KVH, HS) each
             v_list.append(kv[:, kvh:])
         kn.commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
-        return _q8_logits(kn, x, params, c), cache
+        return _quant_logits(pr, x, params, c), cache
 
     def step(params, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor):
         if isinstance(params, QuantLlamaParams):
-            return step_q8(params, cache, tokens, pos)
+            return step_quant(params, cache, tokens, pos)
         x = params.tok_emb[tokens.long()]  # (B, D)
         b = x.shape[0]
         rot = rope_tables(pos, c.head_size, c.rope_theta)
@@ -323,21 +357,22 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
         return kn.attn_prefill(q, cache.k, cache.v, l, start, valid_len, cache.k_scale,
                                cache.v_scale)
 
-    def prefill_q8(params: QuantLlamaParams, cache: KVCache, tokens, start, valid_len, pos):
+    def prefill_quant(params: QuantLlamaParams, cache: KVCache, tokens, start, valid_len, pos):
         b, t = tokens.shape
         x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
         pos = pos.reshape(-1)
+        pr = _products(kn, params)
         for l in range(c.n_layers):
-            qkv = _q8_qkv(kn, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
+            qkv = _quant_qkv(pr, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
             att = write_and_attend(cache, qkv[:, :, :h].contiguous(),
                                    qkv[:, :, h:h + kvh].contiguous(),
                                    qkv[:, :, h + kvh:].contiguous(), l, start, valid_len)
-            x = kn.mm(att.view(b * t, c.dim), params.wo[l], residual=x)
-            x = _q8_ffn(kn, x, params, l, c.norm_eps)
+            x = pr.mm(att.view(b * t, c.dim), params.wo[l], residual=x)
+            x = _quant_ffn(pr, x, params, l, c.norm_eps)
         x = x.view(b, t, c.dim)
         if last_only:
             x = last_rows(x, valid_len)
-        logits = _q8_logits(kn, x.reshape(-1, c.dim), params, c)
+        logits = _quant_logits(pr, x.reshape(-1, c.dim), params, c)
         return logits.view(*x.shape[:-1], -1), cache
 
     def prefill(params, cache: KVCache, tokens: torch.Tensor,
@@ -345,7 +380,7 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
         b, t = tokens.shape
         pos = start[:, None] + torch.arange(t, dtype=torch.int32, device=tokens.device)[None, :]
         if isinstance(params, QuantLlamaParams):
-            return prefill_q8(params, cache, tokens, start, valid_len, pos)
+            return prefill_quant(params, cache, tokens, start, valid_len, pos)
         x = params.tok_emb[tokens.long()]  # (B, T, D)
         rot = rope_tables(pos, c.head_size, c.rope_theta)
         for l in range(c.n_layers):

@@ -11,11 +11,12 @@ from hip_llama_tpu_torch.ops.cache import (
 )
 from hip_llama_tpu_torch.ops.layer_fused import q8_layer_fused
 from hip_llama_tpu_torch.ops.quant import q8_matmul, q8_matmul_ffn, q8_matmul_silu
+from hip_llama_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_silu
 
 # every kernel wrapper of the package; each counts its launches in `.launches`
 KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            q8_matmul, attention_decode_fused, q8_matmul_ffn, q8_matmul_silu, q8_layer_fused,
-           scale_write_chunk)
+           scale_write_chunk, q4_matmul, q4_matmul_silu)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused)
@@ -50,6 +51,8 @@ __all__ = [
     "q8_layer_fused",
     "q8_matmul_ffn",
     "q8_matmul_silu",
+    "q4_matmul",
+    "q4_matmul_silu",
     "quantize_kv_rows",
     "reset_launches",
     "scale_write_chunk",

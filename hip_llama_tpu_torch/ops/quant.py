@@ -56,17 +56,25 @@ class QTensor:
         return self.q.shape[-2] // self.s.shape[-2]
 
 
+def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """a / d, divided on every device: PyTorch's CUDA kernel turns a
+    division by a Python number into a product with its reciprocal, which
+    differs in the last bit now and then; the JAX package's quantizers
+    divide (they run eagerly), and so does a division by a tensor."""
+    return a / torch.tensor(d, dtype=a.dtype, device=a.device)
+
+
 def q8_quantize_weights(w: torch.Tensor, group_size: int = 64) -> QTensor:
     """Quantize a (K, N) [or (L, K, N)] weight along K in groups (Q8_0),
     bit for bit as the JAX package's q8_quantize_weights: scale =
-    absmax / 127 (1 where the group is all zeros), q = round-half-even(w /
-    scale)."""
+    absmax / 127 (a true division; 1 where the group is all zeros), q =
+    round-half-even(w / scale)."""
     w = w.float()
     k = w.shape[-2]
     if k % group_size:
         raise ValueError(f"contraction dim {k} not a multiple of group size {group_size}")
     g = w.reshape(*w.shape[:-2], k // group_size, group_size, w.shape[-1])
-    scale = g.abs().amax(dim=-2, keepdim=True) / 127.0
+    scale = true_div(g.abs().amax(dim=-2, keepdim=True), 127.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     # a transposed w gives a strided q: the kernels take row-major q and s
     q = torch.round(g / scale).to(torch.int8).reshape(w.shape).contiguous()
@@ -158,14 +166,15 @@ def q8_matmul_ffn_plain(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *
 # kernel wrappers
 
 
-def gemv_plan(k: int, n: int) -> tuple[int, int]:
+def gemv_plan(k: int, n: int, kslice_max: int = _GEMV_KSLICE_MAX,
+              mult: int = 64) -> tuple[int, int]:
     """(split, kslice) of the GEMV path: K in `split` slices of `kslice`
-    rows (a multiple of 64, at most 1024), as many as the ceil(N / 256)
-    column strips times the splits fit in one wave of the card's CTAs (more
-    where K needs them)."""
+    rows (a multiple of `mult`, at most `kslice_max`), as many as the
+    ceil(N / 256) column strips times the splits fit in one wave of the
+    card's CTAs (more where K needs them)."""
     strips = -(-n // _GEMV_BN)
-    split = max(-(-k // _GEMV_KSLICE_MAX), _GEMV_CTAS // strips)
-    kslice = min(_GEMV_KSLICE_MAX, -(-(-(-k // split)) // 64) * 64)
+    split = max(-(-k // kslice_max), _GEMV_CTAS // strips)
+    kslice = min(kslice_max, -(-(-(-k // split)) // mult) * mult)
     return -(-k // kslice), kslice
 
 

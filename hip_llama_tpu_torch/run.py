@@ -1,7 +1,7 @@
 """CLI with the reference's flag contract (src/llama.cpp:1490-1639), serving
-the dense path, or the Q8_0 weight path for v2 checkpoints and --quant q8,
-on a bf16/fp32 or (--kv int8) int8 KV cache, on a CUDA card (or the CPU
-with --device cpu):
+the dense path, the Q8_0 weight path (v2 checkpoints, --quant q8) or the
+int4 weight path (v4 checkpoints, --quant q4), on a bf16/fp32 or (--kv int8)
+int8 KV cache, on a CUDA card (or the CPU with --device cpu):
 
   python -m hip_llama_tpu_torch.run <checkpoint> [options]
   python -m hip_llama_tpu_torch.run model.bin -n 256 -i "Once upon a time"
@@ -21,16 +21,19 @@ Options (single-dash single-letter, like the reference):
 Extra (double-dash):
   --dtype float32|bfloat16   param/compute dtype (default bfloat16; the
                              Q8_0 path computes in bf16 whatever it says)
-  --quant q8                 quantize a v0/v1 fp32 checkpoint to Q8_0
-                             (group size 64) at load; v2 files are Q8_0
+  --quant q8|q4              quantize a v0/v1 fp32 checkpoint at load to
+                             Q8_0 (group size 64) or int4 (group size 32,
+                             the embedding Q8_0); v2 files are Q8_0 and v4
+                             files int4 whatever it says
+  --dequant                  serve a v2 or v4 checkpoint through the dense
+                             path (its weights dequantized at load)
   --device cuda|cpu          where the model runs (default cuda)
   --kv int8                  int8 KV cache with one fp32 scale per row
   --no-prefill               force-feed prompts one token/step (parity mode)
   --rope-theta F             RoPE base override (.bin headers can't carry it)
   --no-eos-stop              test mode stops on BOS only (run.cc parity)
-The JAX CLI's other flags (--quant q4, --paged, --tp, --spec,
---layout, --dequant, --stream, ...), v4 checkpoints and chat mode are not
-yet ported: they exit with an error.
+The JAX CLI's other flags (--paged, --tp, --spec, --layout, --stream, ...)
+and chat mode are not yet ported: they exit with an error.
 """
 
 from __future__ import annotations
@@ -42,10 +45,14 @@ import time
 import torch
 
 from hip_llama_tpu_torch.engine import InferenceEngine, read_inputfile, write_outputfile
-from hip_llama_tpu_torch.io.checkpoint import QuantWeights, load_checkpoint
+from hip_llama_tpu_torch.io.checkpoint import Q4Weights, QuantWeights, load_checkpoint
 from hip_llama_tpu_torch.models.params import (
+    params_from_q4_dequant,
+    params_from_quant_dequant,
     params_from_weights,
+    qparams_from_q4_weights,
     qparams_from_quant_weights,
+    quantize_params_q4,
     quantize_params_q8,
     resolve_device,
 )
@@ -54,7 +61,7 @@ from hip_llama_tpu_torch.tokenizer import Tokenizer
 
 _VALUE_FLAGS = ("-t", "-p", "-s", "-n", "-i", "-z", "-m", "-f", "-o", "-b",
                 "--dtype", "--device", "--rope-theta", "--quant", "--kv")
-_SWITCHES = ("--no-prefill", "--no-eos-stop")
+_SWITCHES = ("--no-prefill", "--no-eos-stop", "--dequant")
 
 
 def error_usage():
@@ -100,7 +107,7 @@ def main(argv: list[str]) -> int:
         print(f"-m {mode}: not yet ported to hip_llama_tpu_torch", file=sys.stderr)
         return 2
     quant = opts.get("--quant")
-    if quant not in (None, "q8"):
+    if quant not in (None, "q8", "q4"):
         print(f"--quant {quant}: not yet ported to hip_llama_tpu_torch", file=sys.stderr)
         return 2
     if opts.get("--kv", "int8") != "int8":
@@ -109,18 +116,21 @@ def main(argv: list[str]) -> int:
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[opts.get("--dtype", "bfloat16")]
     device = resolve_device(opts.get("--device", "cuda"))
 
-    try:
-        cfg, weights = load_checkpoint(checkpoint_path)
-    except NotImplementedError as e:
-        print(f"{checkpoint_path}: {e}", file=sys.stderr)
-        return 2
+    cfg, weights = load_checkpoint(checkpoint_path)
     if "--rope-theta" in opts:
         # the llama2.c .bin headers can't carry the RoPE base
         cfg = dataclasses.replace(cfg, rope_theta=float(opts["--rope-theta"]))
+    dequant = "--dequant" in switches
     if isinstance(weights, QuantWeights):
-        params = qparams_from_quant_weights(cfg, weights, device=device)
+        params = (params_from_quant_dequant(cfg, weights, dtype=dtype, device=device) if dequant
+                  else qparams_from_quant_weights(cfg, weights, device=device))
+    elif isinstance(weights, Q4Weights):
+        params = (params_from_q4_dequant(cfg, weights, dtype=dtype, device=device) if dequant
+                  else qparams_from_q4_weights(cfg, weights, device=device))
     elif quant == "q8":
         params = quantize_params_q8(cfg, weights, device=device)
+    elif quant == "q4":
+        params = quantize_params_q4(cfg, weights, device=device)
     else:
         params = params_from_weights(weights, dtype=dtype, device=device)
     print(

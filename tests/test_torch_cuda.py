@@ -403,3 +403,93 @@ def test_q8_layer_fused_int8_kernel(b, shape):
         assert torch.equal(got, four) and torch.equal(kv, qkv[:, h:])
     else:
         _close(got, four, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the int4 slice: K21 and K22 against their plain versions
+
+from hip_llama_tpu_torch.ops import quant4 as Q4  # noqa: E402
+
+# (K, N or H, gs): the golden fixture's QKV, W2 (K/2 = 96) and classifier
+# widths, a tile-ragged width with K/2 = 48 (group size 16), and
+# Llama-2-7B's QKV and W2 (K/2 = 5504, no multiple of 256)
+Q4_SHAPES = [(64, 128, 32), (192, 64, 32), (64, 512, 32), (96, 208, 16), (4096, 12288, 32),
+             (11008, 4096, 32)]
+Q4_SILU_SHAPES = [(64, 192, 32), (96, 208, 16), (4096, 11008, 32)]
+
+
+def _q4t(rng, k, n, gs, dev):
+    w = rng.standard_normal((k, n)).astype(np.float32) / np.sqrt(k)
+    return Q4.q4_quantize_weights(torch.from_numpy(w).to(dev), gs)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 40, 300])
+@pytest.mark.parametrize("shape", Q4_SHAPES)
+@pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
+def test_q4_matmul_kernel(m, shape, epi):
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(13)
+    qt = _q4t(rng, k, n, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = {}
+    if epi in ("norm", "norm_rope"):
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    if epi == "residual":
+        kw["residual"] = _rand(rng, (m, n), torch.bfloat16, dev)
+    if epi == "norm_rope":
+        hs = 8 if n < 1024 else 128
+        kw.update(rope_pos=torch.tensor(rng.integers(0, 2048, m), dtype=torch.int32, device=dev),
+                  rope_limit=(2 * n // 3) // hs * hs, rope_head=hs, rope_theta=10000.0)
+    n0 = Q4.q4_matmul.launches
+    got = Q4.q4_matmul(x, qt, **kw)
+    want = Q4.q4_matmul_plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert Q4.q4_matmul.launches == n0 + 1 and got.shape == (m, n)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [4, 16, 40, 512])
+@pytest.mark.parametrize("shape", Q4_SILU_SHAPES)
+@pytest.mark.parametrize("norm", [True, False])
+def test_q4_matmul_silu_kernel(m, shape, norm):
+    dev = _card()
+    k, h, gs = shape
+    rng = np.random.default_rng(14)
+    qt13 = _q4t(rng, k, 2 * h, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = {}
+    if norm:
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    n0 = Q4.q4_matmul_silu.launches
+    got = Q4.q4_matmul_silu(x, qt13, **kw)
+    want = Q4.q4_matmul_silu_plain(x, qt13, **kw)
+    torch.cuda.synchronize()
+    assert Q4.q4_matmul_silu.launches == n0 + 1 and got.shape == (m, h)
+    _close(got, want, torch.bfloat16)
+
+
+def test_q4_wrappers_reject_bad_operands():
+    dev = _card()
+    rng = np.random.default_rng(15)
+    qt = _q4t(rng, 64, 128, 32, dev)
+    x = _rand(rng, (4, 64), torch.bfloat16, dev)
+    n0 = Q4.q4_matmul.launches
+    with pytest.raises(TypeError):
+        Q4.q4_matmul(x.float(), qt)
+    with pytest.raises(ValueError):  # K that the packed weight does not have
+        Q4.q4_matmul(_rand(rng, (4, 96), torch.bfloat16, dev), qt)
+    with pytest.raises(ValueError):  # a strided q
+        Q4.q4_matmul(x, Q4.Q4Tensor(q=qt.q.t().contiguous().t(), s=qt.s))
+    assert Q4.q4_matmul.launches == n0
+
+
+def test_quantizers_divide_on_the_card():
+    """The weight quantizers give the CPU's bits on the card: a division by
+    a Python number would run there as a product with its reciprocal."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    w = torch.from_numpy(rng.standard_normal((256, 384)).astype(np.float32))
+    for quantize in (Q.q8_quantize_weights, Q4.q4_quantize_weights):
+        got, want = quantize(w.to(dev)), quantize(w)
+        assert torch.equal(got.q.cpu(), want.q) and torch.equal(got.s.cpu(), want.s)
