@@ -43,7 +43,20 @@ Phases, in order; each raises on failure and none is caught:
      --quant q4 outputs) and a --dequant run of that file; and the 7B-width
      serve of phase 5 with int4 weights quantized on the card, with its
      logit check, control, launches (K21 97, K22 32, K5 32, K2 1 per decode
-     step, no Q8 kernel) and profile.
+     step, no Q8 kernel) and profile;
+  8. the paged KV cache (--paged): K6 attention_decode_paged and K7
+     attention_prefill_paged (bf16 and int8 pages) and the paged writers K11,
+     K10, K13 and K14 (bit-exact) against their plain versions at 7B shapes
+     (pages of 128, 4 per slot scattered over a 33-page pool), with the same
+     timings (the library yardstick: SDPA over the pages gathered into
+     contiguous K/V beforehand); the golden fixture with --paged 16 (fp32:
+     byte-identical to assets/out/cpu_f32; fp32 --kv int8, --quant q8 and
+     --quant q8 --kv int8 scored against the JAX package's *_paged outputs)
+     and a --prefix-cache run byte-identical to --paged with prefix hits; the
+     7B-width Q8 serve of phase 5b on int8 pages of 128 rows, with its logit
+     check, control, launches (K6 32, K11 1, K10 1, K15 129 per decode step)
+     and profile; and the same requests behind a shared 256-token prefix,
+     served with and without the prefix cache: the same generations, hits.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -71,6 +84,12 @@ from hip_llama_tpu_torch.engine import InferenceEngine, Requests, read_inputfile
 from hip_llama_tpu_torch.io.checkpoint import load_checkpoint, write_v4
 from hip_llama_tpu_torch.io.tokenizer_io import read_tokenizer_bin, write_tokenizer_bin
 from hip_llama_tpu_torch.models.llama import KVCache, init_kv_cache, make_decode_step, make_prefill
+from hip_llama_tpu_torch.models.paged import (
+    PagedKVCache,
+    init_paged_kv_cache,
+    make_paged_decode_step,
+    make_paged_prefill,
+)
 from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams
 from hip_llama_tpu_torch.ops import _build, launch_counts, reset_launches
 from hip_llama_tpu_torch.ops import attention as A
@@ -158,6 +177,28 @@ KERNEL_SOURCES = {
     # int4 weights
     "q4_matmul": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:299"),
     "q4_matmul_silu": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:547"),
+    # the paged KV cache: K6, K7, K11 and K13 with their int8 branches, K10
+    # and K14
+    "attention_decode_paged": ("hip_llama_tpu_torch/csrc/attention.cu",
+                               "hip_llama_tpu/ops/attention.py:1664"),
+    "attention_decode_paged_int8": ("hip_llama_tpu_torch/csrc/attention.cu",
+                                    "hip_llama_tpu/ops/attention.py:1664"),
+    "attention_prefill_paged": ("hip_llama_tpu_torch/csrc/attention.cu",
+                                "hip_llama_tpu/ops/attention.py:1772"),
+    "attention_prefill_paged_int8": ("hip_llama_tpu_torch/csrc/attention.cu",
+                                     "hip_llama_tpu/ops/attention.py:1772"),
+    "kv_write_rows_paged": ("hip_llama_tpu_torch/csrc/cache.cu",
+                            "hip_llama_tpu/ops/cache.py:633"),
+    "kv_write_rows_paged_int8": ("hip_llama_tpu_torch/csrc/cache.cu",
+                                 "hip_llama_tpu/ops/cache.py:633"),
+    "scale_write_rows_paged": ("hip_llama_tpu_torch/csrc/cache.cu",
+                               "hip_llama_tpu/ops/cache.py:503"),
+    "kv_write_chunk_paged": ("hip_llama_tpu_torch/csrc/cache.cu",
+                             "hip_llama_tpu/ops/cache.py:933"),
+    "kv_write_chunk_paged_int8": ("hip_llama_tpu_torch/csrc/cache.cu",
+                                  "hip_llama_tpu/ops/cache.py:933"),
+    "scale_write_chunk_paged": ("hip_llama_tpu_torch/csrc/cache.cu",
+                                "hip_llama_tpu/ops/cache.py:1012"),
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
@@ -204,6 +245,33 @@ Q8_STEP = {"q8_layer_fused": _L, "q8_matmul": 1, "kv_commit_rows": 1}
 Q8_INT8_STEP = {"q8_layer_fused_int8": _L, "q8_matmul": 1, "kv_commit_rows_int8": 1}
 Q4_STEP = {"q4_matmul": 3 * _L + 1, "q4_matmul_silu": _L, "attention_decode_fused": _L,
            "kv_commit_rows": 1}
+# the paged cache: the kernels the paged path must launch, and those it
+# never does (its quantized layer is the JAX package's unfused one)
+PAGED_PATH = ("attention_decode_paged", "attention_prefill_paged", "kv_write_rows_paged",
+              "kv_write_chunk_paged")
+PAGED_INT8_PATH = ("attention_decode_paged_int8", "attention_prefill_paged_int8",
+                   "kv_write_rows_paged_int8", "scale_write_rows_paged",
+                   "kv_write_chunk_paged_int8", "scale_write_chunk_paged")
+NOT_PAGED = ("attention_decode", "attention_decode_fused", "attention_prefill", "kv_commit_rows",
+             "kv_write_chunk", "q8_layer_fused", "q8_matmul_ffn", "q8_matmul_silu",
+             "scale_write_chunk")
+# the fixture with --paged 16, at the bars of the dense runs against the JAX
+# package's paged outputs (fp32: byte-identical to cpu_f32, checked apart;
+# Q8 on bf16 pages: the average, tests/test_torch_paged_model.py::
+# test_q8_paged_serve_forks_from_jax_only_at_near_ties)
+GOLDEN_PAGED_RUNS = {
+    "fp32 --paged 16": (["--dtype", "float32", "--paged", "16"], "1", "cpu_f32", PAGED_PATH,
+                        True),
+    "fp32 --kv int8 --paged 16": (["--dtype", "float32", "--kv", "int8", "--paged", "16"], "1",
+                                  "cpu_f32_kv8_paged", PAGED_INT8_PATH, True),
+    "q8 --paged 16": (["--quant", "q8", "--paged", "16"], "1", "cpu_q8_paged",
+                      ("q8_matmul",) + PAGED_PATH, False),
+    "q8 --kv int8 --paged 16": (["--quant", "q8", "--kv", "int8", "--paged", "16"], "1",
+                                "cpu_q8_kv8_paged", ("q8_matmul",) + PAGED_INT8_PATH, False),
+}
+Q8_INT8_PAGED_PATH = ("q8_matmul",) + PAGED_INT8_PATH
+Q8_INT8_PAGED_STEP = {"attention_decode_paged_int8": _L, "kv_write_rows_paged_int8": 1,
+                      "scale_write_rows_paged": 1, "q8_matmul": 4 * _L + 1}
 # int4 on the fixture, at the bars of the Q8 runs (bf16 cache: both; int8
 # cache: the average)
 GOLDEN_Q4_RUNS = {
@@ -819,6 +887,279 @@ def phase_q4_kernels() -> dict[str, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 8a: the paged kernels against their plain versions at 7B shapes
+
+
+def phase_paged_kernels() -> dict[str, dict]:
+    """K6 and K7 on bf16 and int8 pages, K11 and K13 on both, K10 and K14,
+    at Llama-2-7B shapes (L 32, KVH 32, HS 128) with pages of 128 rows: B 8,
+    4 pages per slot scattered over a 33-page pool (page 0 the trash page),
+    ragged positions below 512, prefill chunks of T 128 at page-aligned
+    starts. The writers must match their plain versions bit for bit. The
+    plain attention walks the JAX block (the page) where the kernels on
+    bf16 pages walk 64 rows (ATTN_ATOL/RTOL); on int8 pages both walk the
+    page. Bytes count live rows (and their 4-byte scales on int8 pages),
+    activations in and out and the table once each; the library yardstick
+    is SDPA over the pages gathered into contiguous K/V (dequantized to bf16
+    for int8 pages) beforehand."""
+    dev = torch.device("cuda")
+    b, n_layers, kvh, h, hs, mp, t, rot = 8, 32, 32, 32, 128, 4, 128, 8
+    n_pages, s = b * mp + 1, mp * PAGE
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED + 6)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    table = torch.tensor(rng.permutation(np.arange(1, n_pages)).reshape(b, mp), dtype=torch.int32,
+                         device=dev)
+    pos_l = [0, 1, 127, 128, 255, 300, 450, s - 1]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    start_l = [0, 128, 256, 384, 0, 128, 256, 384]
+    valid_l = [128, 128, 100, 128, 0, 64, 1, 128]
+    start = torch.tensor(start_l, dtype=torch.int32, device=dev)
+    cvalid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
+    live = torch.arange(t, device=dev)[None, :] < cvalid[:, None]
+    out: dict[str, dict] = {}
+    for int8 in (False, True):
+        sfx, label = ("_int8", "int8 pages") if int8 else ("", "bf16 pages")
+        shape = (n_layers, kvh, n_pages, PAGE, hs)
+        if int8:
+            planes = [C.quantize_kv_rows(rnd(*shape)) for _ in range(2)]
+            pool = PagedKVCache(planes[0][0], planes[1][0], planes[0][1], planes[1][1])
+            del planes
+        else:
+            pool = PagedKVCache(rnd(*shape), rnd(*shape))
+        sc = (pool.k_scale, pool.v_scale)
+        row_b = hs * (1 if int8 else 2) + (4 if int8 else 0)  # a cached row and its scale
+        tol = (dict(atol=INT8_ATTN_ATOL, rtol=INT8_ATTN_RTOL) if int8
+               else dict(atol=ATTN_ATOL, rtol=ATTN_RTOL))
+
+        def gathered(plane, sc_plane, l):
+            x = A.gather_pages(plane, table, l)[:, 0]  # (B, KVH, S, HS)
+            if sc_plane is None:
+                return x
+            return dequant_cache(x, A.gather_pages(sc_plane, table, l)[:, 0])
+
+        # K6: decode, the current row folded in last
+        q, kc, vc = rnd(b, h, hs), rnd(b, kvh, hs), rnd(b, kvh, hs)
+        kf = [torch.cat([gathered(pool.k, pool.k_scale, l), kc[:, :, None]], dim=2)
+              for l in range(rot)]
+        vf = [torch.cat([gathered(pool.v, pool.v_scale, l), vc[:, :, None]], dim=2)
+              for l in range(rot)]
+        col = torch.arange(s + 1, device=dev)
+        mask = ((col[None, :] < pos[:, None]) | (col[None, :] == s))[:, None, None, :]
+        q4 = q[:, :, None, :]
+        out["attention_decode_paged" + sfx] = q8_kernel_case(
+            "attention_decode_paged" + sfx, f"B 8, H 32, KVH 32, PS 128, HS 128, {label}",
+            lambda i: A.attention_decode_paged(q, pool.k, pool.v, table, i % rot, pos, kc, vc, *sc),
+            lambda i: A.attention_decode_paged_plain(q, pool.k, pool.v, table, i % rot, pos, kc,
+                                                     vc, *sc),
+            lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
+            2 * b * h * hs * 2 + 2 * b * kvh * hs * 2 + 2 * sum(pos_l) * kvh * row_b + 4 * b
+            + 4 * b * mp, 4 * h * hs * sum(p + 1 for p in pos_l), **tol)
+        del kf, vf
+
+        # K7: a chunk of T 128 over the pages (rows t < valid compared)
+        qp = rnd(b, t, h, hs)
+        err = max(max_err(A.attention_prefill_paged(qp, pool.k, pool.v, table, l, start, cvalid,
+                                                    *sc)[live],
+                          A.attention_prefill_paged_plain(qp, pool.k, pool.v, table, l, start,
+                                                          cvalid, *sc)[live])
+                  for l in (0, 3))
+        ms = cuda_ms(lambda i: A.attention_prefill_paged(qp, pool.k, pool.v, table, i % rot, start,
+                                                         cvalid, *sc))
+        plain = cuda_ms(lambda i: A.attention_prefill_paged_plain(
+            qp, pool.k, pool.v, table, i % rot, start, cvalid, *sc), iters=4, warmup=1)
+        kd = [gathered(pool.k, pool.k_scale, l) for l in range(rot)]
+        vd = [gathered(pool.v, pool.v_scale, l) for l in range(rot)]
+        colp = torch.arange(s, device=dev)
+        qpos = start[:, None] + torch.arange(t, device=dev)[None, :]
+        pmask = (colp[None, None, :] <= qpos[:, :, None])[:, None]
+        qt = qp.transpose(1, 2)
+        lib = cuda_ms(lambda i: F.scaled_dot_product_attention(qt, kd[i % rot], vd[i % rot],
+                                                               attn_mask=pmask))
+        del kd, vd
+        bound = bound_ms(2 * sum(valid_l) * h * hs * 2
+                         + 2 * sum(st + v for st, v in zip(start_l, valid_l) if v) * kvh * row_b
+                         + 12 * b + 4 * b * mp,
+                         4 * h * hs * sum(st + j + 1 for st, v in zip(start_l, valid_l)
+                                          for j in range(v)), torch.bfloat16)
+        ok = err <= TOL[torch.bfloat16]
+        print(f"kernel attention_prefill_paged{sfx} [B 8, T 128, H 32, KVH 32, PS 128, HS 128, "
+              f"{label}]: max_abs_err {err:.3g} (tol {TOL[torch.bfloat16]:g}) "
+              f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
+              f"bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
+        if not ok:
+            raise AssertionError(f"attention_prefill_paged{sfx} disagrees with its plain version")
+        out["attention_prefill_paged" + sfx] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                    library_ms=lib, bound=bound)
+
+        # the writers: into two copies of the pool, bit for bit, then timed
+        def clone():
+            return PagedKVCache(*(None if x is None else x.clone()
+                                  for x in (pool.k, pool.v, pool.k_scale, pool.v_scale)))
+
+        def writer_case(name, what, write, plain_write, n_bytes):
+            c1, c2 = clone(), clone()
+            write(c1, 3)
+            plain_write(c2, 3)
+            torch.cuda.synchronize()
+            pairs = [(x, y) for x, y in zip((c1.k, c1.v, c1.k_scale, c1.v_scale),
+                                            (c2.k, c2.v, c2.k_scale, c2.v_scale)) if x is not None]
+            err = max(max_err(x, y) for x, y in pairs)
+            ok = all(torch.equal(x, y) for x, y in pairs)
+            del c1, c2, pairs
+            ms = cuda_ms(lambda i: write(pool, i % rot), graph=True)
+            plain = cuda_ms(lambda i: plain_write(pool, i % rot), iters=4, warmup=1)
+            bound = bound_ms(n_bytes, 0, torch.int8)
+            print(f"kernel {name} [{what}]: max_abs_err {err:.3g} (bit-exact) "
+                  f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms n/a "
+                  f"bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} [{what}] differs from its plain version")
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=bound)
+
+        # K11 (and K10): one decode step's rows of all layers at the slots' positions
+        rows = [rnd(n_layers, b, kvh, hs) for _ in range(2)]
+        if int8:
+            (kr, ksr), (vr, vsr) = (C.quantize_kv_rows(r) for r in rows)
+        else:
+            kr, vr = rows
+        eb = 1 if int8 else 2
+        writer_case("kv_write_rows_paged" + sfx, f"L 32, B 8, KVH 32, HS 128, {label}",
+                    lambda c, i: C.kv_write_rows_paged(c, kr, vr, table, pos),
+                    lambda c, i: C.kv_write_rows_paged_plain(c, kr, vr, table, pos),
+                    2 * 2 * n_layers * b * kvh * hs * eb + 4 * b + 4 * b * mp)
+        if int8:
+            writer_case("scale_write_rows_paged", "L 32, B 8, KVH 32",
+                        lambda c, i: C.scale_write_rows_paged(c, ksr, vsr, table, pos),
+                        lambda c, i: C.scale_write_rows_paged_plain(c, ksr, vsr, table, pos),
+                        2 * 2 * n_layers * b * kvh * 4 + 4 * b + 4 * b * mp)
+        # K13 (and K14): one layer's chunk of T 128, a bystander, valid < T
+        crows = [rnd(b, t, kvh, hs) for _ in range(2)]
+        if int8:
+            (ck, cks), (cv, cvs) = (C.quantize_kv_rows(r) for r in crows)
+        else:
+            ck, cv = crows
+        n_rows = sum(valid_l)
+        writer_case("kv_write_chunk_paged" + sfx, f"B 8, T 128, KVH 32, HS 128, {label}",
+                    lambda c, i: C.kv_write_chunk_paged(c, ck, cv, i, table, start, cvalid),
+                    lambda c, i: C.kv_write_chunk_paged_plain(c, ck, cv, i, table, start, cvalid),
+                    2 * 2 * n_rows * kvh * hs * eb + 8 * b + 4 * b * mp)
+        if int8:
+            writer_case("scale_write_chunk_paged", "B 8, T 128, KVH 32",
+                        lambda c, i: C.scale_write_chunk_paged(c, cks, cvs, i, table, start,
+                                                               cvalid),
+                        lambda c, i: C.scale_write_chunk_paged_plain(c, cks, cvs, i, table, start,
+                                                                     cvalid),
+                        2 * 2 * n_rows * kvh * 4 + 8 * b + 4 * b * mp)
+        del pool, sc
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the golden fixture on the paged pool
+
+
+def shared_prefix_requests(path: str) -> None:
+    """The gen corpus's prompts behind a shared prefix of 26 tokens (the
+    first tinystories prompt: more than one page of 16, each prompt under
+    the fixture's 96-token window), as a request file."""
+    inp = os.path.join(REPO, "assets", "in")
+    prefix = read_inputfile(os.path.join(inp, "tinystories_in_8.txt")).prompts[0] + " "
+    prompts = [prefix + p for p in read_inputfile(os.path.join(inp, "gen_in_8.txt")).prompts]
+    with open(path, "w") as f:
+        f.write(f"{len(prompts)}\n" + "".join(p + "\n" for p in prompts))
+
+
+def phase_paged_goldens() -> dict[str, dict[str, int]]:
+    """The fixture with --paged 16: fp32 byte-identical to assets/out/cpu_f32,
+    fp32 --kv int8 and --quant q8 (bf16 and int8 pages) scored against the
+    JAX package's paged outputs, no dense-cache kernel launched; then
+    --prefix-cache on a shared-prefix request file, byte-identical to
+    --paged 16, with prefix hits. Returns each run's launches."""
+    launches, outputs = phase_golden_runs(GOLDEN_PAGED_RUNS)
+    for c in CORPORA:
+        with open(os.path.join(REPO, "assets", "out", "cpu_f32", f"{c}_in_8.out"), "rb") as f:
+            if outputs["fp32 --paged 16"][c] != f.read():
+                raise AssertionError(f"golden {c} with --paged 16 forked on the card")
+    print("golden (fp32 --paged 16): all five corpora byte-identical to assets/out/cpu_f32",
+          flush=True)
+    for label, counts in launches.items():
+        dense = {n: counts[n] + counts.get(f"{n}_int8", 0) for n in NOT_PAGED
+                 if counts[n] + counts.get(f"{n}_int8", 0)}
+        if dense:
+            raise AssertionError(f"dense-cache kernels launched on the paged run {label}: {dense}")
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = os.path.join(tmp, "shared.txt")
+        shared_prefix_requests(inp)
+        outs, hits = {}, {}
+        for tag, flags in (("paged", []), ("prefix", ["--prefix-cache"])):
+            out = os.path.join(tmp, f"{tag}.out")
+            err = io.StringIO()
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err):
+                rc = port_run.main(["run", os.path.join(GOLDEN, "model.bin"),
+                                    "-z", os.path.join(GOLDEN, "tokenizer.bin"), "-m", "test",
+                                    "-f", inp, "-o", out, "-b", "4", "-t", "0.0", "--dtype",
+                                    "float32", "--paged", "16", *flags, "--device", "cuda"])
+            if rc != 0:
+                raise AssertionError(f"the shared-prefix run ({tag}) failed (rc {rc})")
+            with open(out, "rb") as f:
+                outs[tag] = f.read()
+            line = [ln for ln in err.getvalue().splitlines() if ln.startswith("prefix cache:")]
+            hits[tag] = int(line[0].split()[2]) if line else 0
+    print(f"golden (fp32 --paged 16 --prefix-cache) shared-prefix requests: "
+          f"byte-identical to --paged 16: {outs['paged'] == outs['prefix']}; prefix hits "
+          f"{hits['prefix']} tokens (uncached {hits['paged']})", flush=True)
+    if outs["paged"] != outs["prefix"] or hits["prefix"] == 0 or hits["paged"]:
+        raise AssertionError("the prefix cache changed the output or never hit")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: the 7B-width prefix-cache serve
+
+
+def phase_prefix_serve(params) -> None:
+    """The phase-5 requests (their prompts cut to half length) behind a
+    shared 256-token prefix, Q8 on int8 pages of PAGE rows at batch 8,
+    window 512, greedy: served with and without the prefix cache, the same
+    generations, and prefix hits."""
+    cfg = LLAMA2_7B
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = llama_sized_tokenizer(tmp, cfg.vocab_size)
+    targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
+    prefix = make_prompts(tok, [256])[0]
+    prompts = [prefix + " " + p for p in make_prompts(tok, [n // 2 for n in targets])]
+    lens = [len(tok.encode(p)) for p in prompts]
+    gens, stats = {}, {}
+    for cached in (False, True):
+        engine = InferenceEngine(cfg, params, tok, batch_size=8, max_seq_len=512, kv_quant=True,
+                                 paged=True, page_size=PAGE, prefix_cache=cached)
+        req = Requests(prompts=list(prompts), generations=[""] * len(prompts))
+        st: dict = {}
+        engine.serve(req, steps=512, stats=st,
+                     samplers=[Sampler(cfg.vocab_size, temperature=0.0) for _ in prompts])
+        torch.cuda.synchronize()
+        gens[cached], stats[cached] = req.generations, st
+        print(f"7b q8 int8-kv paged {'prefix-cache' if cached else 'uncached'} serve: "
+              f"{len(prompts)} requests of {min(lens)}-{max(lens)} prompt tokens behind a shared "
+              f"prefix of {len(tok.encode(prefix))}, {st['total_tokens']} tokens in "
+              f"{st['elapsed_s']:.3f} s = {st['tok_per_s']:.2f} tok/s; ttft p50 "
+              f"{st['ttft_p50_s'] * 1e3:.1f} ms; prefix hits {st['prefix_hit_tokens']} tokens; "
+              f"prefill chunks {dict(engine.prefill_chunks)}", flush=True)
+        del engine
+        gc.collect()
+    same = sum(a == b for a, b in zip(gens[False], gens[True]))
+    print(f"7b q8 int8-kv paged prefix-cache serve: {same} of {len(prompts)} generations "
+          f"byte-identical to the uncached serve", flush=True)
+    if same != len(prompts) or stats[True]["prefix_hit_tokens"] == 0:
+        raise AssertionError("the prefix cache changed the 7B-width generations or never hit")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the golden fixture through the CLI
 
 
@@ -1068,19 +1409,24 @@ def without_ffn0(params: QuantLlamaParams) -> QuantLlamaParams:
     return dataclasses.replace(params, w2=tuple(w2))
 
 
+PAGE = 128  # the 7B-width serves' page on the paged pool
+
+
 def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per_step: dict,
-                control=None, kv_quant: bool = False) -> dict:
+                control=None, kv_quant: bool = False, paged: bool = False) -> dict:
     """Serve the 16 requests at batch 8, window 512 through the engine with
-    `params` (on an int8 cache with `kv_quant`), after holding the first
-    prefill and decode logits of the kernel path against the plain path
-    (and, given `control`, checking that the plain path on control(params)
-    reads above the tolerance, and for Q8 params profiling a decode step of
-    the four-kernel layer beside the default one); `per_step`: the wrapper
-    launches one decode step must make, exactly. Returns the launches of the
-    serve."""
+    `params` (on an int8 cache with `kv_quant`; on the paged pool, pages of
+    PAGE rows, with `paged`), after holding the first prefill and decode
+    logits of the kernel path against the plain path (and, given `control`,
+    checking that the plain path on control(params) reads above the
+    tolerance, and for Q8 params on the dense cache profiling a decode step
+    of the four-kernel layer beside the default one); `per_step`: the
+    wrapper launches one decode step must make, exactly. Returns the
+    launches of the serve."""
     dev = torch.device("cuda")
     cfg = LLAMA2_7B
     batch, window, steps = 8, 512, 352
+    max_pages = window // PAGE
     with tempfile.TemporaryDirectory() as tmp:
         tok = llama_sized_tokenizer(tmp, cfg.vocab_size)
     # first wave fills all 8 slots (multi-chunk 256+64 prefills); later
@@ -1101,10 +1447,25 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
     toks_d = torch.from_numpy(toks).to(dev)
 
     def first_step(p, plain):
-        cache = init_kv_cache(cfg, batch, dtype=torch.bfloat16, seq_len=window, device=dev,
-                              quantized=kv_quant)
-        pf, _ = make_prefill(cfg, last_only=True, plain=plain)(p, cache, toks_d, start, valid)
-        lg, _ = make_decode_step(cfg, plain=plain)(p, cache, cur, valid)
+        if not paged:
+            cache = init_kv_cache(cfg, batch, dtype=torch.bfloat16, seq_len=window, device=dev,
+                                  quantized=kv_quant)
+            pf, _ = make_prefill(cfg, last_only=True, plain=plain)(p, cache, toks_d, start, valid)
+            lg, _ = make_decode_step(cfg, plain=plain)(p, cache, cur, valid)
+            return pf, lg
+        # slot b's pages, scattered over the pool (page 0 is the trash page)
+        cache = init_paged_kv_cache(cfg, batch * max_pages + 1, PAGE, dtype=torch.bfloat16,
+                                    quantized=kv_quant, device=dev)
+        table = (torch.randperm(batch * max_pages, generator=torch.Generator().manual_seed(SEED))
+                 .view(batch, max_pages).to(dev, torch.int32) + 1)
+        prefill = make_paged_prefill(cfg, last_only=True, plain=plain)
+        pf = None
+        for c0 in range(0, 256, PAGE):  # page-aligned chunks of one page
+            v = (valid - c0).clamp(0, PAGE).to(torch.int32)
+            lg, _ = prefill(p, cache, table, toks_d[:, c0:c0 + PAGE].contiguous(),
+                            torch.full_like(start, c0), v)
+            pf = lg if pf is None else torch.where((v > 0)[:, None], lg, pf)
+        lg, _ = make_paged_decode_step(cfg, plain=plain)(p, cache, table, cur, valid)
         return pf, lg
 
     logits = {plain: first_step(params, plain) for plain in (False, True)}
@@ -1135,12 +1496,12 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
     del logits, lk, lp
 
     engine = InferenceEngine(cfg, params, tok, batch_size=batch, max_seq_len=window,
-                             kv_quant=kv_quant)
+                             kv_quant=kv_quant, paged=paged, page_size=PAGE)
     nonfinite = [0]
     do_step = engine._do_step
 
-    def checked_step(cache, tokens, pos):
-        lg, cache = do_step(cache, tokens, pos)
+    def checked_step(cache, tokens, pos, *bm):
+        lg, cache = do_step(cache, tokens, pos, *bm)
         nonfinite[0] += int((~np.isfinite(lg)).sum())
         return lg, cache
 
@@ -1171,7 +1532,7 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
         raise AssertionError("a request generated fewer than 32 tokens")
     if nonfinite[0]:
         raise AssertionError(f"{nonfinite[0]} non-finite logits while serving")
-    if set(engine.prefill_chunks) != {16, 64, 256}:
+    if set(engine.prefill_chunks) != ({PAGE} if paged else {16, 64, 256}):
         raise AssertionError(f"prefill buckets hit: {dict(engine.prefill_chunks)}")
     dead = [n for n in path if launches[n] == 0]
     if dead:
@@ -1180,18 +1541,22 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
     # where a step's time goes: wrapper calls of one decode step, then device
     # time by kernel over a short window
     cache = engine.new_cache()
+    bm = engine.new_block_manager()  # None on the dense cache
     toks = np.array([t[-1] for t in ids], np.int32)
     pos0 = np.array([len(t) - 1 for t in ids], np.int32)
+    if bm is not None:
+        for s, p in enumerate(pos0):
+            bm.ensure_capacity(s, int(p) + 8)
     before = launch_counts()
-    engine._do_step(cache, toks, pos0)
+    engine._do_step(cache, toks, pos0, bm)
     step_counts = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
     print(f"{label} wrapper launches per decode step (batch 8): {sum(step_counts.values())} "
           f"{step_counts}", flush=True)
     if step_counts != per_step:
         raise AssertionError(f"{label}: launches per decode step {step_counts}, want {per_step}")
     profile_window(f"{label} decode step (batch 8)", 4,
-                   lambda i: engine._do_step(cache, toks, pos0 + i))
-    if control is not None and not params.int4:
+                   lambda i: engine._do_step(cache, toks, pos0 + i, bm))
+    if control is not None and not params.int4 and not paged:
         os.environ["HIPLLAMA_LAYER_FUSE"] = "0"
         try:
             four = make_decode_step(cfg)
@@ -1201,9 +1566,11 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
         profile_window(f"{label} decode step, four-kernel layer (batch 8)", 4,
                        lambda i: four(params, cache, toks_t, torch.from_numpy(pos0 + i).to(dev)))
     chunk = [t[:-1][:256] for t in ids]
-    profile_window(f"{label} prefill chunk (batch 8, T 256)", 2,
-                   lambda i: engine._prefill_tokens(cache, batch, dict(enumerate(chunk)),
-                                                    {s: 0 for s in range(batch)}))
+    t_chunk = PAGE if paged else 256
+    profile_window(f"{label} prefill chunk (batch 8, T {t_chunk})", 2,
+                   lambda i: engine._prefill_tokens(cache, batch, {s: c[:t_chunk] for s, c in
+                                                                  enumerate(chunk)},
+                                                    {s: 0 for s in range(batch)}, bm=bm))
     return launches
 
 
@@ -1302,17 +1669,34 @@ def main() -> int:
                                  control=without_ffn0)
     del q4params
 
+    # phase 8: the paged KV cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_paged = phase_paged_kernels()
+    torch.cuda.empty_cache()
+    launches_golden.update(phase_paged_goldens())
+    qparams = random_7b_qparams(LLAMA2_7B, dev)
+    launches["q8 int8 paged"] = phase_serve("7b q8 int8-kv paged", qparams, Q8_LOGIT_TOL,
+                                            Q8_INT8_PAGED_PATH, Q8_INT8_PAGED_STEP,
+                                            control=without_ffn0, kv_quant=True, paged=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_prefix_serve(qparams)
+    del qparams
+
     # each kernel's count from the first serving path that runs it: the 7B
     # serves, then the golden runs (K5 and its int8 branch run only in the
     # four-kernel layer, K1's int8 branch in the dense fp32 --kv int8 run;
-    # K21 and K22 count from the int4 serve)
+    # K21 and K22 count from the int4 serve; the paged kernels on bf16 or
+    # fp32 pages from the fixture's --paged 16 runs)
     runs = [launches["dense"], launches["q8"], launches["q8 int8"], launches["q4"],
-            launches_golden["q8, four-kernel layer"], launches_golden["fp32 --kv int8"],
-            launches_golden["q8 --kv int8, four-kernel layer"]]
+            launches["q8 int8 paged"], launches_golden["q8, four-kernel layer"],
+            launches_golden["fp32 --kv int8"], launches_golden["q8 --kv int8, four-kernel layer"],
+            launches_golden["q8 --paged 16"]]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = (res[torch.bfloat16].get(name) or res_q8.get(name) or res_int8.get(name)
-             or res_q4[name])
+             or res_q4.get(name) or res_paged[name])
         n = next((run[name] for run in runs if run.get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -1,4 +1,5 @@
-// GQA attention over the dense KV cache (B, L, KVH, S, HS), fp32 or bf16.
+// GQA attention over the dense KV cache (B, L, KVH, S, HS) or the paged
+// pool (L, KVH, P, PS, HS), fp32 or bf16 (or int8 with row scales).
 //
 // attention_decode replaces hip_llama_tpu/ops/attention.py::
 // attention_decode_pallas (_decode_kernel and its bfold/bvec/dyn schedules,
@@ -43,6 +44,20 @@
 // tile of (t, head) queries, walking cache tiles up to the tile's causal
 // frontier with an online softmax), which is simple and exact to the cast
 // points; wgmma/TMA is later work.
+//
+// attention_decode_paged and attention_prefill_paged replace hip_llama_tpu/
+// ops/attention.py::attention_decode_paged (_decode_kernel through
+// _decode_kernel_paged) and attention_prefill_paged (_prefill_kernel
+// through _prefill_kernel_paged): the same kernels with the paged row policy
+// of decode_attention.cuh, row r of slot b at page table[b, r / PS], offset
+// r % PS, looked up once per block that lies in one page. The TPU kernels gather one page per grid step
+// through their BlockSpec index maps, so their block is the page; here the
+// online softmax also advances once per page where the page fits a 64-row
+// tile (the int8 decode always per page, whose scores it holds whole in
+// shared memory: the page decides which probabilities share an int8 scale).
+// Bound and design as the dense kernels: bytes for decode, the live rows
+// read once; the page lookup costs an index load per block from the slot's
+// table row (per row only where a block spans pages).
 
 #include <math.h>
 
@@ -53,6 +68,7 @@
 
 namespace {
 
+using hipllama::ContiguousCache;
 using hipllama::DecodeSmem;
 using hipllama::DecodeSmemInt8;
 using hipllama::decode_attention_task;
@@ -61,6 +77,7 @@ using hipllama::decode_int8_smem;
 using hipllama::kDecThreads;
 using hipllama::kMaxM;
 using hipllama::kDecTile;
+using hipllama::PagedCache;
 using hipllama::load4;
 using hipllama::round_to;
 using hipllama::to_f;
@@ -71,33 +88,34 @@ using hipllama::warp_sum;
 // ---------------------------------------------------------------------------
 // decode: one (KV head, slot) task per CTA (decode_attention.cuh)
 
-template <typename T, int HS, int BK>
+template <typename T, int HS, int BK, typename Cache>
 __global__ void __launch_bounds__(kDecThreads) attention_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
-    const int* __restrict__ pos_arr, const T* __restrict__ k_cur,
-    const T* __restrict__ v_cur, T* __restrict__ out,
-    int H, int KVH, int S, int L, int layer, float scale, int q_bs, int cur_bs, int bk) {
+    const Cache cache, const int* __restrict__ pos_arr, const T* __restrict__ k_cur,
+    const T* __restrict__ v_cur, T* __restrict__ out, int H, int KVH, float scale, int q_bs,
+    int cur_bs, int bk) {
   __shared__ DecodeSmem<HS, kDecThreads> sm;
-  decode_attention_task<T, HS, kDecThreads, BK>(sm, blockIdx.x, blockIdx.y, q, k_cache, v_cache,
-                                                pos_arr, k_cur, v_cur, out, H, KVH, S, L, layer,
-                                                scale, q_bs, cur_bs, bk);
+  const int g = blockIdx.x, b = blockIdx.y;
+  decode_attention_task<T, HS, kDecThreads, BK>(sm, g, b, q, k_cache, v_cache, cache.rows(b, g),
+                                                pos_arr, k_cur, v_cur, out, H, KVH, scale, q_bs,
+                                                cur_bs, bk);
 }
 
 // the int8 cache: the block's scores in dynamic shared memory after sm
-template <typename T, int HS>
+template <typename T, int HS, typename Cache>
 __global__ void __launch_bounds__(kDecThreads) attention_decode_int8_kernel(
     const T* __restrict__ q, const signed char* __restrict__ k_cache,
     const signed char* __restrict__ v_cache, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ pos_arr,
+    const float* __restrict__ v_scale, const Cache cache, const int* __restrict__ pos_arr,
     const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
-    int H, int KVH, int S, int L, int layer, float scale, int q_bs, int cur_bs, int bk) {
+    int H, int KVH, float scale, int q_bs, int cur_bs, int bk) {
   extern __shared__ __align__(16) unsigned char dec_smem[];
   auto& sm = *reinterpret_cast<DecodeSmemInt8<HS, kDecThreads>*>(dec_smem);
   float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmemInt8<HS, kDecThreads>));
-  decode_attention_task_int8<T, HS, kDecThreads>(sm, p_s, blockIdx.x, blockIdx.y, q, k_cache,
-                                                 v_cache, k_scale, v_scale, pos_arr, k_cur,
-                                                 v_cur, out, H, KVH, S, L, layer, scale, q_bs,
-                                                 cur_bs, bk);
+  const int g = blockIdx.x, b = blockIdx.y;
+  decode_attention_task_int8<T, HS, kDecThreads>(sm, p_s, g, b, q, k_cache, v_cache, k_scale,
+                                                 v_scale, cache.rows(b, g), pos_arr, k_cur,
+                                                 v_cur, out, H, KVH, scale, q_bs, cur_bs, bk);
 }
 
 // ---------------------------------------------------------------------------
@@ -117,14 +135,14 @@ constexpr size_t prefill_smem_bytes() {
                           + 2 * (size_t)kPfTile);       // k and v row scales (int8)
 }
 
-// T: q and output; C: the cache (T, or int8 with k_scale / v_scale)
-template <typename T, typename C, int HS, int BK>
+// T: q and output; C: the cache (T, or int8 with k_scale / v_scale); Cache:
+// the row policy (decode_attention.cuh); S: the rows a slot can hold
+template <typename T, typename C, int HS, int BK, typename Cache>
 __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
     const T* __restrict__ q, const C* __restrict__ k_cache, const C* __restrict__ v_cache,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const Cache cache,
     const int* __restrict__ start_arr, const int* __restrict__ valid_arr,
-    T* __restrict__ out, int T_len, int H, int KVH, int S, int L, int layer, float scale,
-    int bk_arg) {
+    T* __restrict__ out, int T_len, int H, int KVH, int S, float scale, int bk_arg) {
   constexpr bool kInt8 = std::is_same<C, signed char>::value;
   // the type probabilities round to before PV: V's, bf16 for an int8 cache
   using P = typename std::conditional<kInt8, __nv_bfloat16, C>::type;
@@ -168,22 +186,23 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
 
-  const size_t row0 = (((size_t)b * L + layer) * KVH + g) * (size_t)S;
-  const C* kb = k_cache + row0 * HS;
-  const C* vb = v_cache + row0 * HS;
+  const auto rows = cache.rows(b, g);
 
   for (int k0 = 0; k0 <= q_pos_max && k0 < S; k0 += bk) {
     __syncthreads();  // the previous tile's k/v/p are consumed
+    const hipllama::BlockRows<decltype(rows)> block_row(rows, k0, min(bk, S - k0));
     for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
       const int c = i / HS, dd = i % HS;
       const bool in = c < bk && k0 + c < S;
-      k_s[c * (HS + 1) + dd] = in ? to_f(kb[(size_t)(k0 + c) * HS + dd]) : 0.f;
-      v_s[i] = in ? to_f(vb[(size_t)(k0 + c) * HS + dd]) : 0.f;
+      const size_t row = in ? block_row(c) : 0;
+      k_s[c * (HS + 1) + dd] = in ? to_f(k_cache[row * HS + dd]) : 0.f;
+      v_s[i] = in ? to_f(v_cache[row * HS + dd]) : 0.f;
     }
     if (kInt8 && tid < kPfTile) {
       const bool in = tid < bk && k0 + tid < S;
-      ks_s[tid] = in ? k_scale[row0 + k0 + tid] : 0.f;
-      vs_s[tid] = in ? v_scale[row0 + k0 + tid] : 0.f;
+      const size_t row = in ? block_row(tid) : 0;
+      ks_s[tid] = in ? k_scale[row] : 0.f;
+      vs_s[tid] = in ? v_scale[row] : 0.f;
     }
     __syncthreads();
     // scores: thread owns column c = tid % kPfTile of rows tid / kPfTile + 4i
@@ -256,27 +275,26 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 // ---------------------------------------------------------------------------
 // launchers
 
-template <typename T, int HS>
-int launch_decode(const void* q, const void* k, const void* v, const void* pos,
-                  const void* kc, const void* vc, void* out, int B, int H, int KVH,
-                  int S, int L, int layer, float scale, int q_bs, int cur_bs, int bk,
-                  cudaStream_t st) {
-  auto kernel = bk == kDecTile ? attention_decode_kernel<T, HS, kDecTile>
-                               : attention_decode_kernel<T, HS, 0>;
+template <typename T, int HS, typename Cache>
+int launch_decode(const void* q, const void* k, const void* v, const Cache& cache,
+                  const void* pos, const void* kc, const void* vc, void* out, int B, int H,
+                  int KVH, float scale, int q_bs, int cur_bs, int bk, cudaStream_t st) {
+  auto kernel = bk == kDecTile ? attention_decode_kernel<T, HS, kDecTile, Cache>
+                               : attention_decode_kernel<T, HS, 0, Cache>;
   kernel<<<dim3(KVH, B), kDecThreads, 0, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)pos, (const T*)kc,
-      (const T*)vc, (T*)out, H, KVH, S, L, layer, scale, q_bs, cur_bs, bk);
+      (const T*)q, (const T*)k, (const T*)v, cache, (const int*)pos, (const T*)kc,
+      (const T*)vc, (T*)out, H, KVH, scale, q_bs, cur_bs, bk);
   return (int)cudaGetLastError();
 }
 
 // the int8 decode kernel with M x bk scores in dynamic shared memory
-template <typename T, int HS>
+template <typename T, int HS, typename Cache>
 int launch_decode_int8(const void* q, const void* k, const void* v, const void* ks,
-                       const void* vs, const void* pos, const void* kc, const void* vc,
-                       void* out, int B, int H, int KVH, int S, int L, int layer, float scale,
-                       int q_bs, int cur_bs, int bk, cudaStream_t st) {
+                       const void* vs, const Cache& cache, const void* pos, const void* kc,
+                       const void* vc, void* out, int B, int H, int KVH, float scale, int q_bs,
+                       int cur_bs, int bk, cudaStream_t st) {
   const size_t smem = decode_int8_smem<HS, kDecThreads>(H / KVH, bk);
-  auto kernel = attention_decode_int8_kernel<T, HS>;
+  auto kernel = attention_decode_int8_kernel<T, HS, Cache>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -284,27 +302,27 @@ int launch_decode_int8(const void* q, const void* k, const void* v, const void* 
   }
   kernel<<<dim3(KVH, B), kDecThreads, smem, st>>>(
       (const T*)q, (const signed char*)k, (const signed char*)v, (const float*)ks,
-      (const float*)vs, (const int*)pos, (const T*)kc, (const T*)vc, (T*)out, H, KVH, S, L,
-      layer, scale, q_bs, cur_bs, bk);
+      (const float*)vs, cache, (const int*)pos, (const T*)kc, (const T*)vc, (T*)out, H, KVH,
+      scale, q_bs, cur_bs, bk);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename C, int HS>
+template <typename T, typename C, int HS, typename Cache>
 int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
-                   const void* vs, const void* start, const void* valid, void* out, int B,
-                   int T_len, int H, int KVH, int S, int L, int layer, float scale, int bk,
+                   const void* vs, const Cache& cache, const void* start, const void* valid,
+                   void* out, int B, int T_len, int H, int KVH, int S, float scale, int bk,
                    cudaStream_t st) {
   constexpr size_t smem = prefill_smem_bytes<HS>();
-  auto kernel = bk == kPfTile ? attention_prefill_kernel<T, C, HS, kPfTile>
-                              : attention_prefill_kernel<T, C, HS, 0>;
+  auto kernel = bk == kPfTile ? attention_prefill_kernel<T, C, HS, kPfTile, Cache>
+                              : attention_prefill_kernel<T, C, HS, 0, Cache>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int bt = kPfRows / (H / KVH);
   const dim3 grid((T_len + bt - 1) / bt, KVH, B);
   kernel<<<grid, kPfThreads, smem, st>>>(
-      (const T*)q, (const C*)k, (const C*)v, (const float*)ks, (const float*)vs,
-      (const int*)start, (const int*)valid, (T*)out, T_len, H, KVH, S, L, layer, scale, bk);
+      (const T*)q, (const C*)k, (const C*)v, (const float*)ks, (const float*)vs, cache,
+      (const int*)start, (const int*)valid, (T*)out, T_len, H, KVH, S, scale, bk);
   return (int)cudaGetLastError();
 }
 
@@ -321,9 +339,10 @@ extern "C" int attention_decode(const void* q, const void* k_cache, const void* 
   if (H % KVH || H / KVH > kMaxM || bk < 1 || bk > kDecTile) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, N)                                                                 \
-  launch_decode<T, N>(q, k_cache, v_cache, pos, k_cur, v_cur, out, B, H, KVH, S, L, layer, \
-                      scale, H * HS, KVH * HS, bk, st)
+  const ContiguousCache cache{L, KVH, S, layer};
+#define CALL(T, N)                                                                       \
+  launch_decode<T, N>(q, k_cache, v_cache, cache, pos, k_cur, v_cur, out, B, H, KVH, scale, \
+                      H * HS, KVH * HS, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -349,9 +368,10 @@ extern "C" int attention_decode_fused(const void* qkv, const void* k_cache, cons
   const char* base = static_cast<const char*>(qkv);
   const void* kc = base + (size_t)H * HS * esize;
   const void* vc = base + (size_t)(H + KVH) * HS * esize;
-#define CALL(T, N)                                                                  \
-  launch_decode<T, N>(qkv, k_cache, v_cache, pos, kc, vc, out, B, H, KVH, S, L, layer, \
-                      scale, nt * HS, nt * HS, bk, st)
+  const ContiguousCache cache{L, KVH, S, layer};
+#define CALL(T, N)                                                                     \
+  launch_decode<T, N>(qkv, k_cache, v_cache, cache, pos, kc, vc, out, B, H, KVH, scale, \
+                      nt * HS, nt * HS, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -371,9 +391,10 @@ extern "C" int attention_decode_int8(const void* q, const void* k_cache, const v
   if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, N)                                                                          \
-  launch_decode_int8<T, N>(q, k_cache, v_cache, k_scale, v_scale, pos, k_cur, v_cur, out, B, \
-                           H, KVH, S, L, layer, scale, H * HS, KVH * HS, bk, st)
+  const ContiguousCache cache{L, KVH, S, layer};
+#define CALL(T, N)                                                                        \
+  launch_decode_int8<T, N>(q, k_cache, v_cache, k_scale, v_scale, cache, pos, k_cur, v_cur, \
+                           out, B, H, KVH, scale, H * HS, KVH * HS, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -394,9 +415,10 @@ extern "C" int attention_decode_fused_int8(const void* qkv, const void* k_cache,
   const char* base = static_cast<const char*>(qkv);
   const void* kc = base + (size_t)H * HS * esize;
   const void* vc = base + (size_t)(H + KVH) * HS * esize;
-#define CALL(T, N)                                                                          \
-  launch_decode_int8<T, N>(qkv, k_cache, v_cache, k_scale, v_scale, pos, kc, vc, out, B, H,  \
-                           KVH, S, L, layer, scale, nt * HS, nt * HS, bk, st)
+  const ContiguousCache cache{L, KVH, S, layer};
+#define CALL(T, N)                                                                            \
+  launch_decode_int8<T, N>(qkv, k_cache, v_cache, k_scale, v_scale, cache, pos, kc, vc, out, B, \
+                           H, KVH, scale, nt * HS, nt * HS, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -414,9 +436,10 @@ extern "C" int attention_prefill(const void* q, const void* k_cache, const void*
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(T, N)                                                                        \
-  launch_prefill<T, T, N>(q, k_cache, v_cache, nullptr, nullptr, start, valid, out, B, T_len, H, \
-                          KVH, S, L, layer, scale, bk, st)
+  const ContiguousCache cache{L, KVH, S, layer};
+#define CALL(T, N)                                                                           \
+  launch_prefill<T, T, N>(q, k_cache, v_cache, nullptr, nullptr, cache, start, valid, out, B, \
+                          T_len, H, KVH, S, scale, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -435,9 +458,101 @@ extern "C" int attention_prefill_int8(const void* q, const void* k_cache, const 
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ContiguousCache cache{L, KVH, S, layer};
+#define CALL(T, N)                                                                            \
+  launch_prefill<T, signed char, N>(q, k_cache, v_cache, k_scale, v_scale, cache, start, valid, \
+                                    out, B, T_len, H, KVH, S, scale, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+// ---------------------------------------------------------------------------
+// the paged pool: planes (L, KVH, P, PS, HS), int8 with fp32 scale planes
+// (L, KVH, P, PS); table (B, max_pages) int32 physical page ids; rows
+// 0..pos[b]-1 (decode) or 0..start[b]+t (prefill) of slot b must sit in
+// pages the table names. dtype and bk as the dense entry points above.
+
+extern "C" int attention_decode_paged(const void* q, const void* k_pages, const void* v_pages,
+                                      const void* table, const void* pos, const void* k_cur,
+                                      const void* v_cur, void* out, int B, int H, int KVH, int P,
+                                      int PS, int max_pages, int HS, int layer, int dtype, int bk,
+                                      void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1 || bk > kDecTile || PS < 1)
+    return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
 #define CALL(T, N)                                                                          \
-  launch_prefill<T, signed char, N>(q, k_cache, v_cache, k_scale, v_scale, start, valid, out, \
-                                    B, T_len, H, KVH, S, L, layer, scale, bk, st)
+  launch_decode<T, N>(q, k_pages, v_pages, cache, pos, k_cur, v_cur, out, B, H, KVH, scale, \
+                      H * HS, KVH * HS, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+extern "C" int attention_decode_paged_int8(const void* q, const void* k_pages,
+                                           const void* v_pages, const void* k_scale,
+                                           const void* v_scale, const void* table,
+                                           const void* pos, const void* k_cur, const void* v_cur,
+                                           void* out, int B, int H, int KVH, int P, int PS,
+                                           int max_pages, int HS, int layer, int dtype, int bk,
+                                           void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
+#define CALL(T, N)                                                                            \
+  launch_decode_int8<T, N>(q, k_pages, v_pages, k_scale, v_scale, cache, pos, k_cur, v_cur, out, \
+                           B, H, KVH, scale, H * HS, KVH * HS, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+extern "C" int attention_prefill_paged(const void* q, const void* k_pages, const void* v_pages,
+                                       const void* table, const void* start, const void* valid,
+                                       void* out, int B, int T_len, int H, int KVH, int P, int PS,
+                                       int max_pages, int HS, int layer, int dtype, int bk,
+                                       void* stream) {
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile || PS < 1)
+    return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
+  const int S = max_pages * PS;
+#define CALL(T, N)                                                                           \
+  launch_prefill<T, T, N>(q, k_pages, v_pages, nullptr, nullptr, cache, start, valid, out, B, \
+                          T_len, H, KVH, S, scale, bk, st)
+  if (dtype == 0) {
+    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+  }
+  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+extern "C" int attention_prefill_paged_int8(const void* q, const void* k_pages,
+                                            const void* v_pages, const void* k_scale,
+                                            const void* v_scale, const void* table,
+                                            const void* start, const void* valid, void* out,
+                                            int B, int T_len, int H, int KVH, int P, int PS,
+                                            int max_pages, int HS, int layer, int dtype, int bk,
+                                            void* stream) {
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile || PS < 1)
+    return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
+  const int S = max_pages * PS;
+#define CALL(T, N)                                                                               \
+  launch_prefill<T, signed char, N>(q, k_pages, v_pages, k_scale, v_scale, cache, start, valid, \
+                                    out, B, T_len, H, KVH, S, scale, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }

@@ -25,6 +25,24 @@
 // row; on the card every thread stores its piece straight to the row (16
 // bytes where the row's size allows), so the cache is never read.
 // Positions outside [0, S) write nothing.
+//
+// The paged pool (L, KVH, P, PS, HS), fp32 scale planes (L, KVH, P, PS) on
+// int8 pages, takes the same writers through a page table (B, max_pages):
+// kv_write_rows_paged replaces hip_llama_tpu/ops/cache.py::
+// kv_write_rows_paged: one decode step's rows (L, B, KVH, HS) land at page
+// table[b, pos[b] / PS], offset pos[b] % PS, for every slot (an idle slot's
+// table names the trash page), K and V in one launch; int8 rows arrive
+// quantized (quantize_kv_rows), as the JAX step quantizes before its
+// writer. scale_write_rows_paged (cache.py::scale_write_rows_paged) writes
+// their (L, B, KVH) scales, both planes in one launch. kv_write_chunk_paged
+// (cache.py::kv_write_chunk_paged) writes one layer's chunk rows (B, T,
+// KVH, HS), T <= PS, row j < valid[b] of slot b at page table[b, start[b] /
+// PS], offset j (the chunk starts on a page boundary); valid 0 leaves a
+// slot's pages alone. scale_write_chunk_paged (cache.py::
+// scale_write_chunk_paged) writes the chunk's (B, T, KVH) scales by the
+// same rule, both planes in one launch. The TPU kernels read-modify-write
+// a window or the whole page; these store the rows alone. A position past
+// the table writes nothing.
 
 #include <stdint.h>
 
@@ -141,6 +159,96 @@ __global__ void __launch_bounds__(kThreads) scale_write_chunk_kernel(
   }
 }
 
+template <typename V>
+__global__ void __launch_bounds__(kThreads) kv_write_rows_paged_kernel(
+    void* __restrict__ k_pages, void* __restrict__ v_pages,
+    const void* __restrict__ k_rows, const void* __restrict__ v_rows,
+    const int* __restrict__ table, const int* __restrict__ pos,
+    int B, int L, int KVH, int P, int PS, int max_pages, int row_units) {
+  const V* rows = static_cast<const V*>(blockIdx.y == 0 ? k_rows : v_rows);
+  V* pages = static_cast<V*>(blockIdx.y == 0 ? k_pages : v_pages);
+  const long long n = (long long)L * B * KVH * row_units;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const int dv = (int)(e % row_units);
+    long long r = e / row_units;
+    const int g = (int)(r % KVH);
+    r /= KVH;
+    const int b = (int)(r % B);
+    const int l = (int)(r / B);
+    const int p = pos[b];
+    if (p < 0 || p >= max_pages * PS) continue;
+    const int page = table[(long long)b * max_pages + p / PS];
+    pages[((((long long)l * KVH + g) * P + page) * PS + p % PS) * row_units + dv] = rows[e];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) scale_write_rows_paged_kernel(
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const float* __restrict__ k_srows, const float* __restrict__ v_srows,
+    const int* __restrict__ table, const int* __restrict__ pos,
+    int B, int L, int KVH, int P, int PS, int max_pages) {
+  const float* src = blockIdx.y == 0 ? k_srows : v_srows;
+  float* dst = blockIdx.y == 0 ? k_scale : v_scale;
+  const long long n = (long long)L * B * KVH;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const int g = (int)(e % KVH);
+    const int b = (int)((e / KVH) % B);
+    const int l = (int)(e / ((long long)KVH * B));
+    const int p = pos[b];
+    if (p < 0 || p >= max_pages * PS) continue;
+    const int page = table[(long long)b * max_pages + p / PS];
+    dst[(((long long)l * KVH + g) * P + page) * PS + p % PS] = src[e];
+  }
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads) kv_write_chunk_paged_kernel(
+    void* __restrict__ k_pages, void* __restrict__ v_pages,
+    const void* __restrict__ k_rows, const void* __restrict__ v_rows,
+    const int* __restrict__ table, const int* __restrict__ start, const int* __restrict__ valid,
+    int B, int KVH, int P, int PS, int max_pages, int row_units, int T_len, int layer) {
+  const V* rows = static_cast<const V*>(blockIdx.y == 0 ? k_rows : v_rows);
+  V* pages = static_cast<V*>(blockIdx.y == 0 ? k_pages : v_pages);
+  const long long n = (long long)B * T_len * KVH * row_units;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const int dv = (int)(e % row_units);
+    long long r = e / row_units;
+    const int g = (int)(r % KVH);
+    r /= KVH;
+    const int t = (int)(r % T_len);
+    const int b = (int)(r / T_len);
+    if (t >= valid[b]) continue;
+    const int s = start[b];
+    if (s < 0 || s >= max_pages * PS) continue;
+    const int page = table[(long long)b * max_pages + s / PS];
+    pages[((((long long)layer * KVH + g) * P + page) * PS + t) * row_units + dv] = rows[e];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) scale_write_chunk_paged_kernel(
+    float* __restrict__ k_scale, float* __restrict__ v_scale,
+    const float* __restrict__ k_srows, const float* __restrict__ v_srows,
+    const int* __restrict__ table, const int* __restrict__ start, const int* __restrict__ valid,
+    int B, int KVH, int P, int PS, int max_pages, int T_len, int layer) {
+  const float* src = blockIdx.y == 0 ? k_srows : v_srows;
+  float* dst = blockIdx.y == 0 ? k_scale : v_scale;
+  const long long n = (long long)B * T_len * KVH;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const int g = (int)(e % KVH);
+    const int t = (int)((e / KVH) % T_len);
+    const int b = (int)(e / ((long long)KVH * T_len));
+    if (t >= valid[b]) continue;
+    const int s = start[b];
+    if (s < 0 || s >= max_pages * PS) continue;
+    const int page = table[(long long)b * max_pages + s / PS];
+    dst[(((long long)layer * KVH + g) * P + page) * PS + t] = src[e];
+  }
+}
+
 int blocks_for(long long n) {
   const long long want = (n + kThreads - 1) / kThreads;
   return (int)(want < kMaxBlocks ? (want > 0 ? want : 1) : kMaxBlocks);
@@ -223,5 +331,67 @@ extern "C" int scale_write_chunk(void* k_scale, void* v_scale, const void* k_sro
   scale_write_chunk_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       (float*)k_scale, (float*)v_scale, (const float*)k_srows, (const float*)v_srows,
       (const int*)start, (const int*)valid, B, L, KVH, S, T_len, layer);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the paged pool; rows in the pages' dtype, row_bytes: one row in bytes
+
+extern "C" int kv_write_rows_paged(void* k_pages, void* v_pages, const void* k_rows,
+                                   const void* v_rows, const void* table, const void* pos, int B,
+                                   int L, int KVH, int P, int PS, int max_pages, int row_bytes,
+                                   void* stream) {
+  if (row_bytes < 1 || PS < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(V, units)                                                                         \
+  kv_write_rows_paged_kernel<V><<<dim3(blocks_for((long long)L * B * KVH * (units)), 2),       \
+                                  kThreads, 0, st>>>(k_pages, v_pages, k_rows, v_rows,          \
+                                                     (const int*)table, (const int*)pos, B, L,  \
+                                                     KVH, P, PS, max_pages, units)
+  HIPLLAMA_UNIT_SWITCH(row_bytes, CALL);
+#undef CALL
+  return (int)cudaGetLastError();
+}
+
+extern "C" int scale_write_rows_paged(void* k_scale, void* v_scale, const void* k_srows,
+                                      const void* v_srows, const void* table, const void* pos,
+                                      int B, int L, int KVH, int P, int PS, int max_pages,
+                                      void* stream) {
+  if (PS < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for((long long)L * B * KVH), 2);
+  scale_write_rows_paged_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      (float*)k_scale, (float*)v_scale, (const float*)k_srows, (const float*)v_srows,
+      (const int*)table, (const int*)pos, B, L, KVH, P, PS, max_pages);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kv_write_chunk_paged(void* k_pages, void* v_pages, const void* k_rows,
+                                    const void* v_rows, const void* table, const void* start,
+                                    const void* valid, int B, int KVH, int P, int PS,
+                                    int max_pages, int row_bytes, int T_len, int layer,
+                                    void* stream) {
+  if (row_bytes < 1 || PS < 1 || T_len > PS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(V, units)                                                                          \
+  kv_write_chunk_paged_kernel<V><<<dim3(blocks_for((long long)B * T_len * KVH * (units)), 2),   \
+                                   kThreads, 0, st>>>(k_pages, v_pages, k_rows, v_rows,          \
+                                                      (const int*)table, (const int*)start,      \
+                                                      (const int*)valid, B, KVH, P, PS,          \
+                                                      max_pages, units, T_len, layer)
+  HIPLLAMA_UNIT_SWITCH(row_bytes, CALL);
+#undef CALL
+  return (int)cudaGetLastError();
+}
+
+extern "C" int scale_write_chunk_paged(void* k_scale, void* v_scale, const void* k_srows,
+                                       const void* v_srows, const void* table, const void* start,
+                                       const void* valid, int B, int KVH, int P, int PS,
+                                       int max_pages, int T_len, int layer, void* stream) {
+  if (PS < 1 || T_len > PS) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks_for((long long)B * T_len * KVH), 2);
+  scale_write_chunk_paged_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      (float*)k_scale, (float*)v_scale, (const float*)k_srows, (const float*)v_srows,
+      (const int*)table, (const int*)start, (const int*)valid, B, KVH, P, PS, max_pages, T_len,
+      layer);
   return (int)cudaGetLastError();
 }

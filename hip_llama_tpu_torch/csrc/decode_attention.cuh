@@ -1,6 +1,6 @@
-// One-token GQA attention over the dense KV cache (B, L, KVH, S, HS), as a
-// device function of one (KV head, slot) task, shared by attention.cu
-// (attention_decode, attention_decode_fused) and layer_fused.cu
+// One-token GQA attention over the KV cache, as a device function of one
+// (KV head, slot) task, shared by attention.cu (attention_decode,
+// attention_decode_fused, attention_decode_paged) and layer_fused.cu
 // (q8_layer_fused).
 //
 // The kv_mul query heads of KV head g in slot b attend over cache rows
@@ -18,6 +18,17 @@
 // cur_bs), so q, k_cur and v_cur may be read in place from a head-split QKV
 // projection. The kernels run it on CTAs of kDecThreads threads, so that
 // the decode kernels and the fused layer sum (and round) alike.
+//
+// Where a row lives is the task's row policy, a functor from the row's
+// position r to its index in the cache planes (in rows of HS elements; the
+// scale planes hold one fp32 per row at the same index): ContiguousRows for
+// the dense cache (B, L, KVH, S, HS), PagedRows for the paged pool (L, KVH,
+// P, PS, HS), where row r of slot b lives in page table[b, r / PS] at offset
+// r % PS. A block of rows that lies in one page (every block, where the
+// block divides the page) is addressed from its first row with one table
+// load (BlockRows); a block that spans pages looks each row's page up. The
+// policy changes addresses only: the arithmetic, and so the rounding, is
+// the same for both.
 #pragma once
 
 #include <math.h>
@@ -30,6 +41,66 @@ constexpr int kDecTile = 64;     // cache rows per tile
 constexpr int kMaxM = 8;         // query heads per KV head (kv_mul)
 constexpr int kDecThreads = 256; // threads per task (NT) in the kernels
 
+// row r of one (slot, KV head) of the dense cache: rows in order
+struct ContiguousRows {
+  size_t row0;  // ((b * L + layer) * KVH + g) * S
+  __device__ __forceinline__ size_t operator()(int r) const { return row0 + (size_t)r; }
+  // rows t0 .. t0 + n - 1 are base + (r - t0): always
+  __device__ __forceinline__ bool span(int t0, int n, size_t& base) const {
+    base = row0 + (size_t)t0;
+    return true;
+  }
+};
+
+// row r of one (slot, KV head) of the paged pool, through the slot's page
+// table row
+struct PagedRows {
+  const int* table;  // the slot's page-table row
+  size_t page0;      // (layer * KVH + g) * P: page 0 of the (layer, head) plane
+  int ps;
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return (page0 + (size_t)table[r / ps]) * ps + (size_t)(r % ps);
+  }
+  // rows t0 .. t0 + n - 1 are base + (r - t0) where they lie in one page
+  __device__ __forceinline__ bool span(int t0, int n, size_t& base) const {
+    base = (*this)(t0);
+    return t0 % ps + n <= ps;
+  }
+};
+
+// row t0 + r of a block of n rows that starts at row t0: one add from the
+// block's first row where the policy says the block is consecutive, else
+// the policy's own lookup
+template <typename Rows>
+struct BlockRows {
+  Rows rows;
+  int t0;
+  size_t base;
+  bool consecutive;
+  __device__ __forceinline__ BlockRows(const Rows& rw, int t0_, int n) : rows(rw), t0(t0_) {
+    consecutive = rw.span(t0_, n, base);
+  }
+  __device__ __forceinline__ size_t operator()(int r) const {
+    return consecutive ? base + (size_t)r : rows(t0 + r);
+  }
+};
+
+// The two caches as kernel arguments: rows(b, g) is the row policy of slot
+// b's KV head g in layer `layer`.
+struct ContiguousCache {
+  int L, KVH, S, layer;
+  __device__ __forceinline__ ContiguousRows rows(int b, int g) const {
+    return {(((size_t)b * L + layer) * KVH + g) * (size_t)S};
+  }
+};
+struct PagedCache {
+  const int* table;  // (B, max_pages) int32
+  int max_pages, KVH, P, PS, layer;
+  __device__ __forceinline__ PagedRows rows(int b, int g) const {
+    return {table + (size_t)b * max_pages, ((size_t)layer * KVH + g) * P, PS};
+  }
+};
+
 template <int HS, int NT>
 struct DecodeSmem {
   __align__(16) float q_s[kMaxM][HS];  // q, as the cache dtype, widened
@@ -38,12 +109,12 @@ struct DecodeSmem {
   float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM];
 };
 
-template <typename T, int HS, int NT, int BK>
+template <typename T, int HS, int NT, int BK, typename Rows>
 __device__ __forceinline__ void decode_attention_task(
     DecodeSmem<HS, NT>& sm, int g, int b, const T* q, const T* __restrict__ k_cache,
-    const T* __restrict__ v_cache, const int* pos_arr, const T* k_cur, const T* v_cur,
-    T* __restrict__ out, int H, int KVH, int S, int L, int layer, float scale, int q_bs,
-    int cur_bs, int bk_arg) {
+    const T* __restrict__ v_cache, const Rows rows, const int* pos_arr, const T* k_cur,
+    const T* v_cur, T* __restrict__ out, int H, int KVH, float scale, int q_bs, int cur_bs,
+    int bk_arg) {
   constexpr int kWarps = NT / 32;
   constexpr int LPR = HS / 4;   // lanes per K row in QK (4 elements each)
   constexpr int RPW = 32 / LPR; // K rows per warp per pass
@@ -65,9 +136,6 @@ __device__ __forceinline__ void decode_attention_task(
   }
   __syncthreads();
 
-  const size_t plane = (((size_t)b * L + layer) * KVH + g) * (size_t)S * HS;
-  const T* kb = k_cache + plane;
-  const T* vb = v_cache + plane;
   const int d = tid % HS, rg = tid / HS;
   const int c0 = (lane % LPR) * 4;
   float acc[kMaxM];
@@ -76,6 +144,7 @@ __device__ __forceinline__ void decode_attention_task(
 
   for (int t0 = 0; t0 < pos; t0 += bk) {
     const int n = min(bk, pos - t0);
+    const BlockRows<Rows> row(rows, t0, n);
     // scores: LPR lanes per row, reduced with shuffles. The unroll counts
     // here and in PV are spelled out: left to itself the compiler unrolled
     // these loops less once the task was a function of its own, and the
@@ -83,7 +152,7 @@ __device__ __forceinline__ void decode_attention_task(
 #pragma unroll 4
     for (int r = warp * RPW + lane / LPR; r < kDecTile; r += kWarps * RPW) {
       float kf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < n) load4(kb + (size_t)(t0 + r) * HS + c0, kf);
+      if (r < n) load4(k_cache + row(r) * HS + c0, kf);
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
         if (m < M) {
@@ -124,7 +193,7 @@ __device__ __forceinline__ void decode_attention_task(
       if (m < M) acc[m] *= sm.a_s[m];
 #pragma unroll 8
     for (int r = rg; r < n; r += RG) {
-      const float v = to_f(vb[(size_t)(t0 + r) * HS + d]);
+      const float v = to_f(v_cache[row(r) * HS + d]);
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m)
         if (m < M) acc[m] += sm.p_s[m][r] * v;
@@ -165,7 +234,8 @@ __device__ __forceinline__ void decode_attention_task(
 
 // ---------------------------------------------------------------------------
 // The same task over an int8 cache with one fp32 scale per row (k_scale,
-// v_scale: (B, L, KVH, S)), with the int8 dots of the JAX kernels'
+// v_scale: (B, L, KVH, S), or (L, KVH, P, PS) for the paged pool), with the
+// int8 dots of the JAX kernels'
 // HIPLLAMA_ATTN_I8MXU path (attention.py:88-93, :300-383):
 //   - q (its own dtype T, fp32 or bf16) widened to fp32 and quantized by
 //     row: sq = max|q| * (1/127) (1 where zero), qi = round-half-even(q/sq);
@@ -189,13 +259,13 @@ struct DecodeSmemInt8 {
   float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM], sq_s[kMaxM], sp_s[kMaxM];
 };
 
-template <typename T, int HS, int NT>
+template <typename T, int HS, int NT, typename Rows>
 __device__ __forceinline__ void decode_attention_task_int8(
     DecodeSmemInt8<HS, NT>& sm, float* p_s, int g, int b, const T* q,
     const signed char* __restrict__ k_cache, const signed char* __restrict__ v_cache,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const int* pos_arr,
-    const T* k_cur, const T* v_cur, T* __restrict__ out, int H, int KVH, int S, int L,
-    int layer, float scale, int q_bs, int cur_bs, int bk) {
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const Rows rows,
+    const int* pos_arr, const T* k_cur, const T* v_cur, T* __restrict__ out, int H, int KVH,
+    float scale, int q_bs, int cur_bs, int bk) {
   constexpr int kWarps = NT / 32;
   constexpr int LPR = HS / 4;   // lanes per K row in QK: one int8x4 word each
   constexpr int RPW = 32 / LPR; // K rows per warp per pass
@@ -229,11 +299,6 @@ __device__ __forceinline__ void decode_attention_task_int8(
   }
   __syncthreads();
 
-  const size_t row0 = (((size_t)b * L + layer) * KVH + g) * (size_t)S;
-  const signed char* kb = k_cache + row0 * HS;
-  const signed char* vb = v_cache + row0 * HS;
-  const float* ksb = k_scale + row0;
-  const float* vsb = v_scale + row0;
   const int d = tid % HS, rg = tid / HS;
   float acc[kMaxM];
 #pragma unroll
@@ -241,13 +306,15 @@ __device__ __forceinline__ void decode_attention_task_int8(
 
   for (int t0 = 0; t0 < pos; t0 += bk) {
     const int n = min(bk, pos - t0);
+    const BlockRows<Rows> block_row(rows, t0, n);
     // scores of the block's live rows; the loop bound is warp-uniform, so
     // the shuffles stay convergent
     for (int r0 = warp * RPW; r0 < n; r0 += kWarps * RPW) {
       const int r = r0 + lane / LPR, w = lane % LPR;
       const bool live = r < n;
-      const int kw = live ? *reinterpret_cast<const int*>(kb + (size_t)(t0 + r) * HS + 4 * w) : 0;
-      const float ks = live ? ksb[t0 + r] : 0.f;
+      const size_t row = live ? block_row(r) : 0;
+      const int kw = live ? *reinterpret_cast<const int*>(k_cache + row * HS + 4 * w) : 0;
+      const float ks = live ? k_scale[row] : 0.f;
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
         if (m < M) {
@@ -269,7 +336,7 @@ __device__ __forceinline__ void decode_attention_task_int8(
       for (int r = lane; r < n; r += 32) {
         const float p = expf(pm[r] - m_new);
         sum += p;
-        const float pv = p * vsb[t0 + r];
+        const float pv = p * v_scale[block_row(r)];
         pm[r] = pv;
         am = fmaxf(am, fabsf(pv));
       }
@@ -295,7 +362,7 @@ __device__ __forceinline__ void decode_attention_task_int8(
     for (int m = 0; m < kMaxM; ++m) ai[m] = 0;
 #pragma unroll 4
     for (int r = rg; r < n; r += RG) {
-      const int v = vb[(size_t)(t0 + r) * HS + d];
+      const int v = v_cache[block_row(r) * HS + d];
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m)
         if (m < M) ai[m] += pi[m * bk + r] * v;

@@ -37,6 +37,7 @@
 namespace {
 
 using namespace hipllama::q8;
+using hipllama::ContiguousCache;
 using hipllama::DecodeSmem;
 using hipllama::DecodeSmemInt8;
 using hipllama::decode_attention_task;
@@ -142,21 +143,22 @@ __device__ __noinline__ void attention_phase(const LayerArgs& a) {
   const int nqkv = (a.H + 2 * a.KVH) * HS;
   const bf16* kc = a.qkv + a.H * HS;
   const bf16* vc = a.qkv + (a.H + a.KVH) * HS;
+  const ContiguousCache cache{a.L, a.KVH, a.S, a.layer};
   for (int t = blockIdx.x; t < a.KVH * a.B; t += gridDim.x) {
     const int g = t % a.KVH, b = t / a.KVH;
     if (a.kv_int8)
       decode_attention_task_int8<bf16, HS, kDecThreads>(
           at8, p_s, g, b, a.qkv, (const signed char*)a.k_cache, (const signed char*)a.v_cache,
-          a.k_scale, a.v_scale, a.pos, kc, vc, a.att, a.H, a.KVH, a.S, a.L, a.layer, a.scale,
+          a.k_scale, a.v_scale, cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale,
           nqkv, nqkv, a.bk);
     else if (a.bk == kDecTile)
       decode_attention_task<bf16, HS, kDecThreads, kDecTile>(
-          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, a.pos, kc, vc, a.att,
-          a.H, a.KVH, a.S, a.L, a.layer, a.scale, nqkv, nqkv, a.bk);
+          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, cache.rows(b, g),
+          a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk);
     else
       decode_attention_task<bf16, HS, kDecThreads, 0>(
-          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, a.pos, kc, vc, a.att,
-          a.H, a.KVH, a.S, a.L, a.layer, a.scale, nqkv, nqkv, a.bk);
+          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, cache.rows(b, g),
+          a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk);
   }
 }
 

@@ -1,13 +1,19 @@
 from hip_llama_tpu_torch.ops.attention import (
     attention_decode,
     attention_decode_fused,
+    attention_decode_paged,
     attention_prefill,
+    attention_prefill_paged,
 )
 from hip_llama_tpu_torch.ops.cache import (
     kv_commit_rows,
     kv_write_chunk,
+    kv_write_chunk_paged,
+    kv_write_rows_paged,
     quantize_kv_rows,
     scale_write_chunk,
+    scale_write_chunk_paged,
+    scale_write_rows_paged,
 )
 from hip_llama_tpu_torch.ops.layer_fused import q8_layer_fused
 from hip_llama_tpu_torch.ops.quant import q8_matmul, q8_matmul_ffn, q8_matmul_silu
@@ -16,10 +22,13 @@ from hip_llama_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_silu
 # every kernel wrapper of the package; each counts its launches in `.launches`
 KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            q8_matmul, attention_decode_fused, q8_matmul_ffn, q8_matmul_silu, q8_layer_fused,
-           scale_write_chunk, q4_matmul, q4_matmul_silu)
+           scale_write_chunk, q4_matmul, q4_matmul_silu, attention_decode_paged,
+           attention_prefill_paged, kv_write_rows_paged, scale_write_rows_paged,
+           kv_write_chunk_paged, scale_write_chunk_paged)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
-                 attention_decode_fused, q8_layer_fused)
+                 attention_decode_fused, q8_layer_fused, attention_decode_paged,
+                 attention_prefill_paged, kv_write_rows_paged, kv_write_chunk_paged)
 
 
 def reset_launches() -> None:
@@ -43,9 +52,13 @@ __all__ = [
     "KERNELS",
     "attention_decode",
     "attention_decode_fused",
+    "attention_decode_paged",
     "attention_prefill",
+    "attention_prefill_paged",
     "kv_commit_rows",
     "kv_write_chunk",
+    "kv_write_chunk_paged",
+    "kv_write_rows_paged",
     "launch_counts",
     "q8_matmul",
     "q8_layer_fused",
@@ -56,4 +69,6 @@ __all__ = [
     "quantize_kv_rows",
     "reset_launches",
     "scale_write_chunk",
+    "scale_write_chunk_paged",
+    "scale_write_rows_paged",
 ]

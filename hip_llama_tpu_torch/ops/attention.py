@@ -1,6 +1,6 @@
 """GQA attention over the KV cache: one-token decode (K1), the same decode
 reading the head-split QKV projection in place (K5), and chunked prefill
-(K4).
+(K4); and decode (K6) and prefill (K7) over the paged pool.
 
 Each is a CUDA kernel (csrc/attention.cu) behind a wrapper that checks its
 operands, allocates the output and counts its launches in
@@ -34,6 +34,15 @@ probabilities share a scale, so the kernels take the JAX block whole
 Prefill (attention.py:891-940) has no int8 dots: q is rounded to bf16, K
 and V widened exactly, scores * scale * ks, and (p * vs) rounded to bf16
 before PV.
+
+The paged kernels (attention.py:1663-1868) take the pool (L, KVH, P, PS,
+HS) and a page table (B, MAX_PAGES) int32 in place of the dense cache; row r
+of slot b lives in page table[b, r // PS] at offset r % PS. Their JAX block
+is the page (block_k = PS), so the plain versions gather a slot's pages
+into rows and take the dense plain math at block PS; the CUDA kernels run
+the dense kernels' code with a paged row address, at kernel_block(PS) on
+fp32 or bf16 pages and at PS on int8 pages (decode holds a page's scores
+whole, check_int8_block).
 """
 
 from __future__ import annotations
@@ -49,7 +58,9 @@ from hip_llama_tpu_torch.ops.cache import (
     _stream,
     check_cache,
     check_operand,
+    check_pages,
     check_scales,
+    check_table,
 )
 
 HEAD_SIZES = (8, 16, 32, 64, 128)
@@ -337,9 +348,10 @@ attention_decode_fused.launches_int8 = 0
 
 
 def attention_prefill_plain(q, k_cache, v_cache, layer: int, start, valid, k_scale=None,
-                            v_scale=None):
+                            v_scale=None, *, block: int | None = None):
     """Plain version of `attention_prefill`: the JAX prefill kernel's math
-    (attention.py:743-940) with its KV blocks."""
+    (attention.py:743-940) with its KV blocks of `block` rows (default:
+    `ref_block(S, 512)`, K4's)."""
     b, t, h, hs = q.shape
     kvh, s = k_cache.shape[2], k_cache.shape[3]
     m = h // kvh
@@ -359,7 +371,7 @@ def attention_prefill_plain(q, k_cache, v_cache, layer: int, start, valid, k_sca
     else:
         def pv_fn(p, vb, i0):
             return p.to(v_cache.dtype).float() @ vb
-    bk = ref_block(s, PREFILL_BLOCK)
+    bk = block or ref_block(s, PREFILL_BLOCK)
     qpos = (start[:, None] + torch.arange(t, device=q.device)[None, :])[:, :, None, None, None]
     col = torch.arange(s, device=q.device)
     if v_cache.dtype == torch.float32:
@@ -417,3 +429,156 @@ def attention_prefill(q, k_cache, v_cache, layer: int, start, valid, k_scale=Non
 
 attention_prefill.launches = 0
 attention_prefill.launches_int8 = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7: decode and prefill over the paged pool
+
+
+def gather_pages(pages, page_table, layer: int):
+    """Layer `layer` of the pool's plane (L, KVH, P, PS, ...) as each slot's
+    rows in order, (B, 1, KVH, MAX_PAGES * PS, ...): a dense cache of one
+    layer for the plain versions."""
+    g = pages[layer][:, page_table.long()]  # (KVH, B, MAX_PAGES, PS, ...)
+    b, n = page_table.shape
+    return g.transpose(0, 1).reshape(b, g.shape[0], n * g.shape[3], *g.shape[4:])[:, None]
+
+
+def _gathered(k_pages, v_pages, page_table, layer, k_scale, v_scale):
+    planes = [gather_pages(x, page_table, layer) for x in (k_pages, v_pages)]
+    if k_scale is None:
+        return planes + [None, None]
+    return planes + [gather_pages(x, page_table, layer) for x in (k_scale, v_scale)]
+
+
+def _check_paged(q, k_pages, v_pages, page_table, layer: int, k_scale, v_scale):
+    """Validate the paged operands; returns (L, KVH, P, PS, HS, H,
+    MAX_PAGES, quantized)."""
+    n_layers, kvh, n_pages, ps, hs = check_pages(k_pages, v_pages)
+    quantized = check_scales(k_pages, k_scale, v_scale)
+    h = q.shape[-2]
+    if h % kvh:
+        raise ValueError(f"{h} query heads not a multiple of {kvh} KV heads")
+    if q.shape[-1] != hs:
+        raise ValueError(f"q head size {q.shape[-1]} != page head size {hs}")
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range [0, {n_layers})")
+    if page_table.dim() != 2 or page_table.shape[0] != q.shape[0]:
+        raise ValueError(f"page_table: expected ({q.shape[0]}, MAX_PAGES), got "
+                         f"{tuple(page_table.shape)}")
+    return n_layers, kvh, n_pages, ps, hs, h, page_table.shape[1], quantized
+
+
+def attention_decode_paged_plain(q, k_pages, v_pages, page_table, layer: int, pos, k_cur, v_cur,
+                                 k_scale=None, v_scale=None, *, block: int | None = None):
+    """Plain version of `attention_decode_paged`: K1's plain math over the
+    slot's gathered pages, with KV blocks of `block` rows (default: the
+    page, the JAX kernel's block)."""
+    kg, vg, ksg, vsg = _gathered(k_pages, v_pages, page_table, layer, k_scale, v_scale)
+    return attention_decode_plain(q, kg, vg, 0, pos, k_cur, v_cur, ksg, vsg,
+                                  block=block or k_pages.shape[3])
+
+
+def attention_decode_paged(q, k_pages, v_pages, page_table, layer: int, pos, k_cur, v_cur,
+                           k_scale=None, v_scale=None):
+    """`attention_decode` over the paged pool: q (B, H, HS) over rows
+    0..pos[b]-1 of slot b, row r in page page_table[b, r // PS] of layer
+    `layer` of the pool (L, KVH, P, PS, HS), then the current k_cur/v_cur
+    (B, KVH, HS) row. int8 pages come with their scale planes (L, KVH, P,
+    PS). Returns (B, H, HS) in q's dtype. Replaces hip_llama_tpu/ops/
+    attention.py::attention_decode_paged."""
+    _, kvh, n_pages, ps, hs, h, max_pages, quantized = _check_paged(
+        q, k_pages, v_pages, page_table, layer, k_scale, v_scale)
+    dev = k_pages.device
+    if dev.type == "cpu":
+        return attention_decode_paged_plain(q, k_pages, v_pages, page_table, layer, pos, k_cur,
+                                            v_cur, k_scale, v_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"attention_decode_paged: unsupported device {dev}")
+    if hs not in HEAD_SIZES or h // kvh > MAX_KV_MUL:
+        raise ValueError(f"attention_decode_paged takes head sizes {HEAD_SIZES} and up to "
+                         f"{MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
+    bsz = q.shape[0]
+    dt = _act_dtype(q, k_pages, quantized)
+    check_operand("q", q, (bsz, h, hs), dt, dev)
+    check_operand("k_cur", k_cur, (bsz, kvh, hs), dt, dev)
+    check_operand("v_cur", v_cur, (bsz, kvh, hs), dt, dev)
+    check_operand("pos", pos, (bsz,), torch.int32, dev)
+    check_table(page_table, bsz, dev)
+    out = torch.empty_like(q)
+    dims = (bsz, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt])
+    if quantized:
+        check_int8_block(h // kvh, ps)
+        fn = _build.bind("attention", "attention_decode_paged_int8", "p" * 10 + "i" * 10 + "p")
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), page_table.data_ptr(), pos.data_ptr(), k_cur.data_ptr(),
+                v_cur.data_ptr(), out.data_ptr(), *dims, ps, _stream())
+    else:
+        fn = _build.bind("attention", "attention_decode_paged", "p" * 8 + "i" * 10 + "p")
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+                pos.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), out.data_ptr(), *dims,
+                kernel_block(ps), _stream())
+    _build.check(rc, "attention", "attention_decode_paged")
+    _count(attention_decode_paged, quantized)
+    return out
+
+
+attention_decode_paged.launches = 0
+attention_decode_paged.launches_int8 = 0
+
+
+def attention_prefill_paged_plain(q, k_pages, v_pages, page_table, layer: int, start, valid,
+                                  k_scale=None, v_scale=None, *, block: int | None = None):
+    """Plain version of `attention_prefill_paged`: K4's plain math over the
+    slots' gathered pages with KV blocks of `block` rows (default: the
+    page). Its cast points are those of the JAX paged kernel's body,
+    _prefill_kernel (attention.py:743-841), which K4's T-major body shares
+    (tests/test_torch_paged.py)."""
+    kg, vg, ksg, vsg = _gathered(k_pages, v_pages, page_table, layer, k_scale, v_scale)
+    return attention_prefill_plain(q, kg, vg, 0, start, valid, ksg, vsg,
+                                   block=block or k_pages.shape[3])
+
+
+def attention_prefill_paged(q, k_pages, v_pages, page_table, layer: int, start, valid,
+                            k_scale=None, v_scale=None):
+    """`attention_prefill` over the paged pool: a chunk q (B, T, H, HS) whose
+    rows are already written; query t of slot b sees rows 0..start[b]+t,
+    row r in page page_table[b, r // PS] of layer `layer`. Rows t >=
+    valid[b] are unspecified (the kernel writes zeros there). int8 pages
+    come with their scale planes. Returns (B, T, H, HS) in q's dtype.
+    Replaces hip_llama_tpu/ops/attention.py::attention_prefill_paged."""
+    _, kvh, n_pages, ps, hs, h, max_pages, quantized = _check_paged(
+        q, k_pages, v_pages, page_table, layer, k_scale, v_scale)
+    dev = k_pages.device
+    if dev.type == "cpu":
+        return attention_prefill_paged_plain(q, k_pages, v_pages, page_table, layer, start, valid,
+                                             k_scale, v_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"attention_prefill_paged: unsupported device {dev}")
+    if hs not in HEAD_SIZES or 64 % (h // kvh):
+        raise ValueError(f"attention_prefill_paged takes head sizes {HEAD_SIZES} and a "
+                         f"divisor of 64 query heads per KV head, got {hs} and {h // kvh}")
+    bsz, t = q.shape[:2]
+    dt = _act_dtype(q, k_pages, quantized)
+    check_operand("q", q, (bsz, t, h, hs), dt, dev)
+    check_operand("start", start, (bsz,), torch.int32, dev)
+    check_operand("valid", valid, (bsz,), torch.int32, dev)
+    check_table(page_table, bsz, dev)
+    out = torch.empty_like(q)
+    dims = (bsz, t, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt], kernel_block(ps))
+    if quantized:
+        fn = _build.bind("attention", "attention_prefill_paged_int8", "p" * 9 + "i" * 11 + "p")
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), page_table.data_ptr(), start.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), *dims, _stream())
+    else:
+        fn = _build.bind("attention", "attention_prefill_paged", "p" * 7 + "i" * 11 + "p")
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+                start.data_ptr(), valid.data_ptr(), out.data_ptr(), *dims, _stream())
+    _build.check(rc, "attention", "attention_prefill_paged")
+    _count(attention_prefill_paged, quantized)
+    return out
+
+
+attention_prefill_paged.launches = 0
+attention_prefill_paged.launches_int8 = 0

@@ -1,6 +1,7 @@
 """In-place KV cache writers: the decode step's row commit (K2), the
 prefill chunk writer (K3) and its scale companion for int8 caches (K12),
-and the rowwise int8 quantization of KV rows.
+their paged counterparts (K11 and K10, K13 and K14), and the rowwise int8
+quantization of KV rows.
 
 The cache is the reference layout (B, L, KVH, S, HS), held by any object
 with `.k` and `.v` tensors (models/llama.py::KVCache): fp32 or bf16 planes,
@@ -15,6 +16,11 @@ bf16 cache, `<wrapper>.launches_int8` on an int8 one. A CUDA tensor
 launches the kernel or raises; a CPU tensor takes the plain PyTorch version
 beside it, which is also the yardstick the kernel is held against on the
 card.
+
+The paged pool (models/paged.py::PagedKVCache) holds planes (L, KVH, P, PS,
+HS) shared by all slots, int8 ones with scale planes (L, KVH, P, PS); a
+page table (B, MAX_PAGES) int32 names each slot's physical pages in order,
+so row r of slot b lives in page table[b, r // PS] at offset r % PS.
 """
 
 from __future__ import annotations
@@ -31,10 +37,12 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def check_cache(k: torch.Tensor, v: torch.Tensor) -> tuple[int, int, int, int, int]:
-    """Validate a KV cache's two planes; returns (B, L, KVH, S, HS)."""
+def check_cache(k: torch.Tensor, v: torch.Tensor,
+                layout: str = "(B, L, KVH, S, HS)") -> tuple[int, int, int, int, int]:
+    """Validate a KV cache's two planes; returns their shape, (B, L, KVH,
+    S, HS) (or the paged pool's (L, KVH, P, PS, HS), `layout`)."""
     if k.dim() != 5 or k.shape != v.shape:
-        raise ValueError(f"cache planes must be (B, L, KVH, S, HS) alike, got "
+        raise ValueError(f"cache planes must be {layout} alike, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if k.dtype not in _CACHE_DTYPES or v.dtype != k.dtype:
         raise TypeError(f"cache dtype must be float32, bfloat16 or int8, got {k.dtype}/{v.dtype}")
@@ -50,6 +58,19 @@ def check_cache(k: torch.Tensor, v: torch.Tensor) -> tuple[int, int, int, int, i
             raise ValueError(f"cache on {k.device} but the current device is "
                              f"cuda:{torch.cuda.current_device()}")
     return tuple(k.shape)
+
+
+def check_pages(k: torch.Tensor, v: torch.Tensor) -> tuple[int, int, int, int, int]:
+    """Validate the paged pool's two planes; returns (L, KVH, P, PS, HS)."""
+    return check_cache(k, v, "(L, KVH, P, PS, HS)")
+
+
+def check_table(page_table: torch.Tensor, bsz: int, dev) -> int:
+    """Validate a page table of `bsz` slots; returns its width MAX_PAGES."""
+    if page_table.dim() != 2:
+        raise ValueError(f"page_table: expected (B, MAX_PAGES), got {tuple(page_table.shape)}")
+    check_operand("page_table", page_table, (bsz, page_table.shape[1]), torch.int32, dev)
+    return page_table.shape[1]
 
 
 def check_scales(k: torch.Tensor, k_scale, v_scale) -> bool:
@@ -277,3 +298,200 @@ def scale_write_chunk(cache, k_srows, v_srows, layer: int, start, valid):
 
 
 scale_write_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the paged pool: K11 and K10, one decode step's rows and scales; K13 and
+# K14, one layer's prefill chunk and its scales
+
+
+def _row_slots(pos, page_table, ps: int):
+    """(slot, page, offset) of each slot's row at pos[b]: page table[b, pos[b]
+    // PS]; a position outside the table writes nothing."""
+    keep = (pos >= 0) & (pos < page_table.shape[1] * ps)
+    bi = torch.nonzero(keep).flatten()
+    p = pos[bi].long()
+    return bi, page_table[bi, p // ps].long(), p % ps
+
+
+def kv_write_rows_paged_plain(cache, k_rows, v_rows, page_table, pos):
+    """Plain version of `kv_write_rows_paged` (the XLA `_write_kv_rows_paged`
+    of hip_llama_tpu/models/paged.py:79-101): pages[:, :, table[b, pos[b] //
+    PS], pos[b] % PS] = rows[:, b] for each slot b."""
+    bi, page, off = _row_slots(pos, page_table, cache.k.shape[3])
+    for plane, rows in ((cache.k, k_rows), (cache.v, v_rows)):
+        plane[:, :, page, off] = rows[:, bi].to(plane.dtype).transpose(1, 2)
+    return cache
+
+
+def kv_write_rows_paged(cache, k_rows, v_rows, page_table, pos):
+    """Write one decode step's rows, k_rows/v_rows (L, B, KVH, HS) in the
+    pages' dtype (int8 rows from quantize_kv_rows on int8 pages), into the
+    paged pool in place: layer l, head g of slot b lands in page table[b,
+    pos[b] // PS] at offset pos[b] % PS, for every slot (an idle slot's
+    table names the trash page). One launch writes K and V for all layers.
+    Replaces hip_llama_tpu/ops/cache.py::kv_write_rows_paged (one plane per
+    call there). A position past the table writes nothing."""
+    n_layers, kvh, n_pages, ps, hs = check_pages(cache.k, cache.v)
+    dev = cache.k.device
+    if dev.type == "cpu":
+        return kv_write_rows_paged_plain(cache, k_rows, v_rows, page_table, pos)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_write_rows_paged: unsupported device {dev}")
+    bsz = k_rows.shape[1]
+    for name, r in (("k_rows", k_rows), ("v_rows", v_rows)):
+        check_operand(name, r, (n_layers, bsz, kvh, hs), cache.k.dtype, dev)
+    max_pages = check_table(page_table, bsz, dev)
+    check_operand("pos", pos, (bsz,), torch.int32, dev)
+    fn = _build.bind("cache", "kv_write_rows_paged", "pppppp" + "iiiiiii" + "p")
+    rc = fn(cache.k.data_ptr(), cache.v.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
+            page_table.data_ptr(), pos.data_ptr(), bsz, n_layers, kvh, n_pages, ps, max_pages,
+            hs * cache.k.element_size(), _stream())
+    _build.check(rc, "cache", "kv_write_rows_paged")
+    _count(kv_write_rows_paged, cache.k.dtype == torch.int8)
+    return cache
+
+
+kv_write_rows_paged.launches = 0
+kv_write_rows_paged.launches_int8 = 0
+
+
+def scale_write_rows_paged_plain(cache, k_srows, v_srows, page_table, pos):
+    """Plain version of `scale_write_rows_paged` (the XLA
+    `_write_scale_rows_paged`, hip_llama_tpu/models/paged.py:104-122)."""
+    bi, page, off = _row_slots(pos, page_table, cache.k.shape[3])
+    for plane, srows in ((cache.k_scale, k_srows), (cache.v_scale, v_srows)):
+        plane[:, :, page, off] = srows[:, bi].float().transpose(1, 2)
+    return cache
+
+
+def scale_write_rows_paged(cache, k_srows, v_srows, page_table, pos):
+    """Write one decode step's row scales, k_srows/v_srows (L, B, KVH) fp32
+    (from quantize_kv_rows), into int8 pages' scale planes in place, at
+    kv_write_rows_paged's slots. One launch writes both planes. Replaces
+    hip_llama_tpu/ops/cache.py::scale_write_rows_paged."""
+    n_layers, kvh, n_pages, ps, _ = check_pages(cache.k, cache.v)
+    if not check_scales(cache.k, getattr(cache, "k_scale", None), getattr(cache, "v_scale", None)):
+        raise ValueError("scale_write_rows_paged takes int8 pages")
+    dev = cache.k.device
+    if dev.type == "cpu":
+        return scale_write_rows_paged_plain(cache, k_srows, v_srows, page_table, pos)
+    if dev.type != "cuda":
+        raise ValueError(f"scale_write_rows_paged: unsupported device {dev}")
+    bsz = k_srows.shape[1]
+    for name, r in (("k_srows", k_srows), ("v_srows", v_srows)):
+        check_operand(name, r, (n_layers, bsz, kvh), torch.float32, dev)
+    max_pages = check_table(page_table, bsz, dev)
+    check_operand("pos", pos, (bsz,), torch.int32, dev)
+    fn = _build.bind("cache", "scale_write_rows_paged", "pppppp" + "iiiiii" + "p")
+    rc = fn(cache.k_scale.data_ptr(), cache.v_scale.data_ptr(), k_srows.data_ptr(),
+            v_srows.data_ptr(), page_table.data_ptr(), pos.data_ptr(), bsz, n_layers, kvh,
+            n_pages, ps, max_pages, _stream())
+    _build.check(rc, "cache", "scale_write_rows_paged")
+    scale_write_rows_paged.launches += 1
+    return cache
+
+
+scale_write_rows_paged.launches = 0
+
+
+def _chunk_slots(t: int, page_table, ps: int, start, valid):
+    """(slot, chunk row, page) of the rows a paged chunk writer keeps: row j
+    of slot b lands in page table[b, start[b] // PS] at offset j iff j <
+    valid[b] (and start[b] lies inside the table)."""
+    j = torch.arange(t, device=start.device)
+    keep = (j[None, :] < valid[:, None]) & ((start >= 0) & (start < page_table.shape[1] * ps))[:, None]
+    bi, ti = torch.nonzero(keep, as_tuple=True)
+    return bi, ti, page_table[bi, start[bi].long() // ps].long()
+
+
+def kv_write_chunk_paged_plain(cache, k_rows, v_rows, layer: int, page_table, start, valid):
+    """Plain version of `kv_write_chunk_paged` (the XLA merge of
+    hip_llama_tpu/models/paged.py:333-356)."""
+    bi, ti, page = _chunk_slots(k_rows.shape[1], page_table, cache.k.shape[3], start, valid)
+    for plane, rows in ((cache.k, k_rows), (cache.v, v_rows)):
+        plane[layer][:, page, ti] = rows[bi, ti].to(plane.dtype).transpose(0, 1)
+    return cache
+
+
+def _check_chunk(cache, layer: int, t: int):
+    n_layers, kvh, n_pages, ps, hs = check_pages(cache.k, cache.v)
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range [0, {n_layers})")
+    if t > ps:
+        raise ValueError(f"a paged chunk of {t} rows must fit one page of {ps}")
+    return n_layers, kvh, n_pages, ps, hs
+
+
+def kv_write_chunk_paged(cache, k_rows, v_rows, layer: int, page_table, start, valid):
+    """Write one layer's prefill chunk, k_rows/v_rows (B, T, KVH, HS) in the
+    pages' dtype (int8 rows from quantize_kv_rows on int8 pages), T <= PS,
+    into the paged pool in place: row j of slot b goes to page table[b,
+    start[b] // PS] at offset j iff j < valid[b] (the chunk starts on a page
+    boundary); every other row keeps its value (valid[b] == 0 makes slot b
+    a bystander). One launch per layer writes K and V. Replaces
+    hip_llama_tpu/ops/cache.py::kv_write_chunk_paged."""
+    _, kvh, n_pages, ps, hs = _check_chunk(cache, layer, k_rows.shape[1])
+    dev = cache.k.device
+    if dev.type == "cpu":
+        return kv_write_chunk_paged_plain(cache, k_rows, v_rows, layer, page_table, start, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_write_chunk_paged: unsupported device {dev}")
+    bsz, t = k_rows.shape[:2]
+    for name, r in (("k_rows", k_rows), ("v_rows", v_rows)):
+        check_operand(name, r, (bsz, t, kvh, hs), cache.k.dtype, dev)
+    max_pages = check_table(page_table, bsz, dev)
+    check_operand("start", start, (bsz,), torch.int32, dev)
+    check_operand("valid", valid, (bsz,), torch.int32, dev)
+    fn = _build.bind("cache", "kv_write_chunk_paged", "ppppppp" + "iiiiiiii" + "p")
+    rc = fn(cache.k.data_ptr(), cache.v.data_ptr(), k_rows.data_ptr(), v_rows.data_ptr(),
+            page_table.data_ptr(), start.data_ptr(), valid.data_ptr(), bsz, kvh, n_pages, ps,
+            max_pages, hs * cache.k.element_size(), t, layer, _stream())
+    _build.check(rc, "cache", "kv_write_chunk_paged")
+    _count(kv_write_chunk_paged, cache.k.dtype == torch.int8)
+    return cache
+
+
+kv_write_chunk_paged.launches = 0
+kv_write_chunk_paged.launches_int8 = 0
+
+
+def scale_write_chunk_paged_plain(cache, k_srows, v_srows, layer: int, page_table, start, valid):
+    """Plain version of `scale_write_chunk_paged` (the XLA merge of
+    hip_llama_tpu/models/paged.py:358-377)."""
+    bi, ti, page = _chunk_slots(k_srows.shape[1], page_table, cache.k.shape[3], start, valid)
+    for plane, srows in ((cache.k_scale, k_srows), (cache.v_scale, v_srows)):
+        plane[layer][:, page, ti] = srows[bi, ti].float().t()
+    return cache
+
+
+def scale_write_chunk_paged(cache, k_srows, v_srows, layer: int, page_table, start, valid):
+    """Write one layer's prefill-chunk scales, k_srows/v_srows (B, T, KVH)
+    fp32 (from quantize_kv_rows), into int8 pages' scale planes in place,
+    with kv_write_chunk_paged's rule. One launch writes both planes.
+    Replaces hip_llama_tpu/ops/cache.py::scale_write_chunk_paged."""
+    _, kvh, n_pages, ps, _ = _check_chunk(cache, layer, k_srows.shape[1])
+    if not check_scales(cache.k, getattr(cache, "k_scale", None), getattr(cache, "v_scale", None)):
+        raise ValueError("scale_write_chunk_paged takes int8 pages")
+    dev = cache.k.device
+    if dev.type == "cpu":
+        return scale_write_chunk_paged_plain(cache, k_srows, v_srows, layer, page_table, start,
+                                             valid)
+    if dev.type != "cuda":
+        raise ValueError(f"scale_write_chunk_paged: unsupported device {dev}")
+    bsz, t = k_srows.shape[:2]
+    for name, r in (("k_srows", k_srows), ("v_srows", v_srows)):
+        check_operand(name, r, (bsz, t, kvh), torch.float32, dev)
+    max_pages = check_table(page_table, bsz, dev)
+    check_operand("start", start, (bsz,), torch.int32, dev)
+    check_operand("valid", valid, (bsz,), torch.int32, dev)
+    fn = _build.bind("cache", "scale_write_chunk_paged", "ppppppp" + "iiiiiii" + "p")
+    rc = fn(cache.k_scale.data_ptr(), cache.v_scale.data_ptr(), k_srows.data_ptr(),
+            v_srows.data_ptr(), page_table.data_ptr(), start.data_ptr(), valid.data_ptr(), bsz,
+            kvh, n_pages, ps, max_pages, t, layer, _stream())
+    _build.check(rc, "cache", "scale_write_chunk_paged")
+    scale_write_chunk_paged.launches += 1
+    return cache
+
+
+scale_write_chunk_paged.launches = 0

@@ -1,7 +1,8 @@
 """CLI with the reference's flag contract (src/llama.cpp:1490-1639), serving
 the dense path, the Q8_0 weight path (v2 checkpoints, --quant q8) or the
 int4 weight path (v4 checkpoints, --quant q4), on a bf16/fp32 or (--kv int8)
-int8 KV cache, on a CUDA card (or the CPU with --device cpu):
+int8 KV cache, dense or paged (--paged), on a CUDA card (or the CPU with
+--device cpu):
 
   python -m hip_llama_tpu_torch.run <checkpoint> [options]
   python -m hip_llama_tpu_torch.run model.bin -n 256 -i "Once upon a time"
@@ -29,11 +30,18 @@ Extra (double-dash):
                              path (its weights dequantized at load)
   --device cuda|cpu          where the model runs (default cuda)
   --kv int8                  int8 KV cache with one fp32 scale per row
+  --paged [page_size]        paged KV cache (default page size 128): a pool
+                             of pages handed out per request, so KV memory
+                             follows the tokens in flight; prefill runs in
+                             chunks of one page
+  --prefix-cache             identical prompt prefixes share KV pages and
+                             skip their prefill (implies --paged)
   --no-prefill               force-feed prompts one token/step (parity mode)
   --rope-theta F             RoPE base override (.bin headers can't carry it)
   --no-eos-stop              test mode stops on BOS only (run.cc parity)
-The JAX CLI's other flags (--paged, --tp, --spec, --layout, --stream, ...)
-and chat mode are not yet ported: they exit with an error.
+The JAX CLI's other flags (--tp, --spec, --chunk, --device-sampling,
+--layout, --stream, ...) and chat mode are not yet ported: they exit with
+an error.
 """
 
 from __future__ import annotations
@@ -61,7 +69,7 @@ from hip_llama_tpu_torch.tokenizer import Tokenizer
 
 _VALUE_FLAGS = ("-t", "-p", "-s", "-n", "-i", "-z", "-m", "-f", "-o", "-b",
                 "--dtype", "--device", "--rope-theta", "--quant", "--kv")
-_SWITCHES = ("--no-prefill", "--no-eos-stop", "--dequant")
+_SWITCHES = ("--no-prefill", "--no-eos-stop", "--dequant", "--prefix-cache")
 
 
 def error_usage():
@@ -81,6 +89,13 @@ def main(argv: list[str]) -> int:
         a = argv[i]
         if a in _SWITCHES:
             switches.add(a)
+            i += 1
+        elif a == "--paged":
+            # the page size is optional (run.py:134-140 of the JAX CLI)
+            switches.add(a)
+            if i + 1 < len(argv) and argv[i + 1].isdigit():
+                opts[a] = argv[i + 1]
+                i += 1
             i += 1
         elif a in _VALUE_FLAGS:
             if i + 1 >= len(argv):
@@ -113,6 +128,12 @@ def main(argv: list[str]) -> int:
     if opts.get("--kv", "int8") != "int8":
         print("--kv supports: int8", file=sys.stderr)
         return 1
+    paged = "--paged" in switches
+    prefix_cache = "--prefix-cache" in switches
+    if prefix_cache and not paged:
+        print("note: --prefix-cache implies --paged", file=sys.stderr)
+        paged = True
+    page_size = int(opts.get("--paged", 128))
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[opts.get("--dtype", "bfloat16")]
     device = resolve_device(opts.get("--device", "cuda"))
 
@@ -146,6 +167,7 @@ def main(argv: list[str]) -> int:
     engine = InferenceEngine(
         cfg, params, tokenizer, batch_size=batch,
         use_prefill="--no-prefill" not in switches, kv_quant="--kv" in opts,
+        paged=paged, page_size=page_size, prefix_cache=prefix_cache,
     )
 
     if mode == "generate":
@@ -184,6 +206,9 @@ def main(argv: list[str]) -> int:
                 f"max: {stats['ttft_max_s']*1000:.1f} ms",
                 file=sys.stderr,
             )
+        if stats.get("prefix_hit_tokens"):
+            print(f"prefix cache: {stats['prefix_hit_tokens']} prompt tokens served from shared "
+                  "pages", file=sys.stderr)
         write_outputfile(opts["-o"], requests)
 
     print(f"total elapsed time(s): {time.perf_counter()-total_start:.6f}")

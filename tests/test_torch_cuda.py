@@ -493,3 +493,219 @@ def test_quantizers_divide_on_the_card():
     for quantize in (Q.q8_quantize_weights, Q4.q4_quantize_weights):
         got, want = quantize(w.to(dev)), quantize(w)
         assert torch.equal(got.q.cpu(), want.q) and torch.equal(got.s.cpu(), want.s)
+
+
+# ---------------------------------------------------------------------------
+# the paged pool: K6, K7, K11, K10, K13 and K14 against their plain versions
+
+from hip_llama_tpu_torch.models.paged import PagedKVCache  # noqa: E402
+
+# (B, H, KVH, HS, PS, MAX_PAGES): the golden fixture's heads and page, a mid
+# size with pages of 32, and Llama-2-7B's heads with pages of 128
+PAGED_SHAPES = [(4, 8, 4, 8, 16, 6), (3, 8, 2, 64, 32, 7), (8, 32, 32, 128, 128, 4)]
+
+
+def _paged_pool(rng, n_layers, kvh, n_pages, ps, hs, dtype, dev):
+    shape = (n_layers, kvh, n_pages, ps, hs)
+    if dtype == torch.int8:
+        planes = [C.quantize_kv_rows(_rand(rng, shape, torch.float32, dev)) for _ in range(2)]
+        return PagedKVCache(planes[0][0], planes[1][0], planes[0][1], planes[1][1])
+    return PagedKVCache(_rand(rng, shape, dtype, dev), _rand(rng, shape, dtype, dev))
+
+
+def _paged_table(rng, b, max_pages, n_pages, dev):
+    """Distinct physical pages 1..n_pages-1 in shuffled order."""
+    pages = rng.permutation(np.arange(1, n_pages))[: b * max_pages].reshape(b, max_pages)
+    return torch.tensor(pages, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("pages", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+def test_attention_decode_paged_kernel(shape, pages):
+    dev = _card()
+    b, h, kvh, hs, ps, max_pages = shape
+    rng = np.random.default_rng(17)
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, pages, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    act = torch.bfloat16 if pages == torch.int8 else pages
+    q = _rand(rng, (b, h, hs), act, dev)
+    kc, vc = _rand(rng, (b, kvh, hs), act, dev), _rand(rng, (b, kvh, hs), act, dev)
+    s = max_pages * ps
+    # 0, an exact page boundary, the last row, then ragged
+    pos = torch.tensor(np.r_[0, ps, s - 1, rng.integers(0, s, b - 3)], dtype=torch.int32,
+                       device=dev)
+    sc = (pool.k_scale, pool.v_scale)
+    n0 = (A.attention_decode_paged.launches_int8 if pages == torch.int8
+          else A.attention_decode_paged.launches)
+    got = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc)
+    want = A.attention_decode_paged_plain(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc,
+                                          block=A.kernel_block(ps) if pages != torch.int8 else ps)
+    torch.cuda.synchronize()
+    n1 = (A.attention_decode_paged.launches_int8 if pages == torch.int8
+          else A.attention_decode_paged.launches)
+    assert n1 == n0 + 1
+    tol = INT8_TOL[act] if pages == torch.int8 else TOL[act]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("pages", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+def test_attention_prefill_paged_kernel(shape, pages):
+    dev = _card()
+    b, h, kvh, hs, ps, max_pages = shape
+    t = min(ps, 64)
+    rng = np.random.default_rng(18)
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, pages, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    act = torch.bfloat16 if pages == torch.int8 else pages
+    q = _rand(rng, (b, t, h, hs), act, dev)
+    # page-aligned starts: the first page, the last page, a bystander, then ragged
+    start = np.r_[0, (max_pages - 1) * ps, ps, rng.integers(0, max_pages, b - 3) * ps]
+    valid = np.r_[t, t // 2, 0, rng.integers(1, t + 1, b - 3)]
+    start_t = torch.tensor(start, dtype=torch.int32, device=dev)
+    valid_t = torch.tensor(valid, dtype=torch.int32, device=dev)
+    sc = (pool.k_scale, pool.v_scale)
+    got = A.attention_prefill_paged(q, pool.k, pool.v, table, 0, start_t, valid_t, *sc)
+    want = A.attention_prefill_paged_plain(q, pool.k, pool.v, table, 0, start_t, valid_t, *sc,
+                                           block=A.kernel_block(ps))
+    torch.cuda.synchronize()
+    live = torch.arange(t, device=dev)[None, :] < valid_t[:, None]
+    # on int8 pages the probabilities round to bf16 before PV whatever q's dtype
+    _close(got[live], want[live], torch.bfloat16 if pages == torch.int8 else act)
+
+
+@pytest.mark.parametrize("pages", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+def test_paged_writers_kernels(shape, pages):
+    """K11 and K13 on every page dtype, K10 and K14 on int8 pages, bit for
+    bit against their plain versions; an idle slot's row lands on the trash
+    page."""
+    dev = _card()
+    b, _, kvh, hs, ps, max_pages = shape
+    n_layers = 3
+    rng = np.random.default_rng(19)
+    n_pages = b * max_pages + 1
+    base = _paged_pool(rng, n_layers, kvh, n_pages, ps, hs, pages, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    table[b - 1] = 0  # an idle slot: its table names only the trash page
+    int8 = pages == torch.int8
+
+    def copy():
+        return PagedKVCache(*(None if x is None else x.clone()
+                              for x in (base.k, base.v, base.k_scale, base.v_scale)))
+
+    def same(x, y):
+        return all(torch.equal(getattr(x, f), getattr(y, f)) for f in ("k", "v")) and (
+            not int8 or all(torch.equal(getattr(x, f), getattr(y, f))
+                            for f in ("k_scale", "v_scale")))
+
+    s = max_pages * ps
+    pos = torch.tensor(np.r_[ps, s - 1, rng.integers(0, s, b - 3), 0], dtype=torch.int32,
+                       device=dev)
+    rows = [_rand(rng, (n_layers, b, kvh, hs), torch.float32, dev) for _ in range(2)]
+    if int8:
+        (kr, ksr), (vr, vsr) = (C.quantize_kv_rows(r) for r in rows)
+    else:
+        kr, vr = (r.to(pages) for r in rows)
+    n0 = C.kv_write_rows_paged.launches_int8 if int8 else C.kv_write_rows_paged.launches
+    got, want = copy(), copy()
+    C.kv_write_rows_paged(got, kr, vr, table, pos)
+    C.kv_write_rows_paged_plain(want, kr, vr, table, pos)
+    if int8:
+        C.scale_write_rows_paged(got, ksr, vsr, table, pos)
+        C.scale_write_rows_paged_plain(want, ksr, vsr, table, pos)
+    torch.cuda.synchronize()
+    n1 = C.kv_write_rows_paged.launches_int8 if int8 else C.kv_write_rows_paged.launches
+    assert n1 == n0 + 1 and same(got, want)
+
+    t = min(ps, 16)
+    start = torch.tensor(np.r_[0, (max_pages - 1) * ps, rng.integers(0, max_pages, b - 2) * ps],
+                         dtype=torch.int32, device=dev)
+    cvalid = torch.tensor(np.r_[t, 0, rng.integers(1, t + 1, b - 2)], dtype=torch.int32,
+                          device=dev)
+    crows = [_rand(rng, (b, t, kvh, hs), torch.float32, dev) for _ in range(2)]
+    if int8:
+        (ck, cks), (cv, cvs) = (C.quantize_kv_rows(r) for r in crows)
+    else:
+        ck, cv = (r.to(pages) for r in crows)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)  # every slot live again
+    got, want = copy(), copy()
+    C.kv_write_chunk_paged(got, ck, cv, 2, table, start, cvalid)
+    C.kv_write_chunk_paged_plain(want, ck, cv, 2, table, start, cvalid)
+    if int8:
+        C.scale_write_chunk_paged(got, cks, cvs, 2, table, start, cvalid)
+        C.scale_write_chunk_paged_plain(want, cks, cvs, 2, table, start, cvalid)
+    torch.cuda.synchronize()
+    assert same(got, want)
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8])
+def test_contiguous_kernels_are_the_paged_kernels_on_laid_out_pages(pages):
+    """The row policy changes addresses only: K1 and K5 (fp32 at S 512 and
+    bf16) and K23 give bit for bit what K6 gives over the same rows cut into
+    pages of 128 (K1's 64-row block is K6's there), so the contiguous path's
+    arithmetic is that of the kernels before the policy existed; the K23 =
+    four-kernel equalities of the tests above still hold."""
+    dev = _card()
+    b, h, kvh, hs, s, ps, d, hid, gs = 8, 32, 32, 128, 512, 128, 4096, 11008, 64
+    rng = np.random.default_rng(20)
+    n_layers = 2
+    int8 = pages == torch.int8
+    if int8:
+        cache = _int8_cache(rng, b, n_layers, kvh, s, hs, dev)
+    else:
+        cache = KVCache(_rand(rng, (b, n_layers, kvh, s, hs), pages, dev),
+                        _rand(rng, (b, n_layers, kvh, s, hs), pages, dev))
+    mp = s // ps
+
+    def paged(x):  # (B, L, KVH, S, ...) -> (L, KVH, 1 + B * S / PS, PS, ...), page 0 the trash
+        if x is None:
+            return None
+        y = x.unflatten(3, (mp, ps)).permute(1, 2, 0, 3, *range(4, x.dim() + 1))
+        y = y.reshape(n_layers, kvh, b * mp, *y.shape[4:])
+        return torch.cat([torch.zeros_like(y[:, :, :1]), y], dim=2).contiguous()
+
+    pool = PagedKVCache(*(paged(x) for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+    table = (torch.arange(b * mp, dtype=torch.int32, device=dev) + 1).view(b, mp)
+    sc, psc = (cache.k_scale, cache.v_scale), (pool.k_scale, pool.v_scale)
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s, b - 2)], dtype=torch.int32, device=dev)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), torch.bfloat16, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    k6 = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc, *psc)
+    k1 = A.attention_decode(q, cache.k, cache.v, 1, pos, kc, vc, *sc)
+    k5 = A.attention_decode_fused(qkv, cache.k, cache.v, 1, pos, h, *sc)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k6) and torch.equal(k5, k6)
+    wqkv, wo = _qt(rng, d, (h + 2 * kvh) * hs, gs, dev), _qt(rng, d, d, gs, dev)
+    w13, w2 = _qt(rng, d, 2 * hid, gs, dev), _qt(rng, hid, d, gs, dev)
+    g1, g2 = ((1 + 0.1 * _rand(rng, (d,), torch.float32, dev)).contiguous() for _ in range(2))
+    x = _rand(rng, (b, d), torch.bfloat16, dev)
+    out, kv = LF.q8_layer_fused(x, wqkv, wo, w13, w2, g1, g2, cache.k, cache.v, 1, pos, *sc,
+                                n_heads=h)
+    qkv = Q.q8_matmul(x, wqkv, norm_weight=g1, rope_pos=pos, rope_limit=(h + kvh) * hs,
+                      rope_head=hs).view(b, h + 2 * kvh, hs)
+    q, kc, vc = (y.contiguous() for y in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    att = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc, *psc)
+    x2 = Q.q8_matmul(att.reshape(b, d), wo, residual=x)
+    four = Q.q8_matmul_ffn(x2, w13, w2, x2, g2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, four) and torch.equal(kv, qkv[:, h:])
+
+
+def test_paged_wrappers_reject_bad_operands():
+    dev = _card()
+    rng = np.random.default_rng(21)
+    pool = _paged_pool(rng, 1, 2, 5, 16, 8, torch.float32, dev)
+    table = _paged_table(rng, 2, 2, 5, dev)
+    q, cur = _rand(rng, (2, 4, 8), torch.float32, dev), _rand(rng, (2, 2, 8), torch.float32, dev)
+    pos = torch.zeros(2, dtype=torch.int32, device=dev)
+    n0 = A.attention_decode_paged.launches
+    with pytest.raises(TypeError):
+        A.attention_decode_paged(q, pool.k, pool.v, table.long(), 0, pos, cur, cur)
+    with pytest.raises(ValueError):
+        A.attention_decode_paged(q, pool.k, pool.v, table[:1].contiguous(), 0, pos, cur, cur)
+    with pytest.raises(TypeError):
+        C.kv_write_rows_paged(pool, cur[None].bfloat16(), cur[None].bfloat16(), table, pos)
+    assert A.attention_decode_paged.launches == n0
