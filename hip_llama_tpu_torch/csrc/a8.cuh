@@ -1,0 +1,400 @@
+// The `a8` (w8a8, w4a8) mode of the weight products, shared by quant.cu
+// (q8_matmul, q8_matmul_silu) and quant4.cu (q4_matmul, q4_matmul_silu): the
+// arithmetic of the JAX kernels' `a8` branches (hip_llama_tpu/ops/quant.py::
+// _q8_kernel :250-296, _q8_kernel_silu :541-585; quant4.py::_a8_quant_half
+// :139, _a8_plane_dot :150), which is the reference int8 engine's
+// (runq.c:332-337, :367):
+//
+//   - the activations, normed and rounded to bf16, are quantized per (row,
+//     group of gs along K) by a pass of their own (matmul_passes.cuh::
+//     a8_quant_rows_kernel): sx = max|x| * fp32(1/127) (1 where zero), xi =
+//     round-half-even(x / sx), a true division;
+//   - the int8 weights (Q8_0 codes, or int4 nibbles less 8, exact in int8)
+//     meet xi in int8 x int8 dots with int32 sums, one per group, exact;
+//   - each group's sum is rescaled in fp32, (f32(int32) * sx) * s, and the
+//     groups are summed in fp32; the epilogue (residual, RoPE, gate) runs on
+//     that sum, then one cast to bf16.
+// int4 weights are packed half-split (byte k' holds row k' and row K/2 + k'):
+// the low nibbles meet x[:, :K/2] and the high nibbles x[:, K/2:], each
+// with its own groups, which is the same as quantizing the whole row in
+// groups of gs because K/2 is a multiple of gs. The scales s (K/gs, N) and
+// sx (M, K/gs) are indexed by the unpacked group either way.
+//
+// Bounds on an H100: at decode-shaped M the product is bound by the weight
+// bytes, as in the reshape mode (1 byte a weight for Q8, 0.5 for int4, plus
+// 4/gs for the scales); at prefill M by the int8 tensor-core rate (1979
+// TOP/s, twice bf16's). The GEMV path (M <= 16) keeps the reshape mode's
+// split-K layout but with strips of 128 columns (a lane owns 4) and up to 8
+// activation rows per CTA: a warp takes whole groups, reads 4 rows of its
+// lane's 4 columns, turns them into 4 words of 4 consecutive k of one
+// column by byte permutes, and multiplies each by the packed xi word of a
+// row with __dp4a. The tiled path (M > 16) stages 64 x 128 int8 x tiles and
+// 128 x 128 weight tiles (transposed by byte permutes so that each column's
+// k are consecutive) in shared memory and runs mma.sync.m16n8k32.s8 into
+// int32 fragments, rescaling them into fp32 at the end of every group. No
+// TPU mechanism is carried over (the transposed (G, gs, M) stash, the 4 MiB
+// group chunks, the 256-row blocks); cp.async/TMA staging and wgmma are
+// later work.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+#include "q8.cuh"
+
+namespace hipllama {
+namespace a8 {
+
+using q8::bf16;
+using q8::Epilogue;
+using q8::kThreads;
+using q8::kWarps;
+using q8::silu_gate;
+using q8::store_pair;
+
+constexpr int kGvBN = 128;     // GEMV columns per strip: 4 per lane
+constexpr int kGvRows = 8;     // activation rows per GEMV CTA
+constexpr int kGvWords = 2048; // int32 words of xi a GEMV CTA stages
+constexpr int kTileM = 64;     // tiled path: rows per CTA
+constexpr int kTileN = 128;    // tiled path: weight columns per CTA (both weights of a gate)
+constexpr int kTileK = 128;    // tiled path: k per shared-memory tile
+constexpr int kTileLd = kTileK / 4 + 4;  // words per staged row: conflict-free fragment loads
+constexpr uint32_t kNibbles = 0x0F0F0F0Fu;
+constexpr uint32_t kEights = 0x08080808u;
+
+// rows r[0..3] hold bytes (columns) 0..3 of four consecutive k; c[j] gets
+// column j's four k, k-major in its bytes
+__device__ __forceinline__ void transpose4(const uint32_t r[4], uint32_t c[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t2, 0x5410);
+  c[1] = __byte_perm(t0, t2, 0x7632);
+  c[2] = __byte_perm(t1, t3, 0x5410);
+  c[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// the int8 codes of a word of packed int4 bytes: the low (hi == false) or
+// high nibbles, each less 8
+__device__ __forceinline__ uint32_t nib_codes(uint32_t w, bool hi) {
+  return __vsub4((hi ? w >> 4 : w) & kNibbles, kEights);
+}
+
+// d += a (16 x 32, row-major) b (32 x 8, k-major columns) in int32
+__device__ __forceinline__ void mma_s8(int d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ---------------------------------------------------------------------------
+// GEMV path: one (strip, split, 8-row chunk) task per CTA. Q8: q (K, N),
+// slices of kslice rows; INT4: q (K/2, N) packed, slices of kslice packed
+// rows. kslice is a multiple of gs (gs % 8 == 0), so a slice holds whole
+// groups and each warp takes whole groups of it. part (planes x split, M,
+// N) gets the slice's fp32 sums, the warps added in order; an int4 weight's
+// two nibble planes keep sums of their own (plane p at split index p x
+// split + s), which the second pass (q8.cuh::split_epilogue_at,
+// split_gate_at) adds as the JAX kernel does: the low plane's total, then
+// the high plane's (quant4.py:226-232).
+
+template <bool INT4>
+__global__ void __launch_bounds__(kThreads) a8_gemv_kernel(
+    const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
+    const float* __restrict__ s, float* __restrict__ part, int M, int K, int N, int gs,
+    int kslice) {
+  constexpr int P = INT4 ? 2 : 1;  // weight planes: the low and high nibbles
+  __shared__ __align__(16) int xw[kGvWords];  // [plane][k / 4][row]: 4 k of xi per word
+  __shared__ float red[kWarps][kGvBN];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * kGvBN, split = blockIdx.y, m0 = blockIdx.z * kGvRows;
+  const int mrows = min(kGvRows, M - m0);
+  const int qrows = INT4 ? K / 2 : K;
+  const int kbeg = split * kslice, kend = min(qrows, kbeg + kslice);
+  const int nq = (kend - kbeg) / 4;
+  const int G = K / gs;
+  for (int i = tid; i < P * nq * kGvRows; i += kThreads) {
+    const int m = i % kGvRows, w = (i / kGvRows) % nq, p = i / (kGvRows * nq);
+    const int k = p * (K / 2) + kbeg + 4 * w;
+    xw[i] = m < mrows ? *reinterpret_cast<const int*>(xi + (size_t)(m0 + m) * K + k) : 0;
+  }
+  __syncthreads();
+
+  const int n = n0 + lane * 4;
+  const bool live = n < N;  // N % 4 == 0: a lane's 4 columns are all in or all out
+  float acc[P][kGvRows][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int m = 0; m < kGvRows; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[p][m][j] = 0.f;
+
+  for (int gi = warp; gi < (kend - kbeg) / gs; gi += kWarps) {
+    const int kg = kbeg + gi * gs;  // the group's first row of q
+#pragma unroll
+    for (int p = 0; p < P; ++p) {  // the high plane reads the group's rows again, from L1
+      int ai[kGvRows][4];
+#pragma unroll
+      for (int m = 0; m < kGvRows; ++m)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ai[m][j] = 0;
+      for (int r0 = 0; r0 < gs; r0 += 8) {
+        uint32_t raw[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          raw[r] = live ? __ldg(reinterpret_cast<const uint32_t*>(q + (size_t)(kg + r0 + r) * N + n))
+                        : 0u;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int w = (kg - kbeg + r0) / 4 + h;  // the quad's word in the slice
+          uint32_t rw[4], c[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) rw[j] = INT4 ? nib_codes(raw[4 * h + j], p == 1) : raw[4 * h + j];
+          transpose4(rw, c);
+          const int4 x0 = *reinterpret_cast<const int4*>(&xw[(p * nq + w) * kGvRows]);
+          const int4 x1 = *reinterpret_cast<const int4*>(&xw[(p * nq + w) * kGvRows + 4]);
+          const int xv[kGvRows] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int m = 0; m < kGvRows; ++m)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) ai[m][j] = __dp4a((int)c[j], xv[m], ai[m][j]);
+        }
+      }
+      // the group's rescale: (f32(int32) * sx) * s
+      const int grp = (p * (K / 2) + kg) / gs;
+      const float4 sc = live ? __ldg(reinterpret_cast<const float4*>(s + (size_t)grp * N + n))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float sv[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+      for (int m = 0; m < kGvRows; ++m) {
+        const float sxm = m < mrows ? sx[(size_t)(m0 + m) * G + grp] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[p][m][j] += ((float)ai[m][j] * sxm) * sv[j];
+      }
+    }
+  }
+
+  // the 8 warps' sums of each plane and row, added in warp order
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    for (int m = 0; m < mrows; ++m) {  // uniform across the block
+#pragma unroll
+      for (int j = 0; j < 4; ++j) red[warp][lane * 4 + j] = acc[p][m][j];
+      __syncthreads();
+      if (tid < kGvBN && n0 + tid < N) {
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += red[w][tid];
+        part[((size_t)(p * gridDim.y + split) * M + m0 + m) * N + n0 + tid] = v;
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tiled path: 64 rows x 128 weight columns per CTA (GATE: 64 columns of W1
+// and the same 64 of W3, at off3 columns further in q), 8 warps as 4 along M
+// x 2 along N, each warp 16 rows x 64 weight columns as n8 tiles. Q8: q (K,
+// ldq); INT4: q (K/2, ldq) packed, unpacked row k in plane k >= K/2. gs is
+// 32, 64 or 128, so a k tile holds whole groups and a group whole k32
+// steps. ncols: output columns (N, or H for the gate), a multiple of 16.
+
+template <bool GATE, bool INT4>
+__global__ void __launch_bounds__(kThreads) a8_mma_kernel(
+    const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
+    const float* __restrict__ s, int M, int K, int ldq, int ncols, int off3, int gs, Epilogue e,
+    bf16* __restrict__ out) {
+  constexpr int NB = GATE ? 2 : 1;  // weights
+  constexpr int WBN = kTileN / NB;  // columns of each weight per CTA
+  constexpr int WN = WBN / 2;       // columns of each weight per warp
+  constexpr int NT8 = WN / 8;       // n8 tiles of each weight per warp
+  __shared__ __align__(16) uint32_t a_s[kTileM][kTileLd];  // xi rows, 4 k per word
+  __shared__ __align__(16) uint32_t b_s[kTileN][kTileLd];  // weight columns, 4 k per word
+  __shared__ float sx_s[kTileM][kTileK / 32];              // the tile's groups' sx
+  __shared__ float s_s[kTileK / 32][kTileN];               // the tile's groups' s
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and thread in group
+  const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * WBN;
+  const int G = K / gs, gpt = kTileK / gs;
+  // this thread's staging: x row ar, bytes ac..ac+31 of the tile; weight
+  // columns (chunk bn of 16) and k rows 4 bq..4 bq+3
+  const int ar = tid >> 2, ac = (tid & 3) * 32;
+  const int bn = (lane & 1) + 2 * (warp & 3), bq = (lane >> 1) + 16 * (warp >> 2);
+  const int bsel = GATE ? bn / 4 : 0;
+  const int bcol = n0 + 16 * (GATE ? bn % 4 : bn);
+  const int bqc = bcol + bsel * off3;
+
+  constexpr int P = INT4 ? 2 : 1;  // planes with sums of their own (see the GEMV path)
+  float acc[P][NB][NT8][4];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[p][b][j][i] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kTileK) {
+    {
+      uint4 v0 = make_uint4(0u, 0u, 0u, 0u), v1 = v0;
+      const int gm = m0 + ar, gk = k0 + ac;
+      if (gm < M && gk < K) {  // K % 32 == 0: all 32 bytes are in
+        const uint4* src = reinterpret_cast<const uint4*>(xi + (size_t)gm * K + gk);
+        v0 = src[0];
+        v1 = src[1];
+      }
+      *reinterpret_cast<uint4*>(&a_s[ar][ac / 4]) = v0;
+      *reinterpret_cast<uint4*>(&a_s[ar][ac / 4 + 4]) = v1;
+    }
+    {
+      const int k = k0 + 4 * bq;
+      uint4 rv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        rv[j] = make_uint4(0u, 0u, 0u, 0u);
+        if (k < K && bcol < ncols) {
+          const bool hi = INT4 && k >= K / 2;  // a quad never straddles K/2 (K/2 % gs == 0)
+          const int row = hi ? k + j - K / 2 : k + j;
+          const uint4 w = __ldg(reinterpret_cast<const uint4*>(q + (size_t)row * ldq + bqc));
+          rv[j] = INT4 ? make_uint4(nib_codes(w.x, hi), nib_codes(w.y, hi), nib_codes(w.z, hi),
+                                    nib_codes(w.w, hi))
+                       : w;
+        }
+      }
+      const uint32_t* rw = reinterpret_cast<const uint32_t*>(rv);
+#pragma unroll
+      for (int cw = 0; cw < 4; ++cw) {
+        const uint32_t r[4] = {rw[cw], rw[4 + cw], rw[8 + cw], rw[12 + cw]};
+        uint32_t c[4];
+        transpose4(r, c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b_s[16 * bn + 4 * cw + j][bq] = c[j];
+      }
+    }
+    for (int i = tid; i < gpt * kTileN; i += kThreads) {
+      const int gi = i / kTileN, c = i % kTileN;
+      const int grp = k0 / gs + gi, col = n0 + c % WBN;
+      s_s[gi][c] = grp < G && col < ncols ? s[(size_t)grp * ldq + col + (GATE ? c / WBN : 0) * off3]
+                                          : 0.f;
+    }
+    for (int i = tid; i < kTileM * gpt; i += kThreads) {
+      const int r = i / gpt, gi = i % gpt;
+      const int grp = k0 / gs + gi;
+      sx_s[r][gi] = m0 + r < M && grp < G ? sx[(size_t)(m0 + r) * G + grp] : 0.f;
+    }
+    __syncthreads();
+
+    for (int gi = 0; gi < gpt && k0 + gi * gs < K; ++gi) {
+      int ai[NB][NT8][4];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < NT8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ai[b][j][i] = 0;
+      for (int ks = 0; ks < gs; ks += 32) {
+        const int kw = (gi * gs + ks) / 4;
+        const uint32_t af[4] = {a_s[wm * 16 + g][kw + t], a_s[wm * 16 + g + 8][kw + t],
+                                a_s[wm * 16 + g][kw + 4 + t], a_s[wm * 16 + g + 8][kw + 4 + t]};
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int j = 0; j < NT8; ++j) {
+            const int cb = b * WBN + wn * WN + j * 8 + g;
+            const uint32_t bf[2] = {b_s[cb][kw + t], b_s[cb][kw + 4 + t]};
+            mma_s8(ai[b][j], af, bf);
+          }
+      }
+      const float sx0 = sx_s[wm * 16 + g][gi], sx1 = sx_s[wm * 16 + g + 8][gi];
+      const bool hi = INT4 && k0 + gi * gs >= K / 2;  // the group's plane
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (p != (int)hi) continue;
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int j = 0; j < NT8; ++j) {
+            const int cb = b * WBN + wn * WN + j * 8 + 2 * t;
+            const float s0 = s_s[gi][cb], s1 = s_s[gi][cb + 1];
+            acc[p][b][j][0] += ((float)ai[b][j][0] * sx0) * s0;
+            acc[p][b][j][1] += ((float)ai[b][j][1] * sx0) * s1;
+            acc[p][b][j][2] += ((float)ai[b][j][2] * sx1) * s0;
+            acc[p][b][j][3] += ((float)ai[b][j][3] * sx1) * s1;
+          }
+      }
+    }
+    __syncthreads();
+  }
+
+  // the low plane's sum, then the high plane's added
+  if (INT4) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int j = 0; j < NT8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[0][b][j][i] += acc[P - 1][b][j][i];
+  }
+  // epilogue: fragment element (h, c) of n8 tile j is row g + 8 h, columns
+  // 2 t and 2 t + 1
+#pragma unroll
+  for (int j = 0; j < NT8; ++j) {
+    const int col = n0 + wn * WN + j * 8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm * 16 + g + 8 * h;
+      if (row < M && col < ncols) {
+        if (GATE) {
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * ncols + col) =
+              __floats2bfloat162_rn(silu_gate(acc[0][0][j][2 * h], acc[0][NB - 1][j][2 * h]),
+                                    silu_gate(acc[0][0][j][2 * h + 1],
+                                              acc[0][NB - 1][j][2 * h + 1]));
+        } else {
+          store_pair(e, row, col, ncols, acc[0][0][j][2 * h], acc[0][0][j][2 * h + 1], out);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers: 0 or the CUDA error
+
+// part (split, M, N): the GEMV path, K (or K/2 packed rows) in split slices
+// of kslice rows
+template <bool INT4>
+int launch_gemv(const void* xi, const void* sx, const void* q, const void* s, float* part, int M,
+                int K, int N, int gs, int split, int kslice, cudaStream_t st) {
+  const int qrows = INT4 ? K / 2 : K;
+  if (gs % 8 || kslice % gs || (INT4 ? 2 : 1) * kslice * kGvRows > 4 * kGvWords ||
+      (long long)split * kslice < qrows || (long long)(split - 1) * kslice >= qrows)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kGvBN - 1) / kGvBN, split, (M + kGvRows - 1) / kGvRows);
+  a8_gemv_kernel<INT4><<<grid, kThreads, 0, st>>>((const int8_t*)xi, (const float*)sx,
+                                                  (const int8_t*)q, (const float*)s, part, M, K,
+                                                  N, gs, kslice);
+  return (int)cudaGetLastError();
+}
+
+// the tiled path into out (M, ncols) bf16
+template <bool GATE, bool INT4>
+int launch_mma(const void* xi, const void* sx, const void* q, const void* s, int M, int K,
+               int ldq, int ncols, int off3, int gs, const Epilogue& e, void* out,
+               cudaStream_t st) {
+  if (gs % 32 || kTileK % gs || ncols % 16) return (int)cudaErrorInvalidValue;
+  const dim3 grid((ncols + kTileN / (GATE ? 2 : 1) - 1) / (kTileN / (GATE ? 2 : 1)),
+                  (M + kTileM - 1) / kTileM);
+  a8_mma_kernel<GATE, INT4><<<grid, kThreads, 0, st>>>((const int8_t*)xi, (const float*)sx,
+                                                       (const int8_t*)q, (const float*)s, M, K,
+                                                       ldq, ncols, off3, gs, e, (bf16*)out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace a8
+}  // namespace hipllama

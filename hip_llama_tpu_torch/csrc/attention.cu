@@ -24,12 +24,14 @@
 // memory. Prefill follows _prefill_kernel_tmaj's int8 branch (attention.py:
 // 891-940): q rounded to bf16 whatever its dtype, K and V widened exactly,
 // scores * scale * ks[row], and (p * vs[row]) rounded to bf16 before PV; no
-// int8 dots. q, the current rows and the output are fp32 or bf16. The running max advances once per block of bk
-// cache rows; with a bf16 cache the rounded probabilities depend on it, so
-// the wrappers pass the JAX kernels' block where it is at most 64 rows. A
-// block of 64 (every cache of 64 rows or more) is a compile-time constant,
-// so the kernels' tile loops are those of a fixed 64-row tile; smaller
-// blocks (short caches only) take it as an argument.
+// int8 dots. q, the current rows and the output are fp32 or bf16. The
+// running max advances once per block of bk cache rows, the JAX kernel's KV
+// block, which the wrappers pass: the rounded probabilities (bf16 V, or
+// p * vs on an int8 cache) depend on it. So every kernel takes a whole
+// block's scores before it rounds any: the decode task holds its M x bk
+// scores in dynamic shared memory, and the prefill kernel its 64 query rows
+// x bk (up to 576 columns: 128 KiB at the JAX prefill block of 512), each
+// computed a 64-row tile of K at a time; PV then walks the block's V tiles.
 //
 // Bounds on an H100: decode is bound by bytes — every live K and V row of
 // the layer is read once (2 * pos * HS * bytes per slot and KV head) for
@@ -41,7 +43,7 @@
 // T = 256 does up to T flops per K/V byte and would be bound by operations
 // on the tensor cores; this first version does the products on the fp32
 // CUDA cores out of shared memory (one CTA per slot, KV head and 64-row
-// tile of (t, head) queries, walking cache tiles up to the tile's causal
+// tile of (t, head) queries, walking cache blocks up to the tile's causal
 // frontier with an online softmax), which is simple and exact to the cast
 // points; wgmma/TMA is later work.
 //
@@ -52,9 +54,8 @@
 // of decode_attention.cuh, row r of slot b at page table[b, r / PS], offset
 // r % PS, looked up once per block that lies in one page. The TPU kernels gather one page per grid step
 // through their BlockSpec index maps, so their block is the page; here the
-// online softmax also advances once per page where the page fits a 64-row
-// tile (the int8 decode always per page, whose scores it holds whole in
-// shared memory: the page decides which probabilities share an int8 scale).
+// online softmax also advances once per page, whose scores the kernels hold
+// whole in shared memory.
 // Bound and design as the dense kernels: bytes for decode, the live rows
 // read once; the page lookup costs an index load per block from the slot's
 // table row (per row only where a block spans pages).
@@ -74,9 +75,9 @@ using hipllama::DecodeSmemInt8;
 using hipllama::decode_attention_task;
 using hipllama::decode_attention_task_int8;
 using hipllama::decode_int8_smem;
+using hipllama::decode_smem;
 using hipllama::kDecThreads;
 using hipllama::kMaxM;
-using hipllama::kDecTile;
 using hipllama::PagedCache;
 using hipllama::load4;
 using hipllama::round_to;
@@ -88,17 +89,20 @@ using hipllama::warp_sum;
 // ---------------------------------------------------------------------------
 // decode: one (KV head, slot) task per CTA (decode_attention.cuh)
 
-template <typename T, int HS, int BK, typename Cache>
+// the block's scores in dynamic shared memory after sm
+template <typename T, int HS, typename Cache>
 __global__ void __launch_bounds__(kDecThreads) attention_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
     const Cache cache, const int* __restrict__ pos_arr, const T* __restrict__ k_cur,
     const T* __restrict__ v_cur, T* __restrict__ out, int H, int KVH, float scale, int q_bs,
     int cur_bs, int bk) {
-  __shared__ DecodeSmem<HS, kDecThreads> sm;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  auto& sm = *reinterpret_cast<DecodeSmem<HS, kDecThreads>*>(dec_smem);
+  float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmem<HS, kDecThreads>));
   const int g = blockIdx.x, b = blockIdx.y;
-  decode_attention_task<T, HS, kDecThreads, BK>(sm, g, b, q, k_cache, v_cache, cache.rows(b, g),
-                                                pos_arr, k_cur, v_cur, out, H, KVH, scale, q_bs,
-                                                cur_bs, bk);
+  decode_attention_task<T, HS, kDecThreads>(sm, p_s, g, b, q, k_cache, v_cache, cache.rows(b, g),
+                                            pos_arr, k_cur, v_cur, out, H, KVH, scale, q_bs,
+                                            cur_bs, bk);
 }
 
 // the int8 cache: the block's scores in dynamic shared memory after sm
@@ -125,40 +129,47 @@ constexpr int kPfThreads = 256;  // 8 warps
 constexpr int kPfRows = 64;      // (t, head) query rows per CTA
 constexpr int kPfTile = 64;      // cache rows per tile
 
+// the block's columns rounded up to whole tiles
+__host__ __device__ constexpr int prefill_cols(int bk) {
+  return (bk + kPfTile - 1) / kPfTile * kPfTile;
+}
+
+// dynamic shared memory at block bk (ops/attention.py::check_prefill_block
+// computes the same)
 template <int HS>
-constexpr size_t prefill_smem_bytes() {
-  return sizeof(float) * ((size_t)kPfRows * HS          // q
-                          + (size_t)kPfTile * (HS + 1)  // k (padded rows)
-                          + (size_t)kPfTile * HS        // v
-                          + (size_t)kPfRows * (kPfTile + 1)  // scores / p
-                          + 3 * (size_t)kPfRows         // m, l, alpha
-                          + 2 * (size_t)kPfTile);       // k and v row scales (int8)
+constexpr size_t prefill_smem_bytes(int bk) {
+  return sizeof(float) * ((size_t)kPfRows * HS                  // q
+                          + (size_t)kPfTile * (HS + 1)          // a K tile (padded rows), then V
+                          + (size_t)kPfRows * (prefill_cols(bk) + 1)  // the block's scores / p
+                          + 3 * (size_t)kPfRows                 // m, l, alpha
+                          + (size_t)kPfTile                     // the K tile's row scales (int8)
+                          + (size_t)prefill_cols(bk));          // the block's V row scales (int8)
 }
 
 // T: q and output; C: the cache (T, or int8 with k_scale / v_scale); Cache:
-// the row policy (decode_attention.cuh); S: the rows a slot can hold
-template <typename T, typename C, int HS, int BK, typename Cache>
+// the row policy (decode_attention.cuh); S: the rows a slot can hold; bk:
+// the online softmax's block of cache rows
+template <typename T, typename C, int HS, typename Cache>
 __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
     const T* __restrict__ q, const C* __restrict__ k_cache, const C* __restrict__ v_cache,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale, const Cache cache,
     const int* __restrict__ start_arr, const int* __restrict__ valid_arr,
-    T* __restrict__ out, int T_len, int H, int KVH, int S, float scale, int bk_arg) {
+    T* __restrict__ out, int T_len, int H, int KVH, int S, float scale, int bk) {
   constexpr bool kInt8 = std::is_same<C, signed char>::value;
   // the type probabilities round to before PV: V's, bf16 for an int8 cache
   using P = typename std::conditional<kInt8, __nv_bfloat16, C>::type;
-  const int bk = BK > 0 ? BK : bk_arg;
   constexpr int ACC = kPfRows * HS / kPfThreads;       // output entries per thread
-  constexpr int SC = kPfRows * kPfTile / kPfThreads;   // score entries per thread
+  constexpr int SC = kPfRows * kPfTile / kPfThreads;   // score entries per thread and tile
+  const int pst = prefill_cols(bk) + 1;                // row stride of the scores
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                         // [kPfRows][HS]
-  float* k_s = q_s + kPfRows * HS;           // [kPfTile][HS + 1]
-  float* v_s = k_s + kPfTile * (HS + 1);     // [kPfTile][HS]
-  float* p_s = v_s + kPfTile * HS;           // [kPfRows][kPfTile + 1]
-  float* m_s = p_s + kPfRows * (kPfTile + 1);
+  float* kv_s = q_s + kPfRows * HS;          // [kPfTile][HS + 1] K, then [kPfTile][HS] V
+  float* p_s = kv_s + kPfTile * (HS + 1);    // [kPfRows][pst]
+  float* m_s = p_s + kPfRows * pst;
   float* l_s = m_s + kPfRows;
   float* a_s = l_s + kPfRows;
   float* ks_s = a_s + kPfRows;  // [kPfTile]
-  float* vs_s = ks_s + kPfTile;
+  float* vs_s = ks_s + kPfTile; // [prefill_cols(bk)]
 
   const int g = blockIdx.y, b = blockIdx.z;
   const int M = H / KVH;
@@ -189,49 +200,54 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
   const auto rows = cache.rows(b, g);
 
   for (int k0 = 0; k0 <= q_pos_max && k0 < S; k0 += bk) {
-    __syncthreads();  // the previous tile's k/v/p are consumed
-    const hipllama::BlockRows<decltype(rows)> block_row(rows, k0, min(bk, S - k0));
-    for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
-      const int c = i / HS, dd = i % HS;
-      const bool in = c < bk && k0 + c < S;
-      const size_t row = in ? block_row(c) : 0;
-      k_s[c * (HS + 1) + dd] = in ? to_f(k_cache[row * HS + dd]) : 0.f;
-      v_s[i] = in ? to_f(v_cache[row * HS + dd]) : 0.f;
-    }
-    if (kInt8 && tid < kPfTile) {
-      const bool in = tid < bk && k0 + tid < S;
-      const size_t row = in ? block_row(tid) : 0;
-      ks_s[tid] = in ? k_scale[row] : 0.f;
-      vs_s[tid] = in ? v_scale[row] : 0.f;
-    }
-    __syncthreads();
-    // scores: thread owns column c = tid % kPfTile of rows tid / kPfTile + 4i
+    const int n = min(bk, S - k0);
+    // the block's columns up to the tile's causal frontier, and whole tiles
+    // of them: columns ncols .. ntile - 1 are masked
+    const int ncols = min(n, q_pos_max - k0 + 1);
+    const int ntile = prefill_cols(ncols);
+    const hipllama::BlockRows<decltype(rows)> block_row(rows, k0, n);
+    // scores of the block, a K tile at a time
+    for (int c0 = 0; c0 < ncols; c0 += kPfTile) {
+      __syncthreads();  // the previous tile's (or block's) k/v/p are consumed
+      for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
+        const int c = i / HS, dd = i % HS;
+        const bool in = c0 + c < ncols;
+        kv_s[c * (HS + 1) + dd] = in ? to_f(k_cache[block_row(c0 + c) * HS + dd]) : 0.f;
+      }
+      if (kInt8 && tid < kPfTile)
+        ks_s[tid] = c0 + tid < ncols ? k_scale[block_row(c0 + tid)] : 0.f;
+      __syncthreads();
+      // thread owns column c = tid % kPfTile of rows tid / kPfTile + 4i
 #pragma unroll
-    for (int i = 0; i < SC; ++i) {
-      const int e = tid + i * kPfThreads;
-      const int r = e / kPfTile, c = e % kPfTile;
-      const int t = t0 + r / M, col = k0 + c;
-      const float* qr = q_s + r * HS;
-      const float* kr = k_s + c * (HS + 1);
-      float s = 0.f;
+      for (int i = 0; i < SC; ++i) {
+        const int e = tid + i * kPfThreads;
+        const int r = e / kPfTile, c = e % kPfTile;
+        const int t = t0 + r / M, col = k0 + c0 + c;
+        const float* qr = q_s + r * HS;
+        const float* kr = kv_s + c * (HS + 1);
+        float s = 0.f;
 #pragma unroll 16
-      for (int dd = 0; dd < HS; ++dd) s += qr[dd] * kr[dd];
-      const bool live = c < bk && t < t_end && col < S && col <= start + t;
-      s *= scale;
-      if (kInt8) s *= ks_s[c];
-      p_s[r * (kPfTile + 1) + c] = live ? s : -INFINITY;
+        for (int dd = 0; dd < HS; ++dd) s += qr[dd] * kr[dd];
+        const bool live = c0 + c < ncols && t < t_end && col <= start + t;
+        s *= scale;
+        if (kInt8) s *= ks_s[c];
+        p_s[r * pst + c0 + c] = live ? s : -INFINITY;
+      }
     }
+    if (kInt8)
+      for (int c = tid; c < ntile; c += kPfThreads)
+        vs_s[c] = c < ncols ? v_scale[block_row(c)] : 0.f;
     __syncthreads();
-    // online softmax: each warp takes kPfRows / 8 rows
+    // online softmax over the block: each warp takes kPfRows / 8 rows
     for (int r = warp; r < kPfRows; r += kPfThreads / 32) {
-      float* pr = p_s + r * (kPfTile + 1);
+      float* pr = p_s + r * pst;
       float mx = -INFINITY;
-      for (int c = lane; c < kPfTile; c += 32) mx = fmaxf(mx, pr[c]);
+      for (int c = lane; c < ntile; c += 32) mx = fmaxf(mx, pr[c]);
       mx = warp_max(mx);
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
-      for (int c = lane; c < kPfTile; c += 32) {
+      for (int c = lane; c < ntile; c += 32) {
         // a row with no live column yet keeps p = 0 (and m = -inf)
         const float p = pr[c] == -INFINITY ? 0.f : expf(pr[c] - m_new);
         sum += p;
@@ -246,16 +262,26 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       }
     }
     __syncthreads();
-    // PV: thread owns output entries tid + 256 i -> (row, dim)
+    // PV, a V tile at a time: thread owns output entries tid + 256 i -> (row, dim)
 #pragma unroll
-    for (int i = 0; i < ACC; ++i) {
-      const int e = tid + i * kPfThreads;
-      const int r = e / HS, dd = e % HS;
-      const float* pr = p_s + r * (kPfTile + 1);
-      float a = acc[i] * a_s[r];
+    for (int i = 0; i < ACC; ++i) acc[i] *= a_s[(tid + i * kPfThreads) / HS];
+    for (int c0 = 0; c0 < ncols; c0 += kPfTile) {
+      if (c0) __syncthreads();  // the previous V tile is consumed
+      for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
+        const int c = i / HS, dd = i % HS;
+        kv_s[i] = c0 + c < ncols ? to_f(v_cache[block_row(c0 + c) * HS + dd]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) {
+        const int e = tid + i * kPfThreads;
+        const int r = e / HS, dd = e % HS;
+        const float* pr = p_s + r * pst + c0;
+        float a = acc[i];
 #pragma unroll 16
-      for (int c = 0; c < kPfTile; ++c) a += pr[c] * v_s[c * HS + dd];
-      acc[i] = a;
+        for (int c = 0; c < kPfTile; ++c) a += pr[c] * kv_s[c * HS + dd];
+        acc[i] = a;
+      }
     }
   }
   __syncthreads();
@@ -275,13 +301,23 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 // ---------------------------------------------------------------------------
 // launchers
 
+// the kernel's dynamic shared memory may exceed the default 48 KB
+template <typename K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
+// the decode kernel with M x bk scores in dynamic shared memory
 template <typename T, int HS, typename Cache>
 int launch_decode(const void* q, const void* k, const void* v, const Cache& cache,
                   const void* pos, const void* kc, const void* vc, void* out, int B, int H,
                   int KVH, float scale, int q_bs, int cur_bs, int bk, cudaStream_t st) {
-  auto kernel = bk == kDecTile ? attention_decode_kernel<T, HS, kDecTile, Cache>
-                               : attention_decode_kernel<T, HS, 0, Cache>;
-  kernel<<<dim3(KVH, B), kDecThreads, 0, st>>>(
+  const size_t smem = decode_smem<HS, kDecThreads>(H / KVH, bk);
+  auto kernel = attention_decode_kernel<T, HS, Cache>;
+  if (const int e = allow_smem(kernel, smem)) return e;
+  kernel<<<dim3(KVH, B), kDecThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, cache, (const int*)pos, (const T*)kc,
       (const T*)vc, (T*)out, H, KVH, scale, q_bs, cur_bs, bk);
   return (int)cudaGetLastError();
@@ -295,11 +331,7 @@ int launch_decode_int8(const void* q, const void* k, const void* v, const void* 
                        int cur_bs, int bk, cudaStream_t st) {
   const size_t smem = decode_int8_smem<HS, kDecThreads>(H / KVH, bk);
   auto kernel = attention_decode_int8_kernel<T, HS, Cache>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (const int e = allow_smem(kernel, smem)) return e;
   kernel<<<dim3(KVH, B), kDecThreads, smem, st>>>(
       (const T*)q, (const signed char*)k, (const signed char*)v, (const float*)ks,
       (const float*)vs, cache, (const int*)pos, (const T*)kc, (const T*)vc, (T*)out, H, KVH,
@@ -312,12 +344,9 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
                    const void* vs, const Cache& cache, const void* start, const void* valid,
                    void* out, int B, int T_len, int H, int KVH, int S, float scale, int bk,
                    cudaStream_t st) {
-  constexpr size_t smem = prefill_smem_bytes<HS>();
-  auto kernel = bk == kPfTile ? attention_prefill_kernel<T, C, HS, kPfTile, Cache>
-                              : attention_prefill_kernel<T, C, HS, 0, Cache>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  const size_t smem = prefill_smem_bytes<HS>(bk);
+  auto kernel = attention_prefill_kernel<T, C, HS, Cache>;
+  if (const int e = allow_smem(kernel, smem)) return e;
   const int bt = kPfRows / (H / KVH);
   const dim3 grid((T_len + bt - 1) / bt, KVH, B);
   kernel<<<grid, kPfThreads, smem, st>>>(
@@ -331,12 +360,13 @@ int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
 HIPLLAMA_EXPORT_ERROR_STRING
 
 // dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; H / KVH <= 8;
-// bk (1..64) cache rows per online-softmax block.
+// bk >= 1 cache rows per online-softmax block, each block's M x bk scores
+// held in shared memory (the wrapper keeps that within the card's limit).
 extern "C" int attention_decode(const void* q, const void* k_cache, const void* v_cache,
                                 const void* pos, const void* k_cur, const void* v_cur,
                                 void* out, int B, int H, int KVH, int S, int HS, int L,
                                 int layer, int dtype, int bk, void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1 || bk > kDecTile) return (int)cudaErrorInvalidValue;
+  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
@@ -360,7 +390,7 @@ extern "C" int attention_decode_fused(const void* qkv, const void* k_cache, cons
                                       const void* pos, void* out, int B, int H, int KVH, int S,
                                       int HS, int L, int layer, int dtype, int bk,
                                       void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1 || bk > kDecTile) return (int)cudaErrorInvalidValue;
+  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = H + 2 * KVH;
@@ -427,13 +457,13 @@ extern "C" int attention_decode_fused_int8(const void* qkv, const void* k_cache,
 }
 
 // dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; 64 % (H / KVH) == 0;
-// bk (1..64) cache rows per online-softmax block.
+// bk >= 1 cache rows per online-softmax block (prefill_smem_bytes(bk) within
+// the card's shared memory, which the wrapper checks).
 extern "C" int attention_prefill(const void* q, const void* k_cache, const void* v_cache,
                                  const void* start, const void* valid, void* out, int B,
                                  int T_len, int H, int KVH, int S, int HS, int L, int layer,
                                  int dtype, int bk, void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile)
-    return (int)cudaErrorInvalidValue;
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
@@ -454,8 +484,7 @@ extern "C" int attention_prefill_int8(const void* q, const void* k_cache, const 
                                       const void* start, const void* valid, void* out, int B,
                                       int T_len, int H, int KVH, int S, int HS, int L,
                                       int layer, int dtype, int bk, void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile)
-    return (int)cudaErrorInvalidValue;
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
@@ -480,8 +509,7 @@ extern "C" int attention_decode_paged(const void* q, const void* k_pages, const 
                                       const void* v_cur, void* out, int B, int H, int KVH, int P,
                                       int PS, int max_pages, int HS, int layer, int dtype, int bk,
                                       void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1 || bk > kDecTile || PS < 1)
-    return (int)cudaErrorInvalidValue;
+  if (H % KVH || H / KVH > kMaxM || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
@@ -521,8 +549,7 @@ extern "C" int attention_prefill_paged(const void* q, const void* k_pages, const
                                        void* out, int B, int T_len, int H, int KVH, int P, int PS,
                                        int max_pages, int HS, int layer, int dtype, int bk,
                                        void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile || PS < 1)
-    return (int)cudaErrorInvalidValue;
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
@@ -544,8 +571,7 @@ extern "C" int attention_prefill_paged_int8(const void* q, const void* k_pages,
                                             int B, int T_len, int H, int KVH, int P, int PS,
                                             int max_pages, int HS, int layer, int dtype, int bk,
                                             void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || bk > kPfTile || PS < 1)
-    return (int)cudaErrorInvalidValue;
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};

@@ -9,8 +9,10 @@
 // 164-241): q in the cache dtype for QK, fp32 scores and softmax state (m,
 // l, acc), probabilities exp(s - running max) rounded to the V dtype before
 // PV, output in q's dtype. The running max advances once per block of bk
-// cache rows (bk <= kDecTile); BK > 0 fixes the block at compile time, BK
-// == 0 takes it from the argument.
+// cache rows, the JAX kernel's KV block: the block decides the max at which
+// the probabilities round, so the task holds a whole block's M x bk fp32
+// scores in the dynamic shared memory that follows its struct (p_s), takes
+// the block's max, and then rounds the probabilities and does PV.
 //
 // The task streams its rows with coalesced warp loads and keeps the query
 // heads of the group in shared memory, so each K/V byte is read once for all
@@ -104,17 +106,16 @@ struct PagedCache {
 template <int HS, int NT>
 struct DecodeSmem {
   __align__(16) float q_s[kMaxM][HS];  // q, as the cache dtype, widened
-  float p_s[kMaxM][kDecTile];          // scores, then rounded probabilities
   float red_s[kMaxM][NT];              // PV partial sums over row groups
   float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM];
 };
 
-template <typename T, int HS, int NT, int BK, typename Rows>
+template <typename T, int HS, int NT, typename Rows>
 __device__ __forceinline__ void decode_attention_task(
-    DecodeSmem<HS, NT>& sm, int g, int b, const T* q, const T* __restrict__ k_cache,
+    DecodeSmem<HS, NT>& sm, float* p_s, int g, int b, const T* q, const T* __restrict__ k_cache,
     const T* __restrict__ v_cache, const Rows rows, const int* pos_arr, const T* k_cur,
     const T* v_cur, T* __restrict__ out, int H, int KVH, float scale, int q_bs, int cur_bs,
-    int bk_arg) {
+    int bk) {
   constexpr int kWarps = NT / 32;
   constexpr int LPR = HS / 4;   // lanes per K row in QK (4 elements each)
   constexpr int RPW = 32 / LPR; // K rows per warp per pass
@@ -122,12 +123,11 @@ __device__ __forceinline__ void decode_attention_task(
   // a warp's RPW rows are all inside the tile or all past it, so the
   // shuffles of the score loop stay convergent
   static_assert(kDecTile % RPW == 0, "a warp's rows must not straddle the tile");
-  const int bk = BK > 0 ? BK : bk_arg;
   const int M = H / KVH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pos = pos_arr[b];
 
-  __syncthreads();  // the previous task's readers of sm are done
+  __syncthreads();  // the previous task's readers of sm and p_s are done
   const T* qb = q + (size_t)b * q_bs + (size_t)g * M * HS;
   for (int i = tid; i < M * HS; i += NT) sm.q_s[i / HS][i % HS] = to_f(qb[i]);
   if (tid < kMaxM) {
@@ -145,38 +145,42 @@ __device__ __forceinline__ void decode_attention_task(
   for (int t0 = 0; t0 < pos; t0 += bk) {
     const int n = min(bk, pos - t0);
     const BlockRows<Rows> row(rows, t0, n);
-    // scores: LPR lanes per row, reduced with shuffles. The unroll counts
-    // here and in PV are spelled out: left to itself the compiler unrolled
-    // these loops less once the task was a function of its own, and the
-    // kernel ran 14% slower than with its loops written inline.
+    // scores of the block's rows, a tile of kDecTile rows at a time: LPR
+    // lanes per row, reduced with shuffles. The unroll counts here and in
+    // PV are spelled out: left to itself the compiler unrolled these loops
+    // less once the task was a function of its own, and the kernel ran 14%
+    // slower than with its loops written inline.
+    for (int r0 = 0; r0 < n; r0 += kDecTile) {
 #pragma unroll 4
-    for (int r = warp * RPW + lane / LPR; r < kDecTile; r += kWarps * RPW) {
-      float kf[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < n) load4(k_cache + row(r) * HS + c0, kf);
+      for (int r = r0 + warp * RPW + lane / LPR; r < r0 + kDecTile; r += kWarps * RPW) {
+        float kf[4] = {0.f, 0.f, 0.f, 0.f};
+        if (r < n) load4(k_cache + row(r) * HS + c0, kf);
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          float qf[4];
-          load4(&sm.q_s[m][c0], qf);
-          float s = qf[0] * kf[0] + qf[1] * kf[1] + qf[2] * kf[2] + qf[3] * kf[3];
-          s = warp_sum(s, LPR);
-          if (lane % LPR == 0) sm.p_s[m][r] = r < n ? s * scale : -INFINITY;
+        for (int m = 0; m < kMaxM; ++m) {
+          if (m < M) {
+            float qf[4];
+            load4(&sm.q_s[m][c0], qf);
+            float s = qf[0] * kf[0] + qf[1] * kf[1] + qf[2] * kf[2] + qf[3] * kf[3];
+            s = warp_sum(s, LPR);
+            if (lane % LPR == 0 && r < n) p_s[m * bk + r] = s * scale;
+          }
         }
       }
     }
     __syncthreads();
-    // online softmax, one warp per query head
+    // online softmax over the block, one warp per query head
     for (int m = warp; m < M; m += kWarps) {
+      float* pm = p_s + m * bk;
       float mx = -INFINITY;
-      for (int r = lane; r < kDecTile; r += 32) mx = fmaxf(mx, sm.p_s[m][r]);
-      mx = warp_max(mx);  // finite: the tile holds at least one live row
+      for (int r = lane; r < n; r += 32) mx = fmaxf(mx, pm[r]);
+      mx = warp_max(mx);  // finite: the block holds at least one live row
       const float m_old = sm.m_s[m];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
-      for (int r = lane; r < kDecTile; r += 32) {
-        const float p = r < n ? expf(sm.p_s[m][r] - m_new) : 0.f;
+      for (int r = lane; r < n; r += 32) {
+        const float p = expf(pm[r] - m_new);
         sum += p;
-        sm.p_s[m][r] = round_to<T>(p);
+        pm[r] = round_to<T>(p);
       }
       sum = warp_sum(sum, 32);
       if (lane == 0) {
@@ -187,7 +191,7 @@ __device__ __forceinline__ void decode_attention_task(
       }
     }
     __syncthreads();
-    // PV: thread (rg, d) sums rows rg, rg + RG, ... of the tile
+    // PV: thread (rg, d) sums rows rg, rg + RG, ... of the block
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m)
       if (m < M) acc[m] *= sm.a_s[m];
@@ -196,7 +200,7 @@ __device__ __forceinline__ void decode_attention_task(
       const float v = to_f(v_cache[row(r) * HS + d]);
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m)
-        if (m < M) acc[m] += sm.p_s[m][r] * v;
+        if (m < M) acc[m] += p_s[m * bk + r] * v;
     }
     __syncthreads();
   }
@@ -248,7 +252,7 @@ __device__ __forceinline__ void decode_attention_task(
 //     sums, v_cur in fp32, as _final.
 // The block is part of the numerics (it decides which probabilities share
 // an int8 scale), so the task holds a whole block's scores, M x bk fp32, in
-// the shared memory at p_s that follows sm, whatever bk is. QK uses dp4a on
+// the shared memory at p_s that follows sm, as the task above does. QK uses dp4a on
 // packed int8 words (HS / 4 lanes per row), PV one int8 per thread and
 // row, both exact in int32.
 template <int HS, int NT>
@@ -404,7 +408,11 @@ __device__ __forceinline__ void decode_attention_task_int8(
   }
 }
 
-// dynamic shared memory of one int8 task: sm, then M x bk fp32 scores
+// dynamic shared memory of one task: its struct, then M x bk fp32 scores
+template <int HS, int NT>
+constexpr size_t decode_smem(int M, int bk) {
+  return sizeof(DecodeSmem<HS, NT>) + sizeof(float) * (size_t)M * bk;
+}
 template <int HS, int NT>
 constexpr size_t decode_int8_smem(int M, int bk) {
   return sizeof(DecodeSmemInt8<HS, NT>) + sizeof(float) * (size_t)M * bk;

@@ -23,11 +23,12 @@
 // barriers cost a few microseconds each. The QKV rows of this step leave
 // the kernel in the workspace for the cache commit after the layer loop.
 //
-// On an int8 cache (kv_int8: int8 planes with fp32 row-scale planes (B, L,
-// KVH, S)) the attention phase runs decode_attention.cuh's int8 task, the
-// one attention_decode_fused's int8 branch runs, at the block the wrapper
-// passes; its M x bk scores sit in the dynamic shared memory after the
-// task's own, which the launch sizes for the larger of the phases.
+// The attention phase runs decode_attention.cuh's task at the block the
+// wrapper passes, on an int8 cache (kv_int8: int8 planes with fp32
+// row-scale planes (B, L, KVH, S)) its int8 task: the ones attention_
+// decode_fused runs. The task's M x bk scores sit in the dynamic shared
+// memory after its own, which the launch sizes for the larger of the
+// phases.
 
 #include <stdint.h>
 
@@ -43,7 +44,6 @@ using hipllama::DecodeSmemInt8;
 using hipllama::decode_attention_task;
 using hipllama::decode_attention_task_int8;
 using hipllama::kDecThreads;
-using hipllama::kDecTile;
 using hipllama::kMaxM;
 
 struct LayerArgs {
@@ -139,7 +139,9 @@ template <int HS>
 __device__ __noinline__ void attention_phase(const LayerArgs& a) {
   auto& at = *reinterpret_cast<DecodeSmem<HS, kDecThreads>*>(smem);
   auto& at8 = *reinterpret_cast<DecodeSmemInt8<HS, kDecThreads>*>(smem);
-  float* p_s = reinterpret_cast<float*>(smem + sizeof(DecodeSmemInt8<HS, kDecThreads>));
+  float* p_s = reinterpret_cast<float*>(
+      smem + (a.kv_int8 ? sizeof(DecodeSmemInt8<HS, kDecThreads>)
+                        : sizeof(DecodeSmem<HS, kDecThreads>)));
   const int nqkv = (a.H + 2 * a.KVH) * HS;
   const bf16* kc = a.qkv + a.H * HS;
   const bf16* vc = a.qkv + (a.H + a.KVH) * HS;
@@ -151,18 +153,12 @@ __device__ __noinline__ void attention_phase(const LayerArgs& a) {
           at8, p_s, g, b, a.qkv, (const signed char*)a.k_cache, (const signed char*)a.v_cache,
           a.k_scale, a.v_scale, cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale,
           nqkv, nqkv, a.bk);
-    else if (a.bk == kDecTile)
-      decode_attention_task<bf16, HS, kDecThreads, kDecTile>(
-          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, cache.rows(b, g),
-          a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk);
     else
-      decode_attention_task<bf16, HS, kDecThreads, 0>(
-          at, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache, cache.rows(b, g),
-          a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk);
+      decode_attention_task<bf16, HS, kDecThreads>(
+          at, p_s, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache,
+          cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk);
   }
 }
-
-constexpr size_t kMaxDecodeSmem = sizeof(DecodeSmem<128, kDecThreads>);
 
 // two CTAs per SM at up to 8 rows (the standalone GEMV's occupancy); at
 // 16 rows the accumulators need the registers of one
@@ -217,12 +213,12 @@ template <int MAXM>
 int launch_layer(const LayerArgs& a, cudaStream_t st) {
   constexpr size_t smem_ab = sizeof(GemvSmem<MAXM>) > sizeof(FfnSmem<MAXM>)
                                  ? sizeof(GemvSmem<MAXM>) : sizeof(FfnSmem<MAXM>);
-  constexpr size_t smem_fixed = smem_ab > kMaxDecodeSmem ? smem_ab : kMaxDecodeSmem;
-  // the int8 attention phase's block of scores may need more (HS 128 bounds
-  // every head size's task)
-  const size_t smem_i8 =
-      a.kv_int8 ? hipllama::decode_int8_smem<128, kDecThreads>(a.H / a.KVH, a.bk) : 0;
-  const size_t smem = smem_i8 > smem_fixed ? smem_i8 : smem_fixed;
+  // the attention phase's task and its block of scores (HS 128 bounds every
+  // head size's task)
+  const int M = a.H / a.KVH;
+  const size_t smem_att = a.kv_int8 ? hipllama::decode_int8_smem<128, kDecThreads>(M, a.bk)
+                                    : hipllama::decode_smem<128, kDecThreads>(M, a.bk);
+  const size_t smem = smem_att > smem_ab ? smem_att : smem_ab;
   auto kernel = q8_layer_kernel<MAXM>;
   static int grid = 0;  // CTAs that fit on the card at once at smem_grid bytes
   static size_t smem_grid = 0;
@@ -250,9 +246,9 @@ int launch_layer(const LayerArgs& a, cudaStream_t st) {
 HIPLLAMA_EXPORT_ERROR_STRING
 
 // bf16 activations, int8 weights with fp32 scales, fp32 norm weights, int32
-// positions. The cache: bf16 (kv_int8 0; k_scale and v_scale null; bk
-// 1..64 cache rows per online-softmax block) or int8 with its fp32 scale
-// planes (kv_int8 1; bk >= 1). D == H * HS, HS in {8, 16, 32, 64, 128},
+// positions. The cache: bf16 (kv_int8 0; k_scale and v_scale null) or int8
+// with its fp32 scale planes (kv_int8 1); bk >= 1 cache rows per
+// online-softmax block. D == H * HS, HS in {8, 16, 32, 64, 128},
 // H / KVH <= 8, D and hidden multiples of 16. Workspaces: xn, att and x2
 // (B, D) bf16; qkv (B, (H + 2 KVH) HS) bf16 (its k|v rows are the step's
 // rows for the cache commit); part fp32 of max(split_q * B * NQKV, split_o
@@ -269,7 +265,7 @@ extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_
                               int kslice_q, int split_o, int kslice_o, int bk, int kv_int8,
                               float rope_coef, float eps, void* stream) {
   if (H % KVH || H / KVH > kMaxM || D != H * HS || D % 16 || hidden % 16 || bk < 1 ||
-      (!kv_int8 && bk > kDecTile) || kslice_q > kGvKMax || kslice_o > kGvKMax ||
+      kslice_q > kGvKMax || kslice_o > kGvKMax ||
       (HS != 8 && HS != 16 && HS != 32 && HS != 64 && HS != 128))
     return (int)cudaErrorInvalidValue;
   const LayerArgs a{

@@ -134,8 +134,8 @@ __device__ __forceinline__ void load_xs(bf16 (*xs)[MAXM], const bf16* x, int M, 
 // rmsnorm of one row of K values into outr; red: kWarps floats of shared
 // memory. Every thread sums the warps' partial sums in the same order.
 
-__device__ __forceinline__ void rmsnorm_row(const bf16* xr, const float* g, bf16* outr, int K,
-                                            float eps, float* red) {
+// 1 / rms of one row of K values: rsqrt(mean(x^2) + eps)
+__device__ __forceinline__ float rms_rsqrt(const bf16* xr, int K, float eps, float* red) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float ss = 0.f;
   for (int k = tid; k < K; k += kThreads) {
@@ -149,8 +149,18 @@ __device__ __forceinline__ void rmsnorm_row(const bf16* xr, const float* g, bf16
   float tot = 0.f;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) tot += red[w];
-  const float r = rsqrtf(tot / (float)K + eps);
-  for (int k = tid; k < K; k += kThreads) outr[k] = __float2bfloat16_rn(to_f(xr[k]) * r * g[k]);
+  return rsqrtf(tot / (float)K + eps);
+}
+
+// xn[k] = bf16(x[k] * r * g[k]), r = rms_rsqrt of the row
+__device__ __forceinline__ float normed(const bf16* xr, const float* g, float r, int k) {
+  return to_f(__float2bfloat16_rn(to_f(xr[k]) * r * g[k]));
+}
+
+__device__ __forceinline__ void rmsnorm_row(const bf16* xr, const float* g, bf16* outr, int K,
+                                            float eps, float* red) {
+  const float r = rms_rsqrt(xr, K, eps, red);
+  for (int k = threadIdx.x; k < K; k += kThreads) outr[k] = __float2bfloat16_rn(normed(xr, g, r, k));
 }
 
 // ---------------------------------------------------------------------------
@@ -239,31 +249,45 @@ __device__ __forceinline__ void gemv_task(GemvSmem<MAXM>& sm, const bf16* x,
   }
 }
 
-// output column pair idx < M * N / 2 of the split-K partials (split, M, N)
-// through the epilogue, the splits added in order
+// output column pair idx < M * N / 2 of the split-K partials (planes x
+// split, M, N) through the epilogue: each plane's splits added in order,
+// then the planes (two for an int4 weight's nibble planes in the `a8` mode,
+// a8.cuh; one elsewhere)
 __device__ __forceinline__ void split_epilogue_at(const float* part, int split, int M, int N,
-                                                  const Epilogue& e, bf16* out, int idx) {
+                                                  const Epilogue& e, bf16* out, int idx,
+                                                  int planes = 1) {
   const int pairs = N / 2;
   const int m = idx / pairs, n = (idx % pairs) * 2;
   float a0 = 0.f, a1 = 0.f;
-  for (int j = 0; j < split; ++j) {
-    const float2 p = *reinterpret_cast<const float2*>(part + ((size_t)j * M + m) * N + n);
-    a0 += p.x;
-    a1 += p.y;
+  for (int p = 0; p < planes; ++p) {
+    float t0 = 0.f, t1 = 0.f;
+    for (int j = 0; j < split; ++j) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(part + ((size_t)(p * split + j) * M + m) * N + n);
+      t0 += v.x;
+      t1 += v.y;
+    }
+    a0 += t0;
+    a1 += t1;
   }
   store_pair(e, m, n, N, a0, a1, out);
 }
 
 // gate element idx < M * H from the split-K partials of the W1|W3 product
-// (split, M, 2H)
+// (planes x split, M, 2H), the splits and planes added as above
 __device__ __forceinline__ void split_gate_at(const float* part, int split, int M, int H,
-                                              bf16* out, int idx) {
+                                              bf16* out, int idx, int planes = 1) {
   const int m = idx / H, n = idx % H;
   float h1 = 0.f, h3 = 0.f;
-  for (int j = 0; j < split; ++j) {
-    const float* pr = part + ((size_t)j * M + m) * (2 * (size_t)H);
-    h1 += pr[n];
-    h3 += pr[H + n];
+  for (int p = 0; p < planes; ++p) {
+    float t1 = 0.f, t3 = 0.f;
+    for (int j = 0; j < split; ++j) {
+      const float* pr = part + ((size_t)(p * split + j) * M + m) * (2 * (size_t)H);
+      t1 += pr[n];
+      t3 += pr[H + n];
+    }
+    h1 += t1;
+    h3 += t3;
   }
   out[idx] = __float2bfloat16_rn(silu_gate(h1, h3));
 }

@@ -30,10 +30,17 @@
 // and W2 are each read once per 16 rows. Its cost beside the weights is the
 // strips' fp32 partials (H / 64 x M x N x 4 bytes: 22 MB at 7B and M 8),
 // written once and read once by the reduce pass that adds them in order.
+//
+// q8_matmul_a8 and q8_matmul_silu_a8 are the `a8` branches of the first two
+// (a8.cuh): the activations quantized per (row, group) by one pass with the
+// rmsnorm fused, int8 x int8 dots with int32 sums per group, the fp32
+// rescale per group, then the same epilogues. q8_matmul_ffn has none: the
+// JAX kernel keeps its reshape math in every mode (quant.py:967-971).
 
 #include <mma.h>
 #include <stdint.h>
 
+#include "a8.cuh"
 #include "common.cuh"
 #include "matmul_passes.cuh"
 #include "q8.cuh"
@@ -313,4 +320,46 @@ extern "C" int q8_matmul_ffn(const void* x, const void* q13, const void* s13, co
   q8_ffn_reduce_kernel<<<blocks((long long)M * (N / 2)), kEltThreads, 0, st>>>(
       part, nstrips, M, N, (const bf16*)res, (bf16*)out);
   return check_launch();
+}
+
+// The `a8` mode of q8_matmul (a8.cuh): xi_ws (M, K) int8 and sx_ws (M, K/gs)
+// fp32 workspaces take the quantized activations (normed by g where g is
+// given); split > 0 takes the GEMV path (M <= 16) with part_ws (split, M,
+// N) fp32 and kslice rows per split (a multiple of gs); split == 0 the
+// tiled path. gs is 32, 64 or 128; otherwise as q8_matmul.
+extern "C" int q8_matmul_a8(const void* x, const void* q, const void* s, const void* g,
+                            const void* res, const void* pos, void* out, void* xi_ws,
+                            void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,
+                            int kslice, int rope_limit, int rope_hs, float rope_coef, float eps,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
+  if (K % gs) return (int)cudaErrorInvalidValue;
+  HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
+  if (split > 0) {
+    HIPLLAMA_TRY(hipllama::a8::launch_gemv<false>(xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N,
+                                                  gs, split, kslice, st));
+    return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st);
+  }
+  return hipllama::a8::launch_mma<false, false>(xi_ws, sx_ws, q, s, M, K, N, N, 0, gs, e, out,
+                                                st);
+}
+
+// The `a8` mode of q8_matmul_silu: W1 and W3 share one quantized x.
+// Workspaces as q8_matmul_a8, part_ws (split, M, 2H).
+extern "C" int q8_matmul_silu_a8(const void* x, const void* q13, const void* s13,
+                                 const void* g, void* out, void* xi_ws, void* sx_ws,
+                                 void* part_ws, int M, int K, int H, int gs, int split,
+                                 int kslice, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (K % gs) return (int)cudaErrorInvalidValue;
+  HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
+  if (split > 0) {
+    HIPLLAMA_TRY(hipllama::a8::launch_gemv<false>(xi_ws, sx_ws, q13, s13, (float*)part_ws, M, K,
+                                                  2 * H, gs, split, kslice, st));
+    return launch_split_gate((const float*)part_ws, split, M, H, out, st);
+  }
+  const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
+  return hipllama::a8::launch_mma<true, false>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs,
+                                               none, out, st);
 }

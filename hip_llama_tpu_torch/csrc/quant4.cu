@@ -37,10 +37,17 @@
 // become floats by one byte permute into the mantissa of 2^23, off the
 // conversion unit; a lop3/prmt conversion straight to bf16 pairs, cp.async
 // or TMA staging and wgmma are for later.
+//
+// q4_matmul_a8 and q4_matmul_silu_a8 are the `a8` (w4a8) branches of the
+// two (a8.cuh; quant4.py:139-171, :218-232): the activations quantized per
+// (row, group of gs) by one pass with the rmsnorm fused, each nibble plane's
+// codes (nibble - 8, exact in int8) in int8 x int8 dots with its half of x,
+// int32 sums per group, the fp32 rescale per group, the same epilogues.
 
 #include <mma.h>
 #include <stdint.h>
 
+#include "a8.cuh"
 #include "common.cuh"
 #include "matmul_passes.cuh"
 #include "q8.cuh"
@@ -416,4 +423,47 @@ extern "C" int q4_matmul_silu(const void* x, const void* q13, const void* s13, c
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
   return launch_mma<true>(xin, q13, s13, M, K, 2 * H, H, H, gs, none, out, st);
+}
+
+// The `a8` mode of q4_matmul (a8.cuh): xi_ws (M, K) int8 and sx_ws (M, K/gs)
+// fp32 workspaces take the quantized activations (normed by g where g is
+// given); split > 0 takes the GEMV path (M <= 16) with part_ws (2 x split,
+// M, N) fp32 (the low then the high nibble plane's splits) and kslice
+// packed rows per split (a multiple of gs, at most 512); split == 0 the
+// tiled path. gs is 32, 64 or 128; otherwise as q4_matmul.
+extern "C" int q4_matmul_a8(const void* x, const void* q, const void* s, const void* g,
+                            const void* res, const void* pos, void* out, void* xi_ws,
+                            void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,
+                            int kslice, int rope_limit, int rope_hs, float rope_coef, float eps,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
+  if ((K / 2) % gs || K % 2) return (int)cudaErrorInvalidValue;
+  HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
+  if (split > 0) {
+    HIPLLAMA_TRY(hipllama::a8::launch_gemv<true>(xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N,
+                                                 gs, split, kslice, st));
+    return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st, 2);
+  }
+  return hipllama::a8::launch_mma<false, true>(xi_ws, sx_ws, q, s, M, K, N, N, 0, gs, e, out,
+                                               st);
+}
+
+// The `a8` mode of q4_matmul_silu: W1 and W3 share one quantized x.
+// Workspaces as q4_matmul_a8, part_ws (2 x split, M, 2H).
+extern "C" int q4_matmul_silu_a8(const void* x, const void* q13, const void* s13,
+                                 const void* g, void* out, void* xi_ws, void* sx_ws,
+                                 void* part_ws, int M, int K, int H, int gs, int split,
+                                 int kslice, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((K / 2) % gs || K % 2) return (int)cudaErrorInvalidValue;
+  HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
+  if (split > 0) {
+    HIPLLAMA_TRY(hipllama::a8::launch_gemv<true>(xi_ws, sx_ws, q13, s13, (float*)part_ws, M, K,
+                                                 2 * H, gs, split, kslice, st));
+    return launch_split_gate((const float*)part_ws, split, M, H, out, st, 2);
+  }
+  const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
+  return hipllama::a8::launch_mma<true, true>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs,
+                                              none, out, st);
 }

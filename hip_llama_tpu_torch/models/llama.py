@@ -42,6 +42,16 @@ by the params' type.
   q4_matmul_silu with the norm prologue then q4_matmul with the residual on
   W2, at every row count (llama.py:253-261). The prefill and the classifier
   run the same products as the Q8 path's; the embedding is Q8_0 rows.
+- The products' dequant mode is read when the step or the prefill is made,
+  as HIPLLAMA_LAYER_FUSE is: HIPLLAMA_Q8_MODE (`reshape`, or `a8` for the
+  reference int8 engine's w8a8 arithmetic) and HIPLLAMA_Q4_MODE (`dequant`,
+  or `a8`), passed down to the products as `mode=` (`dequant_modes`); the
+  JAX package's other values are not yet ported and raise. Under a Q8 mode
+  other than `reshape` the decode layer is the four-kernel one, never
+  q8_layer_fused, whose math is reshape's (llama.py:282-285), and the FFN
+  takes q8_matmul_ffn only where the JAX kernel does not decline
+  (ops/quant.py::ffn_takes_kernel), since its fallback's products run `a8`
+  and the kernel keeps reshape math.
 - `plain=True` runs every kernel's plain PyTorch version instead, whatever
   the device: the yardstick the kernel path is held against on the card.
 """
@@ -49,6 +59,7 @@ by the params' type.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import torch
@@ -176,20 +187,43 @@ def _kernels(plain: bool) -> _Kernels:
 
 
 @dataclasses.dataclass(frozen=True)
+class DequantModes:
+    """HIPLLAMA_Q8_MODE and HIPLLAMA_Q4_MODE: the arithmetic of the Q8 and
+    int4 weight products."""
+
+    q8: str = "reshape"
+    q4: str = "dequant"
+
+
+def dequant_modes() -> DequantModes:
+    """The two knobs as the JAX package reads them (quant.py:28,
+    quant4.py:48); raises NotImplementedError on a value the port does not
+    serve (the JAX package's group_dot, bf16, f32dot, repeat)."""
+    m = DequantModes(os.environ.get("HIPLLAMA_Q8_MODE", "reshape"),
+                     os.environ.get("HIPLLAMA_Q4_MODE", "dequant"))
+    _quant.check_mode(m.q8, _quant.Q8_MODES, "HIPLLAMA_Q8_MODE")
+    _quant.check_mode(m.q4, _quant4.Q4_MODES, "HIPLLAMA_Q4_MODE")
+    return m
+
+
+@dataclasses.dataclass(frozen=True)
 class _Products:
-    """The weight products of quantized params: mm (K15 or K21), silu (K17
-    or K22) and ffn (K18, or None for int4, which has no whole-FFN
-    kernel)."""
+    """The weight products of quantized params in their dequant mode: mm
+    (K15 or K21), silu (K17 or K22) and ffn (K18, or None for int4, which
+    has no whole-FFN kernel)."""
 
     mm: object
     silu: object
     ffn: object
+    mode: str
 
 
-def _products(k: _Kernels, params: QuantLlamaParams) -> _Products:
+def _products(k: _Kernels, params: QuantLlamaParams, modes: DequantModes) -> _Products:
     if params.int4:
-        return _Products(k.mm4, k.mm4_silu, None)
-    return _Products(k.mm, k.mm_silu, k.mm_ffn)
+        return _Products(functools.partial(k.mm4, mode=modes.q4),
+                         functools.partial(k.mm4_silu, mode=modes.q4), None, modes.q4)
+    return _Products(functools.partial(k.mm, mode=modes.q8),
+                     functools.partial(k.mm_silu, mode=modes.q8), k.mm_ffn, modes.q8)
 
 
 def act_dtype(params) -> torch.dtype:
@@ -213,21 +247,26 @@ def _embed_q8(params: QuantLlamaParams, tokens: torch.Tensor) -> torch.Tensor:
 
 def _quant_ffn(pr: _Products, x2: torch.Tensor, params: QuantLlamaParams, l: int, eps: float):
     """x2 + FFN(rmsnorm(x2)) for rows x2 (M, D): q8_matmul_ffn where the
-    JAX package takes its kernel by row count, else (and always for int4)
-    the gate and W2 with the residual (llama.py:312-329, quant.py:921-938)."""
-    if pr.ffn is not None and _quant.ffn_takes_kernel(*x2.shape):
+    JAX package takes its kernel, else (and always for int4) the gate and W2
+    with the residual (llama.py:312-329, quant.py:921-938)."""
+    w1 = params.w1[l]
+    if pr.ffn is not None and _quant.ffn_takes_kernel(*x2.shape, w1.q.shape[1] // 2,
+                                                      w1.group_size, pr.mode):
         return pr.ffn(x2, params.w1[l], params.w2[l], x2, params.rms_ffn[l], norm_eps=eps)
     h = pr.silu(x2, params.w1[l], norm_weight=params.rms_ffn[l], norm_eps=eps)
     return pr.mm(h, params.w2[l], residual=x2)
 
 
-def _quant_qkv(pr: _Products, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig):
+def _quant_qkv(pr: _Products, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig,
+               a8_widths=None):
     """Norm + fused QKV + RoPE on q|k for rows x2 (M, D) at positions pos
-    (M,); returns the head-split (M, H + 2 KVH, HS) view."""
+    (M,); returns the head-split (M, H + 2 KVH, HS) view. a8_widths: the
+    output widths of the JAX products the fused one stands for, where they
+    are separate."""
     c = cfg
     y = pr.mm(x2, params.wq[l], norm_weight=params.rms_att[l], norm_eps=c.norm_eps,
               rope_pos=pos, rope_limit=(c.n_heads + c.n_kv_heads) * c.head_size,
-              rope_head=c.head_size, rope_theta=c.rope_theta)
+              rope_head=c.head_size, rope_theta=c.rope_theta, a8_widths=a8_widths)
     return y.view(x2.shape[0], c.n_heads + 2 * c.n_kv_heads, c.head_size)
 
 
@@ -261,7 +300,8 @@ def _qkv(x, params, l, cfg: ModelConfig, rot):
 def make_decode_step(cfg: ModelConfig, plain: bool = False):
     """Returns step(params, cache, tokens (B,), pos (B,) int32) -> (logits
     fp32 (B, V), cache). With Q8 params each layer is one q8_layer_fused
-    unless HIPLLAMA_LAYER_FUSE=0; with int4 params it is four kernels. The
+    unless HIPLLAMA_LAYER_FUSE=0 or HIPLLAMA_Q8_MODE is not `reshape`; with
+    int4 params it is four kernels. The
     cache is read-only inside the layer loop — the current token's K/V rows
     ride into attention as explicit operands — and the whole step's rows
     are committed in place by ONE kv_commit_rows launch after the loop, as
@@ -269,13 +309,14 @@ def make_decode_step(cfg: ModelConfig, plain: bool = False):
     kn = _kernels(plain)
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
-    layer_fuse = os.environ.get("HIPLLAMA_LAYER_FUSE", "1") == "1"
+    modes = dequant_modes()
+    layer_fuse = os.environ.get("HIPLLAMA_LAYER_FUSE", "1") == "1" and modes.q8 == "reshape"
     _exact_matmuls()
 
     def step_quant(params: QuantLlamaParams, cache: KVCache, tokens, pos):
         x = _embed_q8(params, tokens)  # (B, D) bf16
         b = x.shape[0]
-        pr = _products(kn, params)
+        pr = _products(kn, params, modes)
         k_list, v_list = [], []
         for l in range(c.n_layers):
             if layer_fuse and not params.int4:
@@ -338,6 +379,7 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
     kn = _kernels(plain)
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
+    modes = dequant_modes()
     _exact_matmuls()
 
     def last_rows(x, valid_len):
@@ -361,7 +403,7 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
         b, t = tokens.shape
         x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
         pos = pos.reshape(-1)
-        pr = _products(kn, params)
+        pr = _products(kn, params, modes)
         for l in range(c.n_layers):
             qkv = _quant_qkv(pr, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
             att = write_and_attend(cache, qkv[:, :, :h].contiguous(),

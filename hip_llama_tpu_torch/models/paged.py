@@ -24,7 +24,9 @@ flight, not slots x window.
   The port keeps its fused QKV and W1|W3 weights: one product over a
   concatenated weight gives each column the sums of the separate product
   (tests/test_torch_paged_model.py). The gate runs on h1 and h3 rounded to
-  bf16, in plain PyTorch as XLA runs it (`silu_gate_bf16`).
+  bf16, in plain PyTorch as XLA runs it (`silu_gate_bf16`). Under `a8` a
+  product's arithmetic is decided from the shapes of the separate JAX
+  products (q, k and v; W1 and W3) that the fused one stands for.
 - Prefill chunks must be page-aligned and at most one page long (the
   engine's prefill bucket is the page size), so each chunk writes one page
   per slot.
@@ -48,6 +50,7 @@ from hip_llama_tpu_torch.models.llama import (
     _qkv,
     _quant_logits,
     _quant_qkv,
+    dequant_modes,
     rmsnorm,
     rope_tables,
 )
@@ -130,9 +133,16 @@ def _gate_ffn(pr, x2: torch.Tensor, params: QuantLlamaParams, l: int, cfg: Model
     """x2 + W2 silu_gate_bf16(h1, h3) for rows x2 (M, D), where h1|h3 is one
     product over W1|W3 with the norm prologue, rounded to bf16 (the JAX
     package's unfused FFN, paged.py:202-205 and :411-414)."""
-    y = pr.mm(x2, params.w1[l], norm_weight=params.rms_ffn[l], norm_eps=cfg.norm_eps)
+    y = pr.mm(x2, params.w1[l], norm_weight=params.rms_ffn[l], norm_eps=cfg.norm_eps,
+              a8_widths=(cfg.hidden_dim, cfg.hidden_dim))
     h = silu_gate_bf16(y[:, :cfg.hidden_dim], y[:, cfg.hidden_dim:])
     return pr.mm(h, params.w2[l], residual=x2)
+
+
+def _paged_qkv(pr, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig):
+    """_quant_qkv for the unfused layer, whose q, k and v are separate JAX
+    products (paged.py:179-188)."""
+    return _quant_qkv(pr, x2, params, l, pos, cfg, a8_widths=(cfg.dim, cfg.kv_dim, cfg.kv_dim))
 
 
 def _split_heads(qkv: torch.Tensor, h: int, kvh: int):
@@ -156,6 +166,7 @@ def make_paged_decode_step(cfg: ModelConfig, plain: bool = False):
     pk = _paged_kernels(plain)
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
+    modes = dequant_modes()
     _exact_matmuls()
 
     def commit(cache: PagedKVCache, k_list, v_list, table, pos):
@@ -170,10 +181,10 @@ def make_paged_decode_step(cfg: ModelConfig, plain: bool = False):
     def step_quant(params: QuantLlamaParams, cache: PagedKVCache, table, tokens, pos):
         x = _embed_q8(params, tokens)  # (B, D) bf16
         b = x.shape[0]
-        pr = _products(kn, params)
+        pr = _products(kn, params, modes)
         k_list, v_list = [], []
         for l in range(c.n_layers):
-            q, k, v = _split_heads(_quant_qkv(pr, x, params, l, pos, c), h, kvh)
+            q, k, v = _split_heads(_paged_qkv(pr, x, params, l, pos, c), h, kvh)
             att = pk.attn_decode(q, cache.k, cache.v, table, l, pos, k, v, cache.k_scale,
                                  cache.v_scale)
             x = pr.mm(att.view(b, c.dim), params.wo[l], residual=x)
@@ -222,6 +233,7 @@ def make_paged_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = 
     pk = _paged_kernels(plain)
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
+    modes = dequant_modes()
     _exact_matmuls()
 
     def last_rows(x, valid):
@@ -245,9 +257,9 @@ def make_paged_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = 
         b, t = tokens.shape
         x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
         pos = pos.reshape(-1)
-        pr = _products(kn, params)
+        pr = _products(kn, params, modes)
         for l in range(c.n_layers):
-            qkv = _quant_qkv(pr, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
+            qkv = _paged_qkv(pr, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
             att = write_and_attend(cache, table, *_split_heads(qkv, h, kvh), l, start, valid)
             x = pr.mm(att.view(b * t, c.dim), params.wo[l], residual=x)
             x = _gate_ffn(pr, x, params, l, c)

@@ -29,6 +29,9 @@ KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused, attention_decode_paged,
                  attention_prefill_paged, kv_write_rows_paged, kv_write_chunk_paged)
+# the wrappers with an `a8` branch (HIPLLAMA_Q8_MODE / HIPLLAMA_Q4_MODE=a8),
+# which counts in `.launches_a8`
+A8_BRANCHES = (q8_matmul, q8_matmul_silu, q4_matmul, q4_matmul_silu)
 
 
 def reset_launches() -> None:
@@ -37,17 +40,21 @@ def reset_launches() -> None:
         w.launches = 0
     for w in INT8_BRANCHES:
         w.launches_int8 = 0
+    for w in A8_BRANCHES:
+        w.launches_a8 = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches by kernel: `<wrapper>` and, for an int8 branch,
-    `<wrapper>_int8`."""
+    `<wrapper>_int8`, for an `a8` branch `<wrapper>_a8`."""
     counts = {w.__name__: w.launches for w in KERNELS}
     counts.update({f"{w.__name__}_int8": w.launches_int8 for w in INT8_BRANCHES})
+    counts.update({f"{w.__name__}_a8": w.launches_a8 for w in A8_BRANCHES})
     return counts
 
 
 __all__ = [
+    "A8_BRANCHES",
     "INT8_BRANCHES",
     "KERNELS",
     "attention_decode",

@@ -19,9 +19,9 @@ sizes: 8, 16, 32, 64, 128.
 With a bf16 cache the rounded probabilities depend on where the running
 max is taken, so the plain versions walk a bf16 cache in the JAX kernels'
 KV blocks (`decode_block`, `ref_block`; an fp32 cache takes the one-pass
-softmax, the same math), and so do the CUDA kernels where such a block
-fits their 64-row tiles (`kernel_block`); past that they agree to a bf16
-ulp.
+softmax, the same math), and so do the CUDA kernels: each holds a whole
+block's scores in shared memory before it rounds any
+(`check_decode_block`, `check_prefill_block` bound the block).
 
 An int8 cache holds one fp32 scale per row in `k_scale` / `v_scale` (B, L,
 KVH, S). Decode follows the JAX kernels' int8 dots (attention.py:88-93,
@@ -40,9 +40,7 @@ HS) and a page table (B, MAX_PAGES) int32 in place of the dense cache; row r
 of slot b lives in page table[b, r // PS] at offset r % PS. Their JAX block
 is the page (block_k = PS), so the plain versions gather a slot's pages
 into rows and take the dense plain math at block PS; the CUDA kernels run
-the dense kernels' code with a paged row address, at kernel_block(PS) on
-fp32 or bf16 pages and at PS on int8 pages (decode holds a page's scores
-whole, check_int8_block).
+the dense kernels' code with a paged row address, at block PS.
 """
 
 from __future__ import annotations
@@ -70,10 +68,12 @@ MAX_KV_MUL = 8  # query heads per KV head the decode kernel holds in registers
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 DECODE_BLOCK = 1024  # the JAX decode kernels' KV block target
 PREFILL_BLOCK = 512  # the JAX prefill kernels' KV block target
-KERNEL_TILE = 64  # cache rows per tile of the CUDA kernels (csrc/attention.cu)
-# shared memory the int8 decode task may give a block's M x bk fp32 scores
-# (the H100's 227 KB per CTA less the task's own)
-INT8_SCORES_BYTES = 200 * 1024
+# shared memory the decode task may give a block's M x bk fp32 scores (the
+# H100's 227 KB per CTA less the task's own)
+DECODE_SCORES_BYTES = 200 * 1024
+# shared memory a CTA may take on an H100 (csrc/attention.cu's prefill kernel)
+SMEM_PER_CTA = 232448
+_PF_ROWS = _PF_TILE = 64  # query rows per prefill CTA, cache rows per tile
 
 
 def ref_block(s: int, target: int) -> int:
@@ -96,18 +96,23 @@ def decode_block(s: int, quantized: bool = False) -> int:
     return bk
 
 
-def kernel_block(bk: int) -> int:
-    """Cache rows per online-softmax block of the CUDA kernels on an fp32
-    or bf16 cache: the JAX kernels' block bk where it fits the kernels'
-    64-row tiles, else 64."""
-    return min(bk, KERNEL_TILE)
+def check_decode_block(m: int, bk: int) -> None:
+    """The decode task holds a block's m x bk scores in shared memory."""
+    if 4 * m * bk > DECODE_SCORES_BYTES:
+        raise ValueError(f"decode attention holds {m} x {bk} fp32 scores per block, "
+                         f"more than {DECODE_SCORES_BYTES} bytes of shared memory")
 
 
-def check_int8_block(m: int, bk: int) -> None:
-    """The int8 decode task holds a block's m x bk scores in shared memory."""
-    if 4 * m * bk > INT8_SCORES_BYTES:
-        raise ValueError(f"int8 decode attention holds {m} x {bk} fp32 scores per block, "
-                         f"more than {INT8_SCORES_BYTES} bytes of shared memory")
+def check_prefill_block(hs: int, bk: int) -> None:
+    """The prefill kernel holds its 64 query rows' scores over a block of bk
+    rows (rounded up to 64-row tiles) in shared memory beside a q tile, a
+    K/V tile and their scales (csrc/attention.cu::prefill_smem_bytes)."""
+    cols = -(-bk // _PF_TILE) * _PF_TILE
+    need = 4 * (_PF_ROWS * hs + _PF_TILE * (hs + 1) + _PF_ROWS * (cols + 1) + 3 * _PF_ROWS
+                + _PF_TILE + cols)
+    if need > SMEM_PER_CTA:
+        raise ValueError(f"prefill attention at a KV block of {bk} rows needs {need} bytes of "
+                         f"shared memory, more than {SMEM_PER_CTA}")
 
 
 def _quant_rows(x):
@@ -255,8 +260,8 @@ def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty_like(q)
     bk = decode_block(s, quantized)
+    check_decode_block(h // kvh, bk)
     if quantized:
-        check_int8_block(h // kvh, bk)
         fn = _build.bind("attention", "attention_decode_int8", "ppppppppp" + "iiiiiiiii" + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), pos.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
@@ -266,8 +271,7 @@ def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale
         fn = _build.bind("attention", "attention_decode", "ppppppp" + "iiiiiiiii" + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
                 k_cur.data_ptr(), v_cur.data_ptr(), out.data_ptr(),
-                bsz, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], kernel_block(bk),
-                _stream())
+                bsz, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk, _stream())
     _build.check(rc, "attention", "attention_decode")
     _count(attention_decode, quantized)
     return out
@@ -323,8 +327,8 @@ def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int,
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty((bsz, h, hs), dtype=dt, device=dev)
     bk = decode_block(s, quantized)
+    check_decode_block(h // kvh, bk)
     if quantized:
-        check_int8_block(h // kvh, bk)
         fn = _build.bind("attention", "attention_decode_fused_int8", "ppppppp" + "iiiiiiiii" + "p")
         rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), pos.data_ptr(), out.data_ptr(), bsz, h, kvh, s, hs,
@@ -332,8 +336,7 @@ def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int,
     else:
         fn = _build.bind("attention", "attention_decode_fused", "ppppp" + "iiiiiiiii" + "p")
         rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-                out.data_ptr(), bsz, h, kvh, s, hs, n_layers, layer, _DTYPES[dt],
-                kernel_block(bk), _stream())
+                out.data_ptr(), bsz, h, kvh, s, hs, n_layers, layer, _DTYPES[dt], bk, _stream())
     _build.check(rc, "attention", "attention_decode_fused")
     _count(attention_decode_fused, quantized)
     return out
@@ -411,7 +414,8 @@ def attention_prefill(q, k_cache, v_cache, layer: int, start, valid, k_scale=Non
     check_operand("start", start, (bsz,), torch.int32, dev)
     check_operand("valid", valid, (bsz,), torch.int32, dev)
     out = torch.empty_like(q)
-    bk = kernel_block(ref_block(s, PREFILL_BLOCK))
+    bk = ref_block(s, PREFILL_BLOCK)
+    check_prefill_block(hs, bk)
     if quantized:
         fn = _build.bind("attention", "attention_prefill_int8", "pppppppp" + "iiiiiiiiii" + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -506,18 +510,18 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, layer: int, pos, k_c
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     check_table(page_table, bsz, dev)
     out = torch.empty_like(q)
-    dims = (bsz, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt])
+    dims = (bsz, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt], ps)
+    check_decode_block(h // kvh, ps)
     if quantized:
-        check_int8_block(h // kvh, ps)
         fn = _build.bind("attention", "attention_decode_paged_int8", "p" * 10 + "i" * 10 + "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), page_table.data_ptr(), pos.data_ptr(), k_cur.data_ptr(),
-                v_cur.data_ptr(), out.data_ptr(), *dims, ps, _stream())
+                v_cur.data_ptr(), out.data_ptr(), *dims, _stream())
     else:
         fn = _build.bind("attention", "attention_decode_paged", "p" * 8 + "i" * 10 + "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
                 pos.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(), out.data_ptr(), *dims,
-                kernel_block(ps), _stream())
+                _stream())
     _build.check(rc, "attention", "attention_decode_paged")
     _count(attention_decode_paged, quantized)
     return out
@@ -565,7 +569,8 @@ def attention_prefill_paged(q, k_pages, v_pages, page_table, layer: int, start, 
     check_operand("valid", valid, (bsz,), torch.int32, dev)
     check_table(page_table, bsz, dev)
     out = torch.empty_like(q)
-    dims = (bsz, t, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt], kernel_block(ps))
+    check_prefill_block(hs, ps)
+    dims = (bsz, t, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt], ps)
     if quantized:
         fn = _build.bind("attention", "attention_prefill_paged_int8", "p" * 9 + "i" * 11 + "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),

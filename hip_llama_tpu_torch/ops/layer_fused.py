@@ -100,10 +100,7 @@ def q8_layer_fused(x, wqkv, wo, w13, w2, g1, g2, k_cache, v_cache, layer: int, p
                        dtype=torch.float32, device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     bk = layer_block(s, h, kvh, hs, quantized)
-    if quantized:
-        _attn.check_int8_block(h // kvh, bk)
-    else:
-        bk = _attn.kernel_block(bk)
+    _attn.check_decode_block(h // kvh, bk)
     fn = _build.bind("layer_fused", "q8_layer_fused", "p" * 23 + "i" * 19 + "ff" + "p")
     rc = fn(x.data_ptr(), wqkv.q.data_ptr(), wqkv.s.data_ptr(), g1.data_ptr(), pos.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),

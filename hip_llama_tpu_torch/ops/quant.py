@@ -1,5 +1,6 @@
 """Q8_0 weight-only matmuls: `q8_matmul` (K15), `q8_matmul_silu` (K17) and
-`q8_matmul_ffn` (K18), with the host-side Q8_0 tensor type.
+`q8_matmul_ffn` (K18), with the host-side Q8_0 tensor type and the `a8`
+mode shared with ops/quant4.py.
 
 Weights are symmetric int8 with one fp32 scale per `group_size` rows of a
 column, in matmul orientation: q (K, N) int8, s (K / gs, N) fp32, as the
@@ -22,12 +23,25 @@ hold at every width. Where the hidden width is not a multiple of 128 the
 JAX package's FFN kernels decline (a TPU tile rule) and its fallback rounds
 h1 and h3 to bf16 before the gate, so there the two packages agree to bf16
 tolerance rather than to the summation order (ROADMAP.md, section 3).
+
+`mode="a8"` (w8a8: HIPLLAMA_Q8_MODE=a8, which the model reads and passes
+down) takes the JAX kernels' `a8` branch (quant.py:250-296, :541-585), the
+reference int8 engine's arithmetic: x, normed and rounded to its dtype, is
+quantized per (row, group of gs along K), sx = max|x| * fp32(1/127) (1
+where zero) and xi = round-half-even(x / sx); each group's int8 dot is an
+exact int32 sum, rescaled as (f32(sum) * sx) * s and summed over the groups
+in fp32; the epilogue runs on that sum. The JAX wrappers decide per call,
+from shapes, whether `a8` runs or the call keeps its reshape math, and the
+decision changes the numbers, so the port copies it (`q8_a8_engages`). The
+kernels (csrc/quant.cu, a8.cuh) count in `<wrapper>.launches_a8`.
+q8_matmul_ffn keeps its reshape math in every mode (quant.py:967-971).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 
@@ -42,6 +56,18 @@ _GEMV_CTAS = 264  # GEMV CTAs aimed for: two per SM of an H100
 FFN_MAX_M = 256
 FFN_MAX_X_BYTES = 2 * 2**20
 FFN_STRIP = 64  # hidden columns per CTA of q8_matmul_ffn (csrc/q8.cuh kFfBH)
+# the JAX package's q8_matmul_ffn strip width (HIPLLAMA_FFN_BLOCK_N's
+# default, quant.py:31), read by its decline rule
+FFN_BLOCK_N = 256
+Q8_MODES = ("reshape", "a8")  # HIPLLAMA_Q8_MODE values the port serves
+# the JAX wrappers' block defaults (quant.py:26-27), which their `a8`
+# decision reads
+Q8_BLOCK_N = 512
+Q8_BLOCK_K = 1024
+A8_GEMV_BN = 128  # columns per GEMV CTA of the a8 kernels (csrc/a8.cuh kGvBN)
+A8_GEMV_ROWS = 1024  # xi rows (k) a GEMV CTA of the a8 kernels stages at most
+# fp64 bytes of one chunk of int32 group sums in the plain a8 product
+_A8_PLAIN_BYTES = 256 * 2**20
 
 
 @dataclasses.dataclass
@@ -89,11 +115,86 @@ def q8_dequantize(qt: QTensor) -> torch.Tensor:
     return (g * qt.s[..., :, None, :]).reshape(*qt.q.shape[:-2], k, n)
 
 
-def ffn_takes_kernel(m: int, k: int) -> bool:
-    """Whether q8_matmul_ffn (K18) serves an FFN of m rows of width k; else
-    the FFN is q8_matmul_silu (K17) and q8_matmul with the residual (K15),
-    as the JAX package decides by row count (quant.py:934)."""
-    return m <= FFN_MAX_M and m * k * 4 <= FFN_MAX_X_BYTES
+def ffn_takes_kernel(m: int, k: int, h: int = 0, gs: int = 0, mode: str = "reshape") -> bool:
+    """Whether q8_matmul_ffn (K18) serves an FFN of m rows of width k and
+    hidden width h over weights of group size gs; else the FFN is
+    q8_matmul_silu (K17) and q8_matmul with the residual (K15). The JAX
+    package decides by row count (quant.py:934) and declines where its
+    hidden strips do not tile (quant.py:925-933). In `reshape` mode both
+    branches round alike, so the port takes K18 at every width, by row
+    count only; in another mode the fallback's products run that mode and
+    K18 does not, so the port copies the whole rule (the Mosaic tile rule
+    at :935 aside). At the golden fixture's hidden 192 the JAX K18 declines:
+    there `a8` serves the FFN through K17 and K15."""
+    if m > FFN_MAX_M or m * k * 4 > FFN_MAX_X_BYTES:
+        return False
+    if mode == "reshape":
+        return True
+    bn = FFN_BLOCK_N
+    while bn > 128 and (h % bn or bn % gs):
+        bn //= 2
+    return not (h % bn or bn % gs or bn % 128 or k % gs or k * bn > 4 * 2**20)
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, str(default)))
+
+
+def _block_k(k: int, gs: int, block_k: int) -> int:
+    """The JAX wrappers' shrink of a requested K block to a divisor of k
+    that holds whole groups (quant.py:1280-1286)."""
+    while block_k > gs and (k % block_k or block_k % gs):
+        block_k //= 2
+    if k % block_k or block_k % gs:
+        block_k = gs if k % gs == 0 else k
+    return block_k
+
+
+def q8_a8_engages(m: int, k: int, n: int, gs: int, block_n: int | None = None) -> bool:
+    """Whether the JAX q8_matmul (and, with n the hidden width H,
+    q8_matmul_silu) runs its `a8` branch for an (m, k) x (k, n) product of
+    group size gs, or keeps reshape math (quant.py:1257-1316, :640-664).
+    block_n defaults to HIPLLAMA_Q8_BLOCK_N (512), halved as the JAX code
+    halves it; HIPLLAMA_Q8_BLOCK_K is taken at its default. Prefill rows (m
+    > 64) take `a8` where the weight strip fits and K holds at most 64
+    groups; decode rows where the whole row is one K block and the group
+    sums (groups x m x block_n int32) fit 4 MiB. The Mosaic tile fallbacks
+    are not copied: the golden outputs come from interpret mode, where they
+    never fire. The head-split output's wider block (quant.py:1337-1340)
+    changes no decision: it reaches the `a8` test only above 512 rows, where
+    K is at most 64 groups."""
+    bn = block_n or _env_int("HIPLLAMA_Q8_BLOCK_N", Q8_BLOCK_N)
+    while bn > 128 and n % bn:
+        bn //= 2
+    if n % bn:
+        bn = n
+    if k % gs == 0 and k * bn <= 8 * 2**20 and m * k * 2 <= 2 * 2**20:
+        bk = k
+    else:
+        bk = _block_k(k, gs, Q8_BLOCK_K)
+    if m > 64 and k % gs == 0 and k * bn <= 8 * 2**20 and k // gs <= 64:
+        return True
+    return not (m > 64 or bk != k or (bk // gs) * m * bn * 4 > 4 * 2**20)
+
+
+def a8_serves(mode: str, m: int, k: int, widths, gs: int, engages, knob: str) -> bool:
+    """Whether a product in `mode` runs its `a8` arithmetic: `engages(m, k,
+    n, gs)` for each output width n of the JAX products the call stands for
+    (a fused weight of the port may stand for several). Raises where they
+    disagree, and on a mode the port does not serve."""
+    if mode == "a8":
+        votes = {engages(m, k, n, gs) for n in widths}
+        if len(votes) > 1:
+            raise NotImplementedError(f"{knob}=a8: the JAX products of widths {tuple(widths)} "
+                                      "decide apart at these shapes; not yet ported")
+        return votes.pop()
+    return False
+
+
+def check_mode(mode: str, modes: tuple[str, ...], knob: str) -> None:
+    if mode not in modes:
+        raise NotImplementedError(f"{knob}={mode}: not yet ported to hip_llama_tpu_torch "
+                                  f"(it serves {', '.join(modes)})")
 
 
 def rope_coef(theta: float, head_size: int) -> float:
@@ -132,6 +233,42 @@ def _rope_cols(acc, pos, rope_limit: int, head_size: int, theta: float):
     return torch.where(col < rope_limit, rot, acc)
 
 
+def a8_quantize_rows(x: torch.Tensor, gs: int):
+    """x (M, K) fp32 quantized per (row, group of gs), as the JAX kernels'
+    `a8` stash (quant.py:271-275, quant4.py:139-148): sx = max|x| *
+    fp32(1/127), 1 where zero; xi = round-half-even(x / sx), a true
+    division. Returns (xi (M, K) fp32 integers, sx (M, K / gs))."""
+    m, k = x.shape
+    x3 = x.reshape(m, k // gs, gs)
+    sx = x3.abs().amax(dim=-1, keepdim=True) * (1.0 / 127.0)
+    sx = torch.where(sx == 0, torch.ones_like(sx), sx)
+    return torch.round(x3 / sx).reshape(m, k), sx[..., 0]
+
+
+def a8_group_dot(xi, sx, codes, s, gs: int) -> torch.Tensor:
+    """The `a8` product of quantized rows xi (M, K) with sx (M, K / gs) and
+    integer weight codes (K, N) with scales s (K / gs, N): each group's dot
+    summed exactly (fp64), then (f32(sum) * sx) * s summed over the groups
+    in fp32 (quant.py:276-296), a chunk of groups at a time."""
+    m, k = xi.shape
+    n, n_groups = codes.shape[1], k // gs
+    xg = xi.double().reshape(m, n_groups, gs).transpose(0, 1)  # (G, M, gs)
+    wg = codes.double().reshape(n_groups, gs, n)
+    sxt = sx.t()[:, :, None]  # (G, M, 1)
+    acc = torch.zeros((m, n), device=xi.device)
+    chunk = max(1, _A8_PLAIN_BYTES // (m * n * 8))
+    for g0 in range(0, n_groups, chunk):
+        ps = torch.bmm(xg[g0:g0 + chunk], wg[g0:g0 + chunk]).float() * sxt[g0:g0 + chunk]
+        acc = acc + (ps * s[g0:g0 + chunk, None, :]).sum(dim=0)
+    return acc
+
+
+def _dot_a8(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """x (rounded to its dtype) @ qt in the `a8` arithmetic, fp32."""
+    xi, sx = a8_quantize_rows(x.float(), qt.group_size)
+    return a8_group_dot(xi, sx, qt.q, qt.s, qt.group_size)
+
+
 def _gate(h13: torch.Tensor) -> torch.Tensor:
     h = h13.shape[-1] // 2
     h1, h3 = h13[:, :h], h13[:, h:]
@@ -140,9 +277,14 @@ def _gate(h13: torch.Tensor) -> torch.Tensor:
 
 def q8_matmul_plain(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
                     residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-                    rope_theta: float = 10000.0):
+                    rope_theta: float = 10000.0, mode: str = "reshape", a8_widths=None):
     """Plain version of `q8_matmul`."""
-    acc = _dot(_normed(x, norm_weight, norm_eps), qt)
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+    xn = _normed(x, norm_weight, norm_eps)
+    m, k = x.shape
+    a8 = a8_serves(mode, m, k, a8_widths or (qt.q.shape[1],), qt.group_size, q8_a8_engages,
+                   "HIPLLAMA_Q8_MODE")
+    acc = _dot_a8(xn, qt) if a8 else _dot(xn, qt)
     if residual is not None:
         acc = acc + residual.float()
     if rope_pos is not None:
@@ -150,9 +292,15 @@ def q8_matmul_plain(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
     return acc.to(x.dtype)
 
 
-def q8_matmul_silu_plain(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5):
+def q8_matmul_silu_plain(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                         mode: str = "reshape"):
     """Plain version of `q8_matmul_silu`."""
-    return _gate(_dot(_normed(x, norm_weight, norm_eps), qt13)).to(x.dtype)
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+    xn = _normed(x, norm_weight, norm_eps)
+    m, k = x.shape
+    a8 = a8_serves(mode, m, k, (qt13.q.shape[1] // 2,), qt13.group_size, q8_a8_engages,
+                   "HIPLLAMA_Q8_MODE")
+    return _gate(_dot_a8(xn, qt13) if a8 else _dot(xn, qt13)).to(x.dtype)
 
 
 def q8_matmul_ffn_plain(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
@@ -167,12 +315,12 @@ def q8_matmul_ffn_plain(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *
 
 
 def gemv_plan(k: int, n: int, kslice_max: int = _GEMV_KSLICE_MAX,
-              mult: int = 64) -> tuple[int, int]:
+              mult: int = 64, bn: int = _GEMV_BN) -> tuple[int, int]:
     """(split, kslice) of the GEMV path: K in `split` slices of `kslice`
     rows (a multiple of `mult`, at most `kslice_max`), as many as the
-    ceil(N / 256) column strips times the splits fit in one wave of the
+    ceil(N / bn) column strips times the splits fit in one wave of the
     card's CTAs (more where K needs them)."""
-    strips = -(-n // _GEMV_BN)
+    strips = -(-n // bn)
     split = max(-(-k // kslice_max), _GEMV_CTAS // strips)
     kslice = min(kslice_max, -(-(-(-k // split)) // mult) * mult)
     return -(-k // kslice), kslice
@@ -224,20 +372,59 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residual, rope_pos,
+              rope_limit: int, rope_head: int, rope_theta: float, norm_eps: float, gate: bool,
+              kslice_max: int, planes: int = 1):
+    """Launch an `a8` kernel (csrc/a8.cuh) of `lib` on x (M, K) and weight
+    qt (k_rows of q, n columns: 2H for a gate, whose output is H wide):
+    allocates the output, the quantized activations (M, K) int8 and their
+    scales (M, K / gs) fp32, and the GEMV path's split partials, for each
+    of the weight's `planes` (int4: the low and high nibbles)."""
+    m, k = x.shape
+    gs, dev = qt.group_size, x.device
+    if gs % 32 or 128 % gs:
+        raise ValueError(f"the a8 kernels take group sizes 32, 64 and 128, got {gs}")
+    out = torch.empty((m, n // 2 if gate else n), dtype=torch.bfloat16, device=dev)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
+    split, kslice = (gemv_plan(k_rows, n, kslice_max, gs, A8_GEMV_BN) if m <= GEMV_MAX_M
+                     else (0, 0))
+    part = torch.empty((planes * split, m, n), dtype=torch.float32, device=dev) if split else None
+    if gate:
+        f = _build.bind(lib, fn, "pppppppp" + "iiiiii" + "f" + "p")
+        rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight),
+               out.data_ptr(), xi.data_ptr(), sx.data_ptr(), _ptr(part), m, k, n // 2, gs, split,
+               kslice, norm_eps, _stream())
+    else:
+        f = _build.bind(lib, fn, "pppppppppp" + "iiiiiiii" + "ff" + "p")
+        rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
+               _ptr(rope_pos), out.data_ptr(), xi.data_ptr(), sx.data_ptr(), _ptr(part),
+               m, k, n, gs, split, kslice, rope_limit if rope_pos is not None else 0,
+               rope_head if rope_pos is not None else 1,
+               rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0,
+               norm_eps, _stream())
+    _build.check(rc, lib, fn)
+    return out
+
+
 def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, residual=None,
               rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-              rope_theta: float = 10000.0):
+              rope_theta: float = 10000.0, mode: str = "reshape", a8_widths=None):
     """x (M, K) @ dequant(qt) -> (M, N) in x's dtype, with the optional
     rmsnorm prologue (norm_weight (K,) fp32), residual epilogue (residual
     (M, N)) and RoPE epilogue (rope_pos (M,) int32: columns below
     rope_limit rotate in heads of rope_head). A head-split (M, N / HS, HS)
-    output is a view of the result. Replaces hip_llama_tpu/ops/quant.py::
-    q8_matmul."""
+    output is a view of the result. `mode` is HIPLLAMA_Q8_MODE's value;
+    `a8_widths` the output widths of the JAX products the call stands for,
+    which decide whether `a8` runs (default: N). Replaces hip_llama_tpu/
+    ops/quant.py::q8_matmul."""
     dev = _device(x, "q8_matmul")
     if dev.type == "cpu":
         return q8_matmul_plain(x, qt, norm_weight=norm_weight, norm_eps=norm_eps,
                                residual=residual, rope_pos=rope_pos, rope_limit=rope_limit,
-                               rope_head=rope_head, rope_theta=rope_theta)
+                               rope_head=rope_head, rope_theta=rope_theta, mode=mode,
+                               a8_widths=a8_widths)
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
     m, k = _check_x("x", x)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
@@ -247,6 +434,12 @@ def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, resid
         check_operand("rope_pos", rope_pos, (m,), torch.int32, dev)
         if rope_head <= 0 or rope_head % 2 or rope_limit % rope_head or rope_limit > n:
             raise ValueError(f"rope: head size {rope_head}, limit {rope_limit}, N {n}")
+    if a8_serves(mode, m, k, a8_widths or (n,), qt.group_size, q8_a8_engages,
+                 "HIPLLAMA_Q8_MODE"):
+        out = a8_launch("quant", "q8_matmul_a8", x, qt, k, n, norm_weight, residual, rope_pos,
+                        rope_limit, rope_head, rope_theta, norm_eps, False, A8_GEMV_ROWS)
+        q8_matmul.launches_a8 += 1
+        return out
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
     split, kslice = gemv_plan(k, n) if m <= GEMV_MAX_M else (0, 0)
@@ -264,21 +457,31 @@ def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, resid
 
 
 q8_matmul.launches = 0
+q8_matmul.launches_a8 = 0
 
 
-def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5):
+def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                   mode: str = "reshape"):
     """silu(xn @ W1) * (xn @ W3) -> (M, H) in x's dtype, from the
-    concatenated qt13 = W1|W3 (K, 2H), xn = rmsnorm(x, norm_weight) (or x).
-    Replaces hip_llama_tpu/ops/quant.py::q8_matmul_silu."""
+    concatenated qt13 = W1|W3 (K, 2H), xn = rmsnorm(x, norm_weight) (or x);
+    `mode` as q8_matmul's. Replaces hip_llama_tpu/ops/quant.py::
+    q8_matmul_silu."""
     dev = _device(x, "q8_matmul_silu")
     if dev.type == "cpu":
-        return q8_matmul_silu_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
+        return q8_matmul_silu_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps,
+                                    mode=mode)
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
     m, k = _check_x("x", x)
     n2 = _check_weight("qt13", qt13, k, dev)
     h = n2 // 2
     if h % 16:
         raise ValueError(f"q8_matmul_silu takes H % 16 == 0, got {h}")
     _check_norm(norm_weight, k, dev)
+    if a8_serves(mode, m, k, (h,), qt13.group_size, q8_a8_engages, "HIPLLAMA_Q8_MODE"):
+        out = a8_launch("quant", "q8_matmul_silu_a8", x, qt13, k, n2, norm_weight, None, None, 0,
+                        0, 0.0, norm_eps, True, A8_GEMV_ROWS)
+        q8_matmul_silu.launches_a8 += 1
+        return out
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
     split, kslice = gemv_plan(k, n2) if m <= GEMV_MAX_M else (0, 0)
@@ -293,6 +496,7 @@ def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
 
 
 q8_matmul_silu.launches = 0
+q8_matmul_silu.launches_a8 = 0
 
 
 def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,

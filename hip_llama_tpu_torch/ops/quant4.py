@@ -22,6 +22,17 @@ fp32 sum as in K15; the gate bf16(h1 * sigmoid(h1) * h3) on the fp32 sums
 of W1 and W3; one cast at the end. These hold at every width: the JAX
 kernels' declines (the XLA fallback of q4_matmul, quant4.py:352-362, and
 q4_matmul_silu's where H % 128 != 0, :578-582) are TPU tile rules.
+
+`mode="a8"` (w4a8: HIPLLAMA_Q4_MODE=a8, which the model reads and passes
+down) takes the JAX kernels' `a8` branch (quant4.py:139-171, :211-232): x
+rounded to bf16 (normed first where a norm weight is given), each half
+x[:, :K/2] and x[:, K/2:] quantized per (row, group of gs) as K15's `a8`
+(ops/quant.py::a8_quantize_rows), the low nibbles' codes dotted with the
+first half and the high nibbles' with the second, each group's exact int32
+sum rescaled as (f32(sum) * sx) * s, the low plane's groups summed, then
+the high plane's added. Where the JAX wrapper keeps `dequant` math instead
+(`q4_a8_engages`), so does the port. The kernels (csrc/quant4.cu, a8.cuh)
+count in `<wrapper>.launches_a8`.
 """
 
 from __future__ import annotations
@@ -34,18 +45,30 @@ from hip_llama_tpu_torch.ops import _build
 from hip_llama_tpu_torch.ops.cache import _stream, check_operand
 from hip_llama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
+    _block_k,
     _check_norm,
     _check_x,
     _device,
+    _env_int,
     _gate,
     _ptr,
     _rope_cols,
+    a8_group_dot,
+    a8_launch,
+    a8_quantize_rows,
+    a8_serves,
+    check_mode,
     gemv_plan,
     rope_coef,
     true_div,
 )
 
 _GEMV_KSLICE_MAX = 512  # packed rows per GEMV CTA at most (csrc/quant4.cu kQ4KMax)
+Q4_MODES = ("dequant", "a8")  # HIPLLAMA_Q4_MODE values the port serves
+# the JAX wrappers' block defaults (quant4.py:45-46), which their `a8`
+# decision reads
+Q4_BLOCK_N = 256
+Q4_BLOCK_K = 1024
 
 
 @dataclasses.dataclass
@@ -99,6 +122,26 @@ def q4_dequantize(t: Q4Tensor) -> torch.Tensor:
     return (g * t.s[..., :, None, :]).reshape(*t.q.shape[:-2], k, n)
 
 
+def q4_a8_engages(m: int, k: int, n: int, gs: int, block_n: int | None = None) -> bool:
+    """Whether the JAX q4_matmul (and, with n the hidden width H,
+    q4_matmul_silu) runs its `a8` branch for an (m, k) x (k, n) product of
+    group size gs, or keeps dequant math (quant4.py:331-367, :579-599): only
+    where each x half is one K block, i.e. the weight strip (k x block_n)
+    fits 4 MiB and the x rows (m x k bf16) 2 MiB. block_n defaults to
+    HIPLLAMA_Q4_BLOCK_N (256), halved as the JAX code halves it;
+    HIPLLAMA_Q4_BLOCK_K is taken at its default. The Mosaic tile fallbacks
+    are not copied (see ops/quant.py::q8_a8_engages)."""
+    bn = block_n or _env_int("HIPLLAMA_Q4_BLOCK_N", Q4_BLOCK_N)
+    while bn > 128 and n % bn:
+        bn //= 2
+    if n % bn:
+        bn = n
+    kh = k // 2
+    if kh % gs == 0 and k * bn <= 4 * 2**20 and m * k * 2 <= 2 * 2**20:
+        return True
+    return _block_k(kh, gs, Q4_BLOCK_K // 2) == kh and kh % gs == 0
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 
@@ -121,11 +164,31 @@ def _dot(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float() @ w.float()
 
 
+def _dot_a8(x: torch.Tensor, qt: Q4Tensor) -> torch.Tensor:
+    """bf16(x) @ qt in the `a8` arithmetic, fp32: the low plane's sum, then
+    the high plane's added (quant4.py:226-232)."""
+    xf = x.to(torch.bfloat16).float()
+    gs, kh = qt.group_size, qt.q.shape[0]
+    codes = q4_unpack(qt)
+    planes = [a8_group_dot(*a8_quantize_rows(xf[:, sl], gs), codes[sl], qt.s[sg], gs)
+              for sl, sg in ((slice(0, kh), slice(0, kh // gs)),
+                             (slice(kh, 2 * kh), slice(kh // gs, 2 * kh // gs)))]
+    return planes[0] + planes[1]
+
+
+def _a8(mode: str, x, n: int, gs: int, widths=None) -> bool:
+    check_mode(mode, Q4_MODES, "HIPLLAMA_Q4_MODE")
+    return a8_serves(mode, x.shape[0], x.shape[1], widths or (n,), gs, q4_a8_engages,
+                     "HIPLLAMA_Q4_MODE")
+
+
 def q4_matmul_plain(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5,
                     residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-                    rope_theta: float = 10000.0):
+                    rope_theta: float = 10000.0, mode: str = "dequant", a8_widths=None):
     """Plain version of `q4_matmul`."""
-    acc = _dot(_normed(x, norm_weight, norm_eps), qt)
+    xn = _normed(x, norm_weight, norm_eps)
+    a8 = _a8(mode, x, qt.q.shape[1], qt.group_size, a8_widths)
+    acc = _dot_a8(xn, qt) if a8 else _dot(xn, qt)
     if residual is not None:
         acc = acc + residual.float()
     if rope_pos is not None:
@@ -133,9 +196,12 @@ def q4_matmul_plain(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5
     return acc.to(x.dtype)
 
 
-def q4_matmul_silu_plain(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5):
+def q4_matmul_silu_plain(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                         mode: str = "dequant"):
     """Plain version of `q4_matmul_silu`."""
-    return _gate(_dot(_normed(x, norm_weight, norm_eps), qt13)).to(x.dtype)
+    xn = _normed(x, norm_weight, norm_eps)
+    a8 = _a8(mode, x, qt13.q.shape[1] // 2, qt13.group_size)
+    return _gate(_dot_a8(xn, qt13) if a8 else _dot(xn, qt13)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -168,18 +234,20 @@ def _check_weight(name: str, qt: Q4Tensor, k: int, dev) -> int:
 
 def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, residual=None,
               rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-              rope_theta: float = 10000.0):
+              rope_theta: float = 10000.0, mode: str = "dequant", a8_widths=None):
     """x (M, K) @ dequant(qt) -> (M, N) in x's dtype, with the optional
     rmsnorm prologue (norm_weight (K,) fp32), residual epilogue (residual
     (M, N)) and RoPE epilogue (rope_pos (M,) int32: columns below
     rope_limit rotate in heads of rope_head). A head-split (M, N / HS, HS)
-    output is a view of the result. Replaces hip_llama_tpu/ops/quant4.py::
-    q4_matmul (its `dequant` mode)."""
+    output is a view of the result. `mode` is HIPLLAMA_Q4_MODE's value,
+    `a8_widths` as q8_matmul's. Replaces hip_llama_tpu/ops/quant4.py::
+    q4_matmul."""
     dev = _device(x, "q4_matmul")
     if dev.type == "cpu":
         return q4_matmul_plain(x, qt, norm_weight=norm_weight, norm_eps=norm_eps,
                                residual=residual, rope_pos=rope_pos, rope_limit=rope_limit,
-                               rope_head=rope_head, rope_theta=rope_theta)
+                               rope_head=rope_head, rope_theta=rope_theta, mode=mode,
+                               a8_widths=a8_widths)
     m, k = _check_x("x", x, 32)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
@@ -189,6 +257,12 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
         check_operand("rope_pos", rope_pos, (m,), torch.int32, dev)
         if rope_head <= 0 or rope_head % 2 or rope_limit % rope_head or rope_limit > n:
             raise ValueError(f"rope: head size {rope_head}, limit {rope_limit}, N {n}")
+    if _a8(mode, x, n, qt.group_size, a8_widths):
+        out = a8_launch("quant4", "q4_matmul_a8", x, qt, k // 2, n, norm_weight, residual,
+                        rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
+                        _GEMV_KSLICE_MAX, planes=2)
+        q4_matmul.launches_a8 += 1
+        return out
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
     split, kslice = q4_gemv_plan(k // 2, n) if m <= GEMV_MAX_M else (0, 0)
@@ -206,22 +280,30 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
 
 
 q4_matmul.launches = 0
+q4_matmul.launches_a8 = 0
 
 
-def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5):
+def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                   mode: str = "dequant"):
     """silu(xn @ W1) * (xn @ W3) -> (M, H) in x's dtype, from the
     concatenated qt13 = W1|W3 (K/2, 2H packed), xn = rmsnorm(x, norm_weight)
-    (or x). Replaces hip_llama_tpu/ops/quant4.py::q4_matmul_silu (its
-    `dequant` mode)."""
+    (or x); `mode` as q4_matmul's. Replaces hip_llama_tpu/ops/quant4.py::
+    q4_matmul_silu."""
     dev = _device(x, "q4_matmul_silu")
     if dev.type == "cpu":
-        return q4_matmul_silu_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
+        return q4_matmul_silu_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps,
+                                    mode=mode)
     m, k = _check_x("x", x, 32)
     n2 = _check_weight("qt13", qt13, k, dev)
     h = n2 // 2
     if h % 16:
         raise ValueError(f"q4_matmul_silu takes H % 16 == 0, got {h}")
     _check_norm(norm_weight, k, dev)
+    if _a8(mode, x, h, qt13.group_size):
+        out = a8_launch("quant4", "q4_matmul_silu_a8", x, qt13, k // 2, n2, norm_weight, None,
+                        None, 0, 0, 0.0, norm_eps, True, _GEMV_KSLICE_MAX, planes=2)
+        q4_matmul_silu.launches_a8 += 1
+        return out
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
     split, kslice = q4_gemv_plan(k // 2, n2) if m <= GEMV_MAX_M else (0, 0)
@@ -236,3 +318,4 @@ def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-
 
 
 q4_matmul_silu.launches = 0
+q4_matmul_silu.launches_a8 = 0

@@ -39,6 +39,9 @@ Extra (double-dash):
   --no-prefill               force-feed prompts one token/step (parity mode)
   --rope-theta F             RoPE base override (.bin headers can't carry it)
   --no-eos-stop              test mode stops on BOS only (run.cc parity)
+Environment: HIPLLAMA_Q8_MODE=a8 (w8a8) and HIPLLAMA_Q4_MODE=a8 (w4a8)
+serve the Q8 and int4 products in the reference int8 engine's arithmetic,
+as the JAX package does; their other values exit "not yet ported".
 The JAX CLI's other flags (--tp, --spec, --chunk, --device-sampling,
 --layout, --stream, ...) and chat mode are not yet ported: they exit with
 an error.
@@ -54,6 +57,7 @@ import torch
 
 from hip_llama_tpu_torch.engine import InferenceEngine, read_inputfile, write_outputfile
 from hip_llama_tpu_torch.io.checkpoint import Q4Weights, QuantWeights, load_checkpoint
+from hip_llama_tpu_torch.models.llama import dequant_modes
 from hip_llama_tpu_torch.models.params import (
     params_from_q4_dequant,
     params_from_quant_dequant,
@@ -124,6 +128,11 @@ def main(argv: list[str]) -> int:
     quant = opts.get("--quant")
     if quant not in (None, "q8", "q4"):
         print(f"--quant {quant}: not yet ported to hip_llama_tpu_torch", file=sys.stderr)
+        return 2
+    try:
+        dequant_modes()
+    except NotImplementedError as e:
+        print(e, file=sys.stderr)
         return 2
     if opts.get("--kv", "int8") != "int8":
         print("--kv supports: int8", file=sys.stderr)

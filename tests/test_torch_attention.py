@@ -146,3 +146,150 @@ def test_plain_decode_fused_matches_jax(b, h, kvh, s, hs, pos, dtype):
         sliced = A.attention_decode(qkvt[:, :h], kt, vt, layer, pos_t, qkvt[:, h:h + kvh],
                                     qkvt[:, h + kvh:])
         assert torch.equal(got, sliced)
+
+
+# ---------------------------------------------------------------------------
+# the KV block the CUDA wrappers give their kernels
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that a wrapper takes
+    its CUDA branch, whose launch the test records instead of making."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _on_card(t: torch.Tensor) -> torch.Tensor:
+    return torch.Tensor._make_subclass(_OnCard, t)
+
+
+def c_arity() -> dict[tuple[str, str], int]:
+    """The parameter count of each `extern "C"` entry point of csrc/*.cu."""
+    import glob
+    import os
+    import re
+
+    from hip_llama_tpu_torch.ops import _build
+
+    out = {}
+    for path in glob.glob(os.path.join(_build.CSRC, "*.cu")):
+        lib = os.path.basename(path)[:-3]
+        src = open(path).read()
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+            out[(lib, name)] = params.count(",") + 1
+    return out
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Each CUDA launch a wrapper makes, as (function, arguments); the
+    binding's signature is held to the C entry point's parameters and the
+    call to the signature."""
+    from hip_llama_tpu_torch.ops import _build
+
+    made = []
+    arity = c_arity()
+
+    def bind(lib, fn, signature):
+        assert arity[(lib, fn)] == len(signature), (lib, fn, signature)
+
+        def call(*args):
+            assert len(args) == len(signature), (fn, len(args), signature)
+            made.append((fn, args))
+            return 0
+        return call
+
+    def on_card(make):
+        def made_on_card(*shape, device=None, **kw):
+            if device is not None and torch.device(device).type == "cuda":
+                return _on_card(make(*shape, **kw))
+            return make(*shape, device=device, **kw)
+        return made_on_card
+
+    monkeypatch.setattr(_build, "bind", bind)
+    for name in ("empty", "zeros"):
+        monkeypatch.setattr(torch, name, on_card(getattr(torch, name)))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    from hip_llama_tpu_torch.ops import layer_fused, quant, quant4
+    for mod in (A, layer_fused, quant, quant4):
+        monkeypatch.setattr(mod, "_stream", lambda: 0)
+    return made
+
+
+@pytest.mark.parametrize("s", [96, 512, 2048])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_wrappers_take_the_jax_block(launches, s, int8):
+    """K1, K5 and K4 (and K23) launch at the JAX kernels' KV block, the
+    block at whose running max the probabilities round: decode
+    _pick_block_k(S, 1024) (on an int8 cache 128 or S where that is no
+    multiple of 128, attention.py:1215-1222), prefill _pick_block_k(S, 512)
+    (:983), the fused layer 128 or S (layer_fused.py:362-364). None is
+    capped at the kernels' 64-row tiles."""
+    from hip_llama_tpu.ops.attention import _pick_block_k
+    from hip_llama_tpu_torch.ops import layer_fused as LF
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    b, h, kvh, hs = 1, 8, 8, 128
+    dt = torch.bfloat16
+    shape = (b, 1, kvh, s, hs)
+    if int8:
+        k, v = torch.zeros(shape, dtype=torch.int8), torch.zeros(shape, dtype=torch.int8)
+        sc = [_on_card(torch.ones(shape[:4])) for _ in range(2)]
+    else:
+        k, v, sc = torch.zeros(shape, dtype=dt), torch.zeros(shape, dtype=dt), [None, None]
+    k, v = _on_card(k), _on_card(v)
+    pos = _on_card(torch.zeros(b, dtype=torch.int32))
+    dec = _pick_block_k(s, 1024)
+    if int8 and dec % 128 and dec != s:
+        dec = 128 if s % 128 == 0 else s
+    A.attention_decode(_on_card(torch.zeros(b, h, hs, dtype=dt)), k, v, 0, pos,
+                       _on_card(torch.zeros(b, kvh, hs, dtype=dt)),
+                       _on_card(torch.zeros(b, kvh, hs, dtype=dt)), *sc)
+    A.attention_decode_fused(_on_card(torch.zeros(b, h + 2 * kvh, hs, dtype=dt)), k, v, 0, pos,
+                             h, *sc)
+    A.attention_prefill(_on_card(torch.zeros(b, 16, h, hs, dtype=dt)), k, v, 0, pos, pos, *sc)
+    d, hid = h * hs, 16
+
+    def qt(kk, n, gs):
+        return Q.QTensor(_on_card(torch.zeros(kk, n, dtype=torch.int8)),
+                         _on_card(torch.ones(kk // gs, n)))
+
+    g = _on_card(torch.ones(d))
+    LF.q8_layer_fused(_on_card(torch.zeros(b, d, dtype=dt)), qt(d, (h + 2 * kvh) * hs, 64),
+                      qt(d, d, 64), qt(d, 2 * hid, 64), qt(hid, d, 16), g, g, k, v, 0, pos, *sc,
+                      n_heads=h)
+    blocks = {fn: args[-5 if fn == "q8_layer_fused" else -2] for fn, args in launches}
+    suffix = "_int8" if int8 else ""
+    assert blocks == {f"attention_decode{suffix}": dec, f"attention_decode_fused{suffix}": dec,
+                      f"attention_prefill{suffix}": _pick_block_k(s, 512),
+                      "q8_layer_fused": 128 if s % 128 == 0 else s}, blocks
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_cuda_wrappers_take_the_page(launches, ps, int8):
+    """K6 and K7 launch at the page, the JAX paged kernels' KV block (one
+    page per grid step, attention.py:1663-1868)."""
+    b, h, kvh, hs, n_pages = 1, 8, 8, 128, 5
+    dt = torch.bfloat16
+    shape = (1, kvh, n_pages, ps, hs)
+    if int8:
+        k, v = torch.zeros(shape, dtype=torch.int8), torch.zeros(shape, dtype=torch.int8)
+        sc = [_on_card(torch.ones(shape[:4])) for _ in range(2)]
+    else:
+        k, v, sc = torch.zeros(shape, dtype=dt), torch.zeros(shape, dtype=dt), [None, None]
+    k, v = _on_card(k), _on_card(v)
+    pos = _on_card(torch.zeros(b, dtype=torch.int32))
+    table = _on_card(torch.ones(b, 4, dtype=torch.int32))
+    A.attention_decode_paged(_on_card(torch.zeros(b, h, hs, dtype=dt)), k, v, table, 0, pos,
+                             _on_card(torch.zeros(b, kvh, hs, dtype=dt)),
+                             _on_card(torch.zeros(b, kvh, hs, dtype=dt)), *sc)
+    A.attention_prefill_paged(_on_card(torch.zeros(b, 16, h, hs, dtype=dt)), k, v, table, 0, pos,
+                              pos, *sc)
+    assert [args[-2] for _, args in launches] == [ps, ps]

@@ -540,7 +540,7 @@ def test_attention_decode_paged_kernel(shape, pages):
           else A.attention_decode_paged.launches)
     got = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc)
     want = A.attention_decode_paged_plain(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc,
-                                          block=A.kernel_block(ps) if pages != torch.int8 else ps)
+                                          block=ps)
     torch.cuda.synchronize()
     n1 = (A.attention_decode_paged.launches_int8 if pages == torch.int8
           else A.attention_decode_paged.launches)
@@ -569,7 +569,7 @@ def test_attention_prefill_paged_kernel(shape, pages):
     sc = (pool.k_scale, pool.v_scale)
     got = A.attention_prefill_paged(q, pool.k, pool.v, table, 0, start_t, valid_t, *sc)
     want = A.attention_prefill_paged_plain(q, pool.k, pool.v, table, 0, start_t, valid_t, *sc,
-                                           block=A.kernel_block(ps))
+                                           block=ps)
     torch.cuda.synchronize()
     live = torch.arange(t, device=dev)[None, :] < valid_t[:, None]
     # on int8 pages the probabilities round to bf16 before PV whatever q's dtype
@@ -709,3 +709,202 @@ def test_paged_wrappers_reject_bad_operands():
     with pytest.raises(TypeError):
         C.kv_write_rows_paged(pool, cur[None].bfloat16(), cur[None].bfloat16(), table, pos)
     assert A.attention_decode_paged.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels round at the JAX kernels' KV block
+
+
+def _moved(got, want):
+    """The share of outputs that differ, and max |diff| against one bf16 ulp
+    at the largest |want|."""
+    g, w = got.float(), want.float()
+    ulp = 2.0 ** (torch.floor(torch.log2(w.abs().max())).item() - 7)
+    return (g != w).float().mean().item(), (g - w).abs().max().item(), ulp
+
+
+def _at_block_and_apart_at_64(got, want_block, want_64):
+    """Where the block decides the running max at which the probabilities
+    round to bf16, the kernel agrees with the plain version at the JAX
+    block (moved share at most 1%, max |diff| at most one bf16 ulp of the
+    output's magnitude) and is apart from it at 64 rows (at least 5%
+    moved), which shows that the check tells the two apart."""
+    share, err, ulp = _moved(got, want_block)
+    assert share <= 0.01 and err <= ulp, (share, err, ulp)
+    share64, _, _ = _moved(got, want_64)
+    assert share64 >= 0.05, share64
+
+
+def test_attention_decode_bf16_rounds_at_the_jax_block():
+    """K1 and K5 at S 512: the JAX decode block is 128 rows."""
+    dev = _card()
+    b, h, kvh, s, hs = 8, 32, 32, 512, 128
+    rng = np.random.default_rng(30)
+    dt = torch.bfloat16
+    k = _rand(rng, (b, 1, kvh, s, hs), dt, dev)
+    v = _rand(rng, (b, 1, kvh, s, hs), dt, dev)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), dt, dev)
+    q, kc, vc = qkv[:, :h].contiguous(), qkv[:, h:h + kvh].contiguous(), qkv[:, h + kvh:].contiguous()
+    pos = torch.tensor([511, 500, 450, 300, 257, 256, 200, 129], dtype=torch.int32, device=dev)
+    assert A.decode_block(s) == 128
+    got = A.attention_decode(q, k, v, 0, pos, kc, vc)
+    fused = A.attention_decode_fused(qkv, k, v, 0, pos, h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused)
+    _at_block_and_apart_at_64(got, A.attention_decode_plain(q, k, v, 0, pos, kc, vc),
+                              A.attention_decode_plain(q, k, v, 0, pos, kc, vc, block=64))
+
+
+def test_attention_prefill_bf16_rounds_at_the_jax_block():
+    """K4 at S 512: the JAX prefill block is 512 rows, the whole cache."""
+    dev = _card()
+    b, t, h, kvh, s, hs = 4, 128, 32, 32, 512, 128
+    rng = np.random.default_rng(31)
+    dt = torch.bfloat16
+    k = _rand(rng, (b, 1, kvh, s, hs), dt, dev)
+    v = _rand(rng, (b, 1, kvh, s, hs), dt, dev)
+    q = _rand(rng, (b, t, h, hs), dt, dev)
+    start = torch.tensor([384, 300, 200, 256], dtype=torch.int32, device=dev)
+    valid = torch.full((b,), t, dtype=torch.int32, device=dev)
+    assert A.ref_block(s, A.PREFILL_BLOCK) == 512
+    got = A.attention_prefill(q, k, v, 0, start, valid)
+    torch.cuda.synchronize()
+    _at_block_and_apart_at_64(got, A.attention_prefill_plain(q, k, v, 0, start, valid),
+                              A.attention_prefill_plain(q, k, v, 0, start, valid, block=64))
+
+
+def test_attention_paged_bf16_rounds_at_the_page():
+    """K6 and K7 on bf16 pages of 128 rows: the JAX paged kernels' block is
+    the page."""
+    dev = _card()
+    b, h, kvh, hs, ps, max_pages = 8, 32, 32, 128, 128, 4
+    rng = np.random.default_rng(32)
+    dt = torch.bfloat16
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 1, kvh, n_pages, ps, hs, dt, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    q = _rand(rng, (b, h, hs), dt, dev)
+    kc, vc = _rand(rng, (b, kvh, hs), dt, dev), _rand(rng, (b, kvh, hs), dt, dev)
+    pos = torch.tensor([511, 500, 450, 300, 257, 256, 200, 129], dtype=torch.int32, device=dev)
+    got = A.attention_decode_paged(q, pool.k, pool.v, table, 0, pos, kc, vc)
+    torch.cuda.synchronize()
+    args = (q, pool.k, pool.v, table, 0, pos, kc, vc)
+    _at_block_and_apart_at_64(got, A.attention_decode_paged_plain(*args),
+                              A.attention_decode_paged_plain(*args, block=64))
+    t = ps
+    qp = _rand(rng, (b, t, h, hs), dt, dev)
+    start = torch.tensor([384, 256, 128, 384, 256, 128, 384, 256], dtype=torch.int32, device=dev)
+    valid = torch.full((b,), t, dtype=torch.int32, device=dev)
+    args = (qp, pool.k, pool.v, table, 0, start, valid)
+    got = A.attention_prefill_paged(*args)
+    torch.cuda.synchronize()
+    _at_block_and_apart_at_64(got, A.attention_prefill_paged_plain(*args),
+                              A.attention_prefill_paged_plain(*args, block=64))
+
+
+# ---------------------------------------------------------------------------
+# the `a8` mode: K15, K17, K21 and K22 against their plain versions
+
+A8_Q8_SHAPES = [(64, 128, 64), (192, 384, 64), (4096, 12288, 64), (11008, 4096, 64)]
+A8_Q4_SHAPES = [(64, 128, 32), (192, 384, 32), (4096, 12288, 32), (11008, 4096, 32)]
+
+
+def _a8_case(wrapper, plain, qt, x, kw, expect_a8):
+    n0, a0 = wrapper.launches, wrapper.launches_a8
+    got = wrapper(x, qt, mode="a8", **kw)
+    want = plain(x, qt, mode="a8", **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches_a8 - a0, wrapper.launches - n0) == ((1, 0) if expect_a8 else (0, 1))
+    _close(got, want, torch.bfloat16)
+    return got
+
+
+def _epilogue(rng, m, k, n, epi, dev):
+    kw = {}
+    if "norm" in epi:
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    if epi == "residual":
+        kw["residual"] = _rand(rng, (m, n), torch.bfloat16, dev)
+    if "rope" in epi:
+        hs = 8 if n < 1024 else 128
+        kw.update(rope_pos=torch.tensor(rng.integers(0, 2048, m), dtype=torch.int32, device=dev),
+                  rope_limit=(2 * n // 3) // hs * hs, rope_head=hs, rope_theta=10000.0)
+    return kw
+
+
+@pytest.mark.parametrize("m", [1, 8, 12, 40, 300])
+@pytest.mark.parametrize("shape", A8_Q8_SHAPES)
+@pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
+def test_q8_matmul_a8_kernel(m, shape, epi):
+    """The GEMV path (M <= 16, one or two 8-row chunks) and the tiled path
+    (M 40, 300) with each epilogue; where the JAX decision keeps reshape
+    math (K 11008 at 300 rows: 172 groups), the reshape kernel runs."""
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(40)
+    qt = _qt(rng, k, n, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = _epilogue(rng, m, k, n, epi, dev)
+    _a8_case(Q.q8_matmul, Q.q8_matmul_plain, qt, x, kw, Q.q8_a8_engages(m, k, n, gs))
+
+
+@pytest.mark.parametrize("m", [4, 12, 40, 512])
+@pytest.mark.parametrize("shape", [(64, 192, 64), (192, 256, 64), (4096, 11008, 64)])
+def test_q8_matmul_silu_a8_kernel(m, shape):
+    dev = _card()
+    k, h, gs = shape
+    rng = np.random.default_rng(41)
+    qt13 = _qt(rng, k, 2 * h, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    norm = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    a0 = Q.q8_matmul_silu.launches_a8
+    got = Q.q8_matmul_silu(x, qt13, norm_weight=norm, mode="a8")
+    want = Q.q8_matmul_silu_plain(x, qt13, norm_weight=norm, mode="a8")
+    torch.cuda.synchronize()
+    assert Q.q8_matmul_silu.launches_a8 == a0 + 1 and got.shape == (m, h)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 8, 12, 40, 300])
+@pytest.mark.parametrize("shape", A8_Q4_SHAPES)
+@pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
+def test_q4_matmul_a8_kernel(m, shape, epi):
+    """As the Q8 test; at 300 rows of K 4096 or 11008 (more than 2 MiB of
+    x) the JAX decision keeps dequant math and the dequant kernel runs."""
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(42)
+    qt = _q4t(rng, k, n, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = _epilogue(rng, m, k, n, epi, dev)
+    _a8_case(Q4.q4_matmul, Q4.q4_matmul_plain, qt, x, kw, Q4.q4_a8_engages(m, k, n, gs))
+
+
+@pytest.mark.parametrize("m", [4, 12, 40, 256])
+@pytest.mark.parametrize("shape", [(64, 192, 32), (192, 256, 32), (4096, 11008, 32)])
+@pytest.mark.parametrize("norm", [True, False])
+def test_q4_matmul_silu_a8_kernel(m, shape, norm):
+    dev = _card()
+    k, h, gs = shape
+    rng = np.random.default_rng(43)
+    qt13 = _q4t(rng, k, 2 * h, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = {}
+    if norm:
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    engages = Q4.q4_a8_engages(m, k, h, gs)
+    n0, a0 = Q4.q4_matmul_silu.launches, Q4.q4_matmul_silu.launches_a8
+    got = Q4.q4_matmul_silu(x, qt13, mode="a8", **kw)
+    want = Q4.q4_matmul_silu_plain(x, qt13, mode="a8", **kw)
+    torch.cuda.synchronize()
+    assert (Q4.q4_matmul_silu.launches_a8 - a0, Q4.q4_matmul_silu.launches - n0) == (
+        (1, 0) if engages else (0, 1))
+    _close(got, want, torch.bfloat16)
+
+
+def test_a8_wrappers_reject_group_sizes_the_kernels_lack():
+    dev = _card()
+    rng = np.random.default_rng(44)
+    qt = _qt(rng, 96, 64, 48, dev)
+    with pytest.raises(ValueError, match="group sizes"):
+        Q.q8_matmul(_rand(rng, (4, 96), torch.bfloat16, dev), qt, mode="a8")
