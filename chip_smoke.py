@@ -69,7 +69,26 @@ Phases, in order; each raises on failure and none is caught:
      cpu_q8_kv8_a8 and cpu_q4_a8, `a8` launched and q8_layer_fused never;
      and the 7B-width Q8 + int8-KV serve of phase 6 in `a8`, the reference
      int8 engine's configuration, with its logit check, control, launches
-     (K15 a8 65, K5 int8 32, K18 32 per decode step; no K23) and profile.
+     (K15 a8 65, K5 int8 32, K18 32 per decode step; no K23) and profile;
+  10. --layout stacked and the four-write KV commit (HIPLLAMA_KV_COMMIT=0):
+     K20 q8_matmul_layered in reshape and `a8` (QKV M 8 with norm and RoPE,
+     wo with the residual, W1|W3 with the norm, W2 with the residual, on
+     the last layer of the 7B-width stacked weights) against their plain
+     versions, with the time, the plain time, cuBLAS on the layer
+     dequantized to bf16, the bound and K15's time on the layer's view
+     beside; K8 kv_write_rows (bf16 and int8 planes) and K9
+     scale_write_rows at 7B shapes, bit-exact, beside one index_put_ doing
+     the same write; the probe of tools/kv_direct_probe.py (K8 writes a row
+     at every position of a slot, directly, bit-exact); the golden fixture
+     with --layout stacked (Q8 on both caches, and `a8`), scored against the
+     JAX package's assets/out/cpu_q8_stacked, cpu_q8_kv8_stacked and
+     cpu_q8_a8_stacked, K20 launched and K23 and K5 never; the fixture
+     under HIPLLAMA_KV_COMMIT=0 (fp32 byte-identical to assets/out/cpu_f32,
+     Q8 --kv int8 byte-identical to its default-commit run), K8 and K9
+     launched and K2 never; and the 7B-width Q8 + int8-KV serve with
+     --layout stacked in reshape and in `a8`, with its logit check,
+     control, launches (K20 128, K1 int8 32, K2 1, K15 1 per decode step)
+     and profile.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -223,6 +242,16 @@ KERNEL_SOURCES = {
     "q4_matmul_a8": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:218"),
     "q4_matmul_silu_a8": ("hip_llama_tpu_torch/csrc/quant4.cu",
                           "hip_llama_tpu/ops/quant4.py:494"),
+    # --layout stacked (K20 and its `a8` branch) and the four-write commit
+    # (K8 with its int8 planes, K9)
+    "q8_matmul_layered": ("hip_llama_tpu_torch/csrc/quant.cu",
+                          "hip_llama_tpu/ops/quant.py:1567"),
+    "q8_matmul_layered_a8": ("hip_llama_tpu_torch/csrc/quant.cu",
+                             "hip_llama_tpu/ops/quant.py:1660"),
+    "kv_write_rows": ("hip_llama_tpu_torch/csrc/cache.cu", "hip_llama_tpu/ops/cache.py:140"),
+    "kv_write_rows_int8": ("hip_llama_tpu_torch/csrc/cache.cu",
+                           "hip_llama_tpu/ops/cache.py:140"),
+    "scale_write_rows": ("hip_llama_tpu_torch/csrc/cache.cu", "hip_llama_tpu/ops/cache.py:427"),
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
@@ -317,6 +346,47 @@ Q8_A8_PATH = ("q8_matmul_a8", "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn",
               "scale_write_chunk", "attention_prefill_int8")
 Q8_A8_STEP = {"q8_matmul_a8": 2 * _L + 1, "attention_decode_fused_int8": _L, "q8_matmul_ffn": _L,
               "kv_commit_rows_int8": 1}
+# --layout stacked: the decode layer is four K20 products and K1 on the
+# flat QKV rows, never K23, K5 or K18 (the prefill is the unrolled one on
+# the layers' views, K18 included); the fixture's reshape runs fork at
+# exact bf16 logit ties and are held to the average bar
+# (tests/test_torch_stacked.py::test_stacked_serve_forks_from_jax_only_at_near_ties)
+NOT_STACKED = ("q8_layer_fused", "q8_layer_fused_int8", "attention_decode_fused",
+               "attention_decode_fused_int8")
+GOLDEN_STACKED_RUNS = {
+    "q8 stacked": (["--quant", "q8", "--layout", "stacked"], "1", "cpu_q8_stacked",
+                   ("q8_matmul_layered", "attention_decode", "q8_matmul", "q8_matmul_ffn",
+                    "kv_commit_rows", "kv_write_chunk", "attention_prefill"), False),
+    "q8 --kv int8 stacked": (["--quant", "q8", "--kv", "int8", "--layout", "stacked"], "1",
+                             "cpu_q8_kv8_stacked",
+                             ("q8_matmul_layered", "attention_decode_int8", "q8_matmul",
+                              "q8_matmul_ffn") + INT8_CACHE_PATH, False),
+}
+GOLDEN_STACKED_A8_RUNS = {
+    "q8 stacked a8": (["--quant", "q8", "--layout", "stacked"], "1", "cpu_q8_a8_stacked",
+                      ("q8_matmul_layered_a8", "attention_decode", "q8_matmul_a8",
+                       "q8_matmul_silu_a8", "kv_commit_rows", "kv_write_chunk",
+                       "attention_prefill"), True),
+}
+# HIPLLAMA_KV_COMMIT=0: the four writes, never K2
+GOLDEN_KV_COMMIT_RUNS = {
+    "fp32, four-write commit": (["--dtype", "float32"], "1", "cpu_f32",
+                                ("attention_decode", "kv_write_rows", "kv_write_chunk",
+                                 "attention_prefill"), True),
+    "q8 --kv int8, four-write commit": (["--quant", "q8", "--kv", "int8"], "1", "cpu_q8_kv8",
+                                        ("q8_layer_fused_int8", "kv_write_rows_int8",
+                                         "scale_write_rows") + INT8_CACHE_PATH[1:], False),
+}
+Q8_STACKED_PATH = ("q8_matmul_layered", "attention_decode_int8", "q8_matmul", "q8_matmul_ffn",
+                   "q8_matmul_silu", "kv_commit_rows_int8", "kv_write_chunk_int8",
+                   "scale_write_chunk", "attention_prefill_int8")
+Q8_STACKED_STEP = {"q8_matmul_layered": 4 * _L, "attention_decode_int8": _L,
+                   "kv_commit_rows_int8": 1, "q8_matmul": 1}
+Q8_STACKED_A8_PATH = ("q8_matmul_layered_a8", "attention_decode_int8", "q8_matmul_a8",
+                      "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn", "kv_commit_rows_int8",
+                      "kv_write_chunk_int8", "scale_write_chunk", "attention_prefill_int8")
+Q8_STACKED_A8_STEP = {"q8_matmul_layered_a8": 4 * _L, "attention_decode_int8": _L,
+                      "kv_commit_rows_int8": 1, "q8_matmul_a8": 1}
 Q8_INT8_PAGED_STEP = {"attention_decode_paged_int8": _L, "kv_write_rows_paged_int8": 1,
                       "scale_write_rows_paged": 1, "q8_matmul": 4 * _L + 1}
 # int4 on the fixture, at the bars of the Q8 runs (bf16 cache: both; int8
@@ -508,12 +578,13 @@ def phase_kernels(dtype) -> dict[str, dict]:
 
 def q8_kernel_case(name: str, label: str, fn, plain_fn, lib_fn, n_bytes: float,
                    flops: float, atol: float = Q8_ATOL, rtol: float = Q8_RTOL,
-                   op_dtype=torch.bfloat16) -> dict:
+                   op_dtype=torch.bfloat16, graph: bool = False) -> dict:
     """One kernel case: fn(i) and plain_fn(i) on the same inputs (i rotates
     over weight copies so that each call finds its weights cold in L2),
     compared elementwise at atol + rtol * |plain| (each output of a tuple),
-    then timed. lib_fn None: no single library call does this work;
-    op_dtype: the type whose peak rate bounds the operations."""
+    then timed (with `graph`, fn and lib_fn as a CUDA graph's replay).
+    lib_fn None: no single library call does this work; op_dtype: the type
+    whose peak rate bounds the operations."""
     got, want = fn(0), plain_fn(0)
     torch.cuda.synchronize()
     pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
@@ -521,9 +592,9 @@ def q8_kernel_case(name: str, label: str, fn, plain_fn, lib_fn, n_bytes: float,
     ok = all(bool(((a.float() - b.float()).abs() <= atol + rtol * b.float().abs()).all())
              for a, b in pairs)
     del got, want, pairs
-    ms = cuda_ms(fn)
+    ms = cuda_ms(fn, graph=graph)
     plain = cuda_ms(plain_fn, iters=4, warmup=1)
-    lib = None if lib_fn is None else cuda_ms(lib_fn)
+    lib = None if lib_fn is None else cuda_ms(lib_fn, graph=graph)
     bound = bound_ms(n_bytes, flops, op_dtype)
     lib_s = "n/a" if lib is None else f"{lib:.4f}"
     print(f"kernel {name} [{label}] bfloat16: max_abs_err {err:.3g} (atol {atol:g} + rtol "
@@ -1339,6 +1410,210 @@ def phase_a8_goldens() -> dict[str, dict[str, int]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: --layout stacked and the four-write KV commit
+
+
+def phase_stacked_kernels(params: QuantLlamaParams) -> dict[str, dict]:
+    """K20 in reshape and `a8` on the last layer of the 7B-width stacked
+    weights of `params` (batch 8; the timed calls walk the layers down from
+    the last, so each finds its layer cold in L2), against their plain
+    versions, each beside K15 on the layer's view (the same device code on
+    the same addresses), in turns. A decode product's device time is below
+    its wrapper's host time, so the kernels and the library call are timed
+    as a CUDA graph's replay. Library yardstick: cuBLAS `x @ w` on the
+    layer dequantized to bf16. Bound: the weight, scale, activation, norm,
+    residual and output bytes once each (and for `a8` the quantized xi and
+    sx), or the operations at the bf16 (reshape) or int8 (`a8`) peak."""
+    dev = torch.device("cuda")
+    c = LLAMA2_7B
+    n_layers, d, kvd, gs, m = c.n_layers, c.dim, c.kv_dim, 64, 8
+    last = n_layers - 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    pos = torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32, device=dev)
+    rope = dict(rope_pos=pos, rope_limit=d + kvd, rope_head=c.head_size, rope_theta=c.rope_theta)
+    res = rnd(m, d)
+    # (label, stacked weight, stacked norm weight, other kwargs, extra bytes)
+    cases = [("QKV M 8, norm + RoPE", params.wq, params.rms_att, rope, d * 4 + m * 4),
+             ("wo M 8, residual", params.wo, None, dict(residual=res), m * d * 2),
+             ("W1|W3 M 8, norm", params.w1, params.rms_ffn, {}, d * 4),
+             ("W2 M 8, residual", params.w2, None, dict(residual=res), m * d * 2)]
+    out: dict[str, list] = {}
+    for mode, name in (("reshape", "q8_matmul_layered"), ("a8", "q8_matmul_layered_a8")):
+        for label, w, norm, kw, extra in cases:
+            _, k, n = w.q.shape
+            if mode == "a8" and not Q.q8_layered_a8_engages(m, k, n, gs):
+                raise AssertionError(f"K20 keeps reshape math at {label}")
+            x = rnd(m, k)
+            wd = [Q.q8_dequantize(Q.layer_of(w, l)).to(torch.bfloat16) for l in (last, last - 1)]
+
+            def layer(i):
+                return (last - i) % n_layers
+
+            def k15(i, w=w, norm=norm, kw=kw, x=x, mode=mode):
+                l = layer(i)
+                return Q.q8_matmul(x, Q.layer_of(w, l), mode=mode, **kw,
+                                   norm_weight=None if norm is None else norm[l])
+
+            n_bytes = k * n + (k // gs) * n * 4 + m * k * 2 + m * n * 2 + extra
+            if mode == "a8":
+                n_bytes += m * k + m * (k // gs) * 4
+            r = q8_kernel_case(
+                name, label,
+                lambda i, w=w, norm=norm, kw=kw, x=x, mode=mode: Q.q8_matmul_layered(
+                    x, w, layer(i), norm_weight=norm, mode=mode, **kw),
+                lambda i, w=w, norm=norm, kw=kw, x=x, mode=mode: Q.q8_matmul_layered_plain(
+                    x, w, layer(i), norm_weight=norm, mode=mode, **kw),
+                lambda i, x=x, wd=wd: x @ wd[i % 2], n_bytes, 2 * m * k * n,
+                op_dtype=torch.int8 if mode == "a8" else torch.bfloat16, graph=True)
+            # in turns, K20 (timed above), K15, K15, K20: one ordering
+            # effect on both sides
+            k15_ms = (cuda_ms(k15, graph=True), cuda_ms(k15, graph=True))
+            k20_ms = (r["ms"], cuda_ms(lambda i, w=w, norm=norm, kw=kw, x=x, mode=mode:
+                                       Q.q8_matmul_layered(x, w, layer(i), norm_weight=norm,
+                                                           mode=mode, **kw), graph=True))
+            r["ms"], r["k15_ms"] = sum(k20_ms) / 2, sum(k15_ms) / 2
+            print(f"kernel {name} [{label}]: in turns, K20 ms {k20_ms[0]:.4f} and "
+                  f"{k20_ms[1]:.4f} (mean {r['ms']:.4f}), K15 on the layer's view ms "
+                  f"{k15_ms[0]:.4f} and {k15_ms[1]:.4f} (mean {r['k15_ms']:.4f})", flush=True)
+            out.setdefault(name, []).append(r)
+            del wd
+    return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+            for name, rs in out.items()}
+
+
+def phase_kv_commit_kernels() -> dict[str, dict]:
+    """K8 kv_write_rows on a bf16 and an int8 plane and K9 scale_write_rows
+    at 7B shapes (B 8, L 32, KVH 32, S 512, HS 128), bit-exact against their
+    plain versions with and without a valid mask and with positions -1 and
+    S (which write nothing), then timed at ragged positions inside the
+    cache; library: one index_put_ making the same write. Bound: the rows
+    read once and written once, and the positions."""
+    dev = torch.device("cuda")
+    b, n_layers, kvh, s, hs = 8, 32, 32, 512, 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    pos = torch.tensor([0, 1, 100, 255, 256, 300, 450, s - 1], dtype=torch.int32, device=dev)
+    edge = torch.tensor([-1, s, 100, 255, 256, 300, 450, s - 1], dtype=torch.int32, device=dev)
+    valid = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)
+    idx = (torch.arange(b, device=dev)[:, None, None],
+           torch.arange(n_layers, device=dev)[None, :, None],
+           torch.arange(kvh, device=dev)[None, None, :], pos.long()[:, None, None])
+    out = {}
+
+    def case(name, plane, rows, write, plain, vals, with_valid):
+        err = 0.0
+        for p, v in ((pos, None), (edge, None)) + (((pos, valid),) if with_valid else ()):
+            args = (p, v) if with_valid else (p,)
+            a, w = write(plane.clone(), rows, *args), plain(plane.clone(), rows, *args)
+            torch.cuda.synchronize()
+            if not torch.equal(a, w):
+                raise AssertionError(f"{name} differs from its plain version")
+            err = max(err, max_err(a, w))
+        ms = cuda_ms(lambda i: write(plane, rows, pos), graph=True)
+        plain_ms = cuda_ms(lambda i: plain(plane, rows, pos))
+        lib = cuda_ms(lambda i: plane.index_put_(idx, vals), graph=True)
+        n_bytes = 2 * rows.numel() * rows.element_size() + 4 * b
+        bound = bound_ms(n_bytes, 0, torch.bfloat16)
+        print(f"kernel {name}: max_abs_err {err:.3g} (bit-exact) ok; ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms (index_put_) {lib:.4f} bound_ms {bound[0]:.5f} "
+              f"({bound[1]})", flush=True)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib, bound=bound)
+
+    plane = torch.randn((b, n_layers, kvh, s, hs), generator=g, device=dev, dtype=torch.bfloat16)
+    rows = torch.randn((n_layers, b, kvh, hs), generator=g, device=dev, dtype=torch.bfloat16)
+    case("kv_write_rows", plane, rows, C.kv_write_rows, C.kv_write_rows_plain,
+         rows.permute(1, 0, 2, 3), True)
+    del plane
+    plane = torch.randint(-127, 128, (b, n_layers, kvh, s, hs), generator=g, device=dev,
+                          dtype=torch.int8)
+    rows = torch.randint(-127, 128, (n_layers, b, kvh, hs), generator=g, device=dev,
+                         dtype=torch.int8)
+    case("kv_write_rows_int8", plane, rows, C.kv_write_rows, C.kv_write_rows_plain,
+         rows.permute(1, 0, 2, 3), True)
+    del plane
+    sc = torch.rand((b, n_layers, kvh, s), generator=g, device=dev)
+    srows = torch.rand((n_layers, b, kvh), generator=g, device=dev)
+    case("scale_write_rows", sc, srows, C.scale_write_rows, C.scale_write_rows_plain,
+         srows.permute(1, 0, 2), False)
+    return out
+
+
+def probe_kv_direct() -> None:
+    """The question of tools/kv_direct_probe.py (:75), answered on the card
+    by K8: each slot of an int8 and a bf16 cache (B 4, L 3, KVH 8, S 256,
+    HS 128, as the probe) takes a row at every position 0..S-1 through one
+    kv_write_rows launch per position, stored directly (the kernel has no
+    window and never reads the cache), and the cache ends bit-exact against
+    the plain version's, every row written once."""
+    dev = torch.device("cuda")
+    b, nl, kvh, s, hs = 4, 3, 8, 256, 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for dtype in (torch.int8, torch.bfloat16):
+        if dtype == torch.int8:
+            plane = torch.randint(-100, 100, (b, nl, kvh, s, hs), generator=g, device=dev,
+                                  dtype=dtype)
+            rows = torch.randint(-100, 100, (s, nl, b, kvh, hs), generator=g, device=dev,
+                                 dtype=dtype)
+        else:
+            plane = torch.randn((b, nl, kvh, s, hs), generator=g, device=dev, dtype=dtype)
+            rows = torch.randn((s, nl, b, kvh, hs), generator=g, device=dev, dtype=dtype)
+        want = plane.clone()
+        for p in range(s):
+            pos = torch.tensor([(p + 37 * i) % s for i in range(b)], dtype=torch.int32,
+                               device=dev)
+            C.kv_write_rows(plane, rows[p], pos)
+            C.kv_write_rows_plain(want, rows[p], pos)
+        torch.cuda.synchronize()
+        ok = torch.equal(plane, want)
+        every = all(torch.equal(plane[i, :, :, (p + 37 * i) % s], rows[p, :, i])
+                    for i in range(b) for p in range(0, s, 17))
+        print(f"probe kv_direct (tools/kv_direct_probe.py:75, ported as K8) {str(dtype)[6:]}: "
+              f"rows written at every position 0..{s - 1} of {b} slots, one direct store "
+              f"each, no window read; bit-exact {ok}, sampled rows in place {every}", flush=True)
+        if not (ok and every):
+            raise AssertionError(f"kv_write_rows misplaced a row ({dtype})")
+
+
+def phase_stacked_goldens() -> dict[str, dict[str, int]]:
+    """The fixture with --layout stacked (Q8 on both caches, and `a8` with
+    block_n 64, as the JAX goldens were made), scored against the JAX
+    package's stacked outputs, K20 launched and K23 and K5 never; then under
+    HIPLLAMA_KV_COMMIT=0 the fp32 fixture, byte-identical to cpu_f32, and Q8
+    --kv int8, byte-identical to its run with the default commit, K8 and
+    K9 launched and K2 never."""
+    launches = phase_golden_runs(GOLDEN_STACKED_RUNS)[0]
+    with knobs(A8_KNOBS["q8"]):
+        launches.update(phase_golden_runs(GOLDEN_STACKED_A8_RUNS)[0])
+    for label, counts in launches.items():
+        bad = {n: counts[n] for n in NOT_STACKED if counts[n]}
+        if bad:
+            raise AssertionError(f"kernels of the unrolled layer launched on {label}: {bad}")
+    with knobs({"HIPLLAMA_KV_COMMIT": "0"}):
+        l4, o4 = phase_golden_runs(GOLDEN_KV_COMMIT_RUNS)
+    label = "q8 --kv int8, fused layer"
+    o2 = phase_golden_runs({label: GOLDEN_INT8_RUNS[label]})[1]
+    for c in CORPORA:
+        with open(os.path.join(REPO, "assets", "out", "cpu_f32", f"{c}_in_8.out"), "rb") as f:
+            if o4["fp32, four-write commit"][c] != f.read():
+                raise AssertionError(f"fp32 with the four-write commit forked on {c}")
+        if o4["q8 --kv int8, four-write commit"][c] != o2[label][c]:
+            raise AssertionError(f"q8 --kv int8: the four-write commit's {c} output differs "
+                                 "from the default commit's")
+    print("golden (four-write commit): fp32 byte-identical to assets/out/cpu_f32; q8 --kv int8 "
+          "byte-identical to the default commit's outputs", flush=True)
+    for label, counts in l4.items():
+        k2 = counts["kv_commit_rows"] + counts["kv_commit_rows_int8"]
+        if k2:
+            raise AssertionError(f"kv_commit_rows launched {k2} times under "
+                                 f"HIPLLAMA_KV_COMMIT=0 ({label})")
+    launches.update(l4)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the golden fixture through the CLI
 
 
@@ -1539,12 +1814,15 @@ def make_prompts(tok: Tokenizer, targets: list[int]) -> list[str]:
     return prompts
 
 
-def random_7b_qparams(cfg: ModelConfig, dev, int4: bool = False) -> QuantLlamaParams:
+def random_7b_qparams(cfg: ModelConfig, dev, int4: bool = False,
+                      stacked: bool = False) -> QuantLlamaParams:
     """Q8_0 params (group size 64), or with `int4` int4 params (group size
     32, the embedding Q8_0 of group size 64), of seeded bf16 draws scaled as
     in random_7b_params, quantized on the card one layer's weight at a time,
     so no full-precision copy of the model exists. The classifier is the
-    quantized transposed embedding with the BOS and EOS columns zero."""
+    quantized transposed embedding with the BOS and EOS columns zero. With
+    `stacked`, the same Q8_0 weights in the stacked layout (--layout
+    stacked), each layer quantized into its slice of the stacked tensors."""
     g = torch.Generator(device=dev).manual_seed(SEED + (4 if int4 else 1))
     c = cfg
 
@@ -1559,23 +1837,34 @@ def random_7b_qparams(cfg: ModelConfig, dev, int4: bool = False) -> QuantLlamaPa
         return torch.ones(n, device=dev, dtype=torch.float32)
 
     layers = {"wq": [], "wo": [], "w1": [], "w2": []}
-    for _ in range(c.n_layers):
-        layers["wq"].append(qt(mat(c.dim, c.dim, fan_in=c.dim), mat(c.dim, c.kv_dim, fan_in=c.dim),
-                               mat(c.dim, c.kv_dim, fan_in=c.dim)))
-        layers["wo"].append(qt(mat(c.dim, c.dim, fan_in=c.dim)))
-        layers["w1"].append(qt(mat(c.dim, c.hidden_dim, fan_in=c.dim),
-                               mat(c.dim, c.hidden_dim, fan_in=c.dim)))
-        layers["w2"].append(qt(mat(c.hidden_dim, c.dim, fan_in=c.hidden_dim)))
+
+    def add(name: str, l: int, t):
+        if not stacked:
+            layers[name].append(t)
+            return
+        if l == 0:
+            layers[name] = Q.QTensor(t.q.new_empty((c.n_layers, *t.q.shape)),
+                                     t.s.new_empty((c.n_layers, *t.s.shape)))
+        layers[name].q[l] = t.q
+        layers[name].s[l] = t.s
+
+    for l in range(c.n_layers):
+        add("wq", l, qt(mat(c.dim, c.dim, fan_in=c.dim), mat(c.dim, c.kv_dim, fan_in=c.dim),
+                        mat(c.dim, c.kv_dim, fan_in=c.dim)))
+        add("wo", l, qt(mat(c.dim, c.dim, fan_in=c.dim)))
+        add("w1", l, qt(mat(c.dim, c.hidden_dim, fan_in=c.dim),
+                        mat(c.dim, c.hidden_dim, fan_in=c.dim)))
+        add("w2", l, qt(mat(c.hidden_dim, c.dim, fan_in=c.hidden_dim)))
     tok_emb = mat(c.vocab_size, c.dim, fan_in=c.dim)
     emb = Q.q8_quantize_weights(tok_emb.t(), 64)  # groups along each row of tok_emb
     wcls = tok_emb.t().contiguous()
     wcls[:, 1:3] = 0
+    norms = (torch.ones(c.n_layers, c.dim, device=dev) if stacked
+             else tuple(ones(c.dim) for _ in range(c.n_layers)))
     return QuantLlamaParams(
         tok_emb_q=emb.q.t().contiguous(), tok_emb_s=emb.s.t().contiguous(),
-        rms_att=tuple(ones(c.dim) for _ in range(c.n_layers)),
-        wq=tuple(layers["wq"]), wk=(), wv=(), wo=tuple(layers["wo"]),
-        rms_ffn=tuple(ones(c.dim) for _ in range(c.n_layers)),
-        w1=tuple(layers["w1"]), w2=tuple(layers["w2"]), w3=(),
+        rms_att=norms, wk=(), wv=(), rms_ffn=norms, w3=(),
+        **{name: w if stacked else tuple(w) for name, w in layers.items()},
         rms_final=ones(c.dim), wcls=qt(wcls),
     )
 
@@ -1583,6 +1872,10 @@ def random_7b_qparams(cfg: ModelConfig, dev, int4: bool = False) -> QuantLlamaPa
 def without_ffn0(params: QuantLlamaParams) -> QuantLlamaParams:
     """The control of the logit check: layer 0's FFN adds nothing (W2 zero:
     int8 codes 0, or int4 nibbles 8, the code 0, in both halves of a byte)."""
+    if params.stacked:
+        q = params.w2.q.clone()
+        q[0] = 0
+        return dataclasses.replace(params, w2=Q.QTensor(q, params.w2.s))
     w2 = list(params.w2)
     w2[0] = type(w2[0])(torch.full_like(w2[0].q, -120 if params.int4 else 0), w2[0].s)
     return dataclasses.replace(params, w2=tuple(w2))
@@ -1735,7 +2028,23 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
         raise AssertionError(f"{label}: launches per decode step {step_counts}, want {per_step}")
     profile_window(f"{label} decode step (batch 8)", 4,
                    lambda i: engine._do_step(cache, toks, pos0 + i, bm))
-    if control is not None and not params.int4 and not paged:
+    if not paged:
+        # the host's time to enqueue a decode step (the step itself, which
+        # returns device logits: no synchronize inside), beside its wall
+        # time, without the profiler: where they meet, the host bounds it
+        step = make_decode_step(cfg)
+        toks_t, pos_t = torch.from_numpy(toks).to(dev), torch.from_numpy(pos0).to(dev)
+        step(params, cache, toks_t, pos_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            step(params, cache, toks_t, pos_t + i)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        print(f"{label} decode step (batch 8), 10 steps without the profiler: host enqueue "
+              f"{(t1 - t0) / 10 * 1e3:.3f} ms/step, wall {(time.perf_counter() - t0) / 10 * 1e3:.3f}"
+              " ms/step", flush=True)
+    if control is not None and not params.int4 and not paged and not params.stacked:
         os.environ["HIPLLAMA_LAYER_FUSE"] = "0"
         try:
             four = make_decode_step(cfg)
@@ -1879,20 +2188,49 @@ def main() -> int:
         raise AssertionError(f"q8_layer_fused launched {fused} times in the a8 serve")
     del qparams
 
+    # phase 10: --layout stacked and the four-write KV commit
+    t10 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparams = random_7b_qparams(LLAMA2_7B, dev, stacked=True)
+    res_stacked = phase_stacked_kernels(sparams)
+    res_stacked.update(phase_kv_commit_kernels())
+    probe_kv_direct()
+    torch.cuda.empty_cache()
+    launches_golden.update(phase_stacked_goldens())
+    launches["q8 int8 stacked"] = phase_serve("7b q8 int8-kv stacked", sparams, Q8_LOGIT_TOL,
+                                              Q8_STACKED_PATH, Q8_STACKED_STEP,
+                                              control=without_ffn0, kv_quant=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with knobs({"HIPLLAMA_Q8_MODE": "a8"}):
+        launches["q8 int8 stacked a8"] = phase_serve(
+            "7b q8 int8-kv stacked a8", sparams, Q8_LOGIT_TOL, Q8_STACKED_A8_PATH,
+            Q8_STACKED_A8_STEP, control=without_ffn0, kv_quant=True)
+    for label in ("q8 int8 stacked", "q8 int8 stacked a8"):
+        bad = {n: launches[label][n] for n in NOT_STACKED if launches[label][n]}
+        if bad:
+            raise AssertionError(f"kernels of the unrolled layer launched in the {label} serve: "
+                                 f"{bad}")
+    del sparams
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
     # each kernel's count from the first serving path that runs it: the 7B
     # serves, then the golden runs (K5 and its int8 branch run only in the
     # four-kernel layer, K1's int8 branch in the dense fp32 --kv int8 run;
     # K21 and K22 count from the int4 serve; the paged kernels on bf16 or
     # fp32 pages from the fixture's --paged 16 runs)
     runs = [launches["dense"], launches["q8"], launches["q8 int8"], launches["q4"],
-            launches["q8 int8 paged"], launches["q8 int8 a8"],
+            launches["q8 int8 paged"], launches["q8 int8 a8"], launches["q8 int8 stacked"],
+            launches["q8 int8 stacked a8"],
             launches_golden["q8, four-kernel layer"], launches_golden["fp32 --kv int8"],
             launches_golden["q8 --kv int8, four-kernel layer"], launches_golden["q8 --paged 16"],
-            launches_golden["q4 a8"]]
+            launches_golden["q4 a8"], launches_golden["fp32, four-write commit"],
+            launches_golden["q8 --kv int8, four-write commit"]]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
-        r = (res[torch.bfloat16].get(name) or res_q8.get(name) or res_int8.get(name)
-             or res_q4.get(name) or res_paged.get(name) or res_a8[name])
+        r = next(d[name] for d in (res[torch.bfloat16], res_q8, res_int8, res_q4, res_paged,
+                                   res_a8, res_stacked) if name in d)
         n = next((run[name] for run in runs if run.get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

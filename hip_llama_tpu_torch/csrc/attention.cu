@@ -362,17 +362,24 @@ HIPLLAMA_EXPORT_ERROR_STRING
 // dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; H / KVH <= 8;
 // bk >= 1 cache rows per online-softmax block, each block's M x bk scores
 // held in shared memory (the wrapper keeps that within the card's limit).
+// q_bs, cur_bs: the slot strides, in elements, of q (B, H, HS) and of k_cur
+// and v_cur (B, KVH, HS), whose heads are contiguous: H * HS and KVH * HS
+// for packed operands, the QKV row's width where q, k_cur and v_cur are
+// column slices of the flat QKV projection (B, (H + 2 KVH) HS), read in
+// place (the stacked layer).
 extern "C" int attention_decode(const void* q, const void* k_cache, const void* v_cache,
                                 const void* pos, const void* k_cur, const void* v_cur,
                                 void* out, int B, int H, int KVH, int S, int HS, int L,
-                                int layer, int dtype, int bk, void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
+                                int layer, int q_bs, int cur_bs, int dtype, int bk,
+                                void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1 || q_bs < H * HS || cur_bs < KVH * HS)
+    return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                       \
   launch_decode<T, N>(q, k_cache, v_cache, cache, pos, k_cur, v_cur, out, B, H, KVH, scale, \
-                      H * HS, KVH * HS, bk, st)
+                      q_bs, cur_bs, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -412,19 +419,21 @@ extern "C" int attention_decode_fused(const void* qkv, const void* k_cache, cons
 // The int8 branches of the two above: int8 cache planes with fp32 scale
 // planes (B, L, KVH, S); q, the current rows and out in dtype (0 = float,
 // 1 = bfloat16); bk >= 1 cache rows per block, each block's M x bk scores
-// held in shared memory (the wrapper keeps that within the card's limit).
+// held in shared memory (the wrapper keeps that within the card's limit);
+// q_bs and cur_bs as attention_decode's.
 extern "C" int attention_decode_int8(const void* q, const void* k_cache, const void* v_cache,
                                      const void* k_scale, const void* v_scale, const void* pos,
                                      const void* k_cur, const void* v_cur, void* out, int B,
-                                     int H, int KVH, int S, int HS, int L, int layer, int dtype,
-                                     int bk, void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
+                                     int H, int KVH, int S, int HS, int L, int layer, int q_bs,
+                                     int cur_bs, int dtype, int bk, void* stream) {
+  if (H % KVH || H / KVH > kMaxM || bk < 1 || q_bs < H * HS || cur_bs < KVH * HS)
+    return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                        \
   launch_decode_int8<T, N>(q, k_cache, v_cache, k_scale, v_scale, cache, pos, k_cur, v_cur, \
-                           out, B, H, KVH, scale, H * HS, KVH * HS, bk, st)
+                           out, B, H, KVH, scale, q_bs, cur_bs, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }

@@ -11,6 +11,14 @@
 // JAX package writes absmax / 127.0 (cache.py:264-273, :553), which XLA
 // compiles into that product with the reciprocal; ops/cache.py::
 // quantize_kv_rows, the plain version, computes the same.
+// kv_write_rows replaces hip_llama_tpu/ops/cache.py::kv_write_rows (K8):
+// one plane's step rows (L, B, KVH, HS), in the plane's dtype (int8 rows
+// arrive quantized by quantize_kv_rows), land at (b, l, :, pos[b], :) for
+// every layer, skipping a slot whose valid[b] is 0; scale_write_rows
+// replaces cache.py::scale_write_rows (K9): one scale plane's (L, B, KVH)
+// fp32 row scales at (b, l, :, pos[b]). Together with quantize_kv_rows they
+// are the four-write commit the JAX step takes where K2 does not run
+// (HIPLLAMA_KV_COMMIT=0): one launch per plane, as there.
 // kv_write_chunk replaces hip_llama_tpu/ops/cache.py::kv_write_chunk: one
 // layer's prefill chunk rows, (B, T, KVH, HS) in the cache's dtype, land at
 // start[b] + j for j < valid[b] and start[b] + j < S, K and V in one launch
@@ -57,15 +65,14 @@ constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;  // grid-stride: a few waves of the SMs
 
 // The row copies move opaque units V (16, 8, 4, 2 or 1 bytes: the widest
-// that divides a row's bytes), whatever the element type.
+// that divides a row's bytes), whatever the element type. One plane's step
+// rows (L, B, KVH, row_units) to (b, l, :, pos[b]), grid-stride along x.
 template <typename V>
-__global__ void __launch_bounds__(kThreads) kv_commit_rows_kernel(
-    void* __restrict__ k_cache, void* __restrict__ v_cache,
-    const void* __restrict__ k_rows, const void* __restrict__ v_rows,
-    const int* __restrict__ pos, const int* __restrict__ valid,
-    int B, int L, int KVH, int S, int row_units) {
-  const V* rows = static_cast<const V*>(blockIdx.y == 0 ? k_rows : v_rows);
-  V* cache = static_cast<V*>(blockIdx.y == 0 ? k_cache : v_cache);
+__device__ __forceinline__ void write_step_rows(V* __restrict__ cache,
+                                                const V* __restrict__ rows,
+                                                const int* __restrict__ pos,
+                                                const int* __restrict__ valid, int B, int L,
+                                                int KVH, int S, int row_units) {
   const long long n = (long long)L * B * KVH * row_units;
   for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
        e += (long long)gridDim.x * kThreads) {
@@ -79,6 +86,43 @@ __global__ void __launch_bounds__(kThreads) kv_commit_rows_kernel(
     const int p = pos[b];
     if (p < 0 || p >= S) continue;
     cache[((((long long)b * L + l) * KVH + g) * S + p) * row_units + dv] = rows[e];
+  }
+}
+
+// K2, dense planes: grid row 0 writes K, row 1 V
+template <typename V>
+__global__ void __launch_bounds__(kThreads) kv_commit_rows_kernel(
+    void* __restrict__ k_cache, void* __restrict__ v_cache,
+    const void* __restrict__ k_rows, const void* __restrict__ v_rows,
+    const int* __restrict__ pos, const int* __restrict__ valid,
+    int B, int L, int KVH, int S, int row_units) {
+  write_step_rows<V>(static_cast<V*>(blockIdx.y == 0 ? k_cache : v_cache),
+                     static_cast<const V*>(blockIdx.y == 0 ? k_rows : v_rows), pos, valid, B,
+                     L, KVH, S, row_units);
+}
+
+// K8: one plane of any dtype
+template <typename V>
+__global__ void __launch_bounds__(kThreads) kv_write_rows_kernel(
+    void* __restrict__ cache, const void* __restrict__ rows, const int* __restrict__ pos,
+    const int* __restrict__ valid, int B, int L, int KVH, int S, int row_units) {
+  write_step_rows<V>(static_cast<V*>(cache), static_cast<const V*>(rows), pos, valid, B, L, KVH,
+                     S, row_units);
+}
+
+// K9: one scale plane (B, L, KVH, S), rows (L, B, KVH)
+__global__ void __launch_bounds__(kThreads) scale_write_rows_kernel(
+    float* __restrict__ scale, const float* __restrict__ srows, const int* __restrict__ pos,
+    int B, int L, int KVH, int S) {
+  const long long n = (long long)L * B * KVH;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n;
+       e += (long long)gridDim.x * kThreads) {
+    const int g = (int)(e % KVH);
+    const int b = (int)((e / KVH) % B);
+    const int l = (int)(e / ((long long)KVH * B));
+    const int p = pos[b];
+    if (p < 0 || p >= S) continue;
+    scale[(((long long)b * L + l) * KVH + g) * S + p] = srows[e];
   }
 }
 
@@ -303,6 +347,29 @@ extern "C" int kv_commit_rows_int8(void* k_cache, void* v_cache, void* k_scale, 
         (const __nv_bfloat16*)k_rows, (const __nv_bfloat16*)v_rows, (const int*)pos,
         (const int*)valid, B, L, KVH, S, HS);
   }
+  return (int)cudaGetLastError();
+}
+
+// K8 on one plane (B, L, KVH, S, HS) of any dtype; rows (L, B, KVH, HS) in
+// the plane's dtype; row_bytes: one row in bytes. valid may be null.
+extern "C" int kv_write_rows(void* cache, const void* rows, const void* pos, const void* valid,
+                             int B, int L, int KVH, int S, int row_bytes, void* stream) {
+  if (row_bytes < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(V, units)                                                                   \
+  kv_write_rows_kernel<V><<<blocks_for((long long)L * B * KVH * (units)), kThreads, 0, st>>>( \
+      cache, rows, (const int*)pos, (const int*)valid, B, L, KVH, S, units)
+  HIPLLAMA_UNIT_SWITCH(row_bytes, CALL);
+#undef CALL
+  return (int)cudaGetLastError();
+}
+
+// K9 on one fp32 scale plane (B, L, KVH, S); srows (L, B, KVH) fp32
+extern "C" int scale_write_rows(void* scale, const void* srows, const void* pos, int B, int L,
+                                int KVH, int S, void* stream) {
+  scale_write_rows_kernel<<<blocks_for((long long)L * B * KVH), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      (float*)scale, (const float*)srows, (const int*)pos, B, L, KVH, S);
   return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,18 @@
 // strips' fp32 partials (H / 64 x M x N x 4 bytes: 22 MB at 7B and M 8),
 // written once and read once by the reduce pass that adds them in order.
 //
+// q8_matmul_layered replaces hip_llama_tpu/ops/quant.py::q8_matmul_layered
+// (K20, _q8_kernel_layered and its norm / res / rope wrappers): q8_matmul
+// on layer `layer` of a stacked weight q (L, K, N), s (L, K/gs, N) with a
+// stacked norm weight g (L, K). The TPU kernel takes the layer as a
+// scalar-prefetched index that its BlockSpecs map to the layer's tiles; the
+// decode loop here runs on the host, which knows the layer, so the entry
+// point takes it as an int and addresses layer l at l*K*N, l*(K/gs)*N and
+// l*K of the stacked base pointers before it runs q8_matmul's kernels. No
+// layer is copied, and the bound and design are q8_matmul's.
+// q8_matmul_layered_a8 is its `a8` branch, through q8_matmul_a8's kernels;
+// the wrapper decides which runs by K20's rule, not K15's.
+//
 // q8_matmul_a8 and q8_matmul_silu_a8 are the `a8` branches of the first two
 // (a8.cuh): the activations quantized per (row, group) by one pass with the
 // rmsnorm fused, int8 x int8 dots with int32 sums per group, the fp32
@@ -362,4 +374,48 @@ extern "C" int q8_matmul_silu_a8(const void* x, const void* q13, const void* s13
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
   return hipllama::a8::launch_mma<true, false>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs,
                                                none, out, st);
+}
+
+namespace {
+// layer l of a stacked weight and norm weight: q (L, K, N) int8, s (L,
+// K/gs, N) fp32, g (L, K) fp32 or null
+struct LayerPtrs {
+  const void* q;
+  const void* s;
+  const void* g;
+};
+
+LayerPtrs layer_ptrs(const void* q, const void* s, const void* g, int K, int N, int gs,
+                     int layer) {
+  const size_t kn = (size_t)K * N;
+  return {static_cast<const int8_t*>(q) + (size_t)layer * kn,
+          static_cast<const float*>(s) + (size_t)layer * (K / gs) * N,
+          g == nullptr ? nullptr : static_cast<const float*>(g) + (size_t)layer * K};
+}
+}  // namespace
+
+// q8_matmul on layer `layer` of the stacked q, s and g; arguments as
+// q8_matmul's, the layer after the ints.
+extern "C" int q8_matmul_layered(const void* x, const void* q, const void* s, const void* g,
+                                 const void* res, const void* pos, void* out, void* xn_ws,
+                                 void* part_ws, int M, int K, int N, int gs, int split,
+                                 int kslice, int rope_limit, int rope_hs, int layer,
+                                 float rope_coef, float eps, void* stream) {
+  if (layer < 0 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
+  const LayerPtrs w = layer_ptrs(q, s, g, K, N, gs, layer);
+  return q8_matmul(x, w.q, w.s, w.g, res, pos, out, xn_ws, part_ws, M, K, N, gs, split, kslice,
+                   rope_limit, rope_hs, rope_coef, eps, stream);
+}
+
+// q8_matmul_a8 on layer `layer` of the stacked q, s and g; arguments as
+// q8_matmul_a8's, the layer after the ints.
+extern "C" int q8_matmul_layered_a8(const void* x, const void* q, const void* s, const void* g,
+                                    const void* res, const void* pos, void* out, void* xi_ws,
+                                    void* sx_ws, void* part_ws, int M, int K, int N, int gs,
+                                    int split, int kslice, int rope_limit, int rope_hs,
+                                    int layer, float rope_coef, float eps, void* stream) {
+  if (layer < 0 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
+  const LayerPtrs w = layer_ptrs(q, s, g, K, N, gs, layer);
+  return q8_matmul_a8(x, w.q, w.s, w.g, res, pos, out, xi_ws, sx_ws, part_ws, M, K, N, gs,
+                      split, kslice, rope_limit, rope_hs, rope_coef, eps, stream);
 }

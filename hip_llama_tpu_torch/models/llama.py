@@ -52,6 +52,22 @@ by the params' type.
   takes q8_matmul_ffn only where the JAX kernel does not decline
   (ops/quant.py::ffn_takes_kernel), since its fallback's products run `a8`
   and the kernel keeps reshape math.
+- Q8 params in the stacked layout (`--layout stacked`,
+  params.fuse_stacked_quant_params) take the JAX package's stacked decode
+  branch (llama.py:618-683), which comes before every other Q8 choice: per
+  layer q8_matmul_layered (K20) on QKV with the norm prologue and RoPE
+  epilogue, attention_decode (K1) reading q, k and v in place from the flat
+  QKV rows, K20 on wo with the residual, K20 on W1|W3 with the norm
+  prologue, the bf16 gate `silu_gate_bf16` and K20 on W2 with the residual;
+  never K23, K5, K17 or K18. Their prefill is the unrolled one on per-layer
+  views of the stacked tensors (params.layer_views), as the JAX prefill's
+  scan slices each layer (llama.py:929-942).
+- The decode step commits its rows with kv_commit_rows (K2) unless
+  HIPLLAMA_KV_COMMIT=0 (read when the step is made): then with the JAX
+  step's four writes (llama.py:477-491), quantize_kv_rows on an int8 cache,
+  kv_write_rows (K8) on each plane and scale_write_rows (K9) on each scale
+  plane, which write the same values. The JAX package's TPU tile rules
+  that also send it there (llama.py:467-473) are not copied.
 - `plain=True` runs every kernel's plain PyTorch version instead, whatever
   the device: the yardstick the kernel path is held against on the card.
 """
@@ -66,7 +82,12 @@ import torch
 import torch.nn.functional as F
 
 from hip_llama_tpu_torch.config import ModelConfig
-from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams, resolve_device
+from hip_llama_tpu_torch.models.params import (
+    LlamaParams,
+    QuantLlamaParams,
+    layer_views,
+    resolve_device,
+)
 from hip_llama_tpu_torch.ops import attention as _attn
 from hip_llama_tpu_torch.ops import cache as _cache
 from hip_llama_tpu_torch.ops import layer_fused as _layer
@@ -168,6 +189,9 @@ class _Kernels:
     layer: object  # q8_layer_fused
     mm4: object  # q4_matmul
     mm4_silu: object
+    mm_layered: object  # q8_matmul_layered
+    write_rows: object  # kv_write_rows
+    scale_rows: object  # scale_write_rows
 
 
 def _kernels(plain: bool) -> _Kernels:
@@ -178,12 +202,48 @@ def _kernels(plain: bool) -> _Kernels:
                         _attn.attention_decode_fused_plain, _quant.q8_matmul_plain,
                         _quant.q8_matmul_silu_plain, _quant.q8_matmul_ffn_plain,
                         _layer.q8_layer_fused_plain, _quant4.q4_matmul_plain,
-                        _quant4.q4_matmul_silu_plain)
+                        _quant4.q4_matmul_silu_plain, _quant.q8_matmul_layered_plain,
+                        _cache.kv_write_rows_plain, _cache.scale_write_rows_plain)
     return _Kernels(_attn.attention_decode, _attn.attention_prefill,
                     _cache.kv_commit_rows, _cache.kv_write_chunk, _cache.scale_write_chunk,
                     _attn.attention_decode_fused, _quant.q8_matmul,
                     _quant.q8_matmul_silu, _quant.q8_matmul_ffn, _layer.q8_layer_fused,
-                    _quant4.q4_matmul, _quant4.q4_matmul_silu)
+                    _quant4.q4_matmul, _quant4.q4_matmul_silu, _quant.q8_matmul_layered,
+                    _cache.kv_write_rows, _cache.scale_write_rows)
+
+
+def _step_commit(kn: _Kernels):
+    """The decode step's commit of its rows k_rows/v_rows (L, B, KVH, HS):
+    kv_commit_rows (K2), or with HIPLLAMA_KV_COMMIT=0 (read now) the JAX
+    step's four writes, which write the same values (llama.py:477-491)."""
+    if os.environ.get("HIPLLAMA_KV_COMMIT", "1") == "1":
+        return kn.commit
+
+    def four_writes(cache: KVCache, k_rows, v_rows, pos):
+        if cache.quantized:
+            (kq, ks), (vq, vs) = _cache.quantize_kv_rows(k_rows), _cache.quantize_kv_rows(v_rows)
+            kn.write_rows(cache.k, kq, pos)
+            kn.write_rows(cache.v, vq, pos)
+            kn.scale_rows(cache.k_scale, ks, pos)
+            kn.scale_rows(cache.v_scale, vs, pos)
+        else:
+            kn.write_rows(cache.k, k_rows.to(cache.k.dtype), pos)
+            kn.write_rows(cache.v, v_rows.to(cache.v.dtype), pos)
+        return cache
+
+    return four_writes
+
+
+def silu_gate_bf16(h1: torch.Tensor, h3: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu(h1) * h3 on bf16 h1 and h3 with XLA's rounding. XLA
+    lowers silu(x) to x * (1 / (1 + exp(-x))) and, on bf16 operands, rounds
+    to bf16 after every op: exp, the add, the divide, x * sigmoid and the
+    product with h3 — as PyTorch's bf16 ops do, each computing in fp32. Found
+    by matching the jitted JAX function on the CPU: this rounding agrees bit
+    for bit on 65536 bf16 draws, where rounding after logistic, x * logistic
+    and the product only agrees on 74% of 4096 draws, and rounding after
+    logistic alone on 57%."""
+    return h1 * torch.reciprocal(1.0 + torch.exp(-h1)) * h3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,19 +361,47 @@ def make_decode_step(cfg: ModelConfig, plain: bool = False):
     """Returns step(params, cache, tokens (B,), pos (B,) int32) -> (logits
     fp32 (B, V), cache). With Q8 params each layer is one q8_layer_fused
     unless HIPLLAMA_LAYER_FUSE=0 or HIPLLAMA_Q8_MODE is not `reshape`; with
-    int4 params it is four kernels. The
+    int4 params it is four kernels; stacked Q8 params take four
+    q8_matmul_layered products and attention_decode per layer. The
     cache is read-only inside the layer loop — the current token's K/V rows
     ride into attention as explicit operands — and the whole step's rows
     are committed in place by ONE kv_commit_rows launch after the loop, as
-    in the JAX step."""
+    in the JAX step (or, with HIPLLAMA_KV_COMMIT=0, by its four writes)."""
     kn = _kernels(plain)
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
     modes = dequant_modes()
     layer_fuse = os.environ.get("HIPLLAMA_LAYER_FUSE", "1") == "1" and modes.q8 == "reshape"
+    commit = _step_commit(kn)
     _exact_matmuls()
 
+    def step_stacked(params: QuantLlamaParams, cache: KVCache, tokens, pos):
+        x = _embed_q8(params, tokens)  # (B, D) bf16
+        b = x.shape[0]
+        d, kvd, hid = c.dim, c.kv_dim, c.hidden_dim
+        mm = functools.partial(kn.mm_layered, mode=modes.q8)
+        k_list, v_list = [], []
+        for l in range(c.n_layers):
+            qkv = mm(x, params.wq, l, norm_weight=params.rms_att, norm_eps=c.norm_eps,
+                     rope_pos=pos, rope_limit=d + kvd, rope_head=c.head_size,
+                     rope_theta=c.rope_theta)  # (B, D + 2 KVD), flat
+            # column views: K1 reads them in place through their slot stride
+            q = qkv[:, :d].unflatten(1, (h, c.head_size))
+            k = qkv[:, d:d + kvd].unflatten(1, (kvh, c.head_size))
+            v = qkv[:, d + kvd:].unflatten(1, (kvh, c.head_size))
+            att = kn.attn_decode(q, cache.k, cache.v, l, pos, k, v, cache.k_scale,
+                                 cache.v_scale)
+            x = mm(att.view(b, d), params.wo, l, residual=x)
+            h13 = mm(x, params.w1, l, norm_weight=params.rms_ffn, norm_eps=c.norm_eps)
+            x = mm(silu_gate_bf16(h13[:, :hid], h13[:, hid:]), params.w2, l, residual=x)
+            k_list.append(k)
+            v_list.append(v)
+        commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
+        return _quant_logits(_products(kn, params, modes), x, params, c), cache
+
     def step_quant(params: QuantLlamaParams, cache: KVCache, tokens, pos):
+        if params.stacked:
+            return step_stacked(params, cache, tokens, pos)
         x = _embed_q8(params, tokens)  # (B, D) bf16
         b = x.shape[0]
         pr = _products(kn, params, modes)
@@ -333,7 +421,7 @@ def make_decode_step(cfg: ModelConfig, plain: bool = False):
                 kv = qkv3[:, h:]
             k_list.append(kv[:, :kvh])  # (B, KVH, HS) each
             v_list.append(kv[:, kvh:])
-        kn.commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
+        commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
         return _quant_logits(pr, x, params, c), cache
 
     def step(params, cache: KVCache, tokens: torch.Tensor, pos: torch.Tensor):
@@ -350,7 +438,7 @@ def make_decode_step(cfg: ModelConfig, plain: bool = False):
             x = _ffn(x, params, l, c.norm_eps)
             k_list.append(k)
             v_list.append(v)
-        kn.commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
+        commit(cache, torch.stack(k_list), torch.stack(v_list), pos)
         logits = (rmsnorm(x, params.rms_final, c.norm_eps) @ params.wcls).float()
         return logits, cache
 
@@ -400,6 +488,7 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
                                cache.v_scale)
 
     def prefill_quant(params: QuantLlamaParams, cache: KVCache, tokens, start, valid_len, pos):
+        params = layer_views(params)
         b, t = tokens.shape
         x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
         pos = pos.reshape(-1)

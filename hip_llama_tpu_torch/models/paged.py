@@ -53,6 +53,7 @@ from hip_llama_tpu_torch.models.llama import (
     dequant_modes,
     rmsnorm,
     rope_tables,
+    silu_gate_bf16,
 )
 from hip_llama_tpu_torch.models.params import QuantLlamaParams, resolve_device
 from hip_llama_tpu_torch.ops import attention as _attn
@@ -115,18 +116,6 @@ def _paged_kernels(plain: bool) -> _PagedKernels:
     return _PagedKernels(_attn.attention_decode_paged, _attn.attention_prefill_paged,
                          _cache.kv_write_rows_paged, _cache.scale_write_rows_paged,
                          _cache.kv_write_chunk_paged, _cache.scale_write_chunk_paged)
-
-
-def silu_gate_bf16(h1: torch.Tensor, h3: torch.Tensor) -> torch.Tensor:
-    """jax.nn.silu(h1) * h3 on bf16 h1 and h3 with XLA's rounding. XLA
-    lowers silu(x) to x * (1 / (1 + exp(-x))) and, on bf16 operands, rounds
-    to bf16 after every op: exp, the add, the divide, x * sigmoid and the
-    product with h3 — as PyTorch's bf16 ops do, each computing in fp32. Found
-    by matching the jitted JAX function on the CPU: this rounding agrees bit
-    for bit on 65536 bf16 draws, where rounding after logistic, x * logistic
-    and the product only agrees on 74% of 4096 draws, and rounding after
-    logistic alone on 57%."""
-    return h1 * torch.reciprocal(1.0 + torch.exp(-h1)) * h3
 
 
 def _gate_ffn(pr, x2: torch.Tensor, params: QuantLlamaParams, l: int, cfg: ModelConfig):

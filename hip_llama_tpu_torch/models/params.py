@@ -11,7 +11,13 @@ layer axis; the decode step indexes one layer at a time.
 (`unstack_quant_params(fuse=True)`): one tensor per layer, with Q, K and V
 concatenated along N in `wq` and W1 and W3 in `w1` (`wk`, `wv` and `w3` are
 empty), and per-layer fp32 norm vectors. The embedding is Q8_0 rows either
-way (group size 64 for int4).
+way (group size 64 for int4). Q8_0 params may instead be in the JAX
+package's stacked fused layout (`fuse_stacked_quant_params`, `--layout
+stacked`): the same fused weights as ONE QTensor each, q (L, K, N) and s
+(L, K / gs, N), and the norms as (L, D) fp32 tensors. The layout is told by
+the JAX package's marker, a QTensor in `wq` (its q of ndim 3) beside the
+empty `wk` (`QuantLlamaParams.stacked`); `layer_views` gives the unrolled
+layout of the same storage.
 """
 
 from __future__ import annotations
@@ -168,14 +174,14 @@ class QuantLlamaParams:
 
     tok_emb_q: torch.Tensor  # (V, D) int8
     tok_emb_s: torch.Tensor  # (V, D // gs) f32
-    rms_att: tuple[torch.Tensor, ...]  # per layer (D,) f32
-    wq: tuple[QTensor | Q4Tensor, ...]  # per layer Q|K|V (D, D + 2 KV)
-    wk: tuple  # () in the fused layout
+    rms_att: tuple[torch.Tensor, ...] | torch.Tensor  # per layer (D,) f32; stacked (L, D)
+    wq: tuple[QTensor | Q4Tensor, ...] | QTensor  # per layer Q|K|V (D, D + 2 KV); stacked
+    wk: tuple  # () in the fused layouts
     wv: tuple  # ()
-    wo: tuple[QTensor | Q4Tensor, ...]  # per layer (D, D)
-    rms_ffn: tuple[torch.Tensor, ...]
-    w1: tuple[QTensor | Q4Tensor, ...]  # per layer W1|W3 (D, 2H)
-    w2: tuple[QTensor | Q4Tensor, ...]  # per layer (H, D)
+    wo: tuple[QTensor | Q4Tensor, ...] | QTensor  # per layer (D, D); stacked (L, D, D)
+    rms_ffn: tuple[torch.Tensor, ...] | torch.Tensor
+    w1: tuple[QTensor | Q4Tensor, ...] | QTensor  # per layer W1|W3 (D, 2H); stacked
+    w2: tuple[QTensor | Q4Tensor, ...] | QTensor  # per layer (H, D); stacked
     w3: tuple  # ()
     rms_final: torch.Tensor  # (D,) f32
     wcls: QTensor | Q4Tensor  # (D, V)
@@ -193,6 +199,29 @@ class QuantLlamaParams:
     def int4(self) -> bool:
         """Whether the matmul weights are Q4Tensors."""
         return isinstance(self.wcls, Q4Tensor)
+
+    @property
+    def stacked(self) -> bool:
+        """Whether the params are in the stacked fused layout: the JAX
+        package's marker (llama.py:618-623), a stacked QTensor in `wq` and
+        an empty `wk`."""
+        return isinstance(self.wq, QTensor) and self.wq.q.dim() == 3 and len(self.wk) == 0
+
+
+def layer_views(p: QuantLlamaParams) -> QuantLlamaParams:
+    """Stacked params in the unrolled fused layout, every per-layer tensor a
+    view of the stacked storage (no copy): the JAX prefill's scan slices
+    each layer of stacked params and runs the unrolled layer body on it
+    (llama.py:929-942, :1163-1168). Unrolled params come back as they are."""
+    if not p.stacked:
+        return p
+
+    def views(qt: QTensor):
+        return tuple(QTensor(q=qt.q[l], s=qt.s[l]) for l in range(qt.q.shape[0]))
+
+    return dataclasses.replace(
+        p, rms_att=tuple(p.rms_att.unbind(0)), rms_ffn=tuple(p.rms_ffn.unbind(0)),
+        wq=views(p.wq), wo=views(p.wo), w1=views(p.w1), w2=views(p.w2))
 
 
 def _cat(*ts):
@@ -214,15 +243,48 @@ def _fused_layers(n_layers: int, qt) -> dict:
     )
 
 
+def fuse_stacked_quant_params(n_layers: int, qt) -> dict:
+    """The stacked fused layout of the JAX package's fuse_stacked_quant_params
+    (params.py:127-149), built from qt(name, layer) -> QTensor: wq = Q|K|V
+    (L, D, D + 2 KV), wo (L, D, D), w1 = W1|W3 (L, D, 2H) and w2 (L, H, D),
+    each one QTensor of stacked q and s; wk, wv and w3 empty (the layout's
+    marker). Each stacked tensor is allocated once and filled a layer at a
+    time, so no second copy of the weights is ever held. Groups run along
+    K, so the fused quantization is bit-identical."""
+
+    def stack(*names) -> QTensor:
+        out = None
+        for l in range(n_layers):
+            part = _cat(*(qt(name, l) for name in names))
+            if out is None:
+                out = QTensor(q=part.q.new_empty((n_layers, *part.q.shape)),
+                              s=part.s.new_empty((n_layers, *part.s.shape)))
+            out.q[l] = part.q
+            out.s[l] = part.s
+        return out
+
+    return dict(wq=stack("wq", "wk", "wv"), wk=(), wv=(), wo=stack("wo"),
+                w1=stack("w1", "w3"), w2=stack("w2"), w3=())
+
+
+def _norms(a, dev, stacked: bool):
+    """Per-layer norm vectors: a tuple of (D,) fp32, or stacked (L, D)."""
+    if stacked:
+        return _f32(np.stack([np.asarray(v) for v in a]), dev)
+    return tuple(_f32(v, dev) for v in a)
+
+
 def _f32(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
 
-def qparams_from_quant_weights(cfg: ModelConfig, qw: QuantWeights,
-                               device="cuda") -> QuantLlamaParams:
+def qparams_from_quant_weights(cfg: ModelConfig, qw: QuantWeights, device="cuda",
+                               stacked: bool = False) -> QuantLlamaParams:
     """Load a v2 Q8_0 checkpoint into the fused-int8 path, losslessly: a
     file tensor (out, in) with groups along `in` transposes to q (in, out),
-    s (in // gs, out) with the same int8 payload."""
+    s (in // gs, out) with the same int8 payload. `stacked`: the stacked
+    fused layout (the JAX package's fuse_stacked_quant_params of its
+    qparams_from_quant_weights)."""
     dev = resolve_device(device)
     c, gs = cfg, cfg.group_size
     if gs is None:
@@ -239,20 +301,22 @@ def qparams_from_quant_weights(cfg: ModelConfig, qw: QuantWeights,
     return QuantLlamaParams(
         tok_emb_q=torch.from_numpy(np.array(qw.q_tokens.q).reshape(c.vocab_size, c.dim)).to(dev),
         tok_emb_s=_f32(np.asarray(qw.q_tokens.s).reshape(c.vocab_size, c.dim // gs), dev),
-        rms_att=tuple(_f32(a, dev) for a in qw.rms_att),
-        rms_ffn=tuple(_f32(a, dev) for a in qw.rms_ffn),
+        rms_att=_norms(qw.rms_att, dev, stacked),
+        rms_ffn=_norms(qw.rms_ffn, dev, stacked),
         rms_final=_f32(qw.rms_final, dev),
         wcls=qt_file(qw.wcls, c.vocab_size, c.dim),
-        **_fused_layers(c.n_layers, lambda name, l: qt_file(getattr(qw, name)[l], *dims[name])),
+        **(fuse_stacked_quant_params if stacked else _fused_layers)(
+            c.n_layers, lambda name, l: qt_file(getattr(qw, name)[l], *dims[name])),
     )
 
 
 def quantize_params_q8(cfg: ModelConfig, w: LlamaWeights, group_size: int = 64,
-                       device="cuda") -> QuantLlamaParams:
+                       device="cuda", stacked: bool = False) -> QuantLlamaParams:
     """Quantize fp32 checkpoint weights to the Q8_0 path at load (what
     `export.py 2` does offline, train/export.py:182-260), one layer's weight
     at a time on `device`: bit for bit the JAX package's
-    unstack_quant_params(quantize_params_q8(cfg, w, group_size))."""
+    unstack_quant_params(quantize_params_q8(cfg, w, group_size)), or with
+    `stacked` its fuse_stacked_quant_params(quantize_params_q8(...))."""
     dev = resolve_device(device)
     gs = group_size
 
@@ -263,11 +327,12 @@ def quantize_params_q8(cfg: ModelConfig, w: LlamaWeights, group_size: int = 64,
     return QuantLlamaParams(
         tok_emb_q=torch.from_numpy(q_emb).to(dev),
         tok_emb_s=_f32(s_emb.reshape(q_emb.shape[0], -1), dev),
-        rms_att=tuple(_f32(a, dev) for a in w.rms_att),
-        rms_ffn=tuple(_f32(a, dev) for a in w.rms_ffn),
+        rms_att=_norms(w.rms_att, dev, stacked),
+        rms_ffn=_norms(w.rms_ffn, dev, stacked),
         rms_final=_f32(w.rms_final, dev),
         wcls=qt(w.wcls),
-        **_fused_layers(cfg.n_layers, lambda name, l: qt(getattr(w, name)[l])),
+        **(fuse_stacked_quant_params if stacked else _fused_layers)(
+            cfg.n_layers, lambda name, l: qt(getattr(w, name)[l])),
     )
 
 
@@ -322,11 +387,13 @@ def quantize_params_q4(cfg: ModelConfig, w: LlamaWeights, group_size: int = 32,
 
 def qparams_from_jax_numpy(arrays: dict, device="cuda", int4: bool = False) -> QuantLlamaParams:
     """Carry the JAX package's quantized params across, after its
-    `unstack_quant_params` (fused): `arrays` maps the 13 field names of its
-    `QuantLlamaParams` to numpy leaves — arrays, per-layer tuples of norm
-    vectors, and (q, s) pairs (its QTensors, or with `int4` its Q4Tensors)
-    or tuples of them. The caller says which: a packed int4 weight and an
-    int8 one can have the same shapes."""
+    `unstack_quant_params` (fused) or its `fuse_stacked_quant_params`:
+    `arrays` maps the 13 field names of its `QuantLlamaParams` to numpy
+    leaves — arrays, per-layer tuples of norm vectors (stacked: (L, D)
+    arrays), and (q, s) pairs (its QTensors, or with `int4` its Q4Tensors)
+    or tuples of them (stacked: one pair of (L, ...) arrays per weight,
+    which gives the stacked layout). The caller says which tensor type: a
+    packed int4 weight and an int8 one can have the same shapes."""
     dev = resolve_device(device)
     tensor = Q4Tensor if int4 else QTensor
 
@@ -337,13 +404,17 @@ def qparams_from_jax_numpy(arrays: dict, device="cuda", int4: bool = False) -> Q
         q, s = pair
         return tensor(q=put(q), s=put(s))
 
+    stacked = isinstance(arrays["wq"][0], np.ndarray) and arrays["wq"][0].ndim == 3
+    if stacked:
+        if int4:
+            raise ValueError("the stacked layout holds Q8_0 weights only")
+        layers = {name: qt(arrays[name]) for name in ("wq", "wo", "w1", "w2")}
+        norms = {name: put(arrays[name]) for name in ("rms_att", "rms_ffn")}
+    else:
+        layers = {name: tuple(qt(t) for t in arrays[name]) for name in ("wq", "wo", "w1", "w2")}
+        norms = {name: tuple(put(a) for a in arrays[name]) for name in ("rms_att", "rms_ffn")}
     return QuantLlamaParams(
         tok_emb_q=put(arrays["tok_emb_q"]), tok_emb_s=put(arrays["tok_emb_s"]),
-        rms_att=tuple(put(a) for a in arrays["rms_att"]),
-        wq=tuple(qt(t) for t in arrays["wq"]), wk=(), wv=(),
-        wo=tuple(qt(t) for t in arrays["wo"]),
-        rms_ffn=tuple(put(a) for a in arrays["rms_ffn"]),
-        w1=tuple(qt(t) for t in arrays["w1"]),
-        w2=tuple(qt(t) for t in arrays["w2"]), w3=(),
+        wk=(), wv=(), w3=(), **layers, **norms,
         rms_final=put(arrays["rms_final"]), wcls=qt(arrays["wcls"]),
     )

@@ -9,14 +9,21 @@ from hip_llama_tpu_torch.ops.cache import (
     kv_commit_rows,
     kv_write_chunk,
     kv_write_chunk_paged,
+    kv_write_rows,
     kv_write_rows_paged,
     quantize_kv_rows,
     scale_write_chunk,
     scale_write_chunk_paged,
+    scale_write_rows,
     scale_write_rows_paged,
 )
 from hip_llama_tpu_torch.ops.layer_fused import q8_layer_fused
-from hip_llama_tpu_torch.ops.quant import q8_matmul, q8_matmul_ffn, q8_matmul_silu
+from hip_llama_tpu_torch.ops.quant import (
+    q8_matmul,
+    q8_matmul_ffn,
+    q8_matmul_layered,
+    q8_matmul_silu,
+)
 from hip_llama_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_silu
 
 # every kernel wrapper of the package; each counts its launches in `.launches`
@@ -24,14 +31,16 @@ KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            q8_matmul, attention_decode_fused, q8_matmul_ffn, q8_matmul_silu, q8_layer_fused,
            scale_write_chunk, q4_matmul, q4_matmul_silu, attention_decode_paged,
            attention_prefill_paged, kv_write_rows_paged, scale_write_rows_paged,
-           kv_write_chunk_paged, scale_write_chunk_paged)
+           kv_write_chunk_paged, scale_write_chunk_paged, q8_matmul_layered, kv_write_rows,
+           scale_write_rows)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused, attention_decode_paged,
-                 attention_prefill_paged, kv_write_rows_paged, kv_write_chunk_paged)
+                 attention_prefill_paged, kv_write_rows_paged, kv_write_chunk_paged,
+                 kv_write_rows)
 # the wrappers with an `a8` branch (HIPLLAMA_Q8_MODE / HIPLLAMA_Q4_MODE=a8),
 # which counts in `.launches_a8`
-A8_BRANCHES = (q8_matmul, q8_matmul_silu, q4_matmul, q4_matmul_silu)
+A8_BRANCHES = (q8_matmul, q8_matmul_silu, q4_matmul, q4_matmul_silu, q8_matmul_layered)
 
 
 def reset_launches() -> None:
@@ -65,11 +74,13 @@ __all__ = [
     "kv_commit_rows",
     "kv_write_chunk",
     "kv_write_chunk_paged",
+    "kv_write_rows",
     "kv_write_rows_paged",
     "launch_counts",
     "q8_matmul",
     "q8_layer_fused",
     "q8_matmul_ffn",
+    "q8_matmul_layered",
     "q8_matmul_silu",
     "q4_matmul",
     "q4_matmul_silu",
@@ -77,5 +88,6 @@ __all__ = [
     "reset_launches",
     "scale_write_chunk",
     "scale_write_chunk_paged",
+    "scale_write_rows",
     "scale_write_rows_paged",
 ]

@@ -233,13 +233,32 @@ def _act_dtype(x, k_cache, quantized: bool):
     return dt
 
 
+def check_slot_rows(name: str, t: torch.Tensor, shape, dtype, device) -> int:
+    """Validate a decode operand (B, heads, HS) whose heads of one slot are
+    contiguous, with any slot stride (a column slice of a flat QKV row, read
+    in place); returns the slot stride in elements."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, cache on {device}")
+    heads, hs = shape[1], shape[2]
+    if t.stride(2) != 1 or t.stride(1) != hs or (shape[0] > 1 and t.stride(0) < heads * hs):
+        raise ValueError(f"{name}: a slot's heads must be contiguous, got strides {t.stride()}")
+    return t.stride(0) if shape[0] > 1 else heads * hs
+
+
 def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale=None,
                      v_scale=None):
     """One-token GQA attention for each slot: q (B, H, HS) over rows
     0..pos[b]-1 of layer `layer` of the cache (B, L, KVH, S, HS), plus the
     current k_cur/v_cur (B, KVH, HS) row folded in last (pos[b] == 0 means
     the current row only). An int8 cache comes with its scale planes
-    k_scale/v_scale (B, L, KVH, S). Returns (B, H, HS) in q's dtype.
+    k_scale/v_scale (B, L, KVH, S). Returns (B, H, HS) in q's dtype. q,
+    k_cur and v_cur may be column slices of the flat QKV projection (B,
+    (H + 2 KVH) HS) viewed as heads: the kernel reads them in place through
+    their slot strides (k_cur's and v_cur's must be equal).
     Replaces hip_llama_tpu/ops/attention.py::attention_decode_pallas (all
     of its bfold/bvec/dyn schedules compute this one function)."""
     bsz, _, kvh, s, hs, h = _check_shapes(q, k_cache, v_cache, layer)
@@ -254,24 +273,27 @@ def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale
         raise ValueError(f"attention_decode takes head sizes {HEAD_SIZES} and up to "
                          f"{MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
     dt = _act_dtype(q, k_cache, quantized)
-    check_operand("q", q, (bsz, h, hs), dt, dev)
-    check_operand("k_cur", k_cur, (bsz, kvh, hs), dt, dev)
-    check_operand("v_cur", v_cur, (bsz, kvh, hs), dt, dev)
+    q_bs = check_slot_rows("q", q, (bsz, h, hs), dt, dev)
+    cur_bs = check_slot_rows("k_cur", k_cur, (bsz, kvh, hs), dt, dev)
+    if check_slot_rows("v_cur", v_cur, (bsz, kvh, hs), dt, dev) != cur_bs:
+        raise ValueError(f"k_cur and v_cur: slot strides {k_cur.stride(0)} and "
+                         f"{v_cur.stride(0)} differ")
     check_operand("pos", pos, (bsz,), torch.int32, dev)
-    out = torch.empty_like(q)
+    out = torch.empty((bsz, h, hs), dtype=dt, device=dev)
     bk = decode_block(s, quantized)
     check_decode_block(h // kvh, bk)
     if quantized:
-        fn = _build.bind("attention", "attention_decode_int8", "ppppppppp" + "iiiiiiiii" + "p")
+        fn = _build.bind("attention", "attention_decode_int8", "ppppppppp" + "i" * 11 + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), pos.data_ptr(), k_cur.data_ptr(), v_cur.data_ptr(),
-                out.data_ptr(), bsz, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk,
-                _stream())
+                out.data_ptr(), bsz, h, kvh, s, hs, k_cache.shape[1], layer, q_bs, cur_bs,
+                _DTYPES[dt], bk, _stream())
     else:
-        fn = _build.bind("attention", "attention_decode", "ppppppp" + "iiiiiiiii" + "p")
+        fn = _build.bind("attention", "attention_decode", "ppppppp" + "i" * 11 + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
                 k_cur.data_ptr(), v_cur.data_ptr(), out.data_ptr(),
-                bsz, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk, _stream())
+                bsz, h, kvh, s, hs, k_cache.shape[1], layer, q_bs, cur_bs, _DTYPES[dt], bk,
+                _stream())
     _build.check(rc, "attention", "attention_decode")
     _count(attention_decode, quantized)
     return out

@@ -1,4 +1,5 @@
-"""In-place KV cache writers: the decode step's row commit (K2), the
+"""In-place KV cache writers: the decode step's row commit (K2), its
+four-write form (one plane's rows, K8, and one scale plane's, K9), the
 prefill chunk writer (K3) and its scale companion for int8 caches (K12),
 their paged counterparts (K11 and K10, K13 and K14), and the rowwise int8
 quantization of KV rows.
@@ -132,24 +133,30 @@ def _count(wrapper, quantized: bool) -> None:
 # K2: one decode step's K/V rows for every layer
 
 
+def _put_step_rows(plane, rows, pos, valid=None):
+    """plane[b, :, :, pos[b]] = rows[:, b] for each slot b with valid[b] != 0
+    and 0 <= pos[b] < S: rows (L, B, KVH, HS) into a cache plane (B, L, KVH,
+    S, HS), or (L, B, KVH) into a scale plane (B, L, KVH, S)."""
+    keep = (pos >= 0) & (pos < plane.shape[3])
+    if valid is not None:
+        keep &= valid != 0
+    bi = torch.nonzero(keep).flatten()
+    plane[bi, :, :, pos[bi].long()] = rows.transpose(0, 1)[bi].to(plane.dtype)
+    return plane
+
+
 def kv_commit_rows_plain(cache, k_rows, v_rows, pos, valid=None):
     """Plain version of `kv_commit_rows` (the XLA `_commit_kv_rows` math,
     hip_llama_tpu/models/llama.py:425-454 and :477-503): cache[b, :, :,
     pos[b]] = rows[:, b] (quantized by row on an int8 cache, its scale to
     the scale planes) for each slot b with valid[b] != 0 and 0 <= pos[b] <
     S."""
-    b, s = cache.k.shape[0], cache.k.shape[3]
-    keep = (pos >= 0) & (pos < s)
-    if valid is not None:
-        keep &= valid != 0
-    bi = torch.nonzero(keep).flatten()
-    pi = pos[bi].long()
     planes = [(cache.k, k_rows), (cache.v, v_rows)]
     if cache.k.dtype == torch.int8:
         (kq, ks), (vq, vs) = quantize_kv_rows(k_rows), quantize_kv_rows(v_rows)
         planes = [(cache.k, kq), (cache.v, vq), (cache.k_scale, ks), (cache.v_scale, vs)]
     for plane, rows in planes:
-        plane[bi, :, :, pi] = rows.transpose(0, 1)[bi].to(plane.dtype)
+        _put_step_rows(plane, rows, pos, valid)
     return cache
 
 
@@ -195,6 +202,83 @@ def kv_commit_rows(cache, k_rows, v_rows, pos, valid=None):
 
 kv_commit_rows.launches = 0
 kv_commit_rows.launches_int8 = 0
+
+
+# ---------------------------------------------------------------------------
+# K8 and K9: the four-write commit, one plane per launch
+
+
+def kv_write_rows_plain(plane, rows, pos, valid=None):
+    """Plain version of `kv_write_rows` (the XLA `_write_kv_rows`,
+    hip_llama_tpu/models/llama.py:425-454, with K2's position rule)."""
+    return _put_step_rows(plane, rows, pos, valid)
+
+
+def kv_write_rows(plane, rows, pos, valid=None):
+    """Write one decode step's rows of one cache plane, rows (L, B, KVH, HS)
+    in the plane's dtype (int8 rows from quantize_kv_rows on an int8
+    cache), into the plane (B, L, KVH, S, HS) in place at (b, :, :, pos[b])
+    for every layer, for each slot with valid[b] != 0 (default: all); one
+    launch. A position outside [0, S) writes nothing. Replaces
+    hip_llama_tpu/ops/cache.py::kv_write_rows, which read-modify-writes a
+    window around each row: here each row is stored alone and the plane is
+    never read."""
+    bsz, n_layers, kvh, s, hs = check_cache(plane, plane)
+    dev = plane.device
+    if dev.type == "cpu":
+        return kv_write_rows_plain(plane, rows, pos, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"kv_write_rows: unsupported device {dev}")
+    check_operand("rows", rows, (n_layers, bsz, kvh, hs), plane.dtype, dev)
+    check_operand("pos", pos, (bsz,), torch.int32, dev)
+    if valid is not None:
+        check_operand("valid", valid, (bsz,), torch.int32, dev)
+    fn = _build.bind("cache", "kv_write_rows", "pppp" + "iiiii" + "p")
+    rc = fn(plane.data_ptr(), rows.data_ptr(), pos.data_ptr(),
+            0 if valid is None else valid.data_ptr(), bsz, n_layers, kvh, s,
+            hs * plane.element_size(), _stream())
+    _build.check(rc, "cache", "kv_write_rows")
+    _count(kv_write_rows, plane.dtype == torch.int8)
+    return plane
+
+
+kv_write_rows.launches = 0
+kv_write_rows.launches_int8 = 0
+
+
+def scale_write_rows_plain(plane, srows, pos):
+    """Plain version of `scale_write_rows` (the XLA `_write_scale_rows`,
+    hip_llama_tpu/models/llama.py:494-503, with K2's position rule)."""
+    return _put_step_rows(plane, srows, pos)
+
+
+def scale_write_rows(plane, srows, pos):
+    """Write one decode step's row scales, srows (L, B, KVH) fp32 (from
+    quantize_kv_rows), into one scale plane (B, L, KVH, S) of an int8 cache
+    in place at (b, :, :, pos[b]); one launch. A position outside [0, S)
+    writes nothing. Replaces hip_llama_tpu/ops/cache.py::scale_write_rows."""
+    if plane.dim() != 4:
+        raise ValueError(f"scale plane: expected (B, L, KVH, S), got {tuple(plane.shape)}")
+    bsz, n_layers, kvh, s = plane.shape
+    dev = plane.device
+    check_operand("plane", plane, (bsz, n_layers, kvh, s), torch.float32, dev)
+    if dev.type == "cpu":
+        return scale_write_rows_plain(plane, srows, pos)
+    if dev.type != "cuda":
+        raise ValueError(f"scale_write_rows: unsupported device {dev}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"scale plane on {dev} but the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    check_operand("srows", srows, (n_layers, bsz, kvh), torch.float32, dev)
+    check_operand("pos", pos, (bsz,), torch.int32, dev)
+    fn = _build.bind("cache", "scale_write_rows", "ppp" + "iiii" + "p")
+    rc = fn(plane.data_ptr(), srows.data_ptr(), pos.data_ptr(), bsz, n_layers, kvh, s, _stream())
+    _build.check(rc, "cache", "scale_write_rows")
+    scale_write_rows.launches += 1
+    return plane
+
+
+scale_write_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

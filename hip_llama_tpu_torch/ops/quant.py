@@ -1,6 +1,7 @@
-"""Q8_0 weight-only matmuls: `q8_matmul` (K15), `q8_matmul_silu` (K17) and
-`q8_matmul_ffn` (K18), with the host-side Q8_0 tensor type and the `a8`
-mode shared with ops/quant4.py.
+"""Q8_0 weight-only matmuls: `q8_matmul` (K15), `q8_matmul_silu` (K17),
+`q8_matmul_ffn` (K18) and `q8_matmul_layered` (K20, K15 on one layer of a
+stacked (L, K, N) weight, for `--layout stacked`), with the host-side Q8_0
+tensor type and the `a8` mode shared with ops/quant4.py.
 
 Weights are symmetric int8 with one fp32 scale per `group_size` rows of a
 column, in matmul orientation: q (K, N) int8, s (K / gs, N) fp32, as the
@@ -35,6 +36,7 @@ from shapes, whether `a8` runs or the call keeps its reshape math, and the
 decision changes the numbers, so the port copies it (`q8_a8_engages`). The
 kernels (csrc/quant.cu, a8.cuh) count in `<wrapper>.launches_a8`.
 q8_matmul_ffn keeps its reshape math in every mode (quant.py:967-971).
+q8_matmul_layered decides by K20's own rule (`q8_layered_a8_engages`).
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ Q8_BLOCK_N = 512
 Q8_BLOCK_K = 1024
 A8_GEMV_BN = 128  # columns per GEMV CTA of the a8 kernels (csrc/a8.cuh kGvBN)
 A8_GEMV_ROWS = 1024  # xi rows (k) a GEMV CTA of the a8 kernels stages at most
+# rows q8_matmul_layered takes itself; more go to q8_matmul on the layer
+# (quant.py:1601)
+LAYERED_MAX_M = 512
 # fp64 bytes of one chunk of int32 group sums in the plain a8 product
 _A8_PLAIN_BYTES = 256 * 2**20
 
@@ -163,17 +168,38 @@ def q8_a8_engages(m: int, k: int, n: int, gs: int, block_n: int | None = None) -
     never fire. The head-split output's wider block (quant.py:1337-1340)
     changes no decision: it reaches the `a8` test only above 512 rows, where
     K is at most 64 groups."""
+    bn, bk = _q8_blocks(m, k, n, gs, block_n)
+    if m > 64 and k % gs == 0 and k * bn <= 8 * 2**20 and k // gs <= 64:
+        return True
+    return not (m > 64 or bk != k or (bk // gs) * m * bn * 4 > 4 * 2**20)
+
+
+def _q8_blocks(m: int, k: int, n: int, gs: int, block_n: int | None) -> tuple[int, int]:
+    """(block_n, block_k) of the JAX q8_matmul and q8_matmul_layered
+    (quant.py:1257-1290, :1621-1643): block_n (default HIPLLAMA_Q8_BLOCK_N)
+    halved to a divisor of n, and the whole K as one block where the weight
+    strip and the rows fit, else HIPLLAMA_Q8_BLOCK_K's default shrunk to
+    whole groups."""
     bn = block_n or _env_int("HIPLLAMA_Q8_BLOCK_N", Q8_BLOCK_N)
     while bn > 128 and n % bn:
         bn //= 2
     if n % bn:
         bn = n
     if k % gs == 0 and k * bn <= 8 * 2**20 and m * k * 2 <= 2 * 2**20:
-        bk = k
-    else:
-        bk = _block_k(k, gs, Q8_BLOCK_K)
-    if m > 64 and k % gs == 0 and k * bn <= 8 * 2**20 and k // gs <= 64:
-        return True
+        return bn, k
+    return bn, _block_k(k, gs, Q8_BLOCK_K)
+
+
+def q8_layered_a8_engages(m: int, k: int, n: int, gs: int, block_n: int | None = None) -> bool:
+    """Whether the JAX q8_matmul_layered (K20) runs its `a8` branch for an
+    (m, k) x (k, n) product of group size gs, m <= 512 (above, K20 hands
+    the call to q8_matmul, whose decision is q8_a8_engages). K20's own rule
+    (quant.py:1621-1665): the same K block as q8_matmul, but `a8` only for
+    decode rows (m <= 64) whose whole row is one K block and whose group
+    sums (groups x m x block_n int32) fit 4 MiB; unlike q8_matmul it has no
+    prefill-row clause, so rows 65-512 keep reshape math. block_n as in
+    q8_a8_engages."""
+    bn, bk = _q8_blocks(m, k, n, gs, block_n)
     return not (m > 64 or bk != k or (bk // gs) * m * bn * 4 > 4 * 2**20)
 
 
@@ -275,21 +301,50 @@ def _gate(h13: torch.Tensor) -> torch.Tensor:
     return h1 * torch.sigmoid(h1) * h3
 
 
-def q8_matmul_plain(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
-                    residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-                    rope_theta: float = 10000.0, mode: str = "reshape", a8_widths=None):
-    """Plain version of `q8_matmul`."""
-    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+def _q8_plain(x, qt: QTensor, a8: bool, norm_weight, norm_eps: float, residual, rope_pos,
+              rope_limit: int, rope_head: int, rope_theta: float):
+    """The product of q8_matmul in `a8` or in reshape arithmetic."""
     xn = _normed(x, norm_weight, norm_eps)
-    m, k = x.shape
-    a8 = a8_serves(mode, m, k, a8_widths or (qt.q.shape[1],), qt.group_size, q8_a8_engages,
-                   "HIPLLAMA_Q8_MODE")
     acc = _dot_a8(xn, qt) if a8 else _dot(xn, qt)
     if residual is not None:
         acc = acc + residual.float()
     if rope_pos is not None:
         acc = _rope_cols(acc, rope_pos, rope_limit, rope_head, rope_theta)
     return acc.to(x.dtype)
+
+
+def q8_matmul_plain(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                    residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
+                    rope_theta: float = 10000.0, mode: str = "reshape", a8_widths=None):
+    """Plain version of `q8_matmul`."""
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+    m, k = x.shape
+    a8 = a8_serves(mode, m, k, a8_widths or (qt.q.shape[1],), qt.group_size, q8_a8_engages,
+                   "HIPLLAMA_Q8_MODE")
+    return _q8_plain(x, qt, a8, norm_weight, norm_eps, residual, rope_pos, rope_limit,
+                     rope_head, rope_theta)
+
+
+def layer_of(qt: QTensor, layer: int) -> QTensor:
+    """Layer `layer` of a stacked QTensor (q (L, K, N), s (L, K / gs, N)):
+    views, no copy."""
+    return QTensor(q=qt.q[layer], s=qt.s[layer])
+
+
+def q8_matmul_layered_plain(x, qt: QTensor, layer: int, *, norm_weight=None,
+                            norm_eps: float = 1e-5, residual=None, rope_pos=None,
+                            rope_limit: int = 0, rope_head: int = 0,
+                            rope_theta: float = 10000.0, mode: str = "reshape"):
+    """Plain version of `q8_matmul_layered`."""
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+    g = None if norm_weight is None else norm_weight[layer]
+    kw = dict(norm_weight=g, norm_eps=norm_eps, residual=residual, rope_pos=rope_pos,
+              rope_limit=rope_limit, rope_head=rope_head, rope_theta=rope_theta)
+    m, k = x.shape
+    if m > LAYERED_MAX_M:
+        return q8_matmul_plain(x, layer_of(qt, layer), mode=mode, **kw)
+    a8 = mode == "a8" and q8_layered_a8_engages(m, k, qt.q.shape[-1], qt.group_size)
+    return _q8_plain(x, layer_of(qt, layer), a8, **kw)
 
 
 def q8_matmul_silu_plain(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
@@ -374,12 +429,14 @@ def _ptr(t) -> int:
 
 def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residual, rope_pos,
               rope_limit: int, rope_head: int, rope_theta: float, norm_eps: float, gate: bool,
-              kslice_max: int, planes: int = 1):
+              kslice_max: int, planes: int = 1, layer: int | None = None):
     """Launch an `a8` kernel (csrc/a8.cuh) of `lib` on x (M, K) and weight
     qt (k_rows of q, n columns: 2H for a gate, whose output is H wide):
     allocates the output, the quantized activations (M, K) int8 and their
     scales (M, K / gs) fp32, and the GEMV path's split partials, for each
-    of the weight's `planes` (int4: the low and high nibbles)."""
+    of the weight's `planes` (int4: the low and high nibbles). With
+    `layer`, qt and norm_weight are stacked and the kernel takes the layer
+    index after its other ints."""
     m, k = x.shape
     gs, dev = qt.group_size, x.device
     if gs % 32 or 128 % gs:
@@ -396,11 +453,11 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
                out.data_ptr(), xi.data_ptr(), sx.data_ptr(), _ptr(part), m, k, n // 2, gs, split,
                kslice, norm_eps, _stream())
     else:
-        f = _build.bind(lib, fn, "pppppppppp" + "iiiiiiii" + "ff" + "p")
+        ints = [m, k, n, gs, split, kslice, rope_limit if rope_pos is not None else 0,
+                rope_head if rope_pos is not None else 1] + ([] if layer is None else [layer])
+        f = _build.bind(lib, fn, "pppppppppp" + "i" * len(ints) + "ff" + "p")
         rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
-               _ptr(rope_pos), out.data_ptr(), xi.data_ptr(), sx.data_ptr(), _ptr(part),
-               m, k, n, gs, split, kslice, rope_limit if rope_pos is not None else 0,
-               rope_head if rope_pos is not None else 1,
+               _ptr(rope_pos), out.data_ptr(), xi.data_ptr(), sx.data_ptr(), _ptr(part), *ints,
                rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0,
                norm_eps, _stream())
     _build.check(rc, lib, fn)
@@ -428,36 +485,108 @@ def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, resid
     m, k = _check_x("x", x)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
-    if residual is not None:
-        check_operand("residual", residual, (m, n), torch.bfloat16, dev)
-    if rope_pos is not None:
-        check_operand("rope_pos", rope_pos, (m,), torch.int32, dev)
-        if rope_head <= 0 or rope_head % 2 or rope_limit % rope_head or rope_limit > n:
-            raise ValueError(f"rope: head size {rope_head}, limit {rope_limit}, N {n}")
+    _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
     if a8_serves(mode, m, k, a8_widths or (n,), qt.group_size, q8_a8_engages,
                  "HIPLLAMA_Q8_MODE"):
         out = a8_launch("quant", "q8_matmul_a8", x, qt, k, n, norm_weight, residual, rope_pos,
                         rope_limit, rope_head, rope_theta, norm_eps, False, A8_GEMV_ROWS)
         q8_matmul.launches_a8 += 1
         return out
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    xn = torch.empty_like(x) if norm_weight is not None else None
-    split, kslice = gemv_plan(k, n) if m <= GEMV_MAX_M else (0, 0)
-    part = torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else None
-    fn = _build.bind("quant", "q8_matmul", "ppppppppp" + "iiiiiiii" + "ff" + "p")
-    rc = fn(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
-            _ptr(rope_pos), out.data_ptr(), _ptr(xn), _ptr(part),
-            m, k, n, qt.group_size, split, kslice, rope_limit if rope_pos is not None else 0,
-            rope_head if rope_pos is not None else 1,
-            rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0,
-            norm_eps, _stream())
-    _build.check(rc, "quant", "q8_matmul")
+    out = _reshape_launch("q8_matmul", x, qt, n, norm_weight, residual, rope_pos, rope_limit,
+                          rope_head, rope_theta, norm_eps)
     q8_matmul.launches += 1
     return out
 
 
 q8_matmul.launches = 0
 q8_matmul.launches_a8 = 0
+
+
+def _check_epilogue(residual, rope_pos, rope_limit: int, rope_head: int, m: int, n: int, dev):
+    if residual is not None:
+        check_operand("residual", residual, (m, n), torch.bfloat16, dev)
+    if rope_pos is not None:
+        check_operand("rope_pos", rope_pos, (m,), torch.int32, dev)
+        if rope_head <= 0 or rope_head % 2 or rope_limit % rope_head or rope_limit > n:
+            raise ValueError(f"rope: head size {rope_head}, limit {rope_limit}, N {n}")
+
+
+def _reshape_launch(fn: str, x, qt: QTensor, n: int, norm_weight, residual, rope_pos,
+                    rope_limit: int, rope_head: int, rope_theta: float, norm_eps: float,
+                    layer: int | None = None):
+    """Launch csrc/quant.cu's `fn` (q8_matmul's reshape kernels) on x (M,
+    K): allocates the output, the normed rows and the GEMV path's split
+    partials. With `layer`, qt and norm_weight are stacked and the kernel
+    takes the layer index after its other ints."""
+    m, k = x.shape
+    dev = x.device
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    xn = torch.empty_like(x) if norm_weight is not None else None
+    split, kslice = gemv_plan(k, n) if m <= GEMV_MAX_M else (0, 0)
+    part = torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else None
+    ints = [m, k, n, qt.group_size, split, kslice, rope_limit if rope_pos is not None else 0,
+            rope_head if rope_pos is not None else 1] + ([] if layer is None else [layer])
+    f = _build.bind("quant", fn, "ppppppppp" + "i" * len(ints) + "ff" + "p")
+    rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
+           _ptr(rope_pos), out.data_ptr(), _ptr(xn), _ptr(part), *ints,
+           rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0,
+           norm_eps, _stream())
+    _build.check(rc, "quant", fn)
+    return out
+
+
+def q8_matmul_layered(x, qt: QTensor, layer: int, *, norm_weight=None, norm_eps: float = 1e-5,
+                      residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
+                      rope_theta: float = 10000.0, mode: str = "reshape"):
+    """q8_matmul on layer `layer` of a stacked weight: qt q (L, K, N) int8,
+    s (L, K / gs, N) fp32, norm_weight (L, K) fp32 (the norm prologue uses
+    row `layer`); x, the epilogues and `mode` as q8_matmul's. The kernels
+    take the stacked base pointers and the layer index and address the
+    layer themselves: no layer of the weight is copied. `a8` runs where the
+    JAX K20 takes it (q8_layered_a8_engages), which is not q8_matmul's rule;
+    above 512 rows the call is q8_matmul on the layer's views, under
+    q8_matmul's decision, as the JAX K20 routes it. Replaces hip_llama_tpu/
+    ops/quant.py::q8_matmul_layered."""
+    dev = _device(x, "q8_matmul_layered")
+    if dev.type == "cpu":
+        return q8_matmul_layered_plain(x, qt, layer, norm_weight=norm_weight, norm_eps=norm_eps,
+                                       residual=residual, rope_pos=rope_pos,
+                                       rope_limit=rope_limit, rope_head=rope_head,
+                                       rope_theta=rope_theta, mode=mode)
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+    if qt.q.dim() != 3 or qt.s.dim() != 3:
+        raise ValueError(f"q8_matmul_layered takes a stacked (L, K, N) weight, got "
+                         f"{tuple(qt.q.shape)}")
+    n_layers = qt.q.shape[0]
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range [0, {n_layers})")
+    if x.dim() == 2 and x.shape[0] > LAYERED_MAX_M:
+        return q8_matmul(x, layer_of(qt, layer),
+                         norm_weight=None if norm_weight is None else norm_weight[layer],
+                         norm_eps=norm_eps, residual=residual, rope_pos=rope_pos,
+                         rope_limit=rope_limit, rope_head=rope_head, rope_theta=rope_theta,
+                         mode=mode)
+    m, k = _check_x("x", x)
+    check_operand("qt.q", qt.q, (n_layers, k, qt.q.shape[2]), torch.int8, dev)
+    check_operand("qt.s", qt.s, (n_layers, qt.s.shape[1], qt.q.shape[2]), torch.float32, dev)
+    n = _check_weight("qt", layer_of(qt, layer), k, dev)
+    if norm_weight is not None:
+        check_operand("norm_weight", norm_weight, (n_layers, k), torch.float32, dev)
+    _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
+    if mode == "a8" and q8_layered_a8_engages(m, k, n, qt.group_size):
+        out = a8_launch("quant", "q8_matmul_layered_a8", x, qt, k, n, norm_weight, residual,
+                        rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
+                        A8_GEMV_ROWS, layer=layer)
+        q8_matmul_layered.launches_a8 += 1
+        return out
+    out = _reshape_launch("q8_matmul_layered", x, qt, n, norm_weight, residual, rope_pos,
+                          rope_limit, rope_head, rope_theta, norm_eps, layer=layer)
+    q8_matmul_layered.launches += 1
+    return out
+
+
+q8_matmul_layered.launches = 0
+q8_matmul_layered.launches_a8 = 0
 
 
 def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,

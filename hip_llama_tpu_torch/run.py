@@ -1,8 +1,8 @@
 """CLI with the reference's flag contract (src/llama.cpp:1490-1639), serving
-the dense path, the Q8_0 weight path (v2 checkpoints, --quant q8) or the
-int4 weight path (v4 checkpoints, --quant q4), on a bf16/fp32 or (--kv int8)
-int8 KV cache, dense or paged (--paged), on a CUDA card (or the CPU with
---device cpu):
+the dense path, the Q8_0 weight path (v2 checkpoints, --quant q8; unrolled
+or --layout stacked) or the int4 weight path (v4 checkpoints, --quant q4),
+on a bf16/fp32 or (--kv int8) int8 KV cache, dense or paged (--paged), on a
+CUDA card (or the CPU with --device cpu):
 
   python -m hip_llama_tpu_torch.run <checkpoint> [options]
   python -m hip_llama_tpu_torch.run model.bin -n 256 -i "Once upon a time"
@@ -36,15 +36,22 @@ Extra (double-dash):
                              chunks of one page
   --prefix-cache             identical prompt prefixes share KV pages and
                              skip their prefill (implies --paged)
+  --layout unrolled|stacked  Q8_0 weight layout (default unrolled): stacked
+                             keeps each weight one (L, K, N) array that the
+                             decode kernels address by layer; int4 falls
+                             back to unrolled with a note, and dense params
+                             and --paged ignore it
   --no-prefill               force-feed prompts one token/step (parity mode)
   --rope-theta F             RoPE base override (.bin headers can't carry it)
   --no-eos-stop              test mode stops on BOS only (run.cc parity)
 Environment: HIPLLAMA_Q8_MODE=a8 (w8a8) and HIPLLAMA_Q4_MODE=a8 (w4a8)
 serve the Q8 and int4 products in the reference int8 engine's arithmetic,
 as the JAX package does; their other values exit "not yet ported".
+HIPLLAMA_KV_COMMIT=0 commits each decode step's KV rows with four writes
+(each plane, each scale plane) instead of one, as the JAX package does; the
+cache holds the same values.
 The JAX CLI's other flags (--tp, --spec, --chunk, --device-sampling,
---layout, --stream, ...) and chat mode are not yet ported: they exit with
-an error.
+--stream, ...) and chat mode are not yet ported: they exit with an error.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
 
 _VALUE_FLAGS = ("-t", "-p", "-s", "-n", "-i", "-z", "-m", "-f", "-o", "-b",
-                "--dtype", "--device", "--rope-theta", "--quant", "--kv")
+                "--dtype", "--device", "--rope-theta", "--quant", "--kv", "--layout")
 _SWITCHES = ("--no-prefill", "--no-eos-stop", "--dequant", "--prefix-cache")
 
 
@@ -143,6 +150,10 @@ def main(argv: list[str]) -> int:
         print("note: --prefix-cache implies --paged", file=sys.stderr)
         paged = True
     page_size = int(opts.get("--paged", 128))
+    layout = opts.get("--layout", "unrolled")
+    if layout not in ("unrolled", "stacked"):
+        print(f"--layout {layout}: takes unrolled or stacked", file=sys.stderr)
+        return 1
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[opts.get("--dtype", "bfloat16")]
     device = resolve_device(opts.get("--device", "cuda"))
 
@@ -151,14 +162,23 @@ def main(argv: list[str]) -> int:
         # the llama2.c .bin headers can't carry the RoPE base
         cfg = dataclasses.replace(cfg, rope_theta=float(opts["--rope-theta"]))
     dequant = "--dequant" in switches
+    q4 = (isinstance(weights, Q4Weights) and not dequant) or (
+        quant == "q4" and not isinstance(weights, (QuantWeights, Q4Weights)))
+    if layout == "stacked" and q4 and not paged:
+        # the stacked decode path drives q8_matmul_layered, which has no
+        # int4 counterpart (the JAX CLI's note, run.py:419-431)
+        print("note: --layout stacked supports int8 only; using unrolled for int4",
+              file=sys.stderr)
+    # the stacked layout is a Q8_0 decode layout: paged steps run their own
+    stacked = layout == "stacked" and not paged
     if isinstance(weights, QuantWeights):
         params = (params_from_quant_dequant(cfg, weights, dtype=dtype, device=device) if dequant
-                  else qparams_from_quant_weights(cfg, weights, device=device))
+                  else qparams_from_quant_weights(cfg, weights, device=device, stacked=stacked))
     elif isinstance(weights, Q4Weights):
         params = (params_from_q4_dequant(cfg, weights, dtype=dtype, device=device) if dequant
                   else qparams_from_q4_weights(cfg, weights, device=device))
     elif quant == "q8":
-        params = quantize_params_q8(cfg, weights, device=device)
+        params = quantize_params_q8(cfg, weights, device=device, stacked=stacked)
     elif quant == "q4":
         params = quantize_params_q4(cfg, weights, device=device)
     else:

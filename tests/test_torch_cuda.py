@@ -908,3 +908,157 @@ def test_a8_wrappers_reject_group_sizes_the_kernels_lack():
     qt = _qt(rng, 96, 64, 48, dev)
     with pytest.raises(ValueError, match="group sizes"):
         Q.q8_matmul(_rand(rng, (4, 96), torch.bfloat16, dev), qt, mode="a8")
+
+
+# ---------------------------------------------------------------------------
+# --layout stacked and the four-write commit: K20 and its `a8` branch, K1 on
+# the flat QKV rows, K8 and K9
+
+# (K, N, gs): the golden fixture's QKV, W1|W3 and W2, and Llama-2-7B's QKV
+# and W2 (172 groups)
+K20_SHAPES = [(64, 128, 64), (64, 384, 64), (192, 64, 64), (4096, 12288, 64), (11008, 4096, 64)]
+
+
+def _stacked_qt(rng, n_layers, k, n, gs, dev):
+    w = rng.standard_normal((n_layers, k, n)).astype(np.float32) / np.sqrt(k)
+    return Q.q8_quantize_weights(torch.from_numpy(w).to(dev), gs)
+
+
+@pytest.mark.parametrize("mode", ["reshape", "a8"])
+@pytest.mark.parametrize("m", [1, 8, 40, 300, 600])
+@pytest.mark.parametrize("shape", K20_SHAPES)
+@pytest.mark.parametrize("epi", ["norm", "residual", "norm_rope"])
+def test_q8_matmul_layered_kernel(mode, m, shape, epi):
+    """K20 on the last of three layers against its plain version: the
+    reshape kernel, or the `a8` kernel where K20's rule says so (M <= 64);
+    past 512 rows q8_matmul on the layer, under its own decision."""
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(50)
+    qt = _stacked_qt(rng, 3, k, n, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = _epilogue(rng, m, k, n, epi, dev)
+    if "norm_weight" in kw:
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (3, k), torch.float32, dev)).contiguous()
+    wrapper = Q.q8_matmul if m > Q.LAYERED_MAX_M else Q.q8_matmul_layered
+    a8 = mode == "a8" and (Q.q8_a8_engages(m, k, n, gs) if m > Q.LAYERED_MAX_M
+                           else Q.q8_layered_a8_engages(m, k, n, gs))
+    n0, a0 = wrapper.launches, wrapper.launches_a8
+    got = Q.q8_matmul_layered(x, qt, 2, mode=mode, **kw)
+    want = Q.q8_matmul_layered_plain(x, qt, 2, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches_a8 - a0, wrapper.launches - n0) == ((1, 0) if a8 else (0, 1))
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("mode", ["reshape", "a8"])
+def test_q8_matmul_layered_copies_no_layer(mode):
+    """At 7B QKV width and batch 8, K20 allocates nothing of a layer's size
+    (50 MB) and gives q8_matmul's output on the layer's view bit for bit:
+    the same device code on the layer's addresses."""
+    dev = _card()
+    k, n, gs = 4096, 12288, 64
+    rng = np.random.default_rng(51)
+    qt = _stacked_qt(rng, 4, k, n, gs, dev)
+    g = (1 + 0.1 * _rand(rng, (4, k), torch.float32, dev)).contiguous()
+    x = _rand(rng, (8, k), torch.bfloat16, dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)
+    rope = dict(rope_pos=pos, rope_limit=8192, rope_head=128)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = Q.q8_matmul_layered(x, qt, 3, norm_weight=g, mode=mode, **rope)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < k * n // 4
+    want = Q.q8_matmul(x, Q.layer_of(qt, 3), norm_weight=g[3], mode=mode, **rope)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8])
+def test_attention_decode_reads_flat_qkv_rows_in_place(cache):
+    """K1 on q, k and v as column views of the flat QKV rows gives its
+    output on contiguous copies, bit for bit."""
+    dev = _card()
+    b, h, kvh, hs, s = 8, 32, 32, 128, 512
+    rng = np.random.default_rng(52)
+    qkv = _rand(rng, (b, (h + 2 * kvh) * hs), torch.bfloat16, dev)
+    views = qkv.unflatten(1, (h + 2 * kvh, hs))
+    q, k, v = views[:, :h], views[:, h:h + kvh], views[:, h + kvh:]
+    if cache == torch.int8:
+        kc = torch.from_numpy(rng.integers(-127, 128, (b, 2, kvh, s, hs)).astype(np.int8)).to(dev)
+        vc = torch.from_numpy(rng.integers(-127, 128, (b, 2, kvh, s, hs)).astype(np.int8)).to(dev)
+        sc = [torch.from_numpy(rng.random((b, 2, kvh, s)).astype(np.float32) / 64).to(dev)
+              for _ in range(2)]
+    else:
+        kc, vc = (_rand(rng, (b, 2, kvh, s, hs), torch.bfloat16, dev) for _ in range(2))
+        sc = [None, None]
+    pos = torch.tensor(rng.integers(0, s, b), dtype=torch.int32, device=dev)
+    got = A.attention_decode(q, kc, vc, 1, pos, k, v, *sc)
+    want = A.attention_decode(q.contiguous(), kc, vc, 1, pos, k.contiguous(), v.contiguous(), *sc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape", [(4, 4, 4, 96, 8), (8, 32, 32, 512, 128)])
+def test_kv_write_rows_and_scale_write_rows_kernels(shape, dtype):
+    """K8 on each plane dtype, with and without `valid`, and K9, bit-exact
+    against their plain versions; positions -1 and S write nothing."""
+    dev = _card()
+    b, n_layers, kvh, s, hs = shape
+    rng = np.random.default_rng(53)
+
+    def plane(*sh):
+        if dtype == torch.int8:
+            return torch.from_numpy(rng.integers(-127, 128, sh).astype(np.int8)).to(dev)
+        return _rand(rng, sh, dtype, dev)
+
+    cache, rows = plane(b, n_layers, kvh, s, hs), plane(n_layers, b, kvh, hs)
+    pos = torch.tensor(np.r_[0, s - 1, -1, s, rng.integers(0, s, b - 4)], dtype=torch.int32,
+                       device=dev)
+    for valid in (None, torch.tensor(rng.integers(0, 2, b), dtype=torch.int32, device=dev)):
+        got = C.kv_write_rows(cache.clone(), rows, pos, valid)
+        want = C.kv_write_rows_plain(cache.clone(), rows, pos, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    sc = torch.rand(b, n_layers, kvh, s, device=dev)
+    srows = torch.rand(n_layers, b, kvh, device=dev)
+    got = C.scale_write_rows(sc.clone(), srows, pos)
+    want = C.scale_write_rows_plain(sc.clone(), srows, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_four_writes_equal_kv_commit_rows_on_the_card(int8, monkeypatch):
+    """The decode step's commit under HIPLLAMA_KV_COMMIT=0 (quantize_kv_rows,
+    K8 twice, K9 twice) writes what K2 writes, bit for bit, at 7B shapes."""
+    from hip_llama_tpu_torch.models.llama import _kernels, _step_commit
+
+    dev = _card()
+    b, n_layers, kvh, s, hs = 8, 32, 32, 512, 128
+    rng = np.random.default_rng(54)
+    shape = (b, n_layers, kvh, s, hs)
+    if int8:
+        c0 = KVCache(*(torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+                       for _ in range(2)),
+                     *(torch.rand(shape[:4], device=dev) for _ in range(2)))
+    else:
+        c0 = KVCache(*(_rand(rng, shape, torch.bfloat16, dev) for _ in range(2)))
+    k_rows, v_rows = (_rand(rng, (n_layers, b, kvh, hs), torch.bfloat16, dev) for _ in range(2))
+    pos = torch.tensor(rng.integers(0, s, b), dtype=torch.int32, device=dev)
+
+    def copy():
+        return KVCache(*(None if t is None else t.clone()
+                         for t in (c0.k, c0.v, c0.k_scale, c0.v_scale)))
+
+    k2 = C.kv_commit_rows(copy(), k_rows, v_rows, pos)
+    monkeypatch.setenv("HIPLLAMA_KV_COMMIT", "0")
+    n8, n9 = C.kv_write_rows.launches + C.kv_write_rows.launches_int8, C.scale_write_rows.launches
+    got = _step_commit(_kernels(plain=False))(copy(), k_rows, v_rows, pos)
+    torch.cuda.synchronize()
+    assert C.kv_write_rows.launches + C.kv_write_rows.launches_int8 - n8 == 2
+    assert C.scale_write_rows.launches - n9 == (2 if int8 else 0)
+    for f in ("k", "v", "k_scale", "v_scale"):
+        a, bb = getattr(got, f), getattr(k2, f)
+        assert (a is None and bb is None) or torch.equal(a, bb), f
