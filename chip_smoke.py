@@ -88,7 +88,22 @@ Phases, in order; each raises on failure and none is caught:
      launched and K2 never; and the 7B-width Q8 + int8-KV serve with
      --layout stacked in reshape and in `a8`, with its logit check,
      control, launches (K20 128, K1 int8 32, K2 1, K15 1 per decode step)
-     and profile.
+     and profile;
+  11. the prefill variants (HIPLLAMA_PREFILL_MINNER=1, HIPLLAMA_PREFILL_XHEADS=1):
+     K19 q8_matmul_minner (wo M 2048 with the residual, q M 1024 with the
+     norm and RoPE as the paged prefill's, W2 M 2048 K 11008), K19
+     q8_matmul_silu_minner (M 2048, H 11008, norm) and K16 q8_matmul_xheads
+     (wo M 2048 over 32 heads of 128) against their plain versions at 7B
+     shapes, each beside the reshape tile it replaces (K15 or K17) on the
+     same inputs, cuBLAS on the weight dequantized to bf16, and the bound;
+     the probe of tools/probe_xheads.py (K16 and K15 on the flat view of
+     the same rows against the probe's fp32 product, K4 reading T-major q);
+     two T-256 prefill chunks of the 7B Q8 + int8-KV model profiled on the
+     default route and with each knob (launches per chunk, device time);
+     and that model's
+     serve with both knobs, with its logit check against the plain path,
+     launches (K16, K19, K19 silu) and TTFT beside phase 6's default-route
+     serve.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -252,6 +267,12 @@ KERNEL_SOURCES = {
     "kv_write_rows_int8": ("hip_llama_tpu_torch/csrc/cache.cu",
                            "hip_llama_tpu/ops/cache.py:140"),
     "scale_write_rows": ("hip_llama_tpu_torch/csrc/cache.cu", "hip_llama_tpu/ops/cache.py:427"),
+    # the prefill variants: K19 and its gate twin, K16
+    "q8_matmul_minner": ("hip_llama_tpu_torch/csrc/prefill.cu",
+                         "hip_llama_tpu/ops/quant.py:1126"),
+    "q8_matmul_silu_minner": ("hip_llama_tpu_torch/csrc/prefill.cu",
+                              "hip_llama_tpu/ops/quant.py:677"),
+    "q8_matmul_xheads": ("hip_llama_tpu_torch/csrc/prefill.cu", "hip_llama_tpu/ops/quant.py:424"),
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
@@ -389,6 +410,15 @@ Q8_STACKED_A8_STEP = {"q8_matmul_layered_a8": 4 * _L, "attention_decode_int8": _
                       "kv_commit_rows_int8": 1, "q8_matmul_a8": 1}
 Q8_INT8_PAGED_STEP = {"attention_decode_paged_int8": _L, "kv_write_rows_paged_int8": 1,
                       "scale_write_rows_paged": 1, "q8_matmul": 4 * _L + 1}
+# the 7B-width Q8 + int8-KV serve with both prefill knobs: T-256 chunks
+# (2048 rows) take K16 on wo, K19 on W2 and K19 silu on the gate; T-64
+# chunks K16 on wo and K17 + K15 on the FFN (512 rows: no K19); T-16 chunks
+# K16 and K18; the decode step is phase 6's
+PREFILL_KNOBS = {"HIPLLAMA_PREFILL_MINNER": "1", "HIPLLAMA_PREFILL_XHEADS": "1"}
+Q8_KNOBS_PATH = ("q8_matmul_xheads", "q8_matmul_minner", "q8_matmul_silu_minner",
+                 "q8_matmul_silu", "q8_matmul", "q8_matmul_ffn", "q8_layer_fused_int8",
+                 "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
+                 "attention_prefill_int8")
 # int4 on the fixture, at the bars of the Q8 runs (bf16 cache: both; int8
 # cache: the average)
 GOLDEN_Q4_RUNS = {
@@ -1614,6 +1644,151 @@ def phase_stacked_goldens() -> dict[str, dict[str, int]]:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the prefill variants (K19, K16)
+
+
+def phase_prefill_kernels() -> dict[str, dict]:
+    """K19, K19 silu and K16 at Llama-2-7B prefill shapes (Q8_0, group size
+    64, bf16 activations) against their plain versions, each beside the
+    reshape tile it replaces (K15, K17) on the same inputs. Library
+    yardstick: cuBLAS `x @ w` on the weight dequantized to bf16 beforehand.
+    Bound: int8 weights and fp32 scales, x, the norm weight, residual and
+    positions, and the output once each, or the operations at the bf16 peak."""
+    dev = torch.device("cuda")
+    d, hid, gs = 4096, 11008, 64
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def weights(k, n):
+        w = [Q.q8_quantize_weights(rnd(k, n, dtype=torch.float32).mul_(k ** -0.5), gs)
+             for _ in range(2)]
+        return w, [Q.q8_dequantize(x).to(torch.bfloat16) for x in w]
+
+    def wbytes(k, n):
+        return k * n + (k // gs) * n * 4
+
+    norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
+    out: dict[str, list] = {}
+
+    def case(name, label, fn, plain_fn, tile_fn, lib_fn, n_bytes, flops):
+        r = q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops)
+        r["tile_ms"] = cuda_ms(tile_fn)
+        print(f"kernel {name} [{label}]: the reshape tile it replaces ms {r['tile_ms']:.4f} "
+              f"beside its {r['ms']:.4f}", flush=True)
+        out.setdefault(name, []).append(r)
+
+    m = 2048
+    wo, wod = weights(d, d)
+    x, res = rnd(m, d), rnd(m, d)
+    case("q8_matmul_minner", f"wo M {m}, residual",
+         lambda i: Q.q8_matmul_minner(x, wo[i % 2], residual=res),
+         lambda i: Q.q8_matmul_minner_plain(x, wo[i % 2], residual=res),
+         lambda i: Q.q8_matmul(x, wo[i % 2], residual=res), lambda i: x @ wod[i % 2],
+         wbytes(d, d) + 3 * m * d * 2, 2 * m * d * d)
+    x3 = x.view(m, 32, 128)
+    case("q8_matmul_xheads", f"wo M {m}, 32 heads of 128, residual",
+         lambda i: Q.q8_matmul_xheads(x3, wo[i % 2], residual=res),
+         lambda i: Q.q8_matmul_xheads_plain(x3, wo[i % 2], residual=res),
+         lambda i: Q.q8_matmul(x, wo[i % 2], residual=res), lambda i: x @ wod[i % 2],
+         wbytes(d, d) + 3 * m * d * 2, 2 * m * d * d)
+    mq = 1024  # the paged prefill's q product: T 128 x 8 slots
+    xq = rnd(mq, d)
+    pos = torch.arange(mq, dtype=torch.int32, device=dev) % 512
+    rope = dict(rope_pos=pos, rope_limit=d, rope_head=128, rope_theta=10000.0)
+    case("q8_matmul_minner", f"q M {mq}, norm + RoPE",
+         lambda i: Q.q8_matmul_minner(xq, wo[i % 2], norm_weight=norm, **rope),
+         lambda i: Q.q8_matmul_minner_plain(xq, wo[i % 2], norm_weight=norm, **rope),
+         lambda i: Q.q8_matmul(xq, wo[i % 2], norm_weight=norm, **rope),
+         lambda i: xq @ wod[i % 2], wbytes(d, d) + 2 * mq * d * 2 + d * 4 + mq * 4,
+         2 * mq * d * d)
+    del wo, wod
+    w2, w2d = weights(hid, d)
+    xh = rnd(m, hid)
+    case("q8_matmul_minner", f"W2 M {m}, K {hid}, residual",
+         lambda i: Q.q8_matmul_minner(xh, w2[i % 2], residual=res),
+         lambda i: Q.q8_matmul_minner_plain(xh, w2[i % 2], residual=res),
+         lambda i: Q.q8_matmul(xh, w2[i % 2], residual=res), lambda i: xh @ w2d[i % 2],
+         wbytes(hid, d) + m * hid * 2 + 2 * m * d * 2, 2 * m * hid * d)
+    del w2, w2d, xh
+    w13, w13d = weights(d, 2 * hid)
+    case("q8_matmul_silu_minner", f"W1|W3 gate M {m}, norm",
+         lambda i: Q.q8_matmul_silu_minner(x, w13[i % 2], norm_weight=norm),
+         lambda i: Q.q8_matmul_silu_minner_plain(x, w13[i % 2], norm_weight=norm),
+         lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm), lambda i: x @ w13d[i % 2],
+         wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid)
+    del w13, w13d
+    return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
+            for name, rs in out.items()}
+
+
+def probe_xheads() -> None:
+    """The questions of tools/probe_xheads.py, answered on the card: a
+    head-split (M, GH, HS) tile contracts without a relayout as per-head
+    partials (`unroll`, :47: K16) or as one product over the flat view of
+    the same memory (`multi`: K15), each against the probe's fp32 product
+    of the same bf16 rows and bf16 weights (:51-57), at its shapes (m 256,
+    gh 8, hs 128, bn 512); and attention takes T-major q (`battn`,
+    `headslice`, :89): K4 reads q (B, T, H, HS) as it lies, against its
+    plain version, at (bt 256, gh 8, hs 128) over a 512-row cache."""
+    dev = torch.device("cuda")
+    m, gh, hs, bn = 256, 8, 128, 512
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    x3 = torch.randn((m, gh, hs), generator=g, device=dev).to(torch.bfloat16)
+    w = Q.q8_quantize_weights(torch.randn((gh * hs, bn), generator=g, device=dev) * 0.05, 64)
+    want = x3.reshape(m, gh * hs).float() @ Q.q8_dequantize(w).to(torch.bfloat16).float()
+    for variant, got in (("unroll (K16)", Q.q8_matmul_xheads(x3, w)),
+                         ("multi (K15 on the flat view)", Q.q8_matmul(x3.view(m, gh * hs), w))):
+        torch.cuda.synchronize()
+        d = max_err(got, want)
+        rel = d / want.abs().max().item()
+        print(f"probe xheads (tools/probe_xheads.py:47) {variant}: max abs {d:.4f} rel "
+              f"{rel:.4f} against the fp32 product (the bf16 output's rounding)", flush=True)
+        if not rel < 2.0 ** -7:
+            raise AssertionError(f"probe xheads {variant}: rel {rel}")
+    s = 512
+    q = torch.randn((1, m, gh, hs), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, 1, gh, s, hs), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    start = torch.tensor([s - m], dtype=torch.int32, device=dev)
+    valid = torch.tensor([m], dtype=torch.int32, device=dev)
+    err, ok = attn_check([(A.attention_prefill(q, k, v, 0, start, valid),
+                           A.attention_prefill_plain(q, k, v, 0, start, valid))], torch.bfloat16)
+    print(f"probe xheads (tools/probe_xheads.py:89) battn/headslice: K4 reads T-major q "
+          f"(1, {m}, {gh}, {hs}) in place over {s} rows: max_abs_err vs plain {err:.3g} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("K4 on T-major q disagrees with its plain version")
+
+
+def profile_prefill_knobs(params: QuantLlamaParams) -> None:
+    """Two T-256 prefill chunks (8 slots, 2048 rows, every row valid) of the
+    7B-width Q8 + int8-KV model on the default route and under each prefill
+    knob: the wrapper launches of one chunk and the device time by kernel."""
+    cfg = LLAMA2_7B
+    rng = np.random.default_rng(SEED)
+    chunk = {s: rng.integers(3, cfg.vocab_size, 256).tolist() for s in range(8)}
+    for env in ({}, {"HIPLLAMA_PREFILL_MINNER": "1"}, {"HIPLLAMA_PREFILL_XHEADS": "1"}):
+        with knobs(env):
+            engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512,
+                                     kv_quant=True)
+        cache = engine.new_cache()
+        before = launch_counts()
+        engine._prefill_tokens(cache, 8, chunk, {s: 0 for s in range(8)})
+        torch.cuda.synchronize()
+        counts = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+        print(f"prefill chunk (T 256, 8 slots) with {env}: wrapper launches {counts}",
+              flush=True)
+        profile_window(f"7b q8 int8-kv prefill chunk with {env} (batch 8, T 256)", 2,
+                       lambda i: engine._prefill_tokens(cache, 8, chunk, {s: 0 for s in
+                                                                          range(8)}))
+        del engine, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the golden fixture through the CLI
 
 
@@ -1882,6 +2057,7 @@ def without_ffn0(params: QuantLlamaParams) -> QuantLlamaParams:
 
 
 PAGE = 128  # the 7B-width serves' page on the paged pool
+SERVES: dict[str, dict] = {}  # each serve's stats by label
 
 
 def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per_step: dict,
@@ -1996,6 +2172,7 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
           f"{dict(sorted(engine.prefill_chunks.items()))}; max_memory_allocated "
           f"{peak / 2**30:.2f} GiB; launches { {n: c for n, c in launches.items() if c} }; "
           f"card {card_line()}", flush=True)
+    SERVES[label] = stats
     if any(g == "" for g in requests.generations):
         raise AssertionError("a request did not finish")
     if n_gen != len(prompts) * (steps - 1):
@@ -2215,6 +2392,27 @@ def main() -> int:
     del sparams
     print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
 
+    # phase 11: the prefill variants
+    t11 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_prefill = phase_prefill_kernels()
+    probe_xheads()
+    torch.cuda.empty_cache()
+    qparams = random_7b_qparams(LLAMA2_7B, dev)
+    profile_prefill_knobs(qparams)
+    with knobs(PREFILL_KNOBS):
+        launches["q8 int8 prefill knobs"] = phase_serve(
+            "7b q8 int8-kv prefill knobs", qparams, Q8_LOGIT_TOL, Q8_KNOBS_PATH, Q8_INT8_STEP,
+            kv_quant=True)
+    on, off = SERVES["7b q8 int8-kv prefill knobs"], SERVES["7b q8 int8-kv"]
+    print(f"7b q8 int8-kv TTFT with both prefill knobs: p50 {on['ttft_p50_s'] * 1e3:.1f} ms, "
+          f"p95 {on['ttft_p95_s'] * 1e3:.1f} ms, {on['tok_per_s']:.2f} tok/s; the default "
+          f"route (phase 6, this run): p50 {off['ttft_p50_s'] * 1e3:.1f} ms, p95 "
+          f"{off['ttft_p95_s'] * 1e3:.1f} ms, {off['tok_per_s']:.2f} tok/s", flush=True)
+    del qparams
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+
     # each kernel's count from the first serving path that runs it: the 7B
     # serves, then the golden runs (K5 and its int8 branch run only in the
     # four-kernel layer, K1's int8 branch in the dense fp32 --kv int8 run;
@@ -2222,7 +2420,7 @@ def main() -> int:
     # fp32 pages from the fixture's --paged 16 runs)
     runs = [launches["dense"], launches["q8"], launches["q8 int8"], launches["q4"],
             launches["q8 int8 paged"], launches["q8 int8 a8"], launches["q8 int8 stacked"],
-            launches["q8 int8 stacked a8"],
+            launches["q8 int8 stacked a8"], launches["q8 int8 prefill knobs"],
             launches_golden["q8, four-kernel layer"], launches_golden["fp32 --kv int8"],
             launches_golden["q8 --kv int8, four-kernel layer"], launches_golden["q8 --paged 16"],
             launches_golden["q4 a8"], launches_golden["fp32, four-write commit"],
@@ -2230,7 +2428,7 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = next(d[name] for d in (res[torch.bfloat16], res_q8, res_int8, res_q4, res_paged,
-                                   res_a8, res_stacked) if name in d)
+                                   res_a8, res_stacked, res_prefill) if name in d)
         n = next((run[name] for run in runs if run.get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -68,6 +68,19 @@ by the params' type.
   kv_write_rows (K8) on each plane and scale_write_rows (K9) on each scale
   plane, which write the same values. The JAX package's TPU tile rules
   that also send it there (llama.py:467-473) are not copied.
+- Two prefill knobs of the JAX package, read when the prefill is made
+  (`prefill_knobs`; any value but "1" is off, as there):
+  HIPLLAMA_PREFILL_MINNER=1 lets the Q8 products take K19
+  (`q8_matmul_minner`, `q8_matmul_silu_minner`) where the JAX wrappers take
+  theirs (quant.py:1386-1406, :677-684: above 512 rows, reshape math, no
+  norm prologue left, flat output), and HIPLLAMA_PREFILL_XHEADS=1 makes the
+  contiguous Q8 prefill's wo K16 (`q8_matmul_xheads`) on the attention
+  output's head-split view where the head size is a multiple of 128
+  (llama.py:1080-1092). HIPLLAMA_PREFILL_HEADS (default 1) is read only for
+  the K19 decision: the JAX prefill's QKV emits head-split rows by default
+  (llama.py:966-978), which never take K19; with 0 they are flat and may.
+  The decode step reads none of them: K19 needs more than 512 rows, and
+  its arithmetic is K15's and K17's in any case.
 - `plain=True` runs every kernel's plain PyTorch version instead, whatever
   the device: the yardstick the kernel path is held against on the card.
 """
@@ -192,6 +205,7 @@ class _Kernels:
     mm_layered: object  # q8_matmul_layered
     write_rows: object  # kv_write_rows
     scale_rows: object  # scale_write_rows
+    mm_xheads: object  # q8_matmul_xheads
 
 
 def _kernels(plain: bool) -> _Kernels:
@@ -203,13 +217,14 @@ def _kernels(plain: bool) -> _Kernels:
                         _quant.q8_matmul_silu_plain, _quant.q8_matmul_ffn_plain,
                         _layer.q8_layer_fused_plain, _quant4.q4_matmul_plain,
                         _quant4.q4_matmul_silu_plain, _quant.q8_matmul_layered_plain,
-                        _cache.kv_write_rows_plain, _cache.scale_write_rows_plain)
+                        _cache.kv_write_rows_plain, _cache.scale_write_rows_plain,
+                        _quant.q8_matmul_xheads_plain)
     return _Kernels(_attn.attention_decode, _attn.attention_prefill,
                     _cache.kv_commit_rows, _cache.kv_write_chunk, _cache.scale_write_chunk,
                     _attn.attention_decode_fused, _quant.q8_matmul,
                     _quant.q8_matmul_silu, _quant.q8_matmul_ffn, _layer.q8_layer_fused,
                     _quant4.q4_matmul, _quant4.q4_matmul_silu, _quant.q8_matmul_layered,
-                    _cache.kv_write_rows, _cache.scale_write_rows)
+                    _cache.kv_write_rows, _cache.scale_write_rows, _quant.q8_matmul_xheads)
 
 
 def _step_commit(kn: _Kernels):
@@ -267,23 +282,47 @@ def dequant_modes() -> DequantModes:
 
 
 @dataclasses.dataclass(frozen=True)
+class PrefillKnobs:
+    """HIPLLAMA_PREFILL_MINNER, HIPLLAMA_PREFILL_XHEADS and
+    HIPLLAMA_PREFILL_HEADS: K19 on the large-M Q8 products, K16 on the
+    contiguous prefill's wo, and the JAX QKV's head-split emission (which
+    only the K19 decision reads)."""
+
+    minner: bool
+    xheads: bool
+    heads: bool
+
+
+def prefill_knobs() -> PrefillKnobs:
+    """The three knobs as the JAX package reads them (quant.py:43,
+    llama.py:292-295): "1" is on, any other value off."""
+    on = lambda name, default: os.environ.get(name, default) == "1"  # noqa: E731
+    return PrefillKnobs(on("HIPLLAMA_PREFILL_MINNER", "0"), on("HIPLLAMA_PREFILL_XHEADS", "0"),
+                        on("HIPLLAMA_PREFILL_HEADS", "1"))
+
+
+@dataclasses.dataclass(frozen=True)
 class _Products:
     """The weight products of quantized params in their dequant mode: mm
     (K15 or K21), silu (K17 or K22) and ffn (K18, or None for int4, which
-    has no whole-FFN kernel)."""
+    has no whole-FFN kernel); with `minner` the Q8 mm and silu take K19
+    where the JAX wrappers would."""
 
     mm: object
     silu: object
     ffn: object
     mode: str
+    minner: bool = False
 
 
-def _products(k: _Kernels, params: QuantLlamaParams, modes: DequantModes) -> _Products:
+def _products(k: _Kernels, params: QuantLlamaParams, modes: DequantModes,
+              minner: bool = False) -> _Products:
     if params.int4:
         return _Products(functools.partial(k.mm4, mode=modes.q4),
                          functools.partial(k.mm4_silu, mode=modes.q4), None, modes.q4)
-    return _Products(functools.partial(k.mm, mode=modes.q8),
-                     functools.partial(k.mm_silu, mode=modes.q8), k.mm_ffn, modes.q8)
+    return _Products(functools.partial(k.mm, mode=modes.q8, minner=minner),
+                     functools.partial(k.mm_silu, mode=modes.q8, minner=minner), k.mm_ffn,
+                     modes.q8, minner)
 
 
 def act_dtype(params) -> torch.dtype:
@@ -318,15 +357,17 @@ def _quant_ffn(pr: _Products, x2: torch.Tensor, params: QuantLlamaParams, l: int
 
 
 def _quant_qkv(pr: _Products, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig,
-               a8_widths=None):
+               widths=None, out_heads: int = 0):
     """Norm + fused QKV + RoPE on q|k for rows x2 (M, D) at positions pos
-    (M,); returns the head-split (M, H + 2 KVH, HS) view. a8_widths: the
+    (M,); returns the head-split (M, H + 2 KVH, HS) view. widths: the
     output widths of the JAX products the fused one stands for, where they
-    are separate."""
+    are separate; out_heads: the head size where the JAX product emits
+    head-split rows (read by the K19 decision only)."""
     c = cfg
+    kw = dict(out_heads=out_heads) if pr.minner else {}
     y = pr.mm(x2, params.wq[l], norm_weight=params.rms_att[l], norm_eps=c.norm_eps,
               rope_pos=pos, rope_limit=(c.n_heads + c.n_kv_heads) * c.head_size,
-              rope_head=c.head_size, rope_theta=c.rope_theta, a8_widths=a8_widths)
+              rope_head=c.head_size, rope_theta=c.rope_theta, widths=widths, **kw)
     return y.view(x2.shape[0], c.n_heads + 2 * c.n_kv_heads, c.head_size)
 
 
@@ -463,11 +504,18 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
 
     `last_only=True` returns logits fp32 (B, V) for each slot's LAST valid
     position only: the x rows are gathered before the final norm and the
-    classifier, so the (B, T, V) logits are never computed."""
+    classifier, so the (B, T, V) logits are never computed.
+
+    The Q8 products follow the prefill knobs (`prefill_knobs`, read now):
+    K19 where the JAX wrappers take it, and with HIPLLAMA_PREFILL_XHEADS=1
+    wo as q8_matmul_xheads (K16) on the attention output's (B*T, H, HS) view
+    at head sizes that are a multiple of 128, as the JAX prefill calls it
+    (llama.py:1080-1092)."""
     kn = _kernels(plain)
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
     modes = dequant_modes()
+    knobs = prefill_knobs()
     _exact_matmuls()
 
     def last_rows(x, valid_len):
@@ -492,13 +540,20 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
         b, t = tokens.shape
         x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
         pos = pos.reshape(-1)
-        pr = _products(kn, params, modes)
+        pr = _products(kn, params, modes, knobs.minner)
+        xheads = knobs.xheads and not params.int4 and c.head_size % 128 == 0
         for l in range(c.n_layers):
-            qkv = _quant_qkv(pr, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
+            qkv = _quant_qkv(pr, x, params, l, pos, c,
+                             out_heads=c.head_size if knobs.heads else 0)
+            qkv = qkv.view(b, t, h + 2 * kvh, c.head_size)
             att = write_and_attend(cache, qkv[:, :, :h].contiguous(),
                                    qkv[:, :, h:h + kvh].contiguous(),
                                    qkv[:, :, h + kvh:].contiguous(), l, start, valid_len)
-            x = pr.mm(att.view(b * t, c.dim), params.wo[l], residual=x)
+            if xheads:
+                x = kn.mm_xheads(att.view(b * t, h, c.head_size), params.wo[l], residual=x,
+                                 mode=modes.q8, minner=knobs.minner)
+            else:
+                x = pr.mm(att.view(b * t, c.dim), params.wo[l], residual=x)
             x = _quant_ffn(pr, x, params, l, c.norm_eps)
         x = x.view(b, t, c.dim)
         if last_only:

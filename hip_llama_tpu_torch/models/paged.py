@@ -27,6 +27,11 @@ flight, not slots x window.
   bf16, in plain PyTorch as XLA runs it (`silu_gate_bf16`). Under `a8` a
   product's arithmetic is decided from the shapes of the separate JAX
   products (q, k and v; W1 and W3) that the fused one stands for.
+- HIPLLAMA_PREFILL_MINNER=1 (read when the prefill is made) lets the
+  quantized prefill's Q8 products take K19 where the JAX paged prefill's
+  separate products would (at 7B width and T-128 chunks of 8 slots, 1024
+  rows, every one of them); the paged prefill never calls K16
+  (HIPLLAMA_PREFILL_XHEADS is a contiguous-prefill knob).
 - Prefill chunks must be page-aligned and at most one page long (the
   engine's prefill bucket is the page size), so each chunk writes one page
   per slot.
@@ -51,6 +56,7 @@ from hip_llama_tpu_torch.models.llama import (
     _quant_logits,
     _quant_qkv,
     dequant_modes,
+    prefill_knobs,
     rmsnorm,
     rope_tables,
     silu_gate_bf16,
@@ -123,7 +129,7 @@ def _gate_ffn(pr, x2: torch.Tensor, params: QuantLlamaParams, l: int, cfg: Model
     product over W1|W3 with the norm prologue, rounded to bf16 (the JAX
     package's unfused FFN, paged.py:202-205 and :411-414)."""
     y = pr.mm(x2, params.w1[l], norm_weight=params.rms_ffn[l], norm_eps=cfg.norm_eps,
-              a8_widths=(cfg.hidden_dim, cfg.hidden_dim))
+              widths=(cfg.hidden_dim, cfg.hidden_dim))
     h = silu_gate_bf16(y[:, :cfg.hidden_dim], y[:, cfg.hidden_dim:])
     return pr.mm(h, params.w2[l], residual=x2)
 
@@ -131,7 +137,7 @@ def _gate_ffn(pr, x2: torch.Tensor, params: QuantLlamaParams, l: int, cfg: Model
 def _paged_qkv(pr, x2, params: QuantLlamaParams, l: int, pos, cfg: ModelConfig):
     """_quant_qkv for the unfused layer, whose q, k and v are separate JAX
     products (paged.py:179-188)."""
-    return _quant_qkv(pr, x2, params, l, pos, cfg, a8_widths=(cfg.dim, cfg.kv_dim, cfg.kv_dim))
+    return _quant_qkv(pr, x2, params, l, pos, cfg, widths=(cfg.dim, cfg.kv_dim, cfg.kv_dim))
 
 
 def _split_heads(qkv: torch.Tensor, h: int, kvh: int):
@@ -223,6 +229,7 @@ def make_paged_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = 
     c = cfg
     h, kvh = c.n_heads, c.n_kv_heads
     modes = dequant_modes()
+    minner = prefill_knobs().minner
     _exact_matmuls()
 
     def last_rows(x, valid):
@@ -246,7 +253,7 @@ def make_paged_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = 
         b, t = tokens.shape
         x = _embed_q8(params, tokens).view(b * t, c.dim)  # (B*T, D) bf16
         pos = pos.reshape(-1)
-        pr = _products(kn, params, modes)
+        pr = _products(kn, params, modes, minner)
         for l in range(c.n_layers):
             qkv = _paged_qkv(pr, x, params, l, pos, c).view(b, t, h + 2 * kvh, c.head_size)
             att = write_and_attend(cache, table, *_split_heads(qkv, h, kvh), l, start, valid)

@@ -22,7 +22,10 @@ from hip_llama_tpu_torch.ops.quant import (
     q8_matmul,
     q8_matmul_ffn,
     q8_matmul_layered,
+    q8_matmul_minner,
     q8_matmul_silu,
+    q8_matmul_silu_minner,
+    q8_matmul_xheads,
 )
 from hip_llama_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_silu
 
@@ -32,7 +35,7 @@ KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            scale_write_chunk, q4_matmul, q4_matmul_silu, attention_decode_paged,
            attention_prefill_paged, kv_write_rows_paged, scale_write_rows_paged,
            kv_write_chunk_paged, scale_write_chunk_paged, q8_matmul_layered, kv_write_rows,
-           scale_write_rows)
+           scale_write_rows, q8_matmul_minner, q8_matmul_silu_minner, q8_matmul_xheads)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused, attention_decode_paged,
@@ -81,7 +84,10 @@ __all__ = [
     "q8_layer_fused",
     "q8_matmul_ffn",
     "q8_matmul_layered",
+    "q8_matmul_minner",
     "q8_matmul_silu",
+    "q8_matmul_silu_minner",
+    "q8_matmul_xheads",
     "q4_matmul",
     "q4_matmul_silu",
     "quantize_kv_rows",

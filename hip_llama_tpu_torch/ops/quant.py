@@ -37,6 +37,23 @@ decision changes the numbers, so the port copies it (`q8_a8_engages`). The
 kernels (csrc/quant.cu, a8.cuh) count in `<wrapper>.launches_a8`.
 q8_matmul_ffn keeps its reshape math in every mode (quant.py:967-971).
 q8_matmul_layered decides by K20's own rule (`q8_layered_a8_engages`).
+
+Two prefill variants the JAX package takes behind knobs that the model
+reads and passes down (`minner=`):
+- HIPLLAMA_PREFILL_MINNER=1 sends large-M products to K19,
+  `q8_matmul_minner` and `q8_matmul_silu_minner` (quant.py:1126, :677-731),
+  where each weight tile is dequantized once per call and every row sweeps
+  through it. The arithmetic is K15's and K17's in reshape math; only the
+  schedule differs. q8_matmul and q8_matmul_silu take it where the JAX
+  wrappers take theirs (`minner_engages`, `minner_silu_engages`): above 512
+  rows, in reshape math (after the `a8` decline), with no norm prologue
+  left in the kernel, a flat output and column blocks that fit.
+- HIPLLAMA_PREFILL_XHEADS=1 makes the contiguous prefill's wo
+  `q8_matmul_xheads` (K16, quant.py:424): the attention output read as
+  (M, heads, head size), one fp32 partial per head added in head order.
+  It runs reshape math in every mode (the JAX call passes no dequant mode,
+  quant.py:491-495); ineligible shapes (`xheads_engages`) flatten and take
+  q8_matmul, under the mode and the MINNER decision.
 """
 
 from __future__ import annotations
@@ -73,6 +90,16 @@ A8_GEMV_ROWS = 1024  # xi rows (k) a GEMV CTA of the a8 kernels stages at most
 LAYERED_MAX_M = 512
 # fp64 bytes of one chunk of int32 group sums in the plain a8 product
 _A8_PLAIN_BYTES = 256 * 2**20
+# the JAX q8_matmul's rows per M block above 512 rows (quant.py:1320-1331),
+# which K19's decision reads
+Q8_BLOCK_M = 512
+# q8_matmul_xheads's own block_n (quant.py:431), which the JAX model leaves
+XHEADS_BLOCK_N = 512
+# K19 (csrc/prefill.cu kMiBK, kMiBN): weight rows per tile and columns per
+# strip (a gate strip: 64 of W1 and the same 64 of W3)
+MINNER_BK = 256
+MINNER_BN = 128
+_MINNER_CTAS = 264  # K19 CTAs aimed for: two per SM of an H100
 
 
 @dataclasses.dataclass
@@ -168,26 +195,37 @@ def q8_a8_engages(m: int, k: int, n: int, gs: int, block_n: int | None = None) -
     never fire. The head-split output's wider block (quant.py:1337-1340)
     changes no decision: it reaches the `a8` test only above 512 rows, where
     K is at most 64 groups."""
-    bn, bk = _q8_blocks(m, k, n, gs, block_n)
+    return _a8_stays(m, k, gs, *_q8_blocks(m, k, n, gs, block_n))
+
+
+def _a8_stays(m: int, k: int, gs: int, bn: int, bk: int) -> bool:
+    """Whether a JAX q8_matmul or q8_matmul_silu in `a8` keeps it at these
+    blocks (quant.py:1298-1316, :659-664)."""
     if m > 64 and k % gs == 0 and k * bn <= 8 * 2**20 and k // gs <= 64:
         return True
     return not (m > 64 or bk != k or (bk // gs) * m * bn * 4 > 4 * 2**20)
 
 
+def _k_block(m: int, k: int, gs: int, bn: int, block_k: int) -> int:
+    """The JAX products' K block (quant.py:1270-1290, :650-657): the whole K
+    where the weight strip and the rows fit, else block_k shrunk to whole
+    groups."""
+    if k % gs == 0 and k * bn <= 8 * 2**20 and m * k * 2 <= 2 * 2**20:
+        return k
+    return _block_k(k, gs, block_k)
+
+
 def _q8_blocks(m: int, k: int, n: int, gs: int, block_n: int | None) -> tuple[int, int]:
     """(block_n, block_k) of the JAX q8_matmul and q8_matmul_layered
     (quant.py:1257-1290, :1621-1643): block_n (default HIPLLAMA_Q8_BLOCK_N)
-    halved to a divisor of n, and the whole K as one block where the weight
-    strip and the rows fit, else HIPLLAMA_Q8_BLOCK_K's default shrunk to
-    whole groups."""
+    halved to a divisor of n, and the K block of `_k_block` from
+    HIPLLAMA_Q8_BLOCK_K's default."""
     bn = block_n or _env_int("HIPLLAMA_Q8_BLOCK_N", Q8_BLOCK_N)
     while bn > 128 and n % bn:
         bn //= 2
     if n % bn:
         bn = n
-    if k % gs == 0 and k * bn <= 8 * 2**20 and m * k * 2 <= 2 * 2**20:
-        return bn, k
-    return bn, _block_k(k, gs, Q8_BLOCK_K)
+    return bn, _k_block(m, k, gs, bn, Q8_BLOCK_K)
 
 
 def q8_layered_a8_engages(m: int, k: int, n: int, gs: int, block_n: int | None = None) -> bool:
@@ -203,18 +241,115 @@ def q8_layered_a8_engages(m: int, k: int, n: int, gs: int, block_n: int | None =
     return not (m > 64 or bk != k or (bk // gs) * m * bn * 4 > 4 * 2**20)
 
 
+def minner_engages(m: int, k: int, n: int, gs: int, mode: str = "reshape", norm: bool = False,
+                   out_heads: int = 0, block_n: int | None = None) -> bool:
+    """Whether the JAX q8_matmul, with HIPLLAMA_PREFILL_MINNER=1, takes
+    `_q8_matmul_minner` (K19) for an (m, k) x (k, n) product of group size
+    gs in `mode`, with the rmsnorm prologue (`norm`) and, for out_heads =
+    HS, a head-split emission (quant.py:1257-1406): the same blocks as
+    q8_a8_engages, then K19 above 512 rows, in reshape math after the `a8`
+    decline, where no norm prologue is left (it moves outside where the K
+    block is not the whole row), the output is flat and bp * block_n * 4 <=
+    12 MiB with block_n % 128 == 0. A head-split emission the JAX kernel
+    cannot make (head size % 128, the 8-sublane rule) becomes a flat call
+    with its block_n, which may take K19. The Mosaic tile fallbacks are not
+    copied (interpret mode never takes them)."""
+    bn, _ = _q8_blocks(m, k, n, gs, block_n)
+    return _minner_at(m, k, n, gs, mode, norm, out_heads, bn, Q8_BLOCK_K)
+
+
+def _minner_at(m: int, k: int, n: int, gs: int, mode: str, norm: bool, out_heads: int,
+               bn: int, block_k: int) -> bool:
+    """minner_engages from the JAX call's block_n and requested block_k
+    on, the head-split branch recursing as the JAX call does (quant.py:1340-1375,
+    its block_n and K block passed down)."""
+    bk = _k_block(m, k, gs, bn, block_k)
+    if mode == "a8":
+        if _a8_stays(m, k, gs, bn, bk):
+            bk = k  # the prefill clause's K block; the decode clause has it already
+        else:
+            mode = "reshape"
+    block_m = m
+    if m > Q8_BLOCK_M:
+        block_m = 256 if (out_heads or mode == "a8") else Q8_BLOCK_M
+    bp = -(-m // block_m) * block_m
+    if out_heads:
+        if n % (8 * out_heads) == 0 and bn % (8 * out_heads):
+            bn = max(8 * out_heads, bn - bn % (8 * out_heads))
+        if (n % out_heads or bn % out_heads or (bn // out_heads) % 8 or out_heads % 128
+                or (mode == "a8" and m > Q8_BLOCK_M) or n % bn):
+            return _minner_at(m, k, n, gs, mode, norm, 0, bn, bk)
+        return False
+    if norm and bk != k:
+        norm = False
+    return (bp > block_m and mode == "reshape" and not norm and bn % 128 == 0
+            and bp * bn * 4 <= 12 * 2**20)
+
+
+def minner_silu_engages(m: int, k: int, h: int, gs: int, mode: str = "reshape",
+                        norm: bool = False, block_n: int | None = None) -> bool:
+    """Whether the JAX q8_matmul_silu, with HIPLLAMA_PREFILL_MINNER=1, runs
+    its K19 gate for (m, k) rows over W1|W3 of hidden width h
+    (quant.py:637-684): the silu wrapper's own block_n and blocks, then K19
+    above 512 rows in reshape math with no norm prologue left and bp *
+    block_n * 8 <= 24 MiB (two full-height accumulators). Where h does not
+    tile, the JAX wrapper falls back to the norm outside and q8_matmul over
+    W1|W3, whose K19 decision (minner_engages on 2h) is taken instead; the
+    port's gate kernel serves both."""
+    bn = block_n or _env_int("HIPLLAMA_Q8_BLOCK_N", Q8_BLOCK_N)
+    while bn > 128 and h % bn:
+        bn //= 2
+    if h % bn:
+        return minner_engages(m, k, 2 * h, gs, mode, False, 0, block_n)
+    # q8_matmul's gate with one accumulator per width: bp * bn * 8 <= 24 MiB
+    # is its bp * bn * 4 <= 12 MiB
+    return _minner_at(m, k, h, gs, mode, norm, 0, bn, Q8_BLOCK_K)
+
+
+def xheads_engages(m: int, gh: int, hs: int, k: int, n: int, gs: int) -> bool:
+    """Whether the JAX q8_matmul_xheads runs its head-split kernel (K16) for
+    x3 (m, gh, hs) against a (k, n) weight of group size gs, or flattens and
+    takes q8_matmul (quant.py:447-464): head size % 128 == 0, whole groups,
+    column blocks of its block_n 512 halved to a divisor of n (at least
+    128), the whole K in one block (k * block_n <= 8 MiB), and m a multiple
+    of its 256-row block or at most 256 rows."""
+    bn = XHEADS_BLOCK_N
+    while bn > 128 and n % bn:
+        bn //= 2
+    bm = min(256, m)
+    return (hs % 128 == 0 and k == gh * hs and k % gs == 0 and n % bn == 0 and bn % 128 == 0
+            and k * bn <= 8 * 2**20 and (m % bm == 0 or m <= bm))
+
+
+def _votes(engages, widths, what: str) -> bool:
+    """engages(n) for each output width n of the JAX products a call of the
+    port stands for; raises where they disagree."""
+    votes = {engages(n) for n in widths}
+    if len(votes) > 1:
+        raise NotImplementedError(f"{what}: the JAX products of widths {tuple(widths)} "
+                                  "decide apart at these shapes; not yet ported")
+    return votes.pop()
+
+
 def a8_serves(mode: str, m: int, k: int, widths, gs: int, engages, knob: str) -> bool:
     """Whether a product in `mode` runs its `a8` arithmetic: `engages(m, k,
     n, gs)` for each output width n of the JAX products the call stands for
     (a fused weight of the port may stand for several). Raises where they
     disagree, and on a mode the port does not serve."""
     if mode == "a8":
-        votes = {engages(m, k, n, gs) for n in widths}
-        if len(votes) > 1:
-            raise NotImplementedError(f"{knob}=a8: the JAX products of widths {tuple(widths)} "
-                                      "decide apart at these shapes; not yet ported")
-        return votes.pop()
+        return _votes(lambda n: engages(m, k, n, gs), widths, f"{knob}=a8")
     return False
+
+
+def minner_serves(minner: bool, mode: str, m: int, k: int, widths, gs: int, norm: bool,
+                  out_heads: int = 0, block_n: int | None = None) -> bool:
+    """Whether a product with HIPLLAMA_PREFILL_MINNER's value `minner` runs
+    K19: minner_engages for each output width of the JAX products the call
+    stands for; raises where they disagree."""
+    if not minner:
+        return False
+    return _votes(lambda n: minner_engages(m, k, n, gs, mode, norm, out_heads, block_n), widths,
+                  "HIPLLAMA_PREFILL_MINNER=1")
 
 
 def check_mode(mode: str, modes: tuple[str, ...], knob: str) -> None:
@@ -313,15 +448,43 @@ def _q8_plain(x, qt: QTensor, a8: bool, norm_weight, norm_eps: float, residual, 
     return acc.to(x.dtype)
 
 
-def q8_matmul_plain(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
-                    residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-                    rope_theta: float = 10000.0, mode: str = "reshape", a8_widths=None):
-    """Plain version of `q8_matmul`."""
+def _q8_route(x, qt: QTensor, mode: str, widths, norm: bool, minner: bool, out_heads: int,
+              block_n: int | None) -> str:
+    """Which kernel q8_matmul runs: "a8", "minner" (K19) or "reshape"
+    (K15), as the JAX q8_matmul decides for each JAX product the call
+    stands for (`widths`, default N)."""
     check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
     m, k = x.shape
-    a8 = a8_serves(mode, m, k, a8_widths or (qt.q.shape[1],), qt.group_size, q8_a8_engages,
-                   "HIPLLAMA_Q8_MODE")
-    return _q8_plain(x, qt, a8, norm_weight, norm_eps, residual, rope_pos, rope_limit,
+    widths = widths or (qt.q.shape[-1],)
+    gs = qt.group_size
+    engages = q8_a8_engages if block_n is None else (
+        lambda *a: q8_a8_engages(*a, block_n=block_n))
+    if a8_serves(mode, m, k, widths, gs, engages, "HIPLLAMA_Q8_MODE"):
+        return "a8"
+    if minner_serves(minner, mode, m, k, widths, gs, norm, out_heads, block_n):
+        return "minner"
+    return "reshape"
+
+
+def q8_matmul_plain(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                    residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
+                    rope_theta: float = 10000.0, mode: str = "reshape", widths=None,
+                    minner: bool = False, out_heads: int = 0, block_n: int | None = None):
+    """Plain version of `q8_matmul`."""
+    route = _q8_route(x, qt, mode, widths, norm_weight is not None, minner, out_heads, block_n)
+    kw = dict(norm_weight=norm_weight, norm_eps=norm_eps, residual=residual, rope_pos=rope_pos,
+              rope_limit=rope_limit, rope_head=rope_head, rope_theta=rope_theta)
+    if route == "minner":
+        return q8_matmul_minner_plain(x, qt, **kw)
+    return _q8_plain(x, qt, route == "a8", *kw.values())
+
+
+def q8_matmul_minner_plain(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                           residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
+                           rope_theta: float = 10000.0):
+    """Plain version of `q8_matmul_minner` (K19): K15's reshape arithmetic,
+    which K19 computes in another schedule."""
+    return _q8_plain(x, qt, False, norm_weight, norm_eps, residual, rope_pos, rope_limit,
                      rope_head, rope_theta)
 
 
@@ -347,15 +510,61 @@ def q8_matmul_layered_plain(x, qt: QTensor, layer: int, *, norm_weight=None,
     return _q8_plain(x, layer_of(qt, layer), a8, **kw)
 
 
-def q8_matmul_silu_plain(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
-                         mode: str = "reshape"):
-    """Plain version of `q8_matmul_silu`."""
+def _silu_route(x, qt13: QTensor, mode: str, norm: bool, minner: bool) -> str:
+    """Which kernel q8_matmul_silu runs: "a8", "minner" (K19 silu) or
+    "reshape" (K17), as the JAX q8_matmul_silu decides."""
     check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
-    xn = _normed(x, norm_weight, norm_eps)
     m, k = x.shape
-    a8 = a8_serves(mode, m, k, (qt13.q.shape[1] // 2,), qt13.group_size, q8_a8_engages,
-                   "HIPLLAMA_Q8_MODE")
-    return _gate(_dot_a8(xn, qt13) if a8 else _dot(xn, qt13)).to(x.dtype)
+    h, gs = qt13.q.shape[1] // 2, qt13.group_size
+    if a8_serves(mode, m, k, (h,), gs, q8_a8_engages, "HIPLLAMA_Q8_MODE"):
+        return "a8"
+    if minner and minner_silu_engages(m, k, h, gs, mode, norm):
+        return "minner"
+    return "reshape"
+
+
+def q8_matmul_silu_plain(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                         mode: str = "reshape", minner: bool = False):
+    """Plain version of `q8_matmul_silu`."""
+    route = _silu_route(x, qt13, mode, norm_weight is not None, minner)
+    if route == "minner":
+        return q8_matmul_silu_minner_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
+    xn = _normed(x, norm_weight, norm_eps)
+    return _gate(_dot_a8(xn, qt13) if route == "a8" else _dot(xn, qt13)).to(x.dtype)
+
+
+def q8_matmul_silu_minner_plain(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5):
+    """Plain version of `q8_matmul_silu_minner` (K19 silu):
+    q8_matmul_silu_plain in reshape math, the same function, which K19
+    computes in another schedule (the normed rows rounded to bf16 first, as
+    where the JAX call takes K19 with its norm moved outside)."""
+    return q8_matmul_silu_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
+
+
+def _xheads_dot(x3, qt: QTensor) -> torch.Tensor:
+    """sum over heads h, in order, of bf16(x3[:, h]) @ bf16(dequant(qt))[the
+    head's rows], each head's product a partial from zero in fp32
+    (quant.py:371-380)."""
+    m, gh, hs = x3.shape
+    w = q8_dequantize(qt).to(torch.bfloat16).float()
+    acc = torch.zeros((m, w.shape[1]), dtype=torch.float32, device=x3.device)
+    for h in range(gh):
+        acc = acc + x3[:, h].to(torch.bfloat16).float() @ w[h * hs:(h + 1) * hs]
+    return acc
+
+
+def q8_matmul_xheads_plain(x3, qt: QTensor, *, residual=None, mode: str = "reshape",
+                           minner: bool = False):
+    """Plain version of `q8_matmul_xheads`."""
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+    m, gh, hs = x3.shape
+    if not xheads_engages(m, gh, hs, *qt.q.shape, qt.group_size):
+        return q8_matmul_plain(x3.reshape(m, gh * hs), qt, residual=residual, mode=mode,
+                               minner=minner, block_n=XHEADS_BLOCK_N)
+    acc = _xheads_dot(x3, qt)
+    if residual is not None:
+        acc = acc + residual.float()
+    return acc.to(x3.dtype)
 
 
 def q8_matmul_ffn_plain(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
@@ -466,28 +675,33 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
 
 def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, residual=None,
               rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-              rope_theta: float = 10000.0, mode: str = "reshape", a8_widths=None):
+              rope_theta: float = 10000.0, mode: str = "reshape", widths=None,
+              minner: bool = False, out_heads: int = 0, block_n: int | None = None):
     """x (M, K) @ dequant(qt) -> (M, N) in x's dtype, with the optional
     rmsnorm prologue (norm_weight (K,) fp32), residual epilogue (residual
     (M, N)) and RoPE epilogue (rope_pos (M,) int32: columns below
     rope_limit rotate in heads of rope_head). A head-split (M, N / HS, HS)
-    output is a view of the result. `mode` is HIPLLAMA_Q8_MODE's value;
-    `a8_widths` the output widths of the JAX products the call stands for,
-    which decide whether `a8` runs (default: N). Replaces hip_llama_tpu/
-    ops/quant.py::q8_matmul."""
+    output is a view of the result. `mode` is HIPLLAMA_Q8_MODE's value,
+    `minner` HIPLLAMA_PREFILL_MINNER's (K19 then runs where the JAX call
+    takes it); `widths` the output widths of the JAX products the call
+    stands for (default: N), `out_heads` the head size of a JAX call that
+    emits head-split rows and `block_n` a JAX caller's own block_n, which
+    enter those decisions only. Replaces hip_llama_tpu/ops/quant.py::
+    q8_matmul."""
     dev = _device(x, "q8_matmul")
+    kw = dict(norm_weight=norm_weight, norm_eps=norm_eps, residual=residual, rope_pos=rope_pos,
+              rope_limit=rope_limit, rope_head=rope_head, rope_theta=rope_theta)
     if dev.type == "cpu":
-        return q8_matmul_plain(x, qt, norm_weight=norm_weight, norm_eps=norm_eps,
-                               residual=residual, rope_pos=rope_pos, rope_limit=rope_limit,
-                               rope_head=rope_head, rope_theta=rope_theta, mode=mode,
-                               a8_widths=a8_widths)
-    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+        return q8_matmul_plain(x, qt, mode=mode, widths=widths, minner=minner,
+                               out_heads=out_heads, block_n=block_n, **kw)
     m, k = _check_x("x", x)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
     _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
-    if a8_serves(mode, m, k, a8_widths or (n,), qt.group_size, q8_a8_engages,
-                 "HIPLLAMA_Q8_MODE"):
+    route = _q8_route(x, qt, mode, widths, norm_weight is not None, minner, out_heads, block_n)
+    if route == "minner":
+        return q8_matmul_minner(x, qt, **kw)
+    if route == "a8":
         out = a8_launch("quant", "q8_matmul_a8", x, qt, k, n, norm_weight, residual, rope_pos,
                         rope_limit, rope_head, rope_theta, norm_eps, False, A8_GEMV_ROWS)
         q8_matmul.launches_a8 += 1
@@ -590,23 +804,25 @@ q8_matmul_layered.launches_a8 = 0
 
 
 def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
-                   mode: str = "reshape"):
+                   mode: str = "reshape", minner: bool = False):
     """silu(xn @ W1) * (xn @ W3) -> (M, H) in x's dtype, from the
     concatenated qt13 = W1|W3 (K, 2H), xn = rmsnorm(x, norm_weight) (or x);
-    `mode` as q8_matmul's. Replaces hip_llama_tpu/ops/quant.py::
+    `mode` and `minner` as q8_matmul's. Replaces hip_llama_tpu/ops/quant.py::
     q8_matmul_silu."""
     dev = _device(x, "q8_matmul_silu")
     if dev.type == "cpu":
         return q8_matmul_silu_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps,
-                                    mode=mode)
-    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+                                    mode=mode, minner=minner)
     m, k = _check_x("x", x)
     n2 = _check_weight("qt13", qt13, k, dev)
     h = n2 // 2
     if h % 16:
         raise ValueError(f"q8_matmul_silu takes H % 16 == 0, got {h}")
     _check_norm(norm_weight, k, dev)
-    if a8_serves(mode, m, k, (h,), qt13.group_size, q8_a8_engages, "HIPLLAMA_Q8_MODE"):
+    route = _silu_route(x, qt13, mode, norm_weight is not None, minner)
+    if route == "minner":
+        return q8_matmul_silu_minner(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
+    if route == "a8":
         out = a8_launch("quant", "q8_matmul_silu_a8", x, qt13, k, n2, norm_weight, None, None, 0,
                         0, 0.0, norm_eps, True, A8_GEMV_ROWS)
         q8_matmul_silu.launches_a8 += 1
@@ -662,3 +878,135 @@ def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
 
 
 q8_matmul_ffn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the prefill variants: K19 (HIPLLAMA_PREFILL_MINNER) and K16
+# (HIPLLAMA_PREFILL_XHEADS)
+
+
+def minner_plan(k: int, strips: int) -> tuple[int, int]:
+    """(parts, tiles_per_part) of K19: the K rows in tiles of MINNER_BK, cut
+    into `parts` runs of whole tiles, as many as the column strips times the
+    parts fit in about _MINNER_CTAS CTAs. One CTA owns each (strip, run),
+    so each weight tile is still dequantized once per call."""
+    tiles = -(-k // MINNER_BK)
+    want = max(1, min(tiles, -(-_MINNER_CTAS // strips)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def _minner_ws(m: int, k: int, strips: int, dev):
+    """K19's fp32 workspace (parts, strips, M rounded up to 128, MINNER_BN):
+    each CTA's running sums, the parts added in order by the epilogue pass."""
+    parts, per = minner_plan(k, strips)
+    ws = torch.empty((parts, strips, -(-m // 128) * 128, MINNER_BN), dtype=torch.float32,
+                     device=dev)
+    return ws, parts, per
+
+
+def q8_matmul_minner(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                     residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
+                     rope_theta: float = 10000.0):
+    """q8_matmul's function in reshape math with the large-M schedule of the
+    JAX package's `_q8_matmul_minner` (K19): each CTA owns a column strip
+    and a run of K tiles, dequantizes each (256 x 128) tile once into shared
+    memory and sweeps every row through it (csrc/prefill.cu); the norm, when
+    given, is a pass of its own first, as where the JAX call takes K19.
+    q8_matmul routes here under HIPLLAMA_PREFILL_MINNER=1. Replaces
+    hip_llama_tpu/ops/quant.py::_q8_matmul_minner."""
+    dev = _device(x, "q8_matmul_minner")
+    if dev.type == "cpu":
+        return q8_matmul_minner_plain(x, qt, norm_weight=norm_weight, norm_eps=norm_eps,
+                                      residual=residual, rope_pos=rope_pos,
+                                      rope_limit=rope_limit, rope_head=rope_head,
+                                      rope_theta=rope_theta)
+    m, k = _check_x("x", x)
+    n = _check_weight("qt", qt, k, dev)
+    _check_norm(norm_weight, k, dev)
+    _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    xn = torch.empty_like(x) if norm_weight is not None else None
+    ws, parts, per = _minner_ws(m, k, -(-n // MINNER_BN), dev)
+    f = _build.bind("prefill", "q8_matmul_minner", "ppppppppp" + "iiiiiiii" + "ff" + "p")
+    rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
+           _ptr(rope_pos), out.data_ptr(), _ptr(xn), ws.data_ptr(), m, k, n, qt.group_size,
+           parts, per, rope_limit if rope_pos is not None else 0,
+           rope_head if rope_pos is not None else 1,
+           rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0, norm_eps, _stream())
+    _build.check(rc, "prefill", "q8_matmul_minner")
+    q8_matmul_minner.launches += 1
+    return out
+
+
+q8_matmul_minner.launches = 0
+
+
+def q8_matmul_silu_minner(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5):
+    """q8_matmul_silu's function in reshape math with K19's schedule: a
+    strip is 64 columns of W1 and the same 64 of W3, each tile of both
+    dequantized once, the gate bf16(h1 * sigmoid(h1) * h3) on the fp32 sums
+    in the epilogue pass. q8_matmul_silu routes here under
+    HIPLLAMA_PREFILL_MINNER=1. Replaces the K19 branch of hip_llama_tpu/
+    ops/quant.py::q8_matmul_silu (:677-731, `_q8_kernel_silu_minner`)."""
+    dev = _device(x, "q8_matmul_silu_minner")
+    if dev.type == "cpu":
+        return q8_matmul_silu_minner_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
+    m, k = _check_x("x", x)
+    n2 = _check_weight("qt13", qt13, k, dev)
+    h = n2 // 2
+    if h % 16:
+        raise ValueError(f"q8_matmul_silu_minner takes H % 16 == 0, got {h}")
+    _check_norm(norm_weight, k, dev)
+    out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
+    xn = torch.empty_like(x) if norm_weight is not None else None
+    ws, parts, per = _minner_ws(m, k, -(-h // (MINNER_BN // 2)), dev)
+    f = _build.bind("prefill", "q8_matmul_silu_minner", "ppppppp" + "iiiiii" + "f" + "p")
+    rc = f(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), _ptr(norm_weight), out.data_ptr(),
+           _ptr(xn), ws.data_ptr(), m, k, h, qt13.group_size, parts, per, norm_eps, _stream())
+    _build.check(rc, "prefill", "q8_matmul_silu_minner")
+    q8_matmul_silu_minner.launches += 1
+    return out
+
+
+q8_matmul_silu_minner.launches = 0
+
+
+def q8_matmul_xheads(x3, qt: QTensor, *, residual=None, mode: str = "reshape",
+                     minner: bool = False):
+    """residual + x3 @ dequant(qt) -> (M, N) in x3's dtype for head-split
+    rows x3 (M, GH, HS), read in place through its strides (the last one
+    1): each head's rows times its HS rows of the tile form a partial sum
+    from zero in fp32, added to the running sum in head order, then the
+    residual, one cast (K16, reshape math in every mode). Where the JAX
+    call flattens (`xheads_engages`), so does this one, and q8_matmul takes
+    the rows under `mode` and `minner`. Replaces hip_llama_tpu/ops/
+    quant.py::q8_matmul_xheads."""
+    dev = _device(x3, "q8_matmul_xheads")
+    if dev.type == "cpu":
+        return q8_matmul_xheads_plain(x3, qt, residual=residual, mode=mode, minner=minner)
+    check_mode(mode, Q8_MODES, "HIPLLAMA_Q8_MODE")
+    if x3.dim() != 3:
+        raise ValueError(f"x3: expected (M, GH, HS), got {tuple(x3.shape)}")
+    m, gh, hs = x3.shape
+    if not xheads_engages(m, gh, hs, *qt.q.shape, qt.group_size):
+        return q8_matmul(x3.reshape(m, gh * hs), qt, residual=residual, mode=mode, minner=minner,
+                         block_n=XHEADS_BLOCK_N)
+    if x3.dtype != torch.bfloat16 or x3.device != dev:
+        raise TypeError(f"x3: expected bfloat16 on {dev}, got {x3.dtype} on {x3.device}")
+    sm, sh, sd = x3.stride()
+    if sd != 1 or sm % 8 or sh % 8 or x3.data_ptr() % 16:
+        raise ValueError(f"x3: the kernel takes a unit last stride and 16-byte aligned rows, "
+                         f"got strides {x3.stride()}")
+    n = _check_weight("qt", qt, gh * hs, dev)
+    _check_epilogue(residual, None, 0, 0, m, n, dev)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    f = _build.bind("prefill", "q8_matmul_xheads", "ppppp" + "iiiiiii" + "p")
+    rc = f(x3.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(residual), out.data_ptr(), m,
+           gh, hs, sm, sh, n, qt.group_size, _stream())
+    _build.check(rc, "prefill", "q8_matmul_xheads")
+    q8_matmul_xheads.launches += 1
+    return out
+
+
+q8_matmul_xheads.launches = 0

@@ -184,10 +184,10 @@ def _a8(mode: str, x, n: int, gs: int, widths=None) -> bool:
 
 def q4_matmul_plain(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5,
                     residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-                    rope_theta: float = 10000.0, mode: str = "dequant", a8_widths=None):
+                    rope_theta: float = 10000.0, mode: str = "dequant", widths=None):
     """Plain version of `q4_matmul`."""
     xn = _normed(x, norm_weight, norm_eps)
-    a8 = _a8(mode, x, qt.q.shape[1], qt.group_size, a8_widths)
+    a8 = _a8(mode, x, qt.q.shape[1], qt.group_size, widths)
     acc = _dot_a8(xn, qt) if a8 else _dot(xn, qt)
     if residual is not None:
         acc = acc + residual.float()
@@ -234,20 +234,20 @@ def _check_weight(name: str, qt: Q4Tensor, k: int, dev) -> int:
 
 def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, residual=None,
               rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-              rope_theta: float = 10000.0, mode: str = "dequant", a8_widths=None):
+              rope_theta: float = 10000.0, mode: str = "dequant", widths=None):
     """x (M, K) @ dequant(qt) -> (M, N) in x's dtype, with the optional
     rmsnorm prologue (norm_weight (K,) fp32), residual epilogue (residual
     (M, N)) and RoPE epilogue (rope_pos (M,) int32: columns below
     rope_limit rotate in heads of rope_head). A head-split (M, N / HS, HS)
     output is a view of the result. `mode` is HIPLLAMA_Q4_MODE's value,
-    `a8_widths` as q8_matmul's. Replaces hip_llama_tpu/ops/quant4.py::
+    `widths` as q8_matmul's. Replaces hip_llama_tpu/ops/quant4.py::
     q4_matmul."""
     dev = _device(x, "q4_matmul")
     if dev.type == "cpu":
         return q4_matmul_plain(x, qt, norm_weight=norm_weight, norm_eps=norm_eps,
                                residual=residual, rope_pos=rope_pos, rope_limit=rope_limit,
                                rope_head=rope_head, rope_theta=rope_theta, mode=mode,
-                               a8_widths=a8_widths)
+                               widths=widths)
     m, k = _check_x("x", x, 32)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
@@ -257,7 +257,7 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
         check_operand("rope_pos", rope_pos, (m,), torch.int32, dev)
         if rope_head <= 0 or rope_head % 2 or rope_limit % rope_head or rope_limit > n:
             raise ValueError(f"rope: head size {rope_head}, limit {rope_limit}, N {n}")
-    if _a8(mode, x, n, qt.group_size, a8_widths):
+    if _a8(mode, x, n, qt.group_size, widths):
         out = a8_launch("quant4", "q4_matmul_a8", x, qt, k // 2, n, norm_weight, residual,
                         rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
                         _GEMV_KSLICE_MAX, planes=2)

@@ -50,6 +50,11 @@ as the JAX package does; their other values exit "not yet ported".
 HIPLLAMA_KV_COMMIT=0 commits each decode step's KV rows with four writes
 (each plane, each scale plane) instead of one, as the JAX package does; the
 cache holds the same values.
+HIPLLAMA_PREFILL_MINNER=1 runs the Q8 prefill's large products (above 512
+rows) with each weight tile dequantized once per call, and
+HIPLLAMA_PREFILL_XHEADS=1 runs the Q8 prefill's wo on the attention output
+head by head (head sizes that are a multiple of 128), where the JAX package
+does; HIPLLAMA_PREFILL_HEADS=0 as there. Both are off by default.
 The JAX CLI's other flags (--tp, --spec, --chunk, --device-sampling,
 --stream, ...) and chat mode are not yet ported: they exit with an error.
 """

@@ -1062,3 +1062,100 @@ def test_four_writes_equal_kv_commit_rows_on_the_card(int8, monkeypatch):
     for f in ("k", "v", "k_scale", "v_scale"):
         a, bb = getattr(got, f), getattr(k2, f)
         assert (a is None and bb is None) or torch.equal(a, bb), f
+
+
+# ---------------------------------------------------------------------------
+# the prefill variants: K19 (q8_matmul_minner, q8_matmul_silu_minner) and
+# K16 (q8_matmul_xheads)
+
+# (K, N): the fixture's width, a strip-ragged width (272 = 2 strips + 16
+# columns) over one partial K tile, and Llama-2-7B's wo and W2
+MINNER_SHAPES = [(64, 128), (256, 272), (4096, 4096), (11008, 4096)]
+
+
+@pytest.mark.parametrize("m", [513, 640, 2048])
+@pytest.mark.parametrize("shape", MINNER_SHAPES)
+@pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
+def test_q8_matmul_minner_kernel(m, shape, epi):
+    dev = _card()
+    k, n = shape
+    rng = np.random.default_rng(60)
+    qt = _qt(rng, k, n, 64, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = _epilogue(rng, m, k, n, epi, dev)
+    n0, n15 = Q.q8_matmul_minner.launches, Q.q8_matmul.launches
+    got = Q.q8_matmul_minner(x, qt, **kw)
+    want = Q.q8_matmul_minner_plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    assert (Q.q8_matmul_minner.launches - n0, Q.q8_matmul.launches - n15) == (1, 0)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [600, 2048])
+@pytest.mark.parametrize("shape", [(128, 192), (256, 256), (4096, 11008)])
+@pytest.mark.parametrize("norm", [False, True])
+def test_q8_matmul_silu_minner_kernel(m, shape, norm):
+    dev = _card()
+    k, h = shape
+    rng = np.random.default_rng(61)
+    qt13 = _qt(rng, k, 2 * h, 64, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = dict(norm_weight=(1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()) if norm \
+        else {}
+    n0 = Q.q8_matmul_silu_minner.launches
+    got = Q.q8_matmul_silu_minner(x, qt13, **kw)
+    want = Q.q8_matmul_silu_minner_plain(x, qt13, **kw)
+    torch.cuda.synchronize()
+    assert Q.q8_matmul_silu_minner.launches == n0 + 1 and got.shape == (m, h)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [32, 256, 2048])
+@pytest.mark.parametrize("gh", [2, 8, 32])
+@pytest.mark.parametrize("layout", ["contiguous", "head_slice"])
+@pytest.mark.parametrize("residual", [False, True])
+def test_q8_matmul_xheads_kernel(m, gh, layout, residual):
+    dev = _card()
+    hs, n = 128, 512
+    rng = np.random.default_rng(62)
+    qt = _qt(rng, gh * hs, n, 64, dev)
+    if layout == "head_slice":  # q|k|v-like rows: the heads sit between others
+        x3 = _rand(rng, (m, gh + 4, hs), torch.bfloat16, dev)[:, 2:gh + 2]
+    else:
+        x3 = _rand(rng, (m, gh, hs), torch.bfloat16, dev)
+    res = _rand(rng, (m, n), torch.bfloat16, dev) if residual else None
+    n0 = Q.q8_matmul_xheads.launches
+    got = Q.q8_matmul_xheads(x3, qt, residual=res)
+    want = Q.q8_matmul_xheads_plain(x3, qt, residual=res)
+    torch.cuda.synchronize()
+    assert Q.q8_matmul_xheads.launches == n0 + 1
+    _close(got, want, torch.bfloat16)
+
+
+def test_prefill_products_route_by_the_jax_decisions():
+    """At 7B widths, 1024 rows: q8_matmul takes K19 with `minner` (wo) and
+    K15 without; under a8 wo keeps its a8 kernel; q8_matmul_silu takes K19
+    silu with the norm outside (1024 x 4096 rows are past the JAX norm
+    prologue's 2 MiB); q8_matmul_xheads flattens 640 rows to q8_matmul."""
+    dev = _card()
+    rng = np.random.default_rng(63)
+    wo, w13 = _qt(rng, 4096, 4096, 64, dev), _qt(rng, 4096, 2 * 1024, 64, dev)
+    x = _rand(rng, (1024, 4096), torch.bfloat16, dev)
+    g = (1 + 0.1 * _rand(rng, (4096,), torch.float32, dev)).contiguous()
+
+    def delta(f):
+        before = (Q.q8_matmul_minner.launches, Q.q8_matmul.launches, Q.q8_matmul.launches_a8,
+                  Q.q8_matmul_silu_minner.launches, Q.q8_matmul_xheads.launches)
+        f()
+        after = (Q.q8_matmul_minner.launches, Q.q8_matmul.launches, Q.q8_matmul.launches_a8,
+                 Q.q8_matmul_silu_minner.launches, Q.q8_matmul_xheads.launches)
+        return tuple(a - b for a, b in zip(after, before))
+
+    assert delta(lambda: Q.q8_matmul(x, wo, residual=x, minner=True)) == (1, 0, 0, 0, 0)
+    assert delta(lambda: Q.q8_matmul(x, wo, residual=x)) == (0, 1, 0, 0, 0)
+    assert delta(lambda: Q.q8_matmul(x, wo, minner=True, mode="a8")) == (0, 0, 1, 0, 0)
+    assert delta(lambda: Q.q8_matmul_silu(x, w13, norm_weight=g, minner=True)) == (0, 0, 0, 1, 0)
+    x3 = x[:640].view(640, 32, 128)
+    assert delta(lambda: Q.q8_matmul_xheads(x3, wo, minner=True)) == (1, 0, 0, 0, 0)
+    assert delta(lambda: Q.q8_matmul_xheads(x3[:512], wo, mode="a8")) == (0, 0, 0, 0, 1)
+    torch.cuda.synchronize()
