@@ -9,7 +9,9 @@ Phases, in order; each raises on failure and none is caught:
   3. each kernel against its plain PyTorch version on the card at Llama-2-7B
      shapes (B 8, L 32, KVH 32, HS 128, S 512; prefill T 256), in bf16 and
      fp32, with its time, the plain version's time, the time of one PyTorch
-     library call doing the same work where there is one, and its bound;
+     library call doing the same work where there is one (for the cache
+     writers here and in phases 6 and 8: index_put_ on each plane, the rows
+     gathered or quantized beforehand, as CUDA-graph replays), and its bound;
   3b. the Q8 kernels (q8_matmul, q8_matmul_silu, q8_matmul_ffn,
      attention_decode_fused, q8_layer_fused) against their plain versions at
      7B shapes in bf16, with the same timings;
@@ -103,7 +105,19 @@ Phases, in order; each raises on failure and none is caught:
      and that model's
      serve with both knobs, with its logit check against the plain path,
      launches (K16, K19, K19 silu) and TTFT beside phase 6's default-route
-     serve.
+     serve;
+  12. the port bench (hip_llama_tpu_torch/bench.py) and its bandwidth probes:
+     K24 dma_read, K25 dma_copy, K26 wshape_read and K27 deep_read against
+     their plain versions at the probes' default 6 GiB (bit-exact), with the
+     time, plain time, library time (x.sum(dtype=torch.int32); out.copy_(x))
+     and bound; then, launches counted from 0: the hbm_bw ladders (dma,
+     copy, wshape, dmadeep, xreduce) and the achievable bandwidth; the
+     graph decode chain (16 steps, 7B-width Q8 + int8 KV, b8, window 512)
+     token for token against the eager chain; bench.main in process for the
+     default decode, --loop host, --mode ttft, --mode serve and --mode serve
+     --paged --prefix-cache (each line: bench.py's metric, a value above 0,
+     vs_baseline and vs_achievable in (0, 1.05]); and one
+     `python -m hip_llama_tpu_torch.bench --steps 16` in its own process.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -125,6 +139,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hip_llama_tpu_torch import bench as port_bench
 from hip_llama_tpu_torch import run as port_run
 from hip_llama_tpu_torch.config import ModelConfig
 from hip_llama_tpu_torch.engine import InferenceEngine, Requests, read_inputfile
@@ -141,11 +156,13 @@ from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams
 from hip_llama_tpu_torch.ops import _build, launch_counts, reset_launches
 from hip_llama_tpu_torch.ops import attention as A
 from hip_llama_tpu_torch.ops import cache as C
+from hip_llama_tpu_torch.ops import hbm_bw as HK
 from hip_llama_tpu_torch.ops import layer_fused as LF
 from hip_llama_tpu_torch.ops import quant as Q
 from hip_llama_tpu_torch.ops import quant4 as Q4
 from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
+from hip_llama_tpu_torch.tools import hbm_bw as HT
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "assets", "golden")
@@ -273,6 +290,11 @@ KERNEL_SOURCES = {
     "q8_matmul_silu_minner": ("hip_llama_tpu_torch/csrc/prefill.cu",
                               "hip_llama_tpu/ops/quant.py:677"),
     "q8_matmul_xheads": ("hip_llama_tpu_torch/csrc/prefill.cu", "hip_llama_tpu/ops/quant.py:424"),
+    # the bandwidth probes of tools/hbm_bw.py, the port bench's denominator
+    "dma_read": ("hip_llama_tpu_torch/csrc/hbm_bw.cu", "tools/hbm_bw.py:125"),
+    "dma_copy": ("hip_llama_tpu_torch/csrc/hbm_bw.cu", "tools/hbm_bw.py:93"),
+    "wshape_read": ("hip_llama_tpu_torch/csrc/hbm_bw.cu", "tools/hbm_bw.py:185"),
+    "deep_read": ("hip_llama_tpu_torch/csrc/hbm_bw.cu", "tools/hbm_bw.py:261"),
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
@@ -476,6 +498,28 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def step_index(b: int, n_layers: int, kvh: int, pos: torch.Tensor) -> tuple:
+    """index_put_ indices of a decode step's rows in a (B, L, KVH, S, ...)
+    plane: (b, l, h, pos[b]) broadcast to (B, L, KVH)."""
+    dev = pos.device
+    return (torch.arange(b, device=dev)[:, None, None],
+            torch.arange(n_layers, device=dev)[None, :, None],
+            torch.arange(kvh, device=dev)[None, None, :], pos.long()[:, None, None])
+
+
+def chunk_index(start_l, valid_l, s: int, kvh: int, dev, *chunks) -> tuple:
+    """index_put_ indices of a prefill chunk's live rows (j < valid[b],
+    start[b] + j < S) in one layer's (B, KVH, S, ...) view, and each chunk
+    (B, T, KVH, ...) gathered to those rows (N, KVH, ...)."""
+    bi, ti = map(list, zip(*[(b, j) for b, (st, v) in enumerate(zip(start_l, valid_l))
+                             for j in range(v) if st + j < s]))
+    bt = torch.tensor(bi, device=dev)
+    tt = torch.tensor(ti, device=dev)
+    st = torch.tensor(start_l, device=dev)[bt]
+    idx = (bt[:, None], torch.arange(kvh, device=dev)[None, :], (st + tt)[:, None])
+    return idx, tuple(c[bt, tt] for c in chunks)
+
+
 def attn_check(pairs, dtype) -> tuple[float, bool]:
     """max |kernel - plain| over the (kernel, plain) pairs of an attention
     kernel's outputs, and whether every output is within its tolerance:
@@ -542,8 +586,13 @@ def phase_kernels(dtype) -> dict[str, dict]:
         del c1, c2
     ms = cuda_ms(lambda i: C.kv_commit_rows(cache, kr, vr, pos), graph=True)
     plain = cuda_ms(lambda i: C.kv_commit_rows_plain(cache, kr, vr, pos))
+    # library: one index_put_ per plane, the rows (B, L, KVH, HS) at pos
+    idx = step_index(b, n_layers, kvh, pos)
+    krp, vrp = kr.permute(1, 0, 2, 3), vr.permute(1, 0, 2, 3)
+    lib = cuda_ms(lambda i: (cache.k.index_put_(idx, krp), cache.v.index_put_(idx, vrp)),
+                  graph=True)
     n_bytes = 2 * 2 * n_layers * b * kvh * hs * e + 4 * b
-    out["kv_commit_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+    out["kv_commit_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                                  bound=bound_ms(n_bytes, 0, dtype))
 
     # K3 chunk writer: ragged valid, one bystander, windows past S
@@ -560,9 +609,14 @@ def phase_kernels(dtype) -> dict[str, dict]:
     del c1, c2
     ms = cuda_ms(lambda i: C.kv_write_chunk(cache, ck, cv, i % rot, start, cvalid), graph=True)
     plain = cuda_ms(lambda i: C.kv_write_chunk_plain(cache, ck, cv, i % rot, start, cvalid))
+    # library: one index_put_ per plane of the layer, the live rows gathered
+    # beforehand
+    idx, (ckg, cvg) = chunk_index(start_l, valid_l, s, kvh, dev, ck, cv)
+    lib = cuda_ms(lambda i: (cache.k[:, i % rot].index_put_(idx, ckg),
+                             cache.v[:, i % rot].index_put_(idx, cvg)), graph=True)
     rows = sum(max(0, min(v, s - st)) for st, v in zip(start_l, valid_l))
     n_bytes = 2 * 2 * rows * kvh * hs * e + 8 * b
-    out["kv_write_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None,
+    out["kv_write_chunk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                                  bound=bound_ms(n_bytes, 0, dtype))
 
     # K4 prefill over the chunk just written (rows t < valid compared)
@@ -593,6 +647,8 @@ def phase_kernels(dtype) -> dict[str, dict]:
         tol = (f"atol {ATTN_ATOL:g} + rtol {ATTN_RTOL:g} x |plain|"
                if name.startswith("attention") and dtype == torch.bfloat16 else f"{TOL[dtype]:g}")
         lib_s = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        if name.startswith("kv_"):
+            lib_s += " (index_put_)"
         print(f"kernel {name} {str(dtype)[6:]}: max_abs_err {r['max_abs_err']:.3g} "
               f"(tol {tol}) {'ok' if ok else 'FAIL'}; ms {r['ms']:.4f} "
               f"plain_ms {r['plain_ms']:.4f} library_ms {lib_s} "
@@ -800,9 +856,10 @@ def phase_kernels_int8() -> dict[str, dict]:
     def clone():
         return KVCache(*(x.clone() for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
 
-    def writer_case(name, label, write, plain_write, n_bytes):
+    def writer_case(name, label, write, plain_write, lib_write, n_bytes):
         """A writer: into two copies of the cache, which must then be equal
-        bit for bit; then timed into the cache itself."""
+        bit for bit; then timed into the cache itself, beside index_put_
+        calls making the same write (lib_write)."""
         c1, c2 = clone(), clone()
         write(c1, 3)
         plain_write(c2, 3)
@@ -814,13 +871,14 @@ def phase_kernels_int8() -> dict[str, dict]:
         del c1, c2, planes
         ms = cuda_ms(lambda i: write(cache, i % rot), graph=True)
         plain = cuda_ms(lambda i: plain_write(cache, i % rot), iters=4, warmup=1)
+        lib = cuda_ms(lambda i: lib_write(cache, i % rot), graph=True)
         bound = bound_ms(n_bytes, 0, torch.int8)
         print(f"kernel {name} [{label}]: max_abs_err {err:.3g} (bit-exact) "
-              f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms n/a "
-              f"bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
+              f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+              f"(index_put_) {lib:.4f} bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
         if not ok:
             raise AssertionError(f"{name} [{label}] differs from its plain version")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=bound)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bound)
 
     pos_l = [0, 1, 100, 255, 256, 300, 450, s - 1]
     pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
@@ -862,13 +920,27 @@ def phase_kernels_int8() -> dict[str, dict]:
     # K2: every slot, then a valid mask, at ragged positions
     kr, vr = rnd(n_layers, b, kvh, hs), rnd(n_layers, b, kvh, hs)
     valid = torch.tensor([1, 0, 1, 1, 0, 1, 1, 1], dtype=torch.int32, device=dev)
+    # library: index_put_ of the rows quantized beforehand and their scales,
+    # one call per plane (the valid slots only, with the mask)
+    rows_q = [t for r in (kr, vr) for t in C.quantize_kv_rows(r.permute(1, 0, 2, 3))]
+    keep = valid.bool()
+    all_idx = step_index(b, n_layers, kvh, pos)
+    kept_idx = tuple(t[keep] if t.shape[0] == b else t for t in all_idx)
+    kept_rows = [t[keep] for t in rows_q]  # masked here: a mask syncs inside a capture
+
+    def commit_lib(c, idx, vals):
+        for plane, v in zip((c.k, c.k_scale, c.v, c.v_scale), vals):
+            plane.index_put_(idx, v)
+
     writer_case("kv_commit_rows_int8", "L 32, B 8, KVH 32, HS 128, bf16 rows, a valid mask",
                 lambda c, i: C.kv_commit_rows(c, kr, vr, pos, valid),
                 lambda c, i: C.kv_commit_rows_plain(c, kr, vr, pos, valid),
+                lambda c, i: commit_lib(c, kept_idx, kept_rows),
                 2 * n_layers * 6 * kvh * (hs * 2 + hs + 4) + 8 * b)
     writer_case("kv_commit_rows_int8", "L 32, B 8, KVH 32, HS 128, bf16 rows",
                 lambda c, i: C.kv_commit_rows(c, kr, vr, pos),
                 lambda c, i: C.kv_commit_rows_plain(c, kr, vr, pos),
+                lambda c, i: commit_lib(c, all_idx, rows_q),
                 2 * n_layers * b * kvh * (hs * 2 + hs + 4) + 4 * b)
 
     # K3 and K12: ragged valid, one bystander, windows past S
@@ -878,13 +950,17 @@ def phase_kernels_int8() -> dict[str, dict]:
     cvalid = torch.tensor(valid_l, dtype=torch.int32, device=dev)
     (ckq, cks), (cvq, cvs) = (C.quantize_kv_rows(rnd(b, t, kvh, hs)) for _ in range(2))
     rows = sum(max(0, min(v, s - st)) for st, v in zip(start_l, valid_l))
+    cidx, (ckg, cvg, cksg, cvsg) = chunk_index(start_l, valid_l, s, kvh, dev, ckq, cvq, cks, cvs)
     writer_case("kv_write_chunk_int8", "B 8, T 256, KVH 32, HS 128",
                 lambda c, i: C.kv_write_chunk(c, ckq, cvq, i, start, cvalid),
                 lambda c, i: C.kv_write_chunk_plain(c, ckq, cvq, i, start, cvalid),
+                lambda c, i: (c.k[:, i].index_put_(cidx, ckg), c.v[:, i].index_put_(cidx, cvg)),
                 2 * 2 * rows * kvh * hs + 8 * b)
     writer_case("scale_write_chunk", "B 8, T 256, KVH 32",
                 lambda c, i: C.scale_write_chunk(c, cks, cvs, i, start, cvalid),
                 lambda c, i: C.scale_write_chunk_plain(c, cks, cvs, i, start, cvalid),
+                lambda c, i: (c.k_scale[:, i].index_put_(cidx, cksg),
+                              c.v_scale[:, i].index_put_(cidx, cvsg)),
                 2 * 2 * rows * kvh * 4 + 8 * b)
 
     # K4 over the chunk just written, bf16 q (rows t < valid compared)
@@ -1163,7 +1239,7 @@ def phase_paged_kernels() -> dict[str, dict]:
             return PagedKVCache(*(None if x is None else x.clone()
                                   for x in (pool.k, pool.v, pool.k_scale, pool.v_scale)))
 
-        def writer_case(name, what, write, plain_write, n_bytes):
+        def writer_case(name, what, write, plain_write, lib_write, n_bytes):
             c1, c2 = clone(), clone()
             write(c1, 3)
             plain_write(c2, 3)
@@ -1175,13 +1251,25 @@ def phase_paged_kernels() -> dict[str, dict]:
             del c1, c2, pairs
             ms = cuda_ms(lambda i: write(pool, i % rot), graph=True)
             plain = cuda_ms(lambda i: plain_write(pool, i % rot), iters=4, warmup=1)
+            lib = cuda_ms(lambda i: lib_write(pool, i % rot), graph=True)
             bound = bound_ms(n_bytes, 0, torch.int8)
             print(f"kernel {name} [{what}]: max_abs_err {err:.3g} (bit-exact) "
-                  f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms n/a "
-                  f"bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
+                  f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+                  f"(index_put_) {lib:.4f} bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
             if not ok:
                 raise AssertionError(f"{name} [{what}] differs from its plain version")
-            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=None, bound=bound)
+            out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bound)
+
+        # library: index_put_ per plane at the rows' pages and offsets; a
+        # step's rows (L, B, KVH, ...) land at [l, h, page[b], offset[b]]
+        ar = torch.arange(max(n_layers, kvh), device=dev)
+        page = table[torch.arange(b, device=dev), (pos // PAGE).long()].long()
+        step_idx = (ar[:n_layers, None, None], ar[None, None, :kvh], page[None, :, None],
+                    (pos % PAGE).long()[None, :, None])
+        cbi, cti = map(list, zip(*[(bb, j) for bb, v in enumerate(valid_l) for j in range(v)]))
+        cbt, ctt = torch.tensor(cbi, device=dev), torch.tensor(cti, device=dev)
+        cpage = table[cbt, (start[cbt] // PAGE).long()].long()
+        chunk_idx = (ar[None, :kvh], cpage[:, None], ctt[:, None])
 
         # K11 (and K10): one decode step's rows of all layers at the slots' positions
         rows = [rnd(n_layers, b, kvh, hs) for _ in range(2)]
@@ -1193,11 +1281,14 @@ def phase_paged_kernels() -> dict[str, dict]:
         writer_case("kv_write_rows_paged" + sfx, f"L 32, B 8, KVH 32, HS 128, {label}",
                     lambda c, i: C.kv_write_rows_paged(c, kr, vr, table, pos),
                     lambda c, i: C.kv_write_rows_paged_plain(c, kr, vr, table, pos),
+                    lambda c, i: (c.k.index_put_(step_idx, kr), c.v.index_put_(step_idx, vr)),
                     2 * 2 * n_layers * b * kvh * hs * eb + 4 * b + 4 * b * mp)
         if int8:
             writer_case("scale_write_rows_paged", "L 32, B 8, KVH 32",
                         lambda c, i: C.scale_write_rows_paged(c, ksr, vsr, table, pos),
                         lambda c, i: C.scale_write_rows_paged_plain(c, ksr, vsr, table, pos),
+                        lambda c, i: (c.k_scale.index_put_(step_idx, ksr),
+                                      c.v_scale.index_put_(step_idx, vsr)),
                         2 * 2 * n_layers * b * kvh * 4 + 4 * b + 4 * b * mp)
         # K13 (and K14): one layer's chunk of T 128, a bystander, valid < T
         crows = [rnd(b, t, kvh, hs) for _ in range(2)]
@@ -1206,16 +1297,22 @@ def phase_paged_kernels() -> dict[str, dict]:
         else:
             ck, cv = crows
         n_rows = sum(valid_l)
+        ckg, cvg = ck[cbt, ctt], cv[cbt, ctt]  # (N, KVH, HS): the live rows
         writer_case("kv_write_chunk_paged" + sfx, f"B 8, T 128, KVH 32, HS 128, {label}",
                     lambda c, i: C.kv_write_chunk_paged(c, ck, cv, i, table, start, cvalid),
                     lambda c, i: C.kv_write_chunk_paged_plain(c, ck, cv, i, table, start, cvalid),
+                    lambda c, i: (c.k[i].index_put_(chunk_idx, ckg),
+                                  c.v[i].index_put_(chunk_idx, cvg)),
                     2 * 2 * n_rows * kvh * hs * eb + 8 * b + 4 * b * mp)
         if int8:
+            cksg, cvsg = cks[cbt, ctt], cvs[cbt, ctt]
             writer_case("scale_write_chunk_paged", "B 8, T 128, KVH 32",
                         lambda c, i: C.scale_write_chunk_paged(c, cks, cvs, i, table, start,
                                                                cvalid),
                         lambda c, i: C.scale_write_chunk_paged_plain(c, cks, cvs, i, table, start,
                                                                      cvalid),
+                        lambda c, i: (c.k_scale[i].index_put_(chunk_idx, cksg),
+                                      c.v_scale[i].index_put_(chunk_idx, cvsg)),
                         2 * 2 * n_rows * kvh * 4 + 8 * b + 4 * b * mp)
         del pool, sc
         torch.cuda.empty_cache()
@@ -2239,6 +2336,159 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the port bench and its bandwidth probes (K24-K27)
+
+# the in-process bench runs and the metric each must print (bench.py's names)
+BENCH_RUNS = (
+    ([], "decode_tok_per_s_per_chip_llama2_7b_int8_kv8_b8"),
+    (["--loop", "host"], "decode_tok_per_s_per_chip_llama2_7b_int8_kv8_b8"),
+    (["--mode", "ttft"], "ttft_p50_ms_llama2_7b_int8_kv8_b8_prompt512"),
+    (["--mode", "serve"], "serve_tok_per_s_llama2_7b_int8_kv8_b8_prompt512"),
+    (["--mode", "serve", "--paged", "--prefix-cache"],
+     "serve_tok_per_s_llama2_7b_int8_kv8_b8_prompt512_paged_pfx"),
+)
+
+
+def phase_probe_kernels() -> dict[str, dict]:
+    """K24-K27 against their plain versions at the probes' default sizes: 6
+    GiB of seeded random int8 (random, so an indexing fault shows), in
+    blocks of 4096 rows over 4 streams for K24 and K25, (4096, 512) tiles
+    for K26, depth 8 over blocks of 2048 rows for K27; bit for bit
+    (torch.equal: integers in fp32). Timed beside the plain version and one
+    library call over the same bytes (x.sum(dtype=torch.int32); for K25
+    out.copy_(x)). Bound: the bytes over 3.35 TB/s (K25 reads and writes
+    them)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    sz = HT.dma_sizes(6.0, 4, 4096)
+    x = torch.empty((sz["n"], 1024), dtype=torch.int8, device=dev).random_(-128, 128, generator=g)
+    seed = torch.tensor([SEED], dtype=torch.int32, device=dev)
+    out: dict[str, dict] = {}
+
+    def case(name, label, fn, plain_fn, lib_fn, lib_name, n_bytes):
+        got, want = fn(), plain_fn()
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, list) else [(got, want)]
+        ok = len(pairs) > 0 and all(torch.equal(a, b) for a, b in pairs)
+        err = max(max_err(a, b) for a, b in pairs)
+        del got, want, pairs
+        ms = cuda_ms(lambda i: fn(), iters=8, warmup=1)
+        plain = cuda_ms(lambda i: plain_fn(), iters=4, warmup=1)
+        lib = cuda_ms(lambda i: lib_fn(), iters=4, warmup=1)
+        bound = bound_ms(n_bytes, 0, torch.int8)
+        print(f"kernel {name} [{label}]: max_abs_err {err:.3g} (bit-exact) "
+              f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms "
+              f"({lib_name}) {lib:.4f} bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} differs from its plain version")
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound=bound)
+
+    bm, rows = sz["bm"], f"x ({sz['n']}, 1024) int8"
+    case("dma_read", f"{rows}, blocks of {bm} rows, 4 streams",
+         lambda: HK.dma_read(seed, x, bm, 4), lambda: HK.dma_read_plain(seed, x, bm, 4),
+         lambda: x.sum(dtype=torch.int32), "x.sum(dtype=torch.int32)", x.numel())
+    dst = torch.empty_like(x)
+    case("dma_copy", f"{rows}, blocks of {bm} rows, 4 streams",
+         lambda: HK.dma_copy(x, bm, 4), lambda: HK.dma_copy_plain(x, bm, 4),
+         lambda: dst.copy_(x), "out.copy_(x)", 2 * x.numel())
+    del dst
+    n_cols = HT.wshape_sizes(6.0, 4096, 512)["n_cols"]
+    xw = x.view(-1)[:4096 * n_cols].view(4096, n_cols)
+    case("wshape_read", f"x (4096, {n_cols}) int8, (4096, 512) tiles",
+         lambda: HK.wshape_read(seed, xw, 512), lambda: HK.wshape_read_plain(seed, xw, 512),
+         lambda: xw.sum(dtype=torch.int32), "x.sum(dtype=torch.int32)", xw.numel())
+    xd = x[:HT.deep_sizes(6.0, 2048)["n"]]
+    case("deep_read", f"x ({xd.shape[0]}, 1024) int8, blocks of 2048 rows, depth 8",
+         lambda: HK.deep_read(seed, xd, 2048, 8), lambda: HK.deep_read_plain(seed, xd, 2048, 8),
+         lambda: xd.sum(dtype=torch.int32), "x.sum(dtype=torch.int32)", xd.numel())
+    return out
+
+
+def bench_line(rc: int, text: str, metric: str, achievable: bool) -> dict:
+    """The bench's result line, checked: rc 0, the metric, a value above 0,
+    0 < vs_baseline <= 1.05, and the same for vs_achievable (required with
+    `achievable`)."""
+    line = json.loads(text.strip().splitlines()[-1])
+    if rc != 0 or line.get("metric") != metric:
+        raise AssertionError(f"bench printed {text!r} (rc {rc}); expected metric {metric}")
+    if not line["value"] > 0 or not 0 < line["vs_baseline"] <= 1.05:
+        raise AssertionError(f"bench line out of range: {line}")
+    if achievable and "vs_achievable" not in line:
+        raise AssertionError(f"bench line without vs_achievable: {line}")
+    if "vs_achievable" in line and not 0 < line["vs_achievable"] <= 1.05:
+        raise AssertionError(f"bench vs_achievable out of range: {line}")
+    return line
+
+
+def phase_bench() -> dict[str, int]:
+    """The port bench's path, its wrapper launches counted from 0: the
+    hbm_bw ladders and the achievable bandwidth; the graph decode chain
+    (16 steps of the 7B-width Q8 + int8-KV step at batch 8, window 512)
+    against the same chain run eagerly, token for token; bench.main in
+    process for each of BENCH_RUNS, with HIPLLAMA_ACHIEVABLE_BW set to this
+    run's probes; and one `python -m hip_llama_tpu_torch.bench --steps 16`,
+    which probes the card itself."""
+    dev = torch.device("cuda")
+    reset_launches()
+    print(f"hbm_bw ladders ({card_line()}):", flush=True)
+    for mode in ("dma", "copy", "wshape", "dmadeep", "xreduce"):
+        HT.main(["--mode", mode])
+        torch.cuda.empty_cache()
+    ach = HT.achievable(device=dev, file=sys.stdout)
+    torch.cuda.empty_cache()
+
+    cfg = port_bench.CONFIGS["7b"]
+    qparams = port_bench.rand_qparams_unrolled_on_device(cfg, dev, seed=SEED)
+    step = make_decode_step(cfg)
+    cache = init_kv_cache(cfg, 8, dtype=torch.bfloat16, seq_len=512, device=dev, quantized=True)
+    tokens = torch.arange(8, dtype=torch.int32, device=dev) * 1009
+    base = torch.full((8,), 256, dtype=torch.int32, device=dev)
+    eager = port_bench.decode_chain(step, qparams, cache, tokens, base, 16)
+    graph, replayed = port_bench.capture_chain(step, qparams, cache, tokens, base, 16)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, eager):
+        raise AssertionError("the graph decode chain's tokens differ from the eager chain's")
+    print(f"graph decode chain: 16 steps of the 7B-width Q8 + int8-KV step at b8, window 512, "
+          f"{replayed.numel()} tokens equal to the eager chain's", flush=True)
+    del graph, replayed, eager, cache, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    old = os.environ.get("HIPLLAMA_ACHIEVABLE_BW")
+    os.environ["HIPLLAMA_ACHIEVABLE_BW"] = f"{ach:.6e}"
+    try:
+        for argv, metric in BENCH_RUNS:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = port_bench.main(argv)
+            print(f"bench {' '.join(argv) or '(defaults)'} ({time.perf_counter() - t0:.1f} s): "
+                  f"{buf.getvalue().strip()}", flush=True)
+            bench_line(rc, buf.getvalue(), metric, achievable=not argv or "decode" in metric)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if old is None:
+            del os.environ["HIPLLAMA_ACHIEVABLE_BW"]
+        else:
+            os.environ["HIPLLAMA_ACHIEVABLE_BW"] = old
+    counts = launch_counts()
+
+    # the command line, in its own process: it measures the probes itself
+    env = {k: v for k, v in os.environ.items() if k != "HIPLLAMA_ACHIEVABLE_BW"}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "hip_llama_tpu_torch.bench", "--steps", "16"],
+                       cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    for ln in r.stderr.strip().splitlines()[-12:]:
+        print(f"  bench stderr: {ln}", flush=True)
+    print(f"python -m hip_llama_tpu_torch.bench --steps 16 ({time.perf_counter() - t0:.1f} s): "
+          f"{r.stdout.strip()}", flush=True)
+    bench_line(r.returncode, r.stdout, BENCH_RUNS[0][1], achievable=True)
+    return counts
+
+
 def profile_window(what: str, n: int, fn) -> None:
     """Device time by kernel over n calls of fn (after one warm call), from
     torch.profiler, beside the host wall time of the same window."""
@@ -2413,22 +2663,33 @@ def main() -> int:
     del qparams
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
+    # phase 12: the port bench and its bandwidth probes
+    t12 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_probes = phase_probe_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["bench"] = phase_bench()
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+
     # each kernel's count from the first serving path that runs it: the 7B
     # serves, then the golden runs (K5 and its int8 branch run only in the
     # four-kernel layer, K1's int8 branch in the dense fp32 --kv int8 run;
     # K21 and K22 count from the int4 serve; the paged kernels on bf16 or
-    # fp32 pages from the fixture's --paged 16 runs)
+    # fp32 pages from the fixture's --paged 16 runs), then the bench phase
+    # (K24-K27)
     runs = [launches["dense"], launches["q8"], launches["q8 int8"], launches["q4"],
             launches["q8 int8 paged"], launches["q8 int8 a8"], launches["q8 int8 stacked"],
             launches["q8 int8 stacked a8"], launches["q8 int8 prefill knobs"],
             launches_golden["q8, four-kernel layer"], launches_golden["fp32 --kv int8"],
             launches_golden["q8 --kv int8, four-kernel layer"], launches_golden["q8 --paged 16"],
             launches_golden["q4 a8"], launches_golden["fp32, four-write commit"],
-            launches_golden["q8 --kv int8, four-write commit"]]
+            launches_golden["q8 --kv int8, four-write commit"], launches["bench"]]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = next(d[name] for d in (res[torch.bfloat16], res_q8, res_int8, res_q4, res_paged,
-                                   res_a8, res_stacked, res_prefill) if name in d)
+                                   res_a8, res_stacked, res_prefill, res_probes) if name in d)
         n = next((run[name] for run in runs if run.get(name)), 0)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,

@@ -17,6 +17,7 @@ from hip_llama_tpu_torch.ops.cache import (
     scale_write_rows,
     scale_write_rows_paged,
 )
+from hip_llama_tpu_torch.ops.hbm_bw import deep_read, dma_copy, dma_read, wshape_read
 from hip_llama_tpu_torch.ops.layer_fused import q8_layer_fused
 from hip_llama_tpu_torch.ops.quant import (
     q8_matmul,
@@ -35,7 +36,8 @@ KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            scale_write_chunk, q4_matmul, q4_matmul_silu, attention_decode_paged,
            attention_prefill_paged, kv_write_rows_paged, scale_write_rows_paged,
            kv_write_chunk_paged, scale_write_chunk_paged, q8_matmul_layered, kv_write_rows,
-           scale_write_rows, q8_matmul_minner, q8_matmul_silu_minner, q8_matmul_xheads)
+           scale_write_rows, q8_matmul_minner, q8_matmul_silu_minner, q8_matmul_xheads,
+           dma_read, dma_copy, wshape_read, deep_read)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused, attention_decode_paged,
@@ -74,6 +76,9 @@ __all__ = [
     "attention_decode_paged",
     "attention_prefill",
     "attention_prefill_paged",
+    "deep_read",
+    "dma_copy",
+    "dma_read",
     "kv_commit_rows",
     "kv_write_chunk",
     "kv_write_chunk_paged",
@@ -96,4 +101,5 @@ __all__ = [
     "scale_write_chunk_paged",
     "scale_write_rows",
     "scale_write_rows_paged",
+    "wshape_read",
 ]

@@ -105,13 +105,14 @@ def load(name: str) -> ctypes.CDLL:
 def bind(name: str, fn: str, signature: str):
     """`fn` of csrc/<name>.cu's library with its arguments declared:
     `signature` spells each as 'p' (pointer or stream, ctypes.c_void_p),
-    'i' (ctypes.c_int) or 'f' (ctypes.c_float). The function returns its
-    cudaError_t as an int."""
+    'i' (ctypes.c_int), 'l' (ctypes.c_longlong) or 'f' (ctypes.c_float).
+    The function returns its cudaError_t as an int."""
     key = (name, fn)
     f = _fns.get(key)
     if f is None:
         f = getattr(load(name), fn)
-        types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+        types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+                 "f": ctypes.c_float}
         f.argtypes = [types[c] for c in signature]
         f.restype = ctypes.c_int
         _fns[key] = f

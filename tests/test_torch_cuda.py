@@ -1159,3 +1159,81 @@ def test_prefill_products_route_by_the_jax_decisions():
     assert delta(lambda: Q.q8_matmul_xheads(x3, wo, minner=True)) == (1, 0, 0, 0, 0)
     assert delta(lambda: Q.q8_matmul_xheads(x3[:512], wo, mode="a8")) == (0, 0, 0, 0, 1)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# K24-K27, the bandwidth probes (bit-exact: integers in fp32), and the port
+# bench's decode chain as one CUDA graph
+
+from hip_llama_tpu_torch import bench as BENCH  # noqa: E402
+from hip_llama_tpu_torch.config import ModelConfig  # noqa: E402
+from hip_llama_tpu_torch.models.llama import init_kv_cache, make_decode_step  # noqa: E402
+from hip_llama_tpu_torch.ops import hbm_bw as HB  # noqa: E402
+
+
+def _codes(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.empty(shape, dtype=torch.int8, device=dev).random_(-128, 128, generator=g)
+
+
+@pytest.mark.parametrize("rows,bm,streams", [(64, 8, 1), (200, 8, 3), (4096 + 24, 512, 4),
+                                             (262144, 4096, 8), (3 * 2048, 2048, 1)])
+def test_dma_read_and_copy_kernels(rows, bm, streams):
+    dev = _card()
+    x = _codes(dev, (rows, 1024), rows)
+    seed = torch.tensor([-9], dtype=torch.int32, device=dev)
+    n0, c0 = HB.dma_read.launches, HB.dma_copy.launches
+    got, want = HB.dma_read(seed, x, bm, streams), HB.dma_read_plain(seed, x, bm, streams)
+    copies, plain = HB.dma_copy(x, bm, streams), HB.dma_copy_plain(x, bm, streams)
+    torch.cuda.synchronize()
+    assert HB.dma_read.launches == n0 + 1 and HB.dma_copy.launches == c0 + 1
+    assert torch.equal(got, want)
+    assert len(copies) == streams and all(torch.equal(a, b) for a, b in zip(copies, plain))
+
+
+@pytest.mark.parametrize("bk,n_cols,bn", [(64, 4096 + 48, 128), (4096, 512 * 300 + 16, 512),
+                                          (1000, 1024 * 40, 1024), (8, 256 * 7, 256)])
+def test_wshape_read_kernel(bk, n_cols, bn):
+    dev = _card()
+    x = _codes(dev, (bk, n_cols), bk + n_cols)
+    seed = torch.tensor([123], dtype=torch.int32, device=dev)
+    n0 = HB.wshape_read.launches
+    got, want = HB.wshape_read(seed, x, bn), HB.wshape_read_plain(seed, x, bn)
+    torch.cuda.synchronize()
+    assert HB.wshape_read.launches == n0 + 1 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows,bm,depth", [(64, 8, 2), (300, 8, 16), (8 * 2048 + 100, 2048, 8),
+                                           (16384, 8, 3), (24, 8, 32)])
+def test_deep_read_kernel(rows, bm, depth):
+    dev = _card()
+    x = _codes(dev, (rows, 1024), rows + depth)
+    seed = torch.tensor([4], dtype=torch.int32, device=dev)
+    n0 = HB.deep_read.launches
+    got, want = HB.deep_read(seed, x, bm, depth), HB.deep_read_plain(seed, x, bm, depth)
+    torch.cuda.synchronize()
+    assert HB.deep_read.launches == n0 + 1 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("quant", ["q8", "q4", "none"])
+def test_graph_decode_chain_equals_the_eager_chain(quant):
+    """The bench's timed window: the chain captured as one CUDA graph and
+    replayed writes the tokens the same chain gives eagerly."""
+    dev = _card()
+    cfg = ModelConfig(dim=256, hidden_dim=512, n_layers=2, n_heads=2, n_kv_heads=2,
+                      vocab_size=512, seq_len=256)
+    if quant == "q8":
+        params = BENCH.rand_qparams_unrolled_on_device(cfg, dev, seed=2)
+    elif quant == "q4":
+        params = BENCH.rand_q4params_unrolled_on_device(cfg, dev, seed=2)
+    else:
+        params = BENCH.rand_params_on_device(cfg, torch.bfloat16, dev, seed=2)
+    step = make_decode_step(cfg)
+    cache = init_kv_cache(cfg, 4, dtype=torch.bfloat16, seq_len=256, device=dev, quantized=True)
+    tokens = torch.tensor([1, 50, 300, 7], dtype=torch.int32, device=dev)
+    base = torch.tensor([0, 40, 128, 200], dtype=torch.int32, device=dev)
+    eager = BENCH.decode_chain(step, params, cache, tokens, base, 8)
+    graph, out = BENCH.capture_chain(step, params, cache, tokens, base, 8, warmup=2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
