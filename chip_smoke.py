@@ -12,6 +12,8 @@ Phases, in order; each raises on failure and none is caught:
      library call doing the same work where there is one (for the cache
      writers here and in phases 6 and 8: index_put_ on each plane, the rows
      gathered or quantized beforehand, as CUDA-graph replays), and its bound;
+     then K4 at the port bench's ttft shape (T 512 over S 1024, two JAX
+     blocks), here in bf16 and after phase 6a on an int8 cache;
   3b. the Q8 kernels (q8_matmul, q8_matmul_silu, q8_matmul_ffn,
      attention_decode_fused, q8_layer_fused) against their plain versions at
      7B shapes in bf16, with the same timings;
@@ -201,8 +203,16 @@ Q8_ATOL = Q8_RTOL = 2e-2
 # outputs' sums, which can move a probability or an output by a bf16 ulp:
 # one ulp of an output below 1 in magnitude. Sound runs read 0.00195 at
 # most (0.0039 before the kernels took the JAX block, when the bound was 2e-2
-# for K1 and K4 and 4e-3 + 2e-2 |plain| for K5 and K6)
+# for K1 and K4 and 4e-3 + 2e-2 |plain| for K5 and K6). The prefill kernels
+# on bf16 and int8 caches multiply on the tensor cores, whose fp32 sums run
+# in another order and rounding than the plain version's fp32 matmuls (the
+# CUDA-core kernels' sequential FMA chains tracked those almost bit for
+# bit), so one ulp can move an output of magnitude 1 or more too (K7 on bf16
+# pages read 0.00781 at [1, 2)): attn_check's bound is one bf16 ulp of the
+# plain output, and never less than ATTN_ATOL + ATTN_RTOL |plain|
 ATTN_ATOL, ATTN_RTOL = 2.0 ** -8, 0.0
+TC_ATTN_TOL = (f"atol {ATTN_ATOL:g} + rtol {ATTN_RTOL:g} x |plain|, at least one bf16 ulp of "
+               "|plain|")
 # int8-cache attention vs plain: the int8 dots are exact on both sides and
 # the blocks are the JAX blocks on both, so the bf16 outputs read 1.5e-5
 # apart at most; an ulp of expf could still move one quantized probability
@@ -520,14 +530,26 @@ def chunk_index(start_l, valid_l, s: int, kvh: int, dev, *chunks) -> tuple:
     return idx, tuple(c[bt, tt] for c in chunks)
 
 
-def attn_check(pairs, dtype) -> tuple[float, bool]:
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at the magnitude of each element of x."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def attn_check(pairs, dtype, tensor_cores: bool = False) -> tuple[float, bool]:
     """max |kernel - plain| over the (kernel, plain) pairs of an attention
     kernel's outputs, and whether every output is within its tolerance:
-    TOL in fp32, ATTN_ATOL + ATTN_RTOL |plain| in bf16."""
-    atol, rtol = (TOL[dtype], 0.0) if dtype == torch.float32 else (ATTN_ATOL, ATTN_RTOL)
+    TOL in fp32, ATTN_ATOL + ATTN_RTOL |plain| in bf16, and for the
+    tensor-core prefill (bf16 and int8 caches) at least one bf16 ulp of
+    |plain|."""
     pairs = list(pairs)
-    ok = all(bool(((a.float() - b.float()).abs() <= atol + rtol * b.float().abs()).all())
-             for a, b in pairs)
+
+    def bound(b):
+        if dtype == torch.float32:
+            return TOL[dtype]
+        tol = ATTN_ATOL + ATTN_RTOL * b.float().abs()
+        return torch.maximum(tol, bf16_ulp(b)) if tensor_cores else tol
+
+    ok = all(bool(((a.float() - b.float()).abs() <= bound(b)).all()) for a, b in pairs)
     return max(max_err(a, b) for a, b in pairs), ok
 
 
@@ -624,7 +646,7 @@ def phase_kernels(dtype) -> dict[str, dict]:
     live = torch.arange(t, device=dev)[None, :] < cvalid[:, None]
     err, ok = attn_check(((A.attention_prefill(qp, cache.k, cache.v, l, start, cvalid)[live],
                            A.attention_prefill_plain(qp, cache.k, cache.v, l, start, cvalid)[live])
-                          for l in (0, 3)), dtype)
+                          for l in (0, 3)), dtype, tensor_cores=True)
     ms = cuda_ms(lambda i: A.attention_prefill(qp, cache.k, cache.v, i % rot, start, cvalid))
     plain = cuda_ms(lambda i: A.attention_prefill_plain(qp, cache.k, cache.v, i % rot, start, cvalid),
                     iters=4)
@@ -646,6 +668,8 @@ def phase_kernels(dtype) -> dict[str, dict]:
         ok = r.pop("ok", r["max_abs_err"] <= TOL[dtype])
         tol = (f"atol {ATTN_ATOL:g} + rtol {ATTN_RTOL:g} x |plain|"
                if name.startswith("attention") and dtype == torch.bfloat16 else f"{TOL[dtype]:g}")
+        if name == "attention_prefill" and dtype == torch.bfloat16:
+            tol = TC_ATTN_TOL
         lib_s = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         if name.startswith("kv_"):
             lib_s += " (index_put_)"
@@ -656,6 +680,55 @@ def phase_kernels(dtype) -> dict[str, dict]:
         if not ok:
             raise AssertionError(f"{name} ({dtype}) disagrees with its plain version")
     return out
+
+
+def prefill_ttft_case(int8: bool) -> None:
+    """K4 on a bf16 or an int8 cache at the port bench's ttft shape (bench.py
+    --mode ttft: B 8, a fresh 512-token prompt a slot, window 1024, 7B
+    heads): T 512 from start 0 over S 1024, two JAX blocks of 512 of which
+    the chunk's causal frontier reaches the first. Against its plain
+    version, SDPA (on the dequantized planes for int8) and its bound; four
+    layers rotate so each call finds its rows cold in L2."""
+    dev = torch.device("cuda")
+    b, rot, kvh, h, s, hs, t = 8, 4, 32, 32, 1024, 128, 512
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    k, v = rnd(b, rot, kvh, s, hs), rnd(b, rot, kvh, s, hs)
+    sc: tuple = ()
+    kd, vd = k, v
+    if int8:
+        (k, ks), (v, vs) = C.quantize_kv_rows(k.float()), C.quantize_kv_rows(v.float())
+        sc = (ks, vs)
+        kd = torch.stack([dequant_cache(k[:, l], ks[:, l]) for l in range(rot)], dim=1)
+        vd = torch.stack([dequant_cache(v[:, l], vs[:, l]) for l in range(rot)], dim=1)
+    start = torch.zeros(b, dtype=torch.int32, device=dev)
+    valid = torch.full((b,), t, dtype=torch.int32, device=dev)
+    q = rnd(b, t, h, hs)
+    err, ok = attn_check([(A.attention_prefill(q, k, v, 1, start, valid, *sc),
+                           A.attention_prefill_plain(q, k, v, 1, start, valid, *sc))],
+                         torch.bfloat16, tensor_cores=True)
+    ms = cuda_ms(lambda i: A.attention_prefill(q, k, v, i % rot, start, valid, *sc))
+    plain = cuda_ms(lambda i: A.attention_prefill_plain(q, k, v, i % rot, start, valid, *sc),
+                    iters=2, warmup=1)
+    col = torch.arange(s, device=dev)
+    mask = (col[None, :] <= torch.arange(t, device=dev)[:, None])[None, None]  # (1, 1, T, S)
+    qt = q.transpose(1, 2)
+    lib = cuda_ms(lambda i: F.scaled_dot_product_attention(qt, kd[:, i % rot], vd[:, i % rot],
+                                                           attn_mask=mask))
+    row_bytes = hs + 4 if int8 else hs * 2
+    bound = bound_ms(2 * b * t * h * hs * 2 + 2 * b * t * kvh * row_bytes + 8 * b,
+                     4 * h * hs * b * t * (t + 1) // 2, torch.bfloat16)
+    name = "attention_prefill_int8" if int8 else "attention_prefill"
+    print(f"kernel {name} at the bench's ttft shape [B 8, T 512 from start 0, H 32, KVH 32, "
+          f"S 1024 (two JAX blocks of 512), HS 128]: max_abs_err {err:.3g} ({TC_ATTN_TOL}) "
+          f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} "
+          f"plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms {bound[0]:.4f} ({bound[1]})",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name} at the ttft shape disagrees with its plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -977,7 +1050,7 @@ def phase_kernels_int8() -> dict[str, dict]:
     err, ok = attn_check(((A.attention_prefill(qp, cache.k, cache.v, l, start, cvalid, *sc)[live],
                            A.attention_prefill_plain(qp, cache.k, cache.v, l, start, cvalid,
                                                      *sc)[live])
-                          for l in (0, 3)), torch.bfloat16)
+                          for l in (0, 3)), torch.bfloat16, tensor_cores=True)
     ms = cuda_ms(lambda i: A.attention_prefill(qp, cache.k, cache.v, i % rot, start, cvalid, *sc))
     plain = cuda_ms(lambda i: A.attention_prefill_plain(qp, cache.k, cache.v, i % rot, start,
                                                         cvalid, *sc), iters=4, warmup=1)
@@ -987,7 +1060,7 @@ def phase_kernels_int8() -> dict[str, dict]:
                      4 * h * hs * sum(min(st + j, s - 1) + 1 for st, v in zip(start_l, valid_l)
                                       for j in range(v)), torch.bfloat16)
     print(f"kernel attention_prefill_int8 [B 8, T 256, H 32, KVH 32, S 512, HS 128, bf16 q]: "
-          f"max_abs_err {err:.3g} (atol {ATTN_ATOL:g} + rtol {ATTN_RTOL:g} x |plain|) "
+          f"max_abs_err {err:.3g} ({TC_ATTN_TOL}) "
           f"{'ok' if ok else 'FAIL'}; "
           f"ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} bound_ms {bound[0]:.4f} "
           f"({bound[1]})", flush=True)
@@ -1205,7 +1278,7 @@ def phase_paged_kernels() -> dict[str, dict]:
                                                          cvalid, *sc)[live],
                                A.attention_prefill_paged_plain(qp, pool.k, pool.v, table, l, start,
                                                                cvalid, *sc)[live])
-                              for l in (0, 3)), torch.bfloat16)
+                              for l in (0, 3)), torch.bfloat16, tensor_cores=True)
         ms = cuda_ms(lambda i: A.attention_prefill_paged(qp, pool.k, pool.v, table, i % rot, start,
                                                          cvalid, *sc))
         plain = cuda_ms(lambda i: A.attention_prefill_paged_plain(
@@ -1225,8 +1298,7 @@ def phase_paged_kernels() -> dict[str, dict]:
                          4 * h * hs * sum(st + j + 1 for st, v in zip(start_l, valid_l)
                                           for j in range(v)), torch.bfloat16)
         print(f"kernel attention_prefill_paged{sfx} [B 8, T 128, H 32, KVH 32, PS 128, HS 128, "
-              f"{label}]: max_abs_err {err:.3g} (atol {ATTN_ATOL:g} + rtol {ATTN_RTOL:g} x "
-              f"|plain|) "
+              f"{label}]: max_abs_err {err:.3g} ({TC_ATTN_TOL}) "
               f"{'ok' if ok else 'FAIL'}; ms {ms:.4f} plain_ms {plain:.4f} library_ms {lib:.4f} "
               f"bound_ms {bound[0]:.4f} ({bound[1]})", flush=True)
         if not ok:
@@ -1851,7 +1923,8 @@ def probe_xheads() -> None:
     start = torch.tensor([s - m], dtype=torch.int32, device=dev)
     valid = torch.tensor([m], dtype=torch.int32, device=dev)
     err, ok = attn_check([(A.attention_prefill(q, k, v, 0, start, valid),
-                           A.attention_prefill_plain(q, k, v, 0, start, valid))], torch.bfloat16)
+                           A.attention_prefill_plain(q, k, v, 0, start, valid))], torch.bfloat16,
+                         tensor_cores=True)
     print(f"probe xheads (tools/probe_xheads.py:89) battn/headslice: K4 reads T-major q "
           f"(1, {m}, {gh}, {hs}) in place over {s} rows: max_abs_err vs plain {err:.3g} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -2531,9 +2604,14 @@ def main() -> int:
     print(f"build: {_build.build_seconds:.1f} s (nvcc, {_build.NVCC_FLAGS[1]})", flush=True)
 
     res = {dt: phase_kernels(dt) for dt in (torch.bfloat16, torch.float32)}
+    torch.cuda.empty_cache()
+    prefill_ttft_case(int8=False)
+    torch.cuda.empty_cache()
     res_q8 = phase_q8_kernels()
     torch.cuda.empty_cache()
     res_int8 = phase_kernels_int8()
+    torch.cuda.empty_cache()
+    prefill_ttft_case(int8=True)
     torch.cuda.empty_cache()
     phase_goldens()
     launches_golden = phase_golden_runs(GOLDEN_Q8_RUNS)[0]

@@ -28,10 +28,11 @@
 // running max advances once per block of bk cache rows, the JAX kernel's KV
 // block, which the wrappers pass: the rounded probabilities (bf16 V, or
 // p * vs on an int8 cache) depend on it. So every kernel takes a whole
-// block's scores before it rounds any: the decode task holds its M x bk
-// scores in dynamic shared memory, and the prefill kernel its 64 query rows
-// x bk (up to 576 columns: 128 KiB at the JAX prefill block of 512), each
-// computed a 64-row tile of K at a time; PV then walks the block's V tiles.
+// block's max before it rounds any: the decode task holds its M x bk
+// scores in dynamic shared memory, the fp32 prefill kernel its 64 query
+// rows x bk (up to 640 columns at HS 128: 128 KiB at the JAX block of 512),
+// each computed a 64-row tile of K at a time, PV then walking the block's V
+// tiles; the tensor-core prefill kernel takes two passes over the block.
 //
 // Bounds on an H100: decode is bound by bytes — every live K and V row of
 // the layer is read once (2 * pos * HS * bytes per slot and KV head) for
@@ -39,28 +40,69 @@
 // ridge. One CTA per (KV head, slot) runs decode_attention.cuh's task: it
 // streams its rows with coalesced warp loads and keeps the kv_mul query
 // heads of the group in shared memory, so each K/V byte is read once for
-// all heads that share it. Prefill at
-// T = 256 does up to T flops per K/V byte and would be bound by operations
-// on the tensor cores; this first version does the products on the fp32
-// CUDA cores out of shared memory (one CTA per slot, KV head and 64-row
-// tile of (t, head) queries, walking cache blocks up to the tile's causal
-// frontier with an online softmax), which is simple and exact to the cast
-// points; wgmma/TMA is later work.
+// all heads that share it.
+//
+// Prefill (K4, K7) on bf16 and int8 caches runs on the tensor cores
+// (attention_prefill_mma_kernel). At the 7B shapes (T 256 over 512 rows)
+// the byte bound is about 4x the bf16 operation bound, but the kernel
+// before this one did both products on the fp32 CUDA cores with two
+// shared-memory loads per FMA, held a JAX block's 64 x 512 fp32 scores in
+// 128 KB of shared memory (one CTA per SM) and widened K and V to fp32 on
+// the way in, single-stage: 12.9x SDPA. What bounds it now is the work
+// between the products (the masks, exp and the bf16 rounding of p, done
+// once per score in pass 2) and the second read of K per block. The
+// design, FlashAttention-2's layout on mma.sync.m16n8k16 (bf16 in, fp32
+// out):
+//  - each of 4 warps owns 16 of the CTA's 64 (t, head) query rows; q is
+//    held in registers as the A operand, rounded to bf16 (the cache dtype,
+//    bf16 for an int8 cache: attention.py:912);
+//  - K and V tiles of 64 rows arrive by cp.async (16-byte copies, 8 for
+//    int8 rows of 8) in the cache's own dtype into a 2-stage ring, so the
+//    next tile's copy overlaps this tile's products; bf16 tiles are
+//    XOR-swizzled by 16-byte chunk so that ldmatrix reads them without bank
+//    conflicts (K as the B operand of QK^T, V through ldmatrix.trans as the
+//    B operand of PV);
+//  - the running max must advance once per JAX block (ref_block(S, 512),
+//    the page for K7): the probabilities round to bf16 at the block's max.
+//    Instead of holding the block's scores, each block takes two passes
+//    over its tiles. Pass 0 computes S a tile at a time and keeps each
+//    row's max in registers (quad shuffles); pass 1 recomputes S (the same
+//    instructions on the same operands: the same values), takes
+//    p = exp(s - m_new), adds the unrounded p to l, rounds p (x vs[row] on
+//    int8) to bf16 in registers, where the score fragment is already the A
+//    fragment of PV, and runs PV into the fp32 accumulator. Shared memory
+//    no longer grows with the block: any bk runs, at 64 KB a CTA at HS 128
+//    (three CTAs an SM);
+//  - an int8 cache is copied as int8 and widened to bf16 in shared memory
+//    (exact: byte-permute into a float, top half), once per tile for the
+//    CTA, into one swizzled bf16 K and V tile; the scales ride in the ring.
+//    Widening in registers instead would convert every tile once per warp
+//    (4x the conversions), and V's transposed fragment has no byte-level
+//    ldmatrix, so one shared-memory round trip per tile is the cheaper way;
+//  - head sizes 16-128 are native; 8 is zero-padded to 16 in shared memory;
+//  - the causal frontier: blocks stop at the CTA's last live query, tiles
+//    at the block's last live column, and a warp skips the products of a
+//    tile that lies past its own rows' frontier. Rows t >= valid[b] are
+//    written as zeros.
+// fp32 caches keep attention_prefill_kernel below (fp32 CUDA cores, the
+// block's scores in shared memory): TF32 or a bf16 product would move the
+// fp32 goldens, which are byte-identical to the CPU's.
 //
 // attention_decode_paged and attention_prefill_paged replace hip_llama_tpu/
 // ops/attention.py::attention_decode_paged (_decode_kernel through
 // _decode_kernel_paged) and attention_prefill_paged (_prefill_kernel
 // through _prefill_kernel_paged): the same kernels with the paged row policy
 // of decode_attention.cuh, row r of slot b at page table[b, r / PS], offset
-// r % PS, looked up once per block that lies in one page. The TPU kernels gather one page per grid step
-// through their BlockSpec index maps, so their block is the page; here the
-// online softmax also advances once per page, whose scores the kernels hold
-// whole in shared memory.
+// r % PS, looked up once per block that lies in one page. The TPU kernels
+// gather one page per grid step through their BlockSpec index maps, so their
+// block is the page; here the online softmax also advances once per page
+// (attention_prefill_mma_kernel's two passes go over each page).
 // Bound and design as the dense kernels: bytes for decode, the live rows
 // read once; the page lookup costs an index load per block from the slot's
 // table row (per row only where a block spans pages).
 
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -79,10 +121,6 @@ using hipllama::decode_smem;
 using hipllama::kDecThreads;
 using hipllama::kMaxM;
 using hipllama::PagedCache;
-using hipllama::load4;
-using hipllama::round_to;
-using hipllama::to_f;
-using hipllama::from_f;
 using hipllama::warp_max;
 using hipllama::warp_sum;
 
@@ -134,30 +172,25 @@ __host__ __device__ constexpr int prefill_cols(int bk) {
   return (bk + kPfTile - 1) / kPfTile * kPfTile;
 }
 
-// dynamic shared memory at block bk (ops/attention.py::check_prefill_block
+// dynamic shared memory at block bk (ops/attention.py::prefill_smem_bytes
 // computes the same)
 template <int HS>
 constexpr size_t prefill_smem_bytes(int bk) {
   return sizeof(float) * ((size_t)kPfRows * HS                  // q
                           + (size_t)kPfTile * (HS + 1)          // a K tile (padded rows), then V
                           + (size_t)kPfRows * (prefill_cols(bk) + 1)  // the block's scores / p
-                          + 3 * (size_t)kPfRows                 // m, l, alpha
-                          + (size_t)kPfTile                     // the K tile's row scales (int8)
-                          + (size_t)prefill_cols(bk));          // the block's V row scales (int8)
+                          + 3 * (size_t)kPfRows);               // m, l, alpha
 }
 
-// T: q and output; C: the cache (T, or int8 with k_scale / v_scale); Cache:
-// the row policy (decode_attention.cuh); S: the rows a slot can hold; bk:
-// the online softmax's block of cache rows
-template <typename T, typename C, int HS, typename Cache>
+// The fp32 cache (q, the cache and the output fp32): the probabilities stay
+// unrounded. Cache: the row policy (decode_attention.cuh); S: the rows a
+// slot can hold; bk: the online softmax's block of cache rows.
+template <int HS, typename Cache>
 __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
-    const T* __restrict__ q, const C* __restrict__ k_cache, const C* __restrict__ v_cache,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const Cache cache,
-    const int* __restrict__ start_arr, const int* __restrict__ valid_arr,
-    T* __restrict__ out, int T_len, int H, int KVH, int S, float scale, int bk) {
-  constexpr bool kInt8 = std::is_same<C, signed char>::value;
-  // the type probabilities round to before PV: V's, bf16 for an int8 cache
-  using P = typename std::conditional<kInt8, __nv_bfloat16, C>::type;
+    const float* __restrict__ q, const float* __restrict__ k_cache,
+    const float* __restrict__ v_cache, const Cache cache, const int* __restrict__ start_arr,
+    const int* __restrict__ valid_arr, float* __restrict__ out, int T_len, int H, int KVH, int S,
+    float scale, int bk) {
   constexpr int ACC = kPfRows * HS / kPfThreads;       // output entries per thread
   constexpr int SC = kPfRows * kPfTile / kPfThreads;   // score entries per thread and tile
   const int pst = prefill_cols(bk) + 1;                // row stride of the scores
@@ -168,8 +201,6 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
   float* m_s = p_s + kPfRows * pst;
   float* l_s = m_s + kPfRows;
   float* a_s = l_s + kPfRows;
-  float* ks_s = a_s + kPfRows;  // [kPfTile]
-  float* vs_s = ks_s + kPfTile; // [prefill_cols(bk)]
 
   const int g = blockIdx.y, b = blockIdx.z;
   const int M = H / KVH;
@@ -183,11 +214,8 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 
   for (int i = tid; i < kPfRows * HS; i += kPfThreads) {
     const int r = i / HS, t = t0 + r / M;
-    // q in the cache dtype; bf16 for an int8 cache (attention.py:912)
-    const float qv = t < T_len ? to_f(q[(((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS
-                                        + i % HS])
-                               : 0.f;
-    q_s[i] = kInt8 ? round_to<__nv_bfloat16>(qv) : qv;
+    q_s[i] = t < T_len ? q[(((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS + i % HS]
+                       : 0.f;
   }
   if (tid < kPfRows) {
     m_s[tid] = -INFINITY;
@@ -212,10 +240,8 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
         const int c = i / HS, dd = i % HS;
         const bool in = c0 + c < ncols;
-        kv_s[c * (HS + 1) + dd] = in ? to_f(k_cache[block_row(c0 + c) * HS + dd]) : 0.f;
+        kv_s[c * (HS + 1) + dd] = in ? k_cache[block_row(c0 + c) * HS + dd] : 0.f;
       }
-      if (kInt8 && tid < kPfTile)
-        ks_s[tid] = c0 + tid < ncols ? k_scale[block_row(c0 + tid)] : 0.f;
       __syncthreads();
       // thread owns column c = tid % kPfTile of rows tid / kPfTile + 4i
 #pragma unroll
@@ -229,14 +255,9 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
 #pragma unroll 16
         for (int dd = 0; dd < HS; ++dd) s += qr[dd] * kr[dd];
         const bool live = c0 + c < ncols && t < t_end && col <= start + t;
-        s *= scale;
-        if (kInt8) s *= ks_s[c];
-        p_s[r * pst + c0 + c] = live ? s : -INFINITY;
+        p_s[r * pst + c0 + c] = live ? s * scale : -INFINITY;
       }
     }
-    if (kInt8)
-      for (int c = tid; c < ntile; c += kPfThreads)
-        vs_s[c] = c < ncols ? v_scale[block_row(c)] : 0.f;
     __syncthreads();
     // online softmax over the block: each warp takes kPfRows / 8 rows
     for (int r = warp; r < kPfRows; r += kPfThreads / 32) {
@@ -251,7 +272,7 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
         // a row with no live column yet keeps p = 0 (and m = -inf)
         const float p = pr[c] == -INFINITY ? 0.f : expf(pr[c] - m_new);
         sum += p;
-        pr[c] = round_to<P>(kInt8 ? p * vs_s[c] : p);
+        pr[c] = p;
       }
       sum = warp_sum(sum, 32);
       if (lane == 0) {
@@ -269,7 +290,7 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       if (c0) __syncthreads();  // the previous V tile is consumed
       for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
         const int c = i / HS, dd = i % HS;
-        kv_s[i] = c0 + c < ncols ? to_f(v_cache[block_row(c0 + c) * HS + dd]) : 0.f;
+        kv_s[i] = c0 + c < ncols ? v_cache[block_row(c0 + c) * HS + dd] : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -293,7 +314,400 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
     if (t < T_len) {
       const float l = l_s[r];
       out[(((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS + dd] =
-          from_f<T>(acc[i] / (l == 0.f ? 1.f : l));
+          acc[i] / (l == 0.f ? 1.f : l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// prefill on the tensor cores (bf16 and int8 caches)
+
+constexpr int kTcThreads = 128;  // 4 warps x 16 query rows
+constexpr int kTcRows = 64;      // (t, head) query rows per CTA, as kPfRows
+constexpr int kTcTile = 64;      // cache rows per tile
+constexpr int kTcStages = 2;     // the ring of K/V tiles
+
+// shared memory of the tensor-core prefill (ops/attention.py::
+// prefill_smem_bytes mirrors it): a ring of kTcStages stages, each a K and
+// a V tile as copied (bf16 rows of HSP, or int8 rows of HS bytes, then the
+// two tiles' row scales), and on int8 the widened bf16 K and V tiles
+template <typename C, int HS>
+struct TcLayout {
+  static constexpr bool kInt8 = std::is_same<C, signed char>::value;
+  static constexpr int HSP = HS < 16 ? 16 : HS;  // head size padded for k16
+  static constexpr int CPR = HSP / 8;             // 16-byte chunks of a bf16 row
+  static constexpr int WIDE = kTcTile * HSP * 2;  // a bf16 tile
+  static constexpr int RAW = kInt8 ? kTcTile * HS : WIDE;
+  static constexpr int SCALES = kInt8 ? 2 * kTcTile * 4 : 0;
+  static constexpr int STAGE = 2 * RAW + SCALES;
+  static constexpr int BYTES = kTcStages * STAGE + (kInt8 ? 2 * WIDE : 0);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte chunk c of row r of a bf16 tile with CPR chunks a row, XOR-swizzled
+// so that 8 consecutive rows at one chunk (an ldmatrix phase) hit 8
+// different 16-byte bank groups
+template <int CPR>
+__device__ __forceinline__ int tile_chunk(int r, int c) {
+  if (CPR >= 8) return r * CPR + (c ^ (r & 7));
+  if (CPR == 4) return r * CPR + (c ^ ((r >> 1) & 3));
+  return r * CPR + (c ^ ((r >> 2) & 1));
+}
+
+// cp.async of `bytes` (16, 8 or 4); zeros where !live (src-size 0)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool live) {
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(live ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(BYTES), "r"(live ? BYTES : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t a, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t a, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(a));
+}
+
+// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), fp32
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// bf16(a) low, bf16(b) high
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// two consecutive q elements as a bf16 pair (q rounded to bf16)
+__device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t q_pair(const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  return pack_bf16(v.x, v.y);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// four int8 values (one word) as two bf16 pairs, exactly: each byte, biased
+// by 128, becomes the mantissa of 2^23 (a byte permute), less 2^23 + 128 is
+// the value as a float, whose top half is its bf16 (|v| <= 128 has at most
+// 8 significant bits)
+__device__ __forceinline__ uint2 widen4(uint32_t w) {
+  const uint32_t bw = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(bw, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  return make_uint2(__byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+                    __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// the tile schedule of one CTA: for each JAX block of bk cache rows up to
+// the CTA's causal frontier, pass 0 over its K tiles (the block's max),
+// then pass 1 over its K and V tiles (p, l, PV)
+struct TcSched {
+  int k0, tile, pass;
+  __device__ __forceinline__ bool live(int q_pos_max, int S) const {
+    return k0 <= q_pos_max && k0 < S;
+  }
+  // columns of the block at k0 that can be live: its rows, up to the frontier
+  __device__ __forceinline__ int ncols(int q_pos_max, int S, int bk) const {
+    return min(min(bk, S - k0), q_pos_max - k0 + 1);
+  }
+  __device__ __forceinline__ void next(int q_pos_max, int S, int bk) {
+    if (++tile * kTcTile < ncols(q_pos_max, S, bk)) return;
+    tile = 0;
+    if (pass == 0) {
+      pass = 1;
+    } else {
+      pass = 0;
+      k0 += bk;
+    }
+  }
+};
+
+// T: q and output (bf16 for a bf16 cache; fp32 or bf16 for int8); C: the
+// cache (bf16, or int8 with k_scale / v_scale); Cache: the row policy
+// (decode_attention.cuh); S: the rows a slot can hold; bk: the JAX block
+template <typename T, typename C, int HS, typename Cache>
+__global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
+    const T* __restrict__ q, const C* __restrict__ k_cache, const C* __restrict__ v_cache,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, const Cache cache,
+    const int* __restrict__ start_arr, const int* __restrict__ valid_arr,
+    T* __restrict__ out, int T_len, int H, int KVH, int S, float scale, int bk) {
+  using Lay = TcLayout<C, HS>;
+  constexpr bool kInt8 = Lay::kInt8;
+  constexpr int HSP = Lay::HSP, CPR = Lay::CPR;
+  constexpr int NK = HSP / 16;  // k16 steps of QK^T; pairs of n8 tiles of PV
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t smem0 = smem_u32(tc_smem);
+
+  const int g = blockIdx.y, b = blockIdx.z;
+  const int M = H / KVH;
+  const int BT = kTcRows / M;  // row r = (t0 + r / M, head g * M + r % M)
+  const int t0 = blockIdx.x * BT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qd = lane & 3;  // the thread's column pair in a fragment
+  const int start = start_arr[b];
+  const int t_end = min(min(t0 + BT, valid_arr[b]), T_len);  // live rows: t0 .. t_end-1
+  const int q_pos_max = t_end > t0 ? start + t_end - 1 : -1;
+
+  if (HS < 16) {  // the pad columns stay zero: the copies write data chunks only
+    for (int i = tid * 16; i < Lay::BYTES; i += kTcThreads * 16)
+      *reinterpret_cast<uint4*>(tc_smem + i) = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+
+  // the thread's two rows rg and rg + 8: their causal positions (-1: dead)
+  const int rg = warp * 16 + (lane >> 2);
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + (rg + 8 * h) / M;
+    qpos[h] = t < t_end ? start + t : -1;
+  }
+  // the warp's frontier: its last live row's position
+  const int tw_last = min(t0 + (warp * 16 + 15) / M, t_end - 1);
+  const int wpos = t0 + warp * 16 / M < t_end ? start + tw_last : -1;
+
+  // q as the A operand, bf16: slab kk, register e = (row rg + 8 (e & 1),
+  // columns 16 kk + 8 (e >> 1) + 2 qd, +1)
+  uint32_t qa[NK][4];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rg + 8 * (e & 1), col = 16 * kk + 8 * (e >> 1) + 2 * qd;
+      const int t = t0 + r / M;
+      qa[kk][e] = t < T_len && col < HS
+                      ? q_pair(q + (((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS + col)
+                      : 0u;
+    }
+
+  float o[2 * NK][4];  // PV: n8 tiles of HSP columns
+#pragma unroll
+  for (int j = 0; j < 2 * NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, mb[2] = {-INFINITY, -INFINITY}, m_use[2] = {0.f, 0.f};
+  float l[2] = {0.f, 0.f};
+
+  const auto rows = cache.rows(b, g);
+
+  // the copies of one schedule item into ring stage st
+  auto issue = [&](const TcSched& it, int st) {
+    const int ncols = it.ncols(q_pos_max, S, bk);
+    const int c0 = it.tile * kTcTile;
+    const hipllama::BlockRows<decltype(rows)> block_row(rows, it.k0, min(bk, S - it.k0));
+    const uint32_t base = smem0 + st * Lay::STAGE;
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+      if (plane == 1 && it.pass == 0) break;  // pass 0 reads K only
+      const C* src = plane == 0 ? k_cache : v_cache;
+      const uint32_t dst = base + plane * Lay::RAW;
+      if (kInt8) {
+        constexpr int CB = HS < 16 ? HS : 16;  // bytes a copy
+        constexpr int CH = HS / CB;            // copies a row
+        for (int i = tid; i < kTcTile * CH; i += kTcThreads) {
+          const int r = i / CH, c = i % CH;
+          const bool live = c0 + r < ncols;
+          const C* p = live ? src + block_row(c0 + r) * HS + c * CB : src;
+          cp_async<CB>(dst + r * HS + c * CB, p, live);
+        }
+      } else {
+        constexpr int CH = HS / 8;  // data chunks a row (HS 8: one, beside the pad)
+        for (int i = tid; i < kTcTile * CH; i += kTcThreads) {
+          const int r = i / CH, c = i % CH;
+          const bool live = c0 + r < ncols;
+          const C* p = live ? src + block_row(c0 + r) * HS + c * 8 : src;
+          cp_async<16>(dst + tile_chunk<CPR>(r, c) * 16, p, live);
+        }
+      }
+    }
+    if (kInt8 && tid < kTcTile) {
+      const bool live = c0 + tid < ncols;
+      const size_t row = live ? block_row(c0 + tid) : 0;
+      cp_async<4>(base + 2 * Lay::RAW + tid * 4, k_scale + row, live);
+      if (it.pass == 1)
+        cp_async<4>(base + 2 * Lay::RAW + (kTcTile + tid) * 4, v_scale + row, live);
+    }
+  };
+
+  // int8: widen the stage's K (and V) tile into the swizzled bf16 tiles
+  auto widen = [&](int st, bool with_v) {
+    const unsigned char* raw = tc_smem + st * Lay::STAGE;
+    unsigned char* wide = tc_smem + kTcStages * Lay::STAGE;
+    constexpr int CH = HS / 8;  // 8 int8 values -> one 16-byte bf16 chunk
+    for (int plane = 0; plane < (with_v ? 2 : 1); ++plane)
+      for (int i = tid; i < kTcTile * CH; i += kTcThreads) {
+        const int r = i / CH, c = i % CH;
+        const uint2 w = *reinterpret_cast<const uint2*>(raw + plane * Lay::RAW + r * HS + c * 8);
+        const uint2 lo = widen4(w.x), hi = widen4(w.y);
+        *reinterpret_cast<uint4*>(wide + plane * Lay::WIDE + tile_chunk<CPR>(r, c) * 16) =
+            make_uint4(lo.x, lo.y, hi.x, hi.y);
+      }
+  };
+
+  TcSched ld{0, 0, 0}, cp{0, 0, 0};
+  if (ld.live(q_pos_max, S)) {
+    issue(ld, 0);
+    ld.next(q_pos_max, S, bk);
+  }
+  cp_async_commit();
+  for (int it = 0; cp.live(q_pos_max, S); ++it) {
+    const int st = it % kTcStages;
+    if (ld.live(q_pos_max, S)) {
+      issue(ld, (it + 1) % kTcStages);
+      ld.next(q_pos_max, S, bk);
+    }
+    cp_async_commit();
+    cp_async_wait1();  // this item's copies have landed
+    __syncthreads();
+    if (kInt8) {
+      widen(st, cp.pass == 1);
+      __syncthreads();
+    }
+    const uint32_t kt = kInt8 ? smem0 + kTcStages * Lay::STAGE : smem0 + st * Lay::STAGE;
+    const uint32_t vt = kt + (kInt8 ? Lay::WIDE : Lay::RAW);
+    const float* ks = reinterpret_cast<const float*>(tc_smem + st * Lay::STAGE + 2 * Lay::RAW);
+    const float* vs = ks + kTcTile;
+
+    const int ncols = cp.ncols(q_pos_max, S, bk);
+    const int c0 = cp.tile * kTcTile;
+    if (cp.pass == 1 && cp.tile == 0) {
+      // the block's max is known: rescale the running state once
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = mb[h];
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[h], mx);
+        const float alpha = m_new == -INFINITY ? 1.f : expf(m[h] - m_new);
+        l[h] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 2 * NK; ++j) {
+          o[j][2 * h] *= alpha;
+          o[j][2 * h + 1] *= alpha;
+        }
+        m[h] = m_new;
+        // a row with no live column yet keeps p = 0 (and m = -inf)
+        m_use[h] = m_new == -INFINITY ? 0.f : m_new;
+        mb[h] = -INFINITY;
+      }
+    }
+    if (cp.k0 + c0 <= wpos) {  // some row of this warp sees the tile
+      // the last live tile column of each row
+      int lim[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) lim[h] = min(ncols - 1, qpos[h] - cp.k0) - c0;
+      // S = q K^T for the warp's 16 rows x 64 columns
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          // n8 tiles 2jp, 2jp+1 (lanes 16-31) at chunks 2kk, 2kk+1 (lane bit 3)
+          const int r = 8 * (2 * jp + (lane >> 4)) + (lane & 7);
+          const int c = 2 * kk + ((lane >> 3) & 1);
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(kt + tile_chunk<CPR>(r, c) * 16, b0, b1, b2, b3);
+          mma_bf16(s[2 * jp], qa[kk], b0, b1);
+          mma_bf16(s[2 * jp + 1], qa[kk], b2, b3);
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * qd + (e & 1), h = e >> 1;
+          float v = s[j][e] * scale;
+          if (kInt8) v *= ks[c];
+          const bool live = c <= lim[h];
+          if (cp.pass == 0) {
+            if (live) mb[h] = fmaxf(mb[h], v);
+          } else {
+            const float p = live ? expf(v - m_use[h]) : 0.f;
+            l[h] += p;
+            s[j][e] = kInt8 ? p * vs[c] : p;  // rounded to bf16 below
+          }
+        }
+      if (cp.pass == 1) {
+        // PV: the score fragments of n8 tiles 2kk, 2kk+1 are the A fragment
+        // of k16 step kk
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                  pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+          for (int dp = 0; dp < NK; ++dp) {
+            // rows 16kk + 0..15 (lane bit 3), chunks 2dp, 2dp+1 (lanes 16-31)
+            const int r = 16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7);
+            const int c = 2 * dp + (lane >> 4);
+            uint32_t b0, b1, b2, b3;
+            ldsm_x4_t(vt + tile_chunk<CPR>(r, c) * 16, b0, b1, b2, b3);
+            mma_bf16(o[2 * dp], pa, b0, b1);
+            mma_bf16(o[2 * dp + 1], pa, b2, b3);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage (and the wide tiles) may be overwritten
+    cp.next(q_pos_max, S, bk);
+  }
+
+  // out = o / l, zeros for rows without a live column
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    if (lt == 0.f) lt = 1.f;
+    const int r = rg + 8 * h, t = t0 + r / M;
+    if (t < T_len) {
+      T* orow = out + (((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS;
+#pragma unroll
+      for (int j = 0; j < 2 * NK; ++j) {
+        const int d = 8 * j + 2 * qd;
+        if (d < HS) store_pair(orow + d, o[j][2 * h] / lt, o[j][2 * h + 1] / lt);
+      }
     }
   }
 }
@@ -339,17 +753,36 @@ int launch_decode_int8(const void* q, const void* k, const void* v, const void* 
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename C, int HS, typename Cache>
-int launch_prefill(const void* q, const void* k, const void* v, const void* ks,
-                   const void* vs, const Cache& cache, const void* start, const void* valid,
-                   void* out, int B, int T_len, int H, int KVH, int S, float scale, int bk,
-                   cudaStream_t st) {
+// the fp32 cache: the CUDA-core kernel, the block's scores in shared memory
+// (T: float, for HIPLLAMA_HS_SWITCH)
+template <typename T, int HS, typename Cache>
+int launch_prefill_f32(const void* q, const void* k, const void* v, const Cache& cache,
+                       const void* start, const void* valid, void* out, int B, int T_len, int H,
+                       int KVH, int S, float scale, int bk, cudaStream_t st) {
+  static_assert(std::is_same<T, float>::value, "the CUDA-core prefill takes fp32");
   const size_t smem = prefill_smem_bytes<HS>(bk);
-  auto kernel = attention_prefill_kernel<T, C, HS, Cache>;
+  auto kernel = attention_prefill_kernel<HS, Cache>;
   if (const int e = allow_smem(kernel, smem)) return e;
   const int bt = kPfRows / (H / KVH);
   const dim3 grid((T_len + bt - 1) / bt, KVH, B);
-  kernel<<<grid, kPfThreads, smem, st>>>(
+  kernel<<<grid, kPfThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
+                                         cache, (const int*)start, (const int*)valid,
+                                         (float*)out, T_len, H, KVH, S, scale, bk);
+  return (int)cudaGetLastError();
+}
+
+// bf16 and int8 caches: the tensor-core kernel, any block
+template <typename T, typename C, int HS, typename Cache>
+int launch_prefill_mma(const void* q, const void* k, const void* v, const void* ks,
+                       const void* vs, const Cache& cache, const void* start, const void* valid,
+                       void* out, int B, int T_len, int H, int KVH, int S, float scale, int bk,
+                       cudaStream_t st) {
+  const size_t smem = TcLayout<C, HS>::BYTES;
+  auto kernel = attention_prefill_mma_kernel<T, C, HS, Cache>;
+  if (const int e = allow_smem(kernel, smem)) return e;
+  const int bt = kTcRows / (H / KVH);
+  const dim3 grid((T_len + bt - 1) / bt, KVH, B);
+  kernel<<<grid, kTcThreads, smem, st>>>(
       (const T*)q, (const C*)k, (const C*)v, (const float*)ks, (const float*)vs, cache,
       (const int*)start, (const int*)valid, (T*)out, T_len, H, KVH, S, scale, bk);
   return (int)cudaGetLastError();
@@ -465,41 +898,60 @@ extern "C" int attention_decode_fused_int8(const void* qkv, const void* k_cache,
 #undef CALL
 }
 
-// dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; 64 % (H / KVH) == 0;
-// bk >= 1 cache rows per online-softmax block (prefill_smem_bytes(bk) within
-// the card's shared memory, which the wrapper checks).
+// The three prefill routes, chosen by the wrapper from the cache dtype.
+// HS in {8, 16, 32, 64, 128}; 64 % (H / KVH) == 0; bk >= 1 cache rows per
+// online-softmax block.
+//
+// attention_prefill: a bf16 cache (dtype must be 1 = bfloat16, q and out
+// bf16), on the tensor cores; any bk.
 extern "C" int attention_prefill(const void* q, const void* k_cache, const void* v_cache,
                                  const void* start, const void* valid, void* out, int B,
                                  int T_len, int H, int KVH, int S, int HS, int L, int layer,
                                  int dtype, int bk, void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || kTcRows % (H / KVH) || bk < 1 || dtype != 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
-#define CALL(T, N)                                                                           \
-  launch_prefill<T, T, N>(q, k_cache, v_cache, nullptr, nullptr, cache, start, valid, out, B, \
-                          T_len, H, KVH, S, scale, bk, st)
-  if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
-  }
+#define CALL(T, N)                                                                        \
+  launch_prefill_mma<T, T, N>(q, k_cache, v_cache, nullptr, nullptr, cache, start, valid, out, \
+                              B, T_len, H, KVH, S, scale, bk, st)
   HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
-// int8 cache planes with fp32 scale planes (B, L, KVH, S); q and out in
-// dtype (0 = float, 1 = bfloat16); otherwise as attention_prefill.
+// attention_prefill_f32: an fp32 cache (dtype must be 0 = float), on the
+// fp32 CUDA cores; prefill_smem_bytes(bk) within the card's shared memory,
+// which the wrapper checks.
+extern "C" int attention_prefill_f32(const void* q, const void* k_cache, const void* v_cache,
+                                     const void* start, const void* valid, void* out, int B,
+                                     int T_len, int H, int KVH, int S, int HS, int L, int layer,
+                                     int dtype, int bk, void* stream) {
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || dtype != 0) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ContiguousCache cache{L, KVH, S, layer};
+#define CALL(T, N)                                                                       \
+  launch_prefill_f32<T, N>(q, k_cache, v_cache, cache, start, valid, out, B, T_len, H, KVH, \
+                           S, scale, bk, st)
+  HIPLLAMA_HS_SWITCH(HS, float, CALL)
+#undef CALL
+}
+
+// attention_prefill_int8: int8 cache planes with fp32 scale planes (B, L,
+// KVH, S); q and out in dtype (0 = float, 1 = bfloat16); on the tensor
+// cores, any bk.
 extern "C" int attention_prefill_int8(const void* q, const void* k_cache, const void* v_cache,
                                       const void* k_scale, const void* v_scale,
                                       const void* start, const void* valid, void* out, int B,
                                       int T_len, int H, int KVH, int S, int HS, int L,
                                       int layer, int dtype, int bk, void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || kTcRows % (H / KVH) || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
-#define CALL(T, N)                                                                            \
-  launch_prefill<T, signed char, N>(q, k_cache, v_cache, k_scale, v_scale, cache, start, valid, \
-                                    out, B, T_len, H, KVH, S, scale, bk, st)
+#define CALL(T, N)                                                                           \
+  launch_prefill_mma<T, signed char, N>(q, k_cache, v_cache, k_scale, v_scale, cache, start,  \
+                                        valid, out, B, T_len, H, KVH, S, scale, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }
@@ -553,23 +1005,42 @@ extern "C" int attention_decode_paged_int8(const void* q, const void* k_pages,
 #undef CALL
 }
 
+// attention_prefill_paged (bf16 pages, tensor cores; dtype must be 1) and
+// attention_prefill_paged_f32 (fp32 pages, CUDA cores; dtype must be 0)
 extern "C" int attention_prefill_paged(const void* q, const void* k_pages, const void* v_pages,
                                        const void* table, const void* start, const void* valid,
                                        void* out, int B, int T_len, int H, int KVH, int P, int PS,
                                        int max_pages, int HS, int layer, int dtype, int bk,
                                        void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || kTcRows % (H / KVH) || bk < 1 || PS < 1 || dtype != 1)
+    return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
   const int S = max_pages * PS;
-#define CALL(T, N)                                                                           \
-  launch_prefill<T, T, N>(q, k_pages, v_pages, nullptr, nullptr, cache, start, valid, out, B, \
-                          T_len, H, KVH, S, scale, bk, st)
-  if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
-  }
+#define CALL(T, N)                                                                          \
+  launch_prefill_mma<T, T, N>(q, k_pages, v_pages, nullptr, nullptr, cache, start, valid, out, \
+                              B, T_len, H, KVH, S, scale, bk, st)
   HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+#undef CALL
+}
+
+extern "C" int attention_prefill_paged_f32(const void* q, const void* k_pages,
+                                           const void* v_pages, const void* table,
+                                           const void* start, const void* valid, void* out,
+                                           int B, int T_len, int H, int KVH, int P, int PS,
+                                           int max_pages, int HS, int layer, int dtype, int bk,
+                                           void* stream) {
+  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || PS < 1 || dtype != 0)
+    return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)HS));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
+  const int S = max_pages * PS;
+#define CALL(T, N)                                                                          \
+  launch_prefill_f32<T, N>(q, k_pages, v_pages, cache, start, valid, out, B, T_len, H, KVH, S, \
+                           scale, bk, st)
+  HIPLLAMA_HS_SWITCH(HS, float, CALL)
 #undef CALL
 }
 
@@ -580,14 +1051,14 @@ extern "C" int attention_prefill_paged_int8(const void* q, const void* k_pages,
                                             int B, int T_len, int H, int KVH, int P, int PS,
                                             int max_pages, int HS, int layer, int dtype, int bk,
                                             void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || kTcRows % (H / KVH) || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
   const int S = max_pages * PS;
-#define CALL(T, N)                                                                               \
-  launch_prefill<T, signed char, N>(q, k_pages, v_pages, k_scale, v_scale, cache, start, valid, \
-                                    out, B, T_len, H, KVH, S, scale, bk, st)
+#define CALL(T, N)                                                                             \
+  launch_prefill_mma<T, signed char, N>(q, k_pages, v_pages, k_scale, v_scale, cache, start,    \
+                                        valid, out, B, T_len, H, KVH, S, scale, bk, st)
   if (dtype == 0) {
     HIPLLAMA_HS_SWITCH(HS, float, CALL)
   }

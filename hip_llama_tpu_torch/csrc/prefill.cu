@@ -35,11 +35,20 @@
 // q8_matmul_xheads replaces hip_llama_tpu/ops/quant.py::q8_matmul_xheads
 // (K16, the x_heads_hs branch of _q8_kernel, HIPLLAMA_PREFILL_XHEADS=1): wo
 // over the attention output read in place as (M, GH, HS) through its row
-// and head strides. K15's tile schedule (64 x 128 output tiles, the tile
-// dequantized per 32 rows), with one more set of fp32 fragments: zeroed at
-// each head, they take the head's HS / 16 k-steps and are then added to the
-// running fragments in head order, as the TPU kernel adds each head's dot
-// (quant.py:371-380). Bound by operations at prefill M, as K15.
+// and head strides. Bound by operations at prefill M (2 x 2048 x 4096 x
+// 4096 flops for the 7B wo), which only wgmma reaches; the kernel before
+// this one ran K15's 64 x 128 wmma tile, single-stage, with the weight
+// dequantized by the same threads for every 32 rows of k and every 64 rows
+// of M (32 times a call at M 2048): 12.1x cuBLAS. It now runs
+// q8_wgmma.cuh's mainloop (128 x 128 tiles; a producer warpgroup copies x
+// and the int8 weight by cp.async into a 6-stage ring; two consumer
+// warpgroups each run wgmma m64n128k16 on 64 rows and, while it runs,
+// dequantize the next step's weight tile, once per CTA). Each
+// consumer keeps two fp32 accumulators: the head's, overwritten by the
+// head's first k16 product (scale-d 0) and fed the head's HS / 16 steps,
+// then added to the running sum in head order, as the TPU kernel adds each
+// head's dot (quant.py:371-380); then q8.cuh's residual epilogue and one
+// cast.
 
 #include <mma.h>
 #include <stdint.h>
@@ -47,6 +56,7 @@
 #include "common.cuh"
 #include "matmul_passes.cuh"
 #include "q8.cuh"
+#include "q8_wgmma.cuh"
 
 namespace {
 
@@ -242,106 +252,38 @@ int launch_minner(const void* x, const void* q, const void* s, int M, int K, int
 }
 
 // ---------------------------------------------------------------------------
-// K16: one 64 x 128 output tile per CTA, per-head partial fragments
+// K16: q8_wgmma.cuh's mainloop, a head accumulator beside the running sum
 
-constexpr int kXhThreads = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int kXhBM = 64;
-constexpr int kXhBN = 128;
-constexpr int kXhBK = 32;
-constexpr int kXhLda = kXhBK + 8;
-constexpr int kXhLdb = kXhBN + 8;
-
-__global__ void __launch_bounds__(kXhThreads) q8_xheads_kernel(
+__global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) q8_xheads_kernel(
     const bf16* __restrict__ x3, int sxm, int sxh, const int8_t* __restrict__ q,
     const float* __restrict__ s, int M, int GH, int HS, int N, int gs, Epilogue e,
     bf16* __restrict__ out) {
-  __shared__ __align__(32) bf16 a_s[kXhBM][kXhLda];
-  __shared__ __align__(32) bf16 b_s[kXhBK][kXhLdb];
-  __shared__ __align__(32) float c_s[kXhThreads / 32][16 * 16];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * kXhBM, n0 = blockIdx.x * kXhBN;
-  const bool has_x = tid < kXhBM * 2;
-  const int xr = tid >> 1, xc = (tid & 1) * 16;
-  const int wr = tid >> 3, wc = (tid & 7) * 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4], head[4];
+  namespace wg = hipllama::q8wg;
+  extern __shared__ __align__(1024) unsigned char xh_smem[];
+  const wg::Ring ring = wg::ring_init(xh_smem);
+  const int m0 = blockIdx.y * wg::kBM, n0 = blockIdx.x * wg::kBN;
+  const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int n_steps = GH * HS / wg::kBK;
+  if (role == wg::kConsumers) {
+    // x (m, k): head k / HS, element k % HS (a step lies in one head)
+    auto x_at = [=](int m, int k) {
+      return x3 + (size_t)m * sxm + (size_t)(k / HS) * sxh + k % HS;
+    };
+    wg::produce(ring, x_at, m0, M, q, s, n0, N, gs, n_steps, t);
+  } else {
+    float acc[64], head[64];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int h = 0; h < GH; ++h) {
+    for (int i = 0; i < 64; ++i) acc[i] = head[i] = 0.f;
+    const int per_head = HS / wg::kBK;
+    wg::consume(
+        ring, n_steps, gs, role, t, head, [=](int it) { return it % per_head == 0; },
+        [&](int it, const float* d) {
+          if (it % per_head == per_head - 1) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(head[j], 0.f);
-    for (int d0 = 0; d0 < HS; d0 += kXhBK) {
-      if (has_x) {
-        uint4 v0 = make_uint4(0u, 0u, 0u, 0u), v1 = v0;
-        const int gm = m0 + xr;
-        if (gm < M) {
-          const uint4* src =
-              reinterpret_cast<const uint4*>(x3 + (size_t)gm * sxm + (size_t)h * sxh + d0 + xc);
-          v0 = src[0];
-          v1 = src[1];
-        }
-        uint4* dst = reinterpret_cast<uint4*>(&a_s[xr][xc]);
-        dst[0] = v0;
-        dst[1] = v1;
-      }
-      {
-        const int k = h * HS + d0 + wr, gn = n0 + wc;
-        uint4 o0 = make_uint4(0u, 0u, 0u, 0u), o1 = o0;
-        if (gn < N) {
-          const uint4 qv = __ldg(reinterpret_cast<const uint4*>(q + (size_t)k * N + gn));
-          const float4* sp = reinterpret_cast<const float4*>(s + (size_t)(k / gs) * N + gn);
-          const uint2 w0 = dequant4(qv.x ^ kBias4, __ldg(sp));
-          const uint2 w1 = dequant4(qv.y ^ kBias4, __ldg(sp + 1));
-          const uint2 w2 = dequant4(qv.z ^ kBias4, __ldg(sp + 2));
-          const uint2 w3 = dequant4(qv.w ^ kBias4, __ldg(sp + 3));
-          o0 = make_uint4(w0.x, w0.y, w1.x, w1.y);
-          o1 = make_uint4(w2.x, w2.y, w3.x, w3.y);
-        }
-        uint4* dst = reinterpret_cast<uint4*>(&b_s[wr][wc]);
-        dst[0] = o0;
-        dst[1] = o1;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kXhBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, &a_s[wm * 16][kk], kXhLda);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, &b_s[kk][wn * 64 + j * 16], kXhLdb);
-          wmma::mma_sync(head[j], af, bfr, head[j]);
-        }
-      }
-      __syncthreads();
-    }
-    // the head's partial joins the running sum (accumulator fragments of
-    // one shape share their element layout)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int t = 0; t < acc[j].num_elements; ++t) acc[j].x[t] += head[j].x[t];
-  }
-
-  // epilogue, one 16 x 16 fragment at a time through the warp's scratch:
-  // lane -> row lane / 2, columns (lane % 2) * 8 .. + 7
-  float* cs = c_s[warp];
-  const int r = lane >> 1, cc = (lane & 1) * 8;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::store_matrix_sync(cs, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int gm = m0 + wm * 16 + r;
-    const int gn = n0 + wn * 64 + j * 16 + cc;
-    if (gm < M) {
-#pragma unroll
-      for (int p = 0; p < 8; p += 2)
-        if (gn + p < N) store_pair(e, gm, gn + p, N, cs[r * 16 + cc + p], cs[r * 16 + cc + p + 1],
-                                   out);
-    }
-    __syncwarp();
+            for (int i = 0; i < 64; ++i) acc[i] += d[i];
+          }
+        });
+    wg::store_tile(acc, e, m0, n0, M, N, role, t, out);
   }
 }
 
@@ -397,18 +339,23 @@ extern "C" int q8_matmul_silu_minner(const void* x, const void* q13, const void*
 
 // K16: x3 bf16 with element (m, h, d) at m * sxm + h * sxh + d (sxm, sxh
 // multiples of 8, 16-byte aligned base), q (GH * HS, N) int8, s (GH*HS/gs,
-// N) fp32, res (M, N) bf16 or null; out (M, N) bf16. HS % 32 == 0, N % 16 == 0.
+// N) fp32, res (M, N) bf16 or null; out (M, N) bf16. HS % 64 == 0, N % 16
+// == 0, gs % 8 == 0.
 extern "C" int q8_matmul_xheads(const void* x3, const void* q, const void* s, const void* res,
                                 void* out, int M, int GH, int HS, int sxm, int sxh, int N,
                                 int gs, void* stream) {
+  namespace wg = hipllama::q8wg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || GH < 1 || HS % kXhBK || N % 16 || sxm % 8 || sxh % 8 || gs < 1 ||
+  if (M < 1 || GH < 1 || HS % wg::kBK || N % 16 || sxm % 8 || sxh % 8 || gs < 1 || gs % 8 ||
       (GH * HS) % gs)
     return (int)cudaErrorInvalidValue;
   const Epilogue e{(const bf16*)res, nullptr, 0, 1, 0.f};
-  const dim3 grid((N + kXhBN - 1) / kXhBN, (M + kXhBM - 1) / kXhBM);
-  q8_xheads_kernel<<<grid, kXhThreads, 0, st>>>((const bf16*)x3, sxm, sxh, (const int8_t*)q,
-                                                (const float*)s, M, GH, HS, N, gs, e,
-                                                (bf16*)out);
+  HIPLLAMA_TRY((int)cudaFuncSetAttribute(q8_xheads_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg::kSmemBytes));
+  const dim3 grid((N + wg::kBN - 1) / wg::kBN, (M + wg::kBM - 1) / wg::kBM);
+  q8_xheads_kernel<<<grid, wg::kThreads, wg::kSmemBytes, st>>>(
+      (const bf16*)x3, sxm, sxh, (const int8_t*)q, (const float*)s, M, GH, HS, N, gs, e,
+      (bf16*)out);
   return check_launch();
 }

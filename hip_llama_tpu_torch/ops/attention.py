@@ -19,9 +19,22 @@ sizes: 8, 16, 32, 64, 128.
 With a bf16 cache the rounded probabilities depend on where the running
 max is taken, so the plain versions walk a bf16 cache in the JAX kernels'
 KV blocks (`decode_block`, `ref_block`; an fp32 cache takes the one-pass
-softmax, the same math), and so do the CUDA kernels: each holds a whole
-block's scores in shared memory before it rounds any
-(`check_decode_block`, `check_prefill_block` bound the block).
+softmax, the same math), and so do the CUDA kernels: each takes a whole
+block's max before it rounds any. The decode kernels hold the block's
+scores in shared memory (`check_decode_block` bounds the block).
+
+Prefill takes one of three routes by the cache's dtype, a dispatch by
+type as the JAX kernels' `quantized` branch: a bf16 cache (C entry
+`attention_prefill`) and an int8 cache (`attention_prefill_int8`) run the
+tensor-core kernel (mma.sync bf16 products, K and V copied by cp.async in
+the cache's dtype, two passes over each block: its max, then p and PV), in
+shared memory that does not grow with the block; an fp32 cache
+(`attention_prefill_f32`) runs the fp32 CUDA-core kernel, which holds the
+block's scores in shared memory (`check_prefill_block` bounds the block),
+so that the fp32 outputs stay byte-identical to the CPU's. The paged
+entries follow the same rule (`attention_prefill_paged`, `_int8`, `_f32`).
+All three count in `attention_prefill.launches` (int8:
+`.launches_int8`).
 
 An int8 cache holds one fp32 scale per row in `k_scale` / `v_scale` (B, L,
 KVH, S). Decode follows the JAX kernels' int8 dots (attention.py:88-93,
@@ -71,9 +84,10 @@ PREFILL_BLOCK = 512  # the JAX prefill kernels' KV block target
 # shared memory the decode task may give a block's M x bk fp32 scores (the
 # H100's 227 KB per CTA less the task's own)
 DECODE_SCORES_BYTES = 200 * 1024
-# shared memory a CTA may take on an H100 (csrc/attention.cu's prefill kernel)
+# shared memory a CTA may take on an H100 (csrc/attention.cu's prefill kernels)
 SMEM_PER_CTA = 232448
 _PF_ROWS = _PF_TILE = 64  # query rows per prefill CTA, cache rows per tile
+_TC_STAGES = 2  # the tensor-core prefill's ring of K/V tiles (kTcStages)
 
 
 def ref_block(s: int, target: int) -> int:
@@ -103,16 +117,34 @@ def check_decode_block(m: int, bk: int) -> None:
                          f"more than {DECODE_SCORES_BYTES} bytes of shared memory")
 
 
-def check_prefill_block(hs: int, bk: int) -> None:
-    """The prefill kernel holds its 64 query rows' scores over a block of bk
-    rows (rounded up to 64-row tiles) in shared memory beside a q tile, a
-    K/V tile and their scales (csrc/attention.cu::prefill_smem_bytes)."""
-    cols = -(-bk // _PF_TILE) * _PF_TILE
-    need = 4 * (_PF_ROWS * hs + _PF_TILE * (hs + 1) + _PF_ROWS * (cols + 1) + 3 * _PF_ROWS
-                + _PF_TILE + cols)
+def prefill_smem_bytes(hs: int, bk: int, cache_dtype) -> int:
+    """Shared memory of the prefill kernel a cache of `cache_dtype` takes
+    (csrc/attention.cu: TcLayout for bf16 and int8, prefill_smem_bytes for
+    fp32). The tensor-core kernel's does not depend on the block: a ring of
+    _TC_STAGES stages, each a K and a V tile of 64 rows as copied (bf16 rows
+    of the head size padded to 16, or int8 rows of hs bytes and the two
+    tiles' fp32 row scales), and on int8 the two tiles widened to bf16. The
+    fp32 kernel holds its 64 query rows' scores over the block (rounded up
+    to 64-row tiles) beside a q tile, a K/V tile and the softmax state."""
+    if cache_dtype == torch.float32:
+        cols = -(-bk // _PF_TILE) * _PF_TILE
+        return 4 * (_PF_ROWS * hs + _PF_TILE * (hs + 1) + _PF_ROWS * (cols + 1) + 3 * _PF_ROWS)
+    wide = _PF_TILE * max(hs, 16) * 2
+    if cache_dtype == torch.int8:
+        return _TC_STAGES * (2 * _PF_TILE * hs + 2 * _PF_TILE * 4) + 2 * wide
+    return _TC_STAGES * 2 * wide
+
+
+def check_prefill_block(hs: int, bk: int, cache_dtype) -> None:
+    """The prefill kernel's shared memory fits a CTA (`prefill_smem_bytes`):
+    on an fp32 cache it bounds the block, on bf16 and int8 it never does."""
+    need = prefill_smem_bytes(hs, bk, cache_dtype)
     if need > SMEM_PER_CTA:
         raise ValueError(f"prefill attention at a KV block of {bk} rows needs {need} bytes of "
                          f"shared memory, more than {SMEM_PER_CTA}")
+
+
+_PREFILL_ENTRY = {torch.bfloat16: "", torch.int8: "_int8", torch.float32: "_f32"}
 
 
 def _quant_rows(x):
@@ -417,7 +449,9 @@ def attention_prefill(q, k_cache, v_cache, layer: int, start, valid, k_scale=Non
     `layer` of a cache that already holds the chunk's rows: query t of slot
     b sees cache rows 0..start[b]+t. Rows t >= valid[b] are unspecified
     (the kernel writes zeros there). An int8 cache comes with its scale
-    planes. Returns (B, T, H, HS) in q's dtype. Replaces
+    planes. Returns (B, T, H, HS) in q's dtype. The cache's dtype picks the
+    kernel: bf16 and int8 caches multiply on the tensor cores, an fp32 cache
+    on the fp32 CUDA cores (the module's docstring). Replaces
     hip_llama_tpu/ops/attention.py::attention_prefill_pallas (T-major and
     head-major schedules alike)."""
     bsz, _, kvh, s, hs, h = _check_shapes(q, k_cache, v_cache, layer)
@@ -437,18 +471,19 @@ def attention_prefill(q, k_cache, v_cache, layer: int, start, valid, k_scale=Non
     check_operand("valid", valid, (bsz,), torch.int32, dev)
     out = torch.empty_like(q)
     bk = ref_block(s, PREFILL_BLOCK)
-    check_prefill_block(hs, bk)
+    check_prefill_block(hs, bk, k_cache.dtype)
+    entry = "attention_prefill" + _PREFILL_ENTRY[k_cache.dtype]
+    dims = (bsz, t, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk)
     if quantized:
-        fn = _build.bind("attention", "attention_prefill_int8", "pppppppp" + "iiiiiiiiii" + "p")
+        fn = _build.bind("attention", entry, "pppppppp" + "iiiiiiiiii" + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), start.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                bsz, t, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk, _stream())
+                v_scale.data_ptr(), start.data_ptr(), valid.data_ptr(), out.data_ptr(), *dims,
+                _stream())
     else:
-        fn = _build.bind("attention", "attention_prefill", "pppppp" + "iiiiiiiiii" + "p")
+        fn = _build.bind("attention", entry, "pppppp" + "iiiiiiiiii" + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), start.data_ptr(),
-                valid.data_ptr(), out.data_ptr(),
-                bsz, t, h, kvh, s, hs, k_cache.shape[1], layer, _DTYPES[dt], bk, _stream())
-    _build.check(rc, "attention", "attention_prefill")
+                valid.data_ptr(), out.data_ptr(), *dims, _stream())
+    _build.check(rc, "attention", entry)
     _count(attention_prefill, quantized)
     return out
 
@@ -571,8 +606,9 @@ def attention_prefill_paged(q, k_pages, v_pages, page_table, layer: int, start, 
     rows are already written; query t of slot b sees rows 0..start[b]+t,
     row r in page page_table[b, r // PS] of layer `layer`. Rows t >=
     valid[b] are unspecified (the kernel writes zeros there). int8 pages
-    come with their scale planes. Returns (B, T, H, HS) in q's dtype.
-    Replaces hip_llama_tpu/ops/attention.py::attention_prefill_paged."""
+    come with their scale planes. Returns (B, T, H, HS) in q's dtype. The
+    pages' dtype picks the kernel, as `attention_prefill`'s. Replaces
+    hip_llama_tpu/ops/attention.py::attention_prefill_paged."""
     _, kvh, n_pages, ps, hs, h, max_pages, quantized = _check_paged(
         q, k_pages, v_pages, page_table, layer, k_scale, v_scale)
     dev = k_pages.device
@@ -591,18 +627,19 @@ def attention_prefill_paged(q, k_pages, v_pages, page_table, layer: int, start, 
     check_operand("valid", valid, (bsz,), torch.int32, dev)
     check_table(page_table, bsz, dev)
     out = torch.empty_like(q)
-    check_prefill_block(hs, ps)
+    check_prefill_block(hs, ps, k_pages.dtype)
+    entry = "attention_prefill_paged" + _PREFILL_ENTRY[k_pages.dtype]
     dims = (bsz, t, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt], ps)
     if quantized:
-        fn = _build.bind("attention", "attention_prefill_paged_int8", "p" * 9 + "i" * 11 + "p")
+        fn = _build.bind("attention", entry, "p" * 9 + "i" * 11 + "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), page_table.data_ptr(), start.data_ptr(), valid.data_ptr(),
                 out.data_ptr(), *dims, _stream())
     else:
-        fn = _build.bind("attention", "attention_prefill_paged", "p" * 7 + "i" * 11 + "p")
+        fn = _build.bind("attention", entry, "p" * 7 + "i" * 11 + "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
                 start.data_ptr(), valid.data_ptr(), out.data_ptr(), *dims, _stream())
-    _build.check(rc, "attention", "attention_prefill_paged")
+    _build.check(rc, "attention", entry)
     _count(attention_prefill_paged, quantized)
     return out
 

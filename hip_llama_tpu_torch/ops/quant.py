@@ -53,7 +53,10 @@ reads and passes down (`minner=`):
   (M, heads, head size), one fp32 partial per head added in head order.
   It runs reshape math in every mode (the JAX call passes no dequant mode,
   quant.py:491-495); ineligible shapes (`xheads_engages`) flatten and take
-  q8_matmul, under the mode and the MINNER decision.
+  q8_matmul, under the mode and the MINNER decision. Its kernel is the
+  wgmma mainloop of csrc/q8_wgmma.cuh (a producer warpgroup dequantizes
+  each weight tile once per 128-row CTA; two consumer warpgroups multiply),
+  which takes group sizes that are multiples of 8.
 """
 
 from __future__ import annotations
@@ -999,6 +1002,9 @@ def q8_matmul_xheads(x3, qt: QTensor, *, residual=None, mode: str = "reshape",
         raise ValueError(f"x3: the kernel takes a unit last stride and 16-byte aligned rows, "
                          f"got strides {x3.stride()}")
     n = _check_weight("qt", qt, gh * hs, dev)
+    if qt.group_size % 8:
+        raise ValueError(f"q8_matmul_xheads: the kernel takes group sizes that are multiples "
+                         f"of 8, got {qt.group_size}")
     _check_epilogue(residual, None, 0, 0, m, n, dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     f = _build.bind("prefill", "q8_matmul_xheads", "ppppp" + "iiiiiii" + "p")

@@ -293,3 +293,86 @@ def test_paged_cuda_wrappers_take_the_page(launches, ps, int8):
     A.attention_prefill_paged(_on_card(torch.zeros(b, 16, h, hs, dtype=dt)), k, v, table, 0, pos,
                               pos, *sc)
     assert [args[-2] for _, args in launches] == [ps, ps]
+
+
+# ---------------------------------------------------------------------------
+# the prefill routes: the tensor-core kernel on bf16 and int8 caches, the
+# fp32 CUDA-core kernel on fp32
+
+
+def _kernel_constant(name: str) -> int:
+    """The value of `constexpr int <name> = N;` in csrc/attention.cu."""
+    import os
+    import re
+
+    from hip_llama_tpu_torch.ops import _build
+
+    src = open(os.path.join(_build.CSRC, "attention.cu")).read()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("hs", A.HEAD_SIZES)
+def test_prefill_smem_matches_the_kernel_layouts(hs):
+    """prefill_smem_bytes mirrors csrc/attention.cu: the tensor-core kernel
+    (TcLayout: a ring of kTcStages stages of a K and a V tile of kTcTile
+    rows as copied, bf16 rows padded to 16 elements, int8 rows with their
+    fp32 scales, and on int8 the two tiles widened to bf16) takes the same
+    bytes at every block, and fits a CTA; the fp32 kernel holds the block's
+    scores, so its bytes grow with the block (at HS 128 it takes 640 rows
+    and refuses 704)."""
+    assert _kernel_constant("kTcStages") == A._TC_STAGES
+    assert _kernel_constant("kTcTile") == _kernel_constant("kTcRows") == A._PF_TILE
+    tile = _kernel_constant("kTcTile")
+    stages = _kernel_constant("kTcStages")
+    wide = tile * max(hs, 16) * 2
+    want = {torch.bfloat16: stages * 2 * wide,
+            torch.int8: stages * (2 * tile * hs + 2 * tile * 4) + 2 * wide}
+    for bk in (8, 64, 96, 128, 256, 512, 576, 1024, 4096):
+        for dt, need in want.items():
+            assert A.prefill_smem_bytes(hs, bk, dt) == need
+            A.check_prefill_block(hs, bk, dt)
+    assert want[torch.bfloat16] <= 64 * 1024  # three CTAs an SM at HS 128
+    f32 = [A.prefill_smem_bytes(hs, bk, torch.float32) for bk in (64, 128, 256, 512)]
+    assert f32 == sorted(f32) and len(set(f32)) == 4
+    for bk in (576, 640, 704, 1024):
+        if A.prefill_smem_bytes(hs, bk, torch.float32) > A.SMEM_PER_CTA:
+            assert hs == 128 and bk > 640 or bk > 704
+            with pytest.raises(ValueError, match="shared memory"):
+                A.check_prefill_block(hs, bk, torch.float32)
+        else:
+            assert hs < 128 or bk <= 640
+            A.check_prefill_block(hs, bk, torch.float32)
+
+
+@pytest.mark.parametrize("s", [96, 512, 1024])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+def test_prefill_wrappers_take_the_route_of_the_cache_dtype(launches, s, cache):
+    """K4 and K7 launch the tensor-core entry point on bf16 (attention_prefill,
+    attention_prefill_paged) and int8 caches (..._int8), and the fp32
+    CUDA-core one on fp32 caches (..._f32), each at the JAX block: K4
+    _pick_block_k(S, 512) (attention.py:983), K7 the page."""
+    from hip_llama_tpu.ops.attention import _pick_block_k
+
+    b, h, kvh, hs, ps, n_pages = 2, 8, 4, 64, 16, 9
+    int8 = cache == "int8"
+    dt = torch.float32 if cache == "float32" else torch.bfloat16
+    cdt = torch.int8 if int8 else dt
+
+    def planes(shape):
+        k, v = (_on_card(torch.zeros(shape, dtype=cdt)) for _ in range(2))
+        sc = [_on_card(torch.ones(shape[:4])) for _ in range(2)] if int8 else [None, None]
+        return k, v, sc
+
+    k, v, sc = planes((b, 1, kvh, s, hs))
+    zeros = _on_card(torch.zeros(b, dtype=torch.int32))
+    A.attention_prefill(_on_card(torch.zeros(b, 16, h, hs, dtype=dt)), k, v, 0, zeros, zeros,
+                        *sc)
+    kp, vp, scp = planes((1, kvh, n_pages, ps, hs))
+    A.attention_prefill_paged(_on_card(torch.zeros(b, 16, h, hs, dtype=dt)), kp, vp,
+                              _on_card(torch.ones(b, 4, dtype=torch.int32)), 0, zeros, zeros,
+                              *scp)
+    suffix = {"float32": "_f32", "bfloat16": "", "int8": "_int8"}[cache]
+    got = [(fn, args[-2], args[-3]) for fn, args in launches]
+    dtype_code = 0 if dt == torch.float32 else 1
+    assert got == [(f"attention_prefill{suffix}", _pick_block_k(s, 512), dtype_code),
+                   (f"attention_prefill_paged{suffix}", ps, dtype_code)], got

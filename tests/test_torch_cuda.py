@@ -803,6 +803,98 @@ def test_attention_paged_bf16_rounds_at_the_page():
 
 
 # ---------------------------------------------------------------------------
+# prefill on the tensor cores (bf16 and int8 caches): more than one JAX
+# block, GQA, the head sizes, ragged chunks
+
+# chip_smoke.py's bound for the attention kernels against their plain
+# versions (ATTN_ATOL, ATTN_RTOL): both round the probabilities at the same
+# block max and differ in the fp32 order of the sums, which can move an
+# output by one bf16 ulp: ATTN_ATOL below 1 in magnitude, where chip_smoke's
+# 7B outputs lie. These inputs also give outputs in [1, 4) (rows that see
+# few cache rows), where one ulp is 2^-7 or 2^-6, so the bound here is one
+# bf16 ulp of the plain output, and never less than ATTN_ATOL.
+ATTN_ATOL, ATTN_RTOL = 2.0 ** -8, 0.0
+
+
+def _bf16_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+# (B, H, KVH, HS): 1, 2 and 4 query heads per KV head at head sizes 8, 64
+# and 128, and Llama-2-7B's heads
+PREFILL_TC_SHAPES = [(4, 4, 4, 8), (4, 8, 4, 64), (5, 16, 4, 128), (8, 32, 32, 128)]
+
+
+def _attn_close(got, want, live):
+    g, w = got[live].float(), want[live].float()
+    bad = (g - w).abs() > torch.maximum(ATTN_ATOL + ATTN_RTOL * w.abs(), _bf16_ulp(w))
+    assert not bool(bad.any()), (f"{int(bad.sum())} of {bad.numel()} outside; max "
+                                 f"{(g - w).abs().max().item():.3g}")
+    # rows t >= valid are written as zeros
+    assert not bool(got[~live].float().abs().gt(0).any())
+
+
+def _ragged_chunk(rng, b, t, s, dev, align: int = 1):
+    """start and valid of b slots: a chunk from 0, one that straddles the
+    middle of the cache (a JAX block or page boundary), one that ends at
+    the last row, a bystander (valid 0), then ragged."""
+    start = np.r_[0, s // 2 - t // 2 - 3, s - t, 7,
+                  rng.integers(0, (s - t) // align, b - 4) * align]
+    valid = np.r_[t, t - 5, t, 0, rng.integers(1, t + 1, b - 4)]
+    return (torch.tensor(start, dtype=torch.int32, device=dev),
+            torch.tensor(valid, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", PREFILL_TC_SHAPES)
+def test_attention_prefill_tensor_cores_over_two_jax_blocks(shape, cache):
+    """K4 at S 1024: two JAX blocks of 512 rows, so the rescale between
+    blocks (alpha) is held at the JAX block."""
+    dev = _card()
+    b, h, kvh, hs = shape
+    s, t = 1024, 256
+    assert A.ref_block(s, A.PREFILL_BLOCK) == 512
+    rng = np.random.default_rng(40)
+    if cache == torch.int8:
+        kv = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+        k, v, sc = kv.k, kv.v, (kv.k_scale, kv.v_scale)
+    else:
+        k = _rand(rng, (b, 2, kvh, s, hs), cache, dev)
+        v = _rand(rng, (b, 2, kvh, s, hs), cache, dev)
+        sc = ()
+    q = _rand(rng, (b, t, h, hs), torch.bfloat16, dev)
+    start, valid = _ragged_chunk(rng, b, t, s, dev)
+    counts = (A.attention_prefill.launches, A.attention_prefill.launches_int8)
+    got = A.attention_prefill(q, k, v, 1, start, valid, *sc)
+    want = A.attention_prefill_plain(q, k, v, 1, start, valid, *sc)
+    torch.cuda.synchronize()
+    int8 = cache == torch.int8
+    assert (A.attention_prefill.launches, A.attention_prefill.launches_int8) == (
+        counts[0] + (not int8), counts[1] + int8)
+    _attn_close(got, want, torch.arange(t, device=dev)[None, :] < valid[:, None])
+
+
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", PREFILL_TC_SHAPES)
+def test_attention_prefill_paged_tensor_cores_over_pages(shape, pages):
+    """K7 with chunks that span several pages (the JAX block) and start
+    anywhere in one, on a shuffled table."""
+    dev = _card()
+    b, h, kvh, hs = shape
+    ps = 128 if hs == 128 else 32
+    max_pages, t = 8, 2 * ps
+    rng = np.random.default_rng(41)
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, pages, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    q = _rand(rng, (b, t, h, hs), torch.bfloat16, dev)
+    start, valid = _ragged_chunk(rng, b, t, max_pages * ps, dev)
+    sc = (pool.k_scale, pool.v_scale)
+    got = A.attention_prefill_paged(q, pool.k, pool.v, table, 1, start, valid, *sc)
+    want = A.attention_prefill_paged_plain(q, pool.k, pool.v, table, 1, start, valid, *sc)
+    torch.cuda.synchronize()
+    _attn_close(got, want, torch.arange(t, device=dev)[None, :] < valid[:, None])
+
+
+# ---------------------------------------------------------------------------
 # the `a8` mode: K15, K17, K21 and K22 against their plain versions
 
 A8_Q8_SHAPES = [(64, 128, 64), (192, 384, 64), (4096, 12288, 64), (11008, 4096, 64)]
@@ -1124,6 +1216,28 @@ def test_q8_matmul_xheads_kernel(m, gh, layout, residual):
     else:
         x3 = _rand(rng, (m, gh, hs), torch.bfloat16, dev)
     res = _rand(rng, (m, n), torch.bfloat16, dev) if residual else None
+    n0 = Q.q8_matmul_xheads.launches
+    got = Q.q8_matmul_xheads(x3, qt, residual=res)
+    want = Q.q8_matmul_xheads_plain(x3, qt, residual=res)
+    torch.cuda.synchronize()
+    assert Q.q8_matmul_xheads.launches == n0 + 1
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m,gs", [(200, 32), (200, 64), (2048, 64)])
+def test_q8_matmul_xheads_wgmma_at_the_7b_wo_shape(m, gs):
+    """K16 on wgmma at Llama-2-7B's wo (32 heads of 128, N 4096, with the
+    residual), at M 2048 and at a ragged M tile (200 rows; with groups of
+    32 a step of 64 rows takes two scale rows), on a strided view of the
+    heads (q|k|v-like rows)."""
+    dev = _card()
+    gh, hs, n = 32, 128, 4096
+    rng = np.random.default_rng(63)
+    qt = _qt(rng, gh * hs, n, gs, dev)
+    x3 = _rand(rng, (m, 3 * gh, hs), torch.bfloat16, dev)[:, gh:2 * gh]
+    assert x3.stride() == (3 * gh * hs, hs, 1)
+    res = _rand(rng, (m, n), torch.bfloat16, dev)
+    assert Q.xheads_engages(m, gh, hs, gh * hs, n, gs)
     n0 = Q.q8_matmul_xheads.launches
     got = Q.q8_matmul_xheads(x3, qt, residual=res)
     want = Q.q8_matmul_xheads_plain(x3, qt, residual=res)
