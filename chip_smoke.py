@@ -14,7 +14,8 @@ Phases, in order; each raises on failure and none is caught:
      gathered or quantized beforehand, as CUDA-graph replays), and its bound;
      then K4 at the port bench's ttft shape (T 512 over S 1024, two JAX
      blocks), here in bf16 and after phase 6a on an int8 cache;
-  3b. the Q8 kernels (q8_matmul, q8_matmul_silu, q8_matmul_ffn,
+  3b. the Q8 kernels (q8_matmul, q8_matmul_silu, q8_matmul_ffn at M 8 on its
+     strip kernel and at M 32 and 128 on its tensor-core kernel,
      attention_decode_fused, q8_layer_fused) against their plain versions at
      7B shapes in bf16, with the same timings;
   4. the committed golden fixture through the port's CLI (fp32, greedy,
@@ -119,7 +120,16 @@ Phases, in order; each raises on failure and none is caught:
      default decode, --loop host, --mode ttft, --mode serve and --mode serve
      --paged --prefix-cache (each line: bench.py's metric, a value above 0,
      vs_baseline and vs_achievable in (0, 1.05]); and one
-     `python -m hip_llama_tpu_torch.bench --steps 16` in its own process.
+     `python -m hip_llama_tpu_torch.bench --steps 16` in its own process;
+  13. every shape the JAX package serves: K1, K5, K4, K6 and K7 (bf16, int8
+     and fp32 caches) against their plain versions at head sizes 48 and 96
+     with 3 and 16 query heads per KV head, K23 at stories15M's layer (dim
+     288, 6 heads of 48 over 2 KV heads), the `a8` kernels of K15, K17, K21
+     and K22 at groups of 16 and 48 (8 and 128 rows), K16 at groups of 4;
+     and a stories15M-shaped model (random weights, 2 layers) served
+     through the CLI on the card and on the CPU in fp32, fp32 --kv int8 and
+     int4 with HIPLLAMA_Q4_MODE=a8 (groups of 16), the card's kernel path
+     and the CPU's plain path logits compared, the path's launches counted.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -235,6 +245,8 @@ KERNEL_SOURCES = {
     "attention_decode_fused": ("hip_llama_tpu_torch/csrc/attention.cu",
                                "hip_llama_tpu/ops/attention.py:1486"),
     "q8_matmul_ffn": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:894"),
+    # K18 above 16 rows: the tensor-core kernel (a T-16 chunk of 8 slots)
+    "q8_matmul_ffn_tc": ("hip_llama_tpu_torch/csrc/ffn.cu", "hip_llama_tpu/ops/quant.py:894"),
     "q8_matmul_silu": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:609"),
     "q8_layer_fused": ("hip_llama_tpu_torch/csrc/layer_fused.cu",
                        "hip_llama_tpu/ops/layer_fused.py:316"),
@@ -308,16 +320,21 @@ KERNEL_SOURCES = {
 }
 # the kernels each serving path must launch
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
-Q8_PATH = ("q8_matmul", "q8_layer_fused", "q8_matmul_ffn", "q8_matmul_silu",
+# (K18 on a T-16 chunk of 8 slots, 128 rows, runs its tensor-core kernel;
+# the decode FFN is inside K23)
+Q8_PATH = ("q8_matmul", "q8_layer_fused", "q8_matmul_ffn_tc", "q8_matmul_silu",
            "kv_commit_rows", "kv_write_chunk", "attention_prefill")
-# the golden fixture's Q8 runs: prefill chunks of at most 256 rows take K18
+# the golden fixture's Q8 runs: prefill chunks of at most 256 rows (more than
+# 16 at -b 4) take K18's tensor-core kernel, the four-kernel decode layer its
+# strip kernel
 GOLDEN_Q8_RUNS = {
     "q8, fused layer": (["--quant", "q8"], "1", "cpu_q8",
-                        ("q8_layer_fused", "q8_matmul", "q8_matmul_ffn", "kv_commit_rows",
+                        ("q8_layer_fused", "q8_matmul", "q8_matmul_ffn_tc", "kv_commit_rows",
                          "kv_write_chunk", "attention_prefill"), True),
     "q8, four-kernel layer": (["--quant", "q8"], "0", "cpu_q8",
                               ("attention_decode_fused", "q8_matmul", "q8_matmul_ffn",
-                               "kv_commit_rows", "kv_write_chunk", "attention_prefill"), True),
+                               "q8_matmul_ffn_tc", "kv_commit_rows", "kv_write_chunk",
+                               "attention_prefill"), True),
 }
 # the same on an int8 cache, and the dense fp32 fixture with it
 INT8_CACHE_PATH = ("kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
@@ -331,13 +348,14 @@ GOLDEN_INT8_RUNS = {
     "fp32 --kv int8": (["--dtype", "float32", "--kv", "int8"], "1", "cpu_f32_kv8",
                        ("attention_decode_int8",) + INT8_CACHE_PATH, True),
     "q8 --kv int8, fused layer": (["--quant", "q8", "--kv", "int8"], "1", "cpu_q8_kv8",
-                                  ("q8_layer_fused_int8", "q8_matmul", "q8_matmul_ffn")
+                                  ("q8_layer_fused_int8", "q8_matmul", "q8_matmul_ffn_tc")
                                   + INT8_CACHE_PATH, False),
     "q8 --kv int8, four-kernel layer": (["--quant", "q8", "--kv", "int8"], "0", "cpu_q8_kv8",
                                         ("attention_decode_fused_int8", "q8_matmul",
-                                         "q8_matmul_ffn") + INT8_CACHE_PATH, False),
+                                         "q8_matmul_ffn", "q8_matmul_ffn_tc")
+                                        + INT8_CACHE_PATH, False),
 }
-Q8_INT8_PATH = ("q8_matmul", "q8_layer_fused_int8", "q8_matmul_ffn", "q8_matmul_silu",
+Q8_INT8_PATH = ("q8_matmul", "q8_layer_fused_int8", "q8_matmul_ffn_tc", "q8_matmul_silu",
                 "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
                 "attention_prefill_int8")
 # the int4 path: K21 and K22 carry every product, whatever the row count
@@ -359,8 +377,8 @@ PAGED_INT8_PATH = ("attention_decode_paged_int8", "attention_prefill_paged_int8"
                    "kv_write_rows_paged_int8", "scale_write_rows_paged",
                    "kv_write_chunk_paged_int8", "scale_write_chunk_paged")
 NOT_PAGED = ("attention_decode", "attention_decode_fused", "attention_prefill", "kv_commit_rows",
-             "kv_write_chunk", "q8_layer_fused", "q8_matmul_ffn", "q8_matmul_silu",
-             "scale_write_chunk")
+             "kv_write_chunk", "q8_layer_fused", "q8_matmul_ffn", "q8_matmul_ffn_tc",
+             "q8_matmul_silu", "scale_write_chunk")
 # the fixture with --paged 16, at the bars of the dense runs against the JAX
 # package's paged outputs (fp32: byte-identical to cpu_f32, checked apart;
 # Q8 on bf16 pages: the average, tests/test_torch_paged_model.py::
@@ -393,8 +411,10 @@ GOLDEN_A8_RUNS = {
                       "kv_commit_rows", "kv_write_chunk", "attention_prefill"), True)},
 }
 # the 7B-width Q8 + int8-KV serve in a8: the prefill W2 (172 groups) keeps
-# reshape math, as the JAX decision says; the decode FFN is K18
+# reshape math, as the JAX decision says; the decode FFN is K18's strip, a
+# T-16 chunk's its tensor-core kernel
 Q8_A8_PATH = ("q8_matmul_a8", "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn",
+              "q8_matmul_ffn_tc",
               "attention_decode_fused_int8", "kv_commit_rows_int8", "kv_write_chunk_int8",
               "scale_write_chunk", "attention_prefill_int8")
 Q8_A8_STEP = {"q8_matmul_a8": 2 * _L + 1, "attention_decode_fused_int8": _L, "q8_matmul_ffn": _L,
@@ -408,12 +428,12 @@ NOT_STACKED = ("q8_layer_fused", "q8_layer_fused_int8", "attention_decode_fused"
                "attention_decode_fused_int8")
 GOLDEN_STACKED_RUNS = {
     "q8 stacked": (["--quant", "q8", "--layout", "stacked"], "1", "cpu_q8_stacked",
-                   ("q8_matmul_layered", "attention_decode", "q8_matmul", "q8_matmul_ffn",
+                   ("q8_matmul_layered", "attention_decode", "q8_matmul", "q8_matmul_ffn_tc",
                     "kv_commit_rows", "kv_write_chunk", "attention_prefill"), False),
     "q8 --kv int8 stacked": (["--quant", "q8", "--kv", "int8", "--layout", "stacked"], "1",
                              "cpu_q8_kv8_stacked",
                              ("q8_matmul_layered", "attention_decode_int8", "q8_matmul",
-                              "q8_matmul_ffn") + INT8_CACHE_PATH, False),
+                              "q8_matmul_ffn_tc") + INT8_CACHE_PATH, False),
 }
 GOLDEN_STACKED_A8_RUNS = {
     "q8 stacked a8": (["--quant", "q8", "--layout", "stacked"], "1", "cpu_q8_a8_stacked",
@@ -430,13 +450,13 @@ GOLDEN_KV_COMMIT_RUNS = {
                                         ("q8_layer_fused_int8", "kv_write_rows_int8",
                                          "scale_write_rows") + INT8_CACHE_PATH[1:], False),
 }
-Q8_STACKED_PATH = ("q8_matmul_layered", "attention_decode_int8", "q8_matmul", "q8_matmul_ffn",
+Q8_STACKED_PATH = ("q8_matmul_layered", "attention_decode_int8", "q8_matmul", "q8_matmul_ffn_tc",
                    "q8_matmul_silu", "kv_commit_rows_int8", "kv_write_chunk_int8",
                    "scale_write_chunk", "attention_prefill_int8")
 Q8_STACKED_STEP = {"q8_matmul_layered": 4 * _L, "attention_decode_int8": _L,
                    "kv_commit_rows_int8": 1, "q8_matmul": 1}
 Q8_STACKED_A8_PATH = ("q8_matmul_layered_a8", "attention_decode_int8", "q8_matmul_a8",
-                      "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn", "kv_commit_rows_int8",
+                      "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn_tc", "kv_commit_rows_int8",
                       "kv_write_chunk_int8", "scale_write_chunk", "attention_prefill_int8")
 Q8_STACKED_A8_STEP = {"q8_matmul_layered_a8": 4 * _L, "attention_decode_int8": _L,
                       "kv_commit_rows_int8": 1, "q8_matmul_a8": 1}
@@ -445,10 +465,10 @@ Q8_INT8_PAGED_STEP = {"attention_decode_paged_int8": _L, "kv_write_rows_paged_in
 # the 7B-width Q8 + int8-KV serve with both prefill knobs: T-256 chunks
 # (2048 rows) take K16 on wo, K19 on W2 and K19 silu on the gate; T-64
 # chunks K16 on wo and K17 + K15 on the FFN (512 rows: no K19); T-16 chunks
-# K16 and K18; the decode step is phase 6's
+# K16 and K18 (its tensor-core kernel); the decode step is phase 6's
 PREFILL_KNOBS = {"HIPLLAMA_PREFILL_MINNER": "1", "HIPLLAMA_PREFILL_XHEADS": "1"}
 Q8_KNOBS_PATH = ("q8_matmul_xheads", "q8_matmul_minner", "q8_matmul_silu_minner",
-                 "q8_matmul_silu", "q8_matmul", "q8_matmul_ffn", "q8_layer_fused_int8",
+                 "q8_matmul_silu", "q8_matmul", "q8_matmul_ffn_tc", "q8_layer_fused_int8",
                  "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
                  "attention_prefill_int8")
 # int4 on the fixture, at the bars of the Q8 runs (bf16 cache: both; int8
@@ -828,7 +848,8 @@ def phase_q8_kernels() -> dict[str, dict]:
          2 * 8 * d * voc)
     del wc, wcb
 
-    # K17 at prefill rows, K18 at decode and T-16 chunk rows
+    # K17 at prefill rows; K18 at decode rows (its strip kernel) and at a
+    # T-4 and a T-16 chunk of 8 slots (its tensor-core kernel)
     w13, w2 = weights(d, 2 * hid, 2), weights(hid, d, 2)
     w13b, w2b = deq(w13), deq(w2)
     for m in (512, 2048):
@@ -838,9 +859,9 @@ def phase_q8_kernels() -> dict[str, dict]:
              lambda i: Q.q8_matmul_silu_plain(x, w13[i % 2], norm_weight=norm),
              lambda i: x @ w13b[i % 2],
              wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid)
-    for m in (8, 128):
+    for m in (8, 32, 128):
         x, hb = rnd(m, d), rnd(m, hid)
-        case("q8_matmul_ffn", f"FFN M {m}",
+        case("q8_matmul_ffn" if m <= Q.GEMV_MAX_M else "q8_matmul_ffn_tc", f"FFN M {m}",
              lambda i: Q.q8_matmul_ffn(x, w13[i % 2], w2[i % 2], x, norm),
              lambda i: Q.q8_matmul_ffn_plain(x, w13[i % 2], w2[i % 2], x, norm),
              lambda i: (x @ w13b[i % 2], hb @ w2b[i % 2]),
@@ -886,8 +907,9 @@ def phase_q8_kernels() -> dict[str, dict]:
          2 * b * (d * nqkv + d * d + 3 * d * hid) + 4 * h * hs * sum(p + 1 for p in pos_l))
     del lw, cache
     # the kernels line carries each kernel's decode case (the prefill case
-    # for K17, which serves prefill rows only); max_abs_err over all cases
-    first = {"q8_matmul": 0, "q8_matmul_silu": 1, "q8_matmul_ffn": 0,
+    # for K17, which serves prefill rows only; M 128, a T-16 chunk of 8
+    # slots, for K18's tensor-core kernel); max_abs_err over all cases
+    first = {"q8_matmul": 0, "q8_matmul_silu": 1, "q8_matmul_ffn": 0, "q8_matmul_ffn_tc": 1,
              "attention_decode_fused": 0, "q8_layer_fused": 0}
     return {name: dict(rs[first[name]], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in out.items()}
@@ -2401,11 +2423,13 @@ def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per
         profile_window(f"{label} decode step, four-kernel layer (batch 8)", 4,
                        lambda i: four(params, cache, toks_t, torch.from_numpy(pos0 + i).to(dev)))
     chunk = [t[:-1][:256] for t in ids]
-    t_chunk = PAGE if paged else 256
-    profile_window(f"{label} prefill chunk (batch 8, T {t_chunk})", 2,
-                   lambda i: engine._prefill_tokens(cache, batch, {s: c[:t_chunk] for s, c in
-                                                                  enumerate(chunk)},
-                                                    {s: 0 for s in range(batch)}, bm=bm))
+    for t_chunk in ((PAGE,) if paged else (256, 16)):
+        # a T-16 chunk of 8 slots (128 rows) is the bucket the serves' late
+        # arrivals take, and K18's tensor-core rows
+        profile_window(f"{label} prefill chunk (batch 8, T {t_chunk})", 2 if t_chunk > 16 else 4,
+                       lambda i, t_c=t_chunk: engine._prefill_tokens(
+                           cache, batch, {s: c[:t_c] for s, c in enumerate(chunk)},
+                           {s: 0 for s in range(batch)}, bm=bm))
     return launches
 
 
@@ -2560,6 +2584,238 @@ def phase_bench() -> dict[str, int]:
           f"{r.stdout.strip()}", flush=True)
     bench_line(r.returncode, r.stdout, BENCH_RUNS[0][1], achievable=True)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: every shape the JAX package serves
+
+
+# (head size, query heads per KV head): stories15M's 48 with its 3, and 96,
+# each with 3 and 16
+SHAPE_CASES = ((48, 3), (48, 16), (96, 3), (96, 16))
+# llama2.c's stories15M shape: 6 heads of 48 over 2 KV heads (cut to 2
+# layers, the golden tokenizer's vocabulary); random weights from SEED
+DIM288 = ModelConfig(dim=288, hidden_dim=768, n_layers=2, n_heads=6, n_kv_heads=2,
+                     vocab_size=512, seq_len=128)
+# its serves through the CLI: label -> (CLI arguments, knobs, the kernels
+# its path must launch, logit tolerance against the plain path on the CPU).
+# fp32: the fp32 attention kernels against the CPU's order of the same sums;
+# fp32 on the int8 cache: a k or v element a rounding apart can quantize to
+# the next int8 step; int4 `a8` (groups of 16 at K 288): bf16 activations,
+# as Q4_LOGIT_TOL
+DIM288_RUNS = {
+    "fp32": (["--dtype", "float32"], {},
+             ("attention_decode", "attention_prefill", "kv_commit_rows", "kv_write_chunk"), 1e-3),
+    "fp32 --kv int8": (["--dtype", "float32", "--kv", "int8"], {},
+                       ("attention_decode_int8",) + INT8_CACHE_PATH, 0.05),
+    "q4 a8": (["--quant", "q4"], {"HIPLLAMA_Q4_MODE": "a8"},
+              ("q4_matmul_a8", "q4_matmul_silu_a8", "attention_decode_fused", "kv_commit_rows",
+               "kv_write_chunk", "attention_prefill"), Q4_LOGIT_TOL),
+}
+
+
+def shape_check(label: str, pairs, bound) -> None:
+    """Raise unless every (kernel, plain) output pair is within bound(plain)."""
+    pairs = list(pairs)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in pairs)
+    ok = all(bool(((a.float() - b.float()).abs() <= bound(b)).all()) for a, b in pairs)
+    print(f"shape {label}: max_abs_err {err:.3g} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label} disagrees with its plain version")
+
+
+def phase_shape_kernels() -> None:
+    """The kernels that refused these shapes before (K1, K4, K5, K6, K7, K23,
+    the `a8` kernels, K16) against their plain versions at head sizes 48
+    and 96 with 3 and 16 query heads per KV head, `a8` groups of 16 and 48
+    and K16 groups of 4: bf16, int8 and fp32 caches, 8 slots over 512 rows
+    (pages of 128), a 64-token chunk."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    b, kvh, s, t, ps = 8, 2, 512, 64, 128
+    pos = torch.tensor([0, 1, 100, 255, 256, 300, 450, s - 1], dtype=torch.int32, device=dev)
+    start = torch.tensor([0, 7, 100, 192, 300, 400, s - t, 64], dtype=torch.int32, device=dev)
+    valid = torch.tensor([t, t - 5, 1, t, 30, 0, t, 17], dtype=torch.int32, device=dev)
+    table = (torch.randperm(b * (s // ps), generator=torch.Generator().manual_seed(SEED))
+             .view(b, s // ps).to(dev, torch.int32) + 1)
+
+    def tc_bound(w):  # the tensor-core prefill: an ulp of |plain| at least
+        return torch.maximum(ATTN_ATOL + ATTN_RTOL * w.float().abs(), bf16_ulp(w))
+
+    for hs, m in SHAPE_CASES:
+        h = m * kvh
+        for cache in (torch.bfloat16, torch.int8, torch.float32):
+            act = torch.bfloat16 if cache == torch.int8 else cache
+            shape = (b, 1, kvh, s, hs)
+            if cache == torch.int8:
+                (k, ks), (v, vs) = (C.quantize_kv_rows(rnd(*shape, dtype=torch.float32))
+                                    for _ in range(2))
+                sc = (ks, vs)
+                dec_bound = lambda w: INT8_ATTN_ATOL + INT8_ATTN_RTOL * w.float().abs()  # noqa: E731
+            else:
+                k, v, sc = rnd(*shape, dtype=cache), rnd(*shape, dtype=cache), ()
+                dec_bound = (lambda w: TOL[cache]) if cache == torch.float32 else (  # noqa: E731
+                    lambda w: ATTN_ATOL + ATTN_RTOL * w.float().abs())
+            pf_bound = (lambda w: TOL[cache]) if cache == torch.float32 else tc_bound
+            qkv = rnd(b, h + 2 * kvh, hs, dtype=act)
+            q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+            qp = rnd(b, t, h, hs, dtype=act)
+            tag = f"HS {hs}, {m} q heads per KV head, {str(cache)[6:]} cache"
+            shape_check(f"attention_decode [{tag}]", [
+                (A.attention_decode(q, k, v, 0, pos, kc, vc, *sc),
+                 A.attention_decode_plain(q, k, v, 0, pos, kc, vc, *sc)),
+                (A.attention_decode_fused(qkv, k, v, 0, pos, h, *sc),
+                 A.attention_decode_fused_plain(qkv, k, v, 0, pos, h, *sc))], dec_bound)
+            live = torch.arange(t, device=dev)[None, :] < valid[:, None]
+            shape_check(f"attention_prefill [{tag}, T {t}]", [
+                (A.attention_prefill(qp, k, v, 0, start, valid, *sc)[live],
+                 A.attention_prefill_plain(qp, k, v, 0, start, valid, *sc)[live])], pf_bound)
+            # the same rows laid out on pages of 128 of one pool
+            pool = [torch.empty((1, kvh, b * (s // ps) + 1, ps) + x.shape[4:], dtype=x.dtype,
+                                device=dev) for x in (k, v) + sc]
+            for x, pl in zip((k, v) + sc, pool):
+                pl[0][:, table.long()] = x[:, 0].reshape(b, kvh, s // ps, ps, *x.shape[4:]) \
+                    .transpose(0, 1)
+            kp, vp, *psc = pool
+            shape_check(f"attention_decode_paged [{tag}]", [
+                (A.attention_decode_paged(q, kp, vp, table, 0, pos, kc, vc, *psc),
+                 A.attention_decode_paged_plain(q, kp, vp, table, 0, pos, kc, vc, *psc))],
+                dec_bound)
+            shape_check(f"attention_prefill_paged [{tag}, T {t}]", [
+                (A.attention_prefill_paged(qp, kp, vp, table, 0, start, valid, *psc)[live],
+                 A.attention_prefill_paged_plain(qp, kp, vp, table, 0, start, valid,
+                                                 *psc)[live])], pf_bound)
+            del k, v, sc, pool, kp, vp, psc
+    # K23: stories15M's layer (HS 48, 3 query heads per KV head), bf16 and
+    # int8 caches
+    c = DIM288
+    d, hid, hs = c.dim, c.hidden_dim, c.dim // c.n_heads
+
+    def qw(kk, n, gs):
+        return Q.q8_quantize_weights(rnd(kk, n, dtype=torch.float32).mul_(kk ** -0.5), gs)
+
+    wl = (qw(d, (c.n_heads + 2 * c.n_kv_heads) * hs, 32), qw(d, d, 32), qw(d, 2 * hid, 32),
+          qw(hid, d, 32))
+    g1, g2 = ((1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous() for _ in range(2))
+    x = rnd(b, d)
+    for cache in (torch.bfloat16, torch.int8):
+        shape = (b, 1, c.n_kv_heads, s, hs)
+        if cache == torch.int8:
+            (k, ks), (v, vs) = (C.quantize_kv_rows(rnd(*shape, dtype=torch.float32))
+                                for _ in range(2))
+            sc = (ks, vs)
+        else:
+            k, v, sc = rnd(*shape), rnd(*shape), ()
+        args = (x, *wl, g1, g2, k, v, 0, pos, *sc)
+        got, want = LF.q8_layer_fused(*args, n_heads=c.n_heads), \
+            LF.q8_layer_fused_plain(*args, n_heads=c.n_heads)
+        shape_check(f"q8_layer_fused [dim 288, HS 48, 3 q heads per KV head, "
+                    f"{str(cache)[6:]} cache]", list(zip(got, want)),
+                    lambda w: Q8_ATOL + Q8_RTOL * w.float().abs())
+    # the a8 kernels at groups of 16 (int4 at K 288) and 48: the GEMV path
+    # (8 rows) and the tensor-core tiles (128 rows)
+    q8b = lambda w: Q8_ATOL + Q8_RTOL * w.float().abs()  # noqa: E731
+    for gs in (16, 48):
+        w = rnd(d, 2 * 864, dtype=torch.float32).mul_(d ** -0.5)
+        q8w, q8w13 = Q.q8_quantize_weights(w[:, :864], gs), Q.q8_quantize_weights(w, gs)
+        w4 = rnd(2 * d, 2 * 864, dtype=torch.float32).mul_((2 * d) ** -0.5)
+        q4w, q4w13 = Q4.q4_quantize_weights(w4[:, :864], gs), Q4.q4_quantize_weights(w4, gs)
+        for m in (8, 128):
+            x8, x4 = rnd(m, d), rnd(m, 2 * d)
+            a0 = (Q.q8_matmul.launches_a8, Q.q8_matmul_silu.launches_a8,
+                  Q4.q4_matmul.launches_a8, Q4.q4_matmul_silu.launches_a8)
+            shape_check(f"a8 products [gs {gs}, M {m}: K15, K17, K21, K22]", [
+                (Q.q8_matmul(x8, q8w, mode="a8"), Q.q8_matmul_plain(x8, q8w, mode="a8")),
+                (Q.q8_matmul_silu(x8, q8w13, mode="a8"),
+                 Q.q8_matmul_silu_plain(x8, q8w13, mode="a8")),
+                (Q4.q4_matmul(x4, q4w, mode="a8"), Q4.q4_matmul_plain(x4, q4w, mode="a8")),
+                (Q4.q4_matmul_silu(x4, q4w13, mode="a8"),
+                 Q4.q4_matmul_silu_plain(x4, q4w13, mode="a8"))], q8b)
+            a1 = (Q.q8_matmul.launches_a8, Q.q8_matmul_silu.launches_a8,
+                  Q4.q4_matmul.launches_a8, Q4.q4_matmul_silu.launches_a8)
+            if any(y - z != 1 for y, z in zip(a1, a0)):
+                raise AssertionError(f"the a8 kernels did not run at gs {gs}, M {m}: {a0} {a1}")
+    # K16 at groups of 4 (head size 128)
+    gh, hs16, n = 32, 128, 4096
+    x3 = rnd(256, gh, hs16)
+    xq = Q.q8_quantize_weights(rnd(gh * hs16, n, dtype=torch.float32).mul_((gh * hs16) ** -0.5), 4)
+    res = rnd(256, n)
+    n0 = Q.q8_matmul_xheads.launches
+    shape_check("q8_matmul_xheads [gs 4, M 256, 32 heads of 128]", [
+        (Q.q8_matmul_xheads(x3, xq, residual=res),
+         Q.q8_matmul_xheads_plain(x3, xq, residual=res))], q8b)
+    if Q.q8_matmul_xheads.launches != n0 + 1:
+        raise AssertionError("q8_matmul_xheads did not run at gs 4")
+
+
+def phase_dim288_serves() -> dict[str, dict[str, int]]:
+    """A stories15M-shaped model (DIM288, random weights from SEED, a v0
+    file) served through the port's CLI on the card and on the CPU (-m test
+    on the gen corpus, -b 4, greedy) in each DIM288_RUNS mode; the first
+    prefill and three decode steps' logits of the card's kernel path held
+    against the CPU's plain path within the run's tolerance, the share of
+    identical generations printed. Returns each run's card launches."""
+    from hip_llama_tpu_torch.io.checkpoint import random_weights, write_v0
+    from hip_llama_tpu_torch.models import params_from_weights, quantize_params_q4
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "dim288.bin")
+        write_v0(model, DIM288, random_weights(DIM288, seed=SEED))
+        cfg, weights = load_checkpoint(model)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(3, cfg.vocab_size, (4, 16)).astype(np.int32))
+        start, valid = torch.zeros(4, dtype=torch.int32), torch.tensor([16, 9, 1, 16],
+                                                                        dtype=torch.int32)
+        for label, (args, env, path, tol) in DIM288_RUNS.items():
+            outs = {}
+            with knobs(env):
+                for dev in ("cuda", "cpu"):
+                    out = os.path.join(tmp, f"{dev}.out")
+                    reset_launches()
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        rc = port_run.main([
+                            "run", model, "-z", os.path.join(GOLDEN, "tokenizer.bin"),
+                            "-m", "test", "-f", os.path.join(REPO, "assets", "in", "gen_in_8.txt"),
+                            "-o", out, "-b", "4", "-t", "0.0", *args, "--device", dev])
+                    if rc != 0:
+                        raise AssertionError(f"dim 288 {label} --device {dev}: rc {rc}")
+                    if dev == "cuda":
+                        launches[label] = launch_counts()
+                    outs[dev] = read_inputfile(out).prompts
+                # the logits of the kernel path (card) and the plain path (CPU)
+                lg = {}
+                q4 = "--quant" in args
+                dtype = torch.float32 if "float32" in args else torch.bfloat16
+                for dev in ("cuda", "cpu"):
+                    p = (quantize_params_q4(cfg, weights, device=dev) if q4
+                         else params_from_weights(weights, dtype=dtype, device=dev))
+                    cache = init_kv_cache(cfg, 4, dtype=dtype, device=dev,
+                                          quantized="--kv" in args)
+                    pf = make_prefill(cfg)(p, cache, tokens.to(dev), start.to(dev),
+                                           valid.to(dev))[0]
+                    seq = [pf[(torch.arange(16)[None, :] < valid[:, None]).to(dev)]]
+                    step = make_decode_step(cfg)
+                    for i in range(3):
+                        seq.append(step(p, cache, tokens[:, i].to(dev), (valid + i).to(dev))[0])
+                    lg[dev] = [x.float().cpu() for x in seq]
+            err = max(max_err(a, b) for a, b in zip(lg["cuda"], lg["cpu"]))
+            same = sum(a == b for a, b in zip(outs["cuda"], outs["cpu"]))
+            dead = [n for n in path if launches[label][n] == 0]
+            print(f"dim 288 ({label}): card vs CPU logits max_abs_err {err:.4g} (tol {tol}); "
+                  f"{same} of {len(outs['cpu'])} generations identical; launches "
+                  f"{ {n: c for n, c in launches[label].items() if c} }", flush=True)
+            if not all(torch.isfinite(x).all() for x in lg["cuda"]) or err > tol:
+                raise AssertionError(f"dim 288 {label}: card and CPU logits disagree")
+            if dead:
+                raise AssertionError(f"kernels never launched on the dim 288 {label} path: "
+                                     f"{dead}")
+    return launches
 
 
 def profile_window(what: str, n: int, fn) -> None:
@@ -2750,6 +3006,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches["bench"] = phase_bench()
     print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+
+    # phase 13: every shape the JAX package serves
+    t13 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_shape_kernels()
+    torch.cuda.empty_cache()
+    launches_golden.update(phase_dim288_serves())
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
     # each kernel's count from the first serving path that runs it: the 7B
     # serves, then the golden runs (K5 and its int8 branch run only in the

@@ -30,8 +30,10 @@
 // column by byte permutes, and multiplies each by the packed xi word of a
 // row with __dp4a. The tiled path (M > 16) stages 64 x 128 int8 x tiles and
 // 128 x 128 weight tiles (transposed by byte permutes so that each column's
-// k are consecutive) in shared memory and runs mma.sync.m16n8k32.s8 into
-// int32 fragments, rescaling them into fp32 at the end of every group. No
+// k are consecutive) in shared memory and runs mma.sync.m16n8k32.s8 (k16
+// where gs % 32 != 0) into int32 fragments, rescaling them into fp32 at the
+// end of every group. Both paths take any group size that is a multiple of
+// 8. No
 // TPU mechanism is carried over (the transposed (G, gs, M) stash, the 4 MiB
 // group chunks, the 256-row blocks); cp.async/TMA staging and wgmma are
 // later work.
@@ -198,11 +200,32 @@ __global__ void __launch_bounds__(kThreads) a8_gemv_kernel(
 // tiled path: 64 rows x 128 weight columns per CTA (GATE: 64 columns of W1
 // and the same 64 of W3, at off3 columns further in q), 8 warps as 4 along M
 // x 2 along N, each warp 16 rows x 64 weight columns as n8 tiles. Q8: q (K,
-// ldq); INT4: q (K/2, ldq) packed, unpacked row k in plane k >= K/2. gs is
-// 32, 64 or 128, so a k tile holds whole groups and a group whole k32
-// steps. ncols: output columns (N, or H for the gate), a multiple of 16.
+// ldq); INT4: q (K/2, ldq) packed, unpacked row k in plane k >= K/2. ncols:
+// output columns (N, or H for the gate), a multiple of 16; K % 16 == 0.
+//
+// Any group size gs that is a multiple of 8 (and divides K, or K/2 for
+// int4): the int32 sums of a group stay in registers across k steps and
+// k tiles and are rescaled, (f32(sum) * sx) * s, where the group ends.
+// KS = 32 (gs % 32 == 0) steps k by mma.sync.m16n8k32; KS = 16 by
+// m16n8k16, whose k halves of 8 are each in one group (gs % 8 == 0): where
+// a group ends inside a step, the step runs twice, once with each half of
+// the x fragment zeroed, and the first group is rescaled between the two.
+// The int32 sums are exact in any order, so KS and the split change no
+// value. A k tile stages the scales of the groups it touches (at most
+// kTileK / 8 + 1).
 
-template <bool GATE, bool INT4>
+constexpr int kTileGroups = kTileK / 8 + 1;
+
+// d += a (16 x 16, row-major) b (16 x 8, k-major columns) in int32
+__device__ __forceinline__ void mma_s8_k16(int d[4], const uint32_t a[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+template <bool GATE, bool INT4, int KS>
 __global__ void __launch_bounds__(kThreads) a8_mma_kernel(
     const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
     const float* __restrict__ s, int M, int K, int ldq, int ncols, int off3, int gs, Epilogue e,
@@ -213,14 +236,14 @@ __global__ void __launch_bounds__(kThreads) a8_mma_kernel(
   constexpr int NT8 = WN / 8;       // n8 tiles of each weight per warp
   __shared__ __align__(16) uint32_t a_s[kTileM][kTileLd];  // xi rows, 4 k per word
   __shared__ __align__(16) uint32_t b_s[kTileN][kTileLd];  // weight columns, 4 k per word
-  __shared__ float sx_s[kTileM][kTileK / 32];              // the tile's groups' sx
-  __shared__ float s_s[kTileK / 32][kTileN];               // the tile's groups' s
+  __shared__ float sx_s[kTileM][kTileGroups];              // the tile's groups' sx
+  __shared__ float s_s[kTileGroups][kTileN];               // the tile's groups' s
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   const int g = lane >> 2, t = lane & 3;  // the mma fragments' group and thread in group
   const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * WBN;
-  const int G = K / gs, gpt = kTileK / gs;
+  const int G = K / gs;
   // this thread's staging: x row ar, bytes ac..ac+31 of the tile; weight
   // columns (chunk bn of 16) and k rows 4 bq..4 bq+3
   const int ar = tid >> 2, ac = (tid & 3) * 32;
@@ -239,15 +262,22 @@ __global__ void __launch_bounds__(kThreads) a8_mma_kernel(
       for (int j = 0; j < NT8; ++j)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[p][b][j][i] = 0.f;
+  int ai[NB][NT8][4];  // the open group's int32 sums
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ai[b][j][i] = 0;
 
   for (int k0 = 0; k0 < K; k0 += kTileK) {
     {
       uint4 v0 = make_uint4(0u, 0u, 0u, 0u), v1 = v0;
       const int gm = m0 + ar, gk = k0 + ac;
-      if (gm < M && gk < K) {  // K % 32 == 0: all 32 bytes are in
+      if (gm < M) {  // K % 16 == 0: each 16-byte half is all in or all out
         const uint4* src = reinterpret_cast<const uint4*>(xi + (size_t)gm * K + gk);
-        v0 = src[0];
-        v1 = src[1];
+        if (gk < K) v0 = src[0];
+        if (gk + 16 < K) v1 = src[1];
       }
       *reinterpret_cast<uint4*>(&a_s[ar][ac / 4]) = v0;
       *reinterpret_cast<uint4*>(&a_s[ar][ac / 4 + 4]) = v1;
@@ -277,42 +307,25 @@ __global__ void __launch_bounds__(kThreads) a8_mma_kernel(
         for (int j = 0; j < 4; ++j) b_s[16 * bn + 4 * cw + j][bq] = c[j];
       }
     }
-    for (int i = tid; i < gpt * kTileN; i += kThreads) {
+    // the scales of the groups this tile touches
+    const int kend = min(K, k0 + kTileK);
+    const int gfirst = k0 / gs, ngt = (kend - 1) / gs - gfirst + 1;
+    for (int i = tid; i < ngt * kTileN; i += kThreads) {
       const int gi = i / kTileN, c = i % kTileN;
-      const int grp = k0 / gs + gi, col = n0 + c % WBN;
-      s_s[gi][c] = grp < G && col < ncols ? s[(size_t)grp * ldq + col + (GATE ? c / WBN : 0) * off3]
-                                          : 0.f;
+      const int grp = gfirst + gi, col = n0 + c % WBN;
+      s_s[gi][c] = col < ncols ? s[(size_t)grp * ldq + col + (GATE ? c / WBN : 0) * off3] : 0.f;
     }
-    for (int i = tid; i < kTileM * gpt; i += kThreads) {
-      const int r = i / gpt, gi = i % gpt;
-      const int grp = k0 / gs + gi;
-      sx_s[r][gi] = m0 + r < M && grp < G ? sx[(size_t)(m0 + r) * G + grp] : 0.f;
+    for (int i = tid; i < kTileM * ngt; i += kThreads) {
+      const int r = i / ngt, gi = i % ngt;
+      sx_s[r][gi] = m0 + r < M ? sx[(size_t)(m0 + r) * G + gfirst + gi] : 0.f;
     }
     __syncthreads();
 
-    for (int gi = 0; gi < gpt && k0 + gi * gs < K; ++gi) {
-      int ai[NB][NT8][4];
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int j = 0; j < NT8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) ai[b][j][i] = 0;
-      for (int ks = 0; ks < gs; ks += 32) {
-        const int kw = (gi * gs + ks) / 4;
-        const uint32_t af[4] = {a_s[wm * 16 + g][kw + t], a_s[wm * 16 + g + 8][kw + t],
-                                a_s[wm * 16 + g][kw + 4 + t], a_s[wm * 16 + g + 8][kw + 4 + t]};
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-#pragma unroll
-          for (int j = 0; j < NT8; ++j) {
-            const int cb = b * WBN + wn * WN + j * 8 + g;
-            const uint32_t bf[2] = {b_s[cb][kw + t], b_s[cb][kw + 4 + t]};
-            mma_s8(ai[b][j], af, bf);
-          }
-      }
+    // (f32(ai) * sx) * s into the group's plane, then the sums start over
+    auto close_group = [&](int grp) {
+      const int gi = grp - gfirst;
       const float sx0 = sx_s[wm * 16 + g][gi], sx1 = sx_s[wm * 16 + g + 8][gi];
-      const bool hi = INT4 && k0 + gi * gs >= K / 2;  // the group's plane
+      const bool hi = INT4 && grp * gs >= K / 2;  // the group's plane
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         if (p != (int)hi) continue;
@@ -328,6 +341,50 @@ __global__ void __launch_bounds__(kThreads) a8_mma_kernel(
             acc[p][b][j][3] += ((float)ai[b][j][3] * sx1) * s1;
           }
       }
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int j = 0; j < NT8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ai[b][j][i] = 0;
+    };
+
+    for (int k = k0; k < kend; k += KS) {
+      const int kw = (k - k0) / 4;
+      if (KS == 32) {
+        const uint32_t af[4] = {a_s[wm * 16 + g][kw + t], a_s[wm * 16 + g + 8][kw + t],
+                                a_s[wm * 16 + g][kw + 4 + t], a_s[wm * 16 + g + 8][kw + 4 + t]};
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+#pragma unroll
+          for (int j = 0; j < NT8; ++j) {
+            const int cb = b * WBN + wn * WN + j * 8 + g;
+            const uint32_t bf[2] = {b_s[cb][kw + t], b_s[cb][kw + 4 + t]};
+            mma_s8(ai[b][j], af, bf);
+          }
+      } else {
+        const uint32_t a0 = a_s[wm * 16 + g][kw + t], a1 = a_s[wm * 16 + g + 8][kw + t];
+        // the step's product with the x fragment's k .. k + 7 (held by t < 2)
+        // and k + 8 .. k + 15 (t >= 2) kept where lo and hi say
+        auto step = [&](bool lo, bool hi) {
+          const bool use = t < 2 ? lo : hi;
+          const uint32_t af[2] = {use ? a0 : 0u, use ? a1 : 0u};
+#pragma unroll
+          for (int b = 0; b < NB; ++b)
+#pragma unroll
+            for (int j = 0; j < NT8; ++j)
+              mma_s8_k16(ai[b][j], af, b_s[b * WBN + wn * WN + j * 8 + g][kw + t]);
+        };
+        const int glo = k / gs;
+        if (glo == (k + 8) / gs) {
+          step(true, true);
+        } else {  // a group ends at k + 8
+          step(true, false);
+          close_group(glo);
+          step(false, true);
+        }
+      }
+      if ((k + KS) % gs == 0) close_group((k + KS) / gs - 1);
     }
     __syncthreads();
   }
@@ -382,17 +439,18 @@ int launch_gemv(const void* xi, const void* sx, const void* q, const void* s, fl
   return (int)cudaGetLastError();
 }
 
-// the tiled path into out (M, ncols) bf16
+// the tiled path into out (M, ncols) bf16: k steps of 32 where gs % 32 ==
+// 0, else of 16
 template <bool GATE, bool INT4>
 int launch_mma(const void* xi, const void* sx, const void* q, const void* s, int M, int K,
                int ldq, int ncols, int off3, int gs, const Epilogue& e, void* out,
                cudaStream_t st) {
-  if (gs % 32 || kTileK % gs || ncols % 16) return (int)cudaErrorInvalidValue;
+  if (gs < 8 || gs % 8 || K % gs || K % 16 || ncols % 16) return (int)cudaErrorInvalidValue;
   const dim3 grid((ncols + kTileN / (GATE ? 2 : 1) - 1) / (kTileN / (GATE ? 2 : 1)),
                   (M + kTileM - 1) / kTileM);
-  a8_mma_kernel<GATE, INT4><<<grid, kThreads, 0, st>>>((const int8_t*)xi, (const float*)sx,
-                                                       (const int8_t*)q, (const float*)s, M, K,
-                                                       ldq, ncols, off3, gs, e, (bf16*)out);
+  auto kernel = gs % 32 ? a8_mma_kernel<GATE, INT4, 16> : a8_mma_kernel<GATE, INT4, 32>;
+  kernel<<<grid, kThreads, 0, st>>>((const int8_t*)xi, (const float*)sx, (const int8_t*)q,
+                                    (const float*)s, M, K, ldq, ncols, off3, gs, e, (bf16*)out);
   return (int)cudaGetLastError();
 }
 

@@ -79,7 +79,12 @@
 //    Widening in registers instead would convert every tile once per warp
 //    (4x the conversions), and V's transposed fragment has no byte-level
 //    ldmatrix, so one shared-memory round trip per tile is the cheaper way;
-//  - head sizes 16-128 are native; 8 is zero-padded to 16 in shared memory;
+//  - the kernel is compiled for head sizes 8, 16, 32, 48, 64, 96, 128 and
+//    256 (prefill_hs_pad), a head size between two of them runs zero-padded
+//    to the next in shared memory, and 8 runs padded to 16 for k16: the pad
+//    columns of q, K and V are zeros, so the scores and the live outputs are
+//    unchanged. The query heads of a KV head share its K/V tiles side by side
+//    in the CTA's 64 rows, however many there are (PfRows);
 //  - the causal frontier: blocks stop at the CTA's last live query, tiles
 //    at the block's last live column, and a warp skips the products of a
 //    tile that lies past its own rows' frontier. Rows t >= valid[b] are
@@ -108,9 +113,11 @@
 
 #include "common.cuh"
 #include "decode_attention.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using namespace hipllama::mma;
 using hipllama::ContiguousCache;
 using hipllama::DecodeSmem;
 using hipllama::DecodeSmemInt8;
@@ -125,39 +132,49 @@ using hipllama::warp_max;
 using hipllama::warp_sum;
 
 // ---------------------------------------------------------------------------
-// decode: one (KV head, slot) task per CTA (decode_attention.cuh)
+// decode: one (KV head, group of at most kMaxM query heads, slot) task per
+// CTA (decode_attention.cuh); HS is the compiled head size, hs the
+// operands' own. Every kernel here is compiled twice: for hs == HS (PAD
+// false: the head size a constant, so that its masks, strides and copy
+// counts fold away) and for any hs <= HS (PAD true); the launchers pick one.
+// A runtime head size at HS 128 had cost the prefill kernels up to 38%.
 
 // the block's scores in dynamic shared memory after sm
-template <typename T, int HS, typename Cache>
+template <typename T, int HS, typename Cache, bool PAD>
 __global__ void __launch_bounds__(kDecThreads) attention_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
     const Cache cache, const int* __restrict__ pos_arr, const T* __restrict__ k_cur,
     const T* __restrict__ v_cur, T* __restrict__ out, int H, int KVH, float scale, int q_bs,
-    int cur_bs, int bk) {
+    int cur_bs, int bk, int hs) {
   extern __shared__ __align__(16) unsigned char dec_smem[];
   auto& sm = *reinterpret_cast<DecodeSmem<HS, kDecThreads>*>(dec_smem);
   float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmem<HS, kDecThreads>));
-  const int g = blockIdx.x, b = blockIdx.y;
-  decode_attention_task<T, HS, kDecThreads>(sm, p_s, g, b, q, k_cache, v_cache, cache.rows(b, g),
+  const int ng = hipllama::head_groups(H / KVH);
+  const int g = blockIdx.x / ng, m0 = blockIdx.x % ng * kMaxM, b = blockIdx.y;
+  decode_attention_task<T, HS, kDecThreads, decltype(cache.rows(b, g)), PAD>(
+      sm, p_s, g, b, q, k_cache, v_cache, cache.rows(b, g),
                                             pos_arr, k_cur, v_cur, out, H, KVH, scale, q_bs,
-                                            cur_bs, bk);
+                                            cur_bs, bk, hs, m0);
 }
 
 // the int8 cache: the block's scores in dynamic shared memory after sm
-template <typename T, int HS, typename Cache>
+template <typename T, int HS, typename Cache, bool PAD>
 __global__ void __launch_bounds__(kDecThreads) attention_decode_int8_kernel(
     const T* __restrict__ q, const signed char* __restrict__ k_cache,
     const signed char* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const Cache cache, const int* __restrict__ pos_arr,
     const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
-    int H, int KVH, float scale, int q_bs, int cur_bs, int bk) {
+    int H, int KVH, float scale, int q_bs, int cur_bs, int bk, int hs) {
   extern __shared__ __align__(16) unsigned char dec_smem[];
   auto& sm = *reinterpret_cast<DecodeSmemInt8<HS, kDecThreads>*>(dec_smem);
   float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmemInt8<HS, kDecThreads>));
-  const int g = blockIdx.x, b = blockIdx.y;
-  decode_attention_task_int8<T, HS, kDecThreads>(sm, p_s, g, b, q, k_cache, v_cache, k_scale,
+  const int ng = hipllama::head_groups(H / KVH);
+  const int g = blockIdx.x / ng, m0 = blockIdx.x % ng * kMaxM, b = blockIdx.y;
+  decode_attention_task_int8<T, HS, kDecThreads, decltype(cache.rows(b, g)), PAD>(
+      sm, p_s, g, b, q, k_cache, v_cache, k_scale,
                                                  v_scale, cache.rows(b, g), pos_arr, k_cur,
-                                                 v_cur, out, H, KVH, scale, q_bs, cur_bs, bk);
+                                                 v_cur, out, H, KVH, scale, q_bs, cur_bs, bk, hs,
+                                                 m0);
 }
 
 // ---------------------------------------------------------------------------
@@ -182,15 +199,42 @@ constexpr size_t prefill_smem_bytes(int bk) {
                           + 3 * (size_t)kPfRows);               // m, l, alpha
 }
 
+// The (t, head) query rows of one prefill CTA: at most `rows` (64) of them,
+// MC = min(M, rows) query heads of KV head g side by side for BT = rows / MC
+// chunk positions: row r is position t0 + r / MC of head h0 + r % MC. A KV
+// head with more than `rows` query heads takes ceil(M / MC) CTAs along y,
+// each a group of MC heads; rows past BT * MC, and in the last group heads
+// past M, are dead (zero q, never written).
+struct PfRows {
+  int t0, MC, BT, h0, hn;  // hn: the group's live heads
+  __device__ __forceinline__ PfRows(int rows, int M, int g, int gy_in_g, int tile) {
+    MC = min(M, rows);
+    BT = rows / MC;
+    t0 = tile * BT;
+    h0 = g * M + gy_in_g * MC;
+    hn = min(MC, M - gy_in_g * MC);
+  }
+  __device__ __forceinline__ int t(int r) const { return t0 + r / MC; }
+  __device__ __forceinline__ int head(int r) const { return h0 + r % MC; }
+  __device__ __forceinline__ bool live(int r) const { return r < BT * MC && r % MC < hn; }
+};
+
+// the CTAs of one KV head along y: groups of at most `rows` query heads
+__host__ __device__ constexpr int pf_head_groups(int M, int rows) {
+  return (M + rows - 1) / rows;
+}
+
 // The fp32 cache (q, the cache and the output fp32): the probabilities stay
 // unrounded. Cache: the row policy (decode_attention.cuh); S: the rows a
-// slot can hold; bk: the online softmax's block of cache rows.
-template <int HS, typename Cache>
+// slot can hold; bk: the online softmax's block of cache rows; HS: the
+// compiled head size, hs <= HS the operands' (zero-padded in shared memory).
+template <int HS, typename Cache, bool PAD>
 __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k_cache,
     const float* __restrict__ v_cache, const Cache cache, const int* __restrict__ start_arr,
     const int* __restrict__ valid_arr, float* __restrict__ out, int T_len, int H, int KVH, int S,
-    float scale, int bk) {
+    float scale, int bk, int hs_arg) {
+  const int hs = PAD ? hs_arg : HS;
   constexpr int ACC = kPfRows * HS / kPfThreads;       // output entries per thread
   constexpr int SC = kPfRows * kPfTile / kPfThreads;   // score entries per thread and tile
   const int pst = prefill_cols(bk) + 1;                // row stride of the scores
@@ -202,20 +246,21 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
   float* l_s = m_s + kPfRows;
   float* a_s = l_s + kPfRows;
 
-  const int g = blockIdx.y, b = blockIdx.z;
-  const int M = H / KVH;
-  const int BT = kPfRows / M;  // chunk positions per CTA; row r = (t0 + r / M, head g*M + r % M)
-  const int t0 = blockIdx.x * BT;
+  const int M = H / KVH, ng = pf_head_groups(M, kPfRows);
+  const int g = blockIdx.y / ng, b = blockIdx.z;
+  const PfRows rw(kPfRows, M, g, blockIdx.y % ng, blockIdx.x);
+  const int t0 = rw.t0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int start = start_arr[b];
-  const int t_end = min(min(t0 + BT, valid_arr[b]), T_len);  // live rows: t0 .. t_end-1
+  const int t_end = min(min(t0 + rw.BT, valid_arr[b]), T_len);  // live rows: t0 .. t_end-1
   // causal frontier of the tile: the last live query's cache position
   const int q_pos_max = t_end > t0 ? start + t_end - 1 : -1;
 
   for (int i = tid; i < kPfRows * HS; i += kPfThreads) {
-    const int r = i / HS, t = t0 + r / M;
-    q_s[i] = t < T_len ? q[(((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS + i % HS]
-                       : 0.f;
+    const int r = i / HS, dd = i % HS, t = rw.t(r);
+    q_s[i] = rw.live(r) && t < T_len && dd < hs
+                 ? q[(((size_t)b * T_len + t) * H + rw.head(r)) * hs + dd]
+                 : 0.f;
   }
   if (tid < kPfRows) {
     m_s[tid] = -INFINITY;
@@ -239,8 +284,8 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       __syncthreads();  // the previous tile's (or block's) k/v/p are consumed
       for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
         const int c = i / HS, dd = i % HS;
-        const bool in = c0 + c < ncols;
-        kv_s[c * (HS + 1) + dd] = in ? k_cache[block_row(c0 + c) * HS + dd] : 0.f;
+        const bool in = c0 + c < ncols && dd < hs;
+        kv_s[c * (HS + 1) + dd] = in ? k_cache[block_row(c0 + c) * hs + dd] : 0.f;
       }
       __syncthreads();
       // thread owns column c = tid % kPfTile of rows tid / kPfTile + 4i
@@ -248,7 +293,7 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       for (int i = 0; i < SC; ++i) {
         const int e = tid + i * kPfThreads;
         const int r = e / kPfTile, c = e % kPfTile;
-        const int t = t0 + r / M, col = k0 + c0 + c;
+        const int t = rw.t(r), col = k0 + c0 + c;
         const float* qr = q_s + r * HS;
         const float* kr = kv_s + c * (HS + 1);
         float s = 0.f;
@@ -290,7 +335,7 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
       if (c0) __syncthreads();  // the previous V tile is consumed
       for (int i = tid; i < kPfTile * HS; i += kPfThreads) {
         const int c = i / HS, dd = i % HS;
-        kv_s[i] = c0 + c < ncols ? v_cache[block_row(c0 + c) * HS + dd] : 0.f;
+        kv_s[i] = c0 + c < ncols && dd < hs ? v_cache[block_row(c0 + c) * hs + dd] : 0.f;
       }
       __syncthreads();
 #pragma unroll
@@ -310,11 +355,10 @@ __global__ void __launch_bounds__(kPfThreads) attention_prefill_kernel(
   for (int i = 0; i < ACC; ++i) {
     const int e = tid + i * kPfThreads;
     const int r = e / HS, dd = e % HS;
-    const int t = t0 + r / M;
-    if (t < T_len) {
+    const int t = rw.t(r);
+    if (t < T_len && rw.live(r) && dd < hs) {
       const float l = l_s[r];
-      out[(((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS + dd] =
-          acc[i] / (l == 0.f ? 1.f : l);
+      out[(((size_t)b * T_len + t) * H + rw.head(r)) * hs + dd] = acc[i] / (l == 0.f ? 1.f : l);
     }
   }
 }
@@ -329,81 +373,23 @@ constexpr int kTcStages = 2;     // the ring of K/V tiles
 
 // shared memory of the tensor-core prefill (ops/attention.py::
 // prefill_smem_bytes mirrors it): a ring of kTcStages stages, each a K and
-// a V tile as copied (bf16 rows of HSP, or int8 rows of HS bytes, then the
-// two tiles' row scales), and on int8 the widened bf16 K and V tiles
+// a V tile as copied (bf16 rows of CPR chunks, or int8 rows of HS bytes,
+// then the two tiles' row scales), and on int8 the widened bf16 K and V
+// tiles. HS is the compiled head size; HSP, HS rounded up to 16, is the
+// width the products run at (k16 steps of QK, n8 pairs of PV); a bf16 row
+// holds CPR, a power of two, 16-byte chunks for the swizzle (48: 6 used of
+// 8, 96: 12 of 16)
 template <typename C, int HS>
 struct TcLayout {
   static constexpr bool kInt8 = std::is_same<C, signed char>::value;
-  static constexpr int HSP = HS < 16 ? 16 : HS;  // head size padded for k16
-  static constexpr int CPR = HSP / 8;             // 16-byte chunks of a bf16 row
-  static constexpr int WIDE = kTcTile * HSP * 2;  // a bf16 tile
+  static constexpr int HSP = (HS + 15) / 16 * 16;  // head size padded for k16
+  static constexpr int CPR = HSP <= 16 ? 2 : HSP <= 32 ? 4 : HSP <= 64 ? 8 : HSP <= 128 ? 16 : 32;
+  static constexpr int WIDE = kTcTile * CPR * 16;  // a bf16 tile
   static constexpr int RAW = kInt8 ? kTcTile * HS : WIDE;
   static constexpr int SCALES = kInt8 ? 2 * kTcTile * 4 : 0;
   static constexpr int STAGE = 2 * RAW + SCALES;
   static constexpr int BYTES = kTcStages * STAGE + (kInt8 ? 2 * WIDE : 0);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte chunk c of row r of a bf16 tile with CPR chunks a row, XOR-swizzled
-// so that 8 consecutive rows at one chunk (an ldmatrix phase) hit 8
-// different 16-byte bank groups
-template <int CPR>
-__device__ __forceinline__ int tile_chunk(int r, int c) {
-  if (CPR >= 8) return r * CPR + (c ^ (r & 7));
-  if (CPR == 4) return r * CPR + (c ^ ((r >> 1) & 3));
-  return r * CPR + (c ^ ((r >> 2) & 1));
-}
-
-// cp.async of `bytes` (16, 8 or 4); zeros where !live (src-size 0)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool live) {
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-                 "r"(live ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
-                 "n"(BYTES), "r"(live ? BYTES : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t a, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t a, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(a));
-}
-
-// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), fp32
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16(a) low, bf16(b) high
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 // two consecutive q elements as a bf16 pair (q rounded to bf16)
 __device__ __forceinline__ uint32_t q_pair(const __nv_bfloat16* p) {
@@ -462,12 +448,13 @@ struct TcSched {
 // T: q and output (bf16 for a bf16 cache; fp32 or bf16 for int8); C: the
 // cache (bf16, or int8 with k_scale / v_scale); Cache: the row policy
 // (decode_attention.cuh); S: the rows a slot can hold; bk: the JAX block
-template <typename T, typename C, int HS, typename Cache>
+template <typename T, typename C, int HS, typename Cache, bool PAD>
 __global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
     const T* __restrict__ q, const C* __restrict__ k_cache, const C* __restrict__ v_cache,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale, const Cache cache,
     const int* __restrict__ start_arr, const int* __restrict__ valid_arr,
-    T* __restrict__ out, int T_len, int H, int KVH, int S, float scale, int bk) {
+    T* __restrict__ out, int T_len, int H, int KVH, int S, float scale, int bk, int hs_arg) {
+  const int hs = PAD ? hs_arg : HS;
   using Lay = TcLayout<C, HS>;
   constexpr bool kInt8 = Lay::kInt8;
   constexpr int HSP = Lay::HSP, CPR = Lay::CPR;
@@ -475,17 +462,17 @@ __global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
   extern __shared__ __align__(128) unsigned char tc_smem[];
   const uint32_t smem0 = smem_u32(tc_smem);
 
-  const int g = blockIdx.y, b = blockIdx.z;
-  const int M = H / KVH;
-  const int BT = kTcRows / M;  // row r = (t0 + r / M, head g * M + r % M)
-  const int t0 = blockIdx.x * BT;
+  const int M = H / KVH, ng = pf_head_groups(M, kTcRows);
+  const int g = blockIdx.y / ng, b = blockIdx.z;
+  const PfRows rw(kTcRows, M, g, blockIdx.y % ng, blockIdx.x);
+  const int t0 = rw.t0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qd = lane & 3;  // the thread's column pair in a fragment
   const int start = start_arr[b];
-  const int t_end = min(min(t0 + BT, valid_arr[b]), T_len);  // live rows: t0 .. t_end-1
+  const int t_end = min(min(t0 + rw.BT, valid_arr[b]), T_len);  // live rows: t0 .. t_end-1
   const int q_pos_max = t_end > t0 ? start + t_end - 1 : -1;
 
-  if (HS < 16) {  // the pad columns stay zero: the copies write data chunks only
+  if (hs < HSP) {  // the pad columns stay zero: the copies write data chunks only
     for (int i = tid * 16; i < Lay::BYTES; i += kTcThreads * 16)
       *reinterpret_cast<uint4*>(tc_smem + i) = make_uint4(0u, 0u, 0u, 0u);
     __syncthreads();
@@ -496,12 +483,12 @@ __global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
   int qpos[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int t = t0 + (rg + 8 * h) / M;
-    qpos[h] = t < t_end ? start + t : -1;
+    const int r = rg + 8 * h, t = rw.t(r);
+    qpos[h] = t < t_end && rw.live(r) ? start + t : -1;
   }
   // the warp's frontier: its last live row's position
-  const int tw_last = min(t0 + (warp * 16 + 15) / M, t_end - 1);
-  const int wpos = t0 + warp * 16 / M < t_end ? start + tw_last : -1;
+  const int tw_last = min(rw.t(warp * 16 + 15), t_end - 1);
+  const int wpos = rw.t(warp * 16) < t_end ? start + tw_last : -1;
 
   // q as the A operand, bf16: slab kk, register e = (row rg + 8 (e & 1),
   // columns 16 kk + 8 (e >> 1) + 2 qd, +1)
@@ -511,9 +498,9 @@ __global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = rg + 8 * (e & 1), col = 16 * kk + 8 * (e >> 1) + 2 * qd;
-      const int t = t0 + r / M;
-      qa[kk][e] = t < T_len && col < HS
-                      ? q_pair(q + (((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS + col)
+      const int t = rw.t(r);
+      qa[kk][e] = t < T_len && col < hs && rw.live(r)
+                      ? q_pair(q + (((size_t)b * T_len + t) * H + rw.head(r)) * hs + col)
                       : 0u;
     }
 
@@ -539,20 +526,26 @@ __global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
       const C* src = plane == 0 ? k_cache : v_cache;
       const uint32_t dst = base + plane * Lay::RAW;
       if (kInt8) {
-        constexpr int CB = HS < 16 ? HS : 16;  // bytes a copy
-        constexpr int CH = HS / CB;            // copies a row
-        for (int i = tid; i < kTcTile * CH; i += kTcThreads) {
-          const int r = i / CH, c = i % CH;
+        // rows of hs bytes at a stride of HS: 16-byte copies where hs % 16
+        // == 0, else 8-byte ones
+        const int ch = hs % 16 ? hs / 8 : hs / 16;  // copies a row
+        for (int i = tid; i < kTcTile * ch; i += kTcThreads) {
+          const int r = i / ch, c = i % ch;
           const bool live = c0 + r < ncols;
-          const C* p = live ? src + block_row(c0 + r) * HS + c * CB : src;
-          cp_async<CB>(dst + r * HS + c * CB, p, live);
+          if (hs % 16) {
+            const C* p = live ? src + block_row(c0 + r) * hs + c * 8 : src;
+            cp_async<8>(dst + r * HS + c * 8, p, live);
+          } else {
+            const C* p = live ? src + block_row(c0 + r) * hs + c * 16 : src;
+            cp_async<16>(dst + r * HS + c * 16, p, live);
+          }
         }
       } else {
-        constexpr int CH = HS / 8;  // data chunks a row (HS 8: one, beside the pad)
-        for (int i = tid; i < kTcTile * CH; i += kTcThreads) {
-          const int r = i / CH, c = i % CH;
+        const int ch = hs / 8;  // data chunks a row (beside the pad chunks)
+        for (int i = tid; i < kTcTile * ch; i += kTcThreads) {
+          const int r = i / ch, c = i % ch;
           const bool live = c0 + r < ncols;
-          const C* p = live ? src + block_row(c0 + r) * HS + c * 8 : src;
+          const C* p = live ? src + block_row(c0 + r) * hs + c * 8 : src;
           cp_async<16>(dst + tile_chunk<CPR>(r, c) * 16, p, live);
         }
       }
@@ -570,10 +563,10 @@ __global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
   auto widen = [&](int st, bool with_v) {
     const unsigned char* raw = tc_smem + st * Lay::STAGE;
     unsigned char* wide = tc_smem + kTcStages * Lay::STAGE;
-    constexpr int CH = HS / 8;  // 8 int8 values -> one 16-byte bf16 chunk
+    const int ch = hs / 8;  // 8 int8 values -> one 16-byte bf16 chunk
     for (int plane = 0; plane < (with_v ? 2 : 1); ++plane)
-      for (int i = tid; i < kTcTile * CH; i += kTcThreads) {
-        const int r = i / CH, c = i % CH;
+      for (int i = tid; i < kTcTile * ch; i += kTcThreads) {
+        const int r = i / ch, c = i % ch;
         const uint2 w = *reinterpret_cast<const uint2*>(raw + plane * Lay::RAW + r * HS + c * 8);
         const uint2 lo = widen4(w.x), hi = widen4(w.y);
         *reinterpret_cast<uint4*>(wide + plane * Lay::WIDE + tile_chunk<CPR>(r, c) * 16) =
@@ -700,13 +693,13 @@ __global__ void __launch_bounds__(kTcThreads) attention_prefill_mma_kernel(
     lt += __shfl_xor_sync(0xffffffffu, lt, 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     if (lt == 0.f) lt = 1.f;
-    const int r = rg + 8 * h, t = t0 + r / M;
-    if (t < T_len) {
-      T* orow = out + (((size_t)b * T_len + t) * H + (size_t)g * M + r % M) * HS;
+    const int r = rg + 8 * h, t = rw.t(r);
+    if (t < T_len && rw.live(r)) {
+      T* orow = out + (((size_t)b * T_len + t) * H + rw.head(r)) * hs;
 #pragma unroll
       for (int j = 0; j < 2 * NK; ++j) {
         const int d = 8 * j + 2 * qd;
-        if (d < HS) store_pair(orow + d, o[j][2 * h] / lt, o[j][2 * h + 1] / lt);
+        if (d < hs) store_pair(orow + d, o[j][2 * h] / lt, o[j][2 * h + 1] / lt);
       }
     }
   }
@@ -723,51 +716,63 @@ int allow_smem(K kernel, size_t smem) {
                                    (int)smem);
 }
 
-// the decode kernel with M x bk scores in dynamic shared memory
+// the decode kernel with M x bk scores in dynamic shared memory (M: the
+// query heads of a task, at most kMaxM); one task per (KV head, head group)
+// along x
 template <typename T, int HS, typename Cache>
 int launch_decode(const void* q, const void* k, const void* v, const Cache& cache,
                   const void* pos, const void* kc, const void* vc, void* out, int B, int H,
-                  int KVH, float scale, int q_bs, int cur_bs, int bk, cudaStream_t st) {
-  const size_t smem = decode_smem<HS, kDecThreads>(H / KVH, bk);
-  auto kernel = attention_decode_kernel<T, HS, Cache>;
+                  int KVH, float scale, int q_bs, int cur_bs, int bk, int hs, cudaStream_t st) {
+  const int M = H / KVH;
+  const size_t smem = decode_smem<HS, kDecThreads>(M < kMaxM ? M : kMaxM, bk);
+  auto kernel = hs == HS ? attention_decode_kernel<T, HS, Cache, false>
+                         : attention_decode_kernel<T, HS, Cache, true>;
   if (const int e = allow_smem(kernel, smem)) return e;
-  kernel<<<dim3(KVH, B), kDecThreads, smem, st>>>(
+  kernel<<<dim3(KVH * hipllama::head_groups(M), B), kDecThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, cache, (const int*)pos, (const T*)kc,
-      (const T*)vc, (T*)out, H, KVH, scale, q_bs, cur_bs, bk);
+      (const T*)vc, (T*)out, H, KVH, scale, q_bs, cur_bs, bk, hs);
   return (int)cudaGetLastError();
 }
 
-// the int8 decode kernel with M x bk scores in dynamic shared memory
+// the int8 decode kernel, as launch_decode
 template <typename T, int HS, typename Cache>
 int launch_decode_int8(const void* q, const void* k, const void* v, const void* ks,
                        const void* vs, const Cache& cache, const void* pos, const void* kc,
                        const void* vc, void* out, int B, int H, int KVH, float scale, int q_bs,
-                       int cur_bs, int bk, cudaStream_t st) {
-  const size_t smem = decode_int8_smem<HS, kDecThreads>(H / KVH, bk);
-  auto kernel = attention_decode_int8_kernel<T, HS, Cache>;
+                       int cur_bs, int bk, int hs, cudaStream_t st) {
+  const int M = H / KVH;
+  const size_t smem = decode_int8_smem<HS, kDecThreads>(M < kMaxM ? M : kMaxM, bk);
+  auto kernel = hs == HS ? attention_decode_int8_kernel<T, HS, Cache, false>
+                         : attention_decode_int8_kernel<T, HS, Cache, true>;
   if (const int e = allow_smem(kernel, smem)) return e;
-  kernel<<<dim3(KVH, B), kDecThreads, smem, st>>>(
+  kernel<<<dim3(KVH * hipllama::head_groups(M), B), kDecThreads, smem, st>>>(
       (const T*)q, (const signed char*)k, (const signed char*)v, (const float*)ks,
       (const float*)vs, cache, (const int*)pos, (const T*)kc, (const T*)vc, (T*)out, H, KVH,
-      scale, q_bs, cur_bs, bk);
+      scale, q_bs, cur_bs, bk, hs);
   return (int)cudaGetLastError();
 }
 
+// the prefill grid: chunk-position tiles along x, (KV head, head group) along
+// y, slots along z (PfRows)
+dim3 prefill_grid(int rows, int B, int T_len, int H, int KVH) {
+  const int M = H / KVH, mc = M < rows ? M : rows, bt = rows / mc;
+  return dim3((T_len + bt - 1) / bt, KVH * pf_head_groups(M, rows), B);
+}
+
 // the fp32 cache: the CUDA-core kernel, the block's scores in shared memory
-// (T: float, for HIPLLAMA_HS_SWITCH)
+// (T: float, for HIPLLAMA_PREFILL_HS_SWITCH)
 template <typename T, int HS, typename Cache>
 int launch_prefill_f32(const void* q, const void* k, const void* v, const Cache& cache,
                        const void* start, const void* valid, void* out, int B, int T_len, int H,
-                       int KVH, int S, float scale, int bk, cudaStream_t st) {
+                       int KVH, int S, float scale, int bk, int hs, cudaStream_t st) {
   static_assert(std::is_same<T, float>::value, "the CUDA-core prefill takes fp32");
   const size_t smem = prefill_smem_bytes<HS>(bk);
-  auto kernel = attention_prefill_kernel<HS, Cache>;
+  auto kernel = hs == HS ? attention_prefill_kernel<HS, Cache, false>
+                         : attention_prefill_kernel<HS, Cache, true>;
   if (const int e = allow_smem(kernel, smem)) return e;
-  const int bt = kPfRows / (H / KVH);
-  const dim3 grid((T_len + bt - 1) / bt, KVH, B);
-  kernel<<<grid, kPfThreads, smem, st>>>((const float*)q, (const float*)k, (const float*)v,
-                                         cache, (const int*)start, (const int*)valid,
-                                         (float*)out, T_len, H, KVH, S, scale, bk);
+  kernel<<<prefill_grid(kPfRows, B, T_len, H, KVH), kPfThreads, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, cache, (const int*)start,
+      (const int*)valid, (float*)out, T_len, H, KVH, S, scale, bk, hs);
   return (int)cudaGetLastError();
 }
 
@@ -776,25 +781,50 @@ template <typename T, typename C, int HS, typename Cache>
 int launch_prefill_mma(const void* q, const void* k, const void* v, const void* ks,
                        const void* vs, const Cache& cache, const void* start, const void* valid,
                        void* out, int B, int T_len, int H, int KVH, int S, float scale, int bk,
-                       cudaStream_t st) {
+                       int hs, cudaStream_t st) {
   const size_t smem = TcLayout<C, HS>::BYTES;
-  auto kernel = attention_prefill_mma_kernel<T, C, HS, Cache>;
+  auto kernel = hs == HS ? attention_prefill_mma_kernel<T, C, HS, Cache, false>
+                         : attention_prefill_mma_kernel<T, C, HS, Cache, true>;
   if (const int e = allow_smem(kernel, smem)) return e;
-  const int bt = kTcRows / (H / KVH);
-  const dim3 grid((T_len + bt - 1) / bt, KVH, B);
-  kernel<<<grid, kTcThreads, smem, st>>>(
+  kernel<<<prefill_grid(kTcRows, B, T_len, H, KVH), kTcThreads, smem, st>>>(
       (const T*)q, (const C*)k, (const C*)v, (const float*)ks, (const float*)vs, cache,
-      (const int*)start, (const int*)valid, (T*)out, T_len, H, KVH, S, scale, bk);
+      (const int*)start, (const int*)valid, (T*)out, T_len, H, KVH, S, scale, bk, hs);
   return (int)cudaGetLastError();
+}
+
+// the compiled head size of the prefill kernels that serves head size hs (a
+// multiple of 8 up to 256): the next of 8, 16, 32, 48, 64, 96, 128, 256.
+// 48 and 96 are compiled because padding them to 64 and 128 would add a
+// third to the tensor cores' work; the others pad by at most 3/8 of a size
+// no real model uses
+constexpr int prefill_hs_pad(int hs) {
+  return hs < 8 || hs % 8 || hs > 256 ? 0 : hs <= 8 ? 8 : hs <= 16 ? 16 : hs <= 32 ? 32
+         : hs <= 48 ? 48 : hs <= 64 ? 64 : hs <= 96 ? 96 : hs <= 128 ? 128 : 256;
 }
 
 }  // namespace
 
+// dispatch on the head size hs: CALL(T, N) with N = prefill_hs_pad(hs)
+#define HIPLLAMA_PREFILL_HS_SWITCH(hs, T, CALL)             \
+  switch (prefill_hs_pad(hs)) {                             \
+    case 8: return CALL(T, 8);                              \
+    case 16: return CALL(T, 16);                            \
+    case 32: return CALL(T, 32);                            \
+    case 48: return CALL(T, 48);                            \
+    case 64: return CALL(T, 64);                            \
+    case 96: return CALL(T, 96);                            \
+    case 128: return CALL(T, 128);                          \
+    case 256: return CALL(T, 256);                          \
+    default: return (int)cudaErrorInvalidValue;             \
+  }
+
 HIPLLAMA_EXPORT_ERROR_STRING
 
-// dtype: 0 = float, 1 = bfloat16; HS in {8, 16, 32, 64, 128}; H / KVH <= 8;
-// bk >= 1 cache rows per online-softmax block, each block's M x bk scores
-// held in shared memory (the wrapper keeps that within the card's limit).
+// dtype: 0 = float, 1 = bfloat16; HS any multiple of 8 up to 256 (the task
+// compiled for decode_hs_pad(HS) runs it); any H / KVH (tasks of at most
+// kMaxM query heads); bk >= 1 cache rows per online-softmax block, each
+// block's min(H / KVH, kMaxM) x bk scores held in shared memory (the wrapper
+// keeps that within the card's limit).
 // q_bs, cur_bs: the slot strides, in elements, of q (B, H, HS) and of k_cur
 // and v_cur (B, KVH, HS), whose heads are contiguous: H * HS and KVH * HS
 // for packed operands, the QKV row's width where q, k_cur and v_cur are
@@ -805,18 +835,18 @@ extern "C" int attention_decode(const void* q, const void* k_cache, const void* 
                                 void* out, int B, int H, int KVH, int S, int HS, int L,
                                 int layer, int q_bs, int cur_bs, int dtype, int bk,
                                 void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1 || q_bs < H * HS || cur_bs < KVH * HS)
+  if (H % KVH || bk < 1 || q_bs < H * HS || cur_bs < KVH * HS)
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                       \
   launch_decode<T, N>(q, k_cache, v_cache, cache, pos, k_cur, v_cur, out, B, H, KVH, scale, \
-                      q_bs, cur_bs, bk, st)
+                      q_bs, cur_bs, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_DECODE_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_DECODE_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -830,7 +860,7 @@ extern "C" int attention_decode_fused(const void* qkv, const void* k_cache, cons
                                       const void* pos, void* out, int B, int H, int KVH, int S,
                                       int HS, int L, int layer, int dtype, int bk,
                                       void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = H + 2 * KVH;
@@ -841,11 +871,11 @@ extern "C" int attention_decode_fused(const void* qkv, const void* k_cache, cons
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                     \
   launch_decode<T, N>(qkv, k_cache, v_cache, cache, pos, kc, vc, out, B, H, KVH, scale, \
-                      nt * HS, nt * HS, bk, st)
+                      nt * HS, nt * HS, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_DECODE_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_DECODE_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -859,18 +889,18 @@ extern "C" int attention_decode_int8(const void* q, const void* k_cache, const v
                                      const void* k_cur, const void* v_cur, void* out, int B,
                                      int H, int KVH, int S, int HS, int L, int layer, int q_bs,
                                      int cur_bs, int dtype, int bk, void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1 || q_bs < H * HS || cur_bs < KVH * HS)
+  if (H % KVH || bk < 1 || q_bs < H * HS || cur_bs < KVH * HS)
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                        \
   launch_decode_int8<T, N>(q, k_cache, v_cache, k_scale, v_scale, cache, pos, k_cur, v_cur, \
-                           out, B, H, KVH, scale, q_bs, cur_bs, bk, st)
+                           out, B, H, KVH, scale, q_bs, cur_bs, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_DECODE_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_DECODE_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -879,7 +909,7 @@ extern "C" int attention_decode_fused_int8(const void* qkv, const void* k_cache,
                                            const void* v_scale, const void* pos, void* out,
                                            int B, int H, int KVH, int S, int HS, int L,
                                            int layer, int dtype, int bk, void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nt = H + 2 * KVH;
@@ -890,17 +920,18 @@ extern "C" int attention_decode_fused_int8(const void* qkv, const void* k_cache,
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                            \
   launch_decode_int8<T, N>(qkv, k_cache, v_cache, k_scale, v_scale, cache, pos, kc, vc, out, B, \
-                           H, KVH, scale, nt * HS, nt * HS, bk, st)
+                           H, KVH, scale, nt * HS, nt * HS, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_DECODE_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_DECODE_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
 // The three prefill routes, chosen by the wrapper from the cache dtype.
-// HS in {8, 16, 32, 64, 128}; 64 % (H / KVH) == 0; bk >= 1 cache rows per
-// online-softmax block.
+// HS any multiple of 8 up to 256 (the kernel compiled for prefill_hs_pad(HS)
+// runs it); any H / KVH (PfRows); bk >= 1 cache rows per online-softmax
+// block.
 //
 // attention_prefill: a bf16 cache (dtype must be 1 = bfloat16, q and out
 // bf16), on the tensor cores; any bk.
@@ -908,14 +939,14 @@ extern "C" int attention_prefill(const void* q, const void* k_cache, const void*
                                  const void* start, const void* valid, void* out, int B,
                                  int T_len, int H, int KVH, int S, int HS, int L, int layer,
                                  int dtype, int bk, void* stream) {
-  if (H % KVH || kTcRows % (H / KVH) || bk < 1 || dtype != 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1 || dtype != 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                        \
   launch_prefill_mma<T, T, N>(q, k_cache, v_cache, nullptr, nullptr, cache, start, valid, out, \
-                              B, T_len, H, KVH, S, scale, bk, st)
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+                              B, T_len, H, KVH, S, scale, bk, HS, st)
+  HIPLLAMA_PREFILL_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -926,14 +957,14 @@ extern "C" int attention_prefill_f32(const void* q, const void* k_cache, const v
                                      const void* start, const void* valid, void* out, int B,
                                      int T_len, int H, int KVH, int S, int HS, int L, int layer,
                                      int dtype, int bk, void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || dtype != 0) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1 || dtype != 0) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                       \
   launch_prefill_f32<T, N>(q, k_cache, v_cache, cache, start, valid, out, B, T_len, H, KVH, \
-                           S, scale, bk, st)
-  HIPLLAMA_HS_SWITCH(HS, float, CALL)
+                           S, scale, bk, HS, st)
+  HIPLLAMA_PREFILL_HS_SWITCH(HS, float, CALL)
 #undef CALL
 }
 
@@ -945,17 +976,17 @@ extern "C" int attention_prefill_int8(const void* q, const void* k_cache, const 
                                       const void* start, const void* valid, void* out, int B,
                                       int T_len, int H, int KVH, int S, int HS, int L,
                                       int layer, int dtype, int bk, void* stream) {
-  if (H % KVH || kTcRows % (H / KVH) || bk < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ContiguousCache cache{L, KVH, S, layer};
 #define CALL(T, N)                                                                           \
   launch_prefill_mma<T, signed char, N>(q, k_cache, v_cache, k_scale, v_scale, cache, start,  \
-                                        valid, out, B, T_len, H, KVH, S, scale, bk, st)
+                                        valid, out, B, T_len, H, KVH, S, scale, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_PREFILL_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_PREFILL_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -970,17 +1001,17 @@ extern "C" int attention_decode_paged(const void* q, const void* k_pages, const 
                                       const void* v_cur, void* out, int B, int H, int KVH, int P,
                                       int PS, int max_pages, int HS, int layer, int dtype, int bk,
                                       void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
 #define CALL(T, N)                                                                          \
   launch_decode<T, N>(q, k_pages, v_pages, cache, pos, k_cur, v_cur, out, B, H, KVH, scale, \
-                      H * HS, KVH * HS, bk, st)
+                      H * HS, KVH * HS, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_DECODE_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_DECODE_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -991,17 +1022,17 @@ extern "C" int attention_decode_paged_int8(const void* q, const void* k_pages,
                                            void* out, int B, int H, int KVH, int P, int PS,
                                            int max_pages, int HS, int layer, int dtype, int bk,
                                            void* stream) {
-  if (H % KVH || H / KVH > kMaxM || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
 #define CALL(T, N)                                                                            \
   launch_decode_int8<T, N>(q, k_pages, v_pages, k_scale, v_scale, cache, pos, k_cur, v_cur, out, \
-                           B, H, KVH, scale, H * HS, KVH * HS, bk, st)
+                           B, H, KVH, scale, H * HS, KVH * HS, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_DECODE_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_DECODE_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -1012,7 +1043,7 @@ extern "C" int attention_prefill_paged(const void* q, const void* k_pages, const
                                        void* out, int B, int T_len, int H, int KVH, int P, int PS,
                                        int max_pages, int HS, int layer, int dtype, int bk,
                                        void* stream) {
-  if (H % KVH || kTcRows % (H / KVH) || bk < 1 || PS < 1 || dtype != 1)
+  if (H % KVH || bk < 1 || PS < 1 || dtype != 1)
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1020,8 +1051,8 @@ extern "C" int attention_prefill_paged(const void* q, const void* k_pages, const
   const int S = max_pages * PS;
 #define CALL(T, N)                                                                          \
   launch_prefill_mma<T, T, N>(q, k_pages, v_pages, nullptr, nullptr, cache, start, valid, out, \
-                              B, T_len, H, KVH, S, scale, bk, st)
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+                              B, T_len, H, KVH, S, scale, bk, HS, st)
+  HIPLLAMA_PREFILL_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }
 
@@ -1031,7 +1062,7 @@ extern "C" int attention_prefill_paged_f32(const void* q, const void* k_pages,
                                            int B, int T_len, int H, int KVH, int P, int PS,
                                            int max_pages, int HS, int layer, int dtype, int bk,
                                            void* stream) {
-  if (H % KVH || kPfRows % (H / KVH) || bk < 1 || PS < 1 || dtype != 0)
+  if (H % KVH || bk < 1 || PS < 1 || dtype != 0)
     return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1039,8 +1070,8 @@ extern "C" int attention_prefill_paged_f32(const void* q, const void* k_pages,
   const int S = max_pages * PS;
 #define CALL(T, N)                                                                          \
   launch_prefill_f32<T, N>(q, k_pages, v_pages, cache, start, valid, out, B, T_len, H, KVH, S, \
-                           scale, bk, st)
-  HIPLLAMA_HS_SWITCH(HS, float, CALL)
+                           scale, bk, HS, st)
+  HIPLLAMA_PREFILL_HS_SWITCH(HS, float, CALL)
 #undef CALL
 }
 
@@ -1051,17 +1082,17 @@ extern "C" int attention_prefill_paged_int8(const void* q, const void* k_pages,
                                             int B, int T_len, int H, int KVH, int P, int PS,
                                             int max_pages, int HS, int layer, int dtype, int bk,
                                             void* stream) {
-  if (H % KVH || kTcRows % (H / KVH) || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
+  if (H % KVH || bk < 1 || PS < 1) return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)HS));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const PagedCache cache{(const int*)table, max_pages, KVH, P, PS, layer};
   const int S = max_pages * PS;
 #define CALL(T, N)                                                                             \
   launch_prefill_mma<T, signed char, N>(q, k_pages, v_pages, k_scale, v_scale, cache, start,    \
-                                        valid, out, B, T_len, H, KVH, S, scale, bk, st)
+                                        valid, out, B, T_len, H, KVH, S, scale, bk, HS, st)
   if (dtype == 0) {
-    HIPLLAMA_HS_SWITCH(HS, float, CALL)
+    HIPLLAMA_PREFILL_HS_SWITCH(HS, float, CALL)
   }
-  HIPLLAMA_HS_SWITCH(HS, __nv_bfloat16, CALL)
+  HIPLLAMA_PREFILL_HS_SWITCH(HS, __nv_bfloat16, CALL)
 #undef CALL
 }

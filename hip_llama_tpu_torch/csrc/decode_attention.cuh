@@ -21,6 +21,18 @@
 // projection. The kernels run it on CTAs of kDecThreads threads, so that
 // the decode kernels and the fused layer sum (and round) alike.
 //
+// Head sizes: the task is compiled for HS in {8, 16, 32, 64, 128, 256} and
+// takes any head size hs <= HS that is a multiple of 8 (decode_hs_pad picks
+// HS): the q rows are zero past hs and the lanes past hs load nothing, so a
+// padded score sums the same terms and the padded output dims are not
+// written. PAD false compiles the task for hs == HS, whose masks and
+// strides then fold away. Decode is bound by the bytes of the live K/V rows, which padding
+// does not grow (rows are addressed at their own stride hs); it costs idle
+// lanes. Query heads per KV head: a task takes at most kMaxM of the M heads
+// that share KV head g, heads m0 .. m0 + min(kMaxM, M - m0) - 1 (the
+// kernels launch ceil(M / kMaxM) tasks per KV head; each head's arithmetic
+// is its own, so the split changes no value).
+//
 // Where a row lives is the task's row policy, a functor from the row's
 // position r to its index in the cache planes (in rows of HS elements; the
 // scale planes hold one fp32 per row at the same index): ContiguousRows for
@@ -40,8 +52,17 @@
 namespace hipllama {
 
 constexpr int kDecTile = 64;     // cache rows per tile
-constexpr int kMaxM = 8;         // query heads per KV head (kv_mul)
+constexpr int kMaxM = 8;         // query heads of one task (of one KV head)
 constexpr int kDecThreads = 256; // threads per task (NT) in the kernels
+
+// the compiled head size that serves head size hs (a multiple of 8 up to
+// 256): the next power of two; 0 where none does
+__host__ __device__ constexpr int decode_hs_pad(int hs) {
+  return hs < 8 || hs % 8 || hs > 256 ? 0 : hs <= 8 ? 8 : hs <= 16 ? 16 : hs <= 32 ? 32
+         : hs <= 64 ? 64 : hs <= 128 ? 128 : 256;
+}
+// the tasks of a KV head: groups of at most kMaxM of its M query heads
+__host__ __device__ constexpr int head_groups(int M) { return (M + kMaxM - 1) / kMaxM; }
 
 // row r of one (slot, KV head) of the dense cache: rows in order
 struct ContiguousRows {
@@ -110,26 +131,33 @@ struct DecodeSmem {
   float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM];
 };
 
-template <typename T, int HS, int NT, typename Rows>
+template <typename T, int HS, int NT, typename Rows, bool PAD = true>
 __device__ __forceinline__ void decode_attention_task(
     DecodeSmem<HS, NT>& sm, float* p_s, int g, int b, const T* q, const T* __restrict__ k_cache,
     const T* __restrict__ v_cache, const Rows rows, const int* pos_arr, const T* k_cur,
     const T* v_cur, T* __restrict__ out, int H, int KVH, float scale, int q_bs, int cur_bs,
-    int bk) {
+    int bk, int hs_arg, int m0) {
+  const int hs = PAD ? hs_arg : HS;
   constexpr int kWarps = NT / 32;
-  constexpr int LPR = HS / 4;   // lanes per K row in QK (4 elements each)
-  constexpr int RPW = 32 / LPR; // K rows per warp per pass
-  constexpr int RG = NT / HS;   // row groups in PV (each thread owns one dim)
+  constexpr int LPR = HS / 4 < 32 ? HS / 4 : 32;  // lanes per K row in QK
+  constexpr int EPL = HS / LPR;                    // elements a lane takes (4, or 8 at 256)
+  constexpr int RPW = 32 / LPR;                    // K rows per warp per pass
+  constexpr int RG = NT / HS;                      // row groups in PV (each thread owns one dim)
   // a warp's RPW rows are all inside the tile or all past it, so the
   // shuffles of the score loop stay convergent
   static_assert(kDecTile % RPW == 0, "a warp's rows must not straddle the tile");
   const int M = H / KVH;
+  const int MC = min(kMaxM, M - m0);  // the task's query heads
+  const int head0 = g * M + m0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pos = pos_arr[b];
 
   __syncthreads();  // the previous task's readers of sm and p_s are done
-  const T* qb = q + (size_t)b * q_bs + (size_t)g * M * HS;
-  for (int i = tid; i < M * HS; i += NT) sm.q_s[i / HS][i % HS] = to_f(qb[i]);
+  const T* qb = q + (size_t)b * q_bs + (size_t)head0 * hs;
+  for (int i = tid; i < MC * HS; i += NT) {
+    const int m = i / HS, dd = i % HS;
+    sm.q_s[m][dd] = dd < hs ? to_f(qb[m * hs + dd]) : 0.f;
+  }
   if (tid < kMaxM) {
     sm.m_s[tid] = -INFINITY;
     sm.l_s[tid] = 0.f;
@@ -153,14 +181,26 @@ __device__ __forceinline__ void decode_attention_task(
     for (int r0 = 0; r0 < n; r0 += kDecTile) {
 #pragma unroll 4
       for (int r = r0 + warp * RPW + lane / LPR; r < r0 + kDecTile; r += kWarps * RPW) {
-        float kf[4] = {0.f, 0.f, 0.f, 0.f};
-        if (r < n) load4(k_cache + row(r) * HS + c0, kf);
+        float kf[EPL];
+#pragma unroll
+        for (int j = 0; j < EPL; ++j) kf[j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < EPL / 4; ++j) {
+          const int c = c0 + 4 * LPR * j;
+          if (r < n && c < hs) load4(k_cache + row(r) * hs + c, kf + 4 * j);
+        }
 #pragma unroll
         for (int m = 0; m < kMaxM; ++m) {
-          if (m < M) {
+          if (m < MC) {
             float qf[4];
             load4(&sm.q_s[m][c0], qf);
             float s = qf[0] * kf[0] + qf[1] * kf[1] + qf[2] * kf[2] + qf[3] * kf[3];
+#pragma unroll
+            for (int j = 1; j < EPL / 4; ++j) {
+              load4(&sm.q_s[m][c0 + 4 * LPR * j], qf);
+              s += qf[0] * kf[4 * j] + qf[1] * kf[4 * j + 1] + qf[2] * kf[4 * j + 2] +
+                   qf[3] * kf[4 * j + 3];
+            }
             s = warp_sum(s, LPR);
             if (lane % LPR == 0 && r < n) p_s[m * bk + r] = s * scale;
           }
@@ -169,7 +209,7 @@ __device__ __forceinline__ void decode_attention_task(
     }
     __syncthreads();
     // online softmax over the block, one warp per query head
-    for (int m = warp; m < M; m += kWarps) {
+    for (int m = warp; m < MC; m += kWarps) {
       float* pm = p_s + m * bk;
       float mx = -INFINITY;
       for (int r = lane; r < n; r += 32) mx = fmaxf(mx, pm[r]);
@@ -194,25 +234,27 @@ __device__ __forceinline__ void decode_attention_task(
     // PV: thread (rg, d) sums rows rg, rg + RG, ... of the block
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m)
-      if (m < M) acc[m] *= sm.a_s[m];
+      if (m < MC) acc[m] *= sm.a_s[m];
+    if (d < hs) {
 #pragma unroll 8
-    for (int r = rg; r < n; r += RG) {
-      const float v = to_f(v_cache[row(r) * HS + d]);
+      for (int r = rg; r < n; r += RG) {
+        const float v = to_f(v_cache[row(r) * hs + d]);
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-        if (m < M) acc[m] += p_s[m * bk + r] * v;
+        for (int m = 0; m < kMaxM; ++m)
+          if (m < MC) acc[m] += p_s[m * bk + r] * v;
+      }
     }
     __syncthreads();
   }
 
 #pragma unroll
   for (int m = 0; m < kMaxM; ++m)
-    if (m < M) sm.red_s[m][tid] = acc[m];
+    if (m < MC) sm.red_s[m][tid] = acc[m];
   // the current row: s_cur = q . k_cur in q's dtype, p_cur stays fp32
-  const T* kc = k_cur + (size_t)b * cur_bs + (size_t)g * HS;
-  for (int m = warp; m < M; m += kWarps) {
+  const T* kc = k_cur + (size_t)b * cur_bs + (size_t)g * hs;
+  for (int m = warp; m < MC; m += kWarps) {
     float s = 0.f;
-    for (int i = lane; i < HS; i += 32) s += sm.q_s[m][i] * to_f(kc[i]);
+    for (int i = lane; i < hs; i += 32) s += sm.q_s[m][i] * to_f(kc[i]);
     s = warp_sum(s, 32) * scale;
     if (lane == 0) {
       const float m_new = fmaxf(sm.m_s[m], s);
@@ -224,14 +266,14 @@ __device__ __forceinline__ void decode_attention_task(
     }
   }
   __syncthreads();
-  if (tid < HS) {
-    const float vcur = to_f(v_cur[(size_t)b * cur_bs + (size_t)g * HS + tid]);
-    for (int m = 0; m < M; ++m) {
+  if (tid < hs) {
+    const float vcur = to_f(v_cur[(size_t)b * cur_bs + (size_t)g * hs + tid]);
+    for (int m = 0; m < MC; ++m) {
       float o = 0.f;
       for (int i = 0; i < RG; ++i) o += sm.red_s[m][i * HS + tid];
       o = o * sm.a_s[m] + sm.pc_s[m] * vcur;
       const float l = sm.l_s[m];
-      out[((size_t)b * H + (size_t)g * M + m) * HS + tid] = from_f<T>(o / (l == 0.f ? 1.f : l));
+      out[((size_t)b * H + head0 + m) * hs + tid] = from_f<T>(o / (l == 0.f ? 1.f : l));
     }
   }
 }
@@ -263,26 +305,33 @@ struct DecodeSmemInt8 {
   float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM], sq_s[kMaxM], sp_s[kMaxM];
 };
 
-template <typename T, int HS, int NT, typename Rows>
+template <typename T, int HS, int NT, typename Rows, bool PAD = true>
 __device__ __forceinline__ void decode_attention_task_int8(
     DecodeSmemInt8<HS, NT>& sm, float* p_s, int g, int b, const T* q,
     const signed char* __restrict__ k_cache, const signed char* __restrict__ v_cache,
     const float* __restrict__ k_scale, const float* __restrict__ v_scale, const Rows rows,
     const int* pos_arr, const T* k_cur, const T* v_cur, T* __restrict__ out, int H, int KVH,
-    float scale, int q_bs, int cur_bs, int bk) {
+    float scale, int q_bs, int cur_bs, int bk, int hs_arg, int m0) {
+  const int hs = PAD ? hs_arg : HS;
   constexpr int kWarps = NT / 32;
-  constexpr int LPR = HS / 4;   // lanes per K row in QK: one int8x4 word each
-  constexpr int RPW = 32 / LPR; // K rows per warp per pass
-  constexpr int RG = NT / HS;   // row groups in PV (each thread owns one dim)
+  constexpr int LPR = HS / 4 < 32 ? HS / 4 : 32;  // lanes per K row in QK
+  constexpr int WPL = HS / 4 / LPR;                // int8x4 words a lane takes (1, or 2 at 256)
+  constexpr int RPW = 32 / LPR;                    // K rows per warp per pass
+  constexpr int RG = NT / HS;                      // row groups in PV (each thread owns one dim)
   const int M = H / KVH;
+  const int MC = min(kMaxM, M - m0);  // the task's query heads
+  const int head0 = g * M + m0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pos = pos_arr[b];
 
   __syncthreads();  // the previous task's readers of sm and p_s are done
-  const T* qb = q + (size_t)b * q_bs + (size_t)g * M * HS;
-  for (int i = tid; i < M * HS; i += NT) sm.q_s[i / HS][i % HS] = to_f(qb[i]);
+  const T* qb = q + (size_t)b * q_bs + (size_t)head0 * hs;
+  for (int i = tid; i < MC * HS; i += NT) {
+    const int m = i / HS, dd = i % HS;
+    sm.q_s[m][dd] = dd < hs ? to_f(qb[m * hs + dd]) : 0.f;
+  }
   __syncthreads();
-  for (int m = warp; m < M; m += kWarps) {
+  for (int m = warp; m < MC; m += kWarps) {
     float am = 0.f;
     for (int i = lane; i < HS; i += 32) am = fmaxf(am, fabsf(sm.q_s[m][i]));
     am = warp_max(am);
@@ -317,19 +366,27 @@ __device__ __forceinline__ void decode_attention_task_int8(
       const int r = r0 + lane / LPR, w = lane % LPR;
       const bool live = r < n;
       const size_t row = live ? block_row(r) : 0;
-      const int kw = live ? *reinterpret_cast<const int*>(k_cache + row * HS + 4 * w) : 0;
+      int kw[WPL];
+#pragma unroll
+      for (int j = 0; j < WPL; ++j)
+        kw[j] = live && 4 * (w + LPR * j) < hs
+                    ? *reinterpret_cast<const int*>(k_cache + row * hs + 4 * (w + LPR * j))
+                    : 0;
       const float ks = live ? k_scale[row] : 0.f;
 #pragma unroll
       for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          const int si = warp_sum_int(__dp4a(sm.qw_s[m][w], kw, 0), LPR);
+        if (m < MC) {
+          int dot = 0;
+#pragma unroll
+          for (int j = 0; j < WPL; ++j) dot = __dp4a(sm.qw_s[m][w + LPR * j], kw[j], dot);
+          const int si = warp_sum_int(dot, LPR);
           if (w == 0 && live) p_s[m * bk + r] = (float)si * sm.sq_s[m] * ks;
         }
       }
     }
     __syncthreads();
     // online softmax and the quantization of p * vs, one warp per query head
-    for (int m = warp; m < M; m += kWarps) {
+    for (int m = warp; m < MC; m += kWarps) {
       float* pm = p_s + m * bk;
       float mx = -INFINITY;
       for (int r = lane; r < n; r += 32) mx = fmaxf(mx, pm[r]);
@@ -364,27 +421,29 @@ __device__ __forceinline__ void decode_attention_task_int8(
     int ai[kMaxM];
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m) ai[m] = 0;
+    if (d < hs) {
 #pragma unroll 4
-    for (int r = rg; r < n; r += RG) {
-      const int v = v_cache[block_row(r) * HS + d];
+      for (int r = rg; r < n; r += RG) {
+        const int v = v_cache[block_row(r) * hs + d];
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-        if (m < M) ai[m] += pi[m * bk + r] * v;
+        for (int m = 0; m < kMaxM; ++m)
+          if (m < MC) ai[m] += pi[m * bk + r] * v;
+      }
     }
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m)
-      if (m < M) acc[m] = acc[m] * sm.a_s[m] + (float)ai[m] * sm.sp_s[m];
+      if (m < MC) acc[m] = acc[m] * sm.a_s[m] + (float)ai[m] * sm.sp_s[m];
     __syncthreads();
   }
 
 #pragma unroll
   for (int m = 0; m < kMaxM; ++m)
-    if (m < M) sm.red_s[m][tid] = acc[m];
+    if (m < MC) sm.red_s[m][tid] = acc[m];
   // the current row: s_cur = q . k_cur in q's dtype, p_cur stays fp32
-  const T* kc = k_cur + (size_t)b * cur_bs + (size_t)g * HS;
-  for (int m = warp; m < M; m += kWarps) {
+  const T* kc = k_cur + (size_t)b * cur_bs + (size_t)g * hs;
+  for (int m = warp; m < MC; m += kWarps) {
     float s = 0.f;
-    for (int i = lane; i < HS; i += 32) s += sm.q_s[m][i] * to_f(kc[i]);
+    for (int i = lane; i < hs; i += 32) s += sm.q_s[m][i] * to_f(kc[i]);
     s = warp_sum(s, 32) * scale;
     if (lane == 0) {
       const float m_new = fmaxf(sm.m_s[m], s);
@@ -396,19 +455,20 @@ __device__ __forceinline__ void decode_attention_task_int8(
     }
   }
   __syncthreads();
-  if (tid < HS) {
-    const float vcur = to_f(v_cur[(size_t)b * cur_bs + (size_t)g * HS + tid]);
-    for (int m = 0; m < M; ++m) {
+  if (tid < hs) {
+    const float vcur = to_f(v_cur[(size_t)b * cur_bs + (size_t)g * hs + tid]);
+    for (int m = 0; m < MC; ++m) {
       float o = 0.f;
       for (int i = 0; i < RG; ++i) o += sm.red_s[m][i * HS + tid];
       o = o * sm.a_s[m] + sm.pc_s[m] * vcur;
       const float l = sm.l_s[m];
-      out[((size_t)b * H + (size_t)g * M + m) * HS + tid] = from_f<T>(o / (l == 0.f ? 1.f : l));
+      out[((size_t)b * H + head0 + m) * hs + tid] = from_f<T>(o / (l == 0.f ? 1.f : l));
     }
   }
 }
 
 // dynamic shared memory of one task: its struct, then M x bk fp32 scores
+// (M: the task's query heads, at most kMaxM)
 template <int HS, int NT>
 constexpr size_t decode_smem(int M, int bk) {
   return sizeof(DecodeSmem<HS, NT>) + sizeof(float) * (size_t)M * bk;
@@ -420,13 +480,15 @@ constexpr size_t decode_int8_smem(int M, int bk) {
 
 }  // namespace hipllama
 
-// dispatch on the head size: CALL(T, HS) for HS in {8, 16, 32, 64, 128}
-#define HIPLLAMA_HS_SWITCH(HS, T, CALL)                     \
-  switch (HS) {                                             \
+// dispatch on the head size hs (a multiple of 8 up to 256): CALL(T, N) with
+// N = decode_hs_pad(hs), the task compiled for it
+#define HIPLLAMA_DECODE_HS_SWITCH(hs, T, CALL)              \
+  switch (hipllama::decode_hs_pad(hs)) {                    \
     case 8: return CALL(T, 8);                              \
     case 16: return CALL(T, 16);                            \
     case 32: return CALL(T, 32);                            \
     case 64: return CALL(T, 64);                            \
     case 128: return CALL(T, 128);                          \
+    case 256: return CALL(T, 256);                          \
     default: return (int)cudaErrorInvalidValue;             \
   }

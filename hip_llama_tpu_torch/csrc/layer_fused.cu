@@ -131,8 +131,9 @@ __device__ __noinline__ void ffn_phase(const LayerArgs& a) {
   }
 }
 
-// the attention phase at head size HS: one (KV head, slot) task each, on
-// the CTA's threads as attention_decode_fused runs it, so that the two
+// the attention phase at compiled head size HS (decode_hs_pad of the head
+// size): one (KV head, group of at most kMaxM query heads, slot) task each,
+// on the CTA's threads as attention_decode_fused runs it, so that the two
 // round alike
 static_assert(kDecThreads == kThreads, "the attention tasks take the whole CTA");
 template <int HS>
@@ -142,21 +143,25 @@ __device__ __noinline__ void attention_phase(const LayerArgs& a) {
   float* p_s = reinterpret_cast<float*>(
       smem + (a.kv_int8 ? sizeof(DecodeSmemInt8<HS, kDecThreads>)
                         : sizeof(DecodeSmem<HS, kDecThreads>)));
-  const int nqkv = (a.H + 2 * a.KVH) * HS;
-  const bf16* kc = a.qkv + a.H * HS;
-  const bf16* vc = a.qkv + (a.H + a.KVH) * HS;
+  const int hs = a.HS;
+  const int nqkv = (a.H + 2 * a.KVH) * hs;
+  const bf16* kc = a.qkv + a.H * hs;
+  const bf16* vc = a.qkv + (a.H + a.KVH) * hs;
   const ContiguousCache cache{a.L, a.KVH, a.S, a.layer};
-  for (int t = blockIdx.x; t < a.KVH * a.B; t += gridDim.x) {
-    const int g = t % a.KVH, b = t / a.KVH;
+  const int ng = hipllama::head_groups(a.H / a.KVH);
+  for (int t = blockIdx.x; t < a.KVH * ng * a.B; t += gridDim.x) {
+    const int gm = t % (a.KVH * ng), b = t / (a.KVH * ng);
+    const int g = gm / ng, m0 = gm % ng * kMaxM;
     if (a.kv_int8)
       decode_attention_task_int8<bf16, HS, kDecThreads>(
           at8, p_s, g, b, a.qkv, (const signed char*)a.k_cache, (const signed char*)a.v_cache,
           a.k_scale, a.v_scale, cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale,
-          nqkv, nqkv, a.bk);
+          nqkv, nqkv, a.bk, hs, m0);
     else
       decode_attention_task<bf16, HS, kDecThreads>(
           at, p_s, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache,
-          cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk);
+          cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk, hs,
+          m0);
   }
 }
 
@@ -182,12 +187,13 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
   for (int i = gtid; i < B * (nqkv / 2); i += gthreads)
     split_epilogue_at(a.part, a.split_q, B, nqkv, rope, a.qkv, i);
   grid_barrier(a.bar, nblk);
-  switch (HS) {
+  switch (hipllama::decode_hs_pad(HS)) {
     case 8: attention_phase<8>(a); break;
     case 16: attention_phase<16>(a); break;
     case 32: attention_phase<32>(a); break;
     case 64: attention_phase<64>(a); break;
-    default: attention_phase<128>(a); break;
+    case 128: attention_phase<128>(a); break;
+    default: attention_phase<256>(a); break;
   }
   grid_barrier(a.bar, nblk);
   // x2 = x + att @ Wo
@@ -209,15 +215,30 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
     ffn_reduce_at(a.part, nstrips, B, D, a.x2, a.out, i);
 }
 
+// the attention phase's task and its block of min(M, kMaxM) x bk scores, at
+// the task's compiled head size
+size_t attention_smem(const LayerArgs& a) {
+  const int M = a.H / a.KVH < kMaxM ? a.H / a.KVH : kMaxM;
+#define HIPLLAMA_SMEM(N)                                                              \
+  return a.kv_int8 ? hipllama::decode_int8_smem<N, kDecThreads>(M, a.bk)              \
+                   : hipllama::decode_smem<N, kDecThreads>(M, a.bk)
+  switch (hipllama::decode_hs_pad(a.HS)) {
+    case 8: HIPLLAMA_SMEM(8);
+    case 16: HIPLLAMA_SMEM(16);
+    case 32: HIPLLAMA_SMEM(32);
+    case 64: HIPLLAMA_SMEM(64);
+    case 128: HIPLLAMA_SMEM(128);
+    default: HIPLLAMA_SMEM(256);
+  }
+#undef HIPLLAMA_SMEM
+}
+
 template <int MAXM>
 int launch_layer(const LayerArgs& a, cudaStream_t st) {
   constexpr size_t smem_ab = sizeof(GemvSmem<MAXM>) > sizeof(FfnSmem<MAXM>)
                                  ? sizeof(GemvSmem<MAXM>) : sizeof(FfnSmem<MAXM>);
-  // the attention phase's task and its block of scores (HS 128 bounds every
-  // head size's task)
-  const int M = a.H / a.KVH;
-  const size_t smem_att = a.kv_int8 ? hipllama::decode_int8_smem<128, kDecThreads>(M, a.bk)
-                                    : hipllama::decode_smem<128, kDecThreads>(M, a.bk);
+  // the attention phase's task and its block of scores
+  const size_t smem_att = attention_smem(a);
   const size_t smem = smem_att > smem_ab ? smem_att : smem_ab;
   auto kernel = q8_layer_kernel<MAXM>;
   static int grid = 0;  // CTAs that fit on the card at once at smem_grid bytes
@@ -248,8 +269,9 @@ HIPLLAMA_EXPORT_ERROR_STRING
 // bf16 activations, int8 weights with fp32 scales, fp32 norm weights, int32
 // positions. The cache: bf16 (kv_int8 0; k_scale and v_scale null) or int8
 // with its fp32 scale planes (kv_int8 1); bk >= 1 cache rows per
-// online-softmax block. D == H * HS, HS in {8, 16, 32, 64, 128},
-// H / KVH <= 8, D and hidden multiples of 16. Workspaces: xn, att and x2
+// online-softmax block. D == H * HS, HS a multiple of 8 up to 256 (the
+// attention task compiled for decode_hs_pad(HS)), any H / KVH, D and hidden
+// multiples of 16. Workspaces: xn, att and x2
 // (B, D) bf16; qkv (B, (H + 2 KVH) HS) bf16 (its k|v rows are the step's
 // rows for the cache commit); part fp32 of max(split_q * B * NQKV, split_o
 // * B * D, ceil(hidden / 64) * B * D) values; bar two zeroed uint32.
@@ -264,9 +286,8 @@ extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_
                               int hidden, int gs_qkv, int gs_o, int gs13, int gs2, int split_q,
                               int kslice_q, int split_o, int kslice_o, int bk, int kv_int8,
                               float rope_coef, float eps, void* stream) {
-  if (H % KVH || H / KVH > kMaxM || D != H * HS || D % 16 || hidden % 16 || bk < 1 ||
-      kslice_q > kGvKMax || kslice_o > kGvKMax ||
-      (HS != 8 && HS != 16 && HS != 32 && HS != 64 && HS != 128))
+  if (H % KVH || D != H * HS || D % 16 || hidden % 16 || bk < 1 || kslice_q > kGvKMax ||
+      kslice_o > kGvKMax || hipllama::decode_hs_pad(HS) == 0)
     return (int)cudaErrorInvalidValue;
   const LayerArgs a{
       (const bf16*)x, (const int8_t*)qkv_q, (const float*)qkv_s, (const float*)g1,

@@ -276,7 +276,7 @@ __global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) q8_xheads_kernel(
     for (int i = 0; i < 64; ++i) acc[i] = head[i] = 0.f;
     const int per_head = HS / wg::kBK;
     wg::consume(
-        ring, n_steps, gs, role, t, head, [=](int it) { return it % per_head == 0; },
+        ring, n_steps, gs, s, n0, N, role, t, head, [=](int it) { return it % per_head == 0; },
         [&](int it, const float* d) {
           if (it % per_head == per_head - 1) {
 #pragma unroll
@@ -340,13 +340,13 @@ extern "C" int q8_matmul_silu_minner(const void* x, const void* q13, const void*
 // K16: x3 bf16 with element (m, h, d) at m * sxm + h * sxh + d (sxm, sxh
 // multiples of 8, 16-byte aligned base), q (GH * HS, N) int8, s (GH*HS/gs,
 // N) fp32, res (M, N) bf16 or null; out (M, N) bf16. HS % 64 == 0, N % 16
-// == 0, gs % 8 == 0.
+// == 0, any gs that divides GH * HS.
 extern "C" int q8_matmul_xheads(const void* x3, const void* q, const void* s, const void* res,
                                 void* out, int M, int GH, int HS, int sxm, int sxh, int N,
                                 int gs, void* stream) {
   namespace wg = hipllama::q8wg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M < 1 || GH < 1 || HS % wg::kBK || N % 16 || sxm % 8 || sxh % 8 || gs < 1 || gs % 8 ||
+  if (M < 1 || GH < 1 || HS % wg::kBK || N % 16 || sxm % 8 || sxh % 8 || gs < 1 ||
       (GH * HS) % gs)
     return (int)cudaErrorInvalidValue;
   const Epilogue e{(const bf16*)res, nullptr, 0, 1, 0.f};

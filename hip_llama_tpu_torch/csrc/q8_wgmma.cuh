@@ -16,8 +16,11 @@
 //    the 128B swizzle atom) through a ring of kStages stages, with kLag
 //    steps of copies in flight: it copies the x tile (128 x 64 bf16, read in
 //    place through the caller's address functor) by cp.async into the
-//    128B-swizzled K-major layout, with the int8 weight tile (64 x 128) and
-//    its scale rows (one per group of gs rows, gs % 8 == 0) as they lie;
+//    128B-swizzled K-major layout, with the int8 weight tile (64 x 128) and,
+//    where gs % 8 == 0, its scale rows (one per group of gs rows) as they
+//    lie; a group size that is no multiple of 8 (groups shorter than a
+//    consumer thread's 8 rows, or not aligned to them) has its scales read
+//    from global memory by the dequantizing threads, one per row;
 //  - the consumers dequantize: while step it's wgmmas run asynchronously,
 //    their 256 threads turn step it + 1's int8 tile into the other of two
 //    bf16 B tiles, written K-major ([n][k]) in the same swizzle. A single
@@ -239,9 +242,9 @@ __device__ __forceinline__ void produce(const Ring& ring, XAt x_at, int m0, int 
         cp_async16(ring.raw(st) + r * 128 + c * 16,
                    q + (size_t)(k0 + r) * N + (live ? n0 + 16 * c : 0), live);
       }
-      // s: the groups of rows k0 .. k0 + 63 (at most 8: gs % 8 == 0), 32
-      // chunks of 4 columns each
-      const int g0 = k0 / gs, ng = (k0 + kBK - 1) / gs - g0 + 1;
+      // s: the groups of rows k0 .. k0 + 63 (at most 8 where gs % 8 == 0),
+      // 32 chunks of 4 columns each
+      const int g0 = k0 / gs, ng = gs % 8 ? 0 : (k0 + kBK - 1) / gs - g0 + 1;
 #pragma unroll
       for (int i = 0; i < 8 * 32 / 128; ++i) {
         const int e = pt + 128 * i, g = e >> 5, c = e & 31;
@@ -265,21 +268,33 @@ __device__ __forceinline__ void produce(const Ring& ring, XAt x_at, int m0, int 
 // tile columns ct % 32 + 32 j, j < 4. Tile column n is B row n, whose chunk
 // ct / 32 takes the 8 k values; 8 consecutive threads write 8 consecutive
 // rows, so the swizzled stores do not conflict, and the byte loads of a
-// warp read whole rows.
-__device__ __forceinline__ void dequant_step(const Ring& ring, int it, int bt, int gs, int ct) {
+// warp read whole rows. The 8 rows share one scale where gs % 8 == 0 (from
+// the ring); else each row's scale is read from s (N columns from n0).
+__device__ __forceinline__ void dequant_step(const Ring& ring, int it, int bt, int gs,
+                                             const float* __restrict__ s, int n0, int N,
+                                             int ct) {
   const int st = it % kStages, k0 = it * kBK;
   const int kc = ct >> 5, lane = ct & 31;
   const unsigned char* raw = ring.smem + (ring.raw(st) - ring.x0) + 8 * kc * 128;
   const float* sc = reinterpret_cast<const float*>(ring.smem + (ring.scales(st) - ring.x0)) +
-                    ((k0 + 8 * kc) / gs - k0 / gs) * kBN;
+                    (gs % 8 ? 0 : ((k0 + 8 * kc) / gs - k0 / gs) * kBN);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int n = lane + 32 * j;
-    const float sn = sc[n];
     float f[8];
+    if (gs % 8 == 0) {
+      const float sn = sc[n];
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      f[r] = q8::q_to_f((uint32_t)raw[r * 128 + n] ^ 0x80u, 0) * sn;
+      for (int r = 0; r < 8; ++r)
+        f[r] = q8::q_to_f((uint32_t)raw[r * 128 + n] ^ 0x80u, 0) * sn;
+    } else {
+      const bool live = n0 + n < N;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float sn = live ? __ldg(s + (size_t)((k0 + 8 * kc + r) / gs) * N + n0 + n) : 0.f;
+        f[r] = q8::q_to_f((uint32_t)raw[r * 128 + n] ^ 0x80u, 0) * sn;
+      }
+    }
     asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(ring.b(bt) + swz128(n, kc)),
                  "r"(q8::bf16x2_bits(f[0], f[1])), "r"(q8::bf16x2_bits(f[2], f[3])),
                  "r"(q8::bf16x2_bits(f[4], f[5])), "r"(q8::bf16x2_bits(f[6], f[7]))
@@ -294,8 +309,9 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
 }
 
-// The consumer warpgroups' loop over the n_steps steps of K; c: the
-// warpgroup (0, 1), t: the thread in it. While step it's wgmmas run (x rows
+// The consumer warpgroups' loop over the n_steps steps of K (weight s and
+// columns n0, N as the producer's, for dequant_step); c: the warpgroup (0,
+// 1), t: the thread in it. While step it's wgmmas run (x rows
 // 64 c .. 64 c + 63 of the stage times B tile it % 2, into d, overwritten
 // by the first where fresh(it)), the consumers dequantize step it + 1's
 // weight into the other B tile; then they wait for the products, release
@@ -303,11 +319,12 @@ __device__ __forceinline__ void consumers_sync() {
 // barrier that ends each step puts the next tile's halves together and
 // frees the current one.
 template <typename Fresh, typename StepDone>
-__device__ __forceinline__ void consume(const Ring& ring, int n_steps, int gs, int c, int t,
+__device__ __forceinline__ void consume(const Ring& ring, int n_steps, int gs,
+                                        const float* __restrict__ s, int n0, int N, int c, int t,
                                         float d[64], Fresh fresh, StepDone step_done) {
   const int ct = 128 * c + t;
   mbar_wait(ring.full(0), 0);
-  dequant_step(ring, 0, 0, gs, ct);
+  dequant_step(ring, 0, 0, gs, s, n0, N, ct);
   consumers_sync();
   for (int it = 0; it < n_steps; ++it) {
     const int st = it % kStages, bt = it & 1;
@@ -320,7 +337,7 @@ __device__ __forceinline__ void consume(const Ring& ring, int n_steps, int gs, i
     wg_commit();
     if (it + 1 < n_steps) {
       mbar_wait(ring.full((it + 1) % kStages), ((it + 1) / kStages) & 1);
-      dequant_step(ring, it + 1, bt ^ 1, gs, ct);
+      dequant_step(ring, it + 1, bt ^ 1, gs, s, n0, N, ct);
     }
     wg_wait0();
     wg_fence_regs(d);

@@ -338,7 +338,7 @@ extern "C" int q8_matmul_ffn(const void* x, const void* q13, const void* s13, co
 // fp32 workspaces take the quantized activations (normed by g where g is
 // given); split > 0 takes the GEMV path (M <= 16) with part_ws (split, M,
 // N) fp32 and kslice rows per split (a multiple of gs); split == 0 the
-// tiled path. gs is 32, 64 or 128; otherwise as q8_matmul.
+// tiled path. gs is any multiple of 8 (that divides K); otherwise as q8_matmul.
 extern "C" int q8_matmul_a8(const void* x, const void* q, const void* s, const void* g,
                             const void* res, const void* pos, void* out, void* xi_ws,
                             void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,

@@ -430,7 +430,7 @@ extern "C" int q4_matmul_silu(const void* x, const void* q13, const void* s13, c
 // given); split > 0 takes the GEMV path (M <= 16) with part_ws (2 x split,
 // M, N) fp32 (the low then the high nibble plane's splits) and kslice
 // packed rows per split (a multiple of gs, at most 512); split == 0 the
-// tiled path. gs is 32, 64 or 128; otherwise as q4_matmul.
+// tiled path. gs is any multiple of 8 (that divides K/2); otherwise as q4_matmul.
 extern "C" int q4_matmul_a8(const void* x, const void* q, const void* s, const void* g,
                             const void* res, const void* pos, void* out, void* xi_ws,
                             void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,

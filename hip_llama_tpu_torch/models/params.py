@@ -23,6 +23,7 @@ layout of the same storage.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -366,14 +367,18 @@ def quantize_params_q4(cfg: ModelConfig, w: LlamaWeights, group_size: int = 32,
     layer's weight at a time on `device`: each matmul weight a Q4Tensor with
     the group size q4_group_size(K, group_size), the embedding Q8_0 rows of
     group size 64 — bit for bit the JAX package's
-    unstack_quant_params(quantize_params_q4(cfg, w, group_size))."""
+    unstack_quant_params(quantize_params_q4(cfg, w, group_size)). Where 64
+    does not divide the model width (llama2.c's stories15M: dim 288) the
+    JAX function raises; the port takes embedding groups of gcd(dim, 64),
+    as q4_group_size shrinks the matmul groups (the embedding is a row
+    gather, dequantized per row: its group size rounds no product)."""
     dev = resolve_device(device)
 
     def qt(a) -> Q4Tensor:  # (out, in) -> quantized (in, out)
         wt = _f32(a, dev).t()
         return q4_quantize_weights(wt, q4_group_size(wt.shape[0], group_size))
 
-    q_emb, s_emb, _ = quantize_q80(np.asarray(w.tok_emb), V4_EMB_GROUP)
+    q_emb, s_emb, _ = quantize_q80(np.asarray(w.tok_emb), math.gcd(cfg.dim, V4_EMB_GROUP))
     return QuantLlamaParams(
         tok_emb_q=torch.from_numpy(q_emb).to(dev),
         tok_emb_s=_f32(s_emb.reshape(q_emb.shape[0], -1), dev),

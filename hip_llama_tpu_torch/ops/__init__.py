@@ -46,6 +46,9 @@ INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_pre
 # the wrappers with an `a8` branch (HIPLLAMA_Q8_MODE / HIPLLAMA_Q4_MODE=a8),
 # which counts in `.launches_a8`
 A8_BRANCHES = (q8_matmul, q8_matmul_silu, q4_matmul, q4_matmul_silu, q8_matmul_layered)
+# the wrappers with a tensor-core branch beside their kernel, which counts in
+# `.launches_tc` (q8_matmul_ffn above 16 rows)
+TC_BRANCHES = (q8_matmul_ffn,)
 
 
 def reset_launches() -> None:
@@ -56,14 +59,18 @@ def reset_launches() -> None:
         w.launches_int8 = 0
     for w in A8_BRANCHES:
         w.launches_a8 = 0
+    for w in TC_BRANCHES:
+        w.launches_tc = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches by kernel: `<wrapper>` and, for an int8 branch,
-    `<wrapper>_int8`, for an `a8` branch `<wrapper>_a8`."""
+    `<wrapper>_int8`, for an `a8` branch `<wrapper>_a8`, for a tensor-core
+    branch `<wrapper>_tc`."""
     counts = {w.__name__: w.launches for w in KERNELS}
     counts.update({f"{w.__name__}_int8": w.launches_int8 for w in INT8_BRANCHES})
     counts.update({f"{w.__name__}_a8": w.launches_a8 for w in A8_BRANCHES})
+    counts.update({f"{w.__name__}_tc": w.launches_tc for w in TC_BRANCHES})
     return counts
 
 
@@ -71,6 +78,7 @@ __all__ = [
     "A8_BRANCHES",
     "INT8_BRANCHES",
     "KERNELS",
+    "TC_BRANCHES",
     "attention_decode",
     "attention_decode_fused",
     "attention_decode_paged",

@@ -13,8 +13,16 @@ Cast points, as in the JAX kernels (hip_llama_tpu/ops/attention.py:164-241
 and :912-940): q is cast to the cache dtype before QK; scores and the
 softmax state are fp32; the online softmax's unnormalized probabilities
 exp(s - running max) are cast to the V dtype before PV, and the sum is
-divided by l at the end; the output is cast to q's dtype. Supported head
-sizes: 8, 16, 32, 64, 128.
+divided by l at the end; the output is cast to q's dtype.
+
+Shapes served on the card: any head size that is a multiple of 8 up to 256
+and any number of query heads per KV head. The kernels are compiled for a
+few head sizes (`decode_head_size`, `prefill_head_size`, the rules the
+C dispatch shares) and run a head size between two of them zero-padded to
+the next, which leaves every score and output the same: the padded q, K
+and V columns are zeros and the padded outputs are not written. Decode
+tasks take at most KV_GROUP query heads of a KV head; a KV head with more
+runs several tasks, each head's arithmetic its own.
 
 With a bf16 cache the rounded probabilities depend on where the running
 max is taken, so the plain versions walk a bf16 cache in the JAX kernels'
@@ -74,8 +82,8 @@ from hip_llama_tpu_torch.ops.cache import (
     check_table,
 )
 
-HEAD_SIZES = (8, 16, 32, 64, 128)
-MAX_KV_MUL = 8  # query heads per KV head the decode kernel holds in registers
+MAX_HEAD_SIZE = 256
+KV_GROUP = 8  # query heads of one decode task (csrc/decode_attention.cuh kMaxM)
 # the JAX kernels' masked score (attention.py:40): finite, so a fully
 # masked row of a block gives p = 0 and leaves the running max alone
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -88,6 +96,33 @@ DECODE_SCORES_BYTES = 200 * 1024
 SMEM_PER_CTA = 232448
 _PF_ROWS = _PF_TILE = 64  # query rows per prefill CTA, cache rows per tile
 _TC_STAGES = 2  # the tensor-core prefill's ring of K/V tiles (kTcStages)
+
+
+def decode_head_size(hs: int) -> int:
+    """The head size the decode kernels are compiled for that serves head
+    size hs (csrc/decode_attention.cuh::decode_hs_pad): the next power of
+    two from 8; 0 where hs is no multiple of 8 or above MAX_HEAD_SIZE. The
+    decode tasks are bound by the K/V bytes, which padding does not add."""
+    if hs < 8 or hs % 8 or hs > MAX_HEAD_SIZE:
+        return 0
+    return max(8, 1 << (hs - 1).bit_length())
+
+
+def prefill_head_size(hs: int) -> int:
+    """The head size the prefill kernels are compiled for that serves head
+    size hs (csrc/attention.cu::prefill_hs_pad): the next of 8, 16, 32, 48,
+    64, 96, 128 and 256; 0 where hs is no multiple of 8 or above
+    MAX_HEAD_SIZE. 48 and 96 are compiled, where padding to 64 and 128 would
+    add a third to the tensor cores' work."""
+    if hs < 8 or hs % 8 or hs > MAX_HEAD_SIZE:
+        return 0
+    return next(c for c in (8, 16, 32, 48, 64, 96, 128, 256) if c >= hs)
+
+
+def check_head_size(what: str, hs: int) -> None:
+    if not decode_head_size(hs):
+        raise ValueError(f"{what} takes head sizes that are multiples of 8 up to "
+                         f"{MAX_HEAD_SIZE}, got {hs}")
 
 
 def ref_block(s: int, target: int) -> int:
@@ -111,25 +146,31 @@ def decode_block(s: int, quantized: bool = False) -> int:
 
 
 def check_decode_block(m: int, bk: int) -> None:
-    """The decode task holds a block's m x bk scores in shared memory."""
+    """A decode task holds a block's scores for its query heads (m per KV
+    head, at most KV_GROUP a task) in shared memory."""
+    m = min(m, KV_GROUP)
     if 4 * m * bk > DECODE_SCORES_BYTES:
         raise ValueError(f"decode attention holds {m} x {bk} fp32 scores per block, "
                          f"more than {DECODE_SCORES_BYTES} bytes of shared memory")
 
 
 def prefill_smem_bytes(hs: int, bk: int, cache_dtype) -> int:
-    """Shared memory of the prefill kernel a cache of `cache_dtype` takes
-    (csrc/attention.cu: TcLayout for bf16 and int8, prefill_smem_bytes for
-    fp32). The tensor-core kernel's does not depend on the block: a ring of
-    _TC_STAGES stages, each a K and a V tile of 64 rows as copied (bf16 rows
-    of the head size padded to 16, or int8 rows of hs bytes and the two
-    tiles' fp32 row scales), and on int8 the two tiles widened to bf16. The
-    fp32 kernel holds its 64 query rows' scores over the block (rounded up
-    to 64-row tiles) beside a q tile, a K/V tile and the softmax state."""
+    """Shared memory of the prefill kernel a cache of `cache_dtype` takes at
+    head size hs (csrc/attention.cu: TcLayout for bf16 and int8,
+    prefill_smem_bytes for fp32), at the compiled head size HS =
+    prefill_head_size(hs). The tensor-core kernel's does not depend on the
+    block: a ring of _TC_STAGES stages, each a K and a V tile of 64 rows as
+    copied (bf16 rows of HS rounded up to 16, in a power of two of 16-byte
+    chunks, or int8 rows of HS bytes and the two tiles' fp32 row scales), and
+    on int8 the two tiles widened to bf16. The fp32 kernel holds its 64 query
+    rows' scores over the block (rounded up to 64-row tiles) beside a q
+    tile, a K/V tile and the softmax state."""
+    hs = prefill_head_size(hs)
     if cache_dtype == torch.float32:
         cols = -(-bk // _PF_TILE) * _PF_TILE
         return 4 * (_PF_ROWS * hs + _PF_TILE * (hs + 1) + _PF_ROWS * (cols + 1) + 3 * _PF_ROWS)
-    wide = _PF_TILE * max(hs, 16) * 2
+    chunks = 1 << (-(-hs // 16) * 2 - 1).bit_length()  # 16-byte chunks of a bf16 row
+    wide = _PF_TILE * chunks * 16
     if cache_dtype == torch.int8:
         return _TC_STAGES * (2 * _PF_TILE * hs + 2 * _PF_TILE * 4) + 2 * wide
     return _TC_STAGES * 2 * wide
@@ -301,9 +342,7 @@ def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale
                                       v_scale)
     if dev.type != "cuda":
         raise ValueError(f"attention_decode: unsupported device {dev}")
-    if hs not in HEAD_SIZES or h // kvh > MAX_KV_MUL:
-        raise ValueError(f"attention_decode takes head sizes {HEAD_SIZES} and up to "
-                         f"{MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
+    check_head_size("attention_decode", hs)
     dt = _act_dtype(q, k_cache, quantized)
     q_bs = check_slot_rows("q", q, (bsz, h, hs), dt, dev)
     cur_bs = check_slot_rows("k_cur", k_cur, (bsz, kvh, hs), dt, dev)
@@ -373,9 +412,7 @@ def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int,
         raise ValueError(f"attention_decode_fused: unsupported device {dev}")
     if h % kvh or not 0 <= layer < n_layers:
         raise ValueError(f"{h} query heads over {kvh} KV heads, layer {layer} of {n_layers}")
-    if hs not in HEAD_SIZES or h // kvh > MAX_KV_MUL:
-        raise ValueError(f"attention_decode_fused takes head sizes {HEAD_SIZES} and up to "
-                         f"{MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
+    check_head_size("attention_decode_fused", hs)
     dt = _act_dtype(qkv, k_cache, quantized)
     check_operand("qkv", qkv, (bsz, h + 2 * kvh, hs), dt, dev)
     check_operand("pos", pos, (bsz,), torch.int32, dev)
@@ -461,9 +498,7 @@ def attention_prefill(q, k_cache, v_cache, layer: int, start, valid, k_scale=Non
         return attention_prefill_plain(q, k_cache, v_cache, layer, start, valid, k_scale, v_scale)
     if dev.type != "cuda":
         raise ValueError(f"attention_prefill: unsupported device {dev}")
-    if hs not in HEAD_SIZES or 64 % (h // kvh):
-        raise ValueError(f"attention_prefill takes head sizes {HEAD_SIZES} and a "
-                         f"divisor of 64 query heads per KV head, got {hs} and {h // kvh}")
+    check_head_size("attention_prefill", hs)
     t = q.shape[1]
     dt = _act_dtype(q, k_cache, quantized)
     check_operand("q", q, (bsz, t, h, hs), dt, dev)
@@ -556,9 +591,7 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, layer: int, pos, k_c
                                             v_cur, k_scale, v_scale)
     if dev.type != "cuda":
         raise ValueError(f"attention_decode_paged: unsupported device {dev}")
-    if hs not in HEAD_SIZES or h // kvh > MAX_KV_MUL:
-        raise ValueError(f"attention_decode_paged takes head sizes {HEAD_SIZES} and up to "
-                         f"{MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
+    check_head_size("attention_decode_paged", hs)
     bsz = q.shape[0]
     dt = _act_dtype(q, k_pages, quantized)
     check_operand("q", q, (bsz, h, hs), dt, dev)
@@ -617,9 +650,7 @@ def attention_prefill_paged(q, k_pages, v_pages, page_table, layer: int, start, 
                                              k_scale, v_scale)
     if dev.type != "cuda":
         raise ValueError(f"attention_prefill_paged: unsupported device {dev}")
-    if hs not in HEAD_SIZES or 64 % (h // kvh):
-        raise ValueError(f"attention_prefill_paged takes head sizes {HEAD_SIZES} and a "
-                         f"divisor of 64 query heads per KV head, got {hs} and {h // kvh}")
+    check_head_size("attention_prefill_paged", hs)
     bsz, t = q.shape[:2]
     dt = _act_dtype(q, k_pages, quantized)
     check_operand("q", q, (bsz, t, h, hs), dt, dev)

@@ -78,9 +78,7 @@ def q8_layer_fused(x, wqkv, wo, w13, w2, g1, g2, k_cache, v_cache, layer: int, p
                          f"{h} heads, layer {layer}")
     if k_cache.dtype not in (torch.bfloat16, torch.int8):
         raise ValueError(f"q8_layer_fused takes a bf16 or int8 cache, got {k_cache.dtype}")
-    if hs not in _attn.HEAD_SIZES or h // kvh > _attn.MAX_KV_MUL:
-        raise ValueError(f"q8_layer_fused takes head sizes {_attn.HEAD_SIZES} and up to "
-                         f"{_attn.MAX_KV_MUL} query heads per KV head, got {hs} and {h // kvh}")
+    _attn.check_head_size("q8_layer_fused", hs)
     nqkv = (h + 2 * kvh) * hs
     if _quant._check_weight("wqkv", wqkv, d, dev) != nqkv:
         raise ValueError(f"wqkv: expected N {nqkv}, got {wqkv.q.shape[1]}")

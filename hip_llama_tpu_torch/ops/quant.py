@@ -25,6 +25,10 @@ JAX package's FFN kernels decline (a TPU tile rule) and its fallback rounds
 h1 and h3 to bf16 before the gate, so there the two packages agree to bf16
 tolerance rather than to the summation order (ROADMAP.md, section 3).
 
+q8_matmul_ffn (K18) runs its one-kernel strip (CUDA cores) up to
+GEMV_MAX_M rows and csrc/ffn.cu's two tensor-core products above, counted
+in `q8_matmul_ffn.launches_tc`.
+
 `mode="a8"` (w8a8: HIPLLAMA_Q8_MODE=a8, which the model reads and passes
 down) takes the JAX kernels' `a8` branch (quant.py:250-296, :541-585), the
 reference int8 engine's arithmetic: x, normed and rounded to its dtype, is
@@ -56,7 +60,8 @@ reads and passes down (`minner=`):
   q8_matmul, under the mode and the MINNER decision. Its kernel is the
   wgmma mainloop of csrc/q8_wgmma.cuh (a producer warpgroup dequantizes
   each weight tile once per 128-row CTA; two consumer warpgroups multiply),
-  which takes group sizes that are multiples of 8.
+  which takes every group size (one that is no multiple of 8 reads its
+  scales a row at a time).
 """
 
 from __future__ import annotations
@@ -77,7 +82,11 @@ _GEMV_CTAS = 264  # GEMV CTAs aimed for: two per SM of an H100
 # q8_matmul_ffn takes its one-call kernel by row count (quant.py:934)
 FFN_MAX_M = 256
 FFN_MAX_X_BYTES = 2 * 2**20
-FFN_STRIP = 64  # hidden columns per CTA of q8_matmul_ffn (csrc/q8.cuh kFfBH)
+FFN_STRIP = 64  # hidden columns per CTA of q8_matmul_ffn's strip kernel (csrc/q8.cuh kFfBH)
+# q8_matmul_ffn above GEMV_MAX_M rows (csrc/ffn.cu): hidden rows per k step
+# of the down product, and the CTAs its split-K aims for (two per SM)
+FFN_TC_STEP = 64
+_FFN_TC_CTAS = 264
 # the JAX package's q8_matmul_ffn strip width (HIPLLAMA_FFN_BLOCK_N's
 # default, quant.py:31), read by its decline rule
 FFN_BLOCK_N = 256
@@ -651,8 +660,8 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
     index after its other ints."""
     m, k = x.shape
     gs, dev = qt.group_size, x.device
-    if gs % 32 or 128 % gs:
-        raise ValueError(f"the a8 kernels take group sizes 32, 64 and 128, got {gs}")
+    if gs % 8:
+        raise ValueError(f"the a8 kernels take group sizes that are multiples of 8, got {gs}")
     out = torch.empty((m, n // 2 if gate else n), dtype=torch.bfloat16, device=dev)
     xi = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
@@ -847,15 +856,31 @@ q8_matmul_silu.launches = 0
 q8_matmul_silu.launches_a8 = 0
 
 
+def ffn_splits(m: int, h: int, n: int) -> int:
+    """The slices of the hidden width that q8_matmul_ffn's down product
+    (csrc/ffn.cu, above GEMV_MAX_M rows) sums apart: whole k steps of
+    FFN_TC_STEP rows, as many as the (row tile, 128-column) output tiles
+    can take within one wave of _FFN_TC_CTAS CTAs, none empty."""
+    bm = 64 if m <= 64 else 128
+    tiles = -(-n // 128) * -(-m // bm)
+    steps = -(-h // FFN_TC_STEP)
+    per = -(-steps // max(1, min(steps, _FFN_TC_CTAS // tiles)))
+    return -(-steps // per)
+
+
 def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
                   norm_eps: float = 1e-5):
     """residual + W2 bf16(silu(xn @ W1) * (xn @ W3)) -> (M, N) in x's dtype,
-    xn = rmsnorm(x, norm_weight), qt13 = W1|W3 (K, 2H), qt2 (H, N). One CTA
-    per 64-column hidden strip computes its h and multiplies it by its W2
-    rows into a per-strip fp32 partial; a reduce pass seeds each output with
-    the residual and adds the strips in order. Replaces hip_llama_tpu/ops/
-    quant.py::q8_matmul_ffn (its kernel branch, which the model takes by
-    row count: `ffn_takes_kernel`)."""
+    xn = rmsnorm(x, norm_weight), qt13 = W1|W3 (K, 2H), qt2 (H, N). Up to
+    GEMV_MAX_M rows, one CTA per 64-column hidden strip computes its h and
+    multiplies it by its W2 rows into a per-strip fp32 partial (csrc/q8.cuh::
+    ffn_strip_task; `.launches`). More rows run on the tensor cores
+    (csrc/ffn.cu; `.launches_tc`): the gate product writes hb (M, H) bf16,
+    the down product sums hb @ W2 in `ffn_splits` slices of the hidden
+    width. Either way a reduce pass seeds each output with the residual and
+    adds the partials in order. Replaces hip_llama_tpu/ops/quant.py::
+    q8_matmul_ffn (its kernel branch, which the model takes by row count:
+    `ffn_takes_kernel`)."""
     dev = _device(x, "q8_matmul_ffn")
     if dev.type == "cpu":
         return q8_matmul_ffn_plain(x, qt13, qt2, residual, norm_weight, norm_eps=norm_eps)
@@ -869,6 +894,18 @@ def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
     check_operand("norm_weight", norm_weight, (k,), torch.float32, dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x)
+    if m > GEMV_MAX_M:
+        splits = ffn_splits(m, h, n)
+        hb = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
+        part = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+        fn = _build.bind("ffn", "q8_matmul_ffn_tc", "p" * 11 + "i" * 7 + "f" + "p")
+        rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), qt2.q.data_ptr(),
+                qt2.s.data_ptr(), norm_weight.data_ptr(), residual.data_ptr(), out.data_ptr(),
+                xn.data_ptr(), hb.data_ptr(), part.data_ptr(), m, k, h, n, qt13.group_size,
+                qt2.group_size, splits, norm_eps, _stream())
+        _build.check(rc, "ffn", "q8_matmul_ffn_tc")
+        q8_matmul_ffn.launches_tc += 1
+        return out
     part = torch.empty((-(-h // FFN_STRIP), m, n), dtype=torch.float32, device=dev)
     fn = _build.bind("quant", "q8_matmul_ffn", "pppppppppp" + "iiiiii" + "f" + "p")
     rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), qt2.q.data_ptr(),
@@ -881,6 +918,7 @@ def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
 
 
 q8_matmul_ffn.launches = 0
+q8_matmul_ffn.launches_tc = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1002,9 +1040,6 @@ def q8_matmul_xheads(x3, qt: QTensor, *, residual=None, mode: str = "reshape",
         raise ValueError(f"x3: the kernel takes a unit last stride and 16-byte aligned rows, "
                          f"got strides {x3.stride()}")
     n = _check_weight("qt", qt, gh * hs, dev)
-    if qt.group_size % 8:
-        raise ValueError(f"q8_matmul_xheads: the kernel takes group sizes that are multiples "
-                         f"of 8, got {qt.group_size}")
     _check_epilogue(residual, None, 0, 0, m, n, dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     f = _build.bind("prefill", "q8_matmul_xheads", "ppppp" + "iiiiiii" + "p")

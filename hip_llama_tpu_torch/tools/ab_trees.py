@@ -1,0 +1,121 @@
+"""Time one checkout of the repository on the card, for comparing two
+checkouts in turns (parent, change, change, parent) within one machine.
+
+    cd <checkout> && python <path of this file> attention <checkout>
+    cd <checkout> && python <path of this file> serve <checkout>
+
+Each runs the checkout's own package and its chip_smoke.py helpers (the
+checkout goes first on sys.path; run this file by its path, not with -m,
+so that the package is imported from the checkout), once per checkout.
+
+- attention: the attention kernels at Llama-2-7B heads (B 8, 8 layers of
+  KVH 32, HS 128, S 512; decode at positions 0..511; prefill T 256 from row
+  256, and T 128 over pages of 128): K1, K1 int8, K5, K4, K4 int8, K6, K7;
+  each the least of three CUDA-event means (chip_smoke.cuda_ms).
+- serve: a 7B-width Q8_0 model on the int8 KV cache (random weights from
+  chip_smoke's seed): prefill chunks of T 16, 64 and 256 over 8 slots
+  profiled (device time by kernel), then chip_smoke's 16-request serve at
+  batch 8, twice (tok/s, TTFT p50 and p95).
+"""
+
+from __future__ import annotations
+
+import sys
+import tempfile
+
+
+def attention(cs) -> None:
+    import torch
+
+    from hip_llama_tpu_torch.ops import attention as A
+    from hip_llama_tpu_torch.ops import cache as C
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*s, dtype=torch.bfloat16):
+        return torch.randn(s, generator=g, device=dev, dtype=dtype)
+
+    b, n_layers, kvh, h, s, hs, t = 8, 8, 32, 32, 512, 128, 256
+    k, v = rnd(b, n_layers, kvh, s, hs), rnd(b, n_layers, kvh, s, hs)
+    (k8, ks), (v8, vs) = (C.quantize_kv_rows(rnd(b, n_layers, kvh, s, hs, dtype=torch.float32))
+                          for _ in range(2))
+    pos = torch.tensor([0, 1, 100, 255, 256, 300, 450, s - 1], dtype=torch.int32, device=dev)
+    qkv = rnd(b, h + 2 * kvh, hs)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    qp = rnd(b, t, h, hs)
+    start = torch.zeros(b, dtype=torch.int32, device=dev) + 256
+    valid = torch.full((b,), t, dtype=torch.int32, device=dev)
+    table = (torch.randperm(b * 4, generator=torch.Generator().manual_seed(1)).view(b, 4)
+             .to(dev, torch.int32) + 1)
+    kp, vp = rnd(n_layers, kvh, b * 4 + 1, 128, hs), rnd(n_layers, kvh, b * 4 + 1, 128, hs)
+    q7 = qp[:, :128].contiguous()
+    cases = {
+        "K1": lambda i: A.attention_decode(q, k, v, i % n_layers, pos, kc, vc),
+        "K1 int8": lambda i: A.attention_decode(q, k8, v8, i % n_layers, pos, kc, vc, ks, vs),
+        "K5": lambda i: A.attention_decode_fused(qkv, k, v, i % n_layers, pos, h),
+        "K4": lambda i: A.attention_prefill(qp, k, v, i % n_layers, start, valid),
+        "K4 int8": lambda i: A.attention_prefill(qp, k8, v8, i % n_layers, start, valid, ks, vs),
+        "K6": lambda i: A.attention_decode_paged(q, kp, vp, table, i % n_layers, pos, kc, vc),
+        "K7": lambda i: A.attention_prefill_paged(q7, kp, vp, table, i % n_layers, start - 128,
+                                                  valid // 2),
+    }
+    for name, fn in cases.items():
+        fn(0)
+        torch.cuda.synchronize()
+        ms = [cs.cuda_ms(fn) for _ in range(3)]
+        print(f"{name}: ms {min(ms):.4f} ({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+
+
+def serve(cs) -> None:
+    import numpy as np
+    import torch
+
+    from hip_llama_tpu_torch.engine import InferenceEngine, Requests
+    from hip_llama_tpu_torch.sampler import Sampler
+
+    dev = torch.device("cuda")
+    cfg = cs.LLAMA2_7B
+    params = cs.random_7b_qparams(cfg, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = cs.llama_sized_tokenizer(tmp, cfg.vocab_size)
+    engine = InferenceEngine(cfg, params, tok, batch_size=8, max_seq_len=512, kv_quant=True)
+    cache = engine.new_cache()
+    toks = np.random.default_rng(5).integers(3, cfg.vocab_size, (8, 256)).tolist()
+    for t in (16, 64, 256):
+        cs.profile_window(f"q8 int8-kv prefill chunk (batch 8, T {t})", 4 if t < 256 else 2,
+                          lambda i, t=t: engine._prefill_tokens(
+                              cache, 8, {s: toks[s][:t] for s in range(8)},
+                              {s: 0 for s in range(8)}, bm=None))
+    targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
+    prompts = cs.make_prompts(tok, targets)
+    for rep in range(2):
+        engine = InferenceEngine(cfg, params, tok, batch_size=8, max_seq_len=512, kv_quant=True)
+        req = Requests(prompts=prompts, generations=[""] * len(prompts))
+        stats: dict = {}
+        engine.serve(req, steps=352, stats=stats,
+                     samplers=[Sampler(cfg.vocab_size, temperature=0.0) for _ in prompts])
+        print(f"serve {rep}: {stats['tok_per_s']:.2f} tok/s, ttft p50 "
+              f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms",
+              flush=True)
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) != 3 or argv[1] not in ("attention", "serve"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    sys.path.insert(0, argv[2])
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_trees: this needs a CUDA card", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+
+    print(f"checkout {argv[2]}: {cs.card_line()}", flush=True)
+    (attention if argv[1] == "attention" else serve)(cs)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -311,36 +311,43 @@ def _kernel_constant(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-@pytest.mark.parametrize("hs", A.HEAD_SIZES)
+@pytest.mark.parametrize("hs", [8, 16, 24, 32, 48, 64, 96, 128, 256])
 def test_prefill_smem_matches_the_kernel_layouts(hs):
-    """prefill_smem_bytes mirrors csrc/attention.cu: the tensor-core kernel
-    (TcLayout: a ring of kTcStages stages of a K and a V tile of kTcTile
-    rows as copied, bf16 rows padded to 16 elements, int8 rows with their
-    fp32 scales, and on int8 the two tiles widened to bf16) takes the same
-    bytes at every block, and fits a CTA; the fp32 kernel holds the block's
-    scores, so its bytes grow with the block (at HS 128 it takes 640 rows
-    and refuses 704)."""
+    """prefill_smem_bytes mirrors csrc/attention.cu at the compiled head
+    size HS = prefill_head_size(hs): the tensor-core kernel (TcLayout: a
+    ring of kTcStages stages of a K and a V tile of kTcTile rows as copied,
+    bf16 rows of HS rounded up to 16 in a power of two of 16-byte chunks,
+    int8 rows of HS bytes with their fp32 scales, and on int8 the two tiles
+    widened to bf16) takes the same bytes at every block, and fits a CTA;
+    the fp32 kernel holds the block's scores, so its bytes grow with the
+    block (at HS 128 it takes 640 rows and refuses 704)."""
     assert _kernel_constant("kTcStages") == A._TC_STAGES
     assert _kernel_constant("kTcTile") == _kernel_constant("kTcRows") == A._PF_TILE
     tile = _kernel_constant("kTcTile")
     stages = _kernel_constant("kTcStages")
-    wide = tile * max(hs, 16) * 2
+    hsc = A.prefill_head_size(hs)
+    assert hsc >= hs and hsc in (8, 16, 32, 48, 64, 96, 128, 256)
+    chunks = {8: 2, 16: 2, 32: 4, 48: 8, 64: 8, 96: 16, 128: 16, 256: 32}[hsc]
+    wide = tile * chunks * 16
     want = {torch.bfloat16: stages * 2 * wide,
-            torch.int8: stages * (2 * tile * hs + 2 * tile * 4) + 2 * wide}
+            torch.int8: stages * (2 * tile * hsc + 2 * tile * 4) + 2 * wide}
     for bk in (8, 64, 96, 128, 256, 512, 576, 1024, 4096):
         for dt, need in want.items():
             assert A.prefill_smem_bytes(hs, bk, dt) == need
             A.check_prefill_block(hs, bk, dt)
-    assert want[torch.bfloat16] <= 64 * 1024  # three CTAs an SM at HS 128
+    if hsc <= 128:
+        assert want[torch.bfloat16] <= 64 * 1024  # three CTAs an SM at HS 128
     f32 = [A.prefill_smem_bytes(hs, bk, torch.float32) for bk in (64, 128, 256, 512)]
     assert f32 == sorted(f32) and len(set(f32)) == 4
-    for bk in (576, 640, 704, 1024):
-        if A.prefill_smem_bytes(hs, bk, torch.float32) > A.SMEM_PER_CTA:
-            assert hs == 128 and bk > 640 or bk > 704
+    for bk in (64, 576, 640, 704, 1024):
+        need = 4 * (64 * hsc + 64 * (hsc + 1) + 64 * (-(-bk // 64) * 64 + 1) + 3 * 64)
+        assert A.prefill_smem_bytes(hs, bk, torch.float32) == need
+        if need > A.SMEM_PER_CTA:
+            assert hsc == 256 or hsc == 128 and bk > 640 or bk > 704
             with pytest.raises(ValueError, match="shared memory"):
                 A.check_prefill_block(hs, bk, torch.float32)
         else:
-            assert hs < 128 or bk <= 640
+            assert hsc < 128 or bk <= 640
             A.check_prefill_block(hs, bk, torch.float32)
 
 
@@ -376,3 +383,139 @@ def test_prefill_wrappers_take_the_route_of_the_cache_dtype(launches, s, cache):
     dtype_code = 0 if dt == torch.float32 else 1
     assert got == [(f"attention_prefill{suffix}", _pick_block_k(s, 512), dtype_code),
                    (f"attention_prefill_paged{suffix}", ps, dtype_code)], got
+
+
+# ---------------------------------------------------------------------------
+# every shape the JAX package serves: head sizes that are multiples of 8 up to
+# 256, any number of query heads per KV head, `a8` group sizes that are
+# multiples of 8, K16's group sizes, K18's rows
+
+
+def _cache_planes(shape, cache):
+    cdt = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[cache]
+    k, v = (_on_card(torch.zeros(shape, dtype=cdt)) for _ in range(2))
+    sc = [_on_card(torch.ones(shape[:4])) for _ in range(2)] if cache == "int8" else [None, None]
+    return k, v, sc
+
+
+@pytest.mark.parametrize("hs", [48, 96])
+@pytest.mark.parametrize("m", [3, 16])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16", "int8"])
+def test_cuda_wrappers_take_every_head_size_and_gqa(launches, hs, m, cache):
+    """K1, K5, K4, K6 and K7 (and K23 on bf16 and int8 caches) launch at head
+    sizes 48 and 96 with 3 and 16 query heads per KV head, shapes the JAX
+    package serves, passing the head size and the head counts through; the
+    decode kernels hold the scores of at most KV_GROUP heads a task."""
+    from hip_llama_tpu_torch.ops import layer_fused as LF
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    b, kvh, s, ps, n_pages = 2, 2, 96, 16, 9
+    h = m * kvh
+    dt = torch.float32 if cache == "float32" else torch.bfloat16
+    k, v, sc = _cache_planes((b, 1, kvh, s, hs), cache)
+    pos = _on_card(torch.zeros(b, dtype=torch.int32))
+    cur = [_on_card(torch.zeros(b, kvh, hs, dtype=dt)) for _ in range(2)]
+    A.attention_decode(_on_card(torch.zeros(b, h, hs, dtype=dt)), k, v, 0, pos, *cur, *sc)
+    A.attention_decode_fused(_on_card(torch.zeros(b, h + 2 * kvh, hs, dtype=dt)), k, v, 0, pos,
+                             h, *sc)
+    A.attention_prefill(_on_card(torch.zeros(b, 16, h, hs, dtype=dt)), k, v, 0, pos, pos, *sc)
+    kp, vp, scp = _cache_planes((1, kvh, n_pages, ps, hs), cache)
+    table = _on_card(torch.ones(b, 4, dtype=torch.int32))
+    A.attention_decode_paged(_on_card(torch.zeros(b, h, hs, dtype=dt)), kp, vp, table, 0, pos,
+                             *cur, *scp)
+    A.attention_prefill_paged(_on_card(torch.zeros(b, 16, h, hs, dtype=dt)), kp, vp, table, 0,
+                              pos, pos, *scp)
+    suffix = {"float32": "", "bfloat16": "", "int8": "_int8"}[cache]
+    pf = {"float32": "_f32", "bfloat16": "", "int8": "_int8"}[cache]
+    want = [f"attention_decode{suffix}", f"attention_decode_fused{suffix}",
+            f"attention_prefill{pf}", f"attention_decode_paged{suffix}",
+            f"attention_prefill_paged{pf}"]
+    if cache != "float32":
+        d, hid = h * hs, 16
+
+        def qt(kk, n):
+            return Q.QTensor(_on_card(torch.zeros(kk, n, dtype=torch.int8)),
+                             _on_card(torch.ones(kk // 16, n)))
+
+        g = _on_card(torch.ones(d))
+        LF.q8_layer_fused(_on_card(torch.zeros(b, d, dtype=dt)), qt(d, (h + 2 * kvh) * hs),
+                          qt(d, d), qt(d, 2 * hid), qt(hid, d), g, g, k, v, 0, pos, *sc,
+                          n_heads=h)
+        want.append("q8_layer_fused")  # one entry point for both caches
+    assert [fn for fn, _ in launches] == want
+    for fn, args in launches:
+        ints = [a for a in args if isinstance(a, int) and not isinstance(a, bool)]
+        assert hs in ints and h in ints and kvh in ints, (fn, args)
+
+
+@pytest.mark.parametrize("gs", [16, 48])
+@pytest.mark.parametrize("m", [8, 40])
+def test_a8_wrappers_take_group_sizes_that_are_multiples_of_8(launches, gs, m):
+    """The `a8` kernels of K15, K17, K20, K21 and K22 take group sizes 16
+    (int4 at dim 288) and 48, on their GEMV (8 rows) and tensor-core (40
+    rows) paths, where the JAX rules engage `a8` (q8_a8_engages,
+    q4_a8_engages, q8_layered_a8_engages)."""
+    from hip_llama_tpu_torch.ops import quant as Q
+    from hip_llama_tpu_torch.ops import quant4 as Q4
+
+    k, n = 192, 128
+    rng = np.random.default_rng(gs + m)
+    x = _on_card(torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+                 .to(torch.bfloat16))
+
+    def card(t):
+        return type(t)(_on_card(t.q), _on_card(t.s))
+
+    w = torch.from_numpy(rng.standard_normal((k, 2 * n)).astype(np.float32))
+    q8, q8_13 = card(Q.q8_quantize_weights(w[:, :n], gs)), card(Q.q8_quantize_weights(w, gs))
+    q4, q4_13 = card(Q4.q4_quantize_weights(w[:, :n], gs)), card(Q4.q4_quantize_weights(w, gs))
+    stacked = Q.q8_quantize_weights(w[:, :n][None].repeat(2, 1, 1), gs)
+    stacked = Q.QTensor(_on_card(stacked.q), _on_card(stacked.s))
+    assert q8.group_size == q4.group_size == gs
+    assert Q.q8_a8_engages(m, k, n, gs) and Q4.q4_a8_engages(m, k, n, gs)
+    Q.q8_matmul(x, q8, mode="a8")
+    Q.q8_matmul_silu(x, q8_13, mode="a8")
+    Q.q8_matmul_layered(x, stacked, 1, mode="a8")
+    Q4.q4_matmul(x, q4, mode="a8")
+    Q4.q4_matmul_silu(x, q4_13, mode="a8")
+    assert [fn for fn, _ in launches] == ["q8_matmul_a8", "q8_matmul_silu_a8",
+                                          "q8_matmul_layered_a8", "q4_matmul_a8",
+                                          "q4_matmul_silu_a8"]
+    assert all(gs in args for _, args in launches)
+
+
+def test_xheads_wrapper_takes_group_size_4(launches):
+    """K16 takes every group size xheads_engages admits: 4 at head size 128,
+    groups shorter than the mainloop's 8-row dequantization share."""
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    m, gh, hs, n, gs = 32, 2, 128, 128, 4
+    assert Q.xheads_engages(m, gh, hs, gh * hs, n, gs)
+    qt = Q.QTensor(_on_card(torch.zeros(gh * hs, n, dtype=torch.int8)),
+                   _on_card(torch.ones(gh * hs // gs, n)))
+    Q.q8_matmul_xheads(_on_card(torch.zeros(m, gh, hs, dtype=torch.bfloat16)), qt)
+    assert [(fn, args[-2]) for fn, args in launches] == [("q8_matmul_xheads", gs)]
+
+
+@pytest.mark.parametrize("m", [8, 16, 17, 64, 128, 256])
+def test_ffn_wrapper_takes_the_tensor_cores_above_16_rows(launches, m):
+    """K18 launches its strip kernel up to 16 rows and the tensor-core
+    kernel (csrc/ffn.cu) above, with ffn_splits slices of the hidden width
+    and workspaces of the sizes the C entry point reads."""
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    k, h, gs = 128, 256, 32
+
+    def qt(kk, n):
+        return Q.QTensor(_on_card(torch.zeros(kk, n, dtype=torch.int8)),
+                         _on_card(torch.ones(kk // gs, n)))
+
+    x = _on_card(torch.zeros(m, k, dtype=torch.bfloat16))
+    n0, t0 = Q.q8_matmul_ffn.launches, Q.q8_matmul_ffn.launches_tc
+    Q.q8_matmul_ffn(x, qt(k, 2 * h), qt(h, k), x, _on_card(torch.ones(k)))
+    [(fn, args)] = launches
+    if m <= 16:
+        assert fn == "q8_matmul_ffn" and Q.q8_matmul_ffn.launches == n0 + 1
+    else:
+        assert fn == "q8_matmul_ffn_tc" and Q.q8_matmul_ffn.launches_tc == t0 + 1
+        assert args[11:18] == (m, k, h, k, gs, gs, Q.ffn_splits(m, h, k))

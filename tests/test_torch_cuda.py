@@ -994,12 +994,16 @@ def test_q4_matmul_silu_a8_kernel(m, shape, norm):
     _close(got, want, torch.bfloat16)
 
 
-def test_a8_wrappers_reject_group_sizes_the_kernels_lack():
+def test_a8_wrappers_serve_group_size_48():
+    """Group size 48 (no divisor of the 32-deep int8 mma step) is served by
+    the `a8` kernels, on the GEMV (4 rows) and the tiled path (40 rows)."""
     dev = _card()
     rng = np.random.default_rng(44)
     qt = _qt(rng, 96, 64, 48, dev)
-    with pytest.raises(ValueError, match="group sizes"):
-        Q.q8_matmul(_rand(rng, (4, 96), torch.bfloat16, dev), qt, mode="a8")
+    for m in (4, 40):
+        assert Q.q8_a8_engages(m, 96, 64, 48)
+        _a8_case(Q.q8_matmul, Q.q8_matmul_plain, qt, _rand(rng, (m, 96), torch.bfloat16, dev),
+                 {}, True)
 
 
 # ---------------------------------------------------------------------------
@@ -1351,3 +1355,212 @@ def test_graph_decode_chain_equals_the_eager_chain(quant):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager)
+
+
+# ---------------------------------------------------------------------------
+# every shape the JAX package serves: head sizes that are multiples of 8 up to
+# 256 (zero-padded to a compiled size), any number of query heads per KV head,
+# `a8` group sizes that are multiples of 8, K16's groups shorter than 8 rows;
+# and K18 on the tensor cores above 16 rows
+
+# (HS, query heads per KV head): stories15M's 48 with its 3, 96 and 16, a
+# padded 24, 256
+HEAD_CASES = [(48, 3), (48, 16), (96, 3), (96, 16), (24, 3), (256, 2)]
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("hs,m", HEAD_CASES)
+def test_attention_kernels_at_every_head_size_and_gqa(hs, m, cache):
+    """K1, K5, K4, K6 and K7 against their plain versions at head sizes the
+    kernels pad (48 compiled for prefill, 64 for decode; 96; 24) and at 3
+    and 16 query heads per KV head (decode tasks of at most 8; prefill rows
+    of a tile that 3 does not divide)."""
+    dev = _card()
+    b, kvh, s, t = 5, 2, 200, 48
+    h = m * kvh
+    rng = np.random.default_rng(hs + m)
+    act = torch.bfloat16 if cache == torch.int8 else cache
+    if cache == torch.int8:
+        kv = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+        k, v, sc = kv.k, kv.v, (kv.k_scale, kv.v_scale)
+    else:
+        k, v, sc = _rand(rng, (b, 2, kvh, s, hs), cache, dev), _rand(rng, (b, 2, kvh, s, hs),
+                                                                    cache, dev), ()
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), act, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s, b - 2)], dtype=torch.int32, device=dev)
+    dtol = INT8_TOL[act] if cache == torch.int8 else TOL[act]
+    for got, want in (
+            (A.attention_decode(q, k, v, 1, pos, kc, vc, *sc),
+             A.attention_decode_plain(q, k, v, 1, pos, kc, vc, *sc)),
+            (A.attention_decode_fused(qkv, k, v, 1, pos, h, *sc),
+             A.attention_decode_fused_plain(qkv, k, v, 1, pos, h, *sc))):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=dtol, rtol=dtol)
+    qp = _rand(rng, (b, t, h, hs), act, dev)
+    start, valid = _ragged_chunk(rng, b, t, s, dev)
+    got = A.attention_prefill(qp, k, v, 0, start, valid, *sc)
+    want = A.attention_prefill_plain(qp, k, v, 0, start, valid, *sc)
+    torch.cuda.synchronize()
+    live = torch.arange(t, device=dev)[None, :] < valid[:, None]
+    if cache == torch.float32:
+        _close(got[live], want[live], cache)
+    else:
+        _attn_close(got, want, live)
+    # the paged pool: pages of 16, the decode and prefill kernels
+    ps, max_pages = 16, 8
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, cache, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    psc = (pool.k_scale, pool.v_scale) if cache == torch.int8 else ()
+    sp = max_pages * ps
+    ppos = torch.tensor(np.r_[0, ps, sp - 1, rng.integers(0, sp, b - 3)], dtype=torch.int32,
+                        device=dev)
+    got = A.attention_decode_paged(q, pool.k, pool.v, table, 0, ppos, kc, vc, *psc)
+    want = A.attention_decode_paged_plain(q, pool.k, pool.v, table, 0, ppos, kc, vc, *psc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=dtol, rtol=dtol)
+    tp = 16
+    pstart = torch.tensor(np.r_[0, (max_pages - 1) * ps, ps, rng.integers(0, max_pages, b - 3)
+                                * ps], dtype=torch.int32, device=dev)
+    pvalid = torch.tensor(np.r_[tp, tp // 2, 0, rng.integers(1, tp + 1, b - 3)],
+                          dtype=torch.int32, device=dev)
+    qpp = qp[:, :tp].contiguous()
+    got = A.attention_prefill_paged(qpp, pool.k, pool.v, table, 0, pstart, pvalid, *psc)
+    want = A.attention_prefill_paged_plain(qpp, pool.k, pool.v, table, 0, pstart, pvalid, *psc)
+    torch.cuda.synchronize()
+    live = torch.arange(tp, device=dev)[None, :] < pvalid[:, None]
+    if cache == torch.float32:
+        _close(got[live], want[live], cache)
+    else:
+        _attn_close(got, want, live)
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("hs,m", [(48, 3), (96, 16)])
+def test_q8_layer_fused_at_every_head_size_and_gqa(hs, m, cache):
+    """K23 at head size 48 with 3 query heads per KV head (stories15M's
+    layer, dim 288, hidden 768) and 96 with 16, against its plain version."""
+    dev = _card()
+    b, kvh, s = 4, 2, 96
+    h = m * kvh
+    d, hid, gs = h * hs, 768, 32
+    rng = np.random.default_rng(hs * m)
+    if cache == torch.int8:
+        kv = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+        k, v, sc = kv.k, kv.v, (kv.k_scale, kv.v_scale)
+    else:
+        k, v, sc = _rand(rng, (b, 2, kvh, s, hs), cache, dev), _rand(rng, (b, 2, kvh, s, hs),
+                                                                    cache, dev), ()
+    w = dict(wqkv=_qt(rng, d, (h + 2 * kvh) * hs, gs, dev), wo=_qt(rng, d, d, gs, dev),
+             w13=_qt(rng, d, 2 * hid, gs, dev), w2=_qt(rng, hid, d, gs, dev))
+    g1, g2 = ((1 + 0.1 * _rand(rng, (d,), torch.float32, dev)).contiguous() for _ in range(2))
+    x = _rand(rng, (b, d), torch.bfloat16, dev)
+    pos = torch.tensor(np.r_[0, s - 1, rng.integers(0, s - 1, b - 2)], dtype=torch.int32,
+                       device=dev)
+    args = (x, w["wqkv"], w["wo"], w["w13"], w["w2"], g1, g2, k, v, 1, pos, *sc)
+    got, rows = LF.q8_layer_fused(*args, n_heads=h)
+    want, want_rows = LF.q8_layer_fused_plain(*args, n_heads=h)
+    torch.cuda.synchronize()
+    _close(rows, want_rows, torch.bfloat16)
+    _close(got, want, torch.bfloat16)
+
+
+# (K, N, gs): the int4 group size at dim 288 (16), 48, and a group of 16
+# beside 32-deep steps at a 7B width
+A8_GS_SHAPES = [(288, 288, 16), (288, 384, 48), (192, 128, 48), (4096, 1024, 16)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 300])
+@pytest.mark.parametrize("shape", A8_GS_SHAPES)
+@pytest.mark.parametrize("epi", ["none", "norm_rope"])
+def test_a8_kernels_at_group_sizes_16_and_48(m, shape, epi):
+    """The `a8` kernels of K15, K17, K20, K21 and K22 at group sizes that are
+    no multiple of 32: the GEMV path and the tiled path's k16 steps, whose
+    group sums are rescaled apart (K21 and K22 at twice K: their packed
+    halves hold whole groups)."""
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(k + n + gs + m)
+
+    def gate_case(wrapper, plain, w13, x, norm, engages):
+        n0, a0 = wrapper.launches, wrapper.launches_a8
+        got = wrapper(x, w13, mode="a8", **norm)
+        want = plain(x, w13, mode="a8", **norm)
+        torch.cuda.synchronize()
+        assert (wrapper.launches_a8 - a0, wrapper.launches - n0) == (
+            (1, 0) if engages else (0, 1))
+        _close(got, want, torch.bfloat16)
+
+    for kk, quant, wrap, gate in ((k, _qt, Q.q8_matmul, Q.q8_matmul_silu),
+                                  (2 * k, _q4t, Q4.q4_matmul, Q4.q4_matmul_silu)):
+        x = _rand(rng, (m, kk), torch.bfloat16, dev)
+        kw = _epilogue(rng, m, kk, n, epi, dev)
+        engages = (Q4.q4_a8_engages if quant is _q4t else Q.q8_a8_engages)(m, kk, n, gs)
+        plain = Q.q8_matmul_plain if quant is _qt else Q4.q4_matmul_plain
+        _a8_case(wrap, plain, quant(rng, kk, n, gs, dev), x, kw, engages)
+        norm = {k_: v for k_, v in kw.items() if k_ == "norm_weight"}
+        gate_plain = Q.q8_matmul_silu_plain if quant is _qt else Q4.q4_matmul_silu_plain
+        gate_case(gate, gate_plain, quant(rng, kk, 2 * n, gs, dev), x, norm, engages)
+    # K20 on layer 1 of a stacked weight, its norm weight stacked too
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = _epilogue(rng, m, k, n, epi, dev)
+    if "norm_weight" in kw:
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (2, k), torch.float32, dev)).contiguous()
+    st = _stacked_qt(rng, 2, k, n, gs, dev)
+    a0 = Q.q8_matmul_layered.launches_a8
+    got = Q.q8_matmul_layered(x, st, 1, mode="a8", **kw)
+    want = Q.q8_matmul_layered_plain(x, st, 1, mode="a8", **kw)
+    torch.cuda.synchronize()
+    assert Q.q8_matmul_layered.launches_a8 - a0 == int(Q.q8_layered_a8_engages(m, k, n, gs))
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [32, 200])
+@pytest.mark.parametrize("gs,gh", [(4, 4), (8, 4), (24, 3)])
+def test_q8_matmul_xheads_at_group_sizes_below_8(m, gs, gh):
+    """K16 at group size 4 (head size 128: groups shorter than the 8 rows a
+    thread dequantizes, their scales read a row at a time), 8 and 24 (the
+    8-row shares of a group that is no power of two, over 3 heads), against
+    its plain version, on a strided view of the heads."""
+    dev = _card()
+    hs, n = 128, 384
+    rng = np.random.default_rng(64 + gs)
+    qt = _qt(rng, gh * hs, n, gs, dev)
+    x3 = _rand(rng, (m, 2 * gh, hs), torch.bfloat16, dev)[:, gh:]
+    res = _rand(rng, (m, n), torch.bfloat16, dev)
+    assert Q.xheads_engages(m, gh, hs, gh * hs, n, gs)
+    n0 = Q.q8_matmul_xheads.launches
+    got = Q.q8_matmul_xheads(x3, qt, residual=res)
+    want = Q.q8_matmul_xheads_plain(x3, qt, residual=res)
+    torch.cuda.synchronize()
+    assert Q.q8_matmul_xheads.launches == n0 + 1
+    _close(got, want, torch.bfloat16)
+
+
+# (K, H, gs): the golden fixture's hidden 192, a ragged N (208), stories15M's
+# widths, Llama-2-7B's; and a group size that is no multiple of 8
+K18_TC_SHAPES = [(64, 192, 64), (208, 256, 16), (288, 768, 32), (4096, 11008, 64),
+                 (128, 256, 4)]
+
+
+@pytest.mark.parametrize("m", [17, 64, 100, 128, 256])
+@pytest.mark.parametrize("shape", K18_TC_SHAPES)
+def test_q8_matmul_ffn_tensor_cores(m, shape):
+    """K18 above 16 rows (csrc/ffn.cu): the gate product, the split-K down
+    product and the ordered reduce against the plain version, at ragged row
+    counts (17, 100) and both row tiles (64, 128)."""
+    dev = _card()
+    k, h, gs = shape
+    rng = np.random.default_rng(k + h + m)
+    qt13, qt2 = _qt(rng, k, 2 * h, gs, dev), _qt(rng, h, k, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    res = _rand(rng, (m, k), torch.bfloat16, dev)
+    g = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    n0, t0 = Q.q8_matmul_ffn.launches, Q.q8_matmul_ffn.launches_tc
+    got = Q.q8_matmul_ffn(x, qt13, qt2, res, g)
+    want = Q.q8_matmul_ffn_plain(x, qt13, qt2, res, g)
+    torch.cuda.synchronize()
+    assert (Q.q8_matmul_ffn.launches, Q.q8_matmul_ffn.launches_tc) == (n0, t0 + 1)
+    _close(got, want, torch.bfloat16)

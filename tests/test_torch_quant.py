@@ -133,6 +133,24 @@ def test_plain_q8_matmul_ffn_matches_jax():
     assert_close(_np(got), _np(two), **TOL)
 
 
+@pytest.mark.parametrize("m", [17, 64, 256])
+def test_plain_q8_matmul_ffn_matches_jax_at_prefill_rows(m):
+    """The rows q8_matmul_ffn's tensor-core kernel serves on the card (17 to
+    256; csrc/ffn.cu): the plain form against the JAX kernel in interpret
+    mode, which takes them too (256 rows of K 128 fit its 2 MiB)."""
+    k, h, gs = 128, 256, 32
+    assert Q.ffn_takes_kernel(m, k)
+    rng = np.random.default_rng(m)
+    j13, p13 = _weights(rng, k, 2 * h, gs)
+    j2, p2 = _weights(rng, h, k, gs)
+    xj, xp = _bf16(rng.standard_normal((m, k)))
+    g = (1 + 0.1 * rng.standard_normal(k)).astype(np.float32)
+    want = jq.q8_matmul_ffn(xj, j13, j2, xj, jnp.asarray(g), interpret=True)
+    got = Q.q8_matmul_ffn(xp, p13, p2, xp, torch.from_numpy(g))
+    assert got.shape == (m, k)
+    assert_close(_np(got), _np(want), **TOL, msg=f"M {m}")
+
+
 @pytest.mark.parametrize("route", ["kernel", "fallback"])
 def test_plain_ffn_at_fixture_width_matches_jax(route):
     """Hidden 192, the golden fixture's: K17 and K18 against the JAX
@@ -158,6 +176,19 @@ def test_ffn_row_rule_matches_jax():
     at Llama-2-7B width that is M <= 128."""
     assert Q.ffn_takes_kernel(128, 4096) and not Q.ffn_takes_kernel(129, 4096)
     assert Q.ffn_takes_kernel(256, 128) and not Q.ffn_takes_kernel(257, 128)
+
+
+@pytest.mark.parametrize("m,h,n", [(17, 11008, 4096), (128, 11008, 4096), (256, 11008, 4096),
+                                   (64, 192, 64), (100, 768, 288), (17, 64, 16)])
+def test_ffn_splits_cover_the_hidden_width(m, h, n):
+    """The down product's slices of q8_matmul_ffn's tensor-core route: whole
+    64-row steps, none empty, together the hidden width; their fp32 partials
+    stay under 40 MB at 7B width."""
+    splits = Q.ffn_splits(m, h, n)
+    steps = -(-h // Q.FFN_TC_STEP)
+    per = -(-steps // splits)
+    assert 1 <= splits <= steps and (splits - 1) * per < steps <= splits * per
+    assert splits * m * n * 4 < 40e6
 
 
 def test_gemv_plan_covers_k():
