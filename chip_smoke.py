@@ -14,10 +14,16 @@ Phases, in order; each raises on failure and none is caught:
      gathered or quantized beforehand, as CUDA-graph replays), and its bound;
      then K4 at the port bench's ttft shape (T 512 over S 1024, two JAX
      blocks), here in bf16 and after phase 6a on an int8 cache;
-  3b. the Q8 kernels (q8_matmul, q8_matmul_silu, q8_matmul_ffn at M 8 on its
-     strip kernel and at M 32 and 128 on its tensor-core kernel,
-     attention_decode_fused, q8_layer_fused) against their plain versions at
-     7B shapes in bf16, with the same timings;
+  3b. the Q8 kernels (q8_matmul and q8_matmul_silu at M 8 on the GEMV and
+     above 16 rows on the wgmma tiles: QKV with the norm and RoPE at M 2048
+     and the bench's 4088, wo and W2 at M 2048 with the residual, the gate at
+     M 512, 2048 and 4088, and the row rule's rows 16, 17, 32, 128 and 512;
+     q8_matmul_ffn at M 8 on its strip kernel and at M 32 and 128 on its
+     tensor-core kernel, attention_decode_fused, q8_layer_fused) against
+     their plain versions at 7B shapes in bf16, with the same timings; and
+     the `mainloop` lines: the wgmma mainloop's products alone (no copy, no
+     dequantization), each step drained before the consumers' barrier and
+     kept in flight across it, as a share of the 989 TFLOP/s bf16 peak;
   4. the committed golden fixture through the port's CLI (fp32, greedy,
      -b 4) on all five *_in_8 corpora: byte-identical to assets/out/cpu_f32;
   4b. the same with --quant q8, scored against the JAX package's Q8 outputs
@@ -248,6 +254,10 @@ KERNEL_SOURCES = {
     # K18 above 16 rows: the tensor-core kernel (a T-16 chunk of 8 slots)
     "q8_matmul_ffn_tc": ("hip_llama_tpu_torch/csrc/ffn.cu", "hip_llama_tpu/ops/quant.py:894"),
     "q8_matmul_silu": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:609"),
+    # K15 and K17 above 16 rows: the tiles on q8_wgmma.cuh's pipelined mainloop
+    "q8_matmul_wgmma": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:1213"),
+    "q8_matmul_silu_wgmma": ("hip_llama_tpu_torch/csrc/quant.cu",
+                             "hip_llama_tpu/ops/quant.py:609"),
     "q8_layer_fused": ("hip_llama_tpu_torch/csrc/layer_fused.cu",
                        "hip_llama_tpu/ops/layer_fused.py:316"),
     # the int8 KV cache: the int8 branches of six kernels, and K12
@@ -322,8 +332,9 @@ KERNEL_SOURCES = {
 DENSE_PATH = ("attention_decode", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
 # (K18 on a T-16 chunk of 8 slots, 128 rows, runs its tensor-core kernel;
 # the decode FFN is inside K23)
-Q8_PATH = ("q8_matmul", "q8_layer_fused", "q8_matmul_ffn_tc", "q8_matmul_silu",
-           "kv_commit_rows", "kv_write_chunk", "attention_prefill")
+Q8_PATH = ("q8_matmul", "q8_matmul_wgmma", "q8_layer_fused", "q8_matmul_ffn_tc",
+           "q8_matmul_silu", "q8_matmul_silu_wgmma", "kv_commit_rows", "kv_write_chunk",
+           "attention_prefill")
 # the golden fixture's Q8 runs: prefill chunks of at most 256 rows (more than
 # 16 at -b 4) take K18's tensor-core kernel, the four-kernel decode layer its
 # strip kernel
@@ -355,9 +366,9 @@ GOLDEN_INT8_RUNS = {
                                          "q8_matmul_ffn", "q8_matmul_ffn_tc")
                                         + INT8_CACHE_PATH, False),
 }
-Q8_INT8_PATH = ("q8_matmul", "q8_layer_fused_int8", "q8_matmul_ffn_tc", "q8_matmul_silu",
-                "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
-                "attention_prefill_int8")
+Q8_INT8_PATH = ("q8_matmul", "q8_matmul_wgmma", "q8_layer_fused_int8", "q8_matmul_ffn_tc",
+                "q8_matmul_silu", "q8_matmul_silu_wgmma", "kv_commit_rows_int8",
+                "kv_write_chunk_int8", "scale_write_chunk", "attention_prefill_int8")
 # the int4 path: K21 and K22 carry every product, whatever the row count
 # and HIPLLAMA_LAYER_FUSE say; the decode layer is four kernels
 Q4_PATH = ("q4_matmul", "q4_matmul_silu", "attention_decode_fused", "kv_commit_rows",
@@ -816,16 +827,39 @@ def phase_q8_kernels() -> dict[str, dict]:
         out.setdefault(name, []).append(
             q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, **tol))
 
-    # K15: QKV with norm + RoPE at decode and prefill rows, wo with the
-    # residual, the classifier with the norm
+    # the mainloop's products alone (no copy, no dequantization): 8 waves of
+    # 132 CTAs of 128 x 128 tiles over K 4096, each step's wgmmas drained
+    # before the consumers' barrier (the schedule before the pipelining) and
+    # kept in flight across it (q8_wgmma.cuh's), as a share of the bf16 peak
+    ctas, steps = 8 * 132, 4096 // Q.WGMMA_STEP_K
+    flops = 2 * 128 * 128 * Q.WGMMA_STEP_K * steps * ctas
+    for in_flight in (0, 1):
+        t = cuda_ms(lambda i: Q.wgmma_mainloop_probe(ctas, steps, in_flight, dev))
+        MAINLOOP[in_flight] = flops / t / 1e9
+        print(f"mainloop products only, wgmma.wait_group {in_flight} before the consumers' "
+              f"barrier ({ctas} CTAs of {steps} {Q.WGMMA_STEP_K}-deep steps of a 128 x 128 "
+              f"tile): {t:.4f} ms, "
+              f"{flops / t / 1e9:.1f} TFLOP/s = {flops / t / 1e9 / 989:.3f} of the 989 TFLOP/s "
+              f"bf16 peak", flush=True)
+
+    # K15: QKV with norm + RoPE at decode and prefill rows (the GEMV up to
+    # 16 rows, the wgmma tiles above: q8_rows_kernel), wo with the residual,
+    # W2 with the residual at K 11008, the classifier with the norm
+    def k15(m):
+        return "q8_matmul" if Q.q8_rows_kernel(m) == "gemv" else "q8_matmul_wgmma"
+
     wq = weights(d, nqkv, 2)
     wqb = deq(wq)
     rope = dict(rope_limit=2 * d, rope_head=128, rope_theta=10000.0)
-    for m in (8, 2048):
+    # 2048 and 4088: a T-256 chunk of 8 slots, the port bench's ttft prefill
+    # (8 x 511); then the routing rule's rows on both sides of 16
+    for m in (8, 2048, 4088, 16, 17, 32, 128, 512):
         x = rnd(m, d)
         pos = (torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32, device=dev)
                if m == 8 else torch.arange(m, dtype=torch.int32, device=dev) % 512)
-        case("q8_matmul", f"QKV M {m}, norm + RoPE",
+        label = f"QKV M {m}, norm + RoPE" + ("" if m in (8, 2048, 4088) else
+                                              f"; rule row: {Q.q8_rows_kernel(m)}")
+        case(k15(m), label,
              lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: Q.q8_matmul_plain(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: x @ wqb[i % 2],
@@ -833,12 +867,24 @@ def phase_q8_kernels() -> dict[str, dict]:
     del wq, wqb
     wo = weights(d, d, 4)
     wob = deq(wo)
-    x, res = rnd(8, d), rnd(8, d)
-    case("q8_matmul", "wo M 8, residual",
-         lambda i: Q.q8_matmul(x, wo[i % 4], residual=res),
-         lambda i: Q.q8_matmul_plain(x, wo[i % 4], residual=res),
-         lambda i: x @ wob[i % 4], wbytes(d, d) + 3 * 8 * d * 2, 2 * 8 * d * d)
+    for m in (8, 2048):
+        x, res = rnd(m, d), rnd(m, d)
+        case(k15(m), f"wo M {m}, residual",
+             lambda i: Q.q8_matmul(x, wo[i % 4], residual=res),
+             lambda i: Q.q8_matmul_plain(x, wo[i % 4], residual=res),
+             lambda i: x @ wob[i % 4], wbytes(d, d) + 3 * m * d * 2, 2 * m * d * d)
     del wo, wob
+    w2 = weights(hid, d, 2)
+    w2b = deq(w2)
+    m = 2048
+    xh, res = rnd(m, hid), rnd(m, d)
+    case(k15(m), f"W2 M {m}, K {hid}, residual",
+         lambda i: Q.q8_matmul(xh, w2[i % 2], residual=res),
+         lambda i: Q.q8_matmul_plain(xh, w2[i % 2], residual=res),
+         lambda i: xh @ w2b[i % 2], wbytes(hid, d) + m * hid * 2 + 2 * m * d * 2,
+         2 * m * hid * d)
+    del w2, w2b, xh
+    x = rnd(8, d)
     wc = weights(d, voc, 1)
     wcb = deq(wc)
     case("q8_matmul", "classifier M 8, norm",
@@ -848,13 +894,15 @@ def phase_q8_kernels() -> dict[str, dict]:
          2 * 8 * d * voc)
     del wc, wcb
 
-    # K17 at prefill rows; K18 at decode rows (its strip kernel) and at a
-    # T-4 and a T-16 chunk of 8 slots (its tensor-core kernel)
+    # K17 at decode rows (the GEMV) and prefill rows (the wgmma tiles; 4088
+    # the bench's ttft prefill); K18 at decode rows (its strip kernel) and
+    # at a T-4 and a T-16 chunk of 8 slots (its tensor-core kernel)
     w13, w2 = weights(d, 2 * hid, 2), weights(hid, d, 2)
     w13b, w2b = deq(w13), deq(w2)
-    for m in (512, 2048):
+    for m in (8, 2048, 512, 4088, 32, 128):
         x = rnd(m, d)
-        case("q8_matmul_silu", f"W1|W3 gate M {m}, norm",
+        case("q8_matmul_silu" if Q.q8_rows_kernel(m) == "gemv" else "q8_matmul_silu_wgmma",
+             f"W1|W3 gate M {m}, norm",
              lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm),
              lambda i: Q.q8_matmul_silu_plain(x, w13[i % 2], norm_weight=norm),
              lambda i: x @ w13b[i % 2],
@@ -906,10 +954,11 @@ def phase_q8_kernels() -> dict[str, dict]:
          + 2 * sum(pos_l) * kvh * hs * 2 + (2 * b * d + b * 2 * kvh * hs) * 2 + 2 * d * 4 + 4 * b,
          2 * b * (d * nqkv + d * d + 3 * d * hid) + 4 * h * hs * sum(p + 1 for p in pos_l))
     del lw, cache
-    # the kernels line carries each kernel's decode case (the prefill case
-    # for K17, which serves prefill rows only; M 128, a T-16 chunk of 8
-    # slots, for K18's tensor-core kernel); max_abs_err over all cases
-    first = {"q8_matmul": 0, "q8_matmul_silu": 1, "q8_matmul_ffn": 0, "q8_matmul_ffn_tc": 1,
+    # the kernels line carries each kernel's decode case (M 2048, a T-256
+    # chunk of 8 slots, for the wgmma tiles; M 128, a T-16 chunk of 8 slots,
+    # for K18's tensor-core kernel); max_abs_err over all cases
+    first = {"q8_matmul": 0, "q8_matmul_wgmma": 0, "q8_matmul_silu": 0,
+             "q8_matmul_silu_wgmma": 0, "q8_matmul_ffn": 0, "q8_matmul_ffn_tc": 1,
              "attention_decode_fused": 0, "q8_layer_fused": 0}
     return {name: dict(rs[first[name]], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in out.items()}
@@ -2250,6 +2299,7 @@ def without_ffn0(params: QuantLlamaParams) -> QuantLlamaParams:
 
 PAGE = 128  # the 7B-width serves' page on the paged pool
 SERVES: dict[str, dict] = {}  # each serve's stats by label
+MAINLOOP: dict[int, float] = {}  # the products-only mainloop's TFLOP/s by wait_group
 
 
 def phase_serve(label: str, params, logit_tol: float, path: tuple[str, ...], per_step: dict,

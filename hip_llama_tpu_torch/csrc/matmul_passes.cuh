@@ -69,9 +69,26 @@ __global__ void split_gate_kernel(const float* __restrict__ part, int split, int
   if (idx < M * H) split_gate_at(part, split, M, H, out, idx, planes);
 }
 
+// cs (M, hs) fp32: row m's RoPE cos and sin of each pair (q8.cuh::
+// rope_cs_at), for an epilogue that reads them (Epilogue::rope_cs) rather
+// than evaluating them for every column pair of every head
+__global__ void rope_table_kernel(const int* __restrict__ pos, int M, int hs, float coef,
+                                  float* __restrict__ cs) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= M * (hs / 2)) return;
+  const int m = idx / (hs / 2), p = idx % (hs / 2);
+  *reinterpret_cast<float2*>(cs + (size_t)m * hs + 2 * p) = rope_cs_at(pos, m, p, coef);
+}
+
 int check_launch() { return (int)cudaGetLastError(); }
 
 int blocks(long long n) { return (int)((n + kEltThreads - 1) / kEltThreads); }
+
+int launch_rope_table(const void* pos, int M, int hs, float coef, float* cs, cudaStream_t st) {
+  rope_table_kernel<<<blocks((long long)M * (hs / 2)), kEltThreads, 0, st>>>((const int*)pos, M,
+                                                                            hs, coef, cs);
+  return check_launch();
+}
 
 int launch_norm(const void* x, const void* g, void* xn, int M, int K, float eps, cudaStream_t st) {
   rmsnorm_rows_kernel<<<M, kThreads, 0, st>>>((const bf16*)x, (const float*)g, (bf16*)xn, K, eps);

@@ -36,19 +36,17 @@
 // (K16, the x_heads_hs branch of _q8_kernel, HIPLLAMA_PREFILL_XHEADS=1): wo
 // over the attention output read in place as (M, GH, HS) through its row
 // and head strides. Bound by operations at prefill M (2 x 2048 x 4096 x
-// 4096 flops for the 7B wo), which only wgmma reaches; the kernel before
-// this one ran K15's 64 x 128 wmma tile, single-stage, with the weight
-// dequantized by the same threads for every 32 rows of k and every 64 rows
-// of M (32 times a call at M 2048): 12.1x cuBLAS. It now runs
-// q8_wgmma.cuh's mainloop (128 x 128 tiles; a producer warpgroup copies x
-// and the int8 weight by cp.async into a 6-stage ring; two consumer
-// warpgroups each run wgmma m64n128k16 on 64 rows and, while it runs,
-// dequantize the next step's weight tile, once per CTA). Each
-// consumer keeps two fp32 accumulators: the head's, overwritten by the
-// head's first k16 product (scale-d 0) and fed the head's HS / 16 steps,
-// then added to the running sum in head order, as the TPU kernel adds each
-// head's dot (quant.py:371-380); then q8.cuh's residual epilogue and one
-// cast.
+// 4096 flops for the 7B wo), which only wgmma reaches: it runs
+// q8_wgmma.cuh's pipelined mainloop on 128 x 128 tiles (a producer
+// warpgroup copies x and the int8 weight by cp.async into a 6-stage ring;
+// two consumer warpgroups each run wgmma m64n128k16 on 64 rows and
+// dequantize the next step's weight tile, once per CTA, while the products
+// run). Each consumer keeps two fp32 accumulators: the head's, overwritten
+// by the head's first k16 product (scale-d 0) and fed the head's HS / 16
+// k16 products, then added to the running sum in head order, as the TPU
+// kernel adds each head's dot (quant.py:371-380); then q8.cuh's residual
+// epilogue and one cast. The head's accumulator is read at its last step,
+// so the products drain there only.
 
 #include <mma.h>
 #include <stdint.h>
@@ -260,28 +258,31 @@ __global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) q8_xheads_kernel(
     bf16* __restrict__ out) {
   namespace wg = hipllama::q8wg;
   extern __shared__ __align__(1024) unsigned char xh_smem[];
-  const wg::Ring ring = wg::ring_init(xh_smem);
-  const int m0 = blockIdx.y * wg::kBM, n0 = blockIdx.x * wg::kBN;
+  const wg::Ring<1> ring = wg::ring_init<1>(xh_smem);
+  const int m0 = blockIdx.y * wg::Tile<1>::kBM, n0 = blockIdx.x * wg::kBN;
   const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const int n_steps = GH * HS / wg::kBK;
+  const int K = GH * HS, n_steps = K / wg::kBK;
+  const wg::Weight<wg::kBN> w{q, s, N, n0, N, 0, gs};
   if (role == wg::kConsumers) {
+    wg::producer_regs();
     // x (m, k): head k / HS, element k % HS (a step lies in one head)
     auto x_at = [=](int m, int k) {
       return x3 + (size_t)m * sxm + (size_t)(k / HS) * sxh + k % HS;
     };
-    wg::produce(ring, x_at, m0, M, q, s, n0, N, gs, n_steps, t);
+    wg::produce(ring, x_at, m0, M, K, w, n_steps, t);
   } else {
-    float acc[64], head[64];
+    wg::consumer_regs();
+    float acc[1][64], head[1][64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = head[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[0][i] = head[0][i] = 0.f;
     const int per_head = HS / wg::kBK;
+    // the head accumulator is read (and so drained) at each head's last step
     wg::consume(
-        ring, n_steps, gs, s, n0, N, role, t, head, [=](int it) { return it % per_head == 0; },
-        [&](int it, const float* d) {
-          if (it % per_head == per_head - 1) {
+        ring, n_steps, K, w, m0, M, role, t, head, [=](int it) { return it % per_head == 0; },
+        [=](int it) { return it % per_head == per_head - 1; },
+        [&](int, const float(&h)[1][64]) {
 #pragma unroll
-            for (int i = 0; i < 64; ++i) acc[i] += d[i];
-          }
+          for (int i = 0; i < 64; ++i) acc[0][i] += h[0][i];
         });
     wg::store_tile(acc, e, m0, n0, M, N, role, t, out);
   }
@@ -350,11 +351,10 @@ extern "C" int q8_matmul_xheads(const void* x3, const void* q, const void* s, co
       (GH * HS) % gs)
     return (int)cudaErrorInvalidValue;
   const Epilogue e{(const bf16*)res, nullptr, 0, 1, 0.f};
-  HIPLLAMA_TRY((int)cudaFuncSetAttribute(q8_xheads_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         wg::kSmemBytes));
-  const dim3 grid((N + wg::kBN - 1) / wg::kBN, (M + wg::kBM - 1) / wg::kBM);
-  q8_xheads_kernel<<<grid, wg::kThreads, wg::kSmemBytes, st>>>(
+  static const int ready = wg::prepare(q8_xheads_kernel, wg::Tile<1>::kSmemBytes);
+  HIPLLAMA_TRY(ready);
+  const dim3 grid((N + wg::kBN - 1) / wg::kBN, (M + wg::Tile<1>::kBM - 1) / wg::Tile<1>::kBM);
+  q8_xheads_kernel<<<grid, wg::kThreads, wg::Tile<1>::kSmemBytes, st>>>(
       (const bf16*)x3, sxm, sxh, (const int8_t*)q, (const float*)s, M, GH, HS, N, gs, e,
       (bf16*)out);
   return check_launch();

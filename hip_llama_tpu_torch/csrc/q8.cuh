@@ -39,7 +39,18 @@ struct Epilogue {
   int rope_limit;   // columns below it rotate
   int rope_hs;      // head size of the rotated segments
   float rope_coef;  // -2 ln(theta) / HS, rounded to fp32
+  // (M, rope_hs) fp32: row m's cos and sin of pair p at 2 p, 2 p + 1, as
+  // rope_cs_at computes them (rope_table_kernel), or nullptr: computed here
+  const float* rope_cs;
 };
+
+// the RoPE angle's cos and sin for row m's pair p: freq = exp(p * coef),
+// ang = pos[m] * freq, in fp32
+__device__ __forceinline__ float2 rope_cs_at(const int* pos, int m, int p, float coef) {
+  const float freq = expf((float)p * coef);
+  const float ang = (float)pos[m] * freq;
+  return make_float2(cosf(ang), sinf(ang));
+}
 
 __device__ __forceinline__ void store_pair(const Epilogue& e, int m, int n, int N, float a0,
                                            float a1, bf16* out) {
@@ -50,9 +61,11 @@ __device__ __forceinline__ void store_pair(const Epilogue& e, int m, int n, int 
     a1 += __high2float(r);
   }
   if (e.pos != nullptr && n < e.rope_limit) {
-    const float freq = expf((float)((n % e.rope_hs) >> 1) * e.rope_coef);
-    const float ang = (float)e.pos[m] * freq;
-    const float c = cosf(ang), s = sinf(ang);
+    const float2 cs =
+        e.rope_cs != nullptr
+            ? *reinterpret_cast<const float2*>(e.rope_cs + (size_t)m * e.rope_hs + n % e.rope_hs)
+            : rope_cs_at(e.pos, m, (n % e.rope_hs) >> 1, e.rope_coef);
+    const float c = cs.x, s = cs.y;
     const float r0 = a0 * c - a1 * s;  // partner[2i] = -acc[2i+1]
     const float r1 = a1 * c + a0 * s;  // partner[2i+1] = acc[2i]
     a0 = r0;

@@ -1,53 +1,48 @@
-// A dequantizing wgmma mainloop for Q8_0 products at prefill M, in K15's
-// reshape arithmetic (q8.cuh): w = bf16(f32(q) * s), bf16 x bf16 products
-// summed in fp32. prefill.cu's q8_matmul_xheads (K16) runs it; it is the
-// mainloop the other prefill products (K15's tiles, K17, K19) can take up.
+// A pipelined, dequantizing wgmma mainloop for Q8_0 products at prefill M,
+// in K15's reshape arithmetic (q8.cuh): w = bf16(f32(q) * s), bf16 x bf16
+// products summed in fp32. quant.cu's tiles (K15's q8_matmul and K17's
+// q8_matmul_silu above 16 rows, 256 rows a CTA) and prefill.cu's
+// q8_matmul_xheads (K16, 128 rows a CTA) run it.
 //
 // Bound on an H100: at M 2048 a product does 2M flops per weight byte, far
 // above the ~295 flop/byte ridge, so it is bound by operations on the bf16
 // tensor cores, which only wgmma drives at their full rate. The weight is
-// int8 in memory, and wgmma reads B from shared memory in bf16, so a tile
-// must be dequantized into shared memory before the product; the design
-// does that once per CTA and hides it behind the products:
-//  - a CTA computes one kBM x kBN = 128 x 128 output tile with three
+// int8 in memory and wgmma reads B from shared memory in bf16, so each
+// weight tile is dequantized into shared memory before its products, once
+// per CTA:
+//  - a CTA computes kBM = 128 kMB rows of the B tile's 128 columns (for the
+//    gate, 64 columns of W1 beside the same 64 of W3) with three
 //    warpgroups: two consumers, each issuing wgmma.mma_async m64n128k16 on
-//    its 64 rows, and one producer;
+//    its kMB m64 blocks of x, and one producer; setmaxnreg moves registers
+//    from the producer to the consumers' accumulators;
 //  - the producer walks K in steps of kBK = 64 (one 128-byte row of bf16,
-//    the 128B swizzle atom) through a ring of kStages stages, with kLag
-//    steps of copies in flight: it copies the x tile (128 x 64 bf16, read in
-//    place through the caller's address functor) by cp.async into the
-//    128B-swizzled K-major layout, with the int8 weight tile (64 x 128) and,
-//    where gs % 8 == 0, its scale rows (one per group of gs rows) as they
-//    lie; a group size that is no multiple of 8 (groups shorter than a
-//    consumer thread's 8 rows, or not aligned to them) has its scales read
-//    from global memory by the dequantizing threads, one per row;
-//  - the consumers dequantize: while step it's wgmmas run asynchronously,
-//    their 256 threads turn step it + 1's int8 tile into the other of two
-//    bf16 B tiles, written K-major ([n][k]) in the same swizzle. A single
-//    producer warpgroup that also dequantized (one warp per scheduler, its
-//    dependent instructions unhidden) took longer than the products;
-//  - mbarriers hand the stages over: `full` (each producer thread arrives
-//    once its copies of the step have landed, behind a proxy fence, since
-//    wgmma reads through the async proxy) and `empty` (the consumers' 256
-//    threads arrive once the step's products have completed); a named
-//    barrier joins the two halves of each B tile;
-//  - each weight element is dequantized once per CTA, ceil(M / 128) times a
-//    call (16 at M 2048, against 32 for K15's 64-row tiles).
-// What still bounds it (variants timed on an H100 at the 7B wo): not the
-// bytes from L2 (x multicast by TMA to a cluster of two CTAs along N, which
-// halves them, ran slower, the pair in lock step; x by TMA without the
-// cluster ran slower than cp.async too), not the copies' latency
-// (a deeper lag gains nothing), not the bank conflicts of the transposing
-// dequantization (an N-major B tile, which needs none, ran slower). The
-// products alone, with no copy and no dequantization, reach about half the
-// tensor cores' rate: each step waits for its wgmmas to drain before the
-// two consumers meet at a barrier, and the dequantization of the next tile
-// sits between issue and wait. Keeping a step's wgmmas in flight across
-// the barrier (wait_group 1 within a head, two B tiles ahead) is the next
-// step.
-// The consumer decides what a step's product adds to (q8_matmul_xheads: a
-// head accumulator from zero at the head's first step, added to the running
-// sum in head order at its last).
+//    the 128B swizzle atom) through a ring of kStages stages: the x tile
+//    (kBM x 64 bf16, read in place through the caller's address functor) by
+//    cp.async into the swizzled K-major layout, the int8 weight tile (64 x
+//    128, its columns from one or two bases: `Weight`) and, where gs % 8 ==
+//    0, its scale rows. cp.async.mbarrier.arrive.noinc has the `full`
+//    barrier count each thread's copies as they land, so the producer waits
+//    only for free stages. A last step past K % 64 is zero-filled;
+//  - the consumers' 256 threads dequantize step it + 1's tile into the
+//    third of three bf16 B tiles while step it - 1's wgmmas run, then issue
+//    step it's and wait with wgmma.wait_group 1, so the tensor pipe does not
+//    drain within a product: a step waits for all of its products only
+//    where the consumer reads its accumulator (K16 at each head's last
+//    step; every product at its end);
+//  - mbarriers hand the stages over (`full`, `empty`); a named barrier
+//    joins the consumers' halves of each B tile.
+// What bounds it now (K17 at M 2048 on an H100, timed with parts of the
+// loop switched off; PERF.md): the copies alone take about half the
+// kernel's time and more than the products would (a 256-row step copies
+// 32 KB of x and 8 KB of weight from L2 for 4.2 Mflop), and the products add
+// to them rather than hide behind them: beside the three B tiles the ring
+// holds four 44 KB stages, two of them held by the consumers, which leaves
+// too few copies in flight for L2's latency under this load. Tried and
+// slower: 32-deep steps on the 64B swizzle with a 9-stage ring (the steps'
+// fixed costs doubled), a deeper copy lag (before the copies were tracked
+// by the barrier), 128-row tiles for the tiles (more bytes per flop); on K16
+// before this mainloop, x multicast by TMA to a cluster of two CTAs along N,
+// x by TMA without the cluster, an N-major B tile.
 #pragma once
 
 #include <stdint.h>
@@ -60,22 +55,66 @@ namespace q8wg {
 
 using q8::bf16;
 
-constexpr int kBM = 128;                // x rows per CTA: 64 per consumer warpgroup
-constexpr int kBN = 128;                // output columns per CTA: the wgmma's n
+constexpr int kBN = 128;                // B tile columns per CTA: the wgmma's n
 constexpr int kBK = 64;                 // k per stage: a 128-byte bf16 row
-constexpr int kStages = 6;              // the ring of copies
+constexpr int kBTiles = 3;              // bf16 B tiles: two read by wgmmas in flight, one written
 constexpr int kConsumers = 2;           // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // warpgroups 0, 1 consume; 2 produces
-constexpr int kTileBytes = kBM * kBK * 2;         // an x or a B tile (16 KB)
-static_assert(kBM == kBN, "x and B tiles share one size");
+constexpr int kBTileBytes = kBN * kBK * 2;        // a B tile (16 KB)
+constexpr int kRawBytes = kBK * kBN;              // a step's int8 weight rows
+constexpr int kScaleBytes = 8 * kBN * 4;          // its scale rows (at most 8 groups)
 
-constexpr int kRawBytes = kBK * kBN;         // a step's int8 weight rows
-constexpr int kScaleBytes = 8 * kBN * 4;     // its scale rows (at most 8 groups)
-// dynamic shared memory: the ring's x tiles and the two B tiles (1024-byte
-// aligned, the swizzle atom), the ring's raw weight and scale rows, then
-// the barriers; the kernel aligns its base itself
-constexpr int kSmemBytes =
-    1024 + kStages * (kTileBytes + kRawBytes + kScaleBytes) + 2 * kTileBytes + 2 * kStages * 8;
+// The tile of x rows: kMB m64 blocks per consumer warpgroup, so kBM = 128
+// kMB rows per CTA, and the ring's depth that fits beside them. Dynamic
+// shared memory: the ring's x tiles and the B tiles (1024-byte aligned,
+// the swizzle atom), the ring's raw weight and scale rows, then the
+// barriers; the kernel aligns its base itself (217 KB for kMB 1, 225 KB for
+// kMB 2, of the 227 KB a block may take).
+template <int kMB>
+struct Tile {
+  static constexpr int kBM = 128 * kMB;
+  static constexpr int kXBytes = kBM * kBK * 2;
+  static constexpr int kStages = kMB == 1 ? 6 : 4;
+  static constexpr int kSmemBytes = 1024 + kStages * (kXBytes + kRawBytes + kScaleBytes) +
+                                    kBTiles * kBTileBytes + 2 * kStages * 8;
+  static_assert(kMB == 1 || kMB == 2, "64 or 128 rows per consumer");
+  static_assert(kSmemBytes <= 232448, "the ring fits an SM's shared memory");
+};
+
+// The registers of a CTA's threads: each starts with kLaunchRegs (65536 /
+// 384, to a multiple of 8; __launch_bounds__(kThreads, 1)), then setmaxnreg
+// moves them from the producer, which needs few, to the consumers, whose
+// kMB x 64 fp32 accumulators (128 for the 256-row tiles and for K16's two)
+// and dequantization do not fit 168 without spilling. An inc blocks until
+// the pool has the registers, so the launchers refuse a kernel whose count
+// at launch is not kLaunchRegs (prepare).
+constexpr int kLaunchRegs = 168;
+// 72 for the producer: at 56 its address arithmetic spilled (K17 5% slower)
+constexpr int kProducerRegs = 72, kConsumerRegs = 216;
+static_assert(128 * kProducerRegs + 128 * kConsumers * kConsumerRegs <= kLaunchRegs * kThreads,
+              "the consumers take what the producer gives back");
+
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
+// Once per kernel and process (the launchers keep the result in a static):
+// refuse a kernel that does not start its threads with kLaunchRegs
+// registers, and let it take smem_bytes of dynamic shared memory. Returns
+// cudaSuccess or the error, which every later launch returns too, so that
+// a launch makes no driver query on the host.
+template <typename Kernel>
+inline int prepare(Kernel kernel, int smem_bytes) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  if (fa.numRegs != kLaunchRegs) return (int)cudaErrorInvalidDeviceFunction;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_bytes);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -86,6 +125,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 8-row atom, as TMA's SWIZZLE_128B writes it and wgmma reads it
 __device__ __forceinline__ uint32_t swz128(int r, int c) {
   return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// byte offset of 16-byte chunk c (columns 16 c ..) of raw weight row r: the
+// chunk index XOR the row's 8-row group, so that the dequantizing warp's
+// 32-bit loads (8 row groups x 4 words of one chunk) hit 32 banks
+__device__ __forceinline__ uint32_t raw_at(int r, int c) {
+  return (uint32_t)(r * 128 + ((c ^ ((r >> 3) & 7)) << 4));
 }
 
 // ---------------------------------------------------------------------------
@@ -134,8 +180,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most N committed groups of this warpgroup's wgmmas are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // the accumulator's registers are written by the asynchronous product: no
 // read of them may move above the wait that follows it
@@ -173,14 +221,37 @@ __device__ __forceinline__ void wgmma_m64n128(float d[64], uint64_t a, uint64_t 
       : "memory");
 }
 
+// One step of a consumer's products, committed as one group: its first
+// n_live m64 blocks of x (block mb at x tile address a + mb * 8 KB) times B
+// tile b, four k16 wgmmas each, the blocks' chains interleaved; d[mb] is
+// overwritten by its first where `fresh`. n_live is the same across the
+// warpgroup; with none live nothing is issued.
+template <int kMB>
+__device__ __forceinline__ void wgmma_step(float (&d)[kMB][64], uint32_t a, uint32_t b,
+                                           bool fresh, int n_live) {
+  if (n_live <= 0) return;
+  const uint64_t da = wg_desc(a), db = wg_desc(b);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)  // 32 bytes a k16 step: +2 in the descriptor
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb)
+      if (mb < n_live)
+        wgmma_m64n128(d[mb], da + mb * (64 * 128 >> 4) + 2 * kk, db + 2 * kk,
+                      fresh && kk == 0 ? 0 : 1);
+  wg_commit();
+}
+
 // ---------------------------------------------------------------------------
 // the ring
 
+template <int kMB>
 struct Ring {
+  using T = Tile<kMB>;
   unsigned char* smem;                      // the generic address of x0
   uint32_t x0, b0, raw0, sc0, full0, empty0;  // shared addresses
-  __device__ __forceinline__ uint32_t x(int st) const { return x0 + st * kTileBytes; }
-  __device__ __forceinline__ uint32_t b(int bt) const { return b0 + bt * kTileBytes; }
+  __device__ __forceinline__ uint32_t x(int st) const { return x0 + st * T::kXBytes; }
+  __device__ __forceinline__ uint32_t b(int bt) const { return b0 + bt * kBTileBytes; }
   __device__ __forceinline__ uint32_t raw(int st) const { return raw0 + st * kRawBytes; }
   __device__ __forceinline__ uint32_t scales(int st) const { return sc0 + st * kScaleBytes; }
   __device__ __forceinline__ uint32_t full(int st) const { return full0 + st * 8; }
@@ -189,18 +260,20 @@ struct Ring {
 
 // lay the ring out in dynamic shared memory and initialize its barriers
 // (every thread of the CTA calls it; it ends in __syncthreads)
-__device__ __forceinline__ Ring ring_init(unsigned char* smem) {
+template <int kMB>
+__device__ __forceinline__ Ring<kMB> ring_init(unsigned char* smem) {
+  using T = Tile<kMB>;
   const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
-  Ring r;
+  Ring<kMB> r;
   r.smem = smem + (base - smem_u32(smem));
   r.x0 = base;
-  r.b0 = base + kStages * kTileBytes;
-  r.raw0 = r.b0 + 2 * kTileBytes;
-  r.sc0 = r.raw0 + kStages * kRawBytes;
-  r.full0 = r.sc0 + kStages * kScaleBytes;
-  r.empty0 = r.full0 + kStages * 8;
+  r.b0 = base + T::kStages * T::kXBytes;
+  r.raw0 = r.b0 + kBTiles * kBTileBytes;
+  r.sc0 = r.raw0 + T::kStages * kRawBytes;
+  r.full0 = r.sc0 + T::kStages * kScaleBytes;
+  r.empty0 = r.full0 + T::kStages * 8;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(r.full(s), 128);                 // the producer's threads
       mbar_init(r.empty(s), 128 * kConsumers);  // the consumers' threads
     }
@@ -209,98 +282,126 @@ __device__ __forceinline__ Ring ring_init(unsigned char* smem) {
   return r;
 }
 
-// The producer warpgroup's loop over the n_steps steps of K: step it's
-// copies (cp.async, into stage it % kStages, once `empty` says the stage is
-// free): x's tile through x_at(m, k) (the address of x's elements k .. k + 7
-// of row m, 16-byte aligned) into the swizzled x tile, and the weight's 64
-// int8 rows and their scale rows as they lie in memory. kLag steps later,
-// when its own copies of the step have landed, each thread fences them for
-// wgmma's async proxy and arrives on `full`. pt: the thread's index in its
-// warpgroup.
-constexpr int kLag = 2;  // steps of copies in flight beyond the one landing
-static_assert(kLag < kStages, "the copies in flight fit the ring");
+// The weight a CTA's B tile reads: q (K, ldq) int8 and s (K / gs, ldq)
+// fp32, row-major. B tile column n (0 .. 127) is weight column n0 + n %
+// kHalf + (n / kHalf) * off2, live where n0 + n % kHalf < ncols: with kHalf
+// 128, 128 adjacent columns; with 64, the gate's 64 columns of W1 from n0
+// beside the same 64 of W3 at off2 = H.
+template <int kHalf>
+struct Weight {
+  const int8_t* q;
+  const float* s;
+  int ldq, n0, ncols, off2, gs;
+  __device__ __forceinline__ int col(int n) const { return n0 + n % kHalf + (n / kHalf) * off2; }
+  __device__ __forceinline__ bool live(int n) const { return n0 + n % kHalf < ncols; }
+};
 
-template <typename XAt>
-__device__ __forceinline__ void produce(const Ring& ring, XAt x_at, int m0, int M,
-                                        const int8_t* __restrict__ q,
-                                        const float* __restrict__ s, int n0, int N, int gs,
-                                        int n_steps, int pt) {
-  for (int it = 0; it < n_steps + kLag; ++it) {
-    if (it < n_steps) {
-      const int st = it % kStages, k0 = it * kBK;
-      if (it >= kStages) mbar_wait(ring.empty(st), ((it / kStages) & 1) ^ 1);
+// The producer warpgroup's loop over the n_steps = ceil(K / 64) steps of K:
+// once `empty` says that step it's stage (it % kStages) is free, its copies
+// by cp.async: x's tile through x_at(m, k) (the address of x's elements k ..
+// k + 7 of row m, 16-byte aligned; zeros past M and K) into the swizzled x
+// tile, and the weight's 64 int8 rows (raw_at's layout) and their scale
+// rows; rows past K are left to the dequantization. Each thread's
+// cp.async.mbarrier.arrive.noinc has `full` count it when its copies of the
+// step have landed, so the producer never waits for a copy: it runs as far
+// ahead as the ring's free stages let it. pt: the thread's index in its
+// warpgroup.
+template <int kMB, int kHalf, typename XAt>
+__device__ __forceinline__ void produce(const Ring<kMB>& ring, XAt x_at, int m0, int M, int K,
+                                        const Weight<kHalf>& w, int n_steps, int pt) {
+  using T = Tile<kMB>;
+  for (int it = 0; it < n_steps; ++it) {
+    const int st = it % T::kStages, k0 = it * kBK;
+    if (it >= T::kStages) mbar_wait(ring.empty(st), ((it / T::kStages) & 1) ^ 1);
 #pragma unroll
-      for (int i = 0; i < kBM * 8 / 128; ++i) {  // x: kBM rows of 8 chunks
-        const int e = pt + 128 * i, r = e >> 3, c = e & 7;
-        const bool live = m0 + r < M;
-        cp_async16(ring.x(st) + swz128(r, c), x_at(live ? m0 + r : m0, k0 + 8 * c), live);
-      }
-#pragma unroll
-      for (int i = 0; i < kBK * 8 / 128; ++i) {  // q: kBK rows of 8 chunks of 16 columns
-        const int e = pt + 128 * i, r = e >> 3, c = e & 7;
-        const bool live = n0 + 16 * c < N;
-        cp_async16(ring.raw(st) + r * 128 + c * 16,
-                   q + (size_t)(k0 + r) * N + (live ? n0 + 16 * c : 0), live);
-      }
-      // s: the groups of rows k0 .. k0 + 63 (at most 8 where gs % 8 == 0),
-      // 32 chunks of 4 columns each
-      const int g0 = k0 / gs, ng = gs % 8 ? 0 : (k0 + kBK - 1) / gs - g0 + 1;
-#pragma unroll
-      for (int i = 0; i < 8 * 32 / 128; ++i) {
-        const int e = pt + 128 * i, g = e >> 5, c = e & 31;
-        const bool live = n0 + 4 * c < N;
-        if (g < ng)
-          cp_async16(ring.scales(st) + g * 512 + c * 16,
-                     s + (size_t)(g0 + g) * N + (live ? n0 + 4 * c : 0), live);
-      }
+    for (int i = 0; i < T::kBM * 8 / 128; ++i) {  // x: kBM rows of 8 chunks
+      const int e = pt + 128 * i, r = e >> 3, c = e & 7;
+      const bool live = m0 + r < M && k0 + 8 * c < K;
+      cp_async16(ring.x(st) + swz128(r, c), x_at(live ? m0 + r : m0, live ? k0 + 8 * c : 0),
+                 live);
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int j = it - kLag;
-    if (j < 0) continue;
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kLag) : "memory");  // step j's copies
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    mbar_arrive(ring.full(j % kStages));
+#pragma unroll
+    for (int i = 0; i < kBK * 8 / 128; ++i) {  // q: kBK rows of 8 chunks of 16 columns
+      const int e = pt + 128 * i, r = e >> 3, c = e & 7;
+      const bool live = w.live(16 * c) && k0 + r < K;
+      cp_async16(ring.raw(st) + raw_at(r, c),
+                 w.q + (live ? (size_t)(k0 + r) * w.ldq + w.col(16 * c) : 0), live);
+    }
+    // s: the groups of rows k0 .. min(k0 + 64, K) - 1 (at most 8 where gs
+    // % 8 == 0), 32 chunks of 4 columns each
+    const int g0 = k0 / w.gs;
+    const int ng = w.gs % 8 ? 0 : (min(k0 + kBK, K) - 1) / w.gs - g0 + 1;
+#pragma unroll
+    for (int i = 0; i < 8 * 32 / 128; ++i) {
+      const int e = pt + 128 * i, g = e >> 5, c = e & 31;
+      const bool live = w.live(4 * c);
+      if (g < ng)
+        cp_async16(ring.scales(st) + g * 512 + c * 16,
+                   w.s + (size_t)(g0 + g) * w.ldq + (live ? w.col(4 * c) : 0), live);
+    }
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(ring.full(st))
+                 : "memory");
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Consumer thread ct (0 .. 255) dequantizes its share of step `it`'s weight
-// into B tile bt: w = bf16(f32(q) * s) for k rows 8 (ct / 32) .. + 7 and
-// tile columns ct % 32 + 32 j, j < 4. Tile column n is B row n, whose chunk
-// ct / 32 takes the 8 k values; 8 consecutive threads write 8 consecutive
-// rows, so the swizzled stores do not conflict, and the byte loads of a
-// warp read whole rows. The 8 rows share one scale where gs % 8 == 0 (from
-// the ring); else each row's scale is read from s (N columns from n0).
-__device__ __forceinline__ void dequant_step(const Ring& ring, int it, int bt, int gs,
-                                             const float* __restrict__ s, int n0, int N,
-                                             int ct) {
-  const int st = it % kStages, k0 = it * kBK;
-  const int kc = ct >> 5, lane = ct & 31;
-  const unsigned char* raw = ring.smem + (ring.raw(st) - ring.x0) + 8 * kc * 128;
-  const float* sc = reinterpret_cast<const float*>(ring.smem + (ring.scales(st) - ring.x0)) +
-                    (gs % 8 ? 0 : ((k0 + 8 * kc) / gs - k0 / gs) * kBN);
+// into B tile bt: w = bf16(f32(q) * s) for the 8 k rows 8 b .. 8 b + 7 (b =
+// ct % 8) of the 4 tile columns 16 cw + 4 a .. + 3 (cw = ct / 32, a = ct %
+// 32 / 8). It loads the 8 rows' words of its 4 columns (raw_at: a warp's
+// loads hit 32 banks) and their 4 scales as one 16-byte word (the 8 rows
+// share a group where gs % 8 == 0; else each row's scales are read from
+// s), and stores each column's 8 k values as one 16-byte chunk of B row n
+// (K-major, swizzled): the 8 threads of a store phase hold the 8 chunks of
+// one row. Rows at or past K (the zero-filled tail of the last step) are
+// stored as zeros, whatever the ring's scale rows hold there. f32(q): the
+// biased byte placed in the mantissa of 2^23 (q8::q_to_f).
+template <int kMB, int kHalf>
+__device__ __forceinline__ void dequant_step(const Ring<kMB>& ring, int it, int bt, int K,
+                                             const Weight<kHalf>& w, int ct) {
+  const int st = it % Tile<kMB>::kStages, k0 = it * kBK;
+  const int b = ct & 7, a = (ct >> 3) & 3, cw = ct >> 5;
+  const int n = 16 * cw + 4 * a;  // the thread's first tile column
+  const uint32_t dst = ring.b(bt);
+  if (k0 + 8 * b >= K) {  // K % 8 == 0: a chunk's rows are all in or all out
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = lane + 32 * j;
-    float f[8];
-    if (gs % 8 == 0) {
-      const float sn = sc[n];
+    for (int j = 0; j < 4; ++j)
+      asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst + swz128(n + j, b)),
+                   "r"(0u)
+                   : "memory");
+  } else {
+    const unsigned char* raw = ring.smem + (ring.raw(st) - ring.x0);
+    uint32_t v[8];  // rows 8 b + r, columns n .. n + 3, biased to q + 128
 #pragma unroll
-      for (int r = 0; r < 8; ++r)
-        f[r] = q8::q_to_f((uint32_t)raw[r * 128 + n] ^ 0x80u, 0) * sn;
-    } else {
-      const bool live = n0 + n < N;
+    for (int r = 0; r < 8; ++r)
+      v[r] = *reinterpret_cast<const uint32_t*>(raw + raw_at(8 * b + r, cw) + 4 * a) ^ q8::kBias4;
+    float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);  // the scales of columns n .. n + 3
+    if (w.gs % 8 == 0)
+      sv = *reinterpret_cast<const float4*>(ring.smem + (ring.scales(st) - ring.x0) +
+                                            (((k0 + 8 * b) / w.gs - k0 / w.gs) * kBN + n) * 4);
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const float sn = live ? __ldg(s + (size_t)((k0 + 8 * kc + r) / gs) * N + n0 + n) : 0.f;
-        f[r] = q8::q_to_f((uint32_t)raw[r * 128 + n] ^ 0x80u, 0) * sn;
+    for (int j = 0; j < 4; ++j) {
+      float f[8];
+      if (w.gs % 8 == 0) {
+        const float sn = j == 0 ? sv.x : j == 1 ? sv.y : j == 2 ? sv.z : sv.w;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) f[r] = q8::q_to_f(v[r], j) * sn;
+      } else {
+        const bool live = w.live(n + j);
+        const float* sc = w.s + (live ? w.col(n + j) : 0);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          f[r] = q8::q_to_f(v[r], j) *
+                 (live ? __ldg(sc + (size_t)((k0 + 8 * b + r) / w.gs) * w.ldq) : 0.f);
       }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + swz128(n + j, b)),
+                   "r"(q8::bf16x2_bits(f[0], f[1])), "r"(q8::bf16x2_bits(f[2], f[3])),
+                   "r"(q8::bf16x2_bits(f[4], f[5])), "r"(q8::bf16x2_bits(f[6], f[7]))
+                   : "memory");
     }
-    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(ring.b(bt) + swz128(n, kc)),
-                 "r"(q8::bf16x2_bits(f[0], f[1])), "r"(q8::bf16x2_bits(f[2], f[3])),
-                 "r"(q8::bf16x2_bits(f[4], f[5])), "r"(q8::bf16x2_bits(f[6], f[7]))
-                 : "memory");
   }
-  // the generic-proxy stores become visible to wgmma's async proxy
+  // the generic-proxy stores (and, seen through `full`, the step's copies)
+  // become visible to wgmma's async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
@@ -309,57 +410,102 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
 }
 
-// The consumer warpgroups' loop over the n_steps steps of K (weight s and
-// columns n0, N as the producer's, for dequant_step); c: the warpgroup (0,
-// 1), t: the thread in it. While step it's wgmmas run (x rows
-// 64 c .. 64 c + 63 of the stage times B tile it % 2, into d, overwritten
-// by the first where fresh(it)), the consumers dequantize step it + 1's
-// weight into the other B tile; then they wait for the products, release
-// the stage and call step_done(it, d). The two B tiles alternate: the
-// barrier that ends each step puts the next tile's halves together and
-// frees the current one.
-template <typename Fresh, typename StepDone>
-__device__ __forceinline__ void consume(const Ring& ring, int n_steps, int gs,
-                                        const float* __restrict__ s, int n0, int N, int c, int t,
-                                        float d[64], Fresh fresh, StepDone step_done) {
+// The consumer warpgroups' loop over the n_steps steps of K (K and the
+// weight as the producer's, for dequant_step); c: the warpgroup (0, 1), t:
+// the thread in it; its x rows are m0 + 64 kMB c .., in kMB m64 blocks
+// (those at or past M multiply nothing). Step it: dequantize step it + 1's
+// weight into B tile (it + 1) % 3 while step it - 1's products run (that
+// tile's last reader, step it - 2, completed before the last barrier);
+// issue step it's wgmmas (x blocks of the stage times B tile it % 3, into
+// d, overwritten by the first where fresh(it)); wait for step it - 1
+// (wgmma.wait_group 1), or for step it too where reads(it), which then
+// calls step_done(it, d); release step it - 1's stage (its x tile is read;
+// its raw rows were two steps ago) and meet at the barrier, which puts B
+// tile (it + 1) % 3's halves together and, since both warpgroups have
+// waited, frees tile (it + 2) % 3 for the next dequantization. d holds the
+// last step's sum on return.
+template <int kMB, int kHalf, typename Fresh, typename Reads, typename StepDone>
+__device__ __forceinline__ void consume(const Ring<kMB>& ring, int n_steps, int K,
+                                        const Weight<kHalf>& w, int m0, int M, int c, int t,
+                                        float (&d)[kMB][64], Fresh fresh, Reads reads,
+                                        StepDone step_done) {
+  using T = Tile<kMB>;
   const int ct = 128 * c + t;
+  const int row0 = m0 + 64 * kMB * c;
+  const int n_live = M > row0 ? min(kMB, (M - row0 + 63) / 64) : 0;
   mbar_wait(ring.full(0), 0);
-  dequant_step(ring, 0, 0, gs, s, n0, N, ct);
+  dequant_step(ring, 0, 0, K, w, ct);
   consumers_sync();
   for (int it = 0; it < n_steps; ++it) {
-    const int st = it % kStages, bt = it & 1;
-    const uint64_t a = wg_desc(ring.x(st) + c * 64 * 128), b = wg_desc(ring.b(bt));
-    const bool f0 = fresh(it);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)  // 32 bytes a k16 step: +2 in the descriptor
-      wgmma_m64n128(d, a + 2 * kk, b + 2 * kk, f0 && kk == 0 ? 0 : 1);
-    wg_commit();
     if (it + 1 < n_steps) {
-      mbar_wait(ring.full((it + 1) % kStages), ((it + 1) / kStages) & 1);
-      dequant_step(ring, it + 1, bt ^ 1, gs, s, n0, N, ct);
+      mbar_wait(ring.full((it + 1) % T::kStages), ((it + 1) / T::kStages) & 1);
+      dequant_step(ring, it + 1, (it + 1) % kBTiles, K, w, ct);
     }
-    wg_wait0();
-    wg_fence_regs(d);
-    mbar_arrive(ring.empty(st));  // its x tile is read, its raw rows were a step ago
-    step_done(it, d);
+    wgmma_step(d, ring.x(it % T::kStages) + c * kMB * 64 * 128, ring.b(it % kBTiles), fresh(it),
+               n_live);
+    if (reads(it)) {
+      wg_wait<0>();
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb) wg_fence_regs(d[mb]);
+      step_done(it, d);
+    } else {
+      wg_wait<1>();
+    }
+    if (it > 0) mbar_arrive(ring.empty((it - 1) % T::kStages));
     consumers_sync();
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int mb = 0; mb < kMB; ++mb) wg_fence_regs(d[mb]);
+}
+
+// the epilogue of a consumer's kMB x 64 rows (m0 + 64 kMB c ..) of 128
+// columns (n0 ..), through q8.cuh's store_pair (residual, RoPE, one cast);
+// a thread's column pair (2 (t % 4), + 1 of each n8 tile) is a RoPE pair
+template <int kMB>
+__device__ __forceinline__ void store_tile(const float (&d)[kMB][64], const q8::Epilogue& e,
+                                           int m0, int n0, int M, int N, int c, int t,
+                                           bf16* __restrict__ out) {
+  const int col = n0 + 2 * (t & 3);
+#pragma unroll
+  for (int mb = 0; mb < kMB; ++mb) {
+    const int row = m0 + 64 * (kMB * c + mb) + 16 * (t >> 5) + ((t & 31) >> 2);
+#pragma unroll
+    for (int i = 0; i < kBN / 8; ++i) {
+      const int n = col + 8 * i;
+      if (n < N) {
+        if (row < M) q8::store_pair(e, row, n, N, d[mb][4 * i], d[mb][4 * i + 1], out);
+        if (row + 8 < M)
+          q8::store_pair(e, row + 8, n, N, d[mb][4 * i + 2], d[mb][4 * i + 3], out);
+      }
+    }
   }
 }
 
-// the epilogue of a consumer's 64 x 128 tile: rows m0 + 64 c + ..., through
-// q8.cuh's store_pair (residual, RoPE, one cast)
-__device__ __forceinline__ void store_tile(const float d[64], const q8::Epilogue& e, int m0,
-                                           int n0, int M, int N, int c, int t,
-                                           bf16* __restrict__ out) {
-  const int row = m0 + 64 * c + 16 * (t >> 5) + ((t & 31) >> 2);
+// the gate epilogue of a consumer's rows over Weight<64> (B columns 0-63:
+// W1 columns n0 .., 64-127: the same of W3): n8 tiles i and i + 8 hold h1
+// and h3 of one output column in one thread, so out (M, H) = bf16(h1 *
+// sigmoid(h1) * h3) from registers, a bf16 pair at a time
+template <int kMB>
+__device__ __forceinline__ void store_gate(const float (&d)[kMB][64], int m0, int n0, int M,
+                                           int H, int c, int t, bf16* __restrict__ out) {
   const int col = n0 + 2 * (t & 3);
 #pragma unroll
-  for (int i = 0; i < kBN / 8; ++i) {
-    const int n = col + 8 * i;
-    if (n < N) {
-      if (row < M) q8::store_pair(e, row, n, N, d[4 * i], d[4 * i + 1], out);
-      if (row + 8 < M) q8::store_pair(e, row + 8, n, N, d[4 * i + 2], d[4 * i + 3], out);
+  for (int mb = 0; mb < kMB; ++mb) {
+    const int row = m0 + 64 * (kMB * c + mb) + 16 * (t >> 5) + ((t & 31) >> 2);
+#pragma unroll
+    for (int i = 0; i < kBN / 16; ++i) {
+      const int n = col + 8 * i;
+      const float* h1 = d[mb] + 4 * i;
+      const float* h3 = d[mb] + 4 * (i + kBN / 16);
+      if (n < H) {
+        if (row < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * H + n) = __floats2bfloat162_rn(
+              q8::silu_gate(h1[0], h3[0]), q8::silu_gate(h1[1], h3[1]));
+        if (row + 8 < M)
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * H + n) =
+              __floats2bfloat162_rn(q8::silu_gate(h1[2], h3[2]), q8::silu_gate(h1[3], h3[3]));
+      }
     }
   }
 }

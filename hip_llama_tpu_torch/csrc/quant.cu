@@ -17,13 +17,17 @@
 // the scales). The GEMV path (M <= 16) streams the weight once: each CTA
 // owns 256 columns and a slice of K (split K, so that even N = 4096 fills
 // the 132 SMs), and a second pass adds the slices in a fixed order and
-// applies the epilogue. At prefill M (B*T up to 2048) the product does 2M
-// flops per weight byte and is bound by operations: the tiled path
-// dequantizes each 32 x 128 weight tile into shared memory as bf16 and runs
-// bf16 tensor-core products (nvcuda::wmma, fp32 accumulators) on 128 x 128
-// output tiles. The rmsnorm prologue is a pass of its own that writes xn
-// once (M x K bf16, which stays in L2; matmul_passes.cuh, with the GEMV
-// path's second pass).
+// applies the epilogue. At prefill M (B*T up to 4088) the product does 2M
+// flops per weight byte and is bound by operations on the bf16 tensor cores:
+// the tiled path (q8_tile_kernel) runs q8_wgmma.cuh's pipelined mainloop, a
+// producer warpgroup copying x and the int8 weight into a 4-stage ring and
+// two consumer warpgroups issuing wgmma m64n128k16 on 256 x 128 tiles (128
+// rows each; the gate: 64 W1 columns beside the same 64 of W3, gated in
+// registers) while they dequantize the next step's weight once per CTA;
+// the wgmmas of a step stay in flight across the consumers' barrier. The rmsnorm prologue is a
+// pass of its own that writes xn once (M x K bf16, which stays in L2), and
+// RoPE reads each row's cos and sin from a table one pass computes
+// (matmul_passes.cuh, with the GEMV path's second pass).
 //
 // q8_matmul_ffn is one CTA per 64-column hidden strip and 16 rows
 // (q8.cuh::ffn_strip_task): the strip's h never leaves the CTA, and W1, W3
@@ -49,20 +53,20 @@
 // rescale per group, then the same epilogues. q8_matmul_ffn has none: the
 // JAX kernel keeps its reshape math in every mode (quant.py:967-971).
 
-#include <mma.h>
 #include <stdint.h>
 
 #include "a8.cuh"
 #include "common.cuh"
 #include "matmul_passes.cuh"
 #include "q8.cuh"
+#include "q8_wgmma.cuh"
 
 namespace {
 
 using namespace hipllama::q8;
 using hipllama::to_f;
 using hipllama::warp_sum;
-namespace wmma = nvcuda::wmma;
+namespace wg = hipllama::q8wg;
 
 // ---------------------------------------------------------------------------
 // GEMV path (M <= 16): one (strip, split) task per CTA
@@ -98,138 +102,88 @@ __global__ void q8_ffn_reduce_kernel(const float* __restrict__ part, int nstrips
 }
 
 // ---------------------------------------------------------------------------
-// tiled tensor-core path (M > 16)
+// tiled path (M > 16): q8_wgmma.cuh's pipelined mainloop
 
-constexpr int kMmThreads = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int kMmBN = 128;
-constexpr int kMmBK = 32;
-constexpr int kMmLda = kMmBK + 8;   // padded rows (multiples of 8 bf16, 32-byte aligned tiles)
-constexpr int kMmLdb = kMmBN + 8;
+// GATE: B tile columns 0-63 are W1 columns n0 .., 64-127 the same of W3 at
+// off2 = H (ncols = H), and the gate epilogue; else 128 adjacent columns and
+// q8_matmul's epilogue. ldq is the row stride of q and s. A CTA takes
+// kTileMB = 2 m64 blocks per consumer: 256 rows, so that each dequantized
+// weight element feeds 256 rows and a step's copies (x 32 KB, the weight 8
+// KB) carry twice the products of a 128-row tile's (16 + 8 KB). The grid
+// runs the column tiles of a row tile together (blockIdx.x over N), which
+// timed faster than the row tiles of a column tile at the QKV product.
+constexpr int kTileMB = 2;
+using TileT = wg::Tile<kTileMB>;
 
-// GATE: two weight tiles per step, W1 columns n and W3 columns off3 + n, and
-// the gate epilogue; else one tile and the q8_matmul epilogue. ldq is the
-// row stride of q and s; ncols the output width. Each thread owns one
-// 16-column chunk of x (the first BM * 2 threads) and one of each weight
-// tile per step. Loading the next step's chunks into registers before this
-// step's products (one stage of software pipelining) made the gate variant
-// slower at prefill rows (more registers, fewer CTAs per SM); it is left out.
 template <bool GATE>
-__global__ void __launch_bounds__(kMmThreads) q8_mma_kernel(
+__global__ void __launch_bounds__(wg::kThreads, 1) q8_tile_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    int M, int K, int ldq, int ncols, int off3, int gs, Epilogue e, bf16* __restrict__ out) {
-  constexpr int BM = GATE ? 64 : 128;
-  constexpr int WM = BM / 4;      // rows per warp
-  constexpr int FM = WM / 16;     // 16-row fragments per warp
-  constexpr int FN = 4;           // 16-column fragments per warp (64 columns)
-  constexpr int NB = GATE ? 2 : 1;
-  static_assert(kMmBK * (kMmBN / 16) == kMmThreads, "one weight chunk per thread and tile");
-  static_assert(BM * 2 <= kMmThreads, "at most one x chunk per thread");
-  __shared__ __align__(32) bf16 a_s[BM][kMmLda];
-  __shared__ __align__(32) bf16 b_s[NB][kMmBK][kMmLdb];
-  __shared__ __align__(32) float c_s[kMmThreads / 32][NB][16 * 16];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kMmBN;
-  // this thread's chunks: x row xr, columns xc..xc+15 of the step; weight
-  // row wr, columns wc..wc+15 of each tile
-  const bool has_x = tid < BM * 2;
-  const int xr = tid >> 1, xc = (tid & 1) * 16;
-  const int wr = tid >> 3, wc = (tid & 7) * 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB][FM][FN];
+    int M, int K, int ldq, int ncols, int off2, int gs, Epilogue e, bf16* __restrict__ out) {
+  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
+  extern __shared__ __align__(1024) unsigned char tile_smem[];
+  const wg::Ring<kTileMB> ring = wg::ring_init<kTileMB>(tile_smem);
+  const int m0 = blockIdx.y * TileT::kBM, n0 = blockIdx.x * kHalf;
+  const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int n_steps = (K + wg::kBK - 1) / wg::kBK;
+  const wg::Weight<kHalf> w{q, s, ldq, n0, ncols, off2, gs};
+  if (role == wg::kConsumers) {
+    wg::producer_regs();
+    wg::produce(ring, [=](int m, int k) { return x + (size_t)m * K + k; }, m0, M, K, w, n_steps,
+                t);
+  } else {
+    wg::consumer_regs();
+    float d[kTileMB][64];
 #pragma unroll
-  for (int t = 0; t < NB; ++t)
+    for (int mb = 0; mb < kTileMB; ++mb)
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[t][i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kMmBK) {
-    if (has_x) {
-      uint4 v0 = make_uint4(0u, 0u, 0u, 0u), v1 = v0;
-      const int gm = m0 + xr, gk = k0 + xc;
-      if (gm < M && gk < K) {
-        const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk);
-        v0 = src[0];
-        v1 = src[1];
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&a_s[xr][xc]);
-      dst[0] = v0;
-      dst[1] = v1;
-    }
-    const int wk = k0 + wr, gn = n0 + wc;
-#pragma unroll
-    for (int t = 0; t < NB; ++t) {
-      uint4 o0 = make_uint4(0u, 0u, 0u, 0u), o1 = o0;
-      if (wk < K && gn < ncols) {
-        const int qc = gn + t * off3;
-        const uint4 qv = __ldg(reinterpret_cast<const uint4*>(q + (size_t)wk * ldq + qc));
-        const float4* sp = reinterpret_cast<const float4*>(s + (size_t)(wk / gs) * ldq + qc);
-        const uint2 w0 = dequant4(qv.x ^ kBias4, __ldg(sp));
-        const uint2 w1 = dequant4(qv.y ^ kBias4, __ldg(sp + 1));
-        const uint2 w2 = dequant4(qv.z ^ kBias4, __ldg(sp + 2));
-        const uint2 w3 = dequant4(qv.w ^ kBias4, __ldg(sp + 3));
-        o0 = make_uint4(w0.x, w0.y, w1.x, w1.y);
-        o1 = make_uint4(w2.x, w2.y, w3.x, w3.y);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&b_s[t][wr][wc]);
-      dst[0] = o0;
-      dst[1] = o1;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) wmma::load_matrix_sync(af[i], &a_s[wm * WM + i * 16][kk], kMmLda);
-#pragma unroll
-      for (int t = 0; t < NB; ++t) {
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-          wmma::load_matrix_sync(bfr, &b_s[t][kk][wn * 64 + j * 16], kMmLdb);
-#pragma unroll
-          for (int i = 0; i < FM; ++i) wmma::mma_sync(acc[t][i][j], af[i], bfr, acc[t][i][j]);
-        }
-      }
-    }
-    __syncthreads();
+      for (int i = 0; i < 64; ++i) d[mb][i] = 0.f;
+    wg::consume(
+        ring, n_steps, K, w, m0, M, role, t, d, [](int it) { return it == 0; },
+        [](int) { return false; }, [](int, const float(&)[kTileMB][64]) {});
+    if (GATE)
+      wg::store_gate(d, m0, n0, M, ncols, role, t, out);
+    else
+      wg::store_tile(d, e, m0, n0, M, ncols, role, t, out);
   }
+}
 
-  // epilogue, one 16 x 16 fragment at a time through the warp's scratch:
-  // lane -> row lane / 2, columns (lane % 2) * 8 .. + 7
-  float* cs1 = c_s[warp][0];
-  float* cs3 = c_s[warp][NB - 1];
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs1, acc[0][i][j], 16, wmma::mem_row_major);
-      if (GATE) wmma::store_matrix_sync(cs3, acc[NB - 1][i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * WM + i * 16 + r;
-      const int gn = n0 + wn * 64 + j * 16 + c0;
-      if (gm < M) {
-#pragma unroll
-        for (int p = 0; p < 8; p += 2) {
-          const int n = gn + p;
-          if (n < ncols) {
-            const float a0 = cs1[r * 16 + c0 + p], a1 = cs1[r * 16 + c0 + p + 1];
-            if (GATE) {
-              const float b0 = cs3[r * 16 + c0 + p], b1 = cs3[r * 16 + c0 + p + 1];
-              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)gm * ncols + n) =
-                  __floats2bfloat162_rn(silu_gate(a0, b0), silu_gate(a1, b1));
-            } else {
-              store_pair(e, gm, n, ncols, a0, a1, out);
-            }
-          }
-        }
-      }
-      __syncwarp();
-    }
+// The mainloop's products alone, for timing its schedule: every CTA runs
+// n_steps steps of the consumers' wgmmas (128 x 128 tiles) on ring tiles
+// filled once (no copy, no dequantization, the producer idle), waiting
+// after each step's issue for all but kInFlight of its groups before the
+// consumers' barrier: 0 is the schedule before the pipelining, 1 the
+// mainloop's. out: one sum per consumer thread, so that nothing is dead.
+template <int kInFlight>
+__global__ void __launch_bounds__(wg::kThreads, 1) wgmma_probe_kernel(float* __restrict__ out,
+                                                                     int n_steps) {
+  using T = wg::Tile<1>;
+  extern __shared__ __align__(1024) unsigned char probe_smem[];
+  const wg::Ring<1> ring = wg::ring_init<1>(probe_smem);
+  uint32_t* tiles = reinterpret_cast<uint32_t*>(ring.smem);  // the x tiles, then the B tiles
+  for (int i = threadIdx.x; i < (T::kStages * T::kXBytes + wg::kBTiles * wg::kBTileBytes) / 4;
+       i += blockDim.x) {
+    const float v = (float)((i * 2654435761u) >> 24) * (1.f / 256.f) - 0.5f;
+    tiles[i] = bf16x2_bits(v, -v);
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int role = threadIdx.x >> 7;
+  if (role == wg::kConsumers) return;
+  float d[1][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[0][i] = 0.f;
+  for (int it = 0; it < n_steps; ++it) {
+    wg::wgmma_step(d, ring.x(it % T::kStages) + role * 64 * 128, ring.b(it % wg::kBTiles),
+                   false, 1);
+    wg::wg_wait<kInFlight>();
+    wg::consumers_sync();
+  }
+  wg::wg_wait<0>();
+  wg::wg_fence_regs(d[0]);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sum += d[0][i];
+  out[(size_t)blockIdx.x * 256 + threadIdx.x] = sum;
 }
 
 // ---------------------------------------------------------------------------
@@ -251,13 +205,17 @@ int launch_gemv(const void* x, const void* q, const void* s, float* part, int M,
 }
 
 template <bool GATE>
-int launch_mma(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
-               int off3, int gs, const Epilogue& e, void* out, cudaStream_t st) {
-  constexpr int BM = GATE ? 64 : 128;
-  const dim3 grid((ncols + kMmBN - 1) / kMmBN, (M + BM - 1) / BM);
-  q8_mma_kernel<GATE><<<grid, kMmThreads, 0, st>>>((const bf16*)x, (const int8_t*)q,
-                                                   (const float*)s, M, K, ldq, ncols, off3, gs, e,
-                                                   (bf16*)out);
+int launch_tiles(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
+                 int off2, int gs, const Epilogue& e, void* out, cudaStream_t st) {
+  if (M < 1 || K % 16 || ncols % 16 || ldq % 16 || gs < 1 || K % gs)
+    return (int)cudaErrorInvalidValue;
+  static const int ready = wg::prepare(q8_tile_kernel<GATE>, TileT::kSmemBytes);
+  HIPLLAMA_TRY(ready);
+  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
+  const dim3 grid((ncols + kHalf - 1) / kHalf, (M + TileT::kBM - 1) / TileT::kBM);
+  q8_tile_kernel<GATE><<<grid, wg::kThreads, TileT::kSmemBytes, st>>>(
+      (const bf16*)x, (const int8_t*)q, (const float*)s, M, K, ldq, ncols, off2, gs, e,
+      (bf16*)out);
   return check_launch();
 }
 
@@ -265,10 +223,12 @@ int launch_mma(const void* x, const void* q, const void* s, int M, int K, int ld
 
 HIPLLAMA_EXPORT_ERROR_STRING
 
+
 // All activations bf16, q int8, s and g fp32, pos int32. g, res and pos may be
 // null (no norm, no residual, no RoPE). xn_ws: (M, K) bf16 workspace, used
 // when g is given. split > 0 takes the GEMV path (M <= 16) with part_ws
-// (split, M, N) fp32 and kslice rows per split; split == 0 the tiled path.
+// (split, M, N) fp32 and kslice rows per split; split == 0 the tiled path,
+// with part_ws (M, rope_hs) fp32 for the RoPE table where pos is given.
 // K % 16 == 0, N % 16 == 0.
 extern "C" int q8_matmul(const void* x, const void* q, const void* s, const void* g,
                          const void* res, const void* pos, void* out, void* xn_ws, void* part_ws,
@@ -285,7 +245,13 @@ extern "C" int q8_matmul(const void* x, const void* q, const void* s, const void
     HIPLLAMA_TRY(launch_gemv(xin, q, s, (float*)part_ws, M, K, N, gs, split, kslice, st));
     return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st);
   }
-  return launch_mma<false>(xin, q, s, M, K, N, N, 0, gs, e, out, st);
+  Epilogue et = e;
+  if (pos != nullptr) {  // the tiles read each row's cos and sin from part_ws
+    if (part_ws == nullptr || rope_hs < 2 || rope_hs % 2) return (int)cudaErrorInvalidValue;
+    HIPLLAMA_TRY(launch_rope_table(pos, M, rope_hs, rope_coef, (float*)part_ws, st));
+    et.rope_cs = (const float*)part_ws;
+  }
+  return launch_tiles<false>(xin, q, s, M, K, N, N, 0, gs, et, out, st);
 }
 
 // silu(xn W1) * (xn W3) with q13 (K, 2H); out (M, H). Workspaces as above,
@@ -304,7 +270,23 @@ extern "C" int q8_matmul_silu(const void* x, const void* q13, const void* s13, c
     return launch_split_gate((const float*)part_ws, split, M, H, out, st);
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
-  return launch_mma<true>(xin, q13, s13, M, K, 2 * H, H, H, gs, none, out, st);
+  return launch_tiles<true>(xin, q13, s13, M, K, 2 * H, H, H, gs, none, out, st);
+}
+
+// The mainloop's products alone (wgmma_probe_kernel): ctas CTAs of n_steps
+// 64-deep steps of a 128 x 128 tile, in_flight 0 (each step drained before
+// the consumers' barrier) or 1 (the mainloop's schedule); out (ctas, 256)
+// fp32.
+extern "C" int wgmma_mainloop_probe(void* out, int ctas, int n_steps, int in_flight,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ctas < 1 || n_steps < 1 || (in_flight != 0 && in_flight != 1))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = in_flight ? wgmma_probe_kernel<1> : wgmma_probe_kernel<0>;
+  HIPLLAMA_TRY((int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         wg::Tile<1>::kSmemBytes));
+  kernel<<<ctas, wg::kThreads, wg::Tile<1>::kSmemBytes, st>>>((float*)out, n_steps);
+  return check_launch();
 }
 
 // res + W2 bf16(silu(xn W1) * xn W3): q13 (K, 2H), q2 (H, N), res and out

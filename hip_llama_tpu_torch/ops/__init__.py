@@ -27,6 +27,7 @@ from hip_llama_tpu_torch.ops.quant import (
     q8_matmul_silu,
     q8_matmul_silu_minner,
     q8_matmul_xheads,
+    wgmma_mainloop_probe,
 )
 from hip_llama_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_silu
 
@@ -37,7 +38,7 @@ KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            attention_prefill_paged, kv_write_rows_paged, scale_write_rows_paged,
            kv_write_chunk_paged, scale_write_chunk_paged, q8_matmul_layered, kv_write_rows,
            scale_write_rows, q8_matmul_minner, q8_matmul_silu_minner, q8_matmul_xheads,
-           dma_read, dma_copy, wshape_read, deep_read)
+           dma_read, dma_copy, wshape_read, deep_read, wgmma_mainloop_probe)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused, attention_decode_paged,
@@ -49,6 +50,9 @@ A8_BRANCHES = (q8_matmul, q8_matmul_silu, q4_matmul, q4_matmul_silu, q8_matmul_l
 # the wrappers with a tensor-core branch beside their kernel, which counts in
 # `.launches_tc` (q8_matmul_ffn above 16 rows)
 TC_BRANCHES = (q8_matmul_ffn,)
+# the wrappers whose launches above GEMV_MAX_M rows run the wgmma tiles
+# (csrc/q8_wgmma.cuh), counted again in `.launches_wgmma`
+WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered)
 
 
 def reset_launches() -> None:
@@ -61,16 +65,20 @@ def reset_launches() -> None:
         w.launches_a8 = 0
     for w in TC_BRANCHES:
         w.launches_tc = 0
+    for w in WGMMA_BRANCHES:
+        w.launches_wgmma = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches by kernel: `<wrapper>` and, for an int8 branch,
     `<wrapper>_int8`, for an `a8` branch `<wrapper>_a8`, for a tensor-core
-    branch `<wrapper>_tc`."""
+    branch `<wrapper>_tc`, for the wgmma tiles `<wrapper>_wgmma` (a share
+    of `<wrapper>`'s count)."""
     counts = {w.__name__: w.launches for w in KERNELS}
     counts.update({f"{w.__name__}_int8": w.launches_int8 for w in INT8_BRANCHES})
     counts.update({f"{w.__name__}_a8": w.launches_a8 for w in A8_BRANCHES})
     counts.update({f"{w.__name__}_tc": w.launches_tc for w in TC_BRANCHES})
+    counts.update({f"{w.__name__}_wgmma": w.launches_wgmma for w in WGMMA_BRANCHES})
     return counts
 
 
@@ -79,6 +87,7 @@ __all__ = [
     "INT8_BRANCHES",
     "KERNELS",
     "TC_BRANCHES",
+    "WGMMA_BRANCHES",
     "attention_decode",
     "attention_decode_fused",
     "attention_decode_paged",
@@ -109,5 +118,6 @@ __all__ = [
     "scale_write_chunk_paged",
     "scale_write_rows",
     "scale_write_rows_paged",
+    "wgmma_mainloop_probe",
     "wshape_read",
 ]

@@ -14,6 +14,12 @@ launches in `<wrapper>.launches`. A CUDA tensor launches the kernel or
 raises; a CPU tensor takes the plain PyTorch version beside it, which is
 also the yardstick the kernel is held against on the card.
 
+q8_matmul, q8_matmul_silu and q8_matmul_layered take the split-K GEMV up
+to GEMV_MAX_M rows and, above, tiles on the pipelined wgmma mainloop of
+csrc/q8_wgmma.cuh (`q8_rows_kernel`, the one row rule; `q8_kernel_takes`
+says which K, N and group sizes each accepts). `.launches` counts both;
+`.launches_wgmma` the launches that ran the tiles.
+
 Cast points, as in the JAX kernels' default `reshape` dequant mode
 (quant.py:237-241, :381-395, :148-180, :603-606, :851-886): w = bf16(f32(q)
 * s); xn = bf16(x_f32 * rsqrt(mean(x_f32^2) + eps) * g_f32); products bf16 x
@@ -57,11 +63,12 @@ reads and passes down (`minner=`):
   (M, heads, head size), one fp32 partial per head added in head order.
   It runs reshape math in every mode (the JAX call passes no dequant mode,
   quant.py:491-495); ineligible shapes (`xheads_engages`) flatten and take
-  q8_matmul, under the mode and the MINNER decision. Its kernel is the
-  wgmma mainloop of csrc/q8_wgmma.cuh (a producer warpgroup dequantizes
-  each weight tile once per 128-row CTA; two consumer warpgroups multiply),
-  which takes every group size (one that is no multiple of 8 reads its
-  scales a row at a time).
+  q8_matmul, under the mode and the MINNER decision. Its kernel runs the
+  pipelined wgmma mainloop of csrc/q8_wgmma.cuh on 128-row tiles (a
+  producer warpgroup copies x and the int8 weight; two consumer warpgroups
+  dequantize each weight tile once per CTA and multiply), which takes
+  every group size (one that is no multiple of 8 reads its scales a row at
+  a time).
 """
 
 from __future__ import annotations
@@ -112,6 +119,7 @@ XHEADS_BLOCK_N = 512
 MINNER_BK = 256
 MINNER_BN = 128
 _MINNER_CTAS = 264  # K19 CTAs aimed for: two per SM of an H100
+WGMMA_STEP_K = 64  # rows of K a step of csrc/q8_wgmma.cuh's mainloop takes (kBK)
 
 
 @dataclasses.dataclass
@@ -590,6 +598,36 @@ def q8_matmul_ffn_plain(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *
 # kernel wrappers
 
 
+def q8_rows_kernel(m: int) -> str:
+    """The reshape-math kernel that q8_matmul and q8_matmul_silu (and K20
+    through them) launch for m rows: "gemv" up to GEMV_MAX_M rows (split-K
+    over the weight, csrc/quant.cu q8_gemv_kernel), "wgmma" above
+    (q8_tile_kernel on csrc/q8_wgmma.cuh's pipelined mainloop). No other
+    tile kernel is kept: the wgmma tiles timed faster than the wmma tiles
+    they replaced at every row count from 32 to 4088 (PERF.md)."""
+    return "gemv" if m <= GEMV_MAX_M else "wgmma"
+
+
+def q8_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False) -> bool:
+    """Whether `kernel` (q8_rows_kernel's) launches at K k, N n (the
+    weight's columns: 2H for a gate) and group size gs, as its C launcher
+    decides: K and N multiples of 16, gs dividing K, a gate's H a multiple
+    of 16. The wgmma tiles zero-fill a last step past K % 64 and guard the
+    columns past N % 128 (a gate's past H % 64)."""
+    if kernel not in ("gemv", "wgmma"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    return (k > 0 and k % 16 == 0 and n > 0 and n % 16 == 0 and 0 < gs and k % gs == 0
+            and (not gate or (n // 2) % 16 == 0))
+
+
+def _check_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = False) -> str:
+    kernel = q8_rows_kernel(m)
+    if not q8_kernel_takes(kernel, k, n, gs, gate):
+        raise ValueError(f"{name}: the {kernel} kernel does not take K {k}, N {n}, "
+                         f"group size {gs}")
+    return kernel
+
+
 def gemv_plan(k: int, n: int, kslice_max: int = _GEMV_KSLICE_MAX,
               mult: int = 64, bn: int = _GEMV_BN) -> tuple[int, int]:
     """(split, kslice) of the GEMV path: K in `split` slices of `kslice`
@@ -721,11 +759,13 @@ def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, resid
     out = _reshape_launch("q8_matmul", x, qt, n, norm_weight, residual, rope_pos, rope_limit,
                           rope_head, rope_theta, norm_eps)
     q8_matmul.launches += 1
+    q8_matmul.launches_wgmma += q8_rows_kernel(m) == "wgmma"
     return out
 
 
 q8_matmul.launches = 0
 q8_matmul.launches_a8 = 0
+q8_matmul.launches_wgmma = 0  # the launches (of .launches) that ran the wgmma tiles
 
 
 def _check_epilogue(residual, rope_pos, rope_limit: int, rope_head: int, m: int, n: int, dev):
@@ -741,15 +781,19 @@ def _reshape_launch(fn: str, x, qt: QTensor, n: int, norm_weight, residual, rope
                     rope_limit: int, rope_head: int, rope_theta: float, norm_eps: float,
                     layer: int | None = None):
     """Launch csrc/quant.cu's `fn` (q8_matmul's reshape kernels) on x (M,
-    K): allocates the output, the normed rows and the GEMV path's split
-    partials. With `layer`, qt and norm_weight are stacked and the kernel
-    takes the layer index after its other ints."""
+    K): allocates the output, the normed rows, and the GEMV path's split
+    partials or the tiles' RoPE table (M, rope_head) of each row's cos and
+    sin. With `layer`, qt and norm_weight are stacked and the kernel takes
+    the layer index after its other ints."""
     m, k = x.shape
     dev = x.device
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    split, kslice = gemv_plan(k, n) if m <= GEMV_MAX_M else (0, 0)
-    part = torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else None
+    kernel = _check_takes(fn, m, k, n, qt.group_size)
+    split, kslice = gemv_plan(k, n) if kernel == "gemv" else (0, 0)
+    part = (torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else
+            torch.empty((m, rope_head), dtype=torch.float32, device=dev)
+            if rope_pos is not None else None)
     ints = [m, k, n, qt.group_size, split, kslice, rope_limit if rope_pos is not None else 0,
             rope_head if rope_pos is not None else 1] + ([] if layer is None else [layer])
     f = _build.bind("quant", fn, "ppppppppp" + "i" * len(ints) + "ff" + "p")
@@ -808,11 +852,13 @@ def q8_matmul_layered(x, qt: QTensor, layer: int, *, norm_weight=None, norm_eps:
     out = _reshape_launch("q8_matmul_layered", x, qt, n, norm_weight, residual, rope_pos,
                           rope_limit, rope_head, rope_theta, norm_eps, layer=layer)
     q8_matmul_layered.launches += 1
+    q8_matmul_layered.launches_wgmma += q8_rows_kernel(m) == "wgmma"
     return out
 
 
 q8_matmul_layered.launches = 0
 q8_matmul_layered.launches_a8 = 0
+q8_matmul_layered.launches_wgmma = 0
 
 
 def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
@@ -841,7 +887,8 @@ def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
         return out
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    split, kslice = gemv_plan(k, n2) if m <= GEMV_MAX_M else (0, 0)
+    kernel = _check_takes("q8_matmul_silu", m, k, n2, qt13.group_size, gate=True)
+    split, kslice = gemv_plan(k, n2) if kernel == "gemv" else (0, 0)
     part = torch.empty((split, m, n2), dtype=torch.float32, device=dev) if split else None
     fn = _build.bind("quant", "q8_matmul_silu", "ppppppp" + "iiiiii" + "f" + "p")
     rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), _ptr(norm_weight),
@@ -849,11 +896,13 @@ def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
             norm_eps, _stream())
     _build.check(rc, "quant", "q8_matmul_silu")
     q8_matmul_silu.launches += 1
+    q8_matmul_silu.launches_wgmma += kernel == "wgmma"
     return out
 
 
 q8_matmul_silu.launches = 0
 q8_matmul_silu.launches_a8 = 0
+q8_matmul_silu.launches_wgmma = 0
 
 
 def ffn_splits(m: int, h: int, n: int) -> int:
@@ -1051,3 +1100,24 @@ def q8_matmul_xheads(x3, qt: QTensor, *, residual=None, mode: str = "reshape",
 
 
 q8_matmul_xheads.launches = 0
+
+
+def wgmma_mainloop_probe(ctas: int, n_steps: int, in_flight: int, dev) -> torch.Tensor:
+    """Launch csrc/quant.cu's products-only mainloop (no copy, no
+    dequantization): `ctas` CTAs of `n_steps` steps of WGMMA_STEP_K rows of
+    K of a 128 x 128 bf16 tile, 2 x 128 x 128 x WGMMA_STEP_K flops a step,
+    each step drained before the consumers' barrier (in_flight 0, the
+    schedule before the pipelining) or left in flight across it (1,
+    q8_wgmma.cuh's). Returns (ctas, 256) fp32 sums, so that nothing is
+    dead. For timing only; no model path runs it."""
+    if torch.device(dev).type != "cuda":
+        raise ValueError("wgmma_mainloop_probe runs on the card only")
+    out = torch.empty((ctas, 256), dtype=torch.float32, device=dev)
+    f = _build.bind("quant", "wgmma_mainloop_probe", "p" + "iii" + "p")
+    _build.check(f(out.data_ptr(), ctas, n_steps, in_flight, _stream()), "quant",
+                 "wgmma_mainloop_probe")
+    wgmma_mainloop_probe.launches += 1
+    return out
+
+
+wgmma_mainloop_probe.launches = 0

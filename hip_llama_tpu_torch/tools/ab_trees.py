@@ -3,6 +3,7 @@ checkouts in turns (parent, change, change, parent) within one machine.
 
     cd <checkout> && python <path of this file> attention <checkout>
     cd <checkout> && python <path of this file> serve <checkout>
+    cd <checkout> && python <path of this file> prefill <checkout>
 
 Each runs the checkout's own package and its chip_smoke.py helpers (the
 checkout goes first on sys.path; run this file by its path, not with -m,
@@ -16,6 +17,15 @@ so that the package is imported from the checkout), once per checkout.
   chip_smoke's seed): prefill chunks of T 16, 64 and 256 over 8 slots
   profiled (device time by kernel), then chip_smoke's 16-request serve at
   batch 8, twice (tok/s, TTFT p50 and p95).
+- prefill: the Q8 products at prefill rows (reshape math, group size 64,
+  7B widths): q8_matmul on QKV with the norm and RoPE, on wo and W2 with
+  the residual, and q8_matmul_silu with the norm, at M 32, 128, 512, 2048
+  and 4088 (whatever kernel the checkout routes them to), each the least of
+  three CUDA-event means; the T-256 and T-16 chunks of the 7B-width Q8 +
+  int8-KV model over 8 slots, profiled; then the port bench's default
+  decode and its --mode ttft, in process, twice each (the achievable
+  bandwidth fixed by HIPLLAMA_ACHIEVABLE_BW where it is set, so that no
+  probe runs).
 """
 
 from __future__ import annotations
@@ -100,8 +110,69 @@ def serve(cs) -> None:
               flush=True)
 
 
+def prefill(cs) -> None:
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from hip_llama_tpu_torch.engine import InferenceEngine
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, hid, gs = 4096, 11008, 64
+
+    def weights(k, n):
+        return [Q.q8_quantize_weights(torch.randn((k, n), generator=g, device=dev) * k ** -0.5,
+                                      gs) for _ in range(2)]
+
+    wq, wo, w2, w13 = weights(d, 3 * d), weights(d, d), weights(hid, d), weights(d, 2 * hid)
+    norm = torch.ones(d, device=dev)
+    for m in (32, 128, 512, 2048, 4088):
+        x = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+        xh = torch.randn((m, hid), generator=g, device=dev).to(torch.bfloat16)
+        pos = torch.arange(m, dtype=torch.int32, device=dev) % 512
+        cases = {
+            "QKV": lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos,
+                                         rope_limit=2 * d, rope_head=128),
+            "wo": lambda i: Q.q8_matmul(x, wo[i % 2], residual=x),
+            "W2": lambda i: Q.q8_matmul(xh, w2[i % 2], residual=x),
+            "K17": lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm),
+        }
+        row = []
+        for name, fn in cases.items():
+            fn(0)
+            torch.cuda.synchronize()
+            row.append(f"{name} {min(cs.cuda_ms(fn) for _ in range(3)):.4f}")
+        print(f"products M {m} (ms): {'; '.join(row)}", flush=True)
+    del wq, wo, w2, w13
+    torch.cuda.empty_cache()
+
+    cfg = cs.LLAMA2_7B
+    params = cs.random_7b_qparams(cfg, dev)
+    engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512, kv_quant=True)
+    cache = engine.new_cache()
+    toks = np.random.default_rng(5).integers(3, cfg.vocab_size, (8, 256)).tolist()
+    for t in (256, 16):
+        cs.profile_window(f"q8 int8-kv prefill chunk (batch 8, T {t})", 2 if t > 16 else 4,
+                          lambda i, t=t: engine._prefill_tokens(
+                              cache, 8, {s: toks[s][:t] for s in range(8)},
+                              {s: 0 for s in range(8)}, bm=None))
+    del engine, cache, params
+    torch.cuda.empty_cache()
+    for argv in ([], ["--mode", "ttft"]) * 2:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cs.port_bench.main(argv)
+        print(f"bench {' '.join(argv) or '(defaults)'}: {buf.getvalue().strip()}", flush=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv: list[str]) -> int:
-    if len(argv) != 3 or argv[1] not in ("attention", "serve"):
+    modes = {"attention": attention, "serve": serve, "prefill": prefill}
+    if len(argv) != 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
     sys.path.insert(0, argv[2])
@@ -113,7 +184,7 @@ def main(argv: list[str]) -> int:
     import chip_smoke as cs
 
     print(f"checkout {argv[2]}: {cs.card_line()}", flush=True)
-    (attention if argv[1] == "attention" else serve)(cs)
+    modes[argv[1]](cs)
     return 0
 
 

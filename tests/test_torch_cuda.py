@@ -162,11 +162,12 @@ def test_q8_matmul_kernel(m, shape, epi):
         hs = 8 if n < 1024 else 128
         kw.update(rope_pos=torch.tensor(rng.integers(0, 2048, m), dtype=torch.int32, device=dev),
                   rope_limit=(2 * n // 3) // hs * hs, rope_head=hs, rope_theta=10000.0)
-    n0 = Q.q8_matmul.launches
+    n0, w0 = Q.q8_matmul.launches, Q.q8_matmul.launches_wgmma
     got = Q.q8_matmul(x, qt, **kw)
     want = Q.q8_matmul_plain(x, qt, **kw)
     torch.cuda.synchronize()
     assert Q.q8_matmul.launches == n0 + 1 and got.shape == (m, n)
+    assert Q.q8_matmul.launches_wgmma == w0 + (Q.q8_rows_kernel(m) == "wgmma")
     _close(got, want, torch.bfloat16)
 
 
@@ -179,11 +180,85 @@ def test_q8_matmul_silu_kernel(m, shape):
     qt13 = _qt(rng, k, 2 * h, gs, dev)
     x = _rand(rng, (m, k), torch.bfloat16, dev)
     g = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    n0, w0 = Q.q8_matmul_silu.launches, Q.q8_matmul_silu.launches_wgmma
     got = Q.q8_matmul_silu(x, qt13, norm_weight=g)
     want = Q.q8_matmul_silu_plain(x, qt13, norm_weight=g)
     torch.cuda.synchronize()
+    assert got.shape == (m, h) and Q.q8_matmul_silu.launches == n0 + 1
+    assert Q.q8_matmul_silu.launches_wgmma == w0 + (Q.q8_rows_kernel(m) == "wgmma")
+    _close(got, want, torch.bfloat16)
+
+
+# the tiles on q8_wgmma.cuh's mainloop, rows on both sides of the row rule
+# (16: the GEMV; 17 up: the tiles): (K, N, gs) with K 288 and 192 (a last
+# step past K % 64, zero-filled), N 208 and 480 (a ragged column tile, 480
+# the stories15M QKV of 6 + 2 + 2 heads of 48) and groups of 16, 32 and 64;
+# the gate at H 208 and 768 (ragged 64-column halves) and 11008
+TILE_ROWS = [16, 17, 40, 128, 300, 2048, 4088]
+TILE_SHAPES = [(64, 128, 64), (192, 208, 32), (288, 480, 32), (288, 480, 16),
+               (4096, 12288, 64), (4096, 4096, 64)]
+TILE_GATE_SHAPES = [(64, 192, 64), (192, 208, 16), (288, 768, 32), (4096, 11008, 64)]
+
+
+@pytest.mark.parametrize("m", TILE_ROWS)
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+@pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
+def test_q8_matmul_wgmma_tiles(m, shape, epi):
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(7)
+    qt = _qt(rng, k, n, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = {}
+    if epi in ("norm", "norm_rope"):
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    if epi == "residual":
+        kw["residual"] = _rand(rng, (m, n), torch.bfloat16, dev)
+    if epi == "norm_rope":  # q and k rotate in heads of 48 (K 288) or 8 / 128
+        hs = 48 if k == 288 else 8 if n < 1024 else 128
+        kw.update(rope_pos=torch.tensor(rng.integers(0, 2048, m), dtype=torch.int32, device=dev),
+                  rope_limit=(2 * n // 3) // hs * hs, rope_head=hs, rope_theta=10000.0)
+    n0, w0 = Q.q8_matmul.launches, Q.q8_matmul.launches_wgmma
+    got = Q.q8_matmul(x, qt, **kw)
+    want = Q.q8_matmul_plain(x, qt, **kw)
+    torch.cuda.synchronize()
+    wgmma = Q.q8_rows_kernel(m) == "wgmma"
+    assert wgmma == (m > 16)
+    assert (Q.q8_matmul.launches - n0, Q.q8_matmul.launches_wgmma - w0) == (1, int(wgmma))
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", TILE_ROWS)
+@pytest.mark.parametrize("shape", TILE_GATE_SHAPES)
+@pytest.mark.parametrize("norm", [False, True])
+def test_q8_matmul_silu_wgmma_tiles(m, shape, norm):
+    dev = _card()
+    k, h, gs = shape
+    rng = np.random.default_rng(8)
+    qt13 = _qt(rng, k, 2 * h, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    g = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous() if norm else None
+    n0, w0 = Q.q8_matmul_silu.launches, Q.q8_matmul_silu.launches_wgmma
+    got = Q.q8_matmul_silu(x, qt13, norm_weight=g)
+    want = Q.q8_matmul_silu_plain(x, qt13, norm_weight=g)
+    torch.cuda.synchronize()
+    wgmma = Q.q8_rows_kernel(m) == "wgmma"
+    assert (Q.q8_matmul_silu.launches - n0, Q.q8_matmul_silu.launches_wgmma - w0) == (
+        1, int(wgmma))
     assert got.shape == (m, h)
     _close(got, want, torch.bfloat16)
+
+
+def test_wgmma_mainloop_probe_runs_both_schedules():
+    """The products-only mainloop (chip_smoke's `mainloop` line): both
+    schedules launch, count and give finite sums (the same products, the
+    same order: equal)."""
+    dev = _card()
+    n0 = Q.wgmma_mainloop_probe.launches
+    a, b = (Q.wgmma_mainloop_probe(4, 8, f, dev) for f in (0, 1))
+    torch.cuda.synchronize()
+    assert Q.wgmma_mainloop_probe.launches == n0 + 2
+    assert bool(torch.isfinite(a).all()) and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("m", [1, 8, 16, 40, 128])
