@@ -18,9 +18,10 @@ Phases, in order; each raises on failure and none is caught:
      above 16 rows on the wgmma tiles: QKV with the norm and RoPE at M 2048
      and the bench's 4088, wo and W2 at M 2048 with the residual, the gate at
      M 512, 2048 and 4088, and the row rule's rows 16, 17, 32, 128 and 512;
-     q8_matmul_ffn at M 8 on its strip kernel and at M 32 and 128 on its
+     q8_matmul_ffn at M 8 on the GEMV and at M 32 and 128 on its
      tensor-core kernel, attention_decode_fused, q8_layer_fused) against
-     their plain versions at 7B shapes in bf16, with the same timings; and
+     their plain versions at 7B shapes in bf16, with the same timings (the
+     decode rows' as CUDA-graph replays, below the wrappers' host cost); and
      the `mainloop` lines: the wgmma mainloop's products alone (no copy, no
      dequantization), each step drained before the consumers' barrier and
      kept in flight across it, as a share of the 989 TFLOP/s bf16 peak;
@@ -30,7 +31,9 @@ Phases, in order; each raises on failure and none is caught:
      assets/out/cpu_q8 at the golden bars (3 corpora at 1.0, average 0.75),
      once with the decode layer as one q8_layer_fused kernel (the default)
      and once as four kernels (HIPLLAMA_LAYER_FUSE=0), each run's kernel
-     launches counted;
+     launches counted; then (after phase 6's int8-cache runs) every corpus
+     served by the card's Q8 engine beside the port's plain path on the
+     CPU, bf16 and int8 cache: each slot's first fork is a near-tie;
   5. a Llama-2-7B-width model (random bf16 weights made on the card from a
      seed, depth uncut) served through InferenceEngine.serve: 16 requests at
      batch 8, window 512, greedy; the first prefill and decode logits held
@@ -41,7 +44,9 @@ Phases, in order; each raises on failure and none is caught:
      tolerance;
   6. the int8 KV cache (--kv int8): the int8 branches of K1-K5 and K23 and
      the scale writer K12 against their plain versions at 7B shapes (K2,
-     K3 and K12 bit-exact); the golden fixture with --kv int8, dense fp32
+     K3 and K12 bit-exact), and the `parts` line: K23 int8 beside the
+     standalone kernels of its phases (tools/ab_trees.py::layer_parts);
+     the golden fixture with --kv int8, dense fp32
      and Q8 with the fused and the four-kernel layer, scored against the
      JAX package's assets/out/cpu_f32_kv8 and cpu_q8_kv8; and the 7B-width
      Q8 serve of phase 5b on an int8 cache, with its logit check, control
@@ -170,7 +175,7 @@ from hip_llama_tpu_torch.models.paged import (
     make_paged_decode_step,
     make_paged_prefill,
 )
-from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams
+from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams, quantize_params_q8
 from hip_llama_tpu_torch.ops import _build, launch_counts, reset_launches
 from hip_llama_tpu_torch.ops import attention as A
 from hip_llama_tpu_torch.ops import cache as C
@@ -181,6 +186,7 @@ from hip_llama_tpu_torch.ops import quant4 as Q4
 from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
 from hip_llama_tpu_torch.tools import hbm_bw as HT
+from hip_llama_tpu_torch.tools.ab_trees import layer_parts
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "assets", "golden")
@@ -337,7 +343,7 @@ Q8_PATH = ("q8_matmul", "q8_matmul_wgmma", "q8_layer_fused", "q8_matmul_ffn_tc",
            "attention_prefill")
 # the golden fixture's Q8 runs: prefill chunks of at most 256 rows (more than
 # 16 at -b 4) take K18's tensor-core kernel, the four-kernel decode layer its
-# strip kernel
+# GEMV route
 GOLDEN_Q8_RUNS = {
     "q8, fused layer": (["--quant", "q8"], "1", "cpu_q8",
                         ("q8_layer_fused", "q8_matmul", "q8_matmul_ffn_tc", "kv_commit_rows",
@@ -422,8 +428,8 @@ GOLDEN_A8_RUNS = {
                       "kv_commit_rows", "kv_write_chunk", "attention_prefill"), True)},
 }
 # the 7B-width Q8 + int8-KV serve in a8: the prefill W2 (172 groups) keeps
-# reshape math, as the JAX decision says; the decode FFN is K18's strip, a
-# T-16 chunk's its tensor-core kernel
+# reshape math, as the JAX decision says; the decode FFN is K18's GEMV route,
+# a T-16 chunk's its tensor-core kernel
 Q8_A8_PATH = ("q8_matmul_a8", "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn",
               "q8_matmul_ffn_tc",
               "attention_decode_fused_int8", "kv_commit_rows_int8", "kv_write_chunk_int8",
@@ -863,7 +869,8 @@ def phase_q8_kernels() -> dict[str, dict]:
              lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: Q.q8_matmul_plain(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: x @ wqb[i % 2],
-             wbytes(d, nqkv) + m * d * 2 + m * nqkv * 2 + d * 4 + m * 4, 2 * m * d * nqkv)
+             wbytes(d, nqkv) + m * d * 2 + m * nqkv * 2 + d * 4 + m * 4, 2 * m * d * nqkv,
+             graph=m <= Q.GEMV_MAX_M)
     del wq, wqb
     wo = weights(d, d, 4)
     wob = deq(wo)
@@ -872,7 +879,8 @@ def phase_q8_kernels() -> dict[str, dict]:
         case(k15(m), f"wo M {m}, residual",
              lambda i: Q.q8_matmul(x, wo[i % 4], residual=res),
              lambda i: Q.q8_matmul_plain(x, wo[i % 4], residual=res),
-             lambda i: x @ wob[i % 4], wbytes(d, d) + 3 * m * d * 2, 2 * m * d * d)
+             lambda i: x @ wob[i % 4], wbytes(d, d) + 3 * m * d * 2, 2 * m * d * d,
+             graph=m <= Q.GEMV_MAX_M)
     del wo, wob
     w2 = weights(hid, d, 2)
     w2b = deq(w2)
@@ -891,11 +899,11 @@ def phase_q8_kernels() -> dict[str, dict]:
          lambda i: Q.q8_matmul(x, wc[0], norm_weight=norm),
          lambda i: Q.q8_matmul_plain(x, wc[0], norm_weight=norm),
          lambda i: x @ wcb[0], wbytes(d, voc) + 8 * d * 2 + 8 * voc * 2 + d * 4,
-         2 * 8 * d * voc)
+         2 * 8 * d * voc, graph=True)
     del wc, wcb
 
     # K17 at decode rows (the GEMV) and prefill rows (the wgmma tiles; 4088
-    # the bench's ttft prefill); K18 at decode rows (its strip kernel) and
+    # the bench's ttft prefill); K18 at decode rows (the GEMV route) and
     # at a T-4 and a T-16 chunk of 8 slots (its tensor-core kernel)
     w13, w2 = weights(d, 2 * hid, 2), weights(hid, d, 2)
     w13b, w2b = deq(w13), deq(w2)
@@ -906,7 +914,8 @@ def phase_q8_kernels() -> dict[str, dict]:
              lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm),
              lambda i: Q.q8_matmul_silu_plain(x, w13[i % 2], norm_weight=norm),
              lambda i: x @ w13b[i % 2],
-             wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid)
+             wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid,
+             graph=m <= Q.GEMV_MAX_M)
     for m in (8, 32, 128):
         x, hb = rnd(m, d), rnd(m, hid)
         case("q8_matmul_ffn" if m <= Q.GEMV_MAX_M else "q8_matmul_ffn_tc", f"FFN M {m}",
@@ -914,7 +923,7 @@ def phase_q8_kernels() -> dict[str, dict]:
              lambda i: Q.q8_matmul_ffn_plain(x, w13[i % 2], w2[i % 2], x, norm),
              lambda i: (x @ w13b[i % 2], hb @ w2b[i % 2]),
              wbytes(d, 2 * hid) + wbytes(hid, d) + 3 * m * d * 2 + d * 4,
-             2 * m * d * 2 * hid + 2 * m * hid * d)
+             2 * m * d * 2 * hid + 2 * m * hid * d, graph=m <= Q.GEMV_MAX_M)
     del w13, w2, w13b, w2b
 
     # K5 over a 7B-shaped cache, layers rotating as for K1
@@ -1179,6 +1188,8 @@ def phase_kernels_int8() -> dict[str, dict]:
     if not same:
         raise AssertionError("q8_layer_fused_int8 differs from the four-kernel int8 layer")
     del lw, cache
+    # K23 int8 beside the standalone kernels of its phases, and what is left
+    layer_parts(cuda_ms)
     return out
 
 
@@ -2085,6 +2096,86 @@ def phase_golden_runs(runs: dict, model: str | None = None
     return launches, outputs
 
 
+# a fork of the fixture's Q8 serve from the JAX package's outputs must be a
+# near-tie (ROADMAP.md section 3): the card's engine and the port's plain
+# path on the CPU (which tests/test_torch_kv_int8_model.py::
+# test_q8_int8_serve_forks_from_jax_only_at_near_ties holds to the JAX
+# engine up to near-ties) serve each corpus side by side, greedy at -b 4; a
+# slot's logits agree within Q8_FORK_TOL until its first fork, where the
+# CPU's top-2 gap is at most NEAR_TIE
+NEAR_TIE = 0.1
+Q8_FORK_TOL = (0.15, 0.05)
+
+
+def host_logits(logits) -> np.ndarray:
+    return (logits.float().cpu().numpy() if isinstance(logits, torch.Tensor)
+            else np.asarray(logits, np.float32))
+
+
+def golden_forks_at_near_ties(kv_quant: bool) -> None:
+    cfg, w = load_checkpoint(os.path.join(GOLDEN, "model.bin"))
+    tok = Tokenizer.from_file(os.path.join(GOLDEN, "tokenizer.bin"), cfg.vocab_size)
+    params = {d: quantize_params_q8(cfg, w, device=torch.device(d)) for d in ("cuda", "cpu")}
+    gaps, compared = [], 0
+    for c in CORPORA:
+        prompts = read_inputfile(os.path.join(REPO, "assets", "in", f"{c}_in_8.txt")).prompts
+        log: dict[str, list] = {}
+        for d, p in params.items():
+            eng = InferenceEngine(cfg, p, tok, batch_size=4, kv_quant=kv_quant)
+            log[d] = []
+            step, prefill = eng._do_step, eng._prefill_tokens
+
+            def logged_step(cache, tokens, pos, *a, _step=step, _log=log[d], **kw):
+                logits, cache = _step(cache, tokens, pos, *a, **kw)
+                _log.append(((np.asarray(tokens).tolist(), np.asarray(pos).tolist()),
+                             host_logits(logits)))
+                return logits, cache
+
+            def logged_prefill(cache, batch, slot_tokens, slot_start, *a, _pf=prefill,
+                               _log=log[d], **kw):
+                logits, cache = _pf(cache, batch, slot_tokens, slot_start, *a, **kw)
+                if logits is not None:
+                    _log.append(((sorted(slot_tokens.items()), sorted(slot_start.items())),
+                                 host_logits(logits)))
+                return logits, cache
+
+            eng._do_step, eng._prefill_tokens = logged_step, logged_prefill
+            eng.serve(Requests(prompts=list(prompts), generations=[""] * len(prompts)),
+                      steps=cfg.seq_len,
+                      samplers=[Sampler(cfg.vocab_size, temperature=0.0) for _ in prompts])
+        # slot by slot while both engines feed it the same input; a slot
+        # leaves the comparison at its first fork, and it ends where the
+        # schedules part
+        forked: set = set()
+        for (cin, cl), (pin, pl) in zip(log["cuda"], log["cpu"]):
+            if len(cin) != len(pin) or len(cin[0]) != len(pin[0]) or cl.shape != pl.shape:
+                break
+            if isinstance(cin[0][0], tuple):  # a prefill: (slot, tokens) pairs
+                same = [s for (s, a), (s2, b) in zip(cin[0], pin[0])
+                        if s == s2 and a == b and dict(cin[1])[s] == dict(pin[1])[s]]
+            else:
+                same = [s for s in range(len(cin[0]))
+                        if (cin[0][s], cin[1][s]) == (pin[0][s], pin[1][s])]
+            for s in same:
+                if s in forked:
+                    continue
+                compared += 1
+                if not np.allclose(cl[s], pl[s], atol=Q8_FORK_TOL[0], rtol=Q8_FORK_TOL[1]):
+                    raise AssertionError(f"{c} slot {s}: card logits off the CPU's before a fork")
+                if cl[s].argmax() != pl[s].argmax():
+                    top2 = np.sort(pl[s])[-2:]
+                    gaps.append(float(top2[1] - top2[0]))
+                    forked.add(s)
+            if len(forked) == 4:
+                break
+    label = "q8 --kv int8" if kv_quant else "q8"
+    print(f"golden forks ({label}, card vs the CPU's plain path): {len(gaps)} slot forks over "
+          f"{compared} compared slot steps; top-2 gaps at the forks "
+          f"{[round(g, 4) for g in gaps]} (bar {NEAR_TIE})", flush=True)
+    if compared < 100 or any(g > NEAR_TIE for g in gaps):
+        raise AssertionError(f"golden ({label}): a fork that is no near-tie, or too few steps")
+
+
 def golden_run(label: str, args: list[str], golden: str, corpora_bar: bool,
                model: str) -> dict[str, bytes]:
     scores = {}
@@ -2922,6 +3013,8 @@ def main() -> int:
     phase_goldens()
     launches_golden = phase_golden_runs(GOLDEN_Q8_RUNS)[0]
     launches_golden.update(phase_golden_runs(GOLDEN_INT8_RUNS)[0])
+    for kv_quant in (False, True):
+        golden_forks_at_near_ties(kv_quant)
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 // The whole Q8_0 FFN for 17-256 rows on the bf16 tensor cores: replaces
 // hip_llama_tpu/ops/quant.py::q8_matmul_ffn (_q8_kernel_ffn) where the JAX
-// package takes it with more than 16 rows (M <= 16 keeps quant.cu's strip
-// kernel, q8.cuh::ffn_strip_task):
+// package takes it with more than 16 rows (M <= 16 takes quant.cu's GEMV
+// route, q8.cuh::gemv_tasks):
 //
 //   out = res + W2 bf16(silu(xn W1) * (xn W3)),  xn = rmsnorm(x, g)
 //
@@ -13,7 +13,7 @@
 // Bound on an H100: at M 128 and 7B widths the FFN does 2 M flops per int8
 // weight byte, 256, just below the card's ~295 flop/byte ridge: the 144 MB of
 // weights and scales (0.043 ms at 3.35 TB/s) and the 34.6 GFLOP (0.035 ms at
-// 989 TFLOP/s) bound it alike. The strip kernel it replaces ran on the fp32
+// 989 TFLOP/s) bound it alike. The strip kernel it replaced ran on the fp32
 // CUDA cores (a floor of about 0.5 ms for the FMAs alone), read the weights
 // once per 16 rows and wrote 361 MB of fp32 strip partials. The design:
 //  - two tensor-core launches and two small passes: the rmsnorm (one pass,

@@ -10,16 +10,20 @@
 // sequential grid whose phases hand their results on in VMEM. Here the grid
 // is persistent (a cooperative launch of as many CTAs as fit on the card at
 // once): each phase deals its tasks out to the CTAs, a grid-wide barrier
-// separates the phases, and the intermediates (xn, qkv, att, x2 and the fp32
-// partial sums) stay in a workspace that fits in L2. The tasks are those of
-// the standalone kernels (q8.cuh, decode_attention.cuh) with the same plans,
-// so the layer rounds exactly as q8_matmul (norm + RoPE), attention_decode_
-// fused, q8_matmul (residual) and q8_matmul_ffn in a row, as the TPU kernel
-// does against its 4-kernel path (layer_fused.py:25-27). What it removes is
-// the launch of ~8 kernels and the gap between them per layer.
+// separates the phases, and the intermediates (xn, qkv, att, x2, hb and the
+// fp32 partial sums) stay in a workspace that fits in L2. The tasks are
+// those of the standalone kernels with the same plans: the four products
+// are q8.cuh's tensor-core GEMV tasks (mma.sync, a cp.async ring per warp)
+// at gemv_plan's splits, each followed by its pass over the partials
+// (RoPE, the residual, the gate, the residual), and attention is
+// decode_attention.cuh's task. So the layer rounds exactly as q8_matmul
+// (norm + RoPE), attention_decode_fused, q8_matmul (residual) and
+// q8_matmul_ffn in a row, as the TPU kernel does against its 4-kernel path
+// (layer_fused.py:25-27). What it removes is the launch of 11 kernels and
+// the gap between them per layer.
 //
 // Bounds on an H100: as the products it fuses, by the weight bytes (1 byte
-// per weight plus 4/gs for the scales) and the live cache rows; the 8
+// per weight plus 4/gs for the scales) and the live cache rows; the 10
 // barriers cost a few microseconds each. The QKV rows of this step leave
 // the kernel in the workspace for the cache commit after the layer loop.
 //
@@ -68,11 +72,12 @@ struct LayerArgs {
   bf16* qkv;   // (B, NQKV) workspace, and the step's k|v rows
   bf16* att;   // (B, D) workspace
   bf16* x2;    // (B, D) workspace
+  bf16* hb;    // (B, hidden) workspace: the gated hidden rows
   float* part; // fp32 partial sums
   unsigned int* bar;  // two zeroed words: arrivals, generation
   int B, D, H, KVH, S, HS, L, layer, hidden;
   int gs_qkv, gs_o, gs13, gs2;
-  int split_q, kslice_q, split_o, kslice_o, bk, kv_int8;
+  int split_q, split_o, split13, split2, bk, kv_int8;
   float scale, rope_coef, eps;
 };
 
@@ -104,31 +109,15 @@ __device__ void grid_barrier(unsigned int* bar, unsigned int nblocks) {
 // tasks address it as shared memory.
 extern __shared__ __align__(16) unsigned char smem[];
 
+// one product's split-K partials (B, K) @ (K, N) into part (split, B, N)
 template <int MAXM>
 __device__ __noinline__ void gemv_phase(const bf16* x, const int8_t* q, const float* s,
-                                        float* part, int B, int K, int N, int gs, int split,
-                                        int kslice) {
+                                        float* part, int B, int K, int N, int gs, int split) {
   auto& sm = *reinterpret_cast<GemvSmem<MAXM>*>(smem);
-  const int strips = (N + kGvBN - 1) / kGvBN;
-  const int chunks = (B + MAXM - 1) / MAXM;
-  for (int t = blockIdx.x; t < strips * split * chunks; t += gridDim.x) {
-    const int strip = t % strips, rest = t / strips;
-    const int sp = rest % split, m0 = (rest / split) * MAXM;
-    gemv_task<MAXM>(sm, x, q, s, part, min(MAXM, B - m0), B, m0, K, N, gs, kslice, strip, sp);
-  }
-}
-
-template <int MAXM>
-__device__ __noinline__ void ffn_phase(const LayerArgs& a) {
-  auto& ff = *reinterpret_cast<FfnSmem<MAXM>*>(smem);
-  const int nstrips = (a.hidden + kFfBH - 1) / kFfBH;
-  const int chunks = (a.B + MAXM - 1) / MAXM;
-  for (int t = blockIdx.x; t < nstrips * chunks; t += gridDim.x) {
-    const int m0 = (t % chunks) * MAXM;
-    ffn_strip_task<MAXM>(ff, a.xn, a.w13_q, a.w13_s, a.w2_q, a.w2_s, a.part,
-                         min(MAXM, a.B - m0), a.B, m0, a.D, a.hidden, a.D, a.gs13, a.gs2,
-                         t / chunks);
-  }
+  if (gs % kGemvStep == 0)
+    gemv_tasks<MAXM, true>(sm, x, q, s, part, B, K, N, gs, split);
+  else
+    gemv_tasks<MAXM, false>(sm, x, q, s, part, B, K, N, gs, split);
 }
 
 // the attention phase at compiled head size HS (decode_hs_pad of the head
@@ -180,8 +169,7 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
     rmsnorm_row(a.x + (size_t)r * D, a.g1, a.xn + (size_t)r * D, D, a.eps, red);
   grid_barrier(a.bar, nblk);
   // qkv = rope(xn @ Wqkv) on q|k
-  gemv_phase<MAXM>(a.xn, a.qkv_q, a.qkv_s, a.part, B, D, nqkv, a.gs_qkv, a.split_q,
-                   a.kslice_q);
+  gemv_phase<MAXM>(a.xn, a.qkv_q, a.qkv_s, a.part, B, D, nqkv, a.gs_qkv, a.split_q);
   grid_barrier(a.bar, nblk);
   const Epilogue rope{nullptr, a.pos, (a.H + a.KVH) * HS, HS, a.rope_coef};
   for (int i = gtid; i < B * (nqkv / 2); i += gthreads)
@@ -197,7 +185,7 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
   }
   grid_barrier(a.bar, nblk);
   // x2 = x + att @ Wo
-  gemv_phase<MAXM>(a.att, a.wo_q, a.wo_s, a.part, B, D, D, a.gs_o, a.split_o, a.kslice_o);
+  gemv_phase<MAXM>(a.att, a.wo_q, a.wo_s, a.part, B, D, D, a.gs_o, a.split_o);
   grid_barrier(a.bar, nblk);
   const Epilogue resid{a.x, nullptr, 0, 1, 0.f};
   for (int i = gtid; i < B * (D / 2); i += gthreads)
@@ -207,12 +195,17 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
   for (int r = blockIdx.x; r < B; r += gridDim.x)
     rmsnorm_row(a.x2 + (size_t)r * D, a.g2, a.xn + (size_t)r * D, D, a.eps, red);
   grid_barrier(a.bar, nblk);
-  // the FFN's hidden strips, then out = x2 + their sum in order
-  ffn_phase<MAXM>(a);
+  // the FFN: hb = bf16(silu(xn W1) * xn W3), then out = x2 + hb W2
+  gemv_phase<MAXM>(a.xn, a.w13_q, a.w13_s, a.part, B, D, 2 * a.hidden, a.gs13, a.split13);
   grid_barrier(a.bar, nblk);
-  const int nstrips = (a.hidden + kFfBH - 1) / kFfBH;
+  for (int i = gtid; i < B * a.hidden; i += gthreads)
+    split_gate_at(a.part, a.split13, B, a.hidden, a.hb, i);
+  grid_barrier(a.bar, nblk);
+  gemv_phase<MAXM>(a.hb, a.w2_q, a.w2_s, a.part, B, a.hidden, D, a.gs2, a.split2);
+  grid_barrier(a.bar, nblk);
+  const Epilogue resid2{a.x2, nullptr, 0, 1, 0.f};
   for (int i = gtid; i < B * (D / 2); i += gthreads)
-    ffn_reduce_at(a.part, nstrips, B, D, a.x2, a.out, i);
+    split_epilogue_at(a.part, a.split2, B, D, resid2, a.out, i);
 }
 
 // the attention phase's task and its block of min(M, kMaxM) x bk scores, at
@@ -235,11 +228,10 @@ size_t attention_smem(const LayerArgs& a) {
 
 template <int MAXM>
 int launch_layer(const LayerArgs& a, cudaStream_t st) {
-  constexpr size_t smem_ab = sizeof(GemvSmem<MAXM>) > sizeof(FfnSmem<MAXM>)
-                                 ? sizeof(GemvSmem<MAXM>) : sizeof(FfnSmem<MAXM>);
+  constexpr size_t smem_gemv = sizeof(GemvSmem<MAXM>);
   // the attention phase's task and its block of scores
   const size_t smem_att = attention_smem(a);
-  const size_t smem = smem_att > smem_ab ? smem_att : smem_ab;
+  const size_t smem = smem_att > smem_gemv ? smem_att : smem_gemv;
   auto kernel = q8_layer_kernel<MAXM>;
   static int grid = 0;  // CTAs that fit on the card at once at smem_grid bytes
   static size_t smem_grid = 0;
@@ -271,32 +263,38 @@ HIPLLAMA_EXPORT_ERROR_STRING
 // with its fp32 scale planes (kv_int8 1); bk >= 1 cache rows per
 // online-softmax block. D == H * HS, HS a multiple of 8 up to 256 (the
 // attention task compiled for decode_hs_pad(HS)), any H / KVH, D and hidden
-// multiples of 16. Workspaces: xn, att and x2
-// (B, D) bf16; qkv (B, (H + 2 KVH) HS) bf16 (its k|v rows are the step's
-// rows for the cache commit); part fp32 of max(split_q * B * NQKV, split_o
-// * B * D, ceil(hidden / 64) * B * D) values; bar two zeroed uint32.
+// multiples of 16. split_q, split_o, split13, split2: the products' slices
+// of their contraction (gemv_plan; 1 to K / 16). Workspaces: xn, att and
+// x2 (B, D) bf16; qkv (B, (H + 2 KVH) HS) bf16 (its k|v rows are the step's
+// rows for the cache commit); hb (B, hidden) bf16; part fp32 of
+// max(split_q * B * NQKV, split_o * B * D, split13 * B * 2 hidden, split2 *
+// B * D) values; bar two zeroed uint32.
 extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_s,
                               const void* g1, const void* pos, const void* k_cache,
                               const void* v_cache, const void* k_scale, const void* v_scale,
                               const void* wo_q, const void* wo_s, const void* w13_q,
                               const void* w13_s, const void* w2_q, const void* w2_s,
-                              const void* g2, void* out, void* xn_ws,
-                              void* qkv_ws, void* att_ws, void* x2_ws, void* part_ws, void* bar_ws,
-                              int B, int D, int H, int KVH, int S, int HS, int L, int layer,
-                              int hidden, int gs_qkv, int gs_o, int gs13, int gs2, int split_q,
-                              int kslice_q, int split_o, int kslice_o, int bk, int kv_int8,
-                              float rope_coef, float eps, void* stream) {
-  if (H % KVH || D != H * HS || D % 16 || hidden % 16 || bk < 1 || kslice_q > kGvKMax ||
-      kslice_o > kGvKMax || hipllama::decode_hs_pad(HS) == 0)
+                              const void* g2, void* out, void* xn_ws, void* qkv_ws, void* att_ws,
+                              void* x2_ws, void* hb_ws, void* part_ws, void* bar_ws, int B, int D,
+                              int H, int KVH, int S, int HS, int L, int layer, int hidden,
+                              int gs_qkv, int gs_o, int gs13, int gs2, int split_q, int split_o,
+                              int split13, int split2, int bk, int kv_int8, float rope_coef,
+                              float eps, void* stream) {
+  const int nqkv = (H + 2 * KVH) * HS;
+  auto bad_split = [](int split, int K) { return split < 1 || split > K / kGemvStep; };
+  if (B < 1 || H % KVH || D != H * HS || D % 16 || hidden % 16 || bk < 1 ||
+      hipllama::decode_hs_pad(HS) == 0 || gs_qkv < 1 || gs_o < 1 || gs13 < 1 || gs2 < 1 ||
+      D % gs_qkv || D % gs_o || D % gs13 || hidden % gs2 || bad_split(split_q, D) ||
+      bad_split(split_o, D) || bad_split(split13, D) || bad_split(split2, hidden) || nqkv % 16)
     return (int)cudaErrorInvalidValue;
   const LayerArgs a{
       (const bf16*)x, (const int8_t*)qkv_q, (const float*)qkv_s, (const float*)g1,
       (const int*)pos, k_cache, v_cache, (const float*)k_scale, (const float*)v_scale,
       (const int8_t*)wo_q, (const float*)wo_s, (const int8_t*)w13_q, (const float*)w13_s,
       (const int8_t*)w2_q, (const float*)w2_s, (const float*)g2, (bf16*)out, (bf16*)xn_ws,
-      (bf16*)qkv_ws, (bf16*)att_ws, (bf16*)x2_ws, (float*)part_ws, (unsigned int*)bar_ws,
-      B, D, H, KVH, S, HS, L, layer, hidden, gs_qkv, gs_o, gs13, gs2,
-      split_q, kslice_q, split_o, kslice_o, bk, kv_int8,
+      (bf16*)qkv_ws, (bf16*)att_ws, (bf16*)x2_ws, (bf16*)hb_ws, (float*)part_ws,
+      (unsigned int*)bar_ws, B, D, H, KVH, S, HS, L, layer, hidden, gs_qkv, gs_o, gs13, gs2,
+      split_q, split_o, split13, split2, bk, kv_int8,
       (float)(1.0 / sqrt((double)HS)), rope_coef, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return B <= 8 ? launch_layer<8>(a, st) : launch_layer<16>(a, st);

@@ -1,7 +1,8 @@
 // mma.sync building blocks shared by the tensor-core kernels written for
-// mma.sync.m16n8k16 (attention.cu's prefill, ffn.cu's FFN products): bf16
-// tiles in shared memory, XOR-swizzled by 16-byte chunk so that ldmatrix
-// reads 8 rows at one chunk without bank conflicts, filled by cp.async.
+// mma.sync.m16n8k16 (attention.cu's prefill, ffn.cu's FFN products, q8.cuh's
+// decode GEMV): bf16 tiles in shared memory, XOR-swizzled by 16-byte chunk
+// so that ldmatrix reads 8 rows at one chunk without bank conflicts, filled
+// by cp.async.
 #pragma once
 
 #include <stdint.h>
@@ -70,6 +71,15 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a (16 x 8 bf16, row) * b (8 x 8 bf16, col) in fp32, summed from zero
+__device__ __forceinline__ void mma_bf16_k8(float d[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%7, %7, %7, %7};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "f"(0.f));
 }
 
 // bf16(a) low, bf16(b) high

@@ -10,17 +10,18 @@
 // exp(((n % HS) / 2) * (-2 ln theta / HS)); the gate is
 // bf16(h1 * sigmoid(h1) * h3) on fp32 sums; one cast at the end.
 //
-// Each piece is a device function of one task (a CTA's share of the work)
-// or one output element, so that a kernel of its own (a task per CTA) and
-// the fused layer (tasks dealt out to a persistent grid) run the same code
-// and round alike. All take kThreads threads per CTA. The tasks are inlined
-// into their kernels, so their shared-memory structs are addressed as
-// shared memory and not through generic pointers.
+// Each piece is a device function of one phase (gemv_tasks: the tasks of a
+// decode-shaped product, dealt out to the CTAs of the grid) or one output
+// element, so that a kernel of its own and the fused layer (a persistent
+// grid) run the same code and round alike. All take kThreads threads per
+// CTA. The pieces are inlined into their kernels, so their shared-memory
+// structs are addressed as shared memory and not through generic pointers.
 #pragma once
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace hipllama {
 namespace q8 {
@@ -104,45 +105,6 @@ __device__ __forceinline__ uint2 dequant4(uint32_t biased4, float4 s) {
                     bf16x2_bits(q_to_f(biased4, 2) * s.z, q_to_f(biased4, 3) * s.w));
 }
 
-// eight bf16 weights of one row (raw int8 in `raw`, scales s0|s1), widened
-__device__ __forceinline__ void dequant8(uint2 raw, float4 s0, float4 s1, float w[8]) {
-  const uint2 lo = dequant4(raw.x ^ kBias4, s0), hi = dequant4(raw.y ^ kBias4, s1);
-  const uint32_t wp[4] = {lo.x, lo.y, hi.x, hi.y};  // bf16x2 pairs of columns
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    w[2 * j] = __uint_as_float(wp[j] << 16);
-    w[2 * j + 1] = __uint_as_float(wp[j] & 0xFFFF0000u);
-  }
-}
-
-// acc[m][j] += x[k][m] * w[j] for the MAXM activation rows of one k, held
-// transposed in shared memory (xr = the row of k: MAXM bf16, 16-byte aligned)
-template <int MAXM>
-__device__ __forceinline__ void fma_rows(const bf16* xr, const float w[8], float acc[MAXM][8]) {
-#pragma unroll
-  for (int m8 = 0; m8 < MAXM; m8 += 8) {
-    const uint4 xv = *reinterpret_cast<const uint4*>(xr + m8);
-    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-#pragma unroll
-    for (int mm = 0; mm < 8; ++mm) {
-      const float xf = to_f(xe[mm]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[m8 + mm][j] = fmaf(xf, w[j], acc[m8 + mm][j]);
-    }
-  }
-}
-
-// rows kbeg..kend-1 of x (rows m0..m0+M-1, K wide) into xs[k - kbeg][m],
-// zero past M
-template <int MAXM>
-__device__ __forceinline__ void load_xs(bf16 (*xs)[MAXM], const bf16* x, int M, int m0, int K,
-                                        int kbeg, int kend) {
-  for (int i = threadIdx.x; i < (kend - kbeg) * MAXM; i += kThreads) {
-    const int kk = i / MAXM, m = i % MAXM;
-    xs[kk][m] = m < M ? x[(size_t)(m0 + m) * K + kbeg + kk] : __float2bfloat16_rn(0.f);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // rmsnorm of one row of K values into outr; red: kWarps floats of shared
 // memory. Every thread sums the warps' partial sums in the same order.
@@ -177,89 +139,292 @@ __device__ __forceinline__ void rmsnorm_row(const bf16* xr, const float* g, bf16
 }
 
 // ---------------------------------------------------------------------------
-// the split-K GEMV (decode-shaped M): a task is one strip of 256 columns and
-// one K slice of at most 1024 rows, for up to MAXM activation rows. A warp
-// reads 256 contiguous int8 bytes of a weight row per load; the activation
-// rows sit transposed in shared memory so one 16-byte load gives 8 rows of
-// one k. The task's fp32 partial sums go to part[(split * ldm + m0 + m) * N
-// + n]; split_epilogue_at adds the splits in a fixed order (no float
-// atomics: greedy decoding gives the same tokens every run).
+// the split-K GEMV for decode-shaped M (at most 16 rows a task) on the bf16
+// tensor cores. y = x @ w is computed as its transpose on mma.sync
+// (m16n8k8, two to a 16-row step): 16 output columns of the dequantized
+// weight are the A operand (16 columns x 8 k) and 8 activation rows the B
+// operand (8 k x 8 rows), so 8 rows fill the n side with no padding row
+// (16 rows: two n8 tiles). Bound on an H100: the weight bytes (1 byte per weight plus 4/gs
+// for the scales, each read once); the products cost two m16n8k8 per 256
+// weights, and what is left on the CUDA cores is the dequantization (about
+// 4 operations a weight: a byte permute and a subtraction to f32(q), the
+// product with the scale, half a bf16x2 conversion).
+//
+// A task is one strip of kGemvBN = 128 output columns, one slice of the
+// contraction in whole 16-row steps and one chunk of at most MAXM rows;
+// gemv_tasks deals a product's tasks out to the CTAs of the grid (several a
+// CTA where there are more tasks than CTAs). The 8 warps of a CTA split the
+// slice into contiguous runs of steps; each warp streams its run through a
+// ring of kGemvStages stages of its own in shared memory, filled by cp.async
+// in 16-byte copies kGemvStages - 1 steps ahead, on across the CTA's tasks
+// (about 8 KB a warp in flight, 130 KB an SM at two CTAs an SM). A stage is
+// the step's 16 weight rows of the strip as int8 (2 KB, XOR-swizzled by
+// 16-byte chunk), the scale row of their group where it is new to the run,
+// and the step's 16 columns of x. A lane holds 16 adjacent columns (16 (lane
+// / 4) ..) of rows 2 t, 2 t + 1, 2 t + 8, 2 t + 9 (t = lane % 4): once
+// dequantized, they are its A fragments of 8 m16 tiles (tile j's row lane /
+// 4 is the lane's column 2 j, its row lane / 4 + 8 column 2 j + 1), so its
+// accumulators hold 16 adjacent outputs of two activation rows in each n8
+// tile. The tensor cores sum each 8-deep half of a step from zero
+// (m16n8k8), and the halves are added to the fp32 sums in order by the
+// CUDA cores: the 16-deep product accumulated into the running sums inside
+// the tensor core (its own alignment and truncation, not fp32 adds) rounded
+// the golden fixture's greedy Q8 decode away from the JAX outputs on one
+// corpus more than its bar allows (PERF.md); this form costs 6-9% at 8
+// rows. The weight tensors are the ones the prefill tiles read: no second or
+// permuted copy. At the end of a task the 8 warps' fp32 sums are added in
+// warp order through shared memory and the task's partial goes to
+// part[(split * M + m) * N + n]; split_epilogue_at adds the splits in a
+// fixed order (no float atomics: greedy decoding gives the same tokens every
+// run).
 
-constexpr int kGvBN = 32 * 8;   // columns per strip: 8 per lane
-constexpr int kGvKMax = 1024;   // contraction rows per task at most
+constexpr int kGemvBN = 128;    // output columns per task: 16 for each of 8 lane groups
+constexpr int kGemvStep = 16;   // contraction rows per step: two 8-deep mmas
+constexpr int kGemvStages = 4;  // ring stages per warp
+constexpr int kGemvWBytes = kGemvStep * kGemvBN;  // a step's int8 weight rows
+constexpr int kGemvSBytes = kGemvBN * 4;          // the scale row of their group
+constexpr int kGemvRedLd = kGemvBN + 4;           // a padded row of the warps' sums
 
 template <int MAXM>
 struct GemvSmem {
-  __align__(16) bf16 xs[kGvKMax][MAXM];  // x transposed: [k][m]
-  float red[kWarps][kGvBN];
+  static constexpr int kX = MAXM * kGemvStep * 2;  // the step's x: MAXM rows of 16 bf16
+  static constexpr int kStage = kGemvWBytes + kGemvSBytes + kX;
+  __align__(16) unsigned char ring[kWarps][kGemvStages][kStage];
+  __align__(16) float red[kWarps / 2][8][kGemvRedLd];  // half the warps' sums of 8 rows
 };
 
-template <int MAXM>
-__device__ __forceinline__ void gemv_task(GemvSmem<MAXM>& sm, const bf16* x,
-                                          const int8_t* __restrict__ q,
-                                          const float* __restrict__ s, float* part, int M, int ldm,
-                                          int m0, int K, int N, int gs, int kslice, int strip,
-                                          int split) {
-  constexpr int R = MAXM <= 8 ? 8 : 4;  // rows a warp has in flight
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = strip * kGvBN;
-  const int kbeg = split * kslice;
-  const int kend = min(K, kbeg + kslice);
-  __syncthreads();  // the previous task's readers of sm are done
-  load_xs<MAXM>(sm.xs, x, M, m0, K, kbeg, kend);
-  __syncthreads();
+// the 16-byte chunk (of 8) that holds chunk c of weight row r of a stage:
+// rows 2 t, 2 t + 1, 2 t + 8 and 2 t + 9 of the 4 lanes t of two lane groups
+// land in 8 different bank groups
+__device__ __forceinline__ int gemv_wchunk(int r, int c) { return c ^ (((r >> 1) & 3) << 1); }
+// the 16-byte half (of 2) that holds half h of x row m of a stage: rows m
+// and m + 4 of a B fragment load land in different banks
+__device__ __forceinline__ int gemv_xhalf(int m, int h) { return h ^ ((m >> 2) & 1); }
 
-  const int n = n0 + lane * 8;
-  const bool live = n < N;  // N % 8 == 0: a lane's 8 columns are all in or all out
-  float acc[MAXM][8];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-  float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
-  int cur_g = -1;
+// the first step of split sp of `split` over nsteps
+__device__ __forceinline__ int gemv_split_step(int sp, int split, int nsteps) {
+  return (int)((long long)sp * nsteps / split);
+}
 
-  for (int k0 = kbeg + warp * R; k0 < kend; k0 += kWarps * R) {
-    uint2 raw[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = k0 + r;
-      raw[r] = (live && k < kend) ? __ldg(reinterpret_cast<const uint2*>(q + (size_t)k * N + n))
-                                  : make_uint2(0u, 0u);
+// bf16(f32(q) * s) of byte j of two biased words (the low half from `lo`,
+// the high half from `hi`, which are rows k and k + 1 of one column)
+template <int J>
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t lo, uint32_t hi, float s_lo,
+                                                 float s_hi) {
+  return bf16x2_bits(q_to_f(lo, J) * s_lo, q_to_f(hi, J) * s_hi);
+}
+
+// The tasks of one product into its split-K partials: x (M, K) bf16, q (K,
+// N) int8, s (K / gs, N) fp32, part (split, M, N) fp32; `split` slices of
+// the K / 16 steps (1 <= split <= K / 16), K and N multiples of 16, any gs
+// that divides K. FAST: gs % 16 == 0, so that a step lies in one group,
+// whose scale row the ring brings once a run meets it; otherwise each lane
+// reads its scales from global memory a row at a time.
+template <int MAXM, bool FAST>
+__device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM>& sm, const bf16* __restrict__ x,
+                                           const int8_t* __restrict__ q,
+                                           const float* __restrict__ s, float* __restrict__ part,
+                                           int M, int K, int N, int gs, int split) {
+  using Sm = GemvSmem<MAXM>;
+  constexpr int NT = MAXM / 8;  // n8 tiles
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lg = lane >> 2, lt = lane & 3;  // the lane's 16 columns and its rows 2 lt, ...
+  const int nsteps = K / kGemvStep;
+  const int strips = (N + kGemvBN - 1) / kGemvBN;
+  const int ntasks = strips * split * ((M + MAXM - 1) / MAXM);
+  const uint32_t ring0 = mma::smem_u32(&sm.ring[warp][0][0]);
+
+  // the warp's run of task t: steps [b, e)
+  auto run = [&](int t, int& b, int& e) {
+    const int sp = (t / strips) % split;
+    const int s0 = gemv_split_step(sp, split, nsteps);
+    const int n = gemv_split_step(sp + 1, split, nsteps) - s0;
+    b = s0 + n * warp / kWarps;
+    e = s0 + n * (warp + 1) / kWarps;
+  };
+
+  // the copies: step ps of the run [pb, pe) of task pt, the next to issue
+  int pt = blockIdx.x, ps = 0, pb = 0, pe = 0;
+  auto seek = [&]() {  // the first task from pt on where the warp has a run
+    for (; pt < ntasks; pt += gridDim.x) {
+      run(pt, pb, pe);
+      if (pb < pe) break;
     }
+    ps = pb;
+  };
+  auto issue = [&](int slot) {  // one commit group a step, empty past the last
+    if (pt < ntasks) {
+      const int n0 = pt % strips * kGemvBN, m0 = pt / strips / split * MAXM;
+      const int k0 = ps * kGemvStep;
+      const uint32_t st = ring0 + slot * Sm::kStage;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = k0 + r;
-      if (k < kend) {  // uniform across the warp
-        const int grp = k / gs;
-        if (grp != cur_g) {
-          cur_g = grp;
-          if (live) {
-            s0 = __ldg(reinterpret_cast<const float4*>(s + (size_t)grp * N + n));
-            s1 = __ldg(reinterpret_cast<const float4*>(s + (size_t)grp * N + n + 4));
-          }
-        }
-        float w[8];
-        dequant8(raw[r], s0, s1, w);
-        fma_rows<MAXM>(sm.xs[k - kbeg], w, acc);
+      for (int i = 0; i < kGemvWBytes / 16 / 32; ++i) {  // 16 rows of 8 chunks
+        const int e = lane + 32 * i, r = e >> 3, c = e & 7;
+        const bool live = n0 + 16 * c < N;
+        mma::cp_async<16>(st + r * kGemvBN + 16 * gemv_wchunk(r, c),
+                          live ? q + (size_t)(k0 + r) * N + n0 + 16 * c : q, live);
+      }
+      if (FAST && (ps == pb || k0 % gs == 0)) {  // the group's scale row, new to the run
+        const bool live = n0 + 4 * lane < N;
+        mma::cp_async<16>(st + kGemvWBytes + 16 * lane,
+                          live ? s + (size_t)(k0 / gs) * N + n0 + 4 * lane : s, live);
+      }
+      if (lane < 2 * MAXM) {  // x: MAXM rows of two halves, zero past M
+        const int m = lane >> 1, h = lane & 1;
+        const bool live = m0 + m < M;
+        mma::cp_async<16>(st + kGemvWBytes + kGemvSBytes + m * 32 + 16 * gemv_xhalf(m, h),
+                          live ? x + (size_t)(m0 + m) * K + k0 + 8 * h : x, live);
+      }
+      if (++ps == pe) {
+        pt += gridDim.x;
+        seek();
       }
     }
-  }
+    mma::cp_async_commit();
+  };
 
-  // the 8 warps' sums of each row, added in warp order
+  seek();
 #pragma unroll
-  for (int m = 0; m < MAXM; ++m) {
-    if (m < M) {  // uniform across the block
+  for (int p = 0; p < kGemvStages - 1; ++p) issue(p);
+
+  const int rows[4] = {2 * lt, 2 * lt + 1, 2 * lt + 8, 2 * lt + 9};
+  float sc[16];  // FAST: the scales of the lane's 16 columns in the current group
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sm.red[warp][lane * 8 + j] = acc[m][j];
-      __syncthreads();
-      float v = 0.f;
+  for (int j = 0; j < 16; ++j) sc[j] = 0.f;
+  int item = 0;  // steps this warp has consumed: the ring slot is item % kGemvStages
+  for (int t = blockIdx.x; t < ntasks; t += gridDim.x) {
+    const int strip = t % strips, sp = (t / strips) % split, m0 = t / strips / split * MAXM;
+    const int n0 = strip * kGemvBN, mt = min(MAXM, M - m0);
+    int b, e;
+    run(t, b, e);
+    float acc[NT][8][4];
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += sm.red[w][tid];
-      if (n0 + tid < N) part[((size_t)split * ldm + m0 + m) * N + n0 + tid] = v;
-      __syncthreads();
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][j][i] = 0.f;
+
+    for (int st = b; st < e; ++st, ++item) {
+      issue((item + kGemvStages - 1) % kGemvStages);  // into the slot consumed last
+      mma::cp_async_wait<kGemvStages - 1>();          // this step's copies have landed
+      __syncwarp();                                   // ... for every lane
+      const unsigned char* stage = sm.ring[warp][item % kGemvStages];
+      const int k0 = st * kGemvStep;
+      // B: x rows 8 nt + lg at k 2 lt, 2 lt + 1 and 2 lt + 8, 2 lt + 9
+      uint32_t bx[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int m = 8 * nt + lg;
+        const unsigned char* xr = stage + kGemvWBytes + kGemvSBytes + m * 32 + 4 * lt;
+        bx[nt][0] = *reinterpret_cast<const uint32_t*>(xr + 16 * gemv_xhalf(m, 0));
+        bx[nt][1] = *reinterpret_cast<const uint32_t*>(xr + 16 * gemv_xhalf(m, 1));
+      }
+      // A: the lane's 16 columns of its 4 rows, biased (byte j of word i is
+      // column 4 i + j)
+      uint32_t w[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            stage + rows[r] * kGemvBN + 16 * gemv_wchunk(rows[r], lg));
+        w[r][0] = v.x ^ kBias4;
+        w[r][1] = v.y ^ kBias4;
+        w[r][2] = v.z ^ kBias4;
+        w[r][3] = v.w ^ kBias4;
+      }
+      if (FAST && (st == b || k0 % gs == 0)) {
+        const float4* sr = reinterpret_cast<const float4*>(stage + kGemvWBytes) + 4 * lg;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = sr[i];
+          sc[4 * i] = v.x;
+          sc[4 * i + 1] = v.y;
+          sc[4 * i + 2] = v.z;
+          sc[4 * i + 3] = v.w;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {  // m16 tile j: the lane's columns 2 j, 2 j + 1
+        float s0[4], s1[4];  // the scales of columns 2 j and 2 j + 1 in each of the 4 rows
+        if (FAST) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            s0[r] = sc[2 * j];
+            s1[r] = sc[2 * j + 1];
+          }
+        } else {
+          const int c = n0 + 16 * lg + 2 * j;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 v = c < N ? __ldg(reinterpret_cast<const float2*>(
+                                         s + (size_t)((k0 + rows[r]) / gs) * N + c))
+                                   : make_float2(0.f, 0.f);
+            s0[r] = v.x;
+            s1[r] = v.y;
+          }
+        }
+        uint32_t a[4];
+        if (j & 1) {
+          a[0] = dequant_pair<2>(w[0][j >> 1], w[1][j >> 1], s0[0], s0[1]);
+          a[1] = dequant_pair<3>(w[0][j >> 1], w[1][j >> 1], s1[0], s1[1]);
+          a[2] = dequant_pair<2>(w[2][j >> 1], w[3][j >> 1], s0[2], s0[3]);
+          a[3] = dequant_pair<3>(w[2][j >> 1], w[3][j >> 1], s1[2], s1[3]);
+        } else {
+          a[0] = dequant_pair<0>(w[0][j >> 1], w[1][j >> 1], s0[0], s0[1]);
+          a[1] = dequant_pair<1>(w[0][j >> 1], w[1][j >> 1], s1[0], s1[1]);
+          a[2] = dequant_pair<0>(w[2][j >> 1], w[3][j >> 1], s0[2], s0[3]);
+          a[3] = dequant_pair<1>(w[2][j >> 1], w[3][j >> 1], s1[2], s1[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (8 * nt >= mt) continue;
+          float lo[4], hi[4];  // the step's two 8-deep halves, each summed from zero
+          mma::mma_bf16_k8(lo, a[0], a[1], bx[nt][0]);
+          mma::mma_bf16_k8(hi, a[2], a[3], bx[nt][1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[nt][j][i] = (acc[nt][j][i] + lo[i]) + hi[i];
+        }
+      }
+      __syncwarp();  // every lane is done with the slot before it is filled again
+    }
+
+    // the 8 warps' sums in warp order, 8 rows (an n8 tile) at a time, 4 warps
+    // at a time through red; a thread adds 4 columns of one row
+    const int rm = threadIdx.x >> 5, rc = threadIdx.x & 31;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (8 * nt >= mt) break;  // uniform across the block
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        __syncthreads();  // red is free
+        if (warp >> 2 == half) {
+#pragma unroll
+          for (int ee = 0; ee < 2; ++ee) {  // rows 2 lt + ee: columns 16 lg + 2 j + h at acc[j][ee + 2 h]
+            float* row = sm.red[warp & 3][2 * lt + ee] + 16 * lg;
+#pragma unroll
+            for (int c4 = 0; c4 < 4; ++c4)
+              *reinterpret_cast<float4*>(row + 4 * c4) =
+                  make_float4(acc[nt][2 * c4][ee], acc[nt][2 * c4][ee + 2],
+                              acc[nt][2 * c4 + 1][ee], acc[nt][2 * c4 + 1][ee + 2]);
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          const float4 r = *reinterpret_cast<const float4*>(sm.red[w4][rm] + 4 * rc);
+          v.x += r.x;
+          v.y += r.y;
+          v.z += r.z;
+          v.w += r.w;
+        }
+      }
+      const int m = 8 * nt + rm;
+      if (m < mt && n0 + 4 * rc < N)
+        *reinterpret_cast<float4*>(part + ((size_t)sp * M + m0 + m) * N + n0 + 4 * rc) = v;
     }
   }
+  mma::cp_async_wait<0>();
 }
 
 // output column pair idx < M * N / 2 of the split-K partials (planes x
@@ -306,152 +471,9 @@ __device__ __forceinline__ void split_gate_at(const float* part, int split, int 
 }
 
 // ---------------------------------------------------------------------------
-// the whole FFN for decode-shaped rows, one hidden strip per task (the TPU
-// kernel's grid step over hidden strips, quant.py:832-886): the task
-// computes h1 and h3 of its kFfBH hidden columns over the whole contraction
-// (W1 and W3 strips, K x kFfBH int8 each), gates them to hb = bf16(silu(h1)
-// * h3) in shared memory, and multiplies hb by its kFfBH rows of W2 into the
-// strip's fp32 partial part[(strip * ldm + m0 + m) * N + n]. ffn_reduce_at
-// seeds each output with the residual and adds the strips in order, as the
-// TPU kernel's accumulator does. h never leaves the CTA.
-
-constexpr int kFfBH = 64;                       // hidden columns per strip
-constexpr int kFfLanes = 2 * kFfBH / 8;         // threads per W1|W3 row: 8 columns each
-constexpr int kFfGroups = kThreads / kFfLanes;  // rows in flight side by side
-
-template <int MAXM>
-struct FfnSmem {
-  __align__(16) bf16 xs[kGvKMax][MAXM];  // a K slice of xn, transposed
-  float red[kFfGroups][2 * kFfBH];
-  float hsum[2 * kFfBH];
-  __align__(16) bf16 hb[kFfBH][MAXM];    // the gated strip, transposed
-};
-
-template <int MAXM>
-__device__ __forceinline__ void ffn_strip_task(
-    FfnSmem<MAXM>& sm, const bf16* xn, const int8_t* __restrict__ q13,
-    const float* __restrict__ s13, const int8_t* __restrict__ q2, const float* __restrict__ s2,
-    float* part, int M, int ldm, int m0, int K, int H, int N, int gs13, int gs2, int strip) {
-  constexpr int R = MAXM <= 8 ? 8 : 4;  // rows a thread has in flight
-  const int tid = threadIdx.x;
-  const int grp = tid / kFfLanes, fl = tid % kFfLanes;
-  const int h0 = strip * kFfBH;
-  const int c = (fl % (kFfLanes / 2)) * 8;  // the thread's 8 columns of the strip
-  const bool w3 = fl >= kFfLanes / 2;
-  const int ld13 = 2 * H;
-  const int qcol = (w3 ? H : 0) + h0 + c;
-  const bool live = h0 + c < H;  // H % 8 == 0
-
-  float acc[MAXM][8];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-  float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
-  int cur_g = -1;
-  for (int kb = 0; kb < K; kb += kGvKMax) {
-    const int kend = min(K, kb + kGvKMax);
-    __syncthreads();  // the previous slice's (or task's) readers of xs are done
-    load_xs<MAXM>(sm.xs, xn, M, m0, K, kb, kend);
-    __syncthreads();
-    for (int k0 = kb + grp * R; k0 < kend; k0 += kFfGroups * R) {
-      uint2 raw[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int k = k0 + r;
-        raw[r] = (live && k < kend)
-                     ? __ldg(reinterpret_cast<const uint2*>(q13 + (size_t)k * ld13 + qcol))
-                     : make_uint2(0u, 0u);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int k = k0 + r;
-        if (k < kend) {
-          const int g = k / gs13;
-          if (g != cur_g) {
-            cur_g = g;
-            if (live) {
-              s0 = __ldg(reinterpret_cast<const float4*>(s13 + (size_t)g * ld13 + qcol));
-              s1 = __ldg(reinterpret_cast<const float4*>(s13 + (size_t)g * ld13 + qcol + 4));
-            }
-          }
-          float w[8];
-          dequant8(raw[r], s0, s1, w);
-          fma_rows<MAXM>(sm.xs[k - kb], w, acc);
-        }
-      }
-    }
-  }
-
-  // h1|h3 of each row: the row groups' sums added in order, then the gate
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m) {
-    if (m < M) {  // uniform across the block
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sm.red[grp][fl * 8 + j] = acc[m][j];
-      __syncthreads();
-      if (tid < 2 * kFfBH) {
-        float v = 0.f;
-#pragma unroll
-        for (int g = 0; g < kFfGroups; ++g) v += sm.red[g][tid];
-        sm.hsum[tid] = v;
-      }
-      __syncthreads();
-      if (tid < kFfBH)
-        sm.hb[tid][m] = h0 + tid < H ? __float2bfloat16_rn(silu_gate(sm.hsum[tid],
-                                                                     sm.hsum[kFfBH + tid]))
-                                     : __float2bfloat16_rn(0.f);
-    }
-  }
-  for (int i = tid; i < kFfBH * MAXM; i += kThreads)
-    if (i % MAXM >= M) sm.hb[i / MAXM][i % MAXM] = __float2bfloat16_rn(0.f);
-  __syncthreads();
-
-  // hb (M, kFfBH) @ W2[h0 .. h0 + rows, :]: 8 columns per thread, a warp
-  // reads 256 contiguous bytes of a W2 row per load
-  const int rows = min(kFfBH, H - h0);
-  for (int n = tid * 8; n < N; n += kThreads * 8) {
-    float a[MAXM][8];
-#pragma unroll
-    for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) a[m][j] = 0.f;
-    int g2 = -1;
-    for (int r0 = 0; r0 < rows; r0 += 8) {
-      uint2 raw[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-        raw[r] = r0 + r < rows
-                     ? __ldg(reinterpret_cast<const uint2*>(q2 + (size_t)(h0 + r0 + r) * N + n))
-                     : make_uint2(0u, 0u);
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        if (r0 + r < rows) {
-          const int g = (h0 + r0 + r) / gs2;
-          if (g != g2) {
-            g2 = g;
-            s0 = __ldg(reinterpret_cast<const float4*>(s2 + (size_t)g * N + n));
-            s1 = __ldg(reinterpret_cast<const float4*>(s2 + (size_t)g * N + n + 4));
-          }
-          float w[8];
-          dequant8(raw[r], s0, s1, w);
-          fma_rows<MAXM>(sm.hb[r0 + r], w, a);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < MAXM; ++m) {
-      if (m < M) {
-        float4* dst = reinterpret_cast<float4*>(part + ((size_t)strip * ldm + m0 + m) * N + n);
-        dst[0] = make_float4(a[m][0], a[m][1], a[m][2], a[m][3]);
-        dst[1] = make_float4(a[m][4], a[m][5], a[m][6], a[m][7]);
-      }
-    }
-  }
-}
-
-// output column pair idx < M * N / 2 of the FFN: the residual, then the
-// strips' partials (nstrips, M, N) added in order, one cast
+// output column pair idx < M * N / 2 of the FFN above 16 rows (ffn.cu): the
+// residual, then the down product's slices of the hidden width (nstrips, M,
+// N) added in order, one cast
 __device__ __forceinline__ void ffn_reduce_at(const float* part, int nstrips, int M, int N,
                                               const bf16* res, bf16* out, int idx) {
   const int pairs = N / 2;

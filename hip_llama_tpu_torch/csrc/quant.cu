@@ -14,26 +14,31 @@
 // Bounds on an H100: with decode-shaped M (a few rows) every int8 weight
 // byte is used for 2M flops, far below the card's ~295 flop/byte ridge, so
 // the product is bound by the weight bytes (1 byte per weight plus 4/gs for
-// the scales). The GEMV path (M <= 16) streams the weight once: each CTA
-// owns 256 columns and a slice of K (split K, so that even N = 4096 fills
-// the 132 SMs), and a second pass adds the slices in a fixed order and
-// applies the epilogue. At prefill M (B*T up to 4088) the product does 2M
-// flops per weight byte and is bound by operations on the bf16 tensor cores:
-// the tiled path (q8_tile_kernel) runs q8_wgmma.cuh's pipelined mainloop, a
-// producer warpgroup copying x and the int8 weight into a 4-stage ring and
-// two consumer warpgroups issuing wgmma m64n128k16 on 256 x 128 tiles (128
+// the scales). The GEMV path (M <= 16) streams the weight once on the bf16
+// tensor cores (q8.cuh::gemv_tasks: mma.sync.m16n8k16 with the dequantized
+// weight as the 16-column A operand and the rows as the n side, each warp
+// fed by a cp.async ring of its own): gemv_plan's tasks of 128 columns and
+// a slice of K (split K, so that even N = 4096 fills the 132 SMs) dealt
+// out to a grid of as many CTAs as fit on the card at once, then a second
+// pass adds the slices in a fixed order and applies the epilogue. At
+// prefill M (B*T up to 4088) the product does 2M flops per weight byte and
+// is bound by operations on the bf16 tensor cores: the tiled path
+// (q8_tile_kernel) runs q8_wgmma.cuh's pipelined mainloop, a producer
+// warpgroup copying x and the int8 weight into a 4-stage ring and two
+// consumer warpgroups issuing wgmma m64n128k16 on 256 x 128 tiles (128
 // rows each; the gate: 64 W1 columns beside the same 64 of W3, gated in
 // registers) while they dequantize the next step's weight once per CTA;
-// the wgmmas of a step stay in flight across the consumers' barrier. The rmsnorm prologue is a
-// pass of its own that writes xn once (M x K bf16, which stays in L2), and
-// RoPE reads each row's cos and sin from a table one pass computes
-// (matmul_passes.cuh, with the GEMV path's second pass).
+// the wgmmas of a step stay in flight across the consumers' barrier. The
+// rmsnorm prologue is a pass of its own that writes xn once (M x K bf16,
+// which stays in L2), and RoPE reads each row's cos and sin from a table
+// one pass computes (matmul_passes.cuh, with the GEMV path's second pass).
 //
-// q8_matmul_ffn is one CTA per 64-column hidden strip and 16 rows
-// (q8.cuh::ffn_strip_task): the strip's h never leaves the CTA, and W1, W3
-// and W2 are each read once per 16 rows. Its cost beside the weights is the
-// strips' fp32 partials (H / 64 x M x N x 4 bytes: 22 MB at 7B and M 8),
-// written once and read once by the reduce pass that adds them in order.
+// q8_matmul_ffn up to 16 rows is the GEMV path twice: the W1|W3 product
+// into split-K partials, the gate pass that adds them in order and writes
+// hb = bf16(silu(h1) * h3) (M x H bf16, which stays in L2), the W2 product
+// of hb, and the epilogue pass that adds its slices in order to the
+// residual. h1 and h3 are fp32 sums and hb rounds once, as in the TPU
+// kernel; the slices' partials are 2.1 MB and 1.0 MB at 7B and M 8.
 //
 // q8_matmul_layered replaces hip_llama_tpu/ops/quant.py::q8_matmul_layered
 // (K20, _q8_kernel_layered and its norm / res / rope wrappers): q8_matmul
@@ -69,36 +74,16 @@ using hipllama::warp_sum;
 namespace wg = hipllama::q8wg;
 
 // ---------------------------------------------------------------------------
-// GEMV path (M <= 16): one (strip, split) task per CTA
+// GEMV path (M <= 16): q8.cuh's tasks dealt out to a grid of at most as
+// many CTAs as fit on the card at once
 
-template <int MAXM>
-__global__ void __launch_bounds__(kThreads) q8_gemv_kernel(
+template <int MAXM, bool FAST>
+__global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_gemv_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    float* __restrict__ part, int M, int K, int N, int gs, int kslice) {
-  __shared__ GemvSmem<MAXM> sm;
-  gemv_task<MAXM>(sm, x, q, s, part, M, M, 0, K, N, gs, kslice, blockIdx.x, blockIdx.y);
-}
-
-// ---------------------------------------------------------------------------
-// the FFN: one (16-row chunk, hidden strip) task per CTA, then the reduce.
-// The chunks of a strip are adjacent in launch order, so they run together
-// and all but the first find the strip's weights in L2.
-
-template <int MAXM>
-__global__ void __launch_bounds__(kThreads) q8_ffn_strip_kernel(
-    const bf16* __restrict__ xn, const int8_t* __restrict__ q13, const float* __restrict__ s13,
-    const int8_t* __restrict__ q2, const float* __restrict__ s2, float* __restrict__ part, int M,
-    int K, int H, int N, int gs13, int gs2) {
-  __shared__ FfnSmem<MAXM> sm;
-  const int m0 = blockIdx.x * MAXM;
-  ffn_strip_task<MAXM>(sm, xn, q13, s13, q2, s2, part, min(MAXM, M - m0), M, m0, K, H, N, gs13,
-                       gs2, blockIdx.y);
-}
-
-__global__ void q8_ffn_reduce_kernel(const float* __restrict__ part, int nstrips, int M, int N,
-                                     const bf16* __restrict__ res, bf16* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx < M * (N / 2)) ffn_reduce_at(part, nstrips, M, N, res, out, idx);
+    float* __restrict__ part, int M, int K, int N, int gs, int split) {
+  extern __shared__ __align__(16) unsigned char gemv_smem[];
+  gemv_tasks<MAXM, FAST>(*reinterpret_cast<GemvSmem<MAXM>*>(gemv_smem), x, q, s, part, M, K, N,
+                         gs, split);
 }
 
 // ---------------------------------------------------------------------------
@@ -189,19 +174,40 @@ __global__ void __launch_bounds__(wg::kThreads, 1) wgmma_probe_kernel(float* __r
 // ---------------------------------------------------------------------------
 // launchers
 
-int launch_gemv(const void* x, const void* q, const void* s, float* part, int M, int K, int N,
-                int gs, int split, int kslice, cudaStream_t st) {
-  if (M > 16 || kslice > kGvKMax || (long long)split * kslice < K ||
-      (long long)(split - 1) * kslice >= K)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kGvBN - 1) / kGvBN, split);
-  if (M <= 8)
-    q8_gemv_kernel<8><<<grid, kThreads, 0, st>>>((const bf16*)x, (const int8_t*)q,
-                                                 (const float*)s, part, M, K, N, gs, kslice);
-  else
-    q8_gemv_kernel<16><<<grid, kThreads, 0, st>>>((const bf16*)x, (const int8_t*)q,
-                                                  (const float*)s, part, M, K, N, gs, kslice);
+template <int MAXM, bool FAST>
+int launch_gemv_kernel(const void* x, const void* q, const void* s, float* part, int M, int K,
+                       int N, int gs, int split, cudaStream_t st) {
+  auto kernel = q8_gemv_kernel<MAXM, FAST>;
+  constexpr int bytes = sizeof(GemvSmem<MAXM>);
+  static int ctas = 0;  // CTAs that fit on the card at once
+  if (ctas == 0) {
+    HIPLLAMA_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+    int per_sm = 0, dev = 0, sms = 0;
+    HIPLLAMA_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes));
+    HIPLLAMA_TRY(cudaGetDevice(&dev));
+    HIPLLAMA_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+    ctas = per_sm * sms;
+  }
+  const int tasks = (N + kGemvBN - 1) / kGemvBN * split;
+  kernel<<<tasks < ctas ? tasks : ctas, kThreads, bytes, st>>>(
+      (const bf16*)x, (const int8_t*)q, (const float*)s, part, M, K, N, gs, split);
   return check_launch();
+}
+
+// the split-K partials part (split, M, N) of x @ dequant(q, s) for at most
+// 16 rows: split slices of the K / 16 steps (gemv_plan)
+int launch_gemv(const void* x, const void* q, const void* s, float* part, int M, int K, int N,
+                int gs, int split, cudaStream_t st) {
+  if (M < 1 || M > 16 || K < kGemvStep || K % kGemvStep || N < 16 || N % 16 || gs < 1 ||
+      K % gs || split < 1 || split > K / kGemvStep)
+    return (int)cudaErrorInvalidValue;
+  const bool fast = gs % kGemvStep == 0;
+  if (M <= 8)
+    return fast ? launch_gemv_kernel<8, true>(x, q, s, part, M, K, N, gs, split, st)
+                : launch_gemv_kernel<8, false>(x, q, s, part, M, K, N, gs, split, st);
+  return fast ? launch_gemv_kernel<16, true>(x, q, s, part, M, K, N, gs, split, st)
+              : launch_gemv_kernel<16, false>(x, q, s, part, M, K, N, gs, split, st);
 }
 
 template <bool GATE>
@@ -227,13 +233,13 @@ HIPLLAMA_EXPORT_ERROR_STRING
 // All activations bf16, q int8, s and g fp32, pos int32. g, res and pos may be
 // null (no norm, no residual, no RoPE). xn_ws: (M, K) bf16 workspace, used
 // when g is given. split > 0 takes the GEMV path (M <= 16) with part_ws
-// (split, M, N) fp32 and kslice rows per split; split == 0 the tiled path,
-// with part_ws (M, rope_hs) fp32 for the RoPE table where pos is given.
-// K % 16 == 0, N % 16 == 0.
+// (split, M, N) fp32, split slices of the contraction (gemv_plan); split
+// == 0 the tiled path, with part_ws (M, rope_hs) fp32 for the RoPE table
+// where pos is given. K % 16 == 0, N % 16 == 0.
 extern "C" int q8_matmul(const void* x, const void* q, const void* s, const void* g,
                          const void* res, const void* pos, void* out, void* xn_ws, void* part_ws,
-                         int M, int K, int N, int gs, int split, int kslice, int rope_limit,
-                         int rope_hs, float rope_coef, float eps, void* stream) {
+                         int M, int K, int N, int gs, int split, int rope_limit, int rope_hs,
+                         float rope_coef, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
   const void* xin = x;
@@ -242,7 +248,7 @@ extern "C" int q8_matmul(const void* x, const void* q, const void* s, const void
     xin = xn_ws;
   }
   if (split > 0) {
-    HIPLLAMA_TRY(launch_gemv(xin, q, s, (float*)part_ws, M, K, N, gs, split, kslice, st));
+    HIPLLAMA_TRY(launch_gemv(xin, q, s, (float*)part_ws, M, K, N, gs, split, st));
     return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st);
   }
   Epilogue et = e;
@@ -258,7 +264,7 @@ extern "C" int q8_matmul(const void* x, const void* q, const void* s, const void
 // part_ws (split, M, 2H).
 extern "C" int q8_matmul_silu(const void* x, const void* q13, const void* s13, const void* g,
                               void* out, void* xn_ws, void* part_ws, int M, int K, int H, int gs,
-                              int split, int kslice, float eps, void* stream) {
+                              int split, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* xin = x;
   if (g != nullptr) {
@@ -266,7 +272,7 @@ extern "C" int q8_matmul_silu(const void* x, const void* q13, const void* s13, c
     xin = xn_ws;
   }
   if (split > 0) {
-    HIPLLAMA_TRY(launch_gemv(xin, q13, s13, (float*)part_ws, M, K, 2 * H, gs, split, kslice, st));
+    HIPLLAMA_TRY(launch_gemv(xin, q13, s13, (float*)part_ws, M, K, 2 * H, gs, split, st));
     return launch_split_gate((const float*)part_ws, split, M, H, out, st);
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
@@ -289,31 +295,24 @@ extern "C" int wgmma_mainloop_probe(void* out, int ctas, int n_steps, int in_fli
   return check_launch();
 }
 
-// res + W2 bf16(silu(xn W1) * xn W3): q13 (K, 2H), q2 (H, N), res and out
-// (M, N). xn_ws (M, K) bf16; part_ws (ceil(H / 64), M, N) fp32 holds the
-// strips' partial sums. H % 8 == 0, N % 8 == 0.
+// res + W2 bf16(silu(xn W1) * xn W3) for at most 16 rows: q13 (K, 2H), q2
+// (H, N), res and out (M, N). xn_ws (M, K) and hb_ws (M, H) bf16; part_ws
+// fp32 of max(split13 * M * 2H, split2 * M * N) values holds the split-K
+// partials of the W1|W3 product (split13 slices of K) and then of the W2
+// product (split2 slices of H). H % 16 == 0, N % 16 == 0.
 extern "C" int q8_matmul_ffn(const void* x, const void* q13, const void* s13, const void* q2,
                              const void* s2, const void* g, const void* res, void* out,
-                             void* xn_ws, void* part_ws, int M, int K, int H, int N, int gs13,
-                             int gs2, float eps, void* stream) {
+                             void* xn_ws, void* hb_ws, void* part_ws, int M, int K, int H, int N,
+                             int gs13, int gs2, int split13, int split2, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % 8 || N % 8) return (int)cudaErrorInvalidValue;
-  HIPLLAMA_TRY(launch_norm(x, g, xn_ws, M, K, eps, st));
-  const int nstrips = (H + kFfBH - 1) / kFfBH;
+  if (H % 16 || N % 16) return (int)cudaErrorInvalidValue;
   float* part = (float*)part_ws;
-  if (M <= 8) {
-    q8_ffn_strip_kernel<8><<<dim3(1, nstrips), kThreads, 0, st>>>(
-        (const bf16*)xn_ws, (const int8_t*)q13, (const float*)s13, (const int8_t*)q2,
-        (const float*)s2, part, M, K, H, N, gs13, gs2);
-  } else {
-    q8_ffn_strip_kernel<16><<<dim3((M + 15) / 16, nstrips), kThreads, 0, st>>>(
-        (const bf16*)xn_ws, (const int8_t*)q13, (const float*)s13, (const int8_t*)q2,
-        (const float*)s2, part, M, K, H, N, gs13, gs2);
-  }
-  HIPLLAMA_TRY(check_launch());
-  q8_ffn_reduce_kernel<<<blocks((long long)M * (N / 2)), kEltThreads, 0, st>>>(
-      part, nstrips, M, N, (const bf16*)res, (bf16*)out);
-  return check_launch();
+  HIPLLAMA_TRY(launch_norm(x, g, xn_ws, M, K, eps, st));
+  HIPLLAMA_TRY(launch_gemv(xn_ws, q13, s13, part, M, K, 2 * H, gs13, split13, st));
+  HIPLLAMA_TRY(launch_split_gate(part, split13, M, H, hb_ws, st));
+  HIPLLAMA_TRY(launch_gemv(hb_ws, q2, s2, part, M, H, N, gs2, split2, st));
+  const Epilogue resid{(const bf16*)res, nullptr, 0, 1, 0.f};
+  return launch_split_epilogue(part, split2, M, N, resid, out, st);
 }
 
 // The `a8` mode of q8_matmul (a8.cuh): xi_ws (M, K) int8 and sx_ws (M, K/gs)
@@ -381,11 +380,11 @@ LayerPtrs layer_ptrs(const void* q, const void* s, const void* g, int K, int N, 
 extern "C" int q8_matmul_layered(const void* x, const void* q, const void* s, const void* g,
                                  const void* res, const void* pos, void* out, void* xn_ws,
                                  void* part_ws, int M, int K, int N, int gs, int split,
-                                 int kslice, int rope_limit, int rope_hs, int layer,
-                                 float rope_coef, float eps, void* stream) {
+                                 int rope_limit, int rope_hs, int layer, float rope_coef,
+                                 float eps, void* stream) {
   if (layer < 0 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
   const LayerPtrs w = layer_ptrs(q, s, g, K, N, gs, layer);
-  return q8_matmul(x, w.q, w.s, w.g, res, pos, out, xn_ws, part_ws, M, K, N, gs, split, kslice,
+  return q8_matmul(x, w.q, w.s, w.g, res, pos, out, xn_ws, part_ws, M, K, N, gs, split,
                    rope_limit, rope_hs, rope_coef, eps, stream);
 }
 

@@ -58,6 +58,35 @@ using namespace hipllama::q8;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kQ4KMax = 512;              // packed rows per GEMV task at most
+constexpr int kQ4BN = 32 * 8;             // columns per GEMV task: 8 per lane
+
+// acc[m][j] += x[k][m] * w[j] for the MAXM activation rows of one k, held
+// transposed in shared memory (xr = the row of k: MAXM bf16, 16-byte aligned)
+template <int MAXM>
+__device__ __forceinline__ void fma_rows(const bf16* xr, const float w[8], float acc[MAXM][8]) {
+#pragma unroll
+  for (int m8 = 0; m8 < MAXM; m8 += 8) {
+    const uint4 xv = *reinterpret_cast<const uint4*>(xr + m8);
+    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
+#pragma unroll
+    for (int mm = 0; mm < 8; ++mm) {
+      const float xf = hipllama::to_f(xe[mm]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[m8 + mm][j] = fmaf(xf, w[j], acc[m8 + mm][j]);
+    }
+  }
+}
+
+// rows kbeg..kend-1 of x (rows m0..m0+M-1, K wide) into xs[k - kbeg][m],
+// zero past M
+template <int MAXM>
+__device__ __forceinline__ void load_xs(bf16 (*xs)[MAXM], const bf16* x, int M, int m0, int K,
+                                        int kbeg, int kend) {
+  for (int i = threadIdx.x; i < (kend - kbeg) * MAXM; i += kThreads) {
+    const int kk = i / MAXM, m = i % MAXM;
+    xs[kk][m] = m < M ? x[(size_t)(m0 + m) * K + kbeg + kk] : __float2bfloat16_rn(0.f);
+  }
+}
 constexpr uint32_t kLowNibbles = 0x0F0F0F0Fu;
 
 // ---------------------------------------------------------------------------
@@ -95,14 +124,14 @@ __device__ __forceinline__ uint2 high_nibbles(uint2 raw) {
 
 // ---------------------------------------------------------------------------
 // GEMV path (M <= 16): one (strip, split) task per CTA. A task is one strip
-// of kGvBN columns and one slice of at most kQ4KMax packed rows; its fp32
+// of kQ4BN columns and one slice of at most kQ4KMax packed rows; its fp32
 // partial sums go to part[(split * M + m) * N + n].
 
 template <int MAXM>
 struct Q4GemvSmem {
   __align__(16) bf16 xlo[kQ4KMax][MAXM];  // x[:, k'] of the slice, transposed
   __align__(16) bf16 xhi[kQ4KMax][MAXM];  // x[:, K/2 + k']
-  float red[kWarps][kGvBN];
+  float red[kWarps][kQ4BN];
 };
 
 template <int MAXM>
@@ -113,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) q4_gemv_kernel(
   constexpr int R = MAXM <= 8 ? 8 : 4;  // packed rows a warp has in flight
   const int KH = K / 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * kGvBN;
+  const int n0 = blockIdx.x * kQ4BN;
   const int split = blockIdx.y;
   const int kbeg = split * kslice;
   const int kend = min(KH, kbeg + kslice);
@@ -352,7 +381,7 @@ int launch_gemv(const void* x, const void* q, const void* s, float* part, int M,
   if (M > 16 || kslice > kQ4KMax || (long long)split * kslice < KH ||
       (long long)(split - 1) * kslice >= KH)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kGvBN - 1) / kGvBN, split);
+  const dim3 grid((N + kQ4BN - 1) / kQ4BN, split);
   if (M <= 8)
     q4_gemv_kernel<8><<<grid, kThreads, 0, st>>>((const bf16*)x, (const int8_t*)q,
                                                  (const float*)s, part, M, K, N, gs, kslice);

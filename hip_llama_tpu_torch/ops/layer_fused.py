@@ -4,7 +4,8 @@ Wo with the residual -> the FFN with its rmsnorm and residual.
 
 The kernel (csrc/layer_fused.cu) runs the tasks of q8_matmul, attention_
 decode_fused and q8_matmul_ffn on a persistent grid with grid-wide barriers
-between the phases, with the same plans as those kernels, so the layer
+between the phases, with the same plans as those kernels (the four
+products on the tensor-core GEMV at `gemv_plan`'s splits), so the layer
 rounds exactly as the four of them in a row. The wrapper checks its
 operands, allocates the output and the workspaces, and counts its launches
 in `q8_layer_fused.launches` (bf16 cache) or `.launches_int8` (int8 cache
@@ -90,24 +91,25 @@ def q8_layer_fused(x, wqkv, wo, w13, w2, g1, g2, k_cache, v_cache, layer: int, p
     for name, g in (("g1", g1), ("g2", g2)):
         check_operand(name, g, (d,), torch.float32, dev)
     check_operand("pos", pos, (b,), torch.int32, dev)
-    (split_q, kslice_q), (split_o, kslice_o) = _quant.gemv_plan(d, nqkv), _quant.gemv_plan(d, d)
-    nstrips = -(-hidden // _quant.FFN_STRIP)
+    # the products' slices of their contraction: the standalone kernels' own
+    plans = ((nqkv, _quant.gemv_plan(d, nqkv, b)), (d, _quant.gemv_plan(d, d, b)),
+             (2 * hidden, _quant.gemv_plan(d, 2 * hidden, b)), (d, _quant.gemv_plan(hidden, d, b)))
     out, xn, att, x2 = (torch.empty((b, d), dtype=torch.bfloat16, device=dev) for _ in range(4))
     qkv = torch.empty((b, h + 2 * kvh, hs), dtype=torch.bfloat16, device=dev)
-    part = torch.empty(max(split_q * b * nqkv, split_o * b * d, nstrips * b * d),
-                       dtype=torch.float32, device=dev)
+    hb = torch.empty((b, hidden), dtype=torch.bfloat16, device=dev)
+    part = torch.empty(max(sp * b * n for n, sp in plans), dtype=torch.float32, device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     bk = layer_block(s, h, kvh, hs, quantized)
     _attn.check_decode_block(h // kvh, bk)
-    fn = _build.bind("layer_fused", "q8_layer_fused", "p" * 23 + "i" * 19 + "ff" + "p")
+    fn = _build.bind("layer_fused", "q8_layer_fused", "p" * 24 + "i" * 19 + "ff" + "p")
     rc = fn(x.data_ptr(), wqkv.q.data_ptr(), wqkv.s.data_ptr(), g1.data_ptr(), pos.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
             0 if v_scale is None else v_scale.data_ptr(), wo.q.data_ptr(), wo.s.data_ptr(),
             w13.q.data_ptr(), w13.s.data_ptr(), w2.q.data_ptr(), w2.s.data_ptr(), g2.data_ptr(),
             out.data_ptr(), xn.data_ptr(), qkv.data_ptr(), att.data_ptr(), x2.data_ptr(),
-            part.data_ptr(), bar.data_ptr(),
+            hb.data_ptr(), part.data_ptr(), bar.data_ptr(),
             b, d, h, kvh, s, hs, n_layers, layer, hidden, wqkv.group_size, wo.group_size,
-            w13.group_size, w2.group_size, split_q, kslice_q, split_o, kslice_o, bk,
+            w13.group_size, w2.group_size, *(sp for _, sp in plans), bk,
             int(quantized), _quant.rope_coef(theta, hs), norm_eps, _stream())
     _build.check(rc, "layer_fused", "q8_layer_fused")
     _count(q8_layer_fused, quantized)

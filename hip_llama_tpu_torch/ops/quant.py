@@ -15,7 +15,9 @@ raises; a CPU tensor takes the plain PyTorch version beside it, which is
 also the yardstick the kernel is held against on the card.
 
 q8_matmul, q8_matmul_silu and q8_matmul_layered take the split-K GEMV up
-to GEMV_MAX_M rows and, above, tiles on the pipelined wgmma mainloop of
+to GEMV_MAX_M rows (csrc/q8.cuh::gemv_tasks: mma.sync on the bf16 tensor
+cores, each warp fed by a cp.async ring; `gemv_plan` slices the
+contraction) and, above, tiles on the pipelined wgmma mainloop of
 csrc/q8_wgmma.cuh (`q8_rows_kernel`, the one row rule; `q8_kernel_takes`
 says which K, N and group sizes each accepts). `.launches` counts both;
 `.launches_wgmma` the launches that ran the tiles.
@@ -31,9 +33,10 @@ JAX package's FFN kernels decline (a TPU tile rule) and its fallback rounds
 h1 and h3 to bf16 before the gate, so there the two packages agree to bf16
 tolerance rather than to the summation order (ROADMAP.md, section 3).
 
-q8_matmul_ffn (K18) runs its one-kernel strip (CUDA cores) up to
-GEMV_MAX_M rows and csrc/ffn.cu's two tensor-core products above, counted
-in `q8_matmul_ffn.launches_tc`.
+q8_matmul_ffn (K18) runs the same tensor-core GEMV twice up to GEMV_MAX_M
+rows (the W1|W3 product with a gate pass, then W2 with the residual pass)
+and csrc/ffn.cu's two tensor-core products above, counted in
+`q8_matmul_ffn.launches_tc`.
 
 `mode="a8"` (w8a8: HIPLLAMA_Q8_MODE=a8, which the model reads and passes
 down) takes the JAX kernels' `a8` branch (quant.py:250-296, :541-585), the
@@ -83,13 +86,18 @@ from hip_llama_tpu_torch.ops import _build
 from hip_llama_tpu_torch.ops.cache import _stream, check_operand
 
 GEMV_MAX_M = 16  # rows the GEMV path takes; more go to the tiled tensor-core path
-_GEMV_BN = 256  # columns per GEMV CTA (csrc/quant.cu kGvBN)
-_GEMV_KSLICE_MAX = 1024  # contraction rows per GEMV CTA at most (kGvKMax)
-_GEMV_CTAS = 264  # GEMV CTAs aimed for: two per SM of an H100
+GEMV_BN = 128  # output columns per task of the Q8 GEMV (csrc/q8.cuh kGemvBN)
+GEMV_STEP = 16  # contraction rows per step of the Q8 GEMV (kGemvStep)
+GEMV_WARPS = 8  # warps of a Q8 GEMV task, each a run of its steps
+GEMV_MIN_RUN = 4  # steps a warp's run of a task has at least where K allows
+# GEMV CTAs aimed for: two per SM of an H100 up to 8 rows, one at 9-16
+# (the kernels' __launch_bounds__; K23's cooperative grid alike)
+GEMV_CTAS = {8: 264, 16: 132}
+_KSLICE_BN = 256  # columns per GEMV CTA of the int4 GEMV (csrc/quant4.cu kQ4BN)
+_GEMV_CTAS = 264  # CTAs the int4 and `a8` GEMVs aim for: two per SM of an H100
 # q8_matmul_ffn takes its one-call kernel by row count (quant.py:934)
 FFN_MAX_M = 256
 FFN_MAX_X_BYTES = 2 * 2**20
-FFN_STRIP = 64  # hidden columns per CTA of q8_matmul_ffn's strip kernel (csrc/q8.cuh kFfBH)
 # q8_matmul_ffn above GEMV_MAX_M rows (csrc/ffn.cu): hidden rows per k step
 # of the down product, and the CTAs its split-K aims for (two per SM)
 FFN_TC_STEP = 64
@@ -601,10 +609,12 @@ def q8_matmul_ffn_plain(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *
 def q8_rows_kernel(m: int) -> str:
     """The reshape-math kernel that q8_matmul and q8_matmul_silu (and K20
     through them) launch for m rows: "gemv" up to GEMV_MAX_M rows (split-K
-    over the weight, csrc/quant.cu q8_gemv_kernel), "wgmma" above
-    (q8_tile_kernel on csrc/q8_wgmma.cuh's pipelined mainloop). No other
-    tile kernel is kept: the wgmma tiles timed faster than the wmma tiles
-    they replaced at every row count from 32 to 4088 (PERF.md)."""
+    over the weight on the tensor cores, csrc/quant.cu q8_gemv_kernel on
+    q8.cuh::gemv_tasks), "wgmma" above (q8_tile_kernel on csrc/q8_wgmma.cuh's
+    pipelined mainloop). No other kernel is kept: the wgmma tiles timed
+    faster than the wmma tiles they replaced at every row count from 32 to
+    4088, and the tensor-core GEMV than the CUDA-core one it replaced at
+    every row count from 1 to 16 (PERF.md)."""
     return "gemv" if m <= GEMV_MAX_M else "wgmma"
 
 
@@ -613,7 +623,8 @@ def q8_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False) ->
     weight's columns: 2H for a gate) and group size gs, as its C launcher
     decides: K and N multiples of 16, gs dividing K, a gate's H a multiple
     of 16. The wgmma tiles zero-fill a last step past K % 64 and guard the
-    columns past N % 128 (a gate's past H % 64)."""
+    columns past N % 128 (a gate's past H % 64); the GEMV guards the
+    columns past N % 128."""
     if kernel not in ("gemv", "wgmma"):
         raise ValueError(f"unknown kernel {kernel!r}")
     return (k > 0 and k % 16 == 0 and n > 0 and n % 16 == 0 and 0 < gs and k % gs == 0
@@ -628,12 +639,58 @@ def _check_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = False)
     return kernel
 
 
-def gemv_plan(k: int, n: int, kslice_max: int = _GEMV_KSLICE_MAX,
-              mult: int = 64, bn: int = _GEMV_BN) -> tuple[int, int]:
-    """(split, kslice) of the GEMV path: K in `split` slices of `kslice`
-    rows (a multiple of `mult`, at most `kslice_max`), as many as the
-    ceil(N / bn) column strips times the splits fit in one wave of the
-    card's CTAs (more where K needs them)."""
+def _gemv_rows(m: int) -> int:
+    """The rows a Q8 GEMV task takes at most (its MAXM): 8 or 16."""
+    return 8 if m <= 8 else 16
+
+
+def gemv_plan(k: int, n: int, m: int) -> int:
+    """The slices (split) of the Q8 GEMV's contraction for m rows of a (k,
+    n) weight. The tasks are ceil(n / GEMV_BN) column strips x split slices
+    of the k / GEMV_STEP steps x the row chunks, dealt out to the
+    GEMV_CTAS CTAs of a wave; a split costs its whole waves of tasks times
+    the steps of a task. Of the splits that leave each warp a run of at
+    least GEMV_MIN_RUN steps, the smallest that costs at most 5% above the
+    least: fewer, longer tasks timed faster than more, shorter ones at the
+    same cost (PERF.md), and they leave fewer partials to add. K23 takes
+    the same plan for its products, so that it rounds as the standalone
+    kernels do."""
+    strips, steps = -(-n // GEMV_BN), k // GEMV_STEP
+    rows = _gemv_rows(m)
+    tasks, ctas = strips * -(-m // rows), GEMV_CTAS[rows]
+    splits = range(1, max(1, steps // (GEMV_WARPS * GEMV_MIN_RUN)) + 1)
+    cost = {sp: -(-tasks * sp // ctas) * -(-steps // sp) for sp in splits}
+    return min(sp for sp in splits if cost[sp] <= 1.05 * min(cost.values()))
+
+
+def gemv_runs(k: int, n: int, m: int, split: int) -> list:
+    """The Q8 GEMV's tasks as the kernel (csrc/q8.cuh::gemv_tasks) takes
+    them, in task order: (columns [n0, n1), rows [m0, m1), split, the
+    contraction rows [k0, k1) of each warp's run). Task t is strip t %
+    strips, slice t / strips % split, row chunk t / strips / split; slice
+    sp holds steps [sp * steps // split, (sp + 1) * steps // split), and
+    warp w of a task with s steps from s0 the run [s0 + s * w // 8, s0 +
+    s * (w + 1) // 8)."""
+    strips, steps, rows = -(-n // GEMV_BN), k // GEMV_STEP, _gemv_rows(m)
+    out = []
+    for t in range(strips * split * -(-m // rows)):
+        strip, sp, chunk = t % strips, t // strips % split, t // strips // split
+        s0, s1 = sp * steps // split, (sp + 1) * steps // split
+        runs = [((s0 + (s1 - s0) * w // GEMV_WARPS) * GEMV_STEP,
+                 (s0 + (s1 - s0) * (w + 1) // GEMV_WARPS) * GEMV_STEP)
+                for w in range(GEMV_WARPS)]
+        out.append(((strip * GEMV_BN, min(n, (strip + 1) * GEMV_BN)),
+                    (chunk * rows, min(m, (chunk + 1) * rows)), sp, runs))
+    return out
+
+
+def kslice_plan(k: int, n: int, kslice_max: int, mult: int,
+                bn: int = _KSLICE_BN) -> tuple[int, int]:
+    """(split, kslice) of the int4 and `a8` GEMVs (CUDA cores, csrc/quant4.cu
+    and a8.cuh): K in `split` slices of `kslice` rows (a multiple of `mult`,
+    at most `kslice_max`), as many as the ceil(N / bn) column strips times
+    the splits fit in one wave of the card's CTAs (more where K needs
+    them)."""
     strips = -(-n // bn)
     split = max(-(-k // kslice_max), _GEMV_CTAS // strips)
     kslice = min(kslice_max, -(-(-(-k // split)) // mult) * mult)
@@ -703,7 +760,7 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
     out = torch.empty((m, n // 2 if gate else n), dtype=torch.bfloat16, device=dev)
     xi = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
-    split, kslice = (gemv_plan(k_rows, n, kslice_max, gs, A8_GEMV_BN) if m <= GEMV_MAX_M
+    split, kslice = (kslice_plan(k_rows, n, kslice_max, gs, A8_GEMV_BN) if m <= GEMV_MAX_M
                      else (0, 0))
     part = torch.empty((planes * split, m, n), dtype=torch.float32, device=dev) if split else None
     if gate:
@@ -790,13 +847,13 @@ def _reshape_launch(fn: str, x, qt: QTensor, n: int, norm_weight, residual, rope
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
     kernel = _check_takes(fn, m, k, n, qt.group_size)
-    split, kslice = gemv_plan(k, n) if kernel == "gemv" else (0, 0)
+    split = gemv_plan(k, n, m) if kernel == "gemv" else 0
     part = (torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else
             torch.empty((m, rope_head), dtype=torch.float32, device=dev)
             if rope_pos is not None else None)
-    ints = [m, k, n, qt.group_size, split, kslice, rope_limit if rope_pos is not None else 0,
+    ints = [m, k, n, qt.group_size, split, rope_limit if rope_pos is not None else 0,
             rope_head if rope_pos is not None else 1] + ([] if layer is None else [layer])
-    f = _build.bind("quant", fn, "ppppppppp" + "i" * len(ints) + "ff" + "p")
+    f = _build.bind("quant", fn, "p" * 9 + "i" * len(ints) + "ff" + "p")
     rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
            _ptr(rope_pos), out.data_ptr(), _ptr(xn), _ptr(part), *ints,
            rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0,
@@ -888,11 +945,11 @@ def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
     kernel = _check_takes("q8_matmul_silu", m, k, n2, qt13.group_size, gate=True)
-    split, kslice = gemv_plan(k, n2) if kernel == "gemv" else (0, 0)
+    split = gemv_plan(k, n2, m) if kernel == "gemv" else 0
     part = torch.empty((split, m, n2), dtype=torch.float32, device=dev) if split else None
-    fn = _build.bind("quant", "q8_matmul_silu", "ppppppp" + "iiiiii" + "f" + "p")
+    fn = _build.bind("quant", "q8_matmul_silu", "p" * 7 + "iiiii" + "f" + "p")
     rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), _ptr(norm_weight),
-            out.data_ptr(), _ptr(xn), _ptr(part), m, k, h, qt13.group_size, split, kslice,
+            out.data_ptr(), _ptr(xn), _ptr(part), m, k, h, qt13.group_size, split,
             norm_eps, _stream())
     _build.check(rc, "quant", "q8_matmul_silu")
     q8_matmul_silu.launches += 1
@@ -921,13 +978,14 @@ def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
                   norm_eps: float = 1e-5):
     """residual + W2 bf16(silu(xn @ W1) * (xn @ W3)) -> (M, N) in x's dtype,
     xn = rmsnorm(x, norm_weight), qt13 = W1|W3 (K, 2H), qt2 (H, N). Up to
-    GEMV_MAX_M rows, one CTA per 64-column hidden strip computes its h and
-    multiplies it by its W2 rows into a per-strip fp32 partial (csrc/q8.cuh::
-    ffn_strip_task; `.launches`). More rows run on the tensor cores
-    (csrc/ffn.cu; `.launches_tc`): the gate product writes hb (M, H) bf16,
-    the down product sums hb @ W2 in `ffn_splits` slices of the hidden
-    width. Either way a reduce pass seeds each output with the residual and
-    adds the partials in order. Replaces hip_llama_tpu/ops/quant.py::
+    GEMV_MAX_M rows, the tensor-core GEMV (csrc/q8.cuh::gemv_tasks) runs
+    the W1|W3 product into split-K partials, a pass adds them in order and
+    writes the gated hb (M, H) bf16, the GEMV runs hb @ W2, and a pass adds
+    its partials in order to the residual (`.launches`). More rows run on the tensor cores of csrc/ffn.cu
+    (`.launches_tc`): the gate product writes hb, the down product sums hb
+    @ W2 in `ffn_splits` slices of the hidden width, and a reduce pass
+    seeds each output with the residual and adds the slices in order.
+    Replaces hip_llama_tpu/ops/quant.py::
     q8_matmul_ffn (its kernel branch, which the model takes by row count:
     `ffn_takes_kernel`)."""
     dev = _device(x, "q8_matmul_ffn")
@@ -943,9 +1001,9 @@ def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
     check_operand("norm_weight", norm_weight, (k,), torch.float32, dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x)
+    hb = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     if m > GEMV_MAX_M:
         splits = ffn_splits(m, h, n)
-        hb = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
         part = torch.empty((splits, m, n), dtype=torch.float32, device=dev)
         fn = _build.bind("ffn", "q8_matmul_ffn_tc", "p" * 11 + "i" * 7 + "f" + "p")
         rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), qt2.q.data_ptr(),
@@ -955,12 +1013,13 @@ def q8_matmul_ffn(x, qt13: QTensor, qt2: QTensor, residual, norm_weight, *,
         _build.check(rc, "ffn", "q8_matmul_ffn_tc")
         q8_matmul_ffn.launches_tc += 1
         return out
-    part = torch.empty((-(-h // FFN_STRIP), m, n), dtype=torch.float32, device=dev)
-    fn = _build.bind("quant", "q8_matmul_ffn", "pppppppppp" + "iiiiii" + "f" + "p")
+    split13, split2 = gemv_plan(k, n2, m), gemv_plan(h, n, m)
+    part = torch.empty(max(split13 * m * n2, split2 * m * n), dtype=torch.float32, device=dev)
+    fn = _build.bind("quant", "q8_matmul_ffn", "p" * 11 + "i" * 8 + "f" + "p")
     rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), qt2.q.data_ptr(),
             qt2.s.data_ptr(), norm_weight.data_ptr(), residual.data_ptr(), out.data_ptr(),
-            xn.data_ptr(), part.data_ptr(), m, k, h, n, qt13.group_size, qt2.group_size,
-            norm_eps, _stream())
+            xn.data_ptr(), hb.data_ptr(), part.data_ptr(), m, k, h, n, qt13.group_size,
+            qt2.group_size, split13, split2, norm_eps, _stream())
     _build.check(rc, "quant", "q8_matmul_ffn")
     q8_matmul_ffn.launches += 1
     return out

@@ -58,7 +58,7 @@ from hip_llama_tpu_torch.ops.quant import (
     a8_quantize_rows,
     a8_serves,
     check_mode,
-    gemv_plan,
+    kslice_plan,
     rope_coef,
     true_div,
 )
@@ -209,9 +209,9 @@ def q4_matmul_silu_plain(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float
 
 
 def q4_gemv_plan(kh: int, n: int) -> tuple[int, int]:
-    """(split, kslice) of the GEMV path over the kh = K/2 packed rows: the
-    Q8 plan with slices of at most 512 packed rows, a multiple of 32."""
-    return gemv_plan(kh, n, _GEMV_KSLICE_MAX, 32)
+    """(split, kslice) of the GEMV path over the kh = K/2 packed rows:
+    kslice_plan with slices of at most 512 packed rows, a multiple of 32."""
+    return kslice_plan(kh, n, _GEMV_KSLICE_MAX, 32)
 
 
 def _check_weight(name: str, qt: Q4Tensor, k: int, dev) -> int:

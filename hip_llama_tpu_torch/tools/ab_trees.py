@@ -4,6 +4,7 @@ checkouts in turns (parent, change, change, parent) within one machine.
     cd <checkout> && python <path of this file> attention <checkout>
     cd <checkout> && python <path of this file> serve <checkout>
     cd <checkout> && python <path of this file> prefill <checkout>
+    cd <checkout> && python <path of this file> decode <checkout>
 
 Each runs the checkout's own package and its chip_smoke.py helpers (the
 checkout goes first on sys.path; run this file by its path, not with -m,
@@ -14,9 +15,12 @@ so that the package is imported from the checkout), once per checkout.
   256, and T 128 over pages of 128): K1, K1 int8, K5, K4, K4 int8, K6, K7;
   each the least of three CUDA-event means (chip_smoke.cuda_ms).
 - serve: a 7B-width Q8_0 model on the int8 KV cache (random weights from
-  chip_smoke's seed): prefill chunks of T 16, 64 and 256 over 8 slots
-  profiled (device time by kernel), then chip_smoke's 16-request serve at
-  batch 8, twice (tok/s, TTFT p50 and p95).
+  chip_smoke's seed): a decode step of 8 slots profiled (device time by
+  kernel) with the fused layer (K23) and with the four-kernel layer,
+  prefill chunks of T 16, 64 and 256 over 8 slots profiled, chip_smoke's
+  16-request serve at batch 8, twice (tok/s, TTFT p50 and p95), then the
+  port bench's default decode and its --mode ttft in process (the
+  achievable bandwidth fixed by HIPLLAMA_ACHIEVABLE_BW where it is set).
 - prefill: the Q8 products at prefill rows (reshape math, group size 64,
   7B widths): q8_matmul on QKV with the norm and RoPE, on wo and W2 with
   the residual, and q8_matmul_silu with the norm, at M 32, 128, 512, 2048
@@ -26,6 +30,12 @@ so that the package is imported from the checkout), once per checkout.
   decode and its --mode ttft, in process, twice each (the achievable
   bandwidth fixed by HIPLLAMA_ACHIEVABLE_BW where it is set, so that no
   probe runs).
+- decode: the Q8 products at decode rows (reshape math, group size 64, 7B
+  widths) at every row count 1-16 of the GEMV route: q8_matmul on QKV with
+  the norm and RoPE, on wo with the residual and on the classifier with the
+  norm, q8_matmul_silu with the norm and q8_matmul_ffn, each the least of
+  three CUDA-graph replays (chip_smoke.cuda_ms); then `layer_parts` at
+  B 8 on an int8 cache.
 """
 
 from __future__ import annotations
@@ -77,11 +87,126 @@ def attention(cs) -> None:
         print(f"{name}: ms {min(ms):.4f} ({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
 
 
+def layer_parts(cuda_ms, b: int = 8, s: int = 512, rot: int = 8) -> None:
+    """K23 on an int8 cache at Llama-2-7B widths (b slots over rot layers of
+    a cache of s rows, the layers and two weight copies rotating so that
+    each call finds its weights and rows cold in L2) beside the standalone
+    kernels of its phases on the same inputs: the QKV GEMV with the norm and
+    RoPE, K5 int8, the wo GEMV with the residual and K18 (norm, the gate
+    product, W2 with the residual). K23 less their sum is what its barriers,
+    its grid and its epilogue passes cost against the four-kernel layer's
+    launches. CUDA-event means of CUDA-graph replays (cuda_ms: chip_smoke's;
+    the device time, below the wrappers' host cost), the least of three;
+    prints one `parts` line."""
+    import torch
+
+    from hip_llama_tpu_torch.ops import attention as A
+    from hip_llama_tpu_torch.ops import cache as C
+    from hip_llama_tpu_torch.ops import layer_fused as LF
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    d, hid, h, hs, gs = 4096, 11008, 32, 128, 64
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def weights(k, n):
+        return Q.q8_quantize_weights(rnd(k, n, dtype=torch.float32).mul_(k ** -0.5), gs)
+
+    lw = [dict(wqkv=weights(d, 3 * d), wo=weights(d, d), w13=weights(d, 2 * hid),
+               w2=weights(hid, d)) for _ in range(2)]
+    (k8, ks), (v8, vs) = (C.quantize_kv_rows(rnd(b, rot, h, s, hs, dtype=torch.float32))
+                          for _ in range(2))
+    g1, g2 = ((1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous() for _ in range(2))
+    pos = (torch.arange(b, dtype=torch.int32, device=dev) * 61 + 17) % s
+    x, x2 = rnd(b, d), rnd(b, d)
+    qkv = rnd(b, 3 * h, hs)
+    att = rnd(b, d)
+    cases = {
+        "K23 int8": lambda i: LF.q8_layer_fused(
+            x, lw[i % 2]["wqkv"], lw[i % 2]["wo"], lw[i % 2]["w13"], lw[i % 2]["w2"], g1, g2, k8,
+            v8, i % rot, pos, ks, vs, n_heads=h),
+        "QKV": lambda i: Q.q8_matmul(x, lw[i % 2]["wqkv"], norm_weight=g1, rope_pos=pos,
+                                     rope_limit=2 * d, rope_head=hs),
+        "K5 int8": lambda i: A.attention_decode_fused(qkv, k8, v8, i % rot, pos, h, ks, vs),
+        "wo": lambda i: Q.q8_matmul(att, lw[i % 2]["wo"], residual=x),
+        "K18": lambda i: Q.q8_matmul_ffn(x2, lw[i % 2]["w13"], lw[i % 2]["w2"], x2, g2),
+    }
+    ms = {}
+    for name, fn in cases.items():
+        fn(0)
+        torch.cuda.synchronize()
+        ms[name] = min(cuda_ms(fn, graph=True) for _ in range(3))
+    parts = sum(v for n, v in ms.items() if n != "K23 int8")
+    print(f"parts K23 int8 [B {b}, 7B layer, S {s}]: K23 {ms['K23 int8']:.4f} ms; "
+          + "; ".join(f"{n} {v:.4f}" for n, v in ms.items() if n != "K23 int8")
+          + f"; sum of the parts {parts:.4f}; K23 - sum {ms['K23 int8'] - parts:+.4f} ms",
+          flush=True)
+
+
+def decode(cs) -> None:
+    import torch
+
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, hid, voc, gs = 4096, 11008, 32000, 64
+
+    def weights(k, n, copies=2):
+        return [Q.q8_quantize_weights(torch.randn((k, n), generator=g, device=dev) * k ** -0.5,
+                                      gs) for _ in range(copies)]
+
+    wq, wo, w2, w13 = weights(d, 3 * d), weights(d, d), weights(hid, d), weights(d, 2 * hid)
+    wc = weights(d, voc, 1)
+    norm = torch.ones(d, device=dev)
+    for m in range(1, Q.GEMV_MAX_M + 1):
+        x = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+        pos = torch.arange(m, dtype=torch.int32, device=dev) * 31 % 512
+        cases = {
+            "QKV": lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos,
+                                         rope_limit=2 * d, rope_head=128),
+            "wo": lambda i: Q.q8_matmul(x, wo[i % 2], residual=x),
+            "K17": lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm),
+            "K18": lambda i: Q.q8_matmul_ffn(x, w13[i % 2], w2[i % 2], x, norm),
+            "classifier": lambda i: Q.q8_matmul(x, wc[0], norm_weight=norm),
+        }
+        row = []
+        for name, fn in cases.items():
+            fn(0)
+            torch.cuda.synchronize()
+            row.append(f"{name} {min(cs.cuda_ms(fn, graph=True) for _ in range(3)):.4f}")
+        print(f"products M {m} (ms): {'; '.join(row)}", flush=True)
+    del wq, wo, w2, w13, wc
+    torch.cuda.empty_cache()
+    layer_parts(cs.cuda_ms)
+
+
+def bench_lines(cs) -> None:
+    """The port bench's default decode and its --mode ttft, in process."""
+    import contextlib
+    import io
+
+    import torch
+
+    for argv in ([], ["--mode", "ttft"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cs.port_bench.main(argv)
+        print(f"bench {' '.join(argv) or '(defaults)'}: {buf.getvalue().strip()}", flush=True)
+        torch.cuda.empty_cache()
+
+
 def serve(cs) -> None:
+    import os
+
     import numpy as np
     import torch
 
     from hip_llama_tpu_torch.engine import InferenceEngine, Requests
+    from hip_llama_tpu_torch.models.llama import make_decode_step
     from hip_llama_tpu_torch.sampler import Sampler
 
     dev = torch.device("cuda")
@@ -92,6 +217,18 @@ def serve(cs) -> None:
     engine = InferenceEngine(cfg, params, tok, batch_size=8, max_seq_len=512, kv_quant=True)
     cache = engine.new_cache()
     toks = np.random.default_rng(5).integers(3, cfg.vocab_size, (8, 256)).tolist()
+    tok_t = torch.tensor([t[-1] for t in toks], dtype=torch.int32, device=dev)
+    pos0 = torch.tensor([100, 17, 255, 3, 200, 60, 128, 250], dtype=torch.int32, device=dev)
+    step = make_decode_step(cfg)
+    cs.profile_window("q8 int8-kv decode step (batch 8)", 4,
+                      lambda i: step(params, cache, tok_t, pos0 + i))
+    os.environ["HIPLLAMA_LAYER_FUSE"] = "0"
+    try:
+        four = make_decode_step(cfg)
+    finally:
+        del os.environ["HIPLLAMA_LAYER_FUSE"]
+    cs.profile_window("q8 int8-kv decode step, four-kernel layer (batch 8)", 4,
+                      lambda i: four(params, cache, tok_t, pos0 + i))
     for t in (16, 64, 256):
         cs.profile_window(f"q8 int8-kv prefill chunk (batch 8, T {t})", 4 if t < 256 else 2,
                           lambda i, t=t: engine._prefill_tokens(
@@ -108,12 +245,12 @@ def serve(cs) -> None:
         print(f"serve {rep}: {stats['tok_per_s']:.2f} tok/s, ttft p50 "
               f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms",
               flush=True)
+    del engine, cache, params
+    torch.cuda.empty_cache()
+    bench_lines(cs)
 
 
 def prefill(cs) -> None:
-    import contextlib
-    import io
-
     import numpy as np
     import torch
 
@@ -162,16 +299,12 @@ def prefill(cs) -> None:
                               {s: 0 for s in range(8)}, bm=None))
     del engine, cache, params
     torch.cuda.empty_cache()
-    for argv in ([], ["--mode", "ttft"]) * 2:
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cs.port_bench.main(argv)
-        print(f"bench {' '.join(argv) or '(defaults)'}: {buf.getvalue().strip()}", flush=True)
-        torch.cuda.empty_cache()
+    for _ in range(2):
+        bench_lines(cs)
 
 
 def main(argv: list[str]) -> int:
-    modes = {"attention": attention, "serve": serve, "prefill": prefill}
+    modes = {"attention": attention, "serve": serve, "prefill": prefill, "decode": decode}
     if len(argv) != 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -276,6 +276,63 @@ def test_q8_matmul_ffn_kernel(m, shape):
     _close(got, want, torch.bfloat16)
 
 
+# the decode GEMV on the tensor cores (csrc/q8.cuh::gemv_tasks) at every
+# row count of its route, 1-16: (K, N) of the golden fixture's QKV, wo and
+# W2, stories15M's QKV (6 + 2 + 2 heads of 48: N 480, a ragged 128-column
+# strip), wo and W2, and Llama-2-7B's QKV and W2, at group sizes 16, 32, 64
+# (a 16-row step in one group: the ring brings its scale row) and 8 and 48
+# where they divide K (8: a step over two groups, the scales read a row at
+# a time from global memory)
+GEMV_SHAPES = [(64, 128), (64, 64), (192, 64), (288, 480), (288, 288), (768, 288),
+               (4096, 12288), (11008, 4096)]
+GEMV_CASES = [(k, n, gs) for k, n in GEMV_SHAPES for gs in (8, 16, 32, 48, 64) if k % gs == 0
+              and (gs in (16, 32, 64) or k <= 768)]
+
+
+@pytest.mark.parametrize("k,n,gs", GEMV_CASES)
+@pytest.mark.parametrize("epi", ["none", "residual"])
+def test_q8_gemv_tensor_cores_at_every_decode_row(k, n, gs, epi):
+    dev = _card()
+    rng = np.random.default_rng(k + n + gs)
+    qt = _qt(rng, k, n, gs, dev)
+    for m in range(1, Q.GEMV_MAX_M + 1):
+        x = _rand(rng, (m, k), torch.bfloat16, dev)
+        kw = {"residual": _rand(rng, (m, n), torch.bfloat16, dev)} if epi == "residual" else {}
+        n0, w0 = Q.q8_matmul.launches, Q.q8_matmul.launches_wgmma
+        got = Q.q8_matmul(x, qt, **kw)
+        want = Q.q8_matmul_plain(x, qt, **kw)
+        torch.cuda.synchronize()
+        assert (Q.q8_matmul.launches, Q.q8_matmul.launches_wgmma) == (n0 + 1, w0), m
+        _close(got, want, torch.bfloat16)
+        assert torch.equal(got, Q.q8_matmul(x, qt, **kw)), m  # the same bits every run
+
+
+# K18 up to 16 rows (the GEMV twice, with the gate and residual passes) at
+# the three models' FFN widths (K, H) and group sizes 16, 32, 64
+FFN_GEMV_CASES = [(k, h, gs) for k, h in [(64, 192), (288, 768), (4096, 11008)]
+                  for gs in (16, 32, 64) if k % gs == 0 and h % gs == 0]
+
+
+@pytest.mark.parametrize("k,h,gs", FFN_GEMV_CASES)
+def test_q8_matmul_ffn_gemv_at_every_decode_row(k, h, gs):
+    dev = _card()
+    rng = np.random.default_rng(k + h + gs)
+    qt13, qt2 = _qt(rng, k, 2 * h, gs, dev), _qt(rng, h, k, gs, dev)
+    g = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    for m in range(1, Q.GEMV_MAX_M + 1):
+        x = _rand(rng, (m, k), torch.bfloat16, dev)
+        n0, t0 = Q.q8_matmul_ffn.launches, Q.q8_matmul_ffn.launches_tc
+        got = Q.q8_matmul_ffn(x, qt13, qt2, x, g)
+        want = Q.q8_matmul_ffn_plain(x, qt13, qt2, x, g)
+        torch.cuda.synchronize()
+        assert (Q.q8_matmul_ffn.launches, Q.q8_matmul_ffn.launches_tc) == (n0 + 1, t0), m
+        _close(got, want, torch.bfloat16)
+        # the gate product and W2 with the residual, the same GEMV in a row
+        two = Q.q8_matmul(Q.q8_matmul_silu(x, qt13, norm_weight=g), qt2, residual=x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, two), m
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_attention_decode_fused_kernel(shape, dtype):

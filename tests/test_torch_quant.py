@@ -192,8 +192,14 @@ def test_ffn_splits_cover_the_hidden_width(m, h, n):
 
 
 def test_gemv_plan_covers_k():
+    """The Q8 GEMV's slices of the contraction: whole 16-row steps, none
+    empty, together all of K."""
     for k, n in [(64, 128), (4096, 12288), (4096, 4096), (4096, 32000), (11008, 4096),
                  (4096, 22016), (192, 512)]:
-        split, kslice = Q.gemv_plan(k, n)
-        assert kslice % 64 == 0 and kslice <= 1024
-        assert (split - 1) * kslice < k <= split * kslice, (k, n, split, kslice)
+        for m in (1, 8, 16):
+            split = Q.gemv_plan(k, n, m)
+            steps = k // Q.GEMV_STEP
+            assert 1 <= split <= max(1, steps // Q.GEMV_WARPS), (k, n, m, split)
+            bounds = [sp * steps // split for sp in range(split + 1)]
+            assert bounds[0] == 0 and bounds[-1] == steps
+            assert all(a < b for a, b in zip(bounds, bounds[1:])), (k, n, m, split)

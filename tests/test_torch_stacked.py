@@ -268,8 +268,9 @@ def test_cuda_q8_matmul_layered_passes_the_stacked_storage(launches, monkeypatch
         a8 = mode == "a8" and m <= 64
         assert fn == "q8_matmul_layered" + ("_a8" if a8 else "")
         assert args[1:4] == (qt.q.data_ptr(), qt.s.data_ptr(), g.data_ptr())
-        n_ptrs = 10 if a8 else 9
-        assert args[n_ptrs + 8] == layer  # after M, K, N, gs, split, kslice, rope_limit, rope_hs
+        # after M, K, N, gs, split, (the a8 GEMV's kslice,) rope_limit, rope_hs
+        n_ptrs, n_ints = (10, 8) if a8 else (9, 7)
+        assert args[n_ptrs + n_ints] == layer
     assert max(allocated) < k * n  # nothing of a layer's size
 
 
