@@ -988,7 +988,9 @@ def phase_kernels_int8() -> dict[str, dict]:
     draws. The writers must match their plain versions bit for bit. Bytes
     count int8 rows plus their 4-byte scales, activations in and out once
     each; the library yardstick is SDPA on K/V dequantized to bf16
-    beforehand (and so reading twice the bytes)."""
+    beforehand (and so reading twice the bytes). K1 and K5 (and SDPA beside
+    them) time as CUDA-graph replays: their device time is below the
+    wrappers' host cost."""
     dev = torch.device("cuda")
     b, n_layers, kvh, h, s, hs, t, rot = 8, 32, 32, 32, 512, 128, 256, 8
     d, hid, gs = 4096, 11008, 64
@@ -1003,8 +1005,9 @@ def phase_kernels_int8() -> dict[str, dict]:
     out: dict[str, dict] = {}
 
     def case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, atol=INT8_ATTN_ATOL,
-             rtol=INT8_ATTN_RTOL):
-        out[name] = q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, atol, rtol)
+             rtol=INT8_ATTN_RTOL, graph=False):
+        out[name] = q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops, atol, rtol,
+                                   graph=graph)
 
     def clone():
         return KVCache(*(x.clone() for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
@@ -1052,13 +1055,13 @@ def phase_kernels_int8() -> dict[str, dict]:
          lambda i: A.attention_decode(q, cache.k, cache.v, i % rot, pos, kc, vc, *sc),
          lambda i: A.attention_decode_plain(q, cache.k, cache.v, i % rot, pos, kc, vc, *sc),
          lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
-         dec_bytes, dec_flops)
+         dec_bytes, dec_flops, graph=True)
     qkv = torch.cat([q, kc, vc], dim=1)
     case("attention_decode_fused_int8", "B 8, H 32, KVH 32, S 512, HS 128",
          lambda i: A.attention_decode_fused(qkv, cache.k, cache.v, i % rot, pos, h, *sc),
          lambda i: A.attention_decode_fused_plain(qkv, cache.k, cache.v, i % rot, pos, h, *sc),
          lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
-         dec_bytes, dec_flops)
+         dec_bytes, dec_flops, graph=True)
     # fp32 activations (the dense fp32 path) take the same kernel: a check
     q32, kc32, vc32 = q.float(), kc.float(), vc.float()
     err = max_err(A.attention_decode(q32, cache.k, cache.v, 3, pos, kc32, vc32, *sc),
@@ -1351,7 +1354,7 @@ def phase_paged_kernels() -> dict[str, dict]:
                                                      vc, *sc),
             lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
             2 * b * h * hs * 2 + 2 * b * kvh * hs * 2 + 2 * sum(pos_l) * kvh * row_b + 4 * b
-            + 4 * b * mp, 4 * h * hs * sum(p + 1 for p in pos_l), **tol)
+            + 4 * b * mp, 4 * h * hs * sum(p + 1 for p in pos_l), graph=bool(sfx), **tol)
         del kf, vf
 
         # K7: a chunk of T 128 over the pages (rows t < valid compared)

@@ -20,16 +20,18 @@
 // int8 caches (one fp32 scale per row, (B, L, KVH, S) planes): the decode
 // kernels run decode_attention.cuh's int8 task (int8 dots of q quantized by
 // row against K, and of p * vs quantized by row over each JAX block against
-// V; attention.py:300-383), with the whole block's scores in dynamic shared
-// memory. Prefill follows _prefill_kernel_tmaj's int8 branch (attention.py:
-// 891-940): q rounded to bf16 whatever its dtype, K and V widened exactly,
-// scores * scale * ks[row], and (p * vs[row]) rounded to bf16 before PV; no
-// int8 dots. q, the current rows and the output are fp32 or bf16. The
-// running max advances once per block of bk cache rows, the JAX kernel's KV
-// block, which the wrappers pass: the rounded probabilities (bf16 V, or
-// p * vs on an int8 cache) depend on it. So every kernel takes a whole
-// block's max before it rounds any: the decode task holds its M x bk
-// scores in dynamic shared memory, the fp32 prefill kernel its 64 query
+// V, one int32 a block; attention.py:300-383), with its tile ring in
+// dynamic shared memory. Prefill follows _prefill_kernel_tmaj's int8 branch
+// (attention.py:891-940): q rounded to bf16 whatever its dtype, K and V
+// widened exactly, scores * scale * ks[row], and (p * vs[row]) rounded to
+// bf16 before PV; no int8 dots. q, the current rows and the output are fp32
+// or bf16. The running max advances once per block of bk cache rows, the
+// JAX kernel's KV block, which the wrappers pass: the rounded probabilities
+// (bf16 V, or p * vs on an int8 cache) depend on it. So every kernel takes
+// a whole block's max before it rounds any: the decode task holds its M x
+// bk scores in dynamic shared memory (the int8 task a chunk of them at a
+// time where the block is past a CTA's shared memory, decode_int8_chunk,
+// and its K tiles then twice more), the fp32 prefill kernel its 64 query
 // rows x bk (up to 640 columns at HS 128: 128 KiB at the JAX block of 512),
 // each computed a 64-row tile of K at a time, PV then walking the block's V
 // tiles; the tensor-core prefill kernel takes two passes over the block.
@@ -37,10 +39,11 @@
 // Bounds on an H100: decode is bound by bytes — every live K and V row of
 // the layer is read once (2 * pos * HS * bytes per slot and KV head) for
 // 4 * pos * HS flops per query head, far below the card's ~295 flop/byte
-// ridge. One CTA per (KV head, slot) runs decode_attention.cuh's task: it
-// streams its rows with coalesced warp loads and keeps the kv_mul query
-// heads of the group in shared memory, so each K/V byte is read once for
-// all heads that share it.
+// ridge. One CTA per (KV head, head group, slot) runs decode_attention.
+// cuh's task, which keeps the group's query heads in shared memory, so each
+// K/V byte is read once for all heads that share it: on fp32 and bf16
+// caches it streams its rows with coalesced warp loads, on an int8 cache
+// through a cp.async ring of K and V tiles in shared memory.
 //
 // Prefill (K4, K7) on bf16 and int8 caches runs on the tensor cores
 // (attention_prefill_mma_kernel). At the 7B shapes (T 256 over 512 rows)
@@ -125,6 +128,7 @@ using hipllama::decode_attention_task;
 using hipllama::decode_attention_task_int8;
 using hipllama::decode_int8_smem;
 using hipllama::decode_smem;
+using hipllama::DirectOperands;
 using hipllama::kDecThreads;
 using hipllama::kMaxM;
 using hipllama::PagedCache;
@@ -151,30 +155,31 @@ __global__ void __launch_bounds__(kDecThreads) attention_decode_kernel(
   float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmem<HS, kDecThreads>));
   const int ng = hipllama::head_groups(H / KVH);
   const int g = blockIdx.x / ng, m0 = blockIdx.x % ng * kMaxM, b = blockIdx.y;
-  decode_attention_task<T, HS, kDecThreads, decltype(cache.rows(b, g)), PAD>(
-      sm, p_s, g, b, q, k_cache, v_cache, cache.rows(b, g),
-                                            pos_arr, k_cur, v_cur, out, H, KVH, scale, q_bs,
-                                            cur_bs, bk, hs, m0);
+  const DirectOperands<T> ops{q, k_cur, v_cur, q_bs, cur_bs};
+  decode_attention_task<T, HS, kDecThreads, decltype(cache.rows(b, g)), DirectOperands<T>, PAD>(
+      sm, p_s, g, b, ops, k_cache, v_cache, cache.rows(b, g), pos_arr, out, H, KVH, scale, bk,
+      hs, m0);
 }
 
-// the int8 cache: the block's scores in dynamic shared memory after sm
+// the int8 cache: the ring, then a chunk of bc rows' scales, scores and pi
+// in dynamic shared memory
 template <typename T, int HS, typename Cache, bool PAD>
 __global__ void __launch_bounds__(kDecThreads) attention_decode_int8_kernel(
     const T* __restrict__ q, const signed char* __restrict__ k_cache,
     const signed char* __restrict__ v_cache, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const Cache cache, const int* __restrict__ pos_arr,
     const T* __restrict__ k_cur, const T* __restrict__ v_cur, T* __restrict__ out,
-    int H, int KVH, float scale, int q_bs, int cur_bs, int bk, int hs) {
+    int H, int KVH, float scale, int q_bs, int cur_bs, int bk, int bc, int hs) {
   extern __shared__ __align__(16) unsigned char dec_smem[];
   auto& sm = *reinterpret_cast<DecodeSmemInt8<HS, kDecThreads>*>(dec_smem);
-  float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmemInt8<HS, kDecThreads>));
+  float* dyn = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmemInt8<HS, kDecThreads>));
   const int ng = hipllama::head_groups(H / KVH);
   const int g = blockIdx.x / ng, m0 = blockIdx.x % ng * kMaxM, b = blockIdx.y;
-  decode_attention_task_int8<T, HS, kDecThreads, decltype(cache.rows(b, g)), PAD>(
-      sm, p_s, g, b, q, k_cache, v_cache, k_scale,
-                                                 v_scale, cache.rows(b, g), pos_arr, k_cur,
-                                                 v_cur, out, H, KVH, scale, q_bs, cur_bs, bk, hs,
-                                                 m0);
+  const DirectOperands<T> ops{q, k_cur, v_cur, q_bs, cur_bs};
+  decode_attention_task_int8<T, HS, kDecThreads, decltype(cache.rows(b, g)), DirectOperands<T>,
+                             PAD>(sm, dyn, g, b, ops, k_cache, v_cache, k_scale, v_scale,
+                                  cache.rows(b, g), pos_arr, out, H, KVH, scale, bk, bc, hs,
+                                  m0);
 }
 
 // ---------------------------------------------------------------------------
@@ -741,14 +746,20 @@ int launch_decode_int8(const void* q, const void* k, const void* v, const void* 
                        const void* vc, void* out, int B, int H, int KVH, float scale, int q_bs,
                        int cur_bs, int bk, int hs, cudaStream_t st) {
   const int M = H / KVH;
-  const size_t smem = decode_int8_smem<HS, kDecThreads>(M < kMaxM ? M : kMaxM, bk);
+  // the ring copies rows in 16-byte pieces from 16-byte aligned planes
+  if ((uintptr_t)k % 16 || (uintptr_t)v % 16 || (uintptr_t)ks % 4 || (uintptr_t)vs % 4)
+    return (int)cudaErrorMisalignedAddress;
+  const int mc = M < kMaxM ? M : kMaxM;
+  // the block whole where it fits a CTA's shared memory, else in chunks
+  const int bc = hipllama::decode_int8_chunk<HS, kDecThreads>(mc, bk);
+  const size_t smem = decode_int8_smem<HS, kDecThreads>(mc, bc);
   auto kernel = hs == HS ? attention_decode_int8_kernel<T, HS, Cache, false>
                          : attention_decode_int8_kernel<T, HS, Cache, true>;
   if (const int e = allow_smem(kernel, smem)) return e;
   kernel<<<dim3(KVH * hipllama::head_groups(M), B), kDecThreads, smem, st>>>(
       (const T*)q, (const signed char*)k, (const signed char*)v, (const float*)ks,
       (const float*)vs, cache, (const int*)pos, (const T*)kc, (const T*)vc, (T*)out, H, KVH,
-      scale, q_bs, cur_bs, bk, hs);
+      scale, q_bs, cur_bs, bk, bc, hs);
   return (int)cudaGetLastError();
 }
 

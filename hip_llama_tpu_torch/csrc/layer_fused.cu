@@ -14,27 +14,36 @@
 // fp32 partial sums) stay in a workspace that fits in L2. The tasks are
 // those of the standalone kernels with the same plans: the four products
 // are q8.cuh's tensor-core GEMV tasks (mma.sync, a cp.async ring per warp)
-// at gemv_plan's splits, each followed by its pass over the partials
-// (RoPE, the residual, the gate, the residual), and attention is
-// decode_attention.cuh's task. So the layer rounds exactly as q8_matmul
-// (norm + RoPE), attention_decode_fused, q8_matmul (residual) and
-// q8_matmul_ffn in a row, as the TPU kernel does against its 4-kernel path
-// (layer_fused.py:25-27). What it removes is the launch of 11 kernels and
-// the gap between them per layer.
+// at gemv_plan's splits, and attention is decode_attention.cuh's task (on
+// an int8 cache, kv_int8: int8 planes with fp32 row-scale planes (B, L,
+// KVH, S), its int8 task, which streams K and V tiles through a
+// shared-memory ring). The passes over the partials that follow the
+// products (the residual, the gate, the residual) run as phases of their
+// own; the QKV product's pass (its splits added, RoPE on q|k) runs inside
+// the attention tasks, each adding the columns of its own q heads and of
+// its KV head's k and v rows with the pass's own code (SplitOperands), so
+// that no phase and barrier sit between the QKV product and attention. So
+// the layer rounds exactly as q8_matmul (norm + RoPE), attention_decode_
+// fused, q8_matmul (residual) and q8_matmul_ffn in a row, as the TPU kernel
+// does against its 4-kernel path (layer_fused.py:25-27). What it removes is
+// the launch of 11 kernels and the gap between them per layer.
 //
 // Bounds on an H100: as the products it fuses, by the weight bytes (1 byte
-// per weight plus 4/gs for the scales) and the live cache rows; the 10
-// barriers cost a few microseconds each. The QKV rows of this step leave
-// the kernel in the workspace for the cache commit after the layer loop.
+// per weight plus 4/gs for the scales) and the live cache rows; each of the
+// 9 barriers costs about 1.8 us (q8_layer_barrier_probe). The k|v rows of
+// this step leave the kernel in the qkv workspace for the cache commit
+// after the layer loop (the q columns stay in the attention tasks' shared
+// memory).
 //
-// The attention phase runs decode_attention.cuh's task at the block the
-// wrapper passes, on an int8 cache (kv_int8: int8 planes with fp32
-// row-scale planes (B, L, KVH, S)) its int8 task: the ones attention_
-// decode_fused runs. The task's M x bk scores sit in the dynamic shared
-// memory after its own, which the launch sizes for the larger of the
-// phases.
+// The dynamic shared memory is sized for the larger of the phases: the
+// GEMV's rings, or the attention task's struct with its block of min(M,
+// kMaxM) x bk scores (on an int8 cache its tile ring and a chunk of the
+// block's scores, v scales and packed probabilities: the whole block where
+// it fits a CTA, decode_int8_chunk, as attention_decode_fused takes it).
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "decode_attention.cuh"
 #include "q8.cuh"
@@ -77,7 +86,7 @@ struct LayerArgs {
   unsigned int* bar;  // two zeroed words: arrivals, generation
   int B, D, H, KVH, S, HS, L, layer, hidden;
   int gs_qkv, gs_o, gs13, gs2;
-  int split_q, split_o, split13, split2, bk, kv_int8;
+  int split_q, split_o, split13, split2, bk, bc, kv_int8;  // bc: the int8 task's chunk
   float scale, rope_coef, eps;
 };
 
@@ -120,38 +129,83 @@ __device__ __noinline__ void gemv_phase(const bf16* x, const int8_t* q, const fl
     gemv_tasks<MAXM, false>(sm, x, q, s, part, B, K, N, gs, split);
 }
 
+// The attention task's operands from the QKV product's split-K partials
+// (split, B, NQKV): the column pairs of the task's q heads and of its KV
+// head's k and v columns, each added over the splits and rotated (q and k)
+// by the code of the standalone pass (q8.cuh::split_pair_sum, epilogue_pair),
+// so they round as q8_matmul writes them; the task of the KV head's first
+// group of query heads also writes the k|v rows to qkv for the cache commit.
+struct SplitOperands {
+  const float* part;
+  int split, B, nqkv, H, KVH;
+  Epilogue rope;
+  bf16* qkv;
+  bool write_kv;
+  template <int HS>
+  __device__ __forceinline__ void load(int b, int g, int head0, int MC, int hs, float (*q_s)[HS],
+                                       float* kc_s, float* vc_s) const {
+    const int pairs = hs / 2;
+    for (int i = threadIdx.x; i < (MC + 2) * pairs; i += blockDim.x) {
+      const int m = i / pairs, p = (i - m * pairs) * 2;
+      const int n = (m < MC ? (head0 + m) * hs : m == MC ? (H + g) * hs : (H + KVH + g) * hs) + p;
+      const float2 a = split_pair_sum(part, split, B, nqkv, b, n);
+      const __nv_bfloat162 r = epilogue_pair(rope, b, n, nqkv, a.x, a.y);
+      float* dst = m < MC ? &q_s[m][p] : (m == MC ? kc_s : vc_s) + p;
+      dst[0] = __low2float(r);
+      dst[1] = __high2float(r);
+      if (m >= MC && write_kv)
+        *reinterpret_cast<__nv_bfloat162*>(qkv + (size_t)b * nqkv + n) = r;
+    }
+    for (int i = threadIdx.x; i < MC * (HS - hs); i += blockDim.x)
+      q_s[i / (HS - hs)][hs + i % (HS - hs)] = 0.f;
+  }
+};
+
 // the attention phase at compiled head size HS (decode_hs_pad of the head
-// size): one (KV head, group of at most kMaxM query heads, slot) task each,
-// on the CTA's threads as attention_decode_fused runs it, so that the two
-// round alike
+// size), on the int8 cache or the bf16 one, the int8 task's register arrays
+// sized for MAXM query heads (1 where the layer has one a KV head; a
+// function each, so that each is compiled within the phase's register
+// budget alone): one (KV head, group of at most kMaxM query heads, slot)
+// task each, on the CTA's threads as attention_decode_fused runs it, so
+// that the two round alike; each task makes its operands from the QKV
+// partials
 static_assert(kDecThreads == kThreads, "the attention tasks take the whole CTA");
-template <int HS>
+template <int HS, bool INT8, int MAXM>
 __device__ __noinline__ void attention_phase(const LayerArgs& a) {
-  auto& at = *reinterpret_cast<DecodeSmem<HS, kDecThreads>*>(smem);
-  auto& at8 = *reinterpret_cast<DecodeSmemInt8<HS, kDecThreads>*>(smem);
-  float* p_s = reinterpret_cast<float*>(
-      smem + (a.kv_int8 ? sizeof(DecodeSmemInt8<HS, kDecThreads>)
-                        : sizeof(DecodeSmem<HS, kDecThreads>)));
+  using Smem = typename std::conditional<INT8, DecodeSmemInt8<HS, kDecThreads>,
+                                         DecodeSmem<HS, kDecThreads>>::type;
+  auto& sm = *reinterpret_cast<Smem*>(smem);
+  float* dyn = reinterpret_cast<float*>(smem + sizeof(Smem));
   const int hs = a.HS;
   const int nqkv = (a.H + 2 * a.KVH) * hs;
-  const bf16* kc = a.qkv + a.H * hs;
-  const bf16* vc = a.qkv + (a.H + a.KVH) * hs;
   const ContiguousCache cache{a.L, a.KVH, a.S, a.layer};
+  const Epilogue rope{nullptr, a.pos, (a.H + a.KVH) * hs, hs, a.rope_coef};
   const int ng = hipllama::head_groups(a.H / a.KVH);
   for (int t = blockIdx.x; t < a.KVH * ng * a.B; t += gridDim.x) {
     const int gm = t % (a.KVH * ng), b = t / (a.KVH * ng);
     const int g = gm / ng, m0 = gm % ng * kMaxM;
-    if (a.kv_int8)
-      decode_attention_task_int8<bf16, HS, kDecThreads>(
-          at8, p_s, g, b, a.qkv, (const signed char*)a.k_cache, (const signed char*)a.v_cache,
-          a.k_scale, a.v_scale, cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale,
-          nqkv, nqkv, a.bk, hs, m0);
+    const SplitOperands ops{a.part, a.split_q, a.B, nqkv, a.H, a.KVH, rope, a.qkv, m0 == 0};
+    using Rows = decltype(cache.rows(b, g));
+    if constexpr (INT8)
+      decode_attention_task_int8<bf16, HS, kDecThreads, Rows, SplitOperands, true, MAXM>(
+          sm, dyn, g, b, ops, (const signed char*)a.k_cache, (const signed char*)a.v_cache,
+          a.k_scale, a.v_scale, cache.rows(b, g), a.pos, a.att, a.H, a.KVH, a.scale, a.bk, a.bc,
+          hs, m0);
     else
-      decode_attention_task<bf16, HS, kDecThreads>(
-          at, p_s, g, b, a.qkv, (const bf16*)a.k_cache, (const bf16*)a.v_cache,
-          cache.rows(b, g), a.pos, kc, vc, a.att, a.H, a.KVH, a.scale, nqkv, nqkv, a.bk, hs,
-          m0);
+      decode_attention_task<bf16, HS, kDecThreads, Rows, SplitOperands>(
+          sm, dyn, g, b, ops, (const bf16*)a.k_cache, (const bf16*)a.v_cache, cache.rows(b, g),
+          a.pos, a.att, a.H, a.KVH, a.scale, a.bk, hs, m0);
   }
+}
+
+template <int HS>
+__device__ __forceinline__ void attention(const LayerArgs& a) {
+  if (!a.kv_int8)
+    attention_phase<HS, false, kMaxM>(a);
+  else if (a.H == a.KVH)
+    attention_phase<HS, true, 1>(a);
+  else
+    attention_phase<HS, true, kMaxM>(a);
 }
 
 // two CTAs per SM at up to 8 rows (the standalone GEMV's occupancy); at
@@ -161,27 +215,24 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
   float* red = reinterpret_cast<float*>(smem);
   const unsigned int nblk = gridDim.x;
   const int gtid = blockIdx.x * kThreads + threadIdx.x, gthreads = gridDim.x * kThreads;
-  const int B = a.B, D = a.D, HS = a.HS;
-  const int nqkv = (a.H + 2 * a.KVH) * HS;
+  const int B = a.B, D = a.D;
+  const int nqkv = (a.H + 2 * a.KVH) * a.HS;
 
   // xn = rmsnorm(x, g1)
   for (int r = blockIdx.x; r < B; r += gridDim.x)
     rmsnorm_row(a.x + (size_t)r * D, a.g1, a.xn + (size_t)r * D, D, a.eps, red);
   grid_barrier(a.bar, nblk);
-  // qkv = rope(xn @ Wqkv) on q|k
+  // the QKV partials of xn @ Wqkv; each attention task adds and rotates its
+  // own q, k and v columns
   gemv_phase<MAXM>(a.xn, a.qkv_q, a.qkv_s, a.part, B, D, nqkv, a.gs_qkv, a.split_q);
   grid_barrier(a.bar, nblk);
-  const Epilogue rope{nullptr, a.pos, (a.H + a.KVH) * HS, HS, a.rope_coef};
-  for (int i = gtid; i < B * (nqkv / 2); i += gthreads)
-    split_epilogue_at(a.part, a.split_q, B, nqkv, rope, a.qkv, i);
-  grid_barrier(a.bar, nblk);
-  switch (hipllama::decode_hs_pad(HS)) {
-    case 8: attention_phase<8>(a); break;
-    case 16: attention_phase<16>(a); break;
-    case 32: attention_phase<32>(a); break;
-    case 64: attention_phase<64>(a); break;
-    case 128: attention_phase<128>(a); break;
-    default: attention_phase<256>(a); break;
+  switch (hipllama::decode_hs_pad(a.HS)) {
+    case 8: attention<8>(a); break;
+    case 16: attention<16>(a); break;
+    case 32: attention<32>(a); break;
+    case 64: attention<64>(a); break;
+    case 128: attention<128>(a); break;
+    default: attention<256>(a); break;
   }
   grid_barrier(a.bar, nblk);
   // x2 = x + att @ Wo
@@ -208,12 +259,12 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
     split_epilogue_at(a.part, a.split2, B, D, resid2, a.out, i);
 }
 
-// the attention phase's task and its block of min(M, kMaxM) x bk scores, at
-// the task's compiled head size
+// the attention phase's task and its block of min(M, kMaxM) x bk scores (a
+// chunk of bc rows on an int8 cache), at the task's compiled head size
 size_t attention_smem(const LayerArgs& a) {
   const int M = a.H / a.KVH < kMaxM ? a.H / a.KVH : kMaxM;
 #define HIPLLAMA_SMEM(N)                                                              \
-  return a.kv_int8 ? hipllama::decode_int8_smem<N, kDecThreads>(M, a.bk)              \
+  return a.kv_int8 ? hipllama::decode_int8_smem<N, kDecThreads>(M, a.bc)              \
                    : hipllama::decode_smem<N, kDecThreads>(M, a.bk)
   switch (hipllama::decode_hs_pad(a.HS)) {
     case 8: HIPLLAMA_SMEM(8);
@@ -226,21 +277,34 @@ size_t attention_smem(const LayerArgs& a) {
 #undef HIPLLAMA_SMEM
 }
 
+// the dynamic shared memory of the kernel at up to MAXM rows: the larger of
+// its phases' (the GEMV's rings, the attention task's)
+template <int MAXM>
+size_t layer_smem(const LayerArgs& a) {
+  const size_t att = attention_smem(a), gemv = sizeof(GemvSmem<MAXM>);
+  return att > gemv ? att : gemv;
+}
+
+// the kernel's CTAs an SM at smem bytes of dynamic shared memory (its
+// launch bounds ask for two up to 8 rows), in per_sm; the kernel may take
+// up to a CTA's whole shared memory
+template <int MAXM>
+cudaError_t layer_ctas_per_sm(size_t smem, int& per_sm) {
+  auto kernel = q8_layer_kernel<MAXM>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)hipllama::kSmemPerCta);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+}
+
 template <int MAXM>
 int launch_layer(const LayerArgs& a, cudaStream_t st) {
-  constexpr size_t smem_gemv = sizeof(GemvSmem<MAXM>);
-  // the attention phase's task and its block of scores
-  const size_t smem_att = attention_smem(a);
-  const size_t smem = smem_att > smem_gemv ? smem_att : smem_gemv;
-  auto kernel = q8_layer_kernel<MAXM>;
+  const size_t smem = layer_smem<MAXM>(a);
   static int grid = 0;  // CTAs that fit on the card at once at smem_grid bytes
   static size_t smem_grid = 0;
   if (grid == 0 || smem != smem_grid) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
     int per_sm = 0, dev = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    cudaError_t e = layer_ctas_per_sm<MAXM>(smem, per_sm);
     if (e != cudaSuccess) return (int)e;
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
@@ -250,13 +314,49 @@ int launch_layer(const LayerArgs& a, cudaStream_t st) {
     smem_grid = smem;
   }
   void* args[] = {const_cast<LayerArgs*>(&a)};
-  return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(kThreads), args,
-                                          smem, st);
+  return (int)cudaLaunchCooperativeKernel((const void*)q8_layer_kernel<MAXM>, dim3(grid),
+                                          dim3(kThreads), args, smem, st);
+}
+
+// the int8 attention task's chunk of a block of bk rows at head size hs and
+// M query heads per KV head (decode_int8_chunk, as attention_decode_fused
+// takes it)
+int int8_chunk(int hs, int M, int bk) {
+  const int mc = M < kMaxM ? M : kMaxM;
+  switch (hipllama::decode_hs_pad(hs)) {
+    case 8: return hipllama::decode_int8_chunk<8, kDecThreads>(mc, bk);
+    case 16: return hipllama::decode_int8_chunk<16, kDecThreads>(mc, bk);
+    case 32: return hipllama::decode_int8_chunk<32, kDecThreads>(mc, bk);
+    case 64: return hipllama::decode_int8_chunk<64, kDecThreads>(mc, bk);
+    case 128: return hipllama::decode_int8_chunk<128, kDecThreads>(mc, bk);
+    default: return hipllama::decode_int8_chunk<256, kDecThreads>(mc, bk);
+  }
+}
+
+// a cooperative grid that passes n of the layer's grid barriers and does
+// nothing else: timed at two n, what one barrier costs the layer
+__global__ void __launch_bounds__(kThreads, 2) barrier_probe_kernel(unsigned int* bar, int n) {
+  for (int i = 0; i < n; ++i) grid_barrier(bar, gridDim.x);
 }
 
 }  // namespace
 
 HIPLLAMA_EXPORT_ERROR_STRING
+
+// barrier_probe_kernel on ctas CTAs (at most two an SM: K23's grid up to 8
+// rows); bar_ws two zeroed uint32
+extern "C" int q8_layer_barrier_probe(void* bar_ws, int n, int ctas, void* stream) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (n < 0 || ctas < 1 || ctas > 2 * sms) return (int)cudaErrorInvalidValue;
+  unsigned int* bar = static_cast<unsigned int*>(bar_ws);
+  void* args[] = {&bar, &n};
+  return (int)cudaLaunchCooperativeKernel((const void*)barrier_probe_kernel, dim3(ctas),
+                                          dim3(kThreads), args, 0,
+                                          static_cast<cudaStream_t>(stream));
+}
 
 // bf16 activations, int8 weights with fp32 scales, fp32 norm weights, int32
 // positions. The cache: bf16 (kv_int8 0; k_scale and v_scale null) or int8
@@ -287,6 +387,10 @@ extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_
       D % gs_qkv || D % gs_o || D % gs13 || hidden % gs2 || bad_split(split_q, D) ||
       bad_split(split_o, D) || bad_split(split13, D) || bad_split(split2, hidden) || nqkv % 16)
     return (int)cudaErrorInvalidValue;
+  // the int8 task copies rows in 16-byte pieces from 16-byte aligned planes
+  if (kv_int8 && ((uintptr_t)k_cache % 16 || (uintptr_t)v_cache % 16 ||
+                  (uintptr_t)k_scale % 4 || (uintptr_t)v_scale % 4))
+    return (int)cudaErrorMisalignedAddress;
   const LayerArgs a{
       (const bf16*)x, (const int8_t*)qkv_q, (const float*)qkv_s, (const float*)g1,
       (const int*)pos, k_cache, v_cache, (const float*)k_scale, (const float*)v_scale,
@@ -294,8 +398,29 @@ extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_
       (const int8_t*)w2_q, (const float*)w2_s, (const float*)g2, (bf16*)out, (bf16*)xn_ws,
       (bf16*)qkv_ws, (bf16*)att_ws, (bf16*)x2_ws, (bf16*)hb_ws, (float*)part_ws,
       (unsigned int*)bar_ws, B, D, H, KVH, S, HS, L, layer, hidden, gs_qkv, gs_o, gs13, gs2,
-      split_q, split_o, split13, split2, bk, kv_int8,
+      split_q, split_o, split13, split2, bk, kv_int8 ? int8_chunk(HS, H / KVH, bk) : bk, kv_int8,
       (float)(1.0 / sqrt((double)HS)), rope_coef, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return B <= 8 ? launch_layer<8>(a, st) : launch_layer<16>(a, st);
+}
+
+// The CTAs an SM that q8_layer_fused's grid is sized from at B rows, H
+// query and KVH KV heads of head size HS and a block of bk rows on an int8
+// (kv_int8 1) or bf16 cache: the card's occupancy at the kernel's shared
+// memory (layer_smem); a negative CUDA error code where it fails
+extern "C" int q8_layer_ctas_per_sm(int B, int H, int KVH, int HS, int bk, int kv_int8) {
+  if (B < 1 || B > 16 || KVH < 1 || H % KVH || bk < 1 || hipllama::decode_hs_pad(HS) == 0)
+    return -(int)cudaErrorInvalidValue;
+  LayerArgs a{};
+  a.B = B;
+  a.H = H;
+  a.KVH = KVH;
+  a.HS = HS;
+  a.bk = bk;
+  a.bc = kv_int8 ? int8_chunk(HS, H / KVH, bk) : bk;
+  a.kv_int8 = kv_int8;
+  int per_sm = 0;
+  const cudaError_t e = B <= 8 ? layer_ctas_per_sm<8>(layer_smem<8>(a), per_sm)
+                               : layer_ctas_per_sm<16>(layer_smem<16>(a), per_sm);
+  return e == cudaSuccess ? per_sm : -(int)e;
 }

@@ -53,8 +53,10 @@ __device__ __forceinline__ float2 rope_cs_at(const int* pos, int m, int p, float
   return make_float2(cosf(ang), sinf(ang));
 }
 
-__device__ __forceinline__ void store_pair(const Epilogue& e, int m, int n, int N, float a0,
-                                           float a1, bf16* out) {
+// the pair (a0, a1) at columns n, n + 1 of row m through the epilogue, as
+// the two bf16 values it writes
+__device__ __forceinline__ __nv_bfloat162 epilogue_pair(const Epilogue& e, int m, int n, int N,
+                                                        float a0, float a1) {
   const size_t at = (size_t)m * N + n;
   if (e.res != nullptr) {
     const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(e.res + at);
@@ -72,7 +74,12 @@ __device__ __forceinline__ void store_pair(const Epilogue& e, int m, int n, int 
     a0 = r0;
     a1 = r1;
   }
-  *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(a0, a1);
+  return __floats2bfloat162_rn(a0, a1);
+}
+
+__device__ __forceinline__ void store_pair(const Epilogue& e, int m, int n, int N, float a0,
+                                           float a1, bf16* out) {
+  *reinterpret_cast<__nv_bfloat162*>(out + (size_t)m * N + n) = epilogue_pair(e, m, n, N, a0, a1);
 }
 
 __device__ __forceinline__ float silu_gate(float h1, float h3) {
@@ -427,15 +434,11 @@ __device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM>& sm, const bf16* __res
   mma::cp_async_wait<0>();
 }
 
-// output column pair idx < M * N / 2 of the split-K partials (planes x
-// split, M, N) through the epilogue: each plane's splits added in order,
-// then the planes (two for an int4 weight's nibble planes in the `a8` mode,
-// a8.cuh; one elsewhere)
-__device__ __forceinline__ void split_epilogue_at(const float* part, int split, int M, int N,
-                                                  const Epilogue& e, bf16* out, int idx,
-                                                  int planes = 1) {
-  const int pairs = N / 2;
-  const int m = idx / pairs, n = (idx % pairs) * 2;
+// the split-K partials of columns n, n + 1 of row m (planes x split, M, N):
+// each plane's splits added in order, then the planes (two for an int4
+// weight's nibble planes in the `a8` mode, a8.cuh; one elsewhere)
+__device__ __forceinline__ float2 split_pair_sum(const float* part, int split, int M, int N,
+                                                 int m, int n, int planes = 1) {
   float a0 = 0.f, a1 = 0.f;
   for (int p = 0; p < planes; ++p) {
     float t0 = 0.f, t1 = 0.f;
@@ -448,7 +451,18 @@ __device__ __forceinline__ void split_epilogue_at(const float* part, int split, 
     a0 += t0;
     a1 += t1;
   }
-  store_pair(e, m, n, N, a0, a1, out);
+  return make_float2(a0, a1);
+}
+
+// output column pair idx < M * N / 2 of the split-K partials through the
+// epilogue (split_pair_sum, then store_pair)
+__device__ __forceinline__ void split_epilogue_at(const float* part, int split, int M, int N,
+                                                  const Epilogue& e, bf16* out, int idx,
+                                                  int planes = 1) {
+  const int pairs = N / 2;
+  const int m = idx / pairs, n = (idx % pairs) * 2;
+  const float2 a = split_pair_sum(part, split, M, N, m, n, planes);
+  store_pair(e, m, n, N, a.x, a.y, out);
 }
 
 // gate element idx < M * H from the split-K partials of the W1|W3 product

@@ -28,8 +28,8 @@ With a bf16 cache the rounded probabilities depend on where the running
 max is taken, so the plain versions walk a bf16 cache in the JAX kernels'
 KV blocks (`decode_block`, `ref_block`; an fp32 cache takes the one-pass
 softmax, the same math), and so do the CUDA kernels: each takes a whole
-block's max before it rounds any. The decode kernels hold the block's
-scores in shared memory (`check_decode_block` bounds the block).
+block's max before it rounds any. The fp32/bf16 decode kernels hold the
+block's scores in shared memory (`check_decode_block` bounds the block).
 
 Prefill takes one of three routes by the cache's dtype, a dispatch by
 type as the JAX kernels' `quantized` branch: a bf16 cache (C entry
@@ -49,9 +49,15 @@ KVH, S). Decode follows the JAX kernels' int8 dots (attention.py:88-93,
 :300-383, the default HIPLLAMA_ATTN_I8MXU=1): q, widened to fp32, is
 quantized by row (max|q| * (1/127)); scores are int32(qi . k) * (sq *
 scale) * ks; per block, (p * vs) is quantized by row over the block's rows
-and dotted as int32 with the int8 V rows. The block decides which
-probabilities share a scale, so the kernels take the JAX block whole
-(`decode_block(s, quantized=True)`). The current row stays unquantized.
+and dotted as int32 with the int8 V rows, one int32 per (head, dim) a
+block and then one fp32 update. The block decides which probabilities
+share a scale, so the kernels take the JAX block whole
+(`decode_block(s, quantized=True)`). The current row stays unquantized. On
+the card the int8 decode task streams the block's K and V tiles through a
+shared-memory ring (cp.async, several tiles in flight) and dots them with
+dp4a. It holds the block's scores, v scales and packed probabilities in
+shared memory, and walks a block past a CTA's shared memory in chunks (its
+K tiles three times), so no block is refused.
 Prefill (attention.py:891-940) has no int8 dots: q is rounded to bf16, K
 and V widened exactly, scores * scale * ks, and (p * vs) rounded to bf16
 before PV.
@@ -89,8 +95,8 @@ KV_GROUP = 8  # query heads of one decode task (csrc/decode_attention.cuh kMaxM)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 DECODE_BLOCK = 1024  # the JAX decode kernels' KV block target
 PREFILL_BLOCK = 512  # the JAX prefill kernels' KV block target
-# shared memory the decode task may give a block's M x bk fp32 scores (the
-# H100's 227 KB per CTA less the task's own)
+# shared memory the fp32/bf16 decode task may give a block's M x bk fp32
+# scores (the H100's 227 KB per CTA less the task's own)
 DECODE_SCORES_BYTES = 200 * 1024
 # shared memory a CTA may take on an H100 (csrc/attention.cu's prefill kernels)
 SMEM_PER_CTA = 232448
@@ -145,9 +151,12 @@ def decode_block(s: int, quantized: bool = False) -> int:
     return bk
 
 
-def check_decode_block(m: int, bk: int) -> None:
-    """A decode task holds a block's scores for its query heads (m per KV
-    head, at most KV_GROUP a task) in shared memory."""
+def check_decode_block(m: int, bk: int, quantized: bool = False) -> None:
+    """A fp32/bf16 decode task holds a block's scores for its query heads
+    (m per KV head, at most KV_GROUP a task) in shared memory; the int8
+    task takes any block (in chunks past a CTA's shared memory)."""
+    if quantized:
+        return
     m = min(m, KV_GROUP)
     if 4 * m * bk > DECODE_SCORES_BYTES:
         raise ValueError(f"decode attention holds {m} x {bk} fp32 scores per block, "
@@ -352,7 +361,7 @@ def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty((bsz, h, hs), dtype=dt, device=dev)
     bk = decode_block(s, quantized)
-    check_decode_block(h // kvh, bk)
+    check_decode_block(h // kvh, bk, quantized)
     if quantized:
         fn = _build.bind("attention", "attention_decode_int8", "ppppppppp" + "i" * 11 + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -418,7 +427,7 @@ def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int,
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty((bsz, h, hs), dtype=dt, device=dev)
     bk = decode_block(s, quantized)
-    check_decode_block(h // kvh, bk)
+    check_decode_block(h // kvh, bk, quantized)
     if quantized:
         fn = _build.bind("attention", "attention_decode_fused_int8", "ppppppp" + "iiiiiiiii" + "p")
         rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -601,7 +610,7 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, layer: int, pos, k_c
     check_table(page_table, bsz, dev)
     out = torch.empty_like(q)
     dims = (bsz, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt], ps)
-    check_decode_block(h // kvh, ps)
+    check_decode_block(h // kvh, ps, quantized)
     if quantized:
         fn = _build.bind("attention", "attention_decode_paged_int8", "p" * 10 + "i" * 10 + "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),

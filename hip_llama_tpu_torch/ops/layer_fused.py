@@ -100,7 +100,7 @@ def q8_layer_fused(x, wqkv, wo, w13, w2, g1, g2, k_cache, v_cache, layer: int, p
     part = torch.empty(max(sp * b * n for n, sp in plans), dtype=torch.float32, device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     bk = layer_block(s, h, kvh, hs, quantized)
-    _attn.check_decode_block(h // kvh, bk)
+    _attn.check_decode_block(h // kvh, bk, quantized)
     fn = _build.bind("layer_fused", "q8_layer_fused", "p" * 24 + "i" * 19 + "ff" + "p")
     rc = fn(x.data_ptr(), wqkv.q.data_ptr(), wqkv.s.data_ptr(), g1.data_ptr(), pos.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),
@@ -118,3 +118,21 @@ def q8_layer_fused(x, wqkv, wo, w13, w2, g1, g2, k_cache, v_cache, layer: int, p
 
 q8_layer_fused.launches = 0
 q8_layer_fused.launches_int8 = 0
+
+
+def grid_barrier_probe(n: int, ctas: int, dev) -> None:
+    """Launch a cooperative grid of `ctas` CTAs (at most two an SM: K23's
+    grid up to 8 rows) that passes n of K23's grid barriers and does nothing
+    else (csrc/layer_fused.cu::barrier_probe_kernel); timed at two n, it
+    gives what one barrier costs the layer. Counts in
+    `grid_barrier_probe.launches`; card only."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        raise ValueError(f"grid_barrier_probe runs on the card, not {dev}")
+    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    fn = _build.bind("layer_fused", "q8_layer_barrier_probe", "piip")
+    _build.check(fn(bar.data_ptr(), n, ctas, _stream()), "layer_fused", "grid_barrier_probe")
+    grid_barrier_probe.launches += 1
+
+
+grid_barrier_probe.launches = 0

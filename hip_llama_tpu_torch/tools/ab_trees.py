@@ -5,6 +5,8 @@ checkouts in turns (parent, change, change, parent) within one machine.
     cd <checkout> && python <path of this file> serve <checkout>
     cd <checkout> && python <path of this file> prefill <checkout>
     cd <checkout> && python <path of this file> decode <checkout>
+    cd <checkout> && python <path of this file> parts <checkout>
+    cd <checkout> && python <path of this file> int8 <checkout>
 
 Each runs the checkout's own package and its chip_smoke.py helpers (the
 checkout goes first on sys.path; run this file by its path, not with -m,
@@ -12,7 +14,9 @@ so that the package is imported from the checkout), once per checkout.
 
 - attention: the attention kernels at Llama-2-7B heads (B 8, 8 layers of
   KVH 32, HS 128, S 512; decode at positions 0..511; prefill T 256 from row
-  256, and T 128 over pages of 128): K1, K1 int8, K5, K4, K4 int8, K6, K7;
+  256, and T 128 over pages of 128): K1, K1 int8, K5 int8, K6 int8 (pages
+  of 128), K5, K4, K4 int8, K6, K7 (the decode kernels as CUDA-graph
+  replays);
   each the least of three CUDA-event means (chip_smoke.cuda_ms).
 - serve: a 7B-width Q8_0 model on the int8 KV cache (random weights from
   chip_smoke's seed): a decode step of 8 slots profiled (device time by
@@ -36,6 +40,14 @@ so that the package is imported from the checkout), once per checkout.
   norm, q8_matmul_silu with the norm and q8_matmul_ffn, each the least of
   three CUDA-graph replays (chip_smoke.cuda_ms); then `layer_parts` at
   B 8 on an int8 cache.
+- parts: `layer_parts` alone, then what one of K23's grid barriers costs
+  (layer_fused.grid_barrier_probe, where the checkout has it).
+- int8: the int8 decode kernels alone, as CUDA-graph replays, each the
+  least of three CUDA-event means: K1, K5 and K6 int8 at the attention
+  mode's shapes (one query head per KV head, blocks of 128), K5 int8 at 8
+  query heads per KV head (B 8, KVH 4, S 1024: blocks of 1024) and over a
+  block past a CTA's shared memory (S 6392: the JAX block is the whole
+  cache); then `layer_parts`.
 """
 
 from __future__ import annotations
@@ -69,10 +81,14 @@ def attention(cs) -> None:
     table = (torch.randperm(b * 4, generator=torch.Generator().manual_seed(1)).view(b, 4)
              .to(dev, torch.int32) + 1)
     kp, vp = rnd(n_layers, kvh, b * 4 + 1, 128, hs), rnd(n_layers, kvh, b * 4 + 1, 128, hs)
+    (kp8, kps), (vp8, vps) = (C.quantize_kv_rows(x.float()) for x in (kp, vp))
     q7 = qp[:, :128].contiguous()
     cases = {
         "K1": lambda i: A.attention_decode(q, k, v, i % n_layers, pos, kc, vc),
         "K1 int8": lambda i: A.attention_decode(q, k8, v8, i % n_layers, pos, kc, vc, ks, vs),
+        "K5 int8": lambda i: A.attention_decode_fused(qkv, k8, v8, i % n_layers, pos, h, ks, vs),
+        "K6 int8": lambda i: A.attention_decode_paged(q, kp8, vp8, table, i % n_layers, pos, kc,
+                                                      vc, kps, vps),
         "K5": lambda i: A.attention_decode_fused(qkv, k, v, i % n_layers, pos, h),
         "K4": lambda i: A.attention_prefill(qp, k, v, i % n_layers, start, valid),
         "K4 int8": lambda i: A.attention_prefill(qp, k8, v8, i % n_layers, start, valid, ks, vs),
@@ -83,8 +99,56 @@ def attention(cs) -> None:
     for name, fn in cases.items():
         fn(0)
         torch.cuda.synchronize()
-        ms = [cs.cuda_ms(fn) for _ in range(3)]
+        graph = not name.startswith(("K4", "K7"))  # decode: below its wrapper's host cost
+        ms = [cs.cuda_ms(fn, graph=graph) for _ in range(3)]
         print(f"{name}: ms {min(ms):.4f} ({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+
+
+def int8(cs) -> None:
+    import torch
+
+    from hip_llama_tpu_torch.ops import attention as A
+    from hip_llama_tpu_torch.ops import cache as C
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*s, dtype=torch.bfloat16):
+        return torch.randn(s, generator=g, device=dev, dtype=dtype)
+
+    def int8_cache(*shape):
+        return [x for _ in range(2) for x in C.quantize_kv_rows(rnd(*shape, dtype=torch.float32))]
+
+    b, n_layers, h, hs = 8, 8, 32, 128
+    k, ks, v, vs = int8_cache(b, n_layers, h, 512, hs)
+    pos = torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32, device=dev)
+    qkv = rnd(b, 3 * h, hs)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:2 * h], qkv[:, 2 * h:]))
+    table = (torch.randperm(b * 4, generator=torch.Generator().manual_seed(1)).view(b, 4)
+             .to(dev, torch.int32) + 1)
+    kp, kps, vp, vps = int8_cache(n_layers, h, b * 4 + 1, 128, hs)
+    kvh8 = 4  # 8 query heads per KV head
+    k8, ks8, v8, vs8 = int8_cache(b, n_layers, kvh8, 1024, hs)
+    pos8 = torch.tensor([0, 1, 200, 511, 512, 700, 900, 1023], dtype=torch.int32, device=dev)
+    qkv8 = rnd(b, h + 2 * kvh8, hs)
+    kl, ksl, vl, vsl = int8_cache(b, 1, kvh8, 6392, hs)
+    posl = pos8 * 6 + 200
+    cases = {
+        "K1 int8": lambda i: A.attention_decode(q, k, v, i % n_layers, pos, kc, vc, ks, vs),
+        "K5 int8": lambda i: A.attention_decode_fused(qkv, k, v, i % n_layers, pos, h, ks, vs),
+        "K6 int8": lambda i: A.attention_decode_paged(q, kp, vp, table, i % n_layers, pos, kc, vc,
+                                                      kps, vps),
+        "K5 int8 M8 S1024": lambda i: A.attention_decode_fused(qkv8, k8, v8, i % n_layers, pos8, h,
+                                                               ks8, vs8),
+        "K5 int8 M8 S6392": lambda i: A.attention_decode_fused(qkv8, kl, vl, 0, posl, h, ksl,
+                                                               vsl),
+    }
+    for name, fn in cases.items():
+        fn(0)
+        torch.cuda.synchronize()
+        ms = [cs.cuda_ms(fn, graph=True) for _ in range(3)]
+        print(f"{name}: ms {min(ms):.4f} ({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+    layer_parts(cs.cuda_ms)
 
 
 def layer_parts(cuda_ms, b: int = 8, s: int = 512, rot: int = 8) -> None:
@@ -182,6 +246,29 @@ def decode(cs) -> None:
     del wq, wo, w2, w13, wc
     torch.cuda.empty_cache()
     layer_parts(cs.cuda_ms)
+
+
+def parts(cs) -> None:
+    """`layer_parts` at B 8 on an int8 cache, then, where the checkout has
+    the probe (layer_fused.grid_barrier_probe), one of K23's grid barriers
+    on its grid of 264 CTAs: CUDA-event means of 64 and of 0 barriers a
+    launch, each the least of three, their difference over 64."""
+    import torch
+
+    from hip_llama_tpu_torch.ops import layer_fused as LF
+
+    layer_parts(cs.cuda_ms)
+    if hasattr(LF, "grid_barrier_probe"):
+        dev = torch.device("cuda")
+        ms = {}
+        for n in (0, 64):
+            fn = lambda i, n=n: LF.grid_barrier_probe(n, 264, dev)  # noqa: E731
+            fn(0)
+            torch.cuda.synchronize()
+            ms[n] = min(cs.cuda_ms(fn) for _ in range(3))
+        print(f"barrier [264 CTAs]: {(ms[64] - ms[0]) / 64 * 1e3:.3f} us a barrier "
+              f"(launch of 0 barriers {ms[0] * 1e3:.3f} us, of 64 {ms[64] * 1e3:.3f} us)",
+              flush=True)
 
 
 def bench_lines(cs) -> None:
@@ -304,7 +391,8 @@ def prefill(cs) -> None:
 
 
 def main(argv: list[str]) -> int:
-    modes = {"attention": attention, "serve": serve, "prefill": prefill, "decode": decode}
+    modes = {"attention": attention, "serve": serve, "prefill": prefill, "decode": decode,
+             "parts": parts, "int8": int8}
     if len(argv) != 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

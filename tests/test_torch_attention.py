@@ -448,6 +448,82 @@ def test_cuda_wrappers_take_every_head_size_and_gqa(launches, hs, m, cache):
         assert hs in ints and h in ints and kvh in ints, (fn, args)
 
 
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("s", [4000, 4099, 6392, 20008, 51208])
+def test_int8_decode_wrappers_take_any_block(launches, s, m):
+    """On an int8 cache of s rows that no multiple of 128 divides, the JAX
+    block is s itself (`decode_block`); K1, K5, K6 (pages of s rows) and
+    K23 launch at it with one or 8 query heads per KV head. The int8 task
+    walks a block past a CTA's shared memory in chunks (at 8 heads a block
+    past about 4000 rows, at one past about 19700), so no wrapper refuses
+    one."""
+    from hip_llama_tpu_torch.ops import layer_fused as LF
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    b, kvh, hs = 1, 1, 128
+    h = m * kvh
+    dt = torch.bfloat16
+    assert A.decode_block(s, True) == s
+    assert LF.layer_block(s, h, kvh, hs, True) == s
+    k, v, sc = _cache_planes((b, 1, kvh, s, hs), "int8")
+    kp, vp, scp = _cache_planes((1, kvh, 2, s, hs), "int8")
+    pos = _on_card(torch.zeros(b, dtype=torch.int32))
+    cur = [_on_card(torch.zeros(b, kvh, hs, dtype=dt)) for _ in range(2)]
+    q = _on_card(torch.zeros(b, h, hs, dtype=dt))
+    d, hid = h * hs, 16
+
+    def qt(kk, n):
+        return Q.QTensor(_on_card(torch.zeros(kk, n, dtype=torch.int8)),
+                         _on_card(torch.ones(kk // 16, n)))
+
+    g = _on_card(torch.ones(d))
+    A.attention_decode(q, k, v, 0, pos, *cur, *sc)
+    A.attention_decode_fused(_on_card(torch.zeros(b, h + 2 * kvh, hs, dtype=dt)), k, v, 0, pos,
+                             h, *sc)
+    A.attention_decode_paged(q, kp, vp, _on_card(torch.ones(b, 1, dtype=torch.int32)), 0, pos,
+                             *cur, *scp)
+    LF.q8_layer_fused(_on_card(torch.zeros(b, d, dtype=dt)), qt(d, (h + 2 * kvh) * hs),
+                      qt(d, d), qt(d, 2 * hid), qt(hid, d), g, g, k, v, 0, pos, *sc, n_heads=h)
+    assert [(fn, args[-5 if fn == "q8_layer_fused" else -2]) for fn, args in launches] == [
+        ("attention_decode_int8", s), ("attention_decode_fused_int8", s),
+        ("attention_decode_paged_int8", s), ("q8_layer_fused", s)]
+
+
+def test_int8_decode_wrappers_refuse_misaligned_planes(launches):
+    """The int8 task copies K and V rows in 16-byte pieces: K1, K5 and K23
+    refuse int8 planes that are not 16-byte aligned before launching (as
+    their C launchers do)."""
+    from hip_llama_tpu_torch.ops import layer_fused as LF
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    b, kvh, s, hs, h = 1, 1, 128, 128, 1
+    dt = torch.bfloat16
+    k, v, sc = _cache_planes((b, 1, kvh, s, hs), "int8")
+    k = _on_card(torch.zeros(k.numel() + 1, dtype=torch.int8)[1:].view(k.shape))
+    pos = _on_card(torch.zeros(b, dtype=torch.int32))
+    cur = [_on_card(torch.zeros(b, kvh, hs, dtype=dt)) for _ in range(2)]
+    q = _on_card(torch.zeros(b, h, hs, dtype=dt))
+    d, hid = h * hs, 16
+
+    def qt(kk, n):
+        return Q.QTensor(_on_card(torch.zeros(kk, n, dtype=torch.int8)),
+                         _on_card(torch.ones(kk // 16, n)))
+
+    g = _on_card(torch.ones(d))
+    calls = [
+        lambda: A.attention_decode(q, k, v, 0, pos, *cur, *sc),
+        lambda: A.attention_decode_fused(_on_card(torch.zeros(b, h + 2 * kvh, hs, dtype=dt)), k,
+                                         v, 0, pos, h, *sc),
+        lambda: LF.q8_layer_fused(_on_card(torch.zeros(b, d, dtype=dt)),
+                                  qt(d, (h + 2 * kvh) * hs), qt(d, d), qt(d, 2 * hid), qt(hid, d),
+                                  g, g, k, v, 0, pos, *sc, n_heads=h),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
+    assert launches == []
+
+
 @pytest.mark.parametrize("gs", [16, 48])
 @pytest.mark.parametrize("m", [8, 40])
 def test_a8_wrappers_take_group_sizes_that_are_multiples_of_8(launches, gs, m):

@@ -1597,6 +1597,14 @@ def test_q8_layer_fused_at_every_head_size_and_gqa(hs, m, cache):
     torch.cuda.synchronize()
     _close(rows, want_rows, torch.bfloat16)
     _close(got, want, torch.bfloat16)
+    # bit-equal to the four kernels in a row (the layer's block is K5's here)
+    qkv = Q.q8_matmul(x, w["wqkv"], norm_weight=g1, rope_pos=pos, rope_limit=(h + kvh) * hs,
+                      rope_head=hs).view(b, h + 2 * kvh, hs)
+    att = A.attention_decode_fused(qkv, k, v, 1, pos, h, *sc)
+    x2 = Q.q8_matmul(att.reshape(b, d), w["wo"], residual=x)
+    four = Q.q8_matmul_ffn(x2, w["w13"], w["w2"], x2, g2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, four) and torch.equal(rows, qkv[:, h:])
 
 
 # (K, N, gs): the int4 group size at dim 288 (16), 48, and a group of 16
@@ -1696,3 +1704,189 @@ def test_q8_matmul_ffn_tensor_cores(m, shape):
     torch.cuda.synchronize()
     assert (Q.q8_matmul_ffn.launches, Q.q8_matmul_ffn.launches_tc) == (n0, t0 + 1)
     _close(got, want, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the int8 decode task (csrc/decode_attention.cuh::decode_attention_task_int8:
+# K and V tiles through a shared-memory ring, int32 PV a block) at the edges
+# of the JAX blocks: pos 0, bk - 1, bk, bk + 1 and S - 1
+
+# (S or pages of PS, query heads per KV head, KV heads, head size): blocks
+# of 128 (S 512, pages of 128), 512 (pages) and 1024 (S 2048); 1, 4, 8, 12
+# query heads a KV head; head sizes 48, 128, 256
+INT8_EDGE_CASES = [(512, 1, 4, 128), (512, 12, 2, 48), (2048, 4, 2, 256), (2048, 8, 2, 128),
+                   (2048, 1, 3, 48)]
+INT8_PAGE_CASES = [(128, 4, 8, 2, 256), (512, 2, 4, 2, 128), (128, 3, 12, 1, 48),
+                   (512, 2, 1, 3, 128)]
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,m,kvh,hs", INT8_EDGE_CASES)
+def test_attention_decode_int8_kernels_at_the_block_edges(s, m, kvh, hs, act):
+    """K1 and K5 on an int8 cache against their plain versions at the JAX
+    block's edges, K5 equal to K1 bit for bit."""
+    dev = _card()
+    bk = A.decode_block(s, True)
+    pos_l = [0, bk - 1, bk, bk + 1, s - 1]
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(s + m + hs)
+    cache = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+    sc = (cache.k_scale, cache.v_scale)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), act, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    n0 = A.attention_decode.launches_int8
+    got = A.attention_decode(q, cache.k, cache.v, 1, pos, kc, vc, *sc)
+    want = A.attention_decode_plain(q, cache.k, cache.v, 1, pos, kc, vc, *sc)
+    fused = A.attention_decode_fused(qkv, cache.k, cache.v, 1, pos, h, *sc)
+    torch.cuda.synchronize()
+    assert A.attention_decode.launches_int8 == n0 + 1
+    tol = INT8_TOL[act]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(fused, got)
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,max_pages,m,kvh,hs", INT8_PAGE_CASES)
+def test_attention_decode_paged_int8_kernel_at_the_page_edges(ps, max_pages, m, kvh, hs, act):
+    """K6 on int8 pages against its plain version at the page's edges (the
+    JAX paged kernel's block), pages in shuffled order."""
+    dev = _card()
+    s = ps * max_pages
+    pos_l = [0, ps - 1, ps, ps + 1, s - 1]
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(ps + m + hs)
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, torch.int8, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    q = _rand(rng, (b, h, hs), act, dev)
+    kc, vc = _rand(rng, (b, kvh, hs), act, dev), _rand(rng, (b, kvh, hs), act, dev)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    sc = (pool.k_scale, pool.v_scale)
+    n0 = A.attention_decode_paged.launches_int8
+    got = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc)
+    want = A.attention_decode_paged_plain(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc)
+    torch.cuda.synchronize()
+    assert A.attention_decode_paged.launches_int8 == n0 + 1
+    tol = INT8_TOL[act]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# blocks past a CTA's shared memory, which the int8 task walks in chunks
+# (decode_int8_chunk at head size 128: 3840 rows at 8 query heads a KV
+# head, 19712 at one): (S, query heads per KV head, KV heads, positions)
+INT8_LONG_CASES = [(6392, 8, 1, [0, 3839, 3840, 3841, 6391]),
+                   (20008, 1, 2, [0, 19711, 19712, 19713, 20007])]
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,m,kvh,pos_l", INT8_LONG_CASES)
+def test_attention_decode_int8_kernels_past_shared_memory(s, m, kvh, pos_l, act):
+    """K1 and K5 on an int8 cache whose JAX block is the whole cache (no
+    multiple of 128 divides S), past a CTA's shared memory: against their
+    plain versions at the chunk's edges, K5 equal to K1 bit for bit."""
+    dev = _card()
+    hs = 128
+    assert A.decode_block(s, True) == s
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(s + m)
+    cache = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+    sc = (cache.k_scale, cache.v_scale)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), act, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    got = A.attention_decode(q, cache.k, cache.v, 1, pos, kc, vc, *sc)
+    want = A.attention_decode_plain(q, cache.k, cache.v, 1, pos, kc, vc, *sc)
+    fused = A.attention_decode_fused(qkv, cache.k, cache.v, 1, pos, h, *sc)
+    torch.cuda.synchronize()
+    tol = INT8_TOL[act]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(fused, got)
+
+
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+def test_attention_decode_paged_int8_kernel_past_shared_memory(act):
+    """K6 on int8 pages of 6400 rows (the JAX block) at 8 query heads per KV
+    head, past a CTA's shared memory, against its plain version."""
+    dev = _card()
+    ps, max_pages, m, kvh, hs = 6400, 2, 8, 1, 128
+    pos_l = [0, 3840, ps - 1, ps, ps * max_pages - 1]
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(ps)
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, torch.int8, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    q = _rand(rng, (b, h, hs), act, dev)
+    kc, vc = _rand(rng, (b, kvh, hs), act, dev), _rand(rng, (b, kvh, hs), act, dev)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    sc = (pool.k_scale, pool.v_scale)
+    got = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc)
+    want = A.attention_decode_paged_plain(q, pool.k, pool.v, table, 1, pos, kc, vc, *sc)
+    torch.cuda.synchronize()
+    tol = INT8_TOL[act]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_q8_layer_fused_int8_past_shared_memory():
+    """K23 on an int8 cache whose block (6392 rows, 8 query heads per KV
+    head) is past a CTA's shared memory: against its plain version, and bit
+    for bit the four kernels in a row."""
+    dev = _card()
+    b, m, kvh, hs, s = 3, 8, 2, 128, 6392
+    h = m * kvh
+    d, hid, gs = h * hs, 256, 64
+    assert LF.layer_block(s, h, kvh, hs, True) == s
+    rng = np.random.default_rng(s)
+    kv = _int8_cache(rng, b, 2, kvh, s, hs, dev)
+    k, v, sc = kv.k, kv.v, (kv.k_scale, kv.v_scale)
+    w = dict(wqkv=_qt(rng, d, (h + 2 * kvh) * hs, gs, dev), wo=_qt(rng, d, d, gs, dev),
+             w13=_qt(rng, d, 2 * hid, gs, dev), w2=_qt(rng, hid, d, gs, dev))
+    g1, g2 = ((1 + 0.1 * _rand(rng, (d,), torch.float32, dev)).contiguous() for _ in range(2))
+    x = _rand(rng, (b, d), torch.bfloat16, dev)
+    pos = torch.tensor([0, 3840, s - 1], dtype=torch.int32, device=dev)
+    args = (x, w["wqkv"], w["wo"], w["w13"], w["w2"], g1, g2, k, v, 1, pos, *sc)
+    got, rows = LF.q8_layer_fused(*args, n_heads=h)
+    want, want_rows = LF.q8_layer_fused_plain(*args, n_heads=h)
+    qkv = Q.q8_matmul(x, w["wqkv"], norm_weight=g1, rope_pos=pos, rope_limit=(h + kvh) * hs,
+                      rope_head=hs).view(b, h + 2 * kvh, hs)
+    att = A.attention_decode_fused(qkv, k, v, 1, pos, h, *sc)
+    x2 = Q.q8_matmul(att.reshape(b, d), w["wo"], residual=x)
+    four = Q.q8_matmul_ffn(x2, w["w13"], w["w2"], x2, g2)
+    torch.cuda.synchronize()
+    _close(rows, want_rows, torch.bfloat16)
+    _close(got, want, torch.bfloat16)
+    assert torch.equal(got, four) and torch.equal(rows, qkv[:, h:])
+
+
+def test_q8_layer_fused_keeps_two_ctas_an_sm():
+    """K23's grid (q8_layer_ctas_per_sm: the card's occupancy at the shared
+    memory of the kernel's larger phase) holds two CTAs an SM up to 8 rows
+    at Llama-2-7B's heads (block 128) and at blocks of 1024 rows with one
+    and 8 query heads per KV head, on both caches."""
+    from hip_llama_tpu_torch.ops import _build
+
+    _card()
+    fn = _build.bind("layer_fused", "q8_layer_ctas_per_sm", "iiiiii")
+    for b in (1, 8):
+        for kv_int8 in (0, 1):
+            assert fn(b, 32, 32, 128, 128, kv_int8) == 2, (b, kv_int8)
+            for hs in (64, 128, 256):
+                for m in (1, 8):
+                    assert fn(b, 2 * m, 2, hs, 1024, kv_int8) == 2, (b, kv_int8, hs, m)
+    # a block past a CTA's shared memory runs in chunks, on one CTA an SM
+    assert fn(8, 16, 2, 128, 6392, 1) == 1
+
+
+def test_grid_barrier_probe_passes_its_barriers():
+    """K23's grid barrier alone (layer_fused.grid_barrier_probe) on K23's
+    grid of two CTAs an SM: any number of barriers passes, the launch
+    counts, and a grid past two CTAs an SM is refused."""
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n0 = LF.grid_barrier_probe.launches
+    for n in (0, 1, 9, 64):
+        LF.grid_barrier_probe(n, 2 * sms, dev)
+    torch.cuda.synchronize()
+    assert LF.grid_barrier_probe.launches == n0 + 4
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        LF.grid_barrier_probe(1, 2 * sms + 1, dev)

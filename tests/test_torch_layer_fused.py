@@ -188,3 +188,10 @@ def test_plain_layer_int8_is_the_four_kernel_layer():
     want = Q.q8_matmul_ffn(x2, pw[2], pw[3], x2, pg2)
     got, kv = _port_int8(pops, 0)
     assert torch.equal(got, want) and torch.equal(kv, qkv[:, H:])
+
+
+def test_grid_barrier_probe_runs_on_the_card_only():
+    """The barrier probe has no plain version: it times K23's grid barrier
+    on the card and refuses the CPU."""
+    with pytest.raises(ValueError, match="card"):
+        LF.grid_barrier_probe(4, 264, "cpu")
