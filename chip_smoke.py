@@ -110,13 +110,14 @@ Phases, in order; each raises on failure and none is caught:
      norm and RoPE as the paged prefill's, W2 M 2048 K 11008), K19
      q8_matmul_silu_minner (M 2048, H 11008, norm) and K16 q8_matmul_xheads
      (wo M 2048 over 32 heads of 128) against their plain versions at 7B
-     shapes, each beside the reshape tile it replaces (K15 or K17) on the
-     same inputs, cuBLAS on the weight dequantized to bf16, and the bound;
-     the probe of tools/probe_xheads.py (K16 and K15 on the flat view of
-     the same rows against the probe's fp32 product, K4 reading T-major q);
-     two T-256 prefill chunks of the 7B Q8 + int8-KV model profiled on the
-     default route and with each knob (launches per chunk, device time);
-     and that model's
+     shapes, each beside the K15/K17 tile on the same inputs (the K19
+     lines name K19's launch plan: its cluster size and raster order),
+     cuBLAS on the weight dequantized to bf16, and the bound; the probe of
+     tools/probe_xheads.py (K16 and K15 on the flat view of the same rows
+     against the probe's fp32 product, K4 reading T-major q); two T-256
+     prefill chunks of the 7B Q8 + int8-KV model profiled on the default
+     route and with each knob (launches per chunk, device time, and one
+     line of the three device times); and that model's
      serve with both knobs, with its logit check against the plain path,
      launches (K16, K19, K19 silu) and TTFT beside phase 6's default-route
      serve;
@@ -1926,11 +1927,18 @@ def phase_prefill_kernels() -> dict[str, dict]:
     norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
     out: dict[str, list] = {}
 
+    plan = (f"cluster {Q.MINNER_CLUSTER} along M, "
+            f"{'row tiles of a column tile' if Q.MINNER_M_MAJOR else 'column tiles of a row tile'}"
+            f" together")
+
     def case(name, label, fn, plain_fn, tile_fn, lib_fn, n_bytes, flops):
+        if name != "q8_matmul_xheads":
+            label = f"{label}; {plan}"
         r = q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops)
         r["tile_ms"] = cuda_ms(tile_fn)
-        print(f"kernel {name} [{label}]: the reshape tile it replaces ms {r['tile_ms']:.4f} "
-              f"beside its {r['ms']:.4f}", flush=True)
+        print(f"kernel {name} [{label}]: the K15/K17 tile on the same inputs ms "
+              f"{r['tile_ms']:.4f} beside its {r['ms']:.4f} ({r['ms'] / r['tile_ms']:.3f}x)",
+              flush=True)
         out.setdefault(name, []).append(r)
 
     m = 2048
@@ -2024,6 +2032,7 @@ def profile_prefill_knobs(params: QuantLlamaParams) -> None:
     cfg = LLAMA2_7B
     rng = np.random.default_rng(SEED)
     chunk = {s: rng.integers(3, cfg.vocab_size, 256).tolist() for s in range(8)}
+    device_ms = {}
     for env in ({}, {"HIPLLAMA_PREFILL_MINNER": "1"}, {"HIPLLAMA_PREFILL_XHEADS": "1"}):
         with knobs(env):
             engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512,
@@ -2035,12 +2044,14 @@ def profile_prefill_knobs(params: QuantLlamaParams) -> None:
         counts = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
         print(f"prefill chunk (T 256, 8 slots) with {env}: wrapper launches {counts}",
               flush=True)
-        profile_window(f"7b q8 int8-kv prefill chunk with {env} (batch 8, T 256)", 2,
-                       lambda i: engine._prefill_tokens(cache, 8, chunk, {s: 0 for s in
-                                                                          range(8)}))
+        device_ms[" ".join(env) or "default route"] = profile_window(
+            f"7b q8 int8-kv prefill chunk with {env} (batch 8, T 256)", 2,
+            lambda i: engine._prefill_tokens(cache, 8, chunk, {s: 0 for s in range(8)}))
         del engine, cache
         gc.collect()
         torch.cuda.empty_cache()
+    print("prefill chunk (T 256, 8 slots) device time: " + "; ".join(
+        f"{k} {v:.3f} ms" for k, v in device_ms.items()), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2962,9 +2973,10 @@ def phase_dim288_serves() -> dict[str, dict[str, int]]:
     return launches
 
 
-def profile_window(what: str, n: int, fn) -> None:
+def profile_window(what: str, n: int, fn) -> float:
     """Device time by kernel over n calls of fn (after one warm call), from
-    torch.profiler, beside the host wall time of the same window."""
+    torch.profiler, beside the host wall time of the same window; returns
+    the device time a call in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2985,6 +2997,7 @@ def profile_window(what: str, n: int, fn) -> None:
     for e in top:
         print(f"  {e.self_device_time_total / n / 1e3:8.3f} ms/call  {e.count / n:6.0f} x  "
               f"{e.key[:90]}", flush=True)
+    return dev_us / n / 1e3
 
 
 def main() -> int:

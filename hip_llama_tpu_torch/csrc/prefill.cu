@@ -9,28 +9,33 @@
 // (_q8_kernel_silu_minner). The TPU kernel puts M innermost: each (n, k)
 // weight tile is dequantized once into scratch and every row block sweeps
 // through it, with a full-height fp32 accumulator in 4-12 MiB of VMEM. An SM
-// has 227 KB of shared memory, so here each CTA owns a strip of 128 columns
-// (a gate strip: 64 of W1 and the same 64 of W3) and a run of whole K tiles
-// of 256 rows. For each tile it dequantizes the tile once into shared
-// memory (bf16, 68 KB), then sweeps every 128-row block of x through it on
-// the tensor cores (nvcuda::wmma, fp32 fragments), loading the block's
-// running sums from an fp32 workspace that only this CTA touches and
-// storing them back (the first tile of the run starts from zero). A pass
-// after it adds the runs of each strip in order and applies the residual
-// or RoPE epilogue (or the gate) and the one cast. No atomics: the sums
-// are taken in a fixed order. The runs exist to fill the card: wo's 32
-// strips alone would keep 32 of 132 SMs busy; each tile still belongs to
-// one CTA, so each weight element is dequantized once per call, whatever
-// M is. The norm prologue, where given, is a pass of its own first, as
-// where the JAX call takes K19 (the norm has moved outside its kernel).
+// has 227 KB of shared memory and the sums belong in registers, so here a
+// CTA computes a 256 x 128 output tile over the whole K on q8_wgmma.cuh's
+// pipelined mainloop (K15's tiles: a producer warpgroup copies x and the
+// int8 weight by cp.async into a ring; two consumer warpgroups run wgmma
+// m64n128k16 and dequantize step it + 1 while step it - 1's products run;
+// wgmma.wait_group 1; setmaxnreg), and the epilogue (the residual, or RoPE
+// from a cos/sin table one pass computes per call) or the gate bf16(h1 *
+// sigmoid(h1) * h3) (a B tile of 64 W1 columns beside the same 64 of W3)
+// runs on the fp32 sums in the tile's store: no workspace, no second pass,
+// no atomics. The TPU kernel's dequant-once becomes a thread-block cluster
+// of kC CTAs along M (the row tiles of one column tile): each step's B tile
+// is dequantized once a cluster, a 64 / kC-row share a CTA, and stored into
+// every CTA's B tile through distributed shared memory
+// (q8_wgmma.cuh::consume_cluster); the freed raw-weight stages go to the x
+// ring where they make room for one. The grid's rows are padded to whole
+// clusters (a CTA with no rows still dequantizes its share), and the row
+// tiles of a column tile run together (blockIdx.x over M) or the column
+// tiles of a row tile (kMMajor false, K15's order): the wrapper passes the
+// cluster size and the order, MINNER_CLUSTER and MINNER_M_MAJOR, which
+// timed fastest (PERF.md). The norm prologue, where given, is a pass of its
+// own first, as where the JAX call takes K19 (the norm has moved outside
+// its kernel).
 //
-// Bounds on an H100: at prefill M (2048) the product does 2M flops per
+// Bound on an H100: at prefill M (2048) the product does 2M flops per
 // weight byte, far above the ~295 flop/byte ridge, so it is bound by
-// operations (bf16 tensor cores). Beside the product this design moves
-// the running sums: (K / 256) x M x N x 8 bytes, mostly through L2. A fast
-// version would keep the sums in registers (wgmma over a resident tile
-// ring, or a cluster sharing one dequantized tile through distributed
-// shared memory).
+// operations on the bf16 tensor cores, which only wgmma drives at their
+// full rate.
 //
 // q8_matmul_xheads replaces hip_llama_tpu/ops/quant.py::q8_matmul_xheads
 // (K16, the x_heads_hs branch of _q8_kernel, HIPLLAMA_PREFILL_XHEADS=1): wo
@@ -48,7 +53,6 @@
 // epilogue and one cast. The head's accumulator is read at its last step,
 // so the products drain there only.
 
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -59,194 +63,120 @@
 namespace {
 
 using namespace hipllama::q8;
-namespace wmma = nvcuda::wmma;
+namespace wg = hipllama::q8wg;
 
-constexpr int kMiThreads = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int kMiBM = 128;       // rows per sweep block
-constexpr int kMiBN = 128;       // tile columns per strip
-constexpr int kMiBK = 256;       // weight rows per tile
-constexpr int kMiXK = 64;        // x columns staged per step
-constexpr int kMiLdb = kMiBN + 8;  // padded rows (multiples of 8 bf16, 32-byte aligned tiles)
-constexpr int kMiLda = kMiXK + 8;
+// ---------------------------------------------------------------------------
+// K19: q8_wgmma.cuh's mainloop on 256 x 128 tiles over the whole K, in
+// clusters of kC CTAs along M
 
-struct MinnerSmem {
-  bf16 w[kMiBK][kMiLdb];           // the dequantized tile
-  bf16 x[kMiBM][kMiLda];           // a 64-column step of a row block
-};
+constexpr int kMiMB = 2;  // m64 blocks per consumer warpgroup: 256 rows a CTA
 
-// tile column of fragment j (0..3) of warp column wn: four 16-column
-// fragments side by side, or for the gate two of W1 (tile columns 0..63)
-// and the same two of W3 (64..127)
-template <bool GATE>
-__device__ __forceinline__ int frag_col(int wn, int j) {
-  return GATE ? (j >> 1) * (kMiBN / 2) + wn * 32 + (j & 1) * 16 : wn * 64 + j * 16;
-}
-
-// GATE: q is W1|W3 (K, ldq = 2H), ncols = H, strip columns c0..c0+63 of W1
-// and H + c0.. of W3; else q (K, ldq = ncols), strip columns c0..c0+127.
-// ws: (parts, strips, Mp, kMiBN) fp32, Mp = M rounded up to kMiBM.
-template <bool GATE>
-__global__ void __launch_bounds__(kMiThreads) q8_minner_kernel(
+// GATE: B tile columns 0-63 are W1 columns n0 .., 64-127 the same of W3 at
+// off2 = H (ncols = H), and the gate epilogue; else 128 adjacent columns
+// and q8_matmul's epilogue. ldq: the row stride of q and s. kMMajor:
+// blockIdx.x runs over the row tiles (the cluster's dimension), else over
+// the column tiles.
+template <bool GATE, int kC, bool kMMajor>
+__global__ void __launch_bounds__(wg::kThreads, 1) q8_minner_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    int M, int Mp, int K, int ldq, int ncols, int gs, int tiles_per_part,
-    float* __restrict__ ws) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  MinnerSmem& sm = *reinterpret_cast<MinnerSmem*>(smem_raw);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int strip = blockIdx.x, part = blockIdx.y;
-  const int c0 = strip * (GATE ? kMiBN / 2 : kMiBN);
-  const int n_tiles = (K + kMiBK - 1) / kMiBK;
-  const int t_beg = part * tiles_per_part;
-  const int t_end = min(n_tiles, t_beg + tiles_per_part);
-  float* wsc = ws + ((size_t)part * gridDim.x + strip) * (size_t)Mp * kMiBN;
-
-  for (int t = t_beg; t < t_end; ++t) {
-    const int k0 = t * kMiBK;
-    const int kn = min(kMiBK, K - k0);  // rows of this tile (K % 16 == 0)
-    __syncthreads();  // the previous tile's readers of sm.w are done
-    // the tile, dequantized once: kn rows of 8 chunks of 16 columns
-    for (int i = tid; i < kMiBK * 8; i += kMiThreads) {
-      const int r = i >> 3, ch = i & 7;
-      int col;
-      bool live;
-      if (GATE) {
-        const int c = c0 + (ch & 3) * 16;
-        live = c < ncols;
-        col = c + (ch >> 2) * ncols;
-      } else {
-        col = c0 + ch * 16;
-        live = col < ncols;
-      }
-      uint4 o0 = make_uint4(0u, 0u, 0u, 0u), o1 = o0;
-      if (live && r < kn) {
-        const int k = k0 + r;
-        const uint4 qv = __ldg(reinterpret_cast<const uint4*>(q + (size_t)k * ldq + col));
-        const float4* sp = reinterpret_cast<const float4*>(s + (size_t)(k / gs) * ldq + col);
-        const uint2 w0 = dequant4(qv.x ^ kBias4, __ldg(sp));
-        const uint2 w1 = dequant4(qv.y ^ kBias4, __ldg(sp + 1));
-        const uint2 w2 = dequant4(qv.z ^ kBias4, __ldg(sp + 2));
-        const uint2 w3 = dequant4(qv.w ^ kBias4, __ldg(sp + 3));
-        o0 = make_uint4(w0.x, w0.y, w1.x, w1.y);
-        o1 = make_uint4(w2.x, w2.y, w3.x, w3.y);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(&sm.w[r][ch * 16]);
-      dst[0] = o0;
-      dst[1] = o1;
-    }
-    __syncthreads();
-
-    // every row block sweeps through the tile
-    for (int mb = 0; mb < Mp; mb += kMiBM) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-      float* wsw = wsc + (size_t)(mb + wm * 32) * kMiBN;  // this warp's 32 rows
+    int M, int K, int ldq, int ncols, int off2, int gs, Epilogue e, bf16* __restrict__ out) {
+  using T = wg::Tile<kMiMB, kC>;
+  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
+  extern __shared__ __align__(1024) unsigned char mi_smem[];
+  const wg::Ring<kMiMB, kC> ring = wg::ring_init<kMiMB, kC>(mi_smem);
+  const int m0 = (kMMajor ? blockIdx.x : blockIdx.y) * T::kBM;
+  const int n0 = (kMMajor ? blockIdx.y : blockIdx.x) * kHalf;
+  const int rank = kC > 1 ? (int)wg::cluster_rank() : 0;
+  const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int n_steps = (K + wg::kBK - 1) / wg::kBK;
+  const wg::Weight<kHalf> w{q, s, ldq, n0, ncols, off2, gs};
+  if (role == wg::kConsumers) {
+    wg::producer_regs();
+    // a CTA past M (the padding of the last cluster) copies row 0 as zeros
+    wg::produce(ring, [=](int m, int k) { return x + (size_t)(m < M ? m : 0) * K + k; }, m0, M,
+                K, w, n_steps, t, rank);
+  } else {
+    wg::consumer_regs();
+    float d[kMiMB][64];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int mb = 0; mb < kMiMB; ++mb)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (t == t_beg)
-            wmma::fill_fragment(acc[i][j], 0.f);
-          else
-            wmma::load_matrix_sync(acc[i][j], wsw + i * 16 * kMiBN + frag_col<GATE>(wn, j),
-                                   kMiBN, wmma::mem_row_major);
-        }
-      for (int kx = 0; kx < kn; kx += kMiXK) {
-        // rows mb..mb+127 of x, columns k0+kx..+63: two 16-column chunks
-        // per thread, zero past M and K
-        for (int i = tid; i < kMiBM * (kMiXK / 16); i += kMiThreads) {
-          const int r = i >> 2, ch = i & 3;
-          const int gm = mb + r, gk = k0 + kx + ch * 16;
-          uint4 v0 = make_uint4(0u, 0u, 0u, 0u), v1 = v0;
-          if (gm < M && gk < K) {
-            const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk);
-            v0 = src[0];
-            v1 = src[1];
-          }
-          uint4* dst = reinterpret_cast<uint4*>(&sm.x[r][ch * 16]);
-          dst[0] = v0;
-          dst[1] = v1;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kMiXK; kk += 16) {
-          if (kx + kk < kn) {  // uniform across the CTA
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              wmma::load_matrix_sync(af[i], &sm.x[wm * 32 + i * 16][kk], kMiLda);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-              wmma::load_matrix_sync(bfr, &sm.w[kx + kk][frag_col<GATE>(wn, j)], kMiLdb);
-#pragma unroll
-              for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::store_matrix_sync(wsw + i * 16 * kMiBN + frag_col<GATE>(wn, j), acc[i][j], kMiBN,
-                                  wmma::mem_row_major);
-    }
+      for (int i = 0; i < 64; ++i) d[mb][i] = 0.f;
+    if constexpr (kC == 1)
+      wg::consume<true>(
+          ring, n_steps, K, w, m0, M, role, t, d, [](int it) { return it == 0; },
+          [](int) { return false; }, [](int, const float(&)[kMiMB][64]) {});
+    else
+      wg::consume_cluster(ring, n_steps, K, w, m0, M, role, t, rank, d);
+    if (GATE)
+      wg::store_gate(d, m0, n0, M, ncols, role, t, out);
+    else
+      wg::store_tile(d, e, m0, n0, M, ncols, role, t, out);
   }
+  // no CTA leaves while a peer may still store into its B tiles or arrive
+  // on its barriers
+  if constexpr (kC > 1) wg::cluster_sync();
 }
 
-// output column pair idx < M * N / 2: the runs of its strip added in
-// order, then q8.cuh's epilogue
-__global__ void minner_epilogue_kernel(const float* __restrict__ ws, int parts, int strips,
-                                       int M, int Mp, int N, Epilogue e, bf16* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * (N / 2)) return;
-  const int m = idx / (N / 2), n = (idx % (N / 2)) * 2;
-  const int strip = n / kMiBN, c = n % kMiBN;
-  float a0 = 0.f, a1 = 0.f;
-  for (int p = 0; p < parts; ++p) {
-    const float2 v = *reinterpret_cast<const float2*>(
-        ws + (((size_t)p * strips + strip) * Mp + m) * kMiBN + c);
-    a0 += v.x;
-    a1 += v.y;
-  }
-  store_pair(e, m, n, N, a0, a1, out);
+// Once per kernel: wg::prepare, and with a cluster, that the card can run
+// one at all (cudaOccupancyMaxActiveClusters above 0), else an error that
+// every launch returns.
+template <typename Kernel>
+int prepare_minner(Kernel kernel, const cudaLaunchConfig_t& cfg) {
+  HIPLLAMA_TRY(wg::prepare(kernel, (int)cfg.dynamicSmemBytes));
+  if (cfg.numAttrs == 0) return 0;
+  int clusters = 0;
+  HIPLLAMA_TRY((int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg));
+  return clusters > 0 ? 0 : (int)cudaErrorLaunchOutOfResources;
 }
 
-// gate output idx < M * H: h1 and h3 of its strip's runs added in order
-__global__ void minner_gate_kernel(const float* __restrict__ ws, int parts, int strips, int M,
-                                   int Mp, int H, bf16* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * H) return;
-  const int m = idx / H, n = idx % H;
-  const int strip = n / (kMiBN / 2), c = n % (kMiBN / 2);
-  float h1 = 0.f, h3 = 0.f;
-  for (int p = 0; p < parts; ++p) {
-    const float* r = ws + (((size_t)p * strips + strip) * Mp + m) * kMiBN;
-    h1 += r[c];
-    h3 += r[kMiBN / 2 + c];
-  }
-  out[idx] = __float2bfloat16_rn(silu_gate(h1, h3));
-}
-
-template <bool GATE>
-int launch_minner(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
-                  int gs, int parts, int tiles_per_part, float* ws, cudaStream_t st) {
-  const int strip_cols = GATE ? kMiBN / 2 : kMiBN;
-  const int strips = (ncols + strip_cols - 1) / strip_cols;
-  const int n_tiles = (K + kMiBK - 1) / kMiBK;
-  // every run holds at least one tile, and the runs cover K
-  if (parts < 1 || tiles_per_part < 1 || (long long)parts * tiles_per_part < n_tiles ||
-      (long long)(parts - 1) * tiles_per_part >= n_tiles)
-    return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(MinnerSmem);
-  HIPLLAMA_TRY((int)cudaFuncSetAttribute(q8_minner_kernel<GATE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  const int Mp = (M + kMiBM - 1) / kMiBM * kMiBM;
-  q8_minner_kernel<GATE><<<dim3(strips, parts), kMiThreads, smem, st>>>(
-      (const bf16*)x, (const int8_t*)q, (const float*)s, M, Mp, K, ldq, ncols, gs,
-      tiles_per_part, ws);
+template <bool GATE, int kC, bool kMMajor>
+int launch_minner_as(const void* x, const void* q, const void* s, int M, int K, int ldq,
+                     int ncols, int off2, int gs, const Epilogue& e, void* out, cudaStream_t st) {
+  using T = wg::Tile<kMiMB, kC>;
+  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
+  auto kernel = q8_minner_kernel<GATE, kC, kMMajor>;
+  // whole clusters: the last may hold CTAs past M
+  const int mtiles = ((M + T::kBM - 1) / T::kBM + kC - 1) / kC * kC;
+  const int ntiles = (ncols + kHalf - 1) / kHalf;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kMMajor ? kC : 1;
+  attr.val.clusterDim.y = kMMajor ? 1 : kC;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = kMMajor ? dim3(mtiles, ntiles) : dim3(ntiles, mtiles);
+  cfg.blockDim = dim3(wg::kThreads);
+  cfg.dynamicSmemBytes = T::kSmemBytes;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = kC > 1 ? 1 : 0;
+  static const int ready = prepare_minner(kernel, cfg);
+  HIPLLAMA_TRY(ready);
+  HIPLLAMA_TRY((int)cudaLaunchKernelEx(&cfg, kernel, (const bf16*)x, (const int8_t*)q,
+                                       (const float*)s, M, K, ldq, ncols, off2, gs, e,
+                                       (bf16*)out));
   return check_launch();
+}
+
+// the launch plan: cluster 1, 2 or 4 CTAs along M, the row tiles of a
+// column tile together (m_major) or the column tiles of a row tile
+template <bool GATE>
+int launch_minner(int cluster, int m_major, const void* x, const void* q, const void* s, int M,
+                  int K, int ldq, int ncols, int off2, int gs, const Epilogue& e, void* out,
+                  cudaStream_t st) {
+  if (M < 1 || K % 16 || ncols % 16 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
+  auto launch = launch_minner_as<GATE, 1, false>;
+  switch (2 * cluster + (m_major != 0)) {
+    case 2: break;
+    case 3: launch = launch_minner_as<GATE, 1, true>; break;
+    case 4: launch = launch_minner_as<GATE, 2, false>; break;
+    case 5: launch = launch_minner_as<GATE, 2, true>; break;
+    case 8: launch = launch_minner_as<GATE, 4, false>; break;
+    case 9: launch = launch_minner_as<GATE, 4, true>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return launch(x, q, s, M, K, ldq, ncols, off2, gs, e, out, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -294,35 +224,35 @@ HIPLLAMA_EXPORT_ERROR_STRING
 
 // K19: x (M, K) bf16, q (K, N) int8, s (K/gs, N) fp32; g, res and pos may be
 // null (no norm, no residual, no RoPE); xn_ws (M, K) bf16 when g is given;
-// ws (parts, ceil(N/128), M rounded up to 128, 128) fp32; the K tiles of 256
-// rows in `parts` runs of tiles_per_part. K % 16 == 0, N % 16 == 0.
+// rope_ws (M, rope_hs) fp32 for the RoPE table when pos is given; cluster
+// 1, 2 or 4 and m_major 0 or 1: launch_minner's plan. K % 16 == 0, N % 16
+// == 0, any gs that divides K.
 extern "C" int q8_matmul_minner(const void* x, const void* q, const void* s, const void* g,
                                 const void* res, const void* pos, void* out, void* xn_ws,
-                                void* ws, int M, int K, int N, int gs, int parts,
-                                int tiles_per_part, int rope_limit, int rope_hs, float rope_coef,
-                                float eps, void* stream) {
+                                void* rope_ws, int M, int K, int N, int gs, int rope_limit,
+                                int rope_hs, int cluster, int m_major, float rope_coef, float eps,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K % 16 || N % 16 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
-  const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
+  Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
   const void* xin = x;
   if (g != nullptr) {
     HIPLLAMA_TRY(launch_norm(x, g, xn_ws, M, K, eps, st));
     xin = xn_ws;
   }
-  HIPLLAMA_TRY(launch_minner<false>(xin, q, s, M, K, N, N, gs, parts, tiles_per_part,
-                                    (float*)ws, st));
-  const int Mp = (M + kMiBM - 1) / kMiBM * kMiBM;
-  minner_epilogue_kernel<<<blocks((long long)M * (N / 2)), kEltThreads, 0, st>>>(
-      (const float*)ws, parts, (N + kMiBN - 1) / kMiBN, M, Mp, N, e, (bf16*)out);
-  return check_launch();
+  if (pos != nullptr) {  // the tiles read each row's cos and sin from rope_ws
+    if (rope_ws == nullptr || rope_hs < 2 || rope_hs % 2) return (int)cudaErrorInvalidValue;
+    HIPLLAMA_TRY(launch_rope_table(pos, M, rope_hs, rope_coef, (float*)rope_ws, st));
+    e.rope_cs = (const float*)rope_ws;
+  }
+  return launch_minner<false>(cluster, m_major, xin, q, s, M, K, N, N, 0, gs, e, out, st);
 }
 
-// K19 silu: q13 (K, 2H); out (M, H); ws (parts, ceil(H/64), M rounded up to
-// 128, 128) fp32; otherwise as q8_matmul_minner. H % 16 == 0.
+// K19 silu: q13 (K, 2H); out (M, H); otherwise as q8_matmul_minner. H % 16
+// == 0.
 extern "C" int q8_matmul_silu_minner(const void* x, const void* q13, const void* s13,
-                                     const void* g, void* out, void* xn_ws, void* ws, int M,
-                                     int K, int H, int gs, int parts, int tiles_per_part,
-                                     float eps, void* stream) {
+                                     const void* g, void* out, void* xn_ws, int M, int K, int H,
+                                     int gs, int cluster, int m_major, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K % 16 || H % 16 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
   const void* xin = x;
@@ -330,12 +260,9 @@ extern "C" int q8_matmul_silu_minner(const void* x, const void* q13, const void*
     HIPLLAMA_TRY(launch_norm(x, g, xn_ws, M, K, eps, st));
     xin = xn_ws;
   }
-  HIPLLAMA_TRY(launch_minner<true>(xin, q13, s13, M, K, 2 * H, H, gs, parts, tiles_per_part,
-                                   (float*)ws, st));
-  const int Mp = (M + kMiBM - 1) / kMiBM * kMiBM;
-  minner_gate_kernel<<<blocks((long long)M * H), kEltThreads, 0, st>>>(
-      (const float*)ws, parts, (H + kMiBN / 2 - 1) / (kMiBN / 2), M, Mp, H, (bf16*)out);
-  return check_launch();
+  const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
+  return launch_minner<true>(cluster, m_major, xin, q13, s13, M, K, 2 * H, H, H, gs, none, out,
+                             st);
 }
 
 // K16: x3 bf16 with element (m, h, d) at m * sxm + h * sxh + d (sxm, sxh

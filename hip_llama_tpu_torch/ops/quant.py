@@ -55,12 +55,16 @@ Two prefill variants the JAX package takes behind knobs that the model
 reads and passes down (`minner=`):
 - HIPLLAMA_PREFILL_MINNER=1 sends large-M products to K19,
   `q8_matmul_minner` and `q8_matmul_silu_minner` (quant.py:1126, :677-731),
-  where each weight tile is dequantized once per call and every row sweeps
-  through it. The arithmetic is K15's and K17's in reshape math; only the
-  schedule differs. q8_matmul and q8_matmul_silu take it where the JAX
-  wrappers take theirs (`minner_engages`, `minner_silu_engages`): above 512
-  rows, in reshape math (after the `a8` decline), with no norm prologue
-  left in the kernel, a flat output and column blocks that fit.
+  where the TPU kernel dequantizes each weight tile once and sweeps every
+  row through it. Here K19 runs K15's and K17's wgmma tiles over the whole
+  K (csrc/prefill.cu), each step's weight tile dequantized once by a
+  thread-block cluster along M and shared through distributed shared
+  memory (`MINNER_CLUSTER`), the epilogue or gate in the tile's store. The
+  arithmetic is K15's and K17's in reshape math; only the schedule
+  differs. q8_matmul and q8_matmul_silu take it where the JAX wrappers
+  take theirs (`minner_engages`, `minner_silu_engages`): above 512 rows, in
+  reshape math (after the `a8` decline), with no norm prologue left in the
+  kernel, a flat output and column blocks that fit.
 - HIPLLAMA_PREFILL_XHEADS=1 makes the contiguous prefill's wo
   `q8_matmul_xheads` (K16, quant.py:424): the attention output read as
   (M, heads, head size), one fp32 partial per head added in head order.
@@ -122,11 +126,13 @@ _A8_PLAIN_BYTES = 256 * 2**20
 Q8_BLOCK_M = 512
 # q8_matmul_xheads's own block_n (quant.py:431), which the JAX model leaves
 XHEADS_BLOCK_N = 512
-# K19 (csrc/prefill.cu kMiBK, kMiBN): weight rows per tile and columns per
-# strip (a gate strip: 64 of W1 and the same 64 of W3)
-MINNER_BK = 256
-MINNER_BN = 128
-_MINNER_CTAS = 264  # K19 CTAs aimed for: two per SM of an H100
+# K19's launch plan (csrc/prefill.cu): the CTAs of a thread-block cluster
+# along M that share each step's dequantized weight tile (1, 2 or 4), and
+# whether the row tiles of a column tile run together (True) or the column
+# tiles of a row tile (K15's order); the fastest as timed (PERF.md)
+MINNER_CLUSTERS = (1, 2, 4)
+MINNER_CLUSTER = 2
+MINNER_M_MAJOR = True
 WGMMA_STEP_K = 64  # rows of K a step of csrc/q8_wgmma.cuh's mainloop takes (kBK)
 
 
@@ -1034,54 +1040,50 @@ q8_matmul_ffn.launches_tc = 0
 # (HIPLLAMA_PREFILL_XHEADS)
 
 
-def minner_plan(k: int, strips: int) -> tuple[int, int]:
-    """(parts, tiles_per_part) of K19: the K rows in tiles of MINNER_BK, cut
-    into `parts` runs of whole tiles, as many as the column strips times the
-    parts fit in about _MINNER_CTAS CTAs. One CTA owns each (strip, run),
-    so each weight tile is still dequantized once per call."""
-    tiles = -(-k // MINNER_BK)
-    want = max(1, min(tiles, -(-_MINNER_CTAS // strips)))
-    per = -(-tiles // want)
-    return -(-tiles // per), per
-
-
-def _minner_ws(m: int, k: int, strips: int, dev):
-    """K19's fp32 workspace (parts, strips, M rounded up to 128, MINNER_BN):
-    each CTA's running sums, the parts added in order by the epilogue pass."""
-    parts, per = minner_plan(k, strips)
-    ws = torch.empty((parts, strips, -(-m // 128) * 128, MINNER_BN), dtype=torch.float32,
-                     device=dev)
-    return ws, parts, per
+def _minner_plan(cluster: int, m_major: bool) -> tuple[int, int]:
+    if cluster not in MINNER_CLUSTERS:
+        raise ValueError(f"K19 takes a cluster of {MINNER_CLUSTERS} CTAs, got {cluster}")
+    return cluster, int(bool(m_major))
 
 
 def q8_matmul_minner(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
                      residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-                     rope_theta: float = 10000.0):
-    """q8_matmul's function in reshape math with the large-M schedule of the
-    JAX package's `_q8_matmul_minner` (K19): each CTA owns a column strip
-    and a run of K tiles, dequantizes each (256 x 128) tile once into shared
-    memory and sweeps every row through it (csrc/prefill.cu); the norm, when
-    given, is a pass of its own first, as where the JAX call takes K19.
-    q8_matmul routes here under HIPLLAMA_PREFILL_MINNER=1. Replaces
-    hip_llama_tpu/ops/quant.py::_q8_matmul_minner."""
+                     rope_theta: float = 10000.0, cluster: int = MINNER_CLUSTER,
+                     m_major: bool = MINNER_M_MAJOR):
+    """q8_matmul's function in reshape math where the JAX package takes
+    `_q8_matmul_minner` (K19): 256 x 128 output tiles over the whole K on
+    csrc/q8_wgmma.cuh's mainloop, the sums in registers and the residual or
+    RoPE epilogue in the tile's store; each step's weight tile is
+    dequantized once by a thread-block cluster of `cluster` CTAs along M
+    and shared through distributed shared memory, as the TPU kernel
+    dequantizes each tile once for every row (csrc/prefill.cu); `m_major`
+    runs the row tiles of a column tile together. The defaults are the
+    fastest plan; the others are for timing it. The norm, when given, is a
+    pass of its own first, as where the JAX call takes K19. Allocates the
+    output and, where given a norm or RoPE, the normed rows and the RoPE
+    table: no workspace. q8_matmul routes here under
+    HIPLLAMA_PREFILL_MINNER=1. Replaces hip_llama_tpu/ops/quant.py::
+    _q8_matmul_minner."""
     dev = _device(x, "q8_matmul_minner")
     if dev.type == "cpu":
         return q8_matmul_minner_plain(x, qt, norm_weight=norm_weight, norm_eps=norm_eps,
                                       residual=residual, rope_pos=rope_pos,
                                       rope_limit=rope_limit, rope_head=rope_head,
                                       rope_theta=rope_theta)
+    plan = _minner_plan(cluster, m_major)
     m, k = _check_x("x", x)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
     _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    ws, parts, per = _minner_ws(m, k, -(-n // MINNER_BN), dev)
-    f = _build.bind("prefill", "q8_matmul_minner", "ppppppppp" + "iiiiiiii" + "ff" + "p")
+    cs = (torch.empty((m, rope_head), dtype=torch.float32, device=dev)
+          if rope_pos is not None else None)
+    f = _build.bind("prefill", "q8_matmul_minner", "p" * 9 + "i" * 8 + "ff" + "p")
     rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
-           _ptr(rope_pos), out.data_ptr(), _ptr(xn), ws.data_ptr(), m, k, n, qt.group_size,
-           parts, per, rope_limit if rope_pos is not None else 0,
-           rope_head if rope_pos is not None else 1,
+           _ptr(rope_pos), out.data_ptr(), _ptr(xn), _ptr(cs), m, k, n, qt.group_size,
+           rope_limit if rope_pos is not None else 0,
+           rope_head if rope_pos is not None else 1, *plan,
            rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0, norm_eps, _stream())
     _build.check(rc, "prefill", "q8_matmul_minner")
     q8_matmul_minner.launches += 1
@@ -1091,16 +1093,19 @@ def q8_matmul_minner(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
 q8_matmul_minner.launches = 0
 
 
-def q8_matmul_silu_minner(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5):
-    """q8_matmul_silu's function in reshape math with K19's schedule: a
-    strip is 64 columns of W1 and the same 64 of W3, each tile of both
-    dequantized once, the gate bf16(h1 * sigmoid(h1) * h3) on the fp32 sums
-    in the epilogue pass. q8_matmul_silu routes here under
+def q8_matmul_silu_minner(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
+                          cluster: int = MINNER_CLUSTER, m_major: bool = MINNER_M_MAJOR):
+    """q8_matmul_silu's function in reshape math with K19's kernel: a B
+    tile of 64 columns of W1 beside the same 64 of W3, the gate bf16(h1 *
+    sigmoid(h1) * h3) on the fp32 sums in the tile's store; `cluster` and
+    `m_major` as q8_matmul_minner's. Allocates the output and, where given
+    a norm, the normed rows. q8_matmul_silu routes here under
     HIPLLAMA_PREFILL_MINNER=1. Replaces the K19 branch of hip_llama_tpu/
     ops/quant.py::q8_matmul_silu (:677-731, `_q8_kernel_silu_minner`)."""
     dev = _device(x, "q8_matmul_silu_minner")
     if dev.type == "cpu":
         return q8_matmul_silu_minner_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
+    plan = _minner_plan(cluster, m_major)
     m, k = _check_x("x", x)
     n2 = _check_weight("qt13", qt13, k, dev)
     h = n2 // 2
@@ -1109,10 +1114,9 @@ def q8_matmul_silu_minner(x, qt13: QTensor, *, norm_weight=None, norm_eps: float
     _check_norm(norm_weight, k, dev)
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    ws, parts, per = _minner_ws(m, k, -(-h // (MINNER_BN // 2)), dev)
-    f = _build.bind("prefill", "q8_matmul_silu_minner", "ppppppp" + "iiiiii" + "f" + "p")
+    f = _build.bind("prefill", "q8_matmul_silu_minner", "p" * 6 + "i" * 6 + "f" + "p")
     rc = f(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), _ptr(norm_weight), out.data_ptr(),
-           _ptr(xn), ws.data_ptr(), m, k, h, qt13.group_size, parts, per, norm_eps, _stream())
+           _ptr(xn), m, k, h, qt13.group_size, *plan, norm_eps, _stream())
     _build.check(rc, "prefill", "q8_matmul_silu_minner")
     q8_matmul_silu_minner.launches += 1
     return out

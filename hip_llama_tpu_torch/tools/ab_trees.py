@@ -7,6 +7,7 @@ checkouts in turns (parent, change, change, parent) within one machine.
     cd <checkout> && python <path of this file> decode <checkout>
     cd <checkout> && python <path of this file> parts <checkout>
     cd <checkout> && python <path of this file> int8 <checkout>
+    cd <checkout> && python <path of this file> minner <checkout>
 
 Each runs the checkout's own package and its chip_smoke.py helpers (the
 checkout goes first on sys.path; run this file by its path, not with -m,
@@ -48,6 +49,19 @@ so that the package is imported from the checkout), once per checkout.
   query heads per KV head (B 8, KVH 4, S 1024: blocks of 1024) and over a
   block past a CTA's shared memory (S 6392: the JAX block is the whole
   cache); then `layer_parts`.
+- minner: K19 at chip_smoke's phase-11 shapes (7B widths, Q8_0 group size
+  64): q8_matmul_minner on wo M 2048 with the residual, q M 1024 with the
+  norm and RoPE and W2 M 2048 with the residual, q8_matmul_silu_minner on
+  the W1|W3 gate M 2048 with the norm, under every launch plan the
+  checkout's K19 takes (cluster size x raster order, ops/quant.py
+  MINNER_CLUSTERS; one plan where it has none), each beside the K15/K17
+  tile on the same inputs, and K16 on wo M 2048 (32 heads of 128); each
+  the least of three CUDA-event means; then two T-256 chunks of the
+  7B-width Q8 + int8-KV model over 8 slots profiled with
+  HIPLLAMA_PREFILL_MINNER=1 and on the default route (device time by
+  kernel); chip_smoke's 16-request serve of that model with both prefill
+  knobs and on the default route (tok/s, TTFT p50 and p95); and the port
+  bench's default decode and its --mode ttft, in process.
 """
 
 from __future__ import annotations
@@ -390,9 +404,104 @@ def prefill(cs) -> None:
         bench_lines(cs)
 
 
+def minner(cs) -> None:
+    import numpy as np
+    import torch
+
+    from hip_llama_tpu_torch.engine import InferenceEngine, Requests
+    from hip_llama_tpu_torch.ops import quant as Q
+    from hip_llama_tpu_torch.sampler import Sampler
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, hid, gs, m, mq = 4096, 11008, 64, 2048, 1024
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def weights(k, n):
+        return [Q.q8_quantize_weights(rnd(k, n, dtype=torch.float32).mul_(k ** -0.5), gs)
+                for _ in range(2)]
+
+    wo, w2, w13 = weights(d, d), weights(hid, d), weights(d, 2 * hid)
+    x, res, xq, xh = rnd(m, d), rnd(m, d), rnd(mq, d), rnd(m, hid)
+    norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
+    rope = dict(rope_pos=torch.arange(mq, dtype=torch.int32, device=dev) % 512, rope_limit=d,
+                rope_head=128, rope_theta=10000.0)
+    plans = ([dict(cluster=c, m_major=mm) for c in Q.MINNER_CLUSTERS for mm in (False, True)]
+             if hasattr(Q, "MINNER_CLUSTERS") else [{}])
+    cases = {
+        f"wo M {m}, residual": (
+            lambda i, p: Q.q8_matmul_minner(x, wo[i % 2], residual=res, **p),
+            lambda i: Q.q8_matmul(x, wo[i % 2], residual=res)),
+        f"q M {mq}, norm + RoPE": (
+            lambda i, p: Q.q8_matmul_minner(xq, wo[i % 2], norm_weight=norm, **rope, **p),
+            lambda i: Q.q8_matmul(xq, wo[i % 2], norm_weight=norm, **rope)),
+        f"W2 M {m}, residual": (
+            lambda i, p: Q.q8_matmul_minner(xh, w2[i % 2], residual=res, **p),
+            lambda i: Q.q8_matmul(xh, w2[i % 2], residual=res)),
+        f"gate M {m}, norm": (
+            lambda i, p: Q.q8_matmul_silu_minner(x, w13[i % 2], norm_weight=norm, **p),
+            lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm)),
+    }
+
+    def best(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        return min(cs.cuda_ms(fn) for _ in range(3))
+
+    for label, (k19, tile) in cases.items():
+        row = []
+        for p in plans:
+            name = (f"C {p['cluster']} {'M-major' if p['m_major'] else 'N-major'}" if p
+                    else "K19")
+            row.append(f"{name} {best(lambda i, p=p: k19(i, p)):.4f}")
+        print(f"minner {label} (ms): {'; '.join(row)}; tile {best(tile):.4f}", flush=True)
+    x3 = x.view(m, 32, 128)
+    print(f"minner K16 wo M {m}, 32 heads (ms): "
+          f"{best(lambda i: Q.q8_matmul_xheads(x3, wo[i % 2], residual=res)):.4f}", flush=True)
+    del wo, w2, w13, x, res, xq, xh
+    torch.cuda.empty_cache()
+
+    cfg = cs.LLAMA2_7B
+    params = cs.random_7b_qparams(cfg, dev)
+    toks = np.random.default_rng(5).integers(3, cfg.vocab_size, (8, 256)).tolist()
+    for env in ({"HIPLLAMA_PREFILL_MINNER": "1"}, {}):
+        with cs.knobs(env):
+            engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512,
+                                     kv_quant=True)
+        cache = engine.new_cache()
+        cs.profile_window(f"q8 int8-kv prefill chunk with {env} (batch 8, T 256)", 2,
+                          lambda i: engine._prefill_tokens(cache, 8, {s: toks[s] for s in
+                                                                      range(8)},
+                                                           {s: 0 for s in range(8)}))
+        del engine, cache
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = cs.llama_sized_tokenizer(tmp, cfg.vocab_size)
+    targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
+    prompts = cs.make_prompts(tok, targets)
+    for env in (cs.PREFILL_KNOBS, {}):
+        with cs.knobs(env):
+            engine = InferenceEngine(cfg, params, tok, batch_size=8, max_seq_len=512,
+                                     kv_quant=True)
+            stats: dict = {}
+            engine.serve(Requests(prompts=prompts, generations=[""] * len(prompts)), steps=352,
+                         stats=stats,
+                         samplers=[Sampler(cfg.vocab_size, temperature=0.0) for _ in prompts])
+        print(f"serve with {env}: {stats['tok_per_s']:.2f} tok/s, ttft p50 "
+              f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms",
+              flush=True)
+        del engine
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    bench_lines(cs)
+
+
 def main(argv: list[str]) -> int:
     modes = {"attention": attention, "serve": serve, "prefill": prefill, "decode": decode,
-             "parts": parts, "int8": int8}
+             "parts": parts, "int8": int8, "minner": minner}
     if len(argv) != 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -1296,19 +1296,26 @@ def test_four_writes_equal_kv_commit_rows_on_the_card(int8, monkeypatch):
 # the prefill variants: K19 (q8_matmul_minner, q8_matmul_silu_minner) and
 # K16 (q8_matmul_xheads)
 
-# (K, N): the fixture's width, a strip-ragged width (272 = 2 strips + 16
-# columns) over one partial K tile, and Llama-2-7B's wo and W2
-MINNER_SHAPES = [(64, 128), (256, 272), (4096, 4096), (11008, 4096)]
+# (K, N, gs): the fixture's width, a column-ragged width (272 = 2 tiles + 16
+# columns) over a partial last K step, and Llama-2-7B's wo and W2, each at
+# every group size of 32, 64 and 128 that divides K
+MINNER_SHAPES = [(k, n, gs) for k, n in [(64, 128), (256, 272), (4096, 4096), (11008, 4096)]
+                 for gs in (32, 64, 128) if k % gs == 0]
+MINNER_SILU_SHAPES = [(k, h, gs) for k, h in [(128, 192), (256, 256), (4096, 11008)]
+                      for gs in (32, 64, 128) if k % gs == 0]
+# rows: past a whole tile of 256 (513), leaving the last CTA of a cluster of
+# 2 (513, 600) or of 4 (1100) without rows, and a T-256 chunk of 8 slots
+MINNER_ROWS = [513, 600, 1100, 2048]
 
 
-@pytest.mark.parametrize("m", [513, 640, 2048])
+@pytest.mark.parametrize("m", MINNER_ROWS)
 @pytest.mark.parametrize("shape", MINNER_SHAPES)
 @pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
 def test_q8_matmul_minner_kernel(m, shape, epi):
     dev = _card()
-    k, n = shape
+    k, n, gs = shape
     rng = np.random.default_rng(60)
-    qt = _qt(rng, k, n, 64, dev)
+    qt = _qt(rng, k, n, gs, dev)
     x = _rand(rng, (m, k), torch.bfloat16, dev)
     kw = _epilogue(rng, m, k, n, epi, dev)
     n0, n15 = Q.q8_matmul_minner.launches, Q.q8_matmul.launches
@@ -1319,14 +1326,14 @@ def test_q8_matmul_minner_kernel(m, shape, epi):
     _close(got, want, torch.bfloat16)
 
 
-@pytest.mark.parametrize("m", [600, 2048])
-@pytest.mark.parametrize("shape", [(128, 192), (256, 256), (4096, 11008)])
+@pytest.mark.parametrize("m", MINNER_ROWS)
+@pytest.mark.parametrize("shape", MINNER_SILU_SHAPES)
 @pytest.mark.parametrize("norm", [False, True])
 def test_q8_matmul_silu_minner_kernel(m, shape, norm):
     dev = _card()
-    k, h = shape
+    k, h, gs = shape
     rng = np.random.default_rng(61)
-    qt13 = _qt(rng, k, 2 * h, 64, dev)
+    qt13 = _qt(rng, k, 2 * h, gs, dev)
     x = _rand(rng, (m, k), torch.bfloat16, dev)
     kw = dict(norm_weight=(1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()) if norm \
         else {}
@@ -1336,6 +1343,69 @@ def test_q8_matmul_silu_minner_kernel(m, shape, norm):
     torch.cuda.synchronize()
     assert Q.q8_matmul_silu_minner.launches == n0 + 1 and got.shape == (m, h)
     _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cluster", Q.MINNER_CLUSTERS)
+@pytest.mark.parametrize("m_major", [False, True])
+def test_q8_matmul_minner_every_launch_plan(cluster, m_major):
+    """Every cluster size and raster order K19 is built for, at rows that
+    leave CTAs of the last cluster without rows: K19 (K 11008 in groups of
+    32, a ragged 272 columns, the residual; K 4096 with the norm and RoPE)
+    and K19 silu (the norm), against their plain versions."""
+    dev = _card()
+    rng = np.random.default_rng(64)
+    plan = dict(cluster=cluster, m_major=m_major)
+    for m, (k, n, gs), epi in ((1100, (11008, 272, 32), "residual"),
+                               (600, (4096, 512, 64), "norm_rope")):
+        qt = _qt(rng, k, n, gs, dev)
+        x = _rand(rng, (m, k), torch.bfloat16, dev)
+        kw = _epilogue(rng, m, k, n, epi, dev)
+        _close(Q.q8_matmul_minner(x, qt, **kw, **plan), Q.q8_matmul_minner_plain(x, qt, **kw),
+                torch.bfloat16)
+    qt13 = _qt(rng, 256, 2 * 272, 128, dev)
+    x = _rand(rng, (1100, 256), torch.bfloat16, dev)
+    g = (1 + 0.1 * _rand(rng, (256,), torch.float32, dev)).contiguous()
+    _close(Q.q8_matmul_silu_minner(x, qt13, norm_weight=g, **plan),
+           Q.q8_matmul_silu_minner_plain(x, qt13, norm_weight=g), torch.bfloat16)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope", "silu", "silu_norm"])
+def test_q8_matmul_minner_allocates_no_workspace(epi):
+    """K19's allocations are its output and, where a norm or RoPE is given,
+    the normed rows (M, K) bf16 and the RoPE table (M, HS) fp32: no fp32
+    workspace of sums (the caching allocator's allocation count and bytes
+    across one call)."""
+    dev = _card()
+    m, k, n = 1100, 4096, 4096
+    rng = np.random.default_rng(65)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    if epi.startswith("silu"):
+        qt13 = _qt(rng, k, 2 * n, 64, dev)
+        kw = dict(norm_weight=(1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()) \
+            if epi == "silu_norm" else {}
+        call = lambda: Q.q8_matmul_silu_minner(x, qt13, **kw)  # noqa: E731
+        want = [m * n * 2] + ([m * k * 2] if kw else [])
+    else:
+        qt = _qt(rng, k, n, 64, dev)
+        kw = _epilogue(rng, m, k, n, epi, dev)
+        call = lambda: Q.q8_matmul_minner(x, qt, **kw)  # noqa: E731
+        want = ([m * n * 2] + ([m * k * 2] if "norm" in epi else [])
+                + ([m * kw["rope_head"] * 4] if "rope" in epi else []))
+    call()  # the build and the launch plan's first query
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(dev)
+    out = call()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats(dev)
+    count = after["allocation.all.allocated"] - before["allocation.all.allocated"]
+    # the allocator may hand out a cached block up to 1 MiB larger than asked
+    # (it splits only a larger remainder); K19's old fp32 workspace of sums
+    # took 144 MiB at this shape
+    nbytes = after["allocated_bytes.all.allocated"] - before["allocated_bytes.all.allocated"]
+    assert count == len(want), (count, want)
+    assert sum(want) <= nbytes < sum(want) + count * 2**20, (nbytes, want)
+    assert out.shape == (m, n)
 
 
 @pytest.mark.parametrize("m", [32, 256, 2048])

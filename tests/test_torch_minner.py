@@ -48,14 +48,17 @@ def _inputs(seed, m, k, n, gs=64):
 
 
 @pytest.mark.parametrize("epi", ["none", "residual", "rope"])
-@pytest.mark.parametrize("m", [520, 1024])
-def test_minner_plain_matches_jax_kernel(m, epi):
-    """K19 at K = N = 256 in K blocks of 128 and column blocks of 128 (two
-    of each, so the accumulator carries across K tiles and the RoPE columns
-    start at each block's offset), the rows padded to the JAX call's
-    512-row blocks on the JAX side only."""
-    k = n = 256
-    rng, x, qt, pqt = _inputs(1 + m, m, k, n)
+@pytest.mark.parametrize("m,k,n,bk,bn", [(520, 256, 256, 128, 128), (1024, 256, 256, 128, 128),
+                                         (520, 256, 272, 128, 16), (520, 320, 256, 64, 128)])
+def test_minner_plain_matches_jax_kernel(m, k, n, bk, bn, epi):
+    """K19 in K blocks of bk and column blocks of bn (at least two of each,
+    so the accumulator carries across K tiles and the RoPE columns start at
+    each block's offset), the rows padded to the JAX call's 512-row blocks
+    on the JAX side only: K = N = 256; a ragged N of 272 (the kernel's 128-
+    column tiles leave 16, the JAX call takes blocks of 16); a K of 320,
+    which the kernel's 64-row steps and the JAX call's 64-row blocks cut
+    into 5."""
+    rng, x, qt, pqt = _inputs(1 + m + (n - 256) + (k - 256), m, k, n)
     pad = (-m) % 512
     xj = jnp.pad(jnp.asarray(x, jnp.bfloat16), ((0, pad), (0, 0)))
     kw_j, kw_p = {}, {}
@@ -66,7 +69,7 @@ def test_minner_plain_matches_jax_kernel(m, epi):
     pos = rng.integers(0, 2048, m).astype(np.int32)
     rope = dict(rope_limit=128, rope_head=64, rope_theta=10000.0)
     want = jq._q8_matmul_minner(
-        xj, qt, s_blocked_n=128, block_k=128, block_m=512, out_dtype=jnp.bfloat16,
+        xj, qt, s_blocked_n=bn, block_k=bk, block_m=512, out_dtype=jnp.bfloat16,
         residual=kw_j.get("residual"), rope_pos=jnp.asarray(pos) if epi == "rope" else None,
         interpret=True, b=m, pad_m=pad, **rope)
     if epi == "rope":
