@@ -111,7 +111,8 @@ Phases, in order; each raises on failure and none is caught:
      q8_matmul_silu_minner (M 2048, H 11008, norm) and K16 q8_matmul_xheads
      (wo M 2048 over 32 heads of 128) against their plain versions at 7B
      shapes, each beside the K15/K17 tile on the same inputs (the K19
-     lines name K19's launch plan: its cluster size and raster order),
+     lines give K19's launch plan from its launcher: grid, tile, raster
+     order, cluster),
      cuBLAS on the weight dequantized to bf16, and the bound; the probe of
      tools/probe_xheads.py (K16 and K15 on the flat view of the same rows
      against the probe's fp32 product, K4 reading T-major q); two T-256
@@ -1927,13 +1928,11 @@ def phase_prefill_kernels() -> dict[str, dict]:
     norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
     out: dict[str, list] = {}
 
-    plan = (f"cluster {Q.MINNER_CLUSTER} along M, "
-            f"{'row tiles of a column tile' if Q.MINNER_M_MAJOR else 'column tiles of a row tile'}"
-            f" together")
-
-    def case(name, label, fn, plain_fn, tile_fn, lib_fn, n_bytes, flops):
-        if name != "q8_matmul_xheads":
-            label = f"{label}; {plan}"
+    def case(name, label, fn, plain_fn, tile_fn, lib_fn, n_bytes, flops, plan=None):
+        if plan is not None:  # K19's (m, n, gate): its launch plan, as prefill.cu builds it
+            p = Q.minner_launch_plan(*plan)
+            label = (f"{label}; grid {p['grid'][0]} x {p['grid'][1]} of {p['tile'][0]} x "
+                     f"{p['tile'][1]} tiles, blockIdx.x over {p['x_over']}, no cluster")
         r = q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops)
         r["tile_ms"] = cuda_ms(tile_fn)
         print(f"kernel {name} [{label}]: the K15/K17 tile on the same inputs ms "
@@ -1948,7 +1947,7 @@ def phase_prefill_kernels() -> dict[str, dict]:
          lambda i: Q.q8_matmul_minner(x, wo[i % 2], residual=res),
          lambda i: Q.q8_matmul_minner_plain(x, wo[i % 2], residual=res),
          lambda i: Q.q8_matmul(x, wo[i % 2], residual=res), lambda i: x @ wod[i % 2],
-         wbytes(d, d) + 3 * m * d * 2, 2 * m * d * d)
+         wbytes(d, d) + 3 * m * d * 2, 2 * m * d * d, plan=(m, d, False))
     x3 = x.view(m, 32, 128)
     case("q8_matmul_xheads", f"wo M {m}, 32 heads of 128, residual",
          lambda i: Q.q8_matmul_xheads(x3, wo[i % 2], residual=res),
@@ -1964,7 +1963,7 @@ def phase_prefill_kernels() -> dict[str, dict]:
          lambda i: Q.q8_matmul_minner_plain(xq, wo[i % 2], norm_weight=norm, **rope),
          lambda i: Q.q8_matmul(xq, wo[i % 2], norm_weight=norm, **rope),
          lambda i: xq @ wod[i % 2], wbytes(d, d) + 2 * mq * d * 2 + d * 4 + mq * 4,
-         2 * mq * d * d)
+         2 * mq * d * d, plan=(mq, d, False))
     del wo, wod
     w2, w2d = weights(hid, d)
     xh = rnd(m, hid)
@@ -1972,14 +1971,15 @@ def phase_prefill_kernels() -> dict[str, dict]:
          lambda i: Q.q8_matmul_minner(xh, w2[i % 2], residual=res),
          lambda i: Q.q8_matmul_minner_plain(xh, w2[i % 2], residual=res),
          lambda i: Q.q8_matmul(xh, w2[i % 2], residual=res), lambda i: xh @ w2d[i % 2],
-         wbytes(hid, d) + m * hid * 2 + 2 * m * d * 2, 2 * m * hid * d)
+         wbytes(hid, d) + m * hid * 2 + 2 * m * d * 2, 2 * m * hid * d, plan=(m, d, False))
     del w2, w2d, xh
     w13, w13d = weights(d, 2 * hid)
     case("q8_matmul_silu_minner", f"W1|W3 gate M {m}, norm",
          lambda i: Q.q8_matmul_silu_minner(x, w13[i % 2], norm_weight=norm),
          lambda i: Q.q8_matmul_silu_minner_plain(x, w13[i % 2], norm_weight=norm),
          lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm), lambda i: x @ w13d[i % 2],
-         wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid)
+         wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid,
+         plan=(m, hid, True))
     del w13, w13d
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in out.items()}

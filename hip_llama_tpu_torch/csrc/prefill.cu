@@ -9,28 +9,24 @@
 // (_q8_kernel_silu_minner). The TPU kernel puts M innermost: each (n, k)
 // weight tile is dequantized once into scratch and every row block sweeps
 // through it, with a full-height fp32 accumulator in 4-12 MiB of VMEM. An SM
-// has 227 KB of shared memory and the sums belong in registers, so here a
-// CTA computes a 256 x 128 output tile over the whole K on q8_wgmma.cuh's
-// pipelined mainloop (K15's tiles: a producer warpgroup copies x and the
-// int8 weight by cp.async into a ring; two consumer warpgroups run wgmma
-// m64n128k16 and dequantize step it + 1 while step it - 1's products run;
-// wgmma.wait_group 1; setmaxnreg), and the epilogue (the residual, or RoPE
-// from a cos/sin table one pass computes per call) or the gate bf16(h1 *
-// sigmoid(h1) * h3) (a B tile of 64 W1 columns beside the same 64 of W3)
-// runs on the fp32 sums in the tile's store: no workspace, no second pass,
-// no atomics. The TPU kernel's dequant-once becomes a thread-block cluster
-// of kC CTAs along M (the row tiles of one column tile): each step's B tile
-// is dequantized once a cluster, a 64 / kC-row share a CTA, and stored into
-// every CTA's B tile through distributed shared memory
-// (q8_wgmma.cuh::consume_cluster); the freed raw-weight stages go to the x
-// ring where they make room for one. The grid's rows are padded to whole
-// clusters (a CTA with no rows still dequantizes its share), and the row
-// tiles of a column tile run together (blockIdx.x over M) or the column
-// tiles of a row tile (kMMajor false, K15's order): the wrapper passes the
-// cluster size and the order, MINNER_CLUSTER and MINNER_M_MAJOR, which
-// timed fastest (PERF.md). The norm prologue, where given, is a pass of its
-// own first, as where the JAX call takes K19 (the norm has moved outside
-// its kernel).
+// has 227 KB of shared memory and the sums belong in registers, so here
+// both run the K15/K17 tiles (q8_wgmma.cuh's q8_tile_kernel and
+// launch_tiles), through entry points and launch counters of their own: a
+// CTA computes a 256 x 128 output tile over the whole K on the pipelined
+// mainloop (a producer warpgroup copies x and the int8 weight by cp.async
+// into a ring; two consumer warpgroups dequantize step it + 1's weight
+// tile, once per CTA of 256 rows, while step it - 1's wgmma m64n128k16 run,
+// and wait with wgmma.wait_group 1; setmaxnreg moves registers to the
+// consumers). The epilogue (the residual, or RoPE from a cos/sin table one
+// pass computes per call) or the gate bf16(h1 * sigmoid(h1) * h3) (a B
+// tile of 64 W1 columns beside the same 64 of W3) runs on the fp32 sums in
+// the tile's store: no workspace, no second pass, no atomics. Measured and
+// not kept (PERF.md): a thread-block cluster along M whose CTAs share each
+// step's dequantized weight tile through distributed shared memory (the
+// TPU kernel's dequant-once), slower; the row tiles of a column tile run
+// together, no faster. The norm prologue, where given, is a pass of its own
+// first, as where the JAX call takes K19 (the norm has moved outside its
+// kernel).
 //
 // Bound on an H100: at prefill M (2048) the product does 2M flops per
 // weight byte, far above the ~295 flop/byte ridge, so it is bound by
@@ -64,120 +60,6 @@ namespace {
 
 using namespace hipllama::q8;
 namespace wg = hipllama::q8wg;
-
-// ---------------------------------------------------------------------------
-// K19: q8_wgmma.cuh's mainloop on 256 x 128 tiles over the whole K, in
-// clusters of kC CTAs along M
-
-constexpr int kMiMB = 2;  // m64 blocks per consumer warpgroup: 256 rows a CTA
-
-// GATE: B tile columns 0-63 are W1 columns n0 .., 64-127 the same of W3 at
-// off2 = H (ncols = H), and the gate epilogue; else 128 adjacent columns
-// and q8_matmul's epilogue. ldq: the row stride of q and s. kMMajor:
-// blockIdx.x runs over the row tiles (the cluster's dimension), else over
-// the column tiles.
-template <bool GATE, int kC, bool kMMajor>
-__global__ void __launch_bounds__(wg::kThreads, 1) q8_minner_kernel(
-    const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    int M, int K, int ldq, int ncols, int off2, int gs, Epilogue e, bf16* __restrict__ out) {
-  using T = wg::Tile<kMiMB, kC>;
-  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
-  extern __shared__ __align__(1024) unsigned char mi_smem[];
-  const wg::Ring<kMiMB, kC> ring = wg::ring_init<kMiMB, kC>(mi_smem);
-  const int m0 = (kMMajor ? blockIdx.x : blockIdx.y) * T::kBM;
-  const int n0 = (kMMajor ? blockIdx.y : blockIdx.x) * kHalf;
-  const int rank = kC > 1 ? (int)wg::cluster_rank() : 0;
-  const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const int n_steps = (K + wg::kBK - 1) / wg::kBK;
-  const wg::Weight<kHalf> w{q, s, ldq, n0, ncols, off2, gs};
-  if (role == wg::kConsumers) {
-    wg::producer_regs();
-    // a CTA past M (the padding of the last cluster) copies row 0 as zeros
-    wg::produce(ring, [=](int m, int k) { return x + (size_t)(m < M ? m : 0) * K + k; }, m0, M,
-                K, w, n_steps, t, rank);
-  } else {
-    wg::consumer_regs();
-    float d[kMiMB][64];
-#pragma unroll
-    for (int mb = 0; mb < kMiMB; ++mb)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) d[mb][i] = 0.f;
-    if constexpr (kC == 1)
-      wg::consume<true>(
-          ring, n_steps, K, w, m0, M, role, t, d, [](int it) { return it == 0; },
-          [](int) { return false; }, [](int, const float(&)[kMiMB][64]) {});
-    else
-      wg::consume_cluster(ring, n_steps, K, w, m0, M, role, t, rank, d);
-    if (GATE)
-      wg::store_gate(d, m0, n0, M, ncols, role, t, out);
-    else
-      wg::store_tile(d, e, m0, n0, M, ncols, role, t, out);
-  }
-  // no CTA leaves while a peer may still store into its B tiles or arrive
-  // on its barriers
-  if constexpr (kC > 1) wg::cluster_sync();
-}
-
-// Once per kernel: wg::prepare, and with a cluster, that the card can run
-// one at all (cudaOccupancyMaxActiveClusters above 0), else an error that
-// every launch returns.
-template <typename Kernel>
-int prepare_minner(Kernel kernel, const cudaLaunchConfig_t& cfg) {
-  HIPLLAMA_TRY(wg::prepare(kernel, (int)cfg.dynamicSmemBytes));
-  if (cfg.numAttrs == 0) return 0;
-  int clusters = 0;
-  HIPLLAMA_TRY((int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg));
-  return clusters > 0 ? 0 : (int)cudaErrorLaunchOutOfResources;
-}
-
-template <bool GATE, int kC, bool kMMajor>
-int launch_minner_as(const void* x, const void* q, const void* s, int M, int K, int ldq,
-                     int ncols, int off2, int gs, const Epilogue& e, void* out, cudaStream_t st) {
-  using T = wg::Tile<kMiMB, kC>;
-  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
-  auto kernel = q8_minner_kernel<GATE, kC, kMMajor>;
-  // whole clusters: the last may hold CTAs past M
-  const int mtiles = ((M + T::kBM - 1) / T::kBM + kC - 1) / kC * kC;
-  const int ntiles = (ncols + kHalf - 1) / kHalf;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kMMajor ? kC : 1;
-  attr.val.clusterDim.y = kMMajor ? 1 : kC;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = kMMajor ? dim3(mtiles, ntiles) : dim3(ntiles, mtiles);
-  cfg.blockDim = dim3(wg::kThreads);
-  cfg.dynamicSmemBytes = T::kSmemBytes;
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = kC > 1 ? 1 : 0;
-  static const int ready = prepare_minner(kernel, cfg);
-  HIPLLAMA_TRY(ready);
-  HIPLLAMA_TRY((int)cudaLaunchKernelEx(&cfg, kernel, (const bf16*)x, (const int8_t*)q,
-                                       (const float*)s, M, K, ldq, ncols, off2, gs, e,
-                                       (bf16*)out));
-  return check_launch();
-}
-
-// the launch plan: cluster 1, 2 or 4 CTAs along M, the row tiles of a
-// column tile together (m_major) or the column tiles of a row tile
-template <bool GATE>
-int launch_minner(int cluster, int m_major, const void* x, const void* q, const void* s, int M,
-                  int K, int ldq, int ncols, int off2, int gs, const Epilogue& e, void* out,
-                  cudaStream_t st) {
-  if (M < 1 || K % 16 || ncols % 16 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
-  auto launch = launch_minner_as<GATE, 1, false>;
-  switch (2 * cluster + (m_major != 0)) {
-    case 2: break;
-    case 3: launch = launch_minner_as<GATE, 1, true>; break;
-    case 4: launch = launch_minner_as<GATE, 2, false>; break;
-    case 5: launch = launch_minner_as<GATE, 2, true>; break;
-    case 8: launch = launch_minner_as<GATE, 4, false>; break;
-    case 9: launch = launch_minner_as<GATE, 4, true>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return launch(x, q, s, M, K, ldq, ncols, off2, gs, e, out, st);
-}
 
 // ---------------------------------------------------------------------------
 // K16: q8_wgmma.cuh's mainloop, a head accumulator beside the running sum
@@ -224,14 +106,12 @@ HIPLLAMA_EXPORT_ERROR_STRING
 
 // K19: x (M, K) bf16, q (K, N) int8, s (K/gs, N) fp32; g, res and pos may be
 // null (no norm, no residual, no RoPE); xn_ws (M, K) bf16 when g is given;
-// rope_ws (M, rope_hs) fp32 for the RoPE table when pos is given; cluster
-// 1, 2 or 4 and m_major 0 or 1: launch_minner's plan. K % 16 == 0, N % 16
-// == 0, any gs that divides K.
+// rope_ws (M, rope_hs) fp32 for the RoPE table when pos is given. K % 16
+// == 0, N % 16 == 0, any gs that divides K.
 extern "C" int q8_matmul_minner(const void* x, const void* q, const void* s, const void* g,
                                 const void* res, const void* pos, void* out, void* xn_ws,
                                 void* rope_ws, int M, int K, int N, int gs, int rope_limit,
-                                int rope_hs, int cluster, int m_major, float rope_coef, float eps,
-                                void* stream) {
+                                int rope_hs, float rope_coef, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K % 16 || N % 16 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
   Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
@@ -245,14 +125,14 @@ extern "C" int q8_matmul_minner(const void* x, const void* q, const void* s, con
     HIPLLAMA_TRY(launch_rope_table(pos, M, rope_hs, rope_coef, (float*)rope_ws, st));
     e.rope_cs = (const float*)rope_ws;
   }
-  return launch_minner<false>(cluster, m_major, xin, q, s, M, K, N, N, 0, gs, e, out, st);
+  return launch_tiles<false>(xin, q, s, M, K, N, N, 0, gs, e, out, st);
 }
 
 // K19 silu: q13 (K, 2H); out (M, H); otherwise as q8_matmul_minner. H % 16
 // == 0.
 extern "C" int q8_matmul_silu_minner(const void* x, const void* q13, const void* s13,
                                      const void* g, void* out, void* xn_ws, int M, int K, int H,
-                                     int gs, int cluster, int m_major, float eps, void* stream) {
+                                     int gs, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K % 16 || H % 16 || gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
   const void* xin = x;
@@ -261,8 +141,20 @@ extern "C" int q8_matmul_silu_minner(const void* x, const void* q13, const void*
     xin = xn_ws;
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
-  return launch_minner<true>(cluster, m_major, xin, q13, s13, M, K, 2 * H, H, H, gs, none, out,
-                             st);
+  return launch_tiles<true>(xin, q13, s13, M, K, 2 * H, H, H, gs, none, out, st);
+}
+
+// K19's launch plan for an (M, N) product (the gate: N = H), as its
+// launches build it: plan[0..3] = the grid's x and y, the rows and the
+// output columns of a CTA's tile. The launch sets no cluster dimension.
+extern "C" int q8_minner_plan(int M, int N, int gate, int* plan) {
+  if (M < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid = gate ? tile_grid<true>(M, N) : tile_grid<false>(M, N);
+  plan[0] = (int)grid.x;
+  plan[1] = (int)grid.y;
+  plan[2] = TileT::kBM;
+  plan[3] = gate ? wg::kBN / 2 : wg::kBN;
+  return 0;
 }
 
 // K16: x3 bf16 with element (m, h, d) at m * sxm + h * sxh + d (sxm, sxh

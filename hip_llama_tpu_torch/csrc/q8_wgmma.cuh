@@ -1,11 +1,9 @@
 // A pipelined, dequantizing wgmma mainloop for Q8_0 products at prefill M,
 // in K15's reshape arithmetic (q8.cuh): w = bf16(f32(q) * s), bf16 x bf16
-// products summed in fp32. quant.cu's tiles (K15's q8_matmul and K17's
-// q8_matmul_silu above 16 rows, 256 rows a CTA) and prefill.cu's
-// q8_matmul_xheads (K16, 128 rows a CTA) run it, and prefill.cu's K19
-// (q8_matmul_minner, q8_matmul_silu_minner: 256 rows a CTA) in a
-// thread-block cluster along M whose CTAs share each step's dequantized
-// weight tile (consume_cluster).
+// products summed in fp32. The tiles at the end of this file (q8_tile_kernel,
+// 256 rows a CTA: K15's q8_matmul and K17's q8_matmul_silu above 16 rows in
+// quant.cu, K19's q8_matmul_minner and q8_matmul_silu_minner in prefill.cu)
+// and prefill.cu's q8_matmul_xheads (K16, 128 rows a CTA) run it.
 //
 // Bound on an H100: at M 2048 a product does 2M flops per weight byte, far
 // above the ~295 flop/byte ridge, so it is bound by operations on the bf16
@@ -51,6 +49,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "matmul_passes.cuh"
 #include "q8.cuh"
 
 namespace hipllama {
@@ -64,32 +63,24 @@ constexpr int kBTiles = 3;              // bf16 B tiles: two read by wgmmas in f
 constexpr int kConsumers = 2;           // consumer warpgroups
 constexpr int kThreads = 128 * (kConsumers + 1);  // warpgroups 0, 1 consume; 2 produces
 constexpr int kBTileBytes = kBN * kBK * 2;        // a B tile (16 KB)
-constexpr int kSmemMax = 232448;                  // the shared memory a block may take
+constexpr int kRawBytes = kBK * kBN;              // a step's int8 weight rows
+constexpr int kScaleBytes = 8 * kBN * 4;          // its scale rows (at most 8 groups)
 
 // The tile of x rows: kMB m64 blocks per consumer warpgroup, so kBM = 128
-// kMB rows per CTA; kC CTAs of a cluster along M share each step's B tile
-// (consume_cluster), each copying and dequantizing 64 / kC of its k rows.
-// The ring is as deep as fits beside the B tiles. Dynamic shared memory:
-// the ring's x tiles and the B tiles (1024-byte aligned, the swizzle atom),
-// the ring's raw weight and scale rows, then the barriers; the kernel
-// aligns its base itself (kC 1: 217 KB for kMB 1, 225 KB for kMB 2, of the
-// 227 KB a block may take).
-template <int kMB, int kC = 1>
+// kMB rows per CTA, and the ring's depth that fits beside them. Dynamic
+// shared memory: the ring's x tiles and the B tiles (1024-byte aligned,
+// the swizzle atom), the ring's raw weight and scale rows, then the
+// barriers; the kernel aligns its base itself (217 KB for kMB 1, 225 KB for
+// kMB 2, of the 227 KB a block may take).
+template <int kMB>
 struct Tile {
   static constexpr int kBM = 128 * kMB;
   static constexpr int kXBytes = kBM * kBK * 2;
-  static constexpr int kRawBytes = kBK / kC * kBN;      // a step's int8 weight rows (the share)
-  static constexpr int kScaleBytes = 8 / kC * kBN * 4;  // their scale rows (at most 8 / kC groups)
-  static constexpr int kBBarBytes = kC > 1 ? 2 * kBTiles * 8 : 0;  // the B tiles' barriers
-  static constexpr int kStageBytes = kXBytes + kRawBytes + kScaleBytes + 2 * 8;
-  static constexpr int kStages =
-      (kSmemMax - 1024 - kBTiles * kBTileBytes - kBBarBytes) / kStageBytes;
-  static constexpr int kSmemBytes =
-      1024 + kStages * kStageBytes + kBTiles * kBTileBytes + kBBarBytes;
+  static constexpr int kStages = kMB == 1 ? 6 : 4;
+  static constexpr int kSmemBytes = 1024 + kStages * (kXBytes + kRawBytes + kScaleBytes) +
+                                    kBTiles * kBTileBytes + 2 * kStages * 8;
   static_assert(kMB == 1 || kMB == 2, "64 or 128 rows per consumer");
-  static_assert(kC == 1 || kC == 2 || kC == 4, "a share of whole 8-row chunks and 4-column words");
-  static_assert(kC > 1 || kStages == (kMB == 1 ? 6 : 4), "the ring of the unclustered tiles");
-  static_assert(kSmemBytes <= kSmemMax, "the ring fits an SM's shared memory");
+  static_assert(kSmemBytes <= 232448, "the ring fits an SM's shared memory");
 };
 
 // The registers of a CTA's threads: each starts with kLaunchRegs (65536 /
@@ -176,46 +167,6 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool l
 }
 
 // ---------------------------------------------------------------------------
-// a thread-block cluster: its CTAs' shared memory through shared::cluster
-// addresses (mapa), their barriers at cluster scope
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// the shared::cluster address of shared address addr in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-// every thread of every CTA of the cluster (all threads of each warp)
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// arrive on the barrier at shared::cluster address bar, this thread's
-// earlier writes released at cluster scope
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// mbar_wait, acquiring at cluster scope what the arrivals released
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// ---------------------------------------------------------------------------
 // wgmma
 
 // a shared-memory matrix descriptor: a K-major tile of 128-byte rows in the
@@ -272,87 +223,66 @@ __device__ __forceinline__ void wgmma_m64n128(float d[64], uint64_t a, uint64_t 
       : "memory");
 }
 
-// One step of a consumer's products, committed as one group: its first
-// n_live m64 blocks of x (block mb at x tile address a + mb * 8 KB) times B
-// tile b, four k16 wgmmas each, the blocks' chains interleaved; d[mb] is
-// overwritten by its first where `fresh`. n_live is the same across the
-// warpgroup; with none live nothing is issued. kEvery: every block is
-// issued once one is live (those past M multiply the producer's zeros), so
-// that no branch sits between the wgmmas: around one, ptxas serializes
-// them (its C7520 note), which cost K19 about 10% (PERF.md, PR 15).
-template <int kMB, bool kEvery = false>
+// One step of a consumer's products, committed as one group: its kMB m64
+// blocks of x (block mb at x tile address a + mb * 8 KB) times B tile b,
+// four k16 wgmmas each, the blocks' chains interleaved; d[mb] is overwritten
+// by its first where `fresh`. Where the consumer has no live row nothing is
+// issued; else every block is, those past M multiplying the producer's
+// zeros, so that no branch sits between the wgmmas: around one, ptxas
+// serializes them (its C7520 note), which cost the 256-row tiles 7-10%
+// (PERF.md).
+template <int kMB>
 __device__ __forceinline__ void wgmma_step(float (&d)[kMB][64], uint32_t a, uint32_t b,
-                                           bool fresh, int n_live) {
-  if (n_live <= 0) return;
+                                           bool fresh, bool live) {
+  if (!live) return;
   const uint64_t da = wg_desc(a), db = wg_desc(b);
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)  // 32 bytes a k16 step: +2 in the descriptor
 #pragma unroll
     for (int mb = 0; mb < kMB; ++mb)
-      if (kEvery || mb < n_live)
-        wgmma_m64n128(d[mb], da + mb * (64 * 128 >> 4) + 2 * kk, db + 2 * kk,
-                      fresh && kk == 0 ? 0 : 1);
+      wgmma_m64n128(d[mb], da + mb * (64 * 128 >> 4) + 2 * kk, db + 2 * kk,
+                    fresh && kk == 0 ? 0 : 1);
   wg_commit();
 }
 
 // ---------------------------------------------------------------------------
 // the ring
 
-template <int kMB, int kC = 1>
+template <int kMB>
 struct Ring {
-  using T = Tile<kMB, kC>;
+  using T = Tile<kMB>;
   unsigned char* smem;                      // the generic address of x0
   uint32_t x0, b0, raw0, sc0, full0, empty0;  // shared addresses
   __device__ __forceinline__ uint32_t x(int st) const { return x0 + st * T::kXBytes; }
   __device__ __forceinline__ uint32_t b(int bt) const { return b0 + bt * kBTileBytes; }
-  __device__ __forceinline__ uint32_t raw(int st) const { return raw0 + st * T::kRawBytes; }
-  __device__ __forceinline__ uint32_t scales(int st) const { return sc0 + st * T::kScaleBytes; }
+  __device__ __forceinline__ uint32_t raw(int st) const { return raw0 + st * kRawBytes; }
+  __device__ __forceinline__ uint32_t scales(int st) const { return sc0 + st * kScaleBytes; }
   __device__ __forceinline__ uint32_t full(int st) const { return full0 + st * 8; }
   __device__ __forceinline__ uint32_t empty(int st) const { return empty0 + st * 8; }
-  // kC > 1: B tile bt holds its step (bfull), its readers are done (bempty)
-  __device__ __forceinline__ uint32_t bfull(int bt) const {
-    return empty0 + T::kStages * 8 + bt * 8;
-  }
-  __device__ __forceinline__ uint32_t bempty(int bt) const {
-    return empty0 + T::kStages * 8 + (kBTiles + bt) * 8;
-  }
 };
 
 // lay the ring out in dynamic shared memory and initialize its barriers
-// (every thread of the CTA calls it; it ends in __syncthreads, or with a
-// cluster in a cluster barrier, so that no peer arrives on a barrier or
-// stores into a B tile before they are set up)
-template <int kMB, int kC = 1>
-__device__ __forceinline__ Ring<kMB, kC> ring_init(unsigned char* smem) {
-  using T = Tile<kMB, kC>;
+// (every thread of the CTA calls it; it ends in __syncthreads)
+template <int kMB>
+__device__ __forceinline__ Ring<kMB> ring_init(unsigned char* smem) {
+  using T = Tile<kMB>;
   const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
-  Ring<kMB, kC> r;
+  Ring<kMB> r;
   r.smem = smem + (base - smem_u32(smem));
   r.x0 = base;
   r.b0 = base + T::kStages * T::kXBytes;
   r.raw0 = r.b0 + kBTiles * kBTileBytes;
-  r.sc0 = r.raw0 + T::kStages * T::kRawBytes;
-  r.full0 = r.sc0 + T::kStages * T::kScaleBytes;
+  r.sc0 = r.raw0 + T::kStages * kRawBytes;
+  r.full0 = r.sc0 + T::kStages * kScaleBytes;
   r.empty0 = r.full0 + T::kStages * 8;
   if (threadIdx.x == 0) {
     for (int s = 0; s < T::kStages; ++s) {
       mbar_init(r.full(s), 128);                 // the producer's threads
       mbar_init(r.empty(s), 128 * kConsumers);  // the consumers' threads
     }
-    if (kC > 1) {
-      for (int bt = 0; bt < kBTiles; ++bt) {
-        mbar_init(r.bfull(bt), 4 * kConsumers * kC);   // the cluster's consumer warps
-        mbar_init(r.bempty(bt), 4 * kConsumers * kC);  // the same
-      }
-    }
   }
-  if (kC > 1) {
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    cluster_sync();
-  } else {
-    __syncthreads();
-  }
+  __syncthreads();
   return r;
 }
 
@@ -374,21 +304,16 @@ struct Weight {
 // once `empty` says that step it's stage (it % kStages) is free, its copies
 // by cp.async: x's tile through x_at(m, k) (the address of x's elements k ..
 // k + 7 of row m, 16-byte aligned; zeros past M and K) into the swizzled x
-// tile, and the weight's int8 rows (raw_at's layout) and their scale rows:
-// all 64 of the step, or with a cluster of kC CTAs the 64 / kC from row
-// rank * 64 / kC (the share this CTA dequantizes for the cluster); rows
-// past K are left to the dequantization. Each thread's
+// tile, and the weight's 64 int8 rows (raw_at's layout) and their scale
+// rows; rows past K are left to the dequantization. Each thread's
 // cp.async.mbarrier.arrive.noinc has `full` count it when its copies of the
 // step have landed, so the producer never waits for a copy: it runs as far
 // ahead as the ring's free stages let it. pt: the thread's index in its
 // warpgroup.
-template <int kMB, int kC, int kHalf, typename XAt>
-__device__ __forceinline__ void produce(const Ring<kMB, kC>& ring, XAt x_at, int m0, int M,
-                                        int K, const Weight<kHalf>& w, int n_steps, int pt,
-                                        int rank = 0) {
-  using T = Tile<kMB, kC>;
-  constexpr int kRows = kBK / kC;  // the share's rows
-  constexpr int kScaleChunks = 8 / kC * 32;
+template <int kMB, int kHalf, typename XAt>
+__device__ __forceinline__ void produce(const Ring<kMB>& ring, XAt x_at, int m0, int M, int K,
+                                        const Weight<kHalf>& w, int n_steps, int pt) {
+  using T = Tile<kMB>;
   for (int it = 0; it < n_steps; ++it) {
     const int st = it % T::kStages, k0 = it * kBK;
     if (it >= T::kStages) mbar_wait(ring.empty(st), ((it / T::kStages) & 1) ^ 1);
@@ -399,23 +324,22 @@ __device__ __forceinline__ void produce(const Ring<kMB, kC>& ring, XAt x_at, int
       cp_async16(ring.x(st) + swz128(r, c), x_at(live ? m0 + r : m0, live ? k0 + 8 * c : 0),
                  live);
     }
-    const int kr = k0 + rank * kRows;  // the share's first row
 #pragma unroll
-    for (int i = 0; i < kRows * 8 / 128; ++i) {  // q: kRows rows of 8 chunks of 16 columns
+    for (int i = 0; i < kBK * 8 / 128; ++i) {  // q: kBK rows of 8 chunks of 16 columns
       const int e = pt + 128 * i, r = e >> 3, c = e & 7;
-      const bool live = w.live(16 * c) && kr + r < K;
+      const bool live = w.live(16 * c) && k0 + r < K;
       cp_async16(ring.raw(st) + raw_at(r, c),
-                 w.q + (live ? (size_t)(kr + r) * w.ldq + w.col(16 * c) : 0), live);
+                 w.q + (live ? (size_t)(k0 + r) * w.ldq + w.col(16 * c) : 0), live);
     }
-    // s: the groups of rows kr .. min(kr + kRows, K) - 1 (at most 8 / kC
-    // where gs % 8 == 0; none where kr >= K), 32 chunks of 4 columns each
-    const int g0 = kr / w.gs;
-    const int ng = w.gs % 8 ? 0 : (min(kr + kRows, K) - 1) / w.gs - g0 + 1;
+    // s: the groups of rows k0 .. min(k0 + 64, K) - 1 (at most 8 where gs
+    // % 8 == 0), 32 chunks of 4 columns each
+    const int g0 = k0 / w.gs;
+    const int ng = w.gs % 8 ? 0 : (min(k0 + kBK, K) - 1) / w.gs - g0 + 1;
 #pragma unroll
-    for (int i = 0; i < (kScaleChunks + 127) / 128; ++i) {
+    for (int i = 0; i < 8 * 32 / 128; ++i) {
       const int e = pt + 128 * i, g = e >> 5, c = e & 31;
       const bool live = w.live(4 * c);
-      if ((kC == 1 || e < kScaleChunks) && g < ng)
+      if (g < ng)
         cp_async16(ring.scales(st) + g * 512 + c * 16,
                    w.s + (size_t)(g0 + g) * w.ldq + (live ? w.col(4 * c) : 0), live);
     }
@@ -493,7 +417,7 @@ __device__ __forceinline__ void consumers_sync() {
 // The consumer warpgroups' loop over the n_steps steps of K (K and the
 // weight as the producer's, for dequant_step); c: the warpgroup (0, 1), t:
 // the thread in it; its x rows are m0 + 64 kMB c .., in kMB m64 blocks
-// (those at or past M multiply nothing). Step it: dequantize step it + 1's
+// (those at or past M multiply zeros). Step it: dequantize step it + 1's
 // weight into B tile (it + 1) % 3 while step it - 1's products run (that
 // tile's last reader, step it - 2, completed before the last barrier);
 // issue step it's wgmmas (x blocks of the stage times B tile it % 3, into
@@ -504,8 +428,7 @@ __device__ __forceinline__ void consumers_sync() {
 // tile (it + 1) % 3's halves together and, since both warpgroups have
 // waited, frees tile (it + 2) % 3 for the next dequantization. d holds the
 // last step's sum on return.
-template <bool kEvery = false, int kMB, int kHalf, typename Fresh, typename Reads,
-          typename StepDone>
+template <int kMB, int kHalf, typename Fresh, typename Reads, typename StepDone>
 __device__ __forceinline__ void consume(const Ring<kMB>& ring, int n_steps, int K,
                                         const Weight<kHalf>& w, int m0, int M, int c, int t,
                                         float (&d)[kMB][64], Fresh fresh, Reads reads,
@@ -513,7 +436,7 @@ __device__ __forceinline__ void consume(const Ring<kMB>& ring, int n_steps, int 
   using T = Tile<kMB>;
   const int ct = 128 * c + t;
   const int row0 = m0 + 64 * kMB * c;
-  const int n_live = M > row0 ? min(kMB, (M - row0 + 63) / 64) : 0;
+  const bool live = M > row0;
   mbar_wait(ring.full(0), 0);
   dequant_step(ring, 0, 0, K, w, ct);
   consumers_sync();
@@ -522,8 +445,8 @@ __device__ __forceinline__ void consume(const Ring<kMB>& ring, int n_steps, int 
       mbar_wait(ring.full((it + 1) % T::kStages), ((it + 1) / T::kStages) & 1);
       dequant_step(ring, it + 1, (it + 1) % kBTiles, K, w, ct);
     }
-    wgmma_step<kMB, kEvery>(d, ring.x(it % T::kStages) + c * kMB * 64 * 128,
-                            ring.b(it % kBTiles), fresh(it), n_live);
+    wgmma_step(d, ring.x(it % T::kStages) + c * kMB * 64 * 128, ring.b(it % kBTiles), fresh(it),
+               live);
     if (reads(it)) {
       wg_wait<0>();
 #pragma unroll
@@ -534,136 +457,6 @@ __device__ __forceinline__ void consume(const Ring<kMB>& ring, int n_steps, int 
     }
     if (it > 0) mbar_arrive(ring.empty((it - 1) % T::kStages));
     consumers_sync();
-  }
-  wg_wait<0>();
-#pragma unroll
-  for (int mb = 0; mb < kMB; ++mb) wg_fence_regs(d[mb]);
-}
-
-// ---------------------------------------------------------------------------
-// a cluster of kC CTAs along M (kC 2 or 4), one column tile: each step's B
-// tile is dequantized once a cluster, a share a CTA, and stored into the B
-// tile of every CTA of the cluster through distributed shared memory. A B
-// tile has two more barriers a CTA: `bfull` (arrivals of the cluster's
-// 8 kC consumer warps once their stores into it have landed) and `bempty`
-// (the same warps once their wgmmas on it have completed), so that no CTA
-// overwrites a peer's tile that the peer still reads.
-
-// Consumer thread ct (0 .. 255) of cluster CTA `rank` dequantizes its part
-// of the CTA's share of step it's weight (the step's rows 64 rank / kC ..,
-// kNb = 8 / kC chunks of 8 rows, as produce copies them): the 8 rows of
-// chunk b = rank kNb + ct % kNb of the kJ = 4 / kC tile columns n = 4 grp +
-// kJ sub .. (u = ct / kNb, grp = u % 32, sub = u / 32), in dequant_step's
-// arithmetic (zeros at or past K), each column's 8 values one 16-byte
-// chunk of B row n stored into B tile bt of every CTA of the cluster
-// (st.shared::cluster at the peers' addresses). Each warp then releases its
-// stores at cluster scope to every CTA's `bfull` of the tile, after the
-// proxy fence that lets wgmma's async proxy read them.
-template <int kMB, int kC, int kHalf>
-__device__ __forceinline__ void dequant_share(const Ring<kMB, kC>& ring, int it, int bt, int K,
-                                              const Weight<kHalf>& w, int ct, int rank) {
-  constexpr int kNb = 8 / kC, kJ = 4 / kC;
-  const int st = it % Tile<kMB, kC>::kStages, k0 = it * kBK;
-  const int lb = ct % kNb, u = ct / kNb, grp = u & 31, sub = u >> 5;
-  const int b = rank * kNb + lb;      // the thread's chunk of the step's rows
-  const int n = 4 * grp + kJ * sub;   // its first tile column
-  uint32_t o[kJ][4];
-  if (k0 + 8 * b >= K) {  // K % 8 == 0: a chunk's rows are all in or all out
-#pragma unroll
-    for (int j = 0; j < kJ; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[j][i] = 0u;
-  } else {
-    const unsigned char* raw = ring.smem + (ring.raw(st) - ring.x0);
-    uint32_t v[8];  // rows 8 b + r, columns 4 grp .. 4 grp + 3, biased to q + 128
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      v[r] = *reinterpret_cast<const uint32_t*>(raw + raw_at(8 * lb + r, grp >> 2) +
-                                                4 * (grp & 3)) ^
-             q8::kBias4;
-    float sn[kJ];  // the scales of columns n .. n + kJ - 1
-    if (w.gs % 8 == 0) {
-      const float* sp = reinterpret_cast<const float*>(ring.smem + (ring.scales(st) - ring.x0)) +
-                        ((k0 + 8 * b) / w.gs - (k0 + rank * (kBK / kC)) / w.gs) * kBN + n;
-#pragma unroll
-      for (int j = 0; j < kJ; ++j) sn[j] = sp[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      float f[8];
-      if (w.gs % 8 == 0) {
-#pragma unroll
-        for (int r = 0; r < 8; ++r) f[r] = q8::q_to_f(v[r], kJ * sub + j) * sn[j];
-      } else {
-        const bool live = w.live(n + j);
-        const float* sc = w.s + (live ? w.col(n + j) : 0);
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-          f[r] = q8::q_to_f(v[r], kJ * sub + j) *
-                 (live ? __ldg(sc + (size_t)((k0 + 8 * b + r) / w.gs) * w.ldq) : 0.f);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) o[j][i] = q8::bf16x2_bits(f[2 * i], f[2 * i + 1]);
-    }
-  }
-  const uint32_t dst = ring.b(bt);
-#pragma unroll
-  for (int q = 0; q < kC; ++q) {
-    const uint32_t pd = peer_addr(dst, q);
-#pragma unroll
-    for (int j = 0; j < kJ; ++j)
-      asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                       pd + swz128(n + j, b)),
-                   "r"(o[j][0]), "r"(o[j][1]), "r"(o[j][2]), "r"(o[j][3])
-                   : "memory");
-  }
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-  __syncwarp();
-  if ((ct & 31) == 0) {
-#pragma unroll
-    for (int q = 0; q < kC; ++q) mbar_arrive_cluster(peer_addr(ring.bfull(bt), q));
-  }
-}
-
-// consume's loop with the B tiles shared across the cluster (CTA `rank`),
-// every step's products fresh from zero at step 0 and read at the end.
-// Step it: once the stage has landed (`full`) and the cluster's readers of
-// B tile (it + 1) % 3 (step it - 2) are done (`bempty`), dequantize the
-// share of step it + 1 into that tile of every CTA; once the tile of step it
-// holds every share (`bfull`), issue step it's wgmmas; wait for step it - 1
-// (wgmma.wait_group 1), release its stage, and arrive on every CTA's
-// `bempty` of its tile. No named barrier: the barriers order the two
-// warpgroups as they order the CTAs.
-template <int kMB, int kC, int kHalf>
-__device__ __forceinline__ void consume_cluster(const Ring<kMB, kC>& ring, int n_steps, int K,
-                                                const Weight<kHalf>& w, int m0, int M, int c,
-                                                int t, int rank, float (&d)[kMB][64]) {
-  using T = Tile<kMB, kC>;
-  const int ct = 128 * c + t;
-  const int row0 = m0 + 64 * kMB * c;
-  const int n_live = M > row0 ? min(kMB, (M - row0 + 63) / 64) : 0;
-  mbar_wait(ring.full(0), 0);
-  dequant_share(ring, 0, 0, K, w, ct, rank);
-  for (int it = 0; it < n_steps; ++it) {
-    if (it + 1 < n_steps) {
-      const int j = it + 1, bt = j % kBTiles;
-      mbar_wait(ring.full(j % T::kStages), (j / T::kStages) & 1);
-      if (j >= kBTiles) mbar_wait_cluster(ring.bempty(bt), ((j / kBTiles) & 1) ^ 1);
-      dequant_share(ring, j, bt, K, w, ct, rank);
-    }
-    mbar_wait_cluster(ring.bfull(it % kBTiles), (it / kBTiles) & 1);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    wgmma_step<kMB, true>(d, ring.x(it % T::kStages) + c * kMB * 64 * 128,
-                          ring.b(it % kBTiles), it == 0, n_live);
-    wg_wait<1>();
-    if (it > 0) {
-      mbar_arrive(ring.empty((it - 1) % T::kStages));
-      if ((t & 31) == 0) {
-#pragma unroll
-        for (int q = 0; q < kC; ++q)
-          mbar_arrive_cluster(peer_addr(ring.bempty((it - 1) % kBTiles), q));
-      }
-    }
   }
   wg_wait<0>();
 #pragma unroll
@@ -723,3 +516,78 @@ __device__ __forceinline__ void store_gate(const float (&d)[kMB][64], int m0, in
 
 }  // namespace q8wg
 }  // namespace hipllama
+
+// ---------------------------------------------------------------------------
+// the tiles: y = [x's rows] @ dequant(q, s) with the epilogue or the gate in
+// the tile's store, K15's and K17's function above 16 rows and K19's. Each
+// source keeps its own copy (an anonymous namespace), as matmul_passes.cuh's.
+
+namespace {
+
+namespace wg = hipllama::q8wg;
+
+// A CTA takes kTileMB = 2 m64 blocks per consumer: 256 rows, so that each
+// dequantized weight element feeds 256 rows and a step's copies (x 32 KB,
+// the weight 8 KB) carry twice the products of a 128-row tile's (16 + 8 KB).
+constexpr int kTileMB = 2;
+using TileT = wg::Tile<kTileMB>;
+
+// GATE: B tile columns 0-63 are W1 columns n0 .., 64-127 the same of W3 at
+// off2 = H (ncols = H), and the gate epilogue; else 128 adjacent columns and
+// q8_matmul's epilogue. ldq is the row stride of q and s.
+template <bool GATE>
+__global__ void __launch_bounds__(wg::kThreads, 1) q8_tile_kernel(
+    const wg::bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
+    int M, int K, int ldq, int ncols, int off2, int gs, hipllama::q8::Epilogue e,
+    wg::bf16* __restrict__ out) {
+  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
+  extern __shared__ __align__(1024) unsigned char tile_smem[];
+  const wg::Ring<kTileMB> ring = wg::ring_init<kTileMB>(tile_smem);
+  const int m0 = blockIdx.y * TileT::kBM, n0 = blockIdx.x * kHalf;
+  const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int n_steps = (K + wg::kBK - 1) / wg::kBK;
+  const wg::Weight<kHalf> w{q, s, ldq, n0, ncols, off2, gs};
+  if (role == wg::kConsumers) {
+    wg::producer_regs();
+    wg::produce(ring, [=](int m, int k) { return x + (size_t)m * K + k; }, m0, M, K, w, n_steps,
+                t);
+  } else {
+    wg::consumer_regs();
+    float d[kTileMB][64];
+#pragma unroll
+    for (int mb = 0; mb < kTileMB; ++mb)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[mb][i] = 0.f;
+    wg::consume(
+        ring, n_steps, K, w, m0, M, role, t, d, [](int it) { return it == 0; },
+        [](int) { return false; }, [](int, const float(&)[kTileMB][64]) {});
+    if (GATE)
+      wg::store_gate(d, m0, n0, M, ncols, role, t, out);
+    else
+      wg::store_tile(d, e, m0, n0, M, ncols, role, t, out);
+  }
+}
+
+// The grid of an (M, ncols) product: the column tiles of a row tile
+// together (blockIdx.x over N), which timed faster than the row tiles of a
+// column tile at the QKV product and tied at K19's shapes (PERF.md).
+template <bool GATE>
+dim3 tile_grid(int M, int ncols) {
+  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
+  return dim3((ncols + kHalf - 1) / kHalf, (M + TileT::kBM - 1) / TileT::kBM);
+}
+
+template <bool GATE>
+int launch_tiles(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
+                 int off2, int gs, const hipllama::q8::Epilogue& e, void* out, cudaStream_t st) {
+  if (M < 1 || K % 16 || ncols % 16 || ldq % 16 || gs < 1 || K % gs)
+    return (int)cudaErrorInvalidValue;
+  static const int ready = wg::prepare(q8_tile_kernel<GATE>, TileT::kSmemBytes);
+  HIPLLAMA_TRY(ready);
+  q8_tile_kernel<GATE><<<tile_grid<GATE>(M, ncols), wg::kThreads, TileT::kSmemBytes, st>>>(
+      (const wg::bf16*)x, (const int8_t*)q, (const float*)s, M, K, ldq, ncols, off2, gs, e,
+      (wg::bf16*)out);
+  return check_launch();
+}
+
+}  // namespace

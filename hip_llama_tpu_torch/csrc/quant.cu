@@ -23,7 +23,7 @@
 // pass adds the slices in a fixed order and applies the epilogue. At
 // prefill M (B*T up to 4088) the product does 2M flops per weight byte and
 // is bound by operations on the bf16 tensor cores: the tiled path
-// (q8_tile_kernel) runs q8_wgmma.cuh's pipelined mainloop, a producer
+// (q8_wgmma.cuh's q8_tile_kernel) runs its pipelined mainloop, a producer
 // warpgroup copying x and the int8 weight into a 4-stage ring and two
 // consumer warpgroups issuing wgmma m64n128k16 on 256 x 128 tiles (128
 // rows each; the gate: 64 W1 columns beside the same 64 of W3, gated in
@@ -87,50 +87,8 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_gemv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// tiled path (M > 16): q8_wgmma.cuh's pipelined mainloop
-
-// GATE: B tile columns 0-63 are W1 columns n0 .., 64-127 the same of W3 at
-// off2 = H (ncols = H), and the gate epilogue; else 128 adjacent columns and
-// q8_matmul's epilogue. ldq is the row stride of q and s. A CTA takes
-// kTileMB = 2 m64 blocks per consumer: 256 rows, so that each dequantized
-// weight element feeds 256 rows and a step's copies (x 32 KB, the weight 8
-// KB) carry twice the products of a 128-row tile's (16 + 8 KB). The grid
-// runs the column tiles of a row tile together (blockIdx.x over N), which
-// timed faster than the row tiles of a column tile at the QKV product.
-constexpr int kTileMB = 2;
-using TileT = wg::Tile<kTileMB>;
-
-template <bool GATE>
-__global__ void __launch_bounds__(wg::kThreads, 1) q8_tile_kernel(
-    const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    int M, int K, int ldq, int ncols, int off2, int gs, Epilogue e, bf16* __restrict__ out) {
-  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
-  extern __shared__ __align__(1024) unsigned char tile_smem[];
-  const wg::Ring<kTileMB> ring = wg::ring_init<kTileMB>(tile_smem);
-  const int m0 = blockIdx.y * TileT::kBM, n0 = blockIdx.x * kHalf;
-  const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const int n_steps = (K + wg::kBK - 1) / wg::kBK;
-  const wg::Weight<kHalf> w{q, s, ldq, n0, ncols, off2, gs};
-  if (role == wg::kConsumers) {
-    wg::producer_regs();
-    wg::produce(ring, [=](int m, int k) { return x + (size_t)m * K + k; }, m0, M, K, w, n_steps,
-                t);
-  } else {
-    wg::consumer_regs();
-    float d[kTileMB][64];
-#pragma unroll
-    for (int mb = 0; mb < kTileMB; ++mb)
-#pragma unroll
-      for (int i = 0; i < 64; ++i) d[mb][i] = 0.f;
-    wg::consume(
-        ring, n_steps, K, w, m0, M, role, t, d, [](int it) { return it == 0; },
-        [](int) { return false; }, [](int, const float(&)[kTileMB][64]) {});
-    if (GATE)
-      wg::store_gate(d, m0, n0, M, ncols, role, t, out);
-    else
-      wg::store_tile(d, e, m0, n0, M, ncols, role, t, out);
-  }
-}
+// tiled path (M > 16): q8_wgmma.cuh's q8_tile_kernel and launch_tiles on
+// its pipelined mainloop
 
 // The mainloop's products alone, for timing its schedule: every CTA runs
 // n_steps steps of the consumers' wgmmas (128 x 128 tiles) on ring tiles
@@ -159,7 +117,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1) wgmma_probe_kernel(float* __r
   for (int i = 0; i < 64; ++i) d[0][i] = 0.f;
   for (int it = 0; it < n_steps; ++it) {
     wg::wgmma_step(d, ring.x(it % T::kStages) + role * 64 * 128, ring.b(it % wg::kBTiles),
-                   false, 1);
+                   false, true);
     wg::wg_wait<kInFlight>();
     wg::consumers_sync();
   }
@@ -208,21 +166,6 @@ int launch_gemv(const void* x, const void* q, const void* s, float* part, int M,
                 : launch_gemv_kernel<8, false>(x, q, s, part, M, K, N, gs, split, st);
   return fast ? launch_gemv_kernel<16, true>(x, q, s, part, M, K, N, gs, split, st)
               : launch_gemv_kernel<16, false>(x, q, s, part, M, K, N, gs, split, st);
-}
-
-template <bool GATE>
-int launch_tiles(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
-                 int off2, int gs, const Epilogue& e, void* out, cudaStream_t st) {
-  if (M < 1 || K % 16 || ncols % 16 || ldq % 16 || gs < 1 || K % gs)
-    return (int)cudaErrorInvalidValue;
-  static const int ready = wg::prepare(q8_tile_kernel<GATE>, TileT::kSmemBytes);
-  HIPLLAMA_TRY(ready);
-  constexpr int kHalf = GATE ? wg::kBN / 2 : wg::kBN;
-  const dim3 grid((ncols + kHalf - 1) / kHalf, (M + TileT::kBM - 1) / TileT::kBM);
-  q8_tile_kernel<GATE><<<grid, wg::kThreads, TileT::kSmemBytes, st>>>(
-      (const bf16*)x, (const int8_t*)q, (const float*)s, M, K, ldq, ncols, off2, gs, e,
-      (bf16*)out);
-  return check_launch();
 }
 
 }  // namespace

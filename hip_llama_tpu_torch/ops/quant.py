@@ -56,15 +56,16 @@ reads and passes down (`minner=`):
 - HIPLLAMA_PREFILL_MINNER=1 sends large-M products to K19,
   `q8_matmul_minner` and `q8_matmul_silu_minner` (quant.py:1126, :677-731),
   where the TPU kernel dequantizes each weight tile once and sweeps every
-  row through it. Here K19 runs K15's and K17's wgmma tiles over the whole
-  K (csrc/prefill.cu), each step's weight tile dequantized once by a
-  thread-block cluster along M and shared through distributed shared
-  memory (`MINNER_CLUSTER`), the epilogue or gate in the tile's store. The
-  arithmetic is K15's and K17's in reshape math; only the schedule
-  differs. q8_matmul and q8_matmul_silu take it where the JAX wrappers
-  take theirs (`minner_engages`, `minner_silu_engages`): above 512 rows, in
-  reshape math (after the `a8` decline), with no norm prologue left in the
-  kernel, a flat output and column blocks that fit.
+  row through it. Here K19 runs K15's and K17's wgmma tile kernel over the
+  whole K (csrc/q8_wgmma.cuh) through entry points and launch counters of
+  its own (csrc/prefill.cu), each weight tile dequantized once per CTA of
+  256 rows, the epilogue or gate in the tile's store (a cluster of CTAs
+  along M sharing one dequantized tile timed slower: PERF.md), so its
+  outputs are the tiles' bit for bit (the JAX package's K19 sums in
+  another order). q8_matmul and q8_matmul_silu take it where the
+  JAX wrappers take theirs (`minner_engages`, `minner_silu_engages`):
+  above 512 rows, in reshape math (after the `a8` decline), with no norm
+  prologue left in the kernel, a flat output and column blocks that fit.
 - HIPLLAMA_PREFILL_XHEADS=1 makes the contiguous prefill's wo
   `q8_matmul_xheads` (K16, quant.py:424): the attention output read as
   (M, heads, head size), one fp32 partial per head added in head order.
@@ -80,6 +81,7 @@ reads and passes down (`minner=`):
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 import os
@@ -126,13 +128,6 @@ _A8_PLAIN_BYTES = 256 * 2**20
 Q8_BLOCK_M = 512
 # q8_matmul_xheads's own block_n (quant.py:431), which the JAX model leaves
 XHEADS_BLOCK_N = 512
-# K19's launch plan (csrc/prefill.cu): the CTAs of a thread-block cluster
-# along M that share each step's dequantized weight tile (1, 2 or 4), and
-# whether the row tiles of a column tile run together (True) or the column
-# tiles of a row tile (K15's order); the fastest as timed (PERF.md)
-MINNER_CLUSTERS = (1, 2, 4)
-MINNER_CLUSTER = 2
-MINNER_M_MAJOR = True
 WGMMA_STEP_K = 64  # rows of K a step of csrc/q8_wgmma.cuh's mainloop takes (kBK)
 
 
@@ -1040,37 +1035,25 @@ q8_matmul_ffn.launches_tc = 0
 # (HIPLLAMA_PREFILL_XHEADS)
 
 
-def _minner_plan(cluster: int, m_major: bool) -> tuple[int, int]:
-    if cluster not in MINNER_CLUSTERS:
-        raise ValueError(f"K19 takes a cluster of {MINNER_CLUSTERS} CTAs, got {cluster}")
-    return cluster, int(bool(m_major))
-
-
 def q8_matmul_minner(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
                      residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
-                     rope_theta: float = 10000.0, cluster: int = MINNER_CLUSTER,
-                     m_major: bool = MINNER_M_MAJOR):
+                     rope_theta: float = 10000.0):
     """q8_matmul's function in reshape math where the JAX package takes
-    `_q8_matmul_minner` (K19): 256 x 128 output tiles over the whole K on
-    csrc/q8_wgmma.cuh's mainloop, the sums in registers and the residual or
-    RoPE epilogue in the tile's store; each step's weight tile is
-    dequantized once by a thread-block cluster of `cluster` CTAs along M
-    and shared through distributed shared memory, as the TPU kernel
-    dequantizes each tile once for every row (csrc/prefill.cu); `m_major`
-    runs the row tiles of a column tile together. The defaults are the
-    fastest plan; the others are for timing it. The norm, when given, is a
-    pass of its own first, as where the JAX call takes K19. Allocates the
-    output and, where given a norm or RoPE, the normed rows and the RoPE
-    table: no workspace. q8_matmul routes here under
-    HIPLLAMA_PREFILL_MINNER=1. Replaces hip_llama_tpu/ops/quant.py::
-    _q8_matmul_minner."""
+    `_q8_matmul_minner` (K19): K15's tile kernel (csrc/q8_wgmma.cuh; entry
+    point in csrc/prefill.cu), 256 x 128 output tiles over the whole K, each
+    weight tile dequantized once per CTA into shared memory while the
+    previous step's wgmmas run, the sums in registers and the residual or
+    RoPE epilogue in the tile's store. The norm, when given, is a pass of its own first, as
+    where the JAX call takes K19. Allocates the output and, where given a
+    norm or RoPE, the normed rows and the RoPE table: no workspace.
+    q8_matmul routes here under HIPLLAMA_PREFILL_MINNER=1. Replaces
+    hip_llama_tpu/ops/quant.py::_q8_matmul_minner."""
     dev = _device(x, "q8_matmul_minner")
     if dev.type == "cpu":
         return q8_matmul_minner_plain(x, qt, norm_weight=norm_weight, norm_eps=norm_eps,
                                       residual=residual, rope_pos=rope_pos,
                                       rope_limit=rope_limit, rope_head=rope_head,
                                       rope_theta=rope_theta)
-    plan = _minner_plan(cluster, m_major)
     m, k = _check_x("x", x)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
@@ -1079,11 +1062,11 @@ def q8_matmul_minner(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
     xn = torch.empty_like(x) if norm_weight is not None else None
     cs = (torch.empty((m, rope_head), dtype=torch.float32, device=dev)
           if rope_pos is not None else None)
-    f = _build.bind("prefill", "q8_matmul_minner", "p" * 9 + "i" * 8 + "ff" + "p")
+    f = _build.bind("prefill", "q8_matmul_minner", "p" * 9 + "i" * 6 + "ff" + "p")
     rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
            _ptr(rope_pos), out.data_ptr(), _ptr(xn), _ptr(cs), m, k, n, qt.group_size,
            rope_limit if rope_pos is not None else 0,
-           rope_head if rope_pos is not None else 1, *plan,
+           rope_head if rope_pos is not None else 1,
            rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0, norm_eps, _stream())
     _build.check(rc, "prefill", "q8_matmul_minner")
     q8_matmul_minner.launches += 1
@@ -1093,19 +1076,17 @@ def q8_matmul_minner(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
 q8_matmul_minner.launches = 0
 
 
-def q8_matmul_silu_minner(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
-                          cluster: int = MINNER_CLUSTER, m_major: bool = MINNER_M_MAJOR):
-    """q8_matmul_silu's function in reshape math with K19's kernel: a B
+def q8_matmul_silu_minner(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5):
+    """q8_matmul_silu's function in reshape math on K17's tile kernel: a B
     tile of 64 columns of W1 beside the same 64 of W3, the gate bf16(h1 *
-    sigmoid(h1) * h3) on the fp32 sums in the tile's store; `cluster` and
-    `m_major` as q8_matmul_minner's. Allocates the output and, where given
-    a norm, the normed rows. q8_matmul_silu routes here under
-    HIPLLAMA_PREFILL_MINNER=1. Replaces the K19 branch of hip_llama_tpu/
-    ops/quant.py::q8_matmul_silu (:677-731, `_q8_kernel_silu_minner`)."""
+    sigmoid(h1) * h3) on the fp32 sums in the tile's store. Allocates the
+    output and, where given a norm, the normed rows. q8_matmul_silu routes
+    here under HIPLLAMA_PREFILL_MINNER=1. Replaces the K19 branch of
+    hip_llama_tpu/ops/quant.py::q8_matmul_silu (:677-731,
+    `_q8_kernel_silu_minner`)."""
     dev = _device(x, "q8_matmul_silu_minner")
     if dev.type == "cpu":
         return q8_matmul_silu_minner_plain(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
-    plan = _minner_plan(cluster, m_major)
     m, k = _check_x("x", x)
     n2 = _check_weight("qt13", qt13, k, dev)
     h = n2 // 2
@@ -1114,15 +1095,28 @@ def q8_matmul_silu_minner(x, qt13: QTensor, *, norm_weight=None, norm_eps: float
     _check_norm(norm_weight, k, dev)
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    f = _build.bind("prefill", "q8_matmul_silu_minner", "p" * 6 + "i" * 6 + "f" + "p")
+    f = _build.bind("prefill", "q8_matmul_silu_minner", "p" * 6 + "i" * 4 + "f" + "p")
     rc = f(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), _ptr(norm_weight), out.data_ptr(),
-           _ptr(xn), m, k, h, qt13.group_size, *plan, norm_eps, _stream())
+           _ptr(xn), m, k, h, qt13.group_size, norm_eps, _stream())
     _build.check(rc, "prefill", "q8_matmul_silu_minner")
     q8_matmul_silu_minner.launches += 1
     return out
 
 
 q8_matmul_silu_minner.launches = 0
+
+
+def minner_launch_plan(m: int, n: int, gate: bool = False) -> dict:
+    """K19's launch plan for an (m, n) product (the gate: n = H), as
+    csrc/prefill.cu builds its launches: the grid (x, y), a CTA's tile
+    (rows, output columns) and the dimension that blockIdx.x runs over ("N":
+    the column tiles of a row tile together). The launch sets no cluster
+    dimension. Needs the card's build."""
+    plan = (ctypes.c_int * 4)()
+    f = _build.bind("prefill", "q8_minner_plan", "iiip")
+    _build.check(f(m, n, int(gate), ctypes.addressof(plan)), "prefill", "q8_minner_plan")
+    gx, gy, bm, bn = plan
+    return {"grid": (gx, gy), "tile": (bm, bn), "x_over": "N" if gx == -(-n // bn) else "M"}
 
 
 def q8_matmul_xheads(x3, qt: QTensor, *, residual=None, mode: str = "reshape",

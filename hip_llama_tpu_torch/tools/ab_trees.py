@@ -52,12 +52,11 @@ so that the package is imported from the checkout), once per checkout.
 - minner: K19 at chip_smoke's phase-11 shapes (7B widths, Q8_0 group size
   64): q8_matmul_minner on wo M 2048 with the residual, q M 1024 with the
   norm and RoPE and W2 M 2048 with the residual, q8_matmul_silu_minner on
-  the W1|W3 gate M 2048 with the norm, under every launch plan the
-  checkout's K19 takes (cluster size x raster order, ops/quant.py
-  MINNER_CLUSTERS; one plan where it has none), each beside the K15/K17
-  tile on the same inputs, and K16 on wo M 2048 (32 heads of 128); each
-  the least of three CUDA-event means; then two T-256 chunks of the
-  7B-width Q8 + int8-KV model over 8 slots profiled with
+  the W1|W3 gate M 2048 with the norm, each between two timings of the
+  K15/K17 tile on the same inputs (before and after K19, so that the order
+  they run in does not decide the comparison), and K16 on wo M 2048 (32
+  heads of 128); each the least of three CUDA-event means; then two T-256
+  chunks of the 7B-width Q8 + int8-KV model over 8 slots profiled with
   HIPLLAMA_PREFILL_MINNER=1 and on the default route (device time by
   kernel); chip_smoke's 16-request serve of that model with both prefill
   knobs and on the default route (tok/s, TTFT p50 and p95); and the port
@@ -428,20 +427,18 @@ def minner(cs) -> None:
     norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
     rope = dict(rope_pos=torch.arange(mq, dtype=torch.int32, device=dev) % 512, rope_limit=d,
                 rope_head=128, rope_theta=10000.0)
-    plans = ([dict(cluster=c, m_major=mm) for c in Q.MINNER_CLUSTERS for mm in (False, True)]
-             if hasattr(Q, "MINNER_CLUSTERS") else [{}])
     cases = {
         f"wo M {m}, residual": (
-            lambda i, p: Q.q8_matmul_minner(x, wo[i % 2], residual=res, **p),
+            lambda i: Q.q8_matmul_minner(x, wo[i % 2], residual=res),
             lambda i: Q.q8_matmul(x, wo[i % 2], residual=res)),
         f"q M {mq}, norm + RoPE": (
-            lambda i, p: Q.q8_matmul_minner(xq, wo[i % 2], norm_weight=norm, **rope, **p),
+            lambda i: Q.q8_matmul_minner(xq, wo[i % 2], norm_weight=norm, **rope),
             lambda i: Q.q8_matmul(xq, wo[i % 2], norm_weight=norm, **rope)),
         f"W2 M {m}, residual": (
-            lambda i, p: Q.q8_matmul_minner(xh, w2[i % 2], residual=res, **p),
+            lambda i: Q.q8_matmul_minner(xh, w2[i % 2], residual=res),
             lambda i: Q.q8_matmul(xh, w2[i % 2], residual=res)),
         f"gate M {m}, norm": (
-            lambda i, p: Q.q8_matmul_silu_minner(x, w13[i % 2], norm_weight=norm, **p),
+            lambda i: Q.q8_matmul_silu_minner(x, w13[i % 2], norm_weight=norm),
             lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm)),
     }
 
@@ -451,12 +448,9 @@ def minner(cs) -> None:
         return min(cs.cuda_ms(fn) for _ in range(3))
 
     for label, (k19, tile) in cases.items():
-        row = []
-        for p in plans:
-            name = (f"C {p['cluster']} {'M-major' if p['m_major'] else 'N-major'}" if p
-                    else "K19")
-            row.append(f"{name} {best(lambda i, p=p: k19(i, p)):.4f}")
-        print(f"minner {label} (ms): {'; '.join(row)}; tile {best(tile):.4f}", flush=True)
+        before = best(tile)
+        print(f"minner {label} (ms): tile {before:.4f}; K19 {best(k19):.4f}; tile again "
+              f"{best(tile):.4f}", flush=True)
     x3 = x.view(m, 32, 128)
     print(f"minner K16 wo M {m}, 32 heads (ms): "
           f"{best(lambda i: Q.q8_matmul_xheads(x3, wo[i % 2], residual=res)):.4f}", flush=True)
