@@ -53,7 +53,9 @@ Phases, in order; each raises on failure and none is caught:
      and launches (K23 32 per decode step);
   7. int4 weights (--quant q4, v4 files): K21 q4_matmul and K22
      q4_matmul_silu against their plain versions at 7B shapes (group size
-     32), with the same timings; the golden fixture with --quant q4 (bf16
+     32; M 8 on the GEMV, M 128 and 2048 on the wgmma tiles: QKV with the
+     norm and RoPE, wo and W2 with the residual, the gate), with the same
+     timings; the golden fixture with --quant q4 (bf16
      and int8 cache) scored against the JAX package's assets/out/cpu_q4 and
      cpu_q4_kv8, a v4 file of it written by the port (byte-identical to the
      --quant q4 outputs) and a --dequant run of that file; and the 7B-width
@@ -286,6 +288,10 @@ KERNEL_SOURCES = {
     # int4 weights
     "q4_matmul": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:299"),
     "q4_matmul_silu": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:547"),
+    # K21 and K22 above 16 rows: the int4 format of q8_wgmma.cuh's tiles
+    "q4_matmul_wgmma": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:299"),
+    "q4_matmul_silu_wgmma": ("hip_llama_tpu_torch/csrc/quant4.cu",
+                             "hip_llama_tpu/ops/quant4.py:547"),
     # the paged KV cache: K6, K7, K11 and K13 with their int8 branches, K10
     # and K14
     "attention_decode_paged": ("hip_llama_tpu_torch/csrc/attention.cu",
@@ -378,9 +384,10 @@ Q8_INT8_PATH = ("q8_matmul", "q8_matmul_wgmma", "q8_layer_fused_int8", "q8_matmu
                 "q8_matmul_silu", "q8_matmul_silu_wgmma", "kv_commit_rows_int8",
                 "kv_write_chunk_int8", "scale_write_chunk", "attention_prefill_int8")
 # the int4 path: K21 and K22 carry every product, whatever the row count
-# and HIPLLAMA_LAYER_FUSE say; the decode layer is four kernels
-Q4_PATH = ("q4_matmul", "q4_matmul_silu", "attention_decode_fused", "kv_commit_rows",
-           "kv_write_chunk", "attention_prefill")
+# and HIPLLAMA_LAYER_FUSE say (the prefill chunks' on the wgmma tiles); the
+# decode layer is four kernels
+Q4_PATH = ("q4_matmul", "q4_matmul_wgmma", "q4_matmul_silu", "q4_matmul_silu_wgmma",
+           "attention_decode_fused", "kv_commit_rows", "kv_write_chunk", "attention_prefill")
 # the wrapper launches of one 7B decode step on each path
 _L = LLAMA2_7B.n_layers
 DENSE_STEP = {"attention_decode": _L, "kv_commit_rows": 1}
@@ -495,7 +502,8 @@ Q8_KNOBS_PATH = ("q8_matmul_xheads", "q8_matmul_minner", "q8_matmul_silu_minner"
 GOLDEN_Q4_RUNS = {
     "q4": (["--quant", "q4"], "1", "cpu_q4", Q4_PATH, True),
     "q4 --kv int8": (["--quant", "q4", "--kv", "int8"], "1", "cpu_q4_kv8",
-                     ("q4_matmul", "q4_matmul_silu", "attention_decode_fused_int8",
+                     ("q4_matmul", "q4_matmul_wgmma", "q4_matmul_silu",
+                      "q4_matmul_silu_wgmma", "attention_decode_fused_int8",
                       "kv_commit_rows_int8", "kv_write_chunk_int8", "scale_write_chunk",
                       "attention_prefill_int8"), False),
 }
@@ -1204,11 +1212,13 @@ def phase_kernels_int8() -> dict[str, dict]:
 
 def phase_q4_kernels() -> dict[str, dict]:
     """K21 and K22 at Llama-2-7B shapes, bf16 activations, int4 weights of
-    group size 32. Library yardstick: cuBLAS `x @ w` on the weight
-    dequantized to bf16 beforehand (four times the packed weight bytes).
-    Bytes count the packed weights (K/2 x N), fp32 scales, activations in
-    and out once each. Weights rotate over enough copies (at least 56 MB)
-    that each call finds its weights cold in the 50 MB L2."""
+    group size 32: the GEMV up to 16 rows, the wgmma tiles above
+    (q4_rows_kernel; M 2048 a T-256 chunk of 8 slots, M 128 a T-16 one).
+    Library yardstick: cuBLAS `x @ w` on the weight dequantized to bf16
+    beforehand (four times the packed weight bytes). Bytes count the packed
+    weights (K/2 x N), fp32 scales, activations in and out once each.
+    Weights rotate over enough copies (at least 56 MB) that each call finds
+    its weights cold in the 50 MB L2."""
     dev = torch.device("cuda")
     d, hid, voc, gs = 4096, 11008, 32000, 32
     nqkv = 3 * d
@@ -1227,6 +1237,9 @@ def phase_q4_kernels() -> dict[str, dict]:
     def deq(ws):
         return [Q4.q4_dequantize(w).to(torch.bfloat16) for w in ws]
 
+    def k21(m, name="q4_matmul"):
+        return name if Q4.q4_rows_kernel(m) == "gemv" else f"{name}_wgmma"
+
     norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
     out: dict[str, list] = {}
 
@@ -1239,27 +1252,28 @@ def phase_q4_kernels() -> dict[str, dict]:
     wq = weights(d, nqkv, 2)
     wqb = deq(wq)
     rope = dict(rope_limit=2 * d, rope_head=128, rope_theta=10000.0)
-    for m in (8, 2048):
+    for m in (8, 2048, 128):
         x = rnd(m, d)
         pos = (torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32, device=dev)
                if m == 8 else torch.arange(m, dtype=torch.int32, device=dev) % 512)
-        case("q4_matmul", f"QKV M {m}, norm + RoPE",
+        case(k21(m), f"QKV M {m}, norm + RoPE",
              lambda i: Q4.q4_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: Q4.q4_matmul_plain(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: x @ wqb[i % 2],
              wbytes(d, nqkv) + m * d * 2 + m * nqkv * 2 + d * 4 + m * 4, 2 * m * d * nqkv)
     del wq, wqb
-    x = rnd(8, d)
     for label, k, copies in (("wo", d, 6), ("W2", hid, 2)):
         w = weights(k, d, copies)
         wb = deq(w)
-        xk, res = rnd(8, k), rnd(8, d)
-        case("q4_matmul", f"{label} M 8, K {k}, residual",
-             lambda i: Q4.q4_matmul(xk, w[i % copies], residual=res),
-             lambda i: Q4.q4_matmul_plain(xk, w[i % copies], residual=res),
-             lambda i: xk @ wb[i % copies], wbytes(k, d) + 8 * k * 2 + 2 * 8 * d * 2,
-             2 * 8 * k * d)
+        for m in (8, 2048):
+            xk, res = rnd(m, k), rnd(m, d)
+            case(k21(m), f"{label} M {m}, K {k}, residual",
+                 lambda i: Q4.q4_matmul(xk, w[i % copies], residual=res),
+                 lambda i: Q4.q4_matmul_plain(xk, w[i % copies], residual=res),
+                 lambda i: xk @ wb[i % copies], wbytes(k, d) + m * k * 2 + 2 * m * d * 2,
+                 2 * m * k * d)
         del w, wb
+    x = rnd(8, d)
     wc = weights(d, voc, 1)
     wcb = deq(wc)
     case("q4_matmul", "classifier M 8, norm",
@@ -1272,16 +1286,16 @@ def phase_q4_kernels() -> dict[str, dict]:
     # K22 at decode and prefill rows
     w13 = weights(d, 2 * hid, 2)
     w13b = deq(w13)
-    for m in (8, 2048):
+    for m in (8, 2048, 128):
         x = rnd(m, d)
-        case("q4_matmul_silu", f"W1|W3 gate M {m}, norm",
+        case(k21(m, "q4_matmul_silu"), f"W1|W3 gate M {m}, norm",
              lambda i: Q4.q4_matmul_silu(x, w13[i % 2], norm_weight=norm),
              lambda i: Q4.q4_matmul_silu_plain(x, w13[i % 2], norm_weight=norm),
              lambda i: x @ w13b[i % 2],
              wbytes(d, 2 * hid) + m * d * 2 + m * hid * 2 + d * 4, 2 * m * d * 2 * hid)
     del w13, w13b
-    # the kernels line carries each kernel's first decode case; max_abs_err
-    # over all cases
+    # the kernels line carries each kernel's first case (QKV and the gate:
+    # M 8 on the GEMV, M 2048 on the tiles); max_abs_err over all cases
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in out.items()}
 

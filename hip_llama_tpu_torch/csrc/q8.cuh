@@ -100,6 +100,16 @@ __device__ __forceinline__ float q_to_f(uint32_t biased4, int j) {
   return __uint_as_float(__byte_perm(biased4, 0x4B000000u, 0x7540 + j)) - 8388736.f;
 }
 
+// The int4 form (quant4.cu's packing, code + 8 in each nibble): a word's
+// low nibbles are v & kLowNibbles, its high ones (v >> 4) & kLowNibbles;
+// byte j of such a word of nibbles, placed in the mantissa of 2^23 by one
+// byte permute, less 2^23 + 8, is f32(code) exactly.
+constexpr uint32_t kLowNibbles = 0x0F0F0F0Fu;
+
+__device__ __forceinline__ float nib_to_f(uint32_t nib4, int j) {
+  return __uint_as_float(__byte_perm(nib4, 0x4B000000u, 0x7540 + j)) - 8388616.f;
+}
+
 // bf16(a) in the low half, bf16(b) in the high half
 __device__ __forceinline__ uint32_t bf16x2_bits(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);

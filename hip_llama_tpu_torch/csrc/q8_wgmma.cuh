@@ -1,9 +1,14 @@
-// A pipelined, dequantizing wgmma mainloop for Q8_0 products at prefill M,
-// in K15's reshape arithmetic (q8.cuh): w = bf16(f32(q) * s), bf16 x bf16
-// products summed in fp32. The tiles at the end of this file (q8_tile_kernel,
-// 256 rows a CTA: K15's q8_matmul and K17's q8_matmul_silu above 16 rows in
-// quant.cu, K19's q8_matmul_minner and q8_matmul_silu_minner in prefill.cu)
-// and prefill.cu's q8_matmul_xheads (K16, 128 rows a CTA) run it.
+// A pipelined, dequantizing wgmma mainloop for Q8_0 and int4 products at
+// prefill M, in K15's reshape arithmetic (q8.cuh) and K21's `dequant` one,
+// which are the same: w = bf16(f32(code) * s), bf16 x bf16 products summed in
+// fp32. The weight's format is a template policy (`Weight<kHalf, kBits>`:
+// the producer's weight and scale copies and the dequantization follow it;
+// the ring, the B tiles, the wgmmas and the epilogues do not). The tiles at
+// the end of this file (q8_tile_kernel, 256 rows a CTA: K15's q8_matmul and
+// K17's q8_matmul_silu above 16 rows in quant.cu, K19's q8_matmul_minner and
+// q8_matmul_silu_minner in prefill.cu, K21's q4_matmul and K22's
+// q4_matmul_silu above 16 rows in quant4.cu) and prefill.cu's
+// q8_matmul_xheads (K16, 128 rows a CTA) run it.
 //
 // Bound on an H100: at M 2048 a product does 2M flops per weight byte, far
 // above the ~295 flop/byte ridge, so it is bound by operations on the bf16
@@ -19,11 +24,13 @@
 //  - the producer walks K in steps of kBK = 64 (one 128-byte row of bf16,
 //    the 128B swizzle atom) through a ring of kStages stages: the x tile
 //    (kBM x 64 bf16, read in place through the caller's address functor) by
-//    cp.async into the swizzled K-major layout, the int8 weight tile (64 x
-//    128, its columns from one or two bases: `Weight`) and, where gs % 8 ==
-//    0, its scale rows. cp.async.mbarrier.arrive.noinc has the `full`
-//    barrier count each thread's copies as they land, so the producer waits
-//    only for free stages. A last step past K % 64 is zero-filled;
+//    cp.async into the swizzled K-major layout, the weight tile (64 int8 x
+//    128, or int4 32 packed rows of both halves' nibbles x 128; its columns
+//    from one or two bases: `Weight`) and, where gs % 8 == 0, its scale
+//    rows. cp.async.mbarrier.arrive.noinc has the `full` barrier count each
+//    thread's copies as they land, so the producer waits only for free
+//    stages. A last step past K % 64 is zero-filled (int4: past K/2 % 32 in
+//    each half);
 //  - the consumers' 256 threads dequantize step it + 1's tile into the
 //    third of three bf16 B tiles while step it - 1's wgmmas run, then issue
 //    step it's and wait with wgmma.wait_group 1, so the tensor pipe does not
@@ -286,13 +293,28 @@ __device__ __forceinline__ Ring<kMB> ring_init(unsigned char* smem) {
   return r;
 }
 
-// The weight a CTA's B tile reads: q (K, ldq) int8 and s (K / gs, ldq)
-// fp32, row-major. B tile column n (0 .. 127) is weight column n0 + n %
-// kHalf + (n / kHalf) * off2, live where n0 + n % kHalf < ncols: with kHalf
-// 128, 128 adjacent columns; with 64, the gate's 64 columns of W1 from n0
-// beside the same 64 of W3 at off2 = H.
-template <int kHalf>
+// The weight a CTA's B tile reads, in one of two formats (kBits), each step
+// 64 contraction rows of B:
+//  - 8, Q8_0: q (K, ldq) int8 and s (K / gs, ldq) fp32, row-major. Step it
+//    takes rows k0 = 64 it ..: B row kb is contraction row k0 + kb, and the
+//    x tile's 16-byte chunk c holds x's columns k0 + 8 c ..;
+//  - 4, int4 packed half-split as quant4.cu's: q (K/2, ldq) int8, byte p
+//    holding contraction row p in its low nibble and K/2 + p in its high
+//    one, each as code + 8; s (K / gs, ldq) fp32 with (K/2) % gs == 0, so
+//    that the high half's groups start at scale row K / (2 gs). Step it
+//    takes the packed rows p0 = 32 it .. (kRows: 4 KB of q at 128 columns):
+//    B rows 0-31 are their low nibbles (contraction rows p0 ..) and 32-63
+//    their high nibbles (K/2 + p0 ..); x chunks 0-3 hold x's columns p0 ..
+//    and 4-7 K/2 + p0 ... Each step's products sum the low half and then
+//    the high half into one accumulator.
+// Both take ceil(K / 64) steps. B tile column n (0 .. 127) is weight column
+// n0 + n % kHalf + (n / kHalf) * off2, live where n0 + n % kHalf < ncols:
+// with kHalf 128, 128 adjacent columns; with 64, the gate's 64 columns of W1
+// from n0 beside the same 64 of W3 at off2 = H.
+template <int kHalf, int kBits = 8>
 struct Weight {
+  static_assert(kBits == 8 || kBits == 4, "Q8_0 bytes or int4 nibbles");
+  static constexpr int kRows = kBits == 8 ? kBK : kBK / 2;  // q rows a step
   const int8_t* q;
   const float* s;
   int ldq, n0, ncols, off2, gs;
@@ -300,48 +322,80 @@ struct Weight {
   __device__ __forceinline__ bool live(int n) const { return n0 + n % kHalf < ncols; }
 };
 
+// B rows 8 c .. 8 c + 7 of step it, which the x tile's 16-byte chunk c
+// meets: their first contraction row (x's column), their first row among
+// the step's kRows q rows in the ring, and whether they lie in K (all or
+// none: K % 16 == 0; for int4 K % 32 == 0, so K/2 % 16 == 0). An int4
+// step past K/2 % 32 has dead rows in the middle of both its halves (B rows
+// 16-31 and 48-63 where K/2 % 32 == 16).
+struct Chunk {
+  int k, raw;
+  bool in;
+};
+template <int kBits>
+__device__ __forceinline__ Chunk chunk_at(int it, int c, int K) {
+  if constexpr (kBits == 8) {
+    const int k = it * kBK + 8 * c;
+    return {k, 8 * c, k < K};
+  } else {
+    const int kh = K >> 1, p = it * (kBK / 2) + 8 * (c & 3);
+    return {(c >> 2) * kh + p, 8 * (c & 3), p < kh};
+  }
+}
+
 // The producer warpgroup's loop over the n_steps = ceil(K / 64) steps of K:
 // once `empty` says that step it's stage (it % kStages) is free, its copies
 // by cp.async: x's tile through x_at(m, k) (the address of x's elements k ..
-// k + 7 of row m, 16-byte aligned; zeros past M and K) into the swizzled x
-// tile, and the weight's 64 int8 rows (raw_at's layout) and their scale
-// rows; rows past K are left to the dequantization. Each thread's
-// cp.async.mbarrier.arrive.noinc has `full` count it when its copies of the
-// step have landed, so the producer never waits for a copy: it runs as far
-// ahead as the ring's free stages let it. pt: the thread's index in its
-// warpgroup.
-template <int kMB, int kHalf, typename XAt>
+// k + 7 of row m, 16-byte aligned; zeros past M and K, and for int4 past
+// K/2 in each half) into the swizzled x tile, and the weight's kRows q rows
+// (raw_at's layout) and their scale rows (int4: the low half's groups in
+// ring rows 0-3, the high half's in 4-7); rows past K are left to the
+// dequantization. Each thread's cp.async.mbarrier.arrive.noinc has `full`
+// count it when its copies of the step have landed, so the producer never
+// waits for a copy: it runs as far ahead as the ring's free stages let it.
+// pt: the thread's index in its warpgroup.
+template <int kMB, int kHalf, int kBits, typename XAt>
 __device__ __forceinline__ void produce(const Ring<kMB>& ring, XAt x_at, int m0, int M, int K,
-                                        const Weight<kHalf>& w, int n_steps, int pt) {
+                                        const Weight<kHalf, kBits>& w, int n_steps, int pt) {
   using T = Tile<kMB>;
+  using W = Weight<kHalf, kBits>;
+  const int qrows = kBits == 8 ? K : K / 2;  // the rows of q
   for (int it = 0; it < n_steps; ++it) {
-    const int st = it % T::kStages, k0 = it * kBK;
+    const int st = it % T::kStages, k0 = it * W::kRows;
     if (it >= T::kStages) mbar_wait(ring.empty(st), ((it / T::kStages) & 1) ^ 1);
 #pragma unroll
     for (int i = 0; i < T::kBM * 8 / 128; ++i) {  // x: kBM rows of 8 chunks
       const int e = pt + 128 * i, r = e >> 3, c = e & 7;
-      const bool live = m0 + r < M && k0 + 8 * c < K;
-      cp_async16(ring.x(st) + swz128(r, c), x_at(live ? m0 + r : m0, live ? k0 + 8 * c : 0),
-                 live);
+      const Chunk ch = chunk_at<kBits>(it, c, K);
+      const bool live = m0 + r < M && ch.in;
+      cp_async16(ring.x(st) + swz128(r, c), x_at(live ? m0 + r : m0, live ? ch.k : 0), live);
     }
 #pragma unroll
-    for (int i = 0; i < kBK * 8 / 128; ++i) {  // q: kBK rows of 8 chunks of 16 columns
+    for (int i = 0; i < W::kRows * 8 / 128; ++i) {  // q: kRows rows of 8 chunks of 16 columns
       const int e = pt + 128 * i, r = e >> 3, c = e & 7;
-      const bool live = w.live(16 * c) && k0 + r < K;
+      const bool live = w.live(16 * c) && k0 + r < qrows;
       cp_async16(ring.raw(st) + raw_at(r, c),
                  w.q + (live ? (size_t)(k0 + r) * w.ldq + w.col(16 * c) : 0), live);
     }
-    // s: the groups of rows k0 .. min(k0 + 64, K) - 1 (at most 8 where gs
-    // % 8 == 0), 32 chunks of 4 columns each
+    // s: the groups of q rows k0 .. min(k0 + kRows, qrows) - 1 (at most 8,
+    // int4 4 a half, where gs % 8 == 0), 32 chunks of 4 columns each
     const int g0 = k0 / w.gs;
-    const int ng = w.gs % 8 ? 0 : (min(k0 + kBK, K) - 1) / w.gs - g0 + 1;
+    const int ng = w.gs % 8 ? 0 : (min(k0 + W::kRows, qrows) - 1) / w.gs - g0 + 1;
 #pragma unroll
     for (int i = 0; i < 8 * 32 / 128; ++i) {
       const int e = pt + 128 * i, g = e >> 5, c = e & 31;
       const bool live = w.live(4 * c);
-      if (g < ng)
-        cp_async16(ring.scales(st) + g * 512 + c * 16,
-                   w.s + (size_t)(g0 + g) * w.ldq + (live ? w.col(4 * c) : 0), live);
+      if constexpr (kBits == 8) {
+        if (g < ng)
+          cp_async16(ring.scales(st) + g * 512 + c * 16,
+                     w.s + (size_t)(g0 + g) * w.ldq + (live ? w.col(4 * c) : 0), live);
+      } else {  // ring row g: group g0 + g % 4 of half g / 4
+        if ((g & 3) < ng)
+          cp_async16(ring.scales(st) + g * 512 + c * 16,
+                     w.s + (size_t)((g >> 2) * (qrows / w.gs) + g0 + (g & 3)) * w.ldq +
+                         (live ? w.col(4 * c) : 0),
+                     live);
+      }
     }
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(ring.full(st))
                  : "memory");
@@ -351,23 +405,27 @@ __device__ __forceinline__ void produce(const Ring<kMB>& ring, XAt x_at, int m0,
 
 // Consumer thread ct (0 .. 255) dequantizes its share of step `it`'s weight
 // into B tile bt: w = bf16(f32(q) * s) for the 8 k rows 8 b .. 8 b + 7 (b =
-// ct % 8) of the 4 tile columns 16 cw + 4 a .. + 3 (cw = ct / 32, a = ct %
-// 32 / 8). It loads the 8 rows' words of its 4 columns (raw_at: a warp's
-// loads hit 32 banks) and their 4 scales as one 16-byte word (the 8 rows
+// ct % 8; chunk_at) of the 4 tile columns 16 cw + 4 a .. + 3 (cw = ct / 32,
+// a = ct % 32 / 8). It loads the 8 rows' words of its 4 columns (raw_at: a
+// warp's loads hit 32 banks; the int4 step's 32 q rows hit 16, each word
+// read by the two threads b and b + 4, which take its low and its high
+// nibbles: a broadcast) and their 4 scales as one 16-byte word (the 8 rows
 // share a group where gs % 8 == 0; else each row's scales are read from
 // s), and stores each column's 8 k values as one 16-byte chunk of B row n
 // (K-major, swizzled): the 8 threads of a store phase hold the 8 chunks of
 // one row. Rows at or past K (the zero-filled tail of the last step) are
 // stored as zeros, whatever the ring's scale rows hold there. f32(q): the
-// biased byte placed in the mantissa of 2^23 (q8::q_to_f).
-template <int kMB, int kHalf>
+// biased byte or the nibble placed in the mantissa of 2^23 (q8::q_to_f,
+// q8::nib_to_f).
+template <int kMB, int kHalf, int kBits>
 __device__ __forceinline__ void dequant_step(const Ring<kMB>& ring, int it, int bt, int K,
-                                             const Weight<kHalf>& w, int ct) {
-  const int st = it % Tile<kMB>::kStages, k0 = it * kBK;
+                                             const Weight<kHalf, kBits>& w, int ct) {
+  const int st = it % Tile<kMB>::kStages, k0 = it * Weight<kHalf, kBits>::kRows;
   const int b = ct & 7, a = (ct >> 3) & 3, cw = ct >> 5;
   const int n = 16 * cw + 4 * a;  // the thread's first tile column
   const uint32_t dst = ring.b(bt);
-  if (k0 + 8 * b >= K) {  // K % 8 == 0: a chunk's rows are all in or all out
+  const Chunk ch = chunk_at<kBits>(it, b, K);
+  if (!ch.in) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(dst + swz128(n + j, b)),
@@ -375,28 +433,38 @@ __device__ __forceinline__ void dequant_step(const Ring<kMB>& ring, int it, int 
                    : "memory");
   } else {
     const unsigned char* raw = ring.smem + (ring.raw(st) - ring.x0);
-    uint32_t v[8];  // rows 8 b + r, columns n .. n + 3, biased to q + 128
+    uint32_t v[8];  // rows 8 b + r, columns n .. n + 3: biased to q + 128, or nibbles
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      v[r] = *reinterpret_cast<const uint32_t*>(raw + raw_at(8 * b + r, cw) + 4 * a) ^ q8::kBias4;
-    float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);  // the scales of columns n .. n + 3
+    for (int r = 0; r < 8; ++r) {
+      const uint32_t word =
+          *reinterpret_cast<const uint32_t*>(raw + raw_at(ch.raw + r, cw) + 4 * a);
+      if constexpr (kBits == 8)
+        v[r] = word ^ q8::kBias4;
+      else
+        v[r] = (word >> (b & 4)) & q8::kLowNibbles;  // b 0-3: low nibbles, 4-7: high
+    }
+    // the scales of columns n .. n + 3, from the ring's row of the chunk's
+    // group (int4: the high half's rows from 4)
+    float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
     if (w.gs % 8 == 0)
-      sv = *reinterpret_cast<const float4*>(ring.smem + (ring.scales(st) - ring.x0) +
-                                            (((k0 + 8 * b) / w.gs - k0 / w.gs) * kBN + n) * 4);
+      sv = *reinterpret_cast<const float4*>(
+          ring.smem + (ring.scales(st) - ring.x0) +
+          (((k0 + ch.raw) / w.gs - k0 / w.gs + (kBits == 8 ? 0 : 4 * (b >> 2))) * kBN + n) * 4);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       float f[8];
       if (w.gs % 8 == 0) {
         const float sn = j == 0 ? sv.x : j == 1 ? sv.y : j == 2 ? sv.z : sv.w;
 #pragma unroll
-        for (int r = 0; r < 8; ++r) f[r] = q8::q_to_f(v[r], j) * sn;
+        for (int r = 0; r < 8; ++r)
+          f[r] = (kBits == 8 ? q8::q_to_f(v[r], j) : q8::nib_to_f(v[r], j)) * sn;
       } else {
         const bool live = w.live(n + j);
         const float* sc = w.s + (live ? w.col(n + j) : 0);
 #pragma unroll
         for (int r = 0; r < 8; ++r)
-          f[r] = q8::q_to_f(v[r], j) *
-                 (live ? __ldg(sc + (size_t)((k0 + 8 * b + r) / w.gs) * w.ldq) : 0.f);
+          f[r] = (kBits == 8 ? q8::q_to_f(v[r], j) : q8::nib_to_f(v[r], j)) *
+                 (live ? __ldg(sc + (size_t)((ch.k + r) / w.gs) * w.ldq) : 0.f);
       }
       asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst + swz128(n + j, b)),
                    "r"(q8::bf16x2_bits(f[0], f[1])), "r"(q8::bf16x2_bits(f[2], f[3])),
@@ -428,9 +496,9 @@ __device__ __forceinline__ void consumers_sync() {
 // tile (it + 1) % 3's halves together and, since both warpgroups have
 // waited, frees tile (it + 2) % 3 for the next dequantization. d holds the
 // last step's sum on return.
-template <int kMB, int kHalf, typename Fresh, typename Reads, typename StepDone>
+template <int kMB, int kHalf, int kBits, typename Fresh, typename Reads, typename StepDone>
 __device__ __forceinline__ void consume(const Ring<kMB>& ring, int n_steps, int K,
-                                        const Weight<kHalf>& w, int m0, int M, int c, int t,
+                                        const Weight<kHalf, kBits>& w, int m0, int M, int c, int t,
                                         float (&d)[kMB][64], Fresh fresh, Reads reads,
                                         StepDone step_done) {
   using T = Tile<kMB>;
@@ -534,8 +602,10 @@ using TileT = wg::Tile<kTileMB>;
 
 // GATE: B tile columns 0-63 are W1 columns n0 .., 64-127 the same of W3 at
 // off2 = H (ncols = H), and the gate epilogue; else 128 adjacent columns and
-// q8_matmul's epilogue. ldq is the row stride of q and s.
-template <bool GATE>
+// q8_matmul's epilogue. ldq is the row stride of q and s. kBits: the
+// weight's format (Weight): 8, Q8_0 (K15, K17, K19); 4, int4 packed
+// half-split (quant4.cu's K21 and K22 above 16 rows).
+template <bool GATE, int kBits = 8>
 __global__ void __launch_bounds__(wg::kThreads, 1) q8_tile_kernel(
     const wg::bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
     int M, int K, int ldq, int ncols, int off2, int gs, hipllama::q8::Epilogue e,
@@ -546,7 +616,7 @@ __global__ void __launch_bounds__(wg::kThreads, 1) q8_tile_kernel(
   const int m0 = blockIdx.y * TileT::kBM, n0 = blockIdx.x * kHalf;
   const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
   const int n_steps = (K + wg::kBK - 1) / wg::kBK;
-  const wg::Weight<kHalf> w{q, s, ldq, n0, ncols, off2, gs};
+  const wg::Weight<kHalf, kBits> w{q, s, ldq, n0, ncols, off2, gs};
   if (role == wg::kConsumers) {
     wg::producer_regs();
     wg::produce(ring, [=](int m, int k) { return x + (size_t)m * K + k; }, m0, M, K, w, n_steps,
@@ -577,14 +647,18 @@ dim3 tile_grid(int M, int ncols) {
   return dim3((ncols + kHalf - 1) / kHalf, (M + TileT::kBM - 1) / TileT::kBM);
 }
 
-template <bool GATE>
+// K: the contraction's rows (int4: twice q's); K % 16 == 0, gs dividing K
+// (int4: K % 32 == 0, gs dividing K/2, so that each half holds whole groups)
+template <bool GATE, int kBits = 8>
 int launch_tiles(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
                  int off2, int gs, const hipllama::q8::Epilogue& e, void* out, cudaStream_t st) {
-  if (M < 1 || K % 16 || ncols % 16 || ldq % 16 || gs < 1 || K % gs)
+  if (M < 1 || K % 16 || ncols % 16 || ldq % 16 || gs < 1 || K % gs ||
+      (kBits == 4 && (K % 32 || (K / 2) % gs)))
     return (int)cudaErrorInvalidValue;
-  static const int ready = wg::prepare(q8_tile_kernel<GATE>, TileT::kSmemBytes);
+  static const int ready = wg::prepare(q8_tile_kernel<GATE, kBits>, TileT::kSmemBytes);
   HIPLLAMA_TRY(ready);
-  q8_tile_kernel<GATE><<<tile_grid<GATE>(M, ncols), wg::kThreads, TileT::kSmemBytes, st>>>(
+  q8_tile_kernel<GATE, kBits><<<tile_grid<GATE>(M, ncols), wg::kThreads, TileT::kSmemBytes,
+                                st>>>(
       (const wg::bf16*)x, (const int8_t*)q, (const float*)s, M, K, ldq, ncols, off2, gs, e,
       (wg::bf16*)out);
   return check_launch();

@@ -25,18 +25,20 @@
 // bf16 weights with its group's scales and multiplies them by x[k'] and
 // x[K/2 + k'] of every activation row, held transposed in shared memory.
 // A second pass adds the slices in a fixed order and applies the epilogue
-// (q8.cuh::split_epilogue_at, split_gate_at). At prefill M (B*T up to 2048)
-// the product does 4M flops per packed byte and is bound by operations: the
-// tiled path dequantizes each packed 32 x 128 tile into two bf16 tiles in
-// shared memory (rows k0.. and K/2 + k0..) and runs bf16 tensor-core
-// products (nvcuda::wmma, fp32 accumulators) of both halves into one
-// accumulator on 128 x 128 output tiles (64 x 128 for the gate, which
-// keeps W1 and W3 tiles side by side). The rmsnorm prologue is a pass of
-// its own that writes xn once (M x K bf16, which stays in L2;
-// matmul_passes.cuh, with the GEMV path's second pass). The nibbles
-// become floats by one byte permute into the mantissa of 2^23, off the
-// conversion unit; a lop3/prmt conversion straight to bf16 pairs, cp.async
-// or TMA staging and wgmma are for later.
+// (q8.cuh::split_epilogue_at, split_gate_at). At prefill M (B*T up to 4088)
+// the product does 4M flops per packed byte and is bound by operations on
+// the bf16 tensor cores: the tiled path is the Q8 products' pipelined wgmma
+// mainloop (q8_wgmma.cuh's q8_tile_kernel<GATE, 4>, launch_tiles): a
+// producer warpgroup copies x and 32 packed rows of the weight a step into
+// a 4-stage ring, and two consumer warpgroups turn the step's low and high
+// nibbles into the 64 k rows of one bf16 B tile (rows k0.. and K/2 + k0..,
+// with x's columns to match) while the last step's wgmmas m64n128k16 run,
+// on 256 x 128 output tiles (the gate: 64 W1 columns beside the same 64 of
+// W3, gated in registers). The rmsnorm prologue is a pass of its own that
+// writes xn once (M x K bf16, which stays in L2), and RoPE reads each row's
+// cos and sin from a table one pass computes (matmul_passes.cuh, with the
+// GEMV path's second pass). The nibbles become floats by one byte permute
+// into the mantissa of 2^23, off the conversion unit (q8.cuh::nib_to_f).
 //
 // q4_matmul_a8 and q4_matmul_silu_a8 are the `a8` (w4a8) branches of the
 // two (a8.cuh; quant4.py:139-171, :218-232): the activations quantized per
@@ -44,18 +46,17 @@
 // codes (nibble - 8, exact in int8) in int8 x int8 dots with its half of x,
 // int32 sums per group, the fp32 rescale per group, the same epilogues.
 
-#include <mma.h>
 #include <stdint.h>
 
 #include "a8.cuh"
 #include "common.cuh"
 #include "matmul_passes.cuh"
 #include "q8.cuh"
+#include "q8_wgmma.cuh"
 
 namespace {
 
 using namespace hipllama::q8;
-namespace wmma = nvcuda::wmma;
 
 constexpr int kQ4KMax = 512;              // packed rows per GEMV task at most
 constexpr int kQ4BN = 32 * 8;             // columns per GEMV task: 8 per lane
@@ -87,16 +88,9 @@ __device__ __forceinline__ void load_xs(bf16 (*xs)[MAXM], const bf16* x, int M, 
     xs[kk][m] = m < M ? x[(size_t)(m0 + m) * K + kbeg + kk] : __float2bfloat16_rn(0.f);
   }
 }
-constexpr uint32_t kLowNibbles = 0x0F0F0F0Fu;
 
 // ---------------------------------------------------------------------------
-// dequantization: byte j of a word of nibbles (each 0..15, code + 8) placed
-// in the mantissa of 2^23 by one byte permute, less 2^23 + 8, is f32(code)
-// exactly
-
-__device__ __forceinline__ float nib_to_f(uint32_t nib4, int j) {
-  return __uint_as_float(__byte_perm(nib4, 0x4B000000u, 0x7540 + j)) - 8388616.f;
-}
+// dequantization (q8.cuh's nib_to_f: exact, off the conversion unit)
 
 // four weights (nibbles of one word) times their scales, as two bf16x2 words
 __device__ __forceinline__ uint2 dequant4_nib(uint32_t nib4, float4 s) {
@@ -211,168 +205,6 @@ __global__ void __launch_bounds__(kThreads) q4_gemv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// tiled tensor-core path (M > 16)
-
-constexpr int kMmThreads = 256;  // 8 warps: 4 along M x 2 along N
-constexpr int kMmBN = 128;
-constexpr int kMmBK = 32;           // packed rows per step: 2 x 32 contraction rows
-constexpr int kMmLda = kMmBK + 8;   // padded rows (multiples of 8 bf16, 32-byte aligned tiles)
-constexpr int kMmLdb = kMmBN + 8;
-
-// GATE: two packed weight tiles per step, W1 columns n and W3 columns off3 +
-// n, and the gate epilogue; else one tile and the q4_matmul epilogue. ldq
-// is the row stride of q and s; ncols the output width. Each thread owns
-// one 16-column chunk of each x half (the first BM * 2 threads) and one
-// 16-byte chunk of each packed tile per step, which it writes to shared
-// memory as 16 bf16 weights of row k0 + wr and 16 of row K/2 + k0 + wr. The
-// fp32 epilogue scratch reuses the weight tiles' shared memory.
-template <bool GATE>
-__global__ void __launch_bounds__(kMmThreads) q4_mma_kernel(
-    const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    int M, int K, int ldq, int ncols, int off3, int gs, Epilogue e, bf16* __restrict__ out) {
-  constexpr int BM = GATE ? 64 : 128;
-  constexpr int WM = BM / 4;      // rows per warp
-  constexpr int FM = WM / 16;     // 16-row fragments per warp
-  constexpr int FN = 4;           // 16-column fragments per warp (64 columns)
-  constexpr int NB = GATE ? 2 : 1;
-  constexpr int kA = BM * kMmLda;    // bf16 of one x half tile
-  constexpr int kB = kMmBK * kMmLdb; // bf16 of one weight half tile
-  constexpr int kABytes = 2 * kA * 2;
-  constexpr int kBBytes = NB * 2 * kB * 2;
-  constexpr int kCBytes = (kMmThreads / 32) * NB * 256 * 4;
-  static_assert(kMmBK * (kMmBN / 16) == kMmThreads, "one packed chunk per thread and tile");
-  static_assert(BM * 2 <= kMmThreads, "at most one chunk of each x half per thread");
-  static_assert(kABytes + (kBBytes > kCBytes ? kBBytes : kCBytes) <= 48 * 1024, "static smem");
-  __shared__ __align__(32) unsigned char smem[kABytes + (kBBytes > kCBytes ? kBBytes : kCBytes)];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);              // [half][BM][kMmLda]
-  bf16* b_s = reinterpret_cast<bf16*>(smem + kABytes);    // [t][half][kMmBK][kMmLdb]
-  float* c_s = reinterpret_cast<float*>(smem + kABytes);  // [warp][t][16 x 16], after the loop
-
-  const int KH = K / 2;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kMmBN;
-  // this thread's chunks: x row xr, packed columns xc..xc+15 of each half;
-  // packed weight row wr, columns wc..wc+15 of each tile
-  const bool has_x = tid < BM * 2;
-  const int xr = tid >> 1, xc = (tid & 1) * 16;
-  const int wr = tid >> 3, wc = (tid & 7) * 16;
-  const int ghi = KH / gs;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB][FM][FN];
-#pragma unroll
-  for (int t = 0; t < NB; ++t)
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[t][i][j], 0.f);
-
-  for (int k0 = 0; k0 < KH; k0 += kMmBK) {
-    if (has_x) {
-      const int gm = m0 + xr, gk = k0 + xc;  // KH % 16 == 0: a chunk is all in or all out
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint4 v0 = make_uint4(0u, 0u, 0u, 0u), v1 = v0;
-        if (gm < M && gk < KH) {
-          const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)gm * K + h * KH + gk);
-          v0 = src[0];
-          v1 = src[1];
-        }
-        uint4* dst = reinterpret_cast<uint4*>(a_s + h * kA + xr * kMmLda + xc);
-        dst[0] = v0;
-        dst[1] = v1;
-      }
-    }
-    const int wk = k0 + wr, gn = n0 + wc;
-#pragma unroll
-    for (int t = 0; t < NB; ++t) {
-      uint4 lo0 = make_uint4(0u, 0u, 0u, 0u), lo1 = lo0, hi0 = lo0, hi1 = lo0;
-      if (wk < KH && gn < ncols) {
-        const int qc = gn + t * off3;
-        const uint4 qv = __ldg(reinterpret_cast<const uint4*>(q + (size_t)wk * ldq + qc));
-        const float4* sl = reinterpret_cast<const float4*>(s + (size_t)(wk / gs) * ldq + qc);
-        const float4* sh =
-            reinterpret_cast<const float4*>(s + (size_t)(ghi + wk / gs) * ldq + qc);
-        const uint32_t words[4] = {qv.x, qv.y, qv.z, qv.w};
-        uint2 wl[4], wh[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wl[j] = dequant4_nib(words[j] & kLowNibbles, __ldg(sl + j));
-          wh[j] = dequant4_nib((words[j] >> 4) & kLowNibbles, __ldg(sh + j));
-        }
-        lo0 = make_uint4(wl[0].x, wl[0].y, wl[1].x, wl[1].y);
-        lo1 = make_uint4(wl[2].x, wl[2].y, wl[3].x, wl[3].y);
-        hi0 = make_uint4(wh[0].x, wh[0].y, wh[1].x, wh[1].y);
-        hi1 = make_uint4(wh[2].x, wh[2].y, wh[3].x, wh[3].y);
-      }
-      uint4* dlo = reinterpret_cast<uint4*>(b_s + (t * 2 + 0) * kB + wr * kMmLdb + wc);
-      uint4* dhi = reinterpret_cast<uint4*>(b_s + (t * 2 + 1) * kB + wr * kMmLdb + wc);
-      dlo[0] = lo0;
-      dlo[1] = lo1;
-      dhi[0] = hi0;
-      dhi[1] = hi1;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int kk = 0; kk < kMmBK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[FM];
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(af[i], a_s + h * kA + (wm * WM + i * 16) * kMmLda + kk, kMmLda);
-#pragma unroll
-        for (int t = 0; t < NB; ++t) {
-#pragma unroll
-          for (int j = 0; j < FN; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-            wmma::load_matrix_sync(bfr, b_s + (t * 2 + h) * kB + kk * kMmLdb + wn * 64 + j * 16,
-                                   kMmLdb);
-#pragma unroll
-            for (int i = 0; i < FM; ++i) wmma::mma_sync(acc[t][i][j], af[i], bfr, acc[t][i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue, one 16 x 16 fragment at a time through the warp's scratch:
-  // lane -> row lane / 2, columns (lane % 2) * 8 .. + 7
-  float* cs1 = c_s + (warp * NB + 0) * 256;
-  float* cs3 = c_s + (warp * NB + NB - 1) * 256;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(cs1, acc[0][i][j], 16, wmma::mem_row_major);
-      if (GATE) wmma::store_matrix_sync(cs3, acc[NB - 1][i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int gm = m0 + wm * WM + i * 16 + r;
-      const int gn = n0 + wn * 64 + j * 16 + c0;
-      if (gm < M) {
-#pragma unroll
-        for (int p = 0; p < 8; p += 2) {
-          const int n = gn + p;
-          if (n < ncols) {
-            const float a0 = cs1[r * 16 + c0 + p], a1 = cs1[r * 16 + c0 + p + 1];
-            if (GATE) {
-              const float b0 = cs3[r * 16 + c0 + p], b1 = cs3[r * 16 + c0 + p + 1];
-              *reinterpret_cast<__nv_bfloat162*>(out + (size_t)gm * ncols + n) =
-                  __floats2bfloat162_rn(silu_gate(a0, b0), silu_gate(a1, b1));
-            } else {
-              store_pair(e, gm, n, ncols, a0, a1, out);
-            }
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 
 int launch_gemv(const void* x, const void* q, const void* s, float* part, int M, int K, int N,
@@ -391,17 +223,6 @@ int launch_gemv(const void* x, const void* q, const void* s, float* part, int M,
   return check_launch();
 }
 
-template <bool GATE>
-int launch_mma(const void* x, const void* q, const void* s, int M, int K, int ldq, int ncols,
-               int off3, int gs, const Epilogue& e, void* out, cudaStream_t st) {
-  constexpr int BM = GATE ? 64 : 128;
-  const dim3 grid((ncols + kMmBN - 1) / kMmBN, (M + BM - 1) / BM);
-  q4_mma_kernel<GATE><<<grid, kMmThreads, 0, st>>>((const bf16*)x, (const int8_t*)q,
-                                                   (const float*)s, M, K, ldq, ncols, off3, gs, e,
-                                                   (bf16*)out);
-  return check_launch();
-}
-
 // the shapes both entry points take
 bool bad_shape(int K, int gs) { return K % 32 || gs <= 0 || (K / 2) % gs; }
 
@@ -413,8 +234,8 @@ HIPLLAMA_EXPORT_ERROR_STRING
 // g, res and pos may be null (no norm, no residual, no RoPE). xn_ws: (M, K)
 // bf16 workspace, used when g is given. split > 0 takes the GEMV path
 // (M <= 16) with part_ws (split, M, N) fp32 and kslice packed rows per
-// split; split == 0 the tiled path. K % 32 == 0, (K/2) % gs == 0,
-// N % 16 == 0.
+// split; split == 0 the tiled path, with part_ws (M, rope_hs) fp32 for the
+// RoPE table where pos is given. K % 32 == 0, (K/2) % gs == 0, N % 16 == 0.
 extern "C" int q4_matmul(const void* x, const void* q, const void* s, const void* g,
                          const void* res, const void* pos, void* out, void* xn_ws, void* part_ws,
                          int M, int K, int N, int gs, int split, int kslice, int rope_limit,
@@ -431,7 +252,13 @@ extern "C" int q4_matmul(const void* x, const void* q, const void* s, const void
     HIPLLAMA_TRY(launch_gemv(xin, q, s, (float*)part_ws, M, K, N, gs, split, kslice, st));
     return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st);
   }
-  return launch_mma<false>(xin, q, s, M, K, N, N, 0, gs, e, out, st);
+  Epilogue et = e;
+  if (pos != nullptr) {  // the tiles read each row's cos and sin from part_ws
+    if (part_ws == nullptr || rope_hs < 2 || rope_hs % 2) return (int)cudaErrorInvalidValue;
+    HIPLLAMA_TRY(launch_rope_table(pos, M, rope_hs, rope_coef, (float*)part_ws, st));
+    et.rope_cs = (const float*)part_ws;
+  }
+  return launch_tiles<false, 4>(xin, q, s, M, K, N, N, 0, gs, et, out, st);
 }
 
 // silu(xn W1) * (xn W3) with q13 (K/2, 2H) packed; out (M, H). Workspaces
@@ -451,7 +278,7 @@ extern "C" int q4_matmul_silu(const void* x, const void* q13, const void* s13, c
     return launch_split_gate((const float*)part_ws, split, M, H, out, st);
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
-  return launch_mma<true>(xin, q13, s13, M, K, 2 * H, H, H, gs, none, out, st);
+  return launch_tiles<true, 4>(xin, q13, s13, M, K, 2 * H, H, H, gs, none, out, st);
 }
 
 // The `a8` mode of q4_matmul (a8.cuh): xi_ws (M, K) int8 and sx_ws (M, K/gs)

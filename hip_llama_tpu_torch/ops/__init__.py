@@ -52,7 +52,7 @@ A8_BRANCHES = (q8_matmul, q8_matmul_silu, q4_matmul, q4_matmul_silu, q8_matmul_l
 TC_BRANCHES = (q8_matmul_ffn,)
 # the wrappers whose launches above GEMV_MAX_M rows run the wgmma tiles
 # (csrc/q8_wgmma.cuh), counted again in `.launches_wgmma`
-WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered)
+WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered, q4_matmul, q4_matmul_silu)
 
 
 def reset_launches() -> None:

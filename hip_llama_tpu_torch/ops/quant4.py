@@ -8,9 +8,11 @@ int8, byte k' holding row k' in its low nibble and row K/2 + k' in its high
 nibble, each as code + 8; s (K/gs, N) fp32. Each half holds whole groups, so
 row K/2 + k' takes the scale row K/(2 gs) + k'/gs. Activations are bf16.
 
-Each product is a CUDA kernel (csrc/quant4.cu) behind a wrapper that checks
-its operands, allocates the output and the workspaces, and counts its
-launches in `<wrapper>.launches`. A CUDA tensor launches the kernel or
+Each product is a CUDA kernel (csrc/quant4.cu: a GEMV up to 16 rows, above
+them csrc/q8_wgmma.cuh's tiles, `q4_rows_kernel`) behind a wrapper that
+checks its operands, allocates the output and the workspaces, and counts
+its launches in `<wrapper>.launches` (the tiles' share again in
+`.launches_wgmma`). A CUDA tensor launches the kernel or
 raises; a CPU tensor takes the plain PyTorch version beside it, which is
 also the yardstick the kernel is held against on the card.
 
@@ -214,6 +216,40 @@ def q4_gemv_plan(kh: int, n: int) -> tuple[int, int]:
     return kslice_plan(kh, n, _GEMV_KSLICE_MAX, 32)
 
 
+def q4_rows_kernel(m: int) -> str:
+    """The `dequant`-math kernel that q4_matmul and q4_matmul_silu launch
+    for m rows: "gemv" up to GEMV_MAX_M rows (split-K over the packed
+    weight on the CUDA cores, csrc/quant4.cu q4_gemv_kernel), "wgmma" above
+    (csrc/q8_wgmma.cuh's q8_tile_kernel on its pipelined mainloop, with the
+    int4 weight format). No other kernel is kept: the wgmma tiles timed
+    faster than the wmma tiles they replaced at every row count from 32 to
+    4088 (PERF.md)."""
+    return "gemv" if m <= GEMV_MAX_M else "wgmma"
+
+
+def q4_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False) -> bool:
+    """Whether `kernel` (q4_rows_kernel's) launches at K k (the
+    contraction: twice the packed rows), N n (the weight's columns: 2H for
+    a gate) and group size gs, as its C launcher decides: K a multiple of
+    32, gs dividing K/2 (each half holds whole groups), N a multiple of 16,
+    a gate's H a multiple of 16. Both take every such shape: the wgmma
+    tiles zero-fill a last step past K/2 % 32 in each half (the dead rows
+    in the middle of the step's B tile) and read scales a row at a time
+    where gs % 8 != 0; the GEMV guards the columns past N % 256."""
+    if kernel not in ("gemv", "wgmma"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    return (k > 0 and k % 32 == 0 and 0 < gs and (k // 2) % gs == 0 and n > 0 and n % 16 == 0
+            and (not gate or (n // 2) % 16 == 0))
+
+
+def _check_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = False) -> str:
+    kernel = q4_rows_kernel(m)
+    if not q4_kernel_takes(kernel, k, n, gs, gate):
+        raise ValueError(f"{name}: the {kernel} kernel does not take K {k}, N {n}, "
+                         f"group size {gs}")
+    return kernel
+
+
 def _check_weight(name: str, qt: Q4Tensor, k: int, dev) -> int:
     """Validate a Q4Tensor for a contraction of K rows on `dev`; returns N."""
     if qt.q.dim() != 2 or qt.q.shape[0] * 2 != k:
@@ -263,10 +299,15 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
                         _GEMV_KSLICE_MAX, planes=2)
         q4_matmul.launches_a8 += 1
         return out
+    kernel = _check_takes("q4_matmul", m, k, n, qt.group_size)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    split, kslice = q4_gemv_plan(k // 2, n) if m <= GEMV_MAX_M else (0, 0)
-    part = torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else None
+    split, kslice = q4_gemv_plan(k // 2, n) if kernel == "gemv" else (0, 0)
+    # the GEMV's split partials, or the tiles' RoPE table of each row's cos
+    # and sin (M, rope_head)
+    part = (torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else
+            torch.empty((m, rope_head), dtype=torch.float32, device=dev)
+            if rope_pos is not None else None)
     fn = _build.bind("quant4", "q4_matmul", "ppppppppp" + "iiiiiiii" + "ff" + "p")
     rc = fn(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
             _ptr(rope_pos), out.data_ptr(), _ptr(xn), _ptr(part),
@@ -276,11 +317,13 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
             norm_eps, _stream())
     _build.check(rc, "quant4", "q4_matmul")
     q4_matmul.launches += 1
+    q4_matmul.launches_wgmma += kernel == "wgmma"
     return out
 
 
 q4_matmul.launches = 0
 q4_matmul.launches_a8 = 0
+q4_matmul.launches_wgmma = 0  # the launches (of .launches) that ran the wgmma tiles
 
 
 def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5,
@@ -304,9 +347,10 @@ def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-
                         None, 0, 0, 0.0, norm_eps, True, _GEMV_KSLICE_MAX, planes=2)
         q4_matmul_silu.launches_a8 += 1
         return out
+    kernel = _check_takes("q4_matmul_silu", m, k, n2, qt13.group_size, gate=True)
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    split, kslice = q4_gemv_plan(k // 2, n2) if m <= GEMV_MAX_M else (0, 0)
+    split, kslice = q4_gemv_plan(k // 2, n2) if kernel == "gemv" else (0, 0)
     part = torch.empty((split, m, n2), dtype=torch.float32, device=dev) if split else None
     fn = _build.bind("quant4", "q4_matmul_silu", "ppppppp" + "iiiiii" + "f" + "p")
     rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), _ptr(norm_weight),
@@ -314,8 +358,10 @@ def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-
             norm_eps, _stream())
     _build.check(rc, "quant4", "q4_matmul_silu")
     q4_matmul_silu.launches += 1
+    q4_matmul_silu.launches_wgmma += kernel == "wgmma"
     return out
 
 
 q4_matmul_silu.launches = 0
 q4_matmul_silu.launches_a8 = 0
+q4_matmul_silu.launches_wgmma = 0

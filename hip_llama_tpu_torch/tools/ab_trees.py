@@ -8,6 +8,7 @@ checkouts in turns (parent, change, change, parent) within one machine.
     cd <checkout> && python <path of this file> parts <checkout>
     cd <checkout> && python <path of this file> int8 <checkout>
     cd <checkout> && python <path of this file> minner <checkout>
+    cd <checkout> && python <path of this file> int4 <checkout>
 
 Each runs the checkout's own package and its chip_smoke.py helpers (the
 checkout goes first on sys.path; run this file by its path, not with -m,
@@ -61,6 +62,13 @@ so that the package is imported from the checkout), once per checkout.
   kernel); chip_smoke's 16-request serve of that model with both prefill
   knobs and on the default route (tok/s, TTFT p50 and p95); and the port
   bench's default decode and its --mode ttft, in process.
+- int4: the int4 products at prefill rows (`dequant` math, group size 32,
+  7B widths): q4_matmul (K21) on QKV with the norm and RoPE, on wo and W2
+  with the residual, and q4_matmul_silu (K22) with the norm, at M 32, 128,
+  512, 2048 and 4088 (whatever kernel the checkout routes them to), each
+  the least of three CUDA-event means; the T-256 and T-16 chunks of the
+  7B-width int4 model (bf16 cache) over 8 slots, profiled; then the port
+  bench's --quant q4 --mode ttft in process, twice.
 """
 
 from __future__ import annotations
@@ -284,14 +292,15 @@ def parts(cs) -> None:
               flush=True)
 
 
-def bench_lines(cs) -> None:
-    """The port bench's default decode and its --mode ttft, in process."""
+def bench_lines(cs, runs=([], ["--mode", "ttft"])) -> None:
+    """The port bench's runs (default: its decode and its --mode ttft), in
+    process."""
     import contextlib
     import io
 
     import torch
 
-    for argv in ([], ["--mode", "ttft"]):
+    for argv in runs:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             cs.port_bench.main(argv)
@@ -350,20 +359,20 @@ def serve(cs) -> None:
     bench_lines(cs)
 
 
-def prefill(cs) -> None:
-    import numpy as np
+def prefill_products(cs, label: str, quantize, gs: int, matmul, gate, gate_name: str) -> None:
+    """The products of a prefill chunk at 7B widths: matmul on QKV with the
+    norm and RoPE, on wo and W2 with the residual, and gate with the norm,
+    at M 32, 128, 512, 2048 and 4088, weights from quantize(w, gs) rotating
+    over two copies; each the least of three CUDA-event means."""
     import torch
-
-    from hip_llama_tpu_torch.engine import InferenceEngine
-    from hip_llama_tpu_torch.ops import quant as Q
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    d, hid, gs = 4096, 11008, 64
+    d, hid = 4096, 11008
 
     def weights(k, n):
-        return [Q.q8_quantize_weights(torch.randn((k, n), generator=g, device=dev) * k ** -0.5,
-                                      gs) for _ in range(2)]
+        return [quantize(torch.randn((k, n), generator=g, device=dev) * k ** -0.5, gs)
+                for _ in range(2)]
 
     wq, wo, w2, w13 = weights(d, 3 * d), weights(d, d), weights(hid, d), weights(d, 2 * hid)
     norm = torch.ones(d, device=dev)
@@ -372,20 +381,31 @@ def prefill(cs) -> None:
         xh = torch.randn((m, hid), generator=g, device=dev).to(torch.bfloat16)
         pos = torch.arange(m, dtype=torch.int32, device=dev) % 512
         cases = {
-            "QKV": lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos,
-                                         rope_limit=2 * d, rope_head=128),
-            "wo": lambda i: Q.q8_matmul(x, wo[i % 2], residual=x),
-            "W2": lambda i: Q.q8_matmul(xh, w2[i % 2], residual=x),
-            "K17": lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm),
+            "QKV": lambda i: matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos,
+                                    rope_limit=2 * d, rope_head=128),
+            "wo": lambda i: matmul(x, wo[i % 2], residual=x),
+            "W2": lambda i: matmul(xh, w2[i % 2], residual=x),
+            gate_name: lambda i: gate(x, w13[i % 2], norm_weight=norm),
         }
         row = []
         for name, fn in cases.items():
             fn(0)
             torch.cuda.synchronize()
             row.append(f"{name} {min(cs.cuda_ms(fn) for _ in range(3)):.4f}")
-        print(f"products M {m} (ms): {'; '.join(row)}", flush=True)
+        print(f"{label}products M {m} (ms): {'; '.join(row)}", flush=True)
     del wq, wo, w2, w13
     torch.cuda.empty_cache()
+
+
+def prefill(cs) -> None:
+    import numpy as np
+    import torch
+
+    from hip_llama_tpu_torch.engine import InferenceEngine
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    dev = torch.device("cuda")
+    prefill_products(cs, "", Q.q8_quantize_weights, 64, Q.q8_matmul, Q.q8_matmul_silu, "K17")
 
     cfg = cs.LLAMA2_7B
     params = cs.random_7b_qparams(cfg, dev)
@@ -493,9 +513,35 @@ def minner(cs) -> None:
     bench_lines(cs)
 
 
+def int4(cs) -> None:
+    import numpy as np
+    import torch
+
+    from hip_llama_tpu_torch.engine import InferenceEngine
+    from hip_llama_tpu_torch.ops import quant4 as Q4
+
+    dev = torch.device("cuda")
+    prefill_products(cs, "int4 ", Q4.q4_quantize_weights, 32, Q4.q4_matmul, Q4.q4_matmul_silu,
+                     "K22")
+
+    cfg = cs.LLAMA2_7B
+    params = cs.random_7b_qparams(cfg, dev, int4=True)
+    engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512)
+    cache = engine.new_cache()
+    toks = np.random.default_rng(5).integers(3, cfg.vocab_size, (8, 256)).tolist()
+    for t in (256, 16):
+        cs.profile_window(f"int4 prefill chunk (batch 8, T {t})", 2 if t > 16 else 4,
+                          lambda i, t=t: engine._prefill_tokens(
+                              cache, 8, {s: toks[s][:t] for s in range(8)},
+                              {s: 0 for s in range(8)}, bm=None))
+    del engine, cache, params
+    torch.cuda.empty_cache()
+    bench_lines(cs, [["--quant", "q4", "--mode", "ttft"]] * 2)
+
+
 def main(argv: list[str]) -> int:
     modes = {"attention": attention, "serve": serve, "prefill": prefill, "decode": decode,
-             "parts": parts, "int8": int8, "minner": minner}
+             "parts": parts, "int8": int8, "minner": minner, "int4": int4}
     if len(argv) != 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -544,10 +544,19 @@ from hip_llama_tpu_torch.ops import quant4 as Q4  # noqa: E402
 
 # (K, N or H, gs): the golden fixture's QKV, W2 (K/2 = 96) and classifier
 # widths, a tile-ragged width with K/2 = 48 (group size 16), and
-# Llama-2-7B's QKV and W2 (K/2 = 5504, no multiple of 256)
+# Llama-2-7B's QKV and W2 (K/2 = 5504, no multiple of 256); stories15M's
+# QKV (6 + 2 + 2 heads of 48, K/2 = 144) at groups of 16, of 12 (no multiple
+# of 8: the tiles read those scales a row at a time) and of 8 (4 + 4 scale
+# rows a step); K 96 and 288 leave the tiles' last 32-row step half dead
+# in each nibble half. The gate: the fixture's, a ragged H 208, stories15M's
+# H 768 at groups of 16 and 8, H 128 over K 96 at groups of 12, and 7B's.
 Q4_SHAPES = [(64, 128, 32), (192, 64, 32), (64, 512, 32), (96, 208, 16), (4096, 12288, 32),
-             (11008, 4096, 32)]
-Q4_SILU_SHAPES = [(64, 192, 32), (96, 208, 16), (4096, 11008, 32)]
+             (11008, 4096, 32), (288, 480, 16), (288, 480, 12), (288, 480, 8)]
+Q4_SILU_SHAPES = [(64, 192, 32), (96, 208, 16), (4096, 11008, 32), (288, 768, 16),
+                  (288, 768, 8), (96, 128, 12)]
+# rows on both sides of the row rule (16: the GEMV; 17 up: the tiles), and
+# around the tiles' 256 rows
+Q4_ROWS = [1, 8, 16, 17, 40, 128, 255, 256, 257, 300, 2048, 4088]
 
 
 def _q4t(rng, k, n, gs, dev):
@@ -555,7 +564,7 @@ def _q4t(rng, k, n, gs, dev):
     return Q4.q4_quantize_weights(torch.from_numpy(w).to(dev), gs)
 
 
-@pytest.mark.parametrize("m", [1, 8, 16, 40, 300])
+@pytest.mark.parametrize("m", Q4_ROWS)
 @pytest.mark.parametrize("shape", Q4_SHAPES)
 @pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
 def test_q4_matmul_kernel(m, shape, epi):
@@ -569,19 +578,22 @@ def test_q4_matmul_kernel(m, shape, epi):
         kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
     if epi == "residual":
         kw["residual"] = _rand(rng, (m, n), torch.bfloat16, dev)
-    if epi == "norm_rope":
-        hs = 8 if n < 1024 else 128
+    if epi == "norm_rope":  # q and k rotate in heads of 48 (K 288) or 8 / 128
+        hs = 48 if k == 288 else 8 if n < 1024 else 128
         kw.update(rope_pos=torch.tensor(rng.integers(0, 2048, m), dtype=torch.int32, device=dev),
                   rope_limit=(2 * n // 3) // hs * hs, rope_head=hs, rope_theta=10000.0)
-    n0 = Q4.q4_matmul.launches
+    n0, w0 = Q4.q4_matmul.launches, Q4.q4_matmul.launches_wgmma
     got = Q4.q4_matmul(x, qt, **kw)
     want = Q4.q4_matmul_plain(x, qt, **kw)
     torch.cuda.synchronize()
-    assert Q4.q4_matmul.launches == n0 + 1 and got.shape == (m, n)
+    wgmma = Q4.q4_rows_kernel(m) == "wgmma"
+    assert wgmma == (m > 16)
+    assert (Q4.q4_matmul.launches - n0, Q4.q4_matmul.launches_wgmma - w0) == (1, int(wgmma))
+    assert got.shape == (m, n)
     _close(got, want, torch.bfloat16)
 
 
-@pytest.mark.parametrize("m", [4, 16, 40, 512])
+@pytest.mark.parametrize("m", sorted([4, 512] + Q4_ROWS[2:]))
 @pytest.mark.parametrize("shape", Q4_SILU_SHAPES)
 @pytest.mark.parametrize("norm", [True, False])
 def test_q4_matmul_silu_kernel(m, shape, norm):
@@ -593,11 +605,14 @@ def test_q4_matmul_silu_kernel(m, shape, norm):
     kw = {}
     if norm:
         kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
-    n0 = Q4.q4_matmul_silu.launches
+    n0, w0 = Q4.q4_matmul_silu.launches, Q4.q4_matmul_silu.launches_wgmma
     got = Q4.q4_matmul_silu(x, qt13, **kw)
     want = Q4.q4_matmul_silu_plain(x, qt13, **kw)
     torch.cuda.synchronize()
-    assert Q4.q4_matmul_silu.launches == n0 + 1 and got.shape == (m, h)
+    wgmma = Q4.q4_rows_kernel(m) == "wgmma"
+    assert (Q4.q4_matmul_silu.launches - n0, Q4.q4_matmul_silu.launches_wgmma - w0) == (
+        1, int(wgmma))
+    assert got.shape == (m, h)
     _close(got, want, torch.bfloat16)
 
 
