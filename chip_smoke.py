@@ -78,7 +78,10 @@ Phases, in order; each raises on failure and none is caught:
   9. the `a8` modes (HIPLLAMA_Q8_MODE=a8, HIPLLAMA_Q4_MODE=a8): the `a8`
      kernels of K15, K17, K21 and K22 against their plain versions at 7B
      shapes (K15 QKV M 8 with norm and RoPE, wo with the residual, the
-     classifier, QKV M 2048; K17 M 2048; K21 and K22 M 8, group size 32),
+     classifier; K17 M 8; the int8 wgmma tiles of K15 at QKV M 2048, 128
+     and 4088 and wo M 2048 with the residual, of K17 at M 2048, 512 and
+     4088; K21 and K22 M 8 and their mma.sync tiles at M 256, group size
+     32),
      with the same timings and the reshape or dequant kernel's time beside
      (bound: the int8 peak for operations; bytes of the weights, scales, x,
      the quantized xi and sx, and the outputs); the golden fixture with
@@ -317,6 +320,12 @@ KERNEL_SOURCES = {
     # the `a8` modes: the `a8` branches of K15, K17, K21 and K22
     "q8_matmul_a8": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:250"),
     "q8_matmul_silu_a8": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:541"),
+    # K15 and K17 `a8` above 16 rows at group sizes that are multiples of
+    # 32: the int8 wgmma tiles of a8_wgmma.cuh
+    "q8_matmul_a8_wgmma": ("hip_llama_tpu_torch/csrc/quant.cu",
+                           "hip_llama_tpu/ops/quant.py:250"),
+    "q8_matmul_silu_a8_wgmma": ("hip_llama_tpu_torch/csrc/quant.cu",
+                                "hip_llama_tpu/ops/quant.py:541"),
     "q4_matmul_a8": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:218"),
     "q4_matmul_silu_a8": ("hip_llama_tpu_torch/csrc/quant4.cu",
                           "hip_llama_tpu/ops/quant4.py:494"),
@@ -438,9 +447,10 @@ GOLDEN_A8_RUNS = {
 }
 # the 7B-width Q8 + int8-KV serve in a8: the prefill W2 (172 groups) keeps
 # reshape math, as the JAX decision says; the decode FFN is K18's GEMV route,
-# a T-16 chunk's its tensor-core kernel
-Q8_A8_PATH = ("q8_matmul_a8", "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn",
-              "q8_matmul_ffn_tc",
+# a T-16 chunk's its tensor-core kernel; the prefill's QKV, wo and gate run
+# the int8 wgmma tiles
+Q8_A8_PATH = ("q8_matmul_a8", "q8_matmul_a8_wgmma", "q8_matmul_silu_a8",
+              "q8_matmul_silu_a8_wgmma", "q8_matmul", "q8_matmul_ffn", "q8_matmul_ffn_tc",
               "attention_decode_fused_int8", "kv_commit_rows_int8", "kv_write_chunk_int8",
               "scale_write_chunk", "attention_prefill_int8")
 Q8_A8_STEP = {"q8_matmul_a8": 2 * _L + 1, "attention_decode_fused_int8": _L, "q8_matmul_ffn": _L,
@@ -482,7 +492,8 @@ Q8_STACKED_PATH = ("q8_matmul_layered", "attention_decode_int8", "q8_matmul", "q
 Q8_STACKED_STEP = {"q8_matmul_layered": 4 * _L, "attention_decode_int8": _L,
                    "kv_commit_rows_int8": 1, "q8_matmul": 1}
 Q8_STACKED_A8_PATH = ("q8_matmul_layered_a8", "attention_decode_int8", "q8_matmul_a8",
-                      "q8_matmul_silu_a8", "q8_matmul", "q8_matmul_ffn_tc", "kv_commit_rows_int8",
+                      "q8_matmul_a8_wgmma", "q8_matmul_silu_a8", "q8_matmul_silu_a8_wgmma",
+                      "q8_matmul", "q8_matmul_ffn_tc", "kv_commit_rows_int8",
                       "kv_write_chunk_int8", "scale_write_chunk", "attention_prefill_int8")
 Q8_STACKED_A8_STEP = {"q8_matmul_layered_a8": 4 * _L, "attention_decode_int8": _L,
                       "kv_commit_rows_int8": 1, "q8_matmul_a8": 1}
@@ -1614,7 +1625,10 @@ def knobs(env: dict):
 def phase_a8_kernels() -> dict[str, dict]:
     """The `a8` kernels of K15 and K17 (Q8_0, group size 64) and of K21 and
     K22 (int4, group size 32) at Llama-2-7B shapes against their plain
-    versions, each beside the reshape (dequant) kernel on the same inputs.
+    versions, each beside the reshape (dequant) kernel on the same inputs:
+    the GEMV at M 8; K15's and K17's int8 wgmma tiles (`..._a8_wgmma`) at
+    QKV M 128, 2048 and 4088, wo M 2048 and the gate M 512, 2048 and 4088;
+    K21's and K22's mma.sync tiles at QKV and the gate M 256.
     Library yardstick: cuBLAS `x @ w` on the weight dequantized to bf16, as
     for the reshape products. Bound: the int8 peak for the operations; the
     bytes of the weights and scales, x, the quantized xi (M x K int8) and sx
@@ -1652,46 +1666,89 @@ def phase_a8_kernels() -> dict[str, dict]:
             return [quantize(rnd(k, n, dtype=torch.float32).mul_(k ** -0.5), gs)
                     for _ in range(copies)]
 
-        shapes = [("QKV", 8, d, 3 * d, 2), ("wo", 8, d, d, 4), ("classifier", 8, d, voc, 1)]
+        def tile(base, m):  # the kernels-line name of an M-row case
+            return (base + "_wgmma" if mod is Q and Q.a8_rows_kernel(m, gs) == "wgmma"
+                    else base)
+
+        # the kernels line carries each name's first case: M 2048 for the tiles
+        shapes = [("QKV", (8,), d, 3 * d, 2), ("wo", (8,), d, d, 4),
+                  ("classifier", (8,), d, voc, 1)]
         if mod is Q:
-            shapes.append(("QKV", 2048, d, 3 * d, 2))
-        for what, m, k, n, copies in shapes:
+            shapes += [("QKV", (2048, 128, 4088), d, 3 * d, 2), ("wo", (2048,), d, d, 2)]
+        else:  # the int4 `a8` tiles (mma.sync), at the most rows q4_a8_engages gives them
+            shapes += [("QKV", (256,), d, 3 * d, 2)]
+        for what, ms, k, n, copies in shapes:
             w = weights(k, n, copies)
             wd = [deq(x).to(torch.bfloat16) for x in w]
-            x = rnd(m, k)
-            if what == "QKV":
-                pos = (torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32,
-                                    device=dev) if m == 8
-                       else torch.arange(m, dtype=torch.int32, device=dev) % 512)
-                kw, extra, label = (dict(norm_weight=norm, rope_pos=pos, **rope), k * 4 + m * 4,
-                                    f"QKV M {m}, norm + RoPE")
-            elif what == "wo":
-                kw, extra, label = dict(residual=rnd(m, n)), m * n * 2, "wo M 8, residual"
-            else:
-                kw, extra, label = dict(norm_weight=norm), k * 4, "classifier M 8, norm"
-            case(name, label, mod,
-                 lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], mode="a8", **kw),
-                 lambda i, w=w, x=x, kw=kw: mm_plain(x, w[i % copies], mode="a8", **kw),
-                 lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], **kw),
-                 lambda i, wd=wd, x=x: x @ wd[i % copies],
-                 wb(k, n), m, k, n, gs, 2 * m * k * n, extra)
+            for m in ms:
+                x = rnd(m, k)
+                if what == "QKV":
+                    pos = (torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32,
+                                        device=dev) if m == 8
+                           else torch.arange(m, dtype=torch.int32, device=dev) % 512)
+                    kw, extra, label = (dict(norm_weight=norm, rope_pos=pos, **rope),
+                                        k * 4 + m * 4, f"QKV M {m}, norm + RoPE")
+                elif what == "wo":
+                    kw, extra, label = dict(residual=rnd(m, n)), m * n * 2, f"wo M {m}, residual"
+                else:
+                    kw, extra, label = dict(norm_weight=norm), k * 4, f"classifier M {m}, norm"
+                case(tile(name, m), label, mod,
+                     lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], mode="a8", **kw),
+                     lambda i, w=w, x=x, kw=kw: mm_plain(x, w[i % copies], mode="a8", **kw),
+                     lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], **kw),
+                     lambda i, wd=wd, x=x: x @ wd[i % copies],
+                     wb(k, n), m, k, n, gs, 2 * m * k * n, extra)
+                del x
             del w, wd
         silu, silu_plain = ((Q.q8_matmul_silu, Q.q8_matmul_silu_plain) if mod is Q
                             else (Q4.q4_matmul_silu, Q4.q4_matmul_silu_plain))
         w13 = weights(d, 2 * hid, 2)
         w13d = [deq(x).to(torch.bfloat16) for x in w13]
-        m = 2048 if mod is Q else 8
-        x = rnd(m, d)
-        case(name.replace("matmul", "matmul_silu"), f"W1|W3 gate M {m}, norm", mod,
-             lambda i: silu(x, w13[i % 2], norm_weight=norm, mode="a8"),
-             lambda i: silu_plain(x, w13[i % 2], norm_weight=norm, mode="a8"),
-             lambda i: silu(x, w13[i % 2], norm_weight=norm),
-             lambda i: x @ w13d[i % 2],
-             wb(d, 2 * hid), m, d, hid, gs, 2 * m * d * 2 * hid, d * 4)
+        for m in (8, 2048, 512, 4088) if mod is Q else (8, 256):
+            x = rnd(m, d)
+            case(tile(name.replace("matmul", "matmul_silu"), m), f"W1|W3 gate M {m}, norm", mod,
+                 lambda i, x=x: silu(x, w13[i % 2], norm_weight=norm, mode="a8"),
+                 lambda i, x=x: silu_plain(x, w13[i % 2], norm_weight=norm, mode="a8"),
+                 lambda i, x=x: silu(x, w13[i % 2], norm_weight=norm),
+                 lambda i, x=x: x @ w13d[i % 2],
+                 wb(d, 2 * hid), m, d, hid, gs, 2 * m * d * 2 * hid, d * 4)
+            del x
         del w13, w13d
+    probe_a8_tiles()
     # the kernels line carries each kernel's first case; max_abs_err over all
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in out.items()}
+
+
+def probe_a8_tiles() -> None:
+    """The `a8` tile kernels alone (ops/quant.py::q8_a8_tiles_probe: no
+    quantizer pass, no epilogue) on the same quantized rows at QKV and the
+    W1|W3 gate, M 2048, group size 64: the int8 wgmma tiles as shipped,
+    with the other conversion of the group sums (QKV), and a8.cuh's
+    mma.sync tiles, whose outputs the wgmma tiles must equal bit for bit."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    d, hid, m, gs = 4096, 11008, 2048, 64
+    for what, n, gate in (("QKV", 3 * d, False), ("W1|W3 gate", 2 * hid, True)):
+        w = [Q.q8_quantize_weights(torch.randn((d, n), generator=g, device=dev)
+                                   .mul_(d ** -0.5), gs) for _ in range(2)]
+        xi, sx = Q.a8_quantize_rows(torch.randn((m, d), generator=g, device=dev)
+                                    .to(torch.bfloat16).float(), gs)
+        xi = xi.to(torch.int8).contiguous()
+        shipped, other = ("the add", "I2F") if Q.A8_WGMMA_MAGIC else ("I2F", "the add")
+        names = {0: f"wgmma ({shipped})", 1: f"wgmma ({other})", 2: "mma.sync"}
+        variants = (0, 2) if gate else (0, 1, 2)
+        outs = {v: Q.q8_a8_tiles_probe(xi, sx, w[0], gate, v) for v in variants}
+        torch.cuda.synchronize()
+        equal = all(torch.equal(outs[v], outs[2]) for v in variants)
+        times = [f"{names[v]} "
+                 f"{cuda_ms(lambda i, v=v: Q.q8_a8_tiles_probe(xi, sx, w[i % 2], gate, v)):.4f}"
+                 for v in variants]
+        print(f"probe a8 tiles [{what} M {m}] ms: {'; '.join(times)}; outputs equal to "
+              f"mma.sync's: {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"a8 wgmma tiles differ from the mma.sync tiles ({what})")
+        del w, outs
 
 
 def phase_a8_goldens() -> dict[str, dict[str, int]]:

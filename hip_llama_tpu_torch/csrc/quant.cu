@@ -55,12 +55,18 @@
 // q8_matmul_a8 and q8_matmul_silu_a8 are the `a8` branches of the first two
 // (a8.cuh): the activations quantized per (row, group) by one pass with the
 // rmsnorm fused, int8 x int8 dots with int32 sums per group, the fp32
-// rescale per group, then the same epilogues. q8_matmul_ffn has none: the
-// JAX kernel keeps its reshape math in every mode (quant.py:967-971).
+// rescale per group, then the same epilogues. Above 16 rows a group size
+// that is a multiple of 32 takes a8_wgmma.cuh's int8 wgmma tiles (a
+// pipelined ring, the weight transposed on chip, two int32 sum sets a
+// consumer so that a group's rescale runs beside the next group's
+// products); other group sizes take a8.cuh's mma.sync tiles, which round
+// alike. q8_matmul_ffn has none: the JAX kernel keeps its reshape math in
+// every mode (quant.py:967-971).
 
 #include <stdint.h>
 
 #include "a8.cuh"
+#include "a8_wgmma.cuh"
 #include "common.cuh"
 #include "matmul_passes.cuh"
 #include "q8.cuh"
@@ -262,7 +268,9 @@ extern "C" int q8_matmul_ffn(const void* x, const void* q13, const void* s13, co
 // fp32 workspaces take the quantized activations (normed by g where g is
 // given); split > 0 takes the GEMV path (M <= 16) with part_ws (split, M,
 // N) fp32 and kslice rows per split (a multiple of gs); split == 0 the
-// tiled path. gs is any multiple of 8 (that divides K); otherwise as q8_matmul.
+// tiles: the wgmma tiles where gs % 32 == 0, with part_ws (M, rope_hs)
+// fp32 for the RoPE table where pos is given, else the mma.sync tiles. gs
+// is any multiple of 8 (that divides K); otherwise as q8_matmul.
 extern "C" int q8_matmul_a8(const void* x, const void* q, const void* s, const void* g,
                             const void* res, const void* pos, void* out, void* xi_ws,
                             void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,
@@ -270,15 +278,23 @@ extern "C" int q8_matmul_a8(const void* x, const void* q, const void* s, const v
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
-  if (K % gs) return (int)cudaErrorInvalidValue;
+  if (gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
   HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
   if (split > 0) {
     HIPLLAMA_TRY(hipllama::a8::launch_gemv<false>(xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N,
                                                   gs, split, kslice, st));
     return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st);
   }
-  return hipllama::a8::launch_mma<false, false>(xi_ws, sx_ws, q, s, M, K, N, N, 0, gs, e, out,
-                                                st);
+  if (gs % 32)
+    return hipllama::a8::launch_mma<false, false>(xi_ws, sx_ws, q, s, M, K, N, N, 0, gs, e, out,
+                                                  st);
+  Epilogue et = e;
+  if (pos != nullptr) {  // the tiles read each row's cos and sin from part_ws
+    if (part_ws == nullptr || rope_hs < 2 || rope_hs % 2) return (int)cudaErrorInvalidValue;
+    HIPLLAMA_TRY(launch_rope_table(pos, M, rope_hs, rope_coef, (float*)part_ws, st));
+    et.rope_cs = (const float*)part_ws;
+  }
+  return launch_a8_tiles<false>(xi_ws, sx_ws, q, s, M, K, N, N, 0, gs, et, out, st);
 }
 
 // The `a8` mode of q8_matmul_silu: W1 and W3 share one quantized x.
@@ -296,8 +312,36 @@ extern "C" int q8_matmul_silu_a8(const void* x, const void* q13, const void* s13
     return launch_split_gate((const float*)part_ws, split, M, H, out, st);
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
-  return hipllama::a8::launch_mma<true, false>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs,
-                                               none, out, st);
+  if (gs % 32)
+    return hipllama::a8::launch_mma<true, false>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs,
+                                                 none, out, st);
+  return launch_a8_tiles<true>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs, none, out, st);
+}
+
+// The `a8` tiles alone on quantized rows xi (M, K) int8 and sx (M, K/gs)
+// fp32, no epilogue (gate: the W1|W3 gate, q (K, 2 ncols); else q (K,
+// ncols)), for comparing the tile kernels on the same inputs: variant 0 the
+// wgmma tiles as shipped, 1 the wgmma tiles with the other conversion of
+// the int32 sums (a8_wgmma.cuh::kMagic; gate 0 only), 2 a8.cuh's mma.sync
+// tiles.
+extern "C" int q8_a8_tiles_probe(const void* xi, const void* sx, const void* q, const void* s,
+                                 void* out, int M, int K, int ncols, int gs, int gate,
+                                 int variant, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
+  const int ldq = gate ? 2 * ncols : ncols, off2 = gate ? ncols : 0;
+  if (variant == 0)
+    return gate ? launch_a8_tiles<true>(xi, sx, q, s, M, K, ldq, ncols, off2, gs, none, out, st)
+                : launch_a8_tiles<false>(xi, sx, q, s, M, K, ldq, ncols, off2, gs, none, out, st);
+  if (variant == 1 && !gate)
+    return launch_a8_tiles<false, !hipllama::a8wg::kShippedMagic>(xi, sx, q, s, M, K, ldq, ncols,
+                                                                  off2, gs, none, out, st);
+  if (variant == 2)
+    return gate ? hipllama::a8::launch_mma<true, false>(xi, sx, q, s, M, K, ldq, ncols, off2, gs,
+                                                        none, out, st)
+                : hipllama::a8::launch_mma<false, false>(xi, sx, q, s, M, K, ldq, ncols, off2,
+                                                         gs, none, out, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 namespace {

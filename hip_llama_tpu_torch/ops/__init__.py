@@ -26,6 +26,7 @@ from hip_llama_tpu_torch.ops.quant import (
     q8_matmul_minner,
     q8_matmul_silu,
     q8_matmul_silu_minner,
+    q8_a8_tiles_probe,
     q8_matmul_xheads,
     wgmma_mainloop_probe,
 )
@@ -38,7 +39,7 @@ KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            attention_prefill_paged, kv_write_rows_paged, scale_write_rows_paged,
            kv_write_chunk_paged, scale_write_chunk_paged, q8_matmul_layered, kv_write_rows,
            scale_write_rows, q8_matmul_minner, q8_matmul_silu_minner, q8_matmul_xheads,
-           dma_read, dma_copy, wshape_read, deep_read, wgmma_mainloop_probe)
+           dma_read, dma_copy, wshape_read, deep_read, wgmma_mainloop_probe, q8_a8_tiles_probe)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused, attention_decode_paged,
@@ -53,6 +54,9 @@ TC_BRANCHES = (q8_matmul_ffn,)
 # the wrappers whose launches above GEMV_MAX_M rows run the wgmma tiles
 # (csrc/q8_wgmma.cuh), counted again in `.launches_wgmma`
 WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered, q4_matmul, q4_matmul_silu)
+# the `a8` branches whose launches above GEMV_MAX_M rows run the int8 wgmma
+# tiles (csrc/a8_wgmma.cuh), counted again in `.launches_a8_wgmma`
+A8_WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered)
 
 
 def reset_launches() -> None:
@@ -67,23 +71,28 @@ def reset_launches() -> None:
         w.launches_tc = 0
     for w in WGMMA_BRANCHES:
         w.launches_wgmma = 0
+    for w in A8_WGMMA_BRANCHES:
+        w.launches_a8_wgmma = 0
 
 
 def launch_counts() -> dict[str, int]:
     """Launches by kernel: `<wrapper>` and, for an int8 branch,
     `<wrapper>_int8`, for an `a8` branch `<wrapper>_a8`, for a tensor-core
     branch `<wrapper>_tc`, for the wgmma tiles `<wrapper>_wgmma` (a share
-    of `<wrapper>`'s count)."""
+    of `<wrapper>`'s count), for the `a8` wgmma tiles `<wrapper>_a8_wgmma`
+    (a share of `<wrapper>_a8`'s)."""
     counts = {w.__name__: w.launches for w in KERNELS}
     counts.update({f"{w.__name__}_int8": w.launches_int8 for w in INT8_BRANCHES})
     counts.update({f"{w.__name__}_a8": w.launches_a8 for w in A8_BRANCHES})
     counts.update({f"{w.__name__}_tc": w.launches_tc for w in TC_BRANCHES})
     counts.update({f"{w.__name__}_wgmma": w.launches_wgmma for w in WGMMA_BRANCHES})
+    counts.update({f"{w.__name__}_a8_wgmma": w.launches_a8_wgmma for w in A8_WGMMA_BRANCHES})
     return counts
 
 
 __all__ = [
     "A8_BRANCHES",
+    "A8_WGMMA_BRANCHES",
     "INT8_BRANCHES",
     "KERNELS",
     "TC_BRANCHES",
@@ -103,6 +112,7 @@ __all__ = [
     "kv_write_rows_paged",
     "launch_counts",
     "q8_matmul",
+    "q8_a8_tiles_probe",
     "q8_layer_fused",
     "q8_matmul_ffn",
     "q8_matmul_layered",

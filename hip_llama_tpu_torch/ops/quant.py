@@ -47,7 +47,12 @@ exact int32 sum, rescaled as (f32(sum) * sx) * s and summed over the groups
 in fp32; the epilogue runs on that sum. The JAX wrappers decide per call,
 from shapes, whether `a8` runs or the call keeps its reshape math, and the
 decision changes the numbers, so the port copies it (`q8_a8_engages`). The
-kernels (csrc/quant.cu, a8.cuh) count in `<wrapper>.launches_a8`.
+kernels (csrc/quant.cu, a8.cuh) count in `<wrapper>.launches_a8`;
+`a8_rows_kernel` is their row rule: the dp4a GEMV up to GEMV_MAX_M rows,
+above it csrc/a8_wgmma.cuh's int8 wgmma tiles for a Q8_0 weight whose group
+size is a multiple of 32 (counted again in `.launches_a8_wgmma`) and
+a8.cuh's mma.sync tiles for the other group sizes and every int4 weight,
+which round alike (`a8_kernel_takes` says what each accepts).
 q8_matmul_ffn keeps its reshape math in every mode (quant.py:967-971).
 q8_matmul_layered decides by K20's own rule (`q8_layered_a8_engages`).
 
@@ -129,6 +134,9 @@ Q8_BLOCK_M = 512
 # q8_matmul_xheads's own block_n (quant.py:431), which the JAX model leaves
 XHEADS_BLOCK_N = 512
 WGMMA_STEP_K = 64  # rows of K a step of csrc/q8_wgmma.cuh's mainloop takes (kBK)
+# whether csrc/a8_wgmma.cuh's shipped conversion of the int32 group sums is
+# the integer add (kShippedMagic) rather than I2F
+A8_WGMMA_MAGIC = False
 
 
 @dataclasses.dataclass
@@ -640,6 +648,53 @@ def _check_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = False)
     return kernel
 
 
+def a8_rows_kernel(m: int, gs: int, int4: bool = False) -> str:
+    """The kernel an `a8` product (q8_matmul, q8_matmul_silu and K20
+    through them; q4_matmul, q4_matmul_silu with int4) launches for m rows
+    at group size gs: "gemv" up to GEMV_MAX_M rows (split-K dp4a, csrc/
+    a8.cuh::a8_gemv_kernel); above, "wgmma" for a Q8_0 weight whose gs is a
+    multiple of 32 (csrc/a8_wgmma.cuh's a8_tile_kernel: int8 wgmma, 32-deep
+    products that no group boundary splits), else "mma" (a8.cuh's
+    a8_mma_kernel: mma.sync, k16 steps where gs % 32 != 0; every int4
+    weight). The tiles round alike: exact int32 group sums, the same fp32
+    rescale in group order (PERF.md)."""
+    if m <= GEMV_MAX_M:
+        return "gemv"
+    return "wgmma" if not int4 and gs % 32 == 0 else "mma"
+
+
+def a8_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False,
+                    int4: bool = False) -> bool:
+    """Whether `kernel` (a8_rows_kernel's) launches at K k (the contraction:
+    twice the packed rows for int4), N n (the weight's columns: 2H for a
+    gate) and group size gs, as its C launcher decides: every kernel takes
+    K a multiple of 16, N a multiple of 16, a gate's H a multiple of 16 and
+    gs a multiple of 8 that divides K (int4: K/2); the GEMV a group of at
+    most its slice of A8_GEMV_ROWS rows of xi (half that for int4's two
+    planes); the wgmma tiles a Q8_0 weight and gs a multiple of 32."""
+    if kernel not in ("gemv", "wgmma", "mma"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    rows = k // 2 if int4 else k
+    ok = (k > 0 and k % 16 == 0 and n > 0 and n % 16 == 0 and (not gate or (n // 2) % 16 == 0)
+          and gs > 0 and gs % 8 == 0 and rows % gs == 0)
+    if kernel == "gemv":
+        return ok and gs <= A8_GEMV_ROWS // (2 if int4 else 1)
+    if kernel == "wgmma":
+        return ok and not int4 and gs % 32 == 0
+    return ok
+
+
+def _check_a8_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = False,
+                   int4: bool = False) -> str:
+    """a8_rows_kernel's kernel for the shape, or ValueError where it does
+    not take it (no other kernel is tried)."""
+    kernel = a8_rows_kernel(m, gs, int4)
+    if not a8_kernel_takes(kernel, k, n, gs, gate, int4):
+        raise ValueError(f"{name}: the a8 {kernel} kernel does not take K {k}, N {n}, "
+                         f"group size {gs}")
+    return kernel
+
+
 def _gemv_rows(m: int) -> int:
     """The rows a Q8 GEMV task takes at most (its MAXM): 8 or 16."""
     return 8 if m <= 8 else 16
@@ -746,24 +801,28 @@ def _ptr(t) -> int:
 
 def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residual, rope_pos,
               rope_limit: int, rope_head: int, rope_theta: float, norm_eps: float, gate: bool,
-              kslice_max: int, planes: int = 1, layer: int | None = None):
-    """Launch an `a8` kernel (csrc/a8.cuh) of `lib` on x (M, K) and weight
-    qt (k_rows of q, n columns: 2H for a gate, whose output is H wide):
-    allocates the output, the quantized activations (M, K) int8 and their
-    scales (M, K / gs) fp32, and the GEMV path's split partials, for each
-    of the weight's `planes` (int4: the low and high nibbles). With
-    `layer`, qt and norm_weight are stacked and the kernel takes the layer
-    index after its other ints."""
+              kslice_max: int, planes: int = 1, layer: int | None = None) -> tuple:
+    """Launch an `a8` kernel (csrc/a8.cuh, a8_wgmma.cuh) of `lib` on x (M,
+    K) and weight qt (k_rows of q, n columns: 2H for a gate, whose output is
+    H wide), the kernel of a8_rows_kernel (checked first: ValueError where
+    it does not take the shape): allocates the output, the quantized
+    activations (M, K) int8 and their scales (M, K / gs) fp32, and the GEMV
+    path's split partials, for each of the weight's `planes` (int4: the low
+    and high nibbles), or the wgmma tiles' RoPE table (M, rope_head) of
+    each row's cos and sin. With `layer`, qt and norm_weight are stacked and
+    the kernel takes the layer index after its other ints. Returns (the
+    output, the kernel)."""
     m, k = x.shape
     gs, dev = qt.group_size, x.device
-    if gs % 8:
-        raise ValueError(f"the a8 kernels take group sizes that are multiples of 8, got {gs}")
+    kernel = _check_a8_takes(fn, m, k, n, gs, gate, int4=planes == 2)
     out = torch.empty((m, n // 2 if gate else n), dtype=torch.bfloat16, device=dev)
     xi = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
-    split, kslice = (kslice_plan(k_rows, n, kslice_max, gs, A8_GEMV_BN) if m <= GEMV_MAX_M
+    split, kslice = (kslice_plan(k_rows, n, kslice_max, gs, A8_GEMV_BN) if kernel == "gemv"
                      else (0, 0))
-    part = torch.empty((planes * split, m, n), dtype=torch.float32, device=dev) if split else None
+    part = (torch.empty((planes * split, m, n), dtype=torch.float32, device=dev) if split else
+            torch.empty((m, rope_head), dtype=torch.float32, device=dev)
+            if kernel == "wgmma" and rope_pos is not None else None)
     if gate:
         f = _build.bind(lib, fn, "pppppppp" + "iiiiii" + "f" + "p")
         rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight),
@@ -778,7 +837,7 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
                rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0,
                norm_eps, _stream())
     _build.check(rc, lib, fn)
-    return out
+    return out, kernel
 
 
 def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, residual=None,
@@ -810,9 +869,11 @@ def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, resid
     if route == "minner":
         return q8_matmul_minner(x, qt, **kw)
     if route == "a8":
-        out = a8_launch("quant", "q8_matmul_a8", x, qt, k, n, norm_weight, residual, rope_pos,
-                        rope_limit, rope_head, rope_theta, norm_eps, False, A8_GEMV_ROWS)
+        out, kernel = a8_launch("quant", "q8_matmul_a8", x, qt, k, n, norm_weight, residual,
+                                rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
+                                A8_GEMV_ROWS)
         q8_matmul.launches_a8 += 1
+        q8_matmul.launches_a8_wgmma += kernel == "wgmma"
         return out
     out = _reshape_launch("q8_matmul", x, qt, n, norm_weight, residual, rope_pos, rope_limit,
                           rope_head, rope_theta, norm_eps)
@@ -824,6 +885,7 @@ def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, resid
 q8_matmul.launches = 0
 q8_matmul.launches_a8 = 0
 q8_matmul.launches_wgmma = 0  # the launches (of .launches) that ran the wgmma tiles
+q8_matmul.launches_a8_wgmma = 0  # the launches (of .launches_a8) that ran the a8 wgmma tiles
 
 
 def _check_epilogue(residual, rope_pos, rope_limit: int, rope_head: int, m: int, n: int, dev):
@@ -902,10 +964,11 @@ def q8_matmul_layered(x, qt: QTensor, layer: int, *, norm_weight=None, norm_eps:
         check_operand("norm_weight", norm_weight, (n_layers, k), torch.float32, dev)
     _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
     if mode == "a8" and q8_layered_a8_engages(m, k, n, qt.group_size):
-        out = a8_launch("quant", "q8_matmul_layered_a8", x, qt, k, n, norm_weight, residual,
-                        rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
-                        A8_GEMV_ROWS, layer=layer)
+        out, kernel = a8_launch("quant", "q8_matmul_layered_a8", x, qt, k, n, norm_weight,
+                                residual, rope_pos, rope_limit, rope_head, rope_theta, norm_eps,
+                                False, A8_GEMV_ROWS, layer=layer)
         q8_matmul_layered.launches_a8 += 1
+        q8_matmul_layered.launches_a8_wgmma += kernel == "wgmma"
         return out
     out = _reshape_launch("q8_matmul_layered", x, qt, n, norm_weight, residual, rope_pos,
                           rope_limit, rope_head, rope_theta, norm_eps, layer=layer)
@@ -917,6 +980,7 @@ def q8_matmul_layered(x, qt: QTensor, layer: int, *, norm_weight=None, norm_eps:
 q8_matmul_layered.launches = 0
 q8_matmul_layered.launches_a8 = 0
 q8_matmul_layered.launches_wgmma = 0
+q8_matmul_layered.launches_a8_wgmma = 0
 
 
 def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
@@ -939,9 +1003,10 @@ def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
     if route == "minner":
         return q8_matmul_silu_minner(x, qt13, norm_weight=norm_weight, norm_eps=norm_eps)
     if route == "a8":
-        out = a8_launch("quant", "q8_matmul_silu_a8", x, qt13, k, n2, norm_weight, None, None, 0,
-                        0, 0.0, norm_eps, True, A8_GEMV_ROWS)
+        out, kernel = a8_launch("quant", "q8_matmul_silu_a8", x, qt13, k, n2, norm_weight, None,
+                                None, 0, 0, 0.0, norm_eps, True, A8_GEMV_ROWS)
         q8_matmul_silu.launches_a8 += 1
+        q8_matmul_silu.launches_a8_wgmma += kernel == "wgmma"
         return out
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
@@ -961,6 +1026,7 @@ def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
 q8_matmul_silu.launches = 0
 q8_matmul_silu.launches_a8 = 0
 q8_matmul_silu.launches_wgmma = 0
+q8_matmul_silu.launches_a8_wgmma = 0
 
 
 def ffn_splits(m: int, h: int, n: int) -> int:
@@ -1178,3 +1244,36 @@ def wgmma_mainloop_probe(ctas: int, n_steps: int, in_flight: int, dev) -> torch.
 
 
 wgmma_mainloop_probe.launches = 0
+
+
+def q8_a8_tiles_probe(xi, sx, qt: QTensor, gate: bool, variant: int) -> torch.Tensor:
+    """Launch one `a8` tile kernel of csrc/quant.cu alone (no quantizer
+    pass, no epilogue) on quantized rows xi (M, K) int8 and their scales sx
+    (M, K / gs) fp32: variant 0 the int8 wgmma tiles as shipped
+    (a8_wgmma.cuh), 1 the same with the other conversion of the group sums
+    (not for a gate), 2 a8.cuh's mma.sync tiles. gate: qt is W1|W3 (K, 2H)
+    and the output the gate (M, H); else (M, N). For comparing the tile
+    kernels on the same inputs; no model path runs it."""
+    if xi.device.type != "cuda":
+        raise ValueError("q8_a8_tiles_probe runs on the card only")
+    m, k = xi.shape
+    gs = qt.group_size
+    n = _check_weight("qt", qt, k, xi.device)
+    check_operand("xi", xi, (m, k), torch.int8, xi.device)
+    check_operand("sx", sx, (m, k // gs), torch.float32, xi.device)
+    ncols = n // 2 if gate else n
+    if variant not in (0, 1, 2) or (variant == 1 and gate):
+        raise ValueError(f"q8_a8_tiles_probe: no variant {variant} (gate {gate})")
+    if not a8_kernel_takes("mma" if variant == 2 else "wgmma", k, n, gs, gate):
+        raise ValueError(f"q8_a8_tiles_probe: variant {variant} does not take K {k}, N {n}, "
+                         f"group size {gs}")
+    out = torch.empty((m, ncols), dtype=torch.bfloat16, device=xi.device)
+    f = _build.bind("quant", "q8_a8_tiles_probe", "ppppp" + "iiiiii" + "p")
+    _build.check(f(xi.data_ptr(), sx.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(),
+                   out.data_ptr(), m, k, ncols, gs, int(gate), variant, _stream()), "quant",
+                 "q8_a8_tiles_probe")
+    q8_a8_tiles_probe.launches += 1
+    return out
+
+
+q8_a8_tiles_probe.launches = 0

@@ -294,9 +294,9 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
         if rope_head <= 0 or rope_head % 2 or rope_limit % rope_head or rope_limit > n:
             raise ValueError(f"rope: head size {rope_head}, limit {rope_limit}, N {n}")
     if _a8(mode, x, n, qt.group_size, widths):
-        out = a8_launch("quant4", "q4_matmul_a8", x, qt, k // 2, n, norm_weight, residual,
-                        rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
-                        _GEMV_KSLICE_MAX, planes=2)
+        out, _ = a8_launch("quant4", "q4_matmul_a8", x, qt, k // 2, n, norm_weight, residual,
+                           rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
+                           _GEMV_KSLICE_MAX, planes=2)
         q4_matmul.launches_a8 += 1
         return out
     kernel = _check_takes("q4_matmul", m, k, n, qt.group_size)
@@ -343,8 +343,8 @@ def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-
         raise ValueError(f"q4_matmul_silu takes H % 16 == 0, got {h}")
     _check_norm(norm_weight, k, dev)
     if _a8(mode, x, h, qt13.group_size):
-        out = a8_launch("quant4", "q4_matmul_silu_a8", x, qt13, k // 2, n2, norm_weight, None,
-                        None, 0, 0, 0.0, norm_eps, True, _GEMV_KSLICE_MAX, planes=2)
+        out, _ = a8_launch("quant4", "q4_matmul_silu_a8", x, qt13, k // 2, n2, norm_weight,
+                           None, None, 0, 0, 0.0, norm_eps, True, _GEMV_KSLICE_MAX, planes=2)
         q4_matmul_silu.launches_a8 += 1
         return out
     kernel = _check_takes("q4_matmul_silu", m, k, n2, qt13.group_size, gate=True)

@@ -9,6 +9,7 @@ checkouts in turns (parent, change, change, parent) within one machine.
     cd <checkout> && python <path of this file> int8 <checkout>
     cd <checkout> && python <path of this file> minner <checkout>
     cd <checkout> && python <path of this file> int4 <checkout>
+    cd <checkout> && python <path of this file> a8 <checkout>
 
 Each runs the checkout's own package and its chip_smoke.py helpers (the
 checkout goes first on sys.path; run this file by its path, not with -m,
@@ -69,6 +70,17 @@ so that the package is imported from the checkout), once per checkout.
   the least of three CUDA-event means; the T-256 and T-16 chunks of the
   7B-width int4 model (bf16 cache) over 8 slots, profiled; then the port
   bench's --quant q4 --mode ttft in process, twice.
+- a8: the Q8 products in `a8` math (HIPLLAMA_Q8_MODE=a8, group size 64,
+  7B widths): q8_matmul (K15) on QKV with the norm and RoPE and on wo with
+  the residual, and q8_matmul_silu (K17) with the norm, at M 8 (the GEMV),
+  32, 128, 512, 2048 and 4088 (the tiles), each the least of three
+  CUDA-event means; the T-256 and T-16 chunks of the 7B-width Q8 + int8-KV
+  model over 8 slots in `a8`, profiled; chip_smoke's 16-request serve of
+  that model in `a8`, twice (tok/s, TTFT p50 and p95). With AB_TREES_OUT
+  set to a directory, each run saves its products' outputs there (the
+  inputs come from a fixed seed; about 330 MB a checkout) and prints the
+  largest absolute difference of each from every other checkout's saved
+  outputs.
 """
 
 from __future__ import annotations
@@ -539,9 +551,98 @@ def int4(cs) -> None:
     bench_lines(cs, [["--quant", "q4", "--mode", "ttft"]] * 2)
 
 
+def a8(cs) -> None:
+    import glob
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from hip_llama_tpu_torch.engine import InferenceEngine, Requests
+    from hip_llama_tpu_torch.ops import quant as Q
+    from hip_llama_tpu_torch.sampler import Sampler
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    d, hid = 4096, 11008
+
+    def weights(k, n):
+        return [Q.q8_quantize_weights(torch.randn((k, n), generator=g, device=dev) * k ** -0.5, 64)
+                for _ in range(2)]
+
+    wq, wo, w13 = weights(d, 3 * d), weights(d, d), weights(d, 2 * hid)
+    norm = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).contiguous()
+    outs = {}
+    for m in (8, 32, 128, 512, 2048, 4088):
+        x = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+        pos = torch.arange(m, dtype=torch.int32, device=dev) % 512
+        cases = {
+            "QKV": lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos,
+                                         rope_limit=2 * d, rope_head=128, mode="a8"),
+            "wo": lambda i: Q.q8_matmul(x, wo[i % 2], residual=x, mode="a8"),
+            "K17": lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm, mode="a8"),
+        }
+        row = []
+        for name, fn in cases.items():
+            outs[f"{name} M {m}"] = fn(0).cpu()
+            torch.cuda.synchronize()
+            row.append(f"{name} {min(cs.cuda_ms(fn) for _ in range(3)):.4f}")
+        print(f"a8 products M {m} (ms): {'; '.join(row)}", flush=True)
+    del wq, wo, w13
+    torch.cuda.empty_cache()
+    save = os.environ.get("AB_TREES_OUT")
+    if save:
+        os.makedirs(save, exist_ok=True)
+        tag = hashlib.sha1(os.path.abspath(sys.path[0]).encode()).hexdigest()[:8]
+        for other in sorted(glob.glob(os.path.join(save, "a8_*.pt"))):
+            if other.endswith(f"a8_{tag}.pt"):
+                continue
+            theirs = torch.load(other)
+            diffs = [f"{k} {(v.float() - theirs[k].float()).abs().max().item():g}"
+                     for k, v in outs.items()]
+            print(f"a8 max |difference| from {os.path.basename(other)}: {'; '.join(diffs)}",
+                  flush=True)
+        torch.save(outs, os.path.join(save, f"a8_{tag}.pt"))
+
+    cfg = cs.LLAMA2_7B
+    params = cs.random_7b_qparams(cfg, dev)
+    toks = np.random.default_rng(5).integers(3, cfg.vocab_size, (8, 256)).tolist()
+    with cs.knobs({"HIPLLAMA_Q8_MODE": "a8"}):
+        engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512,
+                                 kv_quant=True)
+        cache = engine.new_cache()
+        for t in (256, 16):
+            cs.profile_window(f"q8 int8-kv a8 prefill chunk (batch 8, T {t})",
+                              2 if t > 16 else 4,
+                              lambda i, t=t: engine._prefill_tokens(
+                                  cache, 8, {s: toks[s][:t] for s in range(8)},
+                                  {s: 0 for s in range(8)}, bm=None))
+        del engine, cache
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            tok = cs.llama_sized_tokenizer(tmp, cfg.vocab_size)
+        targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
+        prompts = cs.make_prompts(tok, targets)
+        for rep in range(2):
+            engine = InferenceEngine(cfg, params, tok, batch_size=8, max_seq_len=512,
+                                     kv_quant=True)
+            stats: dict = {}
+            engine.serve(Requests(prompts=prompts, generations=[""] * len(prompts)), steps=352,
+                         stats=stats,
+                         samplers=[Sampler(cfg.vocab_size, temperature=0.0) for _ in prompts])
+            print(f"a8 serve {rep}: {stats['tok_per_s']:.2f} tok/s, ttft p50 "
+                  f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms",
+                  flush=True)
+            del engine
+            torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+
 def main(argv: list[str]) -> int:
     modes = {"attention": attention, "serve": serve, "prefill": prefill, "decode": decode,
-             "parts": parts, "int8": int8, "minner": minner, "int4": int4}
+             "parts": parts, "int8": int8, "minner": minner, "int4": int4, "a8": a8}
     if len(argv) != 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2

@@ -1044,16 +1044,30 @@ def test_attention_prefill_paged_tensor_cores_over_pages(shape, pages):
 # ---------------------------------------------------------------------------
 # the `a8` mode: K15, K17, K21 and K22 against their plain versions
 
-A8_Q8_SHAPES = [(64, 128, 64), (192, 384, 64), (4096, 12288, 64), (11008, 4096, 64)]
+# (K, N, gs): the fixture's and a mid shape at groups of 64, K 96 and 288
+# (three units and one unit past a 128-deep step of the wgmma tiles) at
+# groups of 32, Llama-2-7B's QKV and W2
+A8_Q8_SHAPES = [(64, 128, 64), (192, 384, 64), (96, 384, 32), (288, 480, 32),
+                (4096, 12288, 64), (11008, 4096, 64)]
 A8_Q4_SHAPES = [(64, 128, 32), (192, 384, 32), (4096, 12288, 32), (11008, 4096, 32)]
+# the GEMV's rows, the tiles' edges around 128-row tiles, a T-256 chunk of
+# 8 slots and the bench's 8 x 511
+A8_ROWS = [1, 8, 12, 16, 17, 40, 128, 255, 256, 257, 300, 2048, 4088]
 
 
 def _a8_case(wrapper, plain, qt, x, kw, expect_a8):
+    """wrapper against plain in `a8`; the `a8` kernel launched where
+    expect_a8 (else the reshape kernel), the int8 wgmma tiles where the rule
+    says so (Q8 wrappers: `.launches_a8_wgmma`)."""
     n0, a0 = wrapper.launches, wrapper.launches_a8
+    w0 = getattr(wrapper, "launches_a8_wgmma", 0)
     got = wrapper(x, qt, mode="a8", **kw)
     want = plain(x, qt, mode="a8", **kw)
     torch.cuda.synchronize()
     assert (wrapper.launches_a8 - a0, wrapper.launches - n0) == ((1, 0) if expect_a8 else (0, 1))
+    wgmma = (expect_a8 and hasattr(wrapper, "launches_a8_wgmma")
+             and Q.a8_rows_kernel(x.shape[0], qt.group_size) == "wgmma")
+    assert getattr(wrapper, "launches_a8_wgmma", 0) - w0 == int(wgmma)
     _close(got, want, torch.bfloat16)
     return got
 
@@ -1071,13 +1085,14 @@ def _epilogue(rng, m, k, n, epi, dev):
     return kw
 
 
-@pytest.mark.parametrize("m", [1, 8, 12, 40, 300])
+@pytest.mark.parametrize("m", A8_ROWS)
 @pytest.mark.parametrize("shape", A8_Q8_SHAPES)
 @pytest.mark.parametrize("epi", ["none", "norm", "residual", "norm_rope"])
 def test_q8_matmul_a8_kernel(m, shape, epi):
-    """The GEMV path (M <= 16, one or two 8-row chunks) and the tiled path
-    (M 40, 300) with each epilogue; where the JAX decision keeps reshape
-    math (K 11008 at 300 rows: 172 groups), the reshape kernel runs."""
+    """The GEMV path (M <= 16, one or two 8-row chunks) and the tiles (the
+    int8 wgmma tiles at these group sizes: a8_rows_kernel) with each
+    epilogue; where the JAX decision keeps reshape math (K 11008 above 64
+    rows: 172 groups), the reshape kernel runs."""
     dev = _card()
     k, n, gs = shape
     rng = np.random.default_rng(40)
@@ -1087,20 +1102,27 @@ def test_q8_matmul_a8_kernel(m, shape, epi):
     _a8_case(Q.q8_matmul, Q.q8_matmul_plain, qt, x, kw, Q.q8_a8_engages(m, k, n, gs))
 
 
-@pytest.mark.parametrize("m", [4, 12, 40, 512])
-@pytest.mark.parametrize("shape", [(64, 192, 64), (192, 256, 64), (4096, 11008, 64)])
-def test_q8_matmul_silu_a8_kernel(m, shape):
+@pytest.mark.parametrize("m", [4, 512] + A8_ROWS)
+@pytest.mark.parametrize("shape", [(64, 192, 64), (192, 256, 64), (96, 256, 32), (288, 768, 32),
+                                   (4096, 11008, 64)])
+@pytest.mark.parametrize("norm", [True, False])
+def test_q8_matmul_silu_a8_kernel(m, shape, norm):
+    """The W1|W3 gate in `a8` with and without the norm: the GEMV up to 16
+    rows, the int8 wgmma tiles above (group sizes 32 and 64)."""
     dev = _card()
     k, h, gs = shape
     rng = np.random.default_rng(41)
     qt13 = _qt(rng, k, 2 * h, gs, dev)
     x = _rand(rng, (m, k), torch.bfloat16, dev)
-    norm = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
-    a0 = Q.q8_matmul_silu.launches_a8
-    got = Q.q8_matmul_silu(x, qt13, norm_weight=norm, mode="a8")
-    want = Q.q8_matmul_silu_plain(x, qt13, norm_weight=norm, mode="a8")
+    kw = {}
+    if norm:
+        kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
+    a0, w0 = Q.q8_matmul_silu.launches_a8, Q.q8_matmul_silu.launches_a8_wgmma
+    got = Q.q8_matmul_silu(x, qt13, mode="a8", **kw)
+    want = Q.q8_matmul_silu_plain(x, qt13, mode="a8", **kw)
     torch.cuda.synchronize()
     assert Q.q8_matmul_silu.launches_a8 == a0 + 1 and got.shape == (m, h)
+    assert Q.q8_matmul_silu.launches_a8_wgmma - w0 == int(Q.a8_rows_kernel(m, gs) == "wgmma")
     _close(got, want, torch.bfloat16)
 
 
