@@ -1723,8 +1723,7 @@ def phase_a8_kernels() -> dict[str, dict]:
 def probe_a8_tiles() -> None:
     """The `a8` tile kernels alone (ops/quant.py::q8_a8_tiles_probe: no
     quantizer pass, no epilogue) on the same quantized rows at QKV and the
-    W1|W3 gate, M 2048, group size 64: the int8 wgmma tiles as shipped,
-    with the other conversion of the group sums (QKV), and a8.cuh's
+    W1|W3 gate, M 2048, group size 64: the int8 wgmma tiles and a8.cuh's
     mma.sync tiles, whose outputs the wgmma tiles must equal bit for bit."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 19)
@@ -1735,15 +1734,13 @@ def probe_a8_tiles() -> None:
         xi, sx = Q.a8_quantize_rows(torch.randn((m, d), generator=g, device=dev)
                                     .to(torch.bfloat16).float(), gs)
         xi = xi.to(torch.int8).contiguous()
-        shipped, other = ("the add", "I2F") if Q.A8_WGMMA_MAGIC else ("I2F", "the add")
-        names = {0: f"wgmma ({shipped})", 1: f"wgmma ({other})", 2: "mma.sync"}
-        variants = (0, 2) if gate else (0, 1, 2)
-        outs = {v: Q.q8_a8_tiles_probe(xi, sx, w[0], gate, v) for v in variants}
+        names = {0: "wgmma", 1: "mma.sync"}
+        outs = {v: Q.q8_a8_tiles_probe(xi, sx, w[0], gate, v) for v in names}
         torch.cuda.synchronize()
-        equal = all(torch.equal(outs[v], outs[2]) for v in variants)
-        times = [f"{names[v]} "
+        equal = torch.equal(outs[0], outs[1])
+        times = [f"{name} "
                  f"{cuda_ms(lambda i, v=v: Q.q8_a8_tiles_probe(xi, sx, w[i % 2], gate, v)):.4f}"
-                 for v in variants]
+                 for v, name in names.items()]
         print(f"probe a8 tiles [{what} M {m}] ms: {'; '.join(times)}; outputs equal to "
               f"mma.sync's: {equal}", flush=True)
         if not equal:

@@ -48,18 +48,16 @@
 //  - the grid takes the row tiles of a column tile together (blockIdx.x
 //    over M), so that a wave reads a few column tiles of the weight with
 //    the whole of xi, which stay in L2.
-// Where the time goes (QKV M 2048, tools/a8_parts.py, PERF.md): the copies
-// alone take about 0.32 ms of the tiles' 0.75, the loop without copies
-// about 0.67: its rescale and its products run mostly in series rather
-// than beside each other, and about 0.08 ms goes to each CTA's set-up,
-// fill and drain. Tried and slower: separate rings for xi and the weight
+// Where the time goes (QKV M 2048, PERF.md): the copies alone take about
+// 0.32 ms of the tiles' 0.75, the loop without copies about 0.67: its
+// rescale and its products run mostly in series rather than beside each
+// other, and about 0.08 ms goes to each CTA's set-up, fill and drain. Tried and slower: separate rings for xi and the weight
 // (deeper), an mbarrier hand-over of the B tiles in place of the
 // consumers' barrier, sum sets of 64 columns (n64 wgmmas), four consumer
 // warpgroups of one m64 x n64 block each, a persistent grid (its registers
 // spill), the transposition's stores in 8-byte halves.
-// f32(sum): I2F (I2FP on sm_90), or the integer add into the mantissa of
-// 1.5 x 2^23 (exact while |sum| < 2^22, i.e. gs * 127^2 < 2^22, gs <= 256);
-// kMagic chooses; I2F timed faster (PERF.md).
+// f32(sum) is I2F (I2FP on sm_90): it timed faster than the integer add
+// into the mantissa of 1.5 x 2^23 (PERF.md).
 #pragma once
 
 #include <stdint.h>
@@ -94,13 +92,13 @@ static_assert(kSmemBytes <= 232448, "the ring fits an SM's shared memory");
 
 // the registers of a CTA's 384 threads: 168 each at launch (wg::prepare
 // checks), then 40 for the producer and 232 for the consumers, whose two
-// int32 sum sets and fp32 accumulator take 192
+// int32 sum sets and fp32 accumulator take 192. ptxas -v (CUDA 12.8,
+// tools/ab_trees.py sass): both instantiations 168 registers, 4 bytes of
+// spill stores and 12 of spill loads; stack frame 40 bytes (GATE false)
+// and 8 (GATE true)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= wg::kLaunchRegs * wg::kThreads,
               "the consumers take what the producer gives back");
-
-// the shipped conversion of a group's int32 sums to fp32 (see above)
-constexpr bool kShippedMagic = false;
 
 __device__ __forceinline__ void producer_regs() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
@@ -305,17 +303,10 @@ __device__ __forceinline__ void fence_sums(int (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-template <bool kMagic>
-__device__ __forceinline__ float sum_to_f32(int v) {
-  if constexpr (kMagic) return __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.0f);
-  return __int2float_rn(v);
-}
-
 // acc += (f32(d) * sx[row]) * s[col] for a completed group: s at the ring's
 // shared address sc (the group's row of B tile columns), sx at sxa (its
 // column of the CTA's rows); thread t of consumer c holds rows 64 c + 16 (t
 // / 32) + (t % 32) / 4 (+ 8) and columns 8 i + 2 (t % 4) (+ 1) of n8 tile i
-template <bool kMagic>
 __device__ __forceinline__ void rescale(float (&acc)[64], const int (&d)[64], uint32_t sc,
                                         uint32_t sxa, int c, int t) {
   const int row = 64 * c + 16 * (t >> 5) + ((t & 31) >> 2);
@@ -329,13 +320,10 @@ __device__ __forceinline__ void rescale(float (&acc)[64], const int (&d)[64], ui
                  : "=f"(s0), "=f"(s1)
                  : "r"(sc + 4 * (8 * i + 2 * (t & 3)))
                  : "memory");
-    acc[4 * i] = __fmaf_rn(__fmul_rn(sum_to_f32<kMagic>(d[4 * i]), sx0), s0, acc[4 * i]);
-    acc[4 * i + 1] =
-        __fmaf_rn(__fmul_rn(sum_to_f32<kMagic>(d[4 * i + 1]), sx0), s1, acc[4 * i + 1]);
-    acc[4 * i + 2] =
-        __fmaf_rn(__fmul_rn(sum_to_f32<kMagic>(d[4 * i + 2]), sx1), s0, acc[4 * i + 2]);
-    acc[4 * i + 3] =
-        __fmaf_rn(__fmul_rn(sum_to_f32<kMagic>(d[4 * i + 3]), sx1), s1, acc[4 * i + 3]);
+    acc[4 * i] = __fmaf_rn(__fmul_rn(__int2float_rn(d[4 * i]), sx0), s0, acc[4 * i]);
+    acc[4 * i + 1] = __fmaf_rn(__fmul_rn(__int2float_rn(d[4 * i + 1]), sx0), s1, acc[4 * i + 1]);
+    acc[4 * i + 2] = __fmaf_rn(__fmul_rn(__int2float_rn(d[4 * i + 2]), sx1), s0, acc[4 * i + 2]);
+    acc[4 * i + 3] = __fmaf_rn(__fmul_rn(__int2float_rn(d[4 * i + 3]), sx1), s1, acc[4 * i + 3]);
   }
 }
 
@@ -357,7 +345,6 @@ struct Cursor {
 // the barrier, which joins the halves of the next B tile; tile (it + 2) %
 // 3, the next to be written, was last read by step it - 1, whose products
 // have completed in both warpgroups.
-template <bool kMagic>
 __device__ __forceinline__ void group(const Ring& ring, Cursor& cu, int g, int (&cur)[64],
                                       int (&prev)[64], bool has_prev, int K, int gs, int n_steps,
                                       int c, int t, float (&acc)[64]) {
@@ -374,7 +361,7 @@ __device__ __forceinline__ void group(const Ring& ring, Cursor& cu, int g, int (
     if (first && has_prev) {
       fence_sums(prev);
       const int gi = g - 1 - cu.pend_g0;
-      rescale<kMagic>(acc, prev, ring.scales(cu.pend_st) + gi * (kBN * 4),
+      rescale(acc, prev, ring.scales(cu.pend_st) + gi * (kBN * 4),
                       ring.sxs(cu.pend_st) + gi * (kBM * 4), c, t);
     }
     if (cu.u == 0) {
@@ -401,7 +388,6 @@ __device__ __forceinline__ void group(const Ring& ring, Cursor& cu, int g, int (
 // The consumer warpgroups' loop over K's groups (G = K / gs), even groups
 // into sum set d0 and odd ones into d1, then the last group's rescale; acc
 // holds the fp32 product on return.
-template <bool kMagic>
 __device__ __forceinline__ void consume(const Ring& ring, int K, int gs, int n_steps, int c,
                                         int t, float (&acc)[64]) {
   int d0[64], d1[64];
@@ -417,8 +403,8 @@ __device__ __forceinline__ void consume(const Ring& ring, int K, int gs, int n_s
   const int G = K / gs;
   Cursor cu{0, 0, 0, 0, 0};
   for (int g = 0; g < G; g += 2) {
-    group<kMagic>(ring, cu, g, d0, d1, g > 0, K, gs, n_steps, c, t, acc);
-    if (g + 1 < G) group<kMagic>(ring, cu, g + 1, d1, d0, true, K, gs, n_steps, c, t, acc);
+    group(ring, cu, g, d0, d1, g > 0, K, gs, n_steps, c, t, acc);
+    if (g + 1 < G) group(ring, cu, g + 1, d1, d0, true, K, gs, n_steps, c, t, acc);
   }
   wg::wg_wait<0>();
   const int gi = G - 1 - cu.pend_g0;
@@ -426,10 +412,10 @@ __device__ __forceinline__ void consume(const Ring& ring, int K, int gs, int n_s
   const uint32_t sxa = ring.sxs(cu.pend_st) + gi * (kBM * 4);
   if ((G - 1) & 1) {
     fence_sums(d1);
-    rescale<kMagic>(acc, d1, sc, sxa, c, t);
+    rescale(acc, d1, sc, sxa, c, t);
   } else {
     fence_sums(d0);
-    rescale<kMagic>(acc, d0, sc, sxa, c, t);
+    rescale(acc, d0, sc, sxa, c, t);
   }
 }
 
@@ -445,7 +431,7 @@ namespace a8wg = hipllama::a8wg;
 // the same of W3 at off2 = H, ncols = H). xi (M, K) int8, sx (M, K / gs)
 // fp32, q (K, ldq) int8, s (K / gs, ldq) fp32. blockIdx.x is the row tile,
 // blockIdx.y the column tile.
-template <bool GATE, bool kMagic>
+template <bool GATE>
 __global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) a8_tile_kernel(
     const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
     const float* __restrict__ s, int M, int K, int ldq, int ncols, int off2, int gs,
@@ -464,7 +450,7 @@ __global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) a8_tile_kernel(
   } else {
     a8wg::consumer_regs();
     float acc[1][64];
-    a8wg::consume<kMagic>(ring, K, gs, n_steps, role, t, acc[0]);
+    a8wg::consume(ring, K, gs, n_steps, role, t, acc[0]);
     if (GATE)
       wg::store_gate(acc, m0, n0, M, ncols, role, t, out);
     else
@@ -472,20 +458,20 @@ __global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) a8_tile_kernel(
   }
 }
 
-// the `a8` tiles into out (M, ncols) bf16: gs a multiple of 32 dividing K
-// (with kMagic at most 256), ncols and ldq multiples of 16
-template <bool GATE, bool kMagic = a8wg::kShippedMagic>
+// the `a8` tiles into out (M, ncols) bf16: gs a multiple of 32 dividing K,
+// ncols and ldq multiples of 16
+template <bool GATE>
 int launch_a8_tiles(const void* xi, const void* sx, const void* q, const void* s, int M, int K,
                     int ldq, int ncols, int off2, int gs, const hipllama::q8::Epilogue& e,
                     void* out, cudaStream_t st) {
-  if (M < 1 || gs < 32 || gs % 32 || (kMagic && gs > 256) || K % gs || ncols % 16 || ldq % 16)
+  if (M < 1 || gs < 32 || gs % 32 || K % gs || ncols % 16 || ldq % 16)
     return (int)cudaErrorInvalidValue;
-  static const int ready = hipllama::q8wg::prepare(a8_tile_kernel<GATE, kMagic>,
+  static const int ready = hipllama::q8wg::prepare(a8_tile_kernel<GATE>,
                                                    a8wg::kSmemBytes);
   HIPLLAMA_TRY(ready);
   constexpr int kHalf = GATE ? a8wg::kBN / 2 : a8wg::kBN;
   const dim3 grid((M + a8wg::kBM - 1) / a8wg::kBM, (ncols + kHalf - 1) / kHalf);
-  a8_tile_kernel<GATE, kMagic><<<grid, hipllama::q8wg::kThreads, a8wg::kSmemBytes, st>>>(
+  a8_tile_kernel<GATE><<<grid, hipllama::q8wg::kThreads, a8wg::kSmemBytes, st>>>(
       (const int8_t*)xi, (const float*)sx, (const int8_t*)q, (const float*)s, M, K, ldq, ncols,
       off2, gs, e, (a8wg::bf16*)out);
   return check_launch();

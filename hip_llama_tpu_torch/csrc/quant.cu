@@ -321,9 +321,7 @@ extern "C" int q8_matmul_silu_a8(const void* x, const void* q13, const void* s13
 // The `a8` tiles alone on quantized rows xi (M, K) int8 and sx (M, K/gs)
 // fp32, no epilogue (gate: the W1|W3 gate, q (K, 2 ncols); else q (K,
 // ncols)), for comparing the tile kernels on the same inputs: variant 0 the
-// wgmma tiles as shipped, 1 the wgmma tiles with the other conversion of
-// the int32 sums (a8_wgmma.cuh::kMagic; gate 0 only), 2 a8.cuh's mma.sync
-// tiles.
+// wgmma tiles, 1 a8.cuh's mma.sync tiles.
 extern "C" int q8_a8_tiles_probe(const void* xi, const void* sx, const void* q, const void* s,
                                  void* out, int M, int K, int ncols, int gs, int gate,
                                  int variant, void* stream) {
@@ -333,10 +331,7 @@ extern "C" int q8_a8_tiles_probe(const void* xi, const void* sx, const void* q, 
   if (variant == 0)
     return gate ? launch_a8_tiles<true>(xi, sx, q, s, M, K, ldq, ncols, off2, gs, none, out, st)
                 : launch_a8_tiles<false>(xi, sx, q, s, M, K, ldq, ncols, off2, gs, none, out, st);
-  if (variant == 1 && !gate)
-    return launch_a8_tiles<false, !hipllama::a8wg::kShippedMagic>(xi, sx, q, s, M, K, ldq, ncols,
-                                                                  off2, gs, none, out, st);
-  if (variant == 2)
+  if (variant == 1)
     return gate ? hipllama::a8::launch_mma<true, false>(xi, sx, q, s, M, K, ldq, ncols, off2, gs,
                                                         none, out, st)
                 : hipllama::a8::launch_mma<false, false>(xi, sx, q, s, M, K, ldq, ncols, off2,

@@ -134,9 +134,6 @@ Q8_BLOCK_M = 512
 # q8_matmul_xheads's own block_n (quant.py:431), which the JAX model leaves
 XHEADS_BLOCK_N = 512
 WGMMA_STEP_K = 64  # rows of K a step of csrc/q8_wgmma.cuh's mainloop takes (kBK)
-# whether csrc/a8_wgmma.cuh's shipped conversion of the int32 group sums is
-# the integer add (kShippedMagic) rather than I2F
-A8_WGMMA_MAGIC = False
 
 
 @dataclasses.dataclass
@@ -1249,11 +1246,10 @@ wgmma_mainloop_probe.launches = 0
 def q8_a8_tiles_probe(xi, sx, qt: QTensor, gate: bool, variant: int) -> torch.Tensor:
     """Launch one `a8` tile kernel of csrc/quant.cu alone (no quantizer
     pass, no epilogue) on quantized rows xi (M, K) int8 and their scales sx
-    (M, K / gs) fp32: variant 0 the int8 wgmma tiles as shipped
-    (a8_wgmma.cuh), 1 the same with the other conversion of the group sums
-    (not for a gate), 2 a8.cuh's mma.sync tiles. gate: qt is W1|W3 (K, 2H)
-    and the output the gate (M, H); else (M, N). For comparing the tile
-    kernels on the same inputs; no model path runs it."""
+    (M, K / gs) fp32: variant 0 the int8 wgmma tiles (a8_wgmma.cuh), 1
+    a8.cuh's mma.sync tiles. gate: qt is W1|W3 (K, 2H) and the output the
+    gate (M, H); else (M, N). For comparing the tile kernels on the same
+    inputs; no model path runs it."""
     if xi.device.type != "cuda":
         raise ValueError("q8_a8_tiles_probe runs on the card only")
     m, k = xi.shape
@@ -1262,9 +1258,9 @@ def q8_a8_tiles_probe(xi, sx, qt: QTensor, gate: bool, variant: int) -> torch.Te
     check_operand("xi", xi, (m, k), torch.int8, xi.device)
     check_operand("sx", sx, (m, k // gs), torch.float32, xi.device)
     ncols = n // 2 if gate else n
-    if variant not in (0, 1, 2) or (variant == 1 and gate):
-        raise ValueError(f"q8_a8_tiles_probe: no variant {variant} (gate {gate})")
-    if not a8_kernel_takes("mma" if variant == 2 else "wgmma", k, n, gs, gate):
+    if variant not in (0, 1):
+        raise ValueError(f"q8_a8_tiles_probe: no variant {variant}")
+    if not a8_kernel_takes("mma" if variant else "wgmma", k, n, gs, gate):
         raise ValueError(f"q8_a8_tiles_probe: variant {variant} does not take K {k}, N {n}, "
                          f"group size {gs}")
     out = torch.empty((m, ncols), dtype=torch.bfloat16, device=xi.device)

@@ -10,6 +10,8 @@ checkouts in turns (parent, change, change, parent) within one machine.
     cd <checkout> && python <path of this file> minner <checkout>
     cd <checkout> && python <path of this file> int4 <checkout>
     cd <checkout> && python <path of this file> a8 <checkout>
+    cd <checkout> && python <path of this file> a8host <checkout>
+    cd <checkout> && python <path of this file> sass <checkout> [<other checkout>]
 
 Each runs the checkout's own package and its chip_smoke.py helpers (the
 checkout goes first on sys.path; run this file by its path, not with -m,
@@ -81,6 +83,19 @@ so that the package is imported from the checkout), once per checkout.
   inputs come from a fixed seed; about 330 MB a checkout) and prints the
   largest absolute difference of each from every other checkout's saved
   outputs.
+- a8host: the host's time to enqueue a decode step of the 7B-width Q8 +
+  int8-KV model (batch 8, 10 steps, no synchronize inside, no profiler), in
+  `a8` and in reshape math (the fused layer: the control for the host's own
+  speed), 5 rounds taking the two in turns, unrolled and --layout stacked;
+  the host's time per eager call of q8_matmul on QKV M 8 with the norm and
+  RoPE (100 calls, no synchronize inside), in `a8` and reshape math;
+  chip_smoke's 16-request serve of the unrolled model in `a8`, once.
+- sass: csrc/quant.cu and quant4.cu of the checkout compiled to cubins
+  with `ptxas -v` (each kernel's registers, stack frame and spill bytes, a
+  line each); with another checkout, its cubins too, and the SASS of the two
+  compared function by function (cuobjdump -sass; names normalized,
+  addresses and encodings dropped): a line for each function that differs
+  or is only in one tree, then a count. It needs nvcc, not the card.
 """
 
 from __future__ import annotations
@@ -640,9 +655,182 @@ def a8(cs) -> None:
     torch.cuda.empty_cache()
 
 
+def a8host(cs) -> None:
+    import time
+
+    import torch
+
+    from hip_llama_tpu_torch.engine import InferenceEngine, Requests
+    from hip_llama_tpu_torch.models.llama import make_decode_step
+    from hip_llama_tpu_torch.ops import quant as Q
+    from hip_llama_tpu_torch.sampler import Sampler
+
+    dev = torch.device("cuda")
+    cfg = cs.LLAMA2_7B
+    tok_t = torch.tensor([11, 200, 3000, 7, 42, 999, 31000, 5], dtype=torch.int32, device=dev)
+    pos0 = torch.tensor([100, 17, 255, 3, 200, 60, 128, 250], dtype=torch.int32, device=dev)
+
+    def enqueue_ms(fn, n: int) -> str:
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return f"{(t1 - t0) / n * 1e3:.3f}"
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = Q.q8_quantize_weights(torch.randn((4096, 3 * 4096), generator=g, device=dev)
+                              * 4096 ** -0.5, 64)
+    x = torch.randn((8, 4096), generator=g, device=dev).to(torch.bfloat16)
+    norm = torch.ones(4096, device=dev)
+    calls = {mode: [] for mode in ("a8", "reshape")}
+    for _ in range(5):
+        for mode, ts in calls.items():
+            ts.append(enqueue_ms(lambda i, mode=mode: Q.q8_matmul(
+                x, w, norm_weight=norm, rope_pos=pos0, rope_limit=2 * 4096, rope_head=128,
+                mode=mode), 100))
+    for mode, ts in calls.items():
+        print(f"a8host q8_matmul QKV M 8 in {mode}: host ms a call, 5 rounds of 100: "
+              f"{', '.join(ts)}", flush=True)
+    del w
+    for stacked in (False, True):
+        params = cs.random_7b_qparams(cfg, dev, stacked=stacked)
+        engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512,
+                                 kv_quant=True)
+        cache = engine.new_cache()
+        steps = {"reshape": make_decode_step(cfg)}
+        with cs.knobs({"HIPLLAMA_Q8_MODE": "a8"}):
+            steps["a8"] = make_decode_step(cfg)
+        times = {name: [] for name in steps}
+        for _ in range(5):
+            for name, step in steps.items():
+                times[name].append(enqueue_ms(
+                    lambda i, step=step: step(params, cache, tok_t, pos0 + i), 10))
+        layout = "stacked" if stacked else "unrolled"
+        for name, ts in times.items():
+            print(f"a8host {layout} decode step in {name} (batch 8): host enqueue ms a step, "
+                  f"5 rounds of 10: {', '.join(ts)}", flush=True)
+        del engine, cache, steps
+        torch.cuda.empty_cache()
+        if not stacked:
+            with tempfile.TemporaryDirectory() as tmp:
+                tok = cs.llama_sized_tokenizer(tmp, cfg.vocab_size)
+            targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
+            prompts = cs.make_prompts(tok, targets)
+            with cs.knobs({"HIPLLAMA_Q8_MODE": "a8"}):
+                engine = InferenceEngine(cfg, params, tok, batch_size=8, max_seq_len=512,
+                                         kv_quant=True)
+                stats: dict = {}
+                engine.serve(Requests(prompts=prompts, generations=[""] * len(prompts)),
+                             steps=352, stats=stats,
+                             samplers=[Sampler(cfg.vocab_size, temperature=0.0)
+                                       for _ in prompts])
+            print(f"a8host a8 serve: {stats['tok_per_s']:.2f} tok/s, ttft p50 "
+                  f"{stats['ttft_p50_s'] * 1e3:.1f} ms, p95 {stats['ttft_p95_s'] * 1e3:.1f} ms",
+                  flush=True)
+            del engine
+        del params
+        torch.cuda.empty_cache()
+
+
+def _sass(cubin: str) -> dict[str, list[str]]:
+    """The SASS of each function of a cubin, its name and lines normalized."""
+    import os
+    import re
+    import subprocess
+
+    from hip_llama_tpu_torch.ops import _build
+
+    anon = r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}"
+    out = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+                          cubin], capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = re.sub(anon, "_GLOBAL__N_", m.group(1))
+            funcs[name] = []
+        elif name is not None:
+            line = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", line)
+            line = re.sub(anon, "_GLOBAL__N_", line).strip()
+            if line:
+                funcs[name].append(line)
+    return funcs
+
+
+def sass(this: str, other: str | None) -> None:
+    import os
+    import re
+    import shutil
+    import subprocess
+
+    from hip_llama_tpu_torch.ops import _build
+
+    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "sass")
+    os.makedirs(out_dir, exist_ok=True)
+    trees = [("this", this)] + ([("other", other)] if other else [])
+    procs = {}
+    for src in ("quant", "quant4"):
+        for tag, root in trees:
+            cubin = os.path.join(out_dir, f"{src}_{tag}.cubin")
+            cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                   "-O3", "-cubin", "-o", cubin,
+                   os.path.join(root, "hip_llama_tpu_torch", "csrc", f"{src}.cu")]
+            if tag == "this":
+                cmd[1:1] = ["-Xptxas", "-v"]
+            procs[(src, tag)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True), cubin)
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    for (src, tag), (p, cubin) in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed on {src}.cu ({tag}):\n{log}")
+        if tag != "this":
+            continue
+        name, frame = None, ("?", "?", "?")
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+                if os.path.exists(filt):
+                    name = subprocess.run([filt, name], capture_output=True,
+                                          text=True).stdout.strip()
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and name:
+                frame = m.groups()
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                print(f"ptxas {src}.cu: {m.group(1)} registers, stack {frame[0]} B, spill "
+                      f"stores {frame[1]} B, loads {frame[2]} B: {name[:160]}", flush=True)
+                name = None
+    if other is None:
+        return
+    for src in ("quant", "quant4"):
+        a, b = (_sass(procs[(src, tag)][1]) for tag in ("other", "this"))
+        same = 0
+        for n in sorted(set(a) | set(b)):
+            if n not in a or n not in b:
+                print(f"sass {src}.cu: only in {'the other' if n in a else 'this'} tree: "
+                      f"{n[:110]}")
+            elif a[n] == b[n]:
+                same += 1
+            else:
+                print(f"sass {src}.cu: differs ({len(a[n])} vs {len(b[n])} lines): {n[:110]}")
+        print(f"sass {src}.cu: {same} of {len(set(a) & set(b))} functions in both trees "
+              f"identical", flush=True)
+
+
 def main(argv: list[str]) -> int:
     modes = {"attention": attention, "serve": serve, "prefill": prefill, "decode": decode,
-             "parts": parts, "int8": int8, "minner": minner, "int4": int4, "a8": a8}
+             "parts": parts, "int8": int8, "minner": minner, "int4": int4, "a8": a8,
+             "a8host": a8host}
+    if argv[1:2] == ["sass"] and len(argv) in (3, 4):
+        sys.path.insert(0, argv[2])
+        sass(argv[2], argv[3] if len(argv) == 4 else None)
+        return 0
     if len(argv) != 3 or argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         return 2
