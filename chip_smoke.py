@@ -61,7 +61,9 @@ Phases, in order; each raises on failure and none is caught:
      --quant q4 outputs) and a --dequant run of that file; and the 7B-width
      serve of phase 5 with int4 weights quantized on the card, with its
      logit check, control, launches (K21 97, K22 32, K5 32, K2 1 per decode
-     step, no Q8 kernel) and profile;
+     step, no Q8 kernel) and profile; then, on its params, two T-16 and two
+     T-32 prefill chunks over 8 slots in `a8` (HIPLLAMA_Q4_MODE=a8) profiled,
+     K21's and K22's int4 `a8` wgmma tiles launched;
   8. the paged KV cache (--paged): K6 attention_decode_paged and K7
      attention_prefill_paged (bf16 and int8 pages) and the paged writers K11,
      K10, K13 and K14 (bit-exact) against their plain versions at 7B shapes
@@ -80,8 +82,12 @@ Phases, in order; each raises on failure and none is caught:
      shapes (K15 QKV M 8 with norm and RoPE, wo with the residual, the
      classifier; K17 M 8; the int8 wgmma tiles of K15 at QKV M 2048, 128
      and 4088 and wo M 2048 with the residual, of K17 at M 2048, 512 and
-     4088; K21 and K22 M 8 and their mma.sync tiles at M 256, group size
-     32),
+     4088; K21 and K22 M 8 and their int8 wgmma tiles, one nibble plane a
+     CTA, at QKV M 256 and 128, wo M 256 and the gate M 256 and 128, group
+     size 32), each tile kernel equal bit for bit to a8.cuh's mma.sync
+     tiles on the same quantized rows (the `probe a8 tiles` lines: K15's
+     and K17's at M 2048, K21's and K22's at QKV, wo and the gate M 256 and
+     W2 M 64, each kernel's time beside);
      with the same timings and the reshape or dequant kernel's time beside
      (bound: the int8 peak for operations; bytes of the weights, scales, x,
      the quantized xi and sx, and the outputs); the golden fixture with
@@ -329,6 +335,12 @@ KERNEL_SOURCES = {
     "q4_matmul_a8": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:218"),
     "q4_matmul_silu_a8": ("hip_llama_tpu_torch/csrc/quant4.cu",
                           "hip_llama_tpu/ops/quant4.py:494"),
+    # K21 and K22 `a8` above 16 rows at group sizes that are multiples of
+    # 32: a8_wgmma.cuh's int8 wgmma tiles, one nibble plane a CTA
+    "q4_matmul_a8_wgmma": ("hip_llama_tpu_torch/csrc/quant4.cu",
+                           "hip_llama_tpu/ops/quant4.py:218"),
+    "q4_matmul_silu_a8_wgmma": ("hip_llama_tpu_torch/csrc/quant4.cu",
+                                "hip_llama_tpu/ops/quant4.py:494"),
     # --layout stacked (K20 and its `a8` branch) and the four-write commit
     # (K8 with its int8 planes, K9)
     "q8_matmul_layered": ("hip_llama_tpu_torch/csrc/quant.cu",
@@ -442,8 +454,9 @@ GOLDEN_A8_RUNS = {
                                ("q8_matmul_a8", "q8_matmul_silu_a8",
                                 "attention_decode_fused_int8") + INT8_CACHE_PATH, False)},
     "q4": {"q4 a8": (["--quant", "q4"], "1", "cpu_q4_a8",
-                     ("q4_matmul_a8", "q4_matmul_silu_a8", "attention_decode_fused",
-                      "kv_commit_rows", "kv_write_chunk", "attention_prefill"), True)},
+                     ("q4_matmul_a8", "q4_matmul_a8_wgmma", "q4_matmul_silu_a8",
+                      "q4_matmul_silu_a8_wgmma", "attention_decode_fused", "kv_commit_rows",
+                      "kv_write_chunk", "attention_prefill"), True)},
 }
 # the 7B-width Q8 + int8-KV serve in a8: the prefill W2 (172 groups) keeps
 # reshape math, as the JAX decision says; the decode FFN is K18's GEMV route,
@@ -1628,7 +1641,9 @@ def phase_a8_kernels() -> dict[str, dict]:
     versions, each beside the reshape (dequant) kernel on the same inputs:
     the GEMV at M 8; K15's and K17's int8 wgmma tiles (`..._a8_wgmma`) at
     QKV M 128, 2048 and 4088, wo M 2048 and the gate M 512, 2048 and 4088;
-    K21's and K22's mma.sync tiles at QKV and the gate M 256.
+    K21's and K22's (one nibble plane a CTA) at QKV M 256 and 128, wo M 256
+    and the gate M 256 and 128: 256 is the most rows `q4_a8_engages` gives
+    them at K 4096.
     Library yardstick: cuBLAS `x @ w` on the weight dequantized to bf16, as
     for the reshape products. Bound: the int8 peak for the operations; the
     bytes of the weights and scales, x, the quantized xi (M x K int8) and sx
@@ -1667,16 +1682,16 @@ def phase_a8_kernels() -> dict[str, dict]:
                     for _ in range(copies)]
 
         def tile(base, m):  # the kernels-line name of an M-row case
-            return (base + "_wgmma" if mod is Q and Q.a8_rows_kernel(m, gs) == "wgmma"
-                    else base)
+            return base + "_wgmma" if Q.a8_rows_kernel(m, gs) == "wgmma" else base
 
-        # the kernels line carries each name's first case: M 2048 for the tiles
+        # the kernels line carries each name's first case: M 2048 for the Q8
+        # tiles, M 256 for the int4 tiles
         shapes = [("QKV", (8,), d, 3 * d, 2), ("wo", (8,), d, d, 4),
                   ("classifier", (8,), d, voc, 1)]
         if mod is Q:
             shapes += [("QKV", (2048, 128, 4088), d, 3 * d, 2), ("wo", (2048,), d, d, 2)]
-        else:  # the int4 `a8` tiles (mma.sync), at the most rows q4_a8_engages gives them
-            shapes += [("QKV", (256,), d, 3 * d, 2)]
+        else:
+            shapes += [("QKV", (256, 128), d, 3 * d, 2), ("wo", (256,), d, d, 2)]
         for what, ms, k, n, copies in shapes:
             w = weights(k, n, copies)
             wd = [deq(x).to(torch.bfloat16) for x in w]
@@ -1704,7 +1719,7 @@ def phase_a8_kernels() -> dict[str, dict]:
                             else (Q4.q4_matmul_silu, Q4.q4_matmul_silu_plain))
         w13 = weights(d, 2 * hid, 2)
         w13d = [deq(x).to(torch.bfloat16) for x in w13]
-        for m in (8, 2048, 512, 4088) if mod is Q else (8, 256):
+        for m in (8, 2048, 512, 4088) if mod is Q else (8, 256, 128):
             x = rnd(m, d)
             case(tile(name.replace("matmul", "matmul_silu"), m), f"W1|W3 gate M {m}, norm", mod,
                  lambda i, x=x: silu(x, w13[i % 2], norm_weight=norm, mode="a8"),
@@ -1721,31 +1736,86 @@ def phase_a8_kernels() -> dict[str, dict]:
 
 
 def probe_a8_tiles() -> None:
-    """The `a8` tile kernels alone (ops/quant.py::q8_a8_tiles_probe: no
-    quantizer pass, no epilogue) on the same quantized rows at QKV and the
-    W1|W3 gate, M 2048, group size 64: the int8 wgmma tiles and a8.cuh's
-    mma.sync tiles, whose outputs the wgmma tiles must equal bit for bit."""
+    """The `a8` tile kernels, the int8 wgmma tiles against a8.cuh's mma.sync
+    tiles on the same quantized rows, whose outputs they must equal bit for
+    bit: Q8_0 (ops/quant.py::q8_a8_tiles_probe: the tiles alone, no
+    quantizer pass, no epilogue) at QKV and the W1|W3 gate, M 2048, group
+    size 64; int4 (ops/quant4.py::q4_a8_tiles_probe: the quantizer pass,
+    the tiles and, for the wgmma tiles, the pass that adds the nibble
+    planes, with each product's epilogue) at QKV with the norm and RoPE, wo
+    with the residual and the gate with the norm at M 256, and W2 with the
+    residual at M 64 (K 11008), group size 32. Each kernel's time beside."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 19)
     d, hid, m, gs = 4096, 11008, 2048, 64
+    names = {0: "wgmma", 1: "mma.sync"}
+
+    def check(what, run):
+        outs = {v: run(0, v) for v in names}
+        torch.cuda.synchronize()
+        equal = torch.equal(outs[0], outs[1])
+        times = [f"{name} {cuda_ms(lambda i, v=v: run(i, v)):.4f}" for v, name in names.items()]
+        print(f"probe a8 tiles [{what}] ms: {'; '.join(times)}; outputs equal to "
+              f"mma.sync's: {equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"a8 wgmma tiles differ from the mma.sync tiles ({what})")
+
     for what, n, gate in (("QKV", 3 * d, False), ("W1|W3 gate", 2 * hid, True)):
         w = [Q.q8_quantize_weights(torch.randn((d, n), generator=g, device=dev)
                                    .mul_(d ** -0.5), gs) for _ in range(2)]
         xi, sx = Q.a8_quantize_rows(torch.randn((m, d), generator=g, device=dev)
                                     .to(torch.bfloat16).float(), gs)
         xi = xi.to(torch.int8).contiguous()
-        names = {0: "wgmma", 1: "mma.sync"}
-        outs = {v: Q.q8_a8_tiles_probe(xi, sx, w[0], gate, v) for v in names}
-        torch.cuda.synchronize()
-        equal = torch.equal(outs[0], outs[1])
-        times = [f"{name} "
-                 f"{cuda_ms(lambda i, v=v: Q.q8_a8_tiles_probe(xi, sx, w[i % 2], gate, v)):.4f}"
-                 for v, name in names.items()]
-        print(f"probe a8 tiles [{what} M {m}] ms: {'; '.join(times)}; outputs equal to "
-              f"mma.sync's: {equal}", flush=True)
-        if not equal:
-            raise AssertionError(f"a8 wgmma tiles differ from the mma.sync tiles ({what})")
-        del w, outs
+        check(f"{what} M {m}",
+              lambda i, v, w=w, xi=xi, sx=sx, gate=gate: Q.q8_a8_tiles_probe(
+                  xi, sx, w[i % 2], gate, v))
+        del w
+    norm = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).contiguous()
+    for what, m, k, n, gate in (("QKV", 256, d, 3 * d, False), ("wo", 256, d, d, False),
+                                ("W1|W3 gate", 256, d, 2 * hid, True),
+                                ("W2", 64, hid, d, False)):
+        w = [Q4.q4_quantize_weights(torch.randn((k, n), generator=g, device=dev)
+                                    .mul_(k ** -0.5), 32) for _ in range(2)]
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        if what == "QKV":
+            kw = dict(norm_weight=norm, rope_pos=torch.arange(m, dtype=torch.int32, device=dev),
+                      rope_limit=2 * d, rope_head=128)
+        elif gate:
+            kw = dict(norm_weight=norm)
+        else:
+            kw = dict(residual=torch.randn((m, n), generator=g, device=dev).to(torch.bfloat16))
+        check(f"int4 {what} M {m}",
+              lambda i, v, w=w, x=x, kw=kw, gate=gate: Q4.q4_a8_tiles_probe(
+                  x, w[i % 2], gate, v, **kw))
+        del w
+
+
+def profile_q4_a8_chunks(params: QuantLlamaParams) -> None:
+    """Two T-16 and T-32 prefill chunks of the 7B-width int4 params over 8
+    slots in `a8` (HIPLLAMA_Q4_MODE=a8; 128 and 256 rows: the most that
+    `q4_a8_engages` gives QKV, wo and the gate at K 4096, whose int4 `a8`
+    wgmma tiles they run; W2 at K 11008 keeps dequant math above 95 rows),
+    profiled; the engine's buckets set to (16, 32) for the T-32 chunk."""
+    cfg = LLAMA2_7B
+    toks = np.random.default_rng(SEED).integers(3, cfg.vocab_size, (8, 32)).tolist()
+    with knobs({"HIPLLAMA_Q4_MODE": "a8"}):
+        engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512)
+        engine.prefill_buckets = (16, 32)
+        cache = engine.new_cache()
+        for t in (16, 32):
+            before = launch_counts()
+            profile_window(f"7b q4 a8 prefill chunk (batch 8, T {t})", 2,
+                           lambda i, t=t: engine._prefill_tokens(
+                               cache, 8, {s: toks[s][:t] for s in range(8)},
+                               {s: 0 for s in range(8)}, bm=None))
+            after = launch_counts()
+            tiles = {n: after[n] - before[n] for n in ("q4_matmul_a8_wgmma",
+                                                      "q4_matmul_silu_a8_wgmma")}
+            print(f"7b q4 a8 prefill chunk (batch 8, T {t}): int4 a8 wgmma tile launches over "
+                  f"the 3 chunks {tiles}", flush=True)
+            if not all(tiles.values()):
+                raise AssertionError(f"the int4 a8 T-{t} chunk ran no int4 a8 wgmma tiles")
+    del engine, cache
 
 
 def phase_a8_goldens() -> dict[str, dict[str, int]]:
@@ -3143,6 +3213,9 @@ def main() -> int:
           f"quantized on the card in {time.perf_counter() - t0:.1f} s", flush=True)
     launches["q4"] = phase_serve("7b q4", q4params, Q4_LOGIT_TOL, Q4_PATH, Q4_STEP,
                                  control=without_ffn0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    profile_q4_a8_chunks(q4params)
     del q4params
 
     # phase 8: the paged KV cache
@@ -3240,7 +3313,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_shape_kernels()
     torch.cuda.empty_cache()
-    launches_golden.update(phase_dim288_serves())
+    # keyed apart: the fixture's `a8` goldens hold the label "q4 a8" too
+    launches_golden.update({f"dim 288 {label}": counts
+                            for label, counts in phase_dim288_serves().items()})
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
     # each kernel's count from the first serving path that runs it: the 7B

@@ -28,15 +28,19 @@
 // activation rows per CTA: a warp takes whole groups, reads 4 rows of its
 // lane's 4 columns, turns them into 4 words of 4 consecutive k of one
 // column by byte permutes, and multiplies each by the packed xi word of a
-// row with __dp4a. The tiled path (M > 16) stages 64 x 128 int8 x tiles and
-// 128 x 128 weight tiles (transposed by byte permutes so that each column's
-// k are consecutive) in shared memory and runs mma.sync.m16n8k32.s8 (k16
-// where gs % 32 != 0) into int32 fragments, rescaling them into fp32 at the
-// end of every group. Both paths take any group size that is a multiple of
-// 8. No
-// TPU mechanism is carried over (the transposed (G, gs, M) stash, the 4 MiB
-// group chunks, the 256-row blocks); cp.async/TMA staging and wgmma are
-// later work.
+// row with __dp4a. Above 16 rows, at group sizes that are multiples of 32,
+// Q8_0 and int4 weights take a8_wgmma.cuh's pipelined int8 wgmma tiles
+// (an int4 weight one nibble plane a CTA). The tiled path here (a8_mma_kernel)
+// takes the other group sizes, and is what the wgmma tiles are held to bit
+// for bit on the card: it stages 64 x 128 int8 x tiles and 128 x 128
+// weight tiles (transposed by byte permutes so that each column's k are
+// consecutive) in shared memory, one synchronous stage a 128-deep step,
+// and runs mma.sync.m16n8k32.s8 (k16 where gs % 32 != 0) into int32
+// fragments, rescaling them into fp32 at the end of every group; an int4
+// weight's CTA walks both nibble planes, each packed byte read once a
+// plane. Both paths take any group size that is a multiple of 8. No TPU
+// mechanism is carried over (the transposed (G, gs, M) stash, the 4 MiB
+// group chunks, the 256-row blocks).
 #pragma once
 
 #include <stdint.h>

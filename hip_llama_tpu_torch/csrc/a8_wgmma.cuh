@@ -1,10 +1,28 @@
-// The `a8` (w8a8) tiles of K15 and K17 above 16 rows, on int8 wgmma: the
-// arithmetic of a8.cuh's tiled path (hip_llama_tpu/ops/quant.py::_q8_kernel
-// :250-296, _q8_kernel_silu :541-585) for Q8_0 weights at group sizes that
-// are multiples of 32, so that no 32-deep int8 product straddles a group.
-// quant.cu's q8_matmul_a8 and q8_matmul_silu_a8 launch it (and K20's `a8`
-// branch through them); other group sizes and every int4 `a8` tile stay on
-// a8.cuh's a8_mma_kernel.
+// The `a8` (w8a8, w4a8) tiles of K15, K17, K21 and K22 above 16 rows, on
+// int8 wgmma: the arithmetic of a8.cuh's tiled path (hip_llama_tpu/ops/
+// quant.py::_q8_kernel :250-296, _q8_kernel_silu :541-585; quant4.py::
+// _q4_kernel :218-234, _q4_kernel_silu :494-517) at group sizes that are
+// multiples of 32, so that no 32-deep int8 product straddles a group.
+// quant.cu's q8_matmul_a8 and q8_matmul_silu_a8 launch a8_tile_kernel for a
+// Q8_0 weight (and K20's `a8` branch through them); quant4.cu's
+// q4_matmul_a8 and q4_matmul_silu_a8 launch a8_plane_kernel for an int4
+// weight. Other group sizes stay on a8.cuh's a8_mma_kernel.
+//
+// An int4 weight is a policy of the same loop (kBits 4), not a copy of it:
+// a CTA walks one nibble plane (blockIdx.x's low bit), the plane's half of
+// the contraction, as a Q8_0 CTA walks K: xi's and sx's columns and s's
+// rows from the plane's start, at the full rows' strides; the raw weight
+// rows are q's packed bytes, which the transposition turns into the
+// plane's int8 codes (plane_codes) before its byte permutes. The plane's
+// fp32 sum goes to a workspace part (2, M, N) (store_plane), and the split
+// pass that the GEMV path uses (matmul_passes.cuh, planes 2, split 1) adds
+// the low plane's sum and the high plane's, (0 + lo) + hi, then runs the
+// epilogue or gate: a8_mma_kernel's lo + hi and its store_pair, so the
+// outputs are its outputs bit for bit. Two planes double the CTAs where
+// the grid is thin (M 256: QKV 384 CTAs, the gate 688). The pass costs
+// 8-10% of the tiles' time (QKV M 256: 0.016 of 0.160 ms, the gate 0.025
+// of 0.317; PERF.md), so no cluster along the planes trades it for
+// distributed shared memory.
 //
 // Bound on an H100: at M 2048 a product does 2M operations per weight byte,
 // far above the ridge, so the int8 tensor-core rate would bound it (1979
@@ -51,13 +69,18 @@
 // Where the time goes (QKV M 2048, PERF.md): the copies alone take about
 // 0.32 ms of the tiles' 0.75, the loop without copies about 0.67: its
 // rescale and its products run mostly in series rather than beside each
-// other, and about 0.08 ms goes to each CTA's set-up, fill and drain. Tried and slower: separate rings for xi and the weight
+// other, and about 0.08 ms goes to each CTA's set-up, fill and drain. The
+// int4 planes at gs 32 (every k32 product closes a group) take about the
+// Q8_0 tiles' time a group, not a step: 3.3 us a 128-deep step at QKV M
+// 256, of which the rescale's arithmetic is about a tenth (PERF.md).
+// Tried and slower: separate rings for xi and the weight
 // (deeper), an mbarrier hand-over of the B tiles in place of the
 // consumers' barrier, sum sets of 64 columns (n64 wgmmas), four consumer
 // warpgroups of one m64 x n64 block each, a persistent grid (its registers
 // spill), the transposition's stores in 8-byte halves.
 // f32(sum) is I2F (I2FP on sm_90): it timed faster than the integer add
-// into the mantissa of 1.5 x 2^23 (PERF.md).
+// into the mantissa of 1.5 x 2^23, for Q8_0 at gs 64 and for the int4
+// planes at gs 32 (PERF.md).
 #pragma once
 
 #include <stdint.h>
@@ -93,9 +116,10 @@ static_assert(kSmemBytes <= 232448, "the ring fits an SM's shared memory");
 // the registers of a CTA's 384 threads: 168 each at launch (wg::prepare
 // checks), then 40 for the producer and 232 for the consumers, whose two
 // int32 sum sets and fp32 accumulator take 192. ptxas -v (CUDA 12.8,
-// tools/ab_trees.py sass): both instantiations 168 registers, 4 bytes of
-// spill stores and 12 of spill loads; stack frame 40 bytes (GATE false)
-// and 8 (GATE true)
+// tools/ab_trees.py sass): a8_tile_kernel's two instantiations 168
+// registers, 4 bytes of spill stores and 12 of spill loads, stack frame 40
+// bytes (GATE false) and 8 (GATE true); a8_plane_kernel's 168 registers,
+// 24 and 28 bytes of spill stores and loads (stack 24 and 32 bytes)
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= wg::kLaunchRegs * wg::kThreads,
               "the consumers take what the producer gives back");
@@ -161,13 +185,19 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool li
 // groups g0 = k0 / gs .. that the step touches (ring row g - g0, the B
 // tile's columns) and the sx columns of those groups (ring row g - g0, the
 // CTA's rows); `full` counts each thread's copies as they land. pt: the
-// thread's index in its warpgroup.
-template <int kHalf>
+// thread's index in its warpgroup. kBits 4 (an int4 weight, one nibble
+// plane a CTA): K is the plane's half of the contraction, xi, sx and w.s
+// point at the plane's first column, group and scale row, and xi's and
+// sx's rows are twice K and K / gs long; w.q's K packed rows are copied
+// whole, both nibbles, as a Q8_0 weight's rows are.
+template <int kHalf, int kBits = 8>
 __device__ __forceinline__ void produce(const Ring& ring, const int8_t* __restrict__ xi,
                                         const float* __restrict__ sx,
                                         const wg::Weight<kHalf>& w, int m0, int M, int K,
                                         int n_steps, int pt) {
+  constexpr int kPlanes = kBits == 8 ? 1 : 2;
   const int G = K / w.gs;
+  const int ldx = kPlanes * K, ldsx = kPlanes * G;  // the row strides of xi and sx
   const bool row_live = m0 + pt < M;
   for (int it = 0; it < n_steps; ++it) {
     const int st = it % kStages, k0 = it * kBK;
@@ -177,7 +207,7 @@ __device__ __forceinline__ void produce(const Ring& ring, const int8_t* __restri
       const int e = pt + 128 * i, r = e >> 3, c = e & 7;
       const bool live = m0 + r < M && k0 + 16 * c < K;
       wg::cp_async16(ring.x(st) + wg::swz128(r, c),
-                     xi + (live ? (size_t)(m0 + r) * K + k0 + 16 * c : 0), live);
+                     xi + (live ? (size_t)(m0 + r) * ldx + k0 + 16 * c : 0), live);
     }
 #pragma unroll
     for (int i = 0; i < kBK * 8 / 128; ++i) {  // q: 128 rows of 8 chunks of 16 columns
@@ -198,11 +228,19 @@ __device__ __forceinline__ void produce(const Ring& ring, const int8_t* __restri
     for (int g = 0; g < kStepUnits; ++g)  // sx: row pt's ng groups
       if (g < ng)
         cp_async4(ring.sxs(st) + g * (kBM * 4) + pt * 4,
-                  sx + (row_live ? (size_t)(m0 + pt) * G + g0 + g : 0), row_live);
+                  sx + (row_live ? (size_t)(m0 + pt) * ldsx + g0 + g : 0), row_live);
     asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(ring.full(st))
                  : "memory");
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the int8 codes of nibble plane `plane` (0: the low nibbles, 1: the high)
+// of four packed int4 bytes, each nibble code + 8: nibble + 0x78 in each
+// byte (no carry leaves it), the top bit flipped, which is nibble - 8 in
+// two's complement (a8.cuh's nib_codes, in four instructions)
+__device__ __forceinline__ uint32_t plane_codes(uint32_t w, int plane) {
+  return (((w >> (4 * plane)) & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u;
 }
 
 // Consumer thread ct (0 .. 255) transposes its share of stage st's raw
@@ -211,8 +249,11 @@ __device__ __forceinline__ void produce(const Ring& ring, const int8_t* __restri
 // 15 (c = lane % 8) of the 4 columns n = 16 w + 4 a .. + 3 (w: the warp of
 // the two consumer warpgroups, a = lane / 8). A warp's loads of a row hit
 // 32 banks (raw_at); the 8 threads of a store phase write the 8 chunks of
-// one B row.
-__device__ __forceinline__ void transpose_step(const Ring& ring, int st, int bt, int ct) {
+// one B row. kBits 4: each loaded word of packed int4 bytes becomes the
+// int8 codes of the CTA's nibble plane first (plane_codes).
+template <int kBits = 8>
+__device__ __forceinline__ void transpose_step(const Ring& ring, int st, int bt, int ct,
+                                               int plane) {
   const int lane = ct & 31, w = ct >> 5, c = lane & 7, a = lane >> 3;
   const int n = 16 * w + 4 * a;
   const uint32_t src = ring.raw(st) + ((w ^ c) << 4) + 4 * a + 16 * c * 128;
@@ -226,6 +267,10 @@ __device__ __forceinline__ void transpose_step(const Ring& ring, int st, int bt,
                    : "=r"(r[i])
                    : "r"(src + (4 * h + i) * 128)
                    : "memory");
+    if constexpr (kBits == 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = plane_codes(r[i], plane);
+    }
     hipllama::a8::transpose4(r, t);
 #pragma unroll
     for (int j = 0; j < 4; ++j) col[j][h] = t[j];
@@ -345,9 +390,10 @@ struct Cursor {
 // the barrier, which joins the halves of the next B tile; tile (it + 2) %
 // 3, the next to be written, was last read by step it - 1, whose products
 // have completed in both warpgroups.
+template <int kBits = 8>
 __device__ __forceinline__ void group(const Ring& ring, Cursor& cu, int g, int (&cur)[64],
                                       int (&prev)[64], bool has_prev, int K, int gs, int n_steps,
-                                      int c, int t, float (&acc)[64]) {
+                                      int c, int t, float (&acc)[64], int plane) {
   const int ct = 128 * c + t;
   const int kend = (g + 1) * gs;
   int k = kBK * cu.it + kUnit * cu.u;
@@ -368,7 +414,7 @@ __device__ __forceinline__ void group(const Ring& ring, Cursor& cu, int g, int (
       if (cu.it > 0) wg::mbar_arrive(ring.empty((cu.it - 1) % kStages));
       if (cu.it + 1 < n_steps) {
         wg::mbar_wait(ring.full((cu.it + 1) % kStages), ((cu.it + 1) / kStages) & 1);
-        transpose_step(ring, (cu.it + 1) % kStages, (cu.it + 1) % kBTiles, ct);
+        transpose_step<kBits>(ring, (cu.it + 1) % kStages, (cu.it + 1) % kBTiles, ct, plane);
       }
     }
     first = false;
@@ -387,9 +433,11 @@ __device__ __forceinline__ void group(const Ring& ring, Cursor& cu, int g, int (
 
 // The consumer warpgroups' loop over K's groups (G = K / gs), even groups
 // into sum set d0 and odd ones into d1, then the last group's rescale; acc
-// holds the fp32 product on return.
+// holds the fp32 product on return (kBits 4: nibble plane `plane`'s, K its
+// half of the contraction).
+template <int kBits = 8>
 __device__ __forceinline__ void consume(const Ring& ring, int K, int gs, int n_steps, int c,
-                                        int t, float (&acc)[64]) {
+                                        int t, float (&acc)[64], int plane) {
   int d0[64], d1[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -398,13 +446,13 @@ __device__ __forceinline__ void consume(const Ring& ring, int K, int gs, int n_s
     acc[i] = 0.f;
   }
   wg::mbar_wait(ring.full(0), 0);
-  transpose_step(ring, 0, 0, 128 * c + t);
+  transpose_step<kBits>(ring, 0, 0, 128 * c + t, plane);
   wg::consumers_sync();
   const int G = K / gs;
   Cursor cu{0, 0, 0, 0, 0};
   for (int g = 0; g < G; g += 2) {
-    group(ring, cu, g, d0, d1, g > 0, K, gs, n_steps, c, t, acc);
-    if (g + 1 < G) group(ring, cu, g + 1, d1, d0, true, K, gs, n_steps, c, t, acc);
+    group<kBits>(ring, cu, g, d0, d1, g > 0, K, gs, n_steps, c, t, acc, plane);
+    if (g + 1 < G) group<kBits>(ring, cu, g + 1, d1, d0, true, K, gs, n_steps, c, t, acc, plane);
   }
   wg::wg_wait<0>();
   const int gi = G - 1 - cu.pend_g0;
@@ -419,6 +467,32 @@ __device__ __forceinline__ void consume(const Ring& ring, int K, int gs, int n_s
   }
 }
 
+// An int4 CTA's epilogue: consumer c's fp32 sums of its 64 rows (m0 + 64 c
+// ..) of the B tile's 128 columns into nibble plane `plane` of part (2, M,
+// w.ldq), tile column n at weight column w.col(n) (the gate's W3 half at
+// off2 = H, so that part's rows are the W1|W3 product's); thread t holds
+// rows 16 (t / 32) + (t % 32) / 4 (+ 8) and column pairs 8 i + 2 (t % 4) of
+// n8 tile i, a float2 each
+template <int kHalf>
+__device__ __forceinline__ void store_plane(const float (&acc)[64], const wg::Weight<kHalf>& w,
+                                            int m0, int M, int plane, int c, int t,
+                                            float* __restrict__ part) {
+  const int row = m0 + 64 * c + 16 * (t >> 5) + ((t & 31) >> 2);
+  float* base = part + ((size_t)plane * M + row) * w.ldq;
+#pragma unroll
+  for (int i = 0; i < kBN / 8; ++i) {
+    const int n = 8 * i + 2 * (t & 3);
+    if (w.live(n)) {
+      const int col = w.col(n);
+      if (row < M)
+        *reinterpret_cast<float2*>(base + col) = make_float2(acc[4 * i], acc[4 * i + 1]);
+      if (row + 8 < M)
+        *reinterpret_cast<float2*>(base + 8 * (size_t)w.ldq + col) =
+            make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+    }
+  }
+}
+
 }  // namespace a8wg
 }  // namespace hipllama
 
@@ -426,54 +500,94 @@ namespace {
 
 namespace a8wg = hipllama::a8wg;
 
-// y = xi-rows' `a8` product with the Q8_0 weight (q, s), through the
-// epilogue (GATE: the gate; B tile columns 0-63 are W1 columns n0 .., 64-127
-// the same of W3 at off2 = H, ncols = H). xi (M, K) int8, sx (M, K / gs)
-// fp32, q (K, ldq) int8, s (K / gs, ldq) fp32. blockIdx.x is the row tile,
-// blockIdx.y the column tile.
-template <bool GATE>
-__global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) a8_tile_kernel(
-    const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
-    const float* __restrict__ s, int M, int K, int ldq, int ncols, int off2, int gs,
-    hipllama::q8::Epilogue e, a8wg::bf16* __restrict__ out) {
+// y = xi-rows' `a8` product with the weight (q, s), through the epilogue
+// (GATE: the gate; B tile columns 0-63 are W1 columns n0 .., 64-127 the
+// same of W3 at off2 = H, ncols = H). xi (M, K) int8, sx (M, K / gs) fp32.
+// kBits 8, a Q8_0 weight (a8_tile_kernel): q (K, ldq) int8, s (K / gs,
+// ldq) fp32; blockIdx.x is the row tile, blockIdx.y the column tile, out
+// (M, ncols) bf16. kBits 4, an int4 weight packed half-split as quant4.cu's
+// (a8_plane_kernel): q (K / 2, ldq), s (K / gs, ldq); blockIdx.x is twice
+// the row tile plus the nibble plane p, whose CTA walks the plane's half of
+// the contraction (xi's columns p K / 2 .., sx's groups p K / (2 gs) ..,
+// s's rows the same, q's nibbles p) as a Q8_0 CTA walks K, and writes its
+// fp32 sum to plane p of out = part (2, M, ldq), e unused: a second pass
+// adds the low plane's sum and the high plane's, as a8_mma_kernel does,
+// and applies the epilogue or gate.
+template <bool GATE, int kBits, typename Out>
+__device__ __forceinline__ void a8_tiles(const int8_t* __restrict__ xi,
+                                         const float* __restrict__ sx,
+                                         const int8_t* __restrict__ q,
+                                         const float* __restrict__ s, int M, int K, int ldq,
+                                         int ncols, int off2, int gs,
+                                         const hipllama::q8::Epilogue& e, Out* __restrict__ out) {
   namespace wg = hipllama::q8wg;
   constexpr int kHalf = GATE ? a8wg::kBN / 2 : a8wg::kBN;
+  constexpr int kPlanes = kBits == 8 ? 1 : 2;
   extern __shared__ __align__(1024) unsigned char a8_tile_smem[];
   const a8wg::Ring ring = a8wg::ring_init(a8_tile_smem);
-  const int m0 = blockIdx.x * a8wg::kBM, n0 = blockIdx.y * kHalf;
+  const int plane = blockIdx.x % kPlanes, kw = K / kPlanes;  // the plane's K
+  const int m0 = blockIdx.x / kPlanes * a8wg::kBM, n0 = blockIdx.y * kHalf;
   const int role = threadIdx.x >> 7, t = threadIdx.x & 127;
-  const int n_steps = (K + a8wg::kBK - 1) / a8wg::kBK;
-  const wg::Weight<kHalf> w{q, s, ldq, n0, ncols, off2, gs};
+  const int n_steps = (kw + a8wg::kBK - 1) / a8wg::kBK;
+  const int gp = plane * (kw / gs);  // the plane's first group
+  const wg::Weight<kHalf> w{q, s + (size_t)gp * ldq, ldq, n0, ncols, off2, gs};
   if (role == wg::kConsumers) {
     a8wg::producer_regs();
-    a8wg::produce(ring, xi, sx, w, m0, M, K, n_steps, t);
+    a8wg::produce<kHalf, kBits>(ring, xi + plane * kw, sx + gp, w, m0, M, kw, n_steps, t);
   } else {
     a8wg::consumer_regs();
     float acc[1][64];
-    a8wg::consume(ring, K, gs, n_steps, role, t, acc[0]);
-    if (GATE)
+    a8wg::consume<kBits>(ring, kw, gs, n_steps, role, t, acc[0], plane);
+    if constexpr (kBits == 4)
+      a8wg::store_plane(acc[0], w, m0, M, plane, role, t, out);
+    else if (GATE)
       wg::store_gate(acc, m0, n0, M, ncols, role, t, out);
     else
       wg::store_tile(acc, e, m0, n0, M, ncols, role, t, out);
   }
 }
 
-// the `a8` tiles into out (M, ncols) bf16: gs a multiple of 32 dividing K,
-// ncols and ldq multiples of 16
 template <bool GATE>
+__global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) a8_tile_kernel(
+    const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
+    const float* __restrict__ s, int M, int K, int ldq, int ncols, int off2, int gs,
+    hipllama::q8::Epilogue e, a8wg::bf16* __restrict__ out) {
+  a8_tiles<GATE, 8>(xi, sx, q, s, M, K, ldq, ncols, off2, gs, e, out);
+}
+
+template <bool GATE>
+__global__ void __launch_bounds__(hipllama::q8wg::kThreads, 1) a8_plane_kernel(
+    const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
+    const float* __restrict__ s, int M, int K, int ldq, int ncols, int off2, int gs,
+    float* __restrict__ part) {
+  a8_tiles<GATE, 4>(xi, sx, q, s, M, K, ldq, ncols, off2, gs, hipllama::q8::Epilogue{}, part);
+}
+
+// the `a8` tiles: gs a multiple of 32 dividing K (int4: K / 2), ncols and
+// ldq multiples of 16; out (M, ncols) bf16 through the epilogue e, or for
+// an int4 weight (kBits 4) part (2, M, ldq) fp32, the nibble planes' sums
+template <bool GATE, int kBits = 8>
 int launch_a8_tiles(const void* xi, const void* sx, const void* q, const void* s, int M, int K,
                     int ldq, int ncols, int off2, int gs, const hipllama::q8::Epilogue& e,
                     void* out, cudaStream_t st) {
-  if (M < 1 || gs < 32 || gs % 32 || K % gs || ncols % 16 || ldq % 16)
+  constexpr int kPlanes = kBits == 8 ? 1 : 2;
+  if (M < 1 || gs < 32 || gs % 32 || K % (kPlanes * gs) || ncols % 16 || ldq % 16)
     return (int)cudaErrorInvalidValue;
-  static const int ready = hipllama::q8wg::prepare(a8_tile_kernel<GATE>,
-                                                   a8wg::kSmemBytes);
-  HIPLLAMA_TRY(ready);
   constexpr int kHalf = GATE ? a8wg::kBN / 2 : a8wg::kBN;
-  const dim3 grid((M + a8wg::kBM - 1) / a8wg::kBM, (ncols + kHalf - 1) / kHalf);
-  a8_tile_kernel<GATE><<<grid, hipllama::q8wg::kThreads, a8wg::kSmemBytes, st>>>(
-      (const int8_t*)xi, (const float*)sx, (const int8_t*)q, (const float*)s, M, K, ldq, ncols,
-      off2, gs, e, (a8wg::bf16*)out);
+  const dim3 grid(kPlanes * ((M + a8wg::kBM - 1) / a8wg::kBM), (ncols + kHalf - 1) / kHalf);
+  if constexpr (kBits == 8) {
+    static const int ready = hipllama::q8wg::prepare(a8_tile_kernel<GATE>, a8wg::kSmemBytes);
+    HIPLLAMA_TRY(ready);
+    a8_tile_kernel<GATE><<<grid, hipllama::q8wg::kThreads, a8wg::kSmemBytes, st>>>(
+        (const int8_t*)xi, (const float*)sx, (const int8_t*)q, (const float*)s, M, K, ldq,
+        ncols, off2, gs, e, (a8wg::bf16*)out);
+  } else {
+    static const int ready = hipllama::q8wg::prepare(a8_plane_kernel<GATE>, a8wg::kSmemBytes);
+    HIPLLAMA_TRY(ready);
+    a8_plane_kernel<GATE><<<grid, hipllama::q8wg::kThreads, a8wg::kSmemBytes, st>>>(
+        (const int8_t*)xi, (const float*)sx, (const int8_t*)q, (const float*)s, M, K, ldq,
+        ncols, off2, gs, (float*)out);
+  }
   return check_launch();
 }
 

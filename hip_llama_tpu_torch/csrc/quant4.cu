@@ -45,10 +45,16 @@
 // (row, group of gs) by one pass with the rmsnorm fused, each nibble plane's
 // codes (nibble - 8, exact in int8) in int8 x int8 dots with its half of x,
 // int32 sums per group, the fp32 rescale per group, the same epilogues.
+// Above 16 rows at group sizes that are multiples of 32 they run
+// a8_wgmma.cuh's int8 wgmma tiles (a8_plane_kernel: one nibble plane a CTA,
+// its fp32 sum into a workspace, then the split pass that adds the two
+// planes and runs the epilogue or gate), elsewhere a8.cuh's mma.sync tiles;
+// q4_a8_tiles_probe runs either on the same input.
 
 #include <stdint.h>
 
 #include "a8.cuh"
+#include "a8_wgmma.cuh"
 #include "common.cuh"
 #include "matmul_passes.cuh"
 #include "q8.cuh"
@@ -226,6 +232,34 @@ int launch_gemv(const void* x, const void* q, const void* s, float* part, int M,
 // the shapes both entry points take
 bool bad_shape(int K, int gs) { return K % 32 || gs <= 0 || (K / 2) % gs; }
 
+// The `a8` tiles on the quantized rows xi_ws, sx_ws of x (M, K) and the
+// packed weight (q (K/2, N), s): wgmma, a8_wgmma.cuh's int8 wgmma tiles, one
+// nibble plane a CTA into part_ws (2, M, N) fp32, then the split pass that
+// adds the low plane's sum and the high plane's through the epilogue e (the
+// gate: its pass, out (M, N/2)); else a8.cuh's mma.sync tiles, both planes
+// a CTA, the epilogue in their store. The two round alike: the same int32
+// group sums and fp32 rescales in group order, each plane's sum from zero,
+// lo + hi, one epilogue (q8.cuh::split_pair_sum at split 1).
+int launch_a8_tiles_int4(bool wgmma, bool gate, const void* xi_ws, const void* sx_ws,
+                         const void* q, const void* s, int M, int K, int N, int gs,
+                         const Epilogue& e, void* out, void* part_ws, cudaStream_t st) {
+  const int ncols = gate ? N / 2 : N, off2 = gate ? N / 2 : 0;
+  if (!wgmma)
+    return gate ? hipllama::a8::launch_mma<true, true>(xi_ws, sx_ws, q, s, M, K, N, ncols, off2,
+                                                       gs, e, out, st)
+                : hipllama::a8::launch_mma<false, true>(xi_ws, sx_ws, q, s, M, K, N, ncols,
+                                                        off2, gs, e, out, st);
+  if (part_ws == nullptr) return (int)cudaErrorInvalidValue;
+  const float* part = (const float*)part_ws;
+  const int rc = gate ? launch_a8_tiles<true, 4>(xi_ws, sx_ws, q, s, M, K, N, ncols, off2, gs,
+                                                 e, part_ws, st)
+                      : launch_a8_tiles<false, 4>(xi_ws, sx_ws, q, s, M, K, N, ncols, off2, gs,
+                                                  e, part_ws, st);
+  if (rc != 0) return rc;
+  return gate ? launch_split_gate(part, 1, M, ncols, out, st, 2)
+              : launch_split_epilogue(part, 1, M, N, e, out, st, 2);
+}
+
 }  // namespace
 
 HIPLLAMA_EXPORT_ERROR_STRING
@@ -286,7 +320,9 @@ extern "C" int q4_matmul_silu(const void* x, const void* q13, const void* s13, c
 // given); split > 0 takes the GEMV path (M <= 16) with part_ws (2 x split,
 // M, N) fp32 (the low then the high nibble plane's splits) and kslice
 // packed rows per split (a multiple of gs, at most 512); split == 0 the
-// tiled path. gs is any multiple of 8 (that divides K/2); otherwise as q4_matmul.
+// tiles: the int8 wgmma tiles where gs % 32 == 0, with part_ws (2, M, N)
+// fp32 for the nibble planes' sums, else the mma.sync tiles. gs is any
+// multiple of 8 (that divides K/2); otherwise as q4_matmul.
 extern "C" int q4_matmul_a8(const void* x, const void* q, const void* s, const void* g,
                             const void* res, const void* pos, void* out, void* xi_ws,
                             void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,
@@ -301,12 +337,13 @@ extern "C" int q4_matmul_a8(const void* x, const void* q, const void* s, const v
                                                  gs, split, kslice, st));
     return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st, 2);
   }
-  return hipllama::a8::launch_mma<false, true>(xi_ws, sx_ws, q, s, M, K, N, N, 0, gs, e, out,
-                                               st);
+  return launch_a8_tiles_int4(gs % 32 == 0, false, xi_ws, sx_ws, q, s, M, K, N, gs, e, out,
+                              part_ws, st);
 }
 
 // The `a8` mode of q4_matmul_silu: W1 and W3 share one quantized x.
-// Workspaces as q4_matmul_a8, part_ws (2 x split, M, 2H).
+// Workspaces as q4_matmul_a8, part_ws (2 x split, M, 2H) (the wgmma tiles:
+// (2, M, 2H)).
 extern "C" int q4_matmul_silu_a8(const void* x, const void* q13, const void* s13,
                                  const void* g, void* out, void* xi_ws, void* sx_ws,
                                  void* part_ws, int M, int K, int H, int gs, int split,
@@ -320,6 +357,25 @@ extern "C" int q4_matmul_silu_a8(const void* x, const void* q13, const void* s13
     return launch_split_gate((const float*)part_ws, split, M, H, out, st, 2);
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
-  return hipllama::a8::launch_mma<true, true>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs,
-                                              none, out, st);
+  return launch_a8_tiles_int4(gs % 32 == 0, true, xi_ws, sx_ws, q13, s13, M, K, 2 * H, gs, none,
+                              out, part_ws, st);
+}
+
+// The `a8` product of q4_matmul_a8 (gate: q4_matmul_silu_a8, q (K/2, N =
+// 2H), out (M, H)) above 16 rows with its tile kernel chosen: variant 0 the
+// int8 wgmma tiles (part_ws (2, M, N)), 1 a8.cuh's mma.sync tiles, after
+// the same quantizer pass; arguments otherwise as q4_matmul_a8's. For
+// comparing the two tile kernels' outputs bit for bit.
+extern "C" int q4_a8_tiles_probe(const void* x, const void* q, const void* s, const void* g,
+                                 const void* res, const void* pos, void* out, void* xi_ws,
+                                 void* sx_ws, void* part_ws, int M, int K, int N, int gs,
+                                 int gate, int variant, int rope_limit, int rope_hs,
+                                 float rope_coef, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
+  if (variant < 0 || variant > 1 || (K / 2) % gs || K % 2 || (gate && (res || pos)))
+    return (int)cudaErrorInvalidValue;
+  HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
+  return launch_a8_tiles_int4(variant == 0, gate != 0, xi_ws, sx_ws, q, s, M, K, N, gs, e, out,
+                              part_ws, st);
 }

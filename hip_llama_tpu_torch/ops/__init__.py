@@ -30,7 +30,7 @@ from hip_llama_tpu_torch.ops.quant import (
     q8_matmul_xheads,
     wgmma_mainloop_probe,
 )
-from hip_llama_tpu_torch.ops.quant4 import q4_matmul, q4_matmul_silu
+from hip_llama_tpu_torch.ops.quant4 import q4_a8_tiles_probe, q4_matmul, q4_matmul_silu
 
 # every kernel wrapper of the package; each counts its launches in `.launches`
 KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
@@ -39,7 +39,8 @@ KERNELS = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
            attention_prefill_paged, kv_write_rows_paged, scale_write_rows_paged,
            kv_write_chunk_paged, scale_write_chunk_paged, q8_matmul_layered, kv_write_rows,
            scale_write_rows, q8_matmul_minner, q8_matmul_silu_minner, q8_matmul_xheads,
-           dma_read, dma_copy, wshape_read, deep_read, wgmma_mainloop_probe, q8_a8_tiles_probe)
+           dma_read, dma_copy, wshape_read, deep_read, wgmma_mainloop_probe, q8_a8_tiles_probe,
+           q4_a8_tiles_probe)
 # the wrappers with an int8-cache branch, which counts in `.launches_int8`
 INT8_BRANCHES = (attention_decode, kv_commit_rows, kv_write_chunk, attention_prefill,
                  attention_decode_fused, q8_layer_fused, attention_decode_paged,
@@ -56,7 +57,7 @@ TC_BRANCHES = (q8_matmul_ffn,)
 WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered, q4_matmul, q4_matmul_silu)
 # the `a8` branches whose launches above GEMV_MAX_M rows run the int8 wgmma
 # tiles (csrc/a8_wgmma.cuh), counted again in `.launches_a8_wgmma`
-A8_WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered)
+A8_WGMMA_BRANCHES = (q8_matmul, q8_matmul_silu, q8_matmul_layered, q4_matmul, q4_matmul_silu)
 
 
 def reset_launches() -> None:
@@ -120,6 +121,7 @@ __all__ = [
     "q8_matmul_silu",
     "q8_matmul_silu_minner",
     "q8_matmul_xheads",
+    "q4_a8_tiles_probe",
     "q4_matmul",
     "q4_matmul_silu",
     "quantize_kv_rows",

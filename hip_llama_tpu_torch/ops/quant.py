@@ -49,10 +49,10 @@ from shapes, whether `a8` runs or the call keeps its reshape math, and the
 decision changes the numbers, so the port copies it (`q8_a8_engages`). The
 kernels (csrc/quant.cu, a8.cuh) count in `<wrapper>.launches_a8`;
 `a8_rows_kernel` is their row rule: the dp4a GEMV up to GEMV_MAX_M rows,
-above it csrc/a8_wgmma.cuh's int8 wgmma tiles for a Q8_0 weight whose group
-size is a multiple of 32 (counted again in `.launches_a8_wgmma`) and
-a8.cuh's mma.sync tiles for the other group sizes and every int4 weight,
-which round alike (`a8_kernel_takes` says what each accepts).
+above it csrc/a8_wgmma.cuh's int8 wgmma tiles where the group size is a
+multiple of 32 (an int4 weight one nibble plane a CTA; counted again in
+`.launches_a8_wgmma`) and a8.cuh's mma.sync tiles for the other group
+sizes, which round alike (`a8_kernel_takes` says what each accepts).
 q8_matmul_ffn keeps its reshape math in every mode (quant.py:967-971).
 q8_matmul_layered decides by K20's own rule (`q8_layered_a8_engages`).
 
@@ -645,19 +645,22 @@ def _check_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = False)
     return kernel
 
 
-def a8_rows_kernel(m: int, gs: int, int4: bool = False) -> str:
+def a8_rows_kernel(m: int, gs: int) -> str:
     """The kernel an `a8` product (q8_matmul, q8_matmul_silu and K20
     through them; q4_matmul, q4_matmul_silu with int4) launches for m rows
     at group size gs: "gemv" up to GEMV_MAX_M rows (split-K dp4a, csrc/
-    a8.cuh::a8_gemv_kernel); above, "wgmma" for a Q8_0 weight whose gs is a
-    multiple of 32 (csrc/a8_wgmma.cuh's a8_tile_kernel: int8 wgmma, 32-deep
-    products that no group boundary splits), else "mma" (a8.cuh's
-    a8_mma_kernel: mma.sync, k16 steps where gs % 32 != 0; every int4
-    weight). The tiles round alike: exact int32 group sums, the same fp32
-    rescale in group order (PERF.md)."""
+    a8.cuh::a8_gemv_kernel); above, "wgmma" where gs is a multiple of 32
+    (csrc/a8_wgmma.cuh: int8 wgmma, 32-deep products that no group boundary
+    splits; a Q8_0 weight's a8_tile_kernel, an int4 weight's
+    a8_plane_kernel, one nibble plane a CTA, whose two sums a split pass
+    adds), else "mma" (a8.cuh's a8_mma_kernel: mma.sync, k16 steps where gs
+    % 32 != 0). The tiles round alike: exact int32 group sums, the same
+    fp32 rescale in group order, an int4 weight's low plane's sum, then
+    the high plane's added (PERF.md). One rule for both weights
+    (stories15M's int4 groups of 16 stay on "mma")."""
     if m <= GEMV_MAX_M:
         return "gemv"
-    return "wgmma" if not int4 and gs % 32 == 0 else "mma"
+    return "wgmma" if gs % 32 == 0 else "mma"
 
 
 def a8_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False,
@@ -668,7 +671,9 @@ def a8_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False,
     K a multiple of 16, N a multiple of 16, a gate's H a multiple of 16 and
     gs a multiple of 8 that divides K (int4: K/2); the GEMV a group of at
     most its slice of A8_GEMV_ROWS rows of xi (half that for int4's two
-    planes); the wgmma tiles a Q8_0 weight and gs a multiple of 32."""
+    planes); the wgmma tiles gs a multiple of 32 (so that an int4 plane's
+    K/2 holds whole 32-deep products; a plane's last 128-deep step past
+    K/2 % 128 is zero-filled)."""
     if kernel not in ("gemv", "wgmma", "mma"):
         raise ValueError(f"unknown kernel {kernel!r}")
     rows = k // 2 if int4 else k
@@ -677,7 +682,7 @@ def a8_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False,
     if kernel == "gemv":
         return ok and gs <= A8_GEMV_ROWS // (2 if int4 else 1)
     if kernel == "wgmma":
-        return ok and not int4 and gs % 32 == 0
+        return ok and gs % 32 == 0
     return ok
 
 
@@ -685,7 +690,7 @@ def _check_a8_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = Fal
                    int4: bool = False) -> str:
     """a8_rows_kernel's kernel for the shape, or ValueError where it does
     not take it (no other kernel is tried)."""
-    kernel = a8_rows_kernel(m, gs, int4)
+    kernel = a8_rows_kernel(m, gs)
     if not a8_kernel_takes(kernel, k, n, gs, gate, int4):
         raise ValueError(f"{name}: the a8 {kernel} kernel does not take K {k}, N {n}, "
                          f"group size {gs}")
@@ -805,9 +810,10 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
     it does not take the shape): allocates the output, the quantized
     activations (M, K) int8 and their scales (M, K / gs) fp32, and the GEMV
     path's split partials, for each of the weight's `planes` (int4: the low
-    and high nibbles), or the wgmma tiles' RoPE table (M, rope_head) of
-    each row's cos and sin. With `layer`, qt and norm_weight are stacked and
-    the kernel takes the layer index after its other ints. Returns (the
+    and high nibbles), or the wgmma tiles' workspace: for an int4 weight
+    its nibble planes' sums (2, M, N), else the RoPE table (M, rope_head)
+    of each row's cos and sin. With `layer`, qt and norm_weight are stacked
+    and the kernel takes the layer index after its other ints. Returns (the
     output, the kernel)."""
     m, k = x.shape
     gs, dev = qt.group_size, x.device
@@ -817,9 +823,14 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
     sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
     split, kslice = (kslice_plan(k_rows, n, kslice_max, gs, A8_GEMV_BN) if kernel == "gemv"
                      else (0, 0))
-    part = (torch.empty((planes * split, m, n), dtype=torch.float32, device=dev) if split else
-            torch.empty((m, rope_head), dtype=torch.float32, device=dev)
-            if kernel == "wgmma" and rope_pos is not None else None)
+    if split:
+        part = torch.empty((planes * split, m, n), dtype=torch.float32, device=dev)
+    elif kernel == "wgmma" and planes == 2:
+        part = torch.empty((2, m, n), dtype=torch.float32, device=dev)
+    elif kernel == "wgmma" and rope_pos is not None:
+        part = torch.empty((m, rope_head), dtype=torch.float32, device=dev)
+    else:
+        part = None
     if gate:
         f = _build.bind(lib, fn, "pppppppp" + "iiiiii" + "f" + "p")
         rc = f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight),

@@ -33,8 +33,14 @@ x[:, :K/2] and x[:, K/2:] quantized per (row, group of gs) as K15's `a8`
 first half and the high nibbles' with the second, each group's exact int32
 sum rescaled as (f32(sum) * sx) * s, the low plane's groups summed, then
 the high plane's added. Where the JAX wrapper keeps `dequant` math instead
-(`q4_a8_engages`), so does the port. The kernels (csrc/quant4.cu, a8.cuh)
-count in `<wrapper>.launches_a8`.
+(`q4_a8_engages`), so does the port. The kernels (csrc/quant4.cu) count in
+`<wrapper>.launches_a8`, by ops/quant.py's `a8` row rule
+(`a8_rows_kernel`): a8.cuh's dp4a GEMV up to 16 rows; above, at group sizes
+that are multiples of 32, csrc/a8_wgmma.cuh's int8 wgmma tiles with one
+nibble plane a CTA, their two fp32 sums added by the split pass that then
+runs the epilogue or gate (counted again in `.launches_a8_wgmma`); a8.cuh's
+mma.sync tiles at the other group sizes. Both tiles round alike, and
+`q4_a8_tiles_probe` runs either on the same input.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from hip_llama_tpu_torch.ops.cache import _stream, check_operand
 from hip_llama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
     _block_k,
+    _check_epilogue,
     _check_norm,
     _check_x,
     _device,
@@ -56,6 +63,7 @@ from hip_llama_tpu_torch.ops.quant import (
     _ptr,
     _rope_cols,
     a8_group_dot,
+    a8_kernel_takes,
     a8_launch,
     a8_quantize_rows,
     a8_serves,
@@ -287,17 +295,13 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
     m, k = _check_x("x", x, 32)
     n = _check_weight("qt", qt, k, dev)
     _check_norm(norm_weight, k, dev)
-    if residual is not None:
-        check_operand("residual", residual, (m, n), torch.bfloat16, dev)
-    if rope_pos is not None:
-        check_operand("rope_pos", rope_pos, (m,), torch.int32, dev)
-        if rope_head <= 0 or rope_head % 2 or rope_limit % rope_head or rope_limit > n:
-            raise ValueError(f"rope: head size {rope_head}, limit {rope_limit}, N {n}")
+    _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
     if _a8(mode, x, n, qt.group_size, widths):
-        out, _ = a8_launch("quant4", "q4_matmul_a8", x, qt, k // 2, n, norm_weight, residual,
-                           rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
-                           _GEMV_KSLICE_MAX, planes=2)
+        out, kernel = a8_launch("quant4", "q4_matmul_a8", x, qt, k // 2, n, norm_weight,
+                                residual, rope_pos, rope_limit, rope_head, rope_theta, norm_eps,
+                                False, _GEMV_KSLICE_MAX, planes=2)
         q4_matmul.launches_a8 += 1
+        q4_matmul.launches_a8_wgmma += kernel == "wgmma"
         return out
     kernel = _check_takes("q4_matmul", m, k, n, qt.group_size)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
@@ -324,6 +328,7 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
 q4_matmul.launches = 0
 q4_matmul.launches_a8 = 0
 q4_matmul.launches_wgmma = 0  # the launches (of .launches) that ran the wgmma tiles
+q4_matmul.launches_a8_wgmma = 0  # the launches (of .launches_a8) that ran the a8 wgmma tiles
 
 
 def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5,
@@ -343,9 +348,11 @@ def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-
         raise ValueError(f"q4_matmul_silu takes H % 16 == 0, got {h}")
     _check_norm(norm_weight, k, dev)
     if _a8(mode, x, h, qt13.group_size):
-        out, _ = a8_launch("quant4", "q4_matmul_silu_a8", x, qt13, k // 2, n2, norm_weight,
-                           None, None, 0, 0, 0.0, norm_eps, True, _GEMV_KSLICE_MAX, planes=2)
+        out, kernel = a8_launch("quant4", "q4_matmul_silu_a8", x, qt13, k // 2, n2,
+                                norm_weight, None, None, 0, 0, 0.0, norm_eps, True,
+                                _GEMV_KSLICE_MAX, planes=2)
         q4_matmul_silu.launches_a8 += 1
+        q4_matmul_silu.launches_a8_wgmma += kernel == "wgmma"
         return out
     kernel = _check_takes("q4_matmul_silu", m, k, n2, qt13.group_size, gate=True)
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
@@ -365,3 +372,48 @@ def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-
 q4_matmul_silu.launches = 0
 q4_matmul_silu.launches_a8 = 0
 q4_matmul_silu.launches_wgmma = 0
+q4_matmul_silu.launches_a8_wgmma = 0
+
+
+def q4_a8_tiles_probe(x, qt: Q4Tensor, gate: bool, variant: int, *, norm_weight=None,
+                      norm_eps: float = 1e-5, residual=None, rope_pos=None, rope_limit: int = 0,
+                      rope_head: int = 0, rope_theta: float = 10000.0) -> torch.Tensor:
+    """q4_matmul's `a8` product (gate: q4_matmul_silu's, qt = W1|W3 and the
+    output (M, H)) above 16 rows with its tile kernel chosen, after the same
+    quantizer pass: variant 0 the int8 wgmma tiles (csrc/a8_wgmma.cuh's
+    a8_plane_kernel and the split pass that adds the planes), 1 a8.cuh's
+    mma.sync tiles. For comparing the two tile kernels bit for bit on the
+    card, whatever `a8_rows_kernel` and `q4_a8_engages` say; no model path
+    runs it."""
+    if x.device.type != "cuda":
+        raise ValueError("q4_a8_tiles_probe runs on the card only")
+    dev = x.device
+    m, k = _check_x("x", x, 32)
+    n = _check_weight("qt", qt, k, dev)
+    gs = qt.group_size
+    _check_norm(norm_weight, k, dev)
+    if gate and (residual is not None or rope_pos is not None):
+        raise ValueError("q4_a8_tiles_probe: the gate takes no residual or RoPE")
+    _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
+    if variant not in (0, 1):
+        raise ValueError(f"q4_a8_tiles_probe: no variant {variant}")
+    if m <= GEMV_MAX_M or not a8_kernel_takes("mma" if variant else "wgmma", k, n, gs, gate,
+                                              int4=True):
+        raise ValueError(f"q4_a8_tiles_probe: variant {variant} does not take M {m}, K {k}, "
+                         f"N {n}, group size {gs}")
+    out = torch.empty((m, n // 2 if gate else n), dtype=torch.bfloat16, device=dev)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
+    part = torch.empty((2, m, n), dtype=torch.float32, device=dev) if variant == 0 else None
+    rope = rope_pos is not None
+    f = _build.bind("quant4", "q4_a8_tiles_probe", "p" * 10 + "i" * 8 + "ff" + "p")
+    _build.check(f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight),
+                   _ptr(residual), _ptr(rope_pos), out.data_ptr(), xi.data_ptr(), sx.data_ptr(),
+                   _ptr(part), m, k, n, gs, int(gate), variant, rope_limit if rope else 0,
+                   rope_head if rope else 1, rope_coef(rope_theta, rope_head) if rope else 0.0,
+                   norm_eps, _stream()), "quant4", "q4_a8_tiles_probe")
+    q4_a8_tiles_probe.launches += 1
+    return out
+
+
+q4_a8_tiles_probe.launches = 0

@@ -75,14 +75,20 @@ so that the package is imported from the checkout), once per checkout.
 - a8: the Q8 products in `a8` math (HIPLLAMA_Q8_MODE=a8, group size 64,
   7B widths): q8_matmul (K15) on QKV with the norm and RoPE and on wo with
   the residual, and q8_matmul_silu (K17) with the norm, at M 8 (the GEMV),
-  32, 128, 512, 2048 and 4088 (the tiles), each the least of three
-  CUDA-event means; the T-256 and T-16 chunks of the 7B-width Q8 + int8-KV
-  model over 8 slots in `a8`, profiled; chip_smoke's 16-request serve of
-  that model in `a8`, twice (tok/s, TTFT p50 and p95). With AB_TREES_OUT
-  set to a directory, each run saves its products' outputs there (the
-  inputs come from a fixed seed; about 330 MB a checkout) and prints the
-  largest absolute difference of each from every other checkout's saved
-  outputs.
+  32, 128, 512, 2048 and 4088 (the tiles); the int4 products in `a8` math
+  (HIPLLAMA_Q4_MODE=a8, group size 32): q4_matmul (K21) on QKV and wo as
+  above and q4_matmul_silu (K22) with the norm at M 8 (the GEMV), 32, 64,
+  128 and 256, and K21 on W2 (K 11008) with the residual at M 8, 32 and 64
+  (the most rows `q4_a8_engages` gives each); each the least of three
+  CUDA-event means;
+  the T-256 and T-16 chunks of the 7B-width Q8 + int8-KV model over 8
+  slots in `a8`, and the T-16 and T-32 chunks of the 7B-width int4 model
+  (bf16 cache) over 8 slots in `a8`, profiled; chip_smoke's 16-request
+  serve of the Q8 + int8-KV model in `a8`, twice (tok/s, TTFT p50 and
+  p95). With AB_TREES_OUT set to a directory, each run saves its
+  products' outputs there (the inputs come from a fixed seed; about 400 MB
+  a checkout) and prints the largest absolute difference of each from
+  every other checkout's saved outputs.
 - a8host: the host's time to enqueue a decode step of the 7B-width Q8 +
   int8-KV model (batch 8, 10 steps, no synchronize inside, no profiler), in
   `a8` and in reshape math (the fused layer: the control for the host's own
@@ -576,6 +582,7 @@ def a8(cs) -> None:
 
     from hip_llama_tpu_torch.engine import InferenceEngine, Requests
     from hip_llama_tpu_torch.ops import quant as Q
+    from hip_llama_tpu_torch.ops import quant4 as Q4
     from hip_llama_tpu_torch.sampler import Sampler
 
     dev = torch.device("cuda")
@@ -605,6 +612,33 @@ def a8(cs) -> None:
             row.append(f"{name} {min(cs.cuda_ms(fn) for _ in range(3)):.4f}")
         print(f"a8 products M {m} (ms): {'; '.join(row)}", flush=True)
     del wq, wo, w13
+    torch.cuda.empty_cache()
+    q4w = {name: [Q4.q4_quantize_weights(torch.randn((k, n), generator=g, device=dev)
+                                         * k ** -0.5, 32) for _ in range(2)]
+           for name, (k, n) in (("QKV", (d, 3 * d)), ("wo", (d, d)), ("K22", (d, 2 * hid)),
+                                ("W2", (hid, d)))}
+    for m in (8, 32, 64, 128, 256):
+        x = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+        x2 = torch.randn((m, hid), generator=g, device=dev).to(torch.bfloat16)
+        pos = torch.arange(m, dtype=torch.int32, device=dev) % 512
+        cases = {
+            "int4 QKV": lambda i: Q4.q4_matmul(x, q4w["QKV"][i % 2], norm_weight=norm,
+                                               rope_pos=pos, rope_limit=2 * d, rope_head=128,
+                                               mode="a8"),
+            "int4 wo": lambda i: Q4.q4_matmul(x, q4w["wo"][i % 2], residual=x, mode="a8"),
+            "int4 K22": lambda i: Q4.q4_matmul_silu(x, q4w["K22"][i % 2], norm_weight=norm,
+                                                    mode="a8"),
+        }
+        if m <= 64:
+            cases["int4 W2"] = lambda i: Q4.q4_matmul(x2, q4w["W2"][i % 2], residual=x,
+                                                      mode="a8")
+        row = []
+        for name, fn in cases.items():
+            outs[f"{name} M {m}"] = fn(0).cpu()
+            torch.cuda.synchronize()
+            row.append(f"{name} {min(cs.cuda_ms(fn) for _ in range(3)):.4f}")
+        print(f"a8 products M {m} (ms): {'; '.join(row)}", flush=True)
+    del q4w
     torch.cuda.empty_cache()
     save = os.environ.get("AB_TREES_OUT")
     if save:
@@ -651,6 +685,19 @@ def a8(cs) -> None:
                   flush=True)
             del engine
             torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    params = cs.random_7b_qparams(cfg, dev, int4=True)
+    with cs.knobs({"HIPLLAMA_Q4_MODE": "a8"}):
+        engine = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512)
+        engine.prefill_buckets = (16, 32)  # a T-32 chunk: 256 rows, `a8` at K 4096
+        cache = engine.new_cache()
+        for t in (16, 32):
+            cs.profile_window(f"int4 a8 prefill chunk (batch 8, T {t})", 4,
+                              lambda i, t=t: engine._prefill_tokens(
+                                  cache, 8, {s: toks[s][:t] for s in range(8)},
+                                  {s: 0 for s in range(8)}, bm=None))
+        del engine, cache
     del params
     torch.cuda.empty_cache()
 

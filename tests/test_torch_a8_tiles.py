@@ -5,10 +5,11 @@ the CPU.
 (HIPLLAMA_Q8_MODE=a8: q8_matmul (K15), q8_matmul_silu (K17) and, through
 them, q8_matmul_layered (K20); HIPLLAMA_Q4_MODE=a8: q4_matmul, q4_matmul_silu)
 launches: the dp4a GEMV up to GEMV_MAX_M rows; above, csrc/a8_wgmma.cuh's
-int8 wgmma tiles for a Q8_0 weight whose group size is a multiple of 32,
-else a8.cuh's mma.sync tiles (group sizes 8-24, 40, 48, ...; every int4
-weight). `a8_kernel_takes` says which K, N and group sizes each accepts, as
-its C launcher decides. Here the rule runs over every Q8 product shape of
+int8 wgmma tiles where the group size is a multiple of 32 (an int4 weight
+one nibble plane a CTA), else a8.cuh's mma.sync tiles (group sizes 8-24,
+40, 48, ...). `a8_kernel_takes` says which K, N and group sizes each
+accepts, as its C launcher decides (the int4 products' cases are in
+tests/test_torch_q4_tiles.py). Here the rule runs over every Q8 product shape of
 the models the port serves: the golden fixture (dim 64, hidden 192, 8 heads
 over 4 KV heads), llama2.c's stories15M (dim 288, 6 heads of 48 over 2 KV
 heads, hidden 768: K 288, which 128-deep steps leave 32 short, at group
@@ -71,15 +72,15 @@ def test_the_a8_rule_picks_a_kernel_that_takes_the_shape(model, prod, gs):
         want = "gemv" if m <= Q.GEMV_MAX_M else "wgmma" if gs % 32 == 0 else "mma"
         assert kernel == want, (m, gs)
         assert Q.a8_kernel_takes(kernel, k, n, gs, gate), (model, prod, m, kernel)
-    # the int4 weights' `a8` tiles stay on the mma.sync kernel
-    assert Q.a8_rows_kernel(40, gs, int4=True) == "mma"
+    # an int4 weight of the same contraction (K/2 = k) takes the same rule
+    assert Q.a8_kernel_takes(Q.a8_rows_kernel(40, gs), 2 * k, n, gs, gate, int4=True)
 
 
 # (K, N, gs, gate) that a kernel's launcher refuses: K no multiple of 16,
 # N no multiple of 16, a group size no multiple of 8 or not dividing K, a
 # gate's H no multiple of 16 (N 400: H 200); the wgmma tiles also refuse
-# groups that are no multiple of 32 and int4 weights, the GEMV a group past
-# its slice of xi rows
+# groups that are no multiple of 32, the GEMV a group past its slice of xi
+# rows
 REFUSED = {
     "gemv": [(40, 128, 8, False), (64, 200, 32, False), (48, 128, 12, False),
              (96, 128, 64, False), (64, 400, 32, True), (0, 128, 32, False),
@@ -98,9 +99,13 @@ def test_a8_kernels_refuse_what_their_launchers_refuse(kernel, k, n, gs, gate):
     assert not Q.a8_kernel_takes(kernel, k, n, gs, gate)
     assert Q.a8_kernel_takes(kernel, 288, 480, 32)
     assert Q.a8_kernel_takes(kernel, 64, 128, 64, gate=True)
-    # gs 48 (no multiple of 32) and int4 only on the mma.sync tiles among the tiles
+    # gs 48 (no multiple of 32) only on the mma.sync tiles among the tiles;
+    # an int4 weight at gs 32 on every kernel (K/2 64: two 32-deep products
+    # a plane), at gs 16 not on the wgmma tiles, at gs 32 over K/2 48 on none
     assert Q.a8_kernel_takes(kernel, 96, 128, 48) == (kernel != "wgmma")
-    assert Q.a8_kernel_takes(kernel, 128, 128, 32, int4=True) == (kernel != "wgmma")
+    assert Q.a8_kernel_takes(kernel, 128, 128, 32, int4=True)
+    assert Q.a8_kernel_takes(kernel, 128, 128, 16, int4=True) == (kernel != "wgmma")
+    assert not Q.a8_kernel_takes(kernel, 96, 128, 32, int4=True)
     with pytest.raises(ValueError):
         Q.a8_kernel_takes("wmma", 64, 128, 32)  # the rule has no other kernel
 

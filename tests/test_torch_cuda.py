@@ -1058,16 +1058,14 @@ A8_ROWS = [1, 8, 12, 16, 17, 40, 128, 255, 256, 257, 300, 2048, 4088]
 def _a8_case(wrapper, plain, qt, x, kw, expect_a8):
     """wrapper against plain in `a8`; the `a8` kernel launched where
     expect_a8 (else the reshape kernel), the int8 wgmma tiles where the rule
-    says so (Q8 wrappers: `.launches_a8_wgmma`)."""
-    n0, a0 = wrapper.launches, wrapper.launches_a8
-    w0 = getattr(wrapper, "launches_a8_wgmma", 0)
+    says so (`.launches_a8_wgmma`)."""
+    n0, a0, w0 = wrapper.launches, wrapper.launches_a8, wrapper.launches_a8_wgmma
     got = wrapper(x, qt, mode="a8", **kw)
     want = plain(x, qt, mode="a8", **kw)
     torch.cuda.synchronize()
     assert (wrapper.launches_a8 - a0, wrapper.launches - n0) == ((1, 0) if expect_a8 else (0, 1))
-    wgmma = (expect_a8 and hasattr(wrapper, "launches_a8_wgmma")
-             and Q.a8_rows_kernel(x.shape[0], qt.group_size) == "wgmma")
-    assert getattr(wrapper, "launches_a8_wgmma", 0) - w0 == int(wgmma)
+    wgmma = expect_a8 and Q.a8_rows_kernel(x.shape[0], qt.group_size) == "wgmma"
+    assert wrapper.launches_a8_wgmma - w0 == int(wgmma)
     _close(got, want, torch.bfloat16)
     return got
 
@@ -1154,13 +1152,48 @@ def test_q4_matmul_silu_a8_kernel(m, shape, norm):
     if norm:
         kw["norm_weight"] = (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()
     engages = Q4.q4_a8_engages(m, k, h, gs)
-    n0, a0 = Q4.q4_matmul_silu.launches, Q4.q4_matmul_silu.launches_a8
+    wrapper = Q4.q4_matmul_silu
+    n0, a0, w0 = wrapper.launches, wrapper.launches_a8, wrapper.launches_a8_wgmma
     got = Q4.q4_matmul_silu(x, qt13, mode="a8", **kw)
     want = Q4.q4_matmul_silu_plain(x, qt13, mode="a8", **kw)
     torch.cuda.synchronize()
-    assert (Q4.q4_matmul_silu.launches_a8 - a0, Q4.q4_matmul_silu.launches - n0) == (
-        (1, 0) if engages else (0, 1))
+    assert (wrapper.launches_a8 - a0, wrapper.launches - n0) == ((1, 0) if engages else (0, 1))
+    assert wrapper.launches_a8_wgmma - w0 == int(engages and Q.a8_rows_kernel(m, gs) == "wgmma")
     _close(got, want, torch.bfloat16)
+
+
+# the int4 `a8` tiles, the int8 wgmma tiles (one nibble plane a CTA, the
+# planes added by the split pass) against a8.cuh's mma.sync tiles: name ->
+# (K, N (2H for the gate), gate, epilogue) at Llama-2-7B's widths, and the
+# fixture's QKV (a plane's K/2 = 32: a quarter of one 128-deep step) and a
+# gate at K 320 (K/2 = 160: a last step of 32)
+Q4_A8_TILES = {"qkv": (4096, 12288, False, "norm_rope"), "wo": (4096, 4096, False, "residual"),
+               "gate": (4096, 22016, True, "norm"), "w2": (11008, 4096, False, "residual"),
+               "k64 qkv": (64, 128, False, "norm_rope"), "k320 gate": (320, 512, True, "norm")}
+
+
+@pytest.mark.parametrize("name,m", [(name, m) for name in Q4_A8_TILES
+                                    for m in ((64,) if name == "w2" else (17, 128, 256))])
+def test_q4_a8_wgmma_tiles_equal_mma_sync(name, m):
+    """Bit for bit (ops/quant4.py::q4_a8_tiles_probe, the same quantizer pass
+    before either), groups of 32; where the JAX decision engages `a8`, the
+    wrapper runs the wgmma tiles and gives the same output."""
+    dev = _card()
+    k, n, gate, epi = Q4_A8_TILES[name]
+    rng = np.random.default_rng(46)
+    qt = _q4t(rng, k, n, 32, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = _epilogue(rng, m, k, n, epi, dev)
+    wgmma, mma = (Q4.q4_a8_tiles_probe(x, qt, gate, v, **kw) for v in (0, 1))
+    torch.cuda.synchronize()
+    assert wgmma.shape == (m, n // 2 if gate else n)
+    assert torch.isfinite(wgmma.float()).all() and torch.equal(wgmma, mma)
+    wrapper = Q4.q4_matmul_silu if gate else Q4.q4_matmul
+    if Q4.q4_a8_engages(m, k, n // 2 if gate else n, 32):
+        w0 = wrapper.launches_a8_wgmma
+        got = wrapper(x, qt, mode="a8", **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches_a8_wgmma == w0 + 1 and torch.equal(got, wgmma)
 
 
 def test_a8_wrappers_serve_group_size_48():
