@@ -53,12 +53,15 @@ Phases, in order; each raises on failure and none is caught:
      and launches (K23 32 per decode step);
   7. int4 weights (--quant q4, v4 files): K21 q4_matmul and K22
      q4_matmul_silu against their plain versions at 7B shapes (group size
-     32; M 8 on the GEMV, M 128 and 2048 on the wgmma tiles: QKV with the
-     norm and RoPE, wo and W2 with the residual, the gate), with the same
-     timings; the golden fixture with --quant q4 (bf16
-     and int8 cache) scored against the JAX package's assets/out/cpu_q4 and
-     cpu_q4_kv8, a v4 file of it written by the port (byte-identical to the
-     --quant q4 outputs) and a --dequant run of that file; and the 7B-width
+     32; M 8 on the tensor-core GEMV, timed as CUDA-graph replays with
+     cuBLAS, M 128 and 2048 on the wgmma tiles: QKV with the norm and RoPE,
+     wo and W2 with the residual, the gate), with the same timings; the
+     golden fixture with --quant q4 (bf16 and int8 cache) scored against
+     the JAX package's assets/out/cpu_q4 and cpu_q4_kv8, a v4 file of it
+     written by the port (byte-identical to the --quant q4 outputs) and a
+     --dequant run of that file; every fork of the fixture's int4 serve
+     (both caches) checked to be a near-tie against the CPU's plain path,
+     as phase 4's Q8 forks; and the 7B-width
      serve of phase 5 with int4 weights quantized on the card, with its
      logit check, control, launches (K21 97, K22 32, K5 32, K2 1 per decode
      step, no Q8 kernel) and profile; then, on its params, two T-16 and two
@@ -80,14 +83,18 @@ Phases, in order; each raises on failure and none is caught:
   9. the `a8` modes (HIPLLAMA_Q8_MODE=a8, HIPLLAMA_Q4_MODE=a8): the `a8`
      kernels of K15, K17, K21 and K22 against their plain versions at 7B
      shapes (K15 QKV M 8 with norm and RoPE, wo with the residual, the
-     classifier; K17 M 8; the int8 wgmma tiles of K15 at QKV M 2048, 128
+     classifier; K17 M 8: the int8 tensor-core GEMV, `..._a8_tc`, and on
+     the same inputs the dp4a GEMV through ops/quant.py::a8_gemv_probe, both
+     as CUDA-graph replays; the int8 wgmma tiles of K15 at QKV M 2048, 128
      and 4088 and wo M 2048 with the residual, of K17 at M 2048, 512 and
      4088; K21 and K22 M 8 and their int8 wgmma tiles, one nibble plane a
      CTA, at QKV M 256 and 128, wo M 256 and the gate M 256 and 128, group
      size 32), each tile kernel equal bit for bit to a8.cuh's mma.sync
      tiles on the same quantized rows (the `probe a8 tiles` lines: K15's
      and K17's at M 2048, K21's and K22's at QKV, wo and the gate M 256 and
-     W2 M 64, each kernel's time beside);
+     W2 M 64, each kernel's time beside), and the tensor-core GEMV equal bit
+     for bit to the dp4a GEMV (the `probe a8 gemv` lines: Q8_0 and int4 at
+     QKV, wo, the gate and W2 M 8 and 16, each GEMV's time beside);
      with the same timings and the reshape or dequant kernel's time beside
      (bound: the int8 peak for operations; bytes of the weights, scales, x,
      the quantized xi and sx, and the outputs); the golden fixture with
@@ -188,7 +195,12 @@ from hip_llama_tpu_torch.models.paged import (
     make_paged_decode_step,
     make_paged_prefill,
 )
-from hip_llama_tpu_torch.models.params import LlamaParams, QuantLlamaParams, quantize_params_q8
+from hip_llama_tpu_torch.models.params import (
+    LlamaParams,
+    QuantLlamaParams,
+    quantize_params_q4,
+    quantize_params_q8,
+)
 from hip_llama_tpu_torch.ops import _build, launch_counts, reset_launches
 from hip_llama_tpu_torch.ops import attention as A
 from hip_llama_tpu_torch.ops import cache as C
@@ -332,6 +344,16 @@ KERNEL_SOURCES = {
                            "hip_llama_tpu/ops/quant.py:250"),
     "q8_matmul_silu_a8_wgmma": ("hip_llama_tpu_torch/csrc/quant.cu",
                                 "hip_llama_tpu/ops/quant.py:541"),
+    # K15, K17, K21 and K22 `a8` up to 16 rows at group sizes that are
+    # multiples of 32: a8.cuh's int8 tensor-core GEMV (the base names above
+    # and below: the dp4a GEMV, timed through a8_gemv_probe; their launches
+    # are the wrappers' `a8` launches, of which `_tc` and `_wgmma` are shares)
+    "q8_matmul_a8_tc": ("hip_llama_tpu_torch/csrc/quant.cu", "hip_llama_tpu/ops/quant.py:250"),
+    "q8_matmul_silu_a8_tc": ("hip_llama_tpu_torch/csrc/quant.cu",
+                             "hip_llama_tpu/ops/quant.py:541"),
+    "q4_matmul_a8_tc": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:218"),
+    "q4_matmul_silu_a8_tc": ("hip_llama_tpu_torch/csrc/quant4.cu",
+                             "hip_llama_tpu/ops/quant4.py:494"),
     "q4_matmul_a8": ("hip_llama_tpu_torch/csrc/quant4.cu", "hip_llama_tpu/ops/quant4.py:218"),
     "q4_matmul_silu_a8": ("hip_llama_tpu_torch/csrc/quant4.cu",
                           "hip_llama_tpu/ops/quant4.py:494"),
@@ -448,26 +470,29 @@ A8_KNOBS = {"q8": {"HIPLLAMA_Q8_MODE": "a8", "HIPLLAMA_Q8_BLOCK_N": "64"},
             "q4": {"HIPLLAMA_Q4_MODE": "a8", "HIPLLAMA_Q4_BLOCK_N": "64"}}
 GOLDEN_A8_RUNS = {
     "q8": {"q8 a8": (["--quant", "q8"], "1", "cpu_q8_a8",
-                     ("q8_matmul_a8", "q8_matmul_silu_a8", "attention_decode_fused",
-                      "kv_commit_rows", "kv_write_chunk", "attention_prefill"), True),
+                     ("q8_matmul_a8", "q8_matmul_a8_tc", "q8_matmul_silu_a8",
+                      "q8_matmul_silu_a8_tc", "attention_decode_fused", "kv_commit_rows",
+                      "kv_write_chunk", "attention_prefill"), True),
            "q8 --kv int8 a8": (["--quant", "q8", "--kv", "int8"], "1", "cpu_q8_kv8_a8",
-                               ("q8_matmul_a8", "q8_matmul_silu_a8",
-                                "attention_decode_fused_int8") + INT8_CACHE_PATH, False)},
+                               ("q8_matmul_a8", "q8_matmul_a8_tc", "q8_matmul_silu_a8",
+                                "q8_matmul_silu_a8_tc", "attention_decode_fused_int8")
+                               + INT8_CACHE_PATH, False)},
     "q4": {"q4 a8": (["--quant", "q4"], "1", "cpu_q4_a8",
-                     ("q4_matmul_a8", "q4_matmul_a8_wgmma", "q4_matmul_silu_a8",
-                      "q4_matmul_silu_a8_wgmma", "attention_decode_fused", "kv_commit_rows",
+                     ("q4_matmul_a8", "q4_matmul_a8_tc", "q4_matmul_a8_wgmma", "q4_matmul_silu_a8",
+                      "q4_matmul_silu_a8_tc", "q4_matmul_silu_a8_wgmma", "attention_decode_fused",
+                      "kv_commit_rows",
                       "kv_write_chunk", "attention_prefill"), True)},
 }
 # the 7B-width Q8 + int8-KV serve in a8: the prefill W2 (172 groups) keeps
 # reshape math, as the JAX decision says; the decode FFN is K18's GEMV route,
 # a T-16 chunk's its tensor-core kernel; the prefill's QKV, wo and gate run
 # the int8 wgmma tiles
-Q8_A8_PATH = ("q8_matmul_a8", "q8_matmul_a8_wgmma", "q8_matmul_silu_a8",
+Q8_A8_PATH = ("q8_matmul_a8", "q8_matmul_a8_tc", "q8_matmul_a8_wgmma", "q8_matmul_silu_a8",
               "q8_matmul_silu_a8_wgmma", "q8_matmul", "q8_matmul_ffn", "q8_matmul_ffn_tc",
               "attention_decode_fused_int8", "kv_commit_rows_int8", "kv_write_chunk_int8",
               "scale_write_chunk", "attention_prefill_int8")
-Q8_A8_STEP = {"q8_matmul_a8": 2 * _L + 1, "attention_decode_fused_int8": _L, "q8_matmul_ffn": _L,
-              "kv_commit_rows_int8": 1}
+Q8_A8_STEP = {"q8_matmul_a8": 2 * _L + 1, "q8_matmul_a8_tc": 2 * _L + 1,
+              "attention_decode_fused_int8": _L, "q8_matmul_ffn": _L, "kv_commit_rows_int8": 1}
 # --layout stacked: the decode layer is four K20 products and K1 on the
 # flat QKV rows, never K23, K5 or K18 (the prefill is the unrolled one on
 # the layers' views, K18 included); the fixture's reshape runs fork at
@@ -486,8 +511,8 @@ GOLDEN_STACKED_RUNS = {
 }
 GOLDEN_STACKED_A8_RUNS = {
     "q8 stacked a8": (["--quant", "q8", "--layout", "stacked"], "1", "cpu_q8_a8_stacked",
-                      ("q8_matmul_layered_a8", "attention_decode", "q8_matmul_a8",
-                       "q8_matmul_silu_a8", "kv_commit_rows", "kv_write_chunk",
+                      ("q8_matmul_layered_a8", "q8_matmul_layered_a8_tc", "attention_decode",
+                       "q8_matmul_a8", "q8_matmul_silu_a8", "kv_commit_rows", "kv_write_chunk",
                        "attention_prefill"), True),
 }
 # HIPLLAMA_KV_COMMIT=0: the four writes, never K2
@@ -504,12 +529,14 @@ Q8_STACKED_PATH = ("q8_matmul_layered", "attention_decode_int8", "q8_matmul", "q
                    "scale_write_chunk", "attention_prefill_int8")
 Q8_STACKED_STEP = {"q8_matmul_layered": 4 * _L, "attention_decode_int8": _L,
                    "kv_commit_rows_int8": 1, "q8_matmul": 1}
-Q8_STACKED_A8_PATH = ("q8_matmul_layered_a8", "attention_decode_int8", "q8_matmul_a8",
+Q8_STACKED_A8_PATH = ("q8_matmul_layered_a8", "q8_matmul_layered_a8_tc", "attention_decode_int8",
+                      "q8_matmul_a8", "q8_matmul_a8_tc",
                       "q8_matmul_a8_wgmma", "q8_matmul_silu_a8", "q8_matmul_silu_a8_wgmma",
                       "q8_matmul", "q8_matmul_ffn_tc", "kv_commit_rows_int8",
                       "kv_write_chunk_int8", "scale_write_chunk", "attention_prefill_int8")
-Q8_STACKED_A8_STEP = {"q8_matmul_layered_a8": 4 * _L, "attention_decode_int8": _L,
-                      "kv_commit_rows_int8": 1, "q8_matmul_a8": 1}
+Q8_STACKED_A8_STEP = {"q8_matmul_layered_a8": 4 * _L, "q8_matmul_layered_a8_tc": 4 * _L,
+                      "attention_decode_int8": _L, "kv_commit_rows_int8": 1, "q8_matmul_a8": 1,
+                      "q8_matmul_a8_tc": 1}
 Q8_INT8_PAGED_STEP = {"attention_decode_paged_int8": _L, "kv_write_rows_paged_int8": 1,
                       "scale_write_rows_paged": 1, "q8_matmul": 4 * _L + 1}
 # the 7B-width Q8 + int8-KV serve with both prefill knobs: T-256 chunks
@@ -1236,8 +1263,9 @@ def phase_kernels_int8() -> dict[str, dict]:
 
 def phase_q4_kernels() -> dict[str, dict]:
     """K21 and K22 at Llama-2-7B shapes, bf16 activations, int4 weights of
-    group size 32: the GEMV up to 16 rows, the wgmma tiles above
-    (q4_rows_kernel; M 2048 a T-256 chunk of 8 slots, M 128 a T-16 one).
+    group size 32: the GEMV up to 16 rows (timed as CUDA-graph replays,
+    cuBLAS too), the wgmma tiles above (q4_rows_kernel; M 2048 a T-256
+    chunk of 8 slots, M 128 a T-16 one).
     Library yardstick: cuBLAS `x @ w` on the weight dequantized to bf16
     beforehand (four times the packed weight bytes). Bytes count the packed
     weights (K/2 x N), fp32 scales, activations in and out once each.
@@ -1267,9 +1295,12 @@ def phase_q4_kernels() -> dict[str, dict]:
     norm = (1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
     out: dict[str, list] = {}
 
-    def case(name, label, fn, plain_fn, lib_fn, n_bytes, flops):
+    def case(name, label, m, fn, plain_fn, lib_fn, n_bytes, flops):
+        # a decode-row GEMV (and cuBLAS beside it) as a CUDA graph's replay:
+        # its device time is below the wrapper's host cost
         out.setdefault(name, []).append(
-            q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops))
+            q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops,
+                           graph=Q4.q4_rows_kernel(m) == "gemv"))
 
     # K21: QKV with norm + RoPE at decode and prefill rows, wo and W2 with
     # the residual, the classifier with the norm
@@ -1280,7 +1311,7 @@ def phase_q4_kernels() -> dict[str, dict]:
         x = rnd(m, d)
         pos = (torch.tensor([0, 1, 100, 255, 256, 300, 450, 511], dtype=torch.int32, device=dev)
                if m == 8 else torch.arange(m, dtype=torch.int32, device=dev) % 512)
-        case(k21(m), f"QKV M {m}, norm + RoPE",
+        case(k21(m), f"QKV M {m}, norm + RoPE", m,
              lambda i: Q4.q4_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: Q4.q4_matmul_plain(x, wq[i % 2], norm_weight=norm, rope_pos=pos, **rope),
              lambda i: x @ wqb[i % 2],
@@ -1291,7 +1322,7 @@ def phase_q4_kernels() -> dict[str, dict]:
         wb = deq(w)
         for m in (8, 2048):
             xk, res = rnd(m, k), rnd(m, d)
-            case(k21(m), f"{label} M {m}, K {k}, residual",
+            case(k21(m), f"{label} M {m}, K {k}, residual", m,
                  lambda i: Q4.q4_matmul(xk, w[i % copies], residual=res),
                  lambda i: Q4.q4_matmul_plain(xk, w[i % copies], residual=res),
                  lambda i: xk @ wb[i % copies], wbytes(k, d) + m * k * 2 + 2 * m * d * 2,
@@ -1300,7 +1331,7 @@ def phase_q4_kernels() -> dict[str, dict]:
     x = rnd(8, d)
     wc = weights(d, voc, 1)
     wcb = deq(wc)
-    case("q4_matmul", "classifier M 8, norm",
+    case("q4_matmul", "classifier M 8, norm", 8,
          lambda i: Q4.q4_matmul(x, wc[0], norm_weight=norm),
          lambda i: Q4.q4_matmul_plain(x, wc[0], norm_weight=norm),
          lambda i: x @ wcb[0], wbytes(d, voc) + 8 * d * 2 + 8 * voc * 2 + d * 4,
@@ -1312,7 +1343,7 @@ def phase_q4_kernels() -> dict[str, dict]:
     w13b = deq(w13)
     for m in (8, 2048, 128):
         x = rnd(m, d)
-        case(k21(m, "q4_matmul_silu"), f"W1|W3 gate M {m}, norm",
+        case(k21(m, "q4_matmul_silu"), f"W1|W3 gate M {m}, norm", m,
              lambda i: Q4.q4_matmul_silu(x, w13[i % 2], norm_weight=norm),
              lambda i: Q4.q4_matmul_silu_plain(x, w13[i % 2], norm_weight=norm),
              lambda i: x @ w13b[i % 2],
@@ -1639,7 +1670,11 @@ def phase_a8_kernels() -> dict[str, dict]:
     """The `a8` kernels of K15 and K17 (Q8_0, group size 64) and of K21 and
     K22 (int4, group size 32) at Llama-2-7B shapes against their plain
     versions, each beside the reshape (dequant) kernel on the same inputs:
-    the GEMV at M 8; K15's and K17's int8 wgmma tiles (`..._a8_wgmma`) at
+    the GEMV at M 8 as CUDA-graph replays (cuBLAS and the reshape kernel
+    too): the int8 tensor-core GEMV the wrappers run at these group sizes
+    (`..._a8_tc`) and, on the same inputs through ops/quant.py::
+    a8_gemv_probe, the dp4a GEMV (the base names); K15's and K17's int8
+    wgmma tiles (`..._a8_wgmma`) at
     QKV M 128, 2048 and 4088, wo M 2048 and the gate M 512, 2048 and 4088;
     K21's and K22's (one nibble plane a CTA) at QKV M 256 and 128, wo M 256
     and the gate M 256 and 128: 256 is the most rows `q4_a8_engages` gives
@@ -1662,9 +1697,10 @@ def phase_a8_kernels() -> dict[str, dict]:
     def case(name, label, mod, fn, plain_fn, reshape_fn, lib_fn, w_bytes, m, k, n_out, gs,
              flops, extra=0):
         n_bytes = w_bytes + m * k * 2 + m * k + m * (k // gs) * 4 + m * n_out * 2 + extra
+        graph = m <= Q.GEMV_MAX_M
         r = q8_kernel_case(name, label, fn, plain_fn, lib_fn, n_bytes, flops,
-                           op_dtype=torch.int8)
-        r["reshape_ms"] = cuda_ms(reshape_fn)
+                           op_dtype=torch.int8, graph=graph)
+        r["reshape_ms"] = cuda_ms(reshape_fn, graph=graph)
         print(f"kernel {name} [{label}]: reshape/dequant kernel ms {r['reshape_ms']:.4f} "
               f"beside the a8 kernel's {r['ms']:.4f}", flush=True)
         out.setdefault(name, []).append(r)
@@ -1682,7 +1718,7 @@ def phase_a8_kernels() -> dict[str, dict]:
                     for _ in range(copies)]
 
         def tile(base, m):  # the kernels-line name of an M-row case
-            return base + "_wgmma" if Q.a8_rows_kernel(m, gs) == "wgmma" else base
+            return base + {"wgmma": "_wgmma", "gemv_tc": "_tc"}.get(Q.a8_rows_kernel(m, gs), "")
 
         # the kernels line carries each name's first case: M 2048 for the Q8
         # tiles, M 256 for the int4 tiles
@@ -1707,12 +1743,16 @@ def phase_a8_kernels() -> dict[str, dict]:
                     kw, extra, label = dict(residual=rnd(m, n)), m * n * 2, f"wo M {m}, residual"
                 else:
                     kw, extra, label = dict(norm_weight=norm), k * 4, f"classifier M {m}, norm"
-                case(tile(name, m), label, mod,
-                     lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], mode="a8", **kw),
-                     lambda i, w=w, x=x, kw=kw: mm_plain(x, w[i % copies], mode="a8", **kw),
-                     lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], **kw),
-                     lambda i, wd=wd, x=x: x @ wd[i % copies],
-                     wb(k, n), m, k, n, gs, 2 * m * k * n, extra)
+                run = [("", lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], mode="a8", **kw))]
+                if m <= Q.GEMV_MAX_M:  # the dp4a GEMV on the same inputs
+                    run.append((", dp4a", lambda i, w=w, x=x, kw=kw: Q.a8_gemv_probe(
+                        x, w[i % copies], False, 1, **kw)))
+                for suffix, fn in run:
+                    case(tile(name, m) if not suffix else name, label + suffix, mod, fn,
+                         lambda i, w=w, x=x, kw=kw: mm_plain(x, w[i % copies], mode="a8", **kw),
+                         lambda i, w=w, x=x, kw=kw: mm(x, w[i % copies], **kw),
+                         lambda i, wd=wd, x=x: x @ wd[i % copies],
+                         wb(k, n), m, k, n, gs, 2 * m * k * n, extra)
                 del x
             del w, wd
         silu, silu_plain = ((Q.q8_matmul_silu, Q.q8_matmul_silu_plain) if mod is Q
@@ -1721,15 +1761,21 @@ def phase_a8_kernels() -> dict[str, dict]:
         w13d = [deq(x).to(torch.bfloat16) for x in w13]
         for m in (8, 2048, 512, 4088) if mod is Q else (8, 256, 128):
             x = rnd(m, d)
-            case(tile(name.replace("matmul", "matmul_silu"), m), f"W1|W3 gate M {m}, norm", mod,
-                 lambda i, x=x: silu(x, w13[i % 2], norm_weight=norm, mode="a8"),
-                 lambda i, x=x: silu_plain(x, w13[i % 2], norm_weight=norm, mode="a8"),
-                 lambda i, x=x: silu(x, w13[i % 2], norm_weight=norm),
-                 lambda i, x=x: x @ w13d[i % 2],
-                 wb(d, 2 * hid), m, d, hid, gs, 2 * m * d * 2 * hid, d * 4)
+            gname = name.replace("matmul", "matmul_silu")
+            run = [("", lambda i, x=x: silu(x, w13[i % 2], norm_weight=norm, mode="a8"))]
+            if m <= Q.GEMV_MAX_M:  # the dp4a GEMV on the same inputs
+                run.append((", dp4a", lambda i, x=x: Q.a8_gemv_probe(x, w13[i % 2], True, 1,
+                                                                     norm_weight=norm)))
+            for suffix, fn in run:
+                case(tile(gname, m) if not suffix else gname, f"W1|W3 gate M {m}, norm{suffix}",
+                     mod, fn, lambda i, x=x: silu_plain(x, w13[i % 2], norm_weight=norm, mode="a8"),
+                     lambda i, x=x: silu(x, w13[i % 2], norm_weight=norm),
+                     lambda i, x=x: x @ w13d[i % 2],
+                     wb(d, 2 * hid), m, d, hid, gs, 2 * m * d * 2 * hid, d * 4)
             del x
         del w13, w13d
     probe_a8_tiles()
+    probe_a8_gemv()
     # the kernels line carries each kernel's first case; max_abs_err over all
     return {name: dict(rs[0], max_abs_err=max(r["max_abs_err"] for r in rs))
             for name, rs in out.items()}
@@ -1788,6 +1834,48 @@ def probe_a8_tiles() -> None:
               lambda i, v, w=w, x=x, kw=kw, gate=gate: Q4.q4_a8_tiles_probe(
                   x, w[i % 2], gate, v, **kw))
         del w
+
+
+def probe_a8_gemv() -> None:
+    """The `a8` GEMVs, the int8 tensor-core GEMV against a8.cuh's dp4a GEMV
+    (ops/quant.py::a8_gemv_probe: the same quantizer pass before either,
+    the same split pass after), whose outputs it must equal bit for bit:
+    Q8_0 at group size 64 and int4 at 32, QKV with the norm and RoPE, wo
+    with the residual, the W1|W3 gate with the norm and W2 with the
+    residual (K 11008), at M 8 and 16. Each GEMV's time beside, as CUDA-graph
+    replays."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    d, hid = 4096, 11008
+    norm = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).contiguous()
+    names = {0: "tensor cores", 1: "dp4a"}
+    for int4, gs in ((False, 64), (True, 32)):
+        quantize = Q4.q4_quantize_weights if int4 else Q.q8_quantize_weights
+        for what, k, n, gate in (("QKV", d, 3 * d, False), ("wo", d, d, False),
+                                 ("W1|W3 gate", d, 2 * hid, True), ("W2", hid, d, False)):
+            w = [quantize(torch.randn((k, n), generator=g, device=dev).mul_(k ** -0.5), gs)
+                 for _ in range(2)]
+            for m in (8, 16):
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                if what == "QKV":
+                    kw = dict(norm_weight=norm, rope_limit=2 * d, rope_head=128,
+                              rope_pos=torch.arange(m, dtype=torch.int32, device=dev) * 37 % 512)
+                elif gate:
+                    kw = dict(norm_weight=norm)
+                else:
+                    kw = dict(residual=torch.randn((m, n), generator=g, device=dev)
+                              .to(torch.bfloat16))
+                outs = {v: Q.a8_gemv_probe(x, w[0], gate, v, **kw) for v in names}
+                torch.cuda.synchronize()
+                equal = torch.equal(outs[0], outs[1])
+                times = [f"{nm} {cuda_ms(lambda i, v=v: Q.a8_gemv_probe(x, w[i % 2], gate, v, **kw), graph=True):.4f}"
+                         for v, nm in names.items()]
+                label = f"{'int4' if int4 else 'Q8'} {what} M {m}"
+                print(f"probe a8 gemv [{label}] ms: {'; '.join(times)}; outputs equal to "
+                      f"dp4a's: {equal}", flush=True)
+                if not equal:
+                    raise AssertionError(f"the a8 tensor-core GEMV differs from dp4a ({label})")
+            del w
 
 
 def profile_q4_a8_chunks(params: QuantLlamaParams) -> None:
@@ -2248,8 +2336,8 @@ def phase_golden_runs(runs: dict, model: str | None = None
     return launches, outputs
 
 
-# a fork of the fixture's Q8 serve from the JAX package's outputs must be a
-# near-tie (ROADMAP.md section 3): the card's engine and the port's plain
+# a fork of the fixture's Q8 (or int4) serve from the JAX package's outputs
+# must be a near-tie (ROADMAP.md section 3): the card's engine and the port's plain
 # path on the CPU (which tests/test_torch_kv_int8_model.py::
 # test_q8_int8_serve_forks_from_jax_only_at_near_ties holds to the JAX
 # engine up to near-ties) serve each corpus side by side, greedy at -b 4; a
@@ -2264,10 +2352,11 @@ def host_logits(logits) -> np.ndarray:
             else np.asarray(logits, np.float32))
 
 
-def golden_forks_at_near_ties(kv_quant: bool) -> None:
+def golden_forks_at_near_ties(kv_quant: bool, int4: bool = False) -> None:
     cfg, w = load_checkpoint(os.path.join(GOLDEN, "model.bin"))
     tok = Tokenizer.from_file(os.path.join(GOLDEN, "tokenizer.bin"), cfg.vocab_size)
-    params = {d: quantize_params_q8(cfg, w, device=torch.device(d)) for d in ("cuda", "cpu")}
+    quantize = quantize_params_q4 if int4 else quantize_params_q8
+    params = {d: quantize(cfg, w, device=torch.device(d)) for d in ("cuda", "cpu")}
     gaps, compared = [], 0
     for c in CORPORA:
         prompts = read_inputfile(os.path.join(REPO, "assets", "in", f"{c}_in_8.txt")).prompts
@@ -2320,7 +2409,7 @@ def golden_forks_at_near_ties(kv_quant: bool) -> None:
                     forked.add(s)
             if len(forked) == 4:
                 break
-    label = "q8 --kv int8" if kv_quant else "q8"
+    label = ("q4" if int4 else "q8") + (" --kv int8" if kv_quant else "")
     print(f"golden forks ({label}, card vs the CPU's plain path): {len(gaps)} slot forks over "
           f"{compared} compared slot steps; top-2 gaps at the forks "
           f"{[round(g, 4) for g in gaps]} (bar {NEAR_TIE})", flush=True)
@@ -3054,7 +3143,7 @@ def phase_dim288_serves() -> dict[str, dict[str, int]]:
     against the CPU's plain path within the run's tolerance, the share of
     identical generations printed. Returns each run's card launches."""
     from hip_llama_tpu_torch.io.checkpoint import random_weights, write_v0
-    from hip_llama_tpu_torch.models import params_from_weights, quantize_params_q4
+    from hip_llama_tpu_torch.models import params_from_weights
 
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3202,6 +3291,8 @@ def main() -> int:
     res_q4 = phase_q4_kernels()
     torch.cuda.empty_cache()
     launches_golden.update(phase_q4_goldens())
+    for kv_quant in (False, True):  # the int4 GEMV rounds in the tensor cores' order
+        golden_forks_at_near_ties(kv_quant, int4=True)
     t0 = time.perf_counter()
     q4params = random_7b_qparams(LLAMA2_7B, dev, int4=True)
     torch.cuda.synchronize()
@@ -3329,7 +3420,8 @@ def main() -> int:
             launches["q8 int8 stacked a8"], launches["q8 int8 prefill knobs"],
             launches_golden["q8, four-kernel layer"], launches_golden["fp32 --kv int8"],
             launches_golden["q8 --kv int8, four-kernel layer"], launches_golden["q8 --paged 16"],
-            launches_golden["q4 a8"], launches_golden["fp32, four-write commit"],
+            launches_golden["q8 a8"], launches_golden["q4 a8"],
+            launches_golden["fp32, four-write commit"],
             launches_golden["q8 --kv int8, four-write commit"], launches["bench"]]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():

@@ -24,23 +24,28 @@
 // bytes, as in the reshape mode (1 byte a weight for Q8, 0.5 for int4, plus
 // 4/gs for the scales); at prefill M by the int8 tensor-core rate (1979
 // TOP/s, twice bf16's). The GEMV path (M <= 16) keeps the reshape mode's
-// split-K layout but with strips of 128 columns (a lane owns 4) and up to 8
-// activation rows per CTA: a warp takes whole groups, reads 4 rows of its
-// lane's 4 columns, turns them into 4 words of 4 consecutive k of one
-// column by byte permutes, and multiplies each by the packed xi word of a
-// row with __dp4a. Above 16 rows, at group sizes that are multiples of 32,
-// Q8_0 and int4 weights take a8_wgmma.cuh's pipelined int8 wgmma tiles
-// (an int4 weight one nibble plane a CTA). The tiled path here (a8_mma_kernel)
-// takes the other group sizes, and is what the wgmma tiles are held to bit
-// for bit on the card: it stages 64 x 128 int8 x tiles and 128 x 128
-// weight tiles (transposed by byte permutes so that each column's k are
-// consecutive) in shared memory, one synchronous stage a 128-deep step,
-// and runs mma.sync.m16n8k32.s8 (k16 where gs % 32 != 0) into int32
-// fragments, rescaling them into fp32 at the end of every group; an int4
-// weight's CTA walks both nibble planes, each packed byte read once a
-// plane. Both paths take any group size that is a multiple of 8. No TPU
-// mechanism is carried over (the transposed (G, gs, M) stash, the 4 MiB
-// group chunks, the 256-row blocks).
+// split-K layout but with strips of 128 columns and up to 8 activation rows
+// per task, a warp taking whole groups of its slice. At group sizes that
+// are multiples of 32 it runs on the int8 tensor cores (a8_gemv_tc_kernel:
+// a cp.async ring a warp, mma.sync.m16n8k32.s8 on the weight made k-major
+// by byte permutes, a persistent grid); at the others by dp4a
+// (a8_gemv_kernel: a warp reads 4 rows of its lane's 4 columns, turns them
+// into 4 words of 4 consecutive k of one column by byte permutes, and
+// multiplies each by the packed xi word of a row with __dp4a). The two
+// give the same bits: exact int32 group sums, rescaled by each warp in its
+// group order, the warps added in order. Above 16 rows, at group sizes
+// that are multiples of 32, Q8_0 and int4 weights take a8_wgmma.cuh's
+// pipelined int8 wgmma tiles (an int4 weight one nibble plane a CTA). The
+// tiled path here (a8_mma_kernel) takes the other group sizes, and is what
+// the wgmma tiles are held to bit for bit on the card: it stages 64 x 128
+// int8 x tiles and 128 x 128 weight tiles (transposed by byte permutes so
+// that each column's k are consecutive) in shared memory, one synchronous
+// stage a 128-deep step, and runs mma.sync.m16n8k32.s8 (k16 where gs % 32 !=
+// 0) into int32 fragments, rescaling them into fp32 at the end of every
+// group; an int4 weight's CTA walks both nibble planes, each packed byte
+// read once a plane. The dp4a GEMV and the tiles take any group size that is
+// a multiple of 8. No TPU mechanism is carried over (the transposed (G, gs,
+// M) stash, the 4 MiB group chunks, the 256-row blocks).
 #pragma once
 
 #include <stdint.h>
@@ -198,6 +203,251 @@ __global__ void __launch_bounds__(kThreads) a8_gemv_kernel(
       __syncthreads();
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// GEMV path on the int8 tensor cores, at group sizes that are multiples of
+// 32: the same tasks, the same part layout and the same fp32 arithmetic as
+// a8_gemv_kernel, so that its outputs are a8_gemv_kernel's bit for bit. A
+// task (strip of kGvBN columns, slice of kslice rows of q, chunk of 8
+// rows) is taken by a CTA of a persistent grid, several a CTA where there
+// are more tasks than fit on the card at once. Warp w takes the slice's
+// groups w, w + 8, ... in order, as in a8_gemv_kernel; a group is gs / 32
+// steps of 32 rows of q, which the warp streams through a cp.async ring of
+// its own (kTcStages stages, on across the CTA's tasks): the step's rows
+// of the strip (4 KB, XOR-swizzled by 16-byte chunk), the 32 columns of xi
+// of each of the 8 rows (of each plane), and at the group's last step its
+// scale row (of each plane) and the 8 rows' sx. A step is one
+// mma.sync.m16n8k32.s32.s8.s8 per 16 columns (and plane): a lane loads 16
+// adjacent columns of rows 4 t..4 t + 3 and 16 + 4 t.. (t = lane % 4),
+// turns them into words of 4 consecutive k of one column by byte permutes
+// (transpose4; for int4 the nibble codes of each plane after them), and
+// those are its A fragments of 8 m16 tiles (tile j's row lane / 4 is the
+// lane's column 2 j, its row lane / 4 + 8 column 2 j + 1); the 8 rows of
+// xi are the B operand, k-major already. The group's int32 sums are exact
+// in any order; at its last step the lane rescales them, (f32(sum) * sx) *
+// s, into its fp32 sums (each plane apart), in the warp's group order.
+// At the end of a task the 8 warps' sums are added in warp order through
+// shared memory into part[(plane x split + sp, m, n)], as a8_gemv_kernel
+// writes them. Bound on an H100: the weight bytes, as a8_gemv_kernel's.
+
+constexpr int kTcStep = 32;   // rows of q a step: one m16n8k32 per 16 columns
+constexpr int kTcStages = 4;  // ring stages a warp
+
+template <bool INT4>
+struct GemvTcSmem {
+  static constexpr int P = INT4 ? 2 : 1;               // planes
+  static constexpr int kW = kTcStep * kGvBN;            // the step's rows of q
+  static constexpr int kX = P * kGvRows * kTcStep;      // xi: 8 rows of 32 k a plane
+  static constexpr int kS = P * kGvBN * 4;              // the group's scale rows
+  static constexpr int kStage = kW + kX + kS + P * kGvRows * 4;  // and its sx of 8 rows
+  __align__(16) unsigned char ring[kWarps][kTcStages][kStage];
+  __align__(16) float red[kWarps][kGvRows][kGvBN + 4];  // the warps' sums of one plane
+};
+
+// the 16-byte chunk (of 8) that holds chunk c of weight row r of a stage:
+// rows 4 t + i of the 4 lanes t of two lane groups land in 8 different bank
+// groups
+__device__ __forceinline__ int tc_wchunk(int r, int c) { return c ^ (((r >> 2) & 3) << 1); }
+
+template <bool INT4>
+__global__ void __launch_bounds__(kThreads, 1) a8_gemv_tc_kernel(
+    const int8_t* __restrict__ xi, const float* __restrict__ sx, const int8_t* __restrict__ q,
+    const float* __restrict__ s, float* __restrict__ part, int M, int K, int N, int gs,
+    int split, int kslice) {
+  using Sm = GemvTcSmem<INT4>;
+  constexpr int P = Sm::P;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  Sm& sm = *reinterpret_cast<Sm*>(tc_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lg = lane >> 2, lt = lane & 3;  // the lane's 16 columns and its k 4 lt, ...
+  const int qrows = INT4 ? K / 2 : K;
+  const int G = K / gs, spg = gs / kTcStep;  // groups of a row of x, steps a group
+  const int strips = (N + kGvBN - 1) / kGvBN;
+  const int ntasks = strips * split * ((M + kGvRows - 1) / kGvRows);
+  const uint32_t ring0 = mma::smem_u32(&sm.ring[warp][0][0]);
+
+  // the warp's steps of task t: its groups of the slice, gs / 32 steps each
+  auto steps = [&](int t) {
+    const int sp = (t / strips) % split;
+    const int ng = (min(qrows, (sp + 1) * kslice) - sp * kslice) / gs;
+    return ng > warp ? (ng - warp + kWarps - 1) / kWarps * spg : 0;
+  };
+  // the first row of q of step i of the warp's steps in task t
+  auto step_row = [&](int t, int i) {
+    return (t / strips) % split * kslice + (warp + kWarps * (i / spg)) * gs + i % spg * kTcStep;
+  };
+
+  // the copies: step pi of the pn steps of task pt, the next to issue
+  int pt = blockIdx.x, pi = 0, pn = 0;
+  auto seek = [&]() {  // the first task from pt on where the warp has steps
+    for (; pt < ntasks; pt += gridDim.x)
+      if ((pn = steps(pt)) > 0) break;
+    pi = 0;
+  };
+  auto issue = [&](int slot) {  // one commit group a step, empty past the last
+    if (pt < ntasks) {
+      const int n0 = pt % strips * kGvBN, m0 = pt / strips / split * kGvRows;
+      const int k0 = step_row(pt, pi);
+      const uint32_t st = ring0 + slot * Sm::kStage;
+#pragma unroll
+      for (int i = 0; i < Sm::kW / 16 / 32; ++i) {  // 32 rows of 8 chunks
+        const int e = lane + 32 * i, r = e >> 3, c = e & 7;
+        const bool live = n0 + 16 * c < N;
+        mma::cp_async<16>(st + r * kGvBN + 16 * tc_wchunk(r, c),
+                              live ? q + (size_t)(k0 + r) * N + n0 + 16 * c : q, live);
+      }
+      if (lane < 2 * kGvRows * P) {  // xi: 8 rows of two halves a plane, zero past M
+        const int m = (lane >> 1) % kGvRows, h = lane & 1, p = lane / (2 * kGvRows);
+        const bool live = m0 + m < M;
+        mma::cp_async<16>(
+            st + Sm::kW + p * kGvRows * kTcStep + m * kTcStep + 16 * q8::gemv_xhalf(m, h),
+            live ? xi + (size_t)(m0 + m) * K + p * (K / 2) + k0 + 16 * h : xi, live);
+      }
+      if (pi % spg == spg - 1) {  // the group's last step: its scales
+        const int grp = k0 / gs;
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const bool live = n0 + 4 * lane < N;
+          mma::cp_async<16>(st + Sm::kW + Sm::kX + p * kGvBN * 4 + 16 * lane,
+                                live ? s + (size_t)(p * (G / 2) + grp) * N + n0 + 4 * lane : s,
+                                live);
+        }
+        if (lane < kGvRows * P) {
+          const int m = lane % kGvRows, p = lane / kGvRows;
+          const bool live = m0 + m < M;
+          mma::cp_async<4>(st + Sm::kW + Sm::kX + Sm::kS + 4 * lane,
+                               live ? sx + (size_t)(m0 + m) * G + p * (G / 2) + grp : sx, live);
+        }
+      }
+      if (++pi == pn) {
+        pt += gridDim.x;
+        seek();
+      }
+    }
+    mma::cp_async_commit();
+  };
+
+  seek();
+#pragma unroll
+  for (int i = 0; i < kTcStages - 1; ++i) issue(i);
+
+  int item = 0;  // steps this warp has consumed: the ring slot is item % kTcStages
+  for (int t = blockIdx.x; t < ntasks; t += gridDim.x) {
+    const int sp = (t / strips) % split, m0 = t / strips / split * kGvRows;
+    const int n0 = t % strips * kGvBN, mrows = min(kGvRows, M - m0);
+    const int n = steps(t);
+    float acc[P][8][4];  // tile j: columns 16 lg + 2 j (+1 at 2, 3) of rows 2 lt, 2 lt + 1
+    int ai[P][8][4];     // the open group's int32 sums
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[p][j][i] = 0.f;
+          ai[p][j][i] = 0;
+        }
+
+    for (int i = 0; i < n; ++i, ++item) {
+      issue((item + kTcStages - 1) % kTcStages);  // into the slot consumed last
+      mma::cp_async_wait<kTcStages - 1>();     // this step's copies have landed
+      __syncwarp();                                // ... for every lane
+      const unsigned char* stage = sm.ring[warp][item % kTcStages];
+      // B: xi row lg at k 4 lt.. and 16 + 4 lt.. of each plane
+      uint32_t bx[P][2];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const unsigned char* xr = stage + Sm::kW + p * kGvRows * kTcStep + lg * kTcStep + 4 * lt;
+        bx[p][0] = *reinterpret_cast<const uint32_t*>(xr + 16 * q8::gemv_xhalf(lg, 0));
+        bx[p][1] = *reinterpret_cast<const uint32_t*>(xr + 16 * q8::gemv_xhalf(lg, 1));
+      }
+      // A: column words of k 4 lt.. (h 0) and 16 + 4 lt.. (h 1) of the
+      // lane's 16 columns
+      uint32_t cw[2][16];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t raw[4][4];  // rows 16 h + 4 lt + r, words of 4 columns
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = 16 * h + 4 * lt + r;
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(stage + row * kGvBN + 16 * tc_wchunk(row, lg));
+          raw[r][0] = v.x;
+          raw[r][1] = v.y;
+          raw[r][2] = v.z;
+          raw[r][3] = v.w;
+        }
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          const uint32_t rr[4] = {raw[0][c4], raw[1][c4], raw[2][c4], raw[3][c4]};
+          transpose4(rr, &cw[h][4 * c4]);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          uint32_t a[4] = {cw[0][2 * j], cw[0][2 * j + 1], cw[1][2 * j], cw[1][2 * j + 1]};
+          if (INT4) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) a[r] = nib_codes(a[r], p == 1);
+          }
+          mma_s8(ai[p][j], a, bx[p]);
+        }
+      if (i % spg == spg - 1) {  // the group's end: (f32(sum) * sx) * s, then from zero
+        const float* sr = reinterpret_cast<const float*>(stage + Sm::kW + Sm::kX);
+        const float* sxr = reinterpret_cast<const float*>(stage + Sm::kW + Sm::kX + Sm::kS);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const float sx0 = sxr[p * kGvRows + 2 * lt], sx1 = sxr[p * kGvRows + 2 * lt + 1];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 sv =
+                *reinterpret_cast<const float2*>(sr + p * kGvBN + 16 * lg + 2 * j);
+            acc[p][j][0] += ((float)ai[p][j][0] * sx0) * sv.x;
+            acc[p][j][1] += ((float)ai[p][j][1] * sx1) * sv.x;
+            acc[p][j][2] += ((float)ai[p][j][2] * sx0) * sv.y;
+            acc[p][j][3] += ((float)ai[p][j][3] * sx1) * sv.y;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) ai[p][j][r] = 0;
+          }
+        }
+      }
+      __syncwarp();  // every lane is done with the slot before it is filled again
+    }
+
+    // the 8 warps' sums of each plane in warp order; a thread adds 4
+    // columns of one row
+    const int rm = threadIdx.x >> 5, rc = threadIdx.x & 31;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      __syncthreads();  // red is free
+#pragma unroll
+      for (int ee = 0; ee < 2; ++ee) {  // row 2 lt + ee: column 16 lg + 2 j + h at acc[j][ee + 2 h]
+        float* row = sm.red[warp][2 * lt + ee] + 16 * lg;
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4)
+          *reinterpret_cast<float4*>(row + 4 * c4) =
+              make_float4(acc[p][2 * c4][ee], acc[p][2 * c4][ee + 2], acc[p][2 * c4 + 1][ee],
+                          acc[p][2 * c4 + 1][ee + 2]);
+      }
+      __syncthreads();
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float4 r = *reinterpret_cast<const float4*>(sm.red[w][rm] + 4 * rc);
+        v.x += r.x;
+        v.y += r.y;
+        v.z += r.z;
+        v.w += r.w;
+      }
+      if (rm < mrows && n0 + 4 * rc < N)
+        *reinterpret_cast<float4*>(part + ((size_t)(p * split + sp) * M + m0 + rm) * N + n0 +
+                                   4 * rc) = v;
+    }
+  }
+  mma::cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -441,6 +691,40 @@ int launch_gemv(const void* xi, const void* sx, const void* q, const void* s, fl
                                                   (const int8_t*)q, (const float*)s, part, M, K,
                                                   N, gs, kslice);
   return (int)cudaGetLastError();
+}
+
+// the same partials on the int8 tensor cores (a8_gemv_tc_kernel), gs a
+// multiple of 32 and N of 16; a persistent grid of at most as many CTAs as
+// fit on the card at once
+template <bool INT4>
+int launch_gemv_tc(const void* xi, const void* sx, const void* q, const void* s, float* part,
+                   int M, int K, int N, int gs, int split, int kslice, cudaStream_t st) {
+  const int qrows = INT4 ? K / 2 : K;
+  if (M < 1 || gs < kTcStep || gs % kTcStep || N < 16 || N % 16 || kslice < gs ||
+      kslice % gs || (long long)split * kslice < qrows || (long long)(split - 1) * kslice >= qrows)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = a8_gemv_tc_kernel<INT4>;
+  constexpr int bytes = sizeof(GemvTcSmem<INT4>);
+  static int ctas = 0;  // CTAs that fit on the card at once
+  if (ctas == 0) {
+    const cudaError_t e = q8::resident_ctas(kernel, bytes, ctas);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int tasks = (N + kGvBN - 1) / kGvBN * split * ((M + kGvRows - 1) / kGvRows);
+  kernel<<<tasks < ctas ? tasks : ctas, kThreads, bytes, st>>>(
+      (const int8_t*)xi, (const float*)sx, (const int8_t*)q, (const float*)s, part, M, K, N, gs,
+      split, kslice);
+  return (int)cudaGetLastError();
+}
+
+// the GEMV path's partials by group size: the int8 tensor cores where gs %
+// 32 == 0 (tc), else dp4a
+template <bool INT4>
+int launch_gemv_any(bool tc, const void* xi, const void* sx, const void* q, const void* s,
+                    float* part, int M, int K, int N, int gs, int split, int kslice,
+                    cudaStream_t st) {
+  return tc ? launch_gemv_tc<INT4>(xi, sx, q, s, part, M, K, N, gs, split, kslice, st)
+            : launch_gemv<INT4>(xi, sx, q, s, part, M, K, N, gs, split, kslice, st);
 }
 
 // the tiled path into out (M, ncols) bf16: k steps of 32 where gs % 32 ==

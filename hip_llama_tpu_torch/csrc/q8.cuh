@@ -158,57 +158,98 @@ __device__ __forceinline__ void rmsnorm_row(const bf16* xr, const float* g, bf16
 // ---------------------------------------------------------------------------
 // the split-K GEMV for decode-shaped M (at most 16 rows a task) on the bf16
 // tensor cores. y = x @ w is computed as its transpose on mma.sync
-// (m16n8k8, two to a 16-row step): 16 output columns of the dequantized
-// weight are the A operand (16 columns x 8 k) and 8 activation rows the B
-// operand (8 k x 8 rows), so 8 rows fill the n side with no padding row
-// (16 rows: two n8 tiles). Bound on an H100: the weight bytes (1 byte per weight plus 4/gs
-// for the scales, each read once); the products cost two m16n8k8 per 256
-// weights, and what is left on the CUDA cores is the dequantization (about
-// 4 operations a weight: a byte permute and a subtraction to f32(q), the
-// product with the scale, half a bf16x2 conversion).
+// (m16n8k8, two to a step): 16 output columns of the dequantized weight are
+// the A operand (16 columns x 8 k) and 8 activation rows the B operand (8 k
+// x 8 rows), so 8 rows fill the n side with no padding row (16 rows: two n8
+// tiles). Bound on an H100: the weight bytes (1 byte per weight plus 4/gs
+// for the scales, each read once; int4: half a byte); the products cost two
+// m16n8k8 per 256 weights, and what is left on the CUDA cores is the
+// dequantization (about 4 operations a weight: a byte permute and a
+// subtraction to f32(q), the product with the scale, half a bf16x2
+// conversion).
 //
 // A task is one strip of kGemvBN = 128 output columns, one slice of the
-// contraction in whole 16-row steps and one chunk of at most MAXM rows;
+// contraction in whole steps and one chunk of at most MAXM rows;
 // gemv_tasks deals a product's tasks out to the CTAs of the grid (several a
 // CTA where there are more tasks than CTAs). The 8 warps of a CTA split the
 // slice into contiguous runs of steps; each warp streams its run through a
-// ring of kGemvStages stages of its own in shared memory, filled by cp.async
-// in 16-byte copies kGemvStages - 1 steps ahead, on across the CTA's tasks
-// (about 8 KB a warp in flight, 130 KB an SM at two CTAs an SM). A stage is
-// the step's 16 weight rows of the strip as int8 (2 KB, XOR-swizzled by
-// 16-byte chunk), the scale row of their group where it is new to the run,
-// and the step's 16 columns of x. A lane holds 16 adjacent columns (16 (lane
-// / 4) ..) of rows 2 t, 2 t + 1, 2 t + 8, 2 t + 9 (t = lane % 4): once
-// dequantized, they are its A fragments of 8 m16 tiles (tile j's row lane /
-// 4 is the lane's column 2 j, its row lane / 4 + 8 column 2 j + 1), so its
-// accumulators hold 16 adjacent outputs of two activation rows in each n8
-// tile. The tensor cores sum each 8-deep half of a step from zero
-// (m16n8k8), and the halves are added to the fp32 sums in order by the
-// CUDA cores: the 16-deep product accumulated into the running sums inside
-// the tensor core (its own alignment and truncation, not fp32 adds) rounded
-// the golden fixture's greedy Q8 decode away from the JAX outputs on one
-// corpus more than its bar allows (PERF.md); this form costs 6-9% at 8
-// rows. The weight tensors are the ones the prefill tiles read: no second or
-// permuted copy. At the end of a task the 8 warps' fp32 sums are added in
-// warp order through shared memory and the task's partial goes to
-// part[(split * M + m) * N + n]; split_epilogue_at adds the splits in a
-// fixed order (no float atomics: greedy decoding gives the same tokens every
-// run).
+// ring of stages of its own in shared memory, filled by cp.async in 16-byte
+// copies a ring's depth less one steps ahead, on across the CTA's tasks. A
+// stage is the step's weight rows of the strip (XOR-swizzled by 16-byte
+// chunk), the scale row of their group where it is new to the run, and the
+// step's 16 columns of x. The weight's format is a template parameter:
+//
+//   - Q8_0 (kBits 8): a step is 16 rows of q (2 KB), k rows k0..k0 + 15; 4
+//     stages (about 8 KB a warp in flight, 130 KB an SM at two CTAs an SM).
+//     A lane holds 16 adjacent columns (16 (lane / 4) ..) of rows 2 t, 2 t +
+//     1, 2 t + 8, 2 t + 9 (t = lane % 4): the two 8-deep halves of the step.
+//   - int4 packed half-split (kBits 4, quant4.cu's format): a step is 8
+//     packed rows k'..k' + 7 (1 KB); their low nibbles are the k rows k'..
+//     and meet x[:, k'..], their high nibbles the rows K/2 + k'.. and meet
+//     x[:, K/2 + k'..]: the step's two 8-deep halves are the two planes,
+//     and its x the 8 columns of each. A lane holds 16 adjacent columns of
+//     packed rows 2 t, 2 t + 1, whose low and high nibbles are its rows of
+//     the two halves; a new group brings the scale rows of both halves.
+//     The packed rows of a step are half Q8's bytes for the same work, so
+//     the ring is one stage deeper.
+//
+// Once dequantized, a lane's values are its A fragments of 8 m16 tiles
+// (tile j's row lane / 4 is the lane's column 2 j, its row lane / 4 + 8
+// column 2 j + 1), so its accumulators hold 16 adjacent outputs of two
+// activation rows in each n8 tile. The tensor cores sum each 8-deep half of
+// a step from zero (m16n8k8), and the halves are added to the fp32 sums in
+// order by the CUDA cores: the 16-deep product accumulated into the running
+// sums inside the tensor core (its own alignment and truncation, not fp32
+// adds) rounded the golden fixture's greedy Q8 decode away from the JAX
+// outputs on one corpus more than its bar allows (PERF.md); this form costs
+// 6-9% at 8 rows. The weight tensors are the ones the prefill tiles read:
+// no second or permuted copy. At the end of a task the 8 warps' fp32 sums
+// are added in warp order through shared memory and the task's partial goes
+// to part[(split * M + m) * N + n]; split_epilogue_at adds the splits in a
+// fixed order (no float atomics: greedy decoding gives the same tokens
+// every run).
 
 constexpr int kGemvBN = 128;    // output columns per task: 16 for each of 8 lane groups
 constexpr int kGemvStep = 16;   // contraction rows per step: two 8-deep mmas
-constexpr int kGemvStages = 4;  // ring stages per warp
+constexpr int kGemvStages = 4;  // ring stages per warp (Q8_0)
 constexpr int kGemvWBytes = kGemvStep * kGemvBN;  // a step's int8 weight rows
 constexpr int kGemvSBytes = kGemvBN * 4;          // the scale row of their group
 constexpr int kGemvRedLd = kGemvBN + 4;           // a padded row of the warps' sums
 
-template <int MAXM>
+// a weight format's step: kRows rows of q (K / 16 steps either way), their
+// bytes, the scale rows of their groups, the ring's depth
+template <int kBits>
+struct GemvFormat {
+  static constexpr int kRows = kBits == 4 ? 8 : kGemvStep;
+  static constexpr int kWBytes = kRows * kGemvBN;
+  static constexpr int kSBytes = (kBits == 4 ? 2 : 1) * kGemvSBytes;
+  static constexpr int kStages = kBits == 4 ? 5 : kGemvStages;
+};
+
+template <int MAXM, int kBits = 8>
 struct GemvSmem {
+  using F = GemvFormat<kBits>;
   static constexpr int kX = MAXM * kGemvStep * 2;  // the step's x: MAXM rows of 16 bf16
-  static constexpr int kStage = kGemvWBytes + kGemvSBytes + kX;
-  __align__(16) unsigned char ring[kWarps][kGemvStages][kStage];
+  static constexpr int kStage = F::kWBytes + F::kSBytes + kX;
+  __align__(16) unsigned char ring[kWarps][F::kStages][kStage];
   __align__(16) float red[kWarps / 2][8][kGemvRedLd];  // half the warps' sums of 8 rows
 };
+
+// The CTAs of a persistent `kernel` (kThreads threads, `bytes` of dynamic
+// shared memory) that fit on the card at once, into ctas, after raising the
+// kernel's dynamic shared-memory limit to `bytes`; an error where none fits.
+template <typename Kernel>
+cudaError_t resident_ctas(Kernel kernel, int bytes, int& ctas) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && per_sm < 1) e = cudaErrorLaunchOutOfResources;
+  ctas = per_sm * sms;
+  return e;
+}
 
 // the 16-byte chunk (of 8) that holds chunk c of weight row r of a stage:
 // rows 2 t, 2 t + 1, 2 t + 8 and 2 t + 9 of the 4 lanes t of two lane groups
@@ -223,27 +264,34 @@ __device__ __forceinline__ int gemv_split_step(int sp, int split, int nsteps) {
   return (int)((long long)sp * nsteps / split);
 }
 
-// bf16(f32(q) * s) of byte j of two biased words (the low half from `lo`,
-// the high half from `hi`, which are rows k and k + 1 of one column)
-template <int J>
+// bf16(f32(q) * s) of byte j of two words (the low half from `lo`, the
+// high half from `hi`, which are rows k and k + 1 of one column): biased
+// int8 values (kBits 8) or nibbles (kBits 4)
+template <int J, int kBits = 8>
 __device__ __forceinline__ uint32_t dequant_pair(uint32_t lo, uint32_t hi, float s_lo,
                                                  float s_hi) {
+  if constexpr (kBits == 4) return bf16x2_bits(nib_to_f(lo, J) * s_lo, nib_to_f(hi, J) * s_hi);
   return bf16x2_bits(q_to_f(lo, J) * s_lo, q_to_f(hi, J) * s_hi);
 }
 
 // The tasks of one product into its split-K partials: x (M, K) bf16, q (K,
-// N) int8, s (K / gs, N) fp32, part (split, M, N) fp32; `split` slices of
-// the K / 16 steps (1 <= split <= K / 16), K and N multiples of 16, any gs
-// that divides K. FAST: gs % 16 == 0, so that a step lies in one group,
-// whose scale row the ring brings once a run meets it; otherwise each lane
-// reads its scales from global memory a row at a time.
-template <int MAXM, bool FAST>
-__device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM>& sm, const bf16* __restrict__ x,
+// N) int8 (kBits 4: (K/2, N) packed half-split), s (K / gs, N) fp32, part
+// (split, M, N) fp32; `split` slices of the K / 16 steps (1 <= split <= K /
+// 16), K and N multiples of 16, any gs that divides K (kBits 4: K/2). FAST:
+// gs a multiple of the rows of q a step (16; kBits 4: 8), so that a step
+// lies in one group (of each plane), whose scale row the ring brings once a
+// run meets it; otherwise each lane reads its scales from global memory a
+// row at a time.
+template <int MAXM, bool FAST, int kBits = 8>
+__device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM, kBits>& sm, const bf16* __restrict__ x,
                                            const int8_t* __restrict__ q,
                                            const float* __restrict__ s, float* __restrict__ part,
                                            int M, int K, int N, int gs, int split) {
-  using Sm = GemvSmem<MAXM>;
-  constexpr int NT = MAXM / 8;  // n8 tiles
+  using Sm = GemvSmem<MAXM, kBits>;
+  using F = GemvFormat<kBits>;
+  constexpr bool kInt4 = kBits == 4;
+  constexpr int NT = MAXM / 8;       // n8 tiles
+  constexpr int P = kInt4 ? 2 : 1;   // scale rows a group: one for each int4 plane
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lg = lane >> 2, lt = lane & 3;  // the lane's 16 columns and its rows 2 lt, ...
   const int nsteps = K / kGemvStep;
@@ -272,25 +320,32 @@ __device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM>& sm, const bf16* __res
   auto issue = [&](int slot) {  // one commit group a step, empty past the last
     if (pt < ntasks) {
       const int n0 = pt % strips * kGemvBN, m0 = pt / strips / split * MAXM;
-      const int k0 = ps * kGemvStep;
+      const int k0 = ps * F::kRows;  // the step's first row of q
       const uint32_t st = ring0 + slot * Sm::kStage;
 #pragma unroll
-      for (int i = 0; i < kGemvWBytes / 16 / 32; ++i) {  // 16 rows of 8 chunks
+      for (int i = 0; i < F::kWBytes / 16 / 32; ++i) {  // kRows rows of 8 chunks
         const int e = lane + 32 * i, r = e >> 3, c = e & 7;
         const bool live = n0 + 16 * c < N;
         mma::cp_async<16>(st + r * kGemvBN + 16 * gemv_wchunk(r, c),
                           live ? q + (size_t)(k0 + r) * N + n0 + 16 * c : q, live);
       }
-      if (FAST && (ps == pb || k0 % gs == 0)) {  // the group's scale row, new to the run
+      if (FAST && (ps == pb || k0 % gs == 0)) {  // the group's scale rows, new to the run
         const bool live = n0 + 4 * lane < N;
-        mma::cp_async<16>(st + kGemvWBytes + 16 * lane,
+        mma::cp_async<16>(st + F::kWBytes + 16 * lane,
                           live ? s + (size_t)(k0 / gs) * N + n0 + 4 * lane : s, live);
+        if constexpr (kInt4)  // the high plane's group, K/2 / gs further
+          mma::cp_async<16>(st + F::kWBytes + kGemvSBytes + 16 * lane,
+                            live ? s + (size_t)(K / 2 / gs + k0 / gs) * N + n0 + 4 * lane : s,
+                            live);
       }
       if (lane < 2 * MAXM) {  // x: MAXM rows of two halves, zero past M
         const int m = lane >> 1, h = lane & 1;
         const bool live = m0 + m < M;
-        mma::cp_async<16>(st + kGemvWBytes + kGemvSBytes + m * 32 + 16 * gemv_xhalf(m, h),
-                          live ? x + (size_t)(m0 + m) * K + k0 + 8 * h : x, live);
+        const uint32_t dst = st + F::kWBytes + F::kSBytes + m * 32 + 16 * gemv_xhalf(m, h);
+        if constexpr (kInt4)  // the second half: the high plane's 8 columns
+          mma::cp_async<16>(dst, live ? x + (size_t)(m0 + m) * K + h * (K / 2) + k0 : x, live);
+        else  // the next 8 columns
+          mma::cp_async<16>(dst, live ? x + (size_t)(m0 + m) * K + k0 + 8 * h : x, live);
       }
       if (++ps == pe) {
         pt += gridDim.x;
@@ -302,13 +357,18 @@ __device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM>& sm, const bf16* __res
 
   seek();
 #pragma unroll
-  for (int p = 0; p < kGemvStages - 1; ++p) issue(p);
+  for (int p = 0; p < F::kStages - 1; ++p) issue(p);
 
-  const int rows[4] = {2 * lt, 2 * lt + 1, 2 * lt + 8, 2 * lt + 9};
-  float sc[16];  // FAST: the scales of the lane's 16 columns in the current group
+  // the lane's rows of the step's two halves (int4: packed rows 2 lt, 2 lt +
+  // 1, their low nibbles, then their high ones)
+  const int rows[4] = {2 * lt, 2 * lt + 1, kInt4 ? 2 * lt : 2 * lt + 8,
+                       kInt4 ? 2 * lt + 1 : 2 * lt + 9};
+  // FAST: the scales of the lane's 16 columns in the current group (int4:
+  // then the high plane's)
+  float sc[16 * P];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) sc[j] = 0.f;
-  int item = 0;  // steps this warp has consumed: the ring slot is item % kGemvStages
+  for (int j = 0; j < 16 * P; ++j) sc[j] = 0.f;
+  int item = 0;  // steps this warp has consumed: the ring slot is item % kStages
   for (int t = blockIdx.x; t < ntasks; t += gridDim.x) {
     const int strip = t % strips, sp = (t / strips) % split, m0 = t / strips / split * MAXM;
     const int n0 = strip * kGemvBN, mt = min(MAXM, M - m0);
@@ -323,37 +383,46 @@ __device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM>& sm, const bf16* __res
         for (int i = 0; i < 4; ++i) acc[nt][j][i] = 0.f;
 
     for (int st = b; st < e; ++st, ++item) {
-      issue((item + kGemvStages - 1) % kGemvStages);  // into the slot consumed last
-      mma::cp_async_wait<kGemvStages - 1>();          // this step's copies have landed
-      __syncwarp();                                   // ... for every lane
-      const unsigned char* stage = sm.ring[warp][item % kGemvStages];
-      const int k0 = st * kGemvStep;
-      // B: x rows 8 nt + lg at k 2 lt, 2 lt + 1 and 2 lt + 8, 2 lt + 9
+      issue((item + F::kStages - 1) % F::kStages);  // into the slot consumed last
+      mma::cp_async_wait<F::kStages - 1>();          // this step's copies have landed
+      __syncwarp();                                  // ... for every lane
+      const unsigned char* stage = sm.ring[warp][item % F::kStages];
+      const int k0 = st * F::kRows;
+      // B: x rows 8 nt + lg at k 2 lt, 2 lt + 1 of each half
       uint32_t bx[NT][2];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int m = 8 * nt + lg;
-        const unsigned char* xr = stage + kGemvWBytes + kGemvSBytes + m * 32 + 4 * lt;
+        const unsigned char* xr = stage + F::kWBytes + F::kSBytes + m * 32 + 4 * lt;
         bx[nt][0] = *reinterpret_cast<const uint32_t*>(xr + 16 * gemv_xhalf(m, 0));
         bx[nt][1] = *reinterpret_cast<const uint32_t*>(xr + 16 * gemv_xhalf(m, 1));
       }
-      // A: the lane's 16 columns of its 4 rows, biased (byte j of word i is
-      // column 4 i + j)
+      // A: the lane's 16 columns of its 4 rows, biased int8 values or
+      // nibbles (byte j of word i is column 4 i + j)
       uint32_t w[4][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < (kInt4 ? 2 : 4); ++r) {
         const uint4 v = *reinterpret_cast<const uint4*>(
             stage + rows[r] * kGemvBN + 16 * gemv_wchunk(rows[r], lg));
-        w[r][0] = v.x ^ kBias4;
-        w[r][1] = v.y ^ kBias4;
-        w[r][2] = v.z ^ kBias4;
-        w[r][3] = v.w ^ kBias4;
+        if constexpr (kInt4) {
+          const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            w[r][i] = vw[i] & kLowNibbles;
+            w[r + 2][i] = (vw[i] >> 4) & kLowNibbles;
+          }
+        } else {
+          w[r][0] = v.x ^ kBias4;
+          w[r][1] = v.y ^ kBias4;
+          w[r][2] = v.z ^ kBias4;
+          w[r][3] = v.w ^ kBias4;
+        }
       }
       if (FAST && (st == b || k0 % gs == 0)) {
-        const float4* sr = reinterpret_cast<const float4*>(stage + kGemvWBytes) + 4 * lg;
+        const float4* sr = reinterpret_cast<const float4*>(stage + F::kWBytes) + 4 * lg;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 v = sr[i];
+        for (int i = 0; i < 4 * P; ++i) {  // int4: the high plane's row 32 float4 on
+          const float4 v = sr[i < 4 ? i : i - 4 + kGemvSBytes / 16];
           sc[4 * i] = v.x;
           sc[4 * i + 1] = v.y;
           sc[4 * i + 2] = v.z;
@@ -366,31 +435,40 @@ __device__ __forceinline__ void gemv_tasks(GemvSmem<MAXM>& sm, const bf16* __res
         if (FAST) {
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            s0[r] = sc[2 * j];
-            s1[r] = sc[2 * j + 1];
+            s0[r] = sc[(kInt4 ? 16 * (r >> 1) : 0) + 2 * j];
+            s1[r] = sc[(kInt4 ? 16 * (r >> 1) : 0) + 2 * j + 1];
           }
         } else {
           const int c = n0 + 16 * lg + 2 * j;
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
-            const float2 v = c < N ? __ldg(reinterpret_cast<const float2*>(
-                                         s + (size_t)((k0 + rows[r]) / gs) * N + c))
-                                   : make_float2(0.f, 0.f);
-            s0[r] = v.x;
-            s1[r] = v.y;
+            if constexpr (kInt4) {  // rows 2, 3: the high plane's, K/2 further
+              const int kr = (r >= 2 ? K / 2 : 0) + k0 + rows[r];
+              const float2 v = c < N ? __ldg(reinterpret_cast<const float2*>(
+                                           s + (size_t)(kr / gs) * N + c))
+                                     : make_float2(0.f, 0.f);
+              s0[r] = v.x;
+              s1[r] = v.y;
+            } else {
+              const float2 v = c < N ? __ldg(reinterpret_cast<const float2*>(
+                                           s + (size_t)((k0 + rows[r]) / gs) * N + c))
+                                     : make_float2(0.f, 0.f);
+              s0[r] = v.x;
+              s1[r] = v.y;
+            }
           }
         }
         uint32_t a[4];
         if (j & 1) {
-          a[0] = dequant_pair<2>(w[0][j >> 1], w[1][j >> 1], s0[0], s0[1]);
-          a[1] = dequant_pair<3>(w[0][j >> 1], w[1][j >> 1], s1[0], s1[1]);
-          a[2] = dequant_pair<2>(w[2][j >> 1], w[3][j >> 1], s0[2], s0[3]);
-          a[3] = dequant_pair<3>(w[2][j >> 1], w[3][j >> 1], s1[2], s1[3]);
+          a[0] = dequant_pair<2, kBits>(w[0][j >> 1], w[1][j >> 1], s0[0], s0[1]);
+          a[1] = dequant_pair<3, kBits>(w[0][j >> 1], w[1][j >> 1], s1[0], s1[1]);
+          a[2] = dequant_pair<2, kBits>(w[2][j >> 1], w[3][j >> 1], s0[2], s0[3]);
+          a[3] = dequant_pair<3, kBits>(w[2][j >> 1], w[3][j >> 1], s1[2], s1[3]);
         } else {
-          a[0] = dequant_pair<0>(w[0][j >> 1], w[1][j >> 1], s0[0], s0[1]);
-          a[1] = dequant_pair<1>(w[0][j >> 1], w[1][j >> 1], s1[0], s1[1]);
-          a[2] = dequant_pair<0>(w[2][j >> 1], w[3][j >> 1], s0[2], s0[3]);
-          a[3] = dequant_pair<1>(w[2][j >> 1], w[3][j >> 1], s1[2], s1[3]);
+          a[0] = dequant_pair<0, kBits>(w[0][j >> 1], w[1][j >> 1], s0[0], s0[1]);
+          a[1] = dequant_pair<1, kBits>(w[0][j >> 1], w[1][j >> 1], s1[0], s1[1]);
+          a[2] = dequant_pair<0, kBits>(w[2][j >> 1], w[3][j >> 1], s0[2], s0[3]);
+          a[3] = dequant_pair<1, kBits>(w[2][j >> 1], w[3][j >> 1], s1[2], s1[3]);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {

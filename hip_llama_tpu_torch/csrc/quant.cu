@@ -55,13 +55,16 @@
 // q8_matmul_a8 and q8_matmul_silu_a8 are the `a8` branches of the first two
 // (a8.cuh): the activations quantized per (row, group) by one pass with the
 // rmsnorm fused, int8 x int8 dots with int32 sums per group, the fp32
-// rescale per group, then the same epilogues. Above 16 rows a group size
-// that is a multiple of 32 takes a8_wgmma.cuh's int8 wgmma tiles (a
-// pipelined ring, the weight transposed on chip, two int32 sum sets a
-// consumer so that a group's rescale runs beside the next group's
-// products); other group sizes take a8.cuh's mma.sync tiles, which round
-// alike. q8_matmul_ffn has none: the JAX kernel keeps its reshape math in
-// every mode (quant.py:967-971).
+// rescale per group, then the same epilogues. Up to 16 rows a group size
+// that is a multiple of 32 takes a8.cuh's GEMV on the int8 tensor cores
+// (a8_gemv_tc_kernel), others its dp4a GEMV, bit for bit alike
+// (q8_a8_gemv_probe runs either). Above 16 rows a group size that is a
+// multiple of 32 takes a8_wgmma.cuh's int8 wgmma tiles (a pipelined ring,
+// the weight transposed on chip, two int32 sum sets a consumer so that a
+// group's rescale runs beside the next group's products); other group
+// sizes take a8.cuh's mma.sync tiles, which round alike. q8_matmul_ffn
+// has none: the JAX kernel keeps its reshape math in every mode
+// (quant.py:967-971).
 
 #include <stdint.h>
 
@@ -144,15 +147,7 @@ int launch_gemv_kernel(const void* x, const void* q, const void* s, float* part,
   auto kernel = q8_gemv_kernel<MAXM, FAST>;
   constexpr int bytes = sizeof(GemvSmem<MAXM>);
   static int ctas = 0;  // CTAs that fit on the card at once
-  if (ctas == 0) {
-    HIPLLAMA_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-    int per_sm = 0, dev = 0, sms = 0;
-    HIPLLAMA_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes));
-    HIPLLAMA_TRY(cudaGetDevice(&dev));
-    HIPLLAMA_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-    if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-    ctas = per_sm * sms;
-  }
+  if (ctas == 0) HIPLLAMA_TRY((int)resident_ctas(kernel, bytes, ctas));
   const int tasks = (N + kGemvBN - 1) / kGemvBN * split;
   kernel<<<tasks < ctas ? tasks : ctas, kThreads, bytes, st>>>(
       (const bf16*)x, (const int8_t*)q, (const float*)s, part, M, K, N, gs, split);
@@ -264,10 +259,26 @@ extern "C" int q8_matmul_ffn(const void* x, const void* q13, const void* s13, co
   return launch_split_epilogue(part, split2, M, N, resid, out, st);
 }
 
+namespace {
+// The `a8` GEMV path on the quantized rows xi, sx: the split-K partials
+// part (split, M, N) on the int8 tensor cores (tc: a8.cuh's
+// a8_gemv_tc_kernel, gs % 32 == 0) or by dp4a (a8_gemv_kernel), then the
+// split pass through the epilogue e, or (gate) the gate into out (M, N / 2).
+int a8_gemv_path(bool tc, bool gate, const void* xi, const void* sx, const void* q, const void* s,
+                 float* part, int M, int K, int N, int gs, int split, int kslice,
+                 const Epilogue& e, void* out, cudaStream_t st) {
+  HIPLLAMA_TRY(hipllama::a8::launch_gemv_any<false>(tc, xi, sx, q, s, part, M, K, N, gs, split,
+                                                    kslice, st));
+  return gate ? launch_split_gate(part, split, M, N / 2, out, st)
+              : launch_split_epilogue(part, split, M, N, e, out, st);
+}
+}  // namespace
+
 // The `a8` mode of q8_matmul (a8.cuh): xi_ws (M, K) int8 and sx_ws (M, K/gs)
 // fp32 workspaces take the quantized activations (normed by g where g is
-// given); split > 0 takes the GEMV path (M <= 16) with part_ws (split, M,
-// N) fp32 and kslice rows per split (a multiple of gs); split == 0 the
+// given); split > 0 takes the GEMV path (M <= 16: the int8 tensor cores
+// where gs % 32 == 0, else dp4a) with part_ws (split, M, N) fp32 and kslice
+// rows per split (a multiple of gs); split == 0 the
 // tiles: the wgmma tiles where gs % 32 == 0, with part_ws (M, rope_hs)
 // fp32 for the RoPE table where pos is given, else the mma.sync tiles. gs
 // is any multiple of 8 (that divides K); otherwise as q8_matmul.
@@ -280,11 +291,9 @@ extern "C" int q8_matmul_a8(const void* x, const void* q, const void* s, const v
   const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
   if (gs < 1 || K % gs) return (int)cudaErrorInvalidValue;
   HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
-  if (split > 0) {
-    HIPLLAMA_TRY(hipllama::a8::launch_gemv<false>(xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N,
-                                                  gs, split, kslice, st));
-    return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st);
-  }
+  if (split > 0)
+    return a8_gemv_path(gs % 32 == 0, false, xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N, gs,
+                        split, kslice, e, out, st);
   if (gs % 32)
     return hipllama::a8::launch_mma<false, false>(xi_ws, sx_ws, q, s, M, K, N, N, 0, gs, e, out,
                                                   st);
@@ -306,12 +315,10 @@ extern "C" int q8_matmul_silu_a8(const void* x, const void* q13, const void* s13
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (K % gs) return (int)cudaErrorInvalidValue;
   HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
-  if (split > 0) {
-    HIPLLAMA_TRY(hipllama::a8::launch_gemv<false>(xi_ws, sx_ws, q13, s13, (float*)part_ws, M, K,
-                                                  2 * H, gs, split, kslice, st));
-    return launch_split_gate((const float*)part_ws, split, M, H, out, st);
-  }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
+  if (split > 0)
+    return a8_gemv_path(gs % 32 == 0, true, xi_ws, sx_ws, q13, s13, (float*)part_ws, M, K, 2 * H,
+                        gs, split, kslice, none, out, st);
   if (gs % 32)
     return hipllama::a8::launch_mma<true, false>(xi_ws, sx_ws, q13, s13, M, K, 2 * H, H, H, gs,
                                                  none, out, st);
@@ -337,6 +344,25 @@ extern "C" int q8_a8_tiles_probe(const void* xi, const void* sx, const void* q, 
                 : hipllama::a8::launch_mma<false, false>(xi, sx, q, s, M, K, ldq, ncols, off2,
                                                          gs, none, out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The `a8` GEMV path of q8_matmul_a8 (gate: q8_matmul_silu_a8's, q (K, N
+// = 2H), out (M, H)) with its kernel chosen: variant 0 the int8 tensor
+// cores, 1 dp4a, after the same quantizer pass and before the same split
+// pass; arguments otherwise as q8_matmul_a8's (split > 0). For comparing
+// the two GEMVs' outputs bit for bit.
+extern "C" int q8_a8_gemv_probe(const void* x, const void* q, const void* s, const void* g,
+                                const void* res, const void* pos, void* out, void* xi_ws,
+                                void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,
+                                int kslice, int gate, int variant, int rope_limit, int rope_hs,
+                                float rope_coef, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
+  if (variant < 0 || variant > 1 || gs < 1 || K % gs || split < 1 || (gate && (res || pos)))
+    return (int)cudaErrorInvalidValue;
+  HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
+  return a8_gemv_path(variant == 0, gate != 0, xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N, gs,
+                      split, kslice, e, out, st);
 }
 
 namespace {

@@ -18,14 +18,16 @@
 // byte (two weights) is used for 4M flops, far below the card's ~295
 // flop/byte ridge, so the product is bound by the weight bytes: 0.5 byte a
 // weight plus 4/gs for the scales (0.625 at gs 32), the scales a fifth of
-// the traffic. The GEMV path (M <= 16) streams the packed weight once: each
-// CTA owns 256 columns and a slice of at most 512 packed rows (split K, so
-// that even N = 4096 fills the 132 SMs); a lane reads 8 bytes of a packed
-// row (8 columns of rows k' and K/2 + k'), turns each nibble plane into 8
-// bf16 weights with its group's scales and multiplies them by x[k'] and
-// x[K/2 + k'] of every activation row, held transposed in shared memory.
-// A second pass adds the slices in a fixed order and applies the epilogue
-// (q8.cuh::split_epilogue_at, split_gate_at). At prefill M (B*T up to 4088)
+// the traffic. The GEMV path (M <= 16) is the Q8 products' tensor-core GEMV
+// with the int4 format (q8.cuh::gemv_tasks<MAXM, FAST, 4>): a step is 8
+// packed rows of a 128-column strip, streamed through a cp.async ring a
+// warp; its low nibbles are the A operand of one m16n8k8 against x[:, k'..]
+// and its high nibbles of another against x[:, K/2 + k'..], each summed
+// from zero and added to the fp32 sums in order; gemv_plan's tasks (a strip,
+// a slice of the K / 16 steps, a chunk of rows) are dealt out to a grid of
+// as many CTAs as fit on the card at once, and a second pass adds the
+// slices in a fixed order and applies the epilogue (q8.cuh::
+// split_epilogue_at, split_gate_at). At prefill M (B*T up to 4088)
 // the product does 4M flops per packed byte and is bound by operations on
 // the bf16 tensor cores: the tiled path is the Q8 products' pipelined wgmma
 // mainloop (q8_wgmma.cuh's q8_tile_kernel<GATE, 4>, launch_tiles): a
@@ -45,11 +47,15 @@
 // (row, group of gs) by one pass with the rmsnorm fused, each nibble plane's
 // codes (nibble - 8, exact in int8) in int8 x int8 dots with its half of x,
 // int32 sums per group, the fp32 rescale per group, the same epilogues.
-// Above 16 rows at group sizes that are multiples of 32 they run
-// a8_wgmma.cuh's int8 wgmma tiles (a8_plane_kernel: one nibble plane a CTA,
-// its fp32 sum into a workspace, then the split pass that adds the two
-// planes and runs the epilogue or gate), elsewhere a8.cuh's mma.sync tiles;
-// q4_a8_tiles_probe runs either on the same input.
+// Up to 16 rows they run a8.cuh's GEMV, on the int8 tensor cores at group
+// sizes that are multiples of 32 (a8_gemv_tc_kernel<true>: one set of byte
+// permutes for both nibble planes) and by dp4a elsewhere, bit for bit
+// alike (q4_a8_gemv_probe runs either). Above 16 rows at group sizes that
+// are multiples of 32 they run a8_wgmma.cuh's int8 wgmma tiles
+// (a8_plane_kernel: one nibble plane a CTA, its fp32 sum into a workspace,
+// then the split pass that adds the two planes and runs the epilogue or
+// gate), elsewhere a8.cuh's mma.sync tiles; q4_a8_tiles_probe runs either
+// on the same input.
 
 #include <stdint.h>
 
@@ -64,173 +70,64 @@ namespace {
 
 using namespace hipllama::q8;
 
-constexpr int kQ4KMax = 512;              // packed rows per GEMV task at most
-constexpr int kQ4BN = 32 * 8;             // columns per GEMV task: 8 per lane
-
-// acc[m][j] += x[k][m] * w[j] for the MAXM activation rows of one k, held
-// transposed in shared memory (xr = the row of k: MAXM bf16, 16-byte aligned)
-template <int MAXM>
-__device__ __forceinline__ void fma_rows(const bf16* xr, const float w[8], float acc[MAXM][8]) {
-#pragma unroll
-  for (int m8 = 0; m8 < MAXM; m8 += 8) {
-    const uint4 xv = *reinterpret_cast<const uint4*>(xr + m8);
-    const bf16* xe = reinterpret_cast<const bf16*>(&xv);
-#pragma unroll
-    for (int mm = 0; mm < 8; ++mm) {
-      const float xf = hipllama::to_f(xe[mm]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[m8 + mm][j] = fmaf(xf, w[j], acc[m8 + mm][j]);
-    }
-  }
-}
-
-// rows kbeg..kend-1 of x (rows m0..m0+M-1, K wide) into xs[k - kbeg][m],
-// zero past M
-template <int MAXM>
-__device__ __forceinline__ void load_xs(bf16 (*xs)[MAXM], const bf16* x, int M, int m0, int K,
-                                        int kbeg, int kend) {
-  for (int i = threadIdx.x; i < (kend - kbeg) * MAXM; i += kThreads) {
-    const int kk = i / MAXM, m = i % MAXM;
-    xs[kk][m] = m < M ? x[(size_t)(m0 + m) * K + kbeg + kk] : __float2bfloat16_rn(0.f);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// dequantization (q8.cuh's nib_to_f: exact, off the conversion unit)
+// GEMV path (M <= 16): q8.cuh's tasks with the int4 format, dealt out to a
+// grid of at most as many CTAs as fit on the card at once
 
-// four weights (nibbles of one word) times their scales, as two bf16x2 words
-__device__ __forceinline__ uint2 dequant4_nib(uint32_t nib4, float4 s) {
-  return make_uint2(bf16x2_bits(nib_to_f(nib4, 0) * s.x, nib_to_f(nib4, 1) * s.y),
-                    bf16x2_bits(nib_to_f(nib4, 2) * s.z, nib_to_f(nib4, 3) * s.w));
-}
-
-// eight bf16 weights of one row (the nibbles of `nib`, scales s0|s1), widened
-__device__ __forceinline__ void dequant8_nib(uint2 nib, float4 s0, float4 s1, float w[8]) {
-  const uint2 lo = dequant4_nib(nib.x, s0), hi = dequant4_nib(nib.y, s1);
-  const uint32_t wp[4] = {lo.x, lo.y, hi.x, hi.y};  // bf16x2 pairs of columns
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    w[2 * j] = __uint_as_float(wp[j] << 16);
-    w[2 * j + 1] = __uint_as_float(wp[j] & 0xFFFF0000u);
-  }
-}
-
-__device__ __forceinline__ uint2 low_nibbles(uint2 raw) {
-  return make_uint2(raw.x & kLowNibbles, raw.y & kLowNibbles);
-}
-__device__ __forceinline__ uint2 high_nibbles(uint2 raw) {
-  return make_uint2((raw.x >> 4) & kLowNibbles, (raw.y >> 4) & kLowNibbles);
-}
-
-// ---------------------------------------------------------------------------
-// GEMV path (M <= 16): one (strip, split) task per CTA. A task is one strip
-// of kQ4BN columns and one slice of at most kQ4KMax packed rows; its fp32
-// partial sums go to part[(split * M + m) * N + n].
-
-template <int MAXM>
-struct Q4GemvSmem {
-  __align__(16) bf16 xlo[kQ4KMax][MAXM];  // x[:, k'] of the slice, transposed
-  __align__(16) bf16 xhi[kQ4KMax][MAXM];  // x[:, K/2 + k']
-  float red[kWarps][kQ4BN];
-};
-
-template <int MAXM>
-__global__ void __launch_bounds__(kThreads) q4_gemv_kernel(
+template <int MAXM, bool FAST>
+__global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q4_gemv_tc_kernel(
     const bf16* __restrict__ x, const int8_t* __restrict__ q, const float* __restrict__ s,
-    float* __restrict__ part, int M, int K, int N, int gs, int kslice) {
-  __shared__ Q4GemvSmem<MAXM> sm;
-  constexpr int R = MAXM <= 8 ? 8 : 4;  // packed rows a warp has in flight
-  const int KH = K / 2;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n0 = blockIdx.x * kQ4BN;
-  const int split = blockIdx.y;
-  const int kbeg = split * kslice;
-  const int kend = min(KH, kbeg + kslice);
-  load_xs<MAXM>(sm.xlo, x, M, 0, K, kbeg, kend);
-  load_xs<MAXM>(sm.xhi, x + KH, M, 0, K, kbeg, kend);
-  __syncthreads();
-
-  const int n = n0 + lane * 8;
-  const bool live = n < N;  // N % 8 == 0: a lane's 8 columns are all in or all out
-  const int ghi = KH / gs;  // the high half's first group
-  float acc[MAXM][8];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-  float4 sl0 = make_float4(0.f, 0.f, 0.f, 0.f), sl1 = sl0, sh0 = sl0, sh1 = sl0;
-  int cur_g = -1;
-
-  for (int k0 = kbeg + warp * R; k0 < kend; k0 += kWarps * R) {
-    uint2 raw[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = k0 + r;
-      raw[r] = (live && k < kend) ? __ldg(reinterpret_cast<const uint2*>(q + (size_t)k * N + n))
-                                  : make_uint2(0u, 0u);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int k = k0 + r;
-      if (k < kend) {  // uniform across the warp
-        const int grp = k / gs;
-        if (grp != cur_g) {
-          cur_g = grp;
-          if (live) {
-            const float* sl = s + (size_t)grp * N + n;
-            const float* sh = s + (size_t)(ghi + grp) * N + n;
-            sl0 = __ldg(reinterpret_cast<const float4*>(sl));
-            sl1 = __ldg(reinterpret_cast<const float4*>(sl + 4));
-            sh0 = __ldg(reinterpret_cast<const float4*>(sh));
-            sh1 = __ldg(reinterpret_cast<const float4*>(sh + 4));
-          }
-        }
-        float w[8];
-        dequant8_nib(low_nibbles(raw[r]), sl0, sl1, w);
-        fma_rows<MAXM>(sm.xlo[k - kbeg], w, acc);
-        dequant8_nib(high_nibbles(raw[r]), sh0, sh1, w);
-        fma_rows<MAXM>(sm.xhi[k - kbeg], w, acc);
-      }
-    }
-  }
-
-  // the 8 warps' sums of each row, added in warp order
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m) {
-    if (m < M) {  // uniform across the block
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sm.red[warp][lane * 8 + j] = acc[m][j];
-      __syncthreads();
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += sm.red[w][tid];
-      if (n0 + tid < N) part[((size_t)split * M + m) * N + n0 + tid] = v;
-      __syncthreads();
-    }
-  }
+    float* __restrict__ part, int M, int K, int N, int gs, int split) {
+  extern __shared__ __align__(16) unsigned char gemv_smem[];
+  gemv_tasks<MAXM, FAST, 4>(*reinterpret_cast<GemvSmem<MAXM, 4>*>(gemv_smem), x, q, s, part, M,
+                            K, N, gs, split);
 }
 
-// ---------------------------------------------------------------------------
-// launchers
-
-int launch_gemv(const void* x, const void* q, const void* s, float* part, int M, int K, int N,
-                int gs, int split, int kslice, cudaStream_t st) {
-  const int KH = K / 2;
-  if (M > 16 || kslice > kQ4KMax || (long long)split * kslice < KH ||
-      (long long)(split - 1) * kslice >= KH)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kQ4BN - 1) / kQ4BN, split);
-  if (M <= 8)
-    q4_gemv_kernel<8><<<grid, kThreads, 0, st>>>((const bf16*)x, (const int8_t*)q,
-                                                 (const float*)s, part, M, K, N, gs, kslice);
-  else
-    q4_gemv_kernel<16><<<grid, kThreads, 0, st>>>((const bf16*)x, (const int8_t*)q,
-                                                  (const float*)s, part, M, K, N, gs, kslice);
+template <int MAXM, bool FAST>
+int launch_gemv_kernel(const void* x, const void* q, const void* s, float* part, int M, int K,
+                       int N, int gs, int split, cudaStream_t st) {
+  auto kernel = q4_gemv_tc_kernel<MAXM, FAST>;
+  constexpr int bytes = sizeof(GemvSmem<MAXM, 4>);
+  static int ctas = 0;  // CTAs that fit on the card at once
+  if (ctas == 0) HIPLLAMA_TRY((int)resident_ctas(kernel, bytes, ctas));
+  const int tasks = (N + kGemvBN - 1) / kGemvBN * split;
+  kernel<<<tasks < ctas ? tasks : ctas, kThreads, bytes, st>>>(
+      (const bf16*)x, (const int8_t*)q, (const float*)s, part, M, K, N, gs, split);
   return check_launch();
+}
+
+// the split-K partials part (split, M, N) of x @ dequant(q, s) for at most
+// 16 rows: split slices of the K / 16 steps of 8 packed rows (gemv_plan)
+int launch_gemv(const void* x, const void* q, const void* s, float* part, int M, int K, int N,
+                int gs, int split, cudaStream_t st) {
+  if (M < 1 || M > 16 || K < kGemvStep || K % kGemvStep || N < 16 || N % 16 || gs < 1 ||
+      (K / 2) % gs || split < 1 || split > K / kGemvStep)
+    return (int)cudaErrorInvalidValue;
+  const bool fast = gs % GemvFormat<4>::kRows == 0;
+  if (M <= 8)
+    return fast ? launch_gemv_kernel<8, true>(x, q, s, part, M, K, N, gs, split, st)
+                : launch_gemv_kernel<8, false>(x, q, s, part, M, K, N, gs, split, st);
+  return fast ? launch_gemv_kernel<16, true>(x, q, s, part, M, K, N, gs, split, st)
+              : launch_gemv_kernel<16, false>(x, q, s, part, M, K, N, gs, split, st);
 }
 
 // the shapes both entry points take
 bool bad_shape(int K, int gs) { return K % 32 || gs <= 0 || (K / 2) % gs; }
+
+// The `a8` GEMV path on the quantized rows xi, sx and the packed weight (q
+// (K/2, N), s): each nibble plane's split-K partials into part (2 x split,
+// M, N) on the int8 tensor cores (tc: a8.cuh's a8_gemv_tc_kernel, gs % 32
+// == 0) or by dp4a (a8_gemv_kernel), then the split pass that adds each
+// plane's splits, then the planes, through the epilogue e, or (gate) the
+// gate into out (M, N / 2).
+int a8_gemv_path(bool tc, bool gate, const void* xi, const void* sx, const void* q, const void* s,
+                 float* part, int M, int K, int N, int gs, int split, int kslice,
+                 const Epilogue& e, void* out, cudaStream_t st) {
+  HIPLLAMA_TRY(hipllama::a8::launch_gemv_any<true>(tc, xi, sx, q, s, part, M, K, N, gs, split,
+                                                   kslice, st));
+  return gate ? launch_split_gate(part, split, M, N / 2, out, st, 2)
+              : launch_split_epilogue(part, split, M, N, e, out, st, 2);
+}
 
 // The `a8` tiles on the quantized rows xi_ws, sx_ws of x (M, K) and the
 // packed weight (q (K/2, N), s): wgmma, a8_wgmma.cuh's int8 wgmma tiles, one
@@ -267,13 +164,14 @@ HIPLLAMA_EXPORT_ERROR_STRING
 // All activations bf16, q int8 (K/2, N) packed, s and g fp32, pos int32.
 // g, res and pos may be null (no norm, no residual, no RoPE). xn_ws: (M, K)
 // bf16 workspace, used when g is given. split > 0 takes the GEMV path
-// (M <= 16) with part_ws (split, M, N) fp32 and kslice packed rows per
-// split; split == 0 the tiled path, with part_ws (M, rope_hs) fp32 for the
-// RoPE table where pos is given. K % 32 == 0, (K/2) % gs == 0, N % 16 == 0.
+// (M <= 16) with part_ws (split, M, N) fp32, split slices of the K / 16
+// steps (gemv_plan); split == 0 the tiled path, with part_ws (M, rope_hs)
+// fp32 for the RoPE table where pos is given. K % 32 == 0, (K/2) % gs == 0,
+// N % 16 == 0.
 extern "C" int q4_matmul(const void* x, const void* q, const void* s, const void* g,
                          const void* res, const void* pos, void* out, void* xn_ws, void* part_ws,
-                         int M, int K, int N, int gs, int split, int kslice, int rope_limit,
-                         int rope_hs, float rope_coef, float eps, void* stream) {
+                         int M, int K, int N, int gs, int split, int rope_limit, int rope_hs,
+                         float rope_coef, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(K, gs) || N % 16) return (int)cudaErrorInvalidValue;
   const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
@@ -283,7 +181,7 @@ extern "C" int q4_matmul(const void* x, const void* q, const void* s, const void
     xin = xn_ws;
   }
   if (split > 0) {
-    HIPLLAMA_TRY(launch_gemv(xin, q, s, (float*)part_ws, M, K, N, gs, split, kslice, st));
+    HIPLLAMA_TRY(launch_gemv(xin, q, s, (float*)part_ws, M, K, N, gs, split, st));
     return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st);
   }
   Epilogue et = e;
@@ -299,7 +197,7 @@ extern "C" int q4_matmul(const void* x, const void* q, const void* s, const void
 // as above, part_ws (split, M, 2H). H % 16 == 0.
 extern "C" int q4_matmul_silu(const void* x, const void* q13, const void* s13, const void* g,
                               void* out, void* xn_ws, void* part_ws, int M, int K, int H, int gs,
-                              int split, int kslice, float eps, void* stream) {
+                              int split, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(K, gs) || H % 16) return (int)cudaErrorInvalidValue;
   const void* xin = x;
@@ -308,7 +206,7 @@ extern "C" int q4_matmul_silu(const void* x, const void* q13, const void* s13, c
     xin = xn_ws;
   }
   if (split > 0) {
-    HIPLLAMA_TRY(launch_gemv(xin, q13, s13, (float*)part_ws, M, K, 2 * H, gs, split, kslice, st));
+    HIPLLAMA_TRY(launch_gemv(xin, q13, s13, (float*)part_ws, M, K, 2 * H, gs, split, st));
     return launch_split_gate((const float*)part_ws, split, M, H, out, st);
   }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
@@ -317,8 +215,9 @@ extern "C" int q4_matmul_silu(const void* x, const void* q13, const void* s13, c
 
 // The `a8` mode of q4_matmul (a8.cuh): xi_ws (M, K) int8 and sx_ws (M, K/gs)
 // fp32 workspaces take the quantized activations (normed by g where g is
-// given); split > 0 takes the GEMV path (M <= 16) with part_ws (2 x split,
-// M, N) fp32 (the low then the high nibble plane's splits) and kslice
+// given); split > 0 takes the GEMV path (M <= 16: the int8 tensor cores
+// where gs % 32 == 0, else dp4a) with part_ws (2 x split, M, N) fp32 (the
+// low then the high nibble plane's splits) and kslice
 // packed rows per split (a multiple of gs, at most 512); split == 0 the
 // tiles: the int8 wgmma tiles where gs % 32 == 0, with part_ws (2, M, N)
 // fp32 for the nibble planes' sums, else the mma.sync tiles. gs is any
@@ -332,11 +231,9 @@ extern "C" int q4_matmul_a8(const void* x, const void* q, const void* s, const v
   const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
   if ((K / 2) % gs || K % 2) return (int)cudaErrorInvalidValue;
   HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
-  if (split > 0) {
-    HIPLLAMA_TRY(hipllama::a8::launch_gemv<true>(xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N,
-                                                 gs, split, kslice, st));
-    return launch_split_epilogue((const float*)part_ws, split, M, N, e, out, st, 2);
-  }
+  if (split > 0)
+    return a8_gemv_path(gs % 32 == 0, false, xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N, gs,
+                        split, kslice, e, out, st);
   return launch_a8_tiles_int4(gs % 32 == 0, false, xi_ws, sx_ws, q, s, M, K, N, gs, e, out,
                               part_ws, st);
 }
@@ -351,12 +248,10 @@ extern "C" int q4_matmul_silu_a8(const void* x, const void* q13, const void* s13
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((K / 2) % gs || K % 2) return (int)cudaErrorInvalidValue;
   HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
-  if (split > 0) {
-    HIPLLAMA_TRY(hipllama::a8::launch_gemv<true>(xi_ws, sx_ws, q13, s13, (float*)part_ws, M, K,
-                                                 2 * H, gs, split, kslice, st));
-    return launch_split_gate((const float*)part_ws, split, M, H, out, st, 2);
-  }
   const Epilogue none{nullptr, nullptr, 0, 1, 0.f};
+  if (split > 0)
+    return a8_gemv_path(gs % 32 == 0, true, xi_ws, sx_ws, q13, s13, (float*)part_ws, M, K, 2 * H,
+                        gs, split, kslice, none, out, st);
   return launch_a8_tiles_int4(gs % 32 == 0, true, xi_ws, sx_ws, q13, s13, M, K, 2 * H, gs, none,
                               out, part_ws, st);
 }
@@ -378,4 +273,24 @@ extern "C" int q4_a8_tiles_probe(const void* x, const void* q, const void* s, co
   HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
   return launch_a8_tiles_int4(variant == 0, gate != 0, xi_ws, sx_ws, q, s, M, K, N, gs, e, out,
                               part_ws, st);
+}
+
+// The `a8` GEMV path of q4_matmul_a8 (gate: q4_matmul_silu_a8's, q (K/2, N
+// = 2H), out (M, H)) with its kernel chosen: variant 0 the int8 tensor
+// cores, 1 dp4a, after the same quantizer pass and before the same split
+// pass; arguments otherwise as q4_matmul_a8's (split > 0). For comparing
+// the two GEMVs' outputs bit for bit.
+extern "C" int q4_a8_gemv_probe(const void* x, const void* q, const void* s, const void* g,
+                                const void* res, const void* pos, void* out, void* xi_ws,
+                                void* sx_ws, void* part_ws, int M, int K, int N, int gs, int split,
+                                int kslice, int gate, int variant, int rope_limit, int rope_hs,
+                                float rope_coef, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epilogue e{(const bf16*)res, (const int*)pos, rope_limit, rope_hs, rope_coef};
+  if (variant < 0 || variant > 1 || gs < 1 || (K / 2) % gs || K % 2 || split < 1 ||
+      (gate && (res || pos)))
+    return (int)cudaErrorInvalidValue;
+  HIPLLAMA_TRY(launch_a8_quant(x, g, xi_ws, sx_ws, M, K, gs, eps, st));
+  return a8_gemv_path(variant == 0, gate != 0, xi_ws, sx_ws, q, s, (float*)part_ws, M, K, N, gs,
+                      split, kslice, e, out, st);
 }

@@ -48,9 +48,12 @@ in fp32; the epilogue runs on that sum. The JAX wrappers decide per call,
 from shapes, whether `a8` runs or the call keeps its reshape math, and the
 decision changes the numbers, so the port copies it (`q8_a8_engages`). The
 kernels (csrc/quant.cu, a8.cuh) count in `<wrapper>.launches_a8`;
-`a8_rows_kernel` is their row rule: the dp4a GEMV up to GEMV_MAX_M rows,
-above it csrc/a8_wgmma.cuh's int8 wgmma tiles where the group size is a
-multiple of 32 (an int4 weight one nibble plane a CTA; counted again in
+`a8_rows_kernel` is their row rule: up to GEMV_MAX_M rows a GEMV, on the
+int8 tensor cores where the group size is a multiple of 32 (a8.cuh's
+a8_gemv_tc_kernel, counted again in `.launches_a8_tc`), else by dp4a, the
+two bit for bit alike (`a8_gemv_probe` runs either); above it
+csrc/a8_wgmma.cuh's int8 wgmma tiles where the group size is a multiple
+of 32 (an int4 weight one nibble plane a CTA; counted again in
 `.launches_a8_wgmma`) and a8.cuh's mma.sync tiles for the other group
 sizes, which round alike (`a8_kernel_takes` says what each accepts).
 q8_matmul_ffn keeps its reshape math in every mode (quant.py:967-971).
@@ -104,8 +107,10 @@ GEMV_MIN_RUN = 4  # steps a warp's run of a task has at least where K allows
 # GEMV CTAs aimed for: two per SM of an H100 up to 8 rows, one at 9-16
 # (the kernels' __launch_bounds__; K23's cooperative grid alike)
 GEMV_CTAS = {8: 264, 16: 132}
-_KSLICE_BN = 256  # columns per GEMV CTA of the int4 GEMV (csrc/quant4.cu kQ4BN)
-_GEMV_CTAS = 264  # CTAs the int4 and `a8` GEMVs aim for: two per SM of an H100
+# packed rows per step of the int4 GEMV (csrc/q8.cuh GemvFormat<4>::kRows):
+# K / 16 steps, as the Q8 GEMV's
+GEMV_STEP_Q4 = 8
+_GEMV_CTAS = 264  # CTAs the `a8` GEMVs' slices aim for: two per SM of an H100
 # q8_matmul_ffn takes its one-call kernel by row count (quant.py:934)
 FFN_MAX_M = 256
 FFN_MAX_X_BYTES = 2 * 2**20
@@ -648,8 +653,13 @@ def _check_takes(name: str, m: int, k: int, n: int, gs: int, gate: bool = False)
 def a8_rows_kernel(m: int, gs: int) -> str:
     """The kernel an `a8` product (q8_matmul, q8_matmul_silu and K20
     through them; q4_matmul, q4_matmul_silu with int4) launches for m rows
-    at group size gs: "gemv" up to GEMV_MAX_M rows (split-K dp4a, csrc/
-    a8.cuh::a8_gemv_kernel); above, "wgmma" where gs is a multiple of 32
+    at group size gs: up to GEMV_MAX_M rows the split-K GEMV, "gemv_tc"
+    where gs is a multiple of 32 (csrc/a8.cuh::a8_gemv_tc_kernel:
+    mma.sync.m16n8k32 s8, a cp.async ring a warp, so that a 32-deep step
+    lies in one group), else "gemv" (dp4a, a8_gemv_kernel), the two bit
+    for bit alike: the same exact int32 group sums, rescaled by each
+    logical warp in its group order, the warps added in order, the same
+    part layout; above, "wgmma" where gs is a multiple of 32
     (csrc/a8_wgmma.cuh: int8 wgmma, 32-deep products that no group boundary
     splits; a Q8_0 weight's a8_tile_kernel, an int4 weight's
     a8_plane_kernel, one nibble plane a CTA, whose two sums a split pass
@@ -659,7 +669,7 @@ def a8_rows_kernel(m: int, gs: int) -> str:
     the high plane's added (PERF.md). One rule for both weights
     (stories15M's int4 groups of 16 stay on "mma")."""
     if m <= GEMV_MAX_M:
-        return "gemv"
+        return "gemv_tc" if gs % 32 == 0 else "gemv"
     return "wgmma" if gs % 32 == 0 else "mma"
 
 
@@ -669,19 +679,19 @@ def a8_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False,
     twice the packed rows for int4), N n (the weight's columns: 2H for a
     gate) and group size gs, as its C launcher decides: every kernel takes
     K a multiple of 16, N a multiple of 16, a gate's H a multiple of 16 and
-    gs a multiple of 8 that divides K (int4: K/2); the GEMV a group of at
-    most its slice of A8_GEMV_ROWS rows of xi (half that for int4's two
-    planes); the wgmma tiles gs a multiple of 32 (so that an int4 plane's
-    K/2 holds whole 32-deep products; a plane's last 128-deep step past
-    K/2 % 128 is zero-filled)."""
-    if kernel not in ("gemv", "wgmma", "mma"):
+    gs a multiple of 8 that divides K (int4: K/2); the GEMVs a group of at
+    most their slice of A8_GEMV_ROWS rows of xi (half that for int4's two
+    planes); the tensor-core GEMV and the wgmma tiles gs a multiple of 32
+    (so that an int4 plane's K/2 holds whole 32-deep products; a plane's
+    last 128-deep step past K/2 % 128 is zero-filled)."""
+    if kernel not in ("gemv", "gemv_tc", "wgmma", "mma"):
         raise ValueError(f"unknown kernel {kernel!r}")
     rows = k // 2 if int4 else k
     ok = (k > 0 and k % 16 == 0 and n > 0 and n % 16 == 0 and (not gate or (n // 2) % 16 == 0)
           and gs > 0 and gs % 8 == 0 and rows % gs == 0)
-    if kernel == "gemv":
-        return ok and gs <= A8_GEMV_ROWS // (2 if int4 else 1)
-    if kernel == "wgmma":
+    if kernel in ("gemv", "gemv_tc"):
+        ok = ok and gs <= A8_GEMV_ROWS // (2 if int4 else 1)
+    if kernel in ("gemv_tc", "wgmma"):
         return ok and gs % 32 == 0
     return ok
 
@@ -702,10 +712,13 @@ def _gemv_rows(m: int) -> int:
     return 8 if m <= 8 else 16
 
 
-def gemv_plan(k: int, n: int, m: int) -> int:
-    """The slices (split) of the Q8 GEMV's contraction for m rows of a (k,
-    n) weight. The tasks are ceil(n / GEMV_BN) column strips x split slices
-    of the k / GEMV_STEP steps x the row chunks, dealt out to the
+def gemv_plan(k: int, n: int, m: int, step: int = GEMV_STEP) -> int:
+    """The slices (split) of the tensor-core decode GEMV's contraction for
+    m rows of a weight of k rows of q and n columns: a Q8_0 weight's K rows
+    in steps of GEMV_STEP, an int4 weight's K/2 packed rows in steps of
+    GEMV_STEP_Q4 (K / 16 steps either way, so both weights of one shape take
+    the same plan). The tasks are ceil(n / GEMV_BN) column strips x split
+    slices of the k / step steps x the row chunks, dealt out to the
     GEMV_CTAS CTAs of a wave; a split costs its whole waves of tasks times
     the steps of a task. Of the splits that leave each warp a run of at
     least GEMV_MIN_RUN steps, the smallest that costs at most 5% above the
@@ -713,7 +726,7 @@ def gemv_plan(k: int, n: int, m: int) -> int:
     same cost (PERF.md), and they leave fewer partials to add. K23 takes
     the same plan for its products, so that it rounds as the standalone
     kernels do."""
-    strips, steps = -(-n // GEMV_BN), k // GEMV_STEP
+    strips, steps = -(-n // GEMV_BN), k // step
     rows = _gemv_rows(m)
     tasks, ctas = strips * -(-m // rows), GEMV_CTAS[rows]
     splits = range(1, max(1, steps // (GEMV_WARPS * GEMV_MIN_RUN)) + 1)
@@ -721,35 +734,37 @@ def gemv_plan(k: int, n: int, m: int) -> int:
     return min(sp for sp in splits if cost[sp] <= 1.05 * min(cost.values()))
 
 
-def gemv_runs(k: int, n: int, m: int, split: int) -> list:
-    """The Q8 GEMV's tasks as the kernel (csrc/q8.cuh::gemv_tasks) takes
-    them, in task order: (columns [n0, n1), rows [m0, m1), split, the
-    contraction rows [k0, k1) of each warp's run). Task t is strip t %
-    strips, slice t / strips % split, row chunk t / strips / split; slice
-    sp holds steps [sp * steps // split, (sp + 1) * steps // split), and
-    warp w of a task with s steps from s0 the run [s0 + s * w // 8, s0 +
-    s * (w + 1) // 8)."""
-    strips, steps, rows = -(-n // GEMV_BN), k // GEMV_STEP, _gemv_rows(m)
+def gemv_runs(k: int, n: int, m: int, split: int, step: int = GEMV_STEP) -> list:
+    """The tensor-core GEMV's tasks as the kernel (csrc/q8.cuh::gemv_tasks)
+    takes them, in task order: (columns [n0, n1), rows [m0, m1), split, the
+    rows of q [k0, k1) of each warp's run; k and step as gemv_plan's: an
+    int4 weight's runs are of packed rows, each meeting x's columns k0..
+    and K/2 + k0..). Task t is strip t % strips, slice t / strips % split,
+    row chunk t / strips / split; slice sp holds steps [sp * steps //
+    split, (sp + 1) * steps // split), and warp w of a task with s steps
+    from s0 the run [s0 + s * w // 8, s0 + s * (w + 1) // 8)."""
+    strips, steps, rows = -(-n // GEMV_BN), k // step, _gemv_rows(m)
     out = []
     for t in range(strips * split * -(-m // rows)):
         strip, sp, chunk = t % strips, t // strips % split, t // strips // split
         s0, s1 = sp * steps // split, (sp + 1) * steps // split
-        runs = [((s0 + (s1 - s0) * w // GEMV_WARPS) * GEMV_STEP,
-                 (s0 + (s1 - s0) * (w + 1) // GEMV_WARPS) * GEMV_STEP)
+        runs = [((s0 + (s1 - s0) * w // GEMV_WARPS) * step,
+                 (s0 + (s1 - s0) * (w + 1) // GEMV_WARPS) * step)
                 for w in range(GEMV_WARPS)]
         out.append(((strip * GEMV_BN, min(n, (strip + 1) * GEMV_BN)),
                     (chunk * rows, min(m, (chunk + 1) * rows)), sp, runs))
     return out
 
 
-def kslice_plan(k: int, n: int, kslice_max: int, mult: int,
-                bn: int = _KSLICE_BN) -> tuple[int, int]:
-    """(split, kslice) of the int4 and `a8` GEMVs (CUDA cores, csrc/quant4.cu
-    and a8.cuh): K in `split` slices of `kslice` rows (a multiple of `mult`,
-    at most `kslice_max`), as many as the ceil(N / bn) column strips times
-    the splits fit in one wave of the card's CTAs (more where K needs
+def kslice_plan(k: int, n: int, kslice_max: int, mult: int) -> tuple[int, int]:
+    """(split, kslice) of the `a8` GEMVs (csrc/a8.cuh: a8_gemv_kernel and
+    a8_gemv_tc_kernel take the same slices, so that they add the same
+    partials): k rows of q (an int4 weight's packed rows) in `split` slices
+    of `kslice` rows (a multiple of `mult`, the group size, at most
+    `kslice_max`), as many as the ceil(N / A8_GEMV_BN) column strips times
+    the splits fit in one wave of _GEMV_CTAS CTAs (more where k needs
     them)."""
-    strips = -(-n // bn)
+    strips = -(-n // A8_GEMV_BN)
     split = max(-(-k // kslice_max), _GEMV_CTAS // strips)
     kslice = min(kslice_max, -(-(-(-k // split)) // mult) * mult)
     return -(-k // kslice), kslice
@@ -821,7 +836,7 @@ def a8_launch(lib: str, fn: str, x, qt, k_rows: int, n: int, norm_weight, residu
     out = torch.empty((m, n // 2 if gate else n), dtype=torch.bfloat16, device=dev)
     xi = torch.empty((m, k), dtype=torch.int8, device=dev)
     sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
-    split, kslice = (kslice_plan(k_rows, n, kslice_max, gs, A8_GEMV_BN) if kernel == "gemv"
+    split, kslice = (kslice_plan(k_rows, n, kslice_max, gs) if kernel in ("gemv", "gemv_tc")
                      else (0, 0))
     if split:
         part = torch.empty((planes * split, m, n), dtype=torch.float32, device=dev)
@@ -881,6 +896,7 @@ def q8_matmul(x, qt: QTensor, *, norm_weight=None, norm_eps: float = 1e-5, resid
                                 rope_pos, rope_limit, rope_head, rope_theta, norm_eps, False,
                                 A8_GEMV_ROWS)
         q8_matmul.launches_a8 += 1
+        q8_matmul.launches_a8_tc += kernel == "gemv_tc"
         q8_matmul.launches_a8_wgmma += kernel == "wgmma"
         return out
     out = _reshape_launch("q8_matmul", x, qt, n, norm_weight, residual, rope_pos, rope_limit,
@@ -894,6 +910,7 @@ q8_matmul.launches = 0
 q8_matmul.launches_a8 = 0
 q8_matmul.launches_wgmma = 0  # the launches (of .launches) that ran the wgmma tiles
 q8_matmul.launches_a8_wgmma = 0  # the launches (of .launches_a8) that ran the a8 wgmma tiles
+q8_matmul.launches_a8_tc = 0  # the launches (of .launches_a8) that ran the tensor-core a8 GEMV
 
 
 def _check_epilogue(residual, rope_pos, rope_limit: int, rope_head: int, m: int, n: int, dev):
@@ -976,6 +993,7 @@ def q8_matmul_layered(x, qt: QTensor, layer: int, *, norm_weight=None, norm_eps:
                                 residual, rope_pos, rope_limit, rope_head, rope_theta, norm_eps,
                                 False, A8_GEMV_ROWS, layer=layer)
         q8_matmul_layered.launches_a8 += 1
+        q8_matmul_layered.launches_a8_tc += kernel == "gemv_tc"
         q8_matmul_layered.launches_a8_wgmma += kernel == "wgmma"
         return out
     out = _reshape_launch("q8_matmul_layered", x, qt, n, norm_weight, residual, rope_pos,
@@ -989,6 +1007,7 @@ q8_matmul_layered.launches = 0
 q8_matmul_layered.launches_a8 = 0
 q8_matmul_layered.launches_wgmma = 0
 q8_matmul_layered.launches_a8_wgmma = 0
+q8_matmul_layered.launches_a8_tc = 0
 
 
 def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5,
@@ -1014,6 +1033,7 @@ def q8_matmul_silu(x, qt13: QTensor, *, norm_weight=None, norm_eps: float = 1e-5
         out, kernel = a8_launch("quant", "q8_matmul_silu_a8", x, qt13, k, n2, norm_weight, None,
                                 None, 0, 0, 0.0, norm_eps, True, A8_GEMV_ROWS)
         q8_matmul_silu.launches_a8 += 1
+        q8_matmul_silu.launches_a8_tc += kernel == "gemv_tc"
         q8_matmul_silu.launches_a8_wgmma += kernel == "wgmma"
         return out
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
@@ -1035,6 +1055,7 @@ q8_matmul_silu.launches = 0
 q8_matmul_silu.launches_a8 = 0
 q8_matmul_silu.launches_wgmma = 0
 q8_matmul_silu.launches_a8_wgmma = 0
+q8_matmul_silu.launches_a8_tc = 0
 
 
 def ffn_splits(m: int, h: int, n: int) -> int:
@@ -1284,3 +1305,59 @@ def q8_a8_tiles_probe(xi, sx, qt: QTensor, gate: bool, variant: int) -> torch.Te
 
 
 q8_a8_tiles_probe.launches = 0
+
+
+def a8_gemv_probe(x, qt, gate: bool, variant: int, *, norm_weight=None, norm_eps: float = 1e-5,
+                  residual=None, rope_pos=None, rope_limit: int = 0, rope_head: int = 0,
+                  rope_theta: float = 10000.0) -> torch.Tensor:
+    """The `a8` product of q8_matmul (qt a QTensor) or q4_matmul (an int4
+    Q4Tensor: q (K/2, N)) at up to GEMV_MAX_M rows, gate: their W1|W3 gate
+    products (qt = W1|W3, the output (M, H)), with its GEMV chosen, after
+    the same quantizer pass and before the same split pass: variant 0 the
+    int8 tensor cores (csrc/a8.cuh::a8_gemv_tc_kernel, group sizes that are
+    multiples of 32), 1 dp4a (a8_gemv_kernel). For comparing the two GEMVs
+    bit for bit on the card, whatever a8_rows_kernel and the `a8` decisions
+    say; no model path runs it."""
+    if x.device.type != "cuda":
+        raise ValueError("a8_gemv_probe runs on the card only")
+    dev = x.device
+    int4 = x.dim() == 2 and qt.q.dim() == 2 and 2 * qt.q.shape[0] == x.shape[1]
+    if int4:
+        from hip_llama_tpu_torch.ops import quant4 as Q4
+
+        m, k = _check_x("x", x, 32)
+        n = Q4._check_weight("qt", qt, k, dev)
+        lib, fn, planes, rows = "quant4", "q4_a8_gemv_probe", 2, k // 2
+    else:
+        m, k = _check_x("x", x)
+        n = _check_weight("qt", qt, k, dev)
+        lib, fn, planes, rows = "quant", "q8_a8_gemv_probe", 1, k
+    gs = qt.group_size
+    _check_norm(norm_weight, k, dev)
+    if gate and (residual is not None or rope_pos is not None):
+        raise ValueError("a8_gemv_probe: the gate takes no residual or RoPE")
+    _check_epilogue(residual, rope_pos, rope_limit, rope_head, m, n, dev)
+    if variant not in (0, 1):
+        raise ValueError(f"a8_gemv_probe: no variant {variant}")
+    if m > GEMV_MAX_M or not a8_kernel_takes("gemv" if variant else "gemv_tc", k, n, gs, gate,
+                                             int4):
+        raise ValueError(f"a8_gemv_probe: variant {variant} does not take M {m}, K {k}, N {n}, "
+                         f"group size {gs}")
+    out = torch.empty((m, n // 2 if gate else n), dtype=torch.bfloat16, device=dev)
+    xi = torch.empty((m, k), dtype=torch.int8, device=dev)
+    sx = torch.empty((m, k // gs), dtype=torch.float32, device=dev)
+    split, kslice = kslice_plan(rows, n, A8_GEMV_ROWS // planes, gs)
+    part = torch.empty((planes * split, m, n), dtype=torch.float32, device=dev)
+    rope = rope_pos is not None
+    f = _build.bind(lib, fn, "p" * 10 + "i" * 10 + "ff" + "p")
+    _build.check(f(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight),
+                   _ptr(residual), _ptr(rope_pos), out.data_ptr(), xi.data_ptr(), sx.data_ptr(),
+                   part.data_ptr(), m, k, n, gs, split, kslice, int(gate), variant,
+                   rope_limit if rope else 0, rope_head if rope else 1,
+                   rope_coef(rope_theta, rope_head) if rope else 0.0, norm_eps, _stream()),
+                 lib, fn)
+    a8_gemv_probe.launches += 1
+    return out
+
+
+a8_gemv_probe.launches = 0

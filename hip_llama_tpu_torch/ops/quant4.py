@@ -8,8 +8,10 @@ int8, byte k' holding row k' in its low nibble and row K/2 + k' in its high
 nibble, each as code + 8; s (K/gs, N) fp32. Each half holds whole groups, so
 row K/2 + k' takes the scale row K/(2 gs) + k'/gs. Activations are bf16.
 
-Each product is a CUDA kernel (csrc/quant4.cu: a GEMV up to 16 rows, above
-them csrc/q8_wgmma.cuh's tiles, `q4_rows_kernel`) behind a wrapper that
+Each product is a CUDA kernel (csrc/quant4.cu: up to 16 rows the Q8
+products' tensor-core GEMV with the int4 format, csrc/q8.cuh::gemv_tasks
+at ops/quant.py::gemv_plan's splits of the packed rows; above them
+csrc/q8_wgmma.cuh's tiles; `q4_rows_kernel`) behind a wrapper that
 checks its operands, allocates the output and the workspaces, and counts
 its launches in `<wrapper>.launches` (the tiles' share again in
 `.launches_wgmma`). A CUDA tensor launches the kernel or
@@ -35,7 +37,10 @@ sum rescaled as (f32(sum) * sx) * s, the low plane's groups summed, then
 the high plane's added. Where the JAX wrapper keeps `dequant` math instead
 (`q4_a8_engages`), so does the port. The kernels (csrc/quant4.cu) count in
 `<wrapper>.launches_a8`, by ops/quant.py's `a8` row rule
-(`a8_rows_kernel`): a8.cuh's dp4a GEMV up to 16 rows; above, at group sizes
+(`a8_rows_kernel`): up to 16 rows a8.cuh's GEMV, on the int8 tensor cores
+at group sizes that are multiples of 32 (counted again in
+`.launches_a8_tc`), else by dp4a, bit for bit alike (`ops/quant.py::
+a8_gemv_probe` runs either); above, at group sizes
 that are multiples of 32, csrc/a8_wgmma.cuh's int8 wgmma tiles with one
 nibble plane a CTA, their two fp32 sums added by the split pass that then
 runs the epilogue or gate (counted again in `.launches_a8_wgmma`); a8.cuh's
@@ -52,7 +57,9 @@ import torch
 from hip_llama_tpu_torch.ops import _build
 from hip_llama_tpu_torch.ops.cache import _stream, check_operand
 from hip_llama_tpu_torch.ops.quant import (
+    A8_GEMV_ROWS,
     GEMV_MAX_M,
+    GEMV_STEP_Q4,
     _block_k,
     _check_epilogue,
     _check_norm,
@@ -68,12 +75,11 @@ from hip_llama_tpu_torch.ops.quant import (
     a8_quantize_rows,
     a8_serves,
     check_mode,
-    kslice_plan,
+    gemv_plan,
     rope_coef,
     true_div,
 )
 
-_GEMV_KSLICE_MAX = 512  # packed rows per GEMV CTA at most (csrc/quant4.cu kQ4KMax)
 Q4_MODES = ("dequant", "a8")  # HIPLLAMA_Q4_MODE values the port serves
 # the JAX wrappers' block defaults (quant4.py:45-46), which their `a8`
 # decision reads
@@ -218,20 +224,16 @@ def q4_matmul_silu_plain(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float
 # kernel wrappers
 
 
-def q4_gemv_plan(kh: int, n: int) -> tuple[int, int]:
-    """(split, kslice) of the GEMV path over the kh = K/2 packed rows:
-    kslice_plan with slices of at most 512 packed rows, a multiple of 32."""
-    return kslice_plan(kh, n, _GEMV_KSLICE_MAX, 32)
-
-
 def q4_rows_kernel(m: int) -> str:
     """The `dequant`-math kernel that q4_matmul and q4_matmul_silu launch
     for m rows: "gemv" up to GEMV_MAX_M rows (split-K over the packed
-    weight on the CUDA cores, csrc/quant4.cu q4_gemv_kernel), "wgmma" above
-    (csrc/q8_wgmma.cuh's q8_tile_kernel on its pipelined mainloop, with the
-    int4 weight format). No other kernel is kept: the wgmma tiles timed
-    faster than the wmma tiles they replaced at every row count from 32 to
-    4088 (PERF.md)."""
+    weight on the bf16 tensor cores: csrc/quant4.cu q4_gemv_tc_kernel on
+    csrc/q8.cuh::gemv_tasks with the int4 format, ops/quant.py::gemv_plan's
+    splits of the packed rows), "wgmma" above (csrc/q8_wgmma.cuh's
+    q8_tile_kernel on its pipelined mainloop, with the int4 weight format).
+    No other kernel is kept: the wgmma tiles timed faster than the wmma
+    tiles they replaced at every row count from 32 to 4088, and the
+    tensor-core GEMV than the CUDA-core one it replaced (PERF.md)."""
     return "gemv" if m <= GEMV_MAX_M else "wgmma"
 
 
@@ -243,7 +245,8 @@ def q4_kernel_takes(kernel: str, k: int, n: int, gs: int, gate: bool = False) ->
     a gate's H a multiple of 16. Both take every such shape: the wgmma
     tiles zero-fill a last step past K/2 % 32 in each half (the dead rows
     in the middle of the step's B tile) and read scales a row at a time
-    where gs % 8 != 0; the GEMV guards the columns past N % 256."""
+    where gs % 8 != 0; the GEMV guards the columns past N % 128 and reads
+    its scales a row at a time where gs % 8 != 0."""
     if kernel not in ("gemv", "wgmma"):
         raise ValueError(f"unknown kernel {kernel!r}")
     return (k > 0 and k % 32 == 0 and 0 < gs and (k // 2) % gs == 0 and n > 0 and n % 16 == 0
@@ -299,23 +302,24 @@ def q4_matmul(x, qt: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5, resi
     if _a8(mode, x, n, qt.group_size, widths):
         out, kernel = a8_launch("quant4", "q4_matmul_a8", x, qt, k // 2, n, norm_weight,
                                 residual, rope_pos, rope_limit, rope_head, rope_theta, norm_eps,
-                                False, _GEMV_KSLICE_MAX, planes=2)
+                                False, A8_GEMV_ROWS // 2, planes=2)
         q4_matmul.launches_a8 += 1
+        q4_matmul.launches_a8_tc += kernel == "gemv_tc"
         q4_matmul.launches_a8_wgmma += kernel == "wgmma"
         return out
     kernel = _check_takes("q4_matmul", m, k, n, qt.group_size)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    split, kslice = q4_gemv_plan(k // 2, n) if kernel == "gemv" else (0, 0)
+    split = gemv_plan(k // 2, n, m, GEMV_STEP_Q4) if kernel == "gemv" else 0
     # the GEMV's split partials, or the tiles' RoPE table of each row's cos
     # and sin (M, rope_head)
     part = (torch.empty((split, m, n), dtype=torch.float32, device=dev) if split else
             torch.empty((m, rope_head), dtype=torch.float32, device=dev)
             if rope_pos is not None else None)
-    fn = _build.bind("quant4", "q4_matmul", "ppppppppp" + "iiiiiiii" + "ff" + "p")
+    fn = _build.bind("quant4", "q4_matmul", "ppppppppp" + "iiiiiii" + "ff" + "p")
     rc = fn(x.data_ptr(), qt.q.data_ptr(), qt.s.data_ptr(), _ptr(norm_weight), _ptr(residual),
             _ptr(rope_pos), out.data_ptr(), _ptr(xn), _ptr(part),
-            m, k, n, qt.group_size, split, kslice, rope_limit if rope_pos is not None else 0,
+            m, k, n, qt.group_size, split, rope_limit if rope_pos is not None else 0,
             rope_head if rope_pos is not None else 1,
             rope_coef(rope_theta, rope_head) if rope_pos is not None else 0.0,
             norm_eps, _stream())
@@ -329,6 +333,7 @@ q4_matmul.launches = 0
 q4_matmul.launches_a8 = 0
 q4_matmul.launches_wgmma = 0  # the launches (of .launches) that ran the wgmma tiles
 q4_matmul.launches_a8_wgmma = 0  # the launches (of .launches_a8) that ran the a8 wgmma tiles
+q4_matmul.launches_a8_tc = 0  # the launches (of .launches_a8) that ran the tensor-core a8 GEMV
 
 
 def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-5,
@@ -350,18 +355,19 @@ def q4_matmul_silu(x, qt13: Q4Tensor, *, norm_weight=None, norm_eps: float = 1e-
     if _a8(mode, x, h, qt13.group_size):
         out, kernel = a8_launch("quant4", "q4_matmul_silu_a8", x, qt13, k // 2, n2,
                                 norm_weight, None, None, 0, 0, 0.0, norm_eps, True,
-                                _GEMV_KSLICE_MAX, planes=2)
+                                A8_GEMV_ROWS // 2, planes=2)
         q4_matmul_silu.launches_a8 += 1
+        q4_matmul_silu.launches_a8_tc += kernel == "gemv_tc"
         q4_matmul_silu.launches_a8_wgmma += kernel == "wgmma"
         return out
     kernel = _check_takes("q4_matmul_silu", m, k, n2, qt13.group_size, gate=True)
     out = torch.empty((m, h), dtype=torch.bfloat16, device=dev)
     xn = torch.empty_like(x) if norm_weight is not None else None
-    split, kslice = q4_gemv_plan(k // 2, n2) if kernel == "gemv" else (0, 0)
+    split = gemv_plan(k // 2, n2, m, GEMV_STEP_Q4) if kernel == "gemv" else 0
     part = torch.empty((split, m, n2), dtype=torch.float32, device=dev) if split else None
-    fn = _build.bind("quant4", "q4_matmul_silu", "ppppppp" + "iiiiii" + "f" + "p")
+    fn = _build.bind("quant4", "q4_matmul_silu", "ppppppp" + "iiiii" + "f" + "p")
     rc = fn(x.data_ptr(), qt13.q.data_ptr(), qt13.s.data_ptr(), _ptr(norm_weight),
-            out.data_ptr(), _ptr(xn), _ptr(part), m, k, h, qt13.group_size, split, kslice,
+            out.data_ptr(), _ptr(xn), _ptr(part), m, k, h, qt13.group_size, split,
             norm_eps, _stream())
     _build.check(rc, "quant4", "q4_matmul_silu")
     q4_matmul_silu.launches += 1
@@ -373,6 +379,7 @@ q4_matmul_silu.launches = 0
 q4_matmul_silu.launches_a8 = 0
 q4_matmul_silu.launches_wgmma = 0
 q4_matmul_silu.launches_a8_wgmma = 0
+q4_matmul_silu.launches_a8_tc = 0
 
 
 def q4_a8_tiles_probe(x, qt: Q4Tensor, gate: bool, variant: int, *, norm_weight=None,

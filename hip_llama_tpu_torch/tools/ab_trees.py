@@ -42,9 +42,20 @@ so that the package is imported from the checkout), once per checkout.
 - decode: the Q8 products at decode rows (reshape math, group size 64, 7B
   widths) at every row count 1-16 of the GEMV route: q8_matmul on QKV with
   the norm and RoPE, on wo with the residual and on the classifier with the
-  norm, q8_matmul_silu with the norm and q8_matmul_ffn, each the least of
-  three CUDA-graph replays (chip_smoke.cuda_ms); then `layer_parts` at
-  B 8 on an int8 cache.
+  norm, q8_matmul_silu with the norm and q8_matmul_ffn; the int4 products
+  (`dequant` math, group size 32): q4_matmul (K21) on QKV, wo, W2 (K 11008)
+  and the classifier, q4_matmul_silu (K22); the `a8` products, Q8_0 group
+  size 64 and int4 group size 32: QKV, wo and the gate, and K20's QKV on
+  layer 1 of a stacked weight (the checkout's `a8` GEMV: dp4a or the int8
+  tensor cores; where the checkout has ops/quant.py::a8_gemv_probe, the
+  dp4a GEMV on the same QKV and gate inputs too); cuBLAS `x @ w` on bf16
+  weights of each shape beside them; each the least of three CUDA-graph
+  replays (chip_smoke.cuda_ms). With AB_TREES_OUT set to a directory, the
+  `a8` outputs' SHA-1 are saved there and compared with every other
+  checkout's (the inputs come from a fixed seed). Then `layer_parts` at B
+  8 on an int8 cache; a decode step of 8 slots of the 7B-width int4 model
+  (bf16 cache), of it in `a8`, and of the Q8 + int8-KV model in `a8`,
+  profiled; and the port bench's --quant q4 decode in process.
 - parts: `layer_parts` alone, then what one of K23's grid barriers costs
   (layer_fused.grid_barrier_probe, where the checkout has it).
 - int8: the int8 decode kernels alone, as CUDA-graph replays, each the
@@ -96,12 +107,13 @@ so that the package is imported from the checkout), once per checkout.
   the host's time per eager call of q8_matmul on QKV M 8 with the norm and
   RoPE (100 calls, no synchronize inside), in `a8` and reshape math;
   chip_smoke's 16-request serve of the unrolled model in `a8`, once.
-- sass: csrc/quant.cu and quant4.cu of the checkout compiled to cubins
-  with `ptxas -v` (each kernel's registers, stack frame and spill bytes, a
-  line each); with another checkout, its cubins too, and the SASS of the two
-  compared function by function (cuobjdump -sass; names normalized,
-  addresses and encodings dropped): a line for each function that differs
-  or is only in one tree, then a count. It needs nvcc, not the card.
+- sass: csrc/quant.cu, quant4.cu and layer_fused.cu of the checkout
+  compiled to cubins with `ptxas -v` (each kernel's registers, stack frame
+  and spill bytes, a line each); with another checkout, its cubins too,
+  and the SASS of the two compared function by function (cuobjdump -sass;
+  names normalized, addresses and encodings dropped): a line for each
+  function that differs or is only in one tree, then a count. It needs
+  nvcc, not the card.
 """
 
 from __future__ import annotations
@@ -265,41 +277,141 @@ def layer_parts(cuda_ms, b: int = 8, s: int = 512, rot: int = 8) -> None:
 
 
 def decode(cs) -> None:
+    import glob
+    import hashlib
+    import json
+    import os
+
     import torch
 
+    from hip_llama_tpu_torch.engine import InferenceEngine
+    from hip_llama_tpu_torch.models.llama import make_decode_step
     from hip_llama_tpu_torch.ops import quant as Q
+    from hip_llama_tpu_torch.ops import quant4 as Q4
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     d, hid, voc, gs = 4096, 11008, 32000, 64
 
-    def weights(k, n, copies=2):
-        return [Q.q8_quantize_weights(torch.randn((k, n), generator=g, device=dev) * k ** -0.5,
-                                      gs) for _ in range(copies)]
+    def weights(k, n, copies=2, quantize=Q.q8_quantize_weights, gs=gs):
+        return [quantize(torch.randn((k, n), generator=g, device=dev) * k ** -0.5, gs)
+                for _ in range(copies)]
+
+    def best(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        return min(cs.cuda_ms(fn, graph=True) for _ in range(3))
 
     wq, wo, w2, w13 = weights(d, 3 * d), weights(d, d), weights(hid, d), weights(d, 2 * hid)
     wc = weights(d, voc, 1)
+    q4 = {name: weights(k, n, 1 if name == "classifier" else 2, Q4.q4_quantize_weights, 32)
+          for name, (k, n) in (("QKV", (d, 3 * d)), ("wo", (d, d)), ("W2", (hid, d)),
+                               ("K22", (d, 2 * hid)), ("classifier", (d, voc)))}
     norm = torch.ones(d, device=dev)
+    # K20: layer 1 of a stacked QKV weight of two layers
+    wl = Q.q8_quantize_weights(torch.randn((2, d, 3 * d), generator=g, device=dev) * d ** -0.5,
+                               gs)
+    norml = torch.ones(2, d, device=dev)
+    probe = getattr(Q, "a8_gemv_probe", None)  # the dp4a GEMV beside the tensor cores'
+    # the library yardstick: cuBLAS `x @ w` on bf16 weights of each shape
+    lib = {name: [torch.randn((k, n), generator=g, device=dev).mul_(k ** -0.5)
+                  .to(torch.bfloat16) for _ in range(2)]
+           for name, (k, n) in (("QKV", (d, 3 * d)), ("wo", (d, d)), ("W2", (hid, d)),
+                                ("gate", (d, 2 * hid)), ("classifier", (d, voc)))}
+    hashes = {}
     for m in range(1, Q.GEMV_MAX_M + 1):
         x = torch.randn((m, d), generator=g, device=dev).to(torch.bfloat16)
+        xh = torch.randn((m, hid), generator=g, device=dev).to(torch.bfloat16)
         pos = torch.arange(m, dtype=torch.int32, device=dev) * 31 % 512
+        rope = dict(rope_pos=pos, rope_limit=2 * d, rope_head=128)
         cases = {
-            "QKV": lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, rope_pos=pos,
-                                         rope_limit=2 * d, rope_head=128),
+            "QKV": lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, **rope),
             "wo": lambda i: Q.q8_matmul(x, wo[i % 2], residual=x),
             "K17": lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm),
             "K18": lambda i: Q.q8_matmul_ffn(x, w13[i % 2], w2[i % 2], x, norm),
             "classifier": lambda i: Q.q8_matmul(x, wc[0], norm_weight=norm),
         }
+        print(f"products M {m} (ms): "
+              f"{'; '.join(f'{name} {best(fn):.4f}' for name, fn in cases.items())}", flush=True)
+        cases = {name: (lambda i, w=w, xk=xh if name == "W2" else x: xk @ w[i % 2])
+                 for name, w in lib.items()}
+        print(f"cuBLAS M {m} (ms): "
+              f"{'; '.join(f'{name} {best(fn):.4f}' for name, fn in cases.items())}", flush=True)
+        cases = {
+            "QKV": lambda i: Q4.q4_matmul(x, q4["QKV"][i % 2], norm_weight=norm, **rope),
+            "wo": lambda i: Q4.q4_matmul(x, q4["wo"][i % 2], residual=x),
+            "W2": lambda i: Q4.q4_matmul(xh, q4["W2"][i % 2], residual=x),
+            "K22": lambda i: Q4.q4_matmul_silu(x, q4["K22"][i % 2], norm_weight=norm),
+            "classifier": lambda i: Q4.q4_matmul(x, q4["classifier"][0], norm_weight=norm),
+        }
+        print(f"int4 products M {m} (ms): "
+              f"{'; '.join(f'{name} {best(fn):.4f}' for name, fn in cases.items())}", flush=True)
+        cases = {
+            "QKV": lambda i: Q.q8_matmul(x, wq[i % 2], norm_weight=norm, mode="a8", **rope),
+            "wo": lambda i: Q.q8_matmul(x, wo[i % 2], residual=x, mode="a8"),
+            "K17": lambda i: Q.q8_matmul_silu(x, w13[i % 2], norm_weight=norm, mode="a8"),
+            "int4 QKV": lambda i: Q4.q4_matmul(x, q4["QKV"][i % 2], norm_weight=norm, mode="a8",
+                                               **rope),
+            "int4 wo": lambda i: Q4.q4_matmul(x, q4["wo"][i % 2], residual=x, mode="a8"),
+            "int4 K22": lambda i: Q4.q4_matmul_silu(x, q4["K22"][i % 2], norm_weight=norm,
+                                                    mode="a8"),
+            "K20 QKV": lambda i: Q.q8_matmul_layered(x, wl, 1, norm_weight=norml, mode="a8",
+                                                     **rope),
+        }
         row = []
         for name, fn in cases.items():
-            fn(0)
+            out = fn(0)
             torch.cuda.synchronize()
-            row.append(f"{name} {min(cs.cuda_ms(fn, graph=True) for _ in range(3)):.4f}")
-        print(f"products M {m} (ms): {'; '.join(row)}", flush=True)
-    del wq, wo, w2, w13, wc
+            hashes[f"{name} M {m}"] = hashlib.sha1(out.view(torch.int16).cpu().numpy()
+                                                   .tobytes()).hexdigest()
+            row.append(f"{name} {best(fn):.4f}")
+        print(f"a8 products M {m} (ms): {'; '.join(row)}", flush=True)
+        if probe is not None:
+            cases = {
+                "QKV": lambda i: probe(x, wq[i % 2], False, 1, norm_weight=norm, **rope),
+                "K17": lambda i: probe(x, w13[i % 2], True, 1, norm_weight=norm),
+                "int4 QKV": lambda i: probe(x, q4["QKV"][i % 2], False, 1, norm_weight=norm,
+                                            **rope),
+                "int4 K22": lambda i: probe(x, q4["K22"][i % 2], True, 1, norm_weight=norm),
+            }
+            print(f"a8 dp4a GEMV M {m} (ms): "
+                  f"{'; '.join(f'{name} {best(fn):.4f}' for name, fn in cases.items())}",
+                  flush=True)
+    del wq, wo, w2, w13, wc, q4, wl, lib
     torch.cuda.empty_cache()
+    save = os.environ.get("AB_TREES_OUT")
+    if save:
+        os.makedirs(save, exist_ok=True)
+        tag = hashlib.sha1(os.path.abspath(sys.path[0]).encode()).hexdigest()[:8]
+        for other in sorted(glob.glob(os.path.join(save, "decode_a8_*.json"))):
+            if other.endswith(f"decode_a8_{tag}.json"):
+                continue
+            with open(other) as f:
+                theirs = json.load(f)
+            differ = [k for k, v in hashes.items() if theirs.get(k) != v]
+            print(f"a8 decode outputs against {os.path.basename(other)}: {len(hashes) - len(differ)}"
+                  f" of {len(hashes)} identical{'; differ: ' + ', '.join(differ) if differ else ''}",
+                  flush=True)
+        with open(os.path.join(save, f"decode_a8_{tag}.json"), "w") as f:
+            json.dump(hashes, f)
     layer_parts(cs.cuda_ms)
+
+    cfg = cs.LLAMA2_7B
+    tok = torch.tensor([5, 17, 300, 1000, 42, 7, 99, 12345], dtype=torch.int32, device=dev)
+    pos0 = torch.tensor([100, 17, 255, 3, 200, 60, 128, 250], dtype=torch.int32, device=dev)
+    for int4, kv_quant, runs in ((True, False, (("int4", {}), ("int4 a8", {"HIPLLAMA_Q4_MODE": "a8"}))),
+                                 (False, True, (("q8 int8-kv a8", {"HIPLLAMA_Q8_MODE": "a8"}),))):
+        params = cs.random_7b_qparams(cfg, dev, int4=int4)
+        cache = InferenceEngine(cfg, params, None, batch_size=8, max_seq_len=512,
+                                kv_quant=kv_quant).new_cache()
+        for label, env in runs:
+            with cs.knobs(env):
+                step = make_decode_step(cfg)
+            cs.profile_window(f"{label} decode step (batch 8)", 4,
+                              lambda i, step=step: step(params, cache, tok, pos0 + i))
+        del params, cache
+        torch.cuda.empty_cache()
+    bench_lines(cs, [["--quant", "q4"]])
 
 
 def parts(cs) -> None:
@@ -782,6 +894,11 @@ def a8host(cs) -> None:
         torch.cuda.empty_cache()
 
 
+# the sources whose kernels the sass mode compiles and compares: the
+# products' and the fused layer's (K23, which inlines q8.cuh's GEMV)
+SASS_SOURCES = ("quant", "quant4", "layer_fused")
+
+
 def _sass(cubin: str) -> dict[str, list[str]]:
     """The SASS of each function of a cubin, its name and lines normalized."""
     import os
@@ -819,7 +936,7 @@ def sass(this: str, other: str | None) -> None:
     os.makedirs(out_dir, exist_ok=True)
     trees = [("this", this)] + ([("other", other)] if other else [])
     procs = {}
-    for src in ("quant", "quant4"):
+    for src in SASS_SOURCES:
         for tag, root in trees:
             cubin = os.path.join(out_dir, f"{src}_{tag}.cubin")
             cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -855,7 +972,7 @@ def sass(this: str, other: str | None) -> None:
                 name = None
     if other is None:
         return
-    for src in ("quant", "quant4"):
+    for src in SASS_SOURCES:
         a, b = (_sass(procs[(src, tag)][1]) for tag in ("other", "this"))
         same = 0
         for n in sorted(set(a) | set(b)):

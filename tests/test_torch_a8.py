@@ -332,3 +332,82 @@ def test_cuda_wrappers_launch_the_a8_kernels(launches, m):
             split, kslice = args[12:14] if "silu" in fn else args[14:16]
             assert (split > 0) == (m <= Q.GEMV_MAX_M), (fn, split)
             assert kslice % (gs4 if fn.startswith("q4") else gs8) == 0, (fn, kslice)
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["q8", "int4"])
+@pytest.mark.parametrize("gs", [16, 32, 48, 64])
+def test_a8_gemv_row_rule_and_counters(launches, int4, gs):
+    """Up to 16 rows an `a8` product takes the GEMV on the int8 tensor
+    cores (a8.cuh::a8_gemv_tc_kernel) where the group size is a multiple
+    of 32, so that a 32-deep step lies in one group, and the dp4a GEMV at
+    the other group sizes, both weights alike; either gets the same slices
+    of whole groups (kslice_plan), since the two add the same partials.
+    Each wrapper counts the tensor-core launches in `.launches_a8_tc`, a
+    share of `.launches_a8`, apart from the tiles' `.launches_a8_wgmma`."""
+    k, n = 384, 256
+    if int4:
+        qt = Q4.Q4Tensor(_on_card(torch.zeros(k // 2, n, dtype=torch.int8)),
+                         _on_card(torch.ones(k // gs, n)))
+        wrapper, rows, kmax = Q4.q4_matmul, k // 2, Q.A8_GEMV_ROWS // 2
+    else:
+        qt = Q.QTensor(_on_card(torch.zeros(k, n, dtype=torch.int8)),
+                       _on_card(torch.ones(k // gs, n)))
+        wrapper, rows, kmax = Q.q8_matmul, k, Q.A8_GEMV_ROWS
+    for m in (1, 8, 9, 16, 17):
+        kernel = Q.a8_rows_kernel(m, gs)
+        if m <= Q.GEMV_MAX_M:
+            assert kernel == ("gemv_tc" if gs % 32 == 0 else "gemv"), (m, gs)
+        else:
+            assert kernel == ("wgmma" if gs % 32 == 0 else "mma"), (m, gs)
+        assert Q.a8_kernel_takes(kernel, k, n, gs, int4=int4)
+        before = (wrapper.launches_a8, wrapper.launches_a8_tc, wrapper.launches_a8_wgmma)
+        launches.clear()
+        wrapper(_on_card(torch.zeros(m, k, dtype=torch.bfloat16)), qt, mode="a8")
+        (fn, args), = launches
+        assert fn == wrapper.__name__ + "_a8"
+        plan = Q.kslice_plan(rows, n, kmax, gs) if m <= Q.GEMV_MAX_M else (0, 0)
+        assert args[14:16] == plan, (m, gs)
+        assert (wrapper.launches_a8 - before[0], wrapper.launches_a8_tc - before[1],
+                wrapper.launches_a8_wgmma - before[2]) == (
+            1, int(kernel == "gemv_tc"), int(kernel == "wgmma"))
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["q8", "int4"])
+def test_a8_gemv_probe_launches_either_gemv(launches, int4):
+    """a8_gemv_probe binds the probe entry point of the weight's library
+    with the variant (0 the tensor-core GEMV, 1 dp4a) and the wrappers'
+    slices, counts its launches apart from the wrappers', and refuses what
+    the chosen GEMV does not take (groups of 16 on the tensor cores, more
+    than 16 rows) before any launch."""
+    k, n = 256, 128
+    gs = 32 if int4 else 64
+    if int4:
+        qt = Q4.Q4Tensor(_on_card(torch.zeros(k // 2, n, dtype=torch.int8)),
+                         _on_card(torch.ones(k // gs, n)))
+        qt16 = Q4.Q4Tensor(qt.q, _on_card(torch.ones(k // 16, n)))
+        fn, rows, kmax = "q4_a8_gemv_probe", k // 2, Q.A8_GEMV_ROWS // 2
+    else:
+        qt = Q.QTensor(_on_card(torch.zeros(k, n, dtype=torch.int8)),
+                       _on_card(torch.ones(k // gs, n)))
+        qt16 = Q.QTensor(qt.q, _on_card(torch.ones(k // 16, n)))
+        fn, rows, kmax = "q8_a8_gemv_probe", k, Q.A8_GEMV_ROWS
+    x = _on_card(torch.zeros(8, k, dtype=torch.bfloat16))
+    a0, w0 = Q.a8_gemv_probe.launches, Q.q8_matmul.launches_a8
+    for v in (0, 1):
+        Q.a8_gemv_probe(x, qt, False, v, residual=_on_card(torch.zeros(8, n, dtype=torch.bfloat16)))
+    Q.a8_gemv_probe(x, qt, True, 0, norm_weight=_on_card(torch.ones(k)))
+    assert [f for f, _ in launches] == [fn] * 3
+    assert [a[10:18] for _, a in launches] == [
+        (8, k, n, gs, *Q.kslice_plan(rows, n, kmax, gs), gate, v)
+        for gate, v in ((0, 0), (0, 1), (1, 0))]
+    assert (Q.a8_gemv_probe.launches - a0, Q.q8_matmul.launches_a8 - w0) == (3, 0)
+    launches.clear()
+    for call in (lambda: Q.a8_gemv_probe(x, qt16, False, 0),
+                 lambda: Q.a8_gemv_probe(_on_card(torch.zeros(17, k, dtype=torch.bfloat16)), qt,
+                                         False, 1),
+                 lambda: Q.a8_gemv_probe(x, qt, False, 2)):
+        with pytest.raises(ValueError):
+            call()
+    assert launches == []
+    Q.a8_gemv_probe(x, qt16, False, 1)  # dp4a takes groups of 16
+    assert [f for f, _ in launches] == [fn]

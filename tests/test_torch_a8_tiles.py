@@ -69,7 +69,8 @@ def test_the_a8_rule_picks_a_kernel_that_takes_the_shape(model, prod, gs):
     k, n, gate = products(model)[prod]
     for m in ROWS:
         kernel = Q.a8_rows_kernel(m, gs)
-        want = "gemv" if m <= Q.GEMV_MAX_M else "wgmma" if gs % 32 == 0 else "mma"
+        want = (("gemv_tc" if gs % 32 == 0 else "gemv") if m <= Q.GEMV_MAX_M
+                else "wgmma" if gs % 32 == 0 else "mma")
         assert kernel == want, (m, gs)
         assert Q.a8_kernel_takes(kernel, k, n, gs, gate), (model, prod, m, kernel)
     # an int4 weight of the same contraction (K/2 = k) takes the same rule
@@ -79,12 +80,16 @@ def test_the_a8_rule_picks_a_kernel_that_takes_the_shape(model, prod, gs):
 # (K, N, gs, gate) that a kernel's launcher refuses: K no multiple of 16,
 # N no multiple of 16, a group size no multiple of 8 or not dividing K, a
 # gate's H no multiple of 16 (N 400: H 200); the wgmma tiles also refuse
-# groups that are no multiple of 32, the GEMV a group past its slice of xi
-# rows
+# groups that are no multiple of 32, the GEMVs a group past their slice of
+# xi rows, the tensor-core GEMV groups that are no multiple of 32
 REFUSED = {
     "gemv": [(40, 128, 8, False), (64, 200, 32, False), (48, 128, 12, False),
              (96, 128, 64, False), (64, 400, 32, True), (0, 128, 32, False),
              (2048, 128, 2048, False)],
+    "gemv_tc": [(40, 128, 8, False), (64, 200, 32, False), (48, 128, 12, False),
+                (96, 128, 64, False), (64, 400, 32, True), (0, 128, 32, False),
+                (2048, 128, 2048, False), (96, 128, 48, False), (288, 480, 16, False),
+                (64, 128, 8, False)],
     "mma": [(40, 128, 8, False), (64, 200, 32, False), (48, 128, 12, False),
             (96, 128, 64, False), (64, 400, 32, True), (0, 128, 32, False)],
     "wgmma": [(40, 128, 8, False), (64, 200, 32, False), (48, 128, 12, False),
@@ -99,12 +104,14 @@ def test_a8_kernels_refuse_what_their_launchers_refuse(kernel, k, n, gs, gate):
     assert not Q.a8_kernel_takes(kernel, k, n, gs, gate)
     assert Q.a8_kernel_takes(kernel, 288, 480, 32)
     assert Q.a8_kernel_takes(kernel, 64, 128, 64, gate=True)
-    # gs 48 (no multiple of 32) only on the mma.sync tiles among the tiles;
-    # an int4 weight at gs 32 on every kernel (K/2 64: two 32-deep products
-    # a plane), at gs 16 not on the wgmma tiles, at gs 32 over K/2 48 on none
-    assert Q.a8_kernel_takes(kernel, 96, 128, 48) == (kernel != "wgmma")
+    # gs 48 (no multiple of 32) only on the mma.sync tiles among the tiles
+    # and on the dp4a GEMV; an int4 weight at gs 32 on every kernel (K/2 64:
+    # two 32-deep products a plane), at gs 16 not on the wgmma tiles or the
+    # tensor-core GEMV, at gs 32 over K/2 48 on none
+    by32 = kernel in ("wgmma", "gemv_tc")
+    assert Q.a8_kernel_takes(kernel, 96, 128, 48) == (not by32)
     assert Q.a8_kernel_takes(kernel, 128, 128, 32, int4=True)
-    assert Q.a8_kernel_takes(kernel, 128, 128, 16, int4=True) == (kernel != "wgmma")
+    assert Q.a8_kernel_takes(kernel, 128, 128, 16, int4=True) == (not by32)
     assert not Q.a8_kernel_takes(kernel, 96, 128, 32, int4=True)
     with pytest.raises(ValueError):
         Q.a8_kernel_takes("wmma", 64, 128, 32)  # the rule has no other kernel
@@ -129,7 +136,8 @@ def test_cuda_wrappers_launch_the_a8_kernel_of_the_rule(launches, model, prod, g
     g = _on_card(torch.ones(k))
     wrapper = Q.q8_matmul_silu if gate else Q.q8_matmul
     assert Q.q8_a8_engages(m, k, n // 2 if gate else n, gs)
-    before = (wrapper.launches, wrapper.launches_a8, wrapper.launches_a8_wgmma)
+    before = (wrapper.launches, wrapper.launches_a8, wrapper.launches_a8_wgmma,
+              wrapper.launches_a8_tc)
     rope = prod == "qkv"
     if gate:
         Q.q8_matmul_silu(x, qt, norm_weight=g, mode="a8")
@@ -144,11 +152,13 @@ def test_cuda_wrappers_launch_the_a8_kernel_of_the_rule(launches, model, prod, g
     assert fn == wrapper.__name__ + "_a8"
     kernel = Q.a8_rows_kernel(m, gs)
     split, part = _args(fn, args)
-    assert (split > 0) == (kernel == "gemv")
+    gemv = kernel in ("gemv", "gemv_tc")
+    assert (split > 0) == gemv
     # the GEMV's partials, or the wgmma tiles' RoPE table: part_ws
-    assert (part != 0) == (kernel == "gemv" or (kernel == "wgmma" and rope))
+    assert (part != 0) == (gemv or (kernel == "wgmma" and rope))
     assert (wrapper.launches - before[0], wrapper.launches_a8 - before[1],
-            wrapper.launches_a8_wgmma - before[2]) == (0, 1, int(kernel == "wgmma"))
+            wrapper.launches_a8_wgmma - before[2], wrapper.launches_a8_tc - before[3]) == (
+        0, 1, int(kernel == "wgmma"), int(kernel == "gemv_tc"))
 
 
 @pytest.mark.parametrize("m", [8, 40])
@@ -156,7 +166,7 @@ def test_cuda_wrappers_refuse_before_launching(launches, m):
     """A shape no `a8` kernel takes raises ValueError and launches nothing
     (no fallback to another kernel or to the plain version), on either side
     of the row rule: groups of 12 (no multiple of 8), a gate of H 200, and
-    one group of 2048 (past the GEMV's slice of xi rows; the wgmma tiles
+    one group of 2048 (past the GEMVs' slice of xi rows; the wgmma tiles
     take it at 40 rows)."""
     x = _on_card(torch.zeros(m, 48, dtype=torch.bfloat16))
     qt = Q.QTensor(_on_card(torch.zeros(48, 128, dtype=torch.int8)),
@@ -174,7 +184,7 @@ def test_cuda_wrappers_refuse_before_launching(launches, m):
     qt = Q.QTensor(_on_card(torch.zeros(2048, 128, dtype=torch.int8)),
                    _on_card(torch.ones(1, 128)))
     assert Q.q8_a8_engages(m, 2048, 128, 2048)
-    if Q.a8_rows_kernel(m, 2048) == "gemv":
+    if Q.a8_rows_kernel(m, 2048) in ("gemv", "gemv_tc"):
         with pytest.raises(ValueError):
             Q.q8_matmul(x, qt, mode="a8")
         assert launches == []

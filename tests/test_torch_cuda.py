@@ -631,6 +631,47 @@ def test_q4_wrappers_reject_bad_operands():
     assert Q4.q4_matmul.launches == n0
 
 
+# the int4 GEMV on the tensor cores (q8.cuh::gemv_tasks with the int4
+# format: 8 packed rows a step, the low nibbles against x[:, k'..] and the
+# high ones against x[:, K/2 + k'..]) at every row count of its route, 1-16,
+# at the int4 shapes above: groups of 32, 16 and 8 (a step in one group of
+# each plane: the ring brings both scale rows) and 12 (a step over two
+# groups: the scales read a row at a time), ragged strips (N 208, 480)
+Q4_GEMV_CASES = ([(shape, epi) for shape in Q4_SHAPES for epi in ("none", "residual", "norm_rope")]
+                 + [(shape, "gate") for shape in Q4_SILU_SHAPES])
+
+
+@pytest.mark.parametrize("shape,epi", Q4_GEMV_CASES)
+def test_q4_gemv_tensor_cores_at_every_decode_row(shape, epi):
+    dev = _card()
+    k, n, gs = shape
+    rng = np.random.default_rng(k + n + gs)
+    gate = epi == "gate"
+    qt = _q4t(rng, k, 2 * n if gate else n, gs, dev)
+    wrapper, plain = ((Q4.q4_matmul_silu, Q4.q4_matmul_silu_plain) if gate
+                      else (Q4.q4_matmul, Q4.q4_matmul_plain))
+    for m in range(1, Q.GEMV_MAX_M + 1):
+        x = _rand(rng, (m, k), torch.bfloat16, dev)
+        if gate:
+            kw = {"norm_weight": (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous()}
+        elif epi == "norm_rope":
+            hs = 48 if k == 288 else 8 if n < 1024 else 128
+            kw = {"norm_weight": (1 + 0.1 * _rand(rng, (k,), torch.float32, dev)).contiguous(),
+                  "rope_pos": torch.tensor(rng.integers(0, 2048, m), dtype=torch.int32,
+                                           device=dev),
+                  "rope_limit": (2 * n // 3) // hs * hs, "rope_head": hs}
+        else:
+            kw = {"residual": _rand(rng, (m, n), torch.bfloat16, dev)} if epi == "residual" else {}
+        n0, w0 = wrapper.launches, wrapper.launches_wgmma
+        got = wrapper(x, qt, **kw)
+        want = plain(x, qt, **kw)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.launches_wgmma) == (n0 + 1, w0), m
+        assert got.shape == (m, n)
+        _close(got, want, torch.bfloat16)
+        assert torch.equal(got, wrapper(x, qt, **kw)), m  # the same bits every run
+
+
 def test_quantizers_divide_on_the_card():
     """The weight quantizers give the CPU's bits on the card: a division by
     a Python number would run there as a product with its reciprocal."""
@@ -1194,6 +1235,42 @@ def test_q4_a8_wgmma_tiles_equal_mma_sync(name, m):
         got = wrapper(x, qt, mode="a8", **kw)
         torch.cuda.synchronize()
         assert wrapper.launches_a8_wgmma == w0 + 1 and torch.equal(got, wgmma)
+
+
+# the `a8` GEMV on the int8 tensor cores (a8.cuh::a8_gemv_tc_kernel)
+# against the dp4a GEMV, bit for bit, at 7B widths: (K, N, gate, epilogue)
+A8_GEMV_PROBE = {"qkv": (4096, 12288, False, "norm_rope"), "wo": (4096, 4096, False, "residual"),
+                 "gate": (4096, 22016, True, "norm"), "w2": (11008, 4096, False, "residual")}
+
+
+@pytest.mark.parametrize("int4", [False, True], ids=["q8", "int4"])
+@pytest.mark.parametrize("name", list(A8_GEMV_PROBE))
+@pytest.mark.parametrize("m", [1, 8, 9, 16])
+def test_a8_gemv_tensor_cores_equal_dp4a(int4, name, m):
+    """ops/quant.py::a8_gemv_probe, the same quantizer pass before either
+    GEMV and the same split pass after, Q8_0 groups of 64 and int4 groups
+    of 32; where the JAX decision engages `a8`, the wrapper runs the
+    tensor-core GEMV (`.launches_a8_tc`) and gives the same output."""
+    dev = _card()
+    k, n, gate, epi = A8_GEMV_PROBE[name]
+    gs = 32 if int4 else 64
+    rng = np.random.default_rng(47 + m)
+    qt = _q4t(rng, k, n, gs, dev) if int4 else _qt(rng, k, n, gs, dev)
+    x = _rand(rng, (m, k), torch.bfloat16, dev)
+    kw = _epilogue(rng, m, k, n, epi, dev)
+    tc, dp4a = (Q.a8_gemv_probe(x, qt, gate, v, **kw) for v in (0, 1))
+    torch.cuda.synchronize()
+    assert tc.shape == (m, n // 2 if gate else n)
+    assert torch.isfinite(tc.float()).all() and torch.equal(tc, dp4a)
+    if int4:
+        wrapper, engages = (Q4.q4_matmul_silu if gate else Q4.q4_matmul), Q4.q4_a8_engages
+    else:
+        wrapper, engages = (Q.q8_matmul_silu if gate else Q.q8_matmul), Q.q8_a8_engages
+    if engages(m, k, n // 2 if gate else n, gs):
+        t0 = wrapper.launches_a8_tc
+        got = wrapper(x, qt, mode="a8", **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches_a8_tc == t0 + 1 and torch.equal(got, tc)
 
 
 def test_a8_wrappers_serve_group_size_48():

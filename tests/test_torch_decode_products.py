@@ -20,6 +20,16 @@ at up to 16 rows.
   before launching what the C launchers refuse.
 - The plain versions at decode rows against the JAX kernels in interpret
   mode at stories15M's widths.
+
+The int4 weight (q4_matmul, K21; q4_matmul_silu, K22) runs the same GEMV
+at up to 16 rows with its packed half-split format (gemv_tasks<MAXM, FAST,
+4>: a step of 8 packed rows, whose low nibbles meet x[:, k'..] and high
+nibbles x[:, K/2 + k'..]). Its plan is gemv_plan over the K/2 packed rows
+in steps of GEMV_STEP_Q4 (K / 16 steps, as the Q8 plan's): every output
+column, row and packed row covered once at the int4 products of the three
+models (group sizes 16 and 32 where they divide K/2), the wrappers passing
+that split and refusing before any launch what the C launcher refuses, and
+the plain int4 decode products against the JAX kernels in interpret mode.
 """
 
 import jax.numpy as jnp
@@ -29,8 +39,10 @@ import torch
 
 from conftest import assert_close
 from hip_llama_tpu.ops import quant as jq
+from hip_llama_tpu.ops import quant4 as jq4
 from hip_llama_tpu_torch.ops import layer_fused as LF
 from hip_llama_tpu_torch.ops import quant as Q
+from hip_llama_tpu_torch.ops import quant4 as Q4
 from test_torch_attention import _on_card, launches  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
@@ -237,4 +249,116 @@ def test_plain_decode_products_match_jax_at_stories15m(m, gs):
     (j13, p13), (j2, p2) = weights(dim, 2 * hidden), weights(hidden, dim)
     want = jq.q8_matmul_ffn(xj, j13, j2, xj, jnp.asarray(g), interpret=True)
     got = Q.q8_matmul_ffn(xp, p13, p2, xp, torch.from_numpy(g))
+    assert_close(got.float().numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the int4 weight on the same GEMV
+
+
+@pytest.mark.parametrize("model,prod", CASES)
+def test_int4_gemv_tasks_cover_every_output_and_packed_row_once(model, prod):
+    k, n = products(model)[prod]
+    kh = k // 2
+    for gs in (16, 32):
+        if kh % gs == 0:
+            assert Q4.q4_kernel_takes("gemv", k, n, gs, gate=prod == "w13"), (model, prod, gs)
+    for m in range(1, Q.GEMV_MAX_M + 1):
+        split = Q.gemv_plan(kh, n, m, Q.GEMV_STEP_Q4)
+        assert split == Q.gemv_plan(k, n, m)  # K / 16 steps either way
+        tasks = Q.gemv_runs(kh, n, m, split, Q.GEMV_STEP_Q4)
+        cells: dict = {}  # (columns, rows) -> the packed rows of every warp run
+        for cols, rows, sp, runs in tasks:
+            assert 0 <= sp < split and len(runs) == Q.GEMV_WARPS
+            assert all(a % Q.GEMV_STEP_Q4 == 0 and b % Q.GEMV_STEP_Q4 == 0 for a, b in runs)
+            cells.setdefault((cols, rows), []).extend(runs)
+        assert _covers_once({c for c, _ in cells}, n), (model, prod, m)
+        assert _covers_once({r for _, r in cells}, m), (model, prod, m)
+        assert len(cells) == len({c for c, _ in cells}) * len({r for _, r in cells})
+        for key, runs in cells.items():
+            assert _covers_once(runs, kh), (model, prod, m, key)
+
+
+def _q4t(k: int, n: int, gs: int):
+    return Q4.Q4Tensor(_on_card(torch.zeros(k // 2, n, dtype=torch.int8)),
+                       _on_card(torch.ones(k // gs, n)))
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+@pytest.mark.parametrize("m", [1, 8, 9, 16])
+def test_int4_cuda_wrappers_pass_the_plan(launches, model, m):
+    """q4_matmul (QKV with norm + RoPE, wo with the residual, W2) and
+    q4_matmul_silu launch their GEMV entry points with gemv_plan's splits of
+    the packed rows for m rows, and a (split, M, N) partials workspace."""
+    dim, hidden, heads, kvh, _ = MODELS[model]
+    gs = 16 if model == "stories15M" else 32
+    hs = dim // heads
+    prods = products(model)
+    x = _on_card(torch.zeros(m, dim, dtype=torch.bfloat16))
+    xh = _on_card(torch.zeros(m, hidden, dtype=torch.bfloat16))
+    g = _on_card(torch.ones(dim))
+    pos = _on_card(torch.zeros(m, dtype=torch.int32))
+    Q4.q4_matmul(x, _q4t(*prods["qkv"], gs), norm_weight=g, rope_pos=pos,
+                 rope_limit=(heads + kvh) * hs, rope_head=hs)
+    Q4.q4_matmul(x, _q4t(*prods["wo"], gs), residual=x)
+    Q4.q4_matmul(xh, _q4t(*prods["w2"], gs), residual=x)
+    Q4.q4_matmul_silu(x, _q4t(*prods["w13"], gs), norm_weight=g)
+    plan = {p: Q.gemv_plan(kn[0] // 2, kn[1], m, Q.GEMV_STEP_Q4) for p, kn in prods.items()}
+    (f1, a1), (f2, a2), (f3, a3), (f4, a4) = launches
+    assert (f1, a1[9:14]) == ("q4_matmul", (m, dim, prods["qkv"][1], gs, plan["qkv"]))
+    assert (f2, a2[9:14]) == ("q4_matmul", (m, dim, dim, gs, plan["wo"]))
+    assert (f3, a3[9:14]) == ("q4_matmul", (m, hidden, dim, gs, plan["w2"]))
+    assert (f4, a4[7:12]) == ("q4_matmul_silu", (m, dim, hidden, gs, plan["w13"]))
+    assert all(args[8 if fn == "q4_matmul" else 6] != 0 for fn, args in launches)
+
+
+@pytest.mark.parametrize("k,n,s_rows", [(48, 128, 3), (64, 200, 2), (64, 128, 3)])
+def test_int4_cuda_wrappers_refuse_what_the_gemv_refuses(launches, k, n, s_rows):
+    """K 48 (no multiple of 32), N 200 (no multiple of 16; the gate's H
+    100), or 3 scale rows for K 64 (a group size that does not divide K/2):
+    the C launchers return cudaErrorInvalidValue there, so the wrappers
+    raise ValueError first and launch nothing (no fallback to another
+    kernel or to the plain version)."""
+    x = _on_card(torch.zeros(8, k, dtype=torch.bfloat16))
+    qt = Q4.Q4Tensor(_on_card(torch.zeros(k // 2, n, dtype=torch.int8)),
+                     _on_card(torch.ones(s_rows, n)))
+    for call in (lambda: Q4.q4_matmul(x, qt), lambda: Q4.q4_matmul_silu(x, qt)):
+        with pytest.raises(ValueError):
+            call()
+    assert launches == []
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_plain_int4_decode_products_match_jax_at_stories15m(m):
+    """The plain versions the card holds the int4 GEMV to, at decode rows
+    and stories15M's widths (K/2 144, groups of 16): QKV N 480 with the
+    norm and RoPE over 6 + 2 heads of 48, wo with the residual, the W1|W3
+    gate at hidden 768 with the norm, against the JAX kernels in interpret
+    mode."""
+    dim, hidden, hs, gs = 288, 768, 48, 16
+    rng = np.random.default_rng(m + 41)
+    xj, xp = _bf16(rng.standard_normal((m, dim)))
+    g = (1 + 0.1 * rng.standard_normal(dim)).astype(np.float32)
+    pos = rng.integers(0, 256, m).astype(np.int32)
+
+    def weights(k, n):
+        w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+        return jq4.q4_quantize_weights(jnp.asarray(w), gs), Q4.q4_quantize_weights(
+            torch.from_numpy(w), gs)
+
+    jt, pt = weights(dim, 480)
+    rope = dict(rope_limit=384, rope_head=hs, rope_theta=10000.0)
+    want = jq4.q4_matmul(xj, jt, interpret=True, norm_weight=jnp.asarray(g),
+                         rope_pos=jnp.asarray(pos), **rope)
+    got = Q4.q4_matmul(xp, pt, norm_weight=torch.from_numpy(g), rope_pos=torch.from_numpy(pos),
+                       **rope)
+    assert_close(got.float().numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+    jo, po = weights(dim, dim)
+    rj, rp = _bf16(rng.standard_normal((m, dim)))
+    want = jq4.q4_matmul(xj, jo, interpret=True, residual=rj)
+    got = Q4.q4_matmul(xp, po, residual=rp)
+    assert_close(got.float().numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)
+    j13, p13 = weights(dim, 2 * hidden)
+    want = jq4.q4_matmul_silu(xj, j13, interpret=True, norm_weight=jnp.asarray(g))
+    got = Q4.q4_matmul_silu(xp, p13, norm_weight=torch.from_numpy(g))
     assert_close(got.float().numpy(), np.asarray(want, np.float32), atol=2e-2, rtol=2e-2)

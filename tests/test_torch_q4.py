@@ -198,14 +198,6 @@ def test_plain_q4_matmul_silu_matches_jax(m, k, h, norm):
     assert_close(_np(got), _np(want), **TOL)
 
 
-def test_gemv_plan_covers_kh():
-    for kh, n in [(32, 128), (96, 64), (48, 208), (2048, 12288), (2048, 4096), (5504, 4096),
-                  (2048, 32000), (2048, 22016)]:
-        split, kslice = Q4.q4_gemv_plan(kh, n)
-        assert kslice % 32 == 0 and kslice <= 512
-        assert (split - 1) * kslice < kh <= split * kslice, (kh, n, split, kslice)
-
-
 def test_wrappers_take_the_plain_version_on_the_cpu():
     rng = np.random.default_rng(9)
     _, pt = _weights(rng, 64, 128, 32)

@@ -22,7 +22,8 @@ rtol = 2e-2 (the same cast points, the fp32 sums in another order: one bf16
 ulp of an O(1) output, tests/test_attention_pallas.py:83-85).
 
 The `a8` mode (HIPLLAMA_Q4_MODE=a8) has the Q8 products' row rule
-(ops/quant.py::a8_rows_kernel): the dp4a GEMV up to GEMV_MAX_M rows; above,
+(ops/quant.py::a8_rows_kernel): up to GEMV_MAX_M rows the GEMV, on the int8
+tensor cores at group sizes that are multiples of 32, else by dp4a; above,
 at group sizes that are multiples of 32, csrc/a8_wgmma.cuh's int8 wgmma
 tiles, one nibble plane a CTA into the workspace part (2, M, N), whose
 planes a split pass adds through the epilogue or gate; a8.cuh's mma.sync
@@ -94,8 +95,8 @@ def test_the_a8_rule_picks_a_kernel_that_takes_the_int4_shape(model, prod, gs):
     gs = q4_group_size(k, gs)
     for m in ROWS:
         kernel = Q.a8_rows_kernel(m, gs)
-        assert kernel == ("gemv" if m <= Q.GEMV_MAX_M else "wgmma" if gs % 32 == 0
-                          else "mma"), (m, gs)
+        assert kernel == (("gemv_tc" if gs % 32 == 0 else "gemv") if m <= Q.GEMV_MAX_M
+                          else "wgmma" if gs % 32 == 0 else "mma"), (m, gs)
         assert Q.a8_kernel_takes(kernel, k, n, gs, gate, int4=True), (model, prod, m, kernel)
     if model == "stories15M" and k == 288:
         assert gs == 16 and Q.a8_rows_kernel(40, gs) == "mma"
@@ -214,7 +215,8 @@ def test_cuda_wrappers_launch_the_a8_kernel_of_the_rule(launches, monkeypatch, m
     g = _on_card(torch.ones(k))
     wrapper = Q4.q4_matmul_silu if gate else Q4.q4_matmul
     assert Q4.q4_a8_engages(m, k, n // 2 if gate else n, gs)
-    before = (wrapper.launches, wrapper.launches_a8, wrapper.launches_a8_wgmma)
+    before = (wrapper.launches, wrapper.launches_a8, wrapper.launches_a8_wgmma,
+              wrapper.launches_a8_tc)
     if gate:
         Q4.q4_matmul_silu(x, qt, norm_weight=g, mode="a8")
     elif prod == "qkv":  # q and k rotate, v passes
@@ -227,13 +229,14 @@ def test_cuda_wrappers_launch_the_a8_kernel_of_the_rule(launches, monkeypatch, m
     assert fn == wrapper.__name__ + "_a8"
     kernel = Q.a8_rows_kernel(m, gs)
     split, part = _a8_args(fn, args)
-    assert (split > 0) == (kernel == "gemv")
+    assert (split > 0) == (kernel in ("gemv", "gemv_tc"))
     assert (part != 0) == (kernel != "mma")
     if kernel == "wgmma":
         ws, = [t for t in made if t.data_ptr() == part]
         assert ws.shape == (2, m, n) and ws.dtype == torch.float32
     assert (wrapper.launches - before[0], wrapper.launches_a8 - before[1],
-            wrapper.launches_a8_wgmma - before[2]) == (0, 1, int(kernel == "wgmma"))
+            wrapper.launches_a8_wgmma - before[2], wrapper.launches_a8_tc - before[3]) == (
+        0, 1, int(kernel == "wgmma"), int(kernel == "gemv_tc"))
 
 
 @pytest.mark.parametrize("m", [8, 40])
