@@ -11,7 +11,9 @@ Phases, in order; each raises on failure and none is caught:
      fp32, with its time, the plain version's time, the time of one PyTorch
      library call doing the same work where there is one (for the cache
      writers here and in phases 6 and 8: index_put_ on each plane, the rows
-     gathered or quantized beforehand, as CUDA-graph replays), and its bound;
+     gathered or quantized beforehand, as CUDA-graph replays; for K1, K5
+     and K6 here and in phases 3b and 8: SDPA, the kernel and SDPA both as
+     CUDA-graph replays), and its bound;
      then K4 at the port bench's ttft shape (T 512 over S 1024, two JAX
      blocks), here in bf16 and after phase 6a on an int8 cache;
   3b. the Q8 kernels (q8_matmul and q8_matmul_silu at M 8 on the GEMV and
@@ -157,6 +159,11 @@ Phases, in order; each raises on failure and none is caught:
      with 3 and 16 query heads per KV head, K23 at stories15M's layer (dim
      288, 6 heads of 48 over 2 KV heads), the `a8` kernels of K15, K17, K21
      and K22 at groups of 16 and 48 (8 and 128 rows), K16 at groups of 4;
+     blocks past the fp32/bf16 decode task's shared memory, walked in
+     chunks: K1, K5 and K6 (pages of the window) on bf16 and fp32 caches
+     whose JAX block is the window itself, 6404 rows at 8 query heads per
+     KV head (Llama-2-70B's grouping) and 51204 at one, and K23 on the bf16
+     6404-row cache, each launched once and held to its plain version;
      and a stories15M-shaped model (random weights, 2 layers) served
      through the CLI on the card and on the CPU in fp32, fp32 --kv int8 and
      int4 with HIPLLAMA_Q4_MODE=a8 (groups of 16), the card's kernel path
@@ -679,7 +686,10 @@ def phase_kernels(dtype) -> dict[str, dict]:
     err, ok = attn_check(((A.attention_decode(q, cache.k, cache.v, l, pos, kc, vc),
                            A.attention_decode_plain(q, cache.k, cache.v, l, pos, kc, vc))
                           for l in (0, n_layers - 1)), dtype)
-    ms = cuda_ms(lambda i: A.attention_decode(q, cache.k, cache.v, i % rot, pos, kc, vc))
+    # the kernel and SDPA as CUDA-graph replays: their device time is below
+    # the wrappers' host cost
+    ms = cuda_ms(lambda i: A.attention_decode(q, cache.k, cache.v, i % rot, pos, kc, vc),
+                 graph=True)
     plain = cuda_ms(lambda i: A.attention_decode_plain(q, cache.k, cache.v, i % rot, pos, kc, vc))
     # library: SDPA over [history rows | current row] with the same mask
     kf = [torch.cat([cache.k[:, l], kc[:, :, None]], dim=2) for l in range(rot)]
@@ -687,7 +697,8 @@ def phase_kernels(dtype) -> dict[str, dict]:
     col = torch.arange(s + 1, device=dev)
     mask = ((col[None, :] < pos[:, None]) | (col[None, :] == s))[:, None, None, :]
     q4 = q[:, :, None, :]
-    lib = cuda_ms(lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask))
+    lib = cuda_ms(lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot],
+                                                           attn_mask=mask), graph=True)
     n_bytes = (2 * b * h * hs + 2 * b * kvh * hs + 2 * sum(pos_l) * kvh * hs) * e + 4 * b
     flops = 4 * h * hs * sum(p + 1 for p in pos_l)
     out["attention_decode"] = dict(max_abs_err=err, ok=ok, ms=ms, plain_ms=plain, library_ms=lib,
@@ -1003,7 +1014,7 @@ def phase_q8_kernels() -> dict[str, dict]:
          lambda i: A.attention_decode_fused_plain(qkv, cache.k, cache.v, i % rot, pos, h),
          lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
          (b * (h + 2 * kvh) * hs + b * h * hs + 2 * sum(pos_l) * kvh * hs) * 2 + 4 * b,
-         4 * h * hs * sum(p + 1 for p in pos_l), atol=ATTN_ATOL, rtol=ATTN_RTOL)
+         4 * h * hs * sum(p + 1 for p in pos_l), atol=ATTN_ATOL, rtol=ATTN_RTOL, graph=True)
     del kf, vf
 
     # K23: one whole decode layer over the same cache, weights rotating over
@@ -1425,7 +1436,7 @@ def phase_paged_kernels() -> dict[str, dict]:
                                                      vc, *sc),
             lambda i: F.scaled_dot_product_attention(q4, kf[i % rot], vf[i % rot], attn_mask=mask),
             2 * b * h * hs * 2 + 2 * b * kvh * hs * 2 + 2 * sum(pos_l) * kvh * row_b + 4 * b
-            + 4 * b * mp, 4 * h * hs * sum(p + 1 for p in pos_l), graph=bool(sfx), **tol)
+            + 4 * b * mp, 4 * h * hs * sum(p + 1 for p in pos_l), graph=True, **tol)
         del kf, vf
 
         # K7: a chunk of T 128 over the pages (rows t < valid compared)
@@ -3135,6 +3146,76 @@ def phase_shape_kernels() -> None:
         raise AssertionError("q8_matmul_xheads did not run at gs 4")
 
 
+def phase_long_blocks() -> None:
+    """K1, K5 and K6 on bf16 and fp32 caches, and K23 on the bf16 one, over
+    windows that no power of two from 8 divides, whose JAX block is the
+    window itself, past the fp32/bf16 decode task's shared memory (which
+    then walks the block in chunks): 6404 rows at 8 query heads per KV head
+    and 51204 at one, head size 128. Tolerance: fp32 TOL; bf16 one bf16 ulp
+    of |plain| and at least ATTN_ATOL + ATTN_RTOL |plain| (both sides round
+    p at the same block max, their fp32 sums in other orders); K23 Q8_ATOL
+    + Q8_RTOL |plain|."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    hs = 128
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    def bound(dtype):
+        if dtype == torch.float32:
+            return lambda w: TOL[dtype]
+        return lambda w: torch.maximum(ATTN_ATOL + ATTN_RTOL * w.float().abs(), bf16_ulp(w))
+
+    wrappers = (A.attention_decode, A.attention_decode_fused, A.attention_decode_paged)
+    for s, m, kvh, pos_l in ((6404, 8, 1, [0, 1281, 3000, 6403]),
+                             (51204, 1, 2, [0, 10497, 30000, 51203])):
+        h, b = m * kvh, len(pos_l)
+        assert A.decode_block(s) == s
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        table = torch.arange(1, b + 1, dtype=torch.int32, device=dev)[:, None]
+        for dtype in (torch.bfloat16, torch.float32):
+            k, v = rnd(b, 1, kvh, s, hs, dtype=dtype), rnd(b, 1, kvh, s, hs, dtype=dtype)
+            qkv = rnd(b, h + 2 * kvh, hs, dtype=dtype)
+            q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh],
+                                                  qkv[:, h + kvh:]))
+            # the same rows as pages of the window, page b + 1 slot b's
+            kp, vp = (torch.cat([torch.zeros_like(x[:1, 0]), x[:, 0]]).transpose(0, 1)[None]
+                      .contiguous() for x in (k, v))
+            n0 = [fn.launches for fn in wrappers]
+            shape_check(f"attention_decode [{str(dtype)[6:]} cache, block {s} past the task's "
+                        f"shared memory, {m} q heads per KV head: K1, K5, K6]", [
+                (A.attention_decode(q, k, v, 0, pos, kc, vc),
+                 A.attention_decode_plain(q, k, v, 0, pos, kc, vc)),
+                (A.attention_decode_fused(qkv, k, v, 0, pos, h),
+                 A.attention_decode_fused_plain(qkv, k, v, 0, pos, h)),
+                (A.attention_decode_paged(q, kp, vp, table, 0, pos, kc, vc),
+                 A.attention_decode_paged_plain(q, kp, vp, table, 0, pos, kc, vc))],
+                bound(dtype))
+            if [fn.launches - c for fn, c in zip(wrappers, n0)] != [1, 1, 1]:
+                raise AssertionError(f"the decode kernels did not run at block {s}")
+            if dtype == torch.bfloat16 and m == 8:
+                d, hid = h * hs, 256
+
+                def qw(kk, n):
+                    return Q.q8_quantize_weights(rnd(kk, n, dtype=torch.float32)
+                                                 .mul_(kk ** -0.5), 64)
+
+                wl = (qw(d, (h + 2 * kvh) * hs), qw(d, d), qw(d, 2 * hid), qw(hid, d))
+                g1, g2 = ((1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous()
+                          for _ in range(2))
+                args = (rnd(b, d), *wl, g1, g2, k, v, 0, pos)
+                n23 = LF.q8_layer_fused.launches
+                got, want = LF.q8_layer_fused(*args, n_heads=h), \
+                    LF.q8_layer_fused_plain(*args, n_heads=h)
+                shape_check(f"q8_layer_fused [bf16 cache, block {s} past the task's shared "
+                            f"memory, {m} q heads per KV head]", list(zip(got, want)),
+                            lambda w: Q8_ATOL + Q8_RTOL * w.float().abs())
+                if LF.q8_layer_fused.launches != n23 + 1:
+                    raise AssertionError(f"q8_layer_fused did not run at block {s}")
+            del k, v, kp, vp
+
+
 def phase_dim288_serves() -> dict[str, dict[str, int]]:
     """A stories15M-shaped model (DIM288, random weights from SEED, a v0
     file) served through the port's CLI on the card and on the CPU (-m test
@@ -3403,6 +3484,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_shape_kernels()
+    torch.cuda.empty_cache()
+    phase_long_blocks()
     torch.cuda.empty_cache()
     # keyed apart: the fixture's `a8` goldens hold the label "q4 a8" too
     launches_golden.update({f"dim 288 {label}": counts

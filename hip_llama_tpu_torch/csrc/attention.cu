@@ -28,10 +28,11 @@
 // or bf16. The running max advances once per block of bk cache rows, the
 // JAX kernel's KV block, which the wrappers pass: the rounded probabilities
 // (bf16 V, or p * vs on an int8 cache) depend on it. So every kernel takes
-// a whole block's max before it rounds any: the decode task holds its M x
-// bk scores in dynamic shared memory (the int8 task a chunk of them at a
-// time where the block is past a CTA's shared memory, decode_int8_chunk,
-// and its K tiles then twice more), the fp32 prefill kernel its 64 query
+// a whole block's max before it rounds any: the decode tasks hold the
+// block's M x bk scores in dynamic shared memory, a chunk of them at a time
+// where the block is past the task's shared memory (decode_chunk,
+// decode_int8_chunk; their K tiles then once or twice more), the fp32
+// prefill kernel its 64 query
 // rows x bk (up to 640 columns at HS 128: 128 KiB at the JAX block of 512),
 // each computed a 64-row tile of K at a time, PV then walking the block's V
 // tiles; the tensor-core prefill kernel takes two passes over the block.
@@ -41,9 +42,9 @@
 // 4 * pos * HS flops per query head, far below the card's ~295 flop/byte
 // ridge. One CTA per (KV head, head group, slot) runs decode_attention.
 // cuh's task, which keeps the group's query heads in shared memory, so each
-// K/V byte is read once for all heads that share it: on fp32 and bf16
-// caches it streams its rows with coalesced warp loads, on an int8 cache
-// through a cp.async ring of K and V tiles in shared memory.
+// K/V byte is read once for all heads that share it, streaming the rows
+// through a cp.async ring of K and V tiles in shared memory (16 KB tiles of
+// fp32 or bf16 rows, two CTAs an SM; 8 KB tiles of int8 rows).
 //
 // Prefill (K4, K7) on bf16 and int8 caches runs on the tensor cores
 // (attention_prefill_mma_kernel). At the 7B shapes (T 256 over 512 rows)
@@ -143,22 +144,24 @@ using hipllama::warp_sum;
 // counts fold away) and for any hs <= HS (PAD true); the launchers pick one.
 // A runtime head size at HS 128 had cost the prefill kernels up to 38%.
 
-// the block's scores in dynamic shared memory after sm
+// fp32 and bf16 caches: the ring, then a chunk of bc rows' scores in
+// dynamic shared memory; two CTAs an SM (kDecSmemBudget)
 template <typename T, int HS, typename Cache, bool PAD>
-__global__ void __launch_bounds__(kDecThreads) attention_decode_kernel(
+__global__ void __launch_bounds__(kDecThreads, 2) attention_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
     const Cache cache, const int* __restrict__ pos_arr, const T* __restrict__ k_cur,
     const T* __restrict__ v_cur, T* __restrict__ out, int H, int KVH, float scale, int q_bs,
-    int cur_bs, int bk, int hs) {
+    int cur_bs, int bk, int bc, int hs) {
   extern __shared__ __align__(16) unsigned char dec_smem[];
-  auto& sm = *reinterpret_cast<DecodeSmem<HS, kDecThreads>*>(dec_smem);
-  float* p_s = reinterpret_cast<float*>(dec_smem + sizeof(DecodeSmem<HS, kDecThreads>));
+  using Smem = DecodeSmem<T, HS, kDecThreads>;
+  auto& sm = *reinterpret_cast<Smem*>(dec_smem);
+  float* dyn = reinterpret_cast<float*>(dec_smem + sizeof(Smem));
   const int ng = hipllama::head_groups(H / KVH);
   const int g = blockIdx.x / ng, m0 = blockIdx.x % ng * kMaxM, b = blockIdx.y;
   const DirectOperands<T> ops{q, k_cur, v_cur, q_bs, cur_bs};
   decode_attention_task<T, HS, kDecThreads, decltype(cache.rows(b, g)), DirectOperands<T>, PAD>(
-      sm, p_s, g, b, ops, k_cache, v_cache, cache.rows(b, g), pos_arr, out, H, KVH, scale, bk,
-      hs, m0);
+      sm, dyn, g, b, ops, k_cache, v_cache, cache.rows(b, g), pos_arr, out, H, KVH, scale, bk,
+      bc, hs, m0);
 }
 
 // the int8 cache: the ring, then a chunk of bc rows' scales, scores and pi
@@ -721,21 +724,24 @@ int allow_smem(K kernel, size_t smem) {
                                    (int)smem);
 }
 
-// the decode kernel with M x bk scores in dynamic shared memory (M: the
-// query heads of a task, at most kMaxM); one task per (KV head, head group)
-// along x
+// the fp32/bf16 decode kernel; one task per (KV head, head group) along x
 template <typename T, int HS, typename Cache>
 int launch_decode(const void* q, const void* k, const void* v, const Cache& cache,
                   const void* pos, const void* kc, const void* vc, void* out, int B, int H,
                   int KVH, float scale, int q_bs, int cur_bs, int bk, int hs, cudaStream_t st) {
   const int M = H / KVH;
-  const size_t smem = decode_smem<HS, kDecThreads>(M < kMaxM ? M : kMaxM, bk);
+  // the ring copies rows in 16-byte pieces from 16-byte aligned planes
+  if ((uintptr_t)k % 16 || (uintptr_t)v % 16) return (int)cudaErrorMisalignedAddress;
+  const int mc = M < kMaxM ? M : kMaxM;
+  // the block whole where it fits two CTAs an SM, else in chunks
+  const int bc = hipllama::decode_chunk<T, HS, kDecThreads>(mc, bk);
+  const size_t smem = decode_smem<T, HS, kDecThreads>(mc, bc);
   auto kernel = hs == HS ? attention_decode_kernel<T, HS, Cache, false>
                          : attention_decode_kernel<T, HS, Cache, true>;
   if (const int e = allow_smem(kernel, smem)) return e;
   kernel<<<dim3(KVH * hipllama::head_groups(M), B), kDecThreads, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, cache, (const int*)pos, (const T*)kc,
-      (const T*)vc, (T*)out, H, KVH, scale, q_bs, cur_bs, bk, hs);
+      (const T*)vc, (T*)out, H, KVH, scale, q_bs, cur_bs, bk, bc, hs);
   return (int)cudaGetLastError();
 }
 
@@ -833,9 +839,9 @@ HIPLLAMA_EXPORT_ERROR_STRING
 
 // dtype: 0 = float, 1 = bfloat16; HS any multiple of 8 up to 256 (the task
 // compiled for decode_hs_pad(HS) runs it); any H / KVH (tasks of at most
-// kMaxM query heads); bk >= 1 cache rows per online-softmax block, each
-// block's min(H / KVH, kMaxM) x bk scores held in shared memory (the wrapper
-// keeps that within the card's limit).
+// kMaxM query heads); bk >= 1 cache rows per online-softmax block, any
+// block (a block past the task's shared memory runs in chunks); the cache
+// planes 16-byte aligned.
 // q_bs, cur_bs: the slot strides, in elements, of q (B, H, HS) and of k_cur
 // and v_cur (B, KVH, HS), whose heads are contiguous: H * HS and KVH * HS
 // for packed operands, the QKV row's width where q, k_cur and v_cur are

@@ -8,11 +8,11 @@
 // in last, as the JAX kernels' _final does. The running max advances once
 // per block of bk cache rows, the JAX kernel's KV block: the block decides
 // the max at which the probabilities round (to the V dtype, or to int8 with
-// one scale a block on an int8 cache), so a task holds a whole block's
-// M x bk fp32 scores in the dynamic shared memory that follows its struct
-// (the int8 task a chunk of them at a time where the block is past a CTA's
-// shared memory), takes the block's max, and then rounds the
-// probabilities and does PV.
+// one scale a block on an int8 cache), so a task takes a whole block's max
+// before it rounds any. Both tasks hold a chunk of the block's scores in the
+// dynamic shared memory that follows their struct (the whole block where it
+// fits; a longer block is walked in chunks, its K tiles once more for the
+// block's max), so no block is refused.
 //
 // A task's operands (q of its query heads, the current k and v rows of its
 // KV head) reach shared memory through an operand policy: DirectOperands
@@ -22,10 +22,9 @@
 // partials. The kernels run the tasks on CTAs of kDecThreads threads, so
 // that the decode kernels and the fused layer sum (and round) alike.
 //
-// Two tasks: decode_attention_task for fp32 and bf16 caches (coalesced warp
-// loads of K and V rows through registers, fp32 dots), and
-// decode_attention_task_int8 for the int8 cache, which streams the block's
-// K and V tiles through an asynchronous shared-memory ring (see its note).
+// Two tasks: decode_attention_task for fp32 and bf16 caches, and
+// decode_attention_task_int8 for the int8 cache. Both stream the block's K
+// and V tiles through an asynchronous shared-memory ring (see their notes).
 //
 // Head sizes: the tasks are compiled for HS in {8, 16, 32, 64, 128, 256} and
 // take any head size hs <= HS that is a multiple of 8 (decode_hs_pad picks
@@ -58,9 +57,9 @@
 
 namespace hipllama {
 
-constexpr int kDecTile = 64;     // cache rows per score tile of the fp32/bf16 task
 constexpr int kMaxM = 8;         // query heads of one task (of one KV head)
 constexpr int kDecThreads = 256; // threads per task (NT) in the kernels
+constexpr size_t kSmemPerCta = 232448;  // the dynamic shared memory a CTA may take on an H100
 
 // the compiled head size that serves head size hs (a multiple of 8 up to
 // 256): the next power of two; 0 where none does
@@ -158,14 +157,6 @@ struct DirectOperands {
   }
 };
 
-template <int HS, int NT>
-struct DecodeSmem {
-  __align__(16) float q_s[kMaxM][HS];  // q, as the cache dtype, widened
-  float kc_s[HS], vc_s[HS];            // the current k and v rows, widened
-  float red_s[kMaxM][NT];              // PV partial sums over row groups
-  float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM];
-};
-
 // The current row, folded in last by both tasks as the JAX kernels' _final:
 // s_cur = q . k_cur in q's dtype with fp32 sums (a warp per query head),
 // m_next = max(m, s_cur), alpha = exp(m - m_next), p_cur = exp(s_cur -
@@ -191,132 +182,385 @@ __device__ __forceinline__ void fold_current_row(float (*q_s)[HS], const float* 
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// The task over an fp32 or bf16 cache (T: the cache dtype, which q, the
+// current rows and the output share), with the JAX kernel's cast points
+// (attention.py:164-241):
+//   - s = fp32(q . k) * scale, q in the cache dtype, fp32 products and sums;
+//   - the online softmax advances once per block of bk rows: m_next = max(m,
+//     the block's max), p = exp(s - m_next) in fp32, l = alpha l + sum(p)
+//     over the unrounded p, and p rounded to T before PV;
+//   - acc = acc * alpha + PV in fp32;
+//   - the current row folded in last, unrounded (fold_current_row), and the
+//     output o / l cast to T.
+// Only the order of the fp32 sums is the task's own, and fixed: q . k over a
+// lane's elements in order, then the LPR lanes' sums by shuffles; the sum of
+// p over each thread's rows of a chunk (r = tid, tid + 256, ...) in order,
+// then its warp by shuffles, the warps in order, the chunks in order; PV
+// over each row group's rows in order, each group's acc scaled by the
+// block's alpha, and the row groups added in order at the end (never by
+// float atomics, so that two calls give the same bits).
+//
+// Bound on an H100: the bytes of the live K and V rows (2 hs sizeof(T) a
+// row), far below the ridge; at one query head per KV head about 30 MFLOP a
+// call. What holds a task is the bytes one CTA keeps in flight: its rows are
+// one slot's, and at chip_smoke's positions the longest slot's 32 tasks read
+// 256 KB each. The task walks a stream of tiles (KvTile: kKvTileBytes of
+// rows, at most kKvTileRows rows) through a ring of kKvStages slots in
+// shared memory filled by cp.async 16-byte copies (a row of a head size that
+// is a multiple of 8 is whole 16-byte chunks, in either dtype) kKvStages - 1
+// tiles ahead of the tile in use (48 KB in flight a CTA): V's copies go out
+// with K's, and the next block's K tiles while this block's V tiles are in
+// use. A slot's rows are swizzled by 16-byte chunk (KvTile::off) so that
+// the 16-byte loads of a load phase hit 8 bank groups. Two CTAs an SM fit
+// beside each other (kDecSmemBudget), so at Llama-2-7B's 256 tasks of a
+// step every task is resident at once.
+//
+// A block's scores (then its rounded p) sit in the dynamic shared memory
+// after sm, bc of its rows at a time (a chunk; the launchers take bc = bk
+// where the block fits kDecSmemBudget, decode_chunk). A block of at most bc
+// rows takes its K tiles, then its V tiles:
+//   1. QK, a K tile at a time: LPR lanes a row, each one or two 16-byte
+//      chunks of k (8 bf16 or 4 fp32 a chunk) widened to fp32 against the
+//      same chunks of q (kept in T in shared memory), the LPR lanes' sums
+//      added by shuffles; each row's score goes to the chunk's scores, and
+//      each thread keeps its rows' max a head;
+//   2. the softmax on every thread, a head at a time: the block's max from
+//      the warps' maxima and the running max; each thread takes its own rows
+//      (p = exp(s - m_next), the sum of p, p rounded to T in place); each
+//      warp's sum to shared memory;
+//   3. PV, a V tile at a time: thread (head, dims, row group) owns one
+//      16-byte chunk of dims of one query head (acc: CH fp32 sums) and walks
+//      the rows rg, rg + RG, ... of each tile, one 16-byte load a row;
+//   4. the head's state (l, the running max) by one thread a head, after the
+//      barrier of the block's first V tile; each PV thread scales its acc by
+//      alpha (computed in step 2 from the same operands) before the block's
+//      first PV.
+// A longer block is walked in chunks of bc rows (a multiple of 256): its K
+// tiles once for the block's max (1 without the stores), then each chunk's
+// K tiles for its scores and p (1, 2) and its V tiles for PV (3), the
+// chunks' sums of p added in chunk order. Every value is computed as in a
+// block that fits, so only the order of the sum of p differs.
+
+constexpr int kKvStages = 4;          // slots of the ring
+constexpr int kKvTileBytes = 16384;   // bytes of one tile's rows, at most
+constexpr int kKvTileRows = 256;      // rows of one tile, at most
+// the dynamic shared memory each of two CTAs an SM may take on an H100
+// (228 KB an SM, 1 KB of it reserved a CTA)
+constexpr size_t kDecSmemBudget = (233472 - 2 * 1024) / 2;
+
+template <typename T, int HS>
+struct KvTile {
+  static constexpr int CH = 16 / (int)sizeof(T);       // elements of a 16-byte chunk
+  static constexpr int CPR = HS / CH;                  // chunks of a row (1 .. 64)
+  static constexpr int ROW = HS * (int)sizeof(T);      // bytes of a row
+  static constexpr int ROWS = kKvTileBytes / ROW < kKvTileRows ? kKvTileBytes / ROW : kKvTileRows;
+  static constexpr int BYTES = ROWS * ROW;             // 16 KB from HS 32 (bf16), less below
+  static constexpr int LPR = CPR < 2 ? 1 : CPR / 2;    // lanes a K row in QK
+  static constexpr int NCH = CPR / LPR;                // chunks a lane takes in QK: 1 or 2
+  static constexpr int PASSES = ROWS * LPR / 256;      // QK passes over a tile of 256 threads
+  // the XOR of row r's 16-byte chunks: the 8 lanes of a QK load phase (8 /
+  // LPR rows, each lane at one of its chunks; or 8 lanes of one row) land
+  // in 8 different bank groups
+  __device__ __forceinline__ static int swz(int r) {
+    if (CPR >= 8) return LPR >= 8 ? 0 : (r % (8 / LPR)) * LPR;
+    if (CPR == 4) return ((r >> 1) & 1) * 2;
+    if (CPR == 2) return (r >> 2) & 1;
+    return 0;
+  }
+  // the byte of a slot where 16-byte chunk c of row r starts
+  __device__ __forceinline__ static int off(int r, int c) {
+    return r * ROW + ((c ^ swz(r)) << 4);
+  }
+};
+
+template <typename T, int HS, int NT>
+struct DecodeSmem {
+  __align__(16) unsigned char ring[kKvStages][KvTile<T, HS>::BYTES];
+  __align__(16) T q_t[kMaxM][HS];      // q in the cache dtype, for QK
+  __align__(16) float q_s[kMaxM][HS];  // q widened, for the current row
+  float kc_s[HS], vc_s[HS];            // the current k and v rows, widened
+  float red_max[NT / 32][kMaxM], red_sum[NT / 32][kMaxM];
+  float m_s[kMaxM], l_s[kMaxM], a_s[kMaxM], pc_s[kMaxM];
+  float tot_s[kMaxM];  // a chunked block's sum of p so far
+};
+
+// a 16-byte chunk of T (8 bf16 or 4 fp32), widened to fp32
+__device__ __forceinline__ void widen16(const float* p, float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 template <typename T, int HS, int NT, typename Rows, typename Ops, bool PAD = true>
 __device__ __forceinline__ void decode_attention_task(
-    DecodeSmem<HS, NT>& sm, float* p_s, int g, int b, const Ops& ops,
+    DecodeSmem<T, HS, NT>& sm, float* dyn, int g, int b, const Ops& ops,
     const T* __restrict__ k_cache, const T* __restrict__ v_cache, const Rows rows,
-    const int* pos_arr, T* __restrict__ out, int H, int KVH, float scale, int bk, int hs_arg,
-    int m0) {
-  const int hs = PAD ? hs_arg : HS;
+    const int* pos_arr, T* __restrict__ out, int H, int KVH, float scale, int bk, int bc,
+    int hs_arg, int m0) {
+  using Tile = KvTile<T, HS>;
   constexpr int kWarps = NT / 32;
-  constexpr int LPR = HS / 4 < 32 ? HS / 4 : 32;  // lanes per K row in QK
-  constexpr int EPL = HS / LPR;                    // elements a lane takes (4, or 8 at 256)
-  constexpr int RPW = 32 / LPR;                    // K rows per warp per pass
-  constexpr int RG = NT / HS;                      // row groups in PV (each thread owns one dim)
-  // a warp's RPW rows are all inside the tile or all past it, so the
-  // shuffles of the score loop stay convergent
-  static_assert(kDecTile % RPW == 0, "a warp's rows must not straddle the tile");
+  constexpr int CH = Tile::CH, ROWS = Tile::ROWS, LPR = Tile::LPR, NCH = Tile::NCH;
+  constexpr int NA = (kMaxM * Tile::CPR + NT - 1) / NT;  // PV chunks a thread owns, at most
+  constexpr int D = kKvStages;
+  static_assert(NT == 256 && Tile::PASSES >= 1, "the QK passes assume 256 threads");
+  const int hs = PAD ? hs_arg : HS;
+  const int hc = PAD ? hs / CH : Tile::CPR;  // live chunks of a row
   const int M = H / KVH;
   const int MC = min(kMaxM, M - m0);  // the task's query heads
   const int head0 = g * M + m0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int pos = pos_arr[b];
+  float* p_s = dyn;  // MC x bc: the chunk's scores, then its rounded p
+  auto chunks = [&](int n) { return (n + bc - 1) / bc; };
 
-  __syncthreads();  // the previous task's readers of sm and p_s are done
+  // the producer's place in the stream: block t0, segment sg, tile pj. A
+  // block of one chunk is the segments K, V; a longer one the K tiles of
+  // each chunk (pre segments), then K, V of each chunk. issue() copies the
+  // next tile into slot i % D and commits a group (empty past the stream,
+  // so that each thread's groups count the tiles)
+  int pt0 = 0, sg = 0, pj = 0;
+  auto issue = [&](int i) {
+    if (pt0 < pos) {
+      const int n = min(bk, pos - pt0), nch = chunks(n), pre = nch > 1 ? nch : 0;
+      const bool is_v = sg >= pre && ((sg - pre) & 1);
+      const int c0 = (sg < pre ? sg : (sg - pre) >> 1) * bc, nc = min(bc, n - c0);
+      const int j0 = pj * ROWS, nr = min(ROWS, nc - j0);
+      const BlockRows<Rows> row(rows, pt0 + c0 + j0, nr);
+      const uint32_t s0 = mma::smem_u32(sm.ring[i % D]);
+      const T* plane = is_v ? v_cache : k_cache;
+      for (int u = tid; u < nr * hc; u += NT) {
+        const int r = u / hc, c = u - r * hc;
+        mma::cp_async<16>(s0 + Tile::off(r, c), plane + row(r) * hs + c * CH, true);
+      }
+      if (j0 + ROWS < nc) {
+        ++pj;
+      } else {
+        pj = 0;
+        if (++sg == pre + 2 * nch) {
+          sg = 0;
+          pt0 += bk;
+        }
+      }
+    }
+    mma::cp_async_commit();
+  };
+
+  __syncthreads();  // the previous task's readers of sm and dyn are done
+  for (int i = 0; i < D - 1; ++i) issue(i);
   ops.template load<HS>(b, g, head0, MC, hs, sm.q_s, sm.kc_s, sm.vc_s);
   if (tid < kMaxM) {
     sm.m_s[tid] = -INFINITY;
     sm.l_s[tid] = 0.f;
   }
   __syncthreads();
+  for (int i = tid; i < MC * HS; i += NT) (&sm.q_t[0][0])[i] = from_f<T>((&sm.q_s[0][0])[i]);
+  // (the barrier in the first next() publishes q_t)
 
-  const int d = tid % HS, rg = tid / HS;
-  const int c0 = (lane % LPR) * 4;
-  float acc[kMaxM];
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
+  int it = 0;  // the next tile of the stream to use
+  // tile `it` has landed for every thread, and the slot used before it is
+  // free for tile it + D - 1
+  auto next = [&]() -> const unsigned char* {
+    mma::cp_async_wait<D - 2>();
+    __syncthreads();
+    issue(it + D - 1);
+    return sm.ring[it++ % D];
+  };
 
-  for (int t0 = 0; t0 < pos; t0 += bk) {
-    const int n = min(bk, pos - t0);
-    const BlockRows<Rows> row(rows, t0, n);
-    // scores of the block's rows, a tile of kDecTile rows at a time: LPR
-    // lanes per row, reduced with shuffles. The unroll counts here and in
-    // PV are spelled out: left to itself the compiler unrolled these loops
-    // less once the task was a function of its own, and the kernel ran 14%
-    // slower than with its loops written inline.
-    for (int r0 = 0; r0 < n; r0 += kDecTile) {
-#pragma unroll 4
-      for (int r = r0 + warp * RPW + lane / LPR; r < r0 + kDecTile; r += kWarps * RPW) {
-        float kf[EPL];
+  // the thread's PV chunks: (head, 16-byte chunk of dims) pairs, the chunk
+  // fastest; RG row groups of MC * hc threads where they fit the CTA, else
+  // one group with NA pairs a thread
+  const int npair = MC * hc;
+  const bool wide = npair > NT;
+  const int RG = wide ? 1 : NT / npair;
+  const int rg = wide ? 0 : tid / npair;
+  int pm[NA], pdg[NA];
+  bool pok[NA];
+  float acc[NA][CH], alpha[NA];
 #pragma unroll
-        for (int j = 0; j < EPL; ++j) kf[j] = 0.f;
+  for (int k = 0; k < NA; ++k) {
+    const int c = (wide ? tid : tid % npair) + k * NT;
+    pok[k] = rg < RG && c < npair;
+    pm[k] = pok[k] ? c / hc : 0;
+    pdg[k] = pok[k] ? c % hc : 0;
+    alpha[k] = 0.f;
 #pragma unroll
-        for (int j = 0; j < EPL / 4; ++j) {
-          const int c = c0 + 4 * LPR * j;
-          if (r < n && c < hs) load4(k_cache + row(r) * hs + c, kf + 4 * j);
+    for (int e = 0; e < CH; ++e) acc[k][e] = 0.f;
+  }
+  const int sub = tid % LPR;
+  float mx[kMaxM];  // this thread's rows' max score a head
+
+  // 1. QK over the K tile in slot st: rows j0 .. j0 + nr - 1 of the chunk
+  auto qk = [&](const unsigned char* st, int j0, int nr, bool store) {
+#pragma unroll
+    for (int ps = 0; ps < Tile::PASSES; ++ps) {
+      const int r = ps * (NT / LPR) + tid / LPR;
+      const bool live = r < nr;
+      float kf[NCH][CH];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int ch = sub + LPR * c;
+        if (live && ch < hc) {
+          widen16(reinterpret_cast<const T*>(st + Tile::off(r, ch)), kf[c]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < CH; ++e) kf[c][e] = 0.f;
         }
+      }
 #pragma unroll
-        for (int m = 0; m < kMaxM; ++m) {
-          if (m < MC) {
-            float qf[4];
-            load4(&sm.q_s[m][c0], qf);
-            float s = qf[0] * kf[0] + qf[1] * kf[1] + qf[2] * kf[2] + qf[3] * kf[3];
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < MC) {
+          float dot = 0.f;
 #pragma unroll
-            for (int j = 1; j < EPL / 4; ++j) {
-              load4(&sm.q_s[m][c0 + 4 * LPR * j], qf);
-              s += qf[0] * kf[4 * j] + qf[1] * kf[4 * j + 1] + qf[2] * kf[4 * j + 2] +
-                   qf[3] * kf[4 * j + 3];
-            }
-            s = warp_sum(s, LPR);
-            if (lane % LPR == 0 && r < n) p_s[m * bk + r] = s * scale;
+          for (int c = 0; c < NCH; ++c) {
+            float qf[CH];
+            widen16(&sm.q_t[m][(sub + LPR * c) * CH], qf);
+#pragma unroll
+            for (int e = 0; e < CH; ++e) dot += qf[e] * kf[c][e];
+          }
+          const float s = warp_sum(dot, LPR) * scale;
+          if (live && sub == 0) {
+            if (store) p_s[m * bc + j0 + r] = s;
+            mx[m] = fmaxf(mx[m], s);
           }
         }
       }
     }
-    __syncthreads();
-    // online softmax over the block, one warp per query head
-    for (int m = warp; m < MC; m += kWarps) {
-      float* pm = p_s + m * bk;
-      float mx = -INFINITY;
-      for (int r = lane; r < n; r += 32) mx = fmaxf(mx, pm[r]);
-      mx = warp_max(mx);  // finite: the block holds at least one live row
-      const float m_old = sm.m_s[m];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < n; r += 32) {
-        const float p = expf(pm[r] - m_new);
-        sum += p;
-        pm[r] = round_to<T>(p);
-      }
-      sum = warp_sum(sum, 32);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sm.a_s[m] = alpha;
-        sm.l_s[m] = alpha * sm.l_s[m] + sum;
-        sm.m_s[m] = m_new;
-      }
-    }
-    __syncthreads();
-    // PV: thread (rg, d) sums rows rg, rg + RG, ... of the block
+  };
+  // each warp's max of the block's scores a head
+  auto publish_max = [&]() {
 #pragma unroll
     for (int m = 0; m < kMaxM; ++m)
-      if (m < MC) acc[m] *= sm.a_s[m];
-    if (d < hs) {
-#pragma unroll 8
-      for (int r = rg; r < n; r += RG) {
-        const float v = to_f(v_cache[row(r) * hs + d]);
+      if (m < MC) {
+        const float v = warp_max(mx[m]);
+        if (lane == 0) sm.red_max[warp][m] = v;
+      }
+  };
+  // the block's max of head m: the running max and the warps' maxima
+  auto block_max = [&](int m) {
+    float v = sm.m_s[m];
 #pragma unroll
-        for (int m = 0; m < kMaxM; ++m)
-          if (m < MC) acc[m] += p_s[m * bk + r] * v;
+    for (int w = 0; w < kWarps; ++w) v = fmaxf(v, sm.red_max[w][m]);
+    return v;  // finite: the block holds at least one live row
+  };
+  // 2. p over the chunk's nc rows, a head at a time: each warp's sum of p;
+  // on the block's first chunk also each PV chunk's alpha (the running max
+  // is still the block before's)
+  auto softmax = [&](int nc, bool first) {
+    for (int m = 0; m < MC; ++m) {
+      const float mn = block_max(m);
+      float s = 0.f;
+      for (int r = tid; r < nc; r += NT) {
+        const float p = expf(p_s[m * bc + r] - mn);
+        s += p;
+        p_s[m * bc + r] = round_to<T>(p);
+      }
+      s = warp_sum(s, 32);
+      if (lane == 0) sm.red_sum[warp][m] = s;
+    }
+    if (first) {
+#pragma unroll
+      for (int k = 0; k < NA; ++k)
+        if (pok[k]) alpha[k] = expf(sm.m_s[pm[k]] - block_max(pm[k]));
+    }
+  };
+  // 3. PV over the V tile in slot st: rows j0 .. j0 + nr - 1 of the chunk
+  auto pv = [&](const unsigned char* st, int j0, int nr) {
+#pragma unroll
+    for (int k = 0; k < NA; ++k) {
+      if (pok[k]) {
+        const float* pr = p_s + pm[k] * bc + j0;
+#pragma unroll 4
+        for (int r = rg; r < nr; r += RG) {
+          float vf[CH];
+          widen16(reinterpret_cast<const T*>(st + Tile::off(r, pdg[k])), vf);
+          const float p = pr[r];
+#pragma unroll
+          for (int e = 0; e < CH; ++e) acc[k][e] += p * vf[e];
+        }
       }
     }
-    __syncthreads();
+  };
+
+  for (int t0 = 0; t0 < pos; t0 += bk) {
+    const int n = min(bk, pos - t0), nch = chunks(n);
+    const bool chunked = nch > 1;
+#pragma unroll
+    for (int m = 0; m < kMaxM; ++m) mx[m] = -INFINITY;
+    if (chunked) {  // the block's max (published by the barrier of the next tile)
+      for (int c0 = 0; c0 < n; c0 += bc)
+        for (int j0 = 0; j0 < min(bc, n - c0); j0 += ROWS)
+          qk(next(), j0, min(ROWS, n - c0 - j0), false);
+      publish_max();
+    }
+    for (int c0 = 0; c0 < n; c0 += bc) {
+      const int nc = min(bc, n - c0), ntc = (nc + ROWS - 1) / ROWS;
+      for (int j = 0; j < ntc; ++j) qk(next(), j * ROWS, min(ROWS, nc - j * ROWS), true);
+      if (!chunked) publish_max();
+      __syncthreads();  // the chunk's scores (and the block's max)
+      softmax(nc, c0 == 0);
+      for (int j = 0; j < ntc; ++j) {
+        const unsigned char* st = next();  // its barrier publishes p and the warps' sums
+        if (j == 0) {
+          // 4. the head's state, now that the chunk's sums are in; no
+          // thread reads m_s or the warps' sums again before the next
+          // chunk's barriers
+          if (tid < MC) {
+            float tot = c0 == 0 ? 0.f : sm.tot_s[tid];
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w) tot += sm.red_sum[w][tid];
+            if (c0 + bc >= n) {
+              const float mn = block_max(tid);
+              const float a = expf(sm.m_s[tid] - mn);
+              sm.l_s[tid] = a * sm.l_s[tid] + tot;
+              sm.m_s[tid] = mn;
+            } else {
+              sm.tot_s[tid] = tot;
+            }
+          }
+          if (c0 == 0) {
+#pragma unroll
+            for (int k = 0; k < NA; ++k)
+#pragma unroll
+              for (int e = 0; e < CH; ++e) acc[k][e] *= alpha[k];
+          }
+        }
+        pv(st, j * ROWS, min(ROWS, nc - j * ROWS));
+      }
+    }
   }
 
+  // the row groups' sums, in the ring (no copy is in flight: the stream's
+  // trailing groups are empty), added in order by the owner of each (head,
+  // dim) after the current row's barrier
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the ring's last readers are done; m_s and l_s are final
+  float* red = reinterpret_cast<float*>(&sm.ring[0][0]);  // RG x MC x hs
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m)
-    if (m < MC) sm.red_s[m][tid] = acc[m];
+  for (int k = 0; k < NA; ++k)
+    if (pok[k])
+#pragma unroll
+      for (int e = 0; e < CH; ++e) red[(rg * MC + pm[k]) * hs + pdg[k] * CH + e] = acc[k][e];
   // the current row: s_cur = q . k_cur in q's dtype, p_cur stays fp32
   fold_current_row<HS, NT>(sm.q_s, sm.kc_s, sm.m_s, sm.l_s, sm.a_s, sm.pc_s, MC, hs, scale);
-  if (tid < hs) {
-    const float vcur = sm.vc_s[tid];
-    for (int m = 0; m < MC; ++m) {
-      float o = 0.f;
-      for (int i = 0; i < RG; ++i) o += sm.red_s[m][i * HS + tid];
-      o = o * sm.a_s[m] + sm.pc_s[m] * vcur;
-      const float l = sm.l_s[m];
-      out[((size_t)b * H + head0 + m) * hs + tid] = from_f<T>(o / (l == 0.f ? 1.f : l));
-    }
+  for (int i = tid; i < MC * hs; i += NT) {
+    const int m = i / hs, d = i - m * hs;
+    float o = 0.f;
+    for (int r = 0; r < RG; ++r) o += red[(r * MC + m) * hs + d];
+    o = o * sm.a_s[m] + sm.pc_s[m] * sm.vc_s[d];
+    const float l = sm.l_s[m];
+    out[((size_t)b * H + head0 + m) * hs + d] = from_f<T>(o / (l == 0.f ? 1.f : l));
   }
 }
 
@@ -389,7 +633,6 @@ __device__ __forceinline__ void decode_attention_task(
 constexpr int kI8Stages = 5;        // slots of the ring
 constexpr int kI8TileBytes = 8192;  // int8 rows of one tile, at most
 constexpr int kI8TileRows = 256;    // rows of one tile, at most
-constexpr size_t kSmemPerCta = 232448;  // the dynamic shared memory a CTA may take on an H100
 
 template <int HS>
 struct I8Tile {
@@ -816,11 +1059,21 @@ __device__ __forceinline__ void decode_attention_task_int8(
   mma::cp_async_wait<0>();  // the stream's trailing groups are empty
 }
 
-// dynamic shared memory of one task: its struct, then M x bk fp32 scores
-// (M: the task's query heads, at most kMaxM)
-template <int HS, int NT>
-constexpr size_t decode_smem(int M, int bk) {
-  return sizeof(DecodeSmem<HS, NT>) + sizeof(float) * (size_t)M * bk;
+// dynamic shared memory of one fp32/bf16 task: its struct, then M x bc
+// fp32 scores (M: the task's query heads, at most kMaxM)
+template <typename T, int HS, int NT>
+constexpr size_t decode_smem(int M, int bc) {
+  return sizeof(DecodeSmem<T, HS, NT>) + sizeof(float) * (size_t)M * bc;
+}
+// the fp32/bf16 task's chunk for a block of bk rows and M query heads (at
+// most kMaxM), within kDecSmemBudget: the whole block where it fits, else
+// the most rows that fit, a multiple of NT (and so of a tile's rows)
+template <typename T, int HS, int NT>
+constexpr int decode_chunk(int M, int bk) {
+  if (decode_smem<T, HS, NT>(M, bk) <= kDecSmemBudget) return bk;
+  int rows = bk / NT * NT;
+  while (rows > NT && decode_smem<T, HS, NT>(M, rows) > kDecSmemBudget) rows -= NT;
+  return rows;
 }
 // the int8 task's: its struct, then a chunk of bc rows' v scales (bc fp32),
 // M x bc scores and M x ceil(bc / 4) words of pi

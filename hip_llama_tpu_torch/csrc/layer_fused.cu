@@ -36,10 +36,11 @@
 // memory).
 //
 // The dynamic shared memory is sized for the larger of the phases: the
-// GEMV's rings, or the attention task's struct with its block of min(M,
-// kMaxM) x bk scores (on an int8 cache its tile ring and a chunk of the
-// block's scores, v scales and packed probabilities: the whole block where
-// it fits a CTA, decode_int8_chunk, as attention_decode_fused takes it).
+// GEMV's rings, or the attention task's struct (its tile ring) with a chunk
+// of the block's min(M, kMaxM) x bk scores (on an int8 cache also their v
+// scales and packed probabilities): the whole block where it fits
+// (decode_chunk: beside a second CTA an SM; decode_int8_chunk: a CTA),
+// as attention_decode_fused takes it.
 
 #include <stdint.h>
 
@@ -86,7 +87,7 @@ struct LayerArgs {
   unsigned int* bar;  // two zeroed words: arrivals, generation
   int B, D, H, KVH, S, HS, L, layer, hidden;
   int gs_qkv, gs_o, gs13, gs2;
-  int split_q, split_o, split13, split2, bk, bc, kv_int8;  // bc: the int8 task's chunk
+  int split_q, split_o, split13, split2, bk, bc, kv_int8;  // bc: the attention task's chunk
   float scale, rope_coef, eps;
 };
 
@@ -173,7 +174,7 @@ static_assert(kDecThreads == kThreads, "the attention tasks take the whole CTA")
 template <int HS, bool INT8, int MAXM>
 __device__ __noinline__ void attention_phase(const LayerArgs& a) {
   using Smem = typename std::conditional<INT8, DecodeSmemInt8<HS, kDecThreads>,
-                                         DecodeSmem<HS, kDecThreads>>::type;
+                                         DecodeSmem<bf16, HS, kDecThreads>>::type;
   auto& sm = *reinterpret_cast<Smem*>(smem);
   float* dyn = reinterpret_cast<float*>(smem + sizeof(Smem));
   const int hs = a.HS;
@@ -194,7 +195,7 @@ __device__ __noinline__ void attention_phase(const LayerArgs& a) {
     else
       decode_attention_task<bf16, HS, kDecThreads, Rows, SplitOperands>(
           sm, dyn, g, b, ops, (const bf16*)a.k_cache, (const bf16*)a.v_cache, cache.rows(b, g),
-          a.pos, a.att, a.H, a.KVH, a.scale, a.bk, hs, m0);
+          a.pos, a.att, a.H, a.KVH, a.scale, a.bk, a.bc, hs, m0);
   }
 }
 
@@ -259,13 +260,13 @@ __global__ void __launch_bounds__(kThreads, MAXM <= 8 ? 2 : 1) q8_layer_kernel(c
     split_epilogue_at(a.part, a.split2, B, D, resid2, a.out, i);
 }
 
-// the attention phase's task and its block of min(M, kMaxM) x bk scores (a
-// chunk of bc rows on an int8 cache), at the task's compiled head size
+// the attention phase's task and its chunk of bc rows of min(M, kMaxM)
+// heads' scores, at the task's compiled head size
 size_t attention_smem(const LayerArgs& a) {
   const int M = a.H / a.KVH < kMaxM ? a.H / a.KVH : kMaxM;
 #define HIPLLAMA_SMEM(N)                                                              \
   return a.kv_int8 ? hipllama::decode_int8_smem<N, kDecThreads>(M, a.bc)              \
-                   : hipllama::decode_smem<N, kDecThreads>(M, a.bk)
+                   : hipllama::decode_smem<bf16, N, kDecThreads>(M, a.bc)
   switch (hipllama::decode_hs_pad(a.HS)) {
     case 8: HIPLLAMA_SMEM(8);
     case 16: HIPLLAMA_SMEM(16);
@@ -318,19 +319,23 @@ int launch_layer(const LayerArgs& a, cudaStream_t st) {
                                           dim3(kThreads), args, smem, st);
 }
 
-// the int8 attention task's chunk of a block of bk rows at head size hs and
-// M query heads per KV head (decode_int8_chunk, as attention_decode_fused
-// takes it)
-int int8_chunk(int hs, int M, int bk) {
+// the attention task's chunk of a block of bk rows at head size hs and M
+// query heads per KV head, on an int8 cache or the bf16 one
+// (decode_int8_chunk, decode_chunk: as attention_decode_fused takes it)
+int attention_chunk(int hs, int M, int bk, int kv_int8) {
   const int mc = M < kMaxM ? M : kMaxM;
+#define HIPLLAMA_CHUNK(N)                                                  \
+  return kv_int8 ? hipllama::decode_int8_chunk<N, kDecThreads>(mc, bk)     \
+                 : hipllama::decode_chunk<bf16, N, kDecThreads>(mc, bk)
   switch (hipllama::decode_hs_pad(hs)) {
-    case 8: return hipllama::decode_int8_chunk<8, kDecThreads>(mc, bk);
-    case 16: return hipllama::decode_int8_chunk<16, kDecThreads>(mc, bk);
-    case 32: return hipllama::decode_int8_chunk<32, kDecThreads>(mc, bk);
-    case 64: return hipllama::decode_int8_chunk<64, kDecThreads>(mc, bk);
-    case 128: return hipllama::decode_int8_chunk<128, kDecThreads>(mc, bk);
-    default: return hipllama::decode_int8_chunk<256, kDecThreads>(mc, bk);
+    case 8: HIPLLAMA_CHUNK(8);
+    case 16: HIPLLAMA_CHUNK(16);
+    case 32: HIPLLAMA_CHUNK(32);
+    case 64: HIPLLAMA_CHUNK(64);
+    case 128: HIPLLAMA_CHUNK(128);
+    default: HIPLLAMA_CHUNK(256);
   }
+#undef HIPLLAMA_CHUNK
 }
 
 // a cooperative grid that passes n of the layer's grid barriers and does
@@ -387,9 +392,9 @@ extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_
       D % gs_qkv || D % gs_o || D % gs13 || hidden % gs2 || bad_split(split_q, D) ||
       bad_split(split_o, D) || bad_split(split13, D) || bad_split(split2, hidden) || nqkv % 16)
     return (int)cudaErrorInvalidValue;
-  // the int8 task copies rows in 16-byte pieces from 16-byte aligned planes
-  if (kv_int8 && ((uintptr_t)k_cache % 16 || (uintptr_t)v_cache % 16 ||
-                  (uintptr_t)k_scale % 4 || (uintptr_t)v_scale % 4))
+  // the attention tasks copy rows in 16-byte pieces from 16-byte aligned planes
+  if ((uintptr_t)k_cache % 16 || (uintptr_t)v_cache % 16 ||
+      (kv_int8 && ((uintptr_t)k_scale % 4 || (uintptr_t)v_scale % 4)))
     return (int)cudaErrorMisalignedAddress;
   const LayerArgs a{
       (const bf16*)x, (const int8_t*)qkv_q, (const float*)qkv_s, (const float*)g1,
@@ -398,7 +403,7 @@ extern "C" int q8_layer_fused(const void* x, const void* qkv_q, const void* qkv_
       (const int8_t*)w2_q, (const float*)w2_s, (const float*)g2, (bf16*)out, (bf16*)xn_ws,
       (bf16*)qkv_ws, (bf16*)att_ws, (bf16*)x2_ws, (bf16*)hb_ws, (float*)part_ws,
       (unsigned int*)bar_ws, B, D, H, KVH, S, HS, L, layer, hidden, gs_qkv, gs_o, gs13, gs2,
-      split_q, split_o, split13, split2, bk, kv_int8 ? int8_chunk(HS, H / KVH, bk) : bk, kv_int8,
+      split_q, split_o, split13, split2, bk, attention_chunk(HS, H / KVH, bk, kv_int8), kv_int8,
       (float)(1.0 / sqrt((double)HS)), rope_coef, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return B <= 8 ? launch_layer<8>(a, st) : launch_layer<16>(a, st);
@@ -417,7 +422,7 @@ extern "C" int q8_layer_ctas_per_sm(int B, int H, int KVH, int HS, int bk, int k
   a.KVH = KVH;
   a.HS = HS;
   a.bk = bk;
-  a.bc = kv_int8 ? int8_chunk(HS, H / KVH, bk) : bk;
+  a.bc = attention_chunk(HS, H / KVH, bk, kv_int8);
   a.kv_int8 = kv_int8;
   int per_sm = 0;
   const cudaError_t e = B <= 8 ? layer_ctas_per_sm<8>(layer_smem<8>(a), per_sm)

@@ -28,8 +28,11 @@ With a bf16 cache the rounded probabilities depend on where the running
 max is taken, so the plain versions walk a bf16 cache in the JAX kernels'
 KV blocks (`decode_block`, `ref_block`; an fp32 cache takes the one-pass
 softmax, the same math), and so do the CUDA kernels: each takes a whole
-block's max before it rounds any. The fp32/bf16 decode kernels hold the
-block's scores in shared memory (`check_decode_block` bounds the block).
+block's max before it rounds any. On the card the fp32/bf16 decode task
+streams the block's K and V tiles through a shared-memory ring (cp.async,
+several tiles in flight), holds the block's scores in shared memory, and
+walks a block past its shared memory in chunks (its K tiles once more, for
+the block's max), so no block is refused.
 
 Prefill takes one of three routes by the cache's dtype, a dispatch by
 type as the JAX kernels' `quantized` branch: a bf16 cache (C entry
@@ -95,9 +98,6 @@ KV_GROUP = 8  # query heads of one decode task (csrc/decode_attention.cuh kMaxM)
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 DECODE_BLOCK = 1024  # the JAX decode kernels' KV block target
 PREFILL_BLOCK = 512  # the JAX prefill kernels' KV block target
-# shared memory the fp32/bf16 decode task may give a block's M x bk fp32
-# scores (the H100's 227 KB per CTA less the task's own)
-DECODE_SCORES_BYTES = 200 * 1024
 # shared memory a CTA may take on an H100 (csrc/attention.cu's prefill kernels)
 SMEM_PER_CTA = 232448
 _PF_ROWS = _PF_TILE = 64  # query rows per prefill CTA, cache rows per tile
@@ -149,18 +149,6 @@ def decode_block(s: int, quantized: bool = False) -> int:
     if quantized and bk % 128 and bk != s:
         bk = 128 if s % 128 == 0 else s
     return bk
-
-
-def check_decode_block(m: int, bk: int, quantized: bool = False) -> None:
-    """A fp32/bf16 decode task holds a block's scores for its query heads
-    (m per KV head, at most KV_GROUP a task) in shared memory; the int8
-    task takes any block (in chunks past a CTA's shared memory)."""
-    if quantized:
-        return
-    m = min(m, KV_GROUP)
-    if 4 * m * bk > DECODE_SCORES_BYTES:
-        raise ValueError(f"decode attention holds {m} x {bk} fp32 scores per block, "
-                         f"more than {DECODE_SCORES_BYTES} bytes of shared memory")
 
 
 def prefill_smem_bytes(hs: int, bk: int, cache_dtype) -> int:
@@ -361,7 +349,6 @@ def attention_decode(q, k_cache, v_cache, layer: int, pos, k_cur, v_cur, k_scale
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty((bsz, h, hs), dtype=dt, device=dev)
     bk = decode_block(s, quantized)
-    check_decode_block(h // kvh, bk, quantized)
     if quantized:
         fn = _build.bind("attention", "attention_decode_int8", "ppppppppp" + "i" * 11 + "p")
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -427,7 +414,6 @@ def attention_decode_fused(qkv, k_cache, v_cache, layer: int, pos, n_heads: int,
     check_operand("pos", pos, (bsz,), torch.int32, dev)
     out = torch.empty((bsz, h, hs), dtype=dt, device=dev)
     bk = decode_block(s, quantized)
-    check_decode_block(h // kvh, bk, quantized)
     if quantized:
         fn = _build.bind("attention", "attention_decode_fused_int8", "ppppppp" + "iiiiiiiii" + "p")
         rc = fn(qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -610,7 +596,6 @@ def attention_decode_paged(q, k_pages, v_pages, page_table, layer: int, pos, k_c
     check_table(page_table, bsz, dev)
     out = torch.empty_like(q)
     dims = (bsz, h, kvh, n_pages, ps, max_pages, hs, layer, _DTYPES[dt], ps)
-    check_decode_block(h // kvh, ps, quantized)
     if quantized:
         fn = _build.bind("attention", "attention_decode_paged_int8", "p" * 10 + "i" * 10 + "p")
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),

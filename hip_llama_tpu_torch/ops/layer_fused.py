@@ -100,7 +100,6 @@ def q8_layer_fused(x, wqkv, wo, w13, w2, g1, g2, k_cache, v_cache, layer: int, p
     part = torch.empty(max(sp * b * n for n, sp in plans), dtype=torch.float32, device=dev)
     bar = torch.zeros(2, dtype=torch.int32, device=dev)
     bk = layer_block(s, h, kvh, hs, quantized)
-    _attn.check_decode_block(h // kvh, bk, quantized)
     fn = _build.bind("layer_fused", "q8_layer_fused", "p" * 24 + "i" * 19 + "ff" + "p")
     rc = fn(x.data_ptr(), wqkv.q.data_ptr(), wqkv.s.data_ptr(), g1.data_ptr(), pos.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), 0 if k_scale is None else k_scale.data_ptr(),

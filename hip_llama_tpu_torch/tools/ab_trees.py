@@ -20,9 +20,15 @@ so that the package is imported from the checkout), once per checkout.
 - attention: the attention kernels at Llama-2-7B heads (B 8, 8 layers of
   KVH 32, HS 128, S 512; decode at positions 0..511; prefill T 256 from row
   256, and T 128 over pages of 128): K1, K1 int8, K5 int8, K6 int8 (pages
-  of 128), K5, K4, K4 int8, K6, K7 (the decode kernels as CUDA-graph
-  replays);
-  each the least of three CUDA-event means (chip_smoke.cuda_ms).
+  of 128), K5, K4, K4 int8, K6, K7, and SDPA beside K1 and K5 and beside
+  K6 (over [history rows | current row] with the same mask, the pages
+  gathered beforehand); then K1 and SDPA with every slot at position 511 (the
+  same bytes in every task, against the ragged positions' longest slot);
+  the decode kernels and SDPA as CUDA-graph replays, each the least of
+  three CUDA-event means (chip_smoke.cuda_ms). Then `layer_parts` on the
+  bf16 cache and on the int8 one, and the port bench's decode (one CUDA
+  graph) with `--kv bf16` (K23's bf16 phase), `--quant q4 --kv bf16` (K5)
+  and `--quant none --kv bf16` (K1), in process.
 - serve: a 7B-width Q8_0 model on the int8 KV cache (random weights from
   chip_smoke's seed): a decode step of 8 slots profiled (device time by
   kernel) with the fused layer (K23) and with the four-kernel layer,
@@ -107,13 +113,16 @@ so that the package is imported from the checkout), once per checkout.
   the host's time per eager call of q8_matmul on QKV M 8 with the norm and
   RoPE (100 calls, no synchronize inside), in `a8` and reshape math;
   chip_smoke's 16-request serve of the unrolled model in `a8`, once.
-- sass: csrc/quant.cu, quant4.cu and layer_fused.cu of the checkout
+- sass: csrc/quant.cu, quant4.cu, layer_fused.cu and attention.cu of the checkout
   compiled to cubins with `ptxas -v` (each kernel's registers, stack frame
-  and spill bytes, a line each); with another checkout, its cubins too,
+  and spill bytes, and each noinline subroutine's stack frame and spill
+  bytes, a line each); with another checkout, its cubins too,
   and the SASS of the two compared function by function (cuobjdump -sass;
   names normalized, addresses and encodings dropped): a line for each
-  function that differs or is only in one tree, then a count. It needs
-  nvcc, not the card.
+  function that differs or is only in one tree, then a count; where a
+  kernel differs, the same for each subroutine its cubin labels (nvdisasm:
+  K23's noinline phases apart from its own code). It needs nvcc, not the
+  card.
 """
 
 from __future__ import annotations
@@ -124,6 +133,7 @@ import tempfile
 
 def attention(cs) -> None:
     import torch
+    import torch.nn.functional as F
 
     from hip_llama_tpu_torch.ops import attention as A
     from hip_llama_tpu_torch.ops import cache as C
@@ -141,6 +151,7 @@ def attention(cs) -> None:
     pos = torch.tensor([0, 1, 100, 255, 256, 300, 450, s - 1], dtype=torch.int32, device=dev)
     qkv = rnd(b, h + 2 * kvh, hs)
     q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    full = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
     qp = rnd(b, t, h, hs)
     start = torch.zeros(b, dtype=torch.int32, device=dev) + 256
     valid = torch.full((b,), t, dtype=torch.int32, device=dev)
@@ -149,6 +160,21 @@ def attention(cs) -> None:
     kp, vp = rnd(n_layers, kvh, b * 4 + 1, 128, hs), rnd(n_layers, kvh, b * 4 + 1, 128, hs)
     (kp8, kps), (vp8, vps) = (C.quantize_kv_rows(x.float()) for x in (kp, vp))
     q7 = qp[:, :128].contiguous()
+
+    def sdpa(kk, vv, p):
+        """SDPA over [history rows | current row] of each layer with K1's
+        mask at positions p, the rows (for pages: gathered) beforehand"""
+        kf = [torch.cat([kk(l), kc[:, :, None]], dim=2) for l in range(n_layers)]
+        vf = [torch.cat([vv(l), vc[:, :, None]], dim=2) for l in range(n_layers)]
+        col = torch.arange(kf[0].shape[2], device=dev)
+        mask = ((col[None, :] < p[:, None]) | (col[None, :] == col[-1]))[:, None, None, :]
+        q4 = q[:, :, None, :]
+        return lambda i: F.scaled_dot_product_attention(q4, kf[i % n_layers], vf[i % n_layers],
+                                                        attn_mask=mask)
+
+    dense = (lambda l: k[:, l], lambda l: v[:, l])
+    paged = (lambda l: A.gather_pages(kp, table, l)[:, 0],
+             lambda l: A.gather_pages(vp, table, l)[:, 0])
     cases = {
         "K1": lambda i: A.attention_decode(q, k, v, i % n_layers, pos, kc, vc),
         "K1 int8": lambda i: A.attention_decode(q, k8, v8, i % n_layers, pos, kc, vc, ks, vs),
@@ -161,6 +187,10 @@ def attention(cs) -> None:
         "K6": lambda i: A.attention_decode_paged(q, kp, vp, table, i % n_layers, pos, kc, vc),
         "K7": lambda i: A.attention_prefill_paged(q7, kp, vp, table, i % n_layers, start - 128,
                                                   valid // 2),
+        "SDPA (K1, K5)": sdpa(*dense, pos),
+        "SDPA on the gathered pages (K6)": sdpa(*paged, pos),
+        "K1 at 511": lambda i: A.attention_decode(q, k, v, i % n_layers, full, kc, vc),
+        "SDPA at 511": sdpa(*dense, full),
     }
     for name, fn in cases.items():
         fn(0)
@@ -168,6 +198,12 @@ def attention(cs) -> None:
         graph = not name.startswith(("K4", "K7"))  # decode: below its wrapper's host cost
         ms = [cs.cuda_ms(fn, graph=graph) for _ in range(3)]
         print(f"{name}: ms {min(ms):.4f} ({', '.join(f'{m:.4f}' for m in ms)})", flush=True)
+    del cases, k, v, k8, v8, kp, vp, kp8, vp8
+    torch.cuda.empty_cache()
+    layer_parts(cs.cuda_ms, int8=False)
+    layer_parts(cs.cuda_ms)
+    bench_lines(cs, [["--kv", "bf16"], ["--quant", "q4", "--kv", "bf16"],
+                     ["--quant", "none", "--kv", "bf16"]])
 
 
 def int8(cs) -> None:
@@ -217,17 +253,18 @@ def int8(cs) -> None:
     layer_parts(cs.cuda_ms)
 
 
-def layer_parts(cuda_ms, b: int = 8, s: int = 512, rot: int = 8) -> None:
-    """K23 on an int8 cache at Llama-2-7B widths (b slots over rot layers of
-    a cache of s rows, the layers and two weight copies rotating so that
-    each call finds its weights and rows cold in L2) beside the standalone
-    kernels of its phases on the same inputs: the QKV GEMV with the norm and
-    RoPE, K5 int8, the wo GEMV with the residual and K18 (norm, the gate
-    product, W2 with the residual). K23 less their sum is what its barriers,
-    its grid and its epilogue passes cost against the four-kernel layer's
-    launches. CUDA-event means of CUDA-graph replays (cuda_ms: chip_smoke's;
-    the device time, below the wrappers' host cost), the least of three;
-    prints one `parts` line."""
+def layer_parts(cuda_ms, b: int = 8, s: int = 512, rot: int = 8, int8: bool = True) -> None:
+    """K23 on an int8 cache (or with `int8` False a bf16 one) at Llama-2-7B
+    widths (b slots over rot layers of a cache of s rows, the layers and two
+    weight copies rotating so that each call finds its weights and rows cold
+    in L2) beside the standalone kernels of its phases on the same inputs:
+    the QKV GEMV with the norm and RoPE, K5 on the same cache, the wo GEMV
+    with the residual and K18 (norm, the gate product, W2 with the
+    residual). K23 less their sum is what its barriers, its grid and its
+    epilogue passes cost against the four-kernel layer's launches.
+    CUDA-event means of CUDA-graph replays (cuda_ms: chip_smoke's; the
+    device time, below the wrappers' host cost), the least of three; prints
+    one `parts` line."""
     import torch
 
     from hip_llama_tpu_torch.ops import attention as A
@@ -247,20 +284,25 @@ def layer_parts(cuda_ms, b: int = 8, s: int = 512, rot: int = 8) -> None:
 
     lw = [dict(wqkv=weights(d, 3 * d), wo=weights(d, d), w13=weights(d, 2 * hid),
                w2=weights(hid, d)) for _ in range(2)]
-    (k8, ks), (v8, vs) = (C.quantize_kv_rows(rnd(b, rot, h, s, hs, dtype=torch.float32))
-                          for _ in range(2))
+    if int8:
+        (k8, ks), (v8, vs) = (C.quantize_kv_rows(rnd(b, rot, h, s, hs, dtype=torch.float32))
+                              for _ in range(2))
+        sc, kind = (ks, vs), "int8"
+    else:
+        k8, v8, sc, kind = rnd(b, rot, h, s, hs), rnd(b, rot, h, s, hs), (), "bf16"
     g1, g2 = ((1 + 0.1 * rnd(d, dtype=torch.float32)).contiguous() for _ in range(2))
     pos = (torch.arange(b, dtype=torch.int32, device=dev) * 61 + 17) % s
     x, x2 = rnd(b, d), rnd(b, d)
     qkv = rnd(b, 3 * h, hs)
     att = rnd(b, d)
+    k23, k5 = f"K23 {kind}", f"K5 {kind}"
     cases = {
-        "K23 int8": lambda i: LF.q8_layer_fused(
+        k23: lambda i: LF.q8_layer_fused(
             x, lw[i % 2]["wqkv"], lw[i % 2]["wo"], lw[i % 2]["w13"], lw[i % 2]["w2"], g1, g2, k8,
-            v8, i % rot, pos, ks, vs, n_heads=h),
+            v8, i % rot, pos, *sc, n_heads=h),
         "QKV": lambda i: Q.q8_matmul(x, lw[i % 2]["wqkv"], norm_weight=g1, rope_pos=pos,
                                      rope_limit=2 * d, rope_head=hs),
-        "K5 int8": lambda i: A.attention_decode_fused(qkv, k8, v8, i % rot, pos, h, ks, vs),
+        k5: lambda i: A.attention_decode_fused(qkv, k8, v8, i % rot, pos, h, *sc),
         "wo": lambda i: Q.q8_matmul(att, lw[i % 2]["wo"], residual=x),
         "K18": lambda i: Q.q8_matmul_ffn(x2, lw[i % 2]["w13"], lw[i % 2]["w2"], x2, g2),
     }
@@ -269,10 +311,10 @@ def layer_parts(cuda_ms, b: int = 8, s: int = 512, rot: int = 8) -> None:
         fn(0)
         torch.cuda.synchronize()
         ms[name] = min(cuda_ms(fn, graph=True) for _ in range(3))
-    parts = sum(v for n, v in ms.items() if n != "K23 int8")
-    print(f"parts K23 int8 [B {b}, 7B layer, S {s}]: K23 {ms['K23 int8']:.4f} ms; "
-          + "; ".join(f"{n} {v:.4f}" for n, v in ms.items() if n != "K23 int8")
-          + f"; sum of the parts {parts:.4f}; K23 - sum {ms['K23 int8'] - parts:+.4f} ms",
+    parts = sum(v for n, v in ms.items() if n != k23)
+    print(f"parts {k23} [B {b}, 7B layer, S {s}]: K23 {ms[k23]:.4f} ms; "
+          + "; ".join(f"{n} {v:.4f}" for n, v in ms.items() if n != k23)
+          + f"; sum of the parts {parts:.4f}; K23 - sum {ms[k23] - parts:+.4f} ms",
           flush=True)
 
 
@@ -895,8 +937,9 @@ def a8host(cs) -> None:
 
 
 # the sources whose kernels the sass mode compiles and compares: the
-# products' and the fused layer's (K23, which inlines q8.cuh's GEMV)
-SASS_SOURCES = ("quant", "quant4", "layer_fused")
+# products', the fused layer's (K23, which inlines q8.cuh's GEMV) and the
+# attention kernels' (the decode tasks of decode_attention.cuh)
+SASS_SOURCES = ("quant", "quant4", "layer_fused", "attention")
 
 
 def _sass(cubin: str) -> dict[str, list[str]]:
@@ -921,6 +964,42 @@ def _sass(cubin: str) -> dict[str, list[str]]:
             line = re.sub(anon, "_GLOBAL__N_", line).strip()
             if line:
                 funcs[name].append(line)
+    return funcs
+
+
+def _subroutines(cubin: str) -> dict[str, list[str]]:
+    """The SASS of each function symbol of a cubin as nvdisasm labels them:
+    a kernel's own code apart from each noinline device function it calls
+    (K23's phases), names and lines normalized, branch labels renumbered
+    within each function."""
+    import os
+    import re
+    import subprocess
+
+    from hip_llama_tpu_torch.ops import _build
+
+    # the file's anonymous namespace and internal-linkage prefixes, which
+    # carry hashes of the source
+    anon = r"_(GLOBAL__N_|INTERNAL)_[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}"
+    out = subprocess.run([os.path.join(os.path.dirname(_build._nvcc()), "nvdisasm"), "-c",
+                          cubin], capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        # a kernel's label, or a subroutine's: $<kernel>$<function>
+        m = re.match(r"(\$?_Z\S*|\$__internal\S*):\s*$", line)
+        if m:
+            name = re.sub(anon, r"_\1_", m.group(1))
+            funcs[name] = []
+            continue
+        line = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
+        if name is None or not line or (line.startswith(".") and not line.startswith(".L_x")):
+            continue
+        funcs[name].append(re.sub(anon, r"_\1_", line))
+    for lines in funcs.values():
+        labels: dict[str, str] = {}
+        for i, line in enumerate(lines):
+            lines[i] = re.sub(r"\.L_x_\d+",
+                              lambda m: labels.setdefault(m.group(0), f".L{len(labels)}"), line)
     return funcs
 
 
@@ -953,18 +1032,31 @@ def sass(this: str, other: str | None) -> None:
             raise RuntimeError(f"nvcc failed on {src}.cu ({tag}):\n{log}")
         if tag != "this":
             continue
-        name, frame = None, ("?", "?", "?")
+        def demangle(sym):
+            if not os.path.exists(filt):
+                return sym
+            return subprocess.run([filt, sym], capture_output=True, text=True).stdout.strip()
+
+        # each kernel's line, then one for each subroutine it calls (ptxas
+        # lists their properties after the kernel's)
+        name, kernel, sub, frame = None, "", None, ("?", "?", "?")
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                name = m.group(1)
-                if os.path.exists(filt):
-                    name = subprocess.run([filt, name], capture_output=True,
-                                          text=True).stdout.strip()
+                name = kernel = demangle(m.group(1))
+            m = re.search(r"Function properties for (\S+)", line)
+            if m and name is None:
+                sub = re.sub(r"_INTERNAL_\w+::|\(anonymous namespace\)::", "",
+                             demangle(m.group(1)))
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", line)
             if m and name:
                 frame = m.groups()
+            elif m and sub:
+                print(f"ptxas {src}.cu: subroutine, stack {m.group(1)} B, spill stores "
+                      f"{m.group(2)} B, loads {m.group(3)} B: {sub[:110]} in {kernel[:70]}",
+                      flush=True)
+                sub = None
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 print(f"ptxas {src}.cu: {m.group(1)} registers, stack {frame[0]} B, spill "
@@ -985,6 +1077,20 @@ def sass(this: str, other: str | None) -> None:
                 print(f"sass {src}.cu: differs ({len(a[n])} vs {len(b[n])} lines): {n[:110]}")
         print(f"sass {src}.cu: {same} of {len(set(a) & set(b))} functions in both trees "
               f"identical", flush=True)
+        if same == len(set(a) & set(b)):
+            continue
+        # a kernel that differs: which of its subroutines do
+        try:
+            a, b = (_subroutines(procs[(src, tag)][1]) for tag in ("other", "this"))
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"sass {src}.cu: nvdisasm not run ({e})")
+            continue
+        differ = sorted(n for n in set(a) & set(b) if a[n] != b[n])
+        for n in differ + sorted(set(a) ^ set(b)):
+            where = "differs" if n in differ else f"only in {'the other' if n in a else 'this'} tree"
+            print(f"sass {src}.cu: subroutine {where}: {n[:110]}")
+        print(f"sass {src}.cu: {len(set(a) & set(b)) - len(differ)} of {len(set(a) & set(b))} "
+              f"functions and subroutines in both trees identical (nvdisasm)", flush=True)
 
 
 def main(argv: list[str]) -> int:

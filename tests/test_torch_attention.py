@@ -489,6 +489,49 @@ def test_int8_decode_wrappers_take_any_block(launches, s, m):
         ("attention_decode_paged_int8", s), ("q8_layer_fused", s)]
 
 
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,m", [(6404, 8), (51204, 1)])
+def test_bf16_decode_wrappers_take_any_block(launches, s, m, cache):
+    """On an fp32 or bf16 cache of s rows that no power of two from 8
+    divides, the JAX block is s itself (`decode_block`); K1, K5, K6 (pages
+    of s rows) and, on bf16, K23 launch at it with 8 query heads per KV head
+    (Llama-2-70B's grouping) at 6404 rows and one at 51204. The fp32/bf16
+    task walks a block past its shared memory in chunks, so no wrapper
+    refuses one."""
+    from hip_llama_tpu_torch.ops import layer_fused as LF
+    from hip_llama_tpu_torch.ops import quant as Q
+
+    b, kvh, hs = 1, 1, 128
+    h = m * kvh
+    dt = torch.float32 if cache == "float32" else torch.bfloat16
+    assert A.decode_block(s) == s
+    assert LF.layer_block(s, h, kvh, hs, False) == s
+    k, v, sc = _cache_planes((b, 1, kvh, s, hs), cache)
+    kp, vp, scp = _cache_planes((1, kvh, 2, s, hs), cache)
+    pos = _on_card(torch.zeros(b, dtype=torch.int32))
+    cur = [_on_card(torch.zeros(b, kvh, hs, dtype=dt)) for _ in range(2)]
+    q = _on_card(torch.zeros(b, h, hs, dtype=dt))
+    A.attention_decode(q, k, v, 0, pos, *cur, *sc)
+    A.attention_decode_fused(_on_card(torch.zeros(b, h + 2 * kvh, hs, dtype=dt)), k, v, 0, pos,
+                             h, *sc)
+    A.attention_decode_paged(q, kp, vp, _on_card(torch.ones(b, 1, dtype=torch.int32)), 0, pos,
+                             *cur, *scp)
+    want = [("attention_decode", s), ("attention_decode_fused", s),
+            ("attention_decode_paged", s)]
+    if cache == "bfloat16":
+        d, hid = h * hs, 16
+
+        def qt(kk, n):
+            return Q.QTensor(_on_card(torch.zeros(kk, n, dtype=torch.int8)),
+                             _on_card(torch.ones(kk // 16, n)))
+
+        g = _on_card(torch.ones(d))
+        LF.q8_layer_fused(_on_card(torch.zeros(b, d, dtype=dt)), qt(d, (h + 2 * kvh) * hs),
+                          qt(d, d), qt(d, 2 * hid), qt(hid, d), g, g, k, v, 0, pos, n_heads=h)
+        want.append(("q8_layer_fused", s))
+    assert [(fn, args[-5 if fn == "q8_layer_fused" else -2]) for fn, args in launches] == want
+
+
 def test_int8_decode_wrappers_refuse_misaligned_planes(launches):
     """The int8 task copies K and V rows in 16-byte pieces: K1, K5 and K23
     refuse int8 planes that are not 16-byte aligned before launching (as

@@ -2084,3 +2084,196 @@ def test_grid_barrier_probe_passes_its_barriers():
     assert LF.grid_barrier_probe.launches == n0 + 4
     with pytest.raises(RuntimeError, match="CUDA error"):
         LF.grid_barrier_probe(1, 2 * sms + 1, dev)
+
+
+# ---------------------------------------------------------------------------
+# the fp32/bf16 decode task (csrc/decode_attention.cuh::decode_attention_task):
+# a cp.async tile ring, any block (a block past its shared memory in chunks)
+
+
+def _decode_close(got, want, dtype):
+    """fp32: TOL; bf16: one bf16 ulp of |want| and at least 2^-8 absolute
+    (chip_smoke's ATTN_ATOL): both sides round p to bf16 at the same block
+    max, in another fp32 summation order."""
+    g, w = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(g, w, atol=TOL[dtype], rtol=TOL[dtype])
+        return
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    err = (g - w).abs()
+    assert bool((err <= ulp.clamp_min(2.0 ** -8)).all()), err.max().item()
+
+
+# (S, query heads per KV head, KV heads, head size) and (pages of PS, pages a
+# slot, ...): blocks of 128 (S 512, pages of 128), 512 (pages) and 1024 (S
+# 2048); 1, 4, 8, 12 query heads a KV head; head sizes 48, 128, 256
+KV_EDGE_CASES = [(512, 1, 4, 128), (512, 12, 2, 48), (2048, 4, 2, 256), (2048, 8, 2, 128),
+                 (2048, 1, 3, 48)]
+KV_PAGE_CASES = [(128, 4, 8, 2, 256), (512, 2, 4, 2, 128), (128, 3, 12, 1, 48),
+                 (512, 2, 1, 3, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,m,kvh,hs", KV_EDGE_CASES)
+def test_attention_decode_kernels_at_the_block_edges(s, m, kvh, hs, dtype):
+    """K1 and K5 on an fp32 or bf16 cache against their plain versions at
+    the JAX block's edges, K5 equal to K1 bit for bit."""
+    dev = _card()
+    bk = A.decode_block(s)
+    pos_l = [0, bk - 1, bk, bk + 1, s - 1]
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(s + m + hs + 7)
+    k = _rand(rng, (b, 2, kvh, s, hs), dtype, dev)
+    v = _rand(rng, (b, 2, kvh, s, hs), dtype, dev)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), dtype, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    n0 = A.attention_decode.launches
+    got = A.attention_decode(q, k, v, 1, pos, kc, vc)
+    want = A.attention_decode_plain(q, k, v, 1, pos, kc, vc)
+    fused = A.attention_decode_fused(qkv, k, v, 1, pos, h)
+    torch.cuda.synchronize()
+    assert A.attention_decode.launches == n0 + 1
+    _decode_close(got, want, dtype)
+    assert torch.equal(fused, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,max_pages,m,kvh,hs", KV_PAGE_CASES)
+def test_attention_decode_paged_kernel_at_the_page_edges(ps, max_pages, m, kvh, hs, dtype):
+    """K6 on fp32 or bf16 pages against its plain version at the page's
+    edges (the JAX paged kernel's block), pages in shuffled order."""
+    dev = _card()
+    s = ps * max_pages
+    pos_l = [0, ps - 1, ps, ps + 1, s - 1]
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(ps + m + hs + 7)
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, dtype, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    q = _rand(rng, (b, h, hs), dtype, dev)
+    kc, vc = _rand(rng, (b, kvh, hs), dtype, dev), _rand(rng, (b, kvh, hs), dtype, dev)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    n0 = A.attention_decode_paged.launches
+    got = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc)
+    want = A.attention_decode_paged_plain(q, pool.k, pool.v, table, 1, pos, kc, vc)
+    torch.cuda.synchronize()
+    assert A.attention_decode_paged.launches == n0 + 1
+    _decode_close(got, want, dtype)
+
+
+# blocks past the task's shared memory (decode_chunk at head size 128: 1280
+# bf16 rows at 8 query heads a KV head, 1024 fp32; 10496 and 9984 at one):
+# (S = the JAX block, query heads per KV head, KV heads, positions)
+KV_LONG_CASES = [(6404, 8, 1, [0, 1024, 1280, 2561, 6403]),
+                 (51204, 1, 2, [0, 9984, 10496, 30000, 51203])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,m,kvh,pos_l", KV_LONG_CASES)
+def test_attention_decode_kernels_past_shared_memory(s, m, kvh, pos_l, dtype):
+    """K1 and K5 on an fp32 or bf16 cache whose JAX block is the whole cache
+    (no power of two from 8 divides S), past the task's shared memory:
+    against their plain versions, K5 equal to K1 bit for bit, and two calls
+    equal bit for bit."""
+    dev = _card()
+    hs = 128
+    assert A.decode_block(s) == s
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(s + m)
+    k = _rand(rng, (b, 2, kvh, s, hs), dtype, dev)
+    v = _rand(rng, (b, 2, kvh, s, hs), dtype, dev)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), dtype, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    got = A.attention_decode(q, k, v, 1, pos, kc, vc)
+    again = A.attention_decode(q, k, v, 1, pos, kc, vc)
+    want = A.attention_decode_plain(q, k, v, 1, pos, kc, vc)
+    fused = A.attention_decode_fused(qkv, k, v, 1, pos, h)
+    torch.cuda.synchronize()
+    _decode_close(got, want, dtype)
+    assert torch.equal(fused, got) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_decode_paged_kernel_past_shared_memory(dtype):
+    """K6 on fp32 or bf16 pages of 6404 rows (the JAX block) at 8 query
+    heads per KV head, past the task's shared memory, against its plain
+    version."""
+    dev = _card()
+    ps, max_pages, m, kvh, hs = 6404, 2, 8, 1, 128
+    pos_l = [0, 1280, ps - 1, ps, ps * max_pages - 1]
+    b, h = len(pos_l), m * kvh
+    rng = np.random.default_rng(ps + 1)
+    n_pages = b * max_pages + 1
+    pool = _paged_pool(rng, 2, kvh, n_pages, ps, hs, dtype, dev)
+    table = _paged_table(rng, b, max_pages, n_pages, dev)
+    q = _rand(rng, (b, h, hs), dtype, dev)
+    kc, vc = _rand(rng, (b, kvh, hs), dtype, dev), _rand(rng, (b, kvh, hs), dtype, dev)
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    got = A.attention_decode_paged(q, pool.k, pool.v, table, 1, pos, kc, vc)
+    want = A.attention_decode_paged_plain(q, pool.k, pool.v, table, 1, pos, kc, vc)
+    torch.cuda.synchronize()
+    _decode_close(got, want, dtype)
+
+
+def test_q8_layer_fused_bf16_past_shared_memory():
+    """K23 on a bf16 cache whose block (6404 rows, 8 query heads per KV
+    head) is past the attention task's shared memory: against its plain
+    version, bit for bit the four kernels in a row and its own second call,
+    on two CTAs an SM (the task's chunk keeps beside a second CTA)."""
+    from hip_llama_tpu_torch.ops import _build
+
+    dev = _card()
+    b, m, kvh, hs, s = 3, 8, 2, 128, 6404
+    h = m * kvh
+    d, hid, gs = h * hs, 256, 64
+    assert LF.layer_block(s, h, kvh, hs, False) == s
+    fn = _build.bind("layer_fused", "q8_layer_ctas_per_sm", "iiiiii")
+    assert fn(b, h, kvh, hs, s, 0) == 2
+    rng = np.random.default_rng(s + 1)
+    k = _rand(rng, (b, 2, kvh, s, hs), torch.bfloat16, dev)
+    v = _rand(rng, (b, 2, kvh, s, hs), torch.bfloat16, dev)
+    w = dict(wqkv=_qt(rng, d, (h + 2 * kvh) * hs, gs, dev), wo=_qt(rng, d, d, gs, dev),
+             w13=_qt(rng, d, 2 * hid, gs, dev), w2=_qt(rng, hid, d, gs, dev))
+    g1, g2 = ((1 + 0.1 * _rand(rng, (d,), torch.float32, dev)).contiguous() for _ in range(2))
+    x = _rand(rng, (b, d), torch.bfloat16, dev)
+    pos = torch.tensor([0, 1281, s - 1], dtype=torch.int32, device=dev)
+    args = (x, w["wqkv"], w["wo"], w["w13"], w["w2"], g1, g2, k, v, 1, pos)
+    n0 = LF.q8_layer_fused.launches
+    got, rows = LF.q8_layer_fused(*args, n_heads=h)
+    again, _ = LF.q8_layer_fused(*args, n_heads=h)
+    want, want_rows = LF.q8_layer_fused_plain(*args, n_heads=h)
+    qkv = Q.q8_matmul(x, w["wqkv"], norm_weight=g1, rope_pos=pos, rope_limit=(h + kvh) * hs,
+                      rope_head=hs).view(b, h + 2 * kvh, hs)
+    att = A.attention_decode_fused(qkv, k, v, 1, pos, h)
+    x2 = Q.q8_matmul(att.reshape(b, d), w["wo"], residual=x)
+    four = Q.q8_matmul_ffn(x2, w["w13"], w["w2"], x2, g2)
+    torch.cuda.synchronize()
+    assert LF.q8_layer_fused.launches == n0 + 2
+    _close(rows, want_rows, torch.bfloat16)
+    _close(got, want, torch.bfloat16)
+    assert torch.equal(got, four) and torch.equal(rows, qkv[:, h:]) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_decode_kernels_are_deterministic(dtype):
+    """K1, K5 and K6 at Llama-2-7B's heads (B 8, 32 KV heads, S 512, pages
+    of 128): two calls give the same bits (the row groups' sums are added
+    in a fixed order, never by float atomics)."""
+    dev = _card()
+    b, h, kvh, s, hs, ps = 8, 32, 32, 512, 128, 128
+    rng = np.random.default_rng(33)
+    k = _rand(rng, (b, 1, kvh, s, hs), dtype, dev)
+    v = _rand(rng, (b, 1, kvh, s, hs), dtype, dev)
+    qkv = _rand(rng, (b, h + 2 * kvh, hs), dtype, dev)
+    q, kc, vc = (x.contiguous() for x in (qkv[:, :h], qkv[:, h:h + kvh], qkv[:, h + kvh:]))
+    pos = torch.tensor([0, 1, 100, 255, 256, 300, 450, s - 1], dtype=torch.int32, device=dev)
+    pool = _paged_pool(rng, 1, kvh, b * s // ps + 1, ps, hs, dtype, dev)
+    table = _paged_table(rng, b, s // ps, b * s // ps + 1, dev)
+    for call in (lambda: A.attention_decode(q, k, v, 0, pos, kc, vc),
+                 lambda: A.attention_decode_fused(qkv, k, v, 0, pos, h),
+                 lambda: A.attention_decode_paged(q, pool.k, pool.v, table, 0, pos, kc, vc)):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
