@@ -167,7 +167,23 @@ Phases, in order; each raises on failure and none is caught:
      and a stories15M-shaped model (random weights, 2 layers) served
      through the CLI on the card and on the CPU in fp32, fp32 --kv int8 and
      int4 with HIPLLAMA_Q4_MODE=a8 (groups of 16), the card's kernel path
-     and the CPU's plain path logits compared, the path's launches counted.
+     and the CPU's plain path logits compared, the path's launches counted;
+  14. the engine's other dispatch schedules: the fixture through the CLI in
+     fp32 with --chunk 4, --device-sampling, --chunk 4 --paged 16, --chunk 4
+     --prefix-cache, --spec 4 and --spec 4 --draft (byte-identical to
+     cpu_f32), and with --quant q8 --kv int8 --chunk 4 (against cpu_q8_kv8)
+     and --spec 4 (against the JAX CLI's --spec 4 outputs, cpu_q8_kv8_spec4)
+     at the average bar; the fixture's Q8 + int8-KV chunked and speculative
+     serves against the card's plain serve, every fork a near-tie (top-2
+     gap at most 0.1); phase 6's 7B-width Q8 + int8-KV serve at
+     chunk_steps=8 with device sampling against a plain serve (forks inside
+     twice the kernel path's logit tolerance; K23 32 times a decode step),
+     its tok/s and TTFT beside phase 6's, one chunk's host enqueue against
+     its wall time, the device argmax against the host's on the step's
+     logits (raw, bf16-rounded, tied rows), the chunked serve of the 8
+     shortest prompts at temperature 0.8 twice with seed 7 and once with
+     seed 8, and a prompt-lookup spec_lookup=4 serve of the first 8
+     requests with its acceptance, against the plain serve's first 8.
 The last two lines are the card line and {"ok": true, "device": ...}. With no
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -195,7 +211,13 @@ from hip_llama_tpu_torch.config import ModelConfig
 from hip_llama_tpu_torch.engine import InferenceEngine, Requests, read_inputfile
 from hip_llama_tpu_torch.io.checkpoint import load_checkpoint, write_v4
 from hip_llama_tpu_torch.io.tokenizer_io import read_tokenizer_bin, write_tokenizer_bin
-from hip_llama_tpu_torch.models.llama import KVCache, init_kv_cache, make_decode_step, make_prefill
+from hip_llama_tpu_torch.models.llama import (
+    KVCache,
+    init_kv_cache,
+    make_decode_step,
+    make_logit_sampler,
+    make_prefill,
+)
 from hip_llama_tpu_torch.models.paged import (
     PagedKVCache,
     init_paged_kv_cache,
@@ -3281,6 +3303,241 @@ def phase_dim288_serves() -> dict[str, dict[str, int]]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: multi-step chunks, device sampling and speculation
+
+# the fp32 fixture under each of the engine's dispatch schedules, through the
+# CLI, byte-identical to cpu_f32, with the kernels each path must launch (the
+# verify prefill's K4 and K3 at starts that are not page-aligned; the paged
+# chunks' K6 and K11)
+GOLDEN_SCHEDULE_RUNS = {
+    f"fp32 {' '.join(flags)}": (["--dtype", "float32", *flags], "1", "cpu_f32", path, True)
+    for flags, path in (
+        (["--chunk", "4"], DENSE_PATH),
+        (["--device-sampling"], DENSE_PATH),
+        (["--chunk", "4", "--paged", "16"], PAGED_PATH),
+        (["--chunk", "4", "--prefix-cache"], PAGED_PATH),
+        (["--spec", "4"], DENSE_PATH),
+        (["--spec", "4", "--draft", os.path.join(GOLDEN, "model.bin")], DENSE_PATH),
+    )
+}
+# Q8 + int8 KV: chunks run the plain loop's decode step, so they meet its bar
+# against cpu_q8_kv8; the verify prefill rounds otherwise than decode steps,
+# and the JAX package's own --spec 4 serve forks from its plain one at
+# near-ties too, so --spec 4 is held to that serve's outputs
+# (cpu_q8_kv8_spec4), at the average bar
+GOLDEN_SCHEDULE_Q8_RUNS = {
+    "q8 --kv int8 --chunk 4": (["--quant", "q8", "--kv", "int8", "--chunk", "4"], "1",
+                               "cpu_q8_kv8", ("q8_layer_fused_int8", "q8_matmul")
+                               + INT8_CACHE_PATH, False),
+    "q8 --kv int8 --spec 4": (["--quant", "q8", "--kv", "int8", "--spec", "4"], "1",
+                              "cpu_q8_kv8_spec4", ("q8_layer_fused_int8", "q8_matmul")
+                              + INT8_CACHE_PATH, False),
+}
+
+
+class IdTokenizer:
+    """A tokenizer's encode with pieces that spell the token id ("17 "), so
+    that a generation's text gives its token stream back."""
+
+    def __init__(self, tok: Tokenizer):
+        self.encode = tok.encode
+
+    def decode_piece(self, prev: int, tok: int) -> bytes:
+        return f"{tok} ".encode()
+
+
+class GapSampler(Sampler):
+    """Greedy, and it records the top-2 gap of every logit row it samples."""
+
+    def __init__(self, vocab_size: int):
+        super().__init__(vocab_size, temperature=0.0)
+        self.gaps: list[float] = []
+
+    def sample(self, logits) -> int:
+        top2 = np.partition(np.asarray(logits, np.float32), -2)[-2:]
+        self.gaps.append(float(abs(top2[1] - top2[0])))
+        return super().sample(logits)
+
+
+def id_serve(cfg, params, tok, prompts: list[str], steps: int, batch: int, **kw):
+    """Serve `prompts` greedily on the card with token-id pieces; returns
+    each request's generated ids (the prompt's echo dropped), the stats, the
+    launches and, where the host sampled, each request's top-2 gaps."""
+    eng = InferenceEngine(cfg, params, IdTokenizer(tok), batch_size=batch, **kw)
+    reqs = Requests(prompts=list(prompts), generations=[""] * len(prompts))
+    samplers = [GapSampler(cfg.vocab_size) for _ in prompts]
+    stats: dict = {}
+    reset_launches()
+    eng.serve(reqs, steps=steps, samplers=samplers, stats=stats)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    n_echo = [min(len(tok.encode(p)), steps) - 1 for p in prompts]
+    ids = [[int(t) for t in g.split()][n:] for g, n in zip(reqs.generations, n_echo)]
+    return ids, stats, launches, [sp.gaps for sp in samplers]
+
+
+def forks_at_near_ties(label: str, plain, other, bar: float = NEAR_TIE) -> list[float]:
+    """Each request's first token where `other` parts from `plain` (ids and
+    gaps of id_serve) must be a near-tie of the plain run's logits: top-2
+    gap at most `bar`. Returns the gaps at the forks."""
+    (p_ids, _, _, p_gaps), o_ids = plain, other[0]
+    gaps = []
+    for r, (a, b) in enumerate(zip(p_ids, o_ids)):
+        q = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if q is None:
+            if len(a) != len(b):
+                raise AssertionError(f"{label} request {r}: {len(b)} tokens, plain {len(a)}")
+            continue
+        gaps.append(p_gaps[r][q])
+    same = sum(a == b for a, b in zip(p_ids, o_ids))
+    print(f"{label}: {same} of {len(p_ids)} requests identical to the card's plain serve; "
+          f"top-2 gaps of the plain logits at the forks {[round(g, 4) for g in gaps]} "
+          f"(bar {bar})", flush=True)
+    if any(g > bar for g in gaps):
+        raise AssertionError(f"{label}: a fork from the plain serve that is no near-tie")
+    return gaps
+
+
+def phase_schedule_goldens() -> dict[str, dict[str, int]]:
+    """The fixture under every schedule through the CLI (fp32 byte for byte,
+    Q8 + int8 KV at the average bar), then the Q8 + int8-KV forks of the
+    chunked and speculative serves from the card's plain serve, in process
+    at -b 4."""
+    launches, outputs = phase_golden_runs(GOLDEN_SCHEDULE_RUNS)
+    for label, files in outputs.items():
+        for c, got in files.items():
+            with open(os.path.join(REPO, "assets", "out", "cpu_f32", f"{c}_in_8.out"), "rb") as f:
+                if got != f.read():
+                    raise AssertionError(f"golden ({label}) {c}_in_8 forked on the card")
+        print(f"golden ({label}): the five corpora byte-identical to assets/out/cpu_f32",
+              flush=True)
+    launches.update(phase_golden_runs(GOLDEN_SCHEDULE_Q8_RUNS)[0])
+    cfg, w = load_checkpoint(os.path.join(GOLDEN, "model.bin"))
+    tok = Tokenizer.from_file(os.path.join(GOLDEN, "tokenizer.bin"), cfg.vocab_size)
+    params = quantize_params_q8(cfg, w, device=torch.device("cuda"))
+    prompts = [p for c in CORPORA
+               for p in read_inputfile(os.path.join(REPO, "assets", "in", f"{c}_in_8.txt")).prompts]
+    runs = {label: id_serve(cfg, params, tok, prompts, cfg.seq_len, 4, kv_quant=True, **kw)
+            for label, kw in (("plain", {}), ("chunk", dict(chunk_steps=4)),
+                              ("spec", dict(spec_lookup=4)))}
+    for label in ("chunk", "spec"):
+        forks_at_near_ties(f"fixture q8 --kv int8 {label} (40 requests, -b 4)", runs["plain"],
+                           runs[label])
+    return launches
+
+
+def phase_schedule_serves(qparams: QuantLlamaParams) -> dict[str, int]:
+    """Phase 6's 7B-width Q8 + int8-KV serve, plain and at chunk_steps=8 with
+    device sampling (forks only at near-ties; K23 32 times a decode step;
+    one chunk's host enqueue against its wall time), the chunked serve at
+    temperature 0.8 (seed 7 twice, seed 8; the 8 shortest prompts), the
+    device argmax against the host's on one step's logits, and a
+    prompt-lookup spec_lookup=4 serve of the first 8 requests against the
+    plain serve's first 8. Returns the chunked serve's launches."""
+    dev = qparams.wcls.q.device
+    cfg = LLAMA2_7B
+    batch, window, steps = 8, 512, 352
+    with tempfile.TemporaryDirectory() as tmp:
+        tok = llama_sized_tokenizer(tmp, cfg.vocab_size)
+    targets = [300, 20, 150, 60, 280, 100, 30, 200, 266, 14, 90, 300, 40, 180, 25, 120]
+    prompts = make_prompts(tok, targets)
+    kw = dict(max_seq_len=window, kv_quant=True)
+    # the schedules' prefill chunks hold other slot sets, so other row counts
+    # take other kernels (the tiles, K18's tensor cores) and the logits of a
+    # random-weight model move by up to the kernel path's tolerance: a fork is
+    # a near-tie where the plain top-2 gap is inside twice that
+    bar = 2 * Q8_LOGIT_TOL
+    plain = id_serve(cfg, qparams, tok, prompts, steps, batch, **kw)
+    chunk = id_serve(cfg, qparams, tok, prompts, steps, batch, chunk_steps=8,
+                     device_sampling=True, **kw)
+    forks_at_near_ties("7b q8 int8-kv chunk_steps=8 device sampling", plain, chunk, bar)
+    launches = chunk[2]
+    n_steps = launches["kv_commit_rows_int8"]
+    if launches["q8_layer_fused_int8"] != _L * n_steps or n_steps == 0:
+        raise AssertionError(f"K23 launched {launches['q8_layer_fused_int8']} times over "
+                             f"{n_steps} decode steps")
+    # the plain serve above records every row's top-2 gap on the host, so its
+    # speed is phase 6's serve of the same requests and weights
+    for label, st in (("plain (phase 6, this run)", SERVES["7b q8 int8-kv"]),
+                      ("chunk_steps=8, device sampling", chunk[1])):
+        print(f"7b q8 int8-kv serve, {label}: {st['total_tokens']} tokens in "
+              f"{st['elapsed_s']:.3f} s = {st['tok_per_s']:.2f} tok/s; ttft p50 "
+              f"{st['ttft_p50_s'] * 1e3:.1f} ms, p95 {st['ttft_p95_s'] * 1e3:.1f} ms; "
+              f"{st['scheduler_iters']} scheduler iterations; card {card_line()}", flush=True)
+    print(f"7b q8 int8-kv chunked serve: {n_steps} decode steps, K23 "
+          f"{launches['q8_layer_fused_int8']} launches ({_L} a step)", flush=True)
+
+    # one chunk of 8 steps: the host's enqueue (the chunk returns device
+    # tokens, with no synchronize inside) against its wall time
+    eng = InferenceEngine(cfg, qparams, tok, batch_size=batch, chunk_steps=8,
+                          device_sampling=True, **kw)
+    cache = eng.new_cache()
+    toks = torch.randint(3, cfg.vocab_size, (batch,), generator=torch.Generator().manual_seed(SEED),
+                         dtype=torch.int32).to(dev)
+    pos = torch.full((batch,), 256, dtype=torch.int32, device=dev)
+    eng._chunk(qparams, cache, toks, pos, eng._ds_gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._chunk(qparams, cache, toks, pos, eng._ds_gen)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    print(f"7b q8 int8-kv chunk of 8 decode steps (batch 8, pos 256): host enqueue "
+          f"{(t1 - t0) * 1e3:.3f} ms, wall {(time.perf_counter() - t0) * 1e3:.3f} ms "
+          f"({(t1 - t0) / 8 * 1e3:.3f} / {(time.perf_counter() - t0) / 8 * 1e3:.3f} ms a step)",
+          flush=True)
+    # greedy bit-equality: the device argmax of the logits the host path
+    # fetches is the host's token, also where bf16 rounding makes ties
+    logits, _ = make_decode_step(cfg)(qparams, cache, toks, pos)
+    tied = torch.tensor([[1.0, 3.0, 3.0, 2.0], [5.0] * 4, [0.0, 0.0, 7.0, 7.0]], device=dev)
+    for what, lg in (("decode logits", logits), ("bf16-rounded", logits.bfloat16().float()),
+                     ("tied rows", tied)):
+        got = make_logit_sampler(0.0)(lg).cpu().numpy()
+        want = np.argmax(lg.cpu().numpy(), axis=-1)
+        print(f"greedy on the card, {what}: device argmax {got.tolist()} host "
+              f"{want.tolist()}", flush=True)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"the device argmax of the {what} is not the host's")
+    del cache, logits
+
+    # stochastic chunks: deterministic per seed (the 8 shortest prompts, a
+    # budget of 160 steps)
+    short = sorted(range(len(prompts)), key=lambda r: targets[r])[:batch]
+
+    def sampled(seed):
+        eng = InferenceEngine(cfg, qparams, tok, batch_size=batch, chunk_steps=8,
+                              device_sampling=True, ds_temperature=0.8, ds_topp=0.9,
+                              ds_seed=seed, **kw)
+        reqs = Requests(prompts=[prompts[r] for r in short], generations=[""] * batch)
+        eng.serve(reqs, steps=160,
+                  samplers=[Sampler(cfg.vocab_size, 0.8, 0.9, SEED) for _ in range(batch)])
+        return reqs.generations
+
+    a, b, c = sampled(7), sampled(7), sampled(8)
+    print(f"7b q8 int8-kv chunked serve at temperature 0.8, {batch} requests: seed 7 twice "
+          f"identical {a == b}; seed 8 differs in {sum(x != y for x, y in zip(a, c))} of "
+          f"{batch}", flush=True)
+    if a != b or a == c:
+        raise AssertionError("stochastic device sampling is not deterministic per seed")
+
+    # prompt-lookup speculation on the first wave, held to the plain serve's
+    # first 8 requests (the first wave's slots decode as they do alone)
+    base = tuple(x[:batch] for x in (plain[0], plain[3]))
+    spec = id_serve(cfg, qparams, tok, prompts[:batch], steps, batch, spec_lookup=4, **kw)
+    st = spec[1]
+    print(f"7b q8 int8-kv spec_lookup=4 serve, {batch} requests: {st['total_tokens']} tokens "
+          f"in {st['elapsed_s']:.3f} s = {st['tok_per_s']:.2f} tok/s; ttft p50 "
+          f"{st['ttft_p50_s'] * 1e3:.1f} ms; proposed "
+          f"{st['spec_proposed']}, accepted {st['spec_accepted']} (acceptance "
+          f"{st['spec_accepted'] / max(st['spec_proposed'], 1):.3f}); "
+          f"{st['scheduler_iters']} scheduler iterations; launches "
+          f"{ {n: v for n, v in spec[2].items() if v} }", flush=True)
+    if not spec[1]["spec_proposed"]:
+        raise AssertionError("the 7B lookup serve proposed nothing")
+    forks_at_near_ties("7b q8 int8-kv spec_lookup=4", (base[0], None, None, base[1]), spec, bar)
+    return launches
+
+
 def profile_window(what: str, n: int, fn) -> float:
     """Device time by kernel over n calls of fn (after one warm call), from
     torch.profiler, beside the host wall time of the same window; returns
@@ -3491,6 +3748,16 @@ def main() -> int:
     launches_golden.update({f"dim 288 {label}": counts
                             for label, counts in phase_dim288_serves().items()})
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+
+    # phase 14: multi-step chunks, device sampling and speculation
+    t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches_golden.update(phase_schedule_goldens())
+    qparams = random_7b_qparams(LLAMA2_7B, dev)
+    launches["q8 int8 chunk"] = phase_schedule_serves(qparams)
+    del qparams
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
     # each kernel's count from the first serving path that runs it: the 7B
     # serves, then the golden runs (K5 and its int8 branch run only in the

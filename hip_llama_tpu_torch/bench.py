@@ -32,9 +32,11 @@ Modes:
   tokens per slot plus one decode step; p50 of 9 reps.
 - serve: InferenceEngine.serve over bench.py's synthetic word -> id
   tokenizer and prompts (2 x batch requests), a warm-up serve, then the
-  timed one. The port's engine samples greedy on the host, which gives the
-  tokens bench.py's device sampling gives (device sampling is ROADMAP
-  queue-1 item 6).
+  timed one, greedy. As in bench.py the engine samples on the device
+  unless `--chunk > 1`, `--spec > 0` or `--paged` is given: `--chunk N`
+  decodes N steps a dispatch (metric suffix `_chunkN`), `--spec K` verifies
+  up to K prompt-lookup proposals a slot in one prefill (`_specK`; with
+  `--paged` the engine refuses it, as the JAX engine does).
 
 Params are made on the device from a seeded torch.Generator, with the JAX
 builders' distributions and layouts (not their values: JAX's PRNG is not
@@ -50,9 +52,9 @@ same). bench.py pads the KV heads of 110m's int8 cache to 8 for the TPU
 
 `--device cpu` runs the plain versions on the CPU (a dry run for tests: the
 figures are not the card's). Without a card and without `--device cpu` the
-bench prints the error line with stage `backend-init`. `--mode stream`,
-`--chunk > 1`, `--spec > 0`, `--attn xla` and `--no-unroll` are not yet
-ported and print the error line.
+bench prints the error line with stage `backend-init`. `--mode stream`
+(ROADMAP.md section 1 item 1), `--attn xla` (item 2) and `--no-unroll`
+(item 3) are not yet ported and print the error line.
 """
 
 from __future__ import annotations
@@ -318,9 +320,9 @@ def parse_args(argv=None):
     ap.add_argument("--prompts", type=int, default=None,
                     help="serve mode: number of requests (default 2*batch)")
     ap.add_argument("--chunk", type=int, default=1,
-                    help="serve mode: multi-step chunk size (> 1 not yet ported)")
+                    help="serve mode: multi-step chunk size")
     ap.add_argument("--spec", type=int, default=0,
-                    help="serve mode: speculation lookahead (> 0 not yet ported)")
+                    help="serve mode: prompt-lookup speculation lookahead")
     ap.add_argument("--paged", action="store_true",
                     help="serve mode: paged KV cache (page size 128)")
     ap.add_argument("--prefix-cache", action="store_true",
@@ -380,11 +382,11 @@ def metric_name(args) -> tuple[str, str]:
 def not_ported(args) -> str | None:
     """What in this invocation the port does not serve yet, if anything."""
     for what, on in (
-        ("--mode stream (models/streaming.py, ROADMAP queue-1 item 9)", args.mode == "stream"),
-        ("--chunk > 1 (ROADMAP queue-1 item 6)", args.chunk > 1),
-        ("--spec > 0 (ROADMAP queue-1 item 8)", args.spec > 0),
-        ("--attn xla (ROADMAP queue-1 item 7)", args.attn == "xla"),
-        ("--no-unroll (bench.py's scan over unfused stacked params)", args.no_unroll),
+        ("--mode stream (models/streaming.py, ROADMAP.md section 1 item 1)",
+         args.mode == "stream"),
+        ("--attn xla (ROADMAP.md section 1 item 2)", args.attn == "xla"),
+        ("--no-unroll (bench.py's scan over unfused stacked params, ROADMAP.md section 1 "
+         "item 3)", args.no_unroll),
     ):
         if on:
             return f"{what} is not yet ported"
@@ -471,7 +473,9 @@ def run_serve(args, cfg: ModelConfig, params, dtype, dev) -> dict:
     prompts = [f"{prompt_words} p{i % 7}" for i in range(n_reqs)]
     eng = InferenceEngine(cfg, params, _BenchTok(cfg.vocab_size), batch_size=b,
                           max_seq_len=window, kv_quant=(args.kv == "int8"), paged=args.paged,
-                          page_size=128, prefix_cache=args.prefix_cache)
+                          page_size=128, prefix_cache=args.prefix_cache,
+                          chunk_steps=args.chunk, spec_lookup=args.spec,
+                          device_sampling=args.chunk <= 1 and args.spec == 0 and not args.paged)
 
     def serve(reqs, steps):
         stats = {}

@@ -81,6 +81,11 @@ by the params' type.
   (llama.py:966-978), which never take K19; with 0 they are flat and may.
   The decode step reads none of them: K19 needs more than 512 rows, and
   its arithmetic is K15's and K17's in any case.
+- Sampling on the device (llama.py:1197-1310 of the JAX package):
+  make_logit_sampler (argmax, or temperature and the top-p nucleus with
+  draws from a caller's torch.Generator), make_sampling_decode_step and
+  make_chunked_sampling_step, N decode steps whose sampled tokens feed the
+  next on the device. They add no kernel: the steps run the kernels above.
 - `plain=True` runs every kernel's plain PyTorch version instead, whatever
   the device: the yardstick the kernel path is held against on the card.
 """
@@ -583,21 +588,114 @@ def make_prefill(cfg: ModelConfig, last_only: bool = False, plain: bool = False)
 
 
 # ---------------------------------------------------------------------------
-# sampling
+# sampling on the device (llama.py:1197-1310 of the JAX package)
 
 
 def make_logit_sampler(temperature: float, topp: float = 0.9):
-    """Sampler over (B, V) fp32 logits on their device. Temperature 0 is
-    argmax (the first index among equal maxima, as jnp.argmax and
-    np.argmax). The stochastic branch of the JAX sampler draws from JAX's
-    PRNG and is not ported yet."""
-    if temperature != 0.0:
-        raise NotImplementedError(
-            "device sampling at temperature > 0 is not yet ported; "
-            "the engine samples on the host"
-        )
+    """Sampler over (B, V) fp32 logits on their device: sample_logits(logits,
+    generator=None) -> (B,) int32. Temperature 0 is argmax (the first index
+    among equal maxima, as jnp.argmax and np.argmax). Otherwise the JAX
+    sampler's rule: the logits divided by the temperature, then, for 0 <
+    topp < 1, softmax, and only the tokens whose probability is at least the
+    nucleus threshold kept (the threshold is the smallest sorted probability
+    p with csum - p < topp), then one categorical draw per row (Gumbel-max
+    over the kept scaled logits). The distribution is softmax(scaled logits)
+    on the kept set, which engine/speculative.py::_warp recomputes on the
+    host.
 
-    def sample_logits(logits: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+    The draw takes its uniforms from `generator` (a torch.Generator on the
+    logits' device, which the caller seeds); it never touches the global
+    RNG. JAX's PRNG stream (jax.random.categorical) is not reproduced: the
+    same seed gives the same tokens here, not the JAX package's tokens."""
+
+    def sample_logits(logits: torch.Tensor, generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if generator is None:
+            raise ValueError("stochastic device sampling needs a torch.Generator")
+        scaled = warp_logits(logits, temperature, topp)
+        u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+        gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+        return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
 
     return sample_logits
+
+
+def warp_logits(logits: torch.Tensor, temperature: float, topp: float) -> torch.Tensor:
+    """The fp32 logits the stochastic sampler draws from: divided by the
+    temperature, and for 0 < topp < 1 -inf outside the nucleus (llama.py:
+    1208-1220 of the JAX package)."""
+    scaled = logits.float() / temperature
+    if 0.0 < topp < 1.0:
+        probs = torch.softmax(scaled, dim=-1)
+        sorted_p = torch.sort(probs, dim=-1, descending=True).values
+        csum = torch.cumsum(sorted_p, dim=-1)
+        keep = csum - sorted_p < topp  # the first one always kept
+        thresh = torch.where(keep, sorted_p, torch.inf).amin(dim=-1, keepdim=True)
+        scaled = torch.where(probs >= thresh, scaled, -torch.inf)
+    return scaled
+
+
+def make_sampling_decode_step(cfg: ModelConfig, temperature: float = 0.0, topp: float = 0.9,
+                              plain: bool = False):
+    """Decode step that samples on the device: sstep(params, cache, tokens,
+    pos, generator=None) -> (next tokens (B,) int32, cache). The host then
+    fetches 4 bytes a slot instead of the (B, V) logits. Greedy is the host
+    sampler's argmax of the same logits; stochastic draws are
+    make_logit_sampler's, not the reference's xorshift64* stream, so golden
+    parity runs sample on the host."""
+    step = make_decode_step(cfg, plain=plain)
+    sample_logits = make_logit_sampler(temperature, topp)
+
+    def sstep(params, cache: KVCache, tokens, pos, generator=None):
+        logits, cache = step(params, cache, tokens, pos)
+        return sample_logits(logits, generator), cache
+
+    return sstep
+
+
+def make_chunked_sampling_step(cfg: ModelConfig, n_steps: int, temperature: float = 0.0,
+                               topp: float = 0.9, return_logits: bool = False,
+                               plain: bool = False):
+    """Multi-step scheduling: chunk(params, cache, tokens (B,), pos (B,),
+    generator=None) -> (tokens (B, n_steps) int32, cache) runs `n_steps`
+    decode steps, each sampling on the device and feeding the next, with no
+    host synchronisation inside the chunk (the sampled tokens and pos + 1
+    stay on the device).
+
+    A slot that emits EOS mid-chunk keeps decoding until the chunk ends; the
+    host scheduler discards those tokens, and the cache rows they wrote sit
+    at or past the slot's next position, which nothing reads before it is
+    written again. Greedy chunks equal the single-step loop token for token.
+
+    With return_logits=True the chunk also returns each step's fp32 logits
+    (B, n_steps, V): the speculative verifier needs the draft's proposal
+    distributions."""
+    step = make_decode_step(cfg, plain=plain)
+    sample_logits = make_logit_sampler(temperature, topp)
+
+    def chunk(params, cache: KVCache, tokens, pos, generator=None):
+        return run_sampling_chunk(lambda c, t, p: step(params, c, t, p), cache, tokens, pos,
+                                  generator, n_steps, sample_logits, return_logits)
+
+    return chunk
+
+
+def run_sampling_chunk(step1, cache, tokens, pos, generator, n_steps: int, sample_logits,
+                       return_logits: bool):
+    """The loop the chunked sampling steps share (contiguous and paged,
+    models/paged.py): n_steps of step1(cache, tokens, pos) -> (logits,
+    cache), each sampled on the device and fed to the next. Returns (tokens
+    (B, n_steps)[, logits (B, n_steps, V)], cache)."""
+    toks, logits_all = [], []
+    for _ in range(n_steps):
+        logits, cache = step1(cache, tokens, pos)
+        tokens = sample_logits(logits, generator)
+        pos = pos + 1
+        toks.append(tokens)
+        if return_logits:
+            logits_all.append(logits)
+    if return_logits:
+        return torch.stack(toks, dim=1), torch.stack(logits_all, dim=1), cache
+    return torch.stack(toks, dim=1), cache

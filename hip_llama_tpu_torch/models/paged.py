@@ -56,9 +56,11 @@ from hip_llama_tpu_torch.models.llama import (
     _quant_logits,
     _quant_qkv,
     dequant_modes,
+    make_logit_sampler,
     prefill_knobs,
     rmsnorm,
     rope_tables,
+    run_sampling_chunk,
     silu_gate_bf16,
 )
 from hip_llama_tpu_torch.models.params import QuantLlamaParams, resolve_device
@@ -210,6 +212,30 @@ def make_paged_decode_step(cfg: ModelConfig, plain: bool = False):
         return logits, cache
 
     return step
+
+
+def make_paged_chunked_sampling_step(cfg: ModelConfig, n_steps: int, temperature: float = 0.0,
+                                     topp: float = 0.9, return_logits: bool = False,
+                                     plain: bool = False):
+    """Multi-step scheduling over the paged pool (paged.py:273-302 of the JAX
+    package): chunk(params, cache, page_table, tokens, pos, generator=None)
+    -> (tokens (B, n_steps) int32, cache), `n_steps` decode steps each
+    sampling on the device and feeding the next (models/llama.py::
+    make_chunked_sampling_step).
+
+    The page table is fixed for the whole chunk, so the host reserves pages
+    covering positions [pos, pos + n_steps) of every active slot before the
+    call (the engine's ensure_capacity). A slot that retires mid-chunk keeps
+    writing into its still-reserved pages; an idle slot's table row is all
+    trash page (block_manager.TRASH_PAGE), where its writes land."""
+    step = make_paged_decode_step(cfg, plain=plain)
+    sample_logits = make_logit_sampler(temperature, topp)
+
+    def chunk(params, cache: PagedKVCache, page_table, tokens, pos, generator=None):
+        return run_sampling_chunk(lambda c, t, p: step(params, c, page_table, t, p), cache,
+                                  tokens, pos, generator, n_steps, sample_logits, return_logits)
+
+    return chunk
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,26 @@ Extra (double-dash):
                              decode kernels address by layer; int4 falls
                              back to unrolled with a note, and dense params
                              and --paged ignore it
+  --chunk N                  multi-step scheduling: decode N tokens per
+                             dispatch with sampling on the device (greedy
+                             is the host argmax; stochastic draws from a
+                             torch.Generator seeded with -s, not the JAX
+                             PRNG). Slots retiring mid-chunk waste the chunk
+                             tail; saves N-1 host round trips a chunk
+  --device-sampling          sample on the card (4 bytes a slot fetched per
+                             step instead of the logits; greedy is the host
+                             argmax, stochastic as --chunk, not the
+                             reference RNG stream); ignored with --paged
+  --spec K [--draft path]    speculative decoding: a draft model (or
+                             prompt-lookup n-gram matching without --draft)
+                             proposes K tokens, the target verifies them in
+                             one chunked prefill (-t 0 gives the greedy
+                             stream, -t > 0 distribution-preserving
+                             rejection sampling). In -m test mode slots
+                             speculate by prompt lookup, or by one batched
+                             draft chain a round with --draft. It uses the
+                             contiguous cache and ignores --paged, and in
+                             test mode --chunk and --device-sampling
   --no-prefill               force-feed prompts one token/step (parity mode)
   --rope-theta F             RoPE base override (.bin headers can't carry it)
   --no-eos-stop              test mode stops on BOS only (run.cc parity)
@@ -55,8 +75,8 @@ rows) with each weight tile dequantized once per call, and
 HIPLLAMA_PREFILL_XHEADS=1 runs the Q8 prefill's wo on the attention output
 head by head (head sizes that are a multiple of 128), where the JAX package
 does; HIPLLAMA_PREFILL_HEADS=0 as there. Both are off by default.
-The JAX CLI's other flags (--tp, --spec, --chunk, --device-sampling,
---stream, ...) and chat mode are not yet ported: they exit with an error.
+The JAX CLI's other flags (--tp, --pp, --sp, --replicas, --stream,
+--attn, -y, ...) and chat mode are not yet ported: they exit with an error.
 """
 
 from __future__ import annotations
@@ -68,6 +88,7 @@ import time
 import torch
 
 from hip_llama_tpu_torch.engine import InferenceEngine, read_inputfile, write_outputfile
+from hip_llama_tpu_torch.engine.speculative import speculative_generate
 from hip_llama_tpu_torch.io.checkpoint import Q4Weights, QuantWeights, load_checkpoint
 from hip_llama_tpu_torch.models.llama import dequant_modes
 from hip_llama_tpu_torch.models.params import (
@@ -84,8 +105,11 @@ from hip_llama_tpu_torch.sampler import Sampler
 from hip_llama_tpu_torch.tokenizer import Tokenizer
 
 _VALUE_FLAGS = ("-t", "-p", "-s", "-n", "-i", "-z", "-m", "-f", "-o", "-b",
-                "--dtype", "--device", "--rope-theta", "--quant", "--kv", "--layout")
-_SWITCHES = ("--no-prefill", "--no-eos-stop", "--dequant", "--prefix-cache")
+                "--dtype", "--device", "--rope-theta", "--quant", "--kv", "--layout",
+                "--chunk", "--spec", "--draft")
+_SWITCHES = ("--no-prefill", "--no-eos-stop", "--dequant", "--prefix-cache",
+             "--device-sampling")
+_INT_FLAGS = ("--chunk", "--spec")  # "needs an int" (run.py:172-200 of the JAX CLI)
 
 
 def error_usage():
@@ -113,6 +137,9 @@ def main(argv: list[str]) -> int:
                 opts[a] = argv[i + 1]
                 i += 1
             i += 1
+        elif a in _INT_FLAGS and (i + 1 >= len(argv) or not argv[i + 1].isdigit()):
+            print(f"{a} needs an int", file=sys.stderr)
+            return 1
         elif a in _VALUE_FLAGS:
             if i + 1 >= len(argv):
                 error_usage()
@@ -151,9 +178,26 @@ def main(argv: list[str]) -> int:
         return 1
     paged = "--paged" in switches
     prefix_cache = "--prefix-cache" in switches
+    chunk_steps = int(opts.get("--chunk", 1))
+    spec_k = int(opts.get("--spec", 0))
+    device_sampling = "--device-sampling" in switches
+    # the JAX CLI's notes and drops, in its order (run.py:253-301)
+    if spec_k > 0 and paged:
+        # the speculative verify prefills at starts that are not page-aligned
+        print("note: --spec uses the contiguous KV cache; ignoring --paged"
+              + (" and --prefix-cache" if prefix_cache else ""), file=sys.stderr)
+        paged = prefix_cache = False
+    if mode == "test" and spec_k > 0 and (chunk_steps > 1 or device_sampling):
+        print("note: --spec is its own dispatch schedule; ignoring --chunk/--device-sampling",
+              file=sys.stderr)
+        chunk_steps, device_sampling = 1, False
     if prefix_cache and not paged:
         print("note: --prefix-cache implies --paged", file=sys.stderr)
         paged = True
+    if device_sampling and paged:
+        print("note: --device-sampling drives the contiguous cache; ignoring it with --paged",
+              file=sys.stderr)
+        device_sampling = False
     page_size = int(opts.get("--paged", 128))
     layout = opts.get("--layout", "unrolled")
     if layout not in ("unrolled", "stacked"):
@@ -198,13 +242,47 @@ def main(argv: list[str]) -> int:
     if steps == 0 or steps > cfg.seq_len:
         steps = cfg.seq_len
     tokenizer = Tokenizer.from_file(opts.get("-z", "./assets/tokenizer.bin"), cfg.vocab_size)
+    use_prefill = "--no-prefill" not in switches
     engine = InferenceEngine(
         cfg, params, tokenizer, batch_size=batch,
-        use_prefill="--no-prefill" not in switches, kv_quant="--kv" in opts,
+        use_prefill=use_prefill, kv_quant="--kv" in opts,
         paged=paged, page_size=page_size, prefix_cache=prefix_cache,
+        device_sampling=device_sampling, ds_temperature=temperature, ds_topp=topp,
+        ds_seed=rng_seed, chunk_steps=chunk_steps,
+        spec_lookup=spec_k if mode == "test" else 0,
     )
 
-    if mode == "generate":
+    def load_draft_engine(path: str, batch_n: int) -> InferenceEngine:
+        """The draft model of --spec (run.py:597-615 of the JAX CLI): its
+        own checkpoint, on the target's device and tokenizer."""
+        d_cfg, d_weights = load_checkpoint(path)
+        if isinstance(d_weights, Q4Weights):
+            d_params = qparams_from_q4_weights(d_cfg, d_weights, device=device)
+        elif isinstance(d_weights, QuantWeights):
+            d_params = qparams_from_quant_weights(d_cfg, d_weights, device=device)
+        else:
+            d_params = params_from_weights(d_weights, dtype=dtype, device=device)
+        return InferenceEngine(d_cfg, d_params, tokenizer, batch_size=batch_n,
+                               use_prefill=use_prefill)
+
+    draft_path = opts.get("--draft")
+    if mode == "generate" and spec_k > 0:
+        # greedy prefix match at -t 0, rejection sampling above; without
+        # --draft the proposals come from prompt lookup
+        draft_engine = load_draft_engine(draft_path, 1) if draft_path else None
+        res, spec_stats = speculative_generate(
+            engine, draft_engine, opts.get("-i"), steps, k=spec_k, echo=True,
+            temperature=temperature, topp=topp, seed=rng_seed,
+        )
+        print()
+        print(f"speculative: k={spec_k}, rounds={spec_stats.rounds}, "
+              f"acceptance={spec_stats.acceptance:.2f}", file=sys.stderr)
+        if res.n_gen_tokens > 0:
+            print(
+                f"achieved tok/s: {res.tok_per_s:.2f}, ttft: {res.ttft_s*1000:.1f} ms",
+                file=sys.stderr,
+            )
+    elif mode == "generate":
         sampler = Sampler(cfg.vocab_size, temperature, topp, rng_seed)
         res = engine.generate(opts.get("-i"), steps, sampler, echo=True)
         print()
@@ -221,11 +299,12 @@ def main(argv: list[str]) -> int:
         if temperature == 0.0:
             # extension: -t 0 in test mode serves the corpus greedily
             samplers = [Sampler(cfg.vocab_size, 0.0) for _ in requests.prompts]
+        draft_engine = load_draft_engine(draft_path, batch) if spec_k > 0 and draft_path else None
         start = time.perf_counter()
         stats: dict = {}
         num_gen_tokens = engine.serve(
             requests, steps=cfg.seq_len, samplers=samplers, verbose=True,
-            stats=stats, stop_on_eos="--no-eos-stop" not in switches,
+            stats=stats, stop_on_eos="--no-eos-stop" not in switches, draft=draft_engine,
         )
         end = time.perf_counter()
         print(f"Total achieved token: {num_gen_tokens}")
@@ -240,6 +319,10 @@ def main(argv: list[str]) -> int:
                 f"max: {stats['ttft_max_s']*1000:.1f} ms",
                 file=sys.stderr,
             )
+        if stats.get("spec_proposed"):
+            print(f"speculative: k={spec_k}, proposed={stats['spec_proposed']}, "
+                  f"acceptance={stats['spec_accepted'] / stats['spec_proposed']:.2f}",
+                  file=sys.stderr)
         if stats.get("prefix_hit_tokens"):
             print(f"prefix cache: {stats['prefix_hit_tokens']} prompt tokens served from shared "
                   "pages", file=sys.stderr)

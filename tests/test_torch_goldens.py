@@ -108,8 +108,7 @@ def test_stochastic_coverage_vs_reference(tmp_path):
 
 
 def test_unported_flags_exit_nonzero(capsys):
-    for flag in (["--chunk", "4"], ["--device-sampling"], ["--tp", "2"],
-                 ["--spec", "4"], ["--attn", "xla"], ["-m", "chat"], ["--stream", "kv"]):
+    for flag in (["--tp", "2"], ["--attn", "xla"], ["-m", "chat"], ["--stream", "kv"]):
         assert port_run.main(["run", MODEL, "-z", TOK, *flag]) != 0
         assert "not yet ported" in capsys.readouterr().err
 

@@ -146,9 +146,22 @@ def test_rope_and_rmsnorm_match_jax(theta):
     assert_close(got.numpy(), np.asarray(jax_rmsnorm(jnp.asarray(x), jnp.asarray(w), 1e-5)), **TOL)
 
 
-def test_logit_sampler_stochastic_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_logit_sampler(0.8, 0.9)
+def test_logit_sampler_stochastic_draws_inside_the_jax_nucleus():
+    """The stochastic branch (tests/test_torch_sampling.py holds its
+    distribution): every draw lies in the support of the JAX package's
+    warped distribution, and it needs an explicit generator."""
+    from hip_llama_tpu.engine.speculative import _warp as jax_warp
+
+    logits = np.random.default_rng(5).standard_normal((4, 64)).astype(np.float32) * 3
+    sample = make_logit_sampler(0.8, 0.9)
+    with pytest.raises(ValueError):
+        sample(torch.from_numpy(logits))
+    gen = torch.Generator().manual_seed(3)
+    draws = torch.stack([sample(torch.from_numpy(logits), gen) for _ in range(200)])
+    assert draws.dtype == torch.int32
+    for r in range(4):
+        support = set(np.nonzero(jax_warp(logits[r], 0.8, 0.9))[0].tolist())
+        assert set(draws[:, r].tolist()) <= support
 
 
 # ---------------------------------------------------------------------------
